@@ -1,0 +1,117 @@
+"""Oobleck VAE decoder (counterpart of the decode side of
+friendly_stable_audio_tools_tpu/models/autoencoders.py).
+
+Every layer of the snake decoder runs through a fused kernel: conv_in and
+conv_out through K2 (snake_conv1d), each upsample through K4
+(snake_conv_transpose1d), each residual unit through K3
+(fused_residual_unit). The encoder is not ported yet (the text-to-audio
+slice only decodes). Channels-last [B, T, C].
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+from torch import nn
+
+from ..ops.activations import SnakeBeta
+from ..ops.convs import WNConv1d, WNConvTranspose1d
+from ..ops.kernels import conv1d as conv_kernels
+from .bottleneck import create_bottleneck_from_config
+
+
+class ResidualUnit(nn.Module):
+    """x + conv1x1(snake(conv7_dil(snake(x)))), one K3 launch (JAX :39)."""
+
+    def __init__(self, channels: int, dilation: int):
+        super().__init__()
+        self.dilation = dilation
+        self.act1 = SnakeBeta(channels)
+        self.conv1 = WNConv1d(channels, channels, 7, dilation=dilation)
+        self.act2 = SnakeBeta(channels)
+        self.conv2 = WNConv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a1, ib1 = self.act1.effective()
+        a2, ib2 = self.act2.effective()
+        return conv_kernels.fused_residual_unit(
+            x, self.conv1.weight(), self.conv1.bias, a1, ib1, self.conv2.weight()[0],
+            self.conv2.bias, a2, ib2, dilation=self.dilation)
+
+
+class DecoderBlock(nn.Module):
+    """snake -> transposed-conv upsample (one K4 launch), then three
+    residual units at dilations 1, 3, 9 (JAX :108)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int):
+        super().__init__()
+        self.act = SnakeBeta(in_channels)
+        self.up = WNConvTranspose1d(in_channels, out_channels, stride)
+        self.res = nn.ModuleList([ResidualUnit(out_channels, d) for d in (1, 3, 9)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.up(x, snake=self.act.effective())
+        for unit in self.res:
+            x = unit(x)
+        return x
+
+
+class OobleckDecoder(nn.Module):
+    """Latents [B, L, latent_dim] -> audio [B, L * prod(strides), out_channels] (JAX :183)."""
+
+    def __init__(self, out_channels: int = 2, channels: int = 128, latent_dim: int = 32,
+                 c_mults: tp.Sequence[int] = (1, 2, 4, 8), strides: tp.Sequence[int] = (2, 4, 8, 8),
+                 use_snake: bool = False, antialias_activation: bool = False,
+                 use_nearest_upsample: bool = False, final_tanh: bool = True):
+        super().__init__()
+        if not use_snake or use_nearest_upsample or antialias_activation:
+            raise NotImplementedError("the torch port's Oobleck decoder is the snake, "
+                                      "transposed-conv form")
+        c_mults = [1] + list(c_mults)
+        self.final_tanh = final_tanh
+        self.conv_in = WNConv1d(latent_dim, c_mults[-1] * channels, 7)
+        self.blocks = nn.ModuleList([
+            DecoderBlock(c_mults[i] * channels, c_mults[i - 1] * channels, strides[i - 1])
+            for i in range(len(c_mults) - 1, 0, -1)])
+        self.act_out = SnakeBeta(c_mults[0] * channels)
+        self.conv_out = WNConv1d(c_mults[0] * channels, out_channels, 7, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x.to(self.conv_in.v.dtype))
+        for block in self.blocks:
+            x = block(x)
+        x = self.conv_out(x, snake=self.act_out.effective())
+        return torch.tanh(x) if self.final_tanh else x
+
+
+class AudioAutoencoder(nn.Module):
+    """Decode side of the VAE wrapper: bottleneck decode, then the decoder."""
+
+    def __init__(self, decoder: OobleckDecoder, bottleneck: tp.Optional[nn.Module],
+                 downsampling_ratio: int):
+        super().__init__()
+        self.decoder = decoder
+        self.bottleneck = bottleneck
+        self.downsampling_ratio = downsampling_ratio
+
+    def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
+        """latents [B, L, latent_dim] -> audio [B, T, C]."""
+        if self.bottleneck is not None:
+            z = self.bottleneck.decode(z)
+        return self.decoder(z)
+
+
+def create_autoencoder_from_config(ae: tp.Dict[str, tp.Any]) -> AudioAutoencoder:
+    """The decode side of an autoencoder's `model` config (JAX :675); the
+    encoder entry is read by the JAX package only."""
+    decoder_cfg = ae["decoder"]
+    if decoder_cfg["type"] != "oobleck":
+        raise NotImplementedError(f"decoder type {decoder_cfg['type']!r} is not in the torch port")
+    cfg = dict(decoder_cfg.get("config", {}))
+    cfg.pop("soft_clip", None)
+    bottleneck = ae.get("bottleneck")
+    return AudioAutoencoder(
+        decoder=OobleckDecoder(**cfg),
+        bottleneck=create_bottleneck_from_config(bottleneck) if bottleneck else None,
+        downsampling_ratio=ae["downsampling_ratio"])

@@ -1,0 +1,77 @@
+"""Conditioned diffusion wrapper (counterpart of
+friendly_stable_audio_tools_tpu/models/diffusion.py:ConditionedDiffusionModelWrapper :78).
+
+Holds the DiT (`model`), the conditioners (`conditioner`) and the frozen
+pretransform (`pretransform`) as submodules, and maps conditioner outputs
+onto the DiT's inputs by conditioning id: cross-attention tokens are
+concatenated over the sequence, global conditions over channels."""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+from torch import nn
+
+from .conditioners import MultiConditioner, create_multi_conditioner_from_conditioning_config
+from .dit import DiffusionTransformer
+from .pretransforms import AutoencoderPretransform, create_pretransform_from_config
+
+
+class ConditionedDiffusionModelWrapper(nn.Module):
+    def __init__(self, model: DiffusionTransformer, conditioner: tp.Optional[MultiConditioner],
+                 io_channels: int, pretransform: tp.Optional[AutoencoderPretransform] = None,
+                 cross_attn_cond_ids: tp.Sequence[str] = (),
+                 global_cond_ids: tp.Sequence[str] = (), diffusion_objective: str = "v"):
+        super().__init__()
+        self.model = model
+        self.conditioner = conditioner
+        self.pretransform = pretransform
+        self.io_channels = io_channels
+        self.cross_attn_cond_ids = list(cross_attn_cond_ids)
+        self.global_cond_ids = list(global_cond_ids)
+        self.diffusion_objective = diffusion_objective
+
+    def get_conditioning_inputs(self, conditioning_tensors: tp.Dict[str, tp.Any],
+                                negative: bool = False) -> tp.Dict[str, tp.Any]:
+        """Conditioner outputs -> DiT keyword arguments (JAX diffusion.py:136)."""
+        cross, cross_mask, global_cond = None, None, None
+        if self.cross_attn_cond_ids:
+            ins, masks = [], []
+            for key in self.cross_attn_cond_ids:
+                emb, mask = conditioning_tensors[key]
+                if emb.ndim == 2:
+                    emb, mask = emb[:, None, :], mask[:, None]
+                ins.append(emb)
+                masks.append(mask)
+            cross, cross_mask = torch.cat(ins, dim=1), torch.cat(masks, dim=1)
+        if self.global_cond_ids:
+            global_cond = torch.cat([conditioning_tensors[key][0] for key in self.global_cond_ids],
+                                    dim=-1)
+            if global_cond.ndim == 3:
+                global_cond = global_cond.squeeze(1)
+        if negative:
+            return {"negative_cross_attn_cond": cross, "negative_cross_attn_mask": cross_mask}
+        # the DiT ignores conditioning-token masks (reference dit.py:250-252)
+        return {"cross_attn_cond": cross, "global_embed": global_cond}
+
+
+def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> ConditionedDiffusionModelWrapper:
+    """The `dit` backbone of a `diffusion_cond` config (JAX diffusion.py:315)."""
+    model_config = config["model"]
+    diffusion = model_config["diffusion"]
+    if diffusion["type"] != "dit":
+        raise NotImplementedError(f"diffusion type {diffusion['type']!r} is not in the torch port")
+    if diffusion.get("input_concat_ids") or diffusion.get("prepend_cond_ids"):
+        raise NotImplementedError("input-concat and prepend conditioning are not in the torch port")
+    conditioning = model_config.get("conditioning")
+    pretransform = model_config.get("pretransform")
+    return ConditionedDiffusionModelWrapper(
+        DiffusionTransformer(**diffusion["config"]),
+        create_multi_conditioner_from_conditioning_config(conditioning) if conditioning else None,
+        io_channels=model_config["io_channels"],
+        pretransform=(create_pretransform_from_config(pretransform)
+                      if pretransform else None),
+        cross_attn_cond_ids=diffusion.get("cross_attention_cond_ids", []),
+        global_cond_ids=diffusion.get("global_cond_ids", []),
+        diffusion_objective=diffusion.get("diffusion_objective", "v"))

@@ -1,0 +1,37 @@
+"""Config-driven model factory (counterpart of
+friendly_stable_audio_tools_tpu/models/factory.py:17).
+
+Reads the JAX package's model-config JSON schema as it stands; only the
+`diffusion_cond` model type is ported."""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+from torch import nn
+
+from ..utils.common import init_weights_
+from .diffusion import create_diffusion_cond_from_config
+
+
+def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
+                             device: tp.Union[str, torch.device] = "cpu") -> nn.Module:
+    """Builds the model on `device` with random weights drawn from a
+    generator seeded with `seed` (the JAX package's initialisation scheme,
+    utils/common.init_weights_). Load a converted checkpoint over them with
+    `load_state_dict` (utils/convert.py)."""
+    model_type = model_config.get("model_type")
+    if model_type is None:
+        raise ValueError("model_type must be specified in model config")
+    if model_type != "diffusion_cond":
+        raise NotImplementedError(f"model type {model_type!r} is not in the torch port")
+    with torch.device("meta"):
+        model = create_diffusion_cond_from_config(model_config)
+    model = model.to_empty(device=device)
+    init_weights_(model, torch.Generator(device=device).manual_seed(seed))
+    with torch.no_grad():  # the JAX wrapper halves a fresh backbone (diffusion.py:103)
+        for p in model.model.parameters():
+            p.mul_(0.5)
+    return model.eval()
+

@@ -1,0 +1,38 @@
+"""Pretransforms (counterpart of friendly_stable_audio_tools_tpu/models/pretransforms.py).
+
+The frozen autoencoder between the diffusion latents and audio, decode side
+only, unchunked as Stable Audio Open runs it."""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+from torch import nn
+
+from .autoencoders import AudioAutoencoder, create_autoencoder_from_config
+
+
+class AutoencoderPretransform(nn.Module):
+    """Latent scale + frozen VAE decode (JAX pretransforms.py:56, decode_nwc :94)."""
+
+    def __init__(self, model: AudioAutoencoder, scale: float = 1.0):
+        super().__init__()
+        self.model = model
+        self.scale = scale
+        self.downsampling_ratio = model.downsampling_ratio
+
+    @torch.no_grad()
+    def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
+        """z [B, L, C] latents -> audio [B, T, io_channels], fp32; the
+        decoder runs in the dtype of its parameters."""
+        return self.model.decode_nwc(z * self.scale).float()
+
+
+def create_pretransform_from_config(config: tp.Dict[str, tp.Any]) -> AutoencoderPretransform:
+    if config.get("type") != "autoencoder":
+        raise NotImplementedError(f"pretransform type {config.get('type')!r} is not in the torch port")
+    if config.get("chunked", False):
+        raise NotImplementedError("chunked decoding is not in the torch port")
+    autoencoder = create_autoencoder_from_config(config["config"])
+    return AutoencoderPretransform(autoencoder, scale=config.get("scale", 1.0))

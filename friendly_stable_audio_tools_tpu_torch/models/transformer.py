@@ -1,0 +1,195 @@
+"""Continuous transformer backbone of the DiT (counterpart of
+friendly_stable_audio_tools_tpu/models/transformer.py).
+
+Ported for the configuration Stable Audio Open 1.0 runs: pre-norm blocks
+with fused-qkv self-attention under partial rotary embedding (through the
+K1 kernel, ops/kernels/attention.py), cross-attention over conditioning
+tokens (plain, ops/attention.py), a SwiGLU feed-forward and zero-initialised
+branch outputs. Everything is channels-last [B, T, C].
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention
+from ..ops.embeddings import rotary_freqs
+from ..ops.kernels import attention as attn_kernels
+from ..ops.norms import LayerNorm
+
+
+def zero_init(module: nn.Module) -> nn.Module:
+    """Marks a projection as zero-initialised (see utils/common.init_weights_)."""
+    module.zero_init = True
+    return module
+
+
+class GLU(nn.Module):
+    """x * silu(gate) after a doubled projection."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, gate = self.proj(x).chunk(2, dim=-1)
+        return x * F.silu(gate)
+
+
+class FeedForward(nn.Module):
+    """SwiGLU MLP with a zero-initialised output projection."""
+
+    def __init__(self, dim: int, mult: int = 4, zero_init_output: bool = True):
+        super().__init__()
+        inner = int(dim * mult)
+        self.linear_in = GLU(dim, inner)
+        self.linear_out = nn.Linear(inner, dim)
+        if zero_init_output:
+            zero_init(self.linear_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_out(self.linear_in(x))
+
+
+class Attention(nn.Module):
+    """Self-attention (fused to_qkv, rotary, K1 kernel) or, with
+    `dim_context`, cross-attention (to_q + packed to_kv; a context narrower
+    than `dim` has fewer kv heads, each shared by consecutive q heads)."""
+
+    def __init__(self, dim: int, dim_heads: int = 64, dim_context: tp.Optional[int] = None,
+                 zero_init_output: bool = True):
+        super().__init__()
+        self.dim = dim
+        self.dim_heads = dim_heads
+        self.heads = dim // dim_heads
+        self.dim_context = dim_context
+        if dim_context:
+            self.to_q = nn.Linear(dim, dim, bias=False)
+            self.to_kv = nn.Linear(dim_context, dim_context * 2, bias=False)
+        else:
+            self.to_qkv = nn.Linear(dim, dim * 3, bias=False)
+        self.to_out = nn.Linear(dim, dim, bias=False)
+        if zero_init_output:
+            zero_init(self.to_out)
+
+    def forward(self, x: torch.Tensor, context: tp.Optional[torch.Tensor] = None,
+                rotary_pos_emb: tp.Optional[torch.Tensor] = None,
+                kv_len: tp.Optional[int] = None) -> torch.Tensor:
+        if context is None:
+            qkv = self.to_qkv(x)
+            out = attn_kernels.fused_qkv_rope_attention(qkv, rotary_pos_emb, self.heads,
+                                                        kv_len=kv_len)
+            return self.to_out(out)
+        b, n, _ = x.shape
+        q = self.to_q(x).view(b, n, self.heads, self.dim_heads).transpose(1, 2)
+        k, v = self.to_kv(context).chunk(2, dim=-1)
+        kv_heads = self.dim_context // self.dim_heads
+        k = k.reshape(b, -1, kv_heads, self.dim_heads).transpose(1, 2)
+        v = v.reshape(b, -1, kv_heads, self.dim_heads).transpose(1, 2)
+        out = attention(q, k, v).transpose(1, 2).reshape(b, n, self.dim)
+        return self.to_out(out)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block: self-attention, optional cross-attention, SwiGLU FF."""
+
+    def __init__(self, dim: int, dim_heads: int = 64, cross_attend: bool = False,
+                 dim_context: tp.Optional[int] = None, zero_init_branch_outputs: bool = True,
+                 ff_mult: int = 4):
+        super().__init__()
+        self.pre_norm = LayerNorm(dim)
+        self.self_attn = Attention(dim, dim_heads, zero_init_output=zero_init_branch_outputs)
+        if cross_attend:
+            self.cross_attend_norm = LayerNorm(dim)
+            self.cross_attn = Attention(dim, dim_heads, dim_context=dim_context,
+                                        zero_init_output=zero_init_branch_outputs)
+        self.ff_norm = LayerNorm(dim)
+        self.ff = FeedForward(dim, mult=ff_mult, zero_init_output=zero_init_branch_outputs)
+
+    def forward(self, x: torch.Tensor, context: tp.Optional[torch.Tensor] = None,
+                rotary_pos_emb: tp.Optional[torch.Tensor] = None, kv_len: tp.Optional[int] = None,
+                cross_cfg_skip: bool = False) -> torch.Tensor:
+        x = x + self.self_attn(self.pre_norm(x), rotary_pos_emb=rotary_pos_emb, kv_len=kv_len)
+        if context is not None:
+            if cross_cfg_skip:
+                # CFG batch-doubling: the second half's context is the all-zero
+                # null embedding and every projection on the K/V path is
+                # biasless, so its cross-attention output is exactly zero
+                # (models/transformer.py:370-381 of the JAX package)
+                half = x.shape[0] // 2
+                out = self.cross_attn(self.cross_attend_norm(x[:half]), context=context[:half])
+                out = torch.cat([out, torch.zeros_like(out)], dim=0)
+            else:
+                out = self.cross_attn(self.cross_attend_norm(x), context=context)
+            x = x + out
+        return x + self.ff(self.ff_norm(x))
+
+
+def seq_pad_length(valid_len: int, batch: int, dim_heads: int, heads: int) -> tp.Optional[int]:
+    """Padded length of the padded-sequence rule, or None to run unpadded
+    (models/transformer.py:543-582 of the JAX package).
+
+    The residual stream is padded once to a 16-multiple (head-pair-eligible
+    stacks at batch >= 4) or a 128-multiple, K/V masked at the true length
+    inside the attention kernel, and the padding sliced off after the stack;
+    it engages only when the padding is at most 4% of the sequence and the
+    sequence is at least 1024 long."""
+    pair_16 = (dim_heads == 64 and heads % 2 == 0 and (valid_len + 15) // 16 * 16 <= 2048
+               and batch >= 4)
+    align = 16 if pair_16 else 128
+    padded = (valid_len + align - 1) // align * align
+    if valid_len < 1024 or dim_heads > 128 or padded == valid_len:
+        return None
+    return padded if (padded - valid_len) / valid_len <= 0.04 else None
+
+
+class ContinuousTransformer(nn.Module):
+    """Stack of TransformerBlocks with input/output projections, rotary
+    positions (rot dim max(dim_heads/2, 32), clamped to dim_heads) and
+    prepended tokens."""
+
+    def __init__(self, dim: int, depth: int, dim_in: tp.Optional[int] = None,
+                 dim_out: tp.Optional[int] = None, dim_heads: int = 64,
+                 cross_attend: bool = False, cond_token_dim: tp.Optional[int] = None,
+                 zero_init_branch_outputs: bool = True, ff_mult: int = 4):
+        super().__init__()
+        self.dim = dim
+        self.dim_heads = dim_heads
+        self.project_in = nn.Linear(dim_in, dim, bias=False) if dim_in else None
+        self.project_out = nn.Linear(dim, dim_out, bias=False) if dim_out else None
+        self.layers = nn.ModuleList([
+            TransformerBlock(dim, dim_heads, cross_attend=cross_attend,
+                             dim_context=cond_token_dim if cross_attend else None,
+                             zero_init_branch_outputs=zero_init_branch_outputs, ff_mult=ff_mult)
+            for _ in range(depth)])
+
+    def forward(self, x: torch.Tensor, prepend_embeds: tp.Optional[torch.Tensor] = None,
+                context: tp.Optional[torch.Tensor] = None,
+                cross_cfg_skip: bool = False) -> torch.Tensor:
+        if self.project_in is not None:
+            x = self.project_in(x)
+        if prepend_embeds is not None:
+            x = torch.cat([prepend_embeds.to(x.dtype), x], dim=1)
+
+        # the JAX package applies the rule off the CPU only; here the kernel
+        # and its plain version both take kv_len, so it applies everywhere
+        valid_len = x.shape[1]
+        padded = seq_pad_length(valid_len, x.shape[0], self.dim_heads, self.dim // self.dim_heads)
+        kv_len = None
+        if padded is not None:
+            x = F.pad(x, (0, 0, 0, padded - valid_len))
+            kv_len = valid_len
+
+        rot_dim = min(max(self.dim_heads // 2, 32), self.dim_heads)
+        rot = rotary_freqs(x.shape[1], rot_dim, device=x.device)
+        for layer in self.layers:
+            x = layer(x, context=context, rotary_pos_emb=rot, kv_len=kv_len,
+                      cross_cfg_skip=cross_cfg_skip)
+        x = x[:, :valid_len]
+        if self.project_out is not None:
+            x = self.project_out(x)
+        return x

@@ -1,0 +1,102 @@
+"""Builds the hand-written Hopper kernels (``csrc/*.cu``) and binds them.
+
+The sources compile with ``nvcc`` into one shared library with a plain C
+interface, loaded with ``ctypes`` (seconds, where a PyTorch C++ extension
+takes minutes). The build happens at the first CUDA call, never at import,
+into ``build/torch_kernels/`` beside the package, under a name keyed on a
+hash of the sources and flags, so an edited kernel is rebuilt and an
+unchanged one is reused. A failed build raises.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not ``cudaSuccess``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (all return an int cudaError_t)
+SIGNATURES = {
+    "fsat_fused_qkv_rope_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fsat_snake_conv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_fused_residual_unit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fsat_snake_conv_transpose1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set NVCC or put the CUDA toolkit on PATH): "
+                       "the torch port's CUDA kernels cannot be built")
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compiles the sources unless a library for this digest exists; returns its path."""
+    target = BUILD_DIR / f"libfsat_kernels_{source_digest()}.so"
+    if target.exists():
+        return target
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, target)  # atomic: a concurrent loader never sees a partial file
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,261 @@
+"""Fused snake -> conv kernels of the Oobleck VAE decoder (K2, K3, K4).
+
+Each public function takes channels-last tensors ``[B, T, C]`` and runs
+either its CUDA kernel (``csrc/conv1d.cu``) or its plain PyTorch version:
+the plain version for a tensor on the CPU, the kernel for a tensor on a
+CUDA device, where the wrapper raises on anything the kernel does not take.
+Nothing falls back from the kernel to the plain version.
+
+Numerics of both paths follow the Pallas kernels they replace
+(friendly_stable_audio_tools_tpu/ops/pallas/conv1d.py): snake in fp32 with
+the polynomial sin^2 (:37-57), rounded to the model dtype before the
+products (:67-70), fp32 accumulation, bias in fp32, one rounding at the end.
+
+What bounds them on the H100, and what the design does about it:
+
+* K2 ``snake_conv1d`` (replaces ``_forward``/``_kernel``, conv1d.py:91, :60).
+  The decoder's two stride-1 convs are thin: conv_in is 64 -> 2048 over 1024
+  frames, conv_out 128 -> 2 over 2,097,152 samples. conv_out is bound by
+  reading its 512 MB input once; a tensor-core tile would be 98% padding at
+  Cout = 2. The kernel keeps an x tile and its halo in shared memory, applies
+  the snake once per element, and accumulates 16 rows of one output column
+  per thread on the CUDA cores.
+* K3 ``fused_residual_unit`` (replaces ``_ru_forward``/``_ru_kernel``,
+  conv1d.py:507, :473). Bound by tensor-core work (~137 GFLOP per unit at
+  C = 1024) and by shared memory: Hopper gives a block 227 KB against the
+  TPU's multi-MB VMEM, so the block holds a 64-row tile of ``h`` for all C
+  columns (133 KB at C = 1024) and builds it 128 columns at a time; the x
+  tile with its 6*dilation halo is loaded once per 32-channel step and
+  serves all seven taps. ``h`` never reaches device memory.
+* K4 ``snake_conv_transpose1d`` (replaces ``_upk_forward``/``_upk_kernel``,
+  conv1d.py:262, :228). Polyphase: each output phase is a two-tap product
+  of x[q] with x[q-1] or x[q+1], so a block computes one phase for a q tile
+  and writes its rows of the interleaved output; no zero-stuffed input is
+  ever formed.
+
+The TPU package sends some decoder shapes to plain XLA for lack of VMEM
+(``_upk_gemm`` for cin 2048/1024, ``_ru_xla`` for C = 1024). Hopper has no
+such limit at these shapes: every decoder shape runs the kernels.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+# launch counts: each wrapper adds one where it launches its kernel
+snake_conv1d_launches = 0
+fused_residual_unit_launches = 0
+snake_conv_transpose1d_launches = 0
+
+_INV_PI = 0.3183098861837907
+_SIN2_C = (9.869603239633658, -32.469601846083854, 42.72581061829601,
+           -30.089709323462305, 13.005597445194748, -3.2946440864775366)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor, inv_beta: torch.Tensor) -> torch.Tensor:
+    """x + inv_beta * sin^2(alpha x) in fp32 with the kernels' polynomial
+    sin^2 (range reduction + degree-5 polynomial in s^2; max abs error 2.3e-7).
+    The CUDA kernels share it as ``snake_poly`` (csrc/common.cuh)."""
+    v = x * (alpha * _INV_PI)
+    s = v - torch.round(v)
+    w = s * s
+    p = torch.full_like(w, _SIN2_C[5])
+    for c in (_SIN2_C[4], _SIN2_C[3], _SIN2_C[2], _SIN2_C[1], _SIN2_C[0]):
+        p = p * w + c
+    return x + inv_beta * (w * p)
+
+
+def _snake_rounded(x: torch.Tensor, alpha, inv_beta, dtype) -> torch.Tensor:
+    """fp32 snake of x (or x itself), rounded to `dtype`, returned in fp32."""
+    xf = x.float()
+    if alpha is not None:
+        xf = snake(xf, alpha.float(), inv_beta.float())
+    return xf.to(dtype).float()
+
+
+def _conv_f32(x: torch.Tensor, w: torch.Tensor, dilation: int, padding: int) -> torch.Tensor:
+    """[B, T, Cin] x [k, Cin, Cout] stride-1 conv in fp32, channels-last."""
+    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), padding=padding, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def _stack_snake(alpha, inv_beta) -> tp.Optional[torch.Tensor]:
+    """[2, C] fp32 (alpha, inv_beta), the kernels' snake-parameter layout."""
+    if alpha is None:
+        return None
+    return torch.stack([alpha.float(), inv_beta.float()]).contiguous()
+
+
+def _check_cuda(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
+    for t in (x, *tensors):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: all tensors must be on {x.device}, got {t.device}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptr(t: tp.Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# K2: snake -> stride-1 dilated conv
+# ---------------------------------------------------------------------------
+
+
+def snake_conv1d_plain(x, w, bias, alpha=None, inv_beta=None, dilation: int = 1,
+                       padding: tp.Optional[int] = None):
+    dt = x.dtype
+    if padding is None:
+        padding = (dilation * (w.shape[0] - 1)) // 2
+    y = _conv_f32(_snake_rounded(x, alpha, inv_beta, dt), w.to(dt).float(), dilation, padding)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dt)
+
+
+def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tensor],
+                 alpha: tp.Optional[torch.Tensor] = None,
+                 inv_beta: tp.Optional[torch.Tensor] = None, dilation: int = 1,
+                 padding: tp.Optional[int] = None) -> torch.Tensor:
+    """Fused snake(x) -> conv, stride 1, same length. x [B, T, Cin];
+    w [k, Cin, Cout]; alpha/inv_beta the effective per-channel snake
+    parameters (None skips the snake). The plain version takes the same
+    arguments."""
+    global snake_conv1d_launches
+    k, cin, cout = w.shape
+    if padding is None:
+        padding = (dilation * (k - 1)) // 2
+    if 2 * padding != dilation * (k - 1):
+        raise ValueError("snake_conv1d computes 'same'-length convolutions only")
+    if x.device.type == "cpu":
+        return snake_conv1d_plain(x, w, bias, alpha, inv_beta, dilation, padding)
+    _check_cuda("snake_conv1d", x, w, bias)
+    ab = _stack_snake(alpha, inv_beta)
+    b, t, _ = x.shape
+    x = x.contiguous()
+    wc = w.to(torch.bfloat16).contiguous()
+    bias = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
+    y = torch.empty(b, t, cout, device=x.device, dtype=x.dtype)
+    err = build.library().fsat_snake_conv1d(
+        _ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, k, dilation, padding,
+        _stream(x.device))
+    snake_conv1d_launches += 1
+    build.check(err, "snake_conv1d")
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K3: whole Oobleck residual unit
+# ---------------------------------------------------------------------------
+
+
+def fused_residual_unit_plain(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
+                              dilation: int = 1):
+    dt = x.dtype
+    k = w1.shape[0]
+    h = _conv_f32(_snake_rounded(x, alpha1, inv_beta1, dt), w1.to(dt).float(), dilation,
+                  dilation * (k - 1) // 2) + b1.float()
+    h = snake(h, alpha2.float(), inv_beta2.float()).to(dt).float()
+    y = h @ w2.to(dt).float() + b2.float()
+    return (y + x.float()).to(dt)
+
+
+def fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
+                        dilation: int = 1) -> torch.Tensor:
+    """y = x + conv1x1(snake2(conv_k,dil(snake1(x)) + b1)) + b2 (cin == cout).
+    w1 [k, C, C], w2 [C, C]; k = 7 on CUDA."""
+    global fused_residual_unit_launches
+    k, c, c2 = w1.shape
+    if not (c == c2 == w2.shape[0] == w2.shape[1]):
+        raise ValueError("fused_residual_unit needs cin == cout")
+    if x.device.type == "cpu":
+        return fused_residual_unit_plain(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
+                                         dilation)
+    _check_cuda("fused_residual_unit", x, w1, b1, w2, b2)
+    ab1 = _stack_snake(alpha1, inv_beta1)
+    ab2 = _stack_snake(alpha2, inv_beta2)
+    if k != 7 or c % 128:
+        raise ValueError(f"fused_residual_unit: the CUDA kernel takes k = 7 and C % 128 == 0, "
+                         f"got k = {k}, C = {c}")
+    b, t, _ = x.shape
+    x = x.contiguous()
+    w1c = w1.to(torch.bfloat16).contiguous()
+    w2c = w2.to(torch.bfloat16).contiguous()
+    b1c = b1.float().contiguous()
+    b2c = b2.float().contiguous()
+    y = torch.empty_like(x)
+    err = build.library().fsat_fused_residual_unit(
+        _ptr(x), _ptr(w1c), _ptr(b1c), _ptr(ab1), _ptr(w2c), _ptr(b2c), _ptr(ab2), _ptr(y),
+        b, t, c, dilation, _stream(x.device))
+    fused_residual_unit_launches += 1
+    build.check(err, "fused_residual_unit")
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K4: snake -> ConvTranspose1d(k = 2s, stride s, padding s/2), polyphase
+# ---------------------------------------------------------------------------
+
+
+def snake_conv_transpose1d_plain(x, w, bias, alpha=None, inv_beta=None, stride: int = 2):
+    """The phase-grouped GEMM form (conv1d.py:_upk_gemm :353): group A
+    (phases r < s/2) reads (x[q], x[q-1]), group B reads (x[q], x[q+1])."""
+    dt = x.dtype
+    b, t, cin = x.shape
+    _, _, cout = w.shape
+    s = stride
+    p = s // 2
+    xr = _snake_rounded(x, alpha, inv_beta, dt)
+    wd = w.to(dt).float()
+    xm1 = F.pad(xr, (0, 0, 1, 0))[:, :t]
+    xp1 = F.pad(xr, (0, 0, 0, 1))[:, 1:]
+
+    def grp(lo, hi):  # [Cin, (hi - lo) * Cout]
+        return torch.cat([wd[i] for i in range(lo, hi)], dim=1)
+
+    a = xr @ grp(p, s) + xm1 @ grp(p + s, 2 * s)
+    bq = xr @ grp(s, s + p) + xp1 @ grp(0, p)
+    y = torch.cat([a.view(b, t, p, cout), bq.view(b, t, p, cout)], dim=2)
+    if bias is not None:
+        y = y + bias.float()
+    return y.reshape(b, t * s, cout).to(dt)
+
+
+def snake_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tensor],
+                           alpha: tp.Optional[torch.Tensor] = None,
+                           inv_beta: tp.Optional[torch.Tensor] = None,
+                           stride: int = 2) -> torch.Tensor:
+    """Fused snake(x) -> ConvTranspose1d(k = 2s, stride s, padding s/2):
+    x [B, T, Cin], w [2s, Cin, Cout] -> [B, T*s, Cout]."""
+    global snake_conv_transpose1d_launches
+    k, cin, cout = w.shape
+    if stride % 2 or k != 2 * stride:
+        raise ValueError("snake_conv_transpose1d needs an even stride and k == 2 * stride")
+    if x.device.type == "cpu":
+        return snake_conv_transpose1d_plain(x, w, bias, alpha, inv_beta, stride)
+    _check_cuda("snake_conv_transpose1d", x, w, bias)
+    ab = _stack_snake(alpha, inv_beta)
+    if cin % 32 or cout % 128:
+        raise ValueError(f"snake_conv_transpose1d: the CUDA kernel takes Cin % 32 == 0 and "
+                         f"Cout % 128 == 0, got {cin} -> {cout}")
+    b, t, _ = x.shape
+    x = x.contiguous()
+    wc = w.to(torch.bfloat16).contiguous()
+    bias = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
+    y = torch.empty(b, t * stride, cout, device=x.device, dtype=x.dtype)
+    err = build.library().fsat_snake_conv_transpose1d(
+        _ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, stride,
+        _stream(x.device))
+    snake_conv_transpose1d_launches += 1
+    build.check(err, "snake_conv_transpose1d")
+    return y

@@ -1,0 +1,73 @@
+"""The torch port's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`; each test skips without a CUDA device. The GPU machine has
+no JAX, and tests/conftest.py imports it, so run this file there with
+`python -m pytest --noconftest -q tests/test_torch_port_cuda.py`. Inputs
+are bf16; tolerance: rel-L2 1e-2 (one bf16 rounding of the output apart,
+with attention's online softmax rounding P against running maxima).
+"""
+
+import pytest
+import torch
+
+from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
+from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention as tattn
+from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d as tconv
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rnd(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+
+def _close(a, b, tol=1e-2):
+    rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+    assert rel < tol, rel
+
+
+def test_attention_kernel_matches_plain_ragged_and_kv_len(gen):
+    for t, kv in ((200, 190), (77, None)):
+        qkv = _rnd(gen, 2, t, 3 * 4 * 64).to(torch.bfloat16)
+        f = rotary_freqs(t, 32, device="cuda")
+        before = tattn.launches
+        got = tattn.fused_qkv_rope_attention(qkv, f, 4, kv_len=kv)
+        assert tattn.launches == before + 1
+        _close(got, tattn.fused_qkv_rope_attention_plain(qkv, f, 4, kv_len=kv))
+
+
+def test_conv_kernels_match_plain(gen):
+    x = _rnd(gen, 2, 333, 128, scale=0.5).to(torch.bfloat16)
+    a = _rnd(gen, 128).abs() + 0.5
+    ib = 1.0 / a
+    bias = _rnd(gen, 128, scale=0.1)
+    w = _rnd(gen, 7, 128, 128, scale=0.03)
+    _close(tconv.snake_conv1d(x, w, bias, a, ib, dilation=3),
+           tconv.snake_conv1d_plain(x, w, bias, a, ib, dilation=3))
+    _close(tconv.fused_residual_unit(x, w, bias, a, ib, w[0], bias, a, ib, dilation=9),
+           tconv.fused_residual_unit_plain(x, w, bias, a, ib, w[0], bias, a, ib, dilation=9))
+    wt = _rnd(gen, 8, 128, 128, scale=0.06)
+    _close(tconv.snake_conv_transpose1d(x, wt, bias, a, ib, stride=4),
+           tconv.snake_conv_transpose1d_plain(x, wt, bias, a, ib, stride=4))
+
+
+def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x32 = _rnd(gen, 1, 64, 128)
+    with pytest.raises(TypeError):
+        tconv.snake_conv1d(x32, _rnd(gen, 7, 128, 128), None)
+    with pytest.raises(ValueError):  # C % 128 != 0
+        xb = _rnd(gen, 1, 64, 96).to(torch.bfloat16)
+        tconv.fused_residual_unit(xb, _rnd(gen, 7, 96, 96), None, None, None,
+                                  _rnd(gen, 96, 96), None, None, None)
+    with pytest.raises(ValueError):  # head dim 32
+        tattn.fused_qkv_rope_attention(_rnd(gen, 1, 64, 3 * 4 * 32).to(torch.bfloat16),
+                                       rotary_freqs(64, 16, device="cuda"), 4)
