@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
-on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio at full width.
+on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training at full
+width.
 
     python3 chip_smoke.py
 
@@ -9,15 +10,29 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from csrc/ (timed);
 3. each kernel K1-K4 against its plain PyTorch version on the card in bf16,
-   at every shape the main path gives it plus small ragged shapes, with
-   max-abs and rel-L2 errors against a stated tolerance and both times;
+   at every shape the generation path gives it plus small ragged shapes,
+   with max-abs and rel-L2 errors against a stated tolerance and both times;
+   3b. the training attention kernels K5 (forward with LSE) and K6
+   (backward) against their plain versions at the training shape (B 8,
+   T 1040, kv_len 1025, 24 heads) and three smaller ones;
+   3c. K2 and K3 at the frozen encoder's shapes at batch 8 (the plain
+   versions one batch element at a time), and the bf16 encode with the
+   kernels against an fp32 encode with the plain versions;
 4. one DiT forward (CFG batch-doubled) and one short VAE decode with the
    kernels and with the plain versions, same weights and inputs;
-5. the main path: `create_model_from_config(stable_audio_open_1_0.json)`
+5. the generation path: `create_model_from_config(stable_audio_open_1_0.json)`
    with random weights (seed 0, de-zeroed), DiT and VAE in bf16, then
    `generate_diffusion_cond` for one prompt, 100 dpmpp-3m-sde steps, CFG 7,
    2,097,152 stereo samples; output shape, finiteness and RMS are checked,
-   and the kernels' launch counts show that the path ran through them.
+   and the kernels' launch counts show that the path ran through them;
+6. one training step of the fp32 DiT at batch 8 with the attention kernels,
+   with their plain versions in bf16, and with fp32 plain attention as the
+   reference: loss and weight gradients of layers 0, 11 and 23;
+7. the training path: `python -m friendly_stable_audio_tools_tpu_torch.train`'s
+   `main` on the SAO config from 16 synthetic 50 s WAVs, batch 8, 4 steps
+   with a checkpoint at step 4, then a resume for a fifth step; step time,
+   throughput, memory and split, finite losses, moved weights, the EMA, and
+   the kernels' launch counts as the code implies them.
 
 Output: progress lines, then one JSON line of per-kernel results, the
 nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
@@ -28,8 +43,12 @@ import contextlib
 import copy
 import json
 import math
+import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -39,6 +58,14 @@ STEPS = 100
 CFG_SCALE = 7.0
 SAMPLE_SIZE = 2_097_152
 PROMPT = {"prompt": "Amen break 174 BPM", "seconds_start": 0, "seconds_total": 47}
+DEVICE = "cuda"
+TRAIN_BATCH = 8
+TRAIN_STEPS = 4
+N_WAVS = 16
+WAV_SECONDS = 50
+# the DiT's self-attention at training batch 8: 1024 latent frames + 1
+# prepended token, padded to 1040 (models/transformer.py:seq_pad_length)
+TRAIN_T, TRAIN_KV = 1040, 1025
 
 # tolerances of the kernel-vs-plain compares (bf16 in and out; both sides
 # accumulate in fp32 and round the result once, in different orders):
@@ -51,13 +78,22 @@ TOL = {
     "snake_conv1d": (2e-3, 2.0 ** -6),
     "fused_residual_unit": (2e-3, 2.0 ** -6),
     "snake_conv_transpose1d": (2e-3, 2.0 ** -6),
+    # K5 and K1 are one kernel; the LSE differs only by fp32 sum order (max abs 2e-3)
+    "fused_qkv_rope_attention_stats": (1e-2, 2.0 ** -5),
+    # K6 against the same formula on the same inputs: both round p and ds to
+    # bf16 and accumulate in fp32, in different orders
+    "fused_qkv_rope_attention_backward": (1e-2, 2.0 ** -5),
 }
+LSE_ATOL = 2e-3
 # model compares: the bf16 DiT with the kernels against an fp32 copy (plain
 # versions, same weights) may err at most DIT_ERR_RATIO times as much as the
 # bf16 DiT with the plain versions does; random de-zeroed weights amplify
 # bf16 rounding through 24 layers, so the bf16 error itself is the yardstick
 DIT_ERR_RATIO = 1.5
 DECODE_REL_TOL = 2e-2  # 15 residual units, 5 upsamples, 2 convs in bf16
+# the frozen bf16 encode with the kernels against an fp32 encode (plain
+# versions): 15 residual units, 5 downsamples and 2 convs in bf16
+ENCODE_REL_TOL = 5e-2
 
 
 def log(msg):
@@ -83,39 +119,93 @@ def timed_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kernel_fn, plain_fn, reps=3):
-    """Runs both, checks the tolerance, returns (max_abs, rel_l2, kernel ms, plain ms)."""
+def within(name, out, ref):
+    """(ok, max_abs, rel_l2, max|ref|) of out against ref under TOL[name]."""
     import torch
 
-    out = kernel_fn()
-    torch.cuda.synchronize()
-    ref = plain_fn()
     diff = out.float() - ref.float()
     max_abs = diff.abs().max().item()
     rel_l2 = (diff.norm() / ref.float().norm()).item()
     peak = ref.float().abs().max().item()
     rel_tol, abs_frac = TOL[name]
     ok = bool(torch.isfinite(out).all()) and rel_l2 <= rel_tol and max_abs <= abs_frac * peak
+    return ok, max_abs, rel_l2, peak
+
+
+def compare(name, kernel_fn, plain_fn, reps=3):
+    """Runs both, checks the tolerance, returns (ok, max_abs, rel_l2, peak, kernel ms, plain ms)."""
+    import torch
+
+    out = kernel_fn()
+    torch.cuda.synchronize()
+    ok, max_abs, rel_l2, peak = within(name, out, plain_fn())
+    del out
     ms, plain_ms = timed_ms(kernel_fn, reps), timed_ms(plain_fn, reps)
     return ok, max_abs, rel_l2, peak, ms, plain_ms
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Routes the model's kernel calls to the plain versions (for the
-    kernel-vs-plain model compares of phase 4 only)."""
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain_ms, field="ms",
+           extra=""):
+    """Logs one kernel-vs-plain result, raises when it failed, and adds a
+    main-path shape's error and weighted times to the kernel's entry."""
+    log(f"  {name} {label}: max_abs {max_abs:.4g} (max|plain| {peak:.4g}) rel_l2 {rel_l2:.3g}{extra} "
+        f"tol {TOL[name]} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"{'main-path' if main_path else 'extra'} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label} disagrees with its plain version")
+    r = results[name]
+    if main_path:
+        w = r["weight"].get(label, 1)
+        r["max_abs_err"] = max(r["max_abs_err"], max_abs)
+        r[field] = r.get(field, 0.0) + ms * w
+        r["plain_" + field] = r.get("plain_" + field, 0.0) + plain_ms * w
 
-    names = [(attention, "fused_qkv_rope_attention"), (conv1d, "snake_conv1d"),
-             (conv1d, "fused_residual_unit"), (conv1d, "snake_conv_transpose1d")]
-    saved = [getattr(m, n) for m, n in names]
-    for m, n in names:
-        setattr(m, n, getattr(m, n + "_plain"))
+
+@contextlib.contextmanager
+def patched(pairs):
+    """Sets (object, attribute, value) triples for the block, then restores them."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in pairs]
+    for obj, name, value in pairs:
+        setattr(obj, name, value)
     try:
         yield
     finally:
-        for (m, n), fn in zip(names, saved):
-            setattr(m, n, fn)
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def plain_kernels():
+    """Routes the model's kernel calls to the plain versions (for the
+    kernel-vs-plain model compares)."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+
+    return patched([(attention, "fused_qkv_rope_attention", attention.fused_qkv_rope_attention_plain),
+                    (conv1d, "snake_conv1d", conv1d.snake_conv1d_plain),
+                    (conv1d, "fused_residual_unit", conv1d.fused_residual_unit_plain),
+                    (conv1d, "snake_conv_transpose1d", conv1d.snake_conv_transpose1d_plain)])
+
+
+def randn_fn(seed):
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEVICE) * scale
+
+    return rnd
+
+
+def snake_params(rnd, c):
+    return rnd(c).abs() + 0.5, 1.0 / (rnd(c).abs() + 0.5)
+
+
+def by_batch(fn, x):
+    """fn over one batch element at a time (the plain versions' fp32
+    temporaries at batch 8 and 2M samples would not fit the card)."""
+    import torch
+
+    return torch.cat([fn(xb) for xb in x.split(1)])
 
 
 def kernel_phase(results):
@@ -124,33 +214,17 @@ def kernel_phase(results):
     from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
 
-    dev, bf = "cuda", torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def rnd(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g, device=dev) * scale
-
-    def snake_params(c):
-        return rnd(c).abs() + 0.5, 1.0 / (rnd(c).abs() + 0.5)
+    bf = torch.bfloat16
+    rnd = randn_fn(0)
 
     def run(name, label, main_path, kernel_fn, plain_fn):
-        ok, max_abs, rel_l2, peak, ms, plain_ms = compare(name, kernel_fn, plain_fn)
-        log(f"  {name} {label}: max_abs {max_abs:.4g} (max|plain| {peak:.4g}) rel_l2 {rel_l2:.3g} "
-            f"tol {TOL[name]} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"{'main-path' if main_path else 'extra'} {'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} {label} disagrees with its plain version")
-        r = results[name]
-        if main_path:
-            r["max_abs_err"] = max(r["max_abs_err"], max_abs)
-            r["ms"] += ms * r["weight"].get(label, 1)
-            r["plain_ms"] += plain_ms * r["weight"].get(label, 1)
+        report(results, name, label, main_path, *compare(name, kernel_fn, plain_fn))
 
     # K1: the DiT's self-attention, B = 2 (CFG), 24 heads, T = 1024 + 1 prepended token
     for b, t, h, kv, main in [(2, 1025, 24, None, True), (1, 77, 2, None, False),
                               (4, 1040, 4, 1025, False), (2, 144, 2, 130, False)]:
         qkv = rnd(b, t, 3 * h * 64).to(bf)
-        f = rotary_freqs(t, 32, device=dev)
+        f = rotary_freqs(t, 32, device="cuda")
         run("fused_qkv_rope_attention", f"B{b} T{t} H{h} kv_len {kv}", main,
             lambda: attention.fused_qkv_rope_attention(qkv, f, h, kv),
             lambda: attention.fused_qkv_rope_attention_plain(qkv, f, h, kv))
@@ -162,7 +236,7 @@ def kernel_phase(results):
         x = rnd(b, t, cin, scale=0.5).to(bf)
         w = rnd(7, cin, cout, scale=1 / math.sqrt(7 * cin))
         bb = rnd(cout, scale=0.1) if bias else None
-        a, ib = snake_params(cin) if sn else (None, None)
+        a, ib = snake_params(rnd, cin) if sn else (None, None)
         run("snake_conv1d", f"B{b} T{t} {cin}->{cout} d{d}", main,
             lambda: conv1d.snake_conv1d(x, w, bb, a, ib, dilation=d),
             lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=d))
@@ -175,7 +249,7 @@ def kernel_phase(results):
         x = rnd(b, t, c, scale=0.5).to(bf)
         w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
         b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
-        (a1, i1), (a2, i2) = snake_params(c), snake_params(c)
+        (a1, i1), (a2, i2) = snake_params(rnd, c), snake_params(rnd, c)
         run("fused_residual_unit", f"B{b} T{t} C{c} d{d}", main,
             lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
             lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d))
@@ -187,10 +261,363 @@ def kernel_phase(results):
         x = rnd(b, t, cin, scale=0.5).to(bf)
         w = rnd(2 * s, cin, cout, scale=1 / math.sqrt(2 * cin))
         bb = rnd(cout, scale=0.1)
-        a, ib = snake_params(cin)
+        a, ib = snake_params(rnd, cin)
         run("snake_conv_transpose1d", f"B{b} T{t} {cin}->{cout} s{s}", main,
             lambda: conv1d.snake_conv_transpose1d(x, w, bb, a, ib, stride=s),
             lambda: conv1d.snake_conv_transpose1d_plain(x, w, bb, a, ib, stride=s))
+
+
+def attention_train_phase(results):
+    """[3b] K5 and K6 against their plain versions (bf16 in; the backward
+    compared in fp32 out, as training takes it). K6 gets the plain
+    forward's out and lse, so the compare isolates the backward."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+
+    rnd = randn_fn(1)
+    fwd, bwd = "fused_qkv_rope_attention_stats", "fused_qkv_rope_attention_backward"
+    for b, t, h, kv, main in [(TRAIN_BATCH, TRAIN_T, 24, TRAIN_KV, True),
+                              (4, TRAIN_T, 24, TRAIN_KV, False), (2, 272, 4, 260, False),
+                              (1, 77, 2, None, False)]:
+        label = f"B{b} T{t} H{h} kv_len {kv}"
+        qkv = rnd(b, t, 3 * h * 64).to(torch.bfloat16)
+        f = rotary_freqs(t, 32, device="cuda")
+        go = rnd(b, t, h * 64).to(torch.bfloat16)
+        if kv is not None:
+            go[:, kv:] = 0  # the transformer slices the padded rows off
+
+        out, lse = attention.fused_qkv_rope_attention_stats(qkv, f, h, kv)
+        torch.cuda.synchronize()
+        out_p, lse_p = attention.fused_qkv_rope_attention_stats_plain(qkv, f, h, kv)
+        ok, max_abs, rel_l2, peak = within(fwd, out, out_p)
+        lse_err = (lse - lse_p).abs().max().item()
+        ms = timed_ms(lambda: attention.fused_qkv_rope_attention_stats(qkv, f, h, kv), 3)
+        plain_ms = timed_ms(lambda: attention.fused_qkv_rope_attention_stats_plain(qkv, f, h, kv), 3)
+        report(results, fwd, label, main, ok and lse_err <= LSE_ATOL, max_abs, rel_l2, peak, ms,
+               plain_ms, extra=f", lse max_abs {lse_err:.3g} (tol {LSE_ATOL})")
+
+        def k6():
+            return attention.fused_qkv_rope_attention_backward(qkv, out_p, lse_p, go, f, h, kv,
+                                                               dtype=torch.float32)
+
+        def k6_plain():
+            return attention.fused_qkv_rope_attention_backward_plain(qkv, out_p, lse_p, go, f, h, kv,
+                                                                     dtype=torch.float32)
+
+        d, d_p = k6(), k6_plain()
+        hd = h * 64
+        thirds = " ".join(f"{n} {rel_err(d[..., i * hd:(i + 1) * hd], d_p[..., i * hd:(i + 1) * hd]):.3g}"
+                          for i, n in enumerate("qkv"))
+        ok, max_abs, rel_l2, peak = within(bwd, d, d_p)
+        del d, d_p
+        report(results, bwd, label, main, ok, max_abs, rel_l2, peak, timed_ms(k6, 3),
+               timed_ms(k6_plain, 3), extra=f" (rel-L2 of dq/dk/dv: {thirds})")
+    for name, calls in ((fwd, 2 * 24), (bwd, 24)):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per training step ({calls} calls at B{TRAIN_BATCH} "
+            f"T{TRAIN_T}), plain {r['plain_ms']:.4f} ms")
+
+
+def encoder_conv_phase(results):
+    """[3c] K2 and K3 at the frozen encoder's shapes, batch 8."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    bf = torch.bfloat16
+    rnd = randn_fn(2)
+    b = TRAIN_BATCH
+    # K2: conv_in 2 -> 128 (k 7, no snake) at 2,097,152 samples; conv_out
+    # snake 2048 -> 128 (k 3) at 1024 frames
+    for t, cin, cout, k, sn in [(SAMPLE_SIZE, 2, 128, 7, False), (1024, 2048, 128, 3, True)]:
+        x = rnd(b, t, cin, scale=0.5).to(bf)
+        w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+        bb = rnd(cout, scale=0.1)
+        a, ib = snake_params(rnd, cin) if sn else (None, None)
+        report(results, "snake_conv1d", f"B{b} T{t} {cin}->{cout} k{k}", True, *compare(
+            "snake_conv1d", lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
+            lambda: by_batch(lambda xb: conv1d.snake_conv1d_plain(xb, w, bb, a, ib), x)),
+            field="encode_ms")
+        del x
+    # K3: the encoder's 15 residual units; [8, 2097152, 128] holds exactly 2^31 elements
+    for c, t in [(128, 2097152), (128, 1048576), (256, 262144), (512, 65536), (1024, 8192)]:
+        x = rnd(b, t, c, scale=0.5).to(bf)
+        w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
+        b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
+        (a1, i1), (a2, i2) = snake_params(rnd, c), snake_params(rnd, c)
+        for d in (1, 3, 9):
+            report(results, "fused_residual_unit", f"B{b} T{t} C{c} d{d}", True, *compare(
+                "fused_residual_unit",
+                lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
+                lambda: by_batch(lambda xb: conv1d.fused_residual_unit_plain(
+                    xb, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x)), field="encode_ms")
+        del x
+    for name in ("snake_conv1d", "fused_residual_unit"):
+        r = results[name]
+        log(f"  {name}: {r['encode_ms']:.4f} ms per batch-8 encode, plain {r['plain_encode_ms']:.4f} ms")
+
+
+def build_sao(config):
+    """The SAO model on the card in fp32: random weights, seed 0, de-zeroed."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+    from friendly_stable_audio_tools_tpu_torch.utils.common import dezero_
+
+    model = create_model_from_config(config, seed=0, device=DEVICE)
+    return dezero_(model, torch.Generator(device=DEVICE).manual_seed(1))
+
+
+def synthetic_audio(seed, n_samples, sample_rate=44100):
+    """[2, n] float32 in [-1, 1]: three sines per channel and a little noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(n_samples, dtype=np.float64) / sample_rate
+    out = np.zeros((2, n_samples), np.float32)
+    for ch in range(2):
+        for _ in range(3):
+            out[ch] += 0.15 * np.sin(2 * np.pi * rng.uniform(40, 4000) * t + rng.uniform(0, 6.3))
+        out[ch] += 0.02 * rng.randn(n_samples)
+    return np.clip(out, -1, 1)
+
+
+def plain_pair_attention(qkv, freqs, num_heads, kv_len=None):
+    """The training attention in plain torch: the K5/K6 plain versions in
+    bf16 behind the same autograd binding as the kernels (phase 6's bf16
+    yardstick)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+
+    class PlainPair(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            xb = x.to(torch.bfloat16)
+            out, lse = attention.fused_qkv_rope_attention_stats_plain(xb, freqs, num_heads, kv_len)
+            ctx.save_for_backward(xb, out, lse)
+            return out.to(x.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            xb, out, lse = ctx.saved_tensors
+            return attention.fused_qkv_rope_attention_backward_plain(
+                xb, out, lse, g.to(torch.bfloat16), freqs, num_heads, kv_len, dtype=torch.float32)
+
+    return PlainPair.apply(qkv)
+
+
+def dit_train_step_phase(config, tmp):
+    """[6] One training step of the fp32 DiT at batch 8 (fixed draws): the
+    attention through K5/K6, through their plain versions in bf16, and in
+    fp32 plain (the reference). Saves the de-zeroed DiT for phase 7."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+    from friendly_stable_audio_tools_tpu_torch.training.diffusion import get_alphas_sigmas
+
+    model = build_sao(config)
+    dit_path = Path(tmp) / "dit_dezeroed.pt"
+    torch.save({f"model.{k}": v for k, v in model.model.state_dict().items()}, dit_path)
+    rnd = randn_fn(3)
+    conds = [dict(PROMPT, seconds_start=i, seconds_total=47 - i) for i in range(TRAIN_BATCH)]
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner(conds, device=DEVICE))
+    latent_shape = (TRAIN_BATCH, SAMPLE_SIZE // model.pretransform.downsampling_ratio,
+                    model.io_channels)
+    x0 = rnd(*latent_shape)
+    noise = rnd(*x0.shape)
+    t = torch.rand(TRAIN_BATCH, generator=torch.Generator(device=DEVICE).manual_seed(4),
+                   device=DEVICE)
+    alphas, sigmas = (v[:, None, None] for v in get_alphas_sigmas(t))
+    noised, targets = x0 * alphas + noise * sigmas, noise * alphas - x0 * sigmas
+    dit = model.model.train()
+    depth = len(dit.transformer.layers)
+    watched = {f"layers.{i}.{p}": getattr(dit.transformer.layers[i].self_attn, p).weight
+               for i in (0, depth // 2 - 1, depth - 1) for p in ("to_qkv", "to_out")}
+
+    def step():
+        dit.zero_grad(set_to_none=True)
+        loss = (dit(noised, t, **cond) - targets).square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: w.grad.detach().clone() for k, w in watched.items()}
+
+    reset_counts()
+    start = time.perf_counter()
+    loss_k, grads_k = step()
+    wall_k = time.perf_counter() - start
+    counts = read_counts()
+    with patched([(attention, "fused_qkv_rope_attention", plain_pair_attention)]):
+        loss_p, grads_p = step()
+    with patched([(attention, "fused_qkv_rope_attention", attention.fused_qkv_rope_attention_plain)]):
+        loss_r, grads_r = step()
+    del model, dit
+    torch.cuda.empty_cache()
+
+    for k in watched:
+        log(f"  {k} grad rel-L2 against fp32 attention: kernels {rel_err(grads_k[k], grads_r[k]):.3g}, "
+            f"plain bf16 {rel_err(grads_p[k], grads_r[k]):.3g}; kernels vs plain "
+            f"{rel_err(grads_k[k], grads_p[k]):.3g}")
+    cat = lambda g: torch.cat([v.flatten() for v in g.values()])  # noqa: E731
+    err_k, err_p = rel_err(cat(grads_k), cat(grads_r)), rel_err(cat(grads_p), cat(grads_r))
+    log(f"  loss: kernels {loss_k:.7g}, plain bf16 {loss_p:.7g}, fp32 attention {loss_r:.7g}; "
+        f"watched gradients rel-L2: kernels {err_k:.3g}, plain bf16 {err_p:.3g} (bound: kernels <= "
+        f"{DIT_ERR_RATIO} x plain); step wall with kernels {wall_k:.3f} s; launches {counts}")
+    loss_ok = abs(loss_k - loss_r) <= max(DIT_ERR_RATIO * abs(loss_p - loss_r), 1e-5 * abs(loss_r))
+    finite = all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads_k.values())
+    if not (finite and loss_ok and err_k <= DIT_ERR_RATIO * err_p):
+        raise AssertionError("the DiT training step with the kernels disagrees with the plain versions")
+    if (counts["fused_qkv_rope_attention_stats"] != 2 * depth
+            or counts["fused_qkv_rope_attention_backward"] != depth):
+        raise AssertionError(f"one checkpointed step should launch K5 {2 * depth} and K6 {depth} "
+                             f"times: {counts}")
+    return dit_path
+
+
+KERNELS = {  # name -> (module attribute holding its launch count)
+    "fused_qkv_rope_attention": ("attention", "launches"),
+    "fused_qkv_rope_attention_stats": ("attention", "stats_launches"),
+    "fused_qkv_rope_attention_backward": ("attention", "backward_launches"),
+    "snake_conv1d": ("conv1d", "snake_conv1d_launches"),
+    "fused_residual_unit": ("conv1d", "fused_residual_unit_launches"),
+    "snake_conv_transpose1d": ("conv1d", "snake_conv_transpose1d_launches"),
+}
+
+
+def _kernel_modules():
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+
+    return {"attention": attention, "conv1d": conv1d}
+
+
+def reset_counts():
+    mods = _kernel_modules()
+    for mod, attr in KERNELS.values():
+        setattr(mods[mod], attr, 0)
+
+
+def read_counts():
+    mods = _kernel_modules()
+    return {name: getattr(mods[mod], attr) for name, (mod, attr) in KERNELS.items()}
+
+
+def training_phase(config, tmp, dit_path):
+    """[7] The train entry point on SAO 1.0: 4 steps from raw audio with a
+    checkpoint at step 4, then a resume for a fifth. Returns the launch
+    counts of the two runs."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from friendly_stable_audio_tools_tpu_torch import train
+    from friendly_stable_audio_tools_tpu_torch.models.conditioners import MultiConditioner
+
+    # console logging only: the train CLI logs to wandb when WANDB_API_KEY is set
+    os.environ.pop("WANDB_API_KEY", None)
+    from friendly_stable_audio_tools_tpu_torch.models.pretransforms import AutoencoderPretransform
+    from friendly_stable_audio_tools_tpu_torch.training.diffusion import DiffusionCondTrainingWrapper
+
+    tmp = Path(tmp)
+    wavs = tmp / "wavs"
+    wavs.mkdir()
+    for i in range(N_WAVS):
+        audio = synthetic_audio(100 + i, WAV_SECONDS * config["sample_rate"])
+        wavfile.write(str(wavs / f"clip{i:02d}.wav"), config["sample_rate"],
+                      (audio.T * 32767).astype(np.int16))
+    cfg = copy.deepcopy(config)
+    cfg["training"]["checkpoint"]["every_n_train_steps"] = TRAIN_STEPS
+    (tmp / "model.json").write_text(json.dumps(cfg))
+    (tmp / "data.json").write_text(json.dumps(
+        {"dataset_type": "audio_dir", "datasets": [{"id": "synthetic", "path": str(wavs)}]}))
+    args = ["--model-config", str(tmp / "model.json"), "--dataset-config", str(tmp / "data.json"),
+            "--batch-size", str(TRAIN_BATCH), "--seed", "0", "--num-workers", "4",
+            "--save-dir", str(tmp / "run"), "--name", "sao", "--pretrained-ckpt-path", str(dit_path)]
+
+    times = {"step": [], "encode": [], "cond": [], "update": []}
+    losses = []
+
+    def timer(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - start)
+            if key == "step":
+                losses.append(out["loss"])
+            return out
+        return wrapper
+
+    W = DiffusionCondTrainingWrapper
+    timers = [(W, "train_step", timer(W.train_step, "step")),
+              (W, "apply_update", timer(W.apply_update, "update")),
+              (AutoencoderPretransform, "encode_nwc", timer(AutoencoderPretransform.encode_nwc, "encode")),
+              (MultiConditioner, "forward", timer(MultiConditioner.forward, "cond"))]
+    # what one step launches: each of the DiT's 24 blocks runs K5 once forward
+    # and once more when the checkpointed block is recomputed for the
+    # backward, and K6 once in the backward; the frozen encode runs K2 twice
+    # (conv_in, conv_out) and K3 once per residual unit (3 in each of the 5
+    # encoder blocks); K1 and K4 not at all
+    depth = config["model"]["diffusion"]["config"]["depth"]
+    n_units = 3 * len(config["model"]["pretransform"]["config"]["encoder"]["config"]["c_mults"])
+    per_step = {"fused_qkv_rope_attention": 0, "fused_qkv_rope_attention_stats": 2 * depth,
+                "fused_qkv_rope_attention_backward": depth, "snake_conv1d": 2,
+                "fused_residual_unit": n_units, "snake_conv_transpose1d": 0}
+    with patched(timers):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", str(TRAIN_STEPS)])
+        total = time.perf_counter() - start
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        w = trainer.wrapper
+        dit = w.model.model
+        grad = dit.transformer.layers[0].self_attn.to_qkv.weight.grad
+        name = "model.transformer.layers.0.self_attn.to_qkv.weight"
+        initial = torch.load(dit_path, map_location="cpu", weights_only=True, mmap=True)[name]
+        initial = initial.to(w.trainable[name].device)
+        moved = (w.trainable[name].detach() - initial).abs().max().item()
+        ema_gap = max((e - p.detach()).abs().max().item() for e, p in zip(w.ema, w.dit_params))
+        ckpt = Path(trainer.ckpt_dir) / "last"
+        steps_done = w.step
+        del trainer, w, dit, initial
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        resumed = train.main(args + ["--max-steps", str(TRAIN_STEPS + 1), "--ckpt-path", str(ckpt)])
+        counts_resume = read_counts()
+        resumed_step = resumed.wrapper.step
+        del resumed
+        torch.cuda.empty_cache()
+
+    steps = times["step"][:TRAIN_STEPS]
+    med = statistics.median(steps[1:])
+    med_of = lambda key: statistics.median(times[key][1:TRAIN_STEPS])  # noqa: E731
+    dit_s = med - med_of("encode") - med_of("cond") - med_of("update")
+    seconds = SAMPLE_SIZE / config["sample_rate"]
+    log(f"  steps {[round(s, 4) for s in steps]} s; median of steps 2-{TRAIN_STEPS} {med:.4f} s = "
+        f"{TRAIN_BATCH / med:.4f} samples/s = {TRAIN_BATCH * seconds / med:.3f} s-audio/s trained")
+    log(f"  split (medians): encode {med_of('encode'):.4f} s, conditioners {med_of('cond'):.4f} s, "
+        f"DiT fwd+bwd {dit_s:.4f} s, optimizer+EMA {med_of('update'):.4f} s; "
+        f"peak memory {peak:.2f} GiB; run incl. set-up and checkpoint {total:.1f} s")
+    log(f"  losses {losses}; layer-0 to_qkv grad max|g| {grad.abs().max().item():.4g}; "
+        f"weights moved by up to {moved:.4g}; max |EMA - weights| {ema_gap:.4g}")
+    log(f"  launches, {TRAIN_STEPS} steps: {counts}; resumed step {resumed_step}, launches {counts_resume}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_STEPS + 1:
+        raise AssertionError(f"training losses not finite or missing: {losses}")
+    if not (torch.isfinite(grad).all() and grad.abs().max() > 0):
+        raise AssertionError("the layer-0 to_qkv gradient is not finite and non-zero")
+    if not (moved > 0 and ema_gap > 0 and steps_done == TRAIN_STEPS and resumed_step == TRAIN_STEPS + 1):
+        raise AssertionError("weights did not move, the EMA equals them, or the step count is off")
+    for n, c in ((TRAIN_STEPS, counts), (1, counts_resume)):
+        want = {k: v * n for k, v in per_step.items()}
+        if c != want:
+            raise AssertionError(f"launch counts {c} are not the {want} of {n} training steps")
+    return counts, counts_resume
 
 
 def rel_err(a, b):
@@ -206,10 +633,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+    import numpy as np
+
     from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, build, conv1d
-    from friendly_stable_audio_tools_tpu_torch.utils.common import dezero_
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
 
     smi = smi_line()
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -224,6 +651,10 @@ def main():
     results = {
         "fused_qkv_rope_attention": dict(route="cuda", source=src + "attention.cu",
                                          replaces=tpu + "flash_attention.py:828"),
+        "fused_qkv_rope_attention_stats": dict(route="cuda", source=src + "attention.cu",
+                                               replaces=tpu + "flash_attention.py:980"),
+        "fused_qkv_rope_attention_backward": dict(route="cuda", source=src + "attention_bwd.cu",
+                                                  replaces=tpu + "flash_attention.py:1119"),
         "snake_conv1d": dict(route="cuda", source=src + "conv1d.cu", replaces=tpu + "conv1d.py:91"),
         "fused_residual_unit": dict(route="cuda", source=src + "conv1d.cu",
                                     replaces=tpu + "conv1d.py:507"),
@@ -232,17 +663,36 @@ def main():
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
-    # ms / plain_ms: one step's 24 attention calls; the decode's calls of each conv kernel
+    # ms / plain_ms: K1 per generation step (24 calls at B2 T1025), K5 and K6
+    # per training step (48 and 24 calls at B8 T1040), K2-K4 per decode;
+    # encode_ms / plain_encode_ms: K2 and K3 per batch-8 encode
     results["fused_qkv_rope_attention"]["weight"] = {"B2 T1025 H24 kv_len None": 24}
+    train_label = f"B{TRAIN_BATCH} T{TRAIN_T} H24 kv_len {TRAIN_KV}"
+    results["fused_qkv_rope_attention_stats"]["weight"] = {train_label: 2 * 24}
+    results["fused_qkv_rope_attention_backward"]["weight"] = {train_label: 24}
     log("[3] kernels vs plain versions (bf16, tolerance = (rel-L2, max-abs / max|plain|))")
     kernel_phase(results)
+    log("[3b] training attention kernels K5 and K6 vs plain versions")
+    attention_train_phase(results)
+    log(f"[3c] K2 and K3 at the frozen encoder's shapes, batch {TRAIN_BATCH} (plain versions one "
+        f"batch element at a time)")
+    encoder_conv_phase(results)
 
     log("[4] model forwards with the kernels vs the plain versions")
     config = json.loads(SAO_CONFIG.read_text())
-    model = create_model_from_config(config, seed=0, device="cuda")
-    dezero_(model, torch.Generator(device="cuda").manual_seed(1))
+    model = build_sao(config)
+    audio_in = torch.from_numpy(np.stack([synthetic_audio(i, SAMPLE_SIZE).T for i in range(2)]))
+    audio_in = audio_in.cuda()
+    with plain_kernels():
+        z32 = model.pretransform.encode_nwc(audio_in)  # fp32 VAE, plain versions
     model.model.to(torch.bfloat16)
     model.pretransform.to(torch.bfloat16)
+    zk = model.pretransform.encode_nwc(audio_in)
+    enc_rel = rel_err(zk, z32)
+    log(f"  VAE encode {list(audio_in.shape)} -> {list(zk.shape)}: bf16 with the kernels against fp32 "
+        f"with the plain versions, rel-L2 {enc_rel:.4g}, max abs {(zk - z32).abs().max().item():.4g} "
+        f"(max|fp32| {z32.abs().max().item():.4g}; bound {ENCODE_REL_TOL})")
+    del audio_in, z32, zk
     g = torch.Generator(device="cuda").manual_seed(2)
     cond = model.get_conditioning_inputs(model.conditioner([PROMPT], device="cuda"))
     x = torch.randn(1, SAMPLE_SIZE // 2048, 64, generator=g, device="cuda")
@@ -264,10 +714,10 @@ def main():
         f"plain bf16 {err_p:.3g} (bound: kernels <= {DIT_ERR_RATIO} x plain); "
         f"kernels vs plain {rel_err(dit_k, dit_p):.3g}")
     log(f"  VAE decode [1, 64, 64] -> {list(dec_k.shape)}: rel-L2 {dec_rel:.3g} (bound {DECODE_REL_TOL})")
-    if not (err_k <= DIT_ERR_RATIO * err_p and dec_rel <= DECODE_REL_TOL):
+    if not (err_k <= DIT_ERR_RATIO * err_p and dec_rel <= DECODE_REL_TOL and enc_rel <= ENCODE_REL_TOL):
         raise AssertionError("model forward with the kernels disagrees with the plain versions")
 
-    log("[5] main path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7")
+    log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7")
     phase = {"t5": 0.0, "decode": 0.0}
 
     def timed(fn, key):
@@ -282,10 +732,8 @@ def main():
 
     model.conditioner.forward = timed(model.conditioner.forward, "t5")
     model.pretransform.decode_nwc = timed(model.pretransform.decode_nwc, "decode")
-    attention.launches = 0
-    conv1d.snake_conv1d_launches = 0
-    conv1d.fused_residual_unit_launches = 0
-    conv1d.snake_conv_transpose1d_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
     audio = generate_diffusion_cond(model, steps=STEPS, cfg_scale=CFG_SCALE, conditioning=[PROMPT],
@@ -293,10 +741,7 @@ def main():
                                     sigma_min=0.3, sigma_max=500, seed=42)
     torch.cuda.synchronize()
     total = time.perf_counter() - start
-    launches = {"fused_qkv_rope_attention": attention.launches,
-                "snake_conv1d": conv1d.snake_conv1d_launches,
-                "fused_residual_unit": conv1d.fused_residual_unit_launches,
-                "snake_conv_transpose1d": conv1d.snake_conv_transpose1d_launches}
+    launches = read_counts()
     rms = audio.float().square().mean().sqrt().item()
     seconds = SAMPLE_SIZE / config["sample_rate"]
     denoise = total - phase["t5"] - phase["decode"]
@@ -304,17 +749,40 @@ def main():
     log(f"  wall: T5 {phase['t5']:.4f} s, denoise {denoise:.4f} s ({denoise / STEPS * 1e3:.3f} ms/step), "
         f"decode {phase['decode']:.4f} s, total {total:.4f} s = {seconds / total:.3f} s-audio/s")
     log(f"  launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    expected = {"fused_qkv_rope_attention": 24 * STEPS, "fused_residual_unit": 15,
+    expected = {"fused_qkv_rope_attention": 24 * STEPS, "fused_qkv_rope_attention_stats": 0,
+                "fused_qkv_rope_attention_backward": 0, "fused_residual_unit": 15,
                 "snake_conv_transpose1d": 5}
     if tuple(audio.shape) != (1, 2, SAMPLE_SIZE) or not torch.isfinite(audio).all() or rms <= 0:
         raise AssertionError("generation output is not finite [1, 2, 2097152] audio")
     if any(launches[k] != n for k, n in expected.items()) or launches["snake_conv1d"] < 2:
         raise AssertionError(f"launch counts {launches} do not show the main path's kernels")
+    del model, audio
+    torch.cuda.empty_cache()
 
-    line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],
-                             replaces=r["replaces"], launches=launches[name],
-                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
-                        for name, r in results.items()]}
+    # phases 6-7 write ~23 GB (a de-zeroed DiT and a full training checkpoint)
+    # into the checkout's build/ directory, which the kernel build uses too
+    log(f"[6] one DiT training step at batch {TRAIN_BATCH}: attention kernels vs plain bf16 vs "
+        f"fp32 attention")
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(scratch).free / 1e9
+    log(f"  {free_gb:.1f} GB free under {scratch} for phases 6-7")
+    if free_gb < 30:
+        raise RuntimeError(f"phases 6-7 need ~23 GB of disk under {scratch}, {free_gb:.1f} GB free")
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        dit_path = dit_train_step_phase(config, tmp)
+        log(f"[7] training path: train.main on SAO 1.0, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps "
+            f"from {N_WAVS} synthetic {WAV_SECONDS} s WAVs, checkpoint, resume for one more step")
+        counts_train, counts_resume = training_phase(config, tmp, dit_path)
+
+    by_path = {"generate": launches, "train": counts_train, "train_resume": counts_resume}
+    line = {"kernels": [
+        dict(name=name, route=r["route"], source=r["source"], replaces=r["replaces"],
+             launches=sum(c[name] for c in by_path.values()), max_abs_err=r["max_abs_err"],
+             ms=r["ms"], plain_ms=r["plain_ms"],
+             launches_by_path={p: c[name] for p, c in by_path.items()},
+             **{k: r[k] for k in ("encode_ms", "plain_encode_ms") if k in r})
+        for name, r in results.items()]}
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

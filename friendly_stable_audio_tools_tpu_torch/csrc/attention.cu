@@ -2,6 +2,10 @@
 // embedding applied in-kernel. Replaces the head-pair Pallas kernel
 // `_fused_pair_forward` / `_fused_pair_kernel`
 // (friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:828, :796).
+// K5 is the same kernel with its LSE output on: it replaces the training
+// forward `_fused_pair_forward_stats` / `_fused_pair_stats_kernel` (:980, :931)
+// and writes the per-head base-2 log-sum-exp m + log2(l) of the prescaled
+// scores (:957) as lse [B, H, T] fp32, the residual K6 (attention_bwd.cu) reads.
 //
 // qkv [B, T, 3*H*64] bf16 (q | k | v, heads of 64 in each third), read in
 // place with its row stride; cos/sin [T, rot] fp32 rotary tables; out
@@ -12,72 +16,28 @@
 // sum). Scores and P.V run on the tensor cores (WMMA bf16, fp32 accumulate).
 #include <mma.h>
 
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 using namespace nvcuda;
+using namespace fsat_attn;
 
 namespace {
 
-constexpr int kD = 64;     // head dim
-constexpr int kBQ = 64;    // q rows per block
-constexpr int kBK = 64;    // keys per tile
-constexpr int kWarps = 4;  // 16 q rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = 72;    // bf16 tile row stride: keeps 16-row fragments 32-byte aligned
-constexpr int kSld = 68;   // fp32 scratch row stride
-
-// Copies rows [r0, r0 + 64) of the 64-wide column block starting at `col`
-// into dst [64][kLd]; rows at or beyond `limit` are zero.
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ base, size_t row_stride,
-                                           int col, int r0, int limit, bf16* dst) {
-  for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
-    const int r = i >> 3, seg = i & 7;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      v = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * row_stride + col + seg * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + seg * 8) = v;
-  }
-}
-
-// dst = bf16(x*C + rotate_half(x)*S) in fp32, C/S = scale * cos/sin over the
-// first `rot` dims and (scale, 0) beyond them (the tables of
-// flash_attention.py:_rope_tables, rotate-half sign convention :730-734).
-__device__ __forceinline__ void rope_tile(const bf16* __restrict__ src, bf16* __restrict__ dst,
-                                          const float* __restrict__ cos_t,
-                                          const float* __restrict__ sin_t, int r0, int T,
-                                          int rot, float scale) {
-  const int half = rot >> 1;
-  for (int i = threadIdx.x; i < 64 * kD; i += kThreads) {
-    const int r = i >> 6, d = i & (kD - 1), t = r0 + r;
-    const float x = __bfloat162float(src[r * kLd + d]);
-    float y;
-    if (t < T && d < rot) {
-      const float c = cos_t[(size_t)t * rot + d] * scale;
-      const float s = sin_t[(size_t)t * rot + d] * scale;
-      const float partner = d < half ? -__bfloat162float(src[r * kLd + d + half])
-                                     : __bfloat162float(src[r * kLd + d - half]);
-      y = x * c + partner * s;
-    } else {
-      y = x * scale;
-    }
-    dst[r * kLd + d] = __float2bfloat16_rn(y);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 fused_qkv_rope_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cos_t,
-                                const float* __restrict__ sin_t, bf16* __restrict__ out, int T,
-                                int H, int rot, int kv_len, float prescale) {
+                                const float* __restrict__ sin_t, bf16* __restrict__ out,
+                                float* __restrict__ lse, int T, int H, int rot, int kv_len,
+                                float prescale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);                      // [64][kLd]
-  bf16* Ks = Qs + kBQ * kLd;                                     // [64][kLd]
-  bf16* Vs = Ks + kBK * kLd;                                     // [64][kLd]
-  bf16* Ps = Vs + kBK * kLd;                                     // [warp][16][kLd]
+  bf16* Ks = Qs + kTile * kLd;                                     // [64][kLd]
+  bf16* Vs = Ks + kTile * kLd;                                     // [64][kLd]
+  bf16* Ps = Vs + kTile * kLd;                                     // [warp][16][kLd]
   float* Ss = reinterpret_cast<float*>(Ps + kWarps * 16 * kLd);  // [warp][16][kSld]
   bf16* raw = reinterpret_cast<bf16*>(Ss);                       // [64][kLd] staging, aliases Ss
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int HD = H * kD;
   const size_t row_stride = (size_t)3 * HD;
   const bf16* base = qkv + (size_t)b * T * row_stride;
@@ -96,9 +56,9 @@ fused_qkv_rope_attention_kernel(const bf16* __restrict__ qkv, const float* __res
   float* Sw = Ss + warp * 16 * kSld;
 
   typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-  const int n_tiles = (kv_len + kBK - 1) / kBK;
+  const int n_tiles = (kv_len + kTile - 1) / kTile;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * kTile;
     __syncthreads();  // Qs written; previous tile's readers of Ks/Vs/Ss done
     stage_tile(base, row_stride, HD + h * kD, k0, kv_len, raw);
     stage_tile(base, row_stride, 2 * HD + h * kD, k0, kv_len, Vs);
@@ -186,20 +146,23 @@ fused_qkv_rope_attention_kernel(const bf16* __restrict__ qkv, const float* __res
       for (int j = 0; j < 8; ++j) pk.h[j] = __float2bfloat16_rn(o[i * 8 + j] / denom);
       dst[i] = pk.u;
     }
+    if (lse != nullptr && hc == 0) lse[((size_t)b * H + h) * T + t] = m + log2f(denom);
   }
 }
 
 }  // namespace
 
+// lse == nullptr: K1 (inference); otherwise K5, which also writes lse [B, H, T].
 extern "C" int fsat_fused_qkv_rope_attention(const void* qkv, const float* cos_t,
-                                             const float* sin_t, void* out, int B, int T, int H,
-                                             int rot, int kv_len, float prescale, void* stream) {
+                                             const float* sin_t, void* out, float* lse, int B,
+                                             int T, int H, int rot, int kv_len, float prescale,
+                                             void* stream) {
   const size_t smem = (size_t)4 * 64 * kLd * sizeof(bf16) + (size_t)kWarps * 16 * kSld * sizeof(float);
   cudaError_t err = allow_smem(fused_qkv_rope_attention_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((T + kTile - 1) / kTile, H, B);
   fused_qkv_rope_attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), cos_t, sin_t, static_cast<bf16*>(out), T, H, rot, kv_len,
+      static_cast<const bf16*>(qkv), cos_t, sin_t, static_cast<bf16*>(out), lse, T, H, rot, kv_len,
       prescale);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
-"""Oobleck VAE decoder (counterpart of the decode side of
-friendly_stable_audio_tools_tpu/models/autoencoders.py).
+"""Oobleck VAE (counterpart of friendly_stable_audio_tools_tpu/models/autoencoders.py).
 
 Every layer of the snake decoder runs through a fused kernel: conv_in and
 conv_out through K2 (snake_conv1d), each upsample through K4
 (snake_conv_transpose1d), each residual unit through K3
-(fused_residual_unit). The encoder is not ported yet (the text-to-audio
-slice only decodes). Channels-last [B, T, C].
+(fused_residual_unit). The snake encoder, which training runs frozen, uses
+K2 for conv_in and conv_out and K3 for its residual units; its strided
+downsamples are the plain reshape-GEMM form (ops/convs.py), as the JAX
+package leaves them to XLA. The kernels have no backward: the VAE runs under
+torch.no_grad() on the card. Channels-last [B, T, C].
 """
 
 from __future__ import annotations
@@ -38,6 +40,46 @@ class ResidualUnit(nn.Module):
         return conv_kernels.fused_residual_unit(
             x, self.conv1.weight(), self.conv1.bias, a1, ib1, self.conv2.weight()[0],
             self.conv2.bias, a2, ib2, dilation=self.dilation)
+
+
+class EncoderBlock(nn.Module):
+    """Three residual units at dilations 1, 3, 9 (one K3 launch each), then
+    snake -> strided downsample conv (JAX :76)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int):
+        super().__init__()
+        self.res = nn.ModuleList([ResidualUnit(in_channels, d) for d in (1, 3, 9)])
+        self.act = SnakeBeta(in_channels)
+        self.down = WNConv1d(in_channels, out_channels, 2 * stride, stride=stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for unit in self.res:
+            x = unit(x)
+        return self.down(x, snake=self.act.effective())
+
+
+class OobleckEncoder(nn.Module):
+    """Audio [B, T, in_channels] -> [B, T / prod(strides), latent_dim] (JAX :148)."""
+
+    def __init__(self, in_channels: int = 2, channels: int = 128, latent_dim: int = 32,
+                 c_mults: tp.Sequence[int] = (1, 2, 4, 8), strides: tp.Sequence[int] = (2, 4, 8, 8),
+                 use_snake: bool = False, antialias_activation: bool = False):
+        super().__init__()
+        if not use_snake or antialias_activation:
+            raise NotImplementedError("the torch port's Oobleck encoder is the snake form")
+        c_mults = [1] + list(c_mults)
+        self.conv_in = WNConv1d(in_channels, c_mults[0] * channels, 7)
+        self.blocks = nn.ModuleList([
+            EncoderBlock(c_mults[i] * channels, c_mults[i + 1] * channels, strides[i])
+            for i in range(len(c_mults) - 1)])
+        self.act_out = SnakeBeta(c_mults[-1] * channels)
+        self.conv_out = WNConv1d(c_mults[-1] * channels, latent_dim, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x.to(self.conv_in.v.dtype))
+        for block in self.blocks:
+            x = block(x)
+        return self.conv_out(x, snake=self.act_out.effective())
 
 
 class DecoderBlock(nn.Module):
@@ -86,14 +128,23 @@ class OobleckDecoder(nn.Module):
 
 
 class AudioAutoencoder(nn.Module):
-    """Decode side of the VAE wrapper: bottleneck decode, then the decoder."""
+    """The VAE wrapper: encoder -> bottleneck encode, bottleneck decode -> decoder."""
 
-    def __init__(self, decoder: OobleckDecoder, bottleneck: tp.Optional[nn.Module],
-                 downsampling_ratio: int):
+    def __init__(self, encoder: tp.Optional[OobleckEncoder], decoder: OobleckDecoder,
+                 bottleneck: tp.Optional[nn.Module], downsampling_ratio: int):
         super().__init__()
+        self.encoder = encoder
         self.decoder = decoder
         self.bottleneck = bottleneck
         self.downsampling_ratio = downsampling_ratio
+
+    def encode_nwc(self, x: torch.Tensor) -> torch.Tensor:
+        """audio [B, T, C] -> latents [B, T / ratio, latent_dim] (JAX
+        `_encode_nwc` :337, with no sampling rng: the VAE posterior mean)."""
+        if self.encoder is None:
+            raise ValueError("this autoencoder config has no encoder")
+        z = self.encoder(x)
+        return self.bottleneck.encode(z) if self.bottleneck is not None else z
 
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
         """latents [B, L, latent_dim] -> audio [B, T, C]."""
@@ -103,15 +154,16 @@ class AudioAutoencoder(nn.Module):
 
 
 def create_autoencoder_from_config(ae: tp.Dict[str, tp.Any]) -> AudioAutoencoder:
-    """The decode side of an autoencoder's `model` config (JAX :675); the
-    encoder entry is read by the JAX package only."""
-    decoder_cfg = ae["decoder"]
-    if decoder_cfg["type"] != "oobleck":
-        raise NotImplementedError(f"decoder type {decoder_cfg['type']!r} is not in the torch port")
-    cfg = dict(decoder_cfg.get("config", {}))
+    """An autoencoder's `model` config (JAX :675): Oobleck encoder (when
+    given) and decoder, and the bottleneck."""
+    for part in ("encoder", "decoder"):
+        if part in ae and ae[part]["type"] != "oobleck":
+            raise NotImplementedError(f"{part} type {ae[part]['type']!r} is not in the torch port")
+    cfg = dict(ae["decoder"].get("config", {}))
     cfg.pop("soft_clip", None)
     bottleneck = ae.get("bottleneck")
     return AudioAutoencoder(
+        encoder=OobleckEncoder(**ae["encoder"].get("config", {})) if "encoder" in ae else None,
         decoder=OobleckDecoder(**cfg),
         bottleneck=create_bottleneck_from_config(bottleneck) if bottleneck else None,
         downsampling_ratio=ae["downsampling_ratio"])

@@ -1,8 +1,9 @@
 """Bottlenecks (counterpart of friendly_stable_audio_tools_tpu/models/bottleneck.py).
 
-Only the decode side of the VAE bottleneck, which Stable Audio Open's
-pretransform uses: sampling happens on the encode side, so decoding is the
-identity."""
+The VAE bottleneck of Stable Audio Open's pretransform. Encoding returns
+the posterior mean, as the JAX package's training path does: it encodes
+with no sampling rng (autoencoders.py:347-355, `vae_sample` with rng=None),
+where the upstream reference draws a sample. Decoding is the identity."""
 
 from __future__ import annotations
 
@@ -13,6 +14,10 @@ from torch import nn
 
 
 class VAEBottleneck(nn.Module):
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., 2 * latent_dim] (mean | scale) -> the mean (bottleneck.py:63-84)."""
+        return x.chunk(2, dim=-1)[0]
+
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         return x
 

@@ -5,8 +5,11 @@ Ported for Stable Audio Open 1.0's configuration: Fourier timestep features
 -> MLP, conditioning-token and global-condition MLPs, the global embedding
 prepended as one token (`global_cond_type="prepend"`), zero-initialised 1x1
 residual convs around the ContinuousTransformer, and CFG by batch-doubling
-with optional rescale. Other options of the JAX module (adaLN, patching,
-input-concat and prepend conditioning) raise NotImplementedError.
+with optional rescale. In training mode, CFG dropout swaps each batch
+element's conditioning tokens for the null embedding with probability
+`cfg_dropout_prob` (JAX dit.py:238-247). Other options of the JAX module
+(adaLN, patching, input-concat and prepend conditioning) raise
+NotImplementedError.
 
 Layout: x is channels-last [B, T, io_channels]. The module runs in the
 dtype of its parameters: inputs are cast to it on entry.
@@ -58,7 +61,7 @@ class DiffusionTransformer(nn.Module):
         self.transformer = ContinuousTransformer(
             dim=embed_dim, depth=depth, dim_in=io_channels, dim_out=io_channels,
             dim_heads=embed_dim // num_heads, cross_attend=cond_token_dim > 0,
-            cond_token_dim=cond_embed_dim, ff_mult=ff_mult)
+            cond_token_dim=cond_embed_dim, ff_mult=ff_mult, grad_checkpointing=grad_checkpointing)
         self.preprocess_conv = Conv1d(io_channels, io_channels, zero_init=True)
         self.postprocess_conv = Conv1d(io_channels, io_channels, zero_init=True)
 
@@ -86,10 +89,23 @@ class DiffusionTransformer(nn.Module):
                 negative_cross_attn_cond: tp.Optional[torch.Tensor] = None,
                 negative_cross_attn_mask: tp.Optional[torch.Tensor] = None,
                 global_embed: tp.Optional[torch.Tensor] = None, cfg_scale: float = 1.0,
-                scale_phi: float = 0.0) -> torch.Tensor:
+                scale_phi: float = 0.0, cfg_dropout_prob: float = 0.0,
+                cfg_dropout_mask: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, C], t [B] -> [B, T, C]. With cfg_scale != 1 and
         conditioning tokens, the batch is doubled (cond | null or negative
-        tokens) and the two halves combined (JAX dit.py:299-363)."""
+        tokens) and the two halves combined (JAX dit.py:299-363).
+
+        Training mode with cfg_dropout_prob > 0: each element's tokens become
+        the null embedding where `cfg_dropout_mask` [B] is True, drawn as
+        uniform < cfg_dropout_prob from `generator` when not given."""
+        if self.training and cfg_dropout_prob > 0.0 and cross_attn_cond is not None:
+            if cfg_dropout_mask is None:
+                u = torch.rand(cross_attn_cond.shape[0], generator=generator,
+                               device=cross_attn_cond.device)
+                cfg_dropout_mask = u < cfg_dropout_prob
+            cross_attn_cond = torch.where(cfg_dropout_mask.to(cross_attn_cond.device)[:, None, None],
+                                          torch.zeros_like(cross_attn_cond), cross_attn_cond)
         if cfg_scale == 1.0 or cross_attn_cond is None:
             return self._forward(x, t, cross_attn_cond, global_embed)
 

@@ -1,7 +1,7 @@
 """Pretransforms (counterpart of friendly_stable_audio_tools_tpu/models/pretransforms.py).
 
-The frozen autoencoder between the diffusion latents and audio, decode side
-only, unchunked as Stable Audio Open runs it."""
+The frozen autoencoder between the diffusion latents and audio, unchunked as
+Stable Audio Open runs it."""
 
 from __future__ import annotations
 
@@ -14,13 +14,19 @@ from .autoencoders import AudioAutoencoder, create_autoencoder_from_config
 
 
 class AutoencoderPretransform(nn.Module):
-    """Latent scale + frozen VAE decode (JAX pretransforms.py:56, decode_nwc :94)."""
+    """Latent scale + frozen VAE (JAX pretransforms.py:56, encode_nwc :83, decode_nwc :94)."""
 
     def __init__(self, model: AudioAutoencoder, scale: float = 1.0):
         super().__init__()
         self.model = model
         self.scale = scale
         self.downsampling_ratio = model.downsampling_ratio
+
+    @torch.no_grad()
+    def encode_nwc(self, x: torch.Tensor) -> torch.Tensor:
+        """audio [B, T, C] -> latents [B, T / ratio, latent_dim] / scale, fp32;
+        the encoder runs in the dtype of its parameters."""
+        return self.model.encode_nwc(x).float() / self.scale
 
     @torch.no_grad()
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:

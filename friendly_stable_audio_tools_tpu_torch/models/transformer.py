@@ -3,9 +3,11 @@ friendly_stable_audio_tools_tpu/models/transformer.py).
 
 Ported for the configuration Stable Audio Open 1.0 runs: pre-norm blocks
 with fused-qkv self-attention under partial rotary embedding (through the
-K1 kernel, ops/kernels/attention.py), cross-attention over conditioning
-tokens (plain, ops/attention.py), a SwiGLU feed-forward and zero-initialised
-branch outputs. Everything is channels-last [B, T, C].
+K1 kernel, or K5/K6 when training, ops/kernels/attention.py), cross-attention
+over conditioning tokens (plain, ops/attention.py), a SwiGLU feed-forward and
+zero-initialised branch outputs. In training mode with `grad_checkpointing`
+each block is recomputed in the backward pass (JAX transformer.py:619-627).
+Everything is channels-last [B, T, C].
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import typing as tp
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.embeddings import rotary_freqs
@@ -155,10 +158,12 @@ class ContinuousTransformer(nn.Module):
     def __init__(self, dim: int, depth: int, dim_in: tp.Optional[int] = None,
                  dim_out: tp.Optional[int] = None, dim_heads: int = 64,
                  cross_attend: bool = False, cond_token_dim: tp.Optional[int] = None,
-                 zero_init_branch_outputs: bool = True, ff_mult: int = 4):
+                 zero_init_branch_outputs: bool = True, ff_mult: int = 4,
+                 grad_checkpointing: bool = False):
         super().__init__()
         self.dim = dim
         self.dim_heads = dim_heads
+        self.grad_checkpointing = grad_checkpointing
         self.project_in = nn.Linear(dim_in, dim, bias=False) if dim_in else None
         self.project_out = nn.Linear(dim, dim_out, bias=False) if dim_out else None
         self.layers = nn.ModuleList([
@@ -186,9 +191,14 @@ class ContinuousTransformer(nn.Module):
 
         rot_dim = min(max(self.dim_heads // 2, 32), self.dim_heads)
         rot = rotary_freqs(x.shape[1], rot_dim, device=x.device)
+        # per-layer recompute only under training, like the JAX package
+        remat = self.grad_checkpointing and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, context=context, rotary_pos_emb=rot, kv_len=kv_len,
-                      cross_cfg_skip=cross_cfg_skip)
+            if remat:
+                x = checkpoint(layer, x, context, rot, kv_len, cross_cfg_skip, use_reentrant=False)
+            else:
+                x = layer(x, context=context, rotary_pos_emb=rot, kv_len=kv_len,
+                          cross_cfg_skip=cross_cfg_skip)
         x = x[:, :valid_len]
         if self.project_out is not None:
             x = self.project_out(x)

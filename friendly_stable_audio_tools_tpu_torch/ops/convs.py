@@ -7,9 +7,11 @@ what the CUDA kernels read, so converted checkpoints need no transpose
 `weight_norm(dim=0)`: the magnitude `g` is per OUTPUT channel for a conv and
 per INPUT channel for a transposed conv (whose dim 0 is in_channels).
 
-The weight-normed convs run only in the forms the Oobleck decoder uses, each
-through its fused snake -> conv kernel (ops/kernels/conv1d.py): stride-1
-'same' convs (K2) and ConvTranspose1d(k = 2s, stride s, padding s/2) (K4).
+The weight-normed convs run only in the forms the Oobleck VAE uses: stride-1
+'same' convs through the fused snake -> conv kernel K2, ConvTranspose1d(k =
+2s, stride s, padding s/2) through K4 (ops/kernels/conv1d.py), and the
+encoder's strided downsample Conv1d(k = 2s, stride s, padding s/2) in the
+plain reshape-GEMM form of `snake_downsample_conv1d`.
 """
 
 from __future__ import annotations
@@ -17,9 +19,42 @@ from __future__ import annotations
 import typing as tp
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .kernels import conv1d as conv_kernels
+
+
+def snake_downsample_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tensor],
+                            alpha: tp.Optional[torch.Tensor], inv_beta: tp.Optional[torch.Tensor],
+                            stride: int) -> torch.Tensor:
+    """snake(x) -> Conv1d(k = 2s, stride s, padding s/2), x [B, T, Cin] with
+    s | T, w [2s, Cin, Cout] -> [B, T/s, Cout] (JAX ops/pallas/conv1d.py:315,
+    plain XLA there, so no kernel). The padded input viewed as rows of s
+    samples [T/s + 1, s*Cin] puts each output's window in two consecutive
+    rows, so the conv is two GEMMs over a free reshape. The snake runs in
+    fp32 (snake(0) == 0, so padding after it is exact) and is rounded to x's
+    dtype before the products; products accumulate in fp32 (per GEMM in x's
+    dtype on the card). One batch element at a time: the fp32 snake
+    temporaries of a whole batch at 2M samples would take tens of GB."""
+    b, t, cin = x.shape
+    k, _, cout = w.shape
+    s = stride
+    if k != 2 * s or s % 2 or t % s:
+        raise ValueError(f"snake_downsample_conv1d takes k = 2s, an even s dividing T; "
+                         f"got k = {k}, s = {s}, T = {t}")
+    dt = x.dtype
+    wf = w.to(dt).reshape(k * cin, cout)
+    out = []
+    for xb in x.split(1):
+        if alpha is not None:
+            xb = conv_kernels.snake(xb.float(), alpha.float(), inv_beta.float()).to(dt)
+        xr = F.pad(xb[0], (0, 0, s // 2, s // 2)).reshape(t // s + 1, s * cin)
+        y = (xr[:-1] @ wf[:s * cin]).float() + (xr[1:] @ wf[s * cin:]).float()
+        if bias is not None:
+            y = y + bias.float()
+        out.append(y.to(dt))
+    return torch.stack(out)
 
 
 class Conv1d(nn.Module):
@@ -36,12 +71,15 @@ class Conv1d(nn.Module):
 
 
 class WNConv1d(nn.Module):
-    """Weight-normalised stride-1 conv: w = g * v / ||v||_(k, in) per output channel."""
+    """Weight-normalised conv: w = g * v / ||v||_(k, in) per output channel.
+    Stride 1 with 'same' padding (K2), or the encoder's downsample with
+    kernel_size = 2 * stride."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 dilation: int = 1, use_bias: bool = True):
+                 dilation: int = 1, use_bias: bool = True, stride: int = 1):
         super().__init__()
         self.dilation = dilation
+        self.stride = stride
         self.v = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels))
         self.g = nn.Parameter(torch.empty(out_channels))
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
@@ -52,6 +90,9 @@ class WNConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor, snake: tp.Optional[tp.Tuple] = None) -> torch.Tensor:
         alpha, inv_beta = snake if snake is not None else (None, None)
+        if self.stride > 1:
+            return snake_downsample_conv1d(x, self.weight(), self.bias, alpha, inv_beta,
+                                           self.stride)
         return conv_kernels.snake_conv1d(x, self.weight(), self.bias, alpha, inv_beta,
                                          dilation=self.dilation)
 

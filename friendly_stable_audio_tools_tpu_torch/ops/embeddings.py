@@ -41,3 +41,15 @@ def apply_rotary_pos_emb(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     rotated = torch.cat([-x2, x1], dim=-1)
     out = x * torch.cos(f) + rotated * torch.sin(f)
     return torch.cat([out, rest], dim=-1).to(t.dtype)
+
+
+def apply_rotary_pos_emb_transpose(dy: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """The vjp of :func:`apply_rotary_pos_emb` (the rope is linear):
+    dx = dy*cos + rotate_half^T(dy*sin), where rotate_half^T(y) = [y2, -y1]
+    over the first freqs.shape[-1] dims (flash_attention.py:1084-1099 of the
+    JAX package); dims beyond pass through. fp32 in and out."""
+    rot = freqs.shape[-1]
+    f = freqs[-dy.shape[-2]:].float()
+    y, rest = dy[..., :rot], dy[..., rot:]
+    ys1, ys2 = (y * torch.sin(f)).chunk(2, dim=-1)
+    return torch.cat([y * torch.cos(f) + torch.cat([ys2, -ys1], dim=-1), rest], dim=-1)

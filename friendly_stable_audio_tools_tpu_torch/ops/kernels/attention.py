@@ -1,8 +1,14 @@
-"""Fused qkv + rotary + self-attention (K1).
+"""Fused qkv + rotary + self-attention: inference forward (K1), training
+forward with LSE (K5) and backward (K6), and their autograd binding.
 
-Replaces the head-pair Pallas kernel ``_fused_pair_forward`` /
-``_fused_pair_kernel`` (friendly_stable_audio_tools_tpu/ops/pallas/
-flash_attention.py:828, :796) that carries the DiT's self-attention.
+Replaces the head-pair Pallas kernels of the DiT's self-attention
+(friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py):
+
+* K1 ``_fused_pair_forward`` / ``_fused_pair_kernel`` (:828, :796);
+* K5 ``_fused_pair_forward_stats`` / ``_fused_pair_stats_kernel`` (:980, :931);
+* K6 ``_pair_backward`` (:1119) with ``_rope_pair_k_kernel`` (:1229) and
+  ``_pair_bwd_kernel`` (:1029);
+* the ``_fused_pair`` custom_vjp (:1336-1392) becomes :class:`FusedQKVRopeAttention`.
 
 What it computes: non-causal attention of a fused ``[B, T, 3*H*D]`` qkv
 tensor with the fp32 partial rotary embedding of
@@ -10,20 +16,30 @@ tensor with the fp32 partial rotary embedding of
 ``log2(e)/sqrt(D)`` so the softmax runs in base 2, keys at or beyond
 ``kv_len`` masked, output ``[B, T, H*D]``. q and k are rounded to the input
 dtype after the rope and before the score product, P to the input dtype
-before P.V; scores, softmax and accumulation are fp32.
+before P.V; scores, softmax and accumulation are fp32. K5 also returns the
+base-2 log-sum-exp ``lse [B, H, T]`` of the prescaled scores. K6 computes,
+per head, with ``q^``/``k^`` the rounded roped operands and
+``delta = rowsum(dO * O)``::
 
-What bounds it on the H100: at the SAO shape (B = 2 under CFG, 24 heads,
-T = 1025) each call is ~13 GFLOP of score and P.V products over a 3 MB
-input, so it is bound by tensor-core work and by how much of it the
-softmax's serial dependence leaves idle. The kernel (csrc/attention.cu)
-gives one block a 64-row q tile of one head, ropes and prescales it once,
-then streams 64-key tiles (roped as they are loaded) through an online
-base-2 softmax with WMMA bf16 products, so the T x T score matrix never
-exists in device memory; q, k and v are read with the qkv row stride
-rather than copied out, and the ragged last tile is masked in-kernel.
+    s = q^ k^T, p = exp2(s - lse), dp = dO v^T, ds = round(p * (dp - delta))
+    dq = unrope(ds k^) / sqrt(D), dk = unrope(ds^T q^) / log2(e), dv = round(p)^T dO
 
-The plain version below runs for CPU tensors (the CPU tests); CUDA tensors
-launch the kernel or raise.
+What bounds them on the H100: at the SAO shapes each call is tens of GFLOP
+of score and P.V products over a few MB of input, so they are bound by
+tensor-core work and by how much of it the softmax's serial dependence
+leaves idle. The kernels (csrc/attention.cu, csrc/attention_bwd.cu) give one
+block a 64-row tile of one head and stream 64-row tiles of the other operand
+(roped as they are loaded) through WMMA bf16 products, so the T x T score
+matrix never exists in device memory; q, k and v are read with the qkv row
+stride rather than copied out, and ragged tiles are masked in-kernel. K6
+splits as FlashAttention-2 does (a key-tile pass for dk/dv, a q-tile pass
+for dq) because the TPU kernel's resident whole-sequence dk/dv accumulators
+do not fit a Hopper block's shared memory.
+
+The plain versions below run for CPU tensors (the CPU tests); CUDA tensors
+launch the kernels or raise. The CUDA kernels take bf16: the autograd
+binding casts an fp32 qkv to bf16 and its gradient back, where the JAX
+training path casts (flash_attention.py:990-992, 1128).
 """
 
 from __future__ import annotations
@@ -33,29 +49,191 @@ import typing as tp
 
 import torch
 
-from ..embeddings import apply_rotary_pos_emb
+from ..embeddings import apply_rotary_pos_emb, apply_rotary_pos_emb_transpose
 from . import build
 
-launches = 0
+# launch counts: each wrapper adds one where it launches its kernel
+launches = 0  # K1
+stats_launches = 0  # K5
+backward_launches = 0  # K6 (one dk/dv pass and one dq pass per count)
 
 LOG2E = 1.4426950408889634
 
 
-def fused_qkv_rope_attention_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
-                                   kv_len: tp.Optional[int] = None) -> torch.Tensor:
+def _valid_len(t: int, kv_len: tp.Optional[int]) -> int:
+    valid = t if kv_len is None else int(kv_len)
+    if not 1 <= valid <= t:
+        raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
+    return valid
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, T, H*D] -> [B, H, T, D] in fp32."""
+    b, t, hd = x.shape
+    return x.float().view(b, t, num_heads, hd // num_heads).transpose(1, 2)
+
+
+def _roped_operands(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
+    """(q^, k^, v) [B, H, T, D] in fp32: roped q prescaled by log2(e)/sqrt(D)
+    and roped k, both rounded to the input dtype, as the kernels form them."""
     dt = qkv.dtype
     b, t, three_hd = qkv.shape
     d = three_hd // (3 * num_heads)
-    valid = t if kv_len is None else kv_len
-    q, k, v = qkv.float().view(b, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)  # [B, H, T, D]
+    q, k, v = qkv.float().view(b, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     q = (apply_rotary_pos_emb(q, freqs) * (LOG2E / math.sqrt(d))).to(dt).float()
     k = apply_rotary_pos_emb(k, freqs).to(dt).float()
+    return q, k, v
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, valid: int) -> torch.Tensor:
     s = q @ k.transpose(-1, -2)
-    if valid < t:
+    if valid < s.shape[-1]:
         s[..., valid:] = -math.inf
-    p = torch.exp2(s - s.amax(-1, keepdim=True))
-    o = (p.to(dt).float() @ v) / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    return o.transpose(1, 2).reshape(b, t, num_heads * d).to(dt)
+    return s
+
+
+def fused_qkv_rope_attention_stats_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
+                                         kv_len: tp.Optional[int] = None):
+    """-> (out [B, T, H*D] in qkv's dtype, lse [B, H, T] fp32, base 2)."""
+    dt = qkv.dtype
+    b, t, _ = qkv.shape
+    q, k, v = _roped_operands(qkv, freqs, num_heads)
+    s = _masked_scores(q, k, _valid_len(t, kv_len))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = (p.to(dt).float() @ v) / l
+    out = o.transpose(1, 2).reshape(b, t, -1).to(dt)
+    return out, (m + torch.log2(l)).squeeze(-1)
+
+
+def fused_qkv_rope_attention_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
+                                   kv_len: tp.Optional[int] = None) -> torch.Tensor:
+    return fused_qkv_rope_attention_stats_plain(qkv, freqs, num_heads, kv_len)[0]
+
+
+def fused_qkv_rope_attention_backward_plain(qkv: torch.Tensor, out: torch.Tensor,
+                                            lse: torch.Tensor, grad_out: torch.Tensor,
+                                            freqs: torch.Tensor, num_heads: int,
+                                            kv_len: tp.Optional[int] = None,
+                                            dtype: tp.Optional[torch.dtype] = None) -> torch.Tensor:
+    """The K6 formula written out (not a call to autograd, so the tests can
+    hold it against autograd): dqkv [B, T, 3*H*D] in `dtype` (default qkv's)."""
+    dt = qkv.dtype
+    b, t, three_hd = qkv.shape
+    d = three_hd // (3 * num_heads)
+    q, k, v = _roped_operands(qkv, freqs, num_heads)
+    p = torch.exp2(_masked_scores(q, k, _valid_len(t, kv_len)) - lse.float()[..., None])
+    do = _heads(grad_out.to(dt), num_heads)
+    delta = (do * _heads(out.to(dt), num_heads)).sum(-1, keepdim=True)
+    ds = (p * (do @ v.transpose(-1, -2) - delta)).to(dt).float()
+    dq = apply_rotary_pos_emb_transpose(ds @ k, freqs) / math.sqrt(d)
+    dk = apply_rotary_pos_emb_transpose(ds.transpose(-1, -2) @ q, freqs) / LOG2E
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+
+    def merge(x):
+        return x.transpose(1, 2).reshape(b, t, num_heads * d)
+
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dtype or dt)
+
+
+def _cuda_inputs(name: str, qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
+    """Checks what the kernels take; returns (d, rot, cos, sin)."""
+    d = qkv.shape[-1] // (3 * num_heads)
+    rot = freqs.shape[-1]
+    if qkv.dtype != torch.bfloat16 or d != 64 or rot % 2 or rot > d:
+        raise ValueError(f"{name}: the CUDA kernel takes bf16, head dim 64 and an even rot <= 64, "
+                         f"got {qkv.dtype}, D = {d}, rot = {rot}")
+    if freqs.device != qkv.device:
+        raise ValueError(f"{name}: freqs must be on the qkv device")
+    f = freqs[-qkv.shape[1]:].float()
+    return d, rot, torch.cos(f).contiguous(), torch.sin(f).contiguous()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_forward(qkv, freqs, num_heads, valid, with_lse: bool):
+    name = "fused_qkv_rope_attention" + ("_stats" if with_lse else "")
+    b, t, _ = qkv.shape
+    d, rot, cos, sin = _cuda_inputs(name, qkv, freqs, num_heads)
+    qkv = qkv.contiguous()
+    out = torch.empty(b, t, num_heads * d, device=qkv.device, dtype=qkv.dtype)
+    lse = (torch.empty(b, num_heads, t, device=qkv.device, dtype=torch.float32)
+           if with_lse else None)
+    err = build.library().fsat_fused_qkv_rope_attention(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, t, num_heads, rot, valid,
+        LOG2E / math.sqrt(d), _stream(qkv.device))
+    build.check(err, name)
+    return out, lse
+
+
+def fused_qkv_rope_attention_stats(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
+                                   kv_len: tp.Optional[int] = None):
+    """K5: the attention and its base-2 LSE -> (out [B, T, H*D], lse [B, H, T] fp32)."""
+    global stats_launches
+    valid = _valid_len(qkv.shape[1], kv_len)
+    if qkv.device.type == "cpu":
+        return fused_qkv_rope_attention_stats_plain(qkv, freqs, num_heads, kv_len)
+    out, lse = _launch_forward(qkv, freqs, num_heads, valid, with_lse=True)
+    stats_launches += 1
+    return out, lse
+
+
+def fused_qkv_rope_attention_backward(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                                      grad_out: torch.Tensor, freqs: torch.Tensor, num_heads: int,
+                                      kv_len: tp.Optional[int] = None,
+                                      dtype: tp.Optional[torch.dtype] = None) -> torch.Tensor:
+    """K6: dqkv [B, T, 3*H*D] from qkv, K5's out and lse, and dL/d(out), in
+    `dtype` (default qkv's). The CUDA kernels write fp32."""
+    global backward_launches
+    b, t, _ = qkv.shape
+    valid = _valid_len(t, kv_len)
+    if qkv.device.type == "cpu":
+        return fused_qkv_rope_attention_backward_plain(qkv, out, lse, grad_out, freqs, num_heads,
+                                                       kv_len, dtype)
+    d, rot, cos, sin = _cuda_inputs("fused_qkv_rope_attention_backward", qkv, freqs, num_heads)
+    for name, x in (("out", out), ("grad_out", grad_out), ("lse", lse)):
+        if x.device != qkv.device:
+            raise ValueError(f"fused_qkv_rope_attention_backward: {name} must be on {qkv.device}")
+    qkv = qkv.contiguous()
+    do = grad_out.to(torch.bfloat16).contiguous()
+    # FA2's D = rowsum(dO * O) per head, in fp32 beside the kernel (as the
+    # JAX package computes it in XLA, flash_attention.py:1153-1158)
+    delta = (_heads(do, num_heads) * _heads(out.to(torch.bfloat16), num_heads)).sum(-1)
+    delta = delta.contiguous()
+    lse = lse.float().contiguous()
+    dqkv = torch.empty(qkv.shape, device=qkv.device, dtype=torch.float32)
+    err = build.library().fsat_fused_qkv_rope_attention_bwd(
+        qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), dqkv.data_ptr(), b, t, num_heads, rot, valid, LOG2E / math.sqrt(d),
+        1.0 / math.sqrt(d), _stream(qkv.device))
+    backward_launches += 1
+    build.check(err, "fused_qkv_rope_attention_backward")
+    return dqkv.to(dtype or qkv.dtype)
+
+
+class FusedQKVRopeAttention(torch.autograd.Function):
+    """K5 forward, K6 backward (the ``_fused_pair`` custom_vjp). On CUDA the
+    kernels run in bf16: an fp32 qkv is cast on the way in and its gradient
+    cast back. freqs are position tables and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, freqs, num_heads, kv_len):
+        x = qkv.to(torch.bfloat16) if qkv.is_cuda else qkv
+        out, lse = fused_qkv_rope_attention_stats(x, freqs, num_heads, kv_len)
+        ctx.save_for_backward(x, out, lse, freqs)
+        ctx.num_heads, ctx.kv_len, ctx.dtype = num_heads, kv_len, qkv.dtype
+        return out.to(qkv.dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, out, lse, freqs = ctx.saved_tensors
+        dqkv = fused_qkv_rope_attention_backward(x, out, lse, grad_out.to(x.dtype), freqs,
+                                                 ctx.num_heads, ctx.kv_len, dtype=ctx.dtype)
+        return dqkv, None, None, None
 
 
 def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
@@ -63,28 +241,16 @@ def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: 
     """qkv [B, T, 3*H*D] (q | k | v), freqs [T', rot] rotary angles (last T
     rows used) -> [B, T, H*D]. kv_len: true length of a pre-padded sequence;
     keys at or beyond it are masked (the padded rows' outputs are garbage for
-    the caller to slice off)."""
+    the caller to slice off).
+
+    With grad enabled and qkv requiring grad, runs :class:`FusedQKVRopeAttention`
+    (K5 then K6 on CUDA); otherwise the inference kernel K1."""
     global launches
-    b, t, three_hd = qkv.shape
-    d = three_hd // (3 * num_heads)
-    valid = t if kv_len is None else int(kv_len)
-    if not 1 <= valid <= t:
-        raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
+    valid = _valid_len(qkv.shape[1], kv_len)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return FusedQKVRopeAttention.apply(qkv, freqs, num_heads, kv_len)
     if qkv.device.type == "cpu":
         return fused_qkv_rope_attention_plain(qkv, freqs, num_heads, kv_len)
-    rot = freqs.shape[-1]
-    if qkv.dtype != torch.bfloat16 or d != 64 or rot % 2 or rot > d:
-        raise ValueError(f"fused_qkv_rope_attention: the CUDA kernel takes bf16, head dim 64 and "
-                         f"an even rot <= 64, got {qkv.dtype}, D = {d}, rot = {rot}")
-    if freqs.device != qkv.device:
-        raise ValueError("fused_qkv_rope_attention: freqs must be on the qkv device")
-    qkv = qkv.contiguous()
-    f = freqs[-t:].float()
-    cos, sin = torch.cos(f).contiguous(), torch.sin(f).contiguous()
-    out = torch.empty(b, t, num_heads * d, device=qkv.device, dtype=qkv.dtype)
-    err = build.library().fsat_fused_qkv_rope_attention(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, t, num_heads, rot,
-        valid, LOG2E / math.sqrt(d), torch.cuda.current_stream(qkv.device).cuda_stream)
+    out, _ = _launch_forward(qkv, freqs, num_heads, valid, with_lse=False)
     launches += 1
-    build.check(err, "fused_qkv_rope_attention")
     return out

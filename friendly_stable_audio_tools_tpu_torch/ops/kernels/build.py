@@ -1,6 +1,7 @@
 """Builds the hand-written Hopper kernels (``csrc/*.cu``) and binds them.
 
-The sources compile with ``nvcc`` into one shared library with a plain C
+Each ``.cu`` source compiles with its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
 interface, loaded with ``ctypes`` (seconds, where a PyTorch C++ extension
 takes minutes). The build happens at the first CUDA call, never at import,
 into ``build/torch_kernels/`` beside the package, under a name keyed on a
@@ -20,12 +21,13 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
@@ -33,7 +35,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (all return an int cudaError_t)
 SIGNATURES = {
-    "fsat_fused_qkv_rope_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fsat_fused_qkv_rope_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fsat_fused_qkv_rope_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                          _P],
     "fsat_snake_conv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_fused_residual_unit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fsat_snake_conv_transpose1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -63,6 +67,13 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd: list) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+
+
 def build() -> Path:
     """Compiles the sources unless a library for this digest exists; returns its path."""
     target = BUILD_DIR / f"libfsat_kernels_{source_digest()}.so"
@@ -70,16 +81,18 @@ def build() -> Path:
         return target
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent loader never sees a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, cmds = [], []
+        for cu in sorted(CSRC_DIR.glob("*.cu")):
+            obj = str(Path(tmp) / (cu.stem + ".o"))
+            objs.append(obj)
+            cmds.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", obj, str(cu)])
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            for fut in [pool.submit(_run, cmd) for cmd in cmds]:
+                fut.result()
+        lib = str(Path(tmp) / "lib.so")
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])
+        os.replace(lib, target)  # atomic: a concurrent loader never sees a partial file
     return target
 
 

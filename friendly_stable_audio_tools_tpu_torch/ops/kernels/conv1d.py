@@ -1,10 +1,16 @@
-"""Fused snake -> conv kernels of the Oobleck VAE decoder (K2, K3, K4).
+"""Fused snake -> conv kernels of the Oobleck VAE (K2, K3, K4).
 
 Each public function takes channels-last tensors ``[B, T, C]`` and runs
 either its CUDA kernel (``csrc/conv1d.cu``) or its plain PyTorch version:
 the plain version for a tensor on the CPU, the kernel for a tensor on a
 CUDA device, where the wrapper raises on anything the kernel does not take.
 Nothing falls back from the kernel to the plain version.
+
+The kernels have no backward, as the JAX package has none in Pallas (it
+differentiates the plain XLA forms, conv1d.py:159-163, 401-409, 557-561):
+the VAE runs frozen under torch.no_grad(), and on a CUDA tensor a wrapper
+raises when grad mode is on and any input requires grad, rather than
+return a result without an autograd graph.
 
 Numerics of both paths follow the Pallas kernels they replace
 (friendly_stable_audio_tools_tpu/ops/pallas/conv1d.py): snake in fp32 with
@@ -15,7 +21,10 @@ What bounds them on the H100, and what the design does about it:
 
 * K2 ``snake_conv1d`` (replaces ``_forward``/``_kernel``, conv1d.py:91, :60).
   The decoder's two stride-1 convs are thin: conv_in is 64 -> 2048 over 1024
-  frames, conv_out 128 -> 2 over 2,097,152 samples. conv_out is bound by
+  frames, conv_out 128 -> 2 over 2,097,152 samples; the encoder's are
+  2 -> 128 (k 7) over 2,097,152 samples and 2048 -> 128 (k 3) over 1024
+  frames, at training batch 8. Input channels are staged 16 at a time with
+  the channels past Cin zero, so Cin = 2 is read in bounds. conv_out is bound by
   reading its 512 MB input once; a tensor-core tile would be 98% padding at
   Cout = 2. The kernel keeps an x tile and its halo in shared memory, applies
   the snake once per element, and accumulates 16 rows of one output column
@@ -92,6 +101,13 @@ def _stack_snake(alpha, inv_beta) -> tp.Optional[torch.Tensor]:
 
 
 def _check_cuda(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """Raises on what the kernels do not take, and on any input that would
+    need a gradient: the kernels have no backward, and their outputs carry no
+    autograd graph, so a call under grad would drop gradients silently."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, *tensors)):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward (the JAX package "
+                           f"differentiates its plain XLA form, ops/pallas/conv1d.py); run it "
+                           f"under torch.no_grad() or on frozen inputs")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
     for t in (x, *tensors):
@@ -139,7 +155,7 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
         raise ValueError("snake_conv1d computes 'same'-length convolutions only")
     if x.device.type == "cpu":
         return snake_conv1d_plain(x, w, bias, alpha, inv_beta, dilation, padding)
-    _check_cuda("snake_conv1d", x, w, bias)
+    _check_cuda("snake_conv1d", x, w, bias, alpha, inv_beta)
     ab = _stack_snake(alpha, inv_beta)
     b, t, _ = x.shape
     x = x.contiguous()
@@ -181,7 +197,7 @@ def fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
     if x.device.type == "cpu":
         return fused_residual_unit_plain(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
                                          dilation)
-    _check_cuda("fused_residual_unit", x, w1, b1, w2, b2)
+    _check_cuda("fused_residual_unit", x, w1, b1, w2, b2, alpha1, inv_beta1, alpha2, inv_beta2)
     ab1 = _stack_snake(alpha1, inv_beta1)
     ab2 = _stack_snake(alpha2, inv_beta2)
     if k != 7 or c % 128:
@@ -243,7 +259,7 @@ def snake_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[t
         raise ValueError("snake_conv_transpose1d needs an even stride and k == 2 * stride")
     if x.device.type == "cpu":
         return snake_conv_transpose1d_plain(x, w, bias, alpha, inv_beta, stride)
-    _check_cuda("snake_conv_transpose1d", x, w, bias)
+    _check_cuda("snake_conv_transpose1d", x, w, bias, alpha, inv_beta)
     ab = _stack_snake(alpha, inv_beta)
     if cin % 32 or cout % 128:
         raise ValueError(f"snake_conv_transpose1d: the CUDA kernel takes Cin % 32 == 0 and "

@@ -8,8 +8,8 @@ parameter's path carries over with three renames:
   friendly_stable_audio_tools_tpu/utils/torch_import.py:29-41;
 * a flax `Embed` table `embedding` becomes `weight`, same layout;
 * numbered children become list entries: `layer{i}` -> `layers.{i}`
-  (transformer), `block{i}` -> `blocks.{i}` (T5, decoder), `res{i}` ->
-  `res.{i}` (decoder residual units).
+  (transformer), `block{i}` -> `blocks.{i}` (T5, encoder, decoder), `res{i}` ->
+  `res.{i}` (VAE residual units).
 
 Conv weights keep the JAX layout `[k, Cin, Cout]`, which the CUDA kernels
 read: a plain `Conv1d` kernel becomes `weight` unchanged, and the
@@ -63,13 +63,11 @@ def convert_conditioned_diffusion(dit_params: tp.Mapping,
                                   pretransform_params: tp.Optional[tp.Mapping] = None
                                   ) -> tp.Dict[str, torch.Tensor]:
     """The three trees of a JAX `ConditionedDiffusionModelWrapper` (its
-    `params`, `conditioner.params`, `pretransform.model.params`) -> a
-    state_dict of the port's wrapper. The autoencoder's encoder half is
-    skipped: the port holds the decoder only."""
+    `params`, `conditioner.params`, `pretransform.model.params`, encoder and
+    decoder) -> a state_dict of the port's wrapper."""
     sd = state_dict_from_jax(dit_params, "model.")
     for key, tree in (conditioner_params or {}).items():
         sd.update(state_dict_from_jax(tree, f"conditioner.conditioners.{key}."))
     if pretransform_params is not None:
-        decode_side = {k: v for k, v in pretransform_params.items() if k != "encoder"}
-        sd.update(state_dict_from_jax(decode_side, "pretransform.model."))
+        sd.update(state_dict_from_jax(pretransform_params, "pretransform.model."))
     return sd

@@ -71,3 +71,46 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # head dim 32
         tattn.fused_qkv_rope_attention(_rnd(gen, 1, 64, 3 * 4 * 32).to(torch.bfloat16),
                                        rotary_freqs(64, 16, device="cuda"), 4)
+
+
+def test_attention_training_kernels_carry_the_gradient(gen):
+    """With grad, the fp32 qkv goes through K5 and K6: the output is in the
+    autograd graph and qkv.grad is finite and non-zero; it agrees with the
+    plain versions' gradient (rel-L2 1e-2: bf16 operands on both sides)."""
+    t, h, kv = 272, 4, 260
+    f = rotary_freqs(t, 32, device="cuda")
+    x = _rnd(gen, 2, t, 3 * h * 64, scale=0.5)
+    g = _rnd(gen, 2, t, h * 64)
+    g[:, kv:] = 0
+    before = (tattn.launches, tattn.stats_launches, tattn.backward_launches)
+    qkv = x.clone().requires_grad_(True)
+    out = tattn.fused_qkv_rope_attention(qkv, f, h, kv)
+    assert out.requires_grad and out.dtype == torch.float32
+    out.backward(g)
+    assert (tattn.launches, tattn.stats_launches, tattn.backward_launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert torch.isfinite(qkv.grad).all() and qkv.grad.abs().max() > 0
+    xb = x.to(torch.bfloat16)
+    o, lse = tattn.fused_qkv_rope_attention_stats_plain(xb, f, h, kv)
+    want = tattn.fused_qkv_rope_attention_backward_plain(xb, o, lse, g, f, h, kv,
+                                                         dtype=torch.float32)
+    _close(qkv.grad, want)
+
+
+def test_conv_kernels_refuse_inputs_that_need_grad(gen):
+    """K2-K4 have no backward: on CUDA, under grad with an input that
+    requires grad, each wrapper raises rather than return a detached result;
+    under torch.no_grad() it runs."""
+    x = _rnd(gen, 1, 256, 128, scale=0.5).to(torch.bfloat16)
+    a = _rnd(gen, 128).abs() + 0.5
+    w = _rnd(gen, 7, 128, 128, scale=0.03).requires_grad_(True)
+    wt = _rnd(gen, 4, 128, 128, scale=0.06).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tconv.snake_conv1d(x, w, None, a, 1.0 / a)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tconv.fused_residual_unit(x, w, None, a, 1.0 / a, w[0], None, a, 1.0 / a)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tconv.snake_conv_transpose1d(x.requires_grad_(True), wt.detach(), None, a, 1.0 / a,
+                                     stride=2)
+    with torch.no_grad():
+        assert tconv.snake_conv1d(x, w, None, a, 1.0 / a).shape == (1, 256, 128)

@@ -255,5 +255,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 def test_build_digest_covers_every_source():
     names = {p.name for p in tbuild.sources()}
-    assert {"attention.cu", "conv1d.cu", "common.cuh"} <= names
+    assert {"attention.cu", "attention_bwd.cu", "conv1d.cu", "common.cuh",
+            "attention_tiles.cuh"} <= names
+    assert names == {p.name for p in tbuild.CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh")}
     assert len(tbuild.source_digest()) == 16

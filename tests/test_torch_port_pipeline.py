@@ -9,8 +9,8 @@ then run with the same initial noise and the same per-step sampler noise
 the output's peak, covering fp32 rounding differences between XLA and
 PyTorch compounded over 8 sampler steps and the decoder.
 
-A subprocess runs the port (factory, generation, CLI) and checks that jax
-and flax never enter `sys.modules`.
+A subprocess runs the port (factory, generation, the generate and train
+CLIs) and checks that jax and flax never enter `sys.modules`.
 """
 
 import copy
@@ -25,6 +25,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
 
 from friendly_stable_audio_tools_tpu.inference.generation import generate_diffusion_cond as jax_generate
 from friendly_stable_audio_tools_tpu.models.factory import create_model_from_config as jax_create
@@ -94,10 +95,15 @@ def test_generate_diffusion_cond_matches_jax(cfg_scale, scale_phi):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Factory, generation on the CPU and the CLI, in a process that must
-    never import jax or flax."""
+    """Factory, generation on the CPU, the generate CLI and one step of the
+    train CLI, in a process that must never import jax or flax."""
     config_path = tmp_path / "tiny_sao.json"
     config_path.write_text(json.dumps(tiny_sao_config()))
+    (tmp_path / "wavs").mkdir()
+    wav = np.random.RandomState(0).randn(LATENTS * RATIO + 50, 2) * 3000
+    wavfile.write(str(tmp_path / "wavs" / "clip.wav"), 44100, wav.astype(np.int16))
+    (tmp_path / "data.json").write_text(json.dumps(
+        {"dataset_type": "audio_dir", "datasets": [{"id": "w", "path": str(tmp_path / "wavs")}]}))
     (tmp_path / "prompts.yaml").write_text(textwrap.dedent("""\
         drums:
           amen: {prompt: "amen break", seconds_start: 0, seconds_total: 47}
@@ -117,6 +123,11 @@ def test_port_runs_without_jax(tmp_path):
         main(["--model-config", {str(config_path)!r}, "--cond-yaml-path",
               {str(tmp_path / "prompts.yaml")!r}, "--output-dir", {str(tmp_path / "out")!r},
               "--sample-steps", "2", "--batch-size", "4", "--seed", "1"])
+        from friendly_stable_audio_tools_tpu_torch.train import main as train
+        trainer = train(["--model-config", {str(config_path)!r}, "--dataset-config",
+                         {str(tmp_path / "data.json")!r}, "--batch-size", "2", "--max-steps", "1",
+                         "--num-workers", "0", "--save-dir", {str(tmp_path / "run")!r}])
+        assert trainer.wrapper.step == 1
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
         assert not bad, bad
         print("OK")
