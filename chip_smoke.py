@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
-on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training at full
-width.
+on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, and
+Stable Audio 2.0 long-form text-to-audio, at full width.
 
     python3 chip_smoke.py
 
@@ -10,16 +10,24 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from csrc/ (timed);
 3. each kernel K1-K4 against its plain PyTorch version on the card in bf16,
-   at every shape the generation path gives it plus small ragged shapes,
-   with max-abs and rel-L2 errors against a stated tolerance and both times;
+   at every shape the two generation paths give it (SAO 1.0's decode of
+   2,097,152 samples, SA 2.0's of 12,582,912) plus small ragged shapes,
+   with max-abs and rel-L2 errors against a stated tolerance, both times,
+   the least time the card could take (bound) and one PyTorch library
+   call's time where one computes the same function;
    3b. the training attention kernels K5 (forward with LSE) and K6
    (backward) against their plain versions at the training shape (B 8,
    T 1040, kv_len 1025, 24 heads) and three smaller ones;
-   3c. K2 and K3 at the frozen encoder's shapes at batch 8 (the plain
-   versions one batch element at a time), and the bf16 encode with the
-   kernels against an fp32 encode with the plain versions;
+   3c. K2 and K3 at the frozen encoder's shapes (the encode runs one clip
+   at a time, `iterate_batch`), and the bf16 encode with the kernels against
+   an fp32 encode with the plain versions;
+   3d. the long-sequence attention kernels K10a (rope K once) and K10
+   against their plain versions at SA 2.0's shape (B 2, T 6272, kv_len 6145,
+   24 heads) and three smaller ragged ones;
 4. one DiT forward (CFG batch-doubled) and one short VAE decode with the
    kernels and with the plain versions, same weights and inputs;
+   4b. one SA 2.0 DiT forward at 6144 latent frames with CFG (B 2, T 6272)
+   with the kernels, with the plain versions in bf16, and as an fp32 copy;
 5. the generation path: `create_model_from_config(stable_audio_open_1_0.json)`
    with random weights (seed 0, de-zeroed), DiT and VAE in bf16, then
    `generate_diffusion_cond` for one prompt, 100 dpmpp-3m-sde steps, CFG 7,
@@ -32,7 +40,12 @@ Phases (any failure raises and the script exits non-zero):
    `main` on the SAO config from 16 synthetic 50 s WAVs, batch 8, 4 steps
    with a checkpoint at step 4, then a resume for a fifth step; step time,
    throughput, memory and split, finite losses, moved weights, the EMA, and
-   the kernels' launch counts as the code implies them.
+   the kernels' launch counts as the code implies them;
+8. the long-form path: `create_model_from_config(stable_audio_2_0.json)`
+   (CLAP text conditioner, random weights, hash tokenizer), DiT and VAE in
+   bf16, `generate_diffusion_cond` for one 285 s prompt, 100 dpmpp-3m-sde
+   steps, CFG 7, 12,582,912 stereo samples; output checks, walls (CLAP,
+   denoise per step, decode), peak memory, and the launch counts.
 
 Output: progress lines, then one JSON line of per-kernel results, the
 nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
@@ -53,11 +66,19 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SAO_CONFIG = REPO / "friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio/stable_audio_open_1_0.json"
+CONFIGS = REPO / "friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio"
+SAO_CONFIG = CONFIGS / "stable_audio_open_1_0.json"
+SA2_CONFIG = CONFIGS / "stable_audio_2_0.json"
 STEPS = 100
 CFG_SCALE = 7.0
 SAMPLE_SIZE = 2_097_152
 PROMPT = {"prompt": "Amen break 174 BPM", "seconds_start": 0, "seconds_total": 47}
+SA2_SAMPLE_SIZE = 12_582_912  # 6144 latent frames, 285.3 s at 44.1 kHz
+SA2_PROMPT = {"prompt": "A grand orchestral arrangement with thunderous percussion",
+              "seconds_start": 0, "seconds_total": 285}
+# SA 2.0's self-attention: 6144 latent frames + 1 prepended token, padded to
+# the 128-multiple 6272 at CFG batch 2 (models/transformer.py:seq_pad_length)
+LONG_T, LONG_KV = 6272, 6145
 DEVICE = "cuda"
 TRAIN_BATCH = 8
 TRAIN_STEPS = 4
@@ -83,7 +104,17 @@ TOL = {
     # K6 against the same formula on the same inputs: both round p and ds to
     # bf16 and accumulate in fp32, in different orders
     "fused_qkv_rope_attention_backward": (1e-2, 2.0 ** -5),
+    # K10a: both rope in fp32 and round once to bf16; fp32 rounding order may
+    # move a result across a bf16 rounding boundary (one ulp, 2^-8 relative)
+    "rope_pair_k": (2e-3, 2.0 ** -6),
+    # K10: K1's online softmax against a whole-sequence one
+    "pair_long_attention": (1e-2, 2.0 ** -5),
 }
+# the card's published peaks (H100 SXM, dense), for the bound: the larger of
+# the products' operations at the bf16 tensor-core rate and the bytes each
+# input read once and each output written once take at the memory rate
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 LSE_ATOL = 2e-3
 # model compares: the bf16 DiT with the kernels against an fp32 copy (plain
 # versions, same weights) may err at most DIT_ERR_RATIO times as much as the
@@ -132,8 +163,9 @@ def within(name, out, ref):
     return ok, max_abs, rel_l2, peak
 
 
-def compare(name, kernel_fn, plain_fn, reps=3):
-    """Runs both, checks the tolerance, returns (ok, max_abs, rel_l2, peak, kernel ms, plain ms)."""
+def compare(name, kernel_fn, plain_fn, reps=3, library_fn=None):
+    """Runs both, checks the tolerance, returns (ok, max_abs, rel_l2, peak,
+    kernel ms, plain ms, library ms or None)."""
     import torch
 
     out = kernel_fn()
@@ -141,15 +173,30 @@ def compare(name, kernel_fn, plain_fn, reps=3):
     ok, max_abs, rel_l2, peak = within(name, out, plain_fn())
     del out
     ms, plain_ms = timed_ms(kernel_fn, reps), timed_ms(plain_fn, reps)
-    return ok, max_abs, rel_l2, peak, ms, plain_ms
+    lib_ms = None if library_fn is None else timed_ms(library_fn, reps)
+    return ok, max_abs, rel_l2, peak, ms, plain_ms, lib_ms
 
 
-def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain_ms, field="ms",
-           extra=""):
+def bound_ms(flops, nbytes):
+    """The least time the card could take: (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain_ms, lib_ms=None,
+           bound=None, field="ms", extra=""):
     """Logs one kernel-vs-plain result, raises when it failed, and adds a
-    main-path shape's error and weighted times to the kernel's entry."""
+    main-path shape's error and weighted times to the kernel's entry: for
+    `field` f, f (kernel), plain_f, bound_f (from `bound`, (ms, resource))
+    and library_f (None once a shape has no library call)."""
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    bnd = "" if bound is None else f" bound {bound[0]:.4f} ms ({bound[1]})"
     log(f"  {name} {label}: max_abs {max_abs:.4g} (max|plain| {peak:.4g}) rel_l2 {rel_l2:.3g}{extra} "
-        f"tol {TOL[name]} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"tol {TOL[name]} kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib}{bnd} "
         f"{'main-path' if main_path else 'extra'} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label} disagrees with its plain version")
@@ -159,6 +206,14 @@ def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain
         r["max_abs_err"] = max(r["max_abs_err"], max_abs)
         r[field] = r.get(field, 0.0) + ms * w
         r["plain_" + field] = r.get("plain_" + field, 0.0) + plain_ms * w
+        r["bound_" + field] = r.get("bound_" + field, 0.0) + bound[0] * w
+        parts = r.setdefault("bound_parts", {}).setdefault(field, {})
+        parts[bound[1]] = parts.get(bound[1], 0.0) + bound[0] * w
+        lib_key = "library_" + field
+        if lib_ms is None or (lib_key in r and r[lib_key] is None):
+            r[lib_key] = None
+        else:
+            r[lib_key] = r.get(lib_key, 0.0) + lib_ms * w
 
 
 @contextlib.contextmanager
@@ -174,12 +229,22 @@ def patched(pairs):
             setattr(obj, name, value)
 
 
+def plain_attention(qkv, freqs, num_heads, kv_len=None):
+    """The inference attention through the plain versions, routed by length
+    as the kernels are (K1's, or K10a's then K10's)."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+
+    if attention.attention_route(qkv.shape[1]) == "pair_long":
+        return attention.fused_qkv_rope_attention_long_plain(qkv, freqs, num_heads, kv_len)
+    return attention.fused_qkv_rope_attention_plain(qkv, freqs, num_heads, kv_len)
+
+
 def plain_kernels():
     """Routes the model's kernel calls to the plain versions (for the
     kernel-vs-plain model compares)."""
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
 
-    return patched([(attention, "fused_qkv_rope_attention", attention.fused_qkv_rope_attention_plain),
+    return patched([(attention, "fused_qkv_rope_attention", plain_attention),
                     (conv1d, "snake_conv1d", conv1d.snake_conv1d_plain),
                     (conv1d, "fused_residual_unit", conv1d.fused_residual_unit_plain),
                     (conv1d, "snake_conv_transpose1d", conv1d.snake_conv_transpose1d_plain)])
@@ -200,12 +265,61 @@ def snake_params(rnd, c):
     return rnd(c).abs() + 0.5, 1.0 / (rnd(c).abs() + 0.5)
 
 
-def by_batch(fn, x):
-    """fn over one batch element at a time (the plain versions' fp32
-    temporaries at batch 8 and 2M samples would not fit the card)."""
+def segmented(fn, x, halo, up=1, seg=1 << 21):
+    """fn over overlapping time segments of x [1, T, C], each with `halo`
+    input rows on either side, keeping `up` output rows per input row: a
+    'same'-length conv computed in pieces, so that the plain versions' fp32
+    temporaries at 12,582,912 samples fit the card."""
     import torch
 
-    return torch.cat([fn(xb) for xb in x.split(1)])
+    t = x.shape[1]
+    if t <= seg:
+        return fn(x)
+    outs = []
+    for s0 in range(0, t, seg):
+        lo, hi = max(0, s0 - halo), min(t, s0 + seg + halo)
+        y = fn(x[:, lo:hi])
+        outs.append(y[:, (s0 - lo) * up:(min(t, s0 + seg) - lo) * up])
+    return torch.cat(outs, dim=1)
+
+
+def attention_bound(b, h, valid, products, in_tensors, out_tensors):
+    """Bound of `products` [valid x valid x 64] products per head over the
+    valid rows of the given tensors."""
+    return bound_ms(products * 2 * b * h * valid * valid * 64,
+                    sum(nbytes(x) * valid // x.shape[1] for x in in_tensors + out_tensors))
+
+
+def sdpa_inputs(qkv, freqs, h, kv):
+    """q roped and prescaled, k roped, v, as [B, H, T, 64] bf16, K/V sliced to
+    kv_len: the inputs of the library call timed beside the attention kernels."""
+    from friendly_stable_audio_tools_tpu_torch.ops.embeddings import apply_rotary_pos_emb
+
+    b, t, _ = qkv.shape
+    q, k, v = qkv.view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+    valid = kv or t
+    q = apply_rotary_pos_emb(q, freqs).contiguous()
+    k = apply_rotary_pos_emb(k, freqs)[:, :, :valid].contiguous()
+    return q, k, v[:, :, :valid].contiguous()
+
+
+def conv_library(x, w, bias, alpha, inv_beta, dilation=1, stride=None):
+    """cuDNN's bf16 conv1d (stride None) or conv_transpose1d on the already
+    snaked input: the library call timed beside K2 and K4 (it leaves the
+    snake out)."""
+    import torch
+    import torch.nn.functional as F
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    xs = x.float() if alpha is None else conv1d.snake(x.float(), alpha, inv_beta)
+    xs = xs.to(torch.bfloat16).transpose(1, 2).contiguous()
+    bb = None if bias is None else bias.to(torch.bfloat16)
+    if stride is None:
+        wt = w.permute(2, 1, 0).to(torch.bfloat16).contiguous()
+        return lambda: F.conv1d(xs, wt, bb, padding="same", dilation=dilation)
+    wt = w.permute(1, 2, 0).to(torch.bfloat16).contiguous()
+    return lambda: F.conv_transpose1d(xs, wt, bb, stride=stride, padding=stride // 2)
 
 
 def kernel_phase(results):
@@ -217,65 +331,111 @@ def kernel_phase(results):
     bf = torch.bfloat16
     rnd = randn_fn(0)
 
-    def run(name, label, main_path, kernel_fn, plain_fn):
-        report(results, name, label, main_path, *compare(name, kernel_fn, plain_fn))
-
     # K1: the DiT's self-attention, B = 2 (CFG), 24 heads, T = 1024 + 1 prepended token
     for b, t, h, kv, main in [(2, 1025, 24, None, True), (1, 77, 2, None, False),
                               (4, 1040, 4, 1025, False), (2, 144, 2, 130, False)]:
         qkv = rnd(b, t, 3 * h * 64).to(bf)
-        f = rotary_freqs(t, 32, device="cuda")
-        run("fused_qkv_rope_attention", f"B{b} T{t} H{h} kv_len {kv}", main,
-            lambda: attention.fused_qkv_rope_attention(qkv, f, h, kv),
-            lambda: attention.fused_qkv_rope_attention_plain(qkv, f, h, kv))
+        f = rotary_freqs(t, 32, device=DEVICE)
+        q, k, v = sdpa_inputs(qkv, f, h, kv)
+        out = torch.empty(b, t, h * 64, device=DEVICE, dtype=bf)
+        report(results, "fused_qkv_rope_attention", f"B{b} T{t} H{h} kv_len {kv}", main, *compare(
+            "fused_qkv_rope_attention", lambda: attention.fused_qkv_rope_attention(qkv, f, h, kv),
+            lambda: attention.fused_qkv_rope_attention_plain(qkv, f, h, kv),
+            library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+            bound=attention_bound(b, h, kv or t, 2, [qkv], [out]))
 
-    # K2: decoder conv_in (64 -> 2048 at 1024 frames) and conv_out (snake, 128 -> 2, no bias)
-    for b, t, cin, cout, d, sn, bias, main in [
-            (1, 1024, 64, 2048, 1, False, True, True), (1, SAMPLE_SIZE, 128, 2, 1, True, False, True),
-            (2, 301, 32, 48, 3, True, True, False)]:
-        x = rnd(b, t, cin, scale=0.5).to(bf)
-        w = rnd(7, cin, cout, scale=1 / math.sqrt(7 * cin))
-        bb = rnd(cout, scale=0.1) if bias else None
-        a, ib = snake_params(rnd, cin) if sn else (None, None)
-        run("snake_conv1d", f"B{b} T{t} {cin}->{cout} d{d}", main,
-            lambda: conv1d.snake_conv1d(x, w, bb, a, ib, dilation=d),
-            lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=d))
+    def conv_case(name, label, field, x, w, bias, a, ib, kernel, plain, flops, halo, up=1,
+                  **lib_kw):
+        y = torch.empty(x.shape[0], x.shape[1] * up, w.shape[2], device=DEVICE, dtype=bf)
+        lib = conv_library(x, w, bias, a, ib, **lib_kw)
+        bound = bound_ms(flops, nbytes(x, y) + w.numel() * 2 + nbytes(bias))
+        del y
+        report(results, name, label, field is not None, *compare(
+            name, kernel, lambda: segmented(plain, x, halo, up), library_fn=lib), bound=bound,
+            field=field or "ms")
 
-    # K3: the 15 residual units of the decode, then a small ragged one
-    ru_shapes = [(1, t, c, d, True) for c, t in [(1024, 8192), (512, 65536), (256, 262144),
-                                                  (128, 1048576), (128, 2097152)]
-                 for d in (1, 3, 9)] + [(2, 333, 128, 9, False)]
-    for b, t, c, d, main in ru_shapes:
-        x = rnd(b, t, c, scale=0.5).to(bf)
-        w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
-        b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
-        (a1, i1), (a2, i2) = snake_params(rnd, c), snake_params(rnd, c)
-        run("fused_residual_unit", f"B{b} T{t} C{c} d{d}", main,
-            lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
-            lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d))
+    # the decodes: SA 2.0's 6144 latent frames (field "ms", the long-form
+    # path) and SAO 1.0's 1024 (field "sao_decode_ms"), batch 1
+    for frames, field in ((SA2_SAMPLE_SIZE // 2048, "ms"), (SAMPLE_SIZE // 2048, "sao_decode_ms")):
+        n = frames * 2048
+        # K2: decoder conv_in (64 -> 2048, k 7, no snake) and conv_out (snake, 128 -> 2, no bias)
+        for t, cin, cout, sn, bias in [(frames, 64, 2048, False, True), (n, 128, 2, True, False)]:
+            x = rnd(1, t, cin, scale=0.5).to(bf)
+            w = rnd(7, cin, cout, scale=1 / math.sqrt(7 * cin))
+            bb = rnd(cout, scale=0.1) if bias else None
+            a, ib = snake_params(rnd, cin) if sn else (None, None)
+            conv_case("snake_conv1d", f"B1 T{t} {cin}->{cout} d1", field, x, w, bb, a, ib,
+                      lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
+                      lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, a, ib),
+                      2 * t * cin * cout * 7, halo=3)
+            del x
+        # K3: the 15 residual units
+        for c, t in [(1024, frames * 8), (512, frames * 64), (256, frames * 256),
+                     (128, frames * 1024), (128, n)]:
+            x = rnd(1, t, c, scale=0.5).to(bf)
+            w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
+            b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
+            (a1, i1), (a2, i2) = snake_params(rnd, c), snake_params(rnd, c)
+            for d in (1, 3, 9):
+                y = torch.empty_like(x)
+                bound = bound_ms(2 * t * c * c * 8, nbytes(x, y, b1, b2) + 8 * c * c * 2)
+                del y
+                report(results, "fused_residual_unit", f"B1 T{t} C{c} d{d}", True, *compare(
+                    "fused_residual_unit",
+                    lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
+                    lambda: segmented(lambda xs: conv1d.fused_residual_unit_plain(
+                        xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d)),
+                    bound=bound, field=field)
+            del x
+        # K4: the 5 upsamples
+        for t, cin, cout, st in [(frames, 2048, 1024, 8), (frames * 8, 1024, 512, 8),
+                                 (frames * 64, 512, 256, 4), (frames * 256, 256, 128, 4),
+                                 (frames * 1024, 128, 128, 2)]:
+            x = rnd(1, t, cin, scale=0.5).to(bf)
+            w = rnd(2 * st, cin, cout, scale=1 / math.sqrt(2 * cin))
+            bb = rnd(cout, scale=0.1)
+            a, ib = snake_params(rnd, cin)
+            conv_case("snake_conv_transpose1d", f"B1 T{t} {cin}->{cout} s{st}", field, x, w, bb, a,
+                      ib, lambda: conv1d.snake_conv_transpose1d(x, w, bb, a, ib, stride=st),
+                      lambda xs: conv1d.snake_conv_transpose1d_plain(xs, w, bb, a, ib, stride=st),
+                      2 * t * st * cin * cout * 2, halo=1, up=st, stride=st)
+            del x
 
-    # K4: the 5 upsamples of the decode, then a small ragged one
-    for b, t, cin, cout, s, main in [(1, 1024, 2048, 1024, 8, True), (1, 8192, 1024, 512, 8, True),
-                                     (1, 65536, 512, 256, 4, True), (1, 262144, 256, 128, 4, True),
-                                     (1, 1048576, 128, 128, 2, True), (2, 77, 128, 128, 4, False)]:
-        x = rnd(b, t, cin, scale=0.5).to(bf)
-        w = rnd(2 * s, cin, cout, scale=1 / math.sqrt(2 * cin))
-        bb = rnd(cout, scale=0.1)
-        a, ib = snake_params(rnd, cin)
-        run("snake_conv_transpose1d", f"B{b} T{t} {cin}->{cout} s{s}", main,
-            lambda: conv1d.snake_conv_transpose1d(x, w, bb, a, ib, stride=s),
-            lambda: conv1d.snake_conv_transpose1d_plain(x, w, bb, a, ib, stride=s))
+    # small ragged shapes
+    x = rnd(2, 301, 32, scale=0.5).to(bf)
+    w = rnd(7, 32, 48, scale=1 / math.sqrt(7 * 32))
+    bb = rnd(48, scale=0.1)
+    a, ib = snake_params(rnd, 32)
+    report(results, "snake_conv1d", "B2 T301 32->48 d3", False, *compare(
+        "snake_conv1d", lambda: conv1d.snake_conv1d(x, w, bb, a, ib, dilation=3),
+        lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=3)))
+    x = rnd(2, 333, 128, scale=0.5).to(bf)
+    w1, w2 = rnd(7, 128, 128, scale=1 / math.sqrt(7 * 128)), rnd(128, 128, scale=1 / math.sqrt(128))
+    b1, b2 = rnd(128, scale=0.1), rnd(128, scale=0.1)
+    (a1, i1), (a2, i2) = snake_params(rnd, 128), snake_params(rnd, 128)
+    report(results, "fused_residual_unit", "B2 T333 C128 d9", False, *compare(
+        "fused_residual_unit",
+        lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9),
+        lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9)))
+    x = rnd(2, 77, 128, scale=0.5).to(bf)
+    w = rnd(8, 128, 128, scale=1 / math.sqrt(2 * 128))
+    a, ib = snake_params(rnd, 128)
+    report(results, "snake_conv_transpose1d", "B2 T77 128->128 s4", False, *compare(
+        "snake_conv_transpose1d", lambda: conv1d.snake_conv_transpose1d(x, w, b1, a, ib, stride=4),
+        lambda: conv1d.snake_conv_transpose1d_plain(x, w, b1, a, ib, stride=4)))
 
 
 def attention_train_phase(results):
     """[3b] K5 and K6 against their plain versions (bf16 in; the backward
     compared in fp32 out, as training takes it). K6 gets the plain
-    forward's out and lse, so the compare isolates the backward."""
+    forward's out and lse, so the compare isolates the backward. Library
+    calls: SDPA's forward beside K5, its backward beside K6."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rnd = randn_fn(1)
     fwd, bwd = "fused_qkv_rope_attention_stats", "fused_qkv_rope_attention_backward"
     for b, t, h, kv, main in [(TRAIN_BATCH, TRAIN_T, 24, TRAIN_KV, True),
@@ -283,10 +443,11 @@ def attention_train_phase(results):
                               (1, 77, 2, None, False)]:
         label = f"B{b} T{t} H{h} kv_len {kv}"
         qkv = rnd(b, t, 3 * h * 64).to(torch.bfloat16)
-        f = rotary_freqs(t, 32, device="cuda")
+        f = rotary_freqs(t, 32, device=DEVICE)
         go = rnd(b, t, h * 64).to(torch.bfloat16)
         if kv is not None:
             go[:, kv:] = 0  # the transformer slices the padded rows off
+        valid = kv or t
 
         out, lse = attention.fused_qkv_rope_attention_stats(qkv, f, h, kv)
         torch.cuda.synchronize()
@@ -295,8 +456,11 @@ def attention_train_phase(results):
         lse_err = (lse - lse_p).abs().max().item()
         ms = timed_ms(lambda: attention.fused_qkv_rope_attention_stats(qkv, f, h, kv), 3)
         plain_ms = timed_ms(lambda: attention.fused_qkv_rope_attention_stats_plain(qkv, f, h, kv), 3)
+        q, k, v = (x.requires_grad_(True) for x in sdpa_inputs(qkv, f, h, kv))
+        lib_ms = timed_ms(lambda: sdpa(q.detach(), k.detach(), v.detach()), 3)
         report(results, fwd, label, main, ok and lse_err <= LSE_ATOL, max_abs, rel_l2, peak, ms,
-               plain_ms, extra=f", lse max_abs {lse_err:.3g} (tol {LSE_ATOL})")
+               plain_ms, lib_ms, bound=attention_bound(b, h, valid, 2, [qkv], [out, lse]),
+               extra=f", lse max_abs {lse_err:.3g} (tol {LSE_ATOL})")
 
         def k6():
             return attention.fused_qkv_rope_attention_backward(qkv, out_p, lse_p, go, f, h, kv,
@@ -311,56 +475,123 @@ def attention_train_phase(results):
         thirds = " ".join(f"{n} {rel_err(d[..., i * hd:(i + 1) * hd], d_p[..., i * hd:(i + 1) * hd]):.3g}"
                           for i, n in enumerate("qkv"))
         ok, max_abs, rel_l2, peak = within(bwd, d, d_p)
+        bound = attention_bound(b, h, valid, 5, [qkv, out_p, lse_p, go], [d])
         del d, d_p
+        o = sdpa(q, k, v)
+        g = go.view(b, t, h, 64).transpose(1, 2)
+        lib_ms = timed_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 3)
         report(results, bwd, label, main, ok, max_abs, rel_l2, peak, timed_ms(k6, 3),
-               timed_ms(k6_plain, 3), extra=f" (rel-L2 of dq/dk/dv: {thirds})")
+               timed_ms(k6_plain, 3), lib_ms, bound=bound,
+               extra=f" (rel-L2 of dq/dk/dv: {thirds})")
+        del q, k, v, o
     for name, calls in ((fwd, 2 * 24), (bwd, 24)):
         r = results[name]
         log(f"  {name}: {r['ms']:.4f} ms per training step ({calls} calls at B{TRAIN_BATCH} "
-            f"T{TRAIN_T}), plain {r['plain_ms']:.4f} ms")
+            f"T{TRAIN_T}), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms")
 
 
-def encoder_conv_phase(results):
-    """[3c] K2 and K3 at the frozen encoder's shapes, batch 8."""
+def encode_calls(config):
+    """Calls of the frozen encode per training batch: one per sample with
+    `iterate_batch` true, one per n samples with an int n, else one."""
+    ib = config["model"]["pretransform"].get("iterate_batch", False)
+    return math.ceil(TRAIN_BATCH / int(ib)) if ib else 1
+
+
+def encoder_conv_phase(results, config):
+    """[3c] K2 and K3 at the frozen encoder's shapes, at the batch of one
+    encode call, weighted by the calls per training step."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
 
     bf = torch.bfloat16
     rnd = randn_fn(2)
-    b = TRAIN_BATCH
+    calls = encode_calls(config)
+    b = TRAIN_BATCH // calls
     # K2: conv_in 2 -> 128 (k 7, no snake) at 2,097,152 samples; conv_out
     # snake 2048 -> 128 (k 3) at 1024 frames
-    for t, cin, cout, k, sn in [(SAMPLE_SIZE, 2, 128, 7, False), (1024, 2048, 128, 3, True)]:
+    for t, cin, cout, k, sn in [(SAMPLE_SIZE, 2, 128, 7, False),
+                                (SAMPLE_SIZE // 2048, 2048, 128, 3, True)]:
+        label = f"B{b} T{t} {cin}->{cout} k{k}"
+        results["snake_conv1d"]["weight"][label] = calls
         x = rnd(b, t, cin, scale=0.5).to(bf)
         w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
         bb = rnd(cout, scale=0.1)
         a, ib = snake_params(rnd, cin) if sn else (None, None)
-        report(results, "snake_conv1d", f"B{b} T{t} {cin}->{cout} k{k}", True, *compare(
+        y = torch.empty(b, t, cout, device=DEVICE, dtype=bf)
+        bound = bound_ms(2 * b * t * cin * cout * k, nbytes(x, y, bb) + w.numel() * 2)
+        del y
+        report(results, "snake_conv1d", label, True, *compare(
             "snake_conv1d", lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
-            lambda: by_batch(lambda xb: conv1d.snake_conv1d_plain(xb, w, bb, a, ib), x)),
-            field="encode_ms")
+            lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib),
+            library_fn=conv_library(x, w, bb, a, ib)), bound=bound, field="encode_ms")
         del x
-    # K3: the encoder's 15 residual units; [8, 2097152, 128] holds exactly 2^31 elements
-    for c, t in [(128, 2097152), (128, 1048576), (256, 262144), (512, 65536), (1024, 8192)]:
+    # K3: the encoder's 15 residual units
+    n = SAMPLE_SIZE
+    for c, t in [(128, n), (128, n // 2), (256, n // 8), (512, n // 32), (1024, n // 256)]:
         x = rnd(b, t, c, scale=0.5).to(bf)
         w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
         b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
         (a1, i1), (a2, i2) = snake_params(rnd, c), snake_params(rnd, c)
         for d in (1, 3, 9):
-            report(results, "fused_residual_unit", f"B{b} T{t} C{c} d{d}", True, *compare(
+            label = f"B{b} T{t} C{c} d{d}"
+            results["fused_residual_unit"]["weight"][label] = calls
+            bound = bound_ms(2 * b * t * c * c * 8, 2 * nbytes(x) + nbytes(b1, b2) + 8 * c * c * 2)
+            report(results, "fused_residual_unit", label, True, *compare(
                 "fused_residual_unit",
                 lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
-                lambda: by_batch(lambda xb: conv1d.fused_residual_unit_plain(
-                    xb, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x)), field="encode_ms")
+                lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2,
+                                                         dilation=d)), bound=bound,
+                field="encode_ms")
         del x
     for name in ("snake_conv1d", "fused_residual_unit"):
         r = results[name]
-        log(f"  {name}: {r['encode_ms']:.4f} ms per batch-8 encode, plain {r['plain_encode_ms']:.4f} ms")
+        log(f"  {name}: {r['encode_ms']:.4f} ms per training-step encode ({calls} calls at batch "
+            f"{b}), plain {r['plain_encode_ms']:.4f} ms, bound {r['bound_encode_ms']:.4f} ms")
 
 
-def build_sao(config):
-    """The SAO model on the card in fp32: random weights, seed 0, de-zeroed."""
+def long_attention_phase(results):
+    """[3d] K10a (rope K once) and K10 (attention over the roped K) against
+    their plain versions; K10 and its plain version take the same khat."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+
+    rnd = randn_fn(5)
+    for b, t, h, kv, main in [(2, LONG_T, 24, LONG_KV, True), (1, 2049, 2, None, False),
+                              (2, 2176, 4, 2050, False), (1, 8192, 2, None, False)]:
+        label = f"B{b} T{t} H{h} kv_len {kv}"
+        valid = kv or t
+        qkv = rnd(b, t, 3 * h * 64).to(torch.bfloat16)
+        f = rotary_freqs(t, 32, device=DEVICE)
+        khat = attention.rope_pair_k_plain(qkv, f, h)
+        k_part = qkv[..., h * 64:2 * h * 64]
+        report(results, "rope_pair_k", label, main, *compare(
+            "rope_pair_k", lambda: attention.rope_pair_k(qkv, f, h),
+            lambda: attention.rope_pair_k_plain(qkv, f, h)),
+            bound=bound_ms(0, (nbytes(k_part) + nbytes(khat)) * valid // t + nbytes(f) * 2))
+        q, k, v = sdpa_inputs(qkv, f, h, kv)
+        qv = qkv[..., :h * 64], qkv[..., 2 * h * 64:]
+        report(results, "pair_long_attention", label, main, *compare(
+            "pair_long_attention", lambda: attention.pair_long_attention(qkv, khat, f, h, kv),
+            lambda: attention.pair_long_attention_plain(qkv, khat, f, h, kv),
+            library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+            bound=attention_bound(b, h, valid, 2, [*qv, khat], [khat]))
+        if main:  # what roping K once buys: K1's kernel on the same inputs
+            k1_ms = timed_ms(lambda: attention._launch_forward(qkv, f, h, valid, False), 3)
+            log(f"  K1's kernel (each key tile roped once per q tile) on the same inputs: "
+                f"{k1_ms:.4f} ms")
+        del qkv, khat, q, k, v
+    for name in ("rope_pair_k", "pair_long_attention"):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per long-form generation step (24 calls at B2 T{LONG_T}), "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+
+
+def build_model(config):
+    """A model on the card in fp32: random weights, seed 0, de-zeroed."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch import create_model_from_config
@@ -418,7 +649,7 @@ def dit_train_step_phase(config, tmp):
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
     from friendly_stable_audio_tools_tpu_torch.training.diffusion import get_alphas_sigmas
 
-    model = build_sao(config)
+    model = build_model(config)
     dit_path = Path(tmp) / "dit_dezeroed.pt"
     torch.save({f"model.{k}": v for k, v in model.model.state_dict().items()}, dit_path)
     rnd = randn_fn(3)
@@ -479,6 +710,8 @@ def dit_train_step_phase(config, tmp):
 
 KERNELS = {  # name -> (module attribute holding its launch count)
     "fused_qkv_rope_attention": ("attention", "launches"),
+    "rope_pair_k": ("attention", "rope_k_launches"),
+    "pair_long_attention": ("attention", "long_launches"),
     "fused_qkv_rope_attention_stats": ("attention", "stats_launches"),
     "fused_qkv_rope_attention_backward": ("attention", "backward_launches"),
     "snake_conv1d": ("conv1d", "snake_conv1d_launches"),
@@ -558,14 +791,17 @@ def training_phase(config, tmp, dit_path):
               (MultiConditioner, "forward", timer(MultiConditioner.forward, "cond"))]
     # what one step launches: each of the DiT's 24 blocks runs K5 once forward
     # and once more when the checkpointed block is recomputed for the
-    # backward, and K6 once in the backward; the frozen encode runs K2 twice
-    # (conv_in, conv_out) and K3 once per residual unit (3 in each of the 5
-    # encoder blocks); K1 and K4 not at all
+    # backward, and K6 once in the backward; each call of the frozen encode
+    # (one per clip, iterate_batch) runs K2 twice (conv_in, conv_out) and K3
+    # once per residual unit (3 in each of the 5 encoder blocks); K1, K4,
+    # K10a and K10 not at all
     depth = config["model"]["diffusion"]["config"]["depth"]
     n_units = 3 * len(config["model"]["pretransform"]["config"]["encoder"]["config"]["c_mults"])
-    per_step = {"fused_qkv_rope_attention": 0, "fused_qkv_rope_attention_stats": 2 * depth,
-                "fused_qkv_rope_attention_backward": depth, "snake_conv1d": 2,
-                "fused_residual_unit": n_units, "snake_conv_transpose1d": 0}
+    calls = encode_calls(config)
+    per_step = {name: 0 for name in KERNELS}
+    per_step.update({"fused_qkv_rope_attention_stats": 2 * depth,
+                     "fused_qkv_rope_attention_backward": depth, "snake_conv1d": 2 * calls,
+                     "fused_residual_unit": n_units * calls})
     with patched(timers):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -624,6 +860,81 @@ def rel_err(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+def dit_forward_phase(model, frames, prompt, label):
+    """One DiT forward with CFG at `frames` latent frames: the bf16 DiT with
+    the kernels and with the plain versions, each against an fp32 copy with
+    the plain versions. Returns (kernels' rel-L2, plain bf16's rel-L2)."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner([prompt], device=DEVICE))
+        x = torch.randn(1, frames, model.io_channels, generator=g, device=DEVICE)
+        t = torch.full((1,), 0.6, device=DEVICE)
+        dit_k = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+        with plain_kernels():
+            dit_p = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+            dit32 = copy.deepcopy(model.model).float()
+            dit_ref = dit32(x, t, cfg_scale=CFG_SCALE, **cond)
+            del dit32
+    err_k, err_p = rel_err(dit_k, dit_ref), rel_err(dit_p, dit_ref)
+    log(f"  {label} DiT forward {list(x.shape)} with CFG, rel-L2 against the fp32 DiT: kernels "
+        f"{err_k:.3g}, plain bf16 {err_p:.3g} (bound: kernels <= {DIT_ERR_RATIO} x plain); "
+        f"kernels vs plain {rel_err(dit_k, dit_p):.3g}")
+    if not err_k <= DIT_ERR_RATIO * err_p:
+        raise AssertionError(f"the {label} DiT forward with the kernels disagrees with the plain versions")
+    return err_k, err_p
+
+
+def generation_phase(model, config, prompt, sample_size, expected, min_counts):
+    """generate_diffusion_cond for one prompt, 100 dpmpp-3m-sde steps, CFG 7,
+    with every launch count set to 0 just before and read just after: checks
+    the audio and the counts (`expected` exactly, `min_counts` at least),
+    logs the walls, and returns the counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+
+    phase = {"conditioners": 0.0, "decode": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            phase[key] += time.perf_counter() - start
+            return out
+        return wrapper
+
+    model.conditioner.forward = timed(model.conditioner.forward, "conditioners")
+    model.pretransform.decode_nwc = timed(model.pretransform.decode_nwc, "decode")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    audio = generate_diffusion_cond(model, steps=STEPS, cfg_scale=CFG_SCALE, conditioning=[prompt],
+                                    sample_size=sample_size, sampler_type="dpmpp-3m-sde",
+                                    sigma_min=0.3, sigma_max=500, seed=42)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - start
+    launches = read_counts()
+    rms = audio.float().square().mean().sqrt().item()
+    seconds = sample_size / config["sample_rate"]
+    denoise = total - phase["conditioners"] - phase["decode"]
+    log(f"  audio {list(audio.shape)} finite {bool(torch.isfinite(audio).all())} rms {rms:.4g}")
+    log(f"  wall: conditioners {phase['conditioners']:.4f} s, denoise {denoise:.4f} s "
+        f"({denoise / STEPS * 1e3:.3f} ms/step), decode {phase['decode']:.4f} s, total {total:.4f} s "
+        f"= {seconds / total:.3f} s-audio/s")
+    log(f"  launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if tuple(audio.shape) != (1, 2, sample_size) or not torch.isfinite(audio).all() or rms <= 0:
+        raise AssertionError(f"generation output is not finite [1, 2, {sample_size}] audio")
+    if (any(launches[k] != n for k, n in expected.items())
+            or any(launches[k] < n for k, n in min_counts.items())):
+        raise AssertionError(f"launch counts {launches} do not show the main path's kernels")
+    return launches
+
+
 def main():
     import torch
 
@@ -635,7 +946,6 @@ def main():
 
     import numpy as np
 
-    from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
 
     smi = smi_line()
@@ -648,39 +958,57 @@ def main():
 
     src = "friendly_stable_audio_tools_tpu_torch/csrc/"
     tpu = "friendly_stable_audio_tools_tpu/ops/pallas/"
+    # what `ms` and the other times of each kernel's entry are per
     results = {
-        "fused_qkv_rope_attention": dict(route="cuda", source=src + "attention.cu",
-                                         replaces=tpu + "flash_attention.py:828"),
-        "fused_qkv_rope_attention_stats": dict(route="cuda", source=src + "attention.cu",
-                                               replaces=tpu + "flash_attention.py:980"),
-        "fused_qkv_rope_attention_backward": dict(route="cuda", source=src + "attention_bwd.cu",
-                                                  replaces=tpu + "flash_attention.py:1119"),
-        "snake_conv1d": dict(route="cuda", source=src + "conv1d.cu", replaces=tpu + "conv1d.py:91"),
+        "fused_qkv_rope_attention": dict(
+            route="cuda", source=src + "attention.cu", replaces=tpu + "flash_attention.py:828",
+            per="SAO 1.0 generation step (24 calls at B2 T1025)"),
+        "rope_pair_k": dict(
+            route="cuda", source=src + "attention_long.cu", replaces=tpu + "flash_attention.py:1229",
+            per=f"SA 2.0 generation step (24 calls at B2 T{LONG_T})"),
+        "pair_long_attention": dict(
+            route="cuda", source=src + "attention_long.cu", replaces=tpu + "flash_attention.py:1233",
+            per=f"SA 2.0 generation step (24 calls at B2 T{LONG_T} kv_len {LONG_KV})"),
+        "fused_qkv_rope_attention_stats": dict(
+            route="cuda", source=src + "attention.cu", replaces=tpu + "flash_attention.py:980",
+            per=f"SAO 1.0 training step (48 calls at B{TRAIN_BATCH} T{TRAIN_T})"),
+        "fused_qkv_rope_attention_backward": dict(
+            route="cuda", source=src + "attention_bwd.cu", replaces=tpu + "flash_attention.py:1119",
+            per=f"SAO 1.0 training step (24 calls at B{TRAIN_BATCH} T{TRAIN_T})"),
+        "snake_conv1d": dict(route="cuda", source=src + "conv1d.cu", replaces=tpu + "conv1d.py:91",
+                             per="SA 2.0 decode (2 calls)"),
         "fused_residual_unit": dict(route="cuda", source=src + "conv1d.cu",
-                                    replaces=tpu + "conv1d.py:507"),
+                                    replaces=tpu + "conv1d.py:507", per="SA 2.0 decode (15 calls)"),
         "snake_conv_transpose1d": dict(route="cuda", source=src + "conv1d.cu",
-                                       replaces=tpu + "conv1d.py:262"),
+                                       replaces=tpu + "conv1d.py:262", per="SA 2.0 decode (5 calls)"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
-    # ms / plain_ms: K1 per generation step (24 calls at B2 T1025), K5 and K6
-    # per training step (48 and 24 calls at B8 T1040), K2-K4 per decode;
-    # encode_ms / plain_encode_ms: K2 and K3 per batch-8 encode
+    # extra fields: sao_decode_ms (K2-K4 per SAO 1.0 decode) and encode_ms
+    # (K2 and K3 per SAO 1.0 training step's encode), each with its plain_,
+    # bound_ and library_ times
     results["fused_qkv_rope_attention"]["weight"] = {"B2 T1025 H24 kv_len None": 24}
     train_label = f"B{TRAIN_BATCH} T{TRAIN_T} H24 kv_len {TRAIN_KV}"
     results["fused_qkv_rope_attention_stats"]["weight"] = {train_label: 2 * 24}
     results["fused_qkv_rope_attention_backward"]["weight"] = {train_label: 24}
+    long_label = f"B2 T{LONG_T} H24 kv_len {LONG_KV}"
+    results["rope_pair_k"]["weight"] = {long_label: 24}
+    results["pair_long_attention"]["weight"] = {long_label: 24}
+    config = json.loads(SAO_CONFIG.read_text())
+    sa2_config = json.loads(SA2_CONFIG.read_text())
+
     log("[3] kernels vs plain versions (bf16, tolerance = (rel-L2, max-abs / max|plain|))")
     kernel_phase(results)
     log("[3b] training attention kernels K5 and K6 vs plain versions")
     attention_train_phase(results)
-    log(f"[3c] K2 and K3 at the frozen encoder's shapes, batch {TRAIN_BATCH} (plain versions one "
-        f"batch element at a time)")
-    encoder_conv_phase(results)
+    log(f"[3c] K2 and K3 at the frozen encoder's shapes ({encode_calls(config)} encode calls per "
+        f"training step of batch {TRAIN_BATCH})")
+    encoder_conv_phase(results, config)
+    log("[3d] long-sequence attention kernels K10a and K10 vs plain versions")
+    long_attention_phase(results)
 
     log("[4] model forwards with the kernels vs the plain versions")
-    config = json.loads(SAO_CONFIG.read_text())
-    model = build_sao(config)
+    model = build_model(config)
     audio_in = torch.from_numpy(np.stack([synthetic_audio(i, SAMPLE_SIZE).T for i in range(2)]))
     audio_in = audio_in.cuda()
     with plain_kernels():
@@ -693,70 +1021,26 @@ def main():
         f"with the plain versions, rel-L2 {enc_rel:.4g}, max abs {(zk - z32).abs().max().item():.4g} "
         f"(max|fp32| {z32.abs().max().item():.4g}; bound {ENCODE_REL_TOL})")
     del audio_in, z32, zk
-    g = torch.Generator(device="cuda").manual_seed(2)
-    cond = model.get_conditioning_inputs(model.conditioner([PROMPT], device="cuda"))
-    x = torch.randn(1, SAMPLE_SIZE // 2048, 64, generator=g, device="cuda")
-    t = torch.full((1,), 0.6, device="cuda")
+    dit_forward_phase(model, SAMPLE_SIZE // 2048, PROMPT, "SAO 1.0")
     with torch.no_grad():
-        dit_k = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
-        with plain_kernels():
-            dit_p = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
-            dit32 = copy.deepcopy(model.model).float()
-            dit_ref = dit32(x, t, cfg_scale=CFG_SCALE, **cond)
-            del dit32
-        z = torch.randn(1, 64, 64, generator=g, device="cuda")
+        z = torch.randn(1, 64, 64, generator=torch.Generator(device=DEVICE).manual_seed(3),
+                        device=DEVICE)
         dec_k = model.pretransform.decode_nwc(z)
         with plain_kernels():
             dec_p = model.pretransform.decode_nwc(z)
-    err_k, err_p = rel_err(dit_k, dit_ref), rel_err(dit_p, dit_ref)
     dec_rel = rel_err(dec_k, dec_p)
-    log(f"  DiT forward [1, 1024, 64] with CFG, rel-L2 against the fp32 DiT: kernels {err_k:.3g}, "
-        f"plain bf16 {err_p:.3g} (bound: kernels <= {DIT_ERR_RATIO} x plain); "
-        f"kernels vs plain {rel_err(dit_k, dit_p):.3g}")
     log(f"  VAE decode [1, 64, 64] -> {list(dec_k.shape)}: rel-L2 {dec_rel:.3g} (bound {DECODE_REL_TOL})")
-    if not (err_k <= DIT_ERR_RATIO * err_p and dec_rel <= DECODE_REL_TOL and enc_rel <= ENCODE_REL_TOL):
-        raise AssertionError("model forward with the kernels disagrees with the plain versions")
+    if not (dec_rel <= DECODE_REL_TOL and enc_rel <= ENCODE_REL_TOL):
+        raise AssertionError("the VAE with the kernels disagrees with the plain versions")
 
     log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7")
-    phase = {"t5": 0.0, "decode": 0.0}
-
-    def timed(fn, key):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            phase[key] += time.perf_counter() - start
-            return out
-        return wrapper
-
-    model.conditioner.forward = timed(model.conditioner.forward, "t5")
-    model.pretransform.decode_nwc = timed(model.pretransform.decode_nwc, "decode")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    audio = generate_diffusion_cond(model, steps=STEPS, cfg_scale=CFG_SCALE, conditioning=[PROMPT],
-                                    sample_size=SAMPLE_SIZE, sampler_type="dpmpp-3m-sde",
-                                    sigma_min=0.3, sigma_max=500, seed=42)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - start
-    launches = read_counts()
-    rms = audio.float().square().mean().sqrt().item()
-    seconds = SAMPLE_SIZE / config["sample_rate"]
-    denoise = total - phase["t5"] - phase["decode"]
-    log(f"  audio {list(audio.shape)} finite {bool(torch.isfinite(audio).all())} rms {rms:.4g}")
-    log(f"  wall: T5 {phase['t5']:.4f} s, denoise {denoise:.4f} s ({denoise / STEPS * 1e3:.3f} ms/step), "
-        f"decode {phase['decode']:.4f} s, total {total:.4f} s = {seconds / total:.3f} s-audio/s")
-    log(f"  launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    expected = {"fused_qkv_rope_attention": 24 * STEPS, "fused_qkv_rope_attention_stats": 0,
-                "fused_qkv_rope_attention_backward": 0, "fused_residual_unit": 15,
-                "snake_conv_transpose1d": 5}
-    if tuple(audio.shape) != (1, 2, SAMPLE_SIZE) or not torch.isfinite(audio).all() or rms <= 0:
-        raise AssertionError("generation output is not finite [1, 2, 2097152] audio")
-    if any(launches[k] != n for k, n in expected.items()) or launches["snake_conv1d"] < 2:
-        raise AssertionError(f"launch counts {launches} do not show the main path's kernels")
-    del model, audio
+    no_training = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0}
+    launches = generation_phase(
+        model, config, PROMPT, SAMPLE_SIZE,
+        expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 0, "pair_long_attention": 0,
+                  "fused_residual_unit": 15, "snake_conv_transpose1d": 5, **no_training},
+        min_counts={"snake_conv1d": 2})
+    del model
     torch.cuda.empty_cache()
 
     # phases 6-7 write ~23 GB (a de-zeroed DiT and a full training checkpoint)
@@ -775,15 +1059,38 @@ def main():
             f"from {N_WAVS} synthetic {WAV_SECONDS} s WAVs, checkpoint, resume for one more step")
         counts_train, counts_resume = training_phase(config, tmp, dit_path)
 
-    by_path = {"generate": launches, "train": counts_train, "train_resume": counts_resume}
-    line = {"kernels": [
-        dict(name=name, route=r["route"], source=r["source"], replaces=r["replaces"],
-             launches=sum(c[name] for c in by_path.values()), max_abs_err=r["max_abs_err"],
-             ms=r["ms"], plain_ms=r["plain_ms"],
-             launches_by_path={p: c[name] for p, c in by_path.items()},
-             **{k: r[k] for k in ("encode_ms", "plain_encode_ms") if k in r})
-        for name, r in results.items()]}
-    print(json.dumps(line))
+    log("[4b] SA 2.0's DiT at 6144 latent frames: kernels vs plain versions")
+    model = build_model(sa2_config)
+    model.model.to(torch.bfloat16)
+    model.pretransform.to(torch.bfloat16)
+    dit_forward_phase(model, SA2_SAMPLE_SIZE // 2048, SA2_PROMPT, "SA 2.0")
+    log(f"[8] long-form path: SA 2.0 text-to-audio, {SA2_SAMPLE_SIZE} samples, 100 dpmpp-3m-sde "
+        f"steps, CFG 7")
+    launches_long = generation_phase(
+        model, sa2_config, SA2_PROMPT, SA2_SAMPLE_SIZE,
+        expected={"fused_qkv_rope_attention": 0, "rope_pair_k": 24 * STEPS,
+                  "pair_long_attention": 24 * STEPS, "fused_residual_unit": 15,
+                  "snake_conv_transpose1d": 5, **no_training},
+        min_counts={"snake_conv1d": 2})
+    del model
+    torch.cuda.empty_cache()
+
+    by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
+               "train_resume": counts_resume}
+
+    def entry(name, r):
+        parts = r["bound_parts"]["ms"]
+        out = dict(name=name, route=r["route"], source=r["source"], replaces=r["replaces"],
+                   launches=sum(c[name] for c in by_path.values()), max_abs_err=r["max_abs_err"],
+                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                   bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
+                   launches_by_path={p: c[name] for p, c in by_path.items()})
+        for f in ("sao_decode_ms", "encode_ms"):
+            if f in r:
+                out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
+        return out
+
+    print(json.dumps({"kernels": [entry(name, r) for name, r in results.items()]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,9 +8,12 @@ repository's generate.py, without its int8 options).
 The YAML file nests prompts to any depth; each leaf is one condition dict
 (`prompt`, `seconds_start`, `seconds_total`). Work is split across
 processes as `[rank::world_size]` from the RANK / WORLD_SIZE environment
-variables. On a CUDA device the DiT and the VAE decoder run in bf16 through
-the port's kernels; on the CPU in fp32 through their plain versions.
-Without `--ckpt-path` the weights are random, drawn from seed 0.
+variables. `--device cuda` (the default) runs the DiT and the VAE decoder in
+bf16 through the port's kernels and raises when there is no CUDA device;
+`--device cpu` runs them in fp32 through the kernels' plain versions.
+Without `--ckpt-path` the weights are random, drawn from seed 0. Long-form
+Stable Audio 2.0 (285 s) is the same command with
+`--model-config friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio/stable_audio_2_0.json`.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ def get_args(argv=None):
                    help="Clip generated audio to the specified 'seconds_total'.")
     p.add_argument("--seed", type=int, default=-1)
     p.add_argument("--verbose", action="store_true", help="print sampler it/s every 10 steps")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a CUDA device) or cpu")
     return p.parse_args(argv)
 
 
@@ -78,13 +83,14 @@ def main(argv=None):
 
     from .inference.generation import generate_diffusion_cond
     from .models.factory import create_model_from_config
+    from .utils.common import resolve_device
 
+    device = resolve_device(args.device, "--device cpu")
     if not args.model_config:
         raise SystemExit("pretrained downloads are not available to the torch port: "
                          "pass --model-config (and --ckpt-path for trained weights)")
     rank = int(os.environ.get("RANK", 0))
     world_size = int(os.environ.get("WORLD_SIZE", 1))
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
     with open(args.model_config) as f:
         model_config = json.load(f)

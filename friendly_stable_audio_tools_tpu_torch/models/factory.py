@@ -11,16 +11,20 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..utils.common import init_weights_
+from ..utils.common import init_weights_, resolve_device
+from .conditioners import CLAPTextConditioner
 from .diffusion import create_diffusion_cond_from_config
 
 
 def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
-                             device: tp.Union[str, torch.device] = "cpu") -> nn.Module:
-    """Builds the model on `device` with random weights drawn from a
-    generator seeded with `seed` (the JAX package's initialisation scheme,
-    utils/common.init_weights_). Load a converted checkpoint over them with
-    `load_state_dict` (utils/convert.py)."""
+                             device: tp.Union[str, torch.device] = "cuda") -> nn.Module:
+    """Builds the model on `device` (the GPU unless `device="cpu"`; raises
+    when there is no GPU) with random weights drawn from a generator seeded
+    with `seed` (the JAX package's initialisation scheme,
+    utils/common.init_weights_). A CLAP conditioner then reads its
+    `clap_ckpt_path` when that file exists. Load a converted checkpoint over
+    the weights with `load_state_dict` (utils/convert.py)."""
+    device = resolve_device(device, 'device="cpu"')
     model_type = model_config.get("model_type")
     if model_type is None:
         raise ValueError("model_type must be specified in model config")
@@ -33,5 +37,8 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
     with torch.no_grad():  # the JAX wrapper halves a fresh backbone (diffusion.py:103)
         for p in model.model.parameters():
             p.mul_(0.5)
+    for m in model.modules():
+        if isinstance(m, CLAPTextConditioner):
+            m.load_checkpoint()
     return model.eval()
 

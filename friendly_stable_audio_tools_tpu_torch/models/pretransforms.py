@@ -14,25 +14,39 @@ from .autoencoders import AudioAutoencoder, create_autoencoder_from_config
 
 
 class AutoencoderPretransform(nn.Module):
-    """Latent scale + frozen VAE (JAX pretransforms.py:56, encode_nwc :83, decode_nwc :94)."""
+    """Latent scale + frozen VAE (JAX pretransforms.py:56, encode_nwc :83, decode_nwc :94).
 
-    def __init__(self, model: AudioAutoencoder, scale: float = 1.0):
+    `iterate_batch` micro-batches the encode and the decode to bound their
+    memory, as the JAX autoencoder's `encode`/`decode` do
+    (autoencoders.py:309-318, :357-362): True runs one sample at a time, an
+    int that many; False the whole batch. Every layer of the VAE is
+    per-sample, so the result does not depend on it."""
+
+    def __init__(self, model: AudioAutoencoder, scale: float = 1.0,
+                 iterate_batch: tp.Union[bool, int] = False):
         super().__init__()
         self.model = model
         self.scale = scale
+        self.iterate_batch = iterate_batch
         self.downsampling_ratio = model.downsampling_ratio
+
+    def _batched(self, fn, x: torch.Tensor) -> torch.Tensor:
+        n = int(self.iterate_batch)
+        if not self.iterate_batch or n >= x.shape[0]:
+            return fn(x)
+        return torch.cat([fn(xb) for xb in x.split(n)])
 
     @torch.no_grad()
     def encode_nwc(self, x: torch.Tensor) -> torch.Tensor:
         """audio [B, T, C] -> latents [B, T / ratio, latent_dim] / scale, fp32;
         the encoder runs in the dtype of its parameters."""
-        return self.model.encode_nwc(x).float() / self.scale
+        return self._batched(lambda xb: self.model.encode_nwc(xb).float(), x) / self.scale
 
     @torch.no_grad()
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, L, C] latents -> audio [B, T, io_channels], fp32; the
         decoder runs in the dtype of its parameters."""
-        return self.model.decode_nwc(z * self.scale).float()
+        return self._batched(lambda zb: self.model.decode_nwc(zb).float(), z * self.scale)
 
 
 def create_pretransform_from_config(config: tp.Dict[str, tp.Any]) -> AutoencoderPretransform:
@@ -41,4 +55,5 @@ def create_pretransform_from_config(config: tp.Dict[str, tp.Any]) -> Autoencoder
     if config.get("chunked", False):
         raise NotImplementedError("chunked decoding is not in the torch port")
     autoencoder = create_autoencoder_from_config(config["config"])
-    return AutoencoderPretransform(autoencoder, scale=config.get("scale", 1.0))
+    return AutoencoderPretransform(autoencoder, scale=config.get("scale", 1.0),
+                                   iterate_batch=config.get("iterate_batch", False))

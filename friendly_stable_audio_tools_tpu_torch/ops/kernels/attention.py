@@ -1,14 +1,26 @@
-"""Fused qkv + rotary + self-attention: inference forward (K1), training
-forward with LSE (K5) and backward (K6), and their autograd binding.
+"""Fused qkv + rotary + self-attention: inference forward (K1), its
+long-sequence form (K10a + K10), training forward with LSE (K5) and
+backward (K6), and their autograd binding.
 
 Replaces the head-pair Pallas kernels of the DiT's self-attention
 (friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py):
 
 * K1 ``_fused_pair_forward`` / ``_fused_pair_kernel`` (:828, :796);
+* K10a ``_rope_pair_k_kernel`` (:1229, called at :1281) and K10
+  ``_pair_long_kernel`` (:1233, called at :1297), the two calls of
+  ``_pair_long_forward`` (:1255);
 * K5 ``_fused_pair_forward_stats`` / ``_fused_pair_stats_kernel`` (:980, :931);
 * K6 ``_pair_backward`` (:1119) with ``_rope_pair_k_kernel`` (:1229) and
   ``_pair_bwd_kernel`` (:1029);
 * the ``_fused_pair`` custom_vjp (:1336-1392) becomes :class:`FusedQKVRopeAttention`.
+
+Routing without grad follows flash_attention.py:1413-1421
+(:func:`attention_route`): up to 2048 tokens K1; up to 8192 (Stable Audio
+2.0's 6145 tokens, padded to 6272) K10a then K10; beyond that the JAX
+package takes its generic flash kernel (K7), which is not ported, so a CUDA
+tensor raises there. Under grad every length takes K5/K6; the JAX package
+trains sequences over 1168 tokens through its unpack path and K7/K9 instead
+(flash_attention.py:971-977, :1394), the same function.
 
 What it computes: non-causal attention of a fused ``[B, T, 3*H*D]`` qkv
 tensor with the fp32 partial rotary embedding of
@@ -36,6 +48,14 @@ splits as FlashAttention-2 does (a key-tile pass for dk/dv, a q-tile pass
 for dq) because the TPU kernel's resident whole-sequence dk/dv accumulators
 do not fit a Hopper block's shared memory.
 
+K10 (csrc/attention_long.cu) at B2 T6272 kv_len 6145 H24 is ~464 GFLOP of
+score and P.V products (6145 valid rows x 6145 keys) over ~190 MB in and
+out: tensor-core bound, ~0.47 ms at 989 TFLOP/s. The TPU kernel holds a head pair's whole roped K in VMEM
+(1.6 MB) for one whole-K score dot per head; a Hopper block cannot, so K10 is
+K1's streaming kernel reading keys already roped, and K10a (memory bound, 2 x
+38.5 MB, ~23 us at 3.35 TB/s) ropes K once per call into a bf16 [B, T, H*D]
+buffer, where K1 would rope each key tile again for each of the 98 q tiles.
+
 The plain versions below run for CPU tensors (the CPU tests); CUDA tensors
 launch the kernels or raise. The CUDA kernels take bf16: the autograd
 binding casts an fp32 qkv to bf16 and its gradient back, where the JAX
@@ -54,10 +74,28 @@ from . import build
 
 # launch counts: each wrapper adds one where it launches its kernel
 launches = 0  # K1
+rope_k_launches = 0  # K10a
+long_launches = 0  # K10
 stats_launches = 0  # K5
 backward_launches = 0  # K6 (one dk/dv pass and one dq pass per count)
 
 LOG2E = 1.4426950408889634
+PAIR_MAX_T = 2048  # K1's limit (flash_attention.py:1413)
+LONG_MAX_T = 8192  # K10's limit (SINGLE_DOT_MAX_TK, flash_attention.py:55)
+# fp32 score bytes one chunk of heads of the long plain version may hold
+LONG_PLAIN_SCORE_BYTES = 1 << 30
+
+
+def attention_route(t: int) -> str:
+    """The inference kernel for a sequence of t tokens, as the JAX package
+    routes it (flash_attention.py:1413-1421): "pair" (K1) for t <= 2048,
+    "pair_long" (K10a + K10) for t <= 8192, else "flash" (the generic
+    kernel K7, not ported)."""
+    if t <= PAIR_MAX_T:
+        return "pair"
+    if t <= LONG_MAX_T:
+        return "pair_long"
+    return "flash"
 
 
 def _valid_len(t: int, kv_len: tp.Optional[int]) -> int:
@@ -137,6 +175,51 @@ def fused_qkv_rope_attention_backward_plain(qkv: torch.Tensor, out: torch.Tensor
     return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dtype or dt)
 
 
+def rope_pair_k_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K10a's plain version: k of qkv [B, T, 3*H*D] roped in fp32 (last T rows
+    of freqs) and rounded to qkv's dtype -> [B, T, H*D]."""
+    b, t, three_hd = qkv.shape
+    hd = three_hd // 3
+    k = _heads(qkv[..., hd:2 * hd], num_heads)
+    return apply_rotary_pos_emb(k, freqs).transpose(1, 2).reshape(b, t, hd).to(qkv.dtype)
+
+
+def pair_long_attention_plain(qkv: torch.Tensor, khat: torch.Tensor, freqs: torch.Tensor,
+                              num_heads: int, kv_len: tp.Optional[int] = None) -> torch.Tensor:
+    """K10's plain version: q of qkv roped and prescaled by log2(e)/sqrt(D),
+    rounded to qkv's dtype, a whole-sequence base-2 softmax over the pre-roped
+    khat [B, T, H*D] (keys at or beyond kv_len masked), P rounded before P.V
+    -> [B, T, H*D] in qkv's dtype. Heads go in chunks whose fp32 scores stay
+    under LONG_PLAIN_SCORE_BYTES (one layer's at B2 T6272 H24 would be 7.6 GB)."""
+    dt = qkv.dtype
+    b, t, three_hd = qkv.shape
+    hd = three_hd // 3
+    d = hd // num_heads
+    valid = _valid_len(t, kv_len)
+    chunk = max(1, LONG_PLAIN_SCORE_BYTES // (4 * b * t * t))
+    out = torch.empty(b, num_heads, t, d, device=qkv.device, dtype=dt)
+    for h0 in range(0, num_heads, chunk):
+        h1 = min(num_heads, h0 + chunk)
+        q = _heads(qkv[..., h0 * d:h1 * d], h1 - h0)
+        q = (apply_rotary_pos_emb(q, freqs) * (LOG2E / math.sqrt(d))).to(dt).float()
+        k = _heads(khat[..., h0 * d:h1 * d].to(dt), h1 - h0)
+        v = _heads(qkv[..., 2 * hd + h0 * d:2 * hd + h1 * d], h1 - h0)
+        s = _masked_scores(q, k, valid)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        del s
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        out[:, h0:h1] = ((p.to(dt).float() @ v) / l).to(dt)
+        del p
+    return out.transpose(1, 2).reshape(b, t, hd)
+
+
+def fused_qkv_rope_attention_long_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
+                                        kv_len: tp.Optional[int] = None) -> torch.Tensor:
+    """The long path in plain PyTorch: K10a's then K10's plain version."""
+    return pair_long_attention_plain(qkv, rope_pair_k_plain(qkv, freqs, num_heads), freqs,
+                                     num_heads, kv_len)
+
+
 def _cuda_inputs(name: str, qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
     """Checks what the kernels take; returns (d, rot, cos, sin)."""
     d = qkv.shape[-1] // (3 * num_heads)
@@ -144,6 +227,9 @@ def _cuda_inputs(name: str, qkv: torch.Tensor, freqs: torch.Tensor, num_heads: i
     if qkv.dtype != torch.bfloat16 or d != 64 or rot % 2 or rot > d:
         raise ValueError(f"{name}: the CUDA kernel takes bf16, head dim 64 and an even rot <= 64, "
                          f"got {qkv.dtype}, D = {d}, rot = {rot}")
+    if qkv.dim() != 3 or qkv.shape[-1] != 3 * num_heads * d or freqs.shape[0] < qkv.shape[1]:
+        raise ValueError(f"{name}: qkv must be [B, T, 3*H*64] and freqs [>= T, rot], got "
+                         f"{tuple(qkv.shape)} with H = {num_heads} and {tuple(freqs.shape)}")
     if freqs.device != qkv.device:
         raise ValueError(f"{name}: freqs must be on the qkv device")
     f = freqs[-qkv.shape[1]:].float()
@@ -215,6 +301,53 @@ def fused_qkv_rope_attention_backward(qkv: torch.Tensor, out: torch.Tensor, lse:
     return dqkv.to(dtype or qkv.dtype)
 
 
+def rope_pair_k(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K10a: k of qkv [B, T, 3*H*D] roped once -> khat [B, T, H*D] in qkv's dtype."""
+    global rope_k_launches
+    if qkv.device.type == "cpu":
+        return rope_pair_k_plain(qkv, freqs, num_heads)
+    b, t, _ = qkv.shape
+    d, rot, cos, sin = _cuda_inputs("rope_pair_k", qkv, freqs, num_heads)
+    qkv = qkv.contiguous()
+    khat = torch.empty(b, t, num_heads * d, device=qkv.device, dtype=qkv.dtype)
+    err = build.library().fsat_rope_pair_k(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                                           khat.data_ptr(), b, t, num_heads, rot,
+                                           _stream(qkv.device))
+    build.check(err, "rope_pair_k")
+    rope_k_launches += 1
+    return khat
+
+
+def pair_long_attention(qkv: torch.Tensor, khat: torch.Tensor, freqs: torch.Tensor,
+                        num_heads: int, kv_len: tp.Optional[int] = None) -> torch.Tensor:
+    """K10: attention of qkv's roped q over K10a's khat and qkv's v -> [B, T, H*D]."""
+    global long_launches
+    b, t, three_hd = qkv.shape
+    valid = _valid_len(t, kv_len)
+    if tuple(khat.shape) != (b, t, three_hd // 3):
+        raise ValueError(f"pair_long_attention: khat {tuple(khat.shape)} does not match qkv "
+                         f"{tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return pair_long_attention_plain(qkv, khat, freqs, num_heads, kv_len)
+    d, rot, cos, sin = _cuda_inputs("pair_long_attention", qkv, freqs, num_heads)
+    if khat.device != qkv.device or khat.dtype != qkv.dtype:
+        raise ValueError("pair_long_attention: khat must be bf16 on the qkv device")
+    qkv, khat = qkv.contiguous(), khat.contiguous()
+    out = torch.empty(b, t, num_heads * d, device=qkv.device, dtype=qkv.dtype)
+    err = build.library().fsat_pair_long_attention(
+        qkv.data_ptr(), khat.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, t,
+        num_heads, rot, valid, LOG2E / math.sqrt(d), _stream(qkv.device))
+    build.check(err, "pair_long_attention")
+    long_launches += 1
+    return out
+
+
+def fused_qkv_rope_attention_long(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
+                                  kv_len: tp.Optional[int] = None) -> torch.Tensor:
+    """The long-sequence inference path (``_pair_long_forward``): K10a, then K10."""
+    return pair_long_attention(qkv, rope_pair_k(qkv, freqs, num_heads), freqs, num_heads, kv_len)
+
+
 class FusedQKVRopeAttention(torch.autograd.Function):
     """K5 forward, K6 backward (the ``_fused_pair`` custom_vjp). On CUDA the
     kernels run in bf16: an fp32 qkv is cast on the way in and its gradient
@@ -244,13 +377,21 @@ def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: 
     the caller to slice off).
 
     With grad enabled and qkv requiring grad, runs :class:`FusedQKVRopeAttention`
-    (K5 then K6 on CUDA); otherwise the inference kernel K1."""
+    (K5 then K6 on CUDA); otherwise the inference kernel that
+    :func:`attention_route` names for T."""
     global launches
     valid = _valid_len(qkv.shape[1], kv_len)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return FusedQKVRopeAttention.apply(qkv, freqs, num_heads, kv_len)
+    route = attention_route(qkv.shape[1])
+    if route == "pair_long":
+        return fused_qkv_rope_attention_long(qkv, freqs, num_heads, kv_len)
     if qkv.device.type == "cpu":
         return fused_qkv_rope_attention_plain(qkv, freqs, num_heads, kv_len)
+    if route == "flash":
+        raise NotImplementedError(
+            f"fused_qkv_rope_attention: T = {qkv.shape[1]} > {LONG_MAX_T} takes the generic flash "
+            f"kernel K7 (flash_attention.py:_flash_forward), which the torch port has not ported")
     out, _ = _launch_forward(qkv, freqs, num_heads, valid, with_lse=False)
     launches += 1
     return out

@@ -38,6 +38,8 @@ SIGNATURES = {
     "fsat_fused_qkv_rope_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fsat_fused_qkv_rope_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                                           _P],
+    "fsat_rope_pair_k": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fsat_pair_long_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fsat_snake_conv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_fused_residual_unit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fsat_snake_conv_transpose1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -6,8 +6,10 @@
 
 Flags and their defaults come from `defaults.ini` (in the working directory,
 else the repository's). Trains a `diffusion_cond` model on one device: a
-CUDA card when there is one (the DiT in fp32 with its attention through the
-K5/K6 kernels in bf16, the frozen VAE in bf16 through K2/K3), else the CPU.
+CUDA card (the DiT in fp32 with its attention through the
+K5/K6 kernels in bf16, the frozen VAE in bf16 through K2/K3) by default,
+raising when there is none; `--device cpu` trains on the CPU through the
+kernels' plain versions.
 Without `--pretrained-ckpt-path` the weights are random, drawn from
 `--seed`. Checkpoints (`torch.save`) go to
 `<save-dir>/<name>/<run id>/checkpoints/step_<n>/`; `--ckpt-path` resumes
@@ -18,6 +20,7 @@ to wandb when `WANDB_API_KEY` is set.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import random
@@ -40,7 +43,10 @@ def main(argv=None):
     from .utils.config_args import get_all_args
 
     defaults = "defaults.ini" if os.path.isfile("defaults.ini") else str(REPO_DEFAULTS)
-    args = get_all_args(defaults, argv)
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default; raises without a CUDA device) or cpu")
+    args = get_all_args(defaults, argv, parser)
     if args.num_nodes > 1 or args.num_chips > 1 or args.strategy == "fsdp":
         raise NotImplementedError("multi-device training is not in the torch port: "
                                   "run with --num-nodes 1 --num-chips 0|1 --strategy dp")
@@ -59,12 +65,14 @@ def main(argv=None):
     )
     from .training.logging import ExperimentLogger
     from .training.trainer import Trainer
+    from .utils.common import resolve_device
+
+    device = resolve_device(args.device, "--device cpu")
 
     seed = args.seed + int(os.environ.get("SLURM_PROCID", 0))
     random.seed(seed)
     np.random.seed(seed % 2**32)
     torch.manual_seed(seed)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
     with open(args.model_config) as f:
         model_config = json.load(f)

@@ -53,14 +53,12 @@ class DiffusionCondTrainingWrapper:
     trained from raw audio with the v objective and quasi-random uniform
     timesteps (the settings of Stable Audio Open's config).
 
-    Trainable: the DiT and every conditioner that is not a T5 (the JAX
-    package freezes T5, `T5Conditioner.trainable`); frozen: T5 and the
-    pretransform."""
+    Trainable: the DiT and every conditioner whose `trainable` is not False
+    (the JAX package's `Conditioner.trainable`: T5 is frozen, CLAP unless
+    `finetune`); frozen: those and the pretransform."""
 
     def __init__(self, model, lr: tp.Optional[float] = None, use_ema: bool = True,
                  optimizer_configs: tp.Optional[dict] = None, cfg_dropout_prob: float = 0.1):
-        from ..models.conditioners import T5Conditioner
-
         if lr is None and optimizer_configs is None:
             raise ValueError("Must specify either lr or optimizer_configs in training config")
         if model.diffusion_objective != "v" or model.pretransform is None:
@@ -73,7 +71,7 @@ class DiffusionCondTrainingWrapper:
         model.model.requires_grad_(True)
         if model.conditioner is not None:
             for c in model.conditioner.conditioners.values():
-                if not isinstance(c, T5Conditioner):
+                if getattr(c, "trainable", True):
                     c.requires_grad_(True)
         self.trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.dit_params = list(model.model.parameters())

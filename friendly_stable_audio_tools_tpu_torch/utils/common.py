@@ -4,7 +4,8 @@
 fan-in scaled normal for linear layers with zero bias, torch's fan-in
 uniform for the weight-normed convs with `g = ||v||` (so the initial weight
 equals v), unit gains, zero log-scale snake parameters, unit-normal
-embeddings and Fourier weights, and zeros for the projections marked
+embeddings and Fourier weights, unit gain and zero bias for RoBERTa's
+LayerNorms, and zeros for the projections marked
 `zero_init` (the transformer's branch outputs, the DiT's residual convs).
 Every draw comes from the generator passed in.
 """
@@ -12,10 +13,12 @@ Every draw comes from the generator passed in.
 from __future__ import annotations
 
 import math
+import typing as tp
 
 import torch
 from torch import nn
 
+from ..models.clap import BiasLayerNorm
 from ..models.t5 import T5Attention
 from ..ops.activations import SnakeBeta
 from ..ops.convs import Conv1d, WNConv1d, WNConvTranspose1d
@@ -62,6 +65,9 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(m, (LayerNorm, RMSNorm)):
             for p in own:
                 p.fill_(1.0)
+        elif isinstance(m, BiasLayerNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=gen)
         elif isinstance(m, FourierFeatures):
@@ -89,3 +95,14 @@ def dezero_(model: nn.Module, gen: torch.Generator, scale: float = 0.02,
         noise = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)
         p.copy_((p.float() * damp + scale * noise).to(p.dtype))
     return model
+
+
+def resolve_device(device: tp.Union[str, torch.device], how_to_pick_cpu: str) -> torch.device:
+    """`device` as a torch.device; raises when it names CUDA and there is no
+    CUDA device, rather than run on the CPU unasked. `how_to_pick_cpu` names
+    the argument that selects the CPU, for the message."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device is available: the torch port runs on the GPU by "
+                           f"default; pass {how_to_pick_cpu} to run on the CPU")
+    return device

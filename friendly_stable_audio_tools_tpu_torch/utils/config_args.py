@@ -20,10 +20,12 @@ def _parse_value(raw: str):
 
 
 def get_all_args(defaults_file: str = "defaults.ini",
-                 argv: tp.Optional[tp.Sequence[str]] = None) -> argparse.Namespace:
+                 argv: tp.Optional[tp.Sequence[str]] = None,
+                 parser: tp.Optional[argparse.ArgumentParser] = None) -> argparse.Namespace:
+    """The INI's flags, added to `parser` (which may hold flags of its own)."""
     cp = configparser.ConfigParser()
     cp.read(defaults_file)
-    parser = argparse.ArgumentParser()
+    parser = parser or argparse.ArgumentParser()
     if cp.has_section("DEFAULTS"):
         for key, raw in cp.items("DEFAULTS"):
             value = _parse_value(raw.split("#")[0])

@@ -11,6 +11,11 @@ parameter's path carries over with three renames:
   (transformer), `block{i}` -> `blocks.{i}` (T5, encoder, decoder), `res{i}` ->
   `res.{i}` (VAE residual units).
 
+The CLAP conditioner's tree `clap/text_branch/layer{i}/...` carries over by
+the same rules (its LayerNorms keep `scale` and `bias`).
+:func:`clap_text_state_dict` reads a laion-clap checkpoint's text branch
+instead, by the key map of the JAX package's `models/clap.py:convert_clap_text_branch`.
+
 Conv weights keep the JAX layout `[k, Cin, Cout]`, which the CUDA kernels
 read: a plain `Conv1d` kernel becomes `weight` unchanged, and the
 weight-normed convs keep `v`, `g`, `bias`. The magnitude `g` is per output
@@ -71,3 +76,41 @@ def convert_conditioned_diffusion(dit_params: tp.Mapping,
     if pretransform_params is not None:
         sd.update(state_dict_from_jax(pretransform_params, "pretransform.model."))
     return sd
+
+
+def clap_text_state_dict(sd: tp.Mapping[str, tp.Any]) -> tp.Dict[str, torch.Tensor]:
+    """A laion-clap checkpoint's state dict (keys with or without the
+    `module.` DataParallel prefix) -> the state dict of the port's
+    `CLAPTextBranch` (models/clap.py). Torch Linear weights keep their layout."""
+
+    def get(key):
+        for prefix in ("module.", ""):
+            if prefix + key in sd:
+                return torch.as_tensor(sd[prefix + key]).float()
+        raise KeyError(key)
+
+    out = {}
+
+    def take(dst, src, leaves=(("weight", "weight"), ("bias", "bias"))):
+        for d, s_ in leaves:
+            out[f"{dst}.{d}"] = get(f"{src}.{s_}")
+
+    ln = (("scale", "weight"), ("bias", "bias"))
+    emb = "text_branch.embeddings"
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        take(f"text_branch.{name}", f"{emb}.{name}", (("weight", "weight"),))
+    take("text_branch.embeddings_layernorm", f"{emb}.LayerNorm", ln)
+    i = 0
+    while any(f"text_branch.encoder.layer.{i}." in k for k in sd):
+        src, dst = f"text_branch.encoder.layer.{i}", f"text_branch.layers.{i}"
+        for part in ("query", "key", "value"):
+            take(f"{dst}.attention.{part}", f"{src}.attention.self.{part}")
+        take(f"{dst}.attention_output", f"{src}.attention.output.dense")
+        take(f"{dst}.attention_layernorm", f"{src}.attention.output.LayerNorm", ln)
+        take(f"{dst}.intermediate", f"{src}.intermediate.dense")
+        take(f"{dst}.output", f"{src}.output.dense")
+        take(f"{dst}.output_layernorm", f"{src}.output.LayerNorm", ln)
+        i += 1
+    take("projection_0", "text_projection.0")
+    take("projection_2", "text_projection.2")
+    return out

@@ -114,3 +114,24 @@ def test_conv_kernels_refuse_inputs_that_need_grad(gen):
                                      stride=2)
     with torch.no_grad():
         assert tconv.snake_conv1d(x, w, None, a, 1.0 / a).shape == (1, 256, 128)
+
+
+def test_long_attention_kernels_match_plain(gen):
+    """K10a against its plain version (one bf16 rounding apart, rel-L2 1e-3),
+    and the long path (K10a then K10) against its plain version, at ragged
+    lengths over 2048; each call launches K10a and K10 once and K1 never."""
+    for b, t, h, kv in ((2, 2176, 4, 2050), (1, 2049, 2, None)):
+        qkv = _rnd(gen, b, t, 3 * h * 64).to(torch.bfloat16)
+        f = rotary_freqs(t, 32, device="cuda")
+        _close(tattn.rope_pair_k(qkv, f, h), tattn.rope_pair_k_plain(qkv, f, h), tol=1e-3)
+        before = (tattn.launches, tattn.rope_k_launches, tattn.long_launches)
+        got = tattn.fused_qkv_rope_attention(qkv, f, h, kv_len=kv)
+        assert (tattn.launches, tattn.rope_k_launches, tattn.long_launches) == (
+            before[0], before[1] + 1, before[2] + 1)
+        _close(got, tattn.fused_qkv_rope_attention_long_plain(qkv, f, h, kv_len=kv))
+
+
+def test_attention_beyond_the_long_path_raises_on_cuda(gen):
+    qkv = _rnd(gen, 1, 8193, 3 * 64).to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="K7"):
+        tattn.fused_qkv_rope_attention(qkv, rotary_freqs(8193, 32, device="cuda"), 1)

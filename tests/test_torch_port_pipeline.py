@@ -10,7 +10,9 @@ the output's peak, covering fp32 rounding differences between XLA and
 PyTorch compounded over 8 sampler steps and the decoder.
 
 A subprocess runs the port (factory, generation, the generate and train
-CLIs) and checks that jax and flax never enter `sys.modules`.
+CLIs, and a model with the CLAP text conditioner) behind an import hook that
+refuses jax, flax and the JAX package, and checks that none of them enters
+`sys.modules`.
 """
 
 import copy
@@ -82,7 +84,7 @@ def test_generate_diffusion_cond_matches_jax(cfg_scale, scale_phi):
               sigma_max=50.0, seed=SEED, scale_phi=scale_phi)
     want = np.asarray(jax_generate(jmodel, **kw))
 
-    tmodel = create_model_from_config(config)
+    tmodel = create_model_from_config(config, device="cpu")
     tmodel.load_state_dict(convert_conditioned_diffusion(
         jmodel.params, jmodel.conditioner.params, jmodel.pretransform.model.params), strict=True)
     noise, step_noise = _jax_sampler_noise(STEPS, (len(CONDITIONING), LATENTS, 16))
@@ -95,10 +97,18 @@ def test_generate_diffusion_cond_matches_jax(cfg_scale, scale_phi):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Factory, generation on the CPU, the generate CLI and one step of the
-    train CLI, in a process that must never import jax or flax."""
+    """Factory, generation on the CPU, the generate CLI, one step of the
+    train CLI and a model with a `clap_text` conditioner, in a process whose
+    import hook refuses jax, flax and friendly_stable_audio_tools_tpu."""
     config_path = tmp_path / "tiny_sao.json"
     config_path.write_text(json.dumps(tiny_sao_config()))
+    clap_config = tiny_sao_config()
+    clap_config["model"]["conditioning"]["configs"][0] = {
+        "id": "prompt", "type": "clap_text",
+        "config": {"clap_ckpt_path": str(tmp_path / "no_such_clap.pt"),
+                   "use_text_features": True, "feature_layer_ix": -2}}
+    clap_path = tmp_path / "tiny_clap.json"
+    clap_path.write_text(json.dumps(clap_config))
     (tmp_path / "wavs").mkdir()
     wav = np.random.RandomState(0).randn(LATENTS * RATIO + 50, 2) * 3000
     wavfile.write(str(tmp_path / "wavs" / "clip.wav"), 44100, wav.astype(np.int16))
@@ -110,11 +120,21 @@ def test_port_runs_without_jax(tmp_path):
           calm: {prompt: "calm piano", seconds_start: 0, seconds_total: 2}
         """))
     script = textwrap.dedent(f"""\
-        import json, sys, torch
+        import importlib.abc, json, sys
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "friendly_stable_audio_tools_tpu"):
+                    raise ImportError("the torch port imported " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import torch
         from friendly_stable_audio_tools_tpu_torch import create_model_from_config
         from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
         from friendly_stable_audio_tools_tpu_torch.generate import main
-        model = create_model_from_config(json.load(open({str(config_path)!r})), seed=3)
+        model = create_model_from_config(json.load(open({str(config_path)!r})), seed=3,
+                                         device="cpu")
         audio = generate_diffusion_cond(model, steps=3, cfg_scale=7.0,
             conditioning=[{{"prompt": "x", "seconds_start": 0, "seconds_total": 47}}],
             sample_size={LATENTS * RATIO}, sampler_type="dpmpp-3m-sde", sigma_min=0.3,
@@ -122,13 +142,18 @@ def test_port_runs_without_jax(tmp_path):
         assert audio.shape == (1, 2, {LATENTS * RATIO}) and torch.isfinite(audio).all()
         main(["--model-config", {str(config_path)!r}, "--cond-yaml-path",
               {str(tmp_path / "prompts.yaml")!r}, "--output-dir", {str(tmp_path / "out")!r},
-              "--sample-steps", "2", "--batch-size", "4", "--seed", "1"])
+              "--sample-steps", "2", "--batch-size", "4", "--seed", "1", "--device", "cpu"])
         from friendly_stable_audio_tools_tpu_torch.train import main as train
         trainer = train(["--model-config", {str(config_path)!r}, "--dataset-config",
                          {str(tmp_path / "data.json")!r}, "--batch-size", "2", "--max-steps", "1",
-                         "--num-workers", "0", "--save-dir", {str(tmp_path / "run")!r}])
+                         "--num-workers", "0", "--save-dir", {str(tmp_path / "run")!r},
+                         "--device", "cpu"])
         assert trainer.wrapper.step == 1
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+        clap = create_model_from_config(json.load(open({str(clap_path)!r})), device="cpu")
+        emb, mask = clap.conditioner.conditioners["prompt"](["a calm piano melody"])
+        assert emb.shape == (1, 77, 128) and mask.sum() == 5 and torch.isfinite(emb).all()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "friendly_stable_audio_tools_tpu"))
         assert not bad, bad
         print("OK")
         """)

@@ -98,7 +98,7 @@ def test_one_train_step_matches_jax(models, cfg_dropout_prob):
     (jloss, _), jgrads = jw._loss_and_grads(state.params, batch, rng, state.qmc_counter)
     new_state, _ = jw._apply_update(state, 2, jloss, {}, jgrads)
 
-    tmodel = create_model_from_config(config)
+    tmodel = create_model_from_config(config, device="cpu")
     tmodel.load_state_dict(sd, strict=True)
     tw = DiffusionCondTrainingWrapper(tmodel, optimizer_configs=opt,
                                       cfg_dropout_prob=cfg_dropout_prob)
@@ -144,7 +144,8 @@ def test_train_cli_two_steps_checkpoint_and_resume(tmp_path):
         {"dataset_type": "audio_dir", "datasets": [{"id": "wavs", "path": str(wavs)}]}))
     args = ["--model-config", str(tmp_path / "model.json"), "--dataset-config",
             str(tmp_path / "data.json"), "--batch-size", "2", "--num-workers", "0",
-            "--save-dir", str(tmp_path / "run"), "--name", "tiny", "--seed", "3"]
+            "--save-dir", str(tmp_path / "run"), "--name", "tiny", "--seed", "3",
+            "--device", "cpu"]
 
     trainer = train_main(args + ["--max-steps", "2"])
     first = {n: p.detach().clone() for n, p in trainer.wrapper.trainable.items()}
@@ -200,7 +201,7 @@ def test_grad_accumulation_averages_micro_batches_and_export_prefers_ema(models,
     draws = [_jax_draws(jax.random.PRNGKey(20 + i), 1) for i in range(2)]
 
     def wrapper():
-        tmodel = create_model_from_config(config)
+        tmodel = create_model_from_config(config, device="cpu")
         tmodel.load_state_dict(sd, strict=True)
         return DiffusionCondTrainingWrapper(tmodel, optimizer_configs=opt, cfg_dropout_prob=0.0)
 
@@ -238,4 +239,4 @@ def test_unported_training_options_raise(models, key, value):
     config = copy.deepcopy(models[0])
     config["training"][key] = value
     with pytest.raises(NotImplementedError, match=key):
-        create_training_wrapper_from_config(config, create_model_from_config(config))
+        create_training_wrapper_from_config(config, create_model_from_config(config, device="cpu"))
