@@ -18,14 +18,18 @@ Phases (any failure raises and the script exits non-zero):
    3b. the training attention kernels K5 (forward with LSE) and K6
    (backward) against their plain versions at the training shape (B 8,
    T 1040, kv_len 1025, 24 heads) and three smaller ones;
-   3c. K2 and K3 at the frozen encoder's shapes (the encode runs one clip
-   at a time, `iterate_batch`), and the bf16 encode with the kernels against
-   an fp32 encode with the plain versions;
+   3c. K2 and K3 at the frozen encoder's shapes, SAO 1.0's and SA 2.0's
+   sample sizes (the encode runs one clip at a time, `iterate_batch`);
    3d. the long-sequence attention kernels K10a (rope K once) and K10
    against their plain versions at SA 2.0's shape (B 2, T 6272, kv_len 6145,
    24 heads) and three smaller ragged ones;
+   3e. the fp32 training attention kernels K7 (forward with LSE) and K9
+   (two-pass backward) against their plain versions at SA 2.0's training
+   shape (B 8 x 24 heads, T 6272, kv_len 6145) and two smaller ragged ones;
 4. one DiT forward (CFG batch-doubled) and one short VAE decode with the
-   kernels and with the plain versions, same weights and inputs;
+   kernels and with the plain versions, same weights and inputs, and the
+   bf16 encode with the kernels against an fp32 encode with the plain
+   versions;
    4b. one SA 2.0 DiT forward at 6144 latent frames with CFG (B 2, T 6272)
    with the kernels, with the plain versions in bf16, and as an fp32 copy;
 5. the generation path: `create_model_from_config(stable_audio_open_1_0.json)`
@@ -36,6 +40,11 @@ Phases (any failure raises and the script exits non-zero):
 6. one training step of the fp32 DiT at batch 8 with the attention kernels,
    with their plain versions in bf16, and with fp32 plain attention as the
    reference: loss and weight gradients of layers 0, 11 and 23;
+   6b. one training step of SA 2.0's fp32 DiT at batch 8 and 6144 latent
+   frames (T 6272, kv_len 6145) with the attention through K7/K9, through
+   their plain versions in fp32 (the reference), and through the bf16 K5/K6
+   route forced (the route the port took before it routed as the JAX
+   package does): loss and weight gradients of layers 0, 11 and 23;
 7. the training path: `python -m friendly_stable_audio_tools_tpu_torch.train`'s
    `main` on the SAO config from 16 synthetic 50 s WAVs, batch 8, 4 steps
    with a checkpoint at step 4, then a resume for a fifth step; step time,
@@ -45,10 +54,15 @@ Phases (any failure raises and the script exits non-zero):
    (CLAP text conditioner, random weights, hash tokenizer), DiT and VAE in
    bf16, `generate_diffusion_cond` for one 285 s prompt, 100 dpmpp-3m-sde
    steps, CFG 7, 12,582,912 stereo samples; output checks, walls (CLAP,
-   denoise per step, decode), peak memory, and the launch counts.
+   denoise per step, decode), peak memory, and the launch counts;
+9. the long-form training path: `train.main` on the SA 2.0 config from 8
+   synthetic 290 s WAVs, batch 8, 3 steps: step time, trained audio per
+   second, the split, peak memory, finite losses, moved weights and the
+   launch counts (K7/K9 and the encoder's K2/K3, no K5/K6).
 
-Output: progress lines, then one JSON line of per-kernel results, the
-nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
+Output: progress lines with each phase's wall, then one JSON line of
+per-kernel results, the nvidia-smi line, and as the last line
+`{"ok": true, "device": {...}}`.
 Without a CUDA device the script exits with 2 and prints no result.
 """
 
@@ -87,6 +101,11 @@ WAV_SECONDS = 50
 # the DiT's self-attention at training batch 8: 1024 latent frames + 1
 # prepended token, padded to 1040 (models/transformer.py:seq_pad_length)
 TRAIN_T, TRAIN_KV = 1040, 1025
+# SA 2.0 training (phase 9): 8 WAVs of 290 s (longer than the 285.3 s crop,
+# so no clip is padded), 3 steps
+SA2_WAVS = 8
+SA2_WAV_SECONDS = 290
+SA2_TRAIN_STEPS = 3
 
 # tolerances of the kernel-vs-plain compares (bf16 in and out; both sides
 # accumulate in fp32 and round the result once, in different orders):
@@ -109,13 +128,28 @@ TOL = {
     "rope_pair_k": (2e-3, 2.0 ** -6),
     # K10: K1's online softmax against a whole-sequence one
     "pair_long_attention": (1e-2, 2.0 ** -5),
+    # K7 and K9 in fp32 against the same formulas in fp32 (TF32 off): only
+    # the summation order and the online softmax's rescaling differ; 1xTF32
+    # products keep ~3 decimal digits and would fail them
+    "flash_forward": (1e-5, 1e-4),
+    "flash_backward": (1e-4, 1e-3),
 }
 # the card's published peaks (H100 SXM, dense), for the bound: the larger of
 # the products' operations at the bf16 tensor-core rate and the bytes each
 # input read once and each output written once take at the memory rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the fastest fp32-accurate product rate of the card, for the bound of the
+# fp32 kernels: 3xTF32 on the tensor cores (495 TFLOP/s of TF32, three
+# passes); the CUDA cores' fp32 FMA peak is 66.9 TFLOP/s
+PEAK_FP32_ACCURATE = 495e12 / 3
+PEAK_FP32_CORES = 66.9e12
 LSE_ATOL = 2e-3
+FLASH_LSE_ATOL = 1e-4
+# SA 2.0 training step with K7/K9 against the fp32 plain versions: the loss
+# to 1e-5 relative, each watched gradient to rel-L2 1e-4 (fp32 both sides)
+SA2_LOSS_RTOL = 1e-5
+SA2_GRAD_RTOL = 1e-4
 # model compares: the bf16 DiT with the kernels against an fp32 copy (plain
 # versions, same weights) may err at most DIT_ERR_RATIO times as much as the
 # bf16 DiT with the plain versions does; random de-zeroed weights amplify
@@ -177,9 +211,9 @@ def compare(name, kernel_fn, plain_fn, reps=3, library_fn=None):
     return ok, max_abs, rel_l2, peak, ms, plain_ms, lib_ms
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=PEAK_FLOPS):
     """The least time the card could take: (ms, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -498,9 +532,11 @@ def encode_calls(config):
     return math.ceil(TRAIN_BATCH / int(ib)) if ib else 1
 
 
-def encoder_conv_phase(results, config):
-    """[3c] K2 and K3 at the frozen encoder's shapes, at the batch of one
-    encode call, weighted by the calls per training step."""
+def encoder_conv_phase(results, config, field):
+    """[3c] K2 and K3 at the frozen encoder's shapes for `config`'s sample
+    size, at the batch of one encode call, weighted by the calls per
+    training step, under `field` (the plain versions in overlapping time
+    segments beyond 2,097,152 samples)."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
@@ -509,10 +545,10 @@ def encoder_conv_phase(results, config):
     rnd = randn_fn(2)
     calls = encode_calls(config)
     b = TRAIN_BATCH // calls
-    # K2: conv_in 2 -> 128 (k 7, no snake) at 2,097,152 samples; conv_out
-    # snake 2048 -> 128 (k 3) at 1024 frames
-    for t, cin, cout, k, sn in [(SAMPLE_SIZE, 2, 128, 7, False),
-                                (SAMPLE_SIZE // 2048, 2048, 128, 3, True)]:
+    n = config["sample_size"]
+    # K2: conv_in 2 -> 128 (k 7, no snake) at the sample size; conv_out
+    # snake 2048 -> 128 (k 3) at the latent frames
+    for t, cin, cout, k, sn in [(n, 2, 128, 7, False), (n // 2048, 2048, 128, 3, True)]:
         label = f"B{b} T{t} {cin}->{cout} k{k}"
         results["snake_conv1d"]["weight"][label] = calls
         x = rnd(b, t, cin, scale=0.5).to(bf)
@@ -524,11 +560,10 @@ def encoder_conv_phase(results, config):
         del y
         report(results, "snake_conv1d", label, True, *compare(
             "snake_conv1d", lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
-            lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib),
-            library_fn=conv_library(x, w, bb, a, ib)), bound=bound, field="encode_ms")
+            lambda: segmented(lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, a, ib), x, k // 2),
+            library_fn=conv_library(x, w, bb, a, ib)), bound=bound, field=field)
         del x
     # K3: the encoder's 15 residual units
-    n = SAMPLE_SIZE
     for c, t in [(128, n), (128, n // 2), (256, n // 8), (512, n // 32), (1024, n // 256)]:
         x = rnd(b, t, c, scale=0.5).to(bf)
         w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
@@ -541,14 +576,14 @@ def encoder_conv_phase(results, config):
             report(results, "fused_residual_unit", label, True, *compare(
                 "fused_residual_unit",
                 lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
-                lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2,
-                                                         dilation=d)), bound=bound,
-                field="encode_ms")
+                lambda: segmented(lambda xs: conv1d.fused_residual_unit_plain(
+                    xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d)),
+                bound=bound, field=field)
         del x
     for name in ("snake_conv1d", "fused_residual_unit"):
         r = results[name]
-        log(f"  {name}: {r['encode_ms']:.4f} ms per training-step encode ({calls} calls at batch "
-            f"{b}), plain {r['plain_encode_ms']:.4f} ms, bound {r['bound_encode_ms']:.4f} ms")
+        log(f"  {name}: {r[field]:.4f} ms per training-step encode ({calls} calls at batch "
+            f"{b}), plain {r['plain_' + field]:.4f} ms, bound {r['bound_' + field]:.4f} ms")
 
 
 def long_attention_phase(results):
@@ -588,6 +623,94 @@ def long_attention_phase(results):
         r = results[name]
         log(f"  {name}: {r['ms']:.4f} ms per long-form generation step (24 calls at B2 T{LONG_T}), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+
+
+def flash_bound(bh, valid, products, in_tensors, out_tensors):
+    """Bound of `products` [valid x valid x 64] fp32 products per head at the
+    fp32-accurate rate, over the valid rows of the given tensors; also the
+    time at the CUDA cores' fp32 rate."""
+    flops = products * 2 * bh * valid * valid * 64
+    bytes_ = sum(nbytes(x) * valid // x.shape[1] for x in in_tensors + out_tensors)
+    return bound_ms(flops, bytes_, peak=PEAK_FP32_ACCURATE), flops / PEAK_FP32_CORES * 1e3
+
+
+def sdpa_backend(q, k, v):
+    """The name of the backend PyTorch's SDPA picks for these inputs."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    except Exception as e:  # a private call: say what failed rather than guess
+        return f"unknown ({type(e).__name__})"
+
+
+def flash_phase(results):
+    """[3e] K7 (forward with LSE) and K9 (two-pass backward) against their
+    plain versions in fp32 (TF32 off); K9 gets the plain forward's out and
+    lse, so the compare isolates the backward, and dO is zero on the padded
+    rows, as on the transformer's path. Library calls: SDPA on the same fp32
+    heads with K/V sliced to kv_len, and its backward beside K9."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(6)
+    for b, t, h, kv, main in [(TRAIN_BATCH, LONG_T, 24, LONG_KV, True), (1, 1424, 2, None, False),
+                              (1, 200, 3, 190, False)]:
+        label = f"B{b} T{t} H{h} kv_len {kv}"
+        bh, valid = b * h, kv or t
+        q, k, v, do = (rnd(bh, t, 64) for _ in range(4))
+        if kv is not None:
+            do[:, kv:] = 0
+        out, lse = flash.flash_forward(q, k, v, kv)
+        torch.cuda.synchronize()
+        out_p, lse_p = flash.flash_forward_plain(q, k, v, kv)
+        ok, max_abs, rel_l2, peak = within("flash_forward", out, out_p)
+        lse_err = (lse - lse_p).abs().max().item()
+        del out, lse
+        ms = timed_ms(lambda: flash.flash_forward(q, k, v, kv), 3)
+        plain_ms = timed_ms(lambda: flash.flash_forward_plain(q, k, v, kv), 3)
+        q4 = q.view(b, h, t, 64).clone().requires_grad_(True)
+        k4, v4 = (x.view(b, h, t, 64)[:, :, :valid].clone().requires_grad_(True) for x in (k, v))
+        backend = sdpa_backend(q4, k4, v4)
+        lib_ms = timed_ms(lambda: sdpa(q4.detach(), k4.detach(), v4.detach()), 3)
+        bound, cores_ms = flash_bound(bh, valid, 2, [q, k, v], [out_p, lse_p])
+        report(results, "flash_forward", label, main, ok and lse_err <= FLASH_LSE_ATOL, max_abs,
+               rel_l2, peak, ms, plain_ms, lib_ms, bound=bound,
+               extra=f", lse max_abs {lse_err:.3g} (tol {FLASH_LSE_ATOL}); SDPA backend {backend}; "
+                     f"at the CUDA cores' fp32 rate {cores_ms:.4f} ms")
+
+        def k9():
+            return flash.flash_backward(q, k, v, out_p, lse_p, do, kv)
+
+        def k9_plain():
+            return flash.flash_backward_plain(q, k, v, out_p, lse_p, do, kv)
+
+        got, want = k9(), k9_plain()
+        rels = [rel_err(a, w) for a, w in zip(got, want)]
+        pad_zero = kv is None or not any(a[:, kv:].any() for a in got)
+        ok = (all(bool(torch.isfinite(a).all()) for a in got) and pad_zero
+              and max(rels) <= TOL["flash_backward"][0])
+        max_abs = max((a - w).abs().max().item() for a, w in zip(got, want))
+        peak = max(w.abs().max().item() for w in want)
+        bound, cores_ms = flash_bound(bh, valid, 5, [q, k, v, out_p, lse_p, do], list(got))
+        del got, want
+        o4 = sdpa(q4, k4, v4)
+        g4 = do.view(b, h, t, 64)
+        lib_ms = timed_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 3)
+        report(results, "flash_backward", label, main, ok, max_abs, max(rels), peak, timed_ms(k9, 3),
+               timed_ms(k9_plain, 3), lib_ms, bound=bound,
+               extra=f" (rel-L2 of dq/dk/dv: {' '.join(f'{r:.3g}' for r in rels)}; padded rows "
+                     f"zero: {pad_zero}; at the CUDA cores' fp32 rate {cores_ms:.4f} ms)")
+        del q, k, v, do, out_p, lse_p, q4, k4, v4, o4
+    for name, calls in (("flash_forward", 2 * 24), ("flash_backward", 24)):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per SA 2.0 training step ({calls} calls at B{TRAIN_BATCH} "
+            f"T{LONG_T}), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms")
 
 
 def build_model(config):
@@ -640,23 +763,24 @@ def plain_pair_attention(qkv, freqs, num_heads, kv_len=None):
     return PlainPair.apply(qkv)
 
 
-def dit_train_step_phase(config, tmp):
-    """[6] One training step of the fp32 DiT at batch 8 (fixed draws): the
-    attention through K5/K6, through their plain versions in bf16, and in
-    fp32 plain (the reference). Saves the de-zeroed DiT for phase 7."""
+def dit_train_setup(config, tmp, prompt):
+    """The de-zeroed fp32 model of `config` (its DiT saved to tmp for the
+    train CLI), fixed draws at batch 8 over the config's sample size, and a
+    training-step function returning (loss, the gradients of layers 0, 11
+    and 23's self-attention projections). Returns (step, depth, dit path)."""
     import torch
 
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
     from friendly_stable_audio_tools_tpu_torch.training.diffusion import get_alphas_sigmas
 
     model = build_model(config)
     dit_path = Path(tmp) / "dit_dezeroed.pt"
     torch.save({f"model.{k}": v for k, v in model.model.state_dict().items()}, dit_path)
     rnd = randn_fn(3)
-    conds = [dict(PROMPT, seconds_start=i, seconds_total=47 - i) for i in range(TRAIN_BATCH)]
+    conds = [dict(prompt, seconds_start=i, seconds_total=prompt["seconds_total"] - i)
+             for i in range(TRAIN_BATCH)]
     with torch.no_grad():
         cond = model.get_conditioning_inputs(model.conditioner(conds, device=DEVICE))
-    latent_shape = (TRAIN_BATCH, SAMPLE_SIZE // model.pretransform.downsampling_ratio,
+    latent_shape = (TRAIN_BATCH, config["sample_size"] // model.pretransform.downsampling_ratio,
                     model.io_channels)
     x0 = rnd(*latent_shape)
     noise = rnd(*x0.shape)
@@ -665,6 +789,7 @@ def dit_train_step_phase(config, tmp):
     alphas, sigmas = (v[:, None, None] for v in get_alphas_sigmas(t))
     noised, targets = x0 * alphas + noise * sigmas, noise * alphas - x0 * sigmas
     dit = model.model.train()
+    del model
     depth = len(dit.transformer.layers)
     watched = {f"layers.{i}.{p}": getattr(dit.transformer.layers[i].self_attn, p).weight
                for i in (0, depth // 2 - 1, depth - 1) for p in ("to_qkv", "to_out")}
@@ -676,6 +801,18 @@ def dit_train_step_phase(config, tmp):
         torch.cuda.synchronize()
         return loss.item(), {k: w.grad.detach().clone() for k, w in watched.items()}
 
+    return step, depth, dit_path
+
+
+def dit_train_step_phase(config, tmp):
+    """[6] One training step of the fp32 DiT at batch 8 (fixed draws): the
+    attention through K5/K6, through their plain versions in bf16, and in
+    fp32 plain (the reference). Saves the de-zeroed DiT for phase 7."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+
+    step, depth, dit_path = dit_train_setup(config, tmp, PROMPT)
     reset_counts()
     start = time.perf_counter()
     loss_k, grads_k = step()
@@ -685,10 +822,10 @@ def dit_train_step_phase(config, tmp):
         loss_p, grads_p = step()
     with patched([(attention, "fused_qkv_rope_attention", attention.fused_qkv_rope_attention_plain)]):
         loss_r, grads_r = step()
-    del model, dit
+    del step
     torch.cuda.empty_cache()
 
-    for k in watched:
+    for k in grads_k:
         log(f"  {k} grad rel-L2 against fp32 attention: kernels {rel_err(grads_k[k], grads_r[k]):.3g}, "
             f"plain bf16 {rel_err(grads_p[k], grads_r[k]):.3g}; kernels vs plain "
             f"{rel_err(grads_k[k], grads_p[k]):.3g}")
@@ -708,12 +845,67 @@ def dit_train_step_phase(config, tmp):
     return dit_path
 
 
+def sa2_dit_train_step_phase(config, tmp):
+    """[6b] One training step of SA 2.0's fp32 DiT at batch 8 and 6144 latent
+    frames (T 6272, kv_len 6145; fixed draws): the attention through K7/K9
+    (the unpack route), through their plain versions in fp32 (the
+    reference), and through the bf16 K5/K6 route forced, which the port ran
+    at every length before it routed as the JAX package does. Saves the
+    de-zeroed DiT for phase 9; returns the kernels' launch counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    step, depth, dit_path = dit_train_setup(config, tmp, SA2_PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    loss_k, grads_k = step()
+    wall_k = time.perf_counter() - start
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with patched([(flash, "flash_forward", flash.flash_forward_plain),
+                  (flash, "flash_backward", flash.flash_backward_plain)]):
+        start = time.perf_counter()
+        loss_r, grads_r = step()
+        wall_r = time.perf_counter() - start
+    with patched([(attention, "training_route", lambda *a: "pair")]):
+        loss_o, grads_o = step()
+    del step
+    torch.cuda.empty_cache()
+
+    errs = {k: rel_err(grads_k[k], grads_r[k]) for k in grads_k}
+    for k in grads_k:
+        log(f"  {k} grad rel-L2 against the fp32 plain step: kernels {errs[k]:.3g}, old bf16 route "
+            f"{rel_err(grads_o[k], grads_r[k]):.3g}")
+    cat = lambda g: torch.cat([v.flatten() for v in g.values()])  # noqa: E731
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    log(f"  loss: kernels {loss_k:.8g}, fp32 plain {loss_r:.8g} (rel {loss_err:.3g}, tol "
+        f"{SA2_LOSS_RTOL}), old bf16 route {loss_o:.8g} (rel {abs(loss_o - loss_r) / abs(loss_r):.3g}); "
+        f"watched gradients rel-L2: kernels {rel_err(cat(grads_k), cat(grads_r)):.3g} (tol "
+        f"{SA2_GRAD_RTOL} each), old bf16 route {rel_err(cat(grads_o), cat(grads_r)):.3g}")
+    log(f"  step wall: kernels {wall_k:.3f} s, fp32 plain {wall_r:.3f} s; peak memory of the DiT "
+        f"step with the kernels (weights, gradients, no optimizer state) {peak:.2f} GiB; "
+        f"launches {counts}")
+    finite = all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads_k.values())
+    if not (finite and loss_err <= SA2_LOSS_RTOL and max(errs.values()) <= SA2_GRAD_RTOL):
+        raise AssertionError("the SA 2.0 DiT training step with K7/K9 disagrees with the fp32 plain step")
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_forward=2 * depth, flash_backward=depth)
+    if counts != want:
+        raise AssertionError(f"one checkpointed SA 2.0 step should launch {want}: {counts}")
+    return dit_path, counts
+
+
 KERNELS = {  # name -> (module attribute holding its launch count)
     "fused_qkv_rope_attention": ("attention", "launches"),
     "rope_pair_k": ("attention", "rope_k_launches"),
     "pair_long_attention": ("attention", "long_launches"),
     "fused_qkv_rope_attention_stats": ("attention", "stats_launches"),
     "fused_qkv_rope_attention_backward": ("attention", "backward_launches"),
+    "flash_forward": ("flash", "forward_launches"),
+    "flash_backward": ("flash", "backward_launches"),
     "snake_conv1d": ("conv1d", "snake_conv1d_launches"),
     "fused_residual_unit": ("conv1d", "fused_residual_unit_launches"),
     "snake_conv_transpose1d": ("conv1d", "snake_conv_transpose1d_launches"),
@@ -722,8 +914,9 @@ KERNELS = {  # name -> (module attribute holding its launch count)
 
 def _kernel_modules():
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention
 
-    return {"attention": attention, "conv1d": conv1d}
+    return {"attention": attention, "conv1d": conv1d, "flash": flash_attention}
 
 
 def reset_counts():
@@ -737,40 +930,40 @@ def read_counts():
     return {name: getattr(mods[mod], attr) for name, (mod, attr) in KERNELS.items()}
 
 
-def training_phase(config, tmp, dit_path):
-    """[7] The train entry point on SAO 1.0: 4 steps from raw audio with a
-    checkpoint at step 4, then a resume for a fifth. Returns the launch
-    counts of the two runs."""
+def train_args(config, tmp, name, n_wavs, seconds, dit_path):
+    """Writes `n_wavs` synthetic WAVs of `seconds`, the model config and an
+    audio_dir dataset config under tmp; returns the train CLI's arguments
+    (batch 8, 4 loader workers, the de-zeroed DiT as the starting weights)."""
     import numpy as np
-    import torch
     from scipy.io import wavfile
-
-    from friendly_stable_audio_tools_tpu_torch import train
-    from friendly_stable_audio_tools_tpu_torch.models.conditioners import MultiConditioner
 
     # console logging only: the train CLI logs to wandb when WANDB_API_KEY is set
     os.environ.pop("WANDB_API_KEY", None)
-    from friendly_stable_audio_tools_tpu_torch.models.pretransforms import AutoencoderPretransform
-    from friendly_stable_audio_tools_tpu_torch.training.diffusion import DiffusionCondTrainingWrapper
-
     tmp = Path(tmp)
-    wavs = tmp / "wavs"
+    wavs = tmp / f"wavs_{name}"
     wavs.mkdir()
-    for i in range(N_WAVS):
-        audio = synthetic_audio(100 + i, WAV_SECONDS * config["sample_rate"])
+    for i in range(n_wavs):
+        audio = synthetic_audio(100 + i, seconds * config["sample_rate"])
         wavfile.write(str(wavs / f"clip{i:02d}.wav"), config["sample_rate"],
                       (audio.T * 32767).astype(np.int16))
-    cfg = copy.deepcopy(config)
-    cfg["training"]["checkpoint"]["every_n_train_steps"] = TRAIN_STEPS
-    (tmp / "model.json").write_text(json.dumps(cfg))
-    (tmp / "data.json").write_text(json.dumps(
+    (tmp / f"{name}_model.json").write_text(json.dumps(config))
+    (tmp / f"{name}_data.json").write_text(json.dumps(
         {"dataset_type": "audio_dir", "datasets": [{"id": "synthetic", "path": str(wavs)}]}))
-    args = ["--model-config", str(tmp / "model.json"), "--dataset-config", str(tmp / "data.json"),
+    return ["--model-config", str(tmp / f"{name}_model.json"),
+            "--dataset-config", str(tmp / f"{name}_data.json"),
             "--batch-size", str(TRAIN_BATCH), "--seed", "0", "--num-workers", "4",
-            "--save-dir", str(tmp / "run"), "--name", "sao", "--pretrained-ckpt-path", str(dit_path)]
+            "--save-dir", str(tmp / "run"), "--name", name, "--pretrained-ckpt-path", str(dit_path)]
 
-    times = {"step": [], "encode": [], "cond": [], "update": []}
-    losses = []
+
+def train_timers(times, losses):
+    """(class, method, timed method) triples: the step, the update, the
+    frozen encode and the conditioners, each between two synchronisations;
+    the step's loss goes to `losses`."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.models.conditioners import MultiConditioner
+    from friendly_stable_audio_tools_tpu_torch.models.pretransforms import AutoencoderPretransform
+    from friendly_stable_audio_tools_tpu_torch.training.diffusion import DiffusionCondTrainingWrapper
 
     def timer(fn, key):
         def wrapper(*a, **kw):
@@ -778,31 +971,76 @@ def training_phase(config, tmp, dit_path):
             start = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            times[key].append(time.perf_counter() - start)
+            times.setdefault(key, []).append(time.perf_counter() - start)
             if key == "step":
                 losses.append(out["loss"])
             return out
         return wrapper
 
     W = DiffusionCondTrainingWrapper
-    timers = [(W, "train_step", timer(W.train_step, "step")),
-              (W, "apply_update", timer(W.apply_update, "update")),
-              (AutoencoderPretransform, "encode_nwc", timer(AutoencoderPretransform.encode_nwc, "encode")),
-              (MultiConditioner, "forward", timer(MultiConditioner.forward, "cond"))]
-    # what one step launches: each of the DiT's 24 blocks runs K5 once forward
-    # and once more when the checkpointed block is recomputed for the
-    # backward, and K6 once in the backward; each call of the frozen encode
-    # (one per clip, iterate_batch) runs K2 twice (conv_in, conv_out) and K3
-    # once per residual unit (3 in each of the 5 encoder blocks); K1, K4,
-    # K10a and K10 not at all
+    return [(W, "train_step", timer(W.train_step, "step")),
+            (W, "apply_update", timer(W.apply_update, "update")),
+            (AutoencoderPretransform, "encode_nwc", timer(AutoencoderPretransform.encode_nwc, "encode")),
+            (MultiConditioner, "forward", timer(MultiConditioner.forward, "cond"))]
+
+
+def launches_per_step(config, route):
+    """What one training step launches: each of the DiT's blocks runs the
+    route's forward kernel once, and once more when the checkpointed block
+    is recomputed for the backward, and its backward kernel once (route
+    "pair": K5 and K6; "flash": K7 and K9); each call of the frozen encode
+    (one per clip, iterate_batch) runs K2 twice (conv_in, conv_out) and K3
+    once per residual unit (3 in each encoder block); nothing else."""
     depth = config["model"]["diffusion"]["config"]["depth"]
     n_units = 3 * len(config["model"]["pretransform"]["config"]["encoder"]["config"]["c_mults"])
     calls = encode_calls(config)
+    fwd, bwd = {"pair": ("fused_qkv_rope_attention_stats", "fused_qkv_rope_attention_backward"),
+                "flash": ("flash_forward", "flash_backward")}[route]
     per_step = {name: 0 for name in KERNELS}
-    per_step.update({"fused_qkv_rope_attention_stats": 2 * depth,
-                     "fused_qkv_rope_attention_backward": depth, "snake_conv1d": 2 * calls,
+    per_step.update({fwd: 2 * depth, bwd: depth, "snake_conv1d": 2 * calls,
                      "fused_residual_unit": n_units * calls})
-    with patched(timers):
+    return per_step
+
+
+def log_training(config, times, losses, steps, peak, total):
+    """Logs step times, throughput and the split (medians of steps 2..n)."""
+    step_s = times["step"][:steps]
+    med = statistics.median(step_s[1:])
+    med_of = lambda key: statistics.median(times[key][1:steps])  # noqa: E731
+    dit_s = med - med_of("encode") - med_of("cond") - med_of("update")
+    seconds = config["sample_size"] / config["sample_rate"]
+    log(f"  steps {[round(x, 4) for x in step_s]} s; median of steps 2-{steps} {med:.4f} s = "
+        f"{TRAIN_BATCH / med:.4f} samples/s = {TRAIN_BATCH * seconds / med:.3f} s-audio/s trained")
+    log(f"  split (medians): encode {med_of('encode'):.4f} s, conditioners {med_of('cond'):.4f} s, "
+        f"DiT fwd+bwd {dit_s:.4f} s, optimizer+EMA {med_of('update'):.4f} s; "
+        f"peak memory {peak:.2f} GiB; run incl. set-up {total:.1f} s")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses not finite: {losses}")
+
+
+def weight_moved(wrapper, dit_path):
+    """Largest change of layer 0's to_qkv weight from the starting DiT."""
+    import torch
+
+    name = "model.transformer.layers.0.self_attn.to_qkv.weight"
+    initial = torch.load(dit_path, map_location="cpu", weights_only=True, mmap=True)[name]
+    return (wrapper.trainable[name].detach() - initial.to(wrapper.device)).abs().max().item()
+
+
+def training_phase(config, tmp, dit_path):
+    """[7] The train entry point on SAO 1.0: 4 steps from raw audio with a
+    checkpoint at step 4, then a resume for a fifth. Returns the launch
+    counts of the two runs."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import train
+
+    cfg = copy.deepcopy(config)
+    cfg["training"]["checkpoint"]["every_n_train_steps"] = TRAIN_STEPS
+    args = train_args(cfg, tmp, "sao", N_WAVS, WAV_SECONDS, dit_path)
+    times, losses = {}, []
+    per_step = launches_per_step(config, "pair")
+    with patched(train_timers(times, losses)):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         start = time.perf_counter()
@@ -811,16 +1049,12 @@ def training_phase(config, tmp, dit_path):
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         w = trainer.wrapper
-        dit = w.model.model
-        grad = dit.transformer.layers[0].self_attn.to_qkv.weight.grad
-        name = "model.transformer.layers.0.self_attn.to_qkv.weight"
-        initial = torch.load(dit_path, map_location="cpu", weights_only=True, mmap=True)[name]
-        initial = initial.to(w.trainable[name].device)
-        moved = (w.trainable[name].detach() - initial).abs().max().item()
+        grad = w.model.model.transformer.layers[0].self_attn.to_qkv.weight.grad
+        moved = weight_moved(w, dit_path)
         ema_gap = max((e - p.detach()).abs().max().item() for e, p in zip(w.ema, w.dit_params))
         ckpt = Path(trainer.ckpt_dir) / "last"
         steps_done = w.step
-        del trainer, w, dit, initial
+        del trainer, w
         torch.cuda.empty_cache()
 
         reset_counts()
@@ -830,21 +1064,12 @@ def training_phase(config, tmp, dit_path):
         del resumed
         torch.cuda.empty_cache()
 
-    steps = times["step"][:TRAIN_STEPS]
-    med = statistics.median(steps[1:])
-    med_of = lambda key: statistics.median(times[key][1:TRAIN_STEPS])  # noqa: E731
-    dit_s = med - med_of("encode") - med_of("cond") - med_of("update")
-    seconds = SAMPLE_SIZE / config["sample_rate"]
-    log(f"  steps {[round(s, 4) for s in steps]} s; median of steps 2-{TRAIN_STEPS} {med:.4f} s = "
-        f"{TRAIN_BATCH / med:.4f} samples/s = {TRAIN_BATCH * seconds / med:.3f} s-audio/s trained")
-    log(f"  split (medians): encode {med_of('encode'):.4f} s, conditioners {med_of('cond'):.4f} s, "
-        f"DiT fwd+bwd {dit_s:.4f} s, optimizer+EMA {med_of('update'):.4f} s; "
-        f"peak memory {peak:.2f} GiB; run incl. set-up and checkpoint {total:.1f} s")
+    log_training(config, times, losses, TRAIN_STEPS, peak, total)
     log(f"  losses {losses}; layer-0 to_qkv grad max|g| {grad.abs().max().item():.4g}; "
         f"weights moved by up to {moved:.4g}; max |EMA - weights| {ema_gap:.4g}")
     log(f"  launches, {TRAIN_STEPS} steps: {counts}; resumed step {resumed_step}, launches {counts_resume}")
-    if not all(math.isfinite(x) for x in losses) or len(losses) != TRAIN_STEPS + 1:
-        raise AssertionError(f"training losses not finite or missing: {losses}")
+    if len(losses) != TRAIN_STEPS + 1:
+        raise AssertionError(f"training losses missing: {losses}")
     if not (torch.isfinite(grad).all() and grad.abs().max() > 0):
         raise AssertionError("the layer-0 to_qkv gradient is not finite and non-zero")
     if not (moved > 0 and ema_gap > 0 and steps_done == TRAIN_STEPS and resumed_step == TRAIN_STEPS + 1):
@@ -854,6 +1079,41 @@ def training_phase(config, tmp, dit_path):
         if c != want:
             raise AssertionError(f"launch counts {c} are not the {want} of {n} training steps")
     return counts, counts_resume
+
+
+def longform_training_phase(config, tmp, dit_path):
+    """[9] The train entry point on SA 2.0: 3 steps at batch 8 from synthetic
+    290 s WAVs, starting from phase 6b's de-zeroed DiT; no checkpoint (phase
+    7 covers saving and resuming). Returns the launch counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import train
+
+    args = train_args(config, tmp, "sa2", SA2_WAVS, SA2_WAV_SECONDS, dit_path)
+    times, losses = {}, []
+    per_step = launches_per_step(config, "flash")
+    with patched(train_timers(times, losses)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", str(SA2_TRAIN_STEPS)])
+        total = time.perf_counter() - start
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = weight_moved(trainer.wrapper, dit_path)
+        steps_done = trainer.wrapper.step
+        del trainer
+        torch.cuda.empty_cache()
+
+    log_training(config, times, losses, SA2_TRAIN_STEPS, peak, total)
+    log(f"  losses {losses}; weights moved by up to {moved:.4g}")
+    log(f"  launches, {SA2_TRAIN_STEPS} steps: {counts}")
+    if len(losses) != SA2_TRAIN_STEPS or not (moved > 0 and steps_done == SA2_TRAIN_STEPS):
+        raise AssertionError("losses missing, weights did not move, or the step count is off")
+    want = {k: v * SA2_TRAIN_STEPS for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} are not the {want} of {SA2_TRAIN_STEPS} steps")
+    return counts
 
 
 def rel_err(a, b):
@@ -948,6 +1208,13 @@ def main():
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
 
+    clock = {"run": time.perf_counter(), "phase": time.perf_counter()}
+
+    def done(label):
+        now = time.perf_counter()
+        log(f"  {label} wall {now - clock['phase']:.1f} s (run so far {now - clock['run']:.1f} s)")
+        clock["phase"] = now
+
     smi = smi_line()
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -955,6 +1222,7 @@ def main():
     t0 = time.perf_counter()
     build.library()
     log(f"[2] built {build.build().name} in {time.perf_counter() - t0:.1f} s")
+    done("[1]-[2]")
 
     src = "friendly_stable_audio_tools_tpu_torch/csrc/"
     tpu = "friendly_stable_audio_tools_tpu/ops/pallas/"
@@ -975,6 +1243,12 @@ def main():
         "fused_qkv_rope_attention_backward": dict(
             route="cuda", source=src + "attention_bwd.cu", replaces=tpu + "flash_attention.py:1119",
             per=f"SAO 1.0 training step (24 calls at B{TRAIN_BATCH} T{TRAIN_T})"),
+        "flash_forward": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:230",
+            per=f"SA 2.0 training step (48 calls at B{TRAIN_BATCH} H24 T{LONG_T} kv_len {LONG_KV})"),
+        "flash_backward": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:565",
+            per=f"SA 2.0 training step (24 calls at B{TRAIN_BATCH} H24 T{LONG_T} kv_len {LONG_KV})"),
         "snake_conv1d": dict(route="cuda", source=src + "conv1d.cu", replaces=tpu + "conv1d.py:91",
                              per="SA 2.0 decode (2 calls)"),
         "fused_residual_unit": dict(route="cuda", source=src + "conv1d.cu",
@@ -984,9 +1258,9 @@ def main():
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
-    # extra fields: sao_decode_ms (K2-K4 per SAO 1.0 decode) and encode_ms
-    # (K2 and K3 per SAO 1.0 training step's encode), each with its plain_,
-    # bound_ and library_ times
+    # extra fields: sao_decode_ms (K2-K4 per SAO 1.0 decode), encode_ms and
+    # sa2_encode_ms (K2 and K3 per SAO 1.0 and SA 2.0 training step's
+    # encode), each with its plain_, bound_ and library_ times
     results["fused_qkv_rope_attention"]["weight"] = {"B2 T1025 H24 kv_len None": 24}
     train_label = f"B{TRAIN_BATCH} T{TRAIN_T} H24 kv_len {TRAIN_KV}"
     results["fused_qkv_rope_attention_stats"]["weight"] = {train_label: 2 * 24}
@@ -994,18 +1268,29 @@ def main():
     long_label = f"B2 T{LONG_T} H24 kv_len {LONG_KV}"
     results["rope_pair_k"]["weight"] = {long_label: 24}
     results["pair_long_attention"]["weight"] = {long_label: 24}
+    flash_label = f"B{TRAIN_BATCH} T{LONG_T} H24 kv_len {LONG_KV}"
+    results["flash_forward"]["weight"] = {flash_label: 2 * 24}
+    results["flash_backward"]["weight"] = {flash_label: 24}
     config = json.loads(SAO_CONFIG.read_text())
     sa2_config = json.loads(SA2_CONFIG.read_text())
 
     log("[3] kernels vs plain versions (bf16, tolerance = (rel-L2, max-abs / max|plain|))")
     kernel_phase(results)
+    done("[3]")
     log("[3b] training attention kernels K5 and K6 vs plain versions")
     attention_train_phase(results)
-    log(f"[3c] K2 and K3 at the frozen encoder's shapes ({encode_calls(config)} encode calls per "
-        f"training step of batch {TRAIN_BATCH})")
-    encoder_conv_phase(results, config)
+    done("[3b]")
+    log(f"[3c] K2 and K3 at the frozen encoder's shapes, SAO 1.0 and SA 2.0 ({encode_calls(config)} "
+        f"encode calls per training step of batch {TRAIN_BATCH})")
+    encoder_conv_phase(results, config, "encode_ms")
+    encoder_conv_phase(results, sa2_config, "sa2_encode_ms")
+    done("[3c]")
     log("[3d] long-sequence attention kernels K10a and K10 vs plain versions")
     long_attention_phase(results)
+    done("[3d]")
+    log("[3e] fp32 training attention kernels K7 and K9 vs plain versions")
+    flash_phase(results)
+    done("[3e]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -1032,9 +1317,11 @@ def main():
     log(f"  VAE decode [1, 64, 64] -> {list(dec_k.shape)}: rel-L2 {dec_rel:.3g} (bound {DECODE_REL_TOL})")
     if not (dec_rel <= DECODE_REL_TOL and enc_rel <= ENCODE_REL_TOL):
         raise AssertionError("the VAE with the kernels disagrees with the plain versions")
+    done("[4]")
 
     log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7")
-    no_training = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0}
+    no_training = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
+                   "flash_forward": 0, "flash_backward": 0}
     launches = generation_phase(
         model, config, PROMPT, SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 0, "pair_long_attention": 0,
@@ -1042,6 +1329,7 @@ def main():
         min_counts={"snake_conv1d": 2})
     del model
     torch.cuda.empty_cache()
+    done("[5]")
 
     # phases 6-7 write ~23 GB (a de-zeroed DiT and a full training checkpoint)
     # into the checkout's build/ directory, which the kernel build uses too
@@ -1055,15 +1343,18 @@ def main():
         raise RuntimeError(f"phases 6-7 need ~23 GB of disk under {scratch}, {free_gb:.1f} GB free")
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         dit_path = dit_train_step_phase(config, tmp)
+        done("[6]")
         log(f"[7] training path: train.main on SAO 1.0, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps "
             f"from {N_WAVS} synthetic {WAV_SECONDS} s WAVs, checkpoint, resume for one more step")
         counts_train, counts_resume = training_phase(config, tmp, dit_path)
+    done("[7]")
 
     log("[4b] SA 2.0's DiT at 6144 latent frames: kernels vs plain versions")
     model = build_model(sa2_config)
     model.model.to(torch.bfloat16)
     model.pretransform.to(torch.bfloat16)
     dit_forward_phase(model, SA2_SAMPLE_SIZE // 2048, SA2_PROMPT, "SA 2.0")
+    done("[4b]")
     log(f"[8] long-form path: SA 2.0 text-to-audio, {SA2_SAMPLE_SIZE} samples, 100 dpmpp-3m-sde "
         f"steps, CFG 7")
     launches_long = generation_phase(
@@ -1074,9 +1365,21 @@ def main():
         min_counts={"snake_conv1d": 2})
     del model
     torch.cuda.empty_cache()
+    done("[8]")
+
+    # phases 6b and 9 write ~4.6 GB (SA 2.0's de-zeroed DiT and 8 WAVs)
+    log(f"[6b] one SA 2.0 DiT training step at batch {TRAIN_BATCH}, T {LONG_T} kv_len {LONG_KV}: "
+        f"K7/K9 vs their fp32 plain versions vs the bf16 K5/K6 route")
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        sa2_dit_path, _ = sa2_dit_train_step_phase(sa2_config, tmp)
+        done("[6b]")
+        log(f"[9] long-form training path: train.main on SA 2.0, batch {TRAIN_BATCH}, "
+            f"{SA2_TRAIN_STEPS} steps from {SA2_WAVS} synthetic {SA2_WAV_SECONDS} s WAVs")
+        counts_long = longform_training_phase(sa2_config, tmp, sa2_dit_path)
+    done("[9]")
 
     by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
-               "train_resume": counts_resume}
+               "train_resume": counts_resume, "train_long": counts_long}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -1085,7 +1388,7 @@ def main():
                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
                    launches_by_path={p: c[name] for p, c in by_path.items()})
-        for f in ("sao_decode_ms", "encode_ms"):
+        for f in ("sao_decode_ms", "encode_ms", "sa2_encode_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
         return out

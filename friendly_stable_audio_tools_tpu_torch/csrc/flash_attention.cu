@@ -1,0 +1,372 @@
+// K7 and K9: head-split attention on [B*H, T, 64] tensors, forward with the
+// base-2 log-sum-exp and its two-pass FlashAttention-2 backward, in fp32.
+// The training path of the DiT's self-attention beyond 1168 tokens (Stable
+// Audio 2.0: 6145 tokens padded to 6272, kv_len 6145) runs them, as the JAX
+// package's unpack branch does (flash_attention.py:1351-1389).
+//
+// K7 replaces `_flash_forward` (friendly_stable_audio_tools_tpu/ops/pallas/
+//   flash_attention.py:230, call :317) in its non-causal, no-rope,
+//   `save_stats` case: `_single_dot_kernel` (:121) with `_single_dot_core`
+//   (:93). Per head, with q' = q * log2(e)/8 (fp32, :127):
+//     s = q' k^T, keys >= kv_len masked, m = rowmax(s), p = exp2(s - m),
+//     l = rowsum(p), out = (p v) / max(l, 1e-30), lse = m + log2(max(l, 1e-30)).
+//   The TPU kernel holds the whole K of a head in VMEM and takes one
+//   whole-row score dot; here one block owns a 64-row q tile and streams
+//   64-key tiles of K and V through an online base-2 softmax, which gives the
+//   whole-row softmax up to rounding.
+// K9 replaces `_flash_backward` (:565) in its non-causal two-pass case:
+//   `_bwd_dq_kernel` (:477, call :605) and `_bwd_dkv_kernel` (:518, call
+//   :621). Per head, with delta = rowsum(dO * O) computed beside the kernel:
+//     s = (q k^T) * log2(e)/8, keys >= kv_len masked, p = exp2(s - lse),
+//     dp = dO v^T, ds = p * (dp - delta) / 8,
+//     dq = ds k (dq pass: one block per 64-row q tile, looping over keys),
+//     dk = ds^T q, dv = p^T dO (dk/dv pass: one block per 64-key tile,
+//     looping over q tiles). Accumulators stay in registers; no atomics.
+//
+// Numerics: every product is fp32 on the CUDA cores (FFMA), so the result is
+// the JAX package's fp32 math up to summation order. Rows at or beyond T are
+// zero tiles that are never written back; rows in [kv_len, T) are real rows
+// (their dO is zero on the transformer's path, so they add nothing).
+//
+// What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
+// forward is 2 products of 192 x 6145^2 x 64 multiply-adds (1.86 TFLOP)
+// over ~1.2 GB of inputs and outputs; the backward 7 products in this
+// two-pass form. Register tiling keeps the shared-memory traffic under the
+// FFMA rate: each thread owns an 8 x 4 tile of every product and reads its
+// operands as 16-byte vectors (3 shared loads per 32 FFMA), and the softmax
+// row reductions run over the 16 lanes that share a row.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kD = 64;        // head dim
+constexpr int kT = 64;        // q rows of a q tile, keys of a key tile
+constexpr int kF = kD + 4;    // fp32 shared-memory row stride: 16-byte rows, no bank conflicts
+constexpr int kThreads = 128; // tx = tid % 16 (columns), ty = tid / 16 (8-row groups)
+constexpr size_t kTileBytes = (size_t)kT * kF * sizeof(float);
+
+__device__ __forceinline__ int tid_x() { return threadIdx.x & 15; }
+__device__ __forceinline__ int tid_y() { return threadIdx.x >> 4; }
+
+// dst[r][0:64] = scale * src[row0 + r][0:64] for rows below `rows`, else 0.
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int row0, int rows,
+                                          float* __restrict__ dst, float scale) {
+  for (int i = threadIdx.x; i < kT * kD / 4; i += kThreads) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows) {
+      v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD + c);
+      v.x *= scale; v.y *= scale; v.z *= scale; v.w *= scale;
+    }
+    *reinterpret_cast<float4*>(dst + r * kF + c) = v;
+  }
+}
+
+// acc[i][j] = sum_d A[8 ty + i][d] * B[tx + 16 j][d]  (A, B: [64][kF] tiles)
+__device__ __forceinline__ void mm_abt(float (&acc)[8][4], const float* __restrict__ A,
+                                       const float* __restrict__ B) {
+  const float* a = A + tid_y() * 8 * kF;
+  const float* b = B + tid_x() * kF;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < kD; d += 4) {
+    float4 bv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * kF + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(a + i * kF + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av.w, bv[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][u] += sum_c P[8 ty + i][c] * V[c][4 tx + u]  (P, V: [64][kF] tiles)
+__device__ __forceinline__ void mm_ab_acc(float (&acc)[8][4], const float* __restrict__ P,
+                                          const float* __restrict__ V) {
+  const float* p = P + tid_y() * 8 * kF;
+  const float* v = V + tid_x() * 4;
+#pragma unroll 2
+  for (int c = 0; c < kT; c += 4) {
+    float4 vv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) vv[u] = *reinterpret_cast<const float4*>(v + (c + u) * kF);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 pv = *reinterpret_cast<const float4*>(p + i * kF + c);
+      const float w[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[i][0] = fmaf(w[u], vv[u].x, acc[i][0]);
+        acc[i][1] = fmaf(w[u], vv[u].y, acc[i][1]);
+        acc[i][2] = fmaf(w[u], vv[u].z, acc[i][2]);
+        acc[i][3] = fmaf(w[u], vv[u].w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// Reductions over the 16 lanes that hold one row (tx = lane % 16).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Writes the thread's 8 x 4 tile (rows r0 + 8 ty + i, dims 4 tx ..) of a
+// [rows, 64] tensor, rows at or beyond `rows` left out.
+__device__ __forceinline__ void store_tile(const float (&acc)[8][4], float* __restrict__ dst,
+                                           int r0, int rows) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + tid_y() * 8 + i;
+    if (r < rows)
+      *reinterpret_cast<float4*>(dst + (size_t)r * kD + tid_x() * 4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// K7: one block per (64-row q tile, head).
+__global__ void __launch_bounds__(kThreads)
+flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int T, int kv_len, float prescale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;             // [64][kF] q' of this block's rows
+  float* Ks = Qs + kT * kF;     // [64][kF] the current key tile
+  float* Vs = Ks + kT * kF;     // [64][kF]
+  float* Ps = Vs + kT * kF;     // [64][kF] p of the current key tile
+  const int tx = tid_x(), ty = tid_y();
+  const int q0 = blockIdx.x * kT;
+  const size_t head = (size_t)blockIdx.y * T * kD;
+
+  load_tile(q + head, q0, T, Qs, prescale);
+  float m[8], l[8], o[8][4], s[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;  // this thread's share of the row sum, reduced at the end
+#pragma unroll
+    for (int u = 0; u < 4; ++u) o[i][u] = 0.f;
+  }
+
+  const int n_k = (kv_len + kT - 1) / kT;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();  // Qs written; the previous tile's readers of Ks, Vs, Ps are done
+    load_tile(k + head, k0, T, Ks, 1.f);
+    load_tile(v + head, k0, T, Vs, 1.f);
+    __syncthreads();
+    mm_abt(s, Qs, Ks);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + tx + 16 * j >= kv_len) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // tile 0 holds key 0, so m is finite from the first tile on
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        sum += p;
+        Ps[(ty * 8 + i) * kF + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[i][u] *= alpha;
+    }
+    __syncthreads();
+    mm_ab_acc(o, Ps, Vs);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float li = fmaxf(row_sum(l[i]), 1e-30f);
+    const int r = q0 + ty * 8 + i;
+    if (r < T) {
+      *reinterpret_cast<float4*>(out + head + (size_t)r * kD + tx * 4) =
+          make_float4(o[i][0] / li, o[i][1] / li, o[i][2] / li, o[i][3] / li);
+      if (lse != nullptr && tx == 0) lse[(size_t)blockIdx.y * T + r] = m[i] + log2f(li);
+    }
+  }
+}
+
+// K9, dq pass: one block per (64-row q tile, head), looping over key tiles.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int T, int kv_len, float scale_log2e, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;              // [64][kF] q of this block's rows
+  float* DOs = Qs + kT * kF;     // [64][kF] dO of this block's rows
+  float* Ks = DOs + kT * kF;     // [64][kF] the current key tile
+  float* Vs = Ks + kT * kF;      // [64][kF]
+  float* DSs = Vs + kT * kF;     // [64][kF] ds of the current key tile
+  const int tx = tid_x(), ty = tid_y();
+  const int q0 = blockIdx.x * kT;
+  const size_t head = (size_t)blockIdx.y * T * kD;
+  const size_t stats = (size_t)blockIdx.y * T;
+
+  load_tile(q + head, q0, T, Qs, 1.f);
+  load_tile(dout + head, q0, T, DOs, 1.f);
+  float row_lse[8], row_delta[8], acc[8][4], s[8][4], dp[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + ty * 8 + i;
+    row_lse[i] = r < T ? lse[stats + r] : 0.f;
+    row_delta[i] = r < T ? delta[stats + r] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+  }
+
+  const int n_k = (kv_len + kT - 1) / kT;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();  // Qs/DOs written; the previous tile's readers of Ks, Vs, DSs are done
+    load_tile(k + head, k0, T, Ks, 1.f);
+    load_tile(v + head, k0, T, Vs, 1.f);
+    __syncthreads();
+    mm_abt(s, Qs, Ks);
+    mm_abt(dp, DOs, Vs);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float p = k0 + c < kv_len ? exp2f(s[i][j] * scale_log2e - row_lse[i]) : 0.f;
+        DSs[(ty * 8 + i) * kF + c] = p * (dp[i][j] - row_delta[i]) * scale;
+      }
+    __syncthreads();
+    mm_ab_acc(acc, DSs, Ks);  // dq += ds k
+  }
+  store_tile(acc, dq + head, q0, T);
+}
+
+// K9, dk/dv pass: one block per (64-key tile, head), looping over q tiles.
+// The thread's 8 x 4 tiles are (keys 8 ty + i) x (q rows tx + 16 j) for the
+// transposed scores and (keys 8 ty + i) x (dims 4 tx ..) for dk and dv.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int T, int kv_len,
+                     float scale_log2e, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;              // [64][kF] this block's keys
+  float* Vs = Ks + kT * kF;      // [64][kF]
+  float* Qs = Vs + kT * kF;      // [64][kF] the current q tile
+  float* DOs = Qs + kT * kF;     // [64][kF]
+  float* PTs = DOs + kT * kF;    // [64][kF] p^T of the current q tile
+  float* DSTs = PTs + kT * kF;   // [64][kF] ds^T
+  float* lse_s = DSTs + kT * kF; // [64]
+  float* delta_s = lse_s + kT;   // [64]
+  const int tx = tid_x(), ty = tid_y();
+  const int k0 = blockIdx.x * kT;
+  const size_t head = (size_t)blockIdx.y * T * kD;
+  const size_t stats = (size_t)blockIdx.y * T;
+
+  float acc_k[8][4], acc_v[8][4], s[8][4], dp[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc_k[i][u] = acc_v[i][u] = 0.f;
+  if (k0 >= kv_len) {  // every key masked: zero gradient
+    store_tile(acc_k, dk + head, k0, T);
+    store_tile(acc_v, dv + head, k0, T);
+    return;
+  }
+  load_tile(k + head, k0, T, Ks, 1.f);
+  load_tile(v + head, k0, T, Vs, 1.f);
+
+  const int n_q = (T + kT - 1) / kT;
+  for (int qt = 0; qt < n_q; ++qt) {
+    const int q0 = qt * kT;
+    __syncthreads();  // Ks/Vs written; the previous tile's readers of Qs, DOs, PTs, DSTs are done
+    load_tile(q + head, q0, T, Qs, 1.f);
+    load_tile(dout + head, q0, T, DOs, 1.f);
+    for (int i = threadIdx.x; i < kT; i += kThreads) {
+      lse_s[i] = q0 + i < T ? lse[stats + q0 + i] : 0.f;
+      delta_s[i] = q0 + i < T ? delta[stats + q0 + i] : 0.f;
+    }
+    __syncthreads();
+    mm_abt(dp, Vs, DOs);  // dp^T = v dO^T
+    mm_abt(s, Ks, Qs);    // s^T = k q^T
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const bool key_ok = k0 + ty * 8 + i < kv_len;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float p = key_ok && q0 + c < T ? exp2f(s[i][j] * scale_log2e - lse_s[c]) : 0.f;
+        PTs[(ty * 8 + i) * kF + c] = p;
+        DSTs[(ty * 8 + i) * kF + c] = p * (dp[i][j] - delta_s[c]) * scale;
+      }
+    }
+    __syncthreads();
+    mm_ab_acc(acc_v, PTs, DOs);  // dv += p^T dO
+    mm_ab_acc(acc_k, DSTs, Qs);  // dk += ds^T q
+  }
+  store_tile(acc_k, dk + head, k0, T);
+  store_tile(acc_v, dv + head, k0, T);
+}
+
+}  // namespace
+
+// K7: q, k, v [BH, T, 64] fp32 contiguous -> out [BH, T, 64] fp32 and, when
+// lse is not null, lse [BH, T] fp32 (base 2). prescale = log2(e)/sqrt(64).
+extern "C" int fsat_flash_forward(const float* q, const float* k, const float* v, float* out,
+                                  float* lse, int BH, int T, int kv_len, float prescale,
+                                  void* stream) {
+  const size_t smem = 4 * kTileBytes;
+  cudaError_t err = allow_smem(flash_forward_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + kT - 1) / kT, BH);
+  flash_forward_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(q, k, v, out, lse, T,
+                                                                      kv_len, prescale);
+  return (int)cudaGetLastError();
+}
+
+// K9: q, k, v, out's dO [BH, T, 64] fp32, lse/delta [BH, T] fp32 -> dq, dk,
+// dv [BH, T, 64] fp32. Two launches on `stream` (the dq pass, then dk/dv).
+extern "C" int fsat_flash_backward(const float* q, const float* k, const float* v,
+                                   const float* dout, const float* lse, const float* delta,
+                                   float* dq, float* dk, float* dv, int BH, int T, int kv_len,
+                                   float scale_log2e, float scale, void* stream) {
+  const size_t smem_dq = 5 * kTileBytes;
+  const size_t smem_dkv = 6 * kTileBytes + 2 * kT * sizeof(float);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(flash_bwd_dkv_kernel, smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + kT - 1) / kT, BH);
+  cudaStream_t st = (cudaStream_t)stream;
+  flash_bwd_dq_kernel<<<grid, kThreads, smem_dq, st>>>(q, k, v, dout, lse, delta, dq, T, kv_len,
+                                                        scale_log2e, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_kernel<<<grid, kThreads, smem_dkv, st>>>(q, k, v, dout, lse, delta, dk, dv, T,
+                                                          kv_len, scale_log2e, scale);
+  return (int)cudaGetLastError();
+}

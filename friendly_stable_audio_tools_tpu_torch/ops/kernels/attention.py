@@ -12,15 +12,23 @@ Replaces the head-pair Pallas kernels of the DiT's self-attention
 * K5 ``_fused_pair_forward_stats`` / ``_fused_pair_stats_kernel`` (:980, :931);
 * K6 ``_pair_backward`` (:1119) with ``_rope_pair_k_kernel`` (:1229) and
   ``_pair_bwd_kernel`` (:1029);
-* the ``_fused_pair`` custom_vjp (:1336-1392) becomes :class:`FusedQKVRopeAttention`.
+* the ``_fused_pair`` custom_vjp (:1336-1392) becomes
+  :class:`FusedQKVRopeAttention` (its pair path) and
+  :class:`FusedQKVFlashAttention` (its unpack path).
 
 Routing without grad follows flash_attention.py:1413-1421
 (:func:`attention_route`): up to 2048 tokens K1; up to 8192 (Stable Audio
 2.0's 6145 tokens, padded to 6272) K10a then K10; beyond that the JAX
-package takes its generic flash kernel (K7), which is not ported, so a CUDA
-tensor raises there. Under grad every length takes K5/K6; the JAX package
-trains sequences over 1168 tokens through its unpack path and K7/K9 instead
-(flash_attention.py:971-977, :1394), the same function.
+package runs K7 in the input dtype (bf16 at inference) through its online
+softmax, which the port has not wired, so a CUDA tensor raises there. Under
+grad the route is the reference's (:func:`training_route`, after
+``_pair_bwd_eligible`` :1204): lengths whose pair backward plan fits
+(T <= 1168 at head dim 64) take K5/K6 (:class:`FusedQKVRopeAttention`);
+longer ones the unpack branch of ``_fused_pair_fwd``/``_fused_pair_bwd``
+(:1351-1389, :class:`FusedQKVFlashAttention`): heads split, q and k roped
+outside any kernel in the input dtype, K7 with its LSE and K9 (or K8 where
+its plan fits, not ported) from ops/kernels/flash_attention.py, in the
+input dtype: fp32 on the training path, where the pair route casts to bf16.
 
 What it computes: non-causal attention of a fused ``[B, T, 3*H*D]`` qkv
 tensor with the fp32 partial rotary embedding of
@@ -57,9 +65,10 @@ K1's streaming kernel reading keys already roped, and K10a (memory bound, 2 x
 buffer, where K1 would rope each key tile again for each of the 98 q tiles.
 
 The plain versions below run for CPU tensors (the CPU tests); CUDA tensors
-launch the kernels or raise. The CUDA kernels take bf16: the autograd
-binding casts an fp32 qkv to bf16 and its gradient back, where the JAX
-training path casts (flash_attention.py:990-992, 1128).
+launch the kernels or raise. The pair kernels take bf16: their autograd
+binding casts an fp32 qkv to bf16 and its gradient back, where the JAX pair
+training path casts (flash_attention.py:990-992, 1128); the unpack route
+keeps the input dtype, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ import torch
 
 from ..embeddings import apply_rotary_pos_emb, apply_rotary_pos_emb_transpose
 from . import build
+from . import flash_attention as flash
 
 # launch counts: each wrapper adds one where it launches its kernel
 launches = 0  # K1
@@ -89,13 +99,43 @@ LONG_PLAIN_SCORE_BYTES = 1 << 30
 def attention_route(t: int) -> str:
     """The inference kernel for a sequence of t tokens, as the JAX package
     routes it (flash_attention.py:1413-1421): "pair" (K1) for t <= 2048,
-    "pair_long" (K10a + K10) for t <= 8192, else "flash" (the generic
-    kernel K7, not ported)."""
+    "pair_long" (K10a + K10) for t <= 8192, else "flash" (K7 in its online
+    inference form, not wired)."""
     if t <= PAIR_MAX_T:
         return "pair"
     if t <= LONG_MAX_T:
         return "pair_long"
     return "flash"
+
+
+def pair_whole_tile(t: int) -> tp.Optional[int]:
+    """The pair kernels' 16-aligned length when its score tile fits the
+    TPU's VMEM, else None (flash_attention.py:971)."""
+    t16 = (t + 15) // 16 * 16
+    return t16 if t16 * t16 * 6 <= 8 * 2**20 else None
+
+
+def pair_bwd_plan(t_p: int, d: int) -> tp.Optional[int]:
+    """The pair backward's q block, or None (flash_attention.py:1102)."""
+    for n_q in range(1, 65):
+        blk, rem = divmod(t_p, n_q)
+        if rem == 0 and blk % 8 == 0:
+            tiles = blk * t_p * 12
+            resid = 3 * t_p * 2 * d * 2 + 2 * t_p * 2 * d * 4 + 4 * blk * 2 * d * 4
+            if tiles + resid <= 12 * 2**20:
+                return blk
+    return None
+
+
+def training_route(t: int, head_dim: int, num_heads: int) -> str:
+    """The route under grad for a sequence of t tokens, as the JAX package
+    chooses it (``_pair_bwd_eligible``, flash_attention.py:1204): "pair"
+    (K5/K6) where the pair backward fits, else "flash" (the unpack branch,
+    K7 + K9)."""
+    if head_dim != 64 or num_heads % 2:
+        return "flash"
+    t_p = pair_whole_tile(t)
+    return "pair" if t_p is not None and pair_bwd_plan(t_p, head_dim) is not None else "flash"
 
 
 def _valid_len(t: int, kv_len: tp.Optional[int]) -> int:
@@ -349,9 +389,11 @@ def fused_qkv_rope_attention_long(qkv: torch.Tensor, freqs: torch.Tensor, num_he
 
 
 class FusedQKVRopeAttention(torch.autograd.Function):
-    """K5 forward, K6 backward (the ``_fused_pair`` custom_vjp). On CUDA the
-    kernels run in bf16: an fp32 qkv is cast on the way in and its gradient
-    cast back. freqs are position tables and get no gradient."""
+    """K5 forward, K6 backward (the ``_fused_pair`` custom_vjp's pair path),
+    for the lengths :func:`training_route` sends to "pair" (T <= 1168 at head
+    dim 64). On CUDA the kernels run in bf16: an fp32 qkv is cast on the way
+    in and its gradient cast back. freqs are position tables and get no
+    gradient."""
 
     @staticmethod
     def forward(ctx, qkv, freqs, num_heads, kv_len):
@@ -369,6 +411,44 @@ class FusedQKVRopeAttention(torch.autograd.Function):
         return dqkv, None, None, None
 
 
+class FusedQKVFlashAttention(torch.autograd.Function):
+    """The unpack branch of the ``_fused_pair`` custom_vjp (``_fused_pair_fwd``
+    :1351-1358, ``_fused_pair_bwd`` :1367-1389), for the lengths
+    :func:`training_route` sends to "flash": qkv split into heads, q and k
+    roped in the input dtype, K7 with its LSE on [B*H, T, D], heads merged;
+    the backward runs K9 (K8 where its plan fits), un-ropes dq and dk (the
+    rope is linear) and merges dqkv. Everything stays in qkv's dtype. freqs
+    are position tables and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, freqs, num_heads, kv_len):
+        b, t, three_hd = qkv.shape
+        d = three_hd // (3 * num_heads)
+        q, k, v = qkv.view(b, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+        q, k = apply_rotary_pos_emb(q, freqs), apply_rotary_pos_emb(k, freqs)
+        q, k, v = (x.reshape(b * num_heads, t, d) for x in (q, k, v))
+        out, lse = flash.flash_forward(q, k, v, kv_len, save_stats=True)
+        ctx.save_for_backward(q, k, v, out, lse, freqs)
+        ctx.num_heads, ctx.kv_len = num_heads, kv_len
+        return out.view(b, num_heads, t, d).transpose(1, 2).reshape(b, t, num_heads * d)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse, freqs = ctx.saved_tensors
+        b, t, hd = grad_out.shape
+        h = ctx.num_heads
+        d = hd // h
+        go = grad_out.to(q.dtype).view(b, t, h, d).transpose(1, 2).reshape(b * h, t, d)
+        dq, dk, dv = flash.flash_attention_backward(q, k, v, out, lse, go, ctx.kv_len)
+
+        def merge(x):
+            return x.view(b, h, t, d).transpose(1, 2).reshape(b, t, hd)
+
+        dq = apply_rotary_pos_emb_transpose(dq.view(b, h, t, d), freqs).to(q.dtype)
+        dk = apply_rotary_pos_emb_transpose(dk.view(b, h, t, d), freqs).to(q.dtype)
+        return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1), None, None, None
+
+
 def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
                              kv_len: tp.Optional[int] = None) -> torch.Tensor:
     """qkv [B, T, 3*H*D] (q | k | v), freqs [T', rot] rotary angles (last T
@@ -376,22 +456,27 @@ def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: 
     keys at or beyond it are masked (the padded rows' outputs are garbage for
     the caller to slice off).
 
-    With grad enabled and qkv requiring grad, runs :class:`FusedQKVRopeAttention`
-    (K5 then K6 on CUDA); otherwise the inference kernel that
-    :func:`attention_route` names for T."""
+    With grad enabled and qkv requiring grad, runs the autograd binding that
+    :func:`training_route` names for T: :class:`FusedQKVRopeAttention` (K5
+    then K6 on CUDA) or :class:`FusedQKVFlashAttention` (K7 then K9);
+    otherwise the inference kernel that :func:`attention_route` names."""
     global launches
-    valid = _valid_len(qkv.shape[1], kv_len)
+    _, t, three_hd = qkv.shape
+    valid = _valid_len(t, kv_len)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return FusedQKVRopeAttention.apply(qkv, freqs, num_heads, kv_len)
-    route = attention_route(qkv.shape[1])
+        if training_route(t, three_hd // (3 * num_heads), num_heads) == "pair":
+            return FusedQKVRopeAttention.apply(qkv, freqs, num_heads, kv_len)
+        return FusedQKVFlashAttention.apply(qkv, freqs, num_heads, kv_len)
+    route = attention_route(t)
     if route == "pair_long":
         return fused_qkv_rope_attention_long(qkv, freqs, num_heads, kv_len)
     if qkv.device.type == "cpu":
         return fused_qkv_rope_attention_plain(qkv, freqs, num_heads, kv_len)
     if route == "flash":
         raise NotImplementedError(
-            f"fused_qkv_rope_attention: T = {qkv.shape[1]} > {LONG_MAX_T} takes the generic flash "
-            f"kernel K7 (flash_attention.py:_flash_forward), which the torch port has not ported")
+            f"fused_qkv_rope_attention: without grad, T = {t} > {LONG_MAX_T} takes K7 in the input "
+            f"dtype through its online softmax (flash_attention.py:_online_kernel), which the "
+            f"torch port has not wired")
     out, _ = _launch_forward(qkv, freqs, num_heads, valid, with_lse=False)
     launches += 1
     return out

@@ -1,0 +1,246 @@
+"""Head-split attention on ``[B*H, T, 64]`` tensors for training: the
+forward with its base-2 log-sum-exp (K7) and the two-pass FlashAttention-2
+backward (K9), their plain versions and their autograd binding.
+
+Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
+
+* K7 ``_flash_forward`` (:230, call :317) in its non-causal, no-rope,
+  ``save_stats`` case: ``_single_dot_kernel`` (:121) + ``_single_dot_core``
+  (:93), what it runs for t_k <= 8192;
+* K9 ``_flash_backward`` (:565) in its non-causal two-pass case:
+  ``_bwd_dq_kernel`` (:477, call :605) and ``_bwd_dkv_kernel`` (:518, call
+  :621), with FA2's delta = rowsum(dO * O) computed beside them (:597-603);
+* the ``_flash`` custom_vjp (:646-663) becomes :class:`FlashAttention`.
+
+The DiT's self-attention takes this path under grad beyond 1168 tokens
+(Stable Audio 2.0: 6145 tokens padded to 6272, kv_len 6145), through the
+unpack route of ops/kernels/attention.py. What it computes, per head, in the
+input dtype (fp32 on that path; the JAX training step is fp32 throughout)::
+
+    forward:  q' = q * log2(e)/sqrt(D), s = q' k^T (keys >= kv_len masked),
+              p = exp2(s - rowmax(s)), out = (p v) / max(l, 1e-30),
+              lse = rowmax(s) + log2(max(l, 1e-30)), l = rowsum(p)
+    backward: s = (q k^T) * log2(e)/sqrt(D), p = exp2(s - lse), dp = dO v^T,
+              ds = p * (dp - delta) / sqrt(D),
+              dq = ds k, dk = ds^T q, dv = p^T dO
+
+What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
+forward's two products are 1.86 TFLOP over ~1.2 GB; the function's
+backward is five products (4.64 TFLOP), which the two-pass form does as
+seven. The products must stay fp32-accurate (1xTF32 keeps ~3 digits), so
+the kernels (csrc/flash_attention.cu) run them as FFMA on the CUDA cores,
+register-tiled 8 x 4 per thread from 64 x 64 fp32 tiles in shared memory;
+K7 streams key tiles through an online base-2 softmax, which gives the TPU
+kernel's whole-row softmax up to rounding. The reference's other backward,
+K8 (``_flash_backward_fused`` :426, one pass), runs wherever its VMEM plan
+(:406-423) fits; it is not ported, so :func:`flash_attention_backward`
+raises there for CUDA tensors. At T = 6272 the plan fails and K9 runs.
+
+The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
+the kernels or raise. The CUDA kernels take fp32, head dim 64, q, k and v of
+one length.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as tp
+
+import torch
+
+from . import build
+
+# launch counts: each wrapper adds one where it launches its kernel
+forward_launches = 0   # K7
+backward_launches = 0  # K9 (one dq pass and one dk/dv pass per count)
+
+LOG2E = 1.4426950408889634
+# fp32 score bytes one chunk of heads of a plain version may hold (one
+# [B*H, T, T] fp32 tensor at B8 H24 T6272 would be 30 GB)
+PLAIN_SCORE_BYTES = 1 << 30
+
+
+def _valid_len(t: int, kv_len: tp.Optional[int]) -> int:
+    valid = t if kv_len is None else int(kv_len)
+    if not 1 <= valid <= t:
+        raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
+    return valid
+
+
+def _head_chunks(bh: int, t_q: int, t_k: int):
+    """(h0, h1) ranges of heads whose fp32 scores stay under PLAIN_SCORE_BYTES."""
+    step = max(1, PLAIN_SCORE_BYTES // (4 * t_q * t_k))
+    return [(h0, min(bh, h0 + step)) for h0 in range(0, bh, step)]
+
+
+def _masked(s: torch.Tensor, valid: int) -> torch.Tensor:
+    if valid < s.shape[-1]:
+        s[..., valid:] = -math.inf
+    return s
+
+
+def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: tp.Optional[int] = None, save_stats: bool = True):
+    """K7's plain version: q, k, v [BH, T, D] -> (out [BH, T, D] in q's dtype,
+    lse [BH, T] fp32 in base 2, or None without save_stats). q is prescaled
+    and rounded to its dtype and P rounded before P.V, as the kernel does."""
+    dt = q.dtype
+    bh, t, d = q.shape
+    valid = _valid_len(k.shape[1], kv_len)
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
+    for h0, h1 in _head_chunks(bh, t, k.shape[1]):
+        qs = (q[h0:h1].float() * (LOG2E / math.sqrt(d))).to(dt).float()
+        s = _masked(qs @ k[h0:h1].float().transpose(-1, -2), valid)
+        m = s.amax(-1, keepdim=True)
+        p = s.sub_(m).exp2_()
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        out[h0:h1] = ((p.to(dt).float() @ v[h0:h1].float()) / l).to(dt)
+        if save_stats:
+            lse[h0:h1] = (m + torch.log2(l)).squeeze(-1)
+        del s, p
+    return out, lse
+
+
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                         lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None):
+    """K9's formula written out (not a call to autograd, so the tests can hold
+    it against autograd): (dq, dk, dv) [BH, T, D] in q's dtype from the
+    forward's out and base-2 lse and dL/d(out)."""
+    dt = q.dtype
+    bh, t, d = q.shape
+    valid = _valid_len(k.shape[1], kv_len)
+    scale = 1.0 / math.sqrt(d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for h0, h1 in _head_chunks(bh, t, k.shape[1]):
+        qf, kf, vf, dof = (x[h0:h1].float() for x in (q, k, v, do))
+        delta = (dof * out[h0:h1].float()).sum(-1, keepdim=True)
+        s = _masked((qf @ kf.transpose(-1, -2)) * (scale * LOG2E), valid)
+        p = s.sub_(lse[h0:h1].float()[..., None]).exp2_()
+        ds = (p * (dof @ vf.transpose(-1, -2) - delta) * scale).to(dt).float()
+        dq[h0:h1] = (ds @ kf).to(dt)
+        dk[h0:h1] = (ds.transpose(-1, -2) @ qf).to(dt)
+        dv[h0:h1] = (p.to(dt).float().transpose(-1, -2) @ dof).to(dt)
+        del s, p, ds
+    return dq, dk, dv
+
+
+def bwd_fused_fits(bq: int, t_kp: int, d: int) -> bool:
+    """K8's VMEM budget (flash_attention.py:406): score, dp, p and ds tiles
+    plus resident K/V, fp32 dk/dv accumulators and the q-side tiles."""
+    tiles = bq * t_kp * 12
+    resid = 3 * t_kp * d * 2 + 2 * t_kp * d * 4 + 3 * bq * d * 4
+    return tiles + resid <= 12 * 2**20
+
+
+def bwd_fused_plan(t_q: int, t_kp: int, d: int):
+    """K8's plan (flash_attention.py:414): (16-aligned t_q, q block) or None."""
+    t_qp = (t_q + 15) // 16 * 16
+    for n_q in range(1, 65):
+        blk, rem = divmod(t_qp, n_q)
+        if rem == 0 and blk % 8 == 0 and bwd_fused_fits(blk, t_kp, d):
+            return t_qp, blk
+    return None
+
+
+def backward_kernel(t_q: int, t_k: int, d: int) -> str:
+    """The non-causal backward the JAX package runs (flash_attention.py:576-579):
+    "K8" where its plan fits, else "K9"."""
+    return "K8" if bwd_fused_plan(t_q, (t_k + 15) // 16 * 16, d) is not None else "K9"
+
+
+def _cuda_args(name: str, *tensors: torch.Tensor):
+    """Checks what the kernels take; returns the tensors made contiguous."""
+    q = tensors[0]
+    bh, t, d = q.shape if q.dim() == 3 else (0, 0, 0)
+    for x in tensors:
+        if x.dtype != torch.float32 or x.device != q.device:
+            raise ValueError(f"{name}: the CUDA kernel takes fp32 tensors on one device, got "
+                             f"{x.dtype} on {x.device}")
+        if tuple(x.shape) != (bh, t, 64):
+            raise ValueError(f"{name}: the CUDA kernel takes [B*H, T, 64] tensors of one shape, got "
+                             f"{tuple(x.shape)} and {tuple(q.shape)}")
+    if not 1 <= bh <= 65535:
+        raise ValueError(f"{name}: B*H = {bh} outside the kernel's grid [1, 65535]")
+    return [x.contiguous() for x in tensors]
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_len: tp.Optional[int] = None, save_stats: bool = True):
+    """K7: q, k, v [BH, T, 64] -> (out [BH, T, 64], lse [BH, T] fp32 or None)."""
+    global forward_launches
+    valid = _valid_len(k.shape[1], kv_len)
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, kv_len, save_stats)
+    q, k, v = _cuda_args("flash_forward", q, k, v)
+    bh, t, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
+    err = build.library().fsat_flash_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bh, t, valid, LOG2E / math.sqrt(d),
+        _stream(q.device))
+    build.check(err, "flash_forward")
+    forward_launches += 1
+    return out, lse
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None):
+    """K9: (dq, dk, dv) [BH, T, 64] from q, k, v, K7's out and lse, and dL/d(out)."""
+    global backward_launches
+    valid = _valid_len(k.shape[1], kv_len)
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, out, lse, do, kv_len)
+    q, k, v, out, do = _cuda_args("flash_backward", q, k, v, out, do)
+    bh, t, d = q.shape
+    if lse.shape != (bh, t) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_backward: lse must be [B*H, T] fp32 on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    lse = lse.contiguous()
+    # FA2's delta = rowsum(dO * O), once beside the kernels (as the JAX
+    # package computes it in XLA, flash_attention.py:597-603)
+    delta = (do * out).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = build.library().fsat_flash_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid,
+        LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
+    build.check(err, "flash_backward")
+    backward_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             kv_len: tp.Optional[int] = None):
+    """The backward of the training path as the JAX package chooses it
+    (``_flash_backward``, flash_attention.py:576-579): K8 where its plan fits
+    (not ported: a CUDA tensor raises), else K9. CPU tensors take K9's plain
+    version, which computes the same function as K8."""
+    if q.device.type != "cpu" and backward_kernel(q.shape[1], k.shape[1], q.shape[2]) == "K8":
+        raise NotImplementedError(
+            f"flash_attention_backward: at T = {q.shape[1]} the JAX package runs the single-pass "
+            f"backward K8 (flash_attention.py:426, _flash_backward_fused), which the torch port "
+            f"has not ported")
+    return flash_backward(q, k, v, out, lse, do, kv_len)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K7 with its LSE forward, K9 backward (the ``_flash`` custom_vjp) on
+    q, k, v [BH, T, D]; kv_len takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len=None):
+        out, lse = flash_forward(q, k, v, kv_len, save_stats=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_len = kv_len
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*flash_attention_backward(*ctx.saved_tensors, grad_out, ctx.kv_len), None)

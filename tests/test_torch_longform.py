@@ -149,8 +149,9 @@ def test_attention_route_thresholds(t, route):
 
 def test_inference_forward_takes_the_route(monkeypatch):
     """Without grad, T = 2049 goes through the long path; T = 2048 and
-    T = 8193 (the K7 route, unported) take the plain whole-sequence version
-    on the CPU. Under grad every length takes the K5/K6 binding."""
+    T = 8193 (K7's inference route, not wired) take the plain whole-sequence
+    version on the CPU. Under grad, T = 2049 takes the unpack route's binding
+    (K7 + K9, training_route), not the long path."""
     taken = []
     real_long = tattn.fused_qkv_rope_attention_long
     monkeypatch.setattr(tattn, "fused_qkv_rope_attention_long",
@@ -165,7 +166,7 @@ def test_inference_forward_takes_the_route(monkeypatch):
     assert taken == [2049]
     qkv = _t(rng.randn(1, 2049, 3 * 64)).requires_grad_(True)
     out = tattn.fused_qkv_rope_attention(qkv, _t(np.asarray(jax_rotary_freqs(2049, 32))), 1)
-    assert out.grad_fn is not None and taken == [2049]
+    assert "FusedQKVFlashAttention" in type(out.grad_fn).__name__ and taken == [2049]
 
 
 def test_seq_pad_rule_at_sa2_length():

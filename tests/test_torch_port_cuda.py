@@ -3,8 +3,9 @@
 Marked `cuda`; each test skips without a CUDA device. The GPU machine has
 no JAX, and tests/conftest.py imports it, so run this file there with
 `python -m pytest --noconftest -q tests/test_torch_port_cuda.py`. Inputs
-are bf16; tolerance: rel-L2 1e-2 (one bf16 rounding of the output apart,
-with attention's online softmax rounding P against running maxima).
+are bf16 unless a test says otherwise; tolerance: rel-L2 1e-2 (one bf16
+rounding of the output apart, with attention's online softmax rounding P
+against running maxima). The fp32 kernels K7/K9 are held to fp32 tolerances.
 """
 
 import pytest
@@ -135,3 +136,59 @@ def test_attention_beyond_the_long_path_raises_on_cuda(gen):
     qkv = _rnd(gen, 1, 8193, 3 * 64).to(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="K7"):
         tattn.fused_qkv_rope_attention(qkv, rotary_freqs(8193, 32, device="cuda"), 1)
+
+
+def test_flash_kernels_match_plain_in_fp32(gen):
+    """K7 (out rel-L2 1e-5, LSE max abs 1e-4) and K9 (dq, dk, dv rel-L2 1e-4
+    each, exactly zero on padded rows) against their plain versions in fp32,
+    at ragged lengths; one launch each per call."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
+
+    for bh, t, kv in ((3, 200, 190), (2, 77, None), (2, 1424, None)):
+        q, k, v = (_rnd(gen, bh, t, 64) for _ in range(3))
+        do = _rnd(gen, bh, t, 64)
+        if kv is not None:
+            do[:, kv:] = 0
+        before = (tflash.forward_launches, tflash.backward_launches)
+        out, lse = tflash.flash_forward(q, k, v, kv)
+        grads = tflash.flash_backward(q, k, v, out, lse, do, kv)
+        assert (tflash.forward_launches, tflash.backward_launches) == (before[0] + 1, before[1] + 1)
+        out_p, lse_p = tflash.flash_forward_plain(q, k, v, kv)
+        _close(out, out_p, tol=1e-5)
+        assert (lse - lse_p).abs().max().item() <= 1e-4
+        for got, want in zip(grads, tflash.flash_backward_plain(q, k, v, out, lse, do, kv)):
+            _close(got, want, tol=1e-4)
+            if kv is not None:
+                assert not got[:, kv:].any()
+
+
+def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
+    """Under grad at T = 1424 (past the pair route's 1168) the fp32 qkv
+    goes through K7 twice (the forward and a checkpointed recompute) and K9
+    once, never K5/K6, and qkv.grad is within rel-L2 1e-4 of autograd through
+    the fp32 plain attention; at T = 1184, where the JAX package's backward
+    is K8 (not ported), the backward raises."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
+
+    t, h = 1424, 2
+    f = rotary_freqs(t, 32, device="cuda")
+    x = _rnd(gen, 1, t, 3 * h * 64, scale=0.5)
+    g = _rnd(gen, 1, t, h * 64)
+    counts = lambda: (tflash.forward_launches, tflash.backward_launches,  # noqa: E731
+                      tattn.stats_launches, tattn.backward_launches)
+    before = counts()
+    qkv = x.clone().requires_grad_(True)
+    out = torch.utils.checkpoint.checkpoint(
+        lambda y: tattn.fused_qkv_rope_attention(y, f, h), qkv, use_reentrant=False)
+    assert out.dtype == torch.float32
+    out.backward(g)
+    assert counts() == (before[0] + 2, before[1] + 1, before[2], before[3])
+    ref = x.clone().requires_grad_(True)
+    tattn.fused_qkv_rope_attention_plain(ref, f, h).backward(g)
+    _close(qkv.grad, ref.grad, tol=1e-4)
+
+    t = 1184
+    qkv = _rnd(gen, 1, t, 3 * h * 64, scale=0.5).requires_grad_(True)
+    out = tattn.fused_qkv_rope_attention(qkv, rotary_freqs(t, 32, device="cuda"), h)
+    with pytest.raises(NotImplementedError, match="K8"):
+        out.sum().backward()

@@ -1,5 +1,7 @@
 """The torch port's training slice against the JAX package: one train step of
-a Stable-Audio-Open-shaped model from raw audio, then the train CLI.
+a Stable-Audio-Open-shaped model from raw audio, then the train CLI; and one
+train step of a Stable-Audio-2.0-shaped (long-form) model whose sequence is
+long enough for the unpack attention route (K7 + K9).
 
 The model is the SAO 1.0 config at narrow widths (a DiT 128 wide with 2
 heads of 64, depth 2, prepend global cond and per-layer checkpointing;
@@ -126,6 +128,82 @@ def test_one_train_step_matches_jax(models, cfg_dropout_prob):
                                    atol=1e-6)
         np.testing.assert_allclose(e.numpy(), new_ema[name].numpy(), atol=1e-6)
     assert tw.step == 1 and tw.qmc_counter == 2
+
+
+LONG_LATENTS = 1423  # + 1 prepended token = 1424 > 1168: the unpack route, K7 then K9
+
+
+@pytest.fixture(scope="module")
+def longform_models():
+    """SA 2.0's config at narrow widths (tests/test_torch_longform.py: the
+    CLAP text conditioner at full size, a 2-layer DiT 128 wide with 2 heads
+    of 64 and per-layer checkpointing, a two-block Oobleck VAE with 16 latent
+    channels) at 1423 latent frames, built by the JAX package, de-zeroed."""
+    from tests.test_torch_longform import tiny_longform_config
+
+    config = tiny_longform_config()
+    config["sample_size"] = LONG_LATENTS * RATIO
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HF_HUB_OFFLINE", "1")  # the JAX tokenizer ladder would try the network
+        jmodel = jax_create(config, init_rng=jax.random.PRNGKey(0))
+    jmodel.params = dezero_params(jmodel.params)
+    sd = convert_conditioned_diffusion(jmodel.params, jmodel.conditioner.params,
+                                       jmodel.pretransform.model.params)
+    return config, jmodel, sd
+
+
+def test_one_longform_train_step_matches_jax(longform_models, monkeypatch):
+    """One step at batch 2, CFG dropout 0, against the JAX package's fp32
+    step on the same audio and draws. 1424 tokens take the unpack route in
+    the port (per layer K7 twice, the checkpointed block being recomputed,
+    and K9 once; their plain versions on the CPU). Tolerances as for SAO:
+    the loss to 1e-5 relative, every trainable gradient to 1e-4 of its own
+    largest entry."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention as tattn
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    config, jmodel, sd = longform_models
+    opt = config["training"]["optimizer_configs"]
+    metadata = [{"prompt": "A grand orchestral arrangement", "seconds_start": 0,
+                 "seconds_total": 285},
+                {"prompt": "A cool 80s glam rock song", "seconds_start": 7, "seconds_total": 120}]
+    reals = np.random.RandomState(5).randn(2, 2, LONG_LATENTS * RATIO).astype(np.float32) * 0.3
+
+    jw = JWrapper(jmodel, optimizer_configs=opt, cfg_dropout_prob=0.0)
+    state = jw.init_state()
+    rng = jax.random.PRNGKey(12)
+    (jloss, _), jgrads = jw._loss_and_grads(state.params, jw.prepare_batch(reals, metadata), rng,
+                                            state.qmc_counter)
+
+    tmodel = create_model_from_config(config, device="cpu")
+    tmodel.load_state_dict(sd, strict=True)
+    tw = DiffusionCondTrainingWrapper(tmodel, optimizer_configs=opt, cfg_dropout_prob=0.0)
+    k_t, k_noise, _, _, _ = jax.random.split(rng, 5)
+    draws = {"t": torch.tensor(np.asarray(jax_qmc(jnp.uint32(0), 2,
+                                                   jax.random.uniform(k_t, (), jnp.float32)))),
+             "noise": torch.tensor(np.asarray(jax.random.normal(k_noise, (2, LONG_LATENTS, 16))))}
+    calls = []
+    for name in ("flash_forward", "flash_attention_backward"):
+        fn = getattr(tflash, name)
+        monkeypatch.setattr(tflash, name, lambda *a, _fn=fn, _n=name, **kw: calls.append(
+            (_n, a[0].shape[1])) or _fn(*a, **kw))
+    assert tattn.training_route(LONG_LATENTS + 1, 64, 2) == "flash"
+    assert tflash.backward_kernel(LONG_LATENTS + 1, LONG_LATENTS + 1, 64) == "K9"
+    metrics = tw.train_step(torch.tensor(reals).transpose(1, 2), metadata, draws=[draws])
+
+    assert sorted(calls) == [("flash_attention_backward", 1424)] * 2 + [("flash_forward", 1424)] * 4
+    assert abs(metrics["loss"] - float(jloss)) <= 1e-5 * float(jloss)
+    flat_grads = state_dict_from_jax(jgrads["model"], "model.")
+    for cid, tree in jgrads["conditioner"].items():
+        flat_grads.update(state_dict_from_jax(tree, f"conditioner.conditioners.{cid}."))
+    assert sorted(flat_grads) == sorted(tw.trainable)
+    for name, p in tw.trainable.items():
+        want = flat_grads[name].numpy()
+        if np.abs(want).max() > 0:
+            _close_rel(p.grad, want, 1e-4)
+        else:
+            assert p.grad is None or not p.grad.any(), name
 
 
 def test_train_cli_two_steps_checkpoint_and_resume(tmp_path):
