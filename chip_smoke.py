@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
-on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, and
-Stable Audio 2.0 long-form text-to-audio, at full width.
+on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, Stable
+Audio 2.0 long-form text-to-audio and training, and Stable Audio 1.0
+text-to-audio, at full width.
 
     python3 chip_smoke.py
 
@@ -26,14 +27,21 @@ Phases (any failure raises and the script exits non-zero):
    3e. the fp32 training attention kernels K7 (forward with LSE) and K9
    (two-pass backward) against their plain versions at SA 2.0's training
    shape (B 8 x 24 heads, T 6272, kv_len 6145) and two smaller ragged ones;
-4. one DiT forward (CFG batch-doubled) and one short VAE decode with the
-   kernels and with the plain versions, same weights and inputs, and the
-   bf16 encode with the kernels against an fp32 encode with the plain
-   versions;
+   3f. the fp32 kernels against their fp32 plain versions (TF32 off): K2,
+   K3 and K4 at every shape of [3] and [3c], and K2 and K4 at the DAC
+   decode's shapes at 4096 latent frames (26 and 4 calls); K7 without its
+   LSE at the ADP U-Net's self-attention (B 2 x 16 heads: T 4096 and 2048
+   at head dim 64, T 1024 at head dim 80);
+4. the Oobleck VAE in fp32 (an encode of 2 x 2,097,152 samples and a short
+   decode) with the fp32 kernels against the fp32 plain versions; then, in
+   bench.py's bf16 recipe, one DiT forward (CFG batch-doubled) and the short
+   decode with the kernels and with the plain versions, and the bf16 encode
+   with the kernels against the fp32 encode with the plain versions;
    4b. one SA 2.0 DiT forward at 6144 latent frames with CFG (B 2, T 6272)
    with the kernels, with the plain versions in bf16, and as an fp32 copy;
 5. the generation path: `create_model_from_config(stable_audio_open_1_0.json)`
-   with random weights (seed 0, de-zeroed), DiT and VAE in bf16, then
+   with random weights (seed 0, de-zeroed), DiT and VAE in bench.py's bf16
+   recipe, then
    `generate_diffusion_cond` for one prompt, 100 dpmpp-3m-sde steps, CFG 7,
    2,097,152 stereo samples; output shape, finiteness and RMS are checked,
    and the kernels' launch counts show that the path ran through them;
@@ -49,20 +57,38 @@ Phases (any failure raises and the script exits non-zero):
    `main` on the SAO config from 16 synthetic 50 s WAVs, batch 8, 4 steps
    with a checkpoint at step 4, then a resume for a fifth step; step time,
    throughput, memory and split, finite losses, moved weights, the EMA, and
-   the kernels' launch counts as the code implies them;
+   the kernels' launch counts as the code implies them (the frozen encode in
+   fp32, through the fp32 K2/K3);
 8. the long-form path: `create_model_from_config(stable_audio_2_0.json)`
    (CLAP text conditioner, random weights, hash tokenizer), DiT and VAE in
-   bf16, `generate_diffusion_cond` for one 285 s prompt, 100 dpmpp-3m-sde
+   bench.py's bf16 recipe, `generate_diffusion_cond` for one 285 s prompt, 100 dpmpp-3m-sde
    steps, CFG 7, 12,582,912 stereo samples; output checks, walls (CLAP,
    denoise per step, decode), peak memory, and the launch counts;
 9. the long-form training path: `train.main` on the SA 2.0 config from 8
    synthetic 290 s WAVs, batch 8, 3 steps: step time, trained audio per
    second, the split, peak memory, finite losses, moved weights and the
-   launch counts (K7/K9 and the encoder's K2/K3, no K5/K6).
+   launch counts (K7/K9 and the fp32 encoder's K2/K3, no K5/K6);
+4c. one forward of Stable Audio 1.0's fp32 ADP U-Net at 4096 latent frames
+   with CFG, with the kernels (K7 at T 4096, 2048, 1024) and with the plain
+   versions (random weights, de-zeroed);
+10. the SA 1.0 path: the generate CLI (`generate.main`) on
+   stable_audio_1_0.json as written (CLAP text and two int conditioners,
+   ADP U-Net, DAC VAE; random weights, seed 0; hash tokenizer), one prompt,
+   100 dpmpp-3m-sde steps, CFG 7, the model's own fp32, one WAV under
+   build/: audio checks, walls (conditioners, denoise per step, decode),
+   s-audio/s over 95.1 s of audio, peak memory, and the launch counts (K7
+   1400, fp32 K2 26 and K4 4, nothing else);
+   10b. the repaired dtype: the generate CLI on stable_audio_open_1_0.json
+   in fp32 (K1 on a bf16 cast of the fp32 qkv, the fp32 K2/K3/K4 decode).
 
 Output: progress lines with each phase's wall, then one JSON line of
-per-kernel results, the nvidia-smi line, and as the last line
-`{"ok": true, "device": {...}}`.
+per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
+their own, `*_f32` and `flash_forward_serving`), the nvidia-smi line, and
+as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
+chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
+part alone (likewise `dac_conv_phase`, or `decode_conv_phase(results,
+torch.float32, {"sa2": "sa2_decode_ms", "sao": "sao_decode_ms"})`) after
+the build.
 Without a CUDA device the script exits with 2 and prints no result.
 """
 
@@ -83,6 +109,7 @@ REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio"
 SAO_CONFIG = CONFIGS / "stable_audio_open_1_0.json"
 SA2_CONFIG = CONFIGS / "stable_audio_2_0.json"
+SA1_CONFIG = CONFIGS / "stable_audio_1_0.json"
 STEPS = 100
 CFG_SCALE = 7.0
 SAMPLE_SIZE = 2_097_152
@@ -93,6 +120,10 @@ SA2_PROMPT = {"prompt": "A grand orchestral arrangement with thunderous percussi
 # SA 2.0's self-attention: 6144 latent frames + 1 prepended token, padded to
 # the 128-multiple 6272 at CFG batch 2 (models/transformer.py:seq_pad_length)
 LONG_T, LONG_KV = 6272, 6145
+# Stable Audio 1.0: 4096 latent frames of the DAC VAE (downsampling 1024), 95.1 s
+SA1_SAMPLE_SIZE = 4_194_304
+SA1_PROMPT = {"prompt": "A cool 80s glam rock song with driving drums and distorted guitars",
+              "seconds_start": 0, "seconds_total": 95}
 DEVICE = "cuda"
 TRAIN_BATCH = 8
 TRAIN_STEPS = 4
@@ -133,6 +164,13 @@ TOL = {
     # products keep ~3 decimal digits and would fail them
     "flash_forward": (1e-5, 1e-4),
     "flash_backward": (1e-4, 1e-3),
+    # the fp32 kernels against their fp32 plain versions (TF32 off): K7
+    # without its LSE (FFMA), K2 (FFMA), K3 and K4 (3xTF32, each tensor-core
+    # partial sum of at most six products added in fp32): summation order only
+    "flash_forward_serving": (1e-5, 1e-4),
+    "snake_conv1d_f32": (1e-5, 1e-4),
+    "fused_residual_unit_f32": (1e-5, 1e-4),
+    "snake_conv_transpose1d_f32": (1e-5, 1e-4),
 }
 # the card's published peaks (H100 SXM, dense), for the bound: the larger of
 # the products' operations at the bf16 tensor-core rate and the bytes each
@@ -159,6 +197,10 @@ DECODE_REL_TOL = 2e-2  # 15 residual units, 5 upsamples, 2 convs in bf16
 # the frozen bf16 encode with the kernels against an fp32 encode (plain
 # versions): 15 residual units, 5 downsamples and 2 convs in bf16
 ENCODE_REL_TOL = 5e-2
+# the fp32 models with the kernels against the same models with the plain
+# versions: the Oobleck encode and decode ([4]) and SA 1.0's U-Net forward
+# ([4c]), each kernel within ~1e-6 of its plain version
+FP32_MODEL_RTOL = 1e-4
 
 
 def log(msg):
@@ -277,8 +319,10 @@ def plain_kernels():
     """Routes the model's kernel calls to the plain versions (for the
     kernel-vs-plain model compares)."""
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
 
     return patched([(attention, "fused_qkv_rope_attention", plain_attention),
+                    (flash, "flash_forward", flash.flash_forward_plain),
                     (conv1d, "snake_conv1d", conv1d.snake_conv1d_plain),
                     (conv1d, "fused_residual_unit", conv1d.fused_residual_unit_plain),
                     (conv1d, "snake_conv_transpose1d", conv1d.snake_conv_transpose1d_plain)])
@@ -338,29 +382,55 @@ def sdpa_inputs(qkv, freqs, h, kv):
 
 
 def conv_library(x, w, bias, alpha, inv_beta, dilation=1, stride=None):
-    """cuDNN's bf16 conv1d (stride None) or conv_transpose1d on the already
-    snaked input: the library call timed beside K2 and K4 (it leaves the
-    snake out)."""
-    import torch
+    """cuDNN's conv1d (stride None) or conv_transpose1d in x's dtype (bf16
+    or fp32, TF32 off) on the already snaked input: the library call timed
+    beside K2 and K4 (it leaves the snake out)."""
     import torch.nn.functional as F
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
 
+    dt = x.dtype
     xs = x.float() if alpha is None else conv1d.snake(x.float(), alpha, inv_beta)
-    xs = xs.to(torch.bfloat16).transpose(1, 2).contiguous()
-    bb = None if bias is None else bias.to(torch.bfloat16)
+    xs = xs.to(dt).transpose(1, 2).contiguous()
+    bb = None if bias is None else bias.to(dt)
     if stride is None:
-        wt = w.permute(2, 1, 0).to(torch.bfloat16).contiguous()
+        wt = w.permute(2, 1, 0).to(dt).contiguous()
         return lambda: F.conv1d(xs, wt, bb, padding="same", dilation=dilation)
-    wt = w.permute(1, 2, 0).to(torch.bfloat16).contiguous()
+    wt = w.permute(1, 2, 0).to(dt).contiguous()
     return lambda: F.conv_transpose1d(xs, wt, bb, stride=stride, padding=stride // 2)
 
 
+def conv_name(name, dtype):
+    """The results entry of conv kernel `name` for activations of `dtype`."""
+    import torch
+
+    return name + ("_f32" if dtype == torch.float32 else "")
+
+
+def conv_case(results, name, label, field, x, w, bias, a, ib, kernel, plain, flops, halo, up=1,
+              **lib_kw):
+    """One K2 or K4 compare on x's dtype, reported under conv_name(name).
+    Bound: the products at the bf16 rate, or the fp32-accurate rate for
+    fp32; w read once in x's dtype."""
+    import torch
+
+    y = torch.empty(x.shape[0], x.shape[1] * up, w.shape[2], device=DEVICE, dtype=x.dtype)
+    peak = PEAK_FP32_ACCURATE if x.dtype == torch.float32 else PEAK_FLOPS
+    bound = bound_ms(flops, nbytes(x, y, bias) + w.numel() * x.element_size(), peak=peak)
+    del y
+    name = conv_name(name, x.dtype)
+    report(results, name, label, True, *compare(
+        name, kernel, lambda: segmented(plain, x, halo, up),
+        library_fn=conv_library(x, w, bias, a, ib, **lib_kw)), bound=bound, field=field)
+
+
 def kernel_phase(results):
+    """[3] K1 at SAO 1.0's shape and three ragged ones, then the decoders'
+    K2-K4 in bf16."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
 
     bf = torch.bfloat16
     rnd = randn_fn(0)
@@ -377,86 +447,94 @@ def kernel_phase(results):
             lambda: attention.fused_qkv_rope_attention_plain(qkv, f, h, kv),
             library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
             bound=attention_bound(b, h, kv or t, 2, [qkv], [out]))
+    decode_conv_phase(results, bf, {"sa2": "ms", "sao": "sao_decode_ms"})
 
-    def conv_case(name, label, field, x, w, bias, a, ib, kernel, plain, flops, halo, up=1,
-                  **lib_kw):
-        y = torch.empty(x.shape[0], x.shape[1] * up, w.shape[2], device=DEVICE, dtype=bf)
-        lib = conv_library(x, w, bias, a, ib, **lib_kw)
-        bound = bound_ms(flops, nbytes(x, y) + w.numel() * 2 + nbytes(bias))
-        del y
-        report(results, name, label, field is not None, *compare(
-            name, kernel, lambda: segmented(plain, x, halo, up), library_fn=lib), bound=bound,
-            field=field or "ms")
 
-    # the decodes: SA 2.0's 6144 latent frames (field "ms", the long-form
-    # path) and SAO 1.0's 1024 (field "sao_decode_ms"), batch 1
-    for frames, field in ((SA2_SAMPLE_SIZE // 2048, "ms"), (SAMPLE_SIZE // 2048, "sao_decode_ms")):
+def decode_conv_phase(results, dtype, fields):
+    """K2, K3 and K4 on `dtype` activations at every shape of the Oobleck
+    decodes of SA 2.0 (6144 latent frames) and SAO 1.0 (1024), batch 1,
+    under fields["sa2"] and fields["sao"] (K3 under fields["sa2_ru"] and
+    fields["sao_ru"] where given), and at three small ragged shapes."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    rnd = randn_fn(0 if dtype == torch.bfloat16 else 8)
+    for frames, which in ((SA2_SAMPLE_SIZE // 2048, "sa2"), (SAMPLE_SIZE // 2048, "sao")):
+        field = fields[which]
         n = frames * 2048
         # K2: decoder conv_in (64 -> 2048, k 7, no snake) and conv_out (snake, 128 -> 2, no bias)
         for t, cin, cout, sn, bias in [(frames, 64, 2048, False, True), (n, 128, 2, True, False)]:
-            x = rnd(1, t, cin, scale=0.5).to(bf)
+            x = rnd(1, t, cin, scale=0.5).to(dtype)
             w = rnd(7, cin, cout, scale=1 / math.sqrt(7 * cin))
             bb = rnd(cout, scale=0.1) if bias else None
             a, ib = snake_params(rnd, cin) if sn else (None, None)
-            conv_case("snake_conv1d", f"B1 T{t} {cin}->{cout} d1", field, x, w, bb, a, ib,
+            conv_case(results, "snake_conv1d", f"B1 T{t} {cin}->{cout} d1", field, x, w, bb, a, ib,
                       lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
                       lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, a, ib),
                       2 * t * cin * cout * 7, halo=3)
             del x
         # K3: the 15 residual units
+        ru = conv_name("fused_residual_unit", dtype)
+        ru_field = fields.get(which + "_ru", field)
+        peak = PEAK_FP32_ACCURATE if dtype == torch.float32 else PEAK_FLOPS
         for c, t in [(1024, frames * 8), (512, frames * 64), (256, frames * 256),
                      (128, frames * 1024), (128, n)]:
-            x = rnd(1, t, c, scale=0.5).to(bf)
+            x = rnd(1, t, c, scale=0.5).to(dtype)
             w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
             b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
             (a1, i1), (a2, i2) = snake_params(rnd, c), snake_params(rnd, c)
             for d in (1, 3, 9):
                 y = torch.empty_like(x)
-                bound = bound_ms(2 * t * c * c * 8, nbytes(x, y, b1, b2) + 8 * c * c * 2)
+                bound = bound_ms(2 * t * c * c * 8, nbytes(x, y, b1, b2) + 8 * c * c * x.element_size(),
+                                 peak=peak)
                 del y
-                report(results, "fused_residual_unit", f"B1 T{t} C{c} d{d}", True, *compare(
-                    "fused_residual_unit",
+                report(results, ru, f"B1 T{t} C{c} d{d}", True, *compare(
+                    ru,
                     lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
                     lambda: segmented(lambda xs: conv1d.fused_residual_unit_plain(
                         xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d)),
-                    bound=bound, field=field)
+                    bound=bound, field=ru_field)
             del x
         # K4: the 5 upsamples
         for t, cin, cout, st in [(frames, 2048, 1024, 8), (frames * 8, 1024, 512, 8),
                                  (frames * 64, 512, 256, 4), (frames * 256, 256, 128, 4),
                                  (frames * 1024, 128, 128, 2)]:
-            x = rnd(1, t, cin, scale=0.5).to(bf)
+            x = rnd(1, t, cin, scale=0.5).to(dtype)
             w = rnd(2 * st, cin, cout, scale=1 / math.sqrt(2 * cin))
             bb = rnd(cout, scale=0.1)
             a, ib = snake_params(rnd, cin)
-            conv_case("snake_conv_transpose1d", f"B1 T{t} {cin}->{cout} s{st}", field, x, w, bb, a,
-                      ib, lambda: conv1d.snake_conv_transpose1d(x, w, bb, a, ib, stride=st),
+            conv_case(results, "snake_conv_transpose1d", f"B1 T{t} {cin}->{cout} s{st}", field, x, w,
+                      bb, a, ib, lambda: conv1d.snake_conv_transpose1d(x, w, bb, a, ib, stride=st),
                       lambda xs: conv1d.snake_conv_transpose1d_plain(xs, w, bb, a, ib, stride=st),
                       2 * t * st * cin * cout * 2, halo=1, up=st, stride=st)
             del x
 
     # small ragged shapes
-    x = rnd(2, 301, 32, scale=0.5).to(bf)
+    x = rnd(2, 301, 32, scale=0.5).to(dtype)
     w = rnd(7, 32, 48, scale=1 / math.sqrt(7 * 32))
     bb = rnd(48, scale=0.1)
     a, ib = snake_params(rnd, 32)
-    report(results, "snake_conv1d", "B2 T301 32->48 d3", False, *compare(
-        "snake_conv1d", lambda: conv1d.snake_conv1d(x, w, bb, a, ib, dilation=3),
+    name = conv_name("snake_conv1d", dtype)
+    report(results, name, "B2 T301 32->48 d3", False, *compare(
+        name, lambda: conv1d.snake_conv1d(x, w, bb, a, ib, dilation=3),
         lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=3)))
-    x = rnd(2, 333, 128, scale=0.5).to(bf)
+    x = rnd(2, 333, 128, scale=0.5).to(dtype)
     w1, w2 = rnd(7, 128, 128, scale=1 / math.sqrt(7 * 128)), rnd(128, 128, scale=1 / math.sqrt(128))
     b1, b2 = rnd(128, scale=0.1), rnd(128, scale=0.1)
     (a1, i1), (a2, i2) = snake_params(rnd, 128), snake_params(rnd, 128)
-    report(results, "fused_residual_unit", "B2 T333 C128 d9", False, *compare(
-        "fused_residual_unit",
-        lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9),
+    name = conv_name("fused_residual_unit", dtype)
+    report(results, name, "B2 T333 C128 d9", False, *compare(
+        name, lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9),
         lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9)))
-    x = rnd(2, 77, 128, scale=0.5).to(bf)
-    w = rnd(8, 128, 128, scale=1 / math.sqrt(2 * 128))
+    cout = 96 if dtype == torch.float32 else 128  # the fp32 kernel takes Cout % 32 == 0
+    x = rnd(2, 77, 128, scale=0.5).to(dtype)
+    w = rnd(8, 128, cout, scale=1 / math.sqrt(2 * 128))
     a, ib = snake_params(rnd, 128)
-    report(results, "snake_conv_transpose1d", "B2 T77 128->128 s4", False, *compare(
-        "snake_conv_transpose1d", lambda: conv1d.snake_conv_transpose1d(x, w, b1, a, ib, stride=4),
-        lambda: conv1d.snake_conv_transpose1d_plain(x, w, b1, a, ib, stride=4)))
+    name = conv_name("snake_conv_transpose1d", dtype)
+    report(results, name, f"B2 T77 128->{cout} s4", False, *compare(
+        name, lambda: conv1d.snake_conv_transpose1d(x, w, b1[:cout], a, ib, stride=4),
+        lambda: conv1d.snake_conv_transpose1d_plain(x, w, b1[:cout], a, ib, stride=4)))
 
 
 def attention_train_phase(results):
@@ -532,58 +610,137 @@ def encode_calls(config):
     return math.ceil(TRAIN_BATCH / int(ib)) if ib else 1
 
 
-def encoder_conv_phase(results, config, field):
+def encoder_conv_phase(results, config, field, dtype=None):
     """[3c] K2 and K3 at the frozen encoder's shapes for `config`'s sample
-    size, at the batch of one encode call, weighted by the calls per
-    training step, under `field` (the plain versions in overlapping time
-    segments beyond 2,097,152 samples)."""
+    size, on `dtype` activations (bf16 by default), at the batch of one
+    encode call, weighted by the calls per training step, under `field` (the
+    plain versions in overlapping time segments beyond 2,097,152 samples)."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
 
-    bf = torch.bfloat16
+    dtype = dtype or torch.bfloat16
     rnd = randn_fn(2)
     calls = encode_calls(config)
     b = TRAIN_BATCH // calls
     n = config["sample_size"]
+    k2, ru = conv_name("snake_conv1d", dtype), conv_name("fused_residual_unit", dtype)
+    peak = PEAK_FP32_ACCURATE if dtype == torch.float32 else PEAK_FLOPS
     # K2: conv_in 2 -> 128 (k 7, no snake) at the sample size; conv_out
     # snake 2048 -> 128 (k 3) at the latent frames
     for t, cin, cout, k, sn in [(n, 2, 128, 7, False), (n // 2048, 2048, 128, 3, True)]:
         label = f"B{b} T{t} {cin}->{cout} k{k}"
-        results["snake_conv1d"]["weight"][label] = calls
-        x = rnd(b, t, cin, scale=0.5).to(bf)
+        results[k2]["weight"][label] = calls
+        x = rnd(b, t, cin, scale=0.5).to(dtype)
         w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
         bb = rnd(cout, scale=0.1)
         a, ib = snake_params(rnd, cin) if sn else (None, None)
-        y = torch.empty(b, t, cout, device=DEVICE, dtype=bf)
-        bound = bound_ms(2 * b * t * cin * cout * k, nbytes(x, y, bb) + w.numel() * 2)
-        del y
-        report(results, "snake_conv1d", label, True, *compare(
-            "snake_conv1d", lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
-            lambda: segmented(lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, a, ib), x, k // 2),
-            library_fn=conv_library(x, w, bb, a, ib)), bound=bound, field=field)
+        conv_case(results, "snake_conv1d", label, field, x, w, bb, a, ib,
+                  lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
+                  lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, a, ib),
+                  2 * b * t * cin * cout * k, halo=k // 2)
         del x
     # K3: the encoder's 15 residual units
     for c, t in [(128, n), (128, n // 2), (256, n // 8), (512, n // 32), (1024, n // 256)]:
-        x = rnd(b, t, c, scale=0.5).to(bf)
+        x = rnd(b, t, c, scale=0.5).to(dtype)
         w1, w2 = rnd(7, c, c, scale=1 / math.sqrt(7 * c)), rnd(c, c, scale=1 / math.sqrt(c))
         b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
         (a1, i1), (a2, i2) = snake_params(rnd, c), snake_params(rnd, c)
         for d in (1, 3, 9):
             label = f"B{b} T{t} C{c} d{d}"
-            results["fused_residual_unit"]["weight"][label] = calls
-            bound = bound_ms(2 * b * t * c * c * 8, 2 * nbytes(x) + nbytes(b1, b2) + 8 * c * c * 2)
-            report(results, "fused_residual_unit", label, True, *compare(
-                "fused_residual_unit",
+            results[ru]["weight"][label] = calls
+            bound = bound_ms(2 * b * t * c * c * 8,
+                             2 * nbytes(x) + nbytes(b1, b2) + 8 * c * c * x.element_size(), peak=peak)
+            report(results, ru, label, True, *compare(
+                ru,
                 lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
                 lambda: segmented(lambda xs: conv1d.fused_residual_unit_plain(
                     xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d)),
                 bound=bound, field=field)
         del x
-    for name in ("snake_conv1d", "fused_residual_unit"):
+    for name in (k2, ru):
         r = results[name]
         log(f"  {name}: {r[field]:.4f} ms per training-step encode ({calls} calls at batch "
             f"{b}), plain {r['plain_' + field]:.4f} ms, bound {r['bound_' + field]:.4f} ms")
+
+
+def dac_conv_phase(results):
+    """[3f] fp32 K2 and K4 at every shape of Stable Audio 1.0's DAC decode of
+    4096 latent frames (4,194,304 samples), batch 1, weighted by the calls
+    per decode: conv_in 64 -> 1536 (k 7); per block, the upsample, then three
+    residual units of a k-7 conv at dilations 1, 3, 9 and a 1x1 conv, none
+    with a fused snake (the DAC applies its Snake on its own); conv_out
+    96 -> 2 (k 7). 26 K2 and 4 K4 launches."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    rnd = randn_fn(9)
+    k2 = results["snake_conv1d_f32"]
+    frames = SA1_SAMPLE_SIZE // 1024
+    k2_cases = [(frames, 64, 1536, 7, 1, 1)]
+    t, ch = frames, 1536
+    for rate in (8, 8, 4, 4):
+        x = rnd(1, t, ch, scale=0.5)
+        w = rnd(2 * rate, ch, ch // 2, scale=1 / math.sqrt(2 * ch))
+        bb = rnd(ch // 2, scale=0.1)
+        conv_case(results, "snake_conv_transpose1d", f"DAC B1 T{t} {ch}->{ch // 2} s{rate}", "ms", x,
+                  w, bb, None, None, lambda: conv1d.snake_conv_transpose1d(x, w, bb, stride=rate),
+                  lambda xs: conv1d.snake_conv_transpose1d_plain(xs, w, bb, stride=rate),
+                  2 * t * rate * ch * (ch // 2) * 2, halo=1, up=rate, stride=rate)
+        del x
+        t, ch = t * rate, ch // 2
+        k2_cases += [(t, ch, ch, 7, d, 1) for d in (1, 3, 9)] + [(t, ch, ch, 1, 1, 3)]
+    k2_cases.append((t, ch, 2, 7, 1, 1))
+    for t, cin, cout, k, d, calls in k2_cases:
+        label = f"DAC B1 T{t} {cin}->{cout} k{k} d{d}"
+        k2["weight"][label] = calls
+        x = rnd(1, t, cin, scale=0.5)
+        w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+        bb = rnd(cout, scale=0.1)
+        conv_case(results, "snake_conv1d", label, "ms", x, w, bb, None, None,
+                  lambda: conv1d.snake_conv1d(x, w, bb, dilation=d),
+                  lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, dilation=d),
+                  2 * t * cin * cout * k, halo=d * (k - 1) // 2, dilation=d)
+        del x
+    if sum(calls for *_, calls in k2_cases) != 26:
+        raise AssertionError(f"the DAC decode's K2 shapes do not add up to 26 calls: {k2_cases}")
+    for name, n_calls in (("snake_conv1d_f32", 26), ("snake_conv_transpose1d_f32", 4)):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per SA 1.0 DAC decode ({n_calls} calls), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+
+
+def flash_serving_phase(results):
+    """[3f] K7 without its LSE (serving) against its plain version in fp32 at
+    the ADP U-Net's self-attention shapes at 4096 latent frames under CFG
+    (B 2 x 16 heads): T 4096 and 2048 at head dim 64, T 1024 at head dim 80,
+    weighted by the calls per U-Net forward (2, 6 and 6), and one small
+    ragged shape. Library call: SDPA on the same fp32 heads."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(10)
+    r = results["flash_forward_serving"]
+    t0 = SA1_SAMPLE_SIZE // 1024  # the U-Net's levels: t0, t0 / 2, t0 / 4 frames
+    for bh, t, d, calls in [(32, t0, 64, 2), (32, t0 // 2, 64, 6), (32, t0 // 4, 80, 6),
+                            (3, 200, 80, 0)]:
+        label = f"BH{bh} T{t} D{d}"
+        if calls:
+            r["weight"][label] = calls
+        q, k, v = (rnd(bh, t, d) for _ in range(3))
+        out = torch.empty_like(q)
+        bound = bound_ms(4 * bh * t * t * d, nbytes(q, k, v, out), peak=PEAK_FP32_ACCURATE)
+        report(results, "flash_forward_serving", label, calls > 0, *compare(
+            "flash_forward_serving", lambda: flash.flash_forward(q, k, v, save_stats=False)[0],
+            lambda: flash.flash_forward_plain(q, k, v, save_stats=False)[0],
+            library_fn=lambda: sdpa(q[None], k[None], v[None])), bound=bound,
+            extra=f"; SDPA backend {sdpa_backend(q[None], k[None], v[None])}")
+        del q, k, v, out
+    log(f"  flash_forward_serving: {r['ms']:.4f} ms per SA 1.0 U-Net forward (14 calls), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
 
 
 def long_attention_phase(results):
@@ -909,6 +1066,10 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "snake_conv1d": ("conv1d", "snake_conv1d_launches"),
     "fused_residual_unit": ("conv1d", "fused_residual_unit_launches"),
     "snake_conv_transpose1d": ("conv1d", "snake_conv_transpose1d_launches"),
+    "flash_forward_serving": ("flash", "serving_launches"),
+    "snake_conv1d_f32": ("conv1d", "snake_conv1d_f32_launches"),
+    "fused_residual_unit_f32": ("conv1d", "fused_residual_unit_f32_launches"),
+    "snake_conv_transpose1d_f32": ("conv1d", "snake_conv_transpose1d_f32_launches"),
 }
 
 
@@ -988,17 +1149,18 @@ def launches_per_step(config, route):
     """What one training step launches: each of the DiT's blocks runs the
     route's forward kernel once, and once more when the checkpointed block
     is recomputed for the backward, and its backward kernel once (route
-    "pair": K5 and K6; "flash": K7 and K9); each call of the frozen encode
-    (one per clip, iterate_batch) runs K2 twice (conv_in, conv_out) and K3
-    once per residual unit (3 in each encoder block); nothing else."""
+    "pair": K5 and K6; "flash": K7 and K9); each call of the frozen fp32
+    encode (one per clip, iterate_batch) runs the fp32 K2 twice (conv_in,
+    conv_out) and the fp32 K3 once per residual unit (3 in each encoder
+    block); nothing else."""
     depth = config["model"]["diffusion"]["config"]["depth"]
     n_units = 3 * len(config["model"]["pretransform"]["config"]["encoder"]["config"]["c_mults"])
     calls = encode_calls(config)
     fwd, bwd = {"pair": ("fused_qkv_rope_attention_stats", "fused_qkv_rope_attention_backward"),
                 "flash": ("flash_forward", "flash_backward")}[route]
     per_step = {name: 0 for name in KERNELS}
-    per_step.update({fwd: 2 * depth, bwd: depth, "snake_conv1d": 2 * calls,
-                     "fused_residual_unit": n_units * calls})
+    per_step.update({fwd: 2 * depth, bwd: depth, "snake_conv1d_f32": 2 * calls,
+                     "fused_residual_unit_f32": n_units * calls})
     return per_step
 
 
@@ -1195,35 +1357,135 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
     return launches
 
 
-def main():
+def bench_recipe(model):
+    """bench.py's bf16 recipe (bench.py:67, 157-159): the DiT's and the
+    VAE's weights in bf16, the VAE computing in bf16 (`model_half`). The
+    CLIs run the model's own fp32 instead."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    model.model.to(torch.bfloat16)
+    model.pretransform.to(torch.bfloat16)
+    model.pretransform.model_half = True
 
-    import numpy as np
 
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
+def sa1_unet_forward_phase(model):
+    """[4c] One forward of SA 1.0's fp32 U-Net at 4096 latent frames with
+    CFG (batch 2), through the kernels (K7 without its LSE at T 4096, 2048
+    and 1024) and through their plain versions; same weights and inputs."""
+    import torch
 
-    clock = {"run": time.perf_counter(), "phase": time.perf_counter()}
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner([SA1_PROMPT], device=DEVICE))
+        x = torch.randn(1, SA1_SAMPLE_SIZE // 1024, model.io_channels, generator=g, device=DEVICE)
+        t = torch.full((1,), 0.6, device=DEVICE)
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out_k = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+        torch.cuda.synchronize()
+        wall_k = time.perf_counter() - start
+        counts = read_counts()
+        with plain_kernels():
+            start = time.perf_counter()
+            out_p = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - start
+    err = rel_err(out_k, out_p)
+    log(f"  SA 1.0 U-Net forward {list(x.shape)} with CFG, fp32: kernels vs plain rel-L2 {err:.3g} "
+        f"(tol {FP32_MODEL_RTOL}); wall kernels {wall_k:.4f} s, plain {wall_p:.4f} s; "
+        f"launches {counts}")
+    want = {name: 0 for name in KERNELS}
+    want["flash_forward_serving"] = 14
+    if not (torch.isfinite(out_k).all() and err <= FP32_MODEL_RTOL):
+        raise AssertionError("the SA 1.0 U-Net with the kernels disagrees with the plain versions")
+    if counts != want:
+        raise AssertionError(f"one SA 1.0 U-Net forward should launch {want}: {counts}")
 
-    def done(label):
-        now = time.perf_counter()
-        log(f"  {label} wall {now - clock['phase']:.1f} s (run so far {now - clock['run']:.1f} s)")
-        clock["phase"] = now
 
-    smi = smi_line()
-    log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+def cli_generation_phase(config_path, prompt, expected):
+    """The generate CLI (`generate.main`) on `config_path` for one prompt:
+    100 dpmpp-3m-sde steps, CFG 7, the model in its own fp32, random weights
+    (seed 0), one WAV written under build/. Times the conditioners, the
+    decode and the whole `generate_diffusion_cond` call, each between two
+    synchronisations; every launch count is set to 0 just before and read
+    just after, and must equal `expected` (kernels not named: 0)."""
+    import wave
 
-    t0 = time.perf_counter()
-    build.library()
-    log(f"[2] built {build.build().name} in {time.perf_counter() - t0:.1f} s")
-    done("[1]-[2]")
+    import torch
+    import yaml
 
+    from friendly_stable_audio_tools_tpu_torch import generate
+    from friendly_stable_audio_tools_tpu_torch.inference import generation
+    from friendly_stable_audio_tools_tpu_torch.models.conditioners import MultiConditioner
+    from friendly_stable_audio_tools_tpu_torch.models.pretransforms import AutoencoderPretransform
+
+    config = json.loads(Path(config_path).read_text())
+    times, outputs = {}, []
+
+    def timer(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - start
+            if key == "total":
+                outputs.append(out)
+            return out
+        return wrapper
+
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        prompts = Path(tmp) / "prompts.yaml"
+        prompts.write_text(yaml.safe_dump({"smoke": {"p0": prompt}}))
+        args = ["--model-config", str(config_path), "--cond-yaml-path", str(prompts),
+                "--output-dir", str(Path(tmp) / "out"), "--sample-steps", str(STEPS),
+                "--cfg-scale", str(CFG_SCALE), "--seed", "42", "--batch-size", "2"]
+        with patched([(generation, "generate_diffusion_cond",
+                       timer(generation.generate_diffusion_cond, "total")),
+                      (MultiConditioner, "forward", timer(MultiConditioner.forward, "cond")),
+                      (AutoencoderPretransform, "decode_nwc",
+                       timer(AutoencoderPretransform.decode_nwc, "decode"))]):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            start = time.perf_counter()
+            generate.main(args)
+            cli_wall = time.perf_counter() - start
+            launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wavs = sorted(Path(tmp).rglob("*.wav"))
+        with wave.open(str(wavs[0])) as f:
+            wav_shape = (f.getnchannels(), f.getnframes())
+    audio = outputs[0]
+    n = config["sample_size"]
+    seconds = n / config["sample_rate"]
+    total, cond, decode = times["total"], times["cond"], times["decode"]
+    denoise = total - cond - decode
+    rms = audio.float().square().mean().sqrt().item()
+    log(f"  card: {smi_line()}")
+    log(f"  audio {list(audio.shape)} {audio.dtype} finite {bool(torch.isfinite(audio).all())} "
+        f"rms {rms:.4g}; WAV {len(wavs)} file(s), channels x frames {wav_shape}")
+    log(f"  wall: conditioners {cond:.4f} s, denoise {denoise:.4f} s ({denoise / STEPS * 1e3:.3f} "
+        f"ms/step), decode {decode:.4f} s, generate_diffusion_cond {total:.4f} s = "
+        f"{seconds / total:.3f} s-audio/s ({seconds:.2f} s of audio); the CLI incl. model build "
+        f"{cli_wall:.1f} s; peak memory {peak:.2f} GiB")
+    log(f"  launches {launches}")
+    want = {name: 0 for name in KERNELS}
+    want.update(expected)
+    if (tuple(audio.shape) != (1, 2, n) or not torch.isfinite(audio).all() or rms <= 0
+            or len(wavs) != 1 or wav_shape != (2, n)):
+        raise AssertionError(f"the CLI's output is not finite [1, 2, {n}] audio in one WAV")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} are not the main path's {want}")
+    return launches
+
+
+def new_results():
+    """The per-kernel results, keyed by kernel: where it comes from, what
+    its times are per (`per`), and each main-path shape's weight (calls per
+    `per`); the phases add their numbers."""
     src = "friendly_stable_audio_tools_tpu_torch/csrc/"
     tpu = "friendly_stable_audio_tools_tpu/ops/pallas/"
     # what `ms` and the other times of each kernel's entry are per
@@ -1255,12 +1517,24 @@ def main():
                                     replaces=tpu + "conv1d.py:507", per="SA 2.0 decode (15 calls)"),
         "snake_conv_transpose1d": dict(route="cuda", source=src + "conv1d.cu",
                                        replaces=tpu + "conv1d.py:262", per="SA 2.0 decode (5 calls)"),
+        "flash_forward_serving": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:230",
+            per="SA 1.0 U-Net forward (14 calls at B2 x H16: 2 at T4096 D64, 6 at T2048 D64, 6 at "
+                "T1024 D80)"),
+        "snake_conv1d_f32": dict(route="cuda", source=src + "conv1d.cu",
+                                 replaces=tpu + "conv1d.py:91", per="SA 1.0 DAC decode (26 calls)"),
+        "fused_residual_unit_f32": dict(route="cuda", source=src + "conv1d_f32.cu",
+                                        replaces=tpu + "conv1d.py:507",
+                                        per="SAO 1.0 fp32 decode (15 calls)"),
+        "snake_conv_transpose1d_f32": dict(route="cuda", source=src + "conv1d_f32.cu",
+                                           replaces=tpu + "conv1d.py:262",
+                                           per="SA 1.0 DAC decode (4 calls)"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
-    # extra fields: sao_decode_ms (K2-K4 per SAO 1.0 decode), encode_ms and
-    # sa2_encode_ms (K2 and K3 per SAO 1.0 and SA 2.0 training step's
-    # encode), each with its plain_, bound_ and library_ times
+    # extra fields: sao_decode_ms and sa2_decode_ms (K2-K4 per SAO 1.0 and SA
+    # 2.0 decode), encode_ms and sa2_encode_ms (K2 and K3 per SAO 1.0 and SA
+    # 2.0 training step's encode), each with its plain_, bound_ and library_ times
     results["fused_qkv_rope_attention"]["weight"] = {"B2 T1025 H24 kv_len None": 24}
     train_label = f"B{TRAIN_BATCH} T{TRAIN_T} H24 kv_len {TRAIN_KV}"
     results["fused_qkv_rope_attention_stats"]["weight"] = {train_label: 2 * 24}
@@ -1271,8 +1545,42 @@ def main():
     flash_label = f"B{TRAIN_BATCH} T{LONG_T} H24 kv_len {LONG_KV}"
     results["flash_forward"]["weight"] = {flash_label: 2 * 24}
     results["flash_backward"]["weight"] = {flash_label: 24}
+    return results
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import numpy as np
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
+
+    clock = {"run": time.perf_counter(), "phase": time.perf_counter()}
+
+    def done(label):
+        now = time.perf_counter()
+        log(f"  {label} wall {now - clock['phase']:.1f} s (run so far {now - clock['run']:.1f} s)")
+        clock["phase"] = now
+
+    smi = smi_line()
+    log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    build.library()
+    log(f"[2] built {build.build().name} in {time.perf_counter() - t0:.1f} s")
+    done("[1]-[2]")
+
+    results = new_results()
     config = json.loads(SAO_CONFIG.read_text())
     sa2_config = json.loads(SA2_CONFIG.read_text())
+    sa1_config = json.loads(SA1_CONFIG.read_text())
 
     log("[3] kernels vs plain versions (bf16, tolerance = (rel-L2, max-abs / max|plain|))")
     kernel_phase(results)
@@ -1291,15 +1599,35 @@ def main():
     log("[3e] fp32 training attention kernels K7 and K9 vs plain versions")
     flash_phase(results)
     done("[3e]")
+    log("[3f] fp32 kernels vs their fp32 plain versions: K2/K3/K4 at the Oobleck decode and encode "
+        "shapes and the DAC decode's, K7 without its LSE at the ADP U-Net's")
+    decode_conv_phase(results, torch.float32,
+                      {"sa2": "sa2_decode_ms", "sao": "sao_decode_ms", "sao_ru": "ms"})
+    encoder_conv_phase(results, config, "encode_ms", torch.float32)
+    encoder_conv_phase(results, sa2_config, "sa2_encode_ms", torch.float32)
+    dac_conv_phase(results)
+    flash_serving_phase(results)
+    done("[3f]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
     audio_in = torch.from_numpy(np.stack([synthetic_audio(i, SAMPLE_SIZE).T for i in range(2)]))
     audio_in = audio_in.cuda()
+    z_small = torch.randn(1, 64, 64, generator=torch.Generator(device=DEVICE).manual_seed(3),
+                          device=DEVICE)
     with plain_kernels():
         z32 = model.pretransform.encode_nwc(audio_in)  # fp32 VAE, plain versions
-    model.model.to(torch.bfloat16)
-    model.pretransform.to(torch.bfloat16)
+        dec32_p = model.pretransform.decode_nwc(z_small)
+    zk32 = model.pretransform.encode_nwc(audio_in)  # fp32 VAE, the fp32 kernels
+    dec32_k = model.pretransform.decode_nwc(z_small)
+    enc32_rel, dec32_rel = rel_err(zk32, z32), rel_err(dec32_k, dec32_p)
+    log(f"  fp32 VAE encode {list(audio_in.shape)} -> {list(zk32.shape)} and decode [1, 64, 64] with "
+        f"the fp32 kernels against the fp32 plain versions: rel-L2 {enc32_rel:.4g} and "
+        f"{dec32_rel:.4g} (tol {FP32_MODEL_RTOL})")
+    if not (enc32_rel <= FP32_MODEL_RTOL and dec32_rel <= FP32_MODEL_RTOL):
+        raise AssertionError("the fp32 VAE with the kernels disagrees with the plain versions")
+    del zk32, dec32_k, dec32_p
+    bench_recipe(model)
     zk = model.pretransform.encode_nwc(audio_in)
     enc_rel = rel_err(zk, z32)
     log(f"  VAE encode {list(audio_in.shape)} -> {list(zk.shape)}: bf16 with the kernels against fp32 "
@@ -1308,20 +1636,21 @@ def main():
     del audio_in, z32, zk
     dit_forward_phase(model, SAMPLE_SIZE // 2048, PROMPT, "SAO 1.0")
     with torch.no_grad():
-        z = torch.randn(1, 64, 64, generator=torch.Generator(device=DEVICE).manual_seed(3),
-                        device=DEVICE)
-        dec_k = model.pretransform.decode_nwc(z)
+        dec_k = model.pretransform.decode_nwc(z_small)
         with plain_kernels():
-            dec_p = model.pretransform.decode_nwc(z)
+            dec_p = model.pretransform.decode_nwc(z_small)
     dec_rel = rel_err(dec_k, dec_p)
     log(f"  VAE decode [1, 64, 64] -> {list(dec_k.shape)}: rel-L2 {dec_rel:.3g} (bound {DECODE_REL_TOL})")
     if not (dec_rel <= DECODE_REL_TOL and enc_rel <= ENCODE_REL_TOL):
         raise AssertionError("the VAE with the kernels disagrees with the plain versions")
     done("[4]")
 
-    log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7")
+    log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7, bench.py's "
+        "bf16 recipe")
     no_training = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
-                   "flash_forward": 0, "flash_backward": 0}
+                   "flash_forward": 0, "flash_backward": 0, "flash_forward_serving": 0,
+                   "snake_conv1d_f32": 0, "fused_residual_unit_f32": 0,
+                   "snake_conv_transpose1d_f32": 0}
     launches = generation_phase(
         model, config, PROMPT, SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 0, "pair_long_attention": 0,
@@ -1351,12 +1680,11 @@ def main():
 
     log("[4b] SA 2.0's DiT at 6144 latent frames: kernels vs plain versions")
     model = build_model(sa2_config)
-    model.model.to(torch.bfloat16)
-    model.pretransform.to(torch.bfloat16)
+    bench_recipe(model)
     dit_forward_phase(model, SA2_SAMPLE_SIZE // 2048, SA2_PROMPT, "SA 2.0")
     done("[4b]")
     log(f"[8] long-form path: SA 2.0 text-to-audio, {SA2_SAMPLE_SIZE} samples, 100 dpmpp-3m-sde "
-        f"steps, CFG 7")
+        f"steps, CFG 7, bench.py's bf16 recipe")
     launches_long = generation_phase(
         model, sa2_config, SA2_PROMPT, SA2_SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 0, "rope_pair_k": 24 * STEPS,
@@ -1378,8 +1706,30 @@ def main():
         counts_long = longform_training_phase(sa2_config, tmp, sa2_dit_path)
     done("[9]")
 
+    log("[4c] SA 1.0's U-Net at 4096 latent frames: kernels vs plain versions, fp32")
+    model = build_model(sa1_config)
+    sa1_unet_forward_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    done("[4c]")
+    log(f"[10] SA 1.0 path: the generate CLI on stable_audio_1_0.json, {SA1_SAMPLE_SIZE} samples, "
+        f"{STEPS} dpmpp-3m-sde steps, CFG {CFG_SCALE}, fp32")
+    launches_sa1 = cli_generation_phase(
+        SA1_CONFIG, SA1_PROMPT, {"flash_forward_serving": 14 * STEPS, "snake_conv1d_f32": 26,
+                                 "snake_conv_transpose1d_f32": 4})
+    torch.cuda.empty_cache()
+    done("[10]")
+    log(f"[10b] the repaired dtype: the generate CLI on stable_audio_open_1_0.json in fp32 (K1 on "
+        f"bf16 casts of the fp32 qkv, the fp32 K2/K3/K4 in the decode)")
+    launches_fp32 = cli_generation_phase(
+        SAO_CONFIG, PROMPT, {"fused_qkv_rope_attention": 24 * STEPS, "snake_conv1d_f32": 2,
+                             "fused_residual_unit_f32": 15, "snake_conv_transpose1d_f32": 5})
+    torch.cuda.empty_cache()
+    done("[10b]")
+
     by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
-               "train_resume": counts_resume, "train_long": counts_long}
+               "train_resume": counts_resume, "train_long": counts_long,
+               "generate_sa1": launches_sa1, "generate_fp32": launches_fp32}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -1388,7 +1738,7 @@ def main():
                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
                    launches_by_path={p: c[name] for p, c in by_path.items()})
-        for f in ("sao_decode_ms", "encode_ms", "sa2_encode_ms"):
+        for f in ("sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
         return out

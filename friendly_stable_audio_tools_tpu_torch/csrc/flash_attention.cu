@@ -1,13 +1,16 @@
-// K7 and K9: head-split attention on [B*H, T, 64] tensors, forward with the
+// K7 and K9: head-split attention on [B*H, T, D] tensors, forward with the
 // base-2 log-sum-exp and its two-pass FlashAttention-2 backward, in fp32.
 // The training path of the DiT's self-attention beyond 1168 tokens (Stable
-// Audio 2.0: 6145 tokens padded to 6272, kv_len 6145) runs them, as the JAX
-// package's unpack branch does (flash_attention.py:1351-1389).
+// Audio 2.0: 6145 tokens padded to 6272, kv_len 6145) runs them at D 64, as
+// the JAX package's unpack branch does (flash_attention.py:1351-1389). The
+// ADP U-Net's self-attention at T >= 1024 (Stable Audio 1.0: T 4096 and 2048
+// at D 64, T 1024 at D 80) runs the forward without the log-sum-exp, as the
+// JAX package's ops/attention.py sends it to `flash_attention` (serving).
 //
 // K7 replaces `_flash_forward` (friendly_stable_audio_tools_tpu/ops/pallas/
-//   flash_attention.py:230, call :317) in its non-causal, no-rope,
-//   `save_stats` case: `_single_dot_kernel` (:121) with `_single_dot_core`
-//   (:93). Per head, with q' = q * log2(e)/8 (fp32, :127):
+//   flash_attention.py:230, call :317) in its non-causal, no-rope case, with
+//   or without `save_stats`: `_single_dot_kernel` (:121) with
+//   `_single_dot_core` (:93). Per head, with q' = q * log2(e)/sqrt(D) (fp32, :127):
 //     s = q' k^T, keys >= kv_len masked, m = rowmax(s), p = exp2(s - m),
 //     l = rowsum(p), out = (p v) / max(l, 1e-30), lse = m + log2(max(l, 1e-30)).
 //   The TPU kernel holds the whole K of a head in VMEM and takes one
@@ -35,50 +38,65 @@
 // FFMA rate: each thread owns an 8 x 4 tile of every product and reads its
 // operands as 16-byte vectors (3 shared loads per 32 FFMA), and the softmax
 // row reductions run over the 16 lanes that share a row.
+//
+// Head dim 80 (K7 only): the tiles' row stride becomes 84 floats (16-byte
+// rows; 84 = 20 mod 32, so the eight lanes of a quarter-warp still read
+// distinct banks), the score product runs 20 four-wide steps instead of 16,
+// and each thread's output tile gains one column (dims 64 + tx) beside its
+// four (4 tx ..), read as a scalar. Shared memory: 4 tiles of 64 x 84 fp32,
+// 86 KB per block.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kD = 64;        // head dim
+constexpr int kD = 64;        // head dim of K9
 constexpr int kT = 64;        // q rows of a q tile, keys of a key tile
 constexpr int kF = kD + 4;    // fp32 shared-memory row stride: 16-byte rows, no bank conflicts
 constexpr int kThreads = 128; // tx = tid % 16 (columns), ty = tid / 16 (8-row groups)
 constexpr size_t kTileBytes = (size_t)kT * kF * sizeof(float);
 
+template <int D>
+constexpr size_t tile_bytes() { return (size_t)kT * (D + 4) * sizeof(float); }
+
 __device__ __forceinline__ int tid_x() { return threadIdx.x & 15; }
 __device__ __forceinline__ int tid_y() { return threadIdx.x >> 4; }
 
-// dst[r][0:64] = scale * src[row0 + r][0:64] for rows below `rows`, else 0.
+// dst[r][0:D] = scale * src[row0 + r][0:D] for rows below `rows`, else 0
+// (dst row stride D + 4).
+template <int D = kD>
 __device__ __forceinline__ void load_tile(const float* __restrict__ src, int row0, int rows,
                                           float* __restrict__ dst, float scale) {
-  for (int i = threadIdx.x; i < kT * kD / 4; i += kThreads) {
-    const int r = i >> 4, c = (i & 15) * 4;
+  constexpr int kVec = D / 4;
+  for (int i = threadIdx.x; i < kT * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < rows) {
-      v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD + c);
+      v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
       v.x *= scale; v.y *= scale; v.z *= scale; v.w *= scale;
     }
-    *reinterpret_cast<float4*>(dst + r * kF + c) = v;
+    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = v;
   }
 }
 
-// acc[i][j] = sum_d A[8 ty + i][d] * B[tx + 16 j][d]  (A, B: [64][kF] tiles)
+// acc[i][j] = sum_d A[8 ty + i][d] * B[tx + 16 j][d]  (A, B: [64][D + 4] tiles)
+template <int D = kD>
 __device__ __forceinline__ void mm_abt(float (&acc)[8][4], const float* __restrict__ A,
                                        const float* __restrict__ B) {
-  const float* a = A + tid_y() * 8 * kF;
-  const float* b = B + tid_x() * kF;
+  constexpr int F = D + 4;
+  const float* a = A + tid_y() * 8 * F;
+  const float* b = B + tid_x() * F;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
-  for (int d = 0; d < kD; d += 4) {
+  for (int d = 0; d < D; d += 4) {
     float4 bv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * kF + d);
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * F + d);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float4 av = *reinterpret_cast<const float4*>(a + i * kF + d);
+      const float4 av = *reinterpret_cast<const float4*>(a + i * F + d);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
@@ -90,19 +108,20 @@ __device__ __forceinline__ void mm_abt(float (&acc)[8][4], const float* __restri
   }
 }
 
-// acc[i][u] += sum_c P[8 ty + i][c] * V[c][4 tx + u]  (P, V: [64][kF] tiles)
+// acc[i][u] += sum_c P[8 ty + i][c] * V[c][4 tx + u]  (P, V: [64][F] tiles)
+template <int F = kF>
 __device__ __forceinline__ void mm_ab_acc(float (&acc)[8][4], const float* __restrict__ P,
                                           const float* __restrict__ V) {
-  const float* p = P + tid_y() * 8 * kF;
+  const float* p = P + tid_y() * 8 * F;
   const float* v = V + tid_x() * 4;
 #pragma unroll 2
   for (int c = 0; c < kT; c += 4) {
     float4 vv[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) vv[u] = *reinterpret_cast<const float4*>(v + (c + u) * kF);
+    for (int u = 0; u < 4; ++u) vv[u] = *reinterpret_cast<const float4*>(v + (c + u) * F);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float4 pv = *reinterpret_cast<const float4*>(p + i * kF + c);
+      const float4 pv = *reinterpret_cast<const float4*>(p + i * F + c);
       const float w[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -111,6 +130,29 @@ __device__ __forceinline__ void mm_ab_acc(float (&acc)[8][4], const float* __res
         acc[i][2] = fmaf(w[u], vv[u].z, acc[i][2]);
         acc[i][3] = fmaf(w[u], vv[u].w, acc[i][3]);
       }
+    }
+  }
+}
+
+// acc[i] += sum_c P[8 ty + i][c] * V[c][64 + tx]: head dim 80's fifth
+// output column of each thread (P, V: [64][F] tiles).
+template <int F>
+__device__ __forceinline__ void mm_ab_acc_tail(float (&acc)[8], const float* __restrict__ P,
+                                               const float* __restrict__ V) {
+  const float* p = P + tid_y() * 8 * F;
+  const float* v = V + 64 + tid_x();
+#pragma unroll 2
+  for (int c = 0; c < kT; c += 4) {
+    float vv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) vv[u] = v[(c + u) * F];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 pv = *reinterpret_cast<const float4*>(p + i * F + c);
+      acc[i] = fmaf(pv.x, vv[0], acc[i]);
+      acc[i] = fmaf(pv.y, vv[1], acc[i]);
+      acc[i] = fmaf(pv.z, vv[2], acc[i]);
+      acc[i] = fmaf(pv.w, vv[3], acc[i]);
     }
   }
 }
@@ -141,26 +183,31 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][4], float* __re
   }
 }
 
-// K7: one block per (64-row q tile, head).
+// K7: one block per (64-row q tile, head); D is 64 or 80.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int T, int kv_len, float prescale) {
+  static_assert(D == 64 || D == 80, "K7 takes head dim 64 or 80");
+  constexpr int F = D + 4;
+  constexpr bool kTail = D == 80;  // dims 64..79: one more output column per thread
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // [64][kF] q' of this block's rows
-  float* Ks = Qs + kT * kF;     // [64][kF] the current key tile
-  float* Vs = Ks + kT * kF;     // [64][kF]
-  float* Ps = Vs + kT * kF;     // [64][kF] p of the current key tile
+  float* Qs = smem;            // [64][F] q' of this block's rows
+  float* Ks = Qs + kT * F;     // [64][F] the current key tile
+  float* Vs = Ks + kT * F;     // [64][F]
+  float* Ps = Vs + kT * F;     // [64][F] p of the current key tile (64 columns used)
   const int tx = tid_x(), ty = tid_y();
   const int q0 = blockIdx.x * kT;
-  const size_t head = (size_t)blockIdx.y * T * kD;
+  const size_t head = (size_t)blockIdx.y * T * D;
 
-  load_tile(q + head, q0, T, Qs, prescale);
-  float m[8], l[8], o[8][4], s[8][4];
+  load_tile<D>(q + head, q0, T, Qs, prescale);
+  float m[8], l[8], o[8][4], o_tail[8], s[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;  // this thread's share of the row sum, reduced at the end
+    o_tail[i] = 0.f;
 #pragma unroll
     for (int u = 0; u < 4; ++u) o[i][u] = 0.f;
   }
@@ -169,10 +216,10 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();  // Qs written; the previous tile's readers of Ks, Vs, Ps are done
-    load_tile(k + head, k0, T, Ks, 1.f);
-    load_tile(v + head, k0, T, Vs, 1.f);
+    load_tile<D>(k + head, k0, T, Ks, 1.f);
+    load_tile<D>(v + head, k0, T, Vs, 1.f);
     __syncthreads();
-    mm_abt(s, Qs, Ks);
+    mm_abt<D>(s, Qs, Ks);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       float mx = -INFINITY;
@@ -190,14 +237,16 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = exp2f(s[i][j] - m_new);
         sum += p;
-        Ps[(ty * 8 + i) * kF + tx + 16 * j] = p;
+        Ps[(ty * 8 + i) * F + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + sum;
 #pragma unroll
       for (int u = 0; u < 4; ++u) o[i][u] *= alpha;
+      if (kTail) o_tail[i] *= alpha;
     }
     __syncthreads();
-    mm_ab_acc(o, Ps, Vs);
+    mm_ab_acc<F>(o, Ps, Vs);
+    if (kTail) mm_ab_acc_tail<F>(o_tail, Ps, Vs);
   }
 
 #pragma unroll
@@ -205,11 +254,25 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float li = fmaxf(row_sum(l[i]), 1e-30f);
     const int r = q0 + ty * 8 + i;
     if (r < T) {
-      *reinterpret_cast<float4*>(out + head + (size_t)r * kD + tx * 4) =
+      float* row = out + head + (size_t)r * D;
+      *reinterpret_cast<float4*>(row + tx * 4) =
           make_float4(o[i][0] / li, o[i][1] / li, o[i][2] / li, o[i][3] / li);
+      if (kTail) row[64 + tx] = o_tail[i] / li;
       if (lse != nullptr && tx == 0) lse[(size_t)blockIdx.y * T + r] = m[i] + log2f(li);
     }
   }
+}
+
+template <int D>
+int launch_flash_forward(const float* q, const float* k, const float* v, float* out, float* lse,
+                         int BH, int T, int kv_len, float prescale, cudaStream_t stream) {
+  const size_t smem = 4 * tile_bytes<D>();
+  cudaError_t err = allow_smem(flash_forward_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + kT - 1) / kT, BH);
+  flash_forward_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, T, kv_len,
+                                                             prescale);
+  return (int)cudaGetLastError();
 }
 
 // K9, dq pass: one block per (64-row q tile, head), looping over key tiles.
@@ -334,18 +397,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-// K7: q, k, v [BH, T, 64] fp32 contiguous -> out [BH, T, 64] fp32 and, when
-// lse is not null, lse [BH, T] fp32 (base 2). prescale = log2(e)/sqrt(64).
+// K7: q, k, v [BH, T, D] fp32 contiguous, D 64 or 80 -> out [BH, T, D] fp32
+// and, when lse is not null, lse [BH, T] fp32 (base 2). prescale =
+// log2(e)/sqrt(D). Returns cudaErrorInvalidValue for another D.
 extern "C" int fsat_flash_forward(const float* q, const float* k, const float* v, float* out,
-                                  float* lse, int BH, int T, int kv_len, float prescale,
+                                  float* lse, int BH, int T, int kv_len, int D, float prescale,
                                   void* stream) {
-  const size_t smem = 4 * kTileBytes;
-  cudaError_t err = allow_smem(flash_forward_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kT - 1) / kT, BH);
-  flash_forward_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(q, k, v, out, lse, T,
-                                                                      kv_len, prescale);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64) return launch_flash_forward<64>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
+  if (D == 80) return launch_flash_forward<80>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K9: q, k, v, out's dO [BH, T, 64] fp32, lse/delta [BH, T] fp32 -> dq, dk,

@@ -8,12 +8,18 @@ repository's generate.py, without its int8 options).
 The YAML file nests prompts to any depth; each leaf is one condition dict
 (`prompt`, `seconds_start`, `seconds_total`). Work is split across
 processes as `[rank::world_size]` from the RANK / WORLD_SIZE environment
-variables. `--device cuda` (the default) runs the DiT and the VAE decoder in
-bf16 through the port's kernels and raises when there is no CUDA device;
-`--device cpu` runs them in fp32 through the kernels' plain versions.
-Without `--ckpt-path` the weights are random, drawn from seed 0. Long-form
-Stable Audio 2.0 (285 s) is the same command with
-`--model-config friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio/stable_audio_2_0.json`.
+variables. The model runs in its own dtype, as the JAX CLI runs it: fp32
+(the VAE in bf16 only where the config sets `model_half`), with TF32 off for
+matrix products and convolutions, so plain fp32 layers compute in fp32.
+`--device cuda` (the default) runs it through the port's kernels (the bf16
+attention kernels K1/K10 cast an fp32 input to bf16 inside and return fp32,
+as the JAX package's do) and raises when there is no CUDA device;
+`--device cpu` runs it through the kernels' plain versions. Without
+`--ckpt-path` the weights are random, drawn from seed 0. Long-form Stable
+Audio 2.0 (285 s) is the same command with
+`--model-config friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio/stable_audio_2_0.json`,
+and Stable Audio 1.0 (95.1 s; ADP U-Net, DAC VAE) with
+`--model-config friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio/stable_audio_1_0.json`.
 """
 
 from __future__ import annotations
@@ -86,6 +92,9 @@ def main(argv=None):
     from .utils.common import resolve_device
 
     device = resolve_device(args.device, "--device cpu")
+    # fp32 products and convolutions in fp32, as the JAX package computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if not args.model_config:
         raise SystemExit("pretrained downloads are not available to the torch port: "
                          "pass --model-config (and --ckpt-path for trained weights)")
@@ -97,9 +106,6 @@ def main(argv=None):
     model = create_model_from_config(model_config, device=device)
     if args.ckpt_path:
         model.load_state_dict(torch.load(args.ckpt_path, map_location=device, weights_only=True))
-    if device.type == "cuda":
-        model.model.to(torch.bfloat16)
-        model.pretransform.to(torch.bfloat16)
 
     sample_rate = model_config["sample_rate"]
     sample_size = model_config["sample_size"]

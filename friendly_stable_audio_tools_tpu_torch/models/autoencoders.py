@@ -7,7 +7,11 @@ conv_out through K2 (snake_conv1d), each upsample through K4
 K2 for conv_in and conv_out and K3 for its residual units; its strided
 downsamples are the plain reshape-GEMM form (ops/convs.py), as the JAX
 package leaves them to XLA. The kernels have no backward: the VAE runs under
-torch.no_grad() on the card. Channels-last [B, T, C].
+torch.no_grad() on the card. Channels-last [B, T, C]. The encoder and
+decoder run in the dtype of their input (the pretransform casts it, as the
+JAX package's does, models/pretransforms.py:80-81); their parameters stay
+fp32, as the JAX package's do. The `dac` encoder and decoder types are in
+models/dac_codec.py.
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ class OobleckEncoder(nn.Module):
         self.conv_out = WNConv1d(c_mults[-1] * channels, latent_dim, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_in(x.to(self.conv_in.v.dtype))
+        x = self.conv_in(x)
         for block in self.blocks:
             x = block(x)
         return self.conv_out(x, snake=self.act_out.effective())
@@ -120,7 +124,7 @@ class OobleckDecoder(nn.Module):
         self.conv_out = WNConv1d(c_mults[0] * channels, out_channels, 7, use_bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_in(x.to(self.conv_in.v.dtype))
+        x = self.conv_in(x)
         for block in self.blocks:
             x = block(x)
         x = self.conv_out(x, snake=self.act_out.effective())
@@ -130,7 +134,7 @@ class OobleckDecoder(nn.Module):
 class AudioAutoencoder(nn.Module):
     """The VAE wrapper: encoder -> bottleneck encode, bottleneck decode -> decoder."""
 
-    def __init__(self, encoder: tp.Optional[OobleckEncoder], decoder: OobleckDecoder,
+    def __init__(self, encoder: tp.Optional[nn.Module], decoder: nn.Module,
                  bottleneck: tp.Optional[nn.Module], downsampling_ratio: int):
         super().__init__()
         self.encoder = encoder
@@ -153,17 +157,37 @@ class AudioAutoencoder(nn.Module):
         return self.decoder(z)
 
 
-def create_autoencoder_from_config(ae: tp.Dict[str, tp.Any]) -> AudioAutoencoder:
-    """An autoencoder's `model` config (JAX :675): Oobleck encoder (when
-    given) and decoder, and the bottleneck."""
-    for part in ("encoder", "decoder"):
-        if part in ae and ae[part]["type"] != "oobleck":
-            raise NotImplementedError(f"{part} type {ae[part]['type']!r} is not in the torch port")
-    cfg = dict(ae["decoder"].get("config", {}))
+def create_encoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
+    """The `oobleck` and `dac` encoder types of the JAX factory (:632)."""
+    kind, cfg = config["type"], dict(config.get("config", {}))
+    if kind == "oobleck":
+        return OobleckEncoder(**cfg)
+    if kind == "dac":
+        from .dac_codec import DACEncoderWrapper
+
+        return DACEncoderWrapper(**cfg)
+    raise NotImplementedError(f"encoder type {kind!r} is not in the torch port")
+
+
+def create_decoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
+    """The `oobleck` and `dac` decoder types of the JAX factory (:654)."""
+    kind, cfg = config["type"], dict(config.get("config", {}))
     cfg.pop("soft_clip", None)
+    if kind == "oobleck":
+        return OobleckDecoder(**cfg)
+    if kind == "dac":
+        from .dac_codec import DACDecoderWrapper
+
+        return DACDecoderWrapper(**cfg)
+    raise NotImplementedError(f"decoder type {kind!r} is not in the torch port")
+
+
+def create_autoencoder_from_config(ae: tp.Dict[str, tp.Any]) -> AudioAutoencoder:
+    """An autoencoder's `model` config (JAX :675): encoder (when given) and
+    decoder, and the bottleneck."""
     bottleneck = ae.get("bottleneck")
     return AudioAutoencoder(
-        encoder=OobleckEncoder(**ae["encoder"].get("config", {})) if "encoder" in ae else None,
-        decoder=OobleckDecoder(**cfg),
+        encoder=create_encoder_from_config(ae["encoder"]) if "encoder" in ae else None,
+        decoder=create_decoder_from_config(ae["decoder"]),
         bottleneck=create_bottleneck_from_config(bottleneck) if bottleneck else None,
         downsampling_ratio=ae["downsampling_ratio"])

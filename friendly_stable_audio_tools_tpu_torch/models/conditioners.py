@@ -273,6 +273,22 @@ class CLAPTextConditioner(nn.Module):
         return h, mask
 
 
+class IntConditioner(nn.Module):
+    """Ints -> clamp to [min_val, max_val] -> offset -> embedding table
+    [B, 1, dim] + all-ones mask (JAX conditioners.py:263-287)."""
+
+    def __init__(self, output_dim: int, min_val: int = 0, max_val: int = 512):
+        super().__init__()
+        self.min_val, self.max_val = int(min_val), int(max_val)
+        self.embed = nn.Module()
+        self.embed.int_embedder = nn.Embedding(self.max_val - self.min_val + 1, output_dim)
+
+    def forward(self, ints: tp.Sequence[int], device=None):
+        arr = np.clip(np.asarray([int(i) for i in ints], np.int64), self.min_val, self.max_val)
+        e = self.embed.int_embedder(torch.as_tensor(arr - self.min_val, device=device))[:, None, :]
+        return e, torch.ones(e.shape[:2], dtype=torch.bool, device=e.device)
+
+
 class MultiConditioner(nn.Module):
     """Keyed dispatch over conditioners with default-key aliasing."""
 
@@ -298,8 +314,8 @@ class MultiConditioner(nn.Module):
 
 
 def create_multi_conditioner_from_conditioning_config(config: tp.Dict[str, tp.Any]):
-    """The `t5`, `clap_text` and `number` conditioner types of the JAX factory
-    (conditioners.py:725); other types raise NotImplementedError."""
+    """The `t5`, `clap_text`, `int` and `number` conditioner types of the JAX
+    factory (conditioners.py:725); other types raise NotImplementedError."""
     conditioners = {}
     for info in config["configs"]:
         kwargs = {"output_dim": config["cond_dim"], **info["config"]}
@@ -307,6 +323,8 @@ def create_multi_conditioner_from_conditioning_config(config: tp.Dict[str, tp.An
             conditioners[info["id"]] = T5Conditioner(**kwargs)
         elif info["type"] == "clap_text":
             conditioners[info["id"]] = CLAPTextConditioner(**kwargs)
+        elif info["type"] == "int":
+            conditioners[info["id"]] = IntConditioner(**kwargs)
         elif info["type"] == "number":
             conditioners[info["id"]] = NumberConditioner(**kwargs)
         else:

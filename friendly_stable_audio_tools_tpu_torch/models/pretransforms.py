@@ -16,19 +16,30 @@ from .autoencoders import AudioAutoencoder, create_autoencoder_from_config
 class AutoencoderPretransform(nn.Module):
     """Latent scale + frozen VAE (JAX pretransforms.py:56, encode_nwc :83, decode_nwc :94).
 
+    The VAE runs in fp32, or in bf16 when `model_half` is set: its input is
+    cast (JAX `_dtype`, :80-81) and every layer computes in its input's
+    dtype, the parameters staying fp32. None of the txt2audio configs sets
+    `model_half`, so the reference encodes and decodes in fp32.
+
     `iterate_batch` micro-batches the encode and the decode to bound their
     memory, as the JAX autoencoder's `encode`/`decode` do
     (autoencoders.py:309-318, :357-362): True runs one sample at a time, an
     int that many; False the whole batch. Every layer of the VAE is
     per-sample, so the result does not depend on it."""
 
-    def __init__(self, model: AudioAutoencoder, scale: float = 1.0,
+    def __init__(self, model: AudioAutoencoder, scale: float = 1.0, model_half: bool = False,
                  iterate_batch: tp.Union[bool, int] = False):
         super().__init__()
         self.model = model
         self.scale = scale
+        self.model_half = model_half
         self.iterate_batch = iterate_batch
         self.downsampling_ratio = model.downsampling_ratio
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the VAE computes in."""
+        return torch.bfloat16 if self.model_half else torch.float32
 
     def _batched(self, fn, x: torch.Tensor) -> torch.Tensor:
         n = int(self.iterate_batch)
@@ -39,14 +50,16 @@ class AutoencoderPretransform(nn.Module):
     @torch.no_grad()
     def encode_nwc(self, x: torch.Tensor) -> torch.Tensor:
         """audio [B, T, C] -> latents [B, T / ratio, latent_dim] / scale, fp32;
-        the encoder runs in the dtype of its parameters."""
-        return self._batched(lambda xb: self.model.encode_nwc(xb).float(), x) / self.scale
+        the encoder runs in `dtype`."""
+        return self._batched(lambda xb: self.model.encode_nwc(xb.to(self.dtype)).float(),
+                             x) / self.scale
 
     @torch.no_grad()
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, L, C] latents -> audio [B, T, io_channels], fp32; the
-        decoder runs in the dtype of its parameters."""
-        return self._batched(lambda zb: self.model.decode_nwc(zb).float(), z * self.scale)
+        decoder runs in `dtype`."""
+        return self._batched(lambda zb: self.model.decode_nwc(zb.to(self.dtype)).float(),
+                             z * self.scale)
 
 
 def create_pretransform_from_config(config: tp.Dict[str, tp.Any]) -> AutoencoderPretransform:
@@ -56,4 +69,5 @@ def create_pretransform_from_config(config: tp.Dict[str, tp.Any]) -> Autoencoder
         raise NotImplementedError("chunked decoding is not in the torch port")
     autoencoder = create_autoencoder_from_config(config["config"])
     return AutoencoderPretransform(autoencoder, scale=config.get("scale", 1.0),
+                                   model_half=config.get("model_half", False),
                                    iterate_batch=config.get("iterate_batch", False))

@@ -65,10 +65,16 @@ K1's streaming kernel reading keys already roped, and K10a (memory bound, 2 x
 buffer, where K1 would rope each key tile again for each of the 98 q tiles.
 
 The plain versions below run for CPU tensors (the CPU tests); CUDA tensors
-launch the kernels or raise. The pair kernels take bf16: their autograd
-binding casts an fp32 qkv to bf16 and its gradient back, where the JAX pair
-training path casts (flash_attention.py:990-992, 1128); the unpack route
-keeps the input dtype, as the JAX one does.
+launch the kernels or raise. The pair kernels take bf16. Without grad, the
+inference entry points (:func:`fused_qkv_rope_attention`,
+:func:`fused_qkv_rope_attention_long`) cast an fp32 qkv to bf16 on the way
+into K1 or K10a/K10 and the output back to fp32 (:func:`kernel_input`), as
+the JAX functions do (flash_attention.py:851-853, :1262-1264, :1314); on
+the CPU they compute in the input dtype, as the JAX package's CPU path
+(XLA, :784) does. Under grad, the pair kernels' autograd binding casts an
+fp32 qkv to bf16 and its gradient back, where the JAX pair training path
+casts (flash_attention.py:990-992, 1128); the unpack route keeps the input
+dtype, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -94,6 +100,12 @@ PAIR_MAX_T = 2048  # K1's limit (flash_attention.py:1413)
 LONG_MAX_T = 8192  # K10's limit (SINGLE_DOT_MAX_TK, flash_attention.py:55)
 # fp32 score bytes one chunk of heads of the long plain version may hold
 LONG_PLAIN_SCORE_BYTES = 1 << 30
+
+
+def kernel_input(qkv: torch.Tensor) -> torch.Tensor:
+    """What K1 and K10a/K10 read: qkv in bf16 (the JAX kernels cast an fp32
+    qkv to bf16 inside and return the input dtype)."""
+    return qkv.to(torch.bfloat16)
 
 
 def attention_route(t: int) -> str:
@@ -384,8 +396,11 @@ def pair_long_attention(qkv: torch.Tensor, khat: torch.Tensor, freqs: torch.Tens
 
 def fused_qkv_rope_attention_long(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
                                   kv_len: tp.Optional[int] = None) -> torch.Tensor:
-    """The long-sequence inference path (``_pair_long_forward``): K10a, then K10."""
-    return pair_long_attention(qkv, rope_pair_k(qkv, freqs, num_heads), freqs, num_heads, kv_len)
+    """The long-sequence inference path (``_pair_long_forward``): K10a, then
+    K10, on :func:`kernel_input` of qkv for a CUDA tensor; out in qkv's dtype."""
+    x = qkv if qkv.device.type == "cpu" else kernel_input(qkv)
+    out = pair_long_attention(x, rope_pair_k(x, freqs, num_heads), freqs, num_heads, kv_len)
+    return out.to(qkv.dtype)
 
 
 class FusedQKVRopeAttention(torch.autograd.Function):
@@ -477,6 +492,6 @@ def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: 
             f"fused_qkv_rope_attention: without grad, T = {t} > {LONG_MAX_T} takes K7 in the input "
             f"dtype through its online softmax (flash_attention.py:_online_kernel), which the "
             f"torch port has not wired")
-    out, _ = _launch_forward(qkv, freqs, num_heads, valid, with_lse=False)
+    out, _ = _launch_forward(kernel_input(qkv), freqs, num_heads, valid, with_lse=False)
     launches += 1
-    return out
+    return out.to(qkv.dtype)

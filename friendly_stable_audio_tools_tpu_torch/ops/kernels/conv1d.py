@@ -16,6 +16,13 @@ Numerics of both paths follow the Pallas kernels they replace
 (friendly_stable_audio_tools_tpu/ops/pallas/conv1d.py): snake in fp32 with
 the polynomial sin^2 (:37-57), rounded to the model dtype before the
 products (:67-70), fp32 accumulation, bias in fp32, one rounding at the end.
+The kernels dispatch on the activation dtype as the Pallas kernels compute
+in it: bf16 activations run the bf16 kernels; fp32 activations (an fp32
+model, which is what the reference runs unless a config sets `model_half`)
+run fp32 kernels that round nothing (csrc/conv1d_f32.cu; K2 is one kernel
+templated on the element type). The fp32 K3 and K4 run their products as
+3xTF32 on the tensor cores (each operand split into two TF32 parts, three
+products), which keeps fp32 accuracy; 1xTF32 would keep ~3 digits.
 
 What bounds them on the H100, and what the design does about it:
 
@@ -56,10 +63,14 @@ import torch.nn.functional as F
 
 from . import build
 
-# launch counts: each wrapper adds one where it launches its kernel
+# launch counts: each wrapper adds one where it launches its kernel (the
+# bf16 kernels, then the fp32 ones)
 snake_conv1d_launches = 0
 fused_residual_unit_launches = 0
 snake_conv_transpose1d_launches = 0
+snake_conv1d_f32_launches = 0
+fused_residual_unit_f32_launches = 0
+snake_conv_transpose1d_f32_launches = 0
 
 _INV_PI = 0.3183098861837907
 _SIN2_C = (9.869603239633658, -32.469601846083854, 42.72581061829601,
@@ -108,8 +119,8 @@ def _check_cuda(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
         raise RuntimeError(f"{name}: the CUDA kernel has no backward (the JAX package "
                            f"differentiates its plain XLA form, ops/pallas/conv1d.py); run it "
                            f"under torch.no_grad() or on frozen inputs")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the CUDA kernels take bf16 or fp32 activations, got {x.dtype}")
     for t in (x, *tensors):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name}: all tensors must be on {x.device}, got {t.device}")
@@ -147,7 +158,7 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
     w [k, Cin, Cout]; alpha/inv_beta the effective per-channel snake
     parameters (None skips the snake). The plain version takes the same
     arguments."""
-    global snake_conv1d_launches
+    global snake_conv1d_launches, snake_conv1d_f32_launches
     k, cin, cout = w.shape
     if padding is None:
         padding = (dilation * (k - 1)) // 2
@@ -159,13 +170,17 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
     ab = _stack_snake(alpha, inv_beta)
     b, t, _ = x.shape
     x = x.contiguous()
-    wc = w.to(torch.bfloat16).contiguous()
+    wc = w.to(x.dtype).contiguous()
     bias = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
     y = torch.empty(b, t, cout, device=x.device, dtype=x.dtype)
-    err = build.library().fsat_snake_conv1d(
-        _ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, k, dilation, padding,
-        _stream(x.device))
-    snake_conv1d_launches += 1
+    lib = build.library()
+    fn = lib.fsat_snake_conv1d_f32 if x.dtype == torch.float32 else lib.fsat_snake_conv1d
+    err = fn(_ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, k, dilation,
+             padding, _stream(x.device))
+    if x.dtype == torch.float32:
+        snake_conv1d_f32_launches += 1
+    else:
+        snake_conv1d_launches += 1
     build.check(err, "snake_conv1d")
     return y
 
@@ -190,7 +205,7 @@ def fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
                         dilation: int = 1) -> torch.Tensor:
     """y = x + conv1x1(snake2(conv_k,dil(snake1(x)) + b1)) + b2 (cin == cout).
     w1 [k, C, C], w2 [C, C]; k = 7 on CUDA."""
-    global fused_residual_unit_launches
+    global fused_residual_unit_launches, fused_residual_unit_f32_launches
     k, c, c2 = w1.shape
     if not (c == c2 == w2.shape[0] == w2.shape[1]):
         raise ValueError("fused_residual_unit needs cin == cout")
@@ -203,17 +218,22 @@ def fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
     if k != 7 or c % 128:
         raise ValueError(f"fused_residual_unit: the CUDA kernel takes k = 7 and C % 128 == 0, "
                          f"got k = {k}, C = {c}")
+    f32 = x.dtype == torch.float32
     b, t, _ = x.shape
     x = x.contiguous()
-    w1c = w1.to(torch.bfloat16).contiguous()
-    w2c = w2.to(torch.bfloat16).contiguous()
+    w1c = w1.to(x.dtype).contiguous()
+    w2c = w2.to(x.dtype).contiguous()
     b1c = b1.float().contiguous()
     b2c = b2.float().contiguous()
     y = torch.empty_like(x)
-    err = build.library().fsat_fused_residual_unit(
-        _ptr(x), _ptr(w1c), _ptr(b1c), _ptr(ab1), _ptr(w2c), _ptr(b2c), _ptr(ab2), _ptr(y),
-        b, t, c, dilation, _stream(x.device))
-    fused_residual_unit_launches += 1
+    lib = build.library()
+    fn = lib.fsat_fused_residual_unit_f32 if f32 else lib.fsat_fused_residual_unit
+    err = fn(_ptr(x), _ptr(w1c), _ptr(b1c), _ptr(ab1), _ptr(w2c), _ptr(b2c), _ptr(ab2), _ptr(y),
+             b, t, c, dilation, _stream(x.device))
+    if f32:
+        fused_residual_unit_f32_launches += 1
+    else:
+        fused_residual_unit_launches += 1
     build.check(err, "fused_residual_unit")
     return y
 
@@ -253,7 +273,7 @@ def snake_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[t
                            stride: int = 2) -> torch.Tensor:
     """Fused snake(x) -> ConvTranspose1d(k = 2s, stride s, padding s/2):
     x [B, T, Cin], w [2s, Cin, Cout] -> [B, T*s, Cout]."""
-    global snake_conv_transpose1d_launches
+    global snake_conv_transpose1d_launches, snake_conv_transpose1d_f32_launches
     k, cin, cout = w.shape
     if stride % 2 or k != 2 * stride:
         raise ValueError("snake_conv_transpose1d needs an even stride and k == 2 * stride")
@@ -261,17 +281,23 @@ def snake_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[t
         return snake_conv_transpose1d_plain(x, w, bias, alpha, inv_beta, stride)
     _check_cuda("snake_conv_transpose1d", x, w, bias, alpha, inv_beta)
     ab = _stack_snake(alpha, inv_beta)
-    if cin % 32 or cout % 128:
-        raise ValueError(f"snake_conv_transpose1d: the CUDA kernel takes Cin % 32 == 0 and "
-                         f"Cout % 128 == 0, got {cin} -> {cout}")
+    f32 = x.dtype == torch.float32
+    cout_step = 32 if f32 else 128  # the kernels' output-column chunk
+    if cin % 32 or cout % cout_step:
+        raise ValueError(f"snake_conv_transpose1d: the {x.dtype} CUDA kernel takes Cin % 32 == 0 "
+                         f"and Cout % {cout_step} == 0, got {cin} -> {cout}")
     b, t, _ = x.shape
     x = x.contiguous()
-    wc = w.to(torch.bfloat16).contiguous()
+    wc = w.to(x.dtype).contiguous()
     bias = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
     y = torch.empty(b, t * stride, cout, device=x.device, dtype=x.dtype)
-    err = build.library().fsat_snake_conv_transpose1d(
-        _ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, stride,
-        _stream(x.device))
-    snake_conv_transpose1d_launches += 1
+    lib = build.library()
+    fn = lib.fsat_snake_conv_transpose1d_f32 if f32 else lib.fsat_snake_conv_transpose1d
+    err = fn(_ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, stride,
+             _stream(x.device))
+    if f32:
+        snake_conv_transpose1d_f32_launches += 1
+    else:
+        snake_conv_transpose1d_launches += 1
     build.check(err, "snake_conv_transpose1d")
     return y

@@ -1,12 +1,13 @@
-"""Head-split attention on ``[B*H, T, 64]`` tensors for training: the
-forward with its base-2 log-sum-exp (K7) and the two-pass FlashAttention-2
-backward (K9), their plain versions and their autograd binding.
+"""Head-split attention on ``[B*H, T, D]`` tensors: the forward with or
+without its base-2 log-sum-exp (K7), the two-pass FlashAttention-2 backward
+(K9), their plain versions and their autograd binding.
 
 Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
 
-* K7 ``_flash_forward`` (:230, call :317) in its non-causal, no-rope,
-  ``save_stats`` case: ``_single_dot_kernel`` (:121) + ``_single_dot_core``
-  (:93), what it runs for t_k <= 8192;
+* K7 ``_flash_forward`` (:230, call :317) in its non-causal, no-rope case,
+  with ``save_stats`` (training) or without (serving):
+  ``_single_dot_kernel`` (:121) + ``_single_dot_core`` (:93), what it runs
+  for t_k <= 8192;
 * K9 ``_flash_backward`` (:565) in its non-causal two-pass case:
   ``_bwd_dq_kernel`` (:477, call :605) and ``_bwd_dkv_kernel`` (:518, call
   :621), with FA2's delta = rowsum(dO * O) computed beside them (:597-603);
@@ -14,8 +15,11 @@ Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
 
 The DiT's self-attention takes this path under grad beyond 1168 tokens
 (Stable Audio 2.0: 6145 tokens padded to 6272, kv_len 6145), through the
-unpack route of ops/kernels/attention.py. What it computes, per head, in the
-input dtype (fp32 on that path; the JAX training step is fp32 throughout)::
+unpack route of ops/kernels/attention.py; the ADP U-Net's self-attention
+(Stable Audio 1.0) takes K7 without the LSE wherever the gate of
+ops/attention.py sends it (T 4096 and 2048 at D 64, T 1024 at D 80). What
+it computes, per head, in the input dtype (fp32 on both paths: the JAX
+training step and the JAX CLI's model are fp32)::
 
     forward:  q' = q * log2(e)/sqrt(D), s = q' k^T (keys >= kv_len masked),
               p = exp2(s - rowmax(s)), out = (p v) / max(l, 1e-30),
@@ -37,8 +41,10 @@ K8 (``_flash_backward_fused`` :426, one pass), runs wherever its VMEM plan
 raises there for CUDA tensors. At T = 6272 the plan fails and K9 runs.
 
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
-the kernels or raise. The CUDA kernels take fp32, head dim 64, q, k and v of
-one length.
+the kernels or raise. The CUDA kernels take fp32 and q, k and v of one
+length; K7 head dim 64 or 80, K9 head dim 64. The other variants of the TPU
+kernel (bf16, causal, the rope-fused one, the online one beyond 8192 keys,
+K9 at D 80) are still to be ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ import torch
 from . import build
 
 # launch counts: each wrapper adds one where it launches its kernel
-forward_launches = 0   # K7
+forward_launches = 0   # K7 with its LSE (training)
+serving_launches = 0   # K7 without it (serving)
 backward_launches = 0  # K9 (one dq pass and one dk/dv pass per count)
 
 LOG2E = 1.4426950408889634
@@ -149,16 +156,25 @@ def backward_kernel(t_q: int, t_k: int, d: int) -> str:
     return "K8" if bwd_fused_plan(t_q, (t_k + 15) // 16 * 16, d) is not None else "K9"
 
 
-def _cuda_args(name: str, *tensors: torch.Tensor):
+FORWARD_HEAD_DIMS = (64, 80)  # K7's CUDA kernel
+BACKWARD_HEAD_DIMS = (64,)    # K9's
+
+
+def _cuda_args(name: str, *tensors: torch.Tensor, head_dims=BACKWARD_HEAD_DIMS):
     """Checks what the kernels take; returns the tensors made contiguous."""
     q = tensors[0]
     bh, t, d = q.shape if q.dim() == 3 else (0, 0, 0)
+    if d not in head_dims:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel takes head dim {' or '.join(map(str, head_dims))}, got {d}; "
+            f"the others are still to be ported (ROADMAP queue B)")
     for x in tensors:
         if x.dtype != torch.float32 or x.device != q.device:
             raise ValueError(f"{name}: the CUDA kernel takes fp32 tensors on one device, got "
-                             f"{x.dtype} on {x.device}")
-        if tuple(x.shape) != (bh, t, 64):
-            raise ValueError(f"{name}: the CUDA kernel takes [B*H, T, 64] tensors of one shape, got "
+                             f"{x.dtype} on {x.device}; bf16 K7 is still to be ported "
+                             f"(ROADMAP queue B)")
+        if tuple(x.shape) != (bh, t, d):
+            raise ValueError(f"{name}: the CUDA kernel takes [B*H, T, D] tensors of one shape, got "
                              f"{tuple(x.shape)} and {tuple(q.shape)}")
     if not 1 <= bh <= 65535:
         raise ValueError(f"{name}: B*H = {bh} outside the kernel's grid [1, 65535]")
@@ -171,21 +187,25 @@ def _stream(device) -> int:
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_len: tp.Optional[int] = None, save_stats: bool = True):
-    """K7: q, k, v [BH, T, 64] -> (out [BH, T, 64], lse [BH, T] fp32 or None)."""
-    global forward_launches
+    """K7: q, k, v [BH, T, D] -> (out [BH, T, D], lse [BH, T] fp32 or None);
+    without save_stats (serving) no LSE is written."""
+    global forward_launches, serving_launches
     valid = _valid_len(k.shape[1], kv_len)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, kv_len, save_stats)
-    q, k, v = _cuda_args("flash_forward", q, k, v)
+    q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FORWARD_HEAD_DIMS)
     bh, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
     err = build.library().fsat_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), bh, t, valid, LOG2E / math.sqrt(d),
+        None if lse is None else lse.data_ptr(), bh, t, valid, d, LOG2E / math.sqrt(d),
         _stream(q.device))
     build.check(err, "flash_forward")
-    forward_launches += 1
+    if save_stats:
+        forward_launches += 1
+    else:
+        serving_launches += 1
     return out, lse
 
 

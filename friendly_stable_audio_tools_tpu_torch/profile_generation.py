@@ -1,12 +1,15 @@
 """Where a generation step's device time goes: `torch.profiler` over a few
-sampler-step DiT calls (one CFG-doubled forward each) of a model config.
+sampler-step backbone calls (one CFG-doubled forward each) of a model config.
 
     python -m friendly_stable_audio_tools_tpu_torch.profile_generation \
         --model-config friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio/stable_audio_2_0.json \
-        --steps 3 [--out profile.json]
+        --steps 3 [--dtype bf16|model] [--out profile.json]
 
-The model is built as the generation path builds it (random weights from
-seed 0, de-zeroed; DiT in bf16), at the config's `sample_size`, CFG 7.
+The model is built from random weights (seed 0, de-zeroed) at the config's
+`sample_size`, CFG 7, with the backbone in bf16 (bench.py's recipe, the
+default) or in the model's own fp32 as the generate CLI runs it (`--dtype
+model`; Stable Audio 1.0's U-Net takes only this, its attention kernel being
+fp32). TF32 is off.
 Prints the wall time per step, the device kernel time per step by category
 (the port's kernels by name, GEMMs, elementwise, copies and casts, ...),
 the share of the wall the device is idle, and writes the same as JSON with
@@ -24,9 +27,12 @@ CATEGORIES = [
     ("K10 pair_long_attention", ("pair_attention_kernelILb1", "pair_attention_kernel<true>")),
     ("K1 fused_qkv_rope_attention", ("pair_attention_kernelILb0", "pair_attention_kernel<false>")),
     ("K10a rope_pair_k", ("rope_pair_k",)),
+    ("K7 flash_forward", ("flash_forward_kernel",)),
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "winograd", "fft")),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitK")),
     ("softmax", ("softmax",)),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
+    ("GroupNorm", ("group_norm", "GroupNorm")),
     ("reductions", ("reduce",)),
     ("copies and casts", ("copy", "Copy", "cat_", "CatArray")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise")),
@@ -45,6 +51,8 @@ def main(argv=None):
     p.add_argument("--model-config", required=True)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--cfg-scale", type=float, default=7.0)
+    p.add_argument("--dtype", choices=("bf16", "model"), default="bf16",
+                   help="the backbone in bf16 (bench.py's recipe) or in the model's own dtype")
     p.add_argument("--out", default="", help="write the breakdown as JSON here")
     args = p.parse_args(argv)
 
@@ -60,7 +68,8 @@ def main(argv=None):
         config = json.load(f)
     model = create_model_from_config(config, seed=0, device="cuda")
     dezero_(model, torch.Generator(device="cuda").manual_seed(1))
-    model.model.to(torch.bfloat16)
+    if args.dtype == "bf16":
+        model.model.to(torch.bfloat16)
     prompt = {"prompt": "A grand orchestral arrangement", "seconds_start": 0,
               "seconds_total": config["sample_size"] / config["sample_rate"]}
     frames = config["sample_size"] // model.pretransform.downsampling_ratio
@@ -94,7 +103,7 @@ def main(argv=None):
         by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
     device = sum(by_cat.values())
     result = {
-        "model_config": args.model_config, "frames": frames, "cfg_batch": 2,
+        "model_config": args.model_config, "frames": frames, "cfg_batch": 2, "dtype": args.dtype,
         "card": torch.cuda.get_device_name(0), "wall_ms_per_step": wall,
         "device_ms_per_step": device, "idle_share": max(0.0, 1.0 - device / wall),
         "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),

@@ -6,10 +6,14 @@
 
 Flags and their defaults come from `defaults.ini` (in the working directory,
 else the repository's). Trains a `diffusion_cond` model on one device: a
-CUDA card (the DiT in fp32 with its attention through the
-K5/K6 kernels in bf16, the frozen VAE in bf16 through K2/K3) by default,
-raising when there is none; `--device cpu` trains on the CPU through the
-kernels' plain versions.
+CUDA card by default, raising when there is none; `--device cpu` trains on
+the CPU through the kernels' plain versions. On the card the DiT trains in
+fp32 with its self-attention routed as the JAX package routes it
+(ops/kernels/attention.py:training_route): up to 1168 tokens through the
+pair kernels K5/K6, which cast to bf16 as the JAX pair path does; longer
+sequences through K7/K9 in fp32. The frozen VAE encodes in fp32 through the
+fp32 K2/K3 (in bf16 only where the config sets `model_half`). TF32 is off
+for matrix products and convolutions, so plain fp32 layers compute in fp32.
 Without `--pretrained-ckpt-path` the weights are random, drawn from
 `--seed`. Checkpoints (`torch.save`) go to
 `<save-dir>/<name>/<run id>/checkpoints/step_<n>/`; `--ckpt-path` resumes
@@ -68,6 +72,9 @@ def main(argv=None):
     from .utils.common import resolve_device
 
     device = resolve_device(args.device, "--device cpu")
+    # fp32 products and convolutions in fp32, as the JAX package computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     seed = args.seed + int(os.environ.get("SLURM_PROCID", 0))
     random.seed(seed)
@@ -91,8 +98,6 @@ def main(argv=None):
     if args.pretransform_ckpt_path and model.pretransform is not None:
         print(f"->->-> Loading a pretransform checkpoint from {args.pretransform_ckpt_path}...")
         _load_into(model.pretransform.model, args.pretransform_ckpt_path, "pretransform checkpoint")
-    if device.type == "cuda" and model.pretransform is not None:
-        model.pretransform.to(torch.bfloat16)  # K2/K3 take bf16
 
     training_wrapper = create_training_wrapper_from_config(model_config, model)
     logger = ExperimentLogger(project=args.name, config={"model_config": model_config,

@@ -3,9 +3,10 @@
 `init_weights_` follows the JAX package's initialisers module by module:
 fan-in scaled normal for linear layers with zero bias, torch's fan-in
 uniform for the weight-normed convs with `g = ||v||` (so the initial weight
-equals v), unit gains, zero log-scale snake parameters, unit-normal
-embeddings and Fourier weights, unit gain and zero bias for RoBERTa's
-LayerNorms, and zeros for the projections marked
+equals v) and for the ADP U-Net's convs (weight and bias), unit gains, zero
+log-scale snake parameters and unit single-parameter ones, unit-normal
+embeddings and Fourier weights, unit gain and zero bias for the LayerNorms
+and GroupNorms with a bias, and zeros for the projections marked
 `zero_init` (the transformer's branch outputs, the DiT's residual convs).
 Every draw comes from the generator passed in.
 """
@@ -18,9 +19,10 @@ import typing as tp
 import torch
 from torch import nn
 
+from ..models import adp
 from ..models.clap import BiasLayerNorm
 from ..models.t5 import T5Attention
-from ..ops.activations import SnakeBeta
+from ..ops.activations import Snake, SnakeBeta
 from ..ops.convs import Conv1d, WNConv1d, WNConvTranspose1d
 from ..ops.embeddings import FourierFeatures
 from ..ops.norms import LayerNorm, RMSNorm
@@ -58,6 +60,13 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             m.g.copy_(m.v.square().sum(dim=(0, 2) if transposed else (0, 1)).sqrt())
             if m.bias is not None:
                 _uniform_(m.bias, bound, gen)
+        elif isinstance(m, (adp.Conv1d, adp.ConvTranspose1d)):
+            k, cin, cout = m.weight.shape
+            bound = 1.0 / math.sqrt((cout if isinstance(m, adp.ConvTranspose1d) else cin) * k)
+            _uniform_(m.weight, bound, gen)
+            _uniform_(m.bias, bound, gen)
+        elif isinstance(m, Snake):
+            m.alpha.fill_(1.0)
         elif isinstance(m, SnakeBeta):
             fill = 0.0 if m.alpha_logscale else 1.0
             m.alpha.fill_(fill)
@@ -65,13 +74,15 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(m, (LayerNorm, RMSNorm)):
             for p in own:
                 p.fill_(1.0)
-        elif isinstance(m, BiasLayerNorm):
+        elif isinstance(m, (BiasLayerNorm, adp.GroupNorm)):
             m.scale.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=gen)
         elif isinstance(m, FourierFeatures):
             m.weight.normal_(0.0, m.std, generator=gen)
+        elif isinstance(m, adp.LearnedPositionalEmbedding):
+            m.weights.normal_(0.0, 1.0, generator=gen)
         elif isinstance(m, T5Attention) or type(m) is nn.Module:
             for p in own:  # T5 relative position bias, NumberEmbedder's Fourier weights
                 p.normal_(0.0, 1.0, generator=gen)

@@ -8,8 +8,15 @@ parameter's path carries over with three renames:
   friendly_stable_audio_tools_tpu/utils/torch_import.py:29-41;
 * a flax `Embed` table `embedding` becomes `weight`, same layout;
 * numbered children become list entries: `layer{i}` -> `layers.{i}`
-  (transformer), `block{i}` -> `blocks.{i}` (T5, encoder, decoder), `res{i}` ->
+  (transformer), `block{i}` -> `blocks.{i}` (T5, the VAEs' encoders and
+  decoders, the ADP U-Net's resnet and transformer blocks; a ResnetBlock1d's
+  `block1`/`block2` land in its `blocks` dict as "1"/"2"), `res{i}` ->
   `res.{i}` (VAE residual units).
+
+The ADP U-Net (`adp_cfg_1d`), the DAC encoder and decoder and the `int`
+conditioners carry over by these rules alone: the port names their modules
+as the JAX package does (`down{i}`, `up{j}`, `to_scale_shift.1`,
+`fixed_embedding`, `embed.int_embedder`, `snake1`, ...).
 
 The CLAP conditioner's tree `clap/text_branch/layer{i}/...` carries over by
 the same rules (its LayerNorms keep `scale` and `bias`).

@@ -5,15 +5,18 @@ no JAX, and tests/conftest.py imports it, so run this file there with
 `python -m pytest --noconftest -q tests/test_torch_port_cuda.py`. Inputs
 are bf16 unless a test says otherwise; tolerance: rel-L2 1e-2 (one bf16
 rounding of the output apart, with attention's online softmax rounding P
-against running maxima). The fp32 kernels K7/K9 are held to fp32 tolerances.
+against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
+activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4).
 """
 
 import pytest
 import torch
 
+from friendly_stable_audio_tools_tpu_torch.ops import attention as tattention
 from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention as tattn
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d as tconv
+from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
 
 pytestmark = pytest.mark.cuda
 
@@ -62,9 +65,9 @@ def test_conv_kernels_match_plain(gen):
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(gen):
-    x32 = _rnd(gen, 1, 64, 128)
-    with pytest.raises(TypeError):
-        tconv.snake_conv1d(x32, _rnd(gen, 7, 128, 128), None)
+    x64 = _rnd(gen, 1, 64, 128).double()
+    with pytest.raises(TypeError):  # bf16 or fp32 only
+        tconv.snake_conv1d(x64, _rnd(gen, 7, 128, 128), None)
     with pytest.raises(ValueError):  # C % 128 != 0
         xb = _rnd(gen, 1, 64, 96).to(torch.bfloat16)
         tconv.fused_residual_unit(xb, _rnd(gen, 7, 96, 96), None, None, None,
@@ -192,3 +195,70 @@ def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
     out = tattn.fused_qkv_rope_attention(qkv, rotary_freqs(t, 32, device="cuda"), h)
     with pytest.raises(NotImplementedError, match="K8"):
         out.sum().backward()
+
+
+def test_fp32_conv_kernels_match_plain(gen):
+    """K2, K3 and K4 on fp32 activations run the fp32 kernels (their own
+    launch counts), with and without the snake, at the DAC decoder's Cout 96."""
+    x = _rnd(gen, 2, 333, 128, scale=0.5)
+    a = _rnd(gen, 128).abs() + 0.5
+    ib = 1.0 / a
+    bias = _rnd(gen, 128, scale=0.1)
+    w = _rnd(gen, 7, 128, 128, scale=0.03)
+    before = (tconv.snake_conv1d_f32_launches, tconv.fused_residual_unit_f32_launches,
+              tconv.snake_conv_transpose1d_f32_launches, tconv.snake_conv1d_launches)
+    _close(tconv.snake_conv1d(x, w, bias, a, ib, dilation=3),
+           tconv.snake_conv1d_plain(x, w, bias, a, ib, dilation=3), 1e-5)
+    _close(tconv.snake_conv1d(x, w[:1, :, :96], None), tconv.snake_conv1d_plain(x, w[:1, :, :96], None),
+           1e-5)
+    _close(tconv.fused_residual_unit(x, w, bias, a, ib, w[0], bias, a, ib, dilation=9),
+           tconv.fused_residual_unit_plain(x, w, bias, a, ib, w[0], bias, a, ib, dilation=9), 1e-5)
+    wt = _rnd(gen, 8, 128, 96, scale=0.06)
+    for aa, ii in ((a, ib), (None, None)):
+        got = tconv.snake_conv_transpose1d(x, wt, bias[:96], aa, ii, stride=4)
+        assert got.dtype == torch.float32 and got.shape == (2, 333 * 4, 96)
+        _close(got, tconv.snake_conv_transpose1d_plain(x, wt, bias[:96], aa, ii, stride=4), 1e-5)
+    after = (tconv.snake_conv1d_f32_launches, tconv.fused_residual_unit_f32_launches,
+             tconv.snake_conv_transpose1d_f32_launches, tconv.snake_conv1d_launches)
+    assert tuple(b - a_ for a_, b in zip(before, after)) == (2, 1, 2, 0)
+    with pytest.raises(ValueError):  # Cout % 32 != 0
+        tconv.snake_conv_transpose1d(x, wt[..., :80], None, stride=4)
+
+
+@pytest.mark.parametrize("t,d", [(1024, 80), (2048, 64), (200, 80)])
+def test_flash_forward_serving_matches_plain(gen, t, d):
+    """K7 without the LSE (the ADP U-Net's self-attention) at head dims 64
+    and 80 against its plain version; other head dims raise."""
+    q, k, v = (_rnd(gen, 6, t, d) for _ in range(3))
+    before = tflash.serving_launches
+    out, lse = tflash.flash_forward(q, k, v, save_stats=False)
+    assert lse is None and tflash.serving_launches == before + 1
+    _close(out, tflash.flash_forward_plain(q, k, v, save_stats=False)[0], 1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        tflash.flash_forward(q[..., :48], k[..., :48], v[..., :48], save_stats=False)
+
+
+def test_sdpa_gate_sends_long_self_attention_to_k7(gen):
+    q, k, v = (_rnd(gen, 2, 16, 1024, 80) for _ in range(3))
+    before = tflash.serving_launches
+    got = tattention.scaled_dot_product_attention(q, k, v)
+    assert tflash.serving_launches == before + 1
+    _close(got, tattention.attention(q, k, v), 1e-5)
+    ctx = _rnd(gen, 2, 16, 79, 80)
+    tattention.scaled_dot_product_attention(q, ctx, ctx)  # 79 keys: plain
+    assert tflash.serving_launches == before + 1
+
+
+def test_inference_attention_casts_fp32_qkv_to_bf16(gen):
+    """K1 (T 1025) and K10a/K10 (T 2176) on an fp32 qkv: the kernels read it
+    in bf16 and the output comes back fp32, as the JAX functions do."""
+    for t, h in ((1025, 4), (2176, 2)):
+        qkv = _rnd(gen, 2, t, 3 * h * 64)
+        f = rotary_freqs(t, 32, device="cuda")
+        before = (tattn.launches, tattn.long_launches)
+        got = tattn.fused_qkv_rope_attention(qkv, f, h)
+        assert (tattn.launches, tattn.long_launches) != before
+        assert got.dtype == torch.float32
+        plain = (tattn.fused_qkv_rope_attention_plain if t <= tattn.PAIR_MAX_T
+                 else tattn.fused_qkv_rope_attention_long_plain)
+        _close(got, plain(tattn.kernel_input(qkv), f, h))
