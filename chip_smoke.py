@@ -2,7 +2,7 @@
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
 on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, Stable
 Audio 2.0 long-form text-to-audio and training, and Stable Audio 1.0
-text-to-audio, at full width.
+text-to-audio and training, at full width.
 
     python3 chip_smoke.py
 
@@ -28,10 +28,16 @@ Phases (any failure raises and the script exits non-zero):
    (two-pass backward) against their plain versions at SA 2.0's training
    shape (B 8 x 24 heads, T 6272, kv_len 6145) and two smaller ragged ones;
    3f. the fp32 kernels against their fp32 plain versions (TF32 off): K2,
-   K3 and K4 at every shape of [3] and [3c], and K2 and K4 at the DAC
-   decode's shapes at 4096 latent frames (26 and 4 calls); K7 without its
-   LSE at the ADP U-Net's self-attention (B 2 x 16 heads: T 4096 and 2048
-   at head dim 64, T 1024 at head dim 80);
+   K3 and K4 at every shape of [3] and [3c]; K2 and K4 at the DAC decode's
+   shapes at 4096 latent frames (26 and 4 calls); K2 at the DAC encode's
+   shapes at 4,194,304 samples (26 calls per clip, 8 clips per SA 1.0
+   training step); K7 without its LSE at the ADP U-Net's self-attention
+   (B 2 x 16 heads: T 4096 and 2048 at head dim 64, T 1024 at head dim 80);
+   3g. the fp32 single-pass backward K8 against its plain version at the
+   ADP U-Net's training shapes (B 8 x 16 heads: T 4096 and 2048 at head dim
+   64, T 1024 at head dim 80), at a DiT shape where K8's plan fits (B 2 x 24
+   heads, T 1184, kv_len 1177) and a small ragged one; K7 with its LSE at
+   the three U-Net shapes;
 4. the Oobleck VAE in fp32 (an encode of 2 x 2,097,152 samples and a short
    decode) with the fp32 kernels against the fp32 plain versions; then, in
    bench.py's bf16 recipe, one DiT forward (CFG batch-doubled) and the short
@@ -79,14 +85,28 @@ Phases (any failure raises and the script exits non-zero):
    s-audio/s over 95.1 s of audio, peak memory, and the launch counts (K7
    1400, fp32 K2 26 and K4 4, nothing else);
    10b. the repaired dtype: the generate CLI on stable_audio_open_1_0.json
-   in fp32 (K1 on a bf16 cast of the fp32 qkv, the fp32 K2/K3/K4 decode).
+   in fp32 (K1 on a bf16 cast of the fp32 qkv, the fp32 K2/K3/K4 decode);
+11b. one training step of SA 1.0's fp32 U-Net at batch 8 and 4096 latent
+   frames (fixed draws, CFG dropout with one row dropped) with the gated
+   self-attention through K7 (with its LSE) and K8, through their plain
+   versions (the reference: loss within 1e-5, all gradients within rel-L2
+   1e-4), and through the serving route the port took under grad before
+   (K7 without its LSE: the q/k/v gradients of the 14 gated attentions are
+   lost);
+11. the SA 1.0 training path: `train.main` on stable_audio_1_0.json as
+   written (CFG dropout 0.1, Adam at 5e-4, EMA) from 8 synthetic 96 s WAVs,
+   batch 8, 3 steps: step time, trained audio per second, the split, peak
+   memory, finite losses, moved weights and the launch counts (K7 with its
+   LSE 14 and K8 14 per step, the DAC encoder's fp32 K2 26 per clip,
+   nothing else).
 
 Output: progress lines with each phase's wall, then one JSON line of
 per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
 their own, `*_f32` and `flash_forward_serving`), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
 chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
-part alone (likewise `dac_conv_phase`, or `decode_conv_phase(results,
+part alone (likewise `dac_conv_phase`, `dac_encode_conv_phase(results,
+json.loads(SA1_CONFIG.read_text()))`, or `decode_conv_phase(results,
 torch.float32, {"sa2": "sa2_decode_ms", "sao": "sao_decode_ms"})`) after
 the build.
 Without a CUDA device the script exits with 2 and prints no result.
@@ -137,6 +157,14 @@ TRAIN_T, TRAIN_KV = 1040, 1025
 SA2_WAVS = 8
 SA2_WAV_SECONDS = 290
 SA2_TRAIN_STEPS = 3
+# SA 1.0 training (phases 11b, 11): batch 8, the ADP U-Net's flash-gated
+# self-attention at B 8 x 16 heads: (T, head dim, calls per U-Net call), and
+# 8 WAVs of 96 s (longer than the 95.1 s crop), 3 steps
+SA1_TRAIN_ATTENTION = [(SA1_SAMPLE_SIZE // 1024, 64, 2), (SA1_SAMPLE_SIZE // 2048, 64, 6),
+                       (SA1_SAMPLE_SIZE // 4096, 80, 6)]
+SA1_WAVS = 8
+SA1_WAV_SECONDS = 96
+SA1_TRAIN_STEPS = 3
 
 # tolerances of the kernel-vs-plain compares (bf16 in and out; both sides
 # accumulate in fp32 and round the result once, in different orders):
@@ -164,6 +192,10 @@ TOL = {
     # products keep ~3 decimal digits and would fail them
     "flash_forward": (1e-5, 1e-4),
     "flash_backward": (1e-4, 1e-3),
+    # K8 the same way: summation order only; dq's parts from the key tiles
+    # arrive through atomics in an order that changes from run to run, which
+    # is a summation order too
+    "flash_backward_fused": (1e-5, 1e-4),
     # the fp32 kernels against their fp32 plain versions (TF32 off): K7
     # without its LSE (FFMA), K2 (FFMA), K3 and K4 (3xTF32, each tensor-core
     # partial sum of at most six products added in fp32): summation order only
@@ -323,6 +355,8 @@ def plain_kernels():
 
     return patched([(attention, "fused_qkv_rope_attention", plain_attention),
                     (flash, "flash_forward", flash.flash_forward_plain),
+                    (flash, "flash_backward", flash.flash_backward_plain),
+                    (flash, "flash_backward_fused", flash.flash_backward_fused_plain),
                     (conv1d, "snake_conv1d", conv1d.snake_conv1d_plain),
                     (conv1d, "fused_residual_unit", conv1d.fused_residual_unit_plain),
                     (conv1d, "snake_conv_transpose1d", conv1d.snake_conv_transpose1d_plain)])
@@ -711,6 +745,46 @@ def dac_conv_phase(results):
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
 
 
+def dac_encode_conv_phase(results, config):
+    """[3f] fp32 K2 at every shape of Stable Audio 1.0's DAC encode of one
+    clip of 4,194,304 samples (one clip per encode call, `iterate_batch`),
+    weighted by the calls per clip times the clips per training step, under
+    `sa1_encode_ms`: conv_in 2 -> 128 (k 7); per block, three residual units
+    of a k-7 conv at dilations 1, 3, 9 and a 1x1 conv at the block's input
+    width (128, 256, 512, 1024), then the strided downsample (the plain
+    reshape-GEMM form, no kernel); conv_out 2048 -> 2048 (k 3). None has a
+    fused snake (the DAC applies its Snake on its own). 26 K2 launches per
+    clip."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    rnd = randn_fn(11)
+    k2 = results["snake_conv1d_f32"]
+    enc = config["model"]["pretransform"]["config"]["encoder"]["config"]
+    clips = encode_calls(config)
+    t, ch = config["sample_size"], enc["d_model"]
+    k2_cases = [(t, enc["in_channels"], ch, 7, 1, 1)]
+    for stride in enc["strides"]:
+        k2_cases += [(t, ch, ch, 7, d, 1) for d in (1, 3, 9)] + [(t, ch, ch, 1, 1, 3)]
+        t, ch = t // stride, ch * 2
+    k2_cases.append((t, ch, ch, 3, 1, 1))
+    if sum(calls for *_, calls in k2_cases) != 26:
+        raise AssertionError(f"the DAC encode's K2 shapes do not add up to 26 calls: {k2_cases}")
+    for t, cin, cout, k, d, calls in k2_cases:
+        label = f"DAC encode B1 T{t} {cin}->{cout} k{k} d{d}"
+        k2["weight"][label] = calls * clips
+        x = rnd(1, t, cin, scale=0.5)
+        w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+        bb = rnd(cout, scale=0.1)
+        conv_case(results, "snake_conv1d", label, "sa1_encode_ms", x, w, bb, None, None,
+                  lambda: conv1d.snake_conv1d(x, w, bb, dilation=d),
+                  lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, dilation=d),
+                  2 * t * cin * cout * k, halo=d * (k - 1) // 2, dilation=d)
+        del x
+    log(f"  snake_conv1d_f32: {k2['sa1_encode_ms']:.4f} ms per SA 1.0 training-step encode "
+        f"({26 * clips} calls: 26 per clip, {clips} clips), plain {k2['plain_sa1_encode_ms']:.4f} ms, "
+        f"bound {k2['bound_sa1_encode_ms']:.4f} ms, library {k2['library_sa1_encode_ms']:.4f} ms")
+
+
 def flash_serving_phase(results):
     """[3f] K7 without its LSE (serving) against its plain version in fp32 at
     the ADP U-Net's self-attention shapes at 4096 latent frames under CFG
@@ -782,11 +856,11 @@ def long_attention_phase(results):
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
 
-def flash_bound(bh, valid, products, in_tensors, out_tensors):
-    """Bound of `products` [valid x valid x 64] fp32 products per head at the
+def flash_bound(bh, valid, products, in_tensors, out_tensors, d=64):
+    """Bound of `products` [valid x valid x d] fp32 products per head at the
     fp32-accurate rate, over the valid rows of the given tensors; also the
     time at the CUDA cores' fp32 rate."""
-    flops = products * 2 * bh * valid * valid * 64
+    flops = products * 2 * bh * valid * valid * d
     bytes_ = sum(nbytes(x) * valid // x.shape[1] for x in in_tensors + out_tensors)
     return bound_ms(flops, bytes_, peak=PEAK_FP32_ACCURATE), flops / PEAK_FP32_CORES * 1e3
 
@@ -868,6 +942,86 @@ def flash_phase(results):
         log(f"  {name}: {r['ms']:.4f} ms per SA 2.0 training step ({calls} calls at B{TRAIN_BATCH} "
             f"T{LONG_T}), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms")
+
+
+def flash_fused_phase(results):
+    """[3g] K8 (single-pass backward) against its plain version in fp32 (TF32
+    off) at SA 1.0's training shapes (B 8 x 16 heads: T 4096 and 2048 at head
+    dim 64, T 1024 at head dim 80, weighted by the calls per training step),
+    at a DiT shape where K8's plan fits with kv_len < T (B 2 x 24 heads, T
+    1184, kv_len 1177; dO zero on the padded rows, as on the transformer's
+    path) and at a small ragged one; K7 with its LSE against its plain
+    version at the three SA 1.0 shapes. K8 gets the plain forward's out and
+    lse. Library calls: SDPA on the same fp32 heads, and its backward."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(11)
+    bh_train = TRAIN_BATCH * 16
+    cases = [(bh_train, t, d, None, calls) for t, d, calls in SA1_TRAIN_ATTENTION]
+    cases += [(48, 1184, 64, 1177, 0), (3, 200, 80, 190, 0)]
+    for bh, t, d, kv, calls in cases:
+        label = f"BH{bh} T{t} D{d} kv_len {kv}"
+        main = calls > 0
+        if main:
+            results["flash_backward_fused"]["weight"][label] = calls
+            results["flash_forward"]["weight"][label] = calls
+        if flash.backward_kernel(t, t, d) != "K8":
+            raise AssertionError(f"{label}: K8's plan does not fit; the JAX package would run K9")
+        valid = kv or t
+        q, k, v, do = (rnd(bh, t, d) for _ in range(4))
+        if kv is not None:
+            do[:, kv:] = 0
+        out_p, lse_p = flash.flash_forward_plain(q, k, v, kv)
+        q4 = q[None].clone().requires_grad_(True)
+        k4, v4 = (x[None, :, :valid].clone().requires_grad_(True) for x in (k, v))
+        backend = sdpa_backend(q4, k4, v4)
+        if main:  # K7 with its LSE, as the U-Net's training forward runs it
+            out, lse = flash.flash_forward(q, k, v, kv)
+            torch.cuda.synchronize()
+            ok, max_abs, rel_l2, peak = within("flash_forward", out, out_p)
+            lse_err = (lse - lse_p).abs().max().item()
+            del out, lse
+            bound, cores_ms = flash_bound(bh, valid, 2, [q, k, v], [out_p, lse_p], d)
+            report(results, "flash_forward", label, True, ok and lse_err <= FLASH_LSE_ATOL,
+                   max_abs, rel_l2, peak, timed_ms(lambda: flash.flash_forward(q, k, v, kv), 3),
+                   timed_ms(lambda: flash.flash_forward_plain(q, k, v, kv), 3),
+                   timed_ms(lambda: sdpa(q4.detach(), k4.detach(), v4.detach()), 3), bound=bound,
+                   field="sa1_train_ms",
+                   extra=f", lse max_abs {lse_err:.3g} (tol {FLASH_LSE_ATOL}); SDPA backend "
+                         f"{backend}; at the CUDA cores' fp32 rate {cores_ms:.4f} ms")
+
+        def k8():
+            return flash.flash_backward_fused(q, k, v, out_p, lse_p, do, kv)
+
+        def k8_plain():
+            return flash.flash_backward_fused_plain(q, k, v, out_p, lse_p, do, kv)
+
+        got, want = k8(), k8_plain()
+        rels = [rel_err(a, w) for a, w in zip(got, want)]
+        pad_zero = kv is None or not any(a[:, kv:].any() for a in got)
+        ok = (all(bool(torch.isfinite(a).all()) for a in got) and pad_zero
+              and max(rels) <= TOL["flash_backward_fused"][0])
+        max_abs = max((a - w).abs().max().item() for a, w in zip(got, want))
+        peak = max(w.abs().max().item() for w in want)
+        bound, cores_ms = flash_bound(bh, valid, 5, [q, k, v, out_p, lse_p, do], list(got), d)
+        del got, want
+        o4 = sdpa(q4, k4, v4)
+        g4 = do[None]
+        lib_ms = timed_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 3)
+        report(results, "flash_backward_fused", label, main, ok, max_abs, max(rels), peak,
+               timed_ms(k8, 3), timed_ms(k8_plain, 3), lib_ms, bound=bound,
+               extra=f" (rel-L2 of dq/dk/dv: {' '.join(f'{r:.3g}' for r in rels)}; padded rows "
+                     f"zero: {pad_zero}; SDPA backend {backend}; at the CUDA cores' fp32 rate "
+                     f"{cores_ms:.4f} ms)")
+        del q, k, v, do, out_p, lse_p, q4, k4, v4, o4
+    per = results["flash_backward_fused"]["per"]
+    for name, field in (("flash_forward", "sa1_train_ms"), ("flash_backward_fused", "ms")):
+        r = results[name]
+        log(f"  {name}: {r[field]:.4f} ms per {per}, plain {r['plain_' + field]:.4f} ms, bound "
+            f"{r['bound_' + field]:.4f} ms, library {r['library_' + field]:.4f} ms")
 
 
 def build_model(config):
@@ -1063,6 +1217,7 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "fused_qkv_rope_attention_backward": ("attention", "backward_launches"),
     "flash_forward": ("flash", "forward_launches"),
     "flash_backward": ("flash", "backward_launches"),
+    "flash_backward_fused": ("flash", "fused_backward_launches"),
     "snake_conv1d": ("conv1d", "snake_conv1d_launches"),
     "fused_residual_unit": ("conv1d", "fused_residual_unit_launches"),
     "snake_conv_transpose1d": ("conv1d", "snake_conv_transpose1d_launches"),
@@ -1174,17 +1329,17 @@ def log_training(config, times, losses, steps, peak, total):
     log(f"  steps {[round(x, 4) for x in step_s]} s; median of steps 2-{steps} {med:.4f} s = "
         f"{TRAIN_BATCH / med:.4f} samples/s = {TRAIN_BATCH * seconds / med:.3f} s-audio/s trained")
     log(f"  split (medians): encode {med_of('encode'):.4f} s, conditioners {med_of('cond'):.4f} s, "
-        f"DiT fwd+bwd {dit_s:.4f} s, optimizer+EMA {med_of('update'):.4f} s; "
+        f"backbone fwd+bwd {dit_s:.4f} s, optimizer+EMA {med_of('update'):.4f} s; "
         f"peak memory {peak:.2f} GiB; run incl. set-up {total:.1f} s")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"training losses not finite: {losses}")
 
 
-def weight_moved(wrapper, dit_path):
-    """Largest change of layer 0's to_qkv weight from the starting DiT."""
+def weight_moved(wrapper, dit_path, name="model.transformer.layers.0.self_attn.to_qkv.weight"):
+    """Largest change of one weight (the DiT's layer-0 to_qkv) from the
+    starting backbone."""
     import torch
 
-    name = "model.transformer.layers.0.self_attn.to_qkv.weight"
     initial = torch.load(dit_path, map_location="cpu", weights_only=True, mmap=True)[name]
     return (wrapper.trainable[name].detach() - initial.to(wrapper.device)).abs().max().item()
 
@@ -1275,6 +1430,158 @@ def longform_training_phase(config, tmp, dit_path):
     want = {k: v * SA2_TRAIN_STEPS for k, v in per_step.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts} are not the {want} of {SA2_TRAIN_STEPS} steps")
+    return counts
+
+
+SA1_WATCHED = "model.unet.down0.transformer.blocks.0.attention.to_q.weight"
+
+
+def sa1_train_step_phase(config, tmp):
+    """[11b] One training step of SA 1.0's fp32 U-Net at batch 8 and 4096
+    latent frames with fixed draws (CFG dropout 0.1 with row 0 dropped): the
+    flash-gated self-attention through K7 with its LSE and K8, through their
+    plain versions (the reference), and through the serving route the port
+    took before (K7 without its LSE, whose output has no autograd graph).
+    Saves the de-zeroed U-Net for phase 11; returns the kernels' launch
+    counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.models.adp import ADPAttention
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+    from friendly_stable_audio_tools_tpu_torch.training.diffusion import get_alphas_sigmas
+
+    model = build_model(config)
+    unet_path = Path(tmp) / "unet_dezeroed.pt"
+    torch.save({f"model.{k}": v for k, v in model.model.state_dict().items()}, unet_path)
+    rnd = randn_fn(12)
+    conds = [dict(SA1_PROMPT, seconds_start=i, seconds_total=SA1_PROMPT["seconds_total"] - i)
+             for i in range(TRAIN_BATCH)]
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner(conds, device=DEVICE))
+    x0 = rnd(TRAIN_BATCH, SA1_SAMPLE_SIZE // model.pretransform.downsampling_ratio, model.io_channels)
+    noise = rnd(*x0.shape)
+    t = torch.rand(TRAIN_BATCH, generator=torch.Generator(device=DEVICE).manual_seed(13),
+                   device=DEVICE)
+    alphas, sigmas = (v[:, None, None] for v in get_alphas_sigmas(t))
+    noised, targets = x0 * alphas + noise * sigmas, noise * alphas - x0 * sigmas
+    drop = torch.zeros(TRAIN_BATCH, dtype=torch.bool, device=DEVICE)
+    drop[0] = True
+    unet = model.model.train()
+    del model
+    params = dict(unet.named_parameters(prefix="model"))
+    # the self-attention modules the gate sends to the flash kernels (T >= 1024)
+    lengths = {}
+    hooks = [m.register_forward_pre_hook(lambda m, a, n=n: lengths.__setitem__(n, a[0].shape[1]))
+             for n, m in unet.named_modules(prefix="model")
+             if isinstance(m, ADPAttention) and n.endswith(".attention")]
+    unet.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        unet(noised, t, cfg_dropout_prob=0.1, cfg_dropout_mask=drop, **cond)
+    for h in hooks:
+        h.remove()
+    watched = [f"{n}.{p}.weight" for n, t_len in lengths.items() if t_len >= 1024
+               for p in ("to_q", "to_kv", "to_out")]
+
+    def step():
+        unet.zero_grad(set_to_none=True)
+        out = unet(noised, t, cfg_dropout_prob=0.1, cfg_dropout_mask=drop, **cond)
+        loss = (out - targets).square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        # the next step's zero_grad(set_to_none=True) leaves these tensors to the caller
+        return loss.item(), {n: torch.zeros_like(p) if p.grad is None else p.grad
+                             for n, p in params.items()}
+
+    class ServingRoute:  # the route before the repair: K7 without its LSE under grad too
+        @staticmethod
+        def apply(q, k, v):
+            with torch.no_grad():  # the kernel's output carries no autograd graph
+                return flash.flash_forward(q, k, v, save_stats=False)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    loss_k, grads_k = step()
+    wall_k = time.perf_counter() - start
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with plain_kernels():
+        start = time.perf_counter()
+        loss_r, grads_r = step()
+        wall_r = time.perf_counter() - start
+    errs = {n: rel_err(grads_k[n], g) for n, g in grads_r.items() if g.norm() > 0}
+    total = math.sqrt(sum(((grads_k[n] - g).norm() ** 2).item() for n, g in grads_r.items())
+                      / sum((g.norm() ** 2).item() for g in grads_r.values()))
+    watched_r = {n: grads_r[n] for n in watched}
+    del grads_k, grads_r
+    with patched([(flash, "FlashAttention", ServingRoute)]):
+        loss_o, grads_o = step()
+    errs_o = {n: rel_err(grads_o[n], g) for n, g in watched_r.items()}
+    del grads_o, watched_r, unet
+    torch.cuda.empty_cache()
+
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    worst = max(errs, key=errs.get)
+    log(f"  loss: kernels {loss_k:.8g}, plain {loss_r:.8g} (rel {loss_err:.3g}, tol {SA2_LOSS_RTOL}); "
+        f"gradients of all {len(params)} parameters rel-L2 {total:.3g} (tol {SA2_GRAD_RTOL}), the "
+        f"largest of one parameter {errs[worst]:.3g} ({worst})")
+    for n in watched:
+        log(f"  {n} grad rel-L2 against the plain step: kernels {errs.get(n, 0.0):.3g}, the serving "
+            f"route {errs_o[n]:.3g}")
+    log(f"  old serving route: loss {loss_o:.8g}; step wall: kernels {wall_k:.3f} s, plain "
+        f"{wall_r:.3f} s; peak memory of the U-Net step with the kernels (weights, gradients, no "
+        f"optimizer state) {peak:.2f} GiB; launches {counts}")
+    if not (math.isfinite(loss_k) and loss_err <= SA2_LOSS_RTOL and total <= SA2_GRAD_RTOL
+            and len(watched) == 3 * 14 and all(errs[n] <= SA2_GRAD_RTOL for n in watched)):
+        raise AssertionError("the SA 1.0 U-Net training step with K7/K8 disagrees with the plain step")
+    if max(errs_o[n] for n in watched if ".to_q." in n) < 0.5:
+        raise AssertionError("the serving route under grad should lose the q/k/v gradients")
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_forward=14, flash_backward_fused=14)
+    if counts != want:
+        raise AssertionError(f"one SA 1.0 U-Net training step should launch {want}: {counts}")
+    return unet_path, counts
+
+
+def sa1_training_phase(config, tmp, unet_path):
+    """[11] The train entry point on SA 1.0 as written: 3 steps at batch 8
+    from synthetic 96 s WAVs, starting from phase 11b's de-zeroed U-Net; no
+    checkpoint. Returns the launch counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import train
+
+    args = train_args(config, tmp, "sa1", SA1_WAVS, SA1_WAV_SECONDS, unet_path)
+    times, losses = {}, []
+    # per step: 14 flash-gated self-attentions, each K7 with its LSE and K8
+    # (no checkpointing in the U-Net), and per clip (one per encode call) the
+    # DAC encoder's fp32 K2: conv_in, conv_out and two in each of the three
+    # residual units of each block (26 at SA 1.0's four strides)
+    n_blocks = len(config["model"]["pretransform"]["config"]["encoder"]["config"]["strides"])
+    per_step = {name: 0 for name in KERNELS}
+    per_step.update(flash_forward=14, flash_backward_fused=14,
+                    snake_conv1d_f32=(2 + 6 * n_blocks) * encode_calls(config))
+    with patched(train_timers(times, losses)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", str(SA1_TRAIN_STEPS)])
+        total = time.perf_counter() - start
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = weight_moved(trainer.wrapper, unet_path, SA1_WATCHED)
+        steps_done = trainer.wrapper.step
+        del trainer
+        torch.cuda.empty_cache()
+
+    log_training(config, times, losses, SA1_TRAIN_STEPS, peak, total)
+    log(f"  losses {losses}; {SA1_WATCHED} moved by up to {moved:.4g}")
+    log(f"  launches, {SA1_TRAIN_STEPS} steps: {counts}")
+    if len(losses) != SA1_TRAIN_STEPS or not (moved > 0 and steps_done == SA1_TRAIN_STEPS):
+        raise AssertionError("losses missing, weights did not move, or the step count is off")
+    want = {k: v * SA1_TRAIN_STEPS for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} are not the {want} of {SA1_TRAIN_STEPS} steps")
     return counts
 
 
@@ -1511,6 +1818,10 @@ def new_results():
         "flash_backward": dict(
             route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:565",
             per=f"SA 2.0 training step (24 calls at B{TRAIN_BATCH} H24 T{LONG_T} kv_len {LONG_KV})"),
+        "flash_backward_fused": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:426",
+            per=f"SA 1.0 training step (14 calls at B{TRAIN_BATCH} x H16: 2 at T4096 D64, 6 at "
+                f"T2048 D64, 6 at T1024 D80)"),
         "snake_conv1d": dict(route="cuda", source=src + "conv1d.cu", replaces=tpu + "conv1d.py:91",
                              per="SA 2.0 decode (2 calls)"),
         "fused_residual_unit": dict(route="cuda", source=src + "conv1d.cu",
@@ -1534,7 +1845,9 @@ def new_results():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
     # extra fields: sao_decode_ms and sa2_decode_ms (K2-K4 per SAO 1.0 and SA
     # 2.0 decode), encode_ms and sa2_encode_ms (K2 and K3 per SAO 1.0 and SA
-    # 2.0 training step's encode), each with its plain_, bound_ and library_ times
+    # 2.0 training step's encode), sa1_train_ms (K7 with its LSE per SA 1.0
+    # training step), sa1_encode_ms (the fp32 K2 per SA 1.0 training step's
+    # DAC encode), each with its plain_, bound_ and library_ times
     results["fused_qkv_rope_attention"]["weight"] = {"B2 T1025 H24 kv_len None": 24}
     train_label = f"B{TRAIN_BATCH} T{TRAIN_T} H24 kv_len {TRAIN_KV}"
     results["fused_qkv_rope_attention_stats"]["weight"] = {train_label: 2 * 24}
@@ -1606,8 +1919,13 @@ def main():
     encoder_conv_phase(results, config, "encode_ms", torch.float32)
     encoder_conv_phase(results, sa2_config, "sa2_encode_ms", torch.float32)
     dac_conv_phase(results)
+    dac_encode_conv_phase(results, sa1_config)
     flash_serving_phase(results)
     done("[3f]")
+    log("[3g] fp32 single-pass backward K8 (and K7 with its LSE) vs plain versions at SA 1.0's "
+        "training shapes and a DiT shape")
+    flash_fused_phase(results)
+    done("[3g]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -1648,7 +1966,8 @@ def main():
     log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7, bench.py's "
         "bf16 recipe")
     no_training = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
-                   "flash_forward": 0, "flash_backward": 0, "flash_forward_serving": 0,
+                   "flash_forward": 0, "flash_backward": 0, "flash_backward_fused": 0,
+                   "flash_forward_serving": 0,
                    "snake_conv1d_f32": 0, "fused_residual_unit_f32": 0,
                    "snake_conv_transpose1d_f32": 0}
     launches = generation_phase(
@@ -1727,9 +2046,21 @@ def main():
     torch.cuda.empty_cache()
     done("[10b]")
 
+    # phases 11b and 11 write ~4.5 GB (SA 1.0's de-zeroed U-Net and 8 WAVs)
+    log(f"[11b] one SA 1.0 U-Net training step at batch {TRAIN_BATCH}, 4096 latent frames: K7/K8 vs "
+        f"their fp32 plain versions vs the serving route under grad")
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        unet_path, _ = sa1_train_step_phase(sa1_config, tmp)
+        done("[11b]")
+        log(f"[11] SA 1.0 training path: train.main on stable_audio_1_0.json, batch {TRAIN_BATCH}, "
+            f"{SA1_TRAIN_STEPS} steps from {SA1_WAVS} synthetic {SA1_WAV_SECONDS} s WAVs")
+        counts_sa1 = sa1_training_phase(sa1_config, tmp, unet_path)
+    done("[11]")
+
     by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
-               "generate_sa1": launches_sa1, "generate_fp32": launches_fp32}
+               "generate_sa1": launches_sa1, "generate_fp32": launches_fp32,
+               "train_sa1": counts_sa1}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -1738,7 +2069,8 @@ def main():
                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
                    launches_by_path={p: c[name] for p, c in by_path.items()})
-        for f in ("sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms"):
+        for f in ("sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms", "sa1_train_ms",
+                  "sa1_encode_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
         return out

@@ -1,11 +1,16 @@
-// K7 and K9: head-split attention on [B*H, T, D] tensors, forward with the
-// base-2 log-sum-exp and its two-pass FlashAttention-2 backward, in fp32.
-// The training path of the DiT's self-attention beyond 1168 tokens (Stable
-// Audio 2.0: 6145 tokens padded to 6272, kv_len 6145) runs them at D 64, as
-// the JAX package's unpack branch does (flash_attention.py:1351-1389). The
-// ADP U-Net's self-attention at T >= 1024 (Stable Audio 1.0: T 4096 and 2048
-// at D 64, T 1024 at D 80) runs the forward without the log-sum-exp, as the
-// JAX package's ops/attention.py sends it to `flash_attention` (serving).
+// K7, K8 and K9: head-split attention on [B*H, T, D] tensors, forward with
+// the base-2 log-sum-exp, its single-pass backward and its two-pass
+// FlashAttention-2 backward, in fp32. The JAX package's `_flash_backward`
+// (flash_attention.py:576-579) takes the single pass (K8) wherever its VMEM
+// plan fits and the two passes (K9) elsewhere; ops/kernels/
+// flash_attention.py:backward_kernel makes the same choice. The training
+// path of the DiT's self-attention beyond 1168 tokens (Stable Audio 2.0:
+// 6145 tokens padded to 6272, kv_len 6145: K9) runs them at D 64, as the JAX
+// package's unpack branch does (flash_attention.py:1351-1389). The ADP
+// U-Net's self-attention at T >= 1024 (Stable Audio 1.0: T 4096 and 2048 at
+// D 64, T 1024 at D 80) runs the forward without the log-sum-exp when it
+// serves, and the forward with it and K8 when it trains, as the JAX
+// package's ops/attention.py sends it to `flash_attention`.
 //
 // K7 replaces `_flash_forward` (friendly_stable_audio_tools_tpu/ops/pallas/
 //   flash_attention.py:230, call :317) in its non-causal, no-rope case, with
@@ -17,6 +22,24 @@
 //   whole-row score dot; here one block owns a 64-row q tile and streams
 //   64-key tiles of K and V through an online base-2 softmax, which gives the
 //   whole-row softmax up to rounding.
+// K8 replaces `_flash_backward_fused` (:426, call :451; `_bwd_fused_kernel`
+//   :367). Per head, with delta = rowsum(dO * O) computed beside the kernel:
+//     qs = q * log2(e)/sqrt(D), s = qs k^T, keys >= kv_len masked,
+//     p = exp2(s - lse), dp = dO v^T, ds = p * (dp - delta) (no scale),
+//     dq = (ds k) / sqrt(D), dk = (ds^T qs) / log2(e), dv = p^T dO:
+//   five products, where K9 takes seven. The TPU kernel keeps the whole K
+//   and V of a head in VMEM and carries dk/dv in a resident block across its
+//   sequential q grid. Hopper has neither (K and V of a head at T 4096 are
+//   2 MB in fp32; blocks run in no order), so this is FlashAttention-2's
+//   single pass: one block owns a 64-key tile, keeps its dk/dv in registers,
+//   loops over every q tile (recomputing s and p, then dp and ds), and adds
+//   its part of dq into an fp32 dq buffer with atomics (`atomicAdd`, which
+//   compiles to a reduction without return). The order in which the key
+//   tiles' parts reach dq changes from run to run, so dq is not bit-equal
+//   between runs (dk and dv are); the kernel-vs-plain tolerance is the
+//   summation order's, which covers it. Each key tile starts its q loop at
+//   a different tile, so the key tiles of one head rarely add into the same
+//   dq rows at the same time.
 // K9 replaces `_flash_backward` (:565) in its non-causal two-pass case:
 //   `_bwd_dq_kernel` (:477, call :605) and `_bwd_dkv_kernel` (:518, call
 //   :621). Per head, with delta = rowsum(dO * O) computed beside the kernel:
@@ -33,18 +56,22 @@
 //
 // What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
 // forward is 2 products of 192 x 6145^2 x 64 multiply-adds (1.86 TFLOP)
-// over ~1.2 GB of inputs and outputs; the backward 7 products in this
-// two-pass form. Register tiling keeps the shared-memory traffic under the
-// FFMA rate: each thread owns an 8 x 4 tile of every product and reads its
-// operands as 16-byte vectors (3 shared loads per 32 FFMA), and the softmax
-// row reductions run over the 16 lanes that share a row.
+// over ~1.2 GB of inputs and outputs; the backward 7 products in the
+// two-pass form. At Stable Audio 1.0's training shapes (B 8 x 16 heads) K8's
+// five products are 1.37 TFLOP at T 4096 D 64 over ~0.7 GB. Register tiling
+// keeps the shared-memory traffic under the FFMA rate: each thread owns an
+// 8 x 4 tile of every product and reads its operands as 16-byte vectors (3
+// shared loads per 32 FFMA), and the softmax row reductions run over the 16
+// lanes that share a row. K8's dq atomics are 64 x D per (key tile, q
+// tile), one per 320 of its FMAs.
 //
-// Head dim 80 (K7 only): the tiles' row stride becomes 84 floats (16-byte
-// rows; 84 = 20 mod 32, so the eight lanes of a quarter-warp still read
-// distinct banks), the score product runs 20 four-wide steps instead of 16,
-// and each thread's output tile gains one column (dims 64 + tx) beside its
-// four (4 tx ..), read as a scalar. Shared memory: 4 tiles of 64 x 84 fp32,
-// 86 KB per block.
+// Head dim 80 (K7 and K8): the [64][D] tiles' row stride becomes 84 floats
+// (16-byte rows; 84 = 20 mod 32, so the eight lanes of a quarter-warp still
+// read distinct banks), the score products run 20 four-wide steps instead of
+// 16, and each thread's output tiles gain one column (dims 64 + tx) beside
+// its four (4 tx ..), read as a scalar. Shared memory: K7 4 tiles of 64 x 84
+// fp32, 86 KB per block; K8 4 such tiles and 2 of 64 x 68 (p^T, ds^T), 119
+// KB at D 80 and 103 KB at D 64.
 #include "common.cuh"
 
 namespace {
@@ -108,20 +135,20 @@ __device__ __forceinline__ void mm_abt(float (&acc)[8][4], const float* __restri
   }
 }
 
-// acc[i][u] += sum_c P[8 ty + i][c] * V[c][4 tx + u]  (P, V: [64][F] tiles)
-template <int F = kF>
+// acc[i][u] += sum_c P[8 ty + i][c] * V[c][4 tx + u]  (P: [64][FP] tile, V: [64][FV])
+template <int FP = kF, int FV = FP>
 __device__ __forceinline__ void mm_ab_acc(float (&acc)[8][4], const float* __restrict__ P,
                                           const float* __restrict__ V) {
-  const float* p = P + tid_y() * 8 * F;
+  const float* p = P + tid_y() * 8 * FP;
   const float* v = V + tid_x() * 4;
 #pragma unroll 2
   for (int c = 0; c < kT; c += 4) {
     float4 vv[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) vv[u] = *reinterpret_cast<const float4*>(v + (c + u) * F);
+    for (int u = 0; u < 4; ++u) vv[u] = *reinterpret_cast<const float4*>(v + (c + u) * FV);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float4 pv = *reinterpret_cast<const float4*>(p + i * F + c);
+      const float4 pv = *reinterpret_cast<const float4*>(p + i * FP + c);
       const float w[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -135,24 +162,60 @@ __device__ __forceinline__ void mm_ab_acc(float (&acc)[8][4], const float* __res
 }
 
 // acc[i] += sum_c P[8 ty + i][c] * V[c][64 + tx]: head dim 80's fifth
-// output column of each thread (P, V: [64][F] tiles).
-template <int F>
+// output column of each thread (P: [64][FP] tile, V: [64][FV]).
+template <int FP, int FV = FP>
 __device__ __forceinline__ void mm_ab_acc_tail(float (&acc)[8], const float* __restrict__ P,
                                                const float* __restrict__ V) {
-  const float* p = P + tid_y() * 8 * F;
+  const float* p = P + tid_y() * 8 * FP;
   const float* v = V + 64 + tid_x();
 #pragma unroll 2
   for (int c = 0; c < kT; c += 4) {
     float vv[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) vv[u] = v[(c + u) * F];
+    for (int u = 0; u < 4; ++u) vv[u] = v[(c + u) * FV];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float4 pv = *reinterpret_cast<const float4*>(p + i * F + c);
+      const float4 pv = *reinterpret_cast<const float4*>(p + i * FP + c);
       acc[i] = fmaf(pv.x, vv[0], acc[i]);
       acc[i] = fmaf(pv.y, vv[1], acc[i]);
       acc[i] = fmaf(pv.z, vv[2], acc[i]);
       acc[i] = fmaf(pv.w, vv[3], acc[i]);
+    }
+  }
+}
+
+// acc[i][u] = sum_c A[c][8 ty + i] * B[c][4 tx + u], and with D 80 also
+// tail[i] = sum_c A[c][8 ty + i] * B[c][64 + tx]  (A: [64][FA] tile read
+// down its columns, B: [64][FB]). Per c: two float4 reads of A (broadcast
+// to the 16 lanes of a row group), one of B, 32 FMAs.
+template <int FA, int FB, bool kTail>
+__device__ __forceinline__ void mm_atb(float (&acc)[8][4], float (&tail)[8],
+                                       const float* __restrict__ A, const float* __restrict__ B) {
+  const float* a = A + tid_y() * 8;
+  const float* b = B + tid_x() * 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    tail[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+  }
+#pragma unroll 4
+  for (int c = 0; c < kT; ++c) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + c * FA);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + c * FA + 4);
+    const float4 bv = *reinterpret_cast<const float4*>(b + c * FB);
+    const float w[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[i][0] = fmaf(w[i], bv.x, acc[i][0]);
+      acc[i][1] = fmaf(w[i], bv.y, acc[i][1]);
+      acc[i][2] = fmaf(w[i], bv.z, acc[i][2]);
+      acc[i][3] = fmaf(w[i], bv.w, acc[i][3]);
+    }
+    if constexpr (kTail) {
+      const float bt = B[c * FB + 64 + tid_x()];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) tail[i] = fmaf(w[i], bt, tail[i]);
     }
   }
 }
@@ -395,6 +458,132 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_tile(acc_v, dv + head, k0, T);
 }
 
+// K8: one block per (64-key tile, head), looping over every q tile of the
+// head. The thread's 8 x 4 tiles are (keys 8 ty + i) x (q rows tx + 16 j)
+// for the transposed scores, (keys 8 ty + i) x (dims 4 tx ..) for dk and
+// dv, and (q rows 8 ty + i) x (dims 4 tx ..) for the block's part of dq,
+// which is added into the fp32 dq (zeroed by the caller) with atomics.
+// Head dim 80 adds one column (dim 64 + tx) to each of the three.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                       int T, int kv_len, float prescale, float scale) {
+  static_assert(D == 64 || D == 80, "K8 takes head dim 64 or 80");
+  constexpr int F = D + 4;    // row stride of the [64][D] tiles
+  constexpr int FP = kT + 4;  // row stride of the [64 keys][64 q] tiles
+  constexpr bool kTail = D == 80;
+  constexpr float kInvLog2e = 0.6931471805599453f;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;               // [64][F] this block's keys
+  float* Vs = Ks + kT * F;        // [64][F]
+  float* Qs = Vs + kT * F;        // [64][F] qs = q * log2(e)/sqrt(D) of the current q tile
+  float* DOs = Qs + kT * F;       // [64][F]
+  float* PTs = DOs + kT * F;      // [64][FP] p^T of the current q tile
+  float* DSTs = PTs + kT * FP;    // [64][FP] ds^T (no scale)
+  float* lse_s = DSTs + kT * FP;  // [64]
+  float* delta_s = lse_s + kT;    // [64]
+  const int tx = tid_x(), ty = tid_y();
+  const int k0 = blockIdx.x * kT;
+  const size_t head = (size_t)blockIdx.y * T * D;
+  const size_t stats = (size_t)blockIdx.y * T;
+
+  float acc_k[8][4], acc_v[8][4], tail_k[8], tail_v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    tail_k[i] = tail_v[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc_k[i][u] = acc_v[i][u] = 0.f;
+  }
+  if (k0 < kv_len) {  // a tile of masked keys only has zero gradients
+    load_tile<D>(k + head, k0, T, Ks, 1.f);
+    load_tile<D>(v + head, k0, T, Vs, 1.f);
+    const int n_q = (T + kT - 1) / kT;
+    for (int it = 0; it < n_q; ++it) {
+      // the key tiles of a head start at different q tiles, so their dq
+      // atomics rarely meet on one address at one time
+      const int q0 = ((it + blockIdx.x) % n_q) * kT;
+      __syncthreads();  // Ks/Vs written; the previous tile's readers of Qs, DOs, PTs, DSTs are done
+      load_tile<D>(q + head, q0, T, Qs, prescale);
+      load_tile<D>(dout + head, q0, T, DOs, 1.f);
+      for (int i = threadIdx.x; i < kT; i += kThreads) {
+        lse_s[i] = q0 + i < T ? lse[stats + q0 + i] : 0.f;
+        delta_s[i] = q0 + i < T ? delta[stats + q0 + i] : 0.f;
+      }
+      __syncthreads();
+      {
+        float s[8][4], dp[8][4];
+        mm_abt<D>(dp, Vs, DOs);  // dp^T = v dO^T
+        mm_abt<D>(s, Ks, Qs);    // s^T = k qs^T
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const bool key_ok = k0 + ty * 8 + i < kv_len;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = tx + 16 * j;
+            const float p = key_ok && q0 + c < T ? exp2f(s[i][j] - lse_s[c]) : 0.f;
+            PTs[(ty * 8 + i) * FP + c] = p;
+            DSTs[(ty * 8 + i) * FP + c] = p * (dp[i][j] - delta_s[c]);
+          }
+        }
+      }
+      __syncthreads();
+      mm_ab_acc<FP, F>(acc_v, PTs, DOs);  // dv += p^T dO
+      mm_ab_acc<FP, F>(acc_k, DSTs, Qs);  // dk += ds^T qs
+      if constexpr (kTail) {
+        mm_ab_acc_tail<FP, F>(tail_v, PTs, DOs);
+        mm_ab_acc_tail<FP, F>(tail_k, DSTs, Qs);
+      }
+      float part[8][4], part_tail[8];
+      mm_atb<FP, F, kTail>(part, part_tail, DSTs, Ks);  // this key tile's ds k
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = q0 + ty * 8 + i;
+        if (r < T) {
+          float* row = dq + head + (size_t)r * D;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) atomicAdd(row + tx * 4 + u, part[i][u] * scale);
+          if constexpr (kTail) atomicAdd(row + 64 + tx, part_tail[i] * scale);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = k0 + ty * 8 + i;
+    if (r < T) {
+      float* row_k = dk + head + (size_t)r * D;
+      float* row_v = dv + head + (size_t)r * D;
+      *reinterpret_cast<float4*>(row_k + tx * 4) =
+          make_float4(acc_k[i][0] * kInvLog2e, acc_k[i][1] * kInvLog2e, acc_k[i][2] * kInvLog2e,
+                      acc_k[i][3] * kInvLog2e);
+      *reinterpret_cast<float4*>(row_v + tx * 4) =
+          make_float4(acc_v[i][0], acc_v[i][1], acc_v[i][2], acc_v[i][3]);
+      if constexpr (kTail) {
+        row_k[64 + tx] = tail_k[i] * kInvLog2e;
+        row_v[64 + tx] = tail_v[i];
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_flash_backward_fused(const float* q, const float* k, const float* v, const float* dout,
+                                const float* lse, const float* delta, float* dq, float* dk,
+                                float* dv, int BH, int T, int kv_len, float prescale, float scale,
+                                cudaStream_t stream) {
+  const size_t smem = 4 * tile_bytes<D>() + 2 * (size_t)kT * (kT + 4) * sizeof(float) +
+                      2 * kT * sizeof(float);
+  cudaError_t err = allow_smem(flash_bwd_fused_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + kT - 1) / kT, BH);
+  flash_bwd_fused_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq, dk,
+                                                               dv, T, kv_len, prescale, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K7: q, k, v [BH, T, D] fp32 contiguous, D 64 or 80 -> out [BH, T, D] fp32
@@ -430,4 +619,23 @@ extern "C" int fsat_flash_backward(const float* q, const float* k, const float* 
   flash_bwd_dkv_kernel<<<grid, kThreads, smem_dkv, st>>>(q, k, v, dout, lse, delta, dk, dv, T,
                                                           kv_len, scale_log2e, scale);
   return (int)cudaGetLastError();
+}
+
+// K8: q, k, v, out's dO [BH, T, D] fp32 (D 64 or 80), lse/delta [BH, T] fp32
+// -> dk, dv [BH, T, D] fp32, and dq [BH, T, D] fp32 added into (the caller
+// zeroes it). prescale = log2(e)/sqrt(D), scale = 1/sqrt(D). One launch.
+// Returns cudaErrorInvalidValue for another D.
+extern "C" int fsat_flash_backward_fused(const float* q, const float* k, const float* v,
+                                         const float* dout, const float* lse, const float* delta,
+                                         float* dq, float* dk, float* dv, int BH, int T,
+                                         int kv_len, int D, float prescale, float scale,
+                                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64)
+    return launch_flash_backward_fused<64>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
+                                           prescale, scale, st);
+  if (D == 80)
+    return launch_flash_backward_fused<80>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
+                                           prescale, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

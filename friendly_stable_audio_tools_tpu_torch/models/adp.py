@@ -11,9 +11,11 @@ the `blocks` entries "1" and "2".
 The convolutions, norms and projections are plain PyTorch, as the JAX
 package leaves them to XLA (ops/convs.py:conv1d). The self-attention goes
 through ops/attention.py:scaled_dot_product_attention with the JAX gate: on
-the card, T >= 1024 runs the flash kernel K7 without its log-sum-exp (at
-Stable Audio 1.0's widths T 4096 and 2048 at head dim 64, T 1024 at head dim
-80); the T 256 levels and every cross-attention (79 keys) stay plain.
+the card, T >= 1024 (at Stable Audio 1.0's widths T 4096 and 2048 at head
+dim 64, T 1024 at head dim 80) runs the flash kernel K7 without its
+log-sum-exp when it serves, and in training K7 with it and the single-pass
+backward K8; the T 256 levels and every cross-attention (79 keys) stay
+plain.
 
 Numerics as the JAX modules: GELU is the tanh approximation (jax.nn.gelu's
 default); LayerNorm eps 1e-6 (flax's default); ConvBlock1d's GroupNorm eps
@@ -21,7 +23,7 @@ default); LayerNorm eps 1e-6 (flax's default); ConvBlock1d's GroupNorm eps
 multiplies k and v by the context mask rather than masking logits.
 
 Not in the port (they raise): STFT wrapping, Snake in the resnet blocks,
-UNetNCCA1d, XUNet1d, and CFG dropout in training.
+UNetNCCA1d and XUNet1d.
 """
 
 from __future__ import annotations
@@ -556,7 +558,11 @@ class UNetCFG1d(nn.Module):
     embedding (JAX adp.py:658): with embedding_scale != 1, the batch is
     doubled (conditioned | null or negative embedding) or run twice, the
     halves combined, and, with rescale_cfg, the result's std over the
-    channel axis pulled towards the conditioned output's by scale_phi."""
+    channel axis pulled towards the conditioned output's by scale_phi.
+    In training with embedding_mask_proba > 0 (CFG dropout, JAX :749-752),
+    each batch row's embedding becomes the null one where a Bernoulli draw
+    of that probability from `generator` is set, or where
+    `cfg_dropout_mask` [B] is True when given; the embedding mask stays."""
 
     def __init__(self, context_embedding_max_length: int, context_embedding_features: int,
                  in_channels: int, channels: int, multipliers: tp.Sequence[int],
@@ -580,9 +586,9 @@ class UNetCFG1d(nn.Module):
                 rescale_cfg: bool = False, scale_phi: float = 0.4,
                 negative_embedding: tp.Optional[torch.Tensor] = None,
                 negative_embedding_mask: tp.Optional[torch.Tensor] = None,
-                features: tp.Optional[torch.Tensor] = None, channels_list=None) -> torch.Tensor:
-        if embedding_mask_proba > 0.0 and self.training:
-            raise NotImplementedError("CFG dropout (training the ADP U-Net) is not in the torch port")
+                features: tp.Optional[torch.Tensor] = None, channels_list=None,
+                cfg_dropout_mask: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
         b = embedding.shape[0]
         if self.use_xattn_time:
             t_emb = gelu(self.to_time_embedding_lin(self.to_time_embedding_pos(time)))
@@ -590,6 +596,12 @@ class UNetCFG1d(nn.Module):
             if embedding_mask is not None:
                 embedding_mask = torch.cat([embedding_mask, embedding_mask.new_ones(b, 1)], dim=1)
         fixed = self.fixed_embedding(embedding).to(embedding.dtype)
+        if embedding_mask_proba > 0.0 and self.training:
+            if cfg_dropout_mask is None:
+                cfg_dropout_mask = torch.rand(b, generator=generator,
+                                              device=embedding.device) < embedding_mask_proba
+            drop = cfg_dropout_mask.to(device=embedding.device, dtype=torch.bool)[:, None, None]
+            embedding = torch.where(drop, fixed, embedding)
         kw = dict(features=features, channels_list=channels_list)
         if embedding_scale == 1.0:
             return self.unet(x, time, embedding=embedding, embedding_mask=embedding_mask, **kw)

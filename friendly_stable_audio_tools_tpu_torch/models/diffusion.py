@@ -27,7 +27,10 @@ class UNetCFG1DWrapper(UNetCFG1d):
     global conditions the features, cfg_scale the embedding scale. The
     sampler's `scale_phi` is not passed on, as the JAX adapter consumes it:
     the U-Net's CFG rescale keeps its own 0.4. `batch_cfg` and `rescale_cfg`
-    default to the JAX generation's sampler call (inference/generation.py:303-309)."""
+    default to the JAX generation's sampler call (inference/generation.py:303-309).
+    The training step's `cfg_dropout_prob` becomes the U-Net's
+    `embedding_mask_proba`, with its `cfg_dropout_mask` and `generator` for
+    the draw."""
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 cross_attn_cond: tp.Optional[torch.Tensor] = None,
@@ -36,12 +39,15 @@ class UNetCFG1DWrapper(UNetCFG1d):
                 negative_cross_attn_cond: tp.Optional[torch.Tensor] = None,
                 negative_cross_attn_mask: tp.Optional[torch.Tensor] = None,
                 cfg_scale: float = 1.0, scale_phi: float = 0.0, batch_cfg: bool = True,
-                rescale_cfg: bool = True) -> torch.Tensor:
+                rescale_cfg: bool = True, cfg_dropout_prob: float = 0.0,
+                cfg_dropout_mask: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
         return super().forward(
             x, t, embedding=cross_attn_cond, embedding_mask=cross_attn_mask, features=global_embed,
-            embedding_scale=cfg_scale, batch_cfg=batch_cfg, rescale_cfg=rescale_cfg,
-            negative_embedding=negative_cross_attn_cond,
-            negative_embedding_mask=negative_cross_attn_mask)
+            embedding_scale=cfg_scale, embedding_mask_proba=cfg_dropout_prob, batch_cfg=batch_cfg,
+            rescale_cfg=rescale_cfg, negative_embedding=negative_cross_attn_cond,
+            negative_embedding_mask=negative_cross_attn_mask, cfg_dropout_mask=cfg_dropout_mask,
+            generator=generator)
 
 
 class ConditionedDiffusionModelWrapper(nn.Module):

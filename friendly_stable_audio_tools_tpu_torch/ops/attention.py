@@ -9,9 +9,13 @@ kernel, and so does this port.
 
 :func:`scaled_dot_product_attention` is the JAX function (:35) with its gate
 (:58-69, :func:`flash_gate`, without its FSAT_* switches): long unmasked
-self-attention on the card goes to the flash kernel K7 without its
-log-sum-exp (ops/kernels/flash_attention.py); everything else, and every
-CPU tensor, takes the plain path. The ADP U-Net's self-attention uses it.
+self-attention on the card goes to the flash kernels of
+ops/kernels/flash_attention.py, as the JAX package sends it to
+`flash_attention` (the ``_flash`` custom_vjp). Under grad that is
+``FlashAttention`` (K7 with its log-sum-exp, then K8 or K9 on the way
+back); otherwise K7 without the log-sum-exp. Everything else, and every
+CPU tensor, takes the plain path, as the JAX package on the CPU takes
+`_xla_attention`. The ADP U-Net's self-attention uses it.
 """
 
 from __future__ import annotations
@@ -32,20 +36,33 @@ def flash_gate(t_q: int, t_k: int, head_dim: int, masked: bool, causal: bool = F
             and t_k >= 512)
 
 
+def uses_kernels(x: torch.Tensor) -> bool:
+    """Whether a tensor goes to the kernels (a CUDA tensor) or stays on the
+    plain path (a CPU tensor), as the JAX gate reads the backend. A function
+    of its own so that tests can force the kernel route on CPU tensors, where
+    the kernels' wrappers run their plain versions."""
+    return x.device.type != "cpu"
+
+
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, Hkv, Tk, D], mask [B, Tk] (True = attend) ->
     [B, H, Tq, D]. Non-causal. On a CUDA tensor that :func:`flash_gate`
-    admits, K7 computes it (fp32, D 64 or 80; other cases raise there)."""
+    admits, the flash kernels compute it (fp32, D 64 or 80; other cases
+    raise there): under grad, when q, k or v needs a gradient,
+    ``FlashAttention`` (K7 with its LSE, then K8 or K9), else K7 alone."""
     b, h, t_q, d = q.shape
-    if q.device.type == "cpu" or not flash_gate(t_q, k.shape[-2], d, mask is not None):
+    if not (uses_kernels(q) and flash_gate(t_q, k.shape[-2], d, mask is not None)):
         return attention(q, k, v, mask)
     if k.shape[1] != h:
         k = k.repeat_interleave(h // k.shape[1], dim=1)
         v = v.repeat_interleave(h // v.shape[1], dim=1)
     t_k = k.shape[-2]
-    out, _ = flash.flash_forward(q.reshape(b * h, t_q, d), k.reshape(b * h, t_k, d),
-                                 v.reshape(b * h, t_k, d), save_stats=False)
+    q, k, v = q.reshape(b * h, t_q, d), k.reshape(b * h, t_k, d), v.reshape(b * h, t_k, d)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = flash.FlashAttention.apply(q, k, v)
+    else:
+        out, _ = flash.flash_forward(q, k, v, save_stats=False)
     return out.view(b, h, t_q, d)
 
 

@@ -1,6 +1,7 @@
 """Head-split attention on ``[B*H, T, D]`` tensors: the forward with or
-without its base-2 log-sum-exp (K7), the two-pass FlashAttention-2 backward
-(K9), their plain versions and their autograd binding.
+without its base-2 log-sum-exp (K7), the single-pass backward (K8), the
+two-pass FlashAttention-2 backward (K9), their plain versions and their
+autograd binding.
 
 Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
 
@@ -8,43 +9,56 @@ Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
   with ``save_stats`` (training) or without (serving):
   ``_single_dot_kernel`` (:121) + ``_single_dot_core`` (:93), what it runs
   for t_k <= 8192;
+* K8 ``_flash_backward_fused`` (:426, call :451; ``_bwd_fused_kernel``
+  :367), the non-causal single pass that ``_flash_backward`` takes wherever
+  its VMEM plan (:406-423, :func:`bwd_fused_plan`) fits;
 * K9 ``_flash_backward`` (:565) in its non-causal two-pass case:
   ``_bwd_dq_kernel`` (:477, call :605) and ``_bwd_dkv_kernel`` (:518, call
-  :621), with FA2's delta = rowsum(dO * O) computed beside them (:597-603);
-* the ``_flash`` custom_vjp (:646-663) becomes :class:`FlashAttention`.
+  :621), with FA2's delta = rowsum(dO * O) computed beside them (:597-603),
+  as it is beside K8;
+* the ``_flash`` custom_vjp (:646-663) becomes :class:`FlashAttention`, whose
+  backward :func:`flash_attention_backward` chooses K8 or K9 as the JAX
+  package does (:576-579).
 
 The DiT's self-attention takes this path under grad beyond 1168 tokens
-(Stable Audio 2.0: 6145 tokens padded to 6272, kv_len 6145), through the
-unpack route of ops/kernels/attention.py; the ADP U-Net's self-attention
-(Stable Audio 1.0) takes K7 without the LSE wherever the gate of
-ops/attention.py sends it (T 4096 and 2048 at D 64, T 1024 at D 80). What
-it computes, per head, in the input dtype (fp32 on both paths: the JAX
-training step and the JAX CLI's model are fp32)::
+(Stable Audio 2.0: 6145 tokens padded to 6272, kv_len 6145: K9), through
+the unpack route of ops/kernels/attention.py. The ADP U-Net's
+self-attention (Stable Audio 1.0), wherever the gate of ops/attention.py
+sends it (T 4096 and 2048 at D 64, T 1024 at D 80), takes K7 without the
+LSE when it serves and :class:`FlashAttention` (K7 with the LSE, then K8:
+its plan fits at all three lengths) when it trains. What they compute, per
+head, in the input dtype (fp32 on every path: the JAX training step and
+the JAX CLI's model are fp32)::
 
     forward:  q' = q * log2(e)/sqrt(D), s = q' k^T (keys >= kv_len masked),
               p = exp2(s - rowmax(s)), out = (p v) / max(l, 1e-30),
               lse = rowmax(s) + log2(max(l, 1e-30)), l = rowsum(p)
-    backward: s = (q k^T) * log2(e)/sqrt(D), p = exp2(s - lse), dp = dO v^T,
+    K8:       qs = q * log2(e)/sqrt(D), s = qs k^T, p = exp2(s - lse),
+              ds = p * (dO v^T - delta), dq = (ds k) / sqrt(D),
+              dk = (ds^T qs) / log2(e), dv = p^T dO
+    K9:       s = (q k^T) * log2(e)/sqrt(D), p = exp2(s - lse), dp = dO v^T,
               ds = p * (dp - delta) / sqrt(D),
               dq = ds k, dk = ds^T q, dv = p^T dO
 
 What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
 forward's two products are 1.86 TFLOP over ~1.2 GB; the function's
-backward is five products (4.64 TFLOP), which the two-pass form does as
-seven. The products must stay fp32-accurate (1xTF32 keeps ~3 digits), so
-the kernels (csrc/flash_attention.cu) run them as FFMA on the CUDA cores,
-register-tiled 8 x 4 per thread from 64 x 64 fp32 tiles in shared memory;
-K7 streams key tiles through an online base-2 softmax, which gives the TPU
-kernel's whole-row softmax up to rounding. The reference's other backward,
-K8 (``_flash_backward_fused`` :426, one pass), runs wherever its VMEM plan
-(:406-423) fits; it is not ported, so :func:`flash_attention_backward`
-raises there for CUDA tensors. At T = 6272 the plan fails and K9 runs.
+backward is five products (4.64 TFLOP), which K8 does as five and the
+two-pass form as seven. The products must stay fp32-accurate (1xTF32 keeps
+~3 digits), so the kernels (csrc/flash_attention.cu) run them as FFMA on
+the CUDA cores, register-tiled 8 x 4 per thread from 64 x 64 fp32 tiles in
+shared memory; K7 streams key tiles through an online base-2 softmax, which
+gives the TPU kernel's whole-row softmax up to rounding. The TPU's K8
+carries dk/dv across a sequential q grid with K and V resident in VMEM;
+the CUDA K8 is FlashAttention-2's single pass instead: one block per key
+tile keeps dk/dv in registers over every q tile and adds its part of dq
+into a zeroed fp32 buffer with atomics, so dq's summation order (and its
+last bits) changes from run to run.
 
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
 the kernels or raise. The CUDA kernels take fp32 and q, k and v of one
-length; K7 head dim 64 or 80, K9 head dim 64. The other variants of the TPU
-kernel (bf16, causal, the rope-fused one, the online one beyond 8192 keys,
-K9 at D 80) are still to be ported (ROADMAP queue B).
+length; K7 and K8 head dim 64 or 80, K9 head dim 64. The other variants of
+the TPU kernels (bf16, causal, the rope-fused one, the online one beyond
+8192 keys, K9 at D 80) are still to be ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ from . import build
 forward_launches = 0   # K7 with its LSE (training)
 serving_launches = 0   # K7 without it (serving)
 backward_launches = 0  # K9 (one dq pass and one dk/dv pass per count)
+fused_backward_launches = 0  # K8
 
 LOG2E = 1.4426950408889634
 # fp32 score bytes one chunk of heads of a plain version may hold (one
@@ -132,6 +147,31 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out:
     return dq, dk, dv
 
 
+def flash_backward_fused_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                               kv_len: tp.Optional[int] = None):
+    """K8's formula in its own order (``_bwd_fused_kernel``): q prescaled by
+    log2(e)/sqrt(D) and rounded to its dtype, ds without the scale, the scale
+    on dq and dk through qs / log2(e). (dq, dk, dv) [BH, T, D] in q's dtype."""
+    dt = q.dtype
+    bh, t, d = q.shape
+    valid = _valid_len(k.shape[1], kv_len)
+    scale = 1.0 / math.sqrt(d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for h0, h1 in _head_chunks(bh, t, k.shape[1]):
+        kf, vf, dof = (x[h0:h1].float() for x in (k, v, do))
+        qs = (q[h0:h1].float() * (scale * LOG2E)).to(dt).float()
+        delta = (dof * out[h0:h1].float()).sum(-1, keepdim=True)
+        s = _masked(qs @ kf.transpose(-1, -2), valid)
+        p = s.sub_(lse[h0:h1].float()[..., None]).exp2_()
+        ds = (p * (dof @ vf.transpose(-1, -2) - delta)).to(dt).float()
+        dq[h0:h1] = ((ds @ kf) * scale).to(dt)
+        dk[h0:h1] = ((ds.transpose(-1, -2) @ qs) * (1.0 / LOG2E)).to(dt)
+        dv[h0:h1] = (p.to(dt).float().transpose(-1, -2) @ dof).to(dt)
+        del s, p, ds
+    return dq, dk, dv
+
+
 def bwd_fused_fits(bq: int, t_kp: int, d: int) -> bool:
     """K8's VMEM budget (flash_attention.py:406): score, dp, p and ds tiles
     plus resident K/V, fp32 dk/dv accumulators and the q-side tiles."""
@@ -156,8 +196,8 @@ def backward_kernel(t_q: int, t_k: int, d: int) -> str:
     return "K8" if bwd_fused_plan(t_q, (t_k + 15) // 16 * 16, d) is not None else "K9"
 
 
-FORWARD_HEAD_DIMS = (64, 80)  # K7's CUDA kernel
-BACKWARD_HEAD_DIMS = (64,)    # K9's
+FLASH_HEAD_DIMS = (64, 80)  # K7's and K8's CUDA kernels
+BACKWARD_HEAD_DIMS = (64,)  # K9's
 
 
 def _cuda_args(name: str, *tensors: torch.Tensor, head_dims=BACKWARD_HEAD_DIMS):
@@ -181,6 +221,17 @@ def _cuda_args(name: str, *tensors: torch.Tensor, head_dims=BACKWARD_HEAD_DIMS):
     return [x.contiguous() for x in tensors]
 
 
+def _lse_delta(name: str, lse: torch.Tensor, out: torch.Tensor, do: torch.Tensor):
+    """Checks the LSE; returns it contiguous and FA2's delta = rowsum(dO * O),
+    computed once beside the backward kernels (as the JAX package computes it
+    in XLA, flash_attention.py:597-603)."""
+    bh, t, _ = out.shape
+    if lse.shape != (bh, t) or lse.dtype != torch.float32 or lse.device != out.device:
+        raise ValueError(f"{name}: lse must be [B*H, T] fp32 on {out.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    return lse.contiguous(), (do * out).sum(-1)
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -193,7 +244,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = _valid_len(k.shape[1], kv_len)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, kv_len, save_stats)
-    q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FORWARD_HEAD_DIMS)
+    q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FLASH_HEAD_DIMS)
     bh, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
@@ -218,13 +269,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
         return flash_backward_plain(q, k, v, out, lse, do, kv_len)
     q, k, v, out, do = _cuda_args("flash_backward", q, k, v, out, do)
     bh, t, d = q.shape
-    if lse.shape != (bh, t) or lse.dtype != torch.float32 or lse.device != q.device:
-        raise ValueError(f"flash_backward: lse must be [B*H, T] fp32 on {q.device}, got "
-                         f"{tuple(lse.shape)} {lse.dtype}")
-    lse = lse.contiguous()
-    # FA2's delta = rowsum(dO * O), once beside the kernels (as the JAX
-    # package computes it in XLA, flash_attention.py:597-603)
-    delta = (do * out).sum(-1)
+    lse, delta = _lse_delta("flash_backward", lse, out, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = build.library().fsat_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -235,24 +280,43 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     return dq, dk, dv
 
 
+def flash_backward_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                         lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None):
+    """K8: (dq, dk, dv) [BH, T, D] (D 64 or 80) from q, k, v, K7's out and
+    lse, and dL/d(out), in one launch."""
+    global fused_backward_launches
+    valid = _valid_len(k.shape[1], kv_len)
+    if q.device.type == "cpu":
+        return flash_backward_fused_plain(q, k, v, out, lse, do, kv_len)
+    q, k, v, out, do = _cuda_args("flash_backward_fused", q, k, v, out, do,
+                                  head_dims=FLASH_HEAD_DIMS)
+    bh, t, d = q.shape
+    lse, delta = _lse_delta("flash_backward_fused", lse, out, do)
+    dq = torch.zeros_like(q)  # the key tiles add their parts into it
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = build.library().fsat_flash_backward_fused(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid, d,
+        LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
+    build.check(err, "flash_backward_fused")
+    fused_backward_launches += 1
+    return dq, dk, dv
+
+
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                              kv_len: tp.Optional[int] = None):
     """The backward of the training path as the JAX package chooses it
-    (``_flash_backward``, flash_attention.py:576-579): K8 where its plan fits
-    (not ported: a CUDA tensor raises), else K9. CPU tensors take K9's plain
-    version, which computes the same function as K8."""
-    if q.device.type != "cpu" and backward_kernel(q.shape[1], k.shape[1], q.shape[2]) == "K8":
-        raise NotImplementedError(
-            f"flash_attention_backward: at T = {q.shape[1]} the JAX package runs the single-pass "
-            f"backward K8 (flash_attention.py:426, _flash_backward_fused), which the torch port "
-            f"has not ported")
+    (``_flash_backward``, flash_attention.py:576-579): K8 where its plan
+    fits, else K9 (each its plain version for CPU tensors)."""
+    if backward_kernel(q.shape[1], k.shape[1], q.shape[2]) == "K8":
+        return flash_backward_fused(q, k, v, out, lse, do, kv_len)
     return flash_backward(q, k, v, out, lse, do, kv_len)
 
 
 class FlashAttention(torch.autograd.Function):
-    """K7 with its LSE forward, K9 backward (the ``_flash`` custom_vjp) on
-    q, k, v [BH, T, D]; kv_len takes no gradient."""
+    """K7 with its LSE forward, K8 or K9 backward (the ``_flash`` custom_vjp)
+    on q, k, v [BH, T, D]; kv_len takes no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len=None):

@@ -11,8 +11,11 @@ the CPU through the kernels' plain versions. On the card the DiT trains in
 fp32 with its self-attention routed as the JAX package routes it
 (ops/kernels/attention.py:training_route): up to 1168 tokens through the
 pair kernels K5/K6, which cast to bf16 as the JAX pair path does; longer
-sequences through K7/K9 in fp32. The frozen VAE encodes in fp32 through the
-fp32 K2/K3 (in bf16 only where the config sets `model_half`). TF32 is off
+sequences through K7 and K8 or K9 in fp32. Stable Audio 1.0's ADP U-Net
+trains in fp32 with its self-attention at T >= 1024 through K7 (with its
+LSE) and K8 (ops/attention.py). The frozen VAE encodes in fp32 through the
+fp32 K2/K3 (the DAC encoder: K2 only; in bf16 only where the config sets
+`model_half`). TF32 is off
 for matrix products and convolutions, so plain fp32 layers compute in fp32.
 Without `--pretrained-ckpt-path` the weights are random, drawn from
 `--seed`. Checkpoints (`torch.save`) go to

@@ -1,10 +1,12 @@
 """Conditioned diffusion training (counterpart of
 friendly_stable_audio_tools_tpu/training/diffusion.py:DiffusionCondTrainingWrapper :84-390).
 
-One step: conditioner embeddings (trainable number conditioners, frozen T5),
-frozen VAE encode of the raw audio (posterior mean, under torch.no_grad()),
-v-objective noising at quasi-random timesteps, the DiT forward with CFG
-dropout and backward, then AdamW + InverseLR and the EMA of the DiT's
+One step: conditioner embeddings (trainable number or int conditioners,
+frozen T5 or CLAP), frozen VAE encode of the raw audio (posterior mean,
+under torch.no_grad()), v-objective noising at quasi-random timesteps, the
+backbone's forward with CFG dropout and backward (the DiT, or Stable Audio
+1.0's ADP U-Net), then the optimizer (AdamW + InverseLR, or the Adam of a
+config that sets only `learning_rate`) and the EMA of the backbone's
 parameters. Gradient accumulation splits the batch into micro-batches whose
 gradients average into one update. Every random draw comes from the
 wrapper's `torch.Generator`; the tests pass the draws in instead
@@ -51,11 +53,11 @@ class DiffusionCondTrainingWrapper:
     """Owns the trainable/frozen split, the optimizer, the schedule, the EMA
     and the step and quasi-random counters of one `diffusion_cond` model
     trained from raw audio with the v objective and quasi-random uniform
-    timesteps (the settings of Stable Audio Open's config).
+    timesteps (the settings of the Stable Audio configs).
 
-    Trainable: the DiT and every conditioner whose `trainable` is not False
-    (the JAX package's `Conditioner.trainable`: T5 is frozen, CLAP unless
-    `finetune`); frozen: those and the pretransform."""
+    Trainable: the backbone and every conditioner whose `trainable` is not
+    False (the JAX package's `Conditioner.trainable`: T5 is frozen, CLAP
+    unless `finetune`); frozen: those and the pretransform."""
 
     def __init__(self, model, lr: tp.Optional[float] = None, use_ema: bool = True,
                  optimizer_configs: tp.Optional[dict] = None, cfg_dropout_prob: float = 0.1):
@@ -179,8 +181,8 @@ class DiffusionCondTrainingWrapper:
         self.step, self.qmc_counter = int(state["step"]), int(state["qmc_counter"])
 
     def export_model(self, path: str) -> None:
-        """EMA-preferring export (JAX :372): the DiT's weights (the EMA when
-        kept) plus the trained conditioners, as a state_dict of the wrapper."""
+        """EMA-preferring export (JAX :372): the backbone's weights (the EMA
+        when kept) plus the trained conditioners, as a state_dict of the wrapper."""
         names = [n for n, _ in self.model.model.named_parameters()]
         dit = self.ema if self.ema is not None else [p.detach() for p in self.model.model.parameters()]
         sd = {f"model.{n}": v for n, v in zip(names, dit)}

@@ -1,8 +1,9 @@
 """Training-wrapper and demo-callback factories (counterpart of
 friendly_stable_audio_tools_tpu/training/factory.py). The port trains the
-`diffusion_cond` model type (the `diffusion_cond` branch, :67-82) with the
-settings Stable Audio Open's config uses; the other trainers, the demo
-callbacks and the training options below raise NotImplementedError."""
+`diffusion_cond` model type (the `diffusion_cond` branch, :67-82) with
+either backbone (the DiT of Stable Audio Open and 2.0, the ADP U-Net of
+Stable Audio 1.0) and the settings their configs use; the other trainers,
+the demo callbacks and the training options below raise NotImplementedError."""
 
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ no JAX, and tests/conftest.py imports it, so run this file there with
 are bf16 unless a test says otherwise; tolerance: rel-L2 1e-2 (one bf16
 rounding of the output apart, with attention's online softmax rounding P
 against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
-activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4).
+activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4); K8's
+dq, whose parts arrive through atomics in a varying order, to 1e-5 too.
 """
 
 import pytest
@@ -170,7 +171,7 @@ def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
     goes through K7 twice (the forward and a checkpointed recompute) and K9
     once, never K5/K6, and qkv.grad is within rel-L2 1e-4 of autograd through
     the fp32 plain attention; at T = 1184, where the JAX package's backward
-    is K8 (not ported), the backward raises."""
+    is K8, K7 once and K8 once, within the same tolerance."""
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
 
     t, h = 1424, 2
@@ -191,10 +192,38 @@ def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
     _close(qkv.grad, ref.grad, tol=1e-4)
 
     t = 1184
-    qkv = _rnd(gen, 1, t, 3 * h * 64, scale=0.5).requires_grad_(True)
-    out = tattn.fused_qkv_rope_attention(qkv, rotary_freqs(t, 32, device="cuda"), h)
-    with pytest.raises(NotImplementedError, match="K8"):
-        out.sum().backward()
+    f = rotary_freqs(t, 32, device="cuda")
+    x = _rnd(gen, 1, t, 3 * h * 64, scale=0.5)
+    g = _rnd(gen, 1, t, h * 64)
+    before = counts() + (tflash.fused_backward_launches,)
+    qkv = x.clone().requires_grad_(True)
+    tattn.fused_qkv_rope_attention(qkv, f, h).backward(g)
+    assert counts() + (tflash.fused_backward_launches,) == (
+        before[0] + 1, before[1], before[2], before[3], before[4] + 1)
+    ref = x.clone().requires_grad_(True)
+    tattn.fused_qkv_rope_attention_plain(ref, f, h).backward(g)
+    _close(qkv.grad, ref.grad, tol=1e-4)
+
+
+@pytest.mark.parametrize("bh,t,d,kv", [(3, 200, 80, 190), (2, 1184, 64, 1177), (4, 1024, 80, None)])
+def test_flash_backward_fused_matches_plain_in_fp32(gen, bh, t, d, kv):
+    """K8 (one launch) against its plain version from the same residuals:
+    dq, dk, dv rel-L2 1e-5 each, exactly zero on padded rows; other head
+    dims raise."""
+    q, k, v, do = (_rnd(gen, bh, t, d) for _ in range(4))
+    if kv is not None:
+        do[:, kv:] = 0
+    out, lse = tflash.flash_forward_plain(q, k, v, kv)
+    before = tflash.fused_backward_launches
+    grads = tflash.flash_backward_fused(q, k, v, out, lse, do, kv)
+    assert tflash.fused_backward_launches == before + 1
+    for got, want in zip(grads, tflash.flash_backward_fused_plain(q, k, v, out, lse, do, kv)):
+        _close(got, want, tol=1e-5)
+        if kv is not None:
+            assert not got[:, kv:].any()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        tflash.flash_backward_fused(*(x[..., :48].contiguous() for x in (q, k, v, out)),
+                                    lse, do[..., :48].contiguous(), kv)
 
 
 def test_fp32_conv_kernels_match_plain(gen):
@@ -247,6 +276,24 @@ def test_sdpa_gate_sends_long_self_attention_to_k7(gen):
     ctx = _rnd(gen, 2, 16, 79, 80)
     tattention.scaled_dot_product_attention(q, ctx, ctx)  # 79 keys: plain
     assert tflash.serving_launches == before + 1
+
+
+def test_sdpa_gate_under_grad_goes_through_k7_with_lse_and_k8(gen):
+    """The ADP U-Net's gated self-attention under grad: K7 with its LSE once
+    and K8 once (no serving launch), gradients within rel-L2 1e-5 of
+    autograd through the plain attention."""
+    x = [_rnd(gen, 2, 16, 1024, 80, scale=0.5) for _ in range(3)]
+    g = _rnd(gen, 2, 16, 1024, 80)
+    counts = lambda: (tflash.forward_launches, tflash.serving_launches,  # noqa: E731
+                      tflash.fused_backward_launches)
+    before = counts()
+    q, k, v = (a.clone().requires_grad_(True) for a in x)
+    got = torch.autograd.grad(tattention.scaled_dot_product_attention(q, k, v), (q, k, v), g)
+    assert counts() == (before[0] + 1, before[1], before[2] + 1)
+    q, k, v = (a.clone().requires_grad_(True) for a in x)
+    want = torch.autograd.grad(tattention.attention(q, k, v), (q, k, v), g)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
 
 
 def test_inference_attention_casts_fp32_qkv_to_bf16(gen):
