@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
 on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, Stable
-Audio 2.0 long-form text-to-audio and training, and Stable Audio 1.0
-text-to-audio and training, at full width.
+Audio 2.0 long-form text-to-audio and training, Stable Audio 1.0
+text-to-audio and training, and audio-LM training (MusicGen small's
+widths), at full width.
 
     python3 chip_smoke.py
 
@@ -33,6 +34,11 @@ Phases (any failure raises and the script exits non-zero):
    shapes at 4,194,304 samples (26 calls per clip, 8 clips per SA 1.0
    training step); K7 without its LSE at the ADP U-Net's self-attention
    (B 2 x 16 heads: T 4096 and 2048 at head dim 64, T 1024 at head dim 80);
+   3h. the causal K7 with and without its LSE and the causal K9 against
+   their plain versions in fp32 at the audio LM's shape (B 8 x 16 heads, T
+   1501, D 64) and at T 1100, with bounds counted on the causal triangle and
+   SDPA's causal fp32 times; the fp32 K2 at the LM's SEANet encode shapes
+   (B 8 x 960,000 samples, 10 calls per training step);
    3g. the fp32 single-pass backward K8 against its plain version at the
    ADP U-Net's training shapes (B 8 x 16 heads: T 4096 and 2048 at head dim
    64, T 1024 at head dim 80), at a DiT shape where K8's plan fits (B 2 x 24
@@ -98,7 +104,21 @@ Phases (any failure raises and the script exits non-zero):
    batch 8, 3 steps: step time, trained audio per second, the split, peak
    memory, finite losses, moved weights and the launch counts (K7 with its
    LSE 14 and K8 14 per step, the DAC encoder's fp32 K2 26 per clip,
-   nothing else).
+   nothing else);
+12b. one training step of the audio LM (musicgen_small_32khz.json: 24
+   causal layers 1024 wide, 16 heads of 64; random weights, de-zeroed) at
+   batch 8 on 30 s of audio (1500 frames, T 1501 with the delay pattern),
+   fixed CFG-dropout draws: the causal self-attention through the causal K7
+   with its LSE and the causal K9 against their plain versions (loss within
+   1e-5, all gradients within rel-L2 1e-4), and one no-grad forward through
+   the causal K7 without its LSE; launches asserted (tokenize: fp32 K2 10;
+   step: causal K7 24, causal K9 24; forward: causal K7 without LSE 24);
+12. the audio-LM training path: `train.main` on musicgen_small_32khz.json
+   as written (T5-base, CFG dropout 0.1, AdamW 1e-4) from 8 synthetic 31 s
+   mono 32 kHz WAVs, batch 8, 3 steps: step time, trained audio and tokens
+   per second, the split (tokenize, T5, LM forward + backward, AdamW), peak
+   memory, finite losses, moved weights and the launch counts (causal K7 24,
+   causal K9 24, fp32 K2 10 per step, nothing else).
 
 Output: progress lines with each phase's wall, then one JSON line of
 per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
@@ -165,6 +185,14 @@ SA1_TRAIN_ATTENTION = [(SA1_SAMPLE_SIZE // 1024, 64, 2), (SA1_SAMPLE_SIZE // 204
 SA1_WAVS = 8
 SA1_WAV_SECONDS = 96
 SA1_TRAIN_STEPS = 3
+# the audio LM (phases 3h, 12b, 12): MusicGen small's widths, 30 s of 32 kHz
+# mono = 1500 frames of the EnCodec-style tokenizer, 1501 steps of the delay
+# pattern (its valid steps); 16 heads of 64, 24 causal layers
+LM_CONFIG = REPO / "friendly_stable_audio_tools_tpu_torch/configs/lm/musicgen_small_32khz.json"
+LM_T, LM_HEADS, LM_LAYERS = 1501, 16, 24
+LM_WAVS = 8
+LM_WAV_SECONDS = 31
+LM_TRAIN_STEPS = 3
 
 # tolerances of the kernel-vs-plain compares (bf16 in and out; both sides
 # accumulate in fp32 and round the result once, in different orders):
@@ -203,6 +231,11 @@ TOL = {
     "snake_conv1d_f32": (1e-5, 1e-4),
     "fused_residual_unit_f32": (1e-5, 1e-4),
     "snake_conv_transpose1d_f32": (1e-5, 1e-4),
+    # the causal K7 (with and without its LSE) and K9 the same way: fp32
+    # both sides, summation order and the online softmax's rescaling only
+    "flash_forward_causal": (1e-5, 1e-4),
+    "flash_forward_causal_serving": (1e-5, 1e-4),
+    "flash_backward_causal": (1e-4, 1e-3),
 }
 # the card's published peaks (H100 SXM, dense), for the bound: the larger of
 # the products' operations at the bf16 tensor-core rate and the bytes each
@@ -785,6 +818,83 @@ def dac_encode_conv_phase(results, config):
         f"bound {k2['bound_sa1_encode_ms']:.4f} ms, library {k2['library_sa1_encode_ms']:.4f} ms")
 
 
+def seanet_conv_steps(config):
+    """The fp32 K2 calls of one SEANet encode of a training batch (one call
+    for the batch): (T, Cin, Cout, k) of conv_in, each block's residual
+    convs (k 3 to half the width, k 1 back) and conv_out, in order."""
+    enc = config["model"]["pretransform"]["config"]["encoder"]["config"]
+    if enc.get("n_residual_layers", 1) != 1:
+        raise AssertionError("the K2 shapes below assume one residual layer per block")
+    t, ch = config["sample_size"], enc["n_filters"]
+    cases = [(t, enc["channels"], ch, enc.get("kernel_size", 7))]
+    for ratio in reversed(enc["ratios"]):  # the encoder's order
+        cases += [(t, ch, ch // 2, enc.get("residual_kernel_size", 3)), (t, ch // 2, ch, 1)]
+        t, ch = t // ratio, ch * 2
+    cases.append((t, ch, enc["dimension"], enc.get("last_kernel_size", 7)))
+    return cases
+
+
+def seanet_conv_phase(results, config):
+    """[3h] fp32 K2 at every shape of the audio LM's SEANet encode of a
+    training batch (B 8 x 960,000 samples, one call; ELU before each conv,
+    no snake), under `lm_encode_ms`: 10 launches per training step."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    rnd = randn_fn(15)
+    k2 = results["snake_conv1d_f32"]
+    cases = seanet_conv_steps(config)
+    for t, cin, cout, k in cases:
+        label = f"SEANet encode B{TRAIN_BATCH} T{t} {cin}->{cout} k{k}"
+        k2["weight"][label] = 1
+        x = rnd(TRAIN_BATCH, t, cin, scale=0.5)
+        w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+        bb = rnd(cout, scale=0.1)
+        conv_case(results, "snake_conv1d", label, "lm_encode_ms", x, w, bb, None, None,
+                  lambda: conv1d.snake_conv1d(x, w, bb),
+                  lambda xs: conv1d.snake_conv1d_plain(xs, w, bb),
+                  2 * TRAIN_BATCH * t * cin * cout * k, halo=(k - 1) // 2)
+        del x
+    log(f"  snake_conv1d_f32: {k2['lm_encode_ms']:.4f} ms per audio LM training-step encode "
+        f"({len(cases)} calls), plain {k2['plain_lm_encode_ms']:.4f} ms, bound "
+        f"{k2['bound_lm_encode_ms']:.4f} ms, library {k2['library_lm_encode_ms']:.4f} ms")
+
+
+LSTM_RTOL = 1e-5
+
+
+def lstm_tf32_check(config):
+    """[3h] cuDNN's LSTM follows `torch.backends.cudnn.allow_tf32`: the
+    SEANet's residual two-layer LSTM at its training shape (B 8, 1500 frames,
+    1024 wide), fp32 against the same weights in fp64, with TF32 off (as the
+    CLIs set it; rel-L2 within LSTM_RTOL) and, for contrast, on."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.models.seanet import SLSTM
+
+    enc = config["model"]["pretransform"]["config"]["encoder"]["config"]
+    width = enc["n_filters"] * 2 ** len(enc["ratios"])
+    frames = config["sample_size"] // config["model"]["pretransform"]["config"]["downsampling_ratio"]
+    lstm = SLSTM(width, enc["lstm"]).to(DEVICE)
+    x = randn_fn(16)(TRAIN_BATCH, frames, width)
+    with torch.no_grad():
+        want = lstm.double()(x.double())
+        lstm.float()
+        errs = {}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            got = lstm(x)
+            torch.cuda.synchronize()
+            errs[tf32] = (rel_err(got.double(), want), time.perf_counter() - start)
+        torch.backends.cudnn.allow_tf32 = False
+    log(f"  cuDNN LSTM x2 [{TRAIN_BATCH}, {frames}, {width}] fp32 vs fp64: rel-L2 {errs[False][0]:.3g} "
+        f"with TF32 off ({errs[False][1]:.4f} s, tol {LSTM_RTOL}), {errs[True][0]:.3g} with it on "
+        f"({errs[True][1]:.4f} s)")
+    if not errs[False][0] <= LSTM_RTOL:
+        raise AssertionError("cuDNN's LSTM does not compute in fp32 with TF32 off")
+
+
 def flash_serving_phase(results):
     """[3f] K7 without its LSE (serving) against its plain version in fp32 at
     the ADP U-Net's self-attention shapes at 4096 latent frames under CFG
@@ -1024,6 +1134,94 @@ def flash_fused_phase(results):
             f"{r['bound_' + field]:.4f} ms, library {r['library_' + field]:.4f} ms")
 
 
+def causal_bound(bh, t, products, in_tensors, out_tensors, d=64):
+    """Bound of `products` causal [T x T x d] fp32 products per head, counted
+    on the causal triangle (T (T + 1) / 2 query-key pairs), at the
+    fp32-accurate rate, over the given tensors' bytes."""
+    flops = products * 2 * bh * (t * (t + 1) // 2) * d
+    return bound_ms(flops, nbytes(*in_tensors, *out_tensors), peak=PEAK_FP32_ACCURATE)
+
+
+def causal_flash_phase(results):
+    """[3h] The causal K7 with and without its LSE and the causal K9 against
+    their plain versions in fp32 (TF32 off), at the audio LM's training shape
+    (B 8 x 16 heads, T 1501, D 64: 24 calls of K7 with its LSE and of K9 per
+    training step, 24 of K7 without it per no-grad forward) and at a
+    non-multiple length above 1024. K9 gets the plain forward's out and lse.
+    Bounds on the causal triangle: the forward's 2 products, the 7 that K9's
+    two passes run. Library calls: SDPA with is_causal on the same fp32
+    heads (EFFICIENT_ATTENTION), forward, and forward + backward beside K9."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(14)
+    for bh, t, calls in [(TRAIN_BATCH * LM_HEADS, LM_T, LM_LAYERS), (6, 1100, 0)]:
+        label = f"BH{bh} T{t} D64 causal"
+        main = calls > 0
+        if main:
+            for name in ("flash_forward_causal", "flash_forward_causal_serving",
+                         "flash_backward_causal"):
+                results[name]["weight"][label] = calls
+        q, k, v, do = (rnd(bh, t, 64) for _ in range(4))
+        q4, k4, v4 = (x[None].clone().requires_grad_(True) for x in (q, k, v))
+        backend = sdpa_backend(q4, k4, v4)
+        sdpa_fwd = lambda: sdpa(q4.detach(), k4.detach(), v4.detach(), is_causal=True)  # noqa: E731
+
+        out, lse = flash.flash_forward(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        out_p, lse_p = flash.flash_forward_plain(q, k, v, causal=True)
+        ok, max_abs, rel_l2, peak = within("flash_forward_causal", out, out_p)
+        lse_err = (lse - lse_p).abs().max().item()
+        del out, lse
+        report(results, "flash_forward_causal", label, main, ok and lse_err <= FLASH_LSE_ATOL,
+               max_abs, rel_l2, peak, timed_ms(lambda: flash.flash_forward(q, k, v, causal=True), 3),
+               timed_ms(lambda: flash.flash_forward_plain(q, k, v, causal=True), 3),
+               timed_ms(sdpa_fwd, 3), bound=causal_bound(bh, t, 2, [q, k, v], [out_p, lse_p]),
+               extra=f", lse max_abs {lse_err:.3g} (tol {FLASH_LSE_ATOL}); SDPA backend {backend}")
+        report(results, "flash_forward_causal_serving", label, main, *compare(
+            "flash_forward_causal_serving",
+            lambda: flash.flash_forward(q, k, v, save_stats=False, causal=True)[0],
+            lambda: flash.flash_forward_plain(q, k, v, save_stats=False, causal=True)[0],
+            library_fn=sdpa_fwd), bound=causal_bound(bh, t, 2, [q, k, v], [out_p]),
+            extra=f"; SDPA backend {backend}")
+
+        def k9():
+            return flash.flash_backward(q, k, v, out_p, lse_p, do, causal=True)
+
+        def k9_plain():
+            return flash.flash_backward_plain(q, k, v, out_p, lse_p, do, causal=True)
+
+        got, want = k9(), k9_plain()
+        rels = [rel_err(a, w) for a, w in zip(got, want)]
+        ok = (all(bool(torch.isfinite(a).all()) for a in got)
+              and max(rels) <= TOL["flash_backward_causal"][0])
+        max_abs = max((a - w).abs().max().item() for a, w in zip(got, want))
+        peak = max(w.abs().max().item() for w in want)
+        bound = causal_bound(bh, t, 7, [q, k, v, out_p, lse_p, do], list(got))
+        del got, want
+        o4 = sdpa(q4, k4, v4, is_causal=True)
+        g4 = do[None]
+        sdpa_bwd_ms = timed_ms(
+            lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 3)
+
+        def sdpa_fwd_bwd():
+            o = sdpa(q4, k4, v4, is_causal=True)
+            return torch.autograd.grad(o, (q4, k4, v4), g4)
+
+        report(results, "flash_backward_causal", label, main, ok, max_abs, max(rels), peak,
+               timed_ms(k9, 3), timed_ms(k9_plain, 3), timed_ms(sdpa_fwd_bwd, 3), bound=bound,
+               extra=f" (rel-L2 of dq/dk/dv: {' '.join(f'{r:.3g}' for r in rels)}; SDPA "
+                     f"backend {backend}, its forward + backward as the library time, its "
+                     f"backward alone {sdpa_bwd_ms:.4f} ms)")
+        del q, k, v, do, out_p, lse_p, q4, k4, v4, o4
+    for name in ("flash_forward_causal", "flash_forward_causal_serving", "flash_backward_causal"):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per {r['per']}, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+
+
 def build_model(config):
     """A model on the card in fp32: random weights, seed 0, de-zeroed."""
     import torch
@@ -1225,6 +1423,9 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "snake_conv1d_f32": ("conv1d", "snake_conv1d_f32_launches"),
     "fused_residual_unit_f32": ("conv1d", "fused_residual_unit_f32_launches"),
     "snake_conv_transpose1d_f32": ("conv1d", "snake_conv_transpose1d_f32_launches"),
+    "flash_forward_causal": ("flash", "causal_forward_launches"),
+    "flash_forward_causal_serving": ("flash", "causal_serving_launches"),
+    "flash_backward_causal": ("flash", "causal_backward_launches"),
 }
 
 
@@ -1259,7 +1460,7 @@ def train_args(config, tmp, name, n_wavs, seconds, dit_path):
     wavs = tmp / f"wavs_{name}"
     wavs.mkdir()
     for i in range(n_wavs):
-        audio = synthetic_audio(100 + i, seconds * config["sample_rate"])
+        audio = synthetic_audio(100 + i, seconds * config["sample_rate"])[:config["audio_channels"]]
         wavfile.write(str(wavs / f"clip{i:02d}.wav"), config["sample_rate"],
                       (audio.T * 32767).astype(np.int16))
     (tmp / f"{name}_model.json").write_text(json.dumps(config))
@@ -1585,6 +1786,170 @@ def sa1_training_phase(config, tmp, unet_path):
     return counts
 
 
+LM_PROMPTS = [{"prompt": f"lo-fi hip hop beat number {i} with warm piano and vinyl crackle"}
+              for i in range(8)]
+
+
+def lm_train_step_phase(config, tmp):
+    """[12b] One training step of the audio LM at full width (MusicGen small,
+    musicgen_small_32khz.json as written, random weights, de-zeroed) at
+    batch 8 on 30 s of synthetic audio, with fixed CFG-dropout draws (row 0
+    dropped): the causal self-attention through the causal K7 with its LSE
+    and the causal K9, then through their plain versions (the reference:
+    loss within 1e-5, all gradients within rel-L2 1e-4); one no-grad forward
+    of the same batch through the causal K7 without its LSE against the
+    plain versions. The codes come from one tokenize through the fp32 K2.
+    Saves the de-zeroed model for phase 12; returns its path and the launch
+    counts of the tokenize, the step and the forward."""
+    import numpy as np
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.training.lm import AudioLanguageModelTrainingWrapper
+
+    model = build_model(config)
+    lm_path = Path(tmp) / "lm_dezeroed.pt"
+    torch.save(model.state_dict(), lm_path)
+    n = config["sample_size"]
+    audio = np.stack([synthetic_audio(200 + i, n, config["sample_rate"])[:1]
+                      for i in range(TRAIN_BATCH)])
+    reals = torch.from_numpy(audio).to(DEVICE).transpose(1, 2)  # [B, T, 1]
+    wrapper = AudioLanguageModelTrainingWrapper(model, lr=config["training"]["learning_rate"])
+    drop = {"cross_attn_cond": torch.arange(TRAIN_BATCH, device=DEVICE) == 0}
+    reset_counts()
+    codes = wrapper.tokenize(reals)
+    counts_tok = read_counts()
+    del reals
+    params = dict(wrapper.trainable)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        model.train()
+        loss, metrics = wrapper.loss(None, LM_PROMPTS[:TRAIN_BATCH], draws=drop, codes=codes)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: torch.zeros_like(p) if p.grad is None else p.grad
+                             for n, p in params.items()}
+
+    def forward():
+        with torch.no_grad():
+            loss, _ = wrapper.loss(None, LM_PROMPTS[:TRAIN_BATCH], draws=drop, codes=codes)
+        torch.cuda.synchronize()
+        return loss.item()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    loss_k, grads_k = step()
+    wall_k = time.perf_counter() - start
+    counts_step = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with plain_kernels():
+        start = time.perf_counter()
+        loss_r, grads_r = step()
+        wall_r = time.perf_counter() - start
+    errs = {n: rel_err(grads_k[n], g) for n, g in grads_r.items() if g.norm() > 0}
+    total = math.sqrt(sum(((grads_k[n] - g).norm() ** 2).item() for n, g in grads_r.items())
+                      / sum((g.norm() ** 2).item() for g in grads_r.values()))
+    del grads_k, grads_r
+    model.zero_grad(set_to_none=True)
+    reset_counts()
+    eval_k = forward()
+    counts_eval = read_counts()
+    with plain_kernels():
+        eval_r = forward()
+    del wrapper, model
+    torch.cuda.empty_cache()
+
+    loss_err, eval_err = abs(loss_k - loss_r) / abs(loss_r), abs(eval_k - eval_r) / abs(eval_r)
+    worst = max(errs, key=errs.get)
+    log(f"  codes {list(codes.shape)} (values {int(codes.min())}..{int(codes.max())}); loss: kernels "
+        f"{loss_k:.8g}, plain {loss_r:.8g} (rel {loss_err:.3g}, tol {SA2_LOSS_RTOL}); gradients of "
+        f"all {len(params)} parameters rel-L2 {total:.3g} (tol {SA2_GRAD_RTOL}), the largest of one "
+        f"parameter {errs[worst]:.3g} ({worst})")
+    log(f"  no-grad forward: loss kernels {eval_k:.8g}, plain {eval_r:.8g} (rel {eval_err:.3g}); "
+        f"step wall: kernels {wall_k:.3f} s, plain {wall_r:.3f} s; peak memory of the step with the "
+        f"kernels (weights, gradients, no optimizer state) {peak:.2f} GiB")
+    log(f"  launches: tokenize {counts_tok}; step {counts_step}; no-grad forward {counts_eval}")
+    if not (math.isfinite(loss_k) and loss_err <= SA2_LOSS_RTOL and eval_err <= SA2_LOSS_RTOL
+            and total <= SA2_GRAD_RTOL and errs[worst] <= SA2_GRAD_RTOL):
+        raise AssertionError("the audio LM step with the causal K7/K9 disagrees with the plain step")
+    for counts, want_nonzero in (
+            (counts_tok, {"snake_conv1d_f32": len(seanet_conv_steps(config))}),
+            (counts_step, {"flash_forward_causal": LM_LAYERS, "flash_backward_causal": LM_LAYERS}),
+            (counts_eval, {"flash_forward_causal_serving": LM_LAYERS})):
+        want = {name: 0 for name in KERNELS}
+        want.update(want_nonzero)
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+    return lm_path, counts_tok, counts_step, counts_eval
+
+
+def lm_training_phase(config, tmp, lm_path):
+    """[12] The train entry point on musicgen_small_32khz.json as written
+    (CFG dropout 0.1, AdamW at 1e-4, betas 0.9 / 0.95, weight decay 0.1, no
+    EMA) from 8 synthetic 31 s mono 32 kHz WAVs, batch 8, 3 steps, starting
+    from phase 12b's de-zeroed model; no checkpoint (phase 7 covers saving
+    and resuming). Returns the launch counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import train
+    from friendly_stable_audio_tools_tpu_torch.models.conditioners import MultiConditioner
+    from friendly_stable_audio_tools_tpu_torch.training.lm import AudioLanguageModelTrainingWrapper
+
+    args = train_args(config, tmp, "lm", LM_WAVS, LM_WAV_SECONDS, lm_path)
+    times, losses = {}, []
+
+    def timer(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(key, []).append(time.perf_counter() - start)
+            if key == "step":
+                losses.append(out["loss"])
+            return out
+        return wrapper
+
+    W = AudioLanguageModelTrainingWrapper
+    timers = [(W, "train_step", timer(W.train_step, "step")),
+              (W, "apply_update", timer(W.apply_update, "update")),
+              (W, "tokenize", timer(W.tokenize, "encode")),
+              (MultiConditioner, "forward", timer(MultiConditioner.forward, "cond"))]
+    per_step = {name: 0 for name in KERNELS}
+    per_step.update(flash_forward_causal=LM_LAYERS, flash_backward_causal=LM_LAYERS,
+                    snake_conv1d_f32=len(seanet_conv_steps(config)))
+    with patched(timers):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", str(LM_TRAIN_STEPS)])
+        total = time.perf_counter() - start
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        w = trainer.wrapper
+        name = "model.backbone.model.layers.0.self_attn.to_qkv.weight"
+        initial = torch.load(lm_path, map_location="cpu", weights_only=True, mmap=True)[name]
+        moved = (w.trainable[name].detach() - initial.to(w.device)).abs().max().item()
+        steps_done = w.step
+        del trainer, w
+        torch.cuda.empty_cache()
+
+    log_training(config, times, losses, LM_TRAIN_STEPS, peak, total)
+    med = statistics.median(times["step"][1:LM_TRAIN_STEPS])
+    frames = config["sample_size"] // config["model"]["pretransform"]["config"]["downsampling_ratio"]
+    log(f"  {TRAIN_BATCH * frames / med:.1f} token frames/s ({TRAIN_BATCH * frames} frames of 4 "
+        f"codebooks per step: {4 * TRAIN_BATCH * frames / med:.1f} tokens/s)")
+    log(f"  losses {losses}; {name} moved by up to {moved:.4g}")
+    log(f"  launches, {LM_TRAIN_STEPS} steps: {counts}")
+    if len(losses) != LM_TRAIN_STEPS or not (moved > 0 and steps_done == LM_TRAIN_STEPS):
+        raise AssertionError("losses missing, weights did not move, or the step count is off")
+    want = {k: v * LM_TRAIN_STEPS for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} are not the {want} of {LM_TRAIN_STEPS} steps")
+    return counts
+
+
 def rel_err(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -1840,6 +2205,16 @@ def new_results():
         "snake_conv_transpose1d_f32": dict(route="cuda", source=src + "conv1d_f32.cu",
                                            replaces=tpu + "conv1d.py:262",
                                            per="SA 1.0 DAC decode (4 calls)"),
+        "flash_forward_causal": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:146",
+            per=f"audio LM training step ({LM_LAYERS} calls at B{TRAIN_BATCH} x H{LM_HEADS} T{LM_T})"),
+        "flash_forward_causal_serving": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:146",
+            per=f"audio LM no-grad forward ({LM_LAYERS} calls at B{TRAIN_BATCH} x H{LM_HEADS} "
+                f"T{LM_T})"),
+        "flash_backward_causal": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:565",
+            per=f"audio LM training step ({LM_LAYERS} calls at B{TRAIN_BATCH} x H{LM_HEADS} T{LM_T})"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
@@ -1926,6 +2301,13 @@ def main():
         "training shapes and a DiT shape")
     flash_fused_phase(results)
     done("[3g]")
+    lm_config = json.loads(LM_CONFIG.read_text())
+    log("[3h] the causal K7 (with and without its LSE) and K9 vs plain versions at the audio LM's "
+        "shape; the fp32 K2 at its SEANet encode's shapes")
+    causal_flash_phase(results)
+    seanet_conv_phase(results, lm_config)
+    lstm_tf32_check(lm_config)
+    done("[3h]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -2057,10 +2439,23 @@ def main():
         counts_sa1 = sa1_training_phase(sa1_config, tmp, unet_path)
     done("[11]")
 
+    # phases 12b and 12 write ~3 GB (the de-zeroed LM with T5 and the tokenizer, 8 WAVs)
+    log(f"[12b] one audio LM training step (musicgen_small_32khz.json) at batch {TRAIN_BATCH}, "
+        f"T {LM_T}: the causal K7/K9 vs their fp32 plain versions; a no-grad forward")
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        lm_path, counts_lm_tok, counts_lm_step, counts_lm_eval = lm_train_step_phase(lm_config, tmp)
+        done("[12b]")
+        log(f"[12] audio LM training path: train.main on musicgen_small_32khz.json, batch "
+            f"{TRAIN_BATCH}, {LM_TRAIN_STEPS} steps from {LM_WAVS} synthetic {LM_WAV_SECONDS} s "
+            f"mono WAVs")
+        counts_lm = lm_training_phase(lm_config, tmp, lm_path)
+    done("[12]")
+
     by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
                "generate_sa1": launches_sa1, "generate_fp32": launches_fp32,
-               "train_sa1": counts_sa1}
+               "train_sa1": counts_sa1, "lm_tokenize": counts_lm_tok, "lm_step": counts_lm_step,
+               "lm_eval_forward": counts_lm_eval, "train_lm": counts_lm}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -2070,7 +2465,7 @@ def main():
                    bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
                    launches_by_path={p: c[name] for p, c in by_path.items()})
         for f in ("sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms", "sa1_train_ms",
-                  "sa1_encode_ms"):
+                  "sa1_encode_ms", "lm_encode_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
         return out

@@ -10,7 +10,10 @@
 // U-Net's self-attention at T >= 1024 (Stable Audio 1.0: T 4096 and 2048 at
 // D 64, T 1024 at D 80) runs the forward without the log-sum-exp when it
 // serves, and the forward with it and K8 when it trains, as the JAX
-// package's ops/attention.py sends it to `flash_attention`.
+// package's ops/attention.py sends it to `flash_attention`. The audio LM's
+// causal self-attention (MusicGen small: 16 heads of 64, 1501 tokens at 30
+// s) trains through the causal K7 with the log-sum-exp and the causal K9:
+// the JAX package takes the two passes for every causal backward (:576).
 //
 // K7 replaces `_flash_forward` (friendly_stable_audio_tools_tpu/ops/pallas/
 //   flash_attention.py:230, call :317) in its non-causal, no-rope case, with
@@ -40,6 +43,19 @@
 //   summation order's, which covers it. Each key tile starts its q loop at
 //   a different tile, so the key tiles of one head rarely add into the same
 //   dq rows at the same time.
+// Causal K7 replaces `_flash_forward` with `causal` set: `_online_kernel`
+//   (:146; the mask k_pos <= q_pos at :167-169, the skipped key blocks at
+//   :185-188). Causal K9 replaces `_flash_backward` with `causal` set:
+//   `_bwd_dq_kernel` (:477, mask :497-499, key chunks up to the diagonal
+//   :509-511) and `_bwd_dkv_kernel` (:518, mask :537-539, q chunks from the
+//   diagonal on :554-557). The TPU kernels skip whole 256/512 blocks and
+//   mask every score of a block they keep; here the q and key tiles are both
+//   64 wide, so a q tile reads key tiles up to the diagonal tile only (the
+//   dq pass likewise), a key tile reads q tiles from the diagonal tile on,
+//   and only the diagonal tile is masked: at T 1501 the forward computes 300
+//   of the 576 tiles of a head, the triangle plus half the diagonal. The
+//   work of a q tile grows with its index, so the forward and the dq pass
+//   start the heaviest tiles first (block x runs q tile n - 1 - x).
 // K9 replaces `_flash_backward` (:565) in its non-causal two-pass case:
 //   `_bwd_dq_kernel` (:477, call :605) and `_bwd_dkv_kernel` (:518, call
 //   :621). Per head, with delta = rowsum(dO * O) computed beside the kernel:
@@ -246,8 +262,15 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][4], float* __re
   }
 }
 
+// Causal: the q tile and the key tile are both 64 wide, so q tile i reads
+// key tiles 0..i only and masks keys past each row's own position on tile i
+// alone. Its work grows with i, so the grid runs the heaviest tiles first.
+__device__ __forceinline__ int causal_q_tile(bool causal) {
+  return causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+}
+
 // K7: one block per (64-row q tile, head); D is 64 or 80.
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
@@ -261,7 +284,8 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vs = Ks + kT * F;     // [64][F]
   float* Ps = Vs + kT * F;     // [64][F] p of the current key tile (64 columns used)
   const int tx = tid_x(), ty = tid_y();
-  const int q0 = blockIdx.x * kT;
+  const int qt = causal_q_tile(kCausal);
+  const int q0 = qt * kT;
   const size_t head = (size_t)blockIdx.y * T * D;
 
   load_tile<D>(q + head, q0, T, Qs, prescale);
@@ -275,9 +299,11 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int u = 0; u < 4; ++u) o[i][u] = 0.f;
   }
 
-  const int n_k = (kv_len + kT - 1) / kT;
+  int n_k = (kv_len + kT - 1) / kT;
+  if (kCausal) n_k = min(n_k, qt + 1);
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kT;
+    const bool diag = kCausal && kt == qt;  // keys past the row's position are masked
     __syncthreads();  // Qs written; the previous tile's readers of Ks, Vs, Ps are done
     load_tile<D>(k + head, k0, T, Ks, 1.f);
     load_tile<D>(v + head, k0, T, Vs, 1.f);
@@ -288,10 +314,12 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= kv_len) s[i][j] = -INFINITY;
+        const int c = tx + 16 * j;
+        if (k0 + c >= kv_len || (diag && c > ty * 8 + i)) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
-      // tile 0 holds key 0, so m is finite from the first tile on
+      // tile 0 holds key 0, which every row may see (causal: key 0 <= the
+      // row's position), so m is finite from the first tile on
       const float m_new = fmaxf(m[i], row_max(mx));
       const float alpha = exp2f(m[i] - m_new);
       m[i] = m_new;
@@ -326,19 +354,21 @@ flash_forward_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kCausal>
 int launch_flash_forward(const float* q, const float* k, const float* v, float* out, float* lse,
                          int BH, int T, int kv_len, float prescale, cudaStream_t stream) {
   const size_t smem = 4 * tile_bytes<D>();
-  cudaError_t err = allow_smem(flash_forward_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_forward_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + kT - 1) / kT, BH);
-  flash_forward_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, T, kv_len,
-                                                             prescale);
+  flash_forward_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, T,
+                                                                      kv_len, prescale);
   return (int)cudaGetLastError();
 }
 
-// K9, dq pass: one block per (64-row q tile, head), looping over key tiles.
+// K9, dq pass: one block per (64-row q tile, head), looping over key tiles
+// (causal: up to the diagonal tile, heaviest q tiles first).
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
@@ -351,7 +381,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vs = Ks + kT * kF;      // [64][kF]
   float* DSs = Vs + kT * kF;     // [64][kF] ds of the current key tile
   const int tx = tid_x(), ty = tid_y();
-  const int q0 = blockIdx.x * kT;
+  const int qt = causal_q_tile(kCausal);
+  const int q0 = qt * kT;
   const size_t head = (size_t)blockIdx.y * T * kD;
   const size_t stats = (size_t)blockIdx.y * T;
 
@@ -367,9 +398,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
   }
 
-  const int n_k = (kv_len + kT - 1) / kT;
+  int n_k = (kv_len + kT - 1) / kT;
+  if (kCausal) n_k = min(n_k, qt + 1);
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kT;
+    const bool diag = kCausal && kt == qt;
     __syncthreads();  // Qs/DOs written; the previous tile's readers of Ks, Vs, DSs are done
     load_tile(k + head, k0, T, Ks, 1.f);
     load_tile(v + head, k0, T, Vs, 1.f);
@@ -381,7 +414,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float p = k0 + c < kv_len ? exp2f(s[i][j] * scale_log2e - row_lse[i]) : 0.f;
+        const bool keep = k0 + c < kv_len && !(diag && c > ty * 8 + i);
+        const float p = keep ? exp2f(s[i][j] * scale_log2e - row_lse[i]) : 0.f;
         DSs[(ty * 8 + i) * kF + c] = p * (dp[i][j] - row_delta[i]) * scale;
       }
     __syncthreads();
@@ -390,9 +424,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_tile(acc, dq + head, q0, T);
 }
 
-// K9, dk/dv pass: one block per (64-key tile, head), looping over q tiles.
+// K9, dk/dv pass: one block per (64-key tile, head), looping over q tiles
+// (causal: from the diagonal tile on; the low key tiles, which see the most
+// q tiles, come first in the grid's order).
 // The thread's 8 x 4 tiles are (keys 8 ty + i) x (q rows tx + 16 j) for the
 // transposed scores and (keys 8 ty + i) x (dims 4 tx ..) for dk and dv.
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
@@ -427,8 +464,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_tile(v + head, k0, T, Vs, 1.f);
 
   const int n_q = (T + kT - 1) / kT;
-  for (int qt = 0; qt < n_q; ++qt) {
+  for (int qt = kCausal ? blockIdx.x : 0; qt < n_q; ++qt) {
     const int q0 = qt * kT;
+    const bool diag = kCausal && qt == (int)blockIdx.x;
     __syncthreads();  // Ks/Vs written; the previous tile's readers of Qs, DOs, PTs, DSTs are done
     load_tile(q + head, q0, T, Qs, 1.f);
     load_tile(dout + head, q0, T, DOs, 1.f);
@@ -445,7 +483,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float p = key_ok && q0 + c < T ? exp2f(s[i][j] * scale_log2e - lse_s[c]) : 0.f;
+        const bool keep = key_ok && q0 + c < T && !(diag && ty * 8 + i > c);
+        const float p = keep ? exp2f(s[i][j] * scale_log2e - lse_s[c]) : 0.f;
         PTs[(ty * 8 + i) * kF + c] = p;
         DSTs[(ty * 8 + i) * kF + c] = p * (dp[i][j] - delta_s[c]) * scale;
       }
@@ -588,37 +627,56 @@ int launch_flash_backward_fused(const float* q, const float* k, const float* v, 
 
 // K7: q, k, v [BH, T, D] fp32 contiguous, D 64 or 80 -> out [BH, T, D] fp32
 // and, when lse is not null, lse [BH, T] fp32 (base 2). prescale =
-// log2(e)/sqrt(D). Returns cudaErrorInvalidValue for another D.
+// log2(e)/sqrt(D); causal != 0 masks key j > query i. Returns
+// cudaErrorInvalidValue for another D.
 extern "C" int fsat_flash_forward(const float* q, const float* k, const float* v, float* out,
-                                  float* lse, int BH, int T, int kv_len, int D, float prescale,
-                                  void* stream) {
+                                  float* lse, int BH, int T, int kv_len, int D, int causal,
+                                  float prescale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64) return launch_flash_forward<64>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
-  if (D == 80) return launch_flash_forward<80>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
+  if (D == 64 && causal)
+    return launch_flash_forward<64, true>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
+  if (D == 64) return launch_flash_forward<64, false>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
+  if (D == 80 && causal)
+    return launch_flash_forward<80, true>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
+  if (D == 80) return launch_flash_forward<80, false>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool kCausal>
+int launch_flash_backward(const float* q, const float* k, const float* v, const float* dout,
+                          const float* lse, const float* delta, float* dq, float* dk, float* dv,
+                          int BH, int T, int kv_len, float scale_log2e, float scale,
+                          cudaStream_t st) {
+  const size_t smem_dq = 5 * kTileBytes;
+  const size_t smem_dkv = 6 * kTileBytes + 2 * kT * sizeof(float);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<kCausal>, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(flash_bwd_dkv_kernel<kCausal>, smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + kT - 1) / kT, BH);
+  flash_bwd_dq_kernel<kCausal><<<grid, kThreads, smem_dq, st>>>(q, k, v, dout, lse, delta, dq, T,
+                                                                 kv_len, scale_log2e, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_kernel<kCausal><<<grid, kThreads, smem_dkv, st>>>(q, k, v, dout, lse, delta, dk,
+                                                                   dv, T, kv_len, scale_log2e,
+                                                                   scale);
+  return (int)cudaGetLastError();
+}
+
 // K9: q, k, v, out's dO [BH, T, 64] fp32, lse/delta [BH, T] fp32 -> dq, dk,
-// dv [BH, T, 64] fp32. Two launches on `stream` (the dq pass, then dk/dv).
+// dv [BH, T, 64] fp32; causal != 0 masks key j > query i. Two launches on
+// `stream` (the dq pass, then dk/dv).
 extern "C" int fsat_flash_backward(const float* q, const float* k, const float* v,
                                    const float* dout, const float* lse, const float* delta,
                                    float* dq, float* dk, float* dv, int BH, int T, int kv_len,
-                                   float scale_log2e, float scale, void* stream) {
-  const size_t smem_dq = 5 * kTileBytes;
-  const size_t smem_dkv = 6 * kTileBytes + 2 * kT * sizeof(float);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(flash_bwd_dkv_kernel, smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kT - 1) / kT, BH);
+                                   int causal, float scale_log2e, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  flash_bwd_dq_kernel<<<grid, kThreads, smem_dq, st>>>(q, k, v, dout, lse, delta, dq, T, kv_len,
-                                                        scale_log2e, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<<<grid, kThreads, smem_dkv, st>>>(q, k, v, dout, lse, delta, dk, dv, T,
-                                                          kv_len, scale_log2e, scale);
-  return (int)cudaGetLastError();
+  if (causal)
+    return launch_flash_backward<true>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
+                                       scale_log2e, scale, st);
+  return launch_flash_backward<false>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
+                                      scale_log2e, scale, st);
 }
 
 // K8: q, k, v, out's dO [BH, T, D] fp32 (D 64 or 80), lse/delta [BH, T] fp32

@@ -11,7 +11,8 @@ torch.no_grad() on the card. Channels-last [B, T, C]. The encoder and
 decoder run in the dtype of their input (the pretransform casts it, as the
 JAX package's does, models/pretransforms.py:80-81); their parameters stay
 fp32, as the JAX package's do. The `dac` encoder and decoder types are in
-models/dac_codec.py.
+models/dac_codec.py, the `seanet` ones (the audio LM's EnCodec-style
+tokenizer, with the `rvq` bottleneck) in models/seanet.py.
 """
 
 from __future__ import annotations
@@ -141,6 +142,10 @@ class AudioAutoencoder(nn.Module):
         self.decoder = decoder
         self.bottleneck = bottleneck
         self.downsampling_ratio = downsampling_ratio
+        # a discrete bottleneck (rvq) tokenizes (JAX :287-290)
+        self.is_discrete = bool(getattr(bottleneck, "is_discrete", False))
+        self.num_quantizers = bottleneck.num_quantizers if self.is_discrete else None
+        self.codebook_size = bottleneck.codebook_size if self.is_discrete else None
 
     def encode_nwc(self, x: torch.Tensor) -> torch.Tensor:
         """audio [B, T, C] -> latents [B, T / ratio, latent_dim] (JAX
@@ -150,6 +155,12 @@ class AudioAutoencoder(nn.Module):
         z = self.encoder(x)
         return self.bottleneck.encode(z) if self.bottleneck is not None else z
 
+    def tokenize_nwc(self, x: torch.Tensor) -> torch.Tensor:
+        """audio [B, T, C] -> the discrete bottleneck's codes [B, T / ratio, Q]."""
+        if self.encoder is None or not self.is_discrete:
+            raise ValueError("tokenize needs an encoder and a discrete bottleneck")
+        return self.bottleneck.encode(self.encoder(x), return_info=True)[1]["quantizer_indices"]
+
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
         """latents [B, L, latent_dim] -> audio [B, T, C]."""
         if self.bottleneck is not None:
@@ -158,7 +169,7 @@ class AudioAutoencoder(nn.Module):
 
 
 def create_encoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
-    """The `oobleck` and `dac` encoder types of the JAX factory (:632)."""
+    """The `oobleck`, `dac` and `seanet` encoder types of the JAX factory (:632)."""
     kind, cfg = config["type"], dict(config.get("config", {}))
     if kind == "oobleck":
         return OobleckEncoder(**cfg)
@@ -166,11 +177,17 @@ def create_encoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
         from .dac_codec import DACEncoderWrapper
 
         return DACEncoderWrapper(**cfg)
+    if kind == "seanet":
+        from .seanet import SEANetEncoder
+
+        # the encoder applies the config's ratios in reverse (JAX :641-646)
+        cfg["ratios"] = list(reversed(cfg.get("ratios", [2, 2, 2, 2, 2])))
+        return SEANetEncoder(**cfg)
     raise NotImplementedError(f"encoder type {kind!r} is not in the torch port")
 
 
 def create_decoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
-    """The `oobleck` and `dac` decoder types of the JAX factory (:654)."""
+    """The `oobleck`, `dac` and `seanet` decoder types of the JAX factory (:654)."""
     kind, cfg = config["type"], dict(config.get("config", {}))
     cfg.pop("soft_clip", None)
     if kind == "oobleck":
@@ -179,6 +196,10 @@ def create_decoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
         from .dac_codec import DACDecoderWrapper
 
         return DACDecoderWrapper(**cfg)
+    if kind == "seanet":
+        from .seanet import SEANetDecoder
+
+        return SEANetDecoder(**cfg)
     raise NotImplementedError(f"decoder type {kind!r} is not in the torch port")
 
 

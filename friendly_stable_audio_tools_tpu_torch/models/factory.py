@@ -1,8 +1,8 @@
 """Config-driven model factory (counterpart of
 friendly_stable_audio_tools_tpu/models/factory.py:17).
 
-Reads the JAX package's model-config JSON schema as it stands; only the
-`diffusion_cond` model type is ported."""
+Reads the JAX package's model-config JSON schema as it stands; the
+`diffusion_cond` and `lm` model types are ported."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from torch import nn
 from ..utils.common import init_weights_, resolve_device
 from .conditioners import CLAPTextConditioner
 from .diffusion import create_diffusion_cond_from_config
+from .lm import create_audio_lm_from_config
 
 
 def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
@@ -21,22 +22,26 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
     """Builds the model on `device` (the GPU unless `device="cpu"`; raises
     when there is no GPU) with random weights drawn from a generator seeded
     with `seed` (the JAX package's initialisation scheme,
-    utils/common.init_weights_). A CLAP conditioner then reads its
+    utils/common.init_weights_; a diffusion backbone is then halved, as the
+    JAX wrapper halves it, an LM is not). A CLAP conditioner then reads its
     `clap_ckpt_path` when that file exists. Load a converted checkpoint over
     the weights with `load_state_dict` (utils/convert.py)."""
     device = resolve_device(device, 'device="cpu"')
     model_type = model_config.get("model_type")
     if model_type is None:
         raise ValueError("model_type must be specified in model config")
-    if model_type != "diffusion_cond":
+    builders = {"diffusion_cond": create_diffusion_cond_from_config,
+                "lm": create_audio_lm_from_config}
+    if model_type not in builders:
         raise NotImplementedError(f"model type {model_type!r} is not in the torch port")
     with torch.device("meta"):
-        model = create_diffusion_cond_from_config(model_config)
+        model = builders[model_type](model_config)
     model = model.to_empty(device=device)
     init_weights_(model, torch.Generator(device=device).manual_seed(seed))
-    with torch.no_grad():  # the JAX wrapper halves a fresh backbone (diffusion.py:103)
-        for p in model.model.parameters():
-            p.mul_(0.5)
+    if model_type == "diffusion_cond":
+        with torch.no_grad():  # the JAX wrapper halves a fresh backbone (diffusion.py:103)
+            for p in model.model.parameters():
+                p.mul_(0.5)
     for m in model.modules():
         if isinstance(m, CLAPTextConditioner):
             m.load_checkpoint()

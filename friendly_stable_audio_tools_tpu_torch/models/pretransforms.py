@@ -1,7 +1,8 @@
 """Pretransforms (counterpart of friendly_stable_audio_tools_tpu/models/pretransforms.py).
 
 The frozen autoencoder between the diffusion latents and audio, unchunked as
-Stable Audio Open runs it."""
+Stable Audio Open runs it; with a discrete bottleneck (the audio LM's
+EnCodec-style tokenizer) it also tokenizes audio to codes."""
 
 from __future__ import annotations
 
@@ -35,6 +36,9 @@ class AutoencoderPretransform(nn.Module):
         self.model_half = model_half
         self.iterate_batch = iterate_batch
         self.downsampling_ratio = model.downsampling_ratio
+        self.is_discrete = model.is_discrete
+        self.num_quantizers = model.num_quantizers
+        self.codebook_size = model.codebook_size
 
     @property
     def dtype(self) -> torch.dtype:
@@ -53,6 +57,14 @@ class AutoencoderPretransform(nn.Module):
         the encoder runs in `dtype`."""
         return self._batched(lambda xb: self.model.encode_nwc(xb.to(self.dtype)).float(),
                              x) / self.scale
+
+    @torch.no_grad()
+    def tokenize(self, x: torch.Tensor) -> torch.Tensor:
+        """audio [B, C, T] -> codes [B, K, T / ratio] (int64), in fp32 (JAX
+        `tokenize` :99, which casts nothing)."""
+        if not self.is_discrete:
+            raise ValueError("cannot tokenize with a continuous model")
+        return self.model.tokenize_nwc(x.transpose(1, 2).float()).transpose(1, 2)
 
     @torch.no_grad()
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,18 @@
 """Continuous transformer backbone of the DiT (counterpart of
 friendly_stable_audio_tools_tpu/models/transformer.py).
 
-Ported for the configuration Stable Audio Open 1.0 runs: pre-norm blocks
-with fused-qkv self-attention under partial rotary embedding (through the
-K1 kernel, or K5/K6 when training, ops/kernels/attention.py), cross-attention
-over conditioning tokens (plain, ops/attention.py), a SwiGLU feed-forward and
-zero-initialised branch outputs. In training mode with `grad_checkpointing`
-each block is recomputed in the backward pass (JAX transformer.py:619-627).
-Everything is channels-last [B, T, C].
+Ported for the configurations Stable Audio Open 1.0 and the audio LM run:
+pre-norm blocks with fused-qkv self-attention under partial rotary embedding
+(through the K1 kernel, or K5/K6 when training, ops/kernels/attention.py),
+cross-attention over conditioning tokens (plain, ops/attention.py), a SwiGLU
+feed-forward and zero-initialised branch outputs. The causal stack of the
+audio LM (`causal=True`, JAX transformer.py:199-236) ropes q and k outside
+the kernel and sends its square causal self-attention through
+ops/attention.py's gate (the causal K7 and K9 on the card); its
+cross-attention is causal too, as the JAX block builds it, and stays plain.
+In training mode with `grad_checkpointing` each block is recomputed in the
+backward pass (JAX transformer.py:619-627). Everything is channels-last
+[B, T, C].
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention
-from ..ops.embeddings import rotary_freqs
+from ..ops.attention import attention, scaled_dot_product_attention
+from ..ops.embeddings import apply_rotary_pos_emb, rotary_freqs
 from ..ops.kernels import attention as attn_kernels
 from ..ops.norms import LayerNorm
 
@@ -61,12 +66,16 @@ class FeedForward(nn.Module):
 class Attention(nn.Module):
     """Self-attention (fused to_qkv, rotary, K1 kernel) or, with
     `dim_context`, cross-attention (to_q + packed to_kv; a context narrower
-    than `dim` has fewer kv heads, each shared by consecutive q heads)."""
+    than `dim` has fewer kv heads, each shared by consecutive q heads).
+    `causal` (the audio LM): the self-attention ropes q and k in fp32 and
+    goes through ops/attention.py's gate with causal set; the
+    cross-attention masks as `_xla_attention` does (JAX :319-322)."""
 
     def __init__(self, dim: int, dim_heads: int = 64, dim_context: tp.Optional[int] = None,
-                 zero_init_output: bool = True):
+                 zero_init_output: bool = True, causal: bool = False):
         super().__init__()
         self.dim = dim
+        self.causal = causal
         self.dim_heads = dim_heads
         self.heads = dim // dim_heads
         self.dim_context = dim_context
@@ -82,19 +91,30 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: tp.Optional[torch.Tensor] = None,
                 rotary_pos_emb: tp.Optional[torch.Tensor] = None,
                 kv_len: tp.Optional[int] = None) -> torch.Tensor:
+        b, n, _ = x.shape
+        if context is None and self.causal:
+            q, k, v = (t.view(b, n, self.heads, self.dim_heads).transpose(1, 2)
+                       for t in self.to_qkv(x).chunk(3, dim=-1))
+            if rotary_pos_emb is not None:
+                q = apply_rotary_pos_emb(q, rotary_pos_emb)
+                k = apply_rotary_pos_emb(k, rotary_pos_emb)
+            out = scaled_dot_product_attention(q, k, v, causal=True)
+            return self.to_out(out.transpose(1, 2).reshape(b, n, self.dim))
         if context is None:
             qkv = self.to_qkv(x)
             out = attn_kernels.fused_qkv_rope_attention(qkv, rotary_pos_emb, self.heads,
                                                         kv_len=kv_len)
             return self.to_out(out)
-        b, n, _ = x.shape
         q = self.to_q(x).view(b, n, self.heads, self.dim_heads).transpose(1, 2)
         k, v = self.to_kv(context).chunk(2, dim=-1)
         kv_heads = self.dim_context // self.dim_heads
         k = k.reshape(b, -1, kv_heads, self.dim_heads).transpose(1, 2)
         v = v.reshape(b, -1, kv_heads, self.dim_heads).transpose(1, 2)
-        out = attention(q, k, v).transpose(1, 2).reshape(b, n, self.dim)
-        return self.to_out(out)
+        if self.causal:
+            out = scaled_dot_product_attention(q, k, v, causal=True)
+        else:
+            out = attention(q, k, v)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, self.dim))
 
 
 class TransformerBlock(nn.Module):
@@ -102,14 +122,15 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, dim_heads: int = 64, cross_attend: bool = False,
                  dim_context: tp.Optional[int] = None, zero_init_branch_outputs: bool = True,
-                 ff_mult: int = 4):
+                 ff_mult: int = 4, causal: bool = False):
         super().__init__()
         self.pre_norm = LayerNorm(dim)
-        self.self_attn = Attention(dim, dim_heads, zero_init_output=zero_init_branch_outputs)
+        self.self_attn = Attention(dim, dim_heads, zero_init_output=zero_init_branch_outputs,
+                                   causal=causal)
         if cross_attend:
             self.cross_attend_norm = LayerNorm(dim)
             self.cross_attn = Attention(dim, dim_heads, dim_context=dim_context,
-                                        zero_init_output=zero_init_branch_outputs)
+                                        zero_init_output=zero_init_branch_outputs, causal=causal)
         self.ff_norm = LayerNorm(dim)
         self.ff = FeedForward(dim, mult=ff_mult, zero_init_output=zero_init_branch_outputs)
 
@@ -153,23 +174,26 @@ def seq_pad_length(valid_len: int, batch: int, dim_heads: int, heads: int) -> tp
 class ContinuousTransformer(nn.Module):
     """Stack of TransformerBlocks with input/output projections, rotary
     positions (rot dim max(dim_heads/2, 32), clamped to dim_heads) and
-    prepended tokens."""
+    prepended tokens. A causal stack (the audio LM's backbone) never pads
+    its sequence, as the JAX package's padded-sequence rule excludes it."""
 
     def __init__(self, dim: int, depth: int, dim_in: tp.Optional[int] = None,
                  dim_out: tp.Optional[int] = None, dim_heads: int = 64,
                  cross_attend: bool = False, cond_token_dim: tp.Optional[int] = None,
                  zero_init_branch_outputs: bool = True, ff_mult: int = 4,
-                 grad_checkpointing: bool = False):
+                 grad_checkpointing: bool = False, causal: bool = False):
         super().__init__()
         self.dim = dim
         self.dim_heads = dim_heads
+        self.causal = causal
         self.grad_checkpointing = grad_checkpointing
         self.project_in = nn.Linear(dim_in, dim, bias=False) if dim_in else None
         self.project_out = nn.Linear(dim, dim_out, bias=False) if dim_out else None
         self.layers = nn.ModuleList([
             TransformerBlock(dim, dim_heads, cross_attend=cross_attend,
                              dim_context=cond_token_dim if cross_attend else None,
-                             zero_init_branch_outputs=zero_init_branch_outputs, ff_mult=ff_mult)
+                             zero_init_branch_outputs=zero_init_branch_outputs, ff_mult=ff_mult,
+                             causal=causal)
             for _ in range(depth)])
 
     def forward(self, x: torch.Tensor, prepend_embeds: tp.Optional[torch.Tensor] = None,
@@ -183,7 +207,8 @@ class ContinuousTransformer(nn.Module):
         # the JAX package applies the rule off the CPU only; here the kernel
         # and its plain version both take kv_len, so it applies everywhere
         valid_len = x.shape[1]
-        padded = seq_pad_length(valid_len, x.shape[0], self.dim_heads, self.dim // self.dim_heads)
+        padded = (None if self.causal else
+                  seq_pad_length(valid_len, x.shape[0], self.dim_heads, self.dim // self.dim_heads))
         kv_len = None
         if padded is not None:
             x = F.pad(x, (0, 0, 0, padded - valid_len))

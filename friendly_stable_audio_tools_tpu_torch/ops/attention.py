@@ -15,7 +15,13 @@ ops/kernels/flash_attention.py, as the JAX package sends it to
 ``FlashAttention`` (K7 with its log-sum-exp, then K8 or K9 on the way
 back); otherwise K7 without the log-sum-exp. Everything else, and every
 CPU tensor, takes the plain path, as the JAX package on the CPU takes
-`_xla_attention`. The ADP U-Net's self-attention uses it.
+`_xla_attention`. The ADP U-Net's self-attention uses it, and so does the
+causal transformer of the audio LM (models/transformer.py): its square
+causal self-attention goes, under grad, through ``FlashAttention`` with
+causal set (the causal K7 with its LSE, then the causal K9; never K8, as in
+the JAX package, flash_attention.py:576), otherwise through the causal K7
+alone; its causal cross-attention (queries and conditioning tokens of
+different lengths) stays plain, with `_xla_attention`'s mask (:92-96).
 """
 
 from __future__ import annotations
@@ -45,21 +51,28 @@ def uses_kernels(x: torch.Tensor) -> bool:
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                                 mask: tp.Optional[torch.Tensor] = None,
+                                 causal: bool = False) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, Hkv, Tk, D], mask [B, Tk] (True = attend) ->
-    [B, H, Tq, D]. Non-causal. On a CUDA tensor that :func:`flash_gate`
-    admits, the flash kernels compute it (fp32, D 64 or 80; other cases
-    raise there): under grad, when q, k or v needs a gradient,
-    ``FlashAttention`` (K7 with its LSE, then K8 or K9), else K7 alone."""
+    [B, H, Tq, D]; causal masks key j > query i + Tk - Tq. On a CUDA tensor
+    that :func:`flash_gate` admits, the flash kernels compute it (fp32, D 64
+    or 80, causal at D 64 under grad; other cases raise there): under grad,
+    when q, k or v needs a gradient, ``FlashAttention`` (K7 with its LSE,
+    then K8 or K9; causal: the causal K7, then the causal K9), else K7
+    alone."""
     b, h, t_q, d = q.shape
-    if not (uses_kernels(q) and flash_gate(t_q, k.shape[-2], d, mask is not None)):
-        return attention(q, k, v, mask)
+    if not (uses_kernels(q) and flash_gate(t_q, k.shape[-2], d, mask is not None, causal)):
+        return attention(q, k, v, mask, causal)
     if k.shape[1] != h:
         k = k.repeat_interleave(h // k.shape[1], dim=1)
         v = v.repeat_interleave(h // v.shape[1], dim=1)
     t_k = k.shape[-2]
     q, k, v = q.reshape(b * h, t_q, d), k.reshape(b * h, t_k, d), v.reshape(b * h, t_k, d)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if causal:
+        out = (flash.FlashAttention.apply(q, k, v, None, True) if grad
+               else flash.flash_forward(q, k, v, save_stats=False, causal=True)[0])
+    elif grad:
         out = flash.FlashAttention.apply(q, k, v)
     else:
         out, _ = flash.flash_forward(q, k, v, save_stats=False)
@@ -67,16 +80,24 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: tp.Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, Hkv, Tk, D] (Hkv divides H: each kv head
-    serves H/Hkv consecutive q heads); mask [B, Tk], True = attend."""
+    serves H/Hkv consecutive q heads); mask [B, Tk], True = attend; causal
+    keeps key j for query i where j <= i + Tk - Tq (`tril(k=Tk-Tq)`, as
+    `_xla_attention` :92-96). A query that may see no key (causal with Tk <
+    Tq) attends evenly to every key, as the JAX package's finite fill gives."""
     heads = q.shape[1]
     if k.shape[1] != heads:
         k = k.repeat_interleave(heads // k.shape[1], dim=1)
         v = v.repeat_interleave(heads // v.shape[1], dim=1)
     scale = q.shape[-1] ** -0.5
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    fill = torch.finfo(torch.float32).min
+    if causal:
+        t_q, t_k = q.shape[-2], k.shape[-2]
+        hidden = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).triu_(t_k - t_q + 1)
+        logits = logits.masked_fill(hidden, fill)
     if mask is not None:
-        logits = logits.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
+        logits = logits.masked_fill(~mask[:, None, None, :], fill)
     probs = torch.softmax(logits, dim=-1)
     return (probs.to(v.dtype).float() @ v.float()).to(q.dtype)

@@ -7,11 +7,14 @@ what the CUDA kernels read, so converted checkpoints need no transpose
 `weight_norm(dim=0)`: the magnitude `g` is per OUTPUT channel for a conv and
 per INPUT channel for a transposed conv (whose dim 0 is in_channels).
 
-The weight-normed convs run only in the forms the Oobleck VAE uses: stride-1
-'same' convs through the fused snake -> conv kernel K2, ConvTranspose1d(k =
-2s, stride s, padding s/2) through K4 (ops/kernels/conv1d.py), and the
-encoder's strided downsample Conv1d(k = 2s, stride s, padding s/2) in the
-plain reshape-GEMM form of `snake_downsample_conv1d`.
+The weight-normed convs run in the forms the Oobleck and SEANet codecs use:
+stride-1 'same' convs through the fused snake -> conv kernel K2,
+ConvTranspose1d(k = 2s, stride s, padding s/2) at an even s through K4
+(ops/kernels/conv1d.py), and the encoder's strided downsample Conv1d(k =
+2s, stride s, padding s/2) at an even s dividing T in the plain
+reshape-GEMM form of `snake_downsample_conv1d`. Other strided forms (the
+SEANet's stride 5, JAX ops/convs.py:249-277, :347-371) take a plain
+convolution, as the JAX package leaves them to XLA; they take no snake.
 """
 
 from __future__ import annotations
@@ -72,14 +75,18 @@ class Conv1d(nn.Module):
 
 class WNConv1d(nn.Module):
     """Weight-normalised conv: w = g * v / ||v||_(k, in) per output channel.
-    Stride 1 with 'same' padding (K2), or the encoder's downsample with
-    kernel_size = 2 * stride."""
+    Stride 1 with 'same' padding (K2), or a strided conv with `padding`
+    (default stride // 2): the encoders' downsample with kernel_size = 2 *
+    stride in the reshape-GEMM form where the JAX package takes it, else a
+    plain convolution."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 dilation: int = 1, use_bias: bool = True, stride: int = 1):
+                 dilation: int = 1, use_bias: bool = True, stride: int = 1,
+                 padding: tp.Optional[int] = None):
         super().__init__()
         self.dilation = dilation
         self.stride = stride
+        self.padding = stride // 2 if padding is None else padding
         self.v = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels))
         self.g = nn.Parameter(torch.empty(out_channels))
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
@@ -90,21 +97,33 @@ class WNConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor, snake: tp.Optional[tp.Tuple] = None) -> torch.Tensor:
         alpha, inv_beta = snake if snake is not None else (None, None)
-        if self.stride > 1:
-            return snake_downsample_conv1d(x, self.weight(), self.bias, alpha, inv_beta,
-                                           self.stride)
+        s, k = self.stride, self.v.shape[0]
+        if s > 1 and s % 2 == 0 and k == 2 * s and self.padding == s // 2 and x.shape[1] % s == 0:
+            return snake_downsample_conv1d(x, self.weight(), self.bias, alpha, inv_beta, s)
+        if s > 1:
+            if snake is not None:
+                raise NotImplementedError("a strided conv outside the downsample form takes no snake")
+            y = F.conv1d(x.transpose(1, 2), self.weight().to(x.dtype).permute(2, 1, 0),
+                         stride=s, padding=self.padding)
+            y = y.transpose(1, 2)
+            return y if self.bias is None else y + self.bias.to(y.dtype)
         return conv_kernels.snake_conv1d(x, self.weight(), self.bias, alpha, inv_beta,
                                          dilation=self.dilation)
 
 
 class WNConvTranspose1d(nn.Module):
-    """Weight-normalised ConvTranspose1d(k = 2s, stride s, padding s/2);
-    norm per input channel."""
+    """Weight-normalised ConvTranspose1d, norm per input channel: k = 2s,
+    stride s, padding s/2 at an even s through K4; any other kernel size,
+    padding or odd stride (the SEANet decoder's stride 5) as a plain
+    transposed convolution of torch's output length (T - 1) s - 2p + k."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int, use_bias: bool = True):
+    def __init__(self, in_channels: int, out_channels: int, stride: int, use_bias: bool = True,
+                 kernel_size: tp.Optional[int] = None, padding: tp.Optional[int] = None):
         super().__init__()
         self.stride = stride
-        self.v = nn.Parameter(torch.empty(2 * stride, in_channels, out_channels))
+        self.padding = stride // 2 if padding is None else padding
+        kernel_size = 2 * stride if kernel_size is None else kernel_size
+        self.v = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels))
         self.g = nn.Parameter(torch.empty(in_channels))
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
 
@@ -114,5 +133,13 @@ class WNConvTranspose1d(nn.Module):
 
     def forward(self, x: torch.Tensor, snake: tp.Optional[tp.Tuple] = None) -> torch.Tensor:
         alpha, inv_beta = snake if snake is not None else (None, None)
-        return conv_kernels.snake_conv_transpose1d(x, self.weight(), self.bias, alpha, inv_beta,
-                                                   stride=self.stride)
+        s, k = self.stride, self.v.shape[0]
+        if s % 2 == 0 and k == 2 * s and self.padding == s // 2:
+            return conv_kernels.snake_conv_transpose1d(x, self.weight(), self.bias, alpha,
+                                                       inv_beta, stride=s)
+        if snake is not None:
+            raise NotImplementedError("a transposed conv outside the K4 form takes no snake")
+        y = F.conv_transpose1d(x.transpose(1, 2), self.weight().to(x.dtype).permute(1, 2, 0),
+                               stride=s, padding=self.padding)
+        y = y.transpose(1, 2)
+        return y if self.bias is None else y + self.bias.to(y.dtype)

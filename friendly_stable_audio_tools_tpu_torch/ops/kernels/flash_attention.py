@@ -16,9 +16,13 @@ Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
   ``_bwd_dq_kernel`` (:477, call :605) and ``_bwd_dkv_kernel`` (:518, call
   :621), with FA2's delta = rowsum(dO * O) computed beside them (:597-603),
   as it is beside K8;
+* K7 and K9 with ``causal`` set (`_online_kernel` :146, masked at
+  :167-169; `_bwd_dq_kernel` and `_bwd_dkv_kernel` masked at :497-499,
+  :537-539), which the audio LM's causal self-attention runs when it
+  trains (MusicGen small: B 8 x 16 heads, T 1501, D 64);
 * the ``_flash`` custom_vjp (:646-663) becomes :class:`FlashAttention`, whose
   backward :func:`flash_attention_backward` chooses K8 or K9 as the JAX
-  package does (:576-579).
+  package does (:576-579): K9 for every causal call.
 
 The DiT's self-attention takes this path under grad beyond 1168 tokens
 (Stable Audio 2.0: 6145 tokens padded to 6272, kv_len 6145: K9), through
@@ -28,7 +32,8 @@ sends it (T 4096 and 2048 at D 64, T 1024 at D 80), takes K7 without the
 LSE when it serves and :class:`FlashAttention` (K7 with the LSE, then K8:
 its plan fits at all three lengths) when it trains. What they compute, per
 head, in the input dtype (fp32 on every path: the JAX training step and
-the JAX CLI's model are fp32)::
+the JAX CLI's model are fp32), with causal calls also masking key j > query
+i::
 
     forward:  q' = q * log2(e)/sqrt(D), s = q' k^T (keys >= kv_len masked),
               p = exp2(s - rowmax(s)), out = (p v) / max(l, 1e-30),
@@ -54,11 +59,15 @@ tile keeps dk/dv in registers over every q tile and adds its part of dq
 into a zeroed fp32 buffer with atomics, so dq's summation order (and its
 last bits) changes from run to run.
 
+The causal kernels skip the key tiles past a q tile's diagonal (and the q
+tiles before a key tile's) and mask only the diagonal tile: at T 1501 the
+forward computes 300 of a head's 576 tiles.
+
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
 the kernels or raise. The CUDA kernels take fp32 and q, k and v of one
 length; K7 and K8 head dim 64 or 80, K9 head dim 64. The other variants of
-the TPU kernels (bf16, causal, the rope-fused one, the online one beyond
-8192 keys, K9 at D 80) are still to be ported (ROADMAP queue B).
+the TPU kernels (bf16, the rope-fused one, the online one beyond 8192 keys,
+K9 at D 80) are still to be ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -75,6 +84,10 @@ forward_launches = 0   # K7 with its LSE (training)
 serving_launches = 0   # K7 without it (serving)
 backward_launches = 0  # K9 (one dq pass and one dk/dv pass per count)
 fused_backward_launches = 0  # K8
+# the causal kernels, counted apart from the non-causal ones
+causal_forward_launches = 0   # causal K7 with its LSE
+causal_serving_launches = 0   # causal K7 without it
+causal_backward_launches = 0  # causal K9
 
 LOG2E = 1.4426950408889634
 # fp32 score bytes one chunk of heads of a plain version may hold (one
@@ -95,25 +108,36 @@ def _head_chunks(bh: int, t_q: int, t_k: int):
     return [(h0, min(bh, h0 + step)) for h0 in range(0, bh, step)]
 
 
-def _masked(s: torch.Tensor, valid: int) -> torch.Tensor:
+def _masked(s: torch.Tensor, valid: int, causal: bool = False) -> torch.Tensor:
     if valid < s.shape[-1]:
         s[..., valid:] = -math.inf
+    if causal:  # key j > query i
+        s.masked_fill_(torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu_(1),
+                       -math.inf)
     return s
 
 
+def _check_causal(q: torch.Tensor, k: torch.Tensor, causal: bool) -> None:
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"causal attention takes as many queries as keys (the JAX package's "
+                         f"flash_attention asserts it), got {q.shape[1]} and {k.shape[1]}")
+
+
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_len: tp.Optional[int] = None, save_stats: bool = True):
+                        kv_len: tp.Optional[int] = None, save_stats: bool = True,
+                        causal: bool = False):
     """K7's plain version: q, k, v [BH, T, D] -> (out [BH, T, D] in q's dtype,
     lse [BH, T] fp32 in base 2, or None without save_stats). q is prescaled
     and rounded to its dtype and P rounded before P.V, as the kernel does."""
     dt = q.dtype
     bh, t, d = q.shape
     valid = _valid_len(k.shape[1], kv_len)
+    _check_causal(q, k, causal)
     out = torch.empty_like(q)
     lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
     for h0, h1 in _head_chunks(bh, t, k.shape[1]):
         qs = (q[h0:h1].float() * (LOG2E / math.sqrt(d))).to(dt).float()
-        s = _masked(qs @ k[h0:h1].float().transpose(-1, -2), valid)
+        s = _masked(qs @ k[h0:h1].float().transpose(-1, -2), valid, causal)
         m = s.amax(-1, keepdim=True)
         p = s.sub_(m).exp2_()
         l = p.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -125,19 +149,21 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                         lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None):
+                         lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None,
+                         causal: bool = False):
     """K9's formula written out (not a call to autograd, so the tests can hold
     it against autograd): (dq, dk, dv) [BH, T, D] in q's dtype from the
     forward's out and base-2 lse and dL/d(out)."""
     dt = q.dtype
     bh, t, d = q.shape
     valid = _valid_len(k.shape[1], kv_len)
+    _check_causal(q, k, causal)
     scale = 1.0 / math.sqrt(d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     for h0, h1 in _head_chunks(bh, t, k.shape[1]):
         qf, kf, vf, dof = (x[h0:h1].float() for x in (q, k, v, do))
         delta = (dof * out[h0:h1].float()).sum(-1, keepdim=True)
-        s = _masked((qf @ kf.transpose(-1, -2)) * (scale * LOG2E), valid)
+        s = _masked((qf @ kf.transpose(-1, -2)) * (scale * LOG2E), valid, causal)
         p = s.sub_(lse[h0:h1].float()[..., None]).exp2_()
         ds = (p * (dof @ vf.transpose(-1, -2) - delta) * scale).to(dt).float()
         dq[h0:h1] = (ds @ kf).to(dt)
@@ -190,9 +216,12 @@ def bwd_fused_plan(t_q: int, t_kp: int, d: int):
     return None
 
 
-def backward_kernel(t_q: int, t_k: int, d: int) -> str:
-    """The non-causal backward the JAX package runs (flash_attention.py:576-579):
-    "K8" where its plan fits, else "K9"."""
+def backward_kernel(t_q: int, t_k: int, d: int, causal: bool = False) -> str:
+    """The backward the JAX package runs (flash_attention.py:576-579): for a
+    non-causal call "K8" where its plan fits, else "K9"; "K9" for every
+    causal call."""
+    if causal:
+        return "K9"
     return "K8" if bwd_fused_plan(t_q, (t_k + 15) // 16 * 16, d) is not None else "K9"
 
 
@@ -237,23 +266,30 @@ def _stream(device) -> int:
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  kv_len: tp.Optional[int] = None, save_stats: bool = True):
+                  kv_len: tp.Optional[int] = None, save_stats: bool = True,
+                  causal: bool = False):
     """K7: q, k, v [BH, T, D] -> (out [BH, T, D], lse [BH, T] fp32 or None);
-    without save_stats (serving) no LSE is written."""
-    global forward_launches, serving_launches
+    without save_stats (serving) no LSE is written; causal masks key j >
+    query i."""
+    global forward_launches, serving_launches, causal_forward_launches, causal_serving_launches
     valid = _valid_len(k.shape[1], kv_len)
+    _check_causal(q, k, causal)
     if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, kv_len, save_stats)
+        return flash_forward_plain(q, k, v, kv_len, save_stats, causal)
     q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FLASH_HEAD_DIMS)
     bh, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
     err = build.library().fsat_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), bh, t, valid, d, LOG2E / math.sqrt(d),
-        _stream(q.device))
+        None if lse is None else lse.data_ptr(), bh, t, valid, d, int(causal),
+        LOG2E / math.sqrt(d), _stream(q.device))
     build.check(err, "flash_forward")
-    if save_stats:
+    if causal and save_stats:
+        causal_forward_launches += 1
+    elif causal:
+        causal_serving_launches += 1
+    elif save_stats:
         forward_launches += 1
     else:
         serving_launches += 1
@@ -261,22 +297,28 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                   lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None):
-    """K9: (dq, dk, dv) [BH, T, 64] from q, k, v, K7's out and lse, and dL/d(out)."""
-    global backward_launches
+                   lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None,
+                   causal: bool = False):
+    """K9: (dq, dk, dv) [BH, T, 64] from q, k, v, K7's out and lse, and
+    dL/d(out); causal for the backward of a causal K7."""
+    global backward_launches, causal_backward_launches
     valid = _valid_len(k.shape[1], kv_len)
+    _check_causal(q, k, causal)
     if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, out, lse, do, kv_len)
+        return flash_backward_plain(q, k, v, out, lse, do, kv_len, causal)
     q, k, v, out, do = _cuda_args("flash_backward", q, k, v, out, do)
     bh, t, d = q.shape
     lse, delta = _lse_delta("flash_backward", lse, out, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = build.library().fsat_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid,
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid, int(causal),
         LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
     build.check(err, "flash_backward")
-    backward_launches += 1
+    if causal:
+        causal_backward_launches += 1
+    else:
+        backward_launches += 1
     return dq, dk, dv
 
 
@@ -305,10 +347,13 @@ def flash_backward_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out:
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                             kv_len: tp.Optional[int] = None):
+                             kv_len: tp.Optional[int] = None, causal: bool = False):
     """The backward of the training path as the JAX package chooses it
     (``_flash_backward``, flash_attention.py:576-579): K8 where its plan
-    fits, else K9 (each its plain version for CPU tensors)."""
+    fits, else K9, and the causal K9 for a causal call (each its plain
+    version for CPU tensors)."""
+    if causal:
+        return flash_backward(q, k, v, out, lse, do, kv_len, causal=True)
     if backward_kernel(q.shape[1], k.shape[1], q.shape[2]) == "K8":
         return flash_backward_fused(q, k, v, out, lse, do, kv_len)
     return flash_backward(q, k, v, out, lse, do, kv_len)
@@ -316,15 +361,19 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """K7 with its LSE forward, K8 or K9 backward (the ``_flash`` custom_vjp)
-    on q, k, v [BH, T, D]; kv_len takes no gradient."""
+    on q, k, v [BH, T, D]; kv_len and causal take no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len=None):
-        out, lse = flash_forward(q, k, v, kv_len, save_stats=True)
+    def forward(ctx, q, k, v, kv_len=None, causal=False):
+        if causal:
+            out, lse = flash_forward(q, k, v, kv_len, save_stats=True, causal=True)
+        else:
+            out, lse = flash_forward(q, k, v, kv_len, save_stats=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kv_len = kv_len
+        ctx.kv_len, ctx.causal = kv_len, causal
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        return (*flash_attention_backward(*ctx.saved_tensors, grad_out, ctx.kv_len), None)
+        grads = flash_attention_backward(*ctx.saved_tensors, grad_out, ctx.kv_len, ctx.causal)
+        return (*grads, None, None)

@@ -5,7 +5,7 @@
         --dataset-config dataset.json --batch-size 8 --max-steps 1000 --save-dir runs/
 
 Flags and their defaults come from `defaults.ini` (in the working directory,
-else the repository's). Trains a `diffusion_cond` model on one device: a
+else the repository's). Trains a `diffusion_cond` or an `lm` model on one device: a
 CUDA card by default, raising when there is none; `--device cpu` trains on
 the CPU through the kernels' plain versions. On the card the DiT trains in
 fp32 with its self-attention routed as the JAX package routes it
@@ -15,8 +15,13 @@ sequences through K7 and K8 or K9 in fp32. Stable Audio 1.0's ADP U-Net
 trains in fp32 with its self-attention at T >= 1024 through K7 (with its
 LSE) and K8 (ops/attention.py). The frozen VAE encodes in fp32 through the
 fp32 K2/K3 (the DAC encoder: K2 only; in bf16 only where the config sets
-`model_half`). TF32 is off
-for matrix products and convolutions, so plain fp32 layers compute in fp32.
+`model_half`). An audio LM (`model_type` `lm`, e.g.
+friendly_stable_audio_tools_tpu_torch/configs/lm/musicgen_small_32khz.json)
+trains in fp32 from raw audio: the frozen SEANet tokenizer (fp32 K2 for
+its stride-1 convs, cuDNN's LSTM) gives the codes, and the causal
+transformer's self-attention runs the causal K7 with its LSE and the causal
+K9. TF32 is off for matrix products and convolutions (cuDNN's LSTM
+included), so plain fp32 layers compute in fp32.
 Without `--pretrained-ckpt-path` the weights are random, drawn from
 `--seed`. Checkpoints (`torch.save`) go to
 `<save-dir>/<name>/<run id>/checkpoints/step_<n>/`; `--ckpt-path` resumes

@@ -5,7 +5,8 @@ fan-in scaled normal for linear layers with zero bias, torch's fan-in
 uniform for the weight-normed convs with `g = ||v||` (so the initial weight
 equals v) and for the ADP U-Net's convs (weight and bias), unit gains, zero
 log-scale snake parameters and unit single-parameter ones, unit-normal
-embeddings and Fourier weights, unit gain and zero bias for the LayerNorms
+embeddings, Fourier weights and vector-quantizer codebooks, fan-in scaled
+normal LSTM weights with zero biases, unit gain and zero bias for the LayerNorms
 and GroupNorms with a bias, and zeros for the projections marked
 `zero_init` (the transformer's branch outputs, the DiT's residual convs).
 Every draw comes from the generator passed in.
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from ..models import adp
+from ..models.bottleneck import VectorQuantizer
 from ..models.clap import BiasLayerNorm
 from ..models.t5 import T5Attention
 from ..ops.activations import Snake, SnakeBeta
@@ -79,6 +81,14 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=gen)
+        elif isinstance(m, VectorQuantizer):
+            m.codebook.normal_(0.0, 1.0, generator=gen)
+        elif isinstance(m, nn.LSTM):
+            for name, p in m.named_parameters(recurse=False):
+                if name.startswith("weight"):
+                    p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+                else:
+                    p.zero_()
         elif isinstance(m, FourierFeatures):
             m.weight.normal_(0.0, m.std, generator=gen)
         elif isinstance(m, adp.LearnedPositionalEmbedding):

@@ -20,6 +20,16 @@ as the JAX package does (`down{i}`, `up{j}`, `to_scale_shift.1`,
 
 The CLAP conditioner's tree `clap/text_branch/layer{i}/...` carries over by
 the same rules (its LayerNorms keep `scale` and `bias`).
+
+The audio LM (:func:`convert_audio_lm`): its embeddings `embed{i}` and
+heads `head{i}` become `embeds.{i}` and `quantizer_heads.{i}`, its backbone
+carries over by the rules above, and so does its SEANet tokenizer
+(`block{i}_res{j}`, `down{i}`, `up{i}` and the RVQ's `quantizer_{i}/codebook`
+keep their names), except the LSTMs: flax's `OptimizedLSTMCell` keeps one
+Dense per gate, `ii`, `if`, `ig`, `io` on the input (no bias) and `hi`, `hf`,
+`hg`, `ho` on the hidden state (with bias), which torch's `nn.LSTM` stacks
+in the same gate order into `weight_ih_l{n}` [4H, in], `weight_hh_l{n}` [4H,
+H] and `bias_hh_l{n}`, with `bias_ih_l{n}` zero.
 :func:`clap_text_state_dict` reads a laion-clap checkpoint's text branch
 instead, by the key map of the JAX package's `models/clap.py:convert_clap_text_branch`.
 
@@ -68,6 +78,61 @@ def state_dict_from_jax(tree: tp.Mapping, prefix: str = "") -> tp.Dict[str, torc
             leaf_name = "weight"
         out[prefix + ".".join(names + [leaf_name])] = torch.tensor(arr)
     return out
+
+
+_LSTM_LAYER = re.compile(r"^lstm(\d+)$")
+_GATES = ("i", "f", "g", "o")  # torch's order of the four gates, and flax's
+
+
+def _lstm_state(tree: tp.Mapping, prefix: str) -> tp.Dict[str, torch.Tensor]:
+    """A flax `_LSTM` tree {lstm{n}: {ii, if, ig, io, hi, hf, hg, ho}} ->
+    the state of a torch `nn.LSTM` under `prefix`."""
+    out = {}
+    for name, cell in tree.items():
+        n = _LSTM_LAYER.match(name).group(1)
+        w = lambda side: torch.tensor(np.concatenate(  # noqa: E731
+            [np.asarray(cell[side + g]["kernel"], np.float32).T for g in _GATES]))
+        bias = torch.tensor(np.concatenate([np.asarray(cell["h" + g]["bias"], np.float32)
+                                            for g in _GATES]))
+        out.update({f"{prefix}weight_ih_l{n}": w("i"), f"{prefix}weight_hh_l{n}": w("h"),
+                    f"{prefix}bias_ih_l{n}": torch.zeros_like(bias),
+                    f"{prefix}bias_hh_l{n}": bias})
+    return out
+
+
+def seanet_codec_state_dict(tree: tp.Mapping, prefix: str = "") -> tp.Dict[str, torch.Tensor]:
+    """A JAX autoencoder tree with SEANet encoder/decoder (and any
+    bottleneck) -> the port's state dict under `prefix`."""
+    sd = {}
+    for part, sub in tree.items():
+        sub = dict(sub)
+        lstm = sub.pop("lstm", None)
+        sd.update(state_dict_from_jax(sub, f"{prefix}{part}."))
+        if lstm is not None:
+            sd.update(_lstm_state(lstm, f"{prefix}{part}.lstm.lstm."))
+    return sd
+
+
+def convert_audio_lm(lm_params: tp.Mapping,
+                     conditioner_params: tp.Optional[tp.Mapping] = None,
+                     pretransform_params: tp.Optional[tp.Mapping] = None
+                     ) -> tp.Dict[str, torch.Tensor]:
+    """The three trees of a JAX `AudioLanguageModelWrapper` (its `params`,
+    `conditioner.params`, `pretransform.model.params`) -> a state_dict of the
+    port's wrapper."""
+    sd = {}
+    for name, tree in lm_params.items():
+        m = re.match(r"^(embed|head)(\d+)$", name)
+        if m:
+            where = {"embed": "embeds", "head": "quantizer_heads"}[m.group(1)]
+            sd.update(state_dict_from_jax(tree, f"model.{where}.{m.group(2)}."))
+        else:
+            sd.update(state_dict_from_jax(tree, f"model.{name}."))
+    for key, tree in (conditioner_params or {}).items():
+        sd.update(state_dict_from_jax(tree, f"conditioner.conditioners.{key}."))
+    if pretransform_params is not None:
+        sd.update(seanet_codec_state_dict(pretransform_params, "pretransform.model."))
+    return sd
 
 
 def convert_conditioned_diffusion(dit_params: tp.Mapping,

@@ -309,3 +309,85 @@ def test_inference_attention_casts_fp32_qkv_to_bf16(gen):
         plain = (tattn.fused_qkv_rope_attention_plain if t <= tattn.PAIR_MAX_T
                  else tattn.fused_qkv_rope_attention_long_plain)
         _close(got, plain(tattn.kernel_input(qkv), f, h))
+
+
+def _causal_counts():
+    return (tflash.causal_forward_launches, tflash.causal_serving_launches,
+            tflash.causal_backward_launches, tflash.forward_launches, tflash.serving_launches,
+            tflash.backward_launches, tflash.fused_backward_launches)
+
+
+@pytest.mark.parametrize("bh,t", [(3, 200), (4, 1501), (2, 1100)])
+def test_causal_flash_kernels_match_plain_in_fp32(gen, bh, t):
+    """The causal K7 with and without its LSE and the causal K9 against their
+    plain versions (rel-L2 1e-5, K9 1e-4), each counted apart from the
+    non-causal kernels; causal needs as many queries as keys."""
+    q, k, v, do = (_rnd(gen, bh, t, 64) for _ in range(4))
+    before = _causal_counts()
+    out, lse = tflash.flash_forward(q, k, v, causal=True)
+    served, _ = tflash.flash_forward(q, k, v, save_stats=False, causal=True)
+    out_p, lse_p = tflash.flash_forward_plain(q, k, v, causal=True)
+    grads = tflash.flash_backward(q, k, v, out_p, lse_p, do, causal=True)
+    assert _causal_counts() == (before[0] + 1, before[1] + 1, before[2] + 1, *before[3:])
+    _close(out, out_p, 1e-5)
+    _close(served, out_p, 1e-5)
+    assert (lse - lse_p).abs().max().item() <= 1e-4
+    for got, want in zip(grads, tflash.flash_backward_plain(q, k, v, out_p, lse_p, do, causal=True)):
+        _close(got, want, 1e-4)
+    with pytest.raises(ValueError, match="as many queries as keys"):
+        tflash.flash_forward(q, k[:, :t - 1].contiguous(), v[:, :t - 1].contiguous(), causal=True)
+
+
+def test_sdpa_gate_sends_causal_self_attention_to_causal_k7_and_k9(gen):
+    """The LM's causal self-attention at T 1501: under grad FlashAttention
+    with causal set (causal K7 with its LSE, then the causal K9; never K8),
+    gradients within rel-L2 1e-4 of autograd of the plain attention; without
+    grad the causal K7 alone."""
+    q, k, v = (_rnd(gen, 2, 4, 1501, 64).requires_grad_(True) for _ in range(3))
+    g = _rnd(gen, 2, 4, 1501, 64)
+    before = _causal_counts()
+    out = tattention.scaled_dot_product_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert _causal_counts() == (before[0] + 1, before[1], before[2] + 1, *before[3:])
+    ref = tattention.attention(q, k, v, causal=True)
+    _close(out, ref, 1e-5)
+    for a, b in zip(got, torch.autograd.grad(ref, (q, k, v), g)):
+        _close(a, b, 1e-4)
+    with torch.no_grad():
+        served = tattention.scaled_dot_product_attention(q, k, v, causal=True)
+    assert _causal_counts()[1] == before[1] + 1
+    _close(served, ref, 1e-5)
+
+
+def test_tiny_lm_train_step_runs_the_causal_kernels(gen):
+    """A tiny audio LM (tests/test_torch_lm.py's, without T5: the
+    conditioning tokens are passed in) computes its logits and gradients on
+    the card from raw audio: the SEANet's six stride-1 convs through the fp32
+    K2, the causal self-attention of its 2 layers (T 1101) through the causal
+    K7 and K9; a finite loss."""
+    from friendly_stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    seanet = {"channels": 1, "dimension": 16, "n_filters": 4, "ratios": [2, 3], "lstm": 2}
+    config = {"model_type": "lm", "sample_size": 6600, "sample_rate": 32000, "audio_channels": 1,
+              "model": {
+                  "pretransform": {"type": "autoencoder", "config": {
+                      "encoder": {"type": "seanet", "config": seanet},
+                      "decoder": {"type": "seanet", "config": seanet},
+                      "bottleneck": {"type": "rvq", "config": {
+                          "num_quantizers": 4, "codebook_size": 32, "dim": 16}},
+                      "latent_dim": 16, "downsampling_ratio": 6, "io_channels": 1}},
+                  "lm": {"type": "continuous_transformer", "cross_attention_cond_ids": ["prompt"],
+                         "config": {"embed_dim": 128, "depth": 2, "num_heads": 2,
+                                    "cross_attn_cond_dim": 512, "project_cross_attn_cond": True}}}}
+    model = create_model_from_config(config, device="cuda").train()
+    reals = _rnd(gen, 2, 1, 6600, scale=0.3)
+    cond = {"prompt": (_rnd(gen, 2, 8, 512), torch.ones(2, 8, dtype=torch.bool, device="cuda"))}
+    before = (*_causal_counts(), tconv.snake_conv1d_f32_launches)
+    codes = model.pretransform.tokenize(reals)
+    out = model.compute_logits(codes, cond)
+    loss = torch.nan_to_num(out.logits).square().mean()
+    loss.backward()
+    after = (*_causal_counts(), tconv.snake_conv1d_f32_launches)
+    assert codes.shape == (2, 4, 1100)
+    assert tuple(b - a for a, b in zip(before, after)) == (2, 0, 2, 0, 0, 0, 0, 6)
+    assert torch.isfinite(loss)
