@@ -2,8 +2,8 @@
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
 on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, Stable
 Audio 2.0 long-form text-to-audio and training, Stable Audio 1.0
-text-to-audio and training, and audio-LM training (MusicGen small's
-widths), at full width.
+text-to-audio and training, and audio-LM training and generation (MusicGen
+small's widths), at full width.
 
     python3 chip_smoke.py
 
@@ -39,6 +39,13 @@ Phases (any failure raises and the script exits non-zero):
    1501, D 64) and at T 1100, with bounds counted on the causal triangle and
    SDPA's causal fp32 times; the fp32 K2 at the LM's SEANet encode shapes
    (B 8 x 960,000 samples, 10 calls per training step);
+   3i. the fused SwiGLU MLP K13 against its plain version: fp32 at the
+   audio LM's decode (M 2, K 1024, inner 4096, Kout 1024: 24 calls per
+   decode step) and at M 16 (rel-L2 1e-5), bf16 at SAO's DiT (M 2080, K
+   1536, inner 6144; one bf16 rounding), each with its bound and the
+   unfused cuBLAS chain's time; the fp32 K2 and K4 at every shape of the
+   LM's SEANet token decode (1500 frames to 959,992 samples: 10 and 3
+   calls);
    3g. the fp32 single-pass backward K8 against its plain version at the
    ADP U-Net's training shapes (B 8 x 16 heads: T 4096 and 2048 at head dim
    64, T 1024 at head dim 80), at a DiT shape where K8's plan fits (B 2 x 24
@@ -118,11 +125,26 @@ Phases (any failure raises and the script exits non-zero):
    mono 32 kHz WAVs, batch 8, 3 steps: step time, trained audio and tokens
    per second, the split (tokenize, T5, LM forward + backward, AdamW), peak
    memory, finite losses, moved weights and the launch counts (causal K7 24,
-   causal K9 24, fp32 K2 10 per step, nothing else).
+   causal K9 24, fp32 K2 10 per step, nothing else);
+13b. the audio LM's static-KV-cache decode at full width
+   (musicgen_small_32khz.json, random de-zeroed weights): a prefill and 63
+   single-token steps of fixed tokens at CFG batch 2 through the
+   generation's 1504-step cache, the fused MLP off and on: every step's
+   logits within rel-L2 1e-5, K13 24 launches per call on and none off, no
+   other kernel; a profiled window of 16 steps each (device busy share);
+13. the audio-LM generation path: `generate_audio` on the same model, one
+   prompt, 1500 frames (1 prefill and 1503 decode steps of the delay
+   pattern), CFG 3, top_k 250, temperature 1, fp32, with the fused MLP off
+   and then on (`create_model_from_config(..., fused_mlp=True)`): walls (T5,
+   prefill, decode loop and per step, token decode, total), s-audio/s, peak
+   memory; codes in [0, 2048), finite audio of the decoder's 959,992
+   samples, and the launch counts (K13 36,096 on, 0 off; fp32 K2 10 and K4
+   3; nothing else).
 
 Output: progress lines with each phase's wall, then one JSON line of
 per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
-their own, `*_f32` and `flash_forward_serving`), the nvidia-smi line, and
+their own, `*_f32` and `flash_forward_serving`; K13 as `glu_mlp`, its
+times per decode step), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
 chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
 part alone (likewise `dac_conv_phase`, `dac_encode_conv_phase(results,
@@ -236,6 +258,11 @@ TOL = {
     "flash_forward_causal": (1e-5, 1e-4),
     "flash_forward_causal_serving": (1e-5, 1e-4),
     "flash_backward_causal": (1e-4, 1e-3),
+    # K13 against its plain version at the same rounding points: fp32 both
+    # sides (summation order only); bf16 one rounding of the output apart,
+    # with v, g and h at most one bf16 step apart where the fp32 sums differ
+    "glu_mlp": (1e-5, 1e-4),
+    "glu_mlp_bf16": (2e-3, 2.0 ** -6),
 }
 # the card's published peaks (H100 SXM, dense), for the bound: the larger of
 # the products' operations at the bf16 tensor-core rate and the bytes each
@@ -329,15 +356,16 @@ def nbytes(*tensors):
 
 
 def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain_ms, lib_ms=None,
-           bound=None, field="ms", extra=""):
+           bound=None, field="ms", extra="", tol_name=None):
     """Logs one kernel-vs-plain result, raises when it failed, and adds a
     main-path shape's error and weighted times to the kernel's entry: for
     `field` f, f (kernel), plain_f, bound_f (from `bound`, (ms, resource))
-    and library_f (None once a shape has no library call)."""
+    and library_f (None once a shape has no library call). `tol_name` names
+    the TOL entry the result was checked under, where it is not `name`'s."""
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     bnd = "" if bound is None else f" bound {bound[0]:.4f} ms ({bound[1]})"
     log(f"  {name} {label}: max_abs {max_abs:.4g} (max|plain| {peak:.4g}) rel_l2 {rel_l2:.3g}{extra} "
-        f"tol {TOL[name]} kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib}{bnd} "
+        f"tol {TOL[tol_name or name]} kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib}{bnd} "
         f"{'main-path' if main_path else 'extra'} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label} disagrees with its plain version")
@@ -359,15 +387,22 @@ def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain
 
 @contextlib.contextmanager
 def patched(pairs):
-    """Sets (object, attribute, value) triples for the block, then restores them."""
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in pairs]
+    """Sets (object, attribute, value) triples for the block, then restores
+    them. An attribute the object only inherited (an instance's method) is
+    deleted again rather than set to the bound method it had, which would
+    leave the instance in a reference cycle that only the garbage collector
+    frees (a model kept alive on the card)."""
+    saved = [(obj, name, getattr(obj, name), name in vars(obj)) for obj, name, _ in pairs]
     for obj, name, value in pairs:
         setattr(obj, name, value)
     try:
         yield
     finally:
-        for obj, name, value in saved:
-            setattr(obj, name, value)
+        for obj, name, value, own in saved:
+            if own:
+                setattr(obj, name, value)
+            else:
+                delattr(obj, name)
 
 
 def plain_attention(qkv, freqs, num_heads, kv_len=None):
@@ -383,10 +418,11 @@ def plain_attention(qkv, freqs, num_heads, kv_len=None):
 def plain_kernels():
     """Routes the model's kernel calls to the plain versions (for the
     kernel-vs-plain model compares)."""
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d, mlp
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
 
     return patched([(attention, "fused_qkv_rope_attention", plain_attention),
+                    (mlp, "glu_mlp", mlp.glu_mlp_plain),
                     (flash, "flash_forward", flash.flash_forward_plain),
                     (flash, "flash_backward", flash.flash_backward_plain),
                     (flash, "flash_backward_fused", flash.flash_backward_fused_plain),
@@ -1222,14 +1258,361 @@ def causal_flash_phase(results):
             f"{r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
 
 
-def build_model(config):
+def graph_ms(fns, rounds=5):
+    """Device time per call of `fns`, called in turn for `rounds` rounds, as
+    one CUDA-graph replay timed with CUDA events: the host's launch cost,
+    which bounds a back-to-back timing of calls of some microseconds, does
+    not count."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+    return timed_ms(graph.replay, 3) / (rounds * len(fns))
+
+
+def glu_mlp_phase(results):
+    """[3i] K13 against its plain version: fp32 at the audio LM's decode (M 2
+    = one row and its CFG twin, K 1024, inner 4096, Kout 1024: 24 calls per
+    decode step) and at M 16; bf16 at Stable Audio Open's DiT (M 2080 = CFG
+    batch 2 x 1040 tokens, K 1536, inner 6144, Kout 1536), which the switch
+    reaches in a bf16 DiT. Bound: the weights, x and y read or written once
+    (bytes), or the three products at the fp32-accurate or bf16 rate. The
+    library time is the unfused chain on cuBLAS (F.linear, silu * mul,
+    F.linear; TF32 off), which no single PyTorch call replaces. The fp32
+    calls last tens of microseconds, less than the host takes to launch
+    them, so they are timed as CUDA-graph replays (`graph_ms`) cycling
+    through 4 sets of weights (201 MB, four times the L2 cache), as the
+    decode reads a new layer's weights at every call; the bf16 DiT shape
+    with CUDA events around back-to-back calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import mlp
+
+    rnd = randn_fn(17)
+    k13 = results["glu_mlp"]
+    decode_label = "M2 K1024 inner4096 Kout1024 fp32"
+    k13["weight"][decode_label] = LM_LAYERS
+    for m, k, inner, kout, dt, label in [
+            (2, 1024, 4096, 1024, torch.float32, decode_label),
+            (16, 1024, 4096, 1024, torch.float32, "M16 K1024 inner4096 Kout1024 fp32"),
+            (2080, 1536, 6144, 1536, torch.bfloat16, "M2080 K1536 inner6144 Kout1536 bf16 (SAO DiT)")]:
+        f32 = dt == torch.float32
+        x = rnd(m, k).to(dt)
+        sets = [(rnd(2 * inner, k, scale=k ** -0.5).to(dt), rnd(2 * inner, scale=0.1),
+                 rnd(kout, inner, scale=inner ** -0.5).to(dt)) for _ in range(4 if f32 else 1)]
+
+        def chain(x, w_in, b_in, w_out):
+            v, g = F.linear(x, w_in, b_in.to(dt)).chunk(2, dim=-1)
+            return F.linear(v * F.silu(g), w_out)
+
+        calls = {name: [lambda fn=fn, ws=ws: fn(x, *ws) for ws in sets]
+                 for name, fn in (("kernel", mlp.glu_mlp), ("plain", mlp.glu_mlp_plain),
+                                  ("library", chain))}
+        y = torch.empty(m, kout, device=DEVICE, dtype=dt)
+        flops = 2 * m * k * 2 * inner + 2 * m * inner * kout
+        bound = bound_ms(flops, nbytes(x, *sets[0], y),
+                         peak=PEAK_FP32_ACCURATE if f32 else PEAK_FLOPS)
+        del y
+        tol = "glu_mlp" if f32 else "glu_mlp_bf16"
+        with torch.no_grad():
+            out = calls["kernel"][0]()
+            torch.cuda.synchronize()
+            checked = within(tol, out, calls["plain"][0]())
+            del out
+            if f32:
+                times = [graph_ms(calls[name]) for name in ("kernel", "plain", "library")]
+            else:
+                times = [timed_ms(calls[name][0], 3) for name in ("kernel", "plain", "library")]
+        report(results, "glu_mlp", label, label == decode_label, *checked, *times, bound=bound,
+               tol_name=tol, extra=f"; plan (M tile, splits) {mlp.plan(m, inner)}; timed "
+                                   f"{'as CUDA-graph replays' if f32 else 'back to back'}")
+        del x, sets, calls
+    log(f"  glu_mlp: {k13['ms']:.4f} ms per {k13['per']}, plain {k13['plain_ms']:.4f} ms, bound "
+        f"{k13['bound_ms']:.4f} ms, unfused cuBLAS chain {k13['library_ms']:.4f} ms")
+
+
+def seanet_decode_steps(config):
+    """The kernel calls of one SEANet decode of `config`'s frames (batch 1),
+    in order: ("k2", T, Cin, Cout, k) for conv_in, each block's residual
+    convs (k 3 to half the width, k 1 back) and conv_out; ("k4", T, Cin,
+    Cout, stride) for the upsamples at an even stride (an odd one is a plain
+    transposed conv of length (T - 1) s - 2 ceil(s / 2) + 2 s). Returns the
+    calls and the audio length."""
+    ae = config["model"]["pretransform"]["config"]
+    dec = ae["decoder"]["config"]
+    if dec.get("n_residual_layers", 1) != 1:
+        raise AssertionError("the K2 shapes below assume one residual layer per block")
+    t = config["sample_size"] // ae["downsampling_ratio"]
+    ch = dec["n_filters"] * 2 ** len(dec["ratios"])
+    calls = [("k2", t, dec["dimension"], ch, dec.get("kernel_size", 7))]
+    for s in dec["ratios"]:
+        if s % 2 == 0:
+            calls.append(("k4", t, ch, ch // 2, s))
+            t = t * s
+        else:
+            t = (t - 1) * s - 2 * math.ceil(s / 2) + 2 * s
+        ch //= 2
+        calls += [("k2", t, ch, ch // 2, dec.get("residual_kernel_size", 3)),
+                  ("k2", t, ch // 2, ch, 1)]
+    calls.append(("k2", t, ch, dec["channels"], dec.get("last_kernel_size", 7)))
+    return calls, t
+
+
+def seanet_decode_conv_phase(results, config):
+    """[3i] The fp32 K2 and K4 at every shape of the audio LM's token decode
+    (musicgen_small_32khz.json: 1500 frames to 959,992 samples, batch 1; an
+    ELU before each conv, no snake), under `lm_decode_ms`: 10 K2 and 3 K4
+    launches per generation."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    rnd = randn_fn(18)
+    calls, _ = seanet_decode_steps(config)
+    for kind, t, cin, cout, k in calls:
+        x = rnd(1, t, cin, scale=0.5)
+        bb = rnd(cout, scale=0.1)
+        if kind == "k2":
+            w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+            conv_case(results, "snake_conv1d", f"SEANet decode B1 T{t} {cin}->{cout} k{k}",
+                      "lm_decode_ms", x, w, bb, None, None,
+                      lambda: conv1d.snake_conv1d(x, w, bb),
+                      lambda xs: conv1d.snake_conv1d_plain(xs, w, bb),
+                      2 * t * cin * cout * k, halo=(k - 1) // 2)
+        else:
+            w = rnd(2 * k, cin, cout, scale=1 / math.sqrt(2 * cin))
+            conv_case(results, "snake_conv_transpose1d", f"SEANet decode B1 T{t} {cin}->{cout} s{k}",
+                      "lm_decode_ms", x, w, bb, None, None,
+                      lambda: conv1d.snake_conv_transpose1d(x, w, bb, stride=k),
+                      lambda xs: conv1d.snake_conv_transpose1d_plain(xs, w, bb, stride=k),
+                      2 * t * k * cin * cout * 2, halo=1, up=k, stride=k)
+        del x
+    for name, kind in (("snake_conv1d_f32", "k2"), ("snake_conv_transpose1d_f32", "k4")):
+        r = results[name]
+        log(f"  {name}: {r['lm_decode_ms']:.4f} ms per audio LM token decode "
+            f"({sum(c[0] == kind for c in calls)} calls), plain {r['plain_lm_decode_ms']:.4f} ms, "
+            f"bound {r['bound_lm_decode_ms']:.4f} ms, library {r['library_lm_decode_ms']:.4f} ms")
+
+
+LM_PROMPT = {"prompt": "An upbeat synthwave track with punchy drums and a soaring lead"}
+LM_CFG, LM_TOP_K, LM_TEMP = 3.0, 250, 1.0
+LM_DECODE_STEPS = 64
+
+
+def lm_cond_inputs(model):
+    """The CFG-doubled conditioning of LM_PROMPT: T5, then the zeroed twin."""
+    import torch
+
+    cond = model.conditioner([LM_PROMPT], device=DEVICE)
+    ctx = model.get_conditioning_inputs(cond)["cross_attn_cond"]
+    return torch.cat([ctx, torch.zeros_like(ctx)])
+
+
+def set_fused_mlp(model, on):
+    from friendly_stable_audio_tools_tpu_torch.models.transformer import FeedForward
+
+    for m in model.modules():
+        if isinstance(m, FeedForward):
+            m.fused_mlp = on
+
+
+def lm_frames(config):
+    """Frames of the config's clip: 1500 for 30 s at 32 kHz, ratio 640."""
+    return config["sample_size"] // config["model"]["pretransform"]["config"]["downsampling_ratio"]
+
+
+PROFILE_STEPS = 16
+
+
+def profile_decode(lm, tokens, ctx, length):
+    """torch.profiler (device activity only) over PROFILE_STEPS decode_step
+    calls after a prefill (the first steps of `tokens`, a fresh cache): the
+    device's busy time per step (kernels, copies and fills on the one
+    stream, which do not overlap), its activities per step, and the five
+    largest by total time per step, in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    caches = lm.init_cache(2, length)
+    with torch.no_grad():
+        lm.decode_step(tokens[..., :1], caches, cross_attn_cond=ctx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(1, PROFILE_STEPS + 1):
+                lm.decode_step(tokens[..., i:i + 1], caches, cross_attn_cond=ctx)
+            torch.cuda.synchronize()
+    by_name = {}
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return sum(by_name.values()), len(device) / PROFILE_STEPS, top
+
+
+def lm_decode_phase(model, config):
+    """[13b] The cached decode at full width (musicgen_small_32khz.json, random
+    de-zeroed weights): a prefill of the special token, then 63 single-token
+    steps of fixed random tokens at CFG batch 2 through a cache of the
+    generation's 1504 steps, with the fused MLP off and then on (the same
+    model, its FeedForwards switched): every step's logits within rel-L2
+    1e-5; K13 launches 24 per decode_step call with the switch on, none off,
+    and no other kernel in either. The walls per step come from four runs
+    in turns (off, on, on, off), then a profiled window of each
+    (`profile_decode`): the device's busy share of the unprofiled step.
+    Returns the walls per step in ms, {on: [first, second]}."""
+    import torch
+
+    lm = model.model
+    pattern = model.pattern_provider.get_pattern(lm_frames(config))
+    length = len(pattern.layout)
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    tokens = torch.randint(0, model.codebook_size, (1, model.num_quantizers, LM_DECODE_STEPS),
+                           generator=g, device=DEVICE)
+    tokens[..., :pattern.get_first_step_with_timesteps(0)] = model.masked_token_id
+    tokens = torch.cat([tokens, tokens])
+    ctx = lm_cond_inputs(model)
+    runs, walls, prof = {}, {False: [], True: []}, {}
+    for on in (False, True, True, False):  # in turns: the host's speed drifts
+        set_fused_mlp(model, on)
+        caches = lm.init_cache(2, length)
+        logits, counts = [], []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with torch.no_grad():
+            for i in range(LM_DECODE_STEPS):
+                reset_counts()
+                out, caches = lm.decode_step(tokens[..., i:i + 1], caches, cross_attn_cond=ctx)
+                counts.append(read_counts())
+                logits.append(out)
+        torch.cuda.synchronize()
+        walls[on].append((time.perf_counter() - start) / LM_DECODE_STEPS * 1e3)
+        runs.setdefault(on, (logits, counts))
+        del caches, logits
+    for on in (False, True):
+        set_fused_mlp(model, on)
+        prof[on] = profile_decode(lm, tokens, ctx, length)
+    set_fused_mlp(model, False)
+    errs = [rel_err(a, b) for a, b in zip(runs[True][0], runs[False][0])]
+    log(f"  {LM_DECODE_STEPS} decode_step calls at CFG batch 2 (cache of {length} steps): logits with "
+        f"K13 vs the unfused chain rel-L2 max {max(errs):.3g} (tol 1e-5), first {errs[0]:.3g}, last "
+        f"{errs[-1]:.3g}; wall per step (host clock, one sync at the end), in turns off, on, on, "
+        f"off: {walls[False][0]:.3f}, {walls[True][0]:.3f}, {walls[True][1]:.3f}, "
+        f"{walls[False][1]:.3f} ms")
+    for on in (False, True):
+        busy, n_kernels, top = prof[on]
+        wall = statistics.mean(walls[on])
+        log(f"  profiled {PROFILE_STEPS} steps, fused MLP {'on' if on else 'off'}: device busy "
+            f"{busy:.3f} ms per step = {busy / wall:.1%} of the unprofiled wall per step "
+            f"(idle {1 - busy / wall:.1%}); {n_kernels:.0f} device activities per step; "
+            f"largest: " + ", ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top))
+    if not (max(errs) <= 1e-5 and all(torch.isfinite(x).all() for x in runs[True][0])):
+        raise AssertionError("the cached decode with K13 disagrees with the unfused chain")
+    for on in (False, True):
+        want = {name: 0 for name in KERNELS}
+        want["glu_mlp"] = LM_LAYERS if on else 0
+        bad = [c for c in runs[on][1] if c != want]
+        if bad:
+            raise AssertionError(f"decode_step launches {bad[0]}, expected {want} (fused {on})")
+    return walls
+
+
+def lm_generation_phase(model, config, fused):
+    """[13] `generate_audio` on musicgen_small_32khz.json as written (random
+    de-zeroed weights, seed 0, the hash tokenizer): one prompt, 1500 frames
+    (1504 steps of the delay pattern: 1 prefill, 1503 decode steps), CFG 3,
+    top_k 250, temperature 1, batch 1, fp32 with TF32 off. Walls (each phase
+    ended by a synchronize): T5, the prefill, the decode loop, the token
+    decode (`decode_tokens`: RVQ lookups, the SEANet decoder through the
+    fp32 K2 and K4), the total; s-audio/s; peak memory. Checks: codes in [0,
+    2048), finite audio of the decoder's length, and the launch counts
+    (K13 24 per decode_step call with the switch on, else none; fp32 K2 10
+    and K4 3; nothing else). Returns the counts."""
+    import numpy as np
+    import torch
+
+    calls, n_samples = seanet_decode_steps(config)
+    marks, codes_seen = {}, []
+    real_cond = model.conditioner.forward
+    real_step = model.model.decode_step
+    real_decode = model.pretransform.decode_tokens
+
+    def cond(*a, **kw):
+        out = real_cond(*a, **kw)
+        torch.cuda.synchronize()
+        marks["cond"] = time.perf_counter()
+        return out
+
+    def step(*a, **kw):
+        out = real_step(*a, **kw)
+        if "prefill" not in marks:
+            torch.cuda.synchronize()
+            marks["prefill"] = time.perf_counter()
+        return out
+
+    def decode(codes):
+        torch.cuda.synchronize()
+        marks["loop"] = time.perf_counter()
+        codes_seen.append(codes)
+        return real_decode(codes)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with patched([(model.conditioner, "forward", cond), (model.model, "decode_step", step),
+                  (model.pretransform, "decode_tokens", decode)]):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        audio = model.generate_audio(max_gen_len=lm_frames(config), conditioning=[LM_PROMPT],
+                                     cfg_scale=LM_CFG, top_k=LM_TOP_K, temp=LM_TEMP,
+                                     generator=gen)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    codes = codes_seen[0]
+    steps = len(model.pattern_provider.get_pattern(lm_frames(config)).layout)
+    seconds = n_samples / config["sample_rate"]
+    walls = {"T5": marks["cond"] - start, "prefill": marks["prefill"] - marks["cond"],
+             "decode loop": marks["loop"] - marks["prefill"], "token decode": end - marks["loop"]}
+    total = end - start
+    log(f"  fused MLP {'on' if fused else 'off'}: " + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items())
+        + f"; {walls['decode loop'] / (steps - 1) * 1e3:.3f} ms per decode step ({steps - 1} steps); "
+        f"total {total:.4f} s = {seconds / total:.3f} s-audio/s ({n_samples} samples, {seconds} s); "
+        f"peak {peak:.2f} GiB")
+    c = codes.cpu().numpy()
+    log(f"  codes {list(codes.shape)} in [{c.min()}, {c.max()}], {len(np.unique(c))} distinct; audio "
+        f"{list(audio.shape)} rms {audio.float().pow(2).mean().sqrt().item():.4g}; launches {counts}")
+    if not (codes.shape == (1, model.num_quantizers, lm_frames(config)) and c.min() >= 0
+            and c.max() < model.codebook_size):
+        raise AssertionError("generated codes out of range or unknown tokens left")
+    if not (audio.shape == (1, 1, n_samples) and torch.isfinite(audio).all()):
+        raise AssertionError(f"audio {tuple(audio.shape)} is not finite [1, 1, {n_samples}]")
+    want = {name: 0 for name in KERNELS}
+    want.update(glu_mlp=LM_LAYERS * steps if fused else 0,
+                snake_conv1d_f32=sum(k == "k2" for k, *_ in calls),
+                snake_conv_transpose1d_f32=sum(k == "k4" for k, *_ in calls))
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    return counts
+
+
+def build_model(config, fused_mlp=False):
     """A model on the card in fp32: random weights, seed 0, de-zeroed."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch import create_model_from_config
     from friendly_stable_audio_tools_tpu_torch.utils.common import dezero_
 
-    model = create_model_from_config(config, seed=0, device=DEVICE)
+    model = create_model_from_config(config, seed=0, device=DEVICE, fused_mlp=fused_mlp)
     return dezero_(model, torch.Generator(device=DEVICE).manual_seed(1))
 
 
@@ -1426,14 +1809,15 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "flash_forward_causal": ("flash", "causal_forward_launches"),
     "flash_forward_causal_serving": ("flash", "causal_serving_launches"),
     "flash_backward_causal": ("flash", "causal_backward_launches"),
+    "glu_mlp": ("mlp", "launches"),
 }
 
 
 def _kernel_modules():
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d, mlp
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention
 
-    return {"attention": attention, "conv1d": conv1d, "flash": flash_attention}
+    return {"attention": attention, "conv1d": conv1d, "flash": flash_attention, "mlp": mlp}
 
 
 def reset_counts():
@@ -2215,6 +2599,9 @@ def new_results():
         "flash_backward_causal": dict(
             route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:565",
             per=f"audio LM training step ({LM_LAYERS} calls at B{TRAIN_BATCH} x H{LM_HEADS} T{LM_T})"),
+        "glu_mlp": dict(
+            route="cuda", source=src + "glu_mlp.cu", replaces=tpu + "mlp.py:145",
+            per=f"audio LM decode step ({LM_LAYERS} calls at M2 K1024 inner4096 Kout1024, fp32)"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
@@ -2308,6 +2695,11 @@ def main():
     seanet_conv_phase(results, lm_config)
     lstm_tf32_check(lm_config)
     done("[3h]")
+    log("[3i] the fused SwiGLU MLP K13 vs its plain version (fp32 at the audio LM's decode, bf16 "
+        "at SAO's DiT); the fp32 K2 and K4 at the LM's SEANet token-decode shapes")
+    glu_mlp_phase(results)
+    seanet_decode_conv_phase(results, lm_config)
+    done("[3i]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -2451,11 +2843,29 @@ def main():
         counts_lm = lm_training_phase(lm_config, tmp, lm_path)
     done("[12]")
 
+    log(f"[13b] the audio LM's cached decode at full width: {LM_DECODE_STEPS} decode_step calls on "
+        f"fixed tokens, the fused MLP (K13) on vs off")
+    model = build_model(lm_config)
+    lm_decode_phase(model, lm_config)
+    done("[13b]")
+    log(f"[13] audio LM generation: generate_audio on musicgen_small_32khz.json, {lm_frames(lm_config)} "
+        f"frames, CFG {LM_CFG}, top_k {LM_TOP_K}, temperature {LM_TEMP}, fp32; the fused MLP off, "
+        f"then on (create_model_from_config(..., fused_mlp=True))")
+    counts_gen = lm_generation_phase(model, lm_config, False)
+    del model
+    torch.cuda.empty_cache()
+    model = build_model(lm_config, fused_mlp=True)
+    counts_gen_fused = lm_generation_phase(model, lm_config, True)
+    del model
+    torch.cuda.empty_cache()
+    done("[13]")
+
     by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
                "generate_sa1": launches_sa1, "generate_fp32": launches_fp32,
                "train_sa1": counts_sa1, "lm_tokenize": counts_lm_tok, "lm_step": counts_lm_step,
-               "lm_eval_forward": counts_lm_eval, "train_lm": counts_lm}
+               "lm_eval_forward": counts_lm_eval, "train_lm": counts_lm,
+               "lm_generate": counts_gen, "lm_generate_fused_mlp": counts_gen_fused}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -2465,7 +2875,7 @@ def main():
                    bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
                    launches_by_path={p: c[name] for p, c in by_path.items()})
         for f in ("sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms", "sa1_train_ms",
-                  "sa1_encode_ms", "lm_encode_ms"):
+                  "sa1_encode_ms", "lm_encode_ms", "lm_decode_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
         return out

@@ -167,6 +167,13 @@ class AudioAutoencoder(nn.Module):
             z = self.bottleneck.decode(z)
         return self.decoder(z)
 
+    def decode_tokens_nwc(self, codes: torch.Tensor) -> torch.Tensor:
+        """The discrete bottleneck's codes [B, L, Q] -> audio [B, T, C] (JAX
+        `decode_tokens` :249-252)."""
+        if not self.is_discrete:
+            raise ValueError("decode_tokens needs a discrete bottleneck")
+        return self.decoder(self.bottleneck.decode_tokens(codes))
+
 
 def create_encoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
     """The `oobleck`, `dac` and `seanet` encoder types of the JAX factory (:632)."""

@@ -51,6 +51,11 @@ class VectorQuantizer(nn.Module):
         z_q = (z_e + (cb[codes] - z_e)).to(x.dtype)  # the straight-through form
         return (self.proj_out(z_q) if self.needs_proj else z_q), codes
 
+    def lookup(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B, T] -> their codebook rows [B, T, C_in], fp32 (JAX :197)."""
+        z_q = self.codebook.float()[codes]
+        return self.proj_out(z_q) if self.needs_proj else z_q
+
 
 class ResidualVQ(nn.Module):
     """`num_quantizers` codebooks, each quantizing the previous residual."""
@@ -72,6 +77,11 @@ class ResidualVQ(nn.Module):
             residual = residual - out
             codes.append(c)
         return z_q, torch.stack(codes, dim=-1)
+
+    def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B, T, Q] -> latents [B, T, C]: the codebooks' rows summed (JAX :238)."""
+        return sum(getattr(self, f"quantizer_{i}").lookup(codes[..., i])
+                   for i in range(self.num_quantizers))
 
 
 class RVQBottleneck(nn.Module):
@@ -95,6 +105,10 @@ class RVQBottleneck(nn.Module):
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+    def decode_tokens(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B, T, Q] -> latents [B, T, dim] (JAX :276-277)."""
+        return self.decode(self.quantizer.from_codes(codes))
 
 
 def create_bottleneck_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:

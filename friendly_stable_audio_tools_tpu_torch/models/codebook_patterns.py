@@ -60,6 +60,16 @@ class Pattern:
     def starts_with_special_token(self) -> bool:
         return self.layout[0] == []
 
+    def get_steps_with_timestep(self, t: int, q: tp.Optional[int] = None) -> tp.List[int]:
+        """The step of each coordinate that holds timestep t (of codebook q, or
+        of any: a step then repeats once per codebook it holds t for)."""
+        return [s for s, coords in enumerate(self.layout) for ct, cq in coords
+                if ct == t and (q is None or cq == q)]
+
+    def get_first_step_with_timesteps(self, t: int, q: tp.Optional[int] = None) -> tp.Optional[int]:
+        steps = self.get_steps_with_timestep(t, q)
+        return steps[0] if steps else None
+
     # ---- index tables (numpy, on the host) ---------------------------------
 
     def _build_table_uncached(self, timesteps: int, n_q: int, keep_only_valid_steps: bool):

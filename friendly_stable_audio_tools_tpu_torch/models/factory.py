@@ -15,17 +15,21 @@ from ..utils.common import init_weights_, resolve_device
 from .conditioners import CLAPTextConditioner
 from .diffusion import create_diffusion_cond_from_config
 from .lm import create_audio_lm_from_config
+from .transformer import FeedForward
 
 
 def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
-                             device: tp.Union[str, torch.device] = "cuda") -> nn.Module:
+                             device: tp.Union[str, torch.device] = "cuda",
+                             fused_mlp: bool = False) -> nn.Module:
     """Builds the model on `device` (the GPU unless `device="cpu"`; raises
     when there is no GPU) with random weights drawn from a generator seeded
     with `seed` (the JAX package's initialisation scheme,
     utils/common.init_weights_; a diffusion backbone is then halved, as the
     JAX wrapper halves it, an LM is not). A CLAP conditioner then reads its
     `clap_ckpt_path` when that file exists. Load a converted checkpoint over
-    the weights with `load_state_dict` (utils/convert.py)."""
+    the weights with `load_state_dict` (utils/convert.py). `fused_mlp` turns
+    on the fused SwiGLU kernel K13 in every transformer FeedForward (the JAX
+    package's FSAT_FUSED_MLP switch, off by default as there)."""
     device = resolve_device(device, 'device="cpu"')
     model_type = model_config.get("model_type")
     if model_type is None:
@@ -45,5 +49,7 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
     for m in model.modules():
         if isinstance(m, CLAPTextConditioner):
             m.load_checkpoint()
+        if isinstance(m, FeedForward):
+            m.fused_mlp = fused_mlp
     return model.eval()
 

@@ -9,8 +9,18 @@ outputs to backbone inputs (`get_conditioning_inputs`, :135) and computes
 the training logits (`compute_logits`, :153-196): the codes interleaved by
 the pattern, the model, the logits taken back to the codes' frames with NaN
 where the pattern has none, and classifier-free-guidance dropout of the
-conditioning drawn from an explicit `torch.Generator`. Generation (the
-static-KV-cache decode, sampling, `generate`) is not ported yet.
+conditioning drawn from an explicit `torch.Generator`.
+
+Generation (JAX :198-372): `generate` allocates one static KV cache per
+layer for the S steps of the pattern, runs the prefill of the steps before
+the first one to generate, then a host loop over the remaining offsets
+(JAX compiles that loop into one `lax.scan`; here each step is launched
+from the host and nothing waits on the device until the end). Each step
+samples the next tokens from the last logits (`_sample_token`: the CFG
+lerp of the batch-doubled logits, temperature, top-k or top-p, the Gumbel
+draws from an explicit `torch.Generator`), keeps prompt tokens and the
+special token where the pattern has no coordinate, and decodes the new
+step. `generate_audio` decodes the codes through the tokenizer.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from .codebook_patterns import PATTERN_PROVIDERS, CodebooksPatternProvider
 from .conditioners import MultiConditioner, create_multi_conditioner_from_conditioning_config
 from .lm_backbone import ContinuousTransformerAudioLMBackbone
 from .pretransforms import AutoencoderPretransform, create_pretransform_from_config
+from .utils import multinomial, sample_top_k, sample_top_p
 
 COND_KINDS = ("cross_attn_cond", "prepend_cond", "global_cond")
 
@@ -49,13 +60,33 @@ class AudioLanguageModelModule(nn.Module):
         self.quantizer_heads = nn.ModuleList([nn.Linear(dim, codebook_size)
                                               for _ in range(num_quantizers)])
 
+    def _embed(self, sequence: torch.Tensor) -> torch.Tensor:
+        return sum(emb(sequence[:, i]) for i, emb in enumerate(self.embeds))
+
+    def _heads(self, out: torch.Tensor) -> torch.Tensor:
+        return torch.stack([head(out) for head in self.quantizer_heads], dim=1)
+
     def forward(self, sequence: torch.Tensor, prepend_cond=None, prepend_cond_mask=None,
                 cross_attn_cond=None, global_cond=None) -> torch.Tensor:
         """sequence [B, K, S] -> logits [B, K, S, card]."""
-        x = sum(emb(sequence[:, i]) for i, emb in enumerate(self.embeds))
-        out = self.backbone(x, prepend_cond=prepend_cond, prepend_cond_mask=prepend_cond_mask,
+        out = self.backbone(self._embed(sequence), prepend_cond=prepend_cond,
+                            prepend_cond_mask=prepend_cond_mask,
                             cross_attn_cond=cross_attn_cond, global_cond=global_cond)
-        return torch.stack([head(out) for head in self.quantizer_heads], dim=1)
+        return self._heads(out)
+
+    def init_cache(self, batch: int, max_len: int, prepend_len: int = 0,
+                   dtype: torch.dtype = torch.float32):
+        return self.backbone.init_cache(batch, max_len, prepend_len, dtype)
+
+    def decode_step(self, sequence: torch.Tensor, caches, prepend_cond=None,
+                    prepend_cond_mask=None, cross_attn_cond=None, global_cond=None):
+        """sequence [B, K, n] tokens continuing the cached steps -> (logits
+        [B, K, n, card], caches)."""
+        out, caches = self.backbone.decode_step(
+            self._embed(sequence), caches, cross_attn_cond=cross_attn_cond,
+            prepend_cond=prepend_cond, prepend_cond_mask=prepend_cond_mask,
+            global_cond=global_cond)
+        return self._heads(out), caches
 
 
 class AudioLanguageModelWrapper(nn.Module):
@@ -135,6 +166,118 @@ class AudioLanguageModelWrapper(nn.Module):
         out = flat.index_select(1, torch.from_numpy(idx.reshape(-1)).to(logits.device))
         mask = torch.from_numpy(mask).to(logits.device)
         return LMOutput(logits=out.view(b, k, t, card), mask=mask.expand(b, k, t))
+
+    # ---- generation --------------------------------------------------------
+
+    @staticmethod
+    def _sample_token(logits: torch.Tensor, generator: tp.Optional[torch.Generator],
+                      top_k: int = 250, top_p: float = 0.0, temp: float = 1.0,
+                      cfg_scale: float = 1.0) -> torch.Tensor:
+        """logits [B (2B with CFG: conditioned rows first), K, n, card] -> the
+        next tokens [B, K, 1] from the last step (JAX :198-213): the CFG lerp
+        uncond + (cond - uncond) * cfg_scale, then a draw from softmax(l /
+        temp) through top-p, top-k or all of it, or the argmax at temp 0."""
+        if cfg_scale != 1.0:
+            cond, uncond = logits.chunk(2, dim=0)
+            logits = uncond + (cond - uncond) * cfg_scale
+        logits = logits[:, :, -1, :]
+        if temp > 0:
+            probs = torch.softmax(logits.float() / temp, dim=-1)
+            if top_p > 0.0:
+                return sample_top_p(probs, top_p, generator)
+            if top_k > 0:
+                return sample_top_k(probs, top_k, generator)
+            return multinomial(probs, 1, generator)
+        return logits.argmax(-1, keepdim=True)
+
+    @torch.no_grad()
+    def generate(self, max_gen_len: int = 256, batch_size: tp.Optional[int] = None,
+                 init_data: tp.Optional[torch.Tensor] = None,
+                 conditioning: tp.Optional[tp.List[dict]] = None,
+                 conditioning_tensors: tp.Optional[tp.Dict[str, tp.Any]] = None,
+                 callback: tp.Optional[tp.Callable[[int, int], None]] = None,
+                 use_cache: bool = True, cfg_scale: float = 1.0,
+                 generator: tp.Optional[torch.Generator] = None, top_k: int = 250,
+                 top_p: float = 0.0, temp: float = 1.0) -> torch.Tensor:
+        """Autoregressive generation of codes [B, K, max_gen_len] (JAX
+        :214-365). `init_data` [B, K, T0] continues a prompt's codes;
+        `conditioning` (per-sample metadata for the conditioner) or
+        `conditioning_tensors` ({id: (embeds, mask)}) condition it;
+        `callback(step, total)` fires before each generated step;
+        `generator` (on the model's device; a freshly seeded one if None)
+        draws the samples. `use_cache=False` raises, as in the JAX package."""
+        if not use_cache:
+            raise NotImplementedError(
+                "use_cache=False (recompute full attention per token) is not implemented: "
+                "the decode always uses static KV caches")
+        device = self.model.quantizer_heads[0].weight.device
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.seed()
+        if conditioning_tensors is None and conditioning is not None:
+            conditioning_tensors = self.conditioner(conditioning, device=device)
+        if batch_size is None:
+            if init_data is not None:
+                batch_size = init_data.shape[0]
+            elif conditioning_tensors:
+                batch_size = next(iter(conditioning_tensors.values()))[0].shape[0]
+            else:
+                batch_size = 1
+
+        start_offset = 0 if init_data is None else init_data.shape[-1]
+        if start_offset >= max_gen_len:
+            raise ValueError("init data longer than max gen length")
+        pattern = self.pattern_provider.get_pattern(max_gen_len)
+        unknown_token = -1
+        gen_codes = torch.full((batch_size, self.num_quantizers, max_gen_len), unknown_token,
+                               dtype=torch.long, device=device)
+        if start_offset > 0:
+            gen_codes[..., :start_offset] = init_data
+        gen_sequence, _, mask = pattern.build_pattern_sequence(gen_codes, self.masked_token_id)
+        mask = mask.to(device)
+        start = pattern.get_first_step_with_timesteps(start_offset)
+        if start is None:
+            raise ValueError(f"the pattern has no step for timestep {start_offset}")
+        steps = gen_sequence.shape[-1]
+
+        inputs = self.get_conditioning_inputs(conditioning_tensors or {})
+        use_cfg = cfg_scale != 1.0
+        if use_cfg:  # the unconditioned rows: zero conditioning, the same prepend mask
+            for kind in COND_KINDS:
+                if inputs[kind] is not None:
+                    inputs[kind] = torch.cat([inputs[kind], torch.zeros_like(inputs[kind])])
+            if inputs["prepend_cond_mask"] is not None:
+                inputs["prepend_cond_mask"] = inputs["prepend_cond_mask"].repeat(2, 1)
+        prepend_len = 0 if inputs["prepend_cond"] is None else inputs["prepend_cond"].shape[1]
+
+        def dup(a):
+            return torch.cat([a, a]) if use_cfg else a
+
+        caches = self.model.init_cache(batch_size * (2 if use_cfg else 1), steps, prepend_len)
+        logits, caches = self.model.decode_step(dup(gen_sequence[..., :start]), caches, **inputs)
+        step_inputs = {"cross_attn_cond": inputs["cross_attn_cond"],
+                       "global_cond": inputs["global_cond"]}
+        total = steps - start
+        for offset in range(start, steps):
+            if callback is not None:
+                callback(offset + 1 - start, total)
+            next_token = self._sample_token(logits, generator, top_k=top_k, top_p=top_p,
+                                            temp=temp, cfg_scale=cfg_scale)
+            next_token = torch.where(mask[None, :, offset:offset + 1], next_token,
+                                     self.masked_token_id)
+            cur = gen_sequence[..., offset:offset + 1]
+            new = torch.where(cur == unknown_token, next_token, cur)
+            gen_sequence[..., offset:offset + 1] = new
+            logits, caches = self.model.decode_step(dup(new), caches, **step_inputs)
+
+        out_codes, _, _ = pattern.revert_pattern_sequence(gen_sequence, unknown_token)
+        if (out_codes[..., :max_gen_len] == unknown_token).any():
+            raise RuntimeError("unknown tokens in the generated sequence")
+        return out_codes
+
+    def generate_audio(self, **kwargs) -> torch.Tensor:
+        """`generate`'s codes decoded by the tokenizer: audio [B, C, T]."""
+        return self.pretransform.decode_tokens(self.generate(**kwargs))
 
 
 def create_audio_lm_from_config(config: tp.Dict[str, tp.Any]) -> AudioLanguageModelWrapper:

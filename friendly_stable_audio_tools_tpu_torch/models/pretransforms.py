@@ -67,6 +67,14 @@ class AutoencoderPretransform(nn.Module):
         return self.model.tokenize_nwc(x.transpose(1, 2).float()).transpose(1, 2)
 
     @torch.no_grad()
+    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """codes [B, K, T / ratio] -> audio [B, C, T], fp32 (JAX `decode_tokens`
+        :112-115, which neither scales nor casts)."""
+        if not self.is_discrete:
+            raise ValueError("cannot decode tokens with a continuous model")
+        return self.model.decode_tokens_nwc(tokens.transpose(1, 2)).float().transpose(1, 2)
+
+    @torch.no_grad()
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, L, C] latents -> audio [B, T, io_channels], fp32; the
         decoder runs in `dtype`."""

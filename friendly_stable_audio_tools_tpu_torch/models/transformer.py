@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention, scaled_dot_product_attention
 from ..ops.embeddings import apply_rotary_pos_emb, rotary_freqs
 from ..ops.kernels import attention as attn_kernels
+from ..ops.kernels import mlp as mlp_kernels
 from ..ops.norms import LayerNorm
 
 
@@ -49,18 +50,55 @@ class GLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """SwiGLU MLP with a zero-initialised output projection."""
+    """SwiGLU MLP with a zero-initialised output projection.
+
+    With `fused_mlp` set (the JAX package's FSAT_FUSED_MLP switch, which
+    `create_model_from_config(..., fused_mlp=True)` sets on every
+    FeedForward) the chain runs as one call of the fused kernel K13
+    (ops/kernels/mlp.py) where the JAX package runs its Pallas `glu_mlp`
+    (models/transformer.py:103-123): when inner % 128 == 0 (`pick_block_j`'s
+    rule) and no input needs a gradient (under grad the JAX custom_vjp
+    differentiates the plain chain, so the kernel never trains); the output
+    bias is added after it."""
 
     def __init__(self, dim: int, mult: int = 4, zero_init_output: bool = True):
         super().__init__()
         inner = int(dim * mult)
+        self.inner = inner
+        self.fused_mlp = False
         self.linear_in = GLU(dim, inner)
         self.linear_out = nn.Linear(inner, dim)
         if zero_init_output:
             zero_init(self.linear_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear_out(self.linear_in(x))
+        proj, out = self.linear_in.proj, self.linear_out
+        if self.fused_mlp and self.inner % 128 == 0 and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, proj.weight, proj.bias, out.weight))):
+            y = mlp_kernels.glu_mlp(x, proj.weight, proj.bias, out.weight)
+            return y + out.bias.to(y.dtype)
+        return out(self.linear_in(x))
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache: tp.Dict[str, tp.Any]) -> torch.Tensor:
+    """Causal self-attention of n new tokens through a layer's static KV
+    cache (JAX Attention :239-264): their roped k and v are written at
+    `index` into fixed [B, H, L, D] buffers, which this port updates in
+    place (JAX returns new buffers); the query at absolute position index + i
+    sees the keys at positions <= index + i that the persisted per-key mask
+    `kmask` [B, L] keeps (the new tokens' entries are written True: the port
+    has no prepended conditioning, whose padding the JAX prefill writes
+    there). The masked attention over the whole buffer stays plain, as the
+    JAX gate sends any masked call to `_xla_attention`."""
+    idx, n, length = cache["index"], q.shape[-2], cache["k"].shape[-2]
+    cache["k"][:, :, idx:idx + n] = k
+    cache["v"][:, :, idx:idx + n] = v
+    cache["kmask"][:, idx:idx + n] = True
+    cache["index"] = idx + n
+    visible = torch.ones(n, length, dtype=torch.bool, device=q.device).tril_(idx)
+    mask = visible & cache["kmask"][:, None, None, :]
+    return scaled_dot_product_attention(q, cache["k"], cache["v"], mask=mask)
 
 
 class Attention(nn.Module):
@@ -68,8 +106,12 @@ class Attention(nn.Module):
     `dim_context`, cross-attention (to_q + packed to_kv; a context narrower
     than `dim` has fewer kv heads, each shared by consecutive q heads).
     `causal` (the audio LM): the self-attention ropes q and k in fp32 and
-    goes through ops/attention.py's gate with causal set; the
-    cross-attention masks as `_xla_attention` does (JAX :319-322)."""
+    goes through ops/attention.py's gate with causal set, or with `kv_cache`
+    through :func:`cached_attention`; the cross-attention masks as
+    `_xla_attention` does (JAX :319-322): with no cache, so a single decode
+    query (Tq 1) sees the whole context, where the training forward's
+    queries see a triangle of it (JAX :278-283). Its `to_kv(context)` runs
+    at every call, in decode too, as the JAX block's does."""
 
     def __init__(self, dim: int, dim_heads: int = 64, dim_context: tp.Optional[int] = None,
                  zero_init_output: bool = True, causal: bool = False):
@@ -90,7 +132,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: tp.Optional[torch.Tensor] = None,
                 rotary_pos_emb: tp.Optional[torch.Tensor] = None,
-                kv_len: tp.Optional[int] = None) -> torch.Tensor:
+                kv_len: tp.Optional[int] = None,
+                kv_cache: tp.Optional[tp.Dict[str, tp.Any]] = None) -> torch.Tensor:
         b, n, _ = x.shape
         if context is None and self.causal:
             q, k, v = (t.view(b, n, self.heads, self.dim_heads).transpose(1, 2)
@@ -98,7 +141,10 @@ class Attention(nn.Module):
             if rotary_pos_emb is not None:
                 q = apply_rotary_pos_emb(q, rotary_pos_emb)
                 k = apply_rotary_pos_emb(k, rotary_pos_emb)
-            out = scaled_dot_product_attention(q, k, v, causal=True)
+            if kv_cache is not None:
+                out = cached_attention(q, k, v, kv_cache)
+            else:
+                out = scaled_dot_product_attention(q, k, v, causal=True)
             return self.to_out(out.transpose(1, 2).reshape(b, n, self.dim))
         if context is None:
             qkv = self.to_qkv(x)
@@ -136,8 +182,10 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: tp.Optional[torch.Tensor] = None,
                 rotary_pos_emb: tp.Optional[torch.Tensor] = None, kv_len: tp.Optional[int] = None,
-                cross_cfg_skip: bool = False) -> torch.Tensor:
-        x = x + self.self_attn(self.pre_norm(x), rotary_pos_emb=rotary_pos_emb, kv_len=kv_len)
+                cross_cfg_skip: bool = False,
+                kv_cache: tp.Optional[tp.Dict[str, tp.Any]] = None) -> torch.Tensor:
+        x = x + self.self_attn(self.pre_norm(x), rotary_pos_emb=rotary_pos_emb, kv_len=kv_len,
+                               kv_cache=kv_cache)
         if context is not None:
             if cross_cfg_skip:
                 # CFG batch-doubling: the second half's context is the all-zero
@@ -198,11 +246,30 @@ class ContinuousTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, prepend_embeds: tp.Optional[torch.Tensor] = None,
                 context: tp.Optional[torch.Tensor] = None,
-                cross_cfg_skip: bool = False) -> torch.Tensor:
+                cross_cfg_skip: bool = False,
+                kv_caches: tp.Optional[tp.List[tp.Dict[str, tp.Any]]] = None):
+        """x [B, T, dim_in] -> [B, T, dim_out]. With `kv_caches` (one static
+        cache per layer, causal stacks only: models/lm_backbone.py:init_cache)
+        the T tokens continue the cached sequence at the caches' index, their
+        rotary angles sliced from a table of the cache's length there (JAX
+        :589-593), and the result is (out, kv_caches), the caches updated in
+        place."""
         if self.project_in is not None:
             x = self.project_in(x)
         if prepend_embeds is not None:
             x = torch.cat([prepend_embeds.to(x.dtype), x], dim=1)
+        rot_dim = min(max(self.dim_heads // 2, 32), self.dim_heads)
+        if kv_caches is not None:
+            if not self.causal:
+                raise ValueError("the static KV cache decodes causal stacks only")
+            index, length = kv_caches[0]["index"], kv_caches[0]["k"].shape[-2]
+            if index + x.shape[1] > length:
+                raise ValueError(f"the KV caches hold {length} positions; {index} + "
+                                 f"{x.shape[1]} do not fit")
+            rot = rotary_freqs(length, rot_dim, device=x.device)[index:index + x.shape[1]]
+            for layer, cache in zip(self.layers, kv_caches):
+                x = layer(x, context=context, rotary_pos_emb=rot, kv_cache=cache)
+            return (x if self.project_out is None else self.project_out(x)), kv_caches
 
         # the JAX package applies the rule off the CPU only; here the kernel
         # and its plain version both take kv_len, so it applies everywhere
@@ -214,7 +281,6 @@ class ContinuousTransformer(nn.Module):
             x = F.pad(x, (0, 0, 0, padded - valid_len))
             kv_len = valid_len
 
-        rot_dim = min(max(self.dim_heads // 2, 32), self.dim_heads)
         rot = rotary_freqs(x.shape[1], rot_dim, device=x.device)
         # per-layer recompute only under training, like the JAX package
         remat = self.grad_checkpointing and self.training and torch.is_grad_enabled()

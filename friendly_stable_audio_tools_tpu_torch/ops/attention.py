@@ -53,9 +53,10 @@ def uses_kernels(x: torch.Tensor) -> bool:
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  mask: tp.Optional[torch.Tensor] = None,
                                  causal: bool = False) -> torch.Tensor:
-    """q [B, H, Tq, D], k/v [B, Hkv, Tk, D], mask [B, Tk] (True = attend) ->
-    [B, H, Tq, D]; causal masks key j > query i + Tk - Tq. On a CUDA tensor
-    that :func:`flash_gate` admits, the flash kernels compute it (fp32, D 64
+    """q [B, H, Tq, D], k/v [B, Hkv, Tk, D], mask [B, Tk] or [B, 1, Tq, Tk]
+    (True = attend) -> [B, H, Tq, D]; causal masks key j > query i + Tk -
+    Tq. On a CUDA tensor that :func:`flash_gate` admits (no mask), the flash
+    kernels compute it (fp32, D 64
     or 80, causal at D 64 under grad; other cases raise there): under grad,
     when q, k or v needs a gradient, ``FlashAttention`` (K7 with its LSE,
     then K8 or K9; causal: the causal K7, then the causal K9), else K7
@@ -82,7 +83,8 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: tp.Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, Hkv, Tk, D] (Hkv divides H: each kv head
-    serves H/Hkv consecutive q heads); mask [B, Tk], True = attend; causal
+    serves H/Hkv consecutive q heads); mask [B, Tk] (per key) or [B, 1, Tq,
+    Tk] (per query and key, the KV cache's), True = attend; causal
     keeps key j for query i where j <= i + Tk - Tq (`tril(k=Tk-Tq)`, as
     `_xla_attention` :92-96). A query that may see no key (causal with Tk <
     Tq) attends evenly to every key, as the JAX package's finite fill gives."""
@@ -98,6 +100,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         hidden = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).triu_(t_k - t_q + 1)
         logits = logits.masked_fill(hidden, fill)
     if mask is not None:
-        logits = logits.masked_fill(~mask[:, None, None, :], fill)
+        logits = logits.masked_fill(~(mask[:, None, None, :] if mask.dim() == 2 else mask), fill)
     probs = torch.softmax(logits, dim=-1)
     return (probs.to(v.dtype).float() @ v.float()).to(q.dtype)

@@ -49,6 +49,8 @@ SIGNATURES = {
     "fsat_fused_residual_unit_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fsat_snake_conv_transpose1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fsat_snake_conv_transpose1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fsat_glu_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_glu_mlp_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

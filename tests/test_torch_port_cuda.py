@@ -8,6 +8,9 @@ rounding of the output apart, with attention's online softmax rounding P
 against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
 activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4); K8's
 dq, whose parts arrive through atomics in a varying order, to 1e-5 too.
+K13 (the fused SwiGLU MLP) to rel-L2 1e-5 in fp32 and 2e-3 (one bf16
+rounding) in bf16, and bit for bit against itself (its partials add in a
+fixed order).
 """
 
 import pytest
@@ -18,6 +21,7 @@ from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention as tattn
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d as tconv
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
+from friendly_stable_audio_tools_tpu_torch.ops.kernels import mlp as tmlp
 
 pytestmark = pytest.mark.cuda
 
@@ -391,3 +395,68 @@ def test_tiny_lm_train_step_runs_the_causal_kernels(gen):
     assert codes.shape == (2, 4, 1100)
     assert tuple(b - a for a, b in zip(before, after)) == (2, 0, 2, 0, 0, 0, 0, 6)
     assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("m,k,inner,kout,dtype,bias", [
+    (2, 1024, 4096, 1024, torch.float32, True), (100, 136, 256, 96, torch.float32, False),
+    (16, 256, 512, 128, torch.bfloat16, True), (2052, 128, 384, 200, torch.bfloat16, True)])
+def test_glu_mlp_matches_plain(gen, m, k, inner, kout, dtype, bias):
+    x = _rnd(gen, 3, m, k).to(dtype)
+    w_in = _rnd(gen, 2 * inner, k, scale=k ** -0.5).to(dtype)
+    b_in = _rnd(gen, 2 * inner, scale=0.1) if bias else None
+    w_out = _rnd(gen, kout, inner, scale=inner ** -0.5).to(dtype)
+    before = tmlp.launches
+    with torch.no_grad():
+        got = tmlp.glu_mlp(x, w_in, b_in, w_out)
+        again = tmlp.glu_mlp(x, w_in, b_in, w_out)
+    assert tmlp.launches == before + 2 and got.shape == (3, m, kout) and got.dtype == dtype
+    assert torch.equal(got, again)
+    _close(got, tmlp.glu_mlp_plain(x, w_in, b_in, w_out), 1e-5 if dtype == torch.float32 else 2e-3)
+
+
+def test_glu_mlp_raises_on_what_the_kernel_does_not_take(gen):
+    x = _rnd(gen, 2, 128)
+    w_in, w_out = _rnd(gen, 512, 128), _rnd(gen, 128, 256)
+    with pytest.raises(TypeError):
+        tmlp.glu_mlp(x, w_in.double(), None, w_out)
+    with pytest.raises(ValueError):  # inner 240 is no multiple of the kernel's 32 columns
+        tmlp.glu_mlp(x, _rnd(gen, 480, 128), None, _rnd(gen, 128, 240))
+    with pytest.raises(RuntimeError):  # no backward: a weight that needs a gradient
+        tmlp.glu_mlp(x, w_in.requires_grad_(True), None, w_out)
+
+
+def test_tiny_lm_generates_through_k13(gen):
+    """A tiny audio LM with the fused MLP switched on generates on the card:
+    K13 once per layer and decode_step call (a prefill and one call per
+    generated step), the same codes as with the switch off (greedy), and
+    audio through the fp32 K2 and K4 (16 filters: the fp32 K4 takes 32-multiples
+    of channels)."""
+    from friendly_stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    seanet = {"channels": 1, "dimension": 16, "n_filters": 16, "ratios": [2, 3], "lstm": 2}
+    config = {"model_type": "lm", "sample_size": 6600, "sample_rate": 32000, "audio_channels": 1,
+              "model": {
+                  "pretransform": {"type": "autoencoder", "config": {
+                      "encoder": {"type": "seanet", "config": seanet},
+                      "decoder": {"type": "seanet", "config": seanet},
+                      "bottleneck": {"type": "rvq", "config": {
+                          "num_quantizers": 4, "codebook_size": 32, "dim": 16}},
+                      "latent_dim": 16, "downsampling_ratio": 6, "io_channels": 1}},
+                  "lm": {"type": "continuous_transformer", "cross_attention_cond_ids": ["prompt"],
+                         "config": {"embed_dim": 128, "depth": 2, "num_heads": 2,
+                                    "cross_attn_cond_dim": 512, "project_cross_attn_cond": True}}}}
+    cond = {"prompt": (_rnd(gen, 1, 8, 512), torch.ones(1, 8, dtype=torch.bool, device="cuda"))}
+    codes = {}
+    for fused in (False, True):
+        model = create_model_from_config(config, device="cuda", fused_mlp=fused)
+        before = (tmlp.launches, tconv.snake_conv1d_f32_launches,
+                  tconv.snake_conv_transpose1d_f32_launches)
+        codes[fused] = model.generate(max_gen_len=20, conditioning_tensors=cond, cfg_scale=3.0,
+                                      temp=0.0)
+        audio = model.pretransform.decode_tokens(codes[fused])
+        after = (tmlp.launches, tconv.snake_conv1d_f32_launches,
+                 tconv.snake_conv_transpose1d_f32_launches)
+        # 24 steps of the delay pattern: a prefill and 23 decode steps, 2 layers
+        assert tuple(b - a for a, b in zip(before, after)) == (48 if fused else 0, 6, 1)
+        assert audio.shape == (1, 1, 119) and torch.isfinite(audio).all()
+    assert torch.equal(codes[False], codes[True])
