@@ -2,8 +2,13 @@
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
 on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, Stable
 Audio 2.0 long-form text-to-audio and training, Stable Audio 1.0
-text-to-audio and training, and audio-LM training and generation (MusicGen
-small's widths), at full width.
+text-to-audio and training, audio-LM training and generation (MusicGen
+small's widths), and text-to-audio through the adaLN DiT (SAO 1.0's config
+with `global_cond_type: "adaLN"`), at full width. The training phases
+[6], [7], [6b] and [9] run the DiT at TRAIN_DEPTH (6) of its 24 layers and
+the LM generation phases [13b] and [13] the LM at LM_GEN_DEPTH (6) of its
+24, to stay well inside the script's time limit; widths, shapes and each
+kernel's calls per layer are as the configs write them.
 
     python3 chip_smoke.py
 
@@ -46,6 +51,12 @@ Phases (any failure raises and the script exits non-zero):
    unfused cuBLAS chain's time; the fp32 K2 and K4 at every shape of the
    LM's SEANet token decode (1500 frames to 959,992 samples: 10 and 3
    calls);
+   3j. the adaLN elementwise kernels K11 (LayerNorm + modulate) and K12
+   (gated residual) against their plain chains (one bf16 rounding) and
+   against the Pallas kernels' own arithmetic, in bf16 at the adaLN DiT's
+   shape (B 2, T 1024, D 1536: 48 calls of each per denoising step), K11
+   also without gamma, and at a ragged [3, 777, 1536], timed as CUDA-graph
+   replays;
    3g. the fp32 single-pass backward K8 against its plain version at the
    ADP U-Net's training shapes (B 8 x 16 heads: T 4096 and 2048 at head dim
    64, T 1024 at head dim 80), at a DiT shape where K8's plan fits (B 2 x 24
@@ -130,21 +141,36 @@ Phases (any failure raises and the script exits non-zero):
    (musicgen_small_32khz.json, random de-zeroed weights): a prefill and 63
    single-token steps of fixed tokens at CFG batch 2 through the
    generation's 1504-step cache, the fused MLP off and on: every step's
-   logits within rel-L2 1e-5, K13 24 launches per call on and none off, no
-   other kernel; a profiled window of 16 steps each (device busy share);
+   logits within rel-L2 1e-5, K13 one launch per layer and call on and none
+   off, no other kernel; a profiled window of 16 steps each (device busy share);
 13. the audio-LM generation path: `generate_audio` on the same model, one
    prompt, 1500 frames (1 prefill and 1503 decode steps of the delay
    pattern), CFG 3, top_k 250, temperature 1, fp32, with the fused MLP off
    and then on (`create_model_from_config(..., fused_mlp=True)`): walls (T5,
    prefill, decode loop and per step, token decode, total), s-audio/s, peak
    memory; codes in [0, 2048), finite audio of the decoder's 959,992
-   samples, and the launch counts (K13 36,096 on, 0 off; fp32 K2 10 and K4
-   3; nothing else).
+   samples, and the launch counts (K13 one per layer and decode_step call
+   on: 9,024 at 6 layers, 0 off; fp32 K2 10 and K4 3; nothing else);
+14b. one forward and backward of the full-width bf16 adaLN DiT (1.39 B
+   parameters, `to_scale_shift_gate` de-zeroed like every weight) at CFG
+   batch 2 and 1024 latent frames, with `fused_ew` on, off, and as an fp32
+   copy with the plain versions: K11 and K12 48 launches each on and none
+   off, every gradient finite, the output and all gradients with the
+   kernels within 1.5x the plain bf16 error against the fp32 copy;
+14. the adaLN generation path: `create_model_from_config(..., fused_ew=True)`
+   on the adaLN config, bench.py's bf16 recipe, `generate_diffusion_cond`
+   for one prompt (100 dpmpp-3m-sde steps, CFG 7, 2,097,152 stereo
+   samples), then again with `fused_ew` off on the same noise: walls,
+   s-audio/s, peak memory, the audio's rel-L2 between the two, and the
+   launch counts (K11 and K12 4,800 each on, 0 off); then the wall of one
+   DiT call (a denoising step's) on and off in turns and a profiled window
+   of each (device busy share, K11 + K12's device time).
 
 Output: progress lines with each phase's wall, then one JSON line of
 per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
 their own, `*_f32` and `flash_forward_serving`; K13 as `glu_mlp`, its
-times per decode step), the nvidia-smi line, and
+times per decode step; K11 and K12 as `ln_modulate` and `gated_residual`,
+their times per adaLN denoising step), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
 chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
 part alone (likewise `dac_conv_phase`, `dac_encode_conv_phase(results,
@@ -215,6 +241,19 @@ LM_T, LM_HEADS, LM_LAYERS = 1501, 16, 24
 LM_WAVS = 8
 LM_WAV_SECONDS = 31
 LM_TRAIN_STEPS = 3
+# depth cuts, so that the script stays well inside its time limit: the
+# training phases ([6], [7], [6b], [9]) run the DiT at TRAIN_DEPTH of its 24
+# layers and the LM generation phases ([13b], [13]) the LM at LM_GEN_DEPTH
+# of its 24; widths, shapes and every kernel's calls per layer are as
+# written (`at_depth`)
+TRAIN_DEPTH = 6
+LM_GEN_DEPTH = 6
+# the adaLN DiT (phases 3j, 14b, 14): SAO 1.0's DiT with global_cond_type
+# "adaLN", 1024 latent frames (nothing prepended), 1536 wide, 24 layers, two
+# K11 and two K12 calls per layer and forward; EW_SETS input sets of [3j]'s
+# timings (8 x 12.6-18.9 MB: twice the 50 MB L2 cache)
+ADALN_T, ADALN_DIM, ADALN_LAYERS = 1024, 1536, 24
+EW_SETS = 8
 
 # tolerances of the kernel-vs-plain compares (bf16 in and out; both sides
 # accumulate in fp32 and round the result once, in different orders):
@@ -263,6 +302,15 @@ TOL = {
     # with v, g and h at most one bf16 step apart where the fp32 sums differ
     "glu_mlp": (1e-5, 1e-4),
     "glu_mlp_bf16": (2e-3, 2.0 ** -6),
+    # K11 and K12 against the plain chains: one bf16 rounding of the output
+    # apart (rel-L2 2^-8: K12's chain rounds 1 - gate and the sigmoid to
+    # bf16, the kernel neither, so ~15% of outputs land one step apart)
+    "ln_modulate": (4e-3, 2.0 ** -6),
+    "gated_residual": (4e-3, 2.0 ** -6),
+    # and against the Pallas kernels' own arithmetic: fp32 sums in another
+    # order may move a result across one bf16 rounding boundary
+    "ln_modulate_kernel_math": (1e-3, 2.0 ** -7),
+    "gated_residual_kernel_math": (1e-3, 2.0 ** -7),
 }
 # the card's published peaks (H100 SXM, dense), for the bound: the larger of
 # the products' operations at the bf16 tensor-core rate and the bytes each
@@ -418,10 +466,14 @@ def plain_attention(qkv, freqs, num_heads, kv_len=None):
 def plain_kernels():
     """Routes the model's kernel calls to the plain versions (for the
     kernel-vs-plain model compares)."""
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d, mlp
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d, elementwise, mlp
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
 
     return patched([(attention, "fused_qkv_rope_attention", plain_attention),
+                    (elementwise, "ln_modulate", lambda *a, enabled=True:
+                     elementwise.ln_modulate_plain(*a)),
+                    (elementwise, "gated_residual", lambda *a, enabled=True:
+                     elementwise.gated_residual_plain(*a)),
                     (mlp, "glu_mlp", mlp.glu_mlp_plain),
                     (flash, "flash_forward", flash.flash_forward_plain),
                     (flash, "flash_backward", flash.flash_backward_plain),
@@ -1402,6 +1454,69 @@ def seanet_decode_conv_phase(results, config):
             f"bound {r['bound_lm_decode_ms']:.4f} ms, library {r['library_lm_decode_ms']:.4f} ms")
 
 
+def elementwise_phase(results):
+    """[3j] K11 (`ln_modulate`) and K12 (`gated_residual`) against their
+    plain chains (one bf16 rounding apart: the chain rounds 1 - gate and the
+    sigmoid where K12 does not) and against the Pallas kernels' own order of
+    fp32 math and bf16 roundings (`*_kernel_math`: at most one bf16 step,
+    where fp32 sums in another order cross a rounding boundary), at the
+    adaLN DiT's shape (B 2 = CFG, T 1024, D 1536: 48 calls of each per
+    denoising step) with a bf16 gamma as the bf16 recipe gives it, K11 also
+    without gamma (the fix_scale form), and at a ragged [3, 777, 1536]. The
+    scale, shift and gate are chunks of one [B, 1, 6D] projection, as the
+    DiT hands them over. Bound: each [B, T, D] tensor read or written once
+    at 3.35 TB/s. Calls last microseconds, so each is timed as CUDA-graph
+    replays (`graph_ms`) cycling through EW_SETS input sets (over 100 MB,
+    twice the L2 cache); no single PyTorch call computes either function."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import elementwise as ew
+
+    rnd = randn_fn(23)
+    d = ADALN_DIM
+    main_label = f"B2 T{ADALN_T} D{d}"
+    for name in ("ln_modulate", "gated_residual"):
+        results[name]["weight"][main_label] = 2 * ADALN_LAYERS
+    cases = [("ln_modulate", 2, ADALN_T, "bf16"), ("ln_modulate", 2, ADALN_T, None),
+             ("ln_modulate", 3, 777, "bf16"), ("gated_residual", 2, ADALN_T, None),
+             ("gated_residual", 3, 777, None)]
+    for name, b, t, gamma in cases:
+        lnmod = name == "ln_modulate"
+        sets = []
+        for _ in range(EW_SETS):
+            x = rnd(b, t, d).to(torch.bfloat16)
+            scale, shift, gate = (rnd(b, 1, 6 * d, scale=0.3).to(torch.bfloat16)
+                                  .chunk(6, dim=-1)[:3])
+            if lnmod:
+                g = None if gamma is None else (1 + rnd(d, scale=0.1)).to(torch.bfloat16)
+                sets.append((x, g, scale, shift))
+            else:
+                sets.append((x, gate, rnd(b, t, d).to(torch.bfloat16)))
+        kernel = ew.ln_modulate if lnmod else ew.gated_residual
+        plain = ew.ln_modulate_plain if lnmod else ew.gated_residual_plain
+        math_ref = ew.ln_modulate_kernel_math if lnmod else ew.gated_residual_kernel_math
+        label = f"B{b} T{t} D{d}" + (" gamma None" if lnmod and gamma is None else "")
+        with torch.no_grad():
+            out = kernel(*sets[0])
+            torch.cuda.synchronize()
+            checked = within(name, out, plain(*sets[0]))
+            m_ok, m_abs, m_rel, _ = within(name + "_kernel_math", out, math_ref(*sets[0]))
+            bound = bound_ms(0, nbytes(*sets[0], out))
+            del out
+            times = [graph_ms([lambda s=s, fn=fn: fn(*s) for s in sets]) for fn in (kernel, plain)]
+        extra = (f"; against the Pallas kernel's arithmetic max_abs {m_abs:.4g} rel_l2 {m_rel:.3g} "
+                 f"tol {TOL[name + '_kernel_math']} {'OK' if m_ok else 'FAIL'}; CUDA-graph replays")
+        if not m_ok:
+            raise AssertionError(f"{name} {label} disagrees with the Pallas kernel's arithmetic")
+        report(results, name, label, label == main_label, *checked, *times, None, bound=bound,
+               extra=extra)
+        del sets
+    for name in ("ln_modulate", "gated_residual"):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per {r['per']}, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, library none")
+
+
 LM_PROMPT = {"prompt": "An upbeat synthwave track with punchy drums and a soaring lead"}
 LM_CFG, LM_TOP_K, LM_TEMP = 3.0, 250, 1.0
 LM_DECODE_STEPS = 64
@@ -1432,30 +1547,40 @@ def lm_frames(config):
 PROFILE_STEPS = 16
 
 
-def profile_decode(lm, tokens, ctx, length):
-    """torch.profiler (device activity only) over PROFILE_STEPS decode_step
-    calls after a prefill (the first steps of `tokens`, a fresh cache): the
-    device's busy time per step (kernels, copies and fills on the one
-    stream, which do not overlap), its activities per step, and the five
-    largest by total time per step, in ms."""
+def device_profile(calls):
+    """torch.profiler (device activity only) over the callables `calls`, run
+    in order: the device's busy time per call (kernels, copies and fills on
+    the one stream, which do not overlap), its activities per call, and its
+    time per call by activity name, in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    caches = lm.init_cache(2, length)
-    with torch.no_grad():
-        lm.decode_step(tokens[..., :1], caches, cross_attn_cond=ctx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(1, PROFILE_STEPS + 1):
-                lm.decode_step(tokens[..., i:i + 1], caches, cross_attn_cond=ctx)
-            torch.cuda.synchronize()
     by_name = {}
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return sum(by_name.values()), len(device) / PROFILE_STEPS, top
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / len(calls)
+    return sum(by_name.values()), len(device) / len(calls), by_name
+
+
+def profile_decode(lm, tokens, ctx, length):
+    """`device_profile` over PROFILE_STEPS decode_step calls after a prefill
+    (the first steps of `tokens`, a fresh cache): busy ms and activities per
+    step, and the five largest activities by time per step."""
+    import torch
+
+    caches = lm.init_cache(2, length)
+    with torch.no_grad():
+        lm.decode_step(tokens[..., :1], caches, cross_attn_cond=ctx)
+        busy, n, by_name = device_profile(
+            [lambda i=i: lm.decode_step(tokens[..., i:i + 1], caches, cross_attn_cond=ctx)
+             for i in range(1, PROFILE_STEPS + 1)])
+    return busy, n, sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
 
 
 def lm_decode_phase(model, config):
@@ -1464,8 +1589,8 @@ def lm_decode_phase(model, config):
     steps of fixed random tokens at CFG batch 2 through a cache of the
     generation's 1504 steps, with the fused MLP off and then on (the same
     model, its FeedForwards switched): every step's logits within rel-L2
-    1e-5; K13 launches 24 per decode_step call with the switch on, none off,
-    and no other kernel in either. The walls per step come from four runs
+    1e-5; K13 launches one per layer and decode_step call with the switch
+    on, none off, and no other kernel in either. The walls per step come from four runs
     in turns (off, on, on, off), then a profiled window of each
     (`profile_decode`): the device's busy share of the unprofiled step.
     Returns the walls per step in ms, {on: [first, second]}."""
@@ -1518,7 +1643,7 @@ def lm_decode_phase(model, config):
         raise AssertionError("the cached decode with K13 disagrees with the unfused chain")
     for on in (False, True):
         want = {name: 0 for name in KERNELS}
-        want["glu_mlp"] = LM_LAYERS if on else 0
+        want["glu_mlp"] = config["model"]["lm"]["config"]["depth"] if on else 0
         bad = [c for c in runs[on][1] if c != want]
         if bad:
             raise AssertionError(f"decode_step launches {bad[0]}, expected {want} (fused {on})")
@@ -1534,8 +1659,8 @@ def lm_generation_phase(model, config, fused):
     decode (`decode_tokens`: RVQ lookups, the SEANet decoder through the
     fp32 K2 and K4), the total; s-audio/s; peak memory. Checks: codes in [0,
     2048), finite audio of the decoder's length, and the launch counts
-    (K13 24 per decode_step call with the switch on, else none; fp32 K2 10
-    and K4 3; nothing else). Returns the counts."""
+    (K13 one per layer and decode_step call with the switch on, else none;
+    fp32 K2 10 and K4 3; nothing else). Returns the counts."""
     import numpy as np
     import torch
 
@@ -1597,7 +1722,7 @@ def lm_generation_phase(model, config, fused):
     if not (audio.shape == (1, 1, n_samples) and torch.isfinite(audio).all()):
         raise AssertionError(f"audio {tuple(audio.shape)} is not finite [1, 1, {n_samples}]")
     want = {name: 0 for name in KERNELS}
-    want.update(glu_mlp=LM_LAYERS * steps if fused else 0,
+    want.update(glu_mlp=config["model"]["lm"]["config"]["depth"] * steps if fused else 0,
                 snake_conv1d_f32=sum(k == "k2" for k, *_ in calls),
                 snake_conv_transpose1d_f32=sum(k == "k4" for k, *_ in calls))
     if counts != want:
@@ -1605,14 +1730,15 @@ def lm_generation_phase(model, config, fused):
     return counts
 
 
-def build_model(config, fused_mlp=False):
+def build_model(config, fused_mlp=False, fused_ew=False):
     """A model on the card in fp32: random weights, seed 0, de-zeroed."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch import create_model_from_config
     from friendly_stable_audio_tools_tpu_torch.utils.common import dezero_
 
-    model = create_model_from_config(config, seed=0, device=DEVICE, fused_mlp=fused_mlp)
+    model = create_model_from_config(config, seed=0, device=DEVICE, fused_mlp=fused_mlp,
+                                     fused_ew=fused_ew)
     return dezero_(model, torch.Generator(device=DEVICE).manual_seed(1))
 
 
@@ -1810,14 +1936,25 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "flash_forward_causal_serving": ("flash", "causal_serving_launches"),
     "flash_backward_causal": ("flash", "causal_backward_launches"),
     "glu_mlp": ("mlp", "launches"),
+    "ln_modulate": ("elementwise", "lnmod_launches"),
+    "gated_residual": ("elementwise", "gres_launches"),
 }
 
 
+# the kernels no bf16 generation of the DiT launches: the training
+# attention, the fp32 attention and convolutions
+NO_TRAINING = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
+               "flash_forward": 0, "flash_backward": 0, "flash_backward_fused": 0,
+               "flash_forward_serving": 0, "snake_conv1d_f32": 0, "fused_residual_unit_f32": 0,
+               "snake_conv_transpose1d_f32": 0}
+
+
 def _kernel_modules():
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d, mlp
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention, conv1d, elementwise, mlp
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention
 
-    return {"attention": attention, "conv1d": conv1d, "flash": flash_attention, "mlp": mlp}
+    return {"attention": attention, "conv1d": conv1d, "flash": flash_attention, "mlp": mlp,
+            "elementwise": elementwise}
 
 
 def reset_counts():
@@ -2368,7 +2505,7 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
     """generate_diffusion_cond for one prompt, 100 dpmpp-3m-sde steps, CFG 7,
     with every launch count set to 0 just before and read just after: checks
     the audio and the counts (`expected` exactly, `min_counts` at least),
-    logs the walls, and returns the counts."""
+    logs the walls, and returns (the counts, the audio)."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
@@ -2385,18 +2522,19 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
             return out
         return wrapper
 
-    model.conditioner.forward = timed(model.conditioner.forward, "conditioners")
-    model.pretransform.decode_nwc = timed(model.pretransform.decode_nwc, "decode")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    audio = generate_diffusion_cond(model, steps=STEPS, cfg_scale=CFG_SCALE, conditioning=[prompt],
-                                    sample_size=sample_size, sampler_type="dpmpp-3m-sde",
-                                    sigma_min=0.3, sigma_max=500, seed=42)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - start
-    launches = read_counts()
+    with patched([(model.conditioner, "forward", timed(model.conditioner.forward, "conditioners")),
+                  (model.pretransform, "decode_nwc", timed(model.pretransform.decode_nwc, "decode"))]):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        audio = generate_diffusion_cond(model, steps=STEPS, cfg_scale=CFG_SCALE,
+                                        conditioning=[prompt], sample_size=sample_size,
+                                        sampler_type="dpmpp-3m-sde", sigma_min=0.3, sigma_max=500,
+                                        seed=42)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+        launches = read_counts()
     rms = audio.float().square().mean().sqrt().item()
     seconds = sample_size / config["sample_rate"]
     denoise = total - phase["conditioners"] - phase["decode"]
@@ -2410,7 +2548,7 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
     if (any(launches[k] != n for k, n in expected.items())
             or any(launches[k] < n for k, n in min_counts.items())):
         raise AssertionError(f"launch counts {launches} do not show the main path's kernels")
-    return launches
+    return launches, audio
 
 
 def bench_recipe(model):
@@ -2422,6 +2560,176 @@ def bench_recipe(model):
     model.model.to(torch.bfloat16)
     model.pretransform.to(torch.bfloat16)
     model.pretransform.model_half = True
+
+
+def at_depth(config, depth):
+    """A copy of `config` whose backbone (the DiT, or the audio LM) has
+    `depth` layers; nothing else changes."""
+    c = copy.deepcopy(config)
+    c["model"]["diffusion" if "diffusion" in c["model"] else "lm"]["config"]["depth"] = depth
+    return c
+
+
+def adaln_config(config):
+    """SAO 1.0's config with its DiT's global condition through adaLN
+    (`global_cond_type: "adaLN"`), nothing else changed."""
+    c = copy.deepcopy(config)
+    c["model"]["diffusion"]["config"]["global_cond_type"] = "adaLN"
+    return c
+
+
+def set_fused_ew(model, on):
+    from friendly_stable_audio_tools_tpu_torch.models.transformer import TransformerBlock
+    from friendly_stable_audio_tools_tpu_torch.ops.norms import LayerNorm
+
+    for m in model.modules():
+        if isinstance(m, (LayerNorm, TransformerBlock)):
+            m.fused_ew = on
+
+
+def adaln_step_phase(model):
+    """[14b] One forward and backward of the full-width bf16 adaLN DiT (CFG
+    batch 2 of two prompts' conditioning at 1024 latent frames, fixed
+    inputs, a mean-square loss against a fixed target) with `fused_ew` on,
+    then off, then as an fp32 copy with the plain versions (the reference),
+    on the same de-zeroed weights, `to_scale_shift_gate` included. Checks:
+    K11 and K12 48 launches each in the forward with the switch on (the
+    backward differentiates the plain chains: no launch), none off; every
+    gradient finite, the adaLN projections' non-zero; the output and the
+    concatenated gradients with the kernels within DIT_ERR_RATIO x the plain
+    bf16 error against the reference. Returns (counts on, counts off)."""
+    import torch
+
+    dit = model.model
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    prompts = [PROMPT, dict(PROMPT, prompt="A calm piano melody in a large hall")]
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner(prompts, device=DEVICE))
+    x = torch.randn(2, ADALN_T, model.io_channels, generator=g, device=DEVICE)
+    target = torch.randn(x.shape, generator=g, device=DEVICE)
+    t = torch.rand(2, generator=g, device=DEVICE)
+
+    def step(net):
+        net.zero_grad(set_to_none=True)
+        out = net(x, t, **cond)
+        loss = (out.float() - target).square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().float().clone() for n, p in net.named_parameters()}
+        return out.detach().float(), loss.item(), grads
+
+    runs, counts = {}, {}
+    for on in (True, False):
+        set_fused_ew(dit, on)
+        reset_counts()
+        start = time.perf_counter()
+        runs[on] = step(dit)
+        counts[on] = read_counts()
+        log(f"  fused_ew {'on' if on else 'off'}: loss {runs[on][1]:.7g}, step wall "
+            f"{time.perf_counter() - start:.3f} s; launches {counts[on]}")
+    set_fused_ew(dit, True)
+    dit.zero_grad(set_to_none=True)
+    with plain_kernels():
+        dit32 = copy.deepcopy(dit).float()
+        ref = step(dit32)
+        del dit32
+    torch.cuda.empty_cache()
+    cat = lambda gr: torch.cat([v.flatten() for v in gr.values()])  # noqa: E731
+    errs = {on: (rel_err(runs[on][0], ref[0]), rel_err(cat(runs[on][2]), cat(ref[2])))
+            for on in runs}
+    per_param = {n: rel_err(runs[True][2][n], runs[False][2][n]) for n in runs[True][2]}
+    worst = sorted(per_param.items(), key=lambda kv: -kv[1])[:3]
+    ssg = [n for n in per_param if "to_scale_shift_gate" in n]
+    log(f"  on vs off: output rel-L2 {rel_err(runs[True][0], runs[False][0]):.3g}; gradients of "
+        f"all {len(per_param)} parameters: rel-L2 median "
+        f"{statistics.median(per_param.values()):.3g}, largest "
+        + ", ".join(f"{n} {e:.3g}" for n, e in worst)
+        + f"; the {len(ssg)} to_scale_shift_gate gradients up to "
+        f"{max(per_param[n] for n in ssg):.3g}")
+    log(f"  against the fp32 DiT with the plain versions (loss {ref[1]:.7g}): output rel-L2 kernels "
+        f"{errs[True][0]:.3g}, plain bf16 {errs[False][0]:.3g}; all gradients rel-L2 kernels "
+        f"{errs[True][1]:.3g}, plain bf16 {errs[False][1]:.3g} (bound: kernels <= {DIT_ERR_RATIO} "
+        f"x plain)")
+    finite = all(torch.isfinite(v).all() for v in runs[True][2].values())
+    moved = all(runs[True][2][n].abs().max() > 0 for n in ssg)
+    if not (finite and moved and errs[True][0] <= DIT_ERR_RATIO * errs[False][0]
+            and errs[True][1] <= DIT_ERR_RATIO * errs[False][1]):
+        raise AssertionError("the adaLN DiT step with K11/K12 disagrees with the plain chains")
+    layers = len(dit.transformer.layers)
+    for on in (True, False):
+        want = {name: 0 for name in KERNELS}
+        want.update(ln_modulate=2 * layers if on else 0, gated_residual=2 * layers if on else 0,
+                    fused_qkv_rope_attention_stats=layers, fused_qkv_rope_attention_backward=layers)
+        if counts[on] != want:
+            raise AssertionError(f"one adaLN DiT step should launch {want}: {counts[on]}")
+    return counts[True], counts[False]
+
+
+def adaln_generation_phase(model, config):
+    """[14] `generate_diffusion_cond` on the adaLN DiT in bench.py's bf16
+    recipe, `fused_ew` on and then off, on the same noise (seed 42): the
+    walls, s-audio/s and peak memory of each (`generation_phase`), the
+    audio's rel-L2 between the two, and the launch counts (K11 and K12 2 per
+    layer and step on, none off; K1 24 per step; the bf16 decode's K2-K4).
+    Then `profile_adaln_forward`. Returns the counts of the two runs."""
+    launches, audio = {}, {}
+    for on in (True, False):
+        set_fused_ew(model, on)
+        log(f"  fused_ew {'on' if on else 'off'}:")
+        n = 2 * ADALN_LAYERS * STEPS if on else 0
+        launches[on], audio[on] = generation_phase(
+            model, config, PROMPT, SAMPLE_SIZE,
+            expected={"ln_modulate": n, "gated_residual": n,
+                      "fused_qkv_rope_attention": ADALN_LAYERS * STEPS, "rope_pair_k": 0,
+                      "pair_long_attention": 0, "fused_residual_unit": 15,
+                      "snake_conv_transpose1d": 5, **NO_TRAINING},
+            min_counts={"snake_conv1d": 2})
+    log(f"  audio fused_ew on vs off: rel-L2 {rel_err(audio[True], audio[False]):.4g}; card "
+        f"{smi_line()}")
+    profile_adaln_forward(model)
+    return launches[True], launches[False]
+
+
+ADALN_PROFILE_CALLS = 10
+
+
+def profile_adaln_forward(model):
+    """Where a denoising step's DiT call goes (CFG batch 2, 1024 frames, the
+    model's bf16): the wall per call of ADALN_PROFILE_CALLS calls in turns
+    (on, off, off, on; host clock, one synchronize per turn), then a
+    `device_profile` of as many calls with `fused_ew` on and off: the
+    device's busy time and share of the wall, its activities, K11 and K12's
+    device time, and the largest activities, per call."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner([PROMPT], device=DEVICE))
+        x = torch.randn(1, ADALN_T, model.io_channels, generator=g, device=DEVICE)
+        t = torch.full((1,), 0.6, device=DEVICE)
+        call = lambda: model.model(x, t, cfg_scale=CFG_SCALE, **cond)  # noqa: E731
+        walls = {True: [], False: []}
+        for on in (True, False, False, True):
+            set_fused_ew(model, on)
+            call()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(ADALN_PROFILE_CALLS):
+                call()
+            torch.cuda.synchronize()
+            walls[on].append((time.perf_counter() - start) / ADALN_PROFILE_CALLS * 1e3)
+        for on in (True, False):
+            set_fused_ew(model, on)
+            busy, n, by_name = device_profile([call] * ADALN_PROFILE_CALLS)
+            wall = statistics.mean(walls[on])
+            ew = sum(ms for name, ms in by_name.items()
+                     if "ln_modulate_kernel" in name or "gated_residual_kernel" in name)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            log(f"  DiT call, fused_ew {'on' if on else 'off'}: wall {walls[on][0]:.3f}, "
+                f"{walls[on][1]:.3f} ms; device busy {busy:.3f} ms = {busy / wall:.1%} of the wall "
+                f"(idle {1 - busy / wall:.1%}); {n:.0f} device activities; K11 + K12 "
+                f"{ew:.3f} ms; largest: " + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+    set_fused_ew(model, True)
 
 
 def sa1_unet_forward_phase(model):
@@ -2602,6 +2910,14 @@ def new_results():
         "glu_mlp": dict(
             route="cuda", source=src + "glu_mlp.cu", replaces=tpu + "mlp.py:145",
             per=f"audio LM decode step ({LM_LAYERS} calls at M2 K1024 inner4096 Kout1024, fp32)"),
+        "ln_modulate": dict(
+            route="cuda", source=src + "elementwise.cu", replaces=tpu + "elementwise.py:98",
+            per=f"adaLN DiT generation step ({2 * ADALN_LAYERS} calls at B2 T{ADALN_T} "
+                f"D{ADALN_DIM}, bf16)"),
+        "gated_residual": dict(
+            route="cuda", source=src + "elementwise.cu", replaces=tpu + "elementwise.py:167",
+            per=f"adaLN DiT generation step ({2 * ADALN_LAYERS} calls at B2 T{ADALN_T} "
+                f"D{ADALN_DIM}, bf16)"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
@@ -2700,6 +3016,10 @@ def main():
     glu_mlp_phase(results)
     seanet_decode_conv_phase(results, lm_config)
     done("[3i]")
+    log("[3j] the adaLN elementwise kernels K11 (LayerNorm + modulate) and K12 (gated residual) "
+        "vs their plain chains and the Pallas kernels' arithmetic, bf16")
+    elementwise_phase(results)
+    done("[3j]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -2739,15 +3059,11 @@ def main():
 
     log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7, bench.py's "
         "bf16 recipe")
-    no_training = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
-                   "flash_forward": 0, "flash_backward": 0, "flash_backward_fused": 0,
-                   "flash_forward_serving": 0,
-                   "snake_conv1d_f32": 0, "fused_residual_unit_f32": 0,
-                   "snake_conv_transpose1d_f32": 0}
-    launches = generation_phase(
+    launches, _ = generation_phase(
         model, config, PROMPT, SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 0, "pair_long_attention": 0,
-                  "fused_residual_unit": 15, "snake_conv_transpose1d": 5, **no_training},
+                  "fused_residual_unit": 15, "snake_conv_transpose1d": 5, "ln_modulate": 0,
+                  "gated_residual": 0, **NO_TRAINING},
         min_counts={"snake_conv1d": 2})
     del model
     torch.cuda.empty_cache()
@@ -2755,8 +3071,9 @@ def main():
 
     # phases 6-7 write ~23 GB (a de-zeroed DiT and a full training checkpoint)
     # into the checkout's build/ directory, which the kernel build uses too
-    log(f"[6] one DiT training step at batch {TRAIN_BATCH}: attention kernels vs plain bf16 vs "
-        f"fp32 attention")
+    log(f"[6] one DiT training step at batch {TRAIN_BATCH} ({TRAIN_DEPTH} of the DiT's 24 layers): "
+        f"attention kernels vs plain bf16 vs fp32 attention")
+    train_config = at_depth(config, TRAIN_DEPTH)
     scratch = REPO / "build"
     scratch.mkdir(exist_ok=True)
     free_gb = shutil.disk_usage(scratch).free / 1e9
@@ -2764,11 +3081,12 @@ def main():
     if free_gb < 30:
         raise RuntimeError(f"phases 6-7 need ~23 GB of disk under {scratch}, {free_gb:.1f} GB free")
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        dit_path = dit_train_step_phase(config, tmp)
+        dit_path = dit_train_step_phase(train_config, tmp)
         done("[6]")
-        log(f"[7] training path: train.main on SAO 1.0, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps "
-            f"from {N_WAVS} synthetic {WAV_SECONDS} s WAVs, checkpoint, resume for one more step")
-        counts_train, counts_resume = training_phase(config, tmp, dit_path)
+        log(f"[7] training path: train.main on SAO 1.0 ({TRAIN_DEPTH} DiT layers), batch "
+            f"{TRAIN_BATCH}, {TRAIN_STEPS} steps from {N_WAVS} synthetic {WAV_SECONDS} s WAVs, "
+            f"checkpoint, resume for one more step")
+        counts_train, counts_resume = training_phase(train_config, tmp, dit_path)
     done("[7]")
 
     log("[4b] SA 2.0's DiT at 6144 latent frames: kernels vs plain versions")
@@ -2778,25 +3096,29 @@ def main():
     done("[4b]")
     log(f"[8] long-form path: SA 2.0 text-to-audio, {SA2_SAMPLE_SIZE} samples, 100 dpmpp-3m-sde "
         f"steps, CFG 7, bench.py's bf16 recipe")
-    launches_long = generation_phase(
+    launches_long, _ = generation_phase(
         model, sa2_config, SA2_PROMPT, SA2_SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 0, "rope_pair_k": 24 * STEPS,
                   "pair_long_attention": 24 * STEPS, "fused_residual_unit": 15,
-                  "snake_conv_transpose1d": 5, **no_training},
+                  "snake_conv_transpose1d": 5, "ln_modulate": 0, "gated_residual": 0,
+                  **NO_TRAINING},
         min_counts={"snake_conv1d": 2})
     del model
     torch.cuda.empty_cache()
     done("[8]")
 
     # phases 6b and 9 write ~4.6 GB (SA 2.0's de-zeroed DiT and 8 WAVs)
-    log(f"[6b] one SA 2.0 DiT training step at batch {TRAIN_BATCH}, T {LONG_T} kv_len {LONG_KV}: "
-        f"K7/K9 vs their fp32 plain versions vs the bf16 K5/K6 route")
+    log(f"[6b] one SA 2.0 DiT training step at batch {TRAIN_BATCH}, T {LONG_T} kv_len {LONG_KV} "
+        f"({TRAIN_DEPTH} of the DiT's 24 layers): K7/K9 vs their fp32 plain versions vs the bf16 "
+        f"K5/K6 route")
+    sa2_train_config = at_depth(sa2_config, TRAIN_DEPTH)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        sa2_dit_path, _ = sa2_dit_train_step_phase(sa2_config, tmp)
+        sa2_dit_path, _ = sa2_dit_train_step_phase(sa2_train_config, tmp)
         done("[6b]")
-        log(f"[9] long-form training path: train.main on SA 2.0, batch {TRAIN_BATCH}, "
-            f"{SA2_TRAIN_STEPS} steps from {SA2_WAVS} synthetic {SA2_WAV_SECONDS} s WAVs")
-        counts_long = longform_training_phase(sa2_config, tmp, sa2_dit_path)
+        log(f"[9] long-form training path: train.main on SA 2.0 ({TRAIN_DEPTH} DiT layers), batch "
+            f"{TRAIN_BATCH}, {SA2_TRAIN_STEPS} steps from {SA2_WAVS} synthetic {SA2_WAV_SECONDS} s "
+            f"WAVs")
+        counts_long = longform_training_phase(sa2_train_config, tmp, sa2_dit_path)
     done("[9]")
 
     log("[4c] SA 1.0's U-Net at 4096 latent frames: kernels vs plain versions, fp32")
@@ -2843,29 +3165,46 @@ def main():
         counts_lm = lm_training_phase(lm_config, tmp, lm_path)
     done("[12]")
 
-    log(f"[13b] the audio LM's cached decode at full width: {LM_DECODE_STEPS} decode_step calls on "
-        f"fixed tokens, the fused MLP (K13) on vs off")
-    model = build_model(lm_config)
-    lm_decode_phase(model, lm_config)
+    log(f"[13b] the audio LM's cached decode at full width ({LM_GEN_DEPTH} of its 24 layers): "
+        f"{LM_DECODE_STEPS} decode_step calls on fixed tokens, the fused MLP (K13) on vs off")
+    lm_gen_config = at_depth(lm_config, LM_GEN_DEPTH)
+    model = build_model(lm_gen_config)
+    lm_decode_phase(model, lm_gen_config)
     done("[13b]")
-    log(f"[13] audio LM generation: generate_audio on musicgen_small_32khz.json, {lm_frames(lm_config)} "
-        f"frames, CFG {LM_CFG}, top_k {LM_TOP_K}, temperature {LM_TEMP}, fp32; the fused MLP off, "
-        f"then on (create_model_from_config(..., fused_mlp=True))")
-    counts_gen = lm_generation_phase(model, lm_config, False)
+    log(f"[13] audio LM generation: generate_audio on musicgen_small_32khz.json ({LM_GEN_DEPTH} "
+        f"layers), {lm_frames(lm_config)} frames, CFG {LM_CFG}, top_k {LM_TOP_K}, temperature "
+        f"{LM_TEMP}, fp32; the fused MLP off, then on (create_model_from_config(..., "
+        f"fused_mlp=True))")
+    counts_gen = lm_generation_phase(model, lm_gen_config, False)
     del model
     torch.cuda.empty_cache()
-    model = build_model(lm_config, fused_mlp=True)
-    counts_gen_fused = lm_generation_phase(model, lm_config, True)
+    model = build_model(lm_gen_config, fused_mlp=True)
+    counts_gen_fused = lm_generation_phase(model, lm_gen_config, True)
     del model
     torch.cuda.empty_cache()
     done("[13]")
+
+    log("[14b] one forward and backward of the full-width bf16 adaLN DiT (SAO 1.0 with "
+        "global_cond_type adaLN): fused_ew on vs off vs an fp32 copy with the plain versions")
+    model = build_model(adaln_config(config), fused_ew=True)
+    bench_recipe(model)
+    counts_adaln_step, counts_adaln_step_off = adaln_step_phase(model)
+    done("[14b]")
+    log(f"[14] adaLN text-to-audio: create_model_from_config(..., fused_ew=True), {STEPS} "
+        f"dpmpp-3m-sde steps, CFG {CFG_SCALE}, bench.py's bf16 recipe; fused_ew on, then off")
+    counts_adaln, counts_adaln_off = adaln_generation_phase(model, config)
+    del model
+    torch.cuda.empty_cache()
+    done("[14]")
 
     by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
                "generate_sa1": launches_sa1, "generate_fp32": launches_fp32,
                "train_sa1": counts_sa1, "lm_tokenize": counts_lm_tok, "lm_step": counts_lm_step,
                "lm_eval_forward": counts_lm_eval, "train_lm": counts_lm,
-               "lm_generate": counts_gen, "lm_generate_fused_mlp": counts_gen_fused}
+               "lm_generate": counts_gen, "lm_generate_fused_mlp": counts_gen_fused,
+               "adaln_step": counts_adaln_step, "adaln_step_plain_ew": counts_adaln_step_off,
+               "generate_adaln": counts_adaln, "generate_adaln_plain_ew": counts_adaln_off}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]

@@ -3,12 +3,14 @@ friendly_stable_audio_tools_tpu/models/dit.py).
 
 Ported for Stable Audio Open 1.0's configuration: Fourier timestep features
 -> MLP, conditioning-token and global-condition MLPs, the global embedding
-prepended as one token (`global_cond_type="prepend"`), zero-initialised 1x1
+(the timestep's plus the global condition's) prepended as one token
+(`global_cond_type="prepend"`) or fed to every block's adaLN modulation
+(`"adaLN"`, JAX dit.py:152-171: nothing is prepended), zero-initialised 1x1
 residual convs around the ContinuousTransformer, and CFG by batch-doubling
 with optional rescale. In training mode, CFG dropout swaps each batch
 element's conditioning tokens for the null embedding with probability
 `cfg_dropout_prob` (JAX dit.py:238-247). Other options of the JAX module
-(adaLN, patching, input-concat and prepend conditioning) raise
+(patching, input-concat and prepend conditioning) raise
 NotImplementedError.
 
 Layout: x is channels-last [B, T, io_channels]. The module runs in the
@@ -41,14 +43,17 @@ class DiffusionTransformer(nn.Module):
                  global_cond_type: str = "prepend", grad_checkpointing: bool = False,
                  ff_mult: int = 4, **unsupported):
         super().__init__()
-        if patch_size != 1 or input_concat_dim or prepend_cond_dim or global_cond_type != "prepend":
-            raise NotImplementedError("the torch port's DiT runs prepend global conditioning "
-                                      "without patching, input-concat or prepend conditioning")
+        if patch_size != 1 or input_concat_dim or prepend_cond_dim:
+            raise NotImplementedError("the torch port's DiT runs without patching, input-concat "
+                                      "or prepend conditioning")
+        if global_cond_type not in ("prepend", "adaLN"):
+            raise ValueError(f"Unknown global_cond_type: {global_cond_type}")
         if transformer_type not in ("continuous_transformer", "x-transformers"):
             raise ValueError(f"Unknown transformer type: {transformer_type}")
         if any(unsupported.values()):
             raise NotImplementedError(f"DiT options not in the torch port: {sorted(unsupported)}")
         self.io_channels = io_channels
+        self.global_cond_type = global_cond_type
         self.timestep_features = FourierFeatures(1, 256)
         self.to_timestep_embed = _mlp(256, embed_dim, bias=True)
         cond_embed_dim = 0
@@ -61,7 +66,8 @@ class DiffusionTransformer(nn.Module):
         self.transformer = ContinuousTransformer(
             dim=embed_dim, depth=depth, dim_in=io_channels, dim_out=io_channels,
             dim_heads=embed_dim // num_heads, cross_attend=cond_token_dim > 0,
-            cond_token_dim=cond_embed_dim, ff_mult=ff_mult, grad_checkpointing=grad_checkpointing)
+            cond_token_dim=cond_embed_dim, ff_mult=ff_mult, grad_checkpointing=grad_checkpointing,
+            global_cond_dim=embed_dim if global_cond_type == "adaLN" else None)
         self.preprocess_conv = Conv1d(io_channels, io_channels, zero_init=True)
         self.postprocess_conv = Conv1d(io_channels, io_channels, zero_init=True)
 
@@ -79,9 +85,13 @@ class DiffusionTransformer(nn.Module):
         if global_embed is not None:
             timestep_embed = self.to_global_embed(global_embed.to(dt)) + timestep_embed
         x = self.preprocess_conv(x) + x
-        out = self.transformer(x, prepend_embeds=timestep_embed[:, None, :],
-                               context=cross_attn_cond, cross_cfg_skip=cross_cfg_skip)
-        out = out[:, 1:, :]
+        if self.global_cond_type == "adaLN":
+            out = self.transformer(x, global_cond=timestep_embed, context=cross_attn_cond,
+                                   cross_cfg_skip=cross_cfg_skip)
+        else:
+            out = self.transformer(x, prepend_embeds=timestep_embed[:, None, :],
+                                   context=cross_attn_cond, cross_cfg_skip=cross_cfg_skip)
+            out = out[:, 1:, :]
         return self.postprocess_conv(out) + out
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,

@@ -11,16 +11,17 @@ import typing as tp
 import torch
 from torch import nn
 
+from ..ops.norms import LayerNorm
 from ..utils.common import init_weights_, resolve_device
 from .conditioners import CLAPTextConditioner
 from .diffusion import create_diffusion_cond_from_config
 from .lm import create_audio_lm_from_config
-from .transformer import FeedForward
+from .transformer import FeedForward, TransformerBlock
 
 
 def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
                              device: tp.Union[str, torch.device] = "cuda",
-                             fused_mlp: bool = False) -> nn.Module:
+                             fused_mlp: bool = False, fused_ew: bool = False) -> nn.Module:
     """Builds the model on `device` (the GPU unless `device="cpu"`; raises
     when there is no GPU) with random weights drawn from a generator seeded
     with `seed` (the JAX package's initialisation scheme,
@@ -29,7 +30,11 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
     `clap_ckpt_path` when that file exists. Load a converted checkpoint over
     the weights with `load_state_dict` (utils/convert.py). `fused_mlp` turns
     on the fused SwiGLU kernel K13 in every transformer FeedForward (the JAX
-    package's FSAT_FUSED_MLP switch, off by default as there)."""
+    package's FSAT_FUSED_MLP switch, off by default as there). `fused_ew`
+    turns on the fused adaLN elementwise kernels K11 and K12 in every
+    LayerNorm and TransformerBlock (the JAX package's FSAT_FUSED_EW switch,
+    off by default as there; only a DiT with `global_cond_type="adaLN"`
+    reaches them, and only in bf16, ops/kernels/elementwise.py)."""
     device = resolve_device(device, 'device="cpu"')
     model_type = model_config.get("model_type")
     if model_type is None:
@@ -51,5 +56,7 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
             m.load_checkpoint()
         if isinstance(m, FeedForward):
             m.fused_mlp = fused_mlp
+        if isinstance(m, (LayerNorm, TransformerBlock)):
+            m.fused_ew = fused_ew
     return model.eval()
 

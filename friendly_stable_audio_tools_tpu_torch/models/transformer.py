@@ -10,9 +10,12 @@ audio LM (`causal=True`, JAX transformer.py:199-236) ropes q and k outside
 the kernel and sends its square causal self-attention through
 ops/attention.py's gate (the causal K7 and K9 on the card); its
 cross-attention is causal too, as the JAX block builds it, and stays plain.
-In training mode with `grad_checkpointing` each block is recomputed in the
-backward pass (JAX transformer.py:619-627). Everything is channels-last
-[B, T, C].
+A stack built with `global_cond_dim` (the DiT's `global_cond_type="adaLN"`)
+modulates each block's norms and gates its residual branches from a global
+condition (TransformerBlock; the fused K11/K12 of ops/kernels/elementwise.py
+with `fused_ew`). In training mode with `grad_checkpointing` each block is
+recomputed in the backward pass (JAX transformer.py:619-627). Everything is
+channels-last [B, T, C].
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention, scaled_dot_product_attention
 from ..ops.embeddings import apply_rotary_pos_emb, rotary_freqs
 from ..ops.kernels import attention as attn_kernels
+from ..ops.kernels import elementwise
 from ..ops.kernels import mlp as mlp_kernels
 from ..ops.norms import LayerNorm
 
@@ -164,12 +168,25 @@ class Attention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block: self-attention, optional cross-attention, SwiGLU FF."""
+    """Pre-norm block: self-attention, optional cross-attention, SwiGLU FF.
+
+    With `global_cond_dim` and a `global_cond` [B, global_cond_dim] (the
+    DiT's adaLN conditioning, JAX models/transformer.py:395-425), a
+    zero-initialised `to_scale_shift_gate` maps silu(global_cond) to six
+    [B, 1, dim] vectors (scale, shift and gate of the self-attention site,
+    then of the feed-forward site): each pre-norm modulates its LayerNorm
+    (K11, `ln_modulate`) and each branch joins the residual through
+    ``y * sigmoid(1 - gate) + residual`` (K12, `gated_residual`), the
+    kernels taken where `fused_ew` is set (ops/kernels/elementwise.py); the
+    cross-attention adds plainly."""
 
     def __init__(self, dim: int, dim_heads: int = 64, cross_attend: bool = False,
                  dim_context: tp.Optional[int] = None, zero_init_branch_outputs: bool = True,
-                 ff_mult: int = 4, causal: bool = False):
+                 ff_mult: int = 4, causal: bool = False,
+                 global_cond_dim: tp.Optional[int] = None):
         super().__init__()
+        self.fused_ew = False
+        self.global_cond_dim = global_cond_dim
         self.pre_norm = LayerNorm(dim)
         self.self_attn = Attention(dim, dim_heads, zero_init_output=zero_init_branch_outputs,
                                    causal=causal)
@@ -179,25 +196,39 @@ class TransformerBlock(nn.Module):
                                         zero_init_output=zero_init_branch_outputs, causal=causal)
         self.ff_norm = LayerNorm(dim)
         self.ff = FeedForward(dim, mult=ff_mult, zero_init_output=zero_init_branch_outputs)
+        if global_cond_dim:
+            self.to_scale_shift_gate = zero_init(nn.Linear(global_cond_dim, dim * 6, bias=False))
+
+    def _cross(self, x: torch.Tensor, context: torch.Tensor, cross_cfg_skip: bool) -> torch.Tensor:
+        if cross_cfg_skip:
+            # CFG batch-doubling: the second half's context is the all-zero
+            # null embedding and every projection on the K/V path is
+            # biasless, so its cross-attention output is exactly zero
+            # (models/transformer.py:370-381 of the JAX package)
+            half = x.shape[0] // 2
+            out = self.cross_attn(self.cross_attend_norm(x[:half]), context=context[:half])
+            return torch.cat([out, torch.zeros_like(out)], dim=0)
+        return self.cross_attn(self.cross_attend_norm(x), context=context)
 
     def forward(self, x: torch.Tensor, context: tp.Optional[torch.Tensor] = None,
                 rotary_pos_emb: tp.Optional[torch.Tensor] = None, kv_len: tp.Optional[int] = None,
                 cross_cfg_skip: bool = False,
-                kv_cache: tp.Optional[tp.Dict[str, tp.Any]] = None) -> torch.Tensor:
+                kv_cache: tp.Optional[tp.Dict[str, tp.Any]] = None,
+                global_cond: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.global_cond_dim and global_cond is not None:
+            ssg = self.to_scale_shift_gate(F.silu(global_cond))[:, None, :]
+            scale_self, shift_self, gate_self, scale_ff, shift_ff, gate_ff = ssg.chunk(6, dim=-1)
+            attn = self.self_attn(self.pre_norm(x, scale_shift=(scale_self, shift_self)),
+                                  rotary_pos_emb=rotary_pos_emb, kv_len=kv_len, kv_cache=kv_cache)
+            x = elementwise.gated_residual(attn, gate_self, x, enabled=self.fused_ew)
+            if context is not None:
+                x = x + self._cross(x, context, cross_cfg_skip)
+            ff = self.ff(self.ff_norm(x, scale_shift=(scale_ff, shift_ff)))
+            return elementwise.gated_residual(ff, gate_ff, x, enabled=self.fused_ew)
         x = x + self.self_attn(self.pre_norm(x), rotary_pos_emb=rotary_pos_emb, kv_len=kv_len,
                                kv_cache=kv_cache)
         if context is not None:
-            if cross_cfg_skip:
-                # CFG batch-doubling: the second half's context is the all-zero
-                # null embedding and every projection on the K/V path is
-                # biasless, so its cross-attention output is exactly zero
-                # (models/transformer.py:370-381 of the JAX package)
-                half = x.shape[0] // 2
-                out = self.cross_attn(self.cross_attend_norm(x[:half]), context=context[:half])
-                out = torch.cat([out, torch.zeros_like(out)], dim=0)
-            else:
-                out = self.cross_attn(self.cross_attend_norm(x), context=context)
-            x = x + out
+            x = x + self._cross(x, context, cross_cfg_skip)
         return x + self.ff(self.ff_norm(x))
 
 
@@ -229,7 +260,8 @@ class ContinuousTransformer(nn.Module):
                  dim_out: tp.Optional[int] = None, dim_heads: int = 64,
                  cross_attend: bool = False, cond_token_dim: tp.Optional[int] = None,
                  zero_init_branch_outputs: bool = True, ff_mult: int = 4,
-                 grad_checkpointing: bool = False, causal: bool = False):
+                 grad_checkpointing: bool = False, causal: bool = False,
+                 global_cond_dim: tp.Optional[int] = None):
         super().__init__()
         self.dim = dim
         self.dim_heads = dim_heads
@@ -241,19 +273,21 @@ class ContinuousTransformer(nn.Module):
             TransformerBlock(dim, dim_heads, cross_attend=cross_attend,
                              dim_context=cond_token_dim if cross_attend else None,
                              zero_init_branch_outputs=zero_init_branch_outputs, ff_mult=ff_mult,
-                             causal=causal)
+                             causal=causal, global_cond_dim=global_cond_dim)
             for _ in range(depth)])
 
     def forward(self, x: torch.Tensor, prepend_embeds: tp.Optional[torch.Tensor] = None,
                 context: tp.Optional[torch.Tensor] = None,
                 cross_cfg_skip: bool = False,
-                kv_caches: tp.Optional[tp.List[tp.Dict[str, tp.Any]]] = None):
-        """x [B, T, dim_in] -> [B, T, dim_out]. With `kv_caches` (one static
-        cache per layer, causal stacks only: models/lm_backbone.py:init_cache)
-        the T tokens continue the cached sequence at the caches' index, their
-        rotary angles sliced from a table of the cache's length there (JAX
-        :589-593), and the result is (out, kv_caches), the caches updated in
-        place."""
+                kv_caches: tp.Optional[tp.List[tp.Dict[str, tp.Any]]] = None,
+                global_cond: tp.Optional[torch.Tensor] = None):
+        """x [B, T, dim_in] -> [B, T, dim_out]; `global_cond` [B, dim] feeds
+        every block's adaLN modulation (stacks built with `global_cond_dim`).
+        With `kv_caches` (one static cache per layer, causal stacks only:
+        models/lm_backbone.py:init_cache) the T tokens continue the cached
+        sequence at the caches' index, their rotary angles sliced from a table
+        of the cache's length there (JAX :589-593), and the result is (out,
+        kv_caches), the caches updated in place."""
         if self.project_in is not None:
             x = self.project_in(x)
         if prepend_embeds is not None:
@@ -268,7 +302,8 @@ class ContinuousTransformer(nn.Module):
                                  f"{x.shape[1]} do not fit")
             rot = rotary_freqs(length, rot_dim, device=x.device)[index:index + x.shape[1]]
             for layer, cache in zip(self.layers, kv_caches):
-                x = layer(x, context=context, rotary_pos_emb=rot, kv_cache=cache)
+                x = layer(x, context=context, rotary_pos_emb=rot, kv_cache=cache,
+                          global_cond=global_cond)
             return (x if self.project_out is None else self.project_out(x)), kv_caches
 
         # the JAX package applies the rule off the CPU only; here the kernel
@@ -285,11 +320,9 @@ class ContinuousTransformer(nn.Module):
         # per-layer recompute only under training, like the JAX package
         remat = self.grad_checkpointing and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            if remat:
-                x = checkpoint(layer, x, context, rot, kv_len, cross_cfg_skip, use_reentrant=False)
-            else:
-                x = layer(x, context=context, rotary_pos_emb=rot, kv_len=kv_len,
-                          cross_cfg_skip=cross_cfg_skip)
+            kw = dict(context=context, rotary_pos_emb=rot, kv_len=kv_len,
+                      cross_cfg_skip=cross_cfg_skip, global_cond=global_cond)
+            x = checkpoint(layer, x, use_reentrant=False, **kw) if remat else layer(x, **kw)
         x = x[:, :valid_len]
         if self.project_out is not None:
             x = self.project_out(x)

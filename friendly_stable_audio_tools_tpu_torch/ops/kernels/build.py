@@ -51,6 +51,8 @@ SIGNATURES = {
     "fsat_snake_conv_transpose1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fsat_glu_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fsat_glu_mlp_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_ln_modulate": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    "fsat_gated_residual": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -8,7 +8,8 @@ log-scale snake parameters and unit single-parameter ones, unit-normal
 embeddings, Fourier weights and vector-quantizer codebooks, fan-in scaled
 normal LSTM weights with zero biases, unit gain and zero bias for the LayerNorms
 and GroupNorms with a bias, and zeros for the projections marked
-`zero_init` (the transformer's branch outputs, the DiT's residual convs).
+`zero_init` (the transformer's branch outputs, the adaLN blocks'
+`to_scale_shift_gate`, the DiT's residual convs).
 Every draw comes from the generator passed in.
 """
 

@@ -13,6 +13,11 @@ parameter's path carries over with three renames:
   `block1`/`block2` land in its `blocks` dict as "1"/"2"), `res{i}` ->
   `res.{i}` (VAE residual units).
 
+An adaLN DiT's `layer{i}/to_scale_shift_gate/kernel` [D, 6D] becomes
+`layers.{i}.to_scale_shift_gate.weight` [6D, D] by the Dense rule; its six
+column blocks (scale, shift and gate of the self-attention, then of the
+feed-forward) become the weight's six row blocks in the same order.
+
 The ADP U-Net (`adp_cfg_1d`), the DAC encoder and decoder and the `int`
 conditioners carry over by these rules alone: the port names their modules
 as the JAX package does (`down{i}`, `up{j}`, `to_scale_shift.1`,

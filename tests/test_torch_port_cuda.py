@@ -10,7 +10,10 @@ activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4); K8's
 dq, whose parts arrive through atomics in a varying order, to 1e-5 too.
 K13 (the fused SwiGLU MLP) to rel-L2 1e-5 in fp32 and 2e-3 (one bf16
 rounding) in bf16, and bit for bit against itself (its partials add in a
-fixed order).
+fixed order). K11 and K12 (the adaLN elementwise kernels) against the Pallas
+kernels' arithmetic to rel-L2 1e-3 and one bf16 step of the largest value
+(fp32 sums in another order may move a result across one bf16 rounding),
+against the plain chains to 1e-2.
 """
 
 import pytest
@@ -20,6 +23,7 @@ from friendly_stable_audio_tools_tpu_torch.ops import attention as tattention
 from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention as tattn
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d as tconv
+from friendly_stable_audio_tools_tpu_torch.ops.kernels import elementwise as tew
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
 from friendly_stable_audio_tools_tpu_torch.ops.kernels import mlp as tmlp
 
@@ -460,3 +464,101 @@ def test_tiny_lm_generates_through_k13(gen):
         assert tuple(b - a for a, b in zip(before, after)) == (48 if fused else 0, 6, 1)
         assert audio.shape == (1, 1, 119) and torch.isfinite(audio).all()
     assert torch.equal(codes[False], codes[True])
+
+
+def _adaln_vectors(gen, b, d):
+    """scale, shift and gate as the DiT makes them: chunks of one [B, 1, 6D]
+    bf16 projection, read in place by the kernels."""
+    return _rnd(gen, b, 1, 6 * d, scale=0.3).to(torch.bfloat16).chunk(6, dim=-1)[:3]
+
+
+def _one_rounding(got, want):
+    _close(got, want, 1e-3)
+    assert (got.float() - want.float()).abs().max() <= 2.0 ** -7 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("b,t,d,gamma", [(2, 1024, 1536, "bf16"), (2, 1024, 1536, None),
+                                         (3, 77, 128, "fp32"), (1, 300, 4096, "bf16")])
+def test_ln_modulate_kernel_matches_plain(gen, b, t, d, gamma):
+    x = _rnd(gen, b, t, d).to(torch.bfloat16)
+    g = None if gamma is None else (1 + _rnd(gen, d, scale=0.1)).to(
+        torch.bfloat16 if gamma == "bf16" else torch.float32)
+    scale, shift, _ = _adaln_vectors(gen, b, d)
+    before = tew.lnmod_launches
+    got = tew.ln_modulate(x, g, scale, shift)
+    assert tew.lnmod_launches == before + 1 and got.dtype == torch.bfloat16
+    _one_rounding(got, tew.ln_modulate_kernel_math(x, g, scale, shift))
+    _close(got, tew.ln_modulate_plain(x, g, scale, shift))
+
+
+@pytest.mark.parametrize("b,t,d", [(2, 1024, 1536), (3, 77, 128), (1, 300, 4096)])
+def test_gated_residual_kernel_matches_plain(gen, b, t, d):
+    y, res = (_rnd(gen, b, t, d).to(torch.bfloat16) for _ in range(2))
+    _, _, gate = _adaln_vectors(gen, b, d)
+    before = tew.gres_launches
+    got = tew.gated_residual(y, gate, res)
+    assert tew.gres_launches == before + 1 and got.dtype == torch.bfloat16
+    _one_rounding(got, tew.gated_residual_kernel_math(y, gate, res))
+    _close(got, tew.gated_residual_plain(y, gate, res))
+
+
+def test_elementwise_kernels_carry_the_gradient(gen):
+    """Under grad each kernel's autograd binding launches it forward and
+    differentiates the plain chain: every input's gradient equals the plain
+    chain's autograd on the same inputs and cotangent (the same operations
+    in the same order)."""
+    b, t, d = 2, 256, 1536
+    x = _rnd(gen, b, t, d).to(torch.bfloat16)
+    g = (1 + _rnd(gen, d, scale=0.1)).to(torch.bfloat16)
+    vecs = _adaln_vectors(gen, b, d)
+    cot = _rnd(gen, b, t, d).to(torch.bfloat16)
+    for fn, plain, args in ((tew.ln_modulate, tew.ln_modulate_plain, (x, g) + vecs[:2]),
+                            (tew.gated_residual, tew.gated_residual_plain, (x, vecs[2], cot))):
+        grads = []
+        for f in (fn, plain):
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            out = f(*leaves)
+            assert out.requires_grad
+            out.backward(cot)
+            grads.append([leaf.grad for leaf in leaves])
+        for got, want in zip(*grads):
+            assert got is not None and torch.isfinite(got).all() and got.abs().max() > 0
+            assert torch.equal(got, want)
+
+
+def test_tiny_adaln_dit_runs_k11_and_k12(gen):
+    """A bf16 adaLN DiT (2 layers 256 wide) with the switch on: K11 and K12
+    twice per layer and forward (CFG batch 2), none with it off; against an
+    fp32 copy (the plain chains), the output with the kernels errs at most
+    1.5x as much as with the plain bf16 chains (CFG 5 amplifies each
+    site's rounding, so the two bf16 outputs are compared through it)."""
+    import copy
+
+    from friendly_stable_audio_tools_tpu_torch.models.dit import DiffusionTransformer
+    from friendly_stable_audio_tools_tpu_torch.ops.norms import LayerNorm
+    from friendly_stable_audio_tools_tpu_torch.utils.common import dezero_, init_weights_
+
+    dit = DiffusionTransformer(io_channels=16, embed_dim=256, depth=2, num_heads=4,
+                               cond_token_dim=64, global_cond_dim=32, global_cond_type="adaLN")
+    dit = dit.to("cuda")
+    init_weights_(dit, gen)
+    dezero_(dit, gen)
+    dit = dit.to(torch.bfloat16).eval()
+    x, cond, g = _rnd(gen, 1, 300, 16), _rnd(gen, 1, 10, 64), _rnd(gen, 1, 32)
+    t = torch.full((1,), 0.3, device="cuda")
+    kw = dict(cross_attn_cond=cond, global_embed=g, cfg_scale=5.0)
+    with torch.no_grad():
+        ref = copy.deepcopy(dit).float()(x, t, **kw)
+    errs = {}
+    for fused in (True, False):
+        for m in dit.modules():
+            if isinstance(m, LayerNorm) or hasattr(m, "to_scale_shift_gate"):
+                m.fused_ew = fused
+        before = (tew.lnmod_launches, tew.gres_launches)
+        with torch.no_grad():
+            out = dit(x, t, **kw)
+        assert (tew.lnmod_launches - before[0], tew.gres_launches - before[1]) == (
+            (4, 4) if fused else (0, 0))
+        assert out.shape == (1, 300, 16) and torch.isfinite(out).all()
+        errs[fused] = ((out.float() - ref).norm() / ref.norm()).item()
+    assert errs[True] <= 1.5 * errs[False], errs

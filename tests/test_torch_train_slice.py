@@ -10,7 +10,9 @@ latent channels), built by the JAX package's factory, its DiT de-zeroed,
 and converted into the port. Both packages take one step of the SAO
 optimizer (AdamW + InverseLR) and EMA on the same audio, with the JAX
 step's own timestep and noise draws passed into the port, at CFG dropout
-0 and 1 (deterministic on both sides). Everything is fp32 on the CPU.
+0 and 1 (deterministic on both sides), and once more at CFG dropout 0 with
+the DiT's global condition through adaLN instead of a prepended token.
+Everything is fp32 on the CPU.
 Tolerances: the loss to 1e-5 relative and every trainable gradient to
 1e-4 of its own largest entry (fp32 rounding of XLA against PyTorch through
 the VAE encode, T5 and two DiT layers, forward and backward); parameters and
@@ -65,8 +67,14 @@ def tiny_train_config():
 
 
 @pytest.fixture(scope="module")
-def models():
+def models(request):
+    """The tiny config built by the JAX package, de-zeroed, and its
+    converted weights; with the indirect parameter "adaLN" its DiT takes
+    the global condition through adaLN (to_scale_shift_gate in every
+    block) instead of a prepended token."""
     config = tiny_train_config()
+    config["model"]["diffusion"]["config"]["global_cond_type"] = getattr(request, "param",
+                                                                         "prepend")
     jmodel = jax_create(config, init_rng=jax.random.PRNGKey(0))
     jmodel.params = dezero_params(jmodel.params)
     sd = convert_conditioned_diffusion(jmodel.params, jmodel.conditioner.params,
@@ -87,7 +95,9 @@ def _close_rel(got, want, rel):
     np.testing.assert_allclose(got.detach().numpy(), want, atol=rel * np.abs(want).max() + 1e-12)
 
 
-@pytest.mark.parametrize("cfg_dropout_prob", [0.0, 1.0])
+@pytest.mark.parametrize("models,cfg_dropout_prob",
+                         [("prepend", 0.0), ("prepend", 1.0), ("adaLN", 0.0)],
+                         indirect=["models"], ids=["0.0", "1.0", "adaLN-0.0"])
 def test_one_train_step_matches_jax(models, cfg_dropout_prob):
     config, jmodel, sd = models
     opt = config["training"]["optimizer_configs"]
