@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the torch port (friendly_stable_audio_tools_tpu_torch)
 on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, Stable
-Audio 2.0 long-form text-to-audio and training, Stable Audio 1.0
-text-to-audio and training, audio-LM training and generation (MusicGen
-small's widths), and text-to-audio through the adaLN DiT (SAO 1.0's config
-with `global_cond_type: "adaLN"`), at full width. The training phases
-[6], [7], [6b] and [9] run the DiT at TRAIN_DEPTH (6) of its 24 layers and
-the LM generation phases [13b] and [13] the LM at LM_GEN_DEPTH (6) of its
-24, to stay well inside the script's time limit; widths, shapes and each
-kernel's calls per layer are as the configs write them.
+Audio 2.0 long-form text-to-audio and training (and its DiT past 8192
+tokens), Stable Audio 1.0 text-to-audio (fp32 through the CLI, and in
+bench.py's bf16 recipe) and training, audio-LM training and generation
+(MusicGen small's widths), and text-to-audio through the adaLN DiT (SAO
+1.0's config with `global_cond_type: "adaLN"`), at full width. The training
+phases [6], [7], [6b] and [9] run the DiT at TRAIN_DEPTH (6) of its 24
+layers and the LM generation phases [13b] and [13] the LM at LM_GEN_DEPTH
+(6) of its 24, to stay well inside the script's time limit; widths, shapes
+and each kernel's calls per layer are as the configs write them.
 
     python3 chip_smoke.py
 
@@ -62,6 +63,13 @@ Phases (any failure raises and the script exits non-zero):
    64, T 1024 at head dim 80), at a DiT shape where K8's plan fits (B 2 x 24
    heads, T 1184, kv_len 1177) and a small ragged one; K7 with its LSE at
    the three U-Net shapes;
+   3k. K7 in bf16 (serving, csrc/flash_attention_bf16.cu) against its plain
+   version at the ADP U-Net's self-attention in bench.py's bf16 recipe (B 2
+   x 16 heads: T 4096 and 2048 at head dim 64, T 1024 at head dim 80), at a
+   ragged T 300 with kv_len 290, and at SA 2.0's DiT past 8192 tokens (B 2 x
+   24 heads, T 8576, kv_len 8449; the fp32 K7 there too), with SDPA's bf16
+   time; the bf16 K2 and K4 at every shape of the DAC decode (26 and 4
+   calls, K4 at Cout 768, 384, 192 and 96);
 4. the Oobleck VAE in fp32 (an encode of 2 x 2,097,152 samples and a short
    decode) with the fp32 kernels against the fp32 plain versions; then, in
    bench.py's bf16 recipe, one DiT forward (CFG batch-doubled) and the short
@@ -98,9 +106,23 @@ Phases (any failure raises and the script exits non-zero):
    synthetic 290 s WAVs, batch 8, 3 steps: step time, trained audio per
    second, the split, peak memory, finite losses, moved weights and the
    launch counts (K7/K9 and the fp32 encoder's K2/K3, no K5/K6);
+15b. (before 4b, on the same model) one forward of SA 2.0's DiT at 8448
+   latent frames (392.3 s; 8449 tokens padded to 8576) with CFG, full width
+   and depth: fp32 with the kernels against the plain versions (the split
+   route's K7 with kv_len, 24 launches), then in bench.py's bf16 recipe with
+   the kernels and the plain versions against the fp32 forward (24 bf16 K7
+   launches);
 4c. one forward of Stable Audio 1.0's fp32 ADP U-Net at 4096 latent frames
    with CFG, with the kernels (K7 at T 4096, 2048, 1024) and with the plain
    versions (random weights, de-zeroed);
+4d. the same forward in bench.py's bf16 recipe (the U-Net's weights in
+   bf16, its input cast at entry): with the kernels (14 bf16 K7 launches,
+   nothing else) and the plain versions, each against 4c's fp32 output;
+15. the SA 1.0 path in bench.py's bf16 recipe: `generate_diffusion_cond` on
+   the same model, one prompt, 100 dpmpp-3m-sde steps, CFG 7, 4,194,304
+   samples, the DAC decoding in bf16: audio checks, walls, s-audio/s beside
+   [10]'s fp32 figure from the same run, peak memory, and the launch counts
+   (bf16 K7 1400, bf16 K2 26 and K4 4, nothing else);
 10. the SA 1.0 path: the generate CLI (`generate.main`) on
    stable_audio_1_0.json as written (CLAP text and two int conditioners,
    ADP U-Net, DAC VAE; random weights, seed 0; hash tokenizer), one prompt,
@@ -168,7 +190,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Output: progress lines with each phase's wall, then one JSON line of
 per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
-their own, `*_f32` and `flash_forward_serving`; K13 as `glu_mlp`, its
+their own, `*_f32` and `flash_forward_serving`; the bf16 K7 as
+`flash_forward_bf16`; K13 as `glu_mlp`, its
 times per decode step; K11 and K12 as `ln_modulate` and `gated_residual`,
 their times per adaLN denoising step), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
@@ -212,6 +235,12 @@ LONG_T, LONG_KV = 6272, 6145
 SA1_SAMPLE_SIZE = 4_194_304
 SA1_PROMPT = {"prompt": "A cool 80s glam rock song with driving drums and distorted guitars",
               "seconds_start": 0, "seconds_total": 95}
+# SA 2.0 past the long route ([15b]): 8448 latent frames (392.3 s) + 1
+# prepended token, padded to 8576 at CFG batch 2: the split route, K7 with kv_len
+SA2_XL_SAMPLE_SIZE = 17_301_504
+SA2_XL_T, SA2_XL_KV = 8576, 8449
+SA2_XL_PROMPT = {"prompt": "A slow ambient soundscape with evolving pads and distant bells",
+                 "seconds_start": 0, "seconds_total": 392}
 DEVICE = "cuda"
 TRAIN_BATCH = 8
 TRAIN_STEPS = 4
@@ -225,11 +254,11 @@ TRAIN_T, TRAIN_KV = 1040, 1025
 SA2_WAVS = 8
 SA2_WAV_SECONDS = 290
 SA2_TRAIN_STEPS = 3
-# SA 1.0 training (phases 11b, 11): batch 8, the ADP U-Net's flash-gated
-# self-attention at B 8 x 16 heads: (T, head dim, calls per U-Net call), and
-# 8 WAVs of 96 s (longer than the 95.1 s crop), 3 steps
-SA1_TRAIN_ATTENTION = [(SA1_SAMPLE_SIZE // 1024, 64, 2), (SA1_SAMPLE_SIZE // 2048, 64, 6),
-                       (SA1_SAMPLE_SIZE // 4096, 80, 6)]
+# the ADP U-Net's flash-gated self-attention at 4096 latent frames, 16 heads:
+# (T, head dim, calls per U-Net call); SA 1.0 training (phases 11b, 11):
+# batch 8, and 8 WAVs of 96 s (longer than the 95.1 s crop), 3 steps
+SA1_ATTENTION = [(SA1_SAMPLE_SIZE // 1024, 64, 2), (SA1_SAMPLE_SIZE // 2048, 64, 6),
+                 (SA1_SAMPLE_SIZE // 4096, 80, 6)]
 SA1_WAVS = 8
 SA1_WAV_SECONDS = 96
 SA1_TRAIN_STEPS = 3
@@ -292,6 +321,10 @@ TOL = {
     "snake_conv1d_f32": (1e-5, 1e-4),
     "fused_residual_unit_f32": (1e-5, 1e-4),
     "snake_conv_transpose1d_f32": (1e-5, 1e-4),
+    # bf16 K7 against its plain version: both round q' and P to bf16; the
+    # kernel rounds P per 64-key tile against a running max, the plain
+    # version once against the row max (as K1 against its plain version)
+    "flash_forward_bf16": (1e-2, 2.0 ** -5),
     # the causal K7 (with and without its LSE) and K9 the same way: fp32
     # both sides, summation order and the online softmax's rescaling only
     "flash_forward_causal": (1e-5, 1e-4),
@@ -455,11 +488,15 @@ def patched(pairs):
 
 def plain_attention(qkv, freqs, num_heads, kv_len=None):
     """The inference attention through the plain versions, routed by length
-    as the kernels are (K1's, or K10a's then K10's)."""
+    as the kernels are (K1's, K10a's then K10's, or the split route's K7,
+    which `plain_kernels` sends to its plain version)."""
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
 
-    if attention.attention_route(qkv.shape[1]) == "pair_long":
+    route = attention.attention_route(qkv.shape[1])
+    if route == "pair_long":
         return attention.fused_qkv_rope_attention_long_plain(qkv, freqs, num_heads, kv_len)
+    if route == "flash":
+        return attention.fused_qkv_rope_attention_split(qkv, freqs, num_heads, kv_len)
     return attention.fused_qkv_rope_attention_plain(qkv, freqs, num_heads, kv_len)
 
 
@@ -819,27 +856,29 @@ def encoder_conv_phase(results, config, field, dtype=None):
             f"{b}), plain {r['plain_' + field]:.4f} ms, bound {r['bound_' + field]:.4f} ms")
 
 
-def dac_conv_phase(results):
-    """[3f] fp32 K2 and K4 at every shape of Stable Audio 1.0's DAC decode of
-    4096 latent frames (4,194,304 samples), batch 1, weighted by the calls
-    per decode: conv_in 64 -> 1536 (k 7); per block, the upsample, then three
-    residual units of a k-7 conv at dilations 1, 3, 9 and a 1x1 conv, none
-    with a fused snake (the DAC applies its Snake on its own); conv_out
-    96 -> 2 (k 7). 26 K2 and 4 K4 launches."""
+def dac_conv_phase(results, dtype=None, field="ms"):
+    """[3f] fp32 K2 and K4 ([3k]: bf16, under `field`) at every shape of
+    Stable Audio 1.0's DAC decode of 4096 latent frames (4,194,304 samples),
+    batch 1, weighted by the calls per decode: conv_in 64 -> 1536 (k 7); per
+    block, the upsample, then three residual units of a k-7 conv at
+    dilations 1, 3, 9 and a 1x1 conv, none with a fused snake (the DAC
+    applies its Snake on its own); conv_out 96 -> 2 (k 7). 26 K2 and 4 K4
+    launches."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
 
+    dtype = dtype or torch.float32
     rnd = randn_fn(9)
-    k2 = results["snake_conv1d_f32"]
+    k2 = results[conv_name("snake_conv1d", dtype)]
     frames = SA1_SAMPLE_SIZE // 1024
     k2_cases = [(frames, 64, 1536, 7, 1, 1)]
     t, ch = frames, 1536
     for rate in (8, 8, 4, 4):
-        x = rnd(1, t, ch, scale=0.5)
+        x = rnd(1, t, ch, scale=0.5).to(dtype)
         w = rnd(2 * rate, ch, ch // 2, scale=1 / math.sqrt(2 * ch))
         bb = rnd(ch // 2, scale=0.1)
-        conv_case(results, "snake_conv_transpose1d", f"DAC B1 T{t} {ch}->{ch // 2} s{rate}", "ms", x,
+        conv_case(results, "snake_conv_transpose1d", f"DAC B1 T{t} {ch}->{ch // 2} s{rate}", field, x,
                   w, bb, None, None, lambda: conv1d.snake_conv_transpose1d(x, w, bb, stride=rate),
                   lambda xs: conv1d.snake_conv_transpose1d_plain(xs, w, bb, stride=rate),
                   2 * t * rate * ch * (ch // 2) * 2, halo=1, up=rate, stride=rate)
@@ -850,20 +889,21 @@ def dac_conv_phase(results):
     for t, cin, cout, k, d, calls in k2_cases:
         label = f"DAC B1 T{t} {cin}->{cout} k{k} d{d}"
         k2["weight"][label] = calls
-        x = rnd(1, t, cin, scale=0.5)
+        x = rnd(1, t, cin, scale=0.5).to(dtype)
         w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
         bb = rnd(cout, scale=0.1)
-        conv_case(results, "snake_conv1d", label, "ms", x, w, bb, None, None,
+        conv_case(results, "snake_conv1d", label, field, x, w, bb, None, None,
                   lambda: conv1d.snake_conv1d(x, w, bb, dilation=d),
                   lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, dilation=d),
                   2 * t * cin * cout * k, halo=d * (k - 1) // 2, dilation=d)
         del x
     if sum(calls for *_, calls in k2_cases) != 26:
         raise AssertionError(f"the DAC decode's K2 shapes do not add up to 26 calls: {k2_cases}")
-    for name, n_calls in (("snake_conv1d_f32", 26), ("snake_conv_transpose1d_f32", 4)):
-        r = results[name]
-        log(f"  {name}: {r['ms']:.4f} ms per SA 1.0 DAC decode ({n_calls} calls), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    for name, n_calls in (("snake_conv1d", 26), ("snake_conv_transpose1d", 4)):
+        r, f = results[conv_name(name, dtype)], field
+        log(f"  {conv_name(name, dtype)}: {r[f]:.4f} ms per SA 1.0 DAC decode ({n_calls} calls), "
+            f"plain {r['plain_' + f]:.4f} ms, bound {r['bound_' + f]:.4f} ms, library "
+            f"{r['library_' + f]:.4f} ms")
 
 
 def dac_encode_conv_phase(results, config):
@@ -1015,6 +1055,130 @@ def flash_serving_phase(results):
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
 
 
+def flash_bf16_phase(results):
+    """[3k] K7 in bf16 (serving) against its plain version at the ADP
+    U-Net's self-attention shapes in bench.py's recipe (weighted by the
+    calls per U-Net forward: 2, 6, 6), a ragged T 300 with kv_len 290, and
+    SA 2.0's DiT past 8192 tokens (BH 48, T 8576, kv_len 8449: 24 calls per
+    DiT forward, field sa2_xl_ms), where the fp32 K7 is held against its
+    plain version too. Bound: 4 T kv_len D operations per head at the bf16
+    (fp32: 3xTF32) rate, or q, out and the valid keys and values once at the
+    memory rate. Library: SDPA on the same heads, K/V cut to kv_len."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(12)
+    cases = [(32, t, d, None, calls, "ms") for t, d, calls in SA1_ATTENTION]
+    cases += [(3, 300, 80, 290, 0, "ms"), (2 * 24, SA2_XL_T, 64, SA2_XL_KV, 24, "sa2_xl_ms")]
+    for bh, t, d, kv, calls, field in cases:
+        valid = kv or t
+        for name, dt, peak in (("flash_forward_bf16", torch.bfloat16, PEAK_FLOPS),
+                               ("flash_forward_serving", torch.float32, PEAK_FP32_ACCURATE)):
+            if dt == torch.float32 and field != "sa2_xl_ms":
+                continue  # the fp32 K7's U-Net shapes are [3f]'s
+            label = f"BH{bh} T{t} D{d} kv_len {kv}"
+            if calls:
+                results[name]["weight"][label] = calls
+            q, k, v = (rnd(bh, t, d).to(dt) for _ in range(3))
+            kk, vv = k[:, :valid].contiguous(), v[:, :valid].contiguous()
+            bound = bound_ms(4 * bh * t * valid * d, nbytes(q, q, kk, vv), peak=peak)
+            report(results, name, label, calls > 0, *compare(
+                name, lambda: flash.flash_forward(q, k, v, kv, save_stats=False)[0],
+                lambda: flash.flash_forward_plain(q, k, v, kv, save_stats=False)[0],
+                library_fn=lambda: sdpa(q[None], kk[None], vv[None])), bound=bound, field=field,
+                extra=f"; SDPA backend {sdpa_backend(q[None], kk[None], vv[None])}")
+            del q, k, v, kk, vv
+    r = results["flash_forward_bf16"]
+    log(f"  flash_forward_bf16: {r['ms']:.4f} ms per SA 1.0 U-Net forward (14 calls), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
+        f"{r['sa2_xl_ms']:.4f} ms per SA 2.0 DiT forward at T {SA2_XL_T} (24 calls)")
+
+
+def sa1_unet_bf16_phase(model, inputs, ref):
+    """[4d] One forward of SA 1.0's U-Net in bench.py's bf16 recipe at 4096
+    latent frames with CFG (batch 2) through the kernels (bf16 K7 at T 4096,
+    2048 and 1024) and through their plain versions, on [4c]'s inputs, each
+    against [4c]'s fp32 U-Net with the plain versions (`ref`): the kernels'
+    error at most DIT_ERR_RATIO times the plain bf16 error; 14 bf16 K7
+    launches and nothing else. Applies the recipe to `model`."""
+    import torch
+
+    x, t, cond = inputs
+    bench_recipe(model)
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out_k = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+        torch.cuda.synchronize()
+        wall_k = time.perf_counter() - start
+        counts = read_counts()
+        with plain_kernels():
+            start = time.perf_counter()
+            out_p = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - start
+    err_k, err_p = rel_err(out_k, ref), rel_err(out_p, ref)
+    log(f"  SA 1.0 U-Net forward {list(x.shape)} with CFG in bf16, rel-L2 against the fp32 U-Net: "
+        f"kernels {err_k:.3g}, plain bf16 {err_p:.3g} (bound: kernels <= {DIT_ERR_RATIO} x plain); "
+        f"kernels vs plain {rel_err(out_k, out_p):.3g}; wall kernels {wall_k:.4f} s, plain "
+        f"{wall_p:.4f} s; launches {counts}")
+    want = {name: 0 for name in KERNELS}
+    want["flash_forward_bf16"] = 14
+    if not (torch.isfinite(out_k).all() and err_k <= DIT_ERR_RATIO * err_p):
+        raise AssertionError("the bf16 SA 1.0 U-Net with the kernels disagrees with the plain versions")
+    if counts != want:
+        raise AssertionError(f"one bf16 SA 1.0 U-Net forward should launch {want}: {counts}")
+
+
+def sa2_xl_forward_phase(model):
+    """[15b] One forward of SA 2.0's DiT (full width and depth) at 8448
+    latent frames with CFG (B 2, T 8449 padded to 8576, kv_len 8449): the
+    split route's K7 in fp32 against the plain versions (rel-L2
+    FP32_MODEL_RTOL), then, in bench.py's bf16 recipe (applied to `model`),
+    with the kernels and with the plain versions, each against the fp32
+    forward with the plain versions (kernels <= DIT_ERR_RATIO x plain).
+    Launches: 24 fp32 K7 serving, then 24 bf16 K7, nothing else."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    frames = SA2_XL_SAMPLE_SIZE // 2048
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner([SA2_XL_PROMPT], device=DEVICE))
+        x = torch.randn(1, frames, model.io_channels, generator=g, device=DEVICE)
+        t = torch.full((1,), 0.6, device=DEVICE)
+        runs = {}
+        for recipe in ("fp32", "bf16"):
+            if recipe == "bf16":
+                bench_recipe(model)
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out_k = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            counts = read_counts()
+            with plain_kernels():
+                out_p = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+            runs[recipe] = (out_k, out_p, counts, wall)
+    (k32, p32, c32, w32), (k16, p16, c16, w16) = runs["fp32"], runs["bf16"]
+    rel32, err_k, err_p = rel_err(k32, p32), rel_err(k16, p32), rel_err(p16, p32)
+    log(f"  SA 2.0 DiT forward {list(x.shape)} with CFG (T {SA2_XL_T}, kv_len {SA2_XL_KV}): fp32 "
+        f"kernels vs plain rel-L2 {rel32:.3g} (tol {FP32_MODEL_RTOL}), wall {w32:.4f} s; bf16 "
+        f"against the fp32 plain forward: kernels {err_k:.3g}, plain bf16 {err_p:.3g} (bound: "
+        f"kernels <= {DIT_ERR_RATIO} x plain), wall {w16:.4f} s; launches fp32 {c32}, bf16 {c16}")
+    want32, want16 = {name: 0 for name in KERNELS}, {name: 0 for name in KERNELS}
+    want32["flash_forward_serving"], want16["flash_forward_bf16"] = 24, 24
+    if not (torch.isfinite(k32).all() and torch.isfinite(k16).all() and rel32 <= FP32_MODEL_RTOL
+            and err_k <= DIT_ERR_RATIO * err_p):
+        raise AssertionError("the SA 2.0 DiT past 8192 tokens disagrees with the plain versions")
+    if c32 != want32 or c16 != want16:
+        raise AssertionError(f"the SA 2.0 DiT forwards should launch {want32} and {want16}")
+    return c32, c16
+
+
 def long_attention_phase(results):
     """[3d] K10a (rope K once) and K10 (attention over the roped K) against
     their plain versions; K10 and its plain version take the same khat."""
@@ -1158,7 +1322,7 @@ def flash_fused_phase(results):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rnd = randn_fn(11)
     bh_train = TRAIN_BATCH * 16
-    cases = [(bh_train, t, d, None, calls) for t, d, calls in SA1_TRAIN_ATTENTION]
+    cases = [(bh_train, t, d, None, calls) for t, d, calls in SA1_ATTENTION]
     cases += [(48, 1184, 64, 1177, 0), (3, 200, 80, 190, 0)]
     for bh, t, d, kv, calls in cases:
         label = f"BH{bh} T{t} D{d} kv_len {kv}"
@@ -1929,6 +2093,7 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "fused_residual_unit": ("conv1d", "fused_residual_unit_launches"),
     "snake_conv_transpose1d": ("conv1d", "snake_conv_transpose1d_launches"),
     "flash_forward_serving": ("flash", "serving_launches"),
+    "flash_forward_bf16": ("flash", "serving_bf16_launches"),
     "snake_conv1d_f32": ("conv1d", "snake_conv1d_f32_launches"),
     "fused_residual_unit_f32": ("conv1d", "fused_residual_unit_f32_launches"),
     "snake_conv_transpose1d_f32": ("conv1d", "snake_conv_transpose1d_f32_launches"),
@@ -1945,8 +2110,8 @@ KERNELS = {  # name -> (module attribute holding its launch count)
 # attention, the fp32 attention and convolutions
 NO_TRAINING = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
                "flash_forward": 0, "flash_backward": 0, "flash_backward_fused": 0,
-               "flash_forward_serving": 0, "snake_conv1d_f32": 0, "fused_residual_unit_f32": 0,
-               "snake_conv_transpose1d_f32": 0}
+               "flash_forward_serving": 0, "flash_forward_bf16": 0, "snake_conv1d_f32": 0,
+               "fused_residual_unit_f32": 0, "snake_conv_transpose1d_f32": 0}
 
 
 def _kernel_modules():
@@ -2505,7 +2670,7 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
     """generate_diffusion_cond for one prompt, 100 dpmpp-3m-sde steps, CFG 7,
     with every launch count set to 0 just before and read just after: checks
     the audio and the counts (`expected` exactly, `min_counts` at least),
-    logs the walls, and returns (the counts, the audio)."""
+    logs the walls, and returns (the counts, the audio, s-audio/s)."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
@@ -2548,7 +2713,7 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
     if (any(launches[k] != n for k, n in expected.items())
             or any(launches[k] < n for k, n in min_counts.items())):
         raise AssertionError(f"launch counts {launches} do not show the main path's kernels")
-    return launches, audio
+    return launches, audio, seconds / total
 
 
 def bench_recipe(model):
@@ -2677,7 +2842,7 @@ def adaln_generation_phase(model, config):
         set_fused_ew(model, on)
         log(f"  fused_ew {'on' if on else 'off'}:")
         n = 2 * ADALN_LAYERS * STEPS if on else 0
-        launches[on], audio[on] = generation_phase(
+        launches[on], audio[on], _ = generation_phase(
             model, config, PROMPT, SAMPLE_SIZE,
             expected={"ln_modulate": n, "gated_residual": n,
                       "fused_qkv_rope_attention": ADALN_LAYERS * STEPS, "rope_pair_k": 0,
@@ -2735,7 +2900,9 @@ def profile_adaln_forward(model):
 def sa1_unet_forward_phase(model):
     """[4c] One forward of SA 1.0's fp32 U-Net at 4096 latent frames with
     CFG (batch 2), through the kernels (K7 without its LSE at T 4096, 2048
-    and 1024) and through their plain versions; same weights and inputs."""
+    and 1024) and through their plain versions; same weights and inputs.
+    Returns the inputs (x, t, conditioning) and the plain versions' output,
+    [4d]'s reference."""
     import torch
 
     g = torch.Generator(device=DEVICE).manual_seed(2)
@@ -2765,6 +2932,7 @@ def sa1_unet_forward_phase(model):
         raise AssertionError("the SA 1.0 U-Net with the kernels disagrees with the plain versions")
     if counts != want:
         raise AssertionError(f"one SA 1.0 U-Net forward should launch {want}: {counts}")
+    return (x, t, cond), out_p
 
 
 def cli_generation_phase(config_path, prompt, expected):
@@ -2773,7 +2941,8 @@ def cli_generation_phase(config_path, prompt, expected):
     (seed 0), one WAV written under build/. Times the conditioners, the
     decode and the whole `generate_diffusion_cond` call, each between two
     synchronisations; every launch count is set to 0 just before and read
-    just after, and must equal `expected` (kernels not named: 0)."""
+    just after, and must equal `expected` (kernels not named: 0). Returns
+    the counts and the generation's s-audio/s."""
     import wave
 
     import torch
@@ -2843,7 +3012,7 @@ def cli_generation_phase(config_path, prompt, expected):
         raise AssertionError(f"the CLI's output is not finite [1, 2, {n}] audio in one WAV")
     if launches != want:
         raise AssertionError(f"launch counts {launches} are not the main path's {want}")
-    return launches
+    return launches, seconds / total
 
 
 def new_results():
@@ -2889,6 +3058,11 @@ def new_results():
             route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:230",
             per="SA 1.0 U-Net forward (14 calls at B2 x H16: 2 at T4096 D64, 6 at T2048 D64, 6 at "
                 "T1024 D80)"),
+        "flash_forward_bf16": dict(
+            route="cuda", source=src + "flash_attention_bf16.cu",
+            replaces=tpu + "flash_attention.py:230",
+            per="SA 1.0 U-Net forward in bench.py's bf16 recipe (14 calls at B2 x H16: 2 at T4096 "
+                "D64, 6 at T2048 D64, 6 at T1024 D80)"),
         "snake_conv1d_f32": dict(route="cuda", source=src + "conv1d.cu",
                                  replaces=tpu + "conv1d.py:91", per="SA 1.0 DAC decode (26 calls)"),
         "fused_residual_unit_f32": dict(route="cuda", source=src + "conv1d_f32.cu",
@@ -2925,7 +3099,10 @@ def new_results():
     # 2.0 decode), encode_ms and sa2_encode_ms (K2 and K3 per SAO 1.0 and SA
     # 2.0 training step's encode), sa1_train_ms (K7 with its LSE per SA 1.0
     # training step), sa1_encode_ms (the fp32 K2 per SA 1.0 training step's
-    # DAC encode), each with its plain_, bound_ and library_ times
+    # DAC encode), sa1_decode_ms (the bf16 K2 and K4 per SA 1.0 DAC decode in
+    # bench.py's recipe), sa2_xl_ms (K7 in fp32 and bf16 per SA 2.0 DiT
+    # forward at 8448 latent frames), each with its plain_, bound_ and
+    # library_ times
     results["fused_qkv_rope_attention"]["weight"] = {"B2 T1025 H24 kv_len None": 24}
     train_label = f"B{TRAIN_BATCH} T{TRAIN_T} H24 kv_len {TRAIN_KV}"
     results["fused_qkv_rope_attention_stats"]["weight"] = {train_label: 2 * 24}
@@ -3020,6 +3197,11 @@ def main():
         "vs their plain chains and the Pallas kernels' arithmetic, bf16")
     elementwise_phase(results)
     done("[3j]")
+    log("[3k] K7 in bf16 vs its plain version at the ADP U-Net's shapes and SA 2.0's past 8192 "
+        "tokens (with the fp32 K7 there); the bf16 K2 and K4 at the DAC decode's shapes")
+    flash_bf16_phase(results)
+    dac_conv_phase(results, torch.bfloat16, "sa1_decode_ms")
+    done("[3k]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -3059,7 +3241,7 @@ def main():
 
     log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7, bench.py's "
         "bf16 recipe")
-    launches, _ = generation_phase(
+    launches, _, _ = generation_phase(
         model, config, PROMPT, SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 0, "pair_long_attention": 0,
                   "fused_residual_unit": 15, "snake_conv_transpose1d": 5, "ln_modulate": 0,
@@ -3089,14 +3271,18 @@ def main():
         counts_train, counts_resume = training_phase(train_config, tmp, dit_path)
     done("[7]")
 
-    log("[4b] SA 2.0's DiT at 6144 latent frames: kernels vs plain versions")
+    log(f"[15b] SA 2.0's DiT past 8192 tokens: {SA2_XL_SAMPLE_SIZE // 2048} latent frames (T "
+        f"{SA2_XL_T}, kv_len {SA2_XL_KV}), the split route's K7 in fp32 and in bench.py's bf16 "
+        f"recipe vs plain versions")
     model = build_model(sa2_config)
-    bench_recipe(model)
+    counts_xl32, counts_xl16 = sa2_xl_forward_phase(model)  # leaves the model in the recipe
+    done("[15b]")
+    log("[4b] SA 2.0's DiT at 6144 latent frames: kernels vs plain versions")
     dit_forward_phase(model, SA2_SAMPLE_SIZE // 2048, SA2_PROMPT, "SA 2.0")
     done("[4b]")
     log(f"[8] long-form path: SA 2.0 text-to-audio, {SA2_SAMPLE_SIZE} samples, 100 dpmpp-3m-sde "
         f"steps, CFG 7, bench.py's bf16 recipe")
-    launches_long, _ = generation_phase(
+    launches_long, _, _ = generation_phase(
         model, sa2_config, SA2_PROMPT, SA2_SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 0, "rope_pair_k": 24 * STEPS,
                   "pair_long_attention": 24 * STEPS, "fused_residual_unit": 15,
@@ -3123,20 +3309,35 @@ def main():
 
     log("[4c] SA 1.0's U-Net at 4096 latent frames: kernels vs plain versions, fp32")
     model = build_model(sa1_config)
-    sa1_unet_forward_phase(model)
+    unet_inputs, unet_ref = sa1_unet_forward_phase(model)
+    done("[4c]")
+    log("[4d] SA 1.0's U-Net at 4096 latent frames in bench.py's bf16 recipe: kernels vs plain "
+        "versions vs [4c]'s fp32 U-Net")
+    sa1_unet_bf16_phase(model, unet_inputs, unet_ref)
+    del unet_inputs, unet_ref
+    done("[4d]")
+    log(f"[15] SA 1.0 in bench.py's bf16 recipe: generate_diffusion_cond, {SA1_SAMPLE_SIZE} "
+        f"samples, {STEPS} dpmpp-3m-sde steps, CFG {CFG_SCALE}")
+    launches_sa1_bf16, _, rate_sa1_bf16 = generation_phase(
+        model, sa1_config, SA1_PROMPT, SA1_SAMPLE_SIZE,
+        expected={**{name: 0 for name in KERNELS}, "flash_forward_bf16": 14 * STEPS,
+                  "snake_conv1d": 26, "snake_conv_transpose1d": 4},
+        min_counts={})
     del model
     torch.cuda.empty_cache()
-    done("[4c]")
+    done("[15]")
     log(f"[10] SA 1.0 path: the generate CLI on stable_audio_1_0.json, {SA1_SAMPLE_SIZE} samples, "
         f"{STEPS} dpmpp-3m-sde steps, CFG {CFG_SCALE}, fp32")
-    launches_sa1 = cli_generation_phase(
+    launches_sa1, rate_sa1 = cli_generation_phase(
         SA1_CONFIG, SA1_PROMPT, {"flash_forward_serving": 14 * STEPS, "snake_conv1d_f32": 26,
                                  "snake_conv_transpose1d_f32": 4})
+    log(f"  SA 1.0 generation, this run: bf16 recipe ([15]) {rate_sa1_bf16:.3f} s-audio/s, fp32 CLI "
+        f"([10]) {rate_sa1:.3f} s-audio/s; card {smi_line()}")
     torch.cuda.empty_cache()
     done("[10]")
     log(f"[10b] the repaired dtype: the generate CLI on stable_audio_open_1_0.json in fp32 (K1 on "
         f"bf16 casts of the fp32 qkv, the fp32 K2/K3/K4 in the decode)")
-    launches_fp32 = cli_generation_phase(
+    launches_fp32, _ = cli_generation_phase(
         SAO_CONFIG, PROMPT, {"fused_qkv_rope_attention": 24 * STEPS, "snake_conv1d_f32": 2,
                              "fused_residual_unit_f32": 15, "snake_conv_transpose1d_f32": 5})
     torch.cuda.empty_cache()
@@ -3204,7 +3405,9 @@ def main():
                "lm_eval_forward": counts_lm_eval, "train_lm": counts_lm,
                "lm_generate": counts_gen, "lm_generate_fused_mlp": counts_gen_fused,
                "adaln_step": counts_adaln_step, "adaln_step_plain_ew": counts_adaln_step_off,
-               "generate_adaln": counts_adaln, "generate_adaln_plain_ew": counts_adaln_off}
+               "generate_adaln": counts_adaln, "generate_adaln_plain_ew": counts_adaln_off,
+               "generate_sa1_bf16": launches_sa1_bf16, "sa2_xl_forward_fp32": counts_xl32,
+               "sa2_xl_forward_bf16": counts_xl16}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -3214,7 +3417,7 @@ def main():
                    bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
                    launches_by_path={p: c[name] for p, c in by_path.items()})
         for f in ("sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms", "sa1_train_ms",
-                  "sa1_encode_ms", "lm_encode_ms", "lm_decode_ms"):
+                  "sa1_encode_ms", "lm_encode_ms", "lm_decode_ms", "sa1_decode_ms", "sa2_xl_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
         return out

@@ -61,13 +61,17 @@ __device__ __forceinline__ void load_x_tile(const bf16* __restrict__ xb, int T, 
   }
 }
 
-// Loads w[k0:k0+32, n0:n0+128] of a row-major [*, ncols] bf16 matrix into ws [32][kWld].
+// Loads w[k0:k0+32, n0:n0+128] of a row-major [*, ncols] bf16 matrix into ws
+// [32][kWld]; columns at or past ncols (a last chunk of K4 at Cout % 128 != 0,
+// ncols % 8 == 0) are zero.
 __device__ __forceinline__ void load_w_tile(const bf16* __restrict__ w, int ncols, int k0, int n0,
                                             bf16* __restrict__ ws) {
   for (int i = threadIdx.x; i < kKC * (kNC / 8); i += kThreads) {
     const int r = i >> 4, seg = i & 15;
-    *reinterpret_cast<uint4*>(ws + r * kWld + seg * 8) =
-        *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * ncols + n0 + seg * 8);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (n0 + seg * 8 < ncols)
+      val = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * ncols + n0 + seg * 8);
+    *reinterpret_cast<uint4*>(ws + r * kWld + seg * 8) = val;
   }
 }
 
@@ -314,7 +318,9 @@ fused_residual_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
 // Output phase r of row q reads x[q] (tap r + s/2) and x[q-1] (tap r + s/2 + s)
 // when r < s/2, x[q+1] (tap r + s/2 - s) otherwise (conv1d.py:217-225). One
 // block per (64-row q tile, phase x 128-column Cout chunk, batch); the block
-// writes its phase's rows of the interleaved output.
+// writes its phase's rows of the interleaved output. Cout % 32 == 0: a last
+// chunk narrower than 128 columns (the DAC decoder's 192 and 96) reads zero
+// weights past Cout and writes only its columns.
 // ---------------------------------------------------------------------------
 
 size_t upk_smem_bytes() {
@@ -376,7 +382,7 @@ snake_conv_transpose1d_kernel(const bf16* __restrict__ x, const bf16* __restrict
   __syncthreads();
   for (int i = threadIdx.x; i < kRows * kNC; i += kThreads) {
     const int m = i / kNC, c = i % kNC, q = q0 + m;
-    if (q < T)
+    if (q < T && n0 + c < Cout)
       y[((size_t)b * T * s + (size_t)q * s + r) * Cout + n0 + c] =
           __float2bfloat16_rn(sc[m * kSld + c] + bias[n0 + c]);
   }
@@ -417,7 +423,7 @@ extern "C" int fsat_snake_conv_transpose1d(const void* x, const void* w, const f
   const size_t smem = upk_smem_bytes();
   cudaError_t err = allow_smem(snake_conv_transpose1d_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kRows - 1) / kRows, stride * (Cout / kNC), B);
+  const dim3 grid((T + kRows - 1) / kRows, stride * ((Cout + kNC - 1) / kNC), B);
   snake_conv_transpose1d_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), bias, ab, static_cast<bf16*>(y), T,
       Cin, Cout, stride);

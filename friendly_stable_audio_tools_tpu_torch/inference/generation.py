@@ -5,6 +5,11 @@ The text path: conditioners on the prompt metadata, seeded noise, the
 k-diffusion sampler over the DiT with CFG, then the pretransform decode.
 Init-audio (variation, inpainting) needs the VAE encoder, which is not
 ported yet. Public layout [B, C, T].
+
+The sampler state stays fp32 whatever the model's dtype (JAX
+sampling.py:38, 52): a bf16 backbone (bench.py's recipe) casts its input at
+its own entry, as the JAX recipe casts it at the call, and the pretransform
+casts the fp32 latents to the VAE's dtype before the decode.
 """
 
 from __future__ import annotations

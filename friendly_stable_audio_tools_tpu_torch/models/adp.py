@@ -22,6 +22,20 @@ default); LayerNorm eps 1e-6 (flax's default); ConvBlock1d's GroupNorm eps
 1e-5, Transformer1d's input GroupNorm 32 groups at eps 1e-6; the attention
 multiplies k and v by the context mask rather than masking logits.
 
+Dtype: the U-Net computes in the dtype of its weights. An fp32 model (the
+CLIs, the trainer) computes in fp32 throughout. With bf16 weights (bench.py's
+recipe, which casts the model's input to bf16 at the call) the input, the
+conditioning tokens, the global features and the context channels are cast
+to bf16 at entry, and the timestep's Fourier features (computed in fp32, as
+the JAX module does) before their first projection, so the whole U-Net and
+its gated self-attention run in bf16 (on the card: K7 in bf16). Norm
+statistics stay fp32 inside F.group_norm / F.layer_norm, as flax computes
+them, and the CFG combination and rescale run in fp32 on the two halves.
+The JAX module differs here on purpose: its mapping vector stays fp32 at
+bf16 weights (the time features are fp32 and flax promotes an fp32 input
+over bf16 weights), so its first FiLM promotes the residual stream to fp32
+and its attention runs in fp32 (ROADMAP queue C).
+
 Not in the port (they raise): STFT wrapping, Snake in the resnet blocks,
 UNetNCCA1d and XUNet1d.
 """
@@ -512,15 +526,25 @@ class UNet1d(nn.Module):
         self.to_out = Unpatcher(channels * multipliers[0], out_channels or in_channels,
                                 patch_size, mapping_features, use_snake)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the U-Net computes in: its weights'."""
+        return self.to_in.block.blocks["1"].project.weight.dtype
+
     def forward(self, x: torch.Tensor, time: tp.Optional[torch.Tensor] = None,
                 features: tp.Optional[torch.Tensor] = None, channels_list=None,
                 embedding: tp.Optional[torch.Tensor] = None,
                 embedding_mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Returns [B, T, out_channels] in the weights' dtype; the inputs are
+        cast to it (time stays fp32 through its Fourier features)."""
+        dt = self.dtype
+        x = x.to(dt)
+        embedding = None if embedding is None else embedding.to(dt)
         items = []
         if self.use_context_time:
-            items.append(gelu(self.to_time_lin(self.to_time_pos(time))))
+            items.append(gelu(self.to_time_lin(self.to_time_pos(time).to(dt))))
         if self.use_context_features:
-            items.append(gelu(self.to_features(features)))
+            items.append(gelu(self.to_features(features.to(dt))))
         mapping = None
         if items:
             mapping = sum(items)
@@ -590,12 +614,14 @@ class UNetCFG1d(nn.Module):
                 cfg_dropout_mask: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
         b = embedding.shape[0]
+        dt = self.unet.dtype
+        embedding = embedding.to(dt)
         if self.use_xattn_time:
-            t_emb = gelu(self.to_time_embedding_lin(self.to_time_embedding_pos(time)))
-            embedding = torch.cat([embedding, t_emb[:, None, :].to(embedding.dtype)], dim=1)
+            t_emb = gelu(self.to_time_embedding_lin(self.to_time_embedding_pos(time).to(dt)))
+            embedding = torch.cat([embedding, t_emb[:, None, :]], dim=1)
             if embedding_mask is not None:
                 embedding_mask = torch.cat([embedding_mask, embedding_mask.new_ones(b, 1)], dim=1)
-        fixed = self.fixed_embedding(embedding).to(embedding.dtype)
+        fixed = self.fixed_embedding(embedding)
         if embedding_mask_proba > 0.0 and self.training:
             if cfg_dropout_mask is None:
                 cfg_dropout_mask = torch.rand(b, generator=generator,
@@ -609,8 +635,8 @@ class UNetCFG1d(nn.Module):
             if negative_embedding is not None:
                 if negative_embedding_mask is not None:
                     keep = negative_embedding_mask.bool()[:, :, None]
-                    negative_embedding = torch.where(keep, negative_embedding, fixed)
-                null = negative_embedding
+                    negative_embedding = torch.where(keep, negative_embedding.to(dt), fixed)
+                null = negative_embedding.to(dt)
             else:
                 null = fixed
 
@@ -625,9 +651,10 @@ class UNetCFG1d(nn.Module):
         else:
             out = self.unet(x, time, embedding=embedding, embedding_mask=embedding_mask, **kw)
             out_masked = self.unet(x, time, embedding=fixed, embedding_mask=embedding_mask, **kw)
+        out, out_masked = out.float(), out_masked.float()  # the combination in fp32
         out_cfg = out_masked + (out - out_masked) * embedding_scale
         if not rescale_cfg:
             return out_cfg
-        out_std = out.float().std(dim=-1, keepdim=True, correction=0)
-        out_cfg_std = out_cfg.float().std(dim=-1, keepdim=True, correction=0)
+        out_std = out.std(dim=-1, keepdim=True, correction=0)
+        out_cfg_std = out_cfg.std(dim=-1, keepdim=True, correction=0)
         return scale_phi * (out_cfg * (out_std / out_cfg_std)) + (1 - scale_phi) * out_cfg

@@ -7,13 +7,15 @@ dtype before the second product. The DiT's cross-attention reads 130
 conditioning tokens, which the JAX package sends there rather than to a
 kernel, and so does this port.
 
-:func:`scaled_dot_product_attention` is the JAX function (:35) with its gate
-(:58-69, :func:`flash_gate`, without its FSAT_* switches): long unmasked
-self-attention on the card goes to the flash kernels of
+:func:`scaled_dot_product_attention` is the JAX function (:35) with its
+gate (:58-69, :func:`flash_gate`, without its FSAT_* switches): long
+unmasked self-attention on the card goes to the flash kernels of
 ops/kernels/flash_attention.py, as the JAX package sends it to
 `flash_attention` (the ``_flash`` custom_vjp). Under grad that is
-``FlashAttention`` (K7 with its log-sum-exp, then K8 or K9 on the way
-back); otherwise K7 without the log-sum-exp. Everything else, and every
+``FlashAttention`` (K7 with its log-sum-exp, then K8 or K9 on the way back;
+fp32 only: no path trains in bf16, and a bf16 call under grad raises);
+otherwise K7 without the log-sum-exp, in fp32 or, for bf16 q, k and v (the
+ADP U-Net in bench.py's bf16 recipe), in bf16. Everything else, and every
 CPU tensor, takes the plain path, as the JAX package on the CPU takes
 `_xla_attention`. The ADP U-Net's self-attention uses it, and so does the
 causal transformer of the audio LM (models/transformer.py): its square
@@ -56,11 +58,11 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     """q [B, H, Tq, D], k/v [B, Hkv, Tk, D], mask [B, Tk] or [B, 1, Tq, Tk]
     (True = attend) -> [B, H, Tq, D]; causal masks key j > query i + Tk -
     Tq. On a CUDA tensor that :func:`flash_gate` admits (no mask), the flash
-    kernels compute it (fp32, D 64
-    or 80, causal at D 64 under grad; other cases raise there): under grad,
+    kernels compute it (D 64 or 80; fp32, or bf16 without grad and not
+    causal; causal at D 64 under grad; other cases raise there): under grad,
     when q, k or v needs a gradient, ``FlashAttention`` (K7 with its LSE,
     then K8 or K9; causal: the causal K7, then the causal K9), else K7
-    alone."""
+    alone (the bf16 K7 for bf16 tensors)."""
     b, h, t_q, d = q.shape
     if not (uses_kernels(q) and flash_gate(t_q, k.shape[-2], d, mask is not None, causal)):
         return attention(q, k, v, mask, causal)

@@ -18,9 +18,18 @@ Replaces the head-pair Pallas kernels of the DiT's self-attention
 
 Routing without grad follows flash_attention.py:1413-1421
 (:func:`attention_route`): up to 2048 tokens K1; up to 8192 (Stable Audio
-2.0's 6145 tokens, padded to 6272) K10a then K10; beyond that the JAX
-package runs K7 in the input dtype (bf16 at inference) through its online
-softmax, which the port has not wired, so a CUDA tensor raises there. Under
+2.0's 6145 tokens, padded to 6272) K10a then K10; beyond that (Stable Audio
+2.0 past ~380 s: 8449 tokens at 392 s, padded to 8576) the split route of
+:func:`fused_qkv_rope_attention_split`: heads split, q and k roped outside
+any kernel in the input dtype, K7 without its LSE on ``[B*H, T, D]`` with
+kv_len (fp32 or bf16 by the input dtype; ops/kernels/flash_attention.py),
+heads merged. That is the JAX package's path there: its transformer sends a
+padded T > 8192 to the split path (rope outside, then
+``scaled_dot_product_attention(..., kv_len)``; JAX models/transformer.py:
+199-201, 234-236) and an unpadded one to ``flash_attention(freqs=...)``,
+which ropes outside beyond 2048 tokens (flash_attention.py:693-698); both
+reach ``_flash_forward`` with t_k > 8192, whose ``_online_kernel`` K7's
+streaming loop computes. Under
 grad the route is the reference's (:func:`training_route`, after
 ``_pair_bwd_eligible`` :1204): lengths whose pair backward plan fits
 (T <= 1168 at head dim 64) take K5/K6 (:class:`FusedQKVRopeAttention`);
@@ -111,8 +120,8 @@ def kernel_input(qkv: torch.Tensor) -> torch.Tensor:
 def attention_route(t: int) -> str:
     """The inference kernel for a sequence of t tokens, as the JAX package
     routes it (flash_attention.py:1413-1421): "pair" (K1) for t <= 2048,
-    "pair_long" (K10a + K10) for t <= 8192, else "flash" (K7 in its online
-    inference form, not wired)."""
+    "pair_long" (K10a + K10) for t <= 8192, else "flash" (heads split, rope
+    outside, K7 without its LSE: :func:`fused_qkv_rope_attention_split`)."""
     if t <= PAIR_MAX_T:
         return "pair"
     if t <= LONG_MAX_T:
@@ -426,6 +435,32 @@ class FusedQKVRopeAttention(torch.autograd.Function):
         return dqkv, None, None, None
 
 
+def _split_roped(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
+    """qkv [B, T, 3*H*D] -> q, k, v [B*H, T, D] in qkv's dtype, q and k roped
+    outside any kernel (the JAX package's ``_rope_outside``)."""
+    b, t, three_hd = qkv.shape
+    d = three_hd // (3 * num_heads)
+    q, k, v = qkv.view(b, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    q, k = apply_rotary_pos_emb(q, freqs), apply_rotary_pos_emb(k, freqs)
+    return (x.reshape(b * num_heads, t, d) for x in (q, k, v))
+
+
+def _merge_heads(x: torch.Tensor, b: int, num_heads: int) -> torch.Tensor:
+    """[B*H, T, D] -> [B, T, H*D]."""
+    _, t, d = x.shape
+    return x.view(b, num_heads, t, d).transpose(1, 2).reshape(b, t, num_heads * d)
+
+
+def fused_qkv_rope_attention_split(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
+                                   kv_len: tp.Optional[int] = None) -> torch.Tensor:
+    """The inference route beyond 8192 tokens ("flash"): heads split, q and
+    k roped in qkv's dtype, K7 without its LSE (fp32 or bf16 by qkv's dtype;
+    its plain version for CPU tensors), heads merged; out in qkv's dtype."""
+    q, k, v = _split_roped(qkv, freqs, num_heads)
+    out, _ = flash.flash_forward(q, k, v, kv_len, save_stats=False)
+    return _merge_heads(out, qkv.shape[0], num_heads)
+
+
 class FusedQKVFlashAttention(torch.autograd.Function):
     """The unpack branch of the ``_fused_pair`` custom_vjp (``_fused_pair_fwd``
     :1351-1358, ``_fused_pair_bwd`` :1367-1389), for the lengths
@@ -437,15 +472,11 @@ class FusedQKVFlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, freqs, num_heads, kv_len):
-        b, t, three_hd = qkv.shape
-        d = three_hd // (3 * num_heads)
-        q, k, v = qkv.view(b, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-        q, k = apply_rotary_pos_emb(q, freqs), apply_rotary_pos_emb(k, freqs)
-        q, k, v = (x.reshape(b * num_heads, t, d) for x in (q, k, v))
+        q, k, v = _split_roped(qkv, freqs, num_heads)
         out, lse = flash.flash_forward(q, k, v, kv_len, save_stats=True)
         ctx.save_for_backward(q, k, v, out, lse, freqs)
         ctx.num_heads, ctx.kv_len = num_heads, kv_len
-        return out.view(b, num_heads, t, d).transpose(1, 2).reshape(b, t, num_heads * d)
+        return _merge_heads(out, qkv.shape[0], num_heads)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -485,13 +516,10 @@ def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: 
     route = attention_route(t)
     if route == "pair_long":
         return fused_qkv_rope_attention_long(qkv, freqs, num_heads, kv_len)
+    if route == "flash":
+        return fused_qkv_rope_attention_split(qkv, freqs, num_heads, kv_len)
     if qkv.device.type == "cpu":
         return fused_qkv_rope_attention_plain(qkv, freqs, num_heads, kv_len)
-    if route == "flash":
-        raise NotImplementedError(
-            f"fused_qkv_rope_attention: without grad, T = {t} > {LONG_MAX_T} takes K7 in the input "
-            f"dtype through its online softmax (flash_attention.py:_online_kernel), which the "
-            f"torch port has not wired")
     out, _ = _launch_forward(kernel_input(qkv), freqs, num_heads, valid, with_lse=False)
     launches += 1
     return out.to(qkv.dtype)

@@ -47,7 +47,9 @@ What bounds them on the H100, and what the design does about it:
   conv1d.py:262, :228). Polyphase: each output phase is a two-tap product
   of x[q] with x[q-1] or x[q+1], so a block computes one phase for a q tile
   and writes its rows of the interleaved output; no zero-stuffed input is
-  ever formed.
+  ever formed. Both kernels take Cin and Cout in multiples of 32; the bf16
+  one works in 128-column chunks of Cout, the last of which may be partial
+  (the DAC decoder's 384 -> 192 and 192 -> 96 upsamples).
 
 The TPU package sends some decoder shapes to plain XLA for lack of VMEM
 (``_upk_gemm`` for cin 2048/1024, ``_ru_xla`` for C = 1024). Hopper has no
@@ -282,10 +284,9 @@ def snake_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[t
     _check_cuda("snake_conv_transpose1d", x, w, bias, alpha, inv_beta)
     ab = _stack_snake(alpha, inv_beta)
     f32 = x.dtype == torch.float32
-    cout_step = 32 if f32 else 128  # the kernels' output-column chunk
-    if cin % 32 or cout % cout_step:
-        raise ValueError(f"snake_conv_transpose1d: the {x.dtype} CUDA kernel takes Cin % 32 == 0 "
-                         f"and Cout % {cout_step} == 0, got {cin} -> {cout}")
+    if cin % 32 or cout % 32:
+        raise ValueError(f"snake_conv_transpose1d: the CUDA kernels take Cin % 32 == 0 and "
+                         f"Cout % 32 == 0, got {cin} -> {cout}")
     b, t, _ = x.shape
     x = x.contiguous()
     wc = w.to(x.dtype).contiguous()

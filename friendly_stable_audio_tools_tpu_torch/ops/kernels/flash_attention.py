@@ -30,10 +30,12 @@ the unpack route of ops/kernels/attention.py. The ADP U-Net's
 self-attention (Stable Audio 1.0), wherever the gate of ops/attention.py
 sends it (T 4096 and 2048 at D 64, T 1024 at D 80), takes K7 without the
 LSE when it serves and :class:`FlashAttention` (K7 with the LSE, then K8:
-its plan fits at all three lengths) when it trains. What they compute, per
-head, in the input dtype (fp32 on every path: the JAX training step and
-the JAX CLI's model are fp32), with causal calls also masking key j > query
-i::
+its plan fits at all three lengths) when it trains. Without grad, the
+DiT's self-attention beyond 8192 tokens takes K7 without the LSE too (the
+split route of ops/kernels/attention.py). What they compute, per head, in
+the input dtype (fp32 on the training paths and through the CLIs, whose
+models are fp32; bf16 in bench.py's recipe), with causal calls also masking
+key j > query i::
 
     forward:  q' = q * log2(e)/sqrt(D), s = q' k^T (keys >= kv_len masked),
               p = exp2(s - rowmax(s)), out = (p v) / max(l, 1e-30),
@@ -63,11 +65,23 @@ The causal kernels skip the key tiles past a q tile's diagonal (and the q
 tiles before a key tile's) and mask only the diagonal tile: at T 1501 the
 forward computes 300 of a head's 576 tiles.
 
+K7 in bf16 (csrc/flash_attention_bf16.cu) serves bf16 callers without the
+LSE: the ADP U-Net in bench.py's bf16 recipe (the same three shapes) and
+the DiT's self-attention beyond 8192 tokens in bf16 (Stable Audio 2.0 at 392
+s: 8449 tokens padded to 8576, kv_len 8449, through the split route of
+ops/kernels/attention.py). It computes what ``_single_dot_kernel`` computes
+on bf16 inputs (q prescaled in fp32 and rounded to bf16, scores and the
+softmax in fp32, P rounded to bf16 before P.V, the output rounded once) and
+what ``_online_kernel`` computes beyond 8192 keys: both are one streaming
+loop here, the fp32 K7 likewise. Its products run on the tensor cores
+(mma.sync bf16 with fp32 accumulation).
+
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
-the kernels or raise. The CUDA kernels take fp32 and q, k and v of one
-length; K7 and K8 head dim 64 or 80, K9 head dim 64. The other variants of
-the TPU kernels (bf16, the rope-fused one, the online one beyond 8192 keys,
-K9 at D 80) are still to be ported (ROADMAP queue B).
+the kernels or raise. The CUDA kernels take q, k and v of one length; K7
+fp32 or bf16 (bf16 only without the LSE and not causal), K8 and K9 fp32;
+K7 and K8 head dim 64 or 80, K9 head dim 64. The other variants of the TPU
+kernels (bf16 K7 with its LSE, the rope-fused one, other head dims,
+rectangular calls, K9 at D 80) are still to be ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -82,6 +96,7 @@ from . import build
 # launch counts: each wrapper adds one where it launches its kernel
 forward_launches = 0   # K7 with its LSE (training)
 serving_launches = 0   # K7 without it (serving)
+serving_bf16_launches = 0  # K7 in bf16, without its LSE
 backward_launches = 0  # K9 (one dq pass and one dk/dv pass per count)
 fused_backward_launches = 0  # K8
 # the causal kernels, counted apart from the non-causal ones
@@ -229,7 +244,8 @@ FLASH_HEAD_DIMS = (64, 80)  # K7's and K8's CUDA kernels
 BACKWARD_HEAD_DIMS = (64,)  # K9's
 
 
-def _cuda_args(name: str, *tensors: torch.Tensor, head_dims=BACKWARD_HEAD_DIMS):
+def _cuda_args(name: str, *tensors: torch.Tensor, head_dims=BACKWARD_HEAD_DIMS,
+               dtype=torch.float32):
     """Checks what the kernels take; returns the tensors made contiguous."""
     q = tensors[0]
     bh, t, d = q.shape if q.dim() == 3 else (0, 0, 0)
@@ -238,16 +254,18 @@ def _cuda_args(name: str, *tensors: torch.Tensor, head_dims=BACKWARD_HEAD_DIMS):
             f"{name}: the CUDA kernel takes head dim {' or '.join(map(str, head_dims))}, got {d}; "
             f"the others are still to be ported (ROADMAP queue B)")
     for x in tensors:
-        if x.dtype != torch.float32 or x.device != q.device:
-            raise ValueError(f"{name}: the CUDA kernel takes fp32 tensors on one device, got "
-                             f"{x.dtype} on {x.device}; bf16 K7 is still to be ported "
-                             f"(ROADMAP queue B)")
+        if x.dtype != dtype or x.device != q.device:
+            raise ValueError(f"{name}: the CUDA kernel takes {dtype} tensors on one device, got "
+                             f"{x.dtype} on {x.device}")
         if tuple(x.shape) != (bh, t, d):
             raise ValueError(f"{name}: the CUDA kernel takes [B*H, T, D] tensors of one shape, got "
                              f"{tuple(x.shape)} and {tuple(q.shape)}")
     if not 1 <= bh <= 65535:
         raise ValueError(f"{name}: B*H = {bh} outside the kernel's grid [1, 65535]")
-    return [x.contiguous() for x in tensors]
+    out = [x.contiguous() for x in tensors]
+    if any(x.data_ptr() % 16 for x in out):
+        raise ValueError(f"{name}: the CUDA kernel reads 16-byte aligned tensors")
+    return out
 
 
 def _lse_delta(name: str, lse: torch.Tensor, out: torch.Tensor, do: torch.Tensor):
@@ -265,17 +283,41 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _flash_forward_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: int,
+                        save_stats: bool, causal: bool) -> torch.Tensor:
+    """K7 in bf16 on CUDA tensors: the output alone (serving)."""
+    global serving_bf16_launches
+    if save_stats or causal:
+        raise NotImplementedError(
+            "flash_forward: the bf16 CUDA kernel serves non-causal calls without the LSE; bf16 "
+            "K7 with its LSE (a bf16 training step) and causal bf16 K7 are still to be ported "
+            "(ROADMAP queue B)")
+    q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FLASH_HEAD_DIMS,
+                         dtype=torch.bfloat16)
+    bh, t, d = q.shape
+    out = torch.empty_like(q)
+    err = build.library().fsat_flash_forward_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t, valid, d,
+        LOG2E / math.sqrt(d), _stream(q.device))
+    build.check(err, "flash_forward")
+    serving_bf16_launches += 1
+    return out
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_len: tp.Optional[int] = None, save_stats: bool = True,
                   causal: bool = False):
     """K7: q, k, v [BH, T, D] -> (out [BH, T, D], lse [BH, T] fp32 or None);
     without save_stats (serving) no LSE is written; causal masks key j >
-    query i."""
+    query i. On CUDA, fp32 runs the fp32 kernel and bf16 the bf16 one
+    (serving only); another dtype raises."""
     global forward_launches, serving_launches, causal_forward_launches, causal_serving_launches
     valid = _valid_len(k.shape[1], kv_len)
     _check_causal(q, k, causal)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, kv_len, save_stats, causal)
+    if q.dtype == torch.bfloat16:
+        return _flash_forward_bf16(q, k, v, valid, save_stats, causal), None
     q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FLASH_HEAD_DIMS)
     bh, t, d = q.shape
     out = torch.empty_like(q)

@@ -7,9 +7,9 @@ sampler-step backbone calls (one CFG-doubled forward each) of a model config.
 
 The model is built from random weights (seed 0, de-zeroed) at the config's
 `sample_size`, CFG 7, with the backbone in bf16 (bench.py's recipe, the
-default) or in the model's own fp32 as the generate CLI runs it (`--dtype
-model`; Stable Audio 1.0's U-Net takes only this, its attention kernel being
-fp32). TF32 is off.
+default; Stable Audio 1.0's U-Net then casts its input at entry and runs the
+bf16 K7) or in the model's own fp32 as the generate CLI runs it (`--dtype
+model`). TF32 is off.
 Prints the wall time per step, the device kernel time per step by category
 (the port's kernels by name, GEMMs, elementwise, copies and casts, ...),
 the share of the wall the device is idle, and writes the same as JSON with
@@ -28,6 +28,7 @@ CATEGORIES = [
     ("K1 fused_qkv_rope_attention", ("pair_attention_kernelILb0", "pair_attention_kernel<false>")),
     ("K10a rope_pair_k", ("rope_pair_k",)),
     ("K7 flash_forward", ("flash_forward_kernel",)),
+    ("K7 bf16 flash_forward", ("flash_forward_bf16_kernel",)),
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "winograd", "fft")),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitK")),
     ("softmax", ("softmax",)),

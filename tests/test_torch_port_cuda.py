@@ -145,9 +145,49 @@ def test_long_attention_kernels_match_plain(gen):
 
 
 def test_attention_beyond_the_long_path_raises_on_cuda(gen):
-    qkv = _rnd(gen, 1, 8193, 3 * 64).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tattn.fused_qkv_rope_attention(qkv, rotary_freqs(8193, 32, device="cuda"), 1)
+    """Past 8192 tokens the split route runs K7 without its LSE by dtype (bf16
+    here) and matches the plain route; a head dim K7 does not take raises."""
+    qkv = _rnd(gen, 1, 8193, 3 * 2 * 64).to(torch.bfloat16)
+    f = rotary_freqs(8193, 32, device="cuda")
+    before = (tflash.serving_bf16_launches, tattn.launches, tattn.long_launches)
+    got = tattn.fused_qkv_rope_attention(qkv, f, 2, kv_len=8100)
+    assert (tflash.serving_bf16_launches, tattn.launches, tattn.long_launches) == (
+        before[0] + 1, before[1], before[2])
+    _close(got[:, :8100], tattn.fused_qkv_rope_attention_plain(qkv, f, 2, kv_len=8100)[:, :8100])
+    with pytest.raises(NotImplementedError, match="head dim"):
+        tattn.fused_qkv_rope_attention(_rnd(gen, 1, 8193, 3 * 32).to(torch.bfloat16),
+                                       rotary_freqs(8193, 32, device="cuda"), 1)
+
+
+@pytest.mark.parametrize("bh,t,d,kv", [(3, 300, 80, 290), (2, 1024, 64, None), (2, 77, 64, None),
+                                       (1, 8576, 64, 8449)])
+def test_flash_forward_bf16_matches_plain(gen, bh, t, d, kv):
+    """K7 in bf16 (serving) against its plain version: one launch of its own
+    counter, bf16 out, rel-L2 1e-2; with its LSE, or causal, it raises."""
+    q, k, v = (_rnd(gen, bh, t, d).to(torch.bfloat16) for _ in range(3))
+    before = (tflash.serving_bf16_launches, tflash.serving_launches)
+    out, lse = tflash.flash_forward(q, k, v, kv, save_stats=False)
+    assert (tflash.serving_bf16_launches, tflash.serving_launches) == (before[0] + 1, before[1])
+    assert lse is None and out.dtype == torch.bfloat16
+    _close(out, tflash.flash_forward_plain(q, k, v, kv, save_stats=False)[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        tflash.flash_forward(q, k, v, kv, save_stats=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        tflash.flash_forward(q, q, q, save_stats=False, causal=True)
+
+
+def test_bf16_conv_transpose_at_the_dac_widths(gen):
+    """The bf16 K4 at Cout % 128 != 0 (the DAC decoder's 384 -> 192 and
+    192 -> 96 upsamples) against its plain version."""
+    for cin, cout in ((384, 192), (192, 96)):
+        x = _rnd(gen, 1, 333, cin, scale=0.5).to(torch.bfloat16)
+        wt = _rnd(gen, 8, cin, cout, scale=1 / (2 * cin) ** 0.5)
+        bias = _rnd(gen, cout, scale=0.1)
+        before = tconv.snake_conv_transpose1d_launches
+        got = tconv.snake_conv_transpose1d(x, wt, bias, stride=4)
+        assert tconv.snake_conv_transpose1d_launches == before + 1
+        assert got.shape == (1, 333 * 4, cout)
+        _close(got, tconv.snake_conv_transpose1d_plain(x, wt, bias, stride=4), 2e-3)
 
 
 def test_flash_kernels_match_plain_in_fp32(gen):
