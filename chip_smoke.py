@@ -22,15 +22,18 @@ Phases (any failure raises and the script exits non-zero):
    2,097,152 samples, SA 2.0's of 12,582,912) plus small ragged shapes,
    with max-abs and rel-L2 errors against a stated tolerance, both times,
    the least time the card could take (bound) and one PyTorch library
-   call's time where one computes the same function;
+   call's time where one computes the same function; K1 (its K10a launch
+   included) per call beside its earlier row (`EARLIER_MS`);
    3b. the training attention kernels K5 (forward with LSE) and K6
    (backward) against their plain versions at the training shape (B 8,
-   T 1040, kv_len 1025, 24 heads) and three smaller ones;
+   T 1040, kv_len 1025, 24 heads) and three smaller ones; K6 twice on the
+   same inputs (its dq sums through reduce-adds in a varying order: the two
+   runs within rel-L2 K6_RUN_TO_RUN); each per call beside its earlier row;
    3c. K2 and K3 at the frozen encoder's shapes, SAO 1.0's and SA 2.0's
    sample sizes (the encode runs one clip at a time, `iterate_batch`);
    3d. the long-sequence attention kernels K10a (rope K once) and K10
    against their plain versions at SA 2.0's shape (B 2, T 6272, kv_len 6145,
-   24 heads) and three smaller ragged ones;
+   24 heads) and three smaller ragged ones, each beside its earlier row;
    3e. the fp32 training attention kernels K7 (forward with LSE) and K9
    (two-pass backward) against their plain versions at SA 2.0's training
    shape (B 8 x 24 heads, T 6272, kv_len 6145) and two smaller ragged ones;
@@ -82,7 +85,10 @@ Phases (any failure raises and the script exits non-zero):
    recipe, then
    `generate_diffusion_cond` for one prompt, 100 dpmpp-3m-sde steps, CFG 7,
    2,097,152 stereo samples; output shape, finiteness and RMS are checked,
-   and the kernels' launch counts show that the path ran through them;
+   and the kernels' launch counts show that the path ran through them (K1
+   2400 and K10a 2400: K1 reads k roped once per call); then
+   `profile_generation.profile_backbone` on one CFG step of the same model
+   (device-busy share, K1's share of the device time);
 6. one training step of the fp32 DiT at batch 8 with the attention kernels,
    with their plain versions in bf16, and with fp32 plain attention as the
    reference: loss and weight gradients of layers 0, 11 and 23;
@@ -187,6 +193,9 @@ Phases (any failure raises and the script exits non-zero):
    launch counts (K11 and K12 4,800 each on, 0 off); then the wall of one
    DiT call (a denoising step's) on and off in turns and a profiled window
    of each (device busy share, K11 + K12's device time).
+
+[5], [7], [8] and [14] also print their earlier end-to-end figures
+(`EARLIER_E2E`) beside this run's, with the card's name and power limit.
 
 Output: progress lines with each phase's wall, then one JSON line of
 per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
@@ -356,6 +365,24 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32_ACCURATE = 495e12 / 3
 PEAK_FP32_CORES = 66.9e12
 LSE_ATOL = 2e-3
+# K6 against itself on the same inputs: dq's key-block partials are summed
+# by reduce-adds in whatever order the blocks finish (fp32 rounding only)
+K6_RUN_TO_RUN = 1e-6
+# the redesigned head-pair kernels' per-call times at their main-path shapes
+# before the wgmma/TMA redesign (PERF.md §6's earlier rows, NVIDIA H100 80GB
+# HBM3, 700 W): printed beside this run's
+EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stats": 1.7254,
+              "fused_qkv_rope_attention_backward": 6.7221, "rope_pair_k": 0.0792,
+              "pair_long_attention": 6.4190}
+# the end-to-end figures of the phases the redesign moves, from earlier runs
+# (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W): printed beside this run's
+EARLIER_E2E = {
+    "[5]": "16.686 s-audio/s",
+    "[8]": "12.719 s-audio/s, 219.6 ms per step",
+    "[14]": "30.190 and 44.867 ms per step with fused_ew, 33.171 and 41.281 without (two "
+            "runs); one DiT call's device time 22.771 ms, K1 10.949 ms of it",
+    "[7]": "4.2910 s per step at 24 layers; not recorded at 6 layers",
+}
 FLASH_LSE_ATOL = 1e-4
 # SA 2.0 training step with K7/K9 against the fp32 plain versions: the loss
 # to 1e-5 relative, each watched gradient to rel-L2 1e-4 (fp32 both sides)
@@ -450,6 +477,8 @@ def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain
         f"{'main-path' if main_path else 'extra'} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label} disagrees with its plain version")
+    if main_path and name in EARLIER_MS:
+        log_against_earlier(name, ms, bound, lib_ms)
     r = results[name]
     if main_path:
         w = r["weight"].get(label, 1)
@@ -551,6 +580,21 @@ def segmented(fn, x, halo, up=1, seg=1 << 21):
         y = fn(x[:, lo:hi])
         outs.append(y[:, (s0 - lo) * up:(min(t, s0 + seg) - lo) * up])
     return torch.cat(outs, dim=1)
+
+
+def log_earlier_e2e(phase, extra=""):
+    """A phase's earlier end-to-end figure, beside this run's (logged above)."""
+    log(f"  {phase} earlier: {EARLIER_E2E[phase]}{extra}; this run's figures above, card "
+        f"{smi_line()}")
+
+
+def log_against_earlier(name, ms, bound, lib_ms):
+    """One kernel's per-call time at its main-path shape beside its earlier
+    row, its bound and the library call's time."""
+    was = EARLIER_MS[name]
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"  {name} per call at its main-path shape: {ms:.4f} ms (was {was:.4f} ms before the "
+        f"redesign, {was / ms:.2f}x), bound {bound[0]:.4f} ms ({bound[1]}), library {lib}")
 
 
 def attention_bound(b, h, valid, products, in_tensors, out_tensors):
@@ -775,6 +819,8 @@ def attention_train_phase(results):
                                                                      dtype=torch.float32)
 
         d, d_p = k6(), k6_plain()
+        torch.cuda.synchronize()
+        again = rel_err(k6(), d)  # the same inputs: dq's reduce-adds land in another order
         hd = h * 64
         thirds = " ".join(f"{n} {rel_err(d[..., i * hd:(i + 1) * hd], d_p[..., i * hd:(i + 1) * hd]):.3g}"
                           for i, n in enumerate("qkv"))
@@ -784,9 +830,10 @@ def attention_train_phase(results):
         o = sdpa(q, k, v)
         g = go.view(b, t, h, 64).transpose(1, 2)
         lib_ms = timed_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 3)
-        report(results, bwd, label, main, ok, max_abs, rel_l2, peak, timed_ms(k6, 3),
-               timed_ms(k6_plain, 3), lib_ms, bound=bound,
-               extra=f" (rel-L2 of dq/dk/dv: {thirds})")
+        report(results, bwd, label, main, ok and again <= K6_RUN_TO_RUN, max_abs, rel_l2, peak,
+               timed_ms(k6, 3), timed_ms(k6_plain, 3), lib_ms, bound=bound,
+               extra=f" (rel-L2 of dq/dk/dv: {thirds}; two runs on the same inputs: rel-L2 "
+                     f"{again:.3g}, tol {K6_RUN_TO_RUN})")
         del q, k, v, o
     for name, calls in ((fwd, 2 * 24), (bwd, 24)):
         r = results[name]
@@ -1207,10 +1254,6 @@ def long_attention_phase(results):
             lambda: attention.pair_long_attention_plain(qkv, khat, f, h, kv),
             library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
             bound=attention_bound(b, h, valid, 2, [*qv, khat], [khat]))
-        if main:  # what roping K once buys: K1's kernel on the same inputs
-            k1_ms = timed_ms(lambda: attention._launch_forward(qkv, f, h, valid, False), 3)
-            log(f"  K1's kernel (each key tile roped once per q tile) on the same inputs: "
-                f"{k1_ms:.4f} ms")
         del qkv, khat, q, k, v
     for name in ("rope_pair_k", "pair_long_attention"):
         r = results[name]
@@ -2021,9 +2064,10 @@ def dit_train_step_phase(config, tmp):
     if not (finite and loss_ok and err_k <= DIT_ERR_RATIO * err_p):
         raise AssertionError("the DiT training step with the kernels disagrees with the plain versions")
     if (counts["fused_qkv_rope_attention_stats"] != 2 * depth
-            or counts["fused_qkv_rope_attention_backward"] != depth):
-        raise AssertionError(f"one checkpointed step should launch K5 {2 * depth} and K6 {depth} "
-                             f"times: {counts}")
+            or counts["fused_qkv_rope_attention_backward"] != depth
+            or counts["rope_pair_k"] != 4 * depth):
+        raise AssertionError(f"one checkpointed step should launch K5 {2 * depth}, K6 {depth} and "
+                             f"K10a {4 * depth} times: {counts}")
     return dit_path
 
 
@@ -2191,7 +2235,8 @@ def launches_per_step(config, route):
     """What one training step launches: each of the DiT's blocks runs the
     route's forward kernel once, and once more when the checkpointed block
     is recomputed for the backward, and its backward kernel once (route
-    "pair": K5 and K6; "flash": K7 and K9); each call of the frozen fp32
+    "pair": K5 and K6, with K10a once per K5 for k^ and twice per K6 for q^
+    and k^; "flash": K7 and K9); each call of the frozen fp32
     encode (one per clip, iterate_batch) runs the fp32 K2 twice (conv_in,
     conv_out) and the fp32 K3 once per residual unit (3 in each encoder
     block); nothing else."""
@@ -2203,6 +2248,8 @@ def launches_per_step(config, route):
     per_step = {name: 0 for name in KERNELS}
     per_step.update({fwd: 2 * depth, bwd: depth, "snake_conv1d_f32": 2 * calls,
                      "fused_residual_unit_f32": n_units * calls})
+    if route == "pair":  # K10a: k^ for each K5; q^ and k^ for each K6
+        per_step["rope_pair_k"] = 2 * depth + 2 * depth
     return per_step
 
 
@@ -2716,6 +2763,26 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
     return launches, audio, seconds / total
 
 
+def profile_sao_step(model, config):
+    """One SAO bf16 denoising step's backbone call under torch.profiler
+    (profile_generation.profile_backbone, 3 calls): the device-busy share of
+    the wall and K1's share of the device time (the pair attention kernel
+    and its K10a rope), to say whether the host sets the step's pace."""
+    from friendly_stable_audio_tools_tpu_torch.profile_generation import profile_backbone
+
+    prof = profile_backbone(model, config, steps=3, cfg_scale=CFG_SCALE)
+    cats = prof["by_category_ms"]
+    device = prof["device_ms_per_step"]
+    k1 = cats.get("K1/K5/K10 pair attention", 0.0) + cats.get("K10a rope_pair", 0.0)
+    log(f"  profiled SAO bf16 step (one CFG backbone call, mean of 3): wall "
+        f"{prof['wall_ms_per_step']:.3f} ms, device busy {device:.3f} ms "
+        f"({100 * (1 - prof['idle_share']):.1f}% of the wall); K1 + its K10a {k1:.3f} ms = "
+        f"{100 * k1 / device:.1f}% of the device time; by category "
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in list(cats.items())[:6]) + f"; card {smi_line()}")
+    if device <= 0 or k1 <= 0:
+        raise AssertionError("the profiled SAO step shows no device time in K1")
+
+
 def bench_recipe(model):
     """bench.py's bf16 recipe (bench.py:67, 157-159): the DiT's and the
     VAE's weights in bf16, the VAE computing in bf16 (`model_half`). The
@@ -2824,7 +2891,8 @@ def adaln_step_phase(model):
     for on in (True, False):
         want = {name: 0 for name in KERNELS}
         want.update(ln_modulate=2 * layers if on else 0, gated_residual=2 * layers if on else 0,
-                    fused_qkv_rope_attention_stats=layers, fused_qkv_rope_attention_backward=layers)
+                    fused_qkv_rope_attention_stats=layers, fused_qkv_rope_attention_backward=layers,
+                    rope_pair_k=3 * layers)
         if counts[on] != want:
             raise AssertionError(f"one adaLN DiT step should launch {want}: {counts[on]}")
     return counts[True], counts[False]
@@ -2845,7 +2913,8 @@ def adaln_generation_phase(model, config):
         launches[on], audio[on], _ = generation_phase(
             model, config, PROMPT, SAMPLE_SIZE,
             expected={"ln_modulate": n, "gated_residual": n,
-                      "fused_qkv_rope_attention": ADALN_LAYERS * STEPS, "rope_pair_k": 0,
+                      "fused_qkv_rope_attention": ADALN_LAYERS * STEPS,
+                      "rope_pair_k": ADALN_LAYERS * STEPS,
                       "pair_long_attention": 0, "fused_residual_unit": 15,
                       "snake_conv_transpose1d": 5, **NO_TRAINING},
             min_counts={"snake_conv1d": 2})
@@ -3027,10 +3096,10 @@ def new_results():
             route="cuda", source=src + "attention.cu", replaces=tpu + "flash_attention.py:828",
             per="SAO 1.0 generation step (24 calls at B2 T1025)"),
         "rope_pair_k": dict(
-            route="cuda", source=src + "attention_long.cu", replaces=tpu + "flash_attention.py:1229",
+            route="cuda", source=src + "attention_rope.cu", replaces=tpu + "flash_attention.py:1229",
             per=f"SA 2.0 generation step (24 calls at B2 T{LONG_T})"),
         "pair_long_attention": dict(
-            route="cuda", source=src + "attention_long.cu", replaces=tpu + "flash_attention.py:1233",
+            route="cuda", source=src + "attention.cu", replaces=tpu + "flash_attention.py:1233",
             per=f"SA 2.0 generation step (24 calls at B2 T{LONG_T} kv_len {LONG_KV})"),
         "fused_qkv_rope_attention_stats": dict(
             route="cuda", source=src + "attention.cu", replaces=tpu + "flash_attention.py:980",
@@ -3243,10 +3312,13 @@ def main():
         "bf16 recipe")
     launches, _, _ = generation_phase(
         model, config, PROMPT, SAMPLE_SIZE,
-        expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 0, "pair_long_attention": 0,
+        expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 24 * STEPS,
+                  "pair_long_attention": 0,
                   "fused_residual_unit": 15, "snake_conv_transpose1d": 5, "ln_modulate": 0,
                   "gated_residual": 0, **NO_TRAINING},
         min_counts={"snake_conv1d": 2})
+    profile_sao_step(model, config)
+    log_earlier_e2e("[5]")
     del model
     torch.cuda.empty_cache()
     done("[5]")
@@ -3269,6 +3341,11 @@ def main():
             f"{TRAIN_BATCH}, {TRAIN_STEPS} steps from {N_WAVS} synthetic {WAV_SECONDS} s WAVs, "
             f"checkpoint, resume for one more step")
         counts_train, counts_resume = training_phase(train_config, tmp, dit_path)
+    k5, k6 = "fused_qkv_rope_attention_stats", "fused_qkv_rope_attention_backward"
+    was = 48 * EARLIER_MS[k5] + 24 * EARLIER_MS[k6]
+    log_earlier_e2e("[7]", f"; K5 + K6 per 24-layer step (48 + 24 calls) "
+                           f"{results[k5]['ms'] + results[k6]['ms']:.2f} ms in this run's [3b], "
+                           f"{was:.1f} ms from the earlier per-call rows")
     done("[7]")
 
     log(f"[15b] SA 2.0's DiT past 8192 tokens: {SA2_XL_SAMPLE_SIZE // 2048} latent frames (T "
@@ -3289,6 +3366,7 @@ def main():
                   "snake_conv_transpose1d": 5, "ln_modulate": 0, "gated_residual": 0,
                   **NO_TRAINING},
         min_counts={"snake_conv1d": 2})
+    log_earlier_e2e("[8]")
     del model
     torch.cuda.empty_cache()
     done("[8]")
@@ -3338,7 +3416,8 @@ def main():
     log(f"[10b] the repaired dtype: the generate CLI on stable_audio_open_1_0.json in fp32 (K1 on "
         f"bf16 casts of the fp32 qkv, the fp32 K2/K3/K4 in the decode)")
     launches_fp32, _ = cli_generation_phase(
-        SAO_CONFIG, PROMPT, {"fused_qkv_rope_attention": 24 * STEPS, "snake_conv1d_f32": 2,
+        SAO_CONFIG, PROMPT, {"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 24 * STEPS,
+                             "snake_conv1d_f32": 2,
                              "fused_residual_unit_f32": 15, "snake_conv_transpose1d_f32": 5})
     torch.cuda.empty_cache()
     done("[10b]")
@@ -3394,6 +3473,7 @@ def main():
     log(f"[14] adaLN text-to-audio: create_model_from_config(..., fused_ew=True), {STEPS} "
         f"dpmpp-3m-sde steps, CFG {CFG_SCALE}, bench.py's bf16 recipe; fused_ew on, then off")
     counts_adaln, counts_adaln_off = adaln_generation_phase(model, config)
+    log_earlier_e2e("[14]")
     del model
     torch.cuda.empty_cache()
     done("[14]")

@@ -1,72 +1,263 @@
-// Tile helpers shared by the attention kernels (attention.cu: K1/K5,
-// attention_bwd.cu: K6). Tiles are 64 rows x 64 head dims of bf16 in shared
-// memory with a padded row stride, read from the fused qkv tensor (or a
-// [B, T, H*64] tensor) in place with the tensor's row stride.
+// Hopper building blocks of the head-pair attention kernels (attention.cu:
+// K1/K5/K10, attention_bwd.cu: K6): TMA loads into mbarrier-guarded shared
+// memory, warpgroup matrix products (wgmma) on 128B-swizzled bf16 tiles, the
+// bulk reduce-add of an fp32 tile into device memory, and the host-side
+// tensor maps. Every tile row is one head's 64 bf16 dims: 128 bytes, exactly
+// one row of the 128-byte swizzle, so a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the layout wgmma reads.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encode is reached through the runtime
 
 #include "common.cuh"
 
 namespace fsat_attn {
 
-constexpr int kD = 64;     // head dim
-constexpr int kTile = 64;  // rows per tile (q rows or keys)
-constexpr int kWarps = 4;  // 16 tile rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = 72;    // bf16 tile row stride: keeps 16-row fragments 32-byte aligned
-constexpr int kSld = 68;   // fp32 scratch row stride
+constexpr int kD = 64;          // head dim
+constexpr int kRowBytes = 128;  // one head's row of bf16: one 128B swizzle row
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Copies rows [r0, r0 + 64) of the 64-wide column block starting at `col`
-// into dst [64][kLd]; rows at or beyond `limit` are zero.
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ base, size_t row_stride,
-                                           int col, int r0, int limit, bf16* dst) {
-  for (int i = threadIdx.x; i < kTile * 8; i += kThreads) {
-    const int r = i >> 3, seg = i & 7;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      v = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * row_stride + col + seg * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + seg * 8) = v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of the 16-byte chunk `chunk` of row `row` in a 128B-swizzled
+// tile whose base is 1024-byte aligned (what TMA's SWIZZLE_128B writes).
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A wait of 2^26
+// polls (seconds) means a fault in the pipeline: it traps, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) asm volatile("trap;\n");
   }
 }
 
-// dst = bf16(x*C + rotate_half(x)*S) in fp32, C/S = scale * cos/sin over the
-// first `rot` dims and (scale, 0) beyond them (the tables of
-// flash_attention.py:_rope_tables, rotate-half sign convention :730-734).
-__device__ __forceinline__ void rope_tile(const bf16* __restrict__ src, bf16* __restrict__ dst,
-                                          const float* __restrict__ cos_t,
-                                          const float* __restrict__ sin_t, int r0, int T,
-                                          int rot, float scale) {
-  const int half = rot >> 1;
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
-    const int r = i >> 6, d = i & (kD - 1), t = r0 + r;
-    const float x = __bfloat162float(src[r * kLd + d]);
-    float y;
-    if (t < T && d < rot) {
-      const float c = cos_t[(size_t)t * rot + d] * scale;
-      const float s = sin_t[(size_t)t * rot + d] * scale;
-      const float partner = d < half ? -__bfloat162float(src[r * kLd + d + half])
-                                     : __bfloat162float(src[r * kLd + d - half]);
-      y = x * c + partner * s;
-    } else {
-      y = x * scale;
-    }
-    dst[r * kLd + d] = __float2bfloat16_rn(y);
-  }
+// Makes this thread's generic-proxy shared-memory writes visible to the async
+// proxy (wgmma operands, bulk copies); a barrier must follow before the reader.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Transpose (vjp) of the rope above at position t, scale 1, for dim d of an
-// fp32 row dy: dx = dy*C + (dy*S) P^T, i.e. dy[d]*cos[d] + dy[d+h]*sin[d+h]
-// for d < h = rot/2, dy[d]*cos[d] - dy[d-h]*sin[d-h] for h <= d < rot, and
-// dy[d] beyond rot (flash_attention.py:1084-1099).
-__device__ __forceinline__ float unrope_at(const float* __restrict__ dy, int d,
-                                           const float* __restrict__ cos_t,
-                                           const float* __restrict__ sin_t, int t, int rot) {
-  if (d >= rot) return dy[d];
-  const int half = rot >> 1;
-  const float* c = cos_t + (size_t)t * rot;
-  const float* s = sin_t + (size_t)t * rot;
-  const float partner = d < half ? dy[d + half] * s[d + half] : -dy[d - half] * s[d - half];
-  return dy[d] * c[d] + partner;
+// 2^x on the special-function unit (ex2.approx.ftz: 2 ulp; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bar.sync on named barrier `id` (1..15; 0 is __syncthreads) over n threads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// Box (c0, c1, c2) of a 3-D tensor map into dst, completion counted on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// dst[i] += src[i] for `bytes` / 4 floats, shared -> global, asynchronously.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed bulk groups still read their shared source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until every committed bulk group has completed its writes.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128B-swizzled tile at `addr`
+// (1024-byte aligned atoms; a K-major operand may start 32*j bytes into its
+// atom to take the j-th 16-deep slice). K-major: 8-row groups `sbo` apart,
+// `lbo` unused. MN-major: an atom is 8 K-rows of 64 MN elements; K groups of
+// 8 rows `sbo` apart, MN atoms `lbo` apart (one atom at MN 64, so any value).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major tile of 64-dim rows: 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// MN-major tile (rows along K, 64 MN elements per row).
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma (from its start to its wait).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define FSAT_WGMMA_D32                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FSAT_WGMMA_OUT32(d)                                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= A B, m64n64k16, bf16 operands from shared memory, fp32 d. d's layout
+// per warp w of the warpgroup and lane l (g = l / 4, t = l % 4): d[4j + e] is
+// row 16w + g + 8 (e / 2), column 8j + 2t + (e % 2).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FSAT_WGMMA_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : FSAT_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d += A B, m64n64k16, A from registers (a[0..3]: rows g / g + 8, columns
+// 2t, 2t + 1 / 2t + 8, 2t + 9, two bf16 each: the layout of d above, so a
+// fp32 accumulator becomes an A operand by packing pairs), B from shared memory.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FSAT_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : FSAT_WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half: the lower column
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A operand of k-slice j (columns 16j .. 16j + 15) of an m64n64 fp32
+// accumulator, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(const float (&d)[32], int j, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(d[8 * j + 0], d[8 * j + 1]);
+  a[1] = pack_bf16(d[8 * j + 2], d[8 * j + 3]);
+  a[2] = pack_bf16(d[8 * j + 4], d[8 * j + 5]);
+  a[3] = pack_bf16(d[8 * j + 6], d[8 * j + 7]);
+}
+
+// ---- host: tensor maps --------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A map over a [B, T, C] bf16 tensor whose boxes are `box_rows` rows of one
+// head's 64 columns, 128B-swizzled: coordinates (column, t, b); rows at or
+// past T read as zeros, and no box crosses into the next batch.
+inline cudaError_t head_rows_map(CUtensorMap* map, const void* base, int C, int T, int B,
+                                 int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kD, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Rounds a dynamic shared-memory base up to 1024 bytes (the swizzle atom).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
 }
 
 }  // namespace fsat_attn

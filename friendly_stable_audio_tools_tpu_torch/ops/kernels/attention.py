@@ -56,22 +56,20 @@ per head, with ``q^``/``k^`` the rounded roped operands and
 What bounds them on the H100: at the SAO shapes each call is tens of GFLOP
 of score and P.V products over a few MB of input, so they are bound by
 tensor-core work and by how much of it the softmax's serial dependence
-leaves idle. The kernels (csrc/attention.cu, csrc/attention_bwd.cu) give one
-block a 64-row tile of one head and stream 64-row tiles of the other operand
-(roped as they are loaded) through WMMA bf16 products, so the T x T score
-matrix never exists in device memory; q, k and v are read with the qkv row
-stride rather than copied out, and ragged tiles are masked in-kernel. K6
-splits as FlashAttention-2 does (a key-tile pass for dk/dv, a q-tile pass
-for dq) because the TPU kernel's resident whole-sequence dk/dv accumulators
-do not fit a Hopper block's shared memory.
-
-K10 (csrc/attention_long.cu) at B2 T6272 kv_len 6145 H24 is ~464 GFLOP of
-score and P.V products (6145 valid rows x 6145 keys) over ~190 MB in and
-out: tensor-core bound, ~0.47 ms at 989 TFLOP/s. The TPU kernel holds a head pair's whole roped K in VMEM
-(1.6 MB) for one whole-K score dot per head; a Hopper block cannot, so K10 is
-K1's streaming kernel reading keys already roped, and K10a (memory bound, 2 x
-38.5 MB, ~23 us at 3.35 TB/s) ropes K once per call into a bf16 [B, T, H*D]
-buffer, where K1 would rope each key tile again for each of the 98 q tiles.
+leaves idle; K10 at B2 T6272 kv_len 6145 H24 is ~464 GFLOP (~0.47 ms at
+989 TFLOP/s). K1, K5 and K10 are one kernel (csrc/attention.cu): K10a
+(csrc/attention_rope.cu, memory bound) ropes K once per call into a bf16
+``khat [B, T, H*D]``; the kernel ropes its q tile once, streams K/V tiles
+by TMA into an mbarrier-guarded ring, and runs both products on wgmma with
+S, P and O in registers, so the T x T score matrix never exists in device
+memory and ragged tiles are masked in-kernel. K6 (csrc/attention_bwd.cu)
+reads q^ and k^ from K10a and, after a small pass for delta = rowsum(dO*O),
+makes one pass per 128-key block, dK and dV in wgmma accumulators, q^/dO
+tiles streamed by TMA, dq summed in an fp32 scratch by bulk reduce-adds and
+unroped once by a last small pass (its order of summation, and so its last
+bits, change from run to run). The TPU
+kernels hold a head pair's whole K or dk/dv in VMEM; a Hopper block's 227 KB
+cannot, hence the streaming loops.
 
 The plain versions below run for CPU tensors (the CPU tests); CUDA tensors
 launch the kernels or raise. The pair kernels take bf16. Without grad, the
@@ -102,7 +100,7 @@ launches = 0  # K1
 rope_k_launches = 0  # K10a
 long_launches = 0  # K10
 stats_launches = 0  # K5
-backward_launches = 0  # K6 (one dk/dv pass and one dq pass per count)
+backward_launches = 0  # K6 (its delta, key-block and dq passes per count)
 
 LOG2E = 1.4426950408889634
 PAIR_MAX_T = 2048  # K1's limit (flash_attention.py:1413)
@@ -245,6 +243,16 @@ def rope_pair_k_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) ->
     return apply_rotary_pos_emb(k, freqs).transpose(1, 2).reshape(b, t, hd).to(qkv.dtype)
 
 
+def rope_pair_q_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K10a's plain version for q (what K6 reads): q of qkv roped in fp32,
+    prescaled by log2(e)/sqrt(D) and rounded to qkv's dtype -> [B, T, H*D]."""
+    b, t, three_hd = qkv.shape
+    hd = three_hd // 3
+    q = _heads(qkv[..., :hd], num_heads)
+    q = apply_rotary_pos_emb(q, freqs) * (LOG2E / math.sqrt(hd // num_heads))
+    return q.transpose(1, 2).reshape(b, t, hd).to(qkv.dtype)
+
+
 def pair_long_attention_plain(qkv: torch.Tensor, khat: torch.Tensor, freqs: torch.Tensor,
                               num_heads: int, kv_len: tp.Optional[int] = None) -> torch.Tensor:
     """K10's plain version: q of qkv roped and prescaled by log2(e)/sqrt(D),
@@ -301,20 +309,43 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_forward(qkv, freqs, num_heads, valid, with_lse: bool):
-    name = "fused_qkv_rope_attention" + ("_stats" if with_lse else "")
-    b, t, _ = qkv.shape
-    d, rot, cos, sin = _cuda_inputs(name, qkv, freqs, num_heads)
-    qkv = qkv.contiguous()
-    out = torch.empty(b, t, num_heads * d, device=qkv.device, dtype=qkv.dtype)
+def _rope_launch(qkv, cos, sin, num_heads, part: int, scale: float) -> torch.Tensor:
+    """K10a on a checked contiguous bf16 qkv: the roped third `part` (0 q, 1 k)
+    times `scale` -> [B, T, H*64]."""
+    global rope_k_launches
+    b, t, three_hd = qkv.shape
+    dst = torch.empty(b, t, three_hd // 3, device=qkv.device, dtype=qkv.dtype)
+    err = build.library().fsat_rope_pair(qkv.data_ptr(), part, cos.data_ptr(), sin.data_ptr(),
+                                         dst.data_ptr(), b, t, num_heads, cos.shape[-1], scale,
+                                         _stream(qkv.device))
+    build.check(err, "rope_pair")
+    rope_k_launches += 1
+    return dst
+
+
+def _attention_launch(name, qkv, khat, cos, sin, num_heads, valid, with_lse: bool):
+    """The forward kernel of K1, K5 and K10 on checked contiguous inputs ->
+    (out [B, T, H*64] bf16, lse [B, H, T] fp32 or None)."""
+    b, t, three_hd = qkv.shape
+    hd = three_hd // 3
+    out = torch.empty(b, t, hd, device=qkv.device, dtype=qkv.dtype)
     lse = (torch.empty(b, num_heads, t, device=qkv.device, dtype=torch.float32)
            if with_lse else None)
-    err = build.library().fsat_fused_qkv_rope_attention(
-        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, t, num_heads, rot, valid,
-        LOG2E / math.sqrt(d), _stream(qkv.device))
+    err = build.library().fsat_pair_attention(
+        qkv.data_ptr(), khat.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, t, num_heads, cos.shape[-1], valid,
+        LOG2E / math.sqrt(hd // num_heads), _stream(qkv.device))
     build.check(err, name)
     return out, lse
+
+
+def _launch_forward(qkv, freqs, num_heads, valid, with_lse: bool):
+    """K1 (with_lse False) or K5: K10a ropes k once, then the forward kernel."""
+    name = "fused_qkv_rope_attention" + ("_stats" if with_lse else "")
+    _, _, cos, sin = _cuda_inputs(name, qkv, freqs, num_heads)
+    qkv = qkv.contiguous()
+    khat = _rope_launch(qkv, cos, sin, num_heads, 1, 1.0)
+    return _attention_launch(name, qkv, khat, cos, sin, num_heads, valid, with_lse)
 
 
 def fused_qkv_rope_attention_stats(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
@@ -346,17 +377,21 @@ def fused_qkv_rope_attention_backward(qkv: torch.Tensor, out: torch.Tensor, lse:
         if x.device != qkv.device:
             raise ValueError(f"fused_qkv_rope_attention_backward: {name} must be on {qkv.device}")
     qkv = qkv.contiguous()
+    qhat = _rope_launch(qkv, cos, sin, num_heads, 0, LOG2E / math.sqrt(d))
+    khat = _rope_launch(qkv, cos, sin, num_heads, 1, 1.0)
     do = grad_out.to(torch.bfloat16).contiguous()
-    # FA2's D = rowsum(dO * O) per head, in fp32 beside the kernel (as the
-    # JAX package computes it in XLA, flash_attention.py:1153-1158)
-    delta = (_heads(do, num_heads) * _heads(out.to(torch.bfloat16), num_heads)).sum(-1)
-    delta = delta.contiguous()
+    o = out.to(torch.bfloat16).contiguous()
     lse = lse.float().contiguous()
+    # scratch: FA2's D = rowsum(dO * O) per head (fp32, the kernel's first
+    # pass), and dq's fp32 sum over the key blocks [B, H, T rounded up to 64, 64]
+    delta = torch.empty(b, num_heads, t, device=qkv.device, dtype=torch.float32)
+    dq_acc = torch.zeros(b, num_heads, (t + 63) // 64 * 64, d, device=qkv.device,
+                         dtype=torch.float32)
     dqkv = torch.empty(qkv.shape, device=qkv.device, dtype=torch.float32)
-    err = build.library().fsat_fused_qkv_rope_attention_bwd(
-        qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), dqkv.data_ptr(), b, t, num_heads, rot, valid, LOG2E / math.sqrt(d),
-        1.0 / math.sqrt(d), _stream(qkv.device))
+    err = build.library().fsat_pair_attention_bwd(
+        qhat.data_ptr(), khat.data_ptr(), qkv.data_ptr(), do.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), cos.data_ptr(), sin.data_ptr(), dq_acc.data_ptr(),
+        dqkv.data_ptr(), b, t, num_heads, rot, valid, 1.0 / math.sqrt(d), _stream(qkv.device))
     backward_launches += 1
     build.check(err, "fused_qkv_rope_attention_backward")
     return dqkv.to(dtype or qkv.dtype)
@@ -364,19 +399,10 @@ def fused_qkv_rope_attention_backward(qkv: torch.Tensor, out: torch.Tensor, lse:
 
 def rope_pair_k(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) -> torch.Tensor:
     """K10a: k of qkv [B, T, 3*H*D] roped once -> khat [B, T, H*D] in qkv's dtype."""
-    global rope_k_launches
     if qkv.device.type == "cpu":
         return rope_pair_k_plain(qkv, freqs, num_heads)
-    b, t, _ = qkv.shape
-    d, rot, cos, sin = _cuda_inputs("rope_pair_k", qkv, freqs, num_heads)
-    qkv = qkv.contiguous()
-    khat = torch.empty(b, t, num_heads * d, device=qkv.device, dtype=qkv.dtype)
-    err = build.library().fsat_rope_pair_k(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                                           khat.data_ptr(), b, t, num_heads, rot,
-                                           _stream(qkv.device))
-    build.check(err, "rope_pair_k")
-    rope_k_launches += 1
-    return khat
+    _, _, cos, sin = _cuda_inputs("rope_pair_k", qkv, freqs, num_heads)
+    return _rope_launch(qkv.contiguous(), cos, sin, num_heads, 1, 1.0)
 
 
 def pair_long_attention(qkv: torch.Tensor, khat: torch.Tensor, freqs: torch.Tensor,
@@ -390,15 +416,11 @@ def pair_long_attention(qkv: torch.Tensor, khat: torch.Tensor, freqs: torch.Tens
                          f"{tuple(qkv.shape)}")
     if qkv.device.type == "cpu":
         return pair_long_attention_plain(qkv, khat, freqs, num_heads, kv_len)
-    d, rot, cos, sin = _cuda_inputs("pair_long_attention", qkv, freqs, num_heads)
+    _, _, cos, sin = _cuda_inputs("pair_long_attention", qkv, freqs, num_heads)
     if khat.device != qkv.device or khat.dtype != qkv.dtype:
         raise ValueError("pair_long_attention: khat must be bf16 on the qkv device")
-    qkv, khat = qkv.contiguous(), khat.contiguous()
-    out = torch.empty(b, t, num_heads * d, device=qkv.device, dtype=qkv.dtype)
-    err = build.library().fsat_pair_long_attention(
-        qkv.data_ptr(), khat.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, t,
-        num_heads, rot, valid, LOG2E / math.sqrt(d), _stream(qkv.device))
-    build.check(err, "pair_long_attention")
+    out, _ = _attention_launch("pair_long_attention", qkv.contiguous(), khat.contiguous(), cos,
+                               sin, num_heads, valid, with_lse=False)
     long_launches += 1
     return out
 

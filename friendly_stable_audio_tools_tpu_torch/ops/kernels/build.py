@@ -35,11 +35,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (all return an int cudaError_t)
 SIGNATURES = {
-    "fsat_fused_qkv_rope_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "fsat_fused_qkv_rope_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                          _P],
-    "fsat_rope_pair_k": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fsat_pair_long_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fsat_pair_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fsat_pair_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _P],
+    "fsat_rope_pair": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fsat_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fsat_flash_forward_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fsat_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],

@@ -14,6 +14,8 @@ Prints the wall time per step, the device kernel time per step by category
 (the port's kernels by name, GEMMs, elementwise, copies and casts, ...),
 the share of the wall the device is idle, and writes the same as JSON with
 the ten largest kernels by name. Needs a CUDA device.
+:func:`profile_backbone` does the same for a model already built (chip_smoke
+[5] profiles the SAO bf16 step with it).
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ import time
 
 # (category, substrings of the kernel name); the first match wins
 CATEGORIES = [
-    ("K10 pair_long_attention", ("pair_attention_kernelILb1", "pair_attention_kernel<true>")),
-    ("K1 fused_qkv_rope_attention", ("pair_attention_kernelILb0", "pair_attention_kernel<false>")),
-    ("K10a rope_pair_k", ("rope_pair_k",)),
+    ("K1/K5/K10 pair attention", ("pair_attention_kernel",)),
+    ("K6 pair attention backward", ("pair_bwd_kernel", "dq_unrope_kernel")),
+    ("K10a rope_pair", ("rope_pair_kernel",)),
     ("K7 flash_forward", ("flash_forward_kernel",)),
     ("K7 bf16 flash_forward", ("flash_forward_bf16_kernel",)),
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "winograd", "fft")),
@@ -47,6 +49,55 @@ def category(name: str) -> str:
     return "other"
 
 
+def profile_backbone(model, config, steps=3, cfg_scale=7.0):
+    """`steps` backbone calls (one CFG-doubled sampler step each) of a built
+    model at the config's `sample_size` under torch.profiler: the wall and
+    device kernel time per step, the idle share, the time by category and
+    the ten largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = {"prompt": "A grand orchestral arrangement", "seconds_start": 0,
+              "seconds_total": config["sample_size"] / config["sample_rate"]}
+    frames = config["sample_size"] // model.pretransform.downsampling_ratio
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(1, frames, model.io_channels, generator=g, device="cuda")
+    t = torch.full((1,), 0.6, device="cuda")
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner([prompt], device="cuda"))
+
+        def step():
+            return model.model(x, t, cfg_scale=cfg_scale, **cond)
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - start) * 1e3 / steps
+
+    by_name = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3 / steps
+    by_cat = {}
+    for name, ms in by_name.items():
+        by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
+    device = sum(by_cat.values())
+    return {
+        "frames": frames, "cfg_batch": 2, "card": torch.cuda.get_device_name(0),
+        "wall_ms_per_step": wall, "device_ms_per_step": device,
+        "idle_share": max(0.0, 1.0 - device / wall),
+        "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model-config", required=True)
@@ -58,7 +109,6 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from .models.factory import create_model_from_config
     from .utils.common import dezero_
@@ -71,49 +121,13 @@ def main(argv=None):
     dezero_(model, torch.Generator(device="cuda").manual_seed(1))
     if args.dtype == "bf16":
         model.model.to(torch.bfloat16)
-    prompt = {"prompt": "A grand orchestral arrangement", "seconds_start": 0,
-              "seconds_total": config["sample_size"] / config["sample_rate"]}
-    frames = config["sample_size"] // model.pretransform.downsampling_ratio
-    g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn(1, frames, model.io_channels, generator=g, device="cuda")
-    t = torch.full((1,), 0.6, device="cuda")
-    with torch.no_grad():
-        cond = model.get_conditioning_inputs(model.conditioner([prompt], device="cuda"))
-
-        def step():
-            return model.model(x, t, cfg_scale=args.cfg_scale, **cond)
-
-        step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            for _ in range(args.steps):
-                step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - start) * 1e3 / args.steps
-
-    by_name = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3 / args.steps
-    by_cat = {}
-    for name, ms in by_name.items():
-        by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
-    device = sum(by_cat.values())
-    result = {
-        "model_config": args.model_config, "frames": frames, "cfg_batch": 2, "dtype": args.dtype,
-        "card": torch.cuda.get_device_name(0), "wall_ms_per_step": wall,
-        "device_ms_per_step": device, "idle_share": max(0.0, 1.0 - device / wall),
-        "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
-    }
-    print(f"{args.model_config}: {frames} latent frames, CFG batch 2, {args.steps} steps on "
-          f"{result['card']}")
-    print(f"wall {wall:.3f} ms/step, device kernels {device:.3f} ms/step, idle "
-          f"{100 * result['idle_share']:.1f}%")
+    result = {"model_config": args.model_config, "dtype": args.dtype,
+              **profile_backbone(model, config, args.steps, args.cfg_scale)}
+    device = result["device_ms_per_step"]
+    print(f"{args.model_config}: {result['frames']} latent frames, CFG batch 2, {args.steps} "
+          f"steps on {result['card']}")
+    print(f"wall {result['wall_ms_per_step']:.3f} ms/step, device kernels {device:.3f} ms/step, "
+          f"idle {100 * result['idle_share']:.1f}%")
     for cat, ms in result["by_category_ms"].items():
         print(f"  {cat:32s} {ms:10.3f} ms  {100 * ms / device:5.1f}%")
     for name, ms in result["top_kernels_ms"].items():

@@ -49,12 +49,14 @@ def _close(a, b, tol=1e-2):
 
 
 def test_attention_kernel_matches_plain_ragged_and_kv_len(gen):
-    for t, kv in ((200, 190), (77, None)):
+    """K1 at lengths that are not multiples of the kernel's 64/128-row
+    tiles, with and without a masked tail: one K1 and one K10a launch each."""
+    for t, kv in ((200, 190), (77, None), (130, 129), (1040, 1025)):
         qkv = _rnd(gen, 2, t, 3 * 4 * 64).to(torch.bfloat16)
         f = rotary_freqs(t, 32, device="cuda")
-        before = tattn.launches
+        before = (tattn.launches, tattn.rope_k_launches)
         got = tattn.fused_qkv_rope_attention(qkv, f, 4, kv_len=kv)
-        assert tattn.launches == before + 1
+        assert (tattn.launches, tattn.rope_k_launches) == (before[0] + 1, before[1] + 1)
         _close(got, tattn.fused_qkv_rope_attention_plain(qkv, f, 4, kv_len=kv))
 
 
@@ -86,28 +88,52 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                                        rotary_freqs(64, 16, device="cuda"), 4)
 
 
-def test_attention_training_kernels_carry_the_gradient(gen):
-    """With grad, the fp32 qkv goes through K5 and K6: the output is in the
-    autograd graph and qkv.grad is finite and non-zero; it agrees with the
-    plain versions' gradient (rel-L2 1e-2: bf16 operands on both sides)."""
-    t, h, kv = 272, 4, 260
+@pytest.mark.parametrize("t,kv", [(272, 260), (200, 190), (77, None), (1040, 1025)])
+def test_attention_training_kernels_carry_the_gradient(gen, t, kv):
+    """With grad, the fp32 qkv goes through K5 and K6 (and K10a three
+    times: k^ for K5, q^ and k^ for K6): the output is in the autograd graph
+    and qkv.grad is finite and non-zero; it agrees with the plain versions'
+    gradient (rel-L2 1e-2: bf16 operands on both sides)."""
+    h = 4
     f = rotary_freqs(t, 32, device="cuda")
     x = _rnd(gen, 2, t, 3 * h * 64, scale=0.5)
     g = _rnd(gen, 2, t, h * 64)
-    g[:, kv:] = 0
-    before = (tattn.launches, tattn.stats_launches, tattn.backward_launches)
+    if kv is not None:
+        g[:, kv:] = 0
+    before = (tattn.launches, tattn.stats_launches, tattn.backward_launches, tattn.rope_k_launches)
     qkv = x.clone().requires_grad_(True)
     out = tattn.fused_qkv_rope_attention(qkv, f, h, kv)
     assert out.requires_grad and out.dtype == torch.float32
     out.backward(g)
-    assert (tattn.launches, tattn.stats_launches, tattn.backward_launches) == (
-        before[0], before[1] + 1, before[2] + 1)
+    assert (tattn.launches, tattn.stats_launches, tattn.backward_launches,
+            tattn.rope_k_launches) == (before[0], before[1] + 1, before[2] + 1, before[3] + 3)
     assert torch.isfinite(qkv.grad).all() and qkv.grad.abs().max() > 0
     xb = x.to(torch.bfloat16)
     o, lse = tattn.fused_qkv_rope_attention_stats_plain(xb, f, h, kv)
     want = tattn.fused_qkv_rope_attention_backward_plain(xb, o, lse, g, f, h, kv,
                                                          dtype=torch.float32)
     _close(qkv.grad, want)
+
+
+@pytest.mark.parametrize("b,t,h,kv", [(2, 272, 4, 260), (1, 77, 2, None), (8, 1040, 24, 1025)])
+def test_pair_backward_agrees_with_itself_run_to_run(gen, b, t, h, kv):
+    """K6 twice on the same inputs: dq's key-block partials land in its fp32
+    scratch by reduce-adds in whatever order the blocks finish, so dq agrees
+    to fp32 rounding (the whole of dqkv within rel-L2 1e-6); dk and dv have
+    no such sum and agree bit for bit."""
+    qkv = _rnd(gen, b, t, 3 * h * 64).to(torch.bfloat16)
+    f = rotary_freqs(t, 32, device="cuda")
+    go = _rnd(gen, b, t, h * 64).to(torch.bfloat16)
+    if kv is not None:
+        go[:, kv:] = 0
+    out, lse = tattn.fused_qkv_rope_attention_stats_plain(qkv, f, h, kv)
+    runs = [tattn.fused_qkv_rope_attention_backward(qkv, out, lse, go, f, h, kv,
+                                                     dtype=torch.float32) for _ in range(2)]
+    _close(runs[1], runs[0], tol=1e-6)
+    hd = h * 64
+    assert torch.equal(runs[1][..., hd:], runs[0][..., hd:])
+    _close(runs[0], tattn.fused_qkv_rope_attention_backward_plain(qkv, out, lse, go, f, h, kv,
+                                                                  dtype=torch.float32))
 
 
 def test_conv_kernels_refuse_inputs_that_need_grad(gen):
@@ -133,7 +159,7 @@ def test_long_attention_kernels_match_plain(gen):
     """K10a against its plain version (one bf16 rounding apart, rel-L2 1e-3),
     and the long path (K10a then K10) against its plain version, at ragged
     lengths over 2048; each call launches K10a and K10 once and K1 never."""
-    for b, t, h, kv in ((2, 2176, 4, 2050), (1, 2049, 2, None)):
+    for b, t, h, kv in ((2, 2176, 4, 2050), (1, 2049, 2, None), (1, 2100, 2, 2090)):
         qkv = _rnd(gen, b, t, 3 * h * 64).to(torch.bfloat16)
         f = rotary_freqs(t, 32, device="cuda")
         _close(tattn.rope_pair_k(qkv, f, h), tattn.rope_pair_k_plain(qkv, f, h), tol=1e-3)
