@@ -23,7 +23,12 @@ Phases (any failure raises and the script exits non-zero):
    with max-abs and rel-L2 errors against a stated tolerance, both times,
    the least time the card could take (bound) and one PyTorch library
    call's time where one computes the same function; K1 (its K10a launch
-   included) per call beside its earlier row (`EARLIER_MS`);
+   included) per call beside its earlier row (`EARLIER_MS`); each K2 shape
+   names the route `conv_route` gave it, and a wide one also times the thin
+   route's kernel; each path's K2 and K4 totals print beside PR 13's
+   (`EARLIER_CONV_MS`, `log_conv_path`); the wide K2 and K4 at ragged
+   shapes (B 2, T 333, 96 -> 96, dilation 9; B 2, T 77, 192 -> 96, stride 8,
+   both with a snake);
    3b. the training attention kernels K5 (forward with LSE) and K6
    (backward) against their plain versions at the training shape (B 8,
    T 1040, kv_len 1025, 24 heads) and three smaller ones; K6 twice on the
@@ -128,14 +133,14 @@ Phases (any failure raises and the script exits non-zero):
    the same model, one prompt, 100 dpmpp-3m-sde steps, CFG 7, 4,194,304
    samples, the DAC decoding in bf16: audio checks, walls, s-audio/s beside
    [10]'s fp32 figure from the same run, peak memory, and the launch counts
-   (bf16 K7 1400, bf16 K2 26 and K4 4, nothing else);
+   (bf16 K7 1400, bf16 K2 26 (25 wide, 1 thin) and K4 4, nothing else);
 10. the SA 1.0 path: the generate CLI (`generate.main`) on
    stable_audio_1_0.json as written (CLAP text and two int conditioners,
    ADP U-Net, DAC VAE; random weights, seed 0; hash tokenizer), one prompt,
    100 dpmpp-3m-sde steps, CFG 7, the model's own fp32, one WAV under
    build/: audio checks, walls (conditioners, denoise per step, decode),
    s-audio/s over 95.1 s of audio, peak memory, and the launch counts (K7
-   1400, fp32 K2 26 and K4 4, nothing else);
+   1400, fp32 K2 26 (25 wide, 1 thin) and K4 4, nothing else);
    10b. the repaired dtype: the generate CLI on stable_audio_open_1_0.json
    in fp32 (K1 on a bf16 cast of the fp32 qkv, the fp32 K2/K3/K4 decode);
 11b. one training step of SA 1.0's fp32 U-Net at batch 8 and 4096 latent
@@ -149,7 +154,7 @@ Phases (any failure raises and the script exits non-zero):
    written (CFG dropout 0.1, Adam at 5e-4, EMA) from 8 synthetic 96 s WAVs,
    batch 8, 3 steps: step time, trained audio per second, the split, peak
    memory, finite losses, moved weights and the launch counts (K7 with its
-   LSE 14 and K8 14 per step, the DAC encoder's fp32 K2 26 per clip,
+   LSE 14 and K8 14 per step, the DAC encoder's fp32 K2 26 per clip (25 wide),
    nothing else);
 12b. one training step of the audio LM (musicgen_small_32khz.json: 24
    causal layers 1024 wide, 16 heads of 64; random weights, de-zeroed) at
@@ -199,7 +204,10 @@ Phases (any failure raises and the script exits non-zero):
 
 Output: progress lines with each phase's wall, then one JSON line of
 per-kernel results (the fp32 K2/K3/K4 and the serving K7 as entries of
-their own, `*_f32` and `flash_forward_serving`; the bf16 K7 as
+their own, `*_f32` and `flash_forward_serving`; K2's wide route, the
+wgmma kernel of conv_wgmma.cu, as `snake_conv1d_wide` and
+`snake_conv1d_wide_f32`, its thin route as `snake_conv1d` and
+`snake_conv1d_f32`; the bf16 K7 as
 `flash_forward_bf16`; K13 as `glu_mlp`, its
 times per decode step; K11 and K12 as `ln_modulate` and `gated_residual`,
 their times per adaLN denoising step), the nvidia-smi line, and
@@ -374,15 +382,57 @@ K6_RUN_TO_RUN = 1e-6
 EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stats": 1.7254,
               "fused_qkv_rope_attention_backward": 6.7221, "rope_pair_k": 0.0792,
               "pair_long_attention": 6.4190}
-# the end-to-end figures of the phases the redesign moves, from earlier runs
-# (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W): printed beside this run's
+# the end-to-end figures of the phases the redesigns move, from earlier runs
+# (PERF.md §5, chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): printed beside
+# this run's
 EARLIER_E2E = {
-    "[5]": "16.686 s-audio/s",
-    "[8]": "12.719 s-audio/s, 219.6 ms per step",
+    "[5]": "16.686 s-audio/s (PR 9 run); 21.387 s-audio/s, decode 0.0754 s (PR 13 final run)",
+    "[8]": "12.719 s-audio/s, 219.6 ms per step (PR 9 run); 28.284 s-audio/s, 96.414 ms per step, "
+           "decode 0.4351 s (PR 13 final run)",
+    "[15]": "18.272 s-audio/s, 5.2053 s, decode 0.4301 s (PR 13 final run)",
+    "[10]": "generate_diffusion_cond 16.2844 s = 5.840 s-audio/s, decode 0.5259 s (PR 13 final run)",
+    "[10b]": "generate_diffusion_cond 10.8833 s = 4.369 s-audio/s, decode 0.3212 s (PR 13 final run)",
+    "[11]": "8.0671 s per step, encode 6.1568 s (PR 13 final run)",
+    "[9]": "19.2305 s per step at 6 layers, encode 15.0487 s (PR 13 final run)",
+    "[12]": "1.2437 s per step, tokenize 0.1200 s (PR 13 final run)",
+    "[13]": "7.418 / 8.001 ms per decode step (fused MLP off / on), token decode 0.0380 / 0.0394 s "
+            "(PR 13 final run)",
     "[14]": "30.190 and 44.867 ms per step with fused_ew, 33.171 and 41.281 without (two "
             "runs); one DiT call's device time 22.771 ms, K1 10.949 ms of it",
-    "[7]": "4.2910 s per step at 24 layers; not recorded at 6 layers",
+    "[7]": "4.2910 s per step at 24 layers; 2.9674 s at 6 layers, encode 2.5615 s (PR 13 final run)",
 }
+# the K2/K4 totals per main path of PR 13's final run, before the wgmma
+# redesign of K2's wide route and K4 (chip_smoke.py, NVIDIA H100 80GB HBM3,
+# 700 W): (kernel ms, cuDNN ms) by (kernel, results field), K2 over both of
+# today's routes; printed beside this run's (`log_conv_path`)
+EARLIER_CONV_MS = {
+    ("snake_conv1d", "ms"): (20.6433, 32.4092),
+    ("snake_conv1d", "sao_decode_ms"): (3.7293, 5.5645),
+    ("snake_conv1d", "encode_ms"): (25.6179, 16.2646),
+    ("snake_conv1d", "sa2_encode_ms"): (130.4270, 81.0062),
+    ("snake_conv1d", "sa1_decode_ms"): (356.4943, 92.7225),
+    ("snake_conv_transpose1d", "ms"): (52.9261, 24.9900),
+    ("snake_conv_transpose1d", "sao_decode_ms"): (8.6790, 4.4404),
+    ("snake_conv_transpose1d", "sa1_decode_ms"): (15.8439, 6.7058),
+    ("snake_conv1d_f32", "ms"): (371.1165, 196.2168),
+    ("snake_conv1d_f32", "sao_decode_ms"): (4.1359, 4.1603),
+    ("snake_conv1d_f32", "sa2_decode_ms"): (23.6577, 24.4066),
+    ("snake_conv1d_f32", "encode_ms"): (26.0489, 14.5616),
+    ("snake_conv1d_f32", "sa2_encode_ms"): (128.0163, 78.3018),
+    ("snake_conv1d_f32", "sa1_encode_ms"): (4844.5865, 2416.5526),
+    ("snake_conv1d_f32", "lm_encode_ms"): (28.0752, 19.4414),
+    ("snake_conv1d_f32", "lm_decode_ms"): (3.7736, 2.7514),
+    ("snake_conv_transpose1d_f32", "ms"): (69.5895, 34.6822),
+    ("snake_conv_transpose1d_f32", "sao_decode_ms"): (44.0044, 22.6321),
+    ("snake_conv_transpose1d_f32", "sa2_decode_ms"): (262.3492, 161.7039),
+    ("snake_conv_transpose1d_f32", "lm_decode_ms"): (3.7161, 2.4967),
+}
+# the DAC decoder's upsample strides (dac_codec.py's rates at SA 1.0)
+DAC_RATES = (8, 8, 4, 4)
+# the K2 calls of the Oobleck decode (conv_in, conv_out) and of one Oobleck
+# encode call (conv_in, conv_out): (Cin, Cout, k)
+OOBLECK_DECODE_K2 = [(64, 2048, 7), (128, 2, 7)]
+OOBLECK_ENCODE_K2 = [(2, 128, 7), (2048, 128, 3)]
 FLASH_LSE_ATOL = 1e-4
 # SA 2.0 training step with K7/K9 against the fp32 plain versions: the loss
 # to 1e-5 relative, each watched gradient to rel-L2 1e-4 (fp32 both sides)
@@ -643,21 +693,97 @@ def conv_name(name, dtype):
     return name + ("_f32" if dtype == torch.float32 else "")
 
 
+def k2_entry(cin, cout, k, dtype):
+    """The results entry (and launch count) of K2's route for this shape."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    wide = conv1d.conv_route(cin, cout, k, dtype) == "wide"
+    return conv_name("snake_conv1d_wide" if wide else "snake_conv1d", dtype)
+
+
+def k2_counts(shapes, dtype, times=1):
+    """K2's launches by route for convs of (Cin, Cout, k) `shapes`, `times` each."""
+    counts = {conv_name("snake_conv1d", dtype): 0, conv_name("snake_conv1d_wide", dtype): 0}
+    for cin, cout, k in shapes:
+        counts[k2_entry(cin, cout, k, dtype)] += times
+    return counts
+
+
+def thin_k2_fn(x, w, bias, alpha, inv_beta, dilation):
+    """The CUDA-core K2 kernel (the thin route) launched directly on a call
+    that conv_route sends to the wide kernel, outside the launch counts: its
+    time beside the wide kernel's at every wide shape is what draws the
+    route's boundary."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import build, conv1d
+
+    k, cin, cout = w.shape
+    xc, wc = x.contiguous(), w.to(x.dtype).contiguous()
+    bb = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
+    ab = conv1d._stack_snake(alpha, inv_beta)
+    y = torch.empty(x.shape[0], x.shape[1], cout, device=x.device, dtype=x.dtype)
+    lib = build.library()
+    fn = lib.fsat_snake_conv1d_f32 if x.dtype == torch.float32 else lib.fsat_snake_conv1d
+
+    def run():
+        build.check(fn(xc.data_ptr(), wc.data_ptr(), bb.data_ptr(),
+                       None if ab is None else ab.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+                       cin, cout, k, dilation, dilation * (k - 1) // 2,
+                       torch.cuda.current_stream().cuda_stream), "thin K2")
+        return y
+
+    return run
+
+
 def conv_case(results, name, label, field, x, w, bias, a, ib, kernel, plain, flops, halo, up=1,
-              **lib_kw):
-    """One K2 or K4 compare on x's dtype, reported under conv_name(name).
-    Bound: the products at the bf16 rate, or the fp32-accurate rate for
-    fp32; w read once in x's dtype."""
+              weight=1, **lib_kw):
+    """One K2 or K4 compare on x's dtype, reported under conv_name(name) (K2:
+    its route's entry, k2_entry, checked under K2's tolerance) with `weight`
+    calls per `field`. A wide K2 shape also times the thin route's kernel
+    once. Bound: the products at the bf16 rate, or the fp32-accurate rate
+    for fp32; w read once in x's dtype."""
     import torch
 
     y = torch.empty(x.shape[0], x.shape[1] * up, w.shape[2], device=DEVICE, dtype=x.dtype)
     peak = PEAK_FP32_ACCURATE if x.dtype == torch.float32 else PEAK_FLOPS
     bound = bound_ms(flops, nbytes(x, y, bias) + w.numel() * x.element_size(), peak=peak)
     del y
-    name = conv_name(name, x.dtype)
+    tol_name = conv_name(name, x.dtype)
+    extra = ""
+    if name == "snake_conv1d":
+        name = k2_entry(x.shape[2], w.shape[2], w.shape[0], x.dtype)
+        extra = f", route {'wide' if '_wide' in name else 'thin'}"
+        if "_wide" in name:
+            thin = thin_k2_fn(x, w, bias, a, ib, lib_kw.get("dilation", 1))
+            extra += f" (thin route {timed_ms(thin, 1):.4f} ms)"
+            del thin
+    else:
+        name = tol_name
+    results[name]["weight"][label] = weight
     report(results, name, label, True, *compare(
-        name, kernel, lambda: segmented(plain, x, halo, up),
-        library_fn=conv_library(x, w, bias, a, ib, **lib_kw)), bound=bound, field=field)
+        tol_name, kernel, lambda: segmented(plain, x, halo, up),
+        library_fn=conv_library(x, w, bias, a, ib, **lib_kw)), bound=bound, field=field,
+        extra=extra, tol_name=tol_name)
+
+
+def log_conv_path(results, name, dtype, field, what):
+    """K2's (both routes) or K4's total per main path `what` on `dtype`,
+    beside PR 13's figure (EARLIER_CONV_MS), with the bound and cuDNN's time."""
+    names = [conv_name(name, dtype)]
+    if name == "snake_conv1d":
+        names.append(conv_name("snake_conv1d_wide", dtype))
+    names = [n for n in names if "bound_" + field in results[n]]
+    rs = [results[n] for n in names]
+    tot = {k: sum(r[k + field] for r in rs) for k in ("", "plain_", "bound_")}
+    libs = [r["library_" + field] for r in rs]
+    lib = None if None in libs else sum(libs)
+    parts = ", ".join(f"{n} {results[n][field]:.4f}" for n in names)
+    was, was_lib = EARLIER_CONV_MS[(conv_name(name, dtype), field)]
+    log(f"  {conv_name(name, dtype)}: {tot['']:.4f} ms per {what} "
+        f"({parts}); PR 13 {was:.4f} ms ({was / tot['']:.2f}x faster), plain {tot['plain_']:.4f} ms, "
+        f"bound {tot['bound_']:.4f} ms, cuDNN {'none' if lib is None else f'{lib:.4f} ms'} (PR 13 run "
+        f"{was_lib:.4f} ms); card {smi_line()}")
 
 
 def kernel_phase(results):
@@ -745,16 +871,28 @@ def decode_conv_phase(results, dtype, fields):
                       lambda xs: conv1d.snake_conv_transpose1d_plain(xs, w, bb, a, ib, stride=st),
                       2 * t * st * cin * cout * 2, halo=1, up=st, stride=st)
             del x
+        what = f"{'SA 2.0' if which == 'sa2' else 'SAO 1.0'} decode"
+        log_conv_path(results, "snake_conv1d", dtype, field, f"{what} (2 calls)")
+        log_conv_path(results, "snake_conv_transpose1d", dtype, field, f"{what} (5 calls)")
 
     # small ragged shapes
     x = rnd(2, 301, 32, scale=0.5).to(dtype)
     w = rnd(7, 32, 48, scale=1 / math.sqrt(7 * 32))
     bb = rnd(48, scale=0.1)
     a, ib = snake_params(rnd, 32)
-    name = conv_name("snake_conv1d", dtype)
-    report(results, name, "B2 T301 32->48 d3", False, *compare(
-        name, lambda: conv1d.snake_conv1d(x, w, bb, a, ib, dilation=3),
-        lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=3)))
+    k2 = conv_name("snake_conv1d", dtype)
+    report(results, k2_entry(32, 48, 7, dtype), "B2 T301 32->48 d3", False, *compare(
+        k2, lambda: conv1d.snake_conv1d(x, w, bb, a, ib, dilation=3),
+        lambda: conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=3)), tol_name=k2)
+    # the wide K2 at a batch edge and a zero-filled halo on both sides (T 333
+    # is no multiple of the 128-row tile; dilation 9 reaches 27 rows out)
+    x = rnd(2, 333, 96, scale=0.5).to(dtype)
+    w = rnd(7, 96, 96, scale=1 / math.sqrt(7 * 96))
+    b96 = rnd(96, scale=0.1)
+    a, ib = snake_params(rnd, 96)
+    report(results, k2_entry(96, 96, 7, dtype), "B2 T333 96->96 d9 snake", False, *compare(
+        k2, lambda: conv1d.snake_conv1d(x, w, b96, a, ib, dilation=9),
+        lambda: conv1d.snake_conv1d_plain(x, w, b96, a, ib, dilation=9)), tol_name=k2)
     x = rnd(2, 333, 128, scale=0.5).to(dtype)
     w1, w2 = rnd(7, 128, 128, scale=1 / math.sqrt(7 * 128)), rnd(128, 128, scale=1 / math.sqrt(128))
     b1, b2 = rnd(128, scale=0.1), rnd(128, scale=0.1)
@@ -763,7 +901,7 @@ def decode_conv_phase(results, dtype, fields):
     report(results, name, "B2 T333 C128 d9", False, *compare(
         name, lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9),
         lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9)))
-    cout = 96 if dtype == torch.float32 else 128  # the fp32 kernel takes Cout % 32 == 0
+    cout = 96 if dtype == torch.float32 else 128  # the shapes of earlier runs
     x = rnd(2, 77, 128, scale=0.5).to(dtype)
     w = rnd(8, 128, cout, scale=1 / math.sqrt(2 * 128))
     a, ib = snake_params(rnd, 128)
@@ -771,6 +909,13 @@ def decode_conv_phase(results, dtype, fields):
     report(results, name, f"B2 T77 128->{cout} s4", False, *compare(
         name, lambda: conv1d.snake_conv_transpose1d(x, w, b1[:cout], a, ib, stride=4),
         lambda: conv1d.snake_conv_transpose1d_plain(x, w, b1[:cout], a, ib, stride=4)))
+    # K4 at a batch edge and both zero edges, stride 8, Cout 96 (the DAC's last width)
+    x = rnd(2, 77, 192, scale=0.5).to(dtype)
+    w = rnd(16, 192, 96, scale=1 / math.sqrt(2 * 192))
+    a, ib = snake_params(rnd, 192)
+    report(results, name, "B2 T77 192->96 s8 snake", False, *compare(
+        name, lambda: conv1d.snake_conv_transpose1d(x, w, b96, a, ib, stride=8),
+        lambda: conv1d.snake_conv_transpose1d_plain(x, w, b96, a, ib, stride=8)))
 
 
 def attention_train_phase(results):
@@ -863,21 +1008,19 @@ def encoder_conv_phase(results, config, field, dtype=None):
     calls = encode_calls(config)
     b = TRAIN_BATCH // calls
     n = config["sample_size"]
-    k2, ru = conv_name("snake_conv1d", dtype), conv_name("fused_residual_unit", dtype)
+    ru = conv_name("fused_residual_unit", dtype)
     peak = PEAK_FP32_ACCURATE if dtype == torch.float32 else PEAK_FLOPS
     # K2: conv_in 2 -> 128 (k 7, no snake) at the sample size; conv_out
     # snake 2048 -> 128 (k 3) at the latent frames
     for t, cin, cout, k, sn in [(n, 2, 128, 7, False), (n // 2048, 2048, 128, 3, True)]:
-        label = f"B{b} T{t} {cin}->{cout} k{k}"
-        results[k2]["weight"][label] = calls
         x = rnd(b, t, cin, scale=0.5).to(dtype)
         w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
         bb = rnd(cout, scale=0.1)
         a, ib = snake_params(rnd, cin) if sn else (None, None)
-        conv_case(results, "snake_conv1d", label, field, x, w, bb, a, ib,
+        conv_case(results, "snake_conv1d", f"B{b} T{t} {cin}->{cout} k{k}", field, x, w, bb, a, ib,
                   lambda: conv1d.snake_conv1d(x, w, bb, a, ib),
                   lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, a, ib),
-                  2 * b * t * cin * cout * k, halo=k // 2)
+                  2 * b * t * cin * cout * k, halo=k // 2, weight=calls)
         del x
     # K3: the encoder's 15 residual units
     for c, t in [(128, n), (128, n // 2), (256, n // 8), (512, n // 32), (1024, n // 256)]:
@@ -897,19 +1040,41 @@ def encoder_conv_phase(results, config, field, dtype=None):
                     xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d)),
                 bound=bound, field=field)
         del x
-    for name in (k2, ru):
-        r = results[name]
-        log(f"  {name}: {r[field]:.4f} ms per training-step encode ({calls} calls at batch "
-            f"{b}), plain {r['plain_' + field]:.4f} ms, bound {r['bound_' + field]:.4f} ms")
+    log_conv_path(results, "snake_conv1d", dtype, field,
+                  f"training-step encode ({2 * calls} calls: 2 per call, {calls} calls at batch {b})")
+    r = results[ru]
+    log(f"  {ru}: {r[field]:.4f} ms per training-step encode ({calls} calls at batch "
+        f"{b}), plain {r['plain_' + field]:.4f} ms, bound {r['bound_' + field]:.4f} ms")
+
+
+def dac_decode_k2_cases():
+    """K2's calls in Stable Audio 1.0's DAC decode of 4096 latent frames
+    (4,194,304 samples), batch 1: (T, Cin, Cout, k, dilation, calls) of
+    conv_in 64 -> 1536 (k 7); per block, after the upsample, three residual
+    units of a k-7 conv at dilations 1, 3, 9 and a 1x1 conv; conv_out 96 -> 2
+    (k 7): 26 calls."""
+    t, ch = SA1_SAMPLE_SIZE // 1024, 1536
+    cases = [(t, 64, ch, 7, 1, 1)]
+    for rate in DAC_RATES:
+        t, ch = t * rate, ch // 2
+        cases += [(t, ch, ch, 7, d, 1) for d in (1, 3, 9)] + [(t, ch, ch, 1, 1, 3)]
+    cases.append((t, ch, 2, 7, 1, 1))
+    if sum(calls for *_, calls in cases) != 26:
+        raise AssertionError(f"the DAC decode's K2 shapes do not add up to 26 calls: {cases}")
+    return cases
+
+
+def dac_decode_k2_counts(dtype):
+    return k2_counts([(cin, cout, k) for _, cin, cout, k, _, n in dac_decode_k2_cases()
+                      for _ in range(n)], dtype)
 
 
 def dac_conv_phase(results, dtype=None, field="ms"):
     """[3f] fp32 K2 and K4 ([3k]: bf16, under `field`) at every shape of
     Stable Audio 1.0's DAC decode of 4096 latent frames (4,194,304 samples),
-    batch 1, weighted by the calls per decode: conv_in 64 -> 1536 (k 7); per
-    block, the upsample, then three residual units of a k-7 conv at
-    dilations 1, 3, 9 and a 1x1 conv, none with a fused snake (the DAC
-    applies its Snake on its own); conv_out 96 -> 2 (k 7). 26 K2 and 4 K4
+    batch 1, weighted by the calls per decode: the upsamples (1536 -> 768 ->
+    384 -> 192 -> 96 at strides 8, 8, 4, 4) and `dac_decode_k2_cases`, none
+    with a fused snake (the DAC applies its Snake on its own). 26 K2 and 4 K4
     launches."""
     import torch
 
@@ -917,11 +1082,8 @@ def dac_conv_phase(results, dtype=None, field="ms"):
 
     dtype = dtype or torch.float32
     rnd = randn_fn(9)
-    k2 = results[conv_name("snake_conv1d", dtype)]
-    frames = SA1_SAMPLE_SIZE // 1024
-    k2_cases = [(frames, 64, 1536, 7, 1, 1)]
-    t, ch = frames, 1536
-    for rate in (8, 8, 4, 4):
+    t, ch = SA1_SAMPLE_SIZE // 1024, 1536
+    for rate in DAC_RATES:
         x = rnd(1, t, ch, scale=0.5).to(dtype)
         w = rnd(2 * rate, ch, ch // 2, scale=1 / math.sqrt(2 * ch))
         bb = rnd(ch // 2, scale=0.1)
@@ -931,66 +1093,63 @@ def dac_conv_phase(results, dtype=None, field="ms"):
                   2 * t * rate * ch * (ch // 2) * 2, halo=1, up=rate, stride=rate)
         del x
         t, ch = t * rate, ch // 2
-        k2_cases += [(t, ch, ch, 7, d, 1) for d in (1, 3, 9)] + [(t, ch, ch, 1, 1, 3)]
-    k2_cases.append((t, ch, 2, 7, 1, 1))
-    for t, cin, cout, k, d, calls in k2_cases:
-        label = f"DAC B1 T{t} {cin}->{cout} k{k} d{d}"
-        k2["weight"][label] = calls
+    for t, cin, cout, k, d, calls in dac_decode_k2_cases():
         x = rnd(1, t, cin, scale=0.5).to(dtype)
         w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
         bb = rnd(cout, scale=0.1)
-        conv_case(results, "snake_conv1d", label, field, x, w, bb, None, None,
-                  lambda: conv1d.snake_conv1d(x, w, bb, dilation=d),
+        conv_case(results, "snake_conv1d", f"DAC B1 T{t} {cin}->{cout} k{k} d{d}", field, x, w, bb,
+                  None, None, lambda: conv1d.snake_conv1d(x, w, bb, dilation=d),
                   lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, dilation=d),
-                  2 * t * cin * cout * k, halo=d * (k - 1) // 2, dilation=d)
+                  2 * t * cin * cout * k, halo=d * (k - 1) // 2, weight=calls, dilation=d)
         del x
-    if sum(calls for *_, calls in k2_cases) != 26:
-        raise AssertionError(f"the DAC decode's K2 shapes do not add up to 26 calls: {k2_cases}")
-    for name, n_calls in (("snake_conv1d", 26), ("snake_conv_transpose1d", 4)):
-        r, f = results[conv_name(name, dtype)], field
-        log(f"  {conv_name(name, dtype)}: {r[f]:.4f} ms per SA 1.0 DAC decode ({n_calls} calls), "
-            f"plain {r['plain_' + f]:.4f} ms, bound {r['bound_' + f]:.4f} ms, library "
-            f"{r['library_' + f]:.4f} ms")
+    log_conv_path(results, "snake_conv1d", dtype, field, "SA 1.0 DAC decode (26 calls)")
+    log_conv_path(results, "snake_conv_transpose1d", dtype, field, "SA 1.0 DAC decode (4 calls)")
+
+
+def dac_encode_k2_cases(config):
+    """K2's calls in one DAC encode of `config`'s clip (batch 1): (T, Cin,
+    Cout, k, dilation, calls) of conv_in 2 -> 128 (k 7); per block, three
+    residual units of a k-7 conv at dilations 1, 3, 9 and a 1x1 conv at the
+    block's input width (128, 256, 512, 1024), then the strided downsample
+    (the plain reshape-GEMM form, no kernel); conv_out 2048 -> 2048 (k 3): 26
+    calls at SA 1.0's four strides."""
+    enc = config["model"]["pretransform"]["config"]["encoder"]["config"]
+    t, ch = config["sample_size"], enc["d_model"]
+    cases = [(t, enc["in_channels"], ch, 7, 1, 1)]
+    for stride in enc["strides"]:
+        cases += [(t, ch, ch, 7, d, 1) for d in (1, 3, 9)] + [(t, ch, ch, 1, 1, 3)]
+        t, ch = t // stride, ch * 2
+    cases.append((t, ch, ch, 3, 1, 1))
+    return cases
 
 
 def dac_encode_conv_phase(results, config):
     """[3f] fp32 K2 at every shape of Stable Audio 1.0's DAC encode of one
     clip of 4,194,304 samples (one clip per encode call, `iterate_batch`),
     weighted by the calls per clip times the clips per training step, under
-    `sa1_encode_ms`: conv_in 2 -> 128 (k 7); per block, three residual units
-    of a k-7 conv at dilations 1, 3, 9 and a 1x1 conv at the block's input
-    width (128, 256, 512, 1024), then the strided downsample (the plain
-    reshape-GEMM form, no kernel); conv_out 2048 -> 2048 (k 3). None has a
-    fused snake (the DAC applies its Snake on its own). 26 K2 launches per
-    clip."""
+    `sa1_encode_ms` (`dac_encode_k2_cases`; none has a fused snake: the DAC
+    applies its Snake on its own). 26 K2 launches per clip."""
+    import torch
+
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
 
     rnd = randn_fn(11)
-    k2 = results["snake_conv1d_f32"]
-    enc = config["model"]["pretransform"]["config"]["encoder"]["config"]
     clips = encode_calls(config)
-    t, ch = config["sample_size"], enc["d_model"]
-    k2_cases = [(t, enc["in_channels"], ch, 7, 1, 1)]
-    for stride in enc["strides"]:
-        k2_cases += [(t, ch, ch, 7, d, 1) for d in (1, 3, 9)] + [(t, ch, ch, 1, 1, 3)]
-        t, ch = t // stride, ch * 2
-    k2_cases.append((t, ch, ch, 3, 1, 1))
-    if sum(calls for *_, calls in k2_cases) != 26:
-        raise AssertionError(f"the DAC encode's K2 shapes do not add up to 26 calls: {k2_cases}")
-    for t, cin, cout, k, d, calls in k2_cases:
-        label = f"DAC encode B1 T{t} {cin}->{cout} k{k} d{d}"
-        k2["weight"][label] = calls * clips
+    cases = dac_encode_k2_cases(config)
+    if sum(calls for *_, calls in cases) != 26:
+        raise AssertionError(f"the DAC encode's K2 shapes do not add up to 26 calls: {cases}")
+    for t, cin, cout, k, d, calls in cases:
         x = rnd(1, t, cin, scale=0.5)
         w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
         bb = rnd(cout, scale=0.1)
-        conv_case(results, "snake_conv1d", label, "sa1_encode_ms", x, w, bb, None, None,
+        conv_case(results, "snake_conv1d", f"DAC encode B1 T{t} {cin}->{cout} k{k} d{d}",
+                  "sa1_encode_ms", x, w, bb, None, None,
                   lambda: conv1d.snake_conv1d(x, w, bb, dilation=d),
                   lambda xs: conv1d.snake_conv1d_plain(xs, w, bb, dilation=d),
-                  2 * t * cin * cout * k, halo=d * (k - 1) // 2, dilation=d)
+                  2 * t * cin * cout * k, halo=d * (k - 1) // 2, weight=calls * clips, dilation=d)
         del x
-    log(f"  snake_conv1d_f32: {k2['sa1_encode_ms']:.4f} ms per SA 1.0 training-step encode "
-        f"({26 * clips} calls: 26 per clip, {clips} clips), plain {k2['plain_sa1_encode_ms']:.4f} ms, "
-        f"bound {k2['bound_sa1_encode_ms']:.4f} ms, library {k2['library_sa1_encode_ms']:.4f} ms")
+    log_conv_path(results, "snake_conv1d", torch.float32, "sa1_encode_ms",
+                  f"SA 1.0 training-step encode ({26 * clips} calls: 26 per clip, {clips} clips)")
 
 
 def seanet_conv_steps(config):
@@ -1013,14 +1172,14 @@ def seanet_conv_phase(results, config):
     """[3h] fp32 K2 at every shape of the audio LM's SEANet encode of a
     training batch (B 8 x 960,000 samples, one call; ELU before each conv,
     no snake), under `lm_encode_ms`: 10 launches per training step."""
+    import torch
+
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
 
     rnd = randn_fn(15)
-    k2 = results["snake_conv1d_f32"]
     cases = seanet_conv_steps(config)
     for t, cin, cout, k in cases:
         label = f"SEANet encode B{TRAIN_BATCH} T{t} {cin}->{cout} k{k}"
-        k2["weight"][label] = 1
         x = rnd(TRAIN_BATCH, t, cin, scale=0.5)
         w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
         bb = rnd(cout, scale=0.1)
@@ -1029,9 +1188,8 @@ def seanet_conv_phase(results, config):
                   lambda xs: conv1d.snake_conv1d_plain(xs, w, bb),
                   2 * TRAIN_BATCH * t * cin * cout * k, halo=(k - 1) // 2)
         del x
-    log(f"  snake_conv1d_f32: {k2['lm_encode_ms']:.4f} ms per audio LM training-step encode "
-        f"({len(cases)} calls), plain {k2['plain_lm_encode_ms']:.4f} ms, bound "
-        f"{k2['bound_lm_encode_ms']:.4f} ms, library {k2['library_lm_encode_ms']:.4f} ms")
+    log_conv_path(results, "snake_conv1d", torch.float32, "lm_encode_ms",
+                  f"audio LM training-step encode ({len(cases)} calls)")
 
 
 LSTM_RTOL = 1e-5
@@ -1632,6 +1790,8 @@ def seanet_decode_conv_phase(results, config):
     (musicgen_small_32khz.json: 1500 frames to 959,992 samples, batch 1; an
     ELU before each conv, no snake), under `lm_decode_ms`: 10 K2 and 3 K4
     launches per generation."""
+    import torch
+
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
 
     rnd = randn_fn(18)
@@ -1654,11 +1814,9 @@ def seanet_decode_conv_phase(results, config):
                       lambda xs: conv1d.snake_conv_transpose1d_plain(xs, w, bb, stride=k),
                       2 * t * k * cin * cout * 2, halo=1, up=k, stride=k)
         del x
-    for name, kind in (("snake_conv1d_f32", "k2"), ("snake_conv_transpose1d_f32", "k4")):
-        r = results[name]
-        log(f"  {name}: {r['lm_decode_ms']:.4f} ms per audio LM token decode "
-            f"({sum(c[0] == kind for c in calls)} calls), plain {r['plain_lm_decode_ms']:.4f} ms, "
-            f"bound {r['bound_lm_decode_ms']:.4f} ms, library {r['library_lm_decode_ms']:.4f} ms")
+    for name, kind in (("snake_conv1d", "k2"), ("snake_conv_transpose1d", "k4")):
+        log_conv_path(results, name, torch.float32, "lm_decode_ms",
+                      f"audio LM token decode ({sum(c[0] == kind for c in calls)} calls)")
 
 
 def elementwise_phase(results):
@@ -1930,8 +2088,9 @@ def lm_generation_phase(model, config, fused):
         raise AssertionError(f"audio {tuple(audio.shape)} is not finite [1, 1, {n_samples}]")
     want = {name: 0 for name in KERNELS}
     want.update(glu_mlp=config["model"]["lm"]["config"]["depth"] * steps if fused else 0,
-                snake_conv1d_f32=sum(k == "k2" for k, *_ in calls),
-                snake_conv_transpose1d_f32=sum(k == "k4" for k, *_ in calls))
+                snake_conv_transpose1d_f32=sum(k == "k4" for k, *_ in calls),
+                **k2_counts([(cin, cout, k) for kind, _, cin, cout, k in calls if kind == "k2"],
+                            torch.float32))
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     return counts
@@ -2134,11 +2293,13 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "flash_backward": ("flash", "backward_launches"),
     "flash_backward_fused": ("flash", "fused_backward_launches"),
     "snake_conv1d": ("conv1d", "snake_conv1d_launches"),
+    "snake_conv1d_wide": ("conv1d", "snake_conv1d_wide_launches"),
     "fused_residual_unit": ("conv1d", "fused_residual_unit_launches"),
     "snake_conv_transpose1d": ("conv1d", "snake_conv_transpose1d_launches"),
     "flash_forward_serving": ("flash", "serving_launches"),
     "flash_forward_bf16": ("flash", "serving_bf16_launches"),
     "snake_conv1d_f32": ("conv1d", "snake_conv1d_f32_launches"),
+    "snake_conv1d_wide_f32": ("conv1d", "snake_conv1d_wide_f32_launches"),
     "fused_residual_unit_f32": ("conv1d", "fused_residual_unit_f32_launches"),
     "snake_conv_transpose1d_f32": ("conv1d", "snake_conv_transpose1d_f32_launches"),
     "flash_forward_causal": ("flash", "causal_forward_launches"),
@@ -2155,7 +2316,8 @@ KERNELS = {  # name -> (module attribute holding its launch count)
 NO_TRAINING = {"fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
                "flash_forward": 0, "flash_backward": 0, "flash_backward_fused": 0,
                "flash_forward_serving": 0, "flash_forward_bf16": 0, "snake_conv1d_f32": 0,
-               "fused_residual_unit_f32": 0, "snake_conv_transpose1d_f32": 0}
+               "snake_conv1d_wide_f32": 0, "fused_residual_unit_f32": 0,
+               "snake_conv_transpose1d_f32": 0}
 
 
 def _kernel_modules():
@@ -2237,17 +2399,19 @@ def launches_per_step(config, route):
     is recomputed for the backward, and its backward kernel once (route
     "pair": K5 and K6, with K10a once per K5 for k^ and twice per K6 for q^
     and k^; "flash": K7 and K9); each call of the frozen fp32
-    encode (one per clip, iterate_batch) runs the fp32 K2 twice (conv_in,
-    conv_out) and the fp32 K3 once per residual unit (3 in each encoder
-    block); nothing else."""
+    encode (one per clip, iterate_batch) runs the fp32 K2 twice (conv_in on
+    the thin route, conv_out on the wide one) and the fp32 K3 once per
+    residual unit (3 in each encoder block); nothing else."""
+    import torch
+
     depth = config["model"]["diffusion"]["config"]["depth"]
     n_units = 3 * len(config["model"]["pretransform"]["config"]["encoder"]["config"]["c_mults"])
     calls = encode_calls(config)
     fwd, bwd = {"pair": ("fused_qkv_rope_attention_stats", "fused_qkv_rope_attention_backward"),
                 "flash": ("flash_forward", "flash_backward")}[route]
     per_step = {name: 0 for name in KERNELS}
-    per_step.update({fwd: 2 * depth, bwd: depth, "snake_conv1d_f32": 2 * calls,
-                     "fused_residual_unit_f32": n_units * calls})
+    per_step.update({fwd: 2 * depth, bwd: depth, "fused_residual_unit_f32": n_units * calls,
+                     **k2_counts(OOBLECK_ENCODE_K2, torch.float32, calls)})
     if route == "pair":  # K10a: k^ for each K5; q^ and k^ for each K6
         per_step["rope_pair_k"] = 2 * depth + 2 * depth
     return per_step
@@ -2491,10 +2655,10 @@ def sa1_training_phase(config, tmp, unet_path):
     # (no checkpointing in the U-Net), and per clip (one per encode call) the
     # DAC encoder's fp32 K2: conv_in, conv_out and two in each of the three
     # residual units of each block (26 at SA 1.0's four strides)
-    n_blocks = len(config["model"]["pretransform"]["config"]["encoder"]["config"]["strides"])
     per_step = {name: 0 for name in KERNELS}
     per_step.update(flash_forward=14, flash_backward_fused=14,
-                    snake_conv1d_f32=(2 + 6 * n_blocks) * encode_calls(config))
+                    **k2_counts([(cin, cout, k) for _, cin, cout, k, _, n in dac_encode_k2_cases(config)
+                                 for _ in range(n)], torch.float32, encode_calls(config)))
     with patched(train_timers(times, losses)):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -2607,7 +2771,7 @@ def lm_train_step_phase(config, tmp):
             and total <= SA2_GRAD_RTOL and errs[worst] <= SA2_GRAD_RTOL):
         raise AssertionError("the audio LM step with the causal K7/K9 disagrees with the plain step")
     for counts, want_nonzero in (
-            (counts_tok, {"snake_conv1d_f32": len(seanet_conv_steps(config))}),
+            (counts_tok, k2_counts([c[1:] for c in seanet_conv_steps(config)], torch.float32)),
             (counts_step, {"flash_forward_causal": LM_LAYERS, "flash_backward_causal": LM_LAYERS}),
             (counts_eval, {"flash_forward_causal_serving": LM_LAYERS})):
         want = {name: 0 for name in KERNELS}
@@ -2651,7 +2815,7 @@ def lm_training_phase(config, tmp, lm_path):
               (MultiConditioner, "forward", timer(MultiConditioner.forward, "cond"))]
     per_step = {name: 0 for name in KERNELS}
     per_step.update(flash_forward_causal=LM_LAYERS, flash_backward_causal=LM_LAYERS,
-                    snake_conv1d_f32=len(seanet_conv_steps(config)))
+                    **k2_counts([c[1:] for c in seanet_conv_steps(config)], torch.float32))
     with patched(timers):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -2905,6 +3069,8 @@ def adaln_generation_phase(model, config):
     audio's rel-L2 between the two, and the launch counts (K11 and K12 2 per
     layer and step on, none off; K1 24 per step; the bf16 decode's K2-K4).
     Then `profile_adaln_forward`. Returns the counts of the two runs."""
+    import torch
+
     launches, audio = {}, {}
     for on in (True, False):
         set_fused_ew(model, on)
@@ -2917,7 +3083,7 @@ def adaln_generation_phase(model, config):
                       "rope_pair_k": ADALN_LAYERS * STEPS,
                       "pair_long_attention": 0, "fused_residual_unit": 15,
                       "snake_conv_transpose1d": 5, **NO_TRAINING},
-            min_counts={"snake_conv1d": 2})
+            min_counts=k2_counts(OOBLECK_DECODE_K2, torch.bfloat16))
     log(f"  audio fused_ew on vs off: rel-L2 {rel_err(audio[True], audio[False]):.4g}; card "
         f"{smi_line()}")
     profile_adaln_forward(model)
@@ -3118,10 +3284,13 @@ def new_results():
             per=f"SA 1.0 training step (14 calls at B{TRAIN_BATCH} x H16: 2 at T4096 D64, 6 at "
                 f"T2048 D64, 6 at T1024 D80)"),
         "snake_conv1d": dict(route="cuda", source=src + "conv1d.cu", replaces=tpu + "conv1d.py:91",
-                             per="SA 2.0 decode (2 calls)"),
+                             per="SA 2.0 decode (1 call on the thin route: conv_out 128 -> 2)"),
+        "snake_conv1d_wide": dict(route="cuda", source=src + "conv_wgmma.cu",
+                                  replaces=tpu + "conv1d.py:91",
+                                  per="SA 2.0 decode (1 call on the wide route: conv_in 64 -> 2048)"),
         "fused_residual_unit": dict(route="cuda", source=src + "conv1d.cu",
                                     replaces=tpu + "conv1d.py:507", per="SA 2.0 decode (15 calls)"),
-        "snake_conv_transpose1d": dict(route="cuda", source=src + "conv1d.cu",
+        "snake_conv_transpose1d": dict(route="cuda", source=src + "conv_wgmma.cu",
                                        replaces=tpu + "conv1d.py:262", per="SA 2.0 decode (5 calls)"),
         "flash_forward_serving": dict(
             route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:230",
@@ -3133,11 +3302,15 @@ def new_results():
             per="SA 1.0 U-Net forward in bench.py's bf16 recipe (14 calls at B2 x H16: 2 at T4096 "
                 "D64, 6 at T2048 D64, 6 at T1024 D80)"),
         "snake_conv1d_f32": dict(route="cuda", source=src + "conv1d.cu",
-                                 replaces=tpu + "conv1d.py:91", per="SA 1.0 DAC decode (26 calls)"),
+                                 replaces=tpu + "conv1d.py:91",
+                                 per="SA 1.0 DAC decode (1 call on the thin route: conv_out 96 -> 2)"),
+        "snake_conv1d_wide_f32": dict(route="cuda", source=src + "conv_wgmma.cu",
+                                      replaces=tpu + "conv1d.py:91",
+                                      per="SA 1.0 DAC decode (25 calls on the wide route)"),
         "fused_residual_unit_f32": dict(route="cuda", source=src + "conv1d_f32.cu",
                                         replaces=tpu + "conv1d.py:507",
                                         per="SAO 1.0 fp32 decode (15 calls)"),
-        "snake_conv_transpose1d_f32": dict(route="cuda", source=src + "conv1d_f32.cu",
+        "snake_conv_transpose1d_f32": dict(route="cuda", source=src + "conv_wgmma.cu",
                                            replaces=tpu + "conv1d.py:262",
                                            per="SA 1.0 DAC decode (4 calls)"),
         "flash_forward_causal": dict(
@@ -3316,7 +3489,7 @@ def main():
                   "pair_long_attention": 0,
                   "fused_residual_unit": 15, "snake_conv_transpose1d": 5, "ln_modulate": 0,
                   "gated_residual": 0, **NO_TRAINING},
-        min_counts={"snake_conv1d": 2})
+        min_counts=k2_counts(OOBLECK_DECODE_K2, torch.bfloat16))
     profile_sao_step(model, config)
     log_earlier_e2e("[5]")
     del model
@@ -3365,7 +3538,7 @@ def main():
                   "pair_long_attention": 24 * STEPS, "fused_residual_unit": 15,
                   "snake_conv_transpose1d": 5, "ln_modulate": 0, "gated_residual": 0,
                   **NO_TRAINING},
-        min_counts={"snake_conv1d": 2})
+        min_counts=k2_counts(OOBLECK_DECODE_K2, torch.bfloat16))
     log_earlier_e2e("[8]")
     del model
     torch.cuda.empty_cache()
@@ -3383,6 +3556,7 @@ def main():
             f"{TRAIN_BATCH}, {SA2_TRAIN_STEPS} steps from {SA2_WAVS} synthetic {SA2_WAV_SECONDS} s "
             f"WAVs")
         counts_long = longform_training_phase(sa2_train_config, tmp, sa2_dit_path)
+    log_earlier_e2e("[9]")
     done("[9]")
 
     log("[4c] SA 1.0's U-Net at 4096 latent frames: kernels vs plain versions, fp32")
@@ -3399,27 +3573,30 @@ def main():
     launches_sa1_bf16, _, rate_sa1_bf16 = generation_phase(
         model, sa1_config, SA1_PROMPT, SA1_SAMPLE_SIZE,
         expected={**{name: 0 for name in KERNELS}, "flash_forward_bf16": 14 * STEPS,
-                  "snake_conv1d": 26, "snake_conv_transpose1d": 4},
+                  "snake_conv_transpose1d": 4, **dac_decode_k2_counts(torch.bfloat16)},
         min_counts={})
     del model
     torch.cuda.empty_cache()
+    log_earlier_e2e("[15]")
     done("[15]")
     log(f"[10] SA 1.0 path: the generate CLI on stable_audio_1_0.json, {SA1_SAMPLE_SIZE} samples, "
         f"{STEPS} dpmpp-3m-sde steps, CFG {CFG_SCALE}, fp32")
     launches_sa1, rate_sa1 = cli_generation_phase(
-        SA1_CONFIG, SA1_PROMPT, {"flash_forward_serving": 14 * STEPS, "snake_conv1d_f32": 26,
-                                 "snake_conv_transpose1d_f32": 4})
+        SA1_CONFIG, SA1_PROMPT, {"flash_forward_serving": 14 * STEPS, "snake_conv_transpose1d_f32": 4,
+                                 **dac_decode_k2_counts(torch.float32)})
     log(f"  SA 1.0 generation, this run: bf16 recipe ([15]) {rate_sa1_bf16:.3f} s-audio/s, fp32 CLI "
         f"([10]) {rate_sa1:.3f} s-audio/s; card {smi_line()}")
     torch.cuda.empty_cache()
+    log_earlier_e2e("[10]")
     done("[10]")
     log(f"[10b] the repaired dtype: the generate CLI on stable_audio_open_1_0.json in fp32 (K1 on "
         f"bf16 casts of the fp32 qkv, the fp32 K2/K3/K4 in the decode)")
     launches_fp32, _ = cli_generation_phase(
         SAO_CONFIG, PROMPT, {"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 24 * STEPS,
-                             "snake_conv1d_f32": 2,
-                             "fused_residual_unit_f32": 15, "snake_conv_transpose1d_f32": 5})
+                             "fused_residual_unit_f32": 15, "snake_conv_transpose1d_f32": 5,
+                             **k2_counts(OOBLECK_DECODE_K2, torch.float32)})
     torch.cuda.empty_cache()
+    log_earlier_e2e("[10b]")
     done("[10b]")
 
     # phases 11b and 11 write ~4.5 GB (SA 1.0's de-zeroed U-Net and 8 WAVs)
@@ -3431,6 +3608,7 @@ def main():
         log(f"[11] SA 1.0 training path: train.main on stable_audio_1_0.json, batch {TRAIN_BATCH}, "
             f"{SA1_TRAIN_STEPS} steps from {SA1_WAVS} synthetic {SA1_WAV_SECONDS} s WAVs")
         counts_sa1 = sa1_training_phase(sa1_config, tmp, unet_path)
+    log_earlier_e2e("[11]")
     done("[11]")
 
     # phases 12b and 12 write ~3 GB (the de-zeroed LM with T5 and the tokenizer, 8 WAVs)
@@ -3443,6 +3621,7 @@ def main():
             f"{TRAIN_BATCH}, {LM_TRAIN_STEPS} steps from {LM_WAVS} synthetic {LM_WAV_SECONDS} s "
             f"mono WAVs")
         counts_lm = lm_training_phase(lm_config, tmp, lm_path)
+    log_earlier_e2e("[12]")
     done("[12]")
 
     log(f"[13b] the audio LM's cached decode at full width ({LM_GEN_DEPTH} of its 24 layers): "
@@ -3462,6 +3641,7 @@ def main():
     counts_gen_fused = lm_generation_phase(model, lm_gen_config, True)
     del model
     torch.cuda.empty_cache()
+    log_earlier_e2e("[13]")
     done("[13]")
 
     log("[14b] one forward and backward of the full-width bf16 adaLN DiT (SAO 1.0 with "

@@ -1,0 +1,345 @@
+"""Measurements behind the wgmma convolution kernel (csrc/conv_wgmma.cu: K2's
+wide route and K4) on the card.
+
+    python -m friendly_stable_audio_tools_tpu_torch.conv_variants [--out conv.json] [--check]
+
+1. ``ptxas``: registers, shared memory and spills of every kernel in
+   conv_wgmma.cu (nvcc -Xptxas -v with build.NVCC_FLAGS);
+2. ``check``: the wide kernel in bf16 and fp32, K2 and K4, against the
+   plain versions at ragged and at DAC/Oobleck widths (rel-L2 within 2e-3
+   in bf16, 1e-5 in fp32); with --check the script stops here;
+3. ``tile_n``: each Cout tile width that divides Cout, at the DAC decode's
+   K2 and K4 shapes (the shipped width is conv1d.py:conv_tile_n's);
+4. ``stages``: the shipped library (at most 4 pipeline stages,
+   kMaxStages) against one built with at most 6 and one with at most 3, at
+   the same shapes, in turns;
+5. ``flush``: the fp32 kernel's error against an fp64 reference at the
+   longest reductions (the DAC encode's 1024 -> 1024 k7 and 2048 -> 2048
+   k3) for tensor-core partial sums of 1, 2, 4, 8 stages and of the whole
+   reduction, beside the plain fp32 version (TF32 off) and cuDNN in TF32
+   (1xTF32); each interval timed in turns (1, 2, ..., whole, whole, ..., 1),
+   the best of its two turns, with the shipped library and with
+   ``scale_d_zero`` (the partial sum started by a scale-d = 0 wgmma after each
+   flush instead of zeroed by the CUDA cores);
+6. ``profile``: torch.profiler over calls of the public wrappers at
+   main-path shapes: the device time of the conv kernel, of the weights'
+   K-major pass and of everything else per call, and the conv kernel's
+   share of its bound; the Oobleck upsamples (which fuse the snake) also
+   without the snake, to show what the snake costs.
+
+Times are CUDA-event means over repeated calls of the kernel's launch
+alone (its K-major weights prepared once, outside the timing). Needs a CUDA
+device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+from .ops.kernels import build
+
+# variant library -> [(text in conv_wgmma.cu, replacement), ...]
+VARIANTS = {
+    "stages6": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 6;")],
+    "stages3": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 3;")],
+    # the fp32 partial sum started by a scale-d = 0 wgmma after each flush,
+    # where the shipped kernel zeroes it on the CUDA cores
+    "scale_d_zero": [("a_lo[kk], kmajor_desc(hi_addr + off), 1);",
+                      "a_lo[kk], kmajor_desc(hi_addr + off), (it % p.flush) || kk);"),
+                     ("            acc[c][i] += part[c][i];\n            part[c][i] = 0.f;\n",
+                      "            acc[c][i] += part[c][i];\n")],
+}
+STAGE_VARIANTS = ("stages6", "stages3")
+FLUSH_VARIANTS = ("scale_d_zero",)
+# the DAC decode of 4096 latent frames: (T, Cin, Cout, k, dilation) of K2,
+# (T, Cin, Cout, stride) of K4
+DAC_K2 = [(4096, 64, 1536, 7, 1), (32768, 768, 768, 7, 1), (32768, 768, 768, 7, 9),
+          (32768, 768, 768, 1, 1), (262144, 384, 384, 7, 1), (1048576, 192, 192, 7, 1),
+          (4194304, 96, 96, 7, 1)]
+DAC_K4 = [(4096, 1536, 768, 8), (32768, 768, 384, 8), (262144, 384, 192, 4),
+          (1048576, 192, 96, 4)]
+# the DAC encode's longest reductions (T, C, k)
+FLUSH_CASES = [(8192, 1024, 7), (8192, 2048, 3)]
+
+
+def start_ptxas_report(nvcc: str, tmp: str) -> subprocess.Popen:
+    """Starts nvcc -Xptxas -v on conv_wgmma.cu (each kernel's registers,
+    shared memory and spills on its stderr), beside the library's build."""
+    return subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC_DIR),
+                             "-c", "-o", str(Path(tmp) / "c.o"), str(build.CSRC_DIR / "conv_wgmma.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def build_variant(name: str, tmp: Path, nvcc: str) -> ctypes.CDLL:
+    """conv_wgmma.cu with VARIANTS[name]'s substitutions, compiled alone into tmp/name."""
+    src = tmp / name
+    shutil.copytree(build.CSRC_DIR, src)
+    cu = src / "conv_wgmma.cu"
+    text = cu.read_text()
+    for old, new in VARIANTS[name]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {old!r} found {text.count(old)} times, not once")
+        text = text.replace(old, new)
+    cu.write_text(text)
+    lib = src / "lib.so"
+    subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", "-I", str(src), "-o", str(lib), str(cu)],
+                   check=True, capture_output=True)
+    handle = ctypes.CDLL(str(lib))
+    for fn in ("fsat_conv_weights", "fsat_conv_taps_k2", "fsat_conv_taps_k4"):
+        getattr(handle, fn).argtypes = build.SIGNATURES[fn]
+        getattr(handle, fn).restype = ctypes.c_int
+    return handle
+
+
+def main(argv=None):
+    import torch
+
+    from .ops.kernels import conv1d
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="write the results as JSON here")
+    ap.add_argument("--check", action="store_true", help="stop after the correctness checks")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_variants: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    out = {"card": smi}
+    nvcc = build.find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = start_ptxas_report(nvcc, tmp)
+        lib = build.library()
+        _, out["ptxas"] = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(out["ptxas"])
+    print(out["ptxas"], flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    def timed_ms(fn, reps=10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def k2_call(handle, x, wk, bias, y, cin, cout, k, d, n, flush=conv1d.F32_FLUSH, ab=None):
+        f32 = x.dtype == torch.float32
+        return lambda: build.check(handle.fsat_conv_taps_k2(
+            x.data_ptr(), wk.data_ptr(), bias.data_ptr(), None if ab is None else ab.data_ptr(),
+            y.data_ptr(), x.shape[0], x.shape[1], cin, cout, k, d, d * (k - 1) // 2, n, int(f32),
+            flush, torch.cuda.current_stream().cuda_stream), "k2")
+
+    def k4_call(handle, x, wk, bias, y, cin, cout, s, n):
+        f32 = x.dtype == torch.float32
+        return lambda: build.check(handle.fsat_conv_taps_k4(
+            x.data_ptr(), wk.data_ptr(), bias.data_ptr(), None, y.data_ptr(), x.shape[0],
+            x.shape[1], cin, cout, s, n, int(f32), conv1d.F32_FLUSH,
+            torch.cuda.current_stream().cuda_stream), "k4")
+
+    # 2. correctness through the public wrappers
+    checks = []
+    with torch.no_grad():
+        for dt, tol in ((torch.bfloat16, 2e-3), (torch.float32, 1e-5)):
+            for b, t, cin, cout, k, d, sn in [(2, 300, 96, 96, 7, 9, True), (2, 300, 96, 96, 7, 9, False),
+                                             (1, 1000, 768, 768, 7, 3, False),
+                                             (1, 333, 64, 1536, 7, 1, False),
+                                             (2, 130, 2048, 128, 3, 1, True),
+                                             (1, 517, 128, 128, 1, 1, False),
+                                             (2, 211, 16, 32, 1, 1, False),
+                                             (1, 4096, 1024, 1024, 7, 9, False)]:
+                x = rnd(b, t, cin, scale=0.5).to(dt)
+                w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+                bb = rnd(cout, scale=0.1)
+                a, ib = ((rnd(cin).abs() + 0.5), 1 / (rnd(cin).abs() + 0.5)) if sn else (None, None)
+                route = conv1d.conv_route(cin, cout, k, dt)
+                err = rel(conv1d.snake_conv1d(x, w, bb, a, ib, dilation=d),
+                          conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=d))
+                checks.append(dict(kernel="K2", dtype=str(dt), shape=[b, t, cin, cout, k, d],
+                                   snake=sn, route=route, rel_l2=err, ok=err <= tol))
+                print(checks[-1], flush=True)
+            for b, t, cin, cout, s, sn in [(2, 77, 192, 96, 8, True), (1, 300, 1536, 768, 8, False),
+                                           (1, 1000, 384, 192, 4, False), (2, 333, 128, 128, 2, True),
+                                           (1, 64, 2048, 1024, 8, True)]:
+                x = rnd(b, t, cin, scale=0.5).to(dt)
+                w = rnd(2 * s, cin, cout, scale=1 / math.sqrt(2 * cin))
+                bb = rnd(cout, scale=0.1)
+                a, ib = ((rnd(cin).abs() + 0.5), 1 / (rnd(cin).abs() + 0.5)) if sn else (None, None)
+                err = rel(conv1d.snake_conv_transpose1d(x, w, bb, a, ib, stride=s),
+                          conv1d.snake_conv_transpose1d_plain(x, w, bb, a, ib, stride=s))
+                checks.append(dict(kernel="K4", dtype=str(dt), shape=[b, t, cin, cout, s], snake=sn,
+                                   rel_l2=err, ok=err <= tol))
+                print(checks[-1], flush=True)
+    out["check"] = checks
+    if args.check or not all(c["ok"] for c in checks):
+        _finish(out, args.out)
+        if not all(c["ok"] for c in checks):
+            raise SystemExit("conv_variants: a wide-kernel result disagrees with its plain version")
+        return
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = {name: pool.submit(build_variant, name, Path(tmp), nvcc) for name in VARIANTS}
+        libs = {"shipped": lib, **{name: fut.result() for name, fut in built.items()}}
+        # 3. tile widths and 4. stages, bf16 and fp32, at the DAC decode's shapes
+        tiles, stages = [], []
+        with torch.no_grad():
+            for dt in (torch.bfloat16, torch.float32):
+                for kind, case in [("K2", c) for c in DAC_K2] + [("K4", c) for c in DAC_K4]:
+                    if kind == "K2":
+                        t, cin, cout, k, d = case
+                        w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+                        y = torch.empty(1, t, cout, device="cuda", dtype=dt)
+                    else:
+                        t, cin, cout, s = case
+                        w = rnd(2 * s, cin, cout, scale=1 / math.sqrt(2 * cin))
+                        y = torch.empty(1, t * s, cout, device="cuda", dtype=dt)
+                    x = rnd(1, t, cin, scale=0.5).to(dt)
+                    bb = rnd(cout, scale=0.1)
+                    wk = conv1d._k_major_weights(w, dt)
+
+                    def call(handle, n):
+                        if kind == "K2":
+                            return k2_call(handle, x, wk, bb, y, cin, cout, k, d, n)
+                        return k4_call(handle, x, wk, bb, y, cin, cout, s, n)
+
+                    shipped_n = conv1d.conv_tile_n(cout, dt)
+                    row = dict(kernel=kind, dtype=str(dt), shape=list(case), shipped_n=shipped_n,
+                               ms={n: timed_ms(call(lib, n), 5) for n in conv1d.TILE_N[dt]
+                                   if cout % n == 0})
+                    tiles.append(row)
+                    print(row, flush=True)
+                    order = ["shipped", *STAGE_VARIANTS, *reversed(STAGE_VARIANTS), "shipped"]
+                    times = {}
+                    for name in order:  # in turns: shipped, variants, variants, shipped
+                        ms = timed_ms(call(libs[name], shipped_n), 5)
+                        times[name] = min(times.get(name, ms), ms)
+                    stages.append(dict(kernel=kind, dtype=str(dt), shape=list(case), ms=times))
+                    print(stages[-1], flush=True)
+                    del x, y, wk
+        out["tile_n"], out["stages"] = tiles, stages
+
+        # 5. the fp32 flush interval at the longest reductions
+        out["flush"] = flush_phase(libs, rnd, rel, timed_ms, k2_call)
+    out["profile"] = profile_phase(rnd)
+    _finish(out, args.out)
+
+
+# (label, dtype, K2 (T, Cin, Cout, k, dilation) or K4 (T, Cin, Cout, stride), snake)
+PROFILE_CASES = [("bf16 K2 DAC 768->768 k7", "bf16", "K2", (32768, 768, 768, 7, 1), False),
+                 ("bf16 K2 DAC 96->96 k7", "bf16", "K2", (4194304, 96, 96, 7, 1), False),
+                 ("fp32 K2 DAC encode 1024->1024 k7", "fp32", "K2", (32768, 1024, 1024, 7, 1), False)] + [
+    (f"{dt} K4 SA 2.0 decode {c[1]}->{c[2]} s{c[3]}{'' if snake else ' without the snake'}", dt, "K4",
+     c, snake)
+    for dt in ("bf16", "fp32") for c in ((1572864, 256, 128, 4), (6291456, 128, 128, 2))
+    for snake in (True, False)]
+
+
+def profile_phase(rnd, calls=5):
+    import torch
+
+    from .ops.kernels import conv1d
+
+    peak = {"bf16": 989e12, "fp32": 495e12 / 3}
+    rows = []
+    with torch.no_grad():
+        for label, dt_name, kind, case, snake in PROFILE_CASES:
+            dt = torch.bfloat16 if dt_name == "bf16" else torch.float32
+            if kind == "K2":
+                t, cin, cout, k, d = case
+                w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+                flops = 2 * t * cin * cout * k
+            else:
+                t, cin, cout, s = case
+                w = rnd(2 * s, cin, cout, scale=1 / math.sqrt(2 * cin))
+                flops = 2 * t * s * cin * cout * 2
+            x = rnd(1, t, cin, scale=0.5).to(dt)
+            bb = rnd(cout, scale=0.1)
+            a, ib = (rnd(cin).abs() + 0.5, 1 / (rnd(cin).abs() + 0.5)) if snake else (None, None)
+            if kind == "K2":
+                def fn():
+                    return conv1d.snake_conv1d(x, w, bb, a, ib, dilation=d)
+            else:
+                def fn():
+                    return conv1d.snake_conv_transpose1d(x, w, bb, a, ib, stride=s)
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            split = {"conv": 0.0, "weights": 0.0, "other": 0.0}
+            for ev in prof.key_averages():
+                us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+                key = ("conv" if "conv_taps_kernel" in ev.key else
+                       "weights" if "conv_weights_kernel" in ev.key else "other")
+                split[key] += us / calls / 1e3
+            row = dict(label=label, ms_per_call=split,
+                       conv_share_of_bound=flops / peak[dt_name] * 1e3 / max(split["conv"], 1e-9))
+            rows.append(row)
+            print(row, flush=True)
+            del x
+    return rows
+
+
+def flush_phase(libs, rnd, rel, timed_ms, k2_call):
+    import torch
+
+    from .ops.kernels import conv1d
+
+    flush = []
+    with torch.no_grad():
+        for t, c, k in FLUSH_CASES:
+            x = rnd(1, t, c, scale=0.5)
+            w = rnd(k, c, c, scale=1 / math.sqrt(k * c))
+            bb = rnd(c, scale=0.1)
+            ref = conv1d._conv_f32(x.double(), w.double(), 1, (k - 1) // 2) + bb.double()
+            wk = conv1d._k_major_weights(w, torch.float32)
+            y = torch.empty(1, t, c, device="cuda")
+            n = conv1d.conv_tile_n(c, torch.float32)
+            n_stages = math.ceil(c / 32) * k
+            row = dict(shape=[t, c, c, k], reduction=k * c, plain_fp32=rel(
+                conv1d.snake_conv1d_plain(x, w, bb), ref))
+            torch.backends.cudnn.allow_tf32 = True
+            row["cudnn_1xtf32"] = rel(conv1d._conv_f32(x, w, 1, (k - 1) // 2) + bb, ref)
+            torch.backends.cudnn.allow_tf32 = False
+            intervals = (1, 2, 4, 8, n_stages)
+            for name in ("shipped", *FLUSH_VARIANTS):
+                for f in intervals:
+                    k2_call(libs[name], x, wk, bb, y, c, c, k, 1, n, flush=f)()
+                    row[f"{name} flush{f}"] = dict(rel_l2=rel(y, ref))
+                for f in intervals + tuple(reversed(intervals)):
+                    ms = timed_ms(k2_call(libs[name], x, wk, bb, y, c, c, k, 1, n, flush=f), 5)
+                    row[f"{name} flush{f}"]["ms"] = min(row[f"{name} flush{f}"].get("ms", ms), ms)
+            flush.append(row)
+            print(row, flush=True)
+            del x, y, wk, ref
+    return flush
+
+
+def _finish(out, path):
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -100,7 +100,7 @@ __device__ __forceinline__ void rope_q_tile(const bf16* __restrict__ qkv, const 
         res.h[j] = __float2bfloat16_rn(y);
       }
     }
-    *reinterpret_cast<uint4*>(qs + swizzled(r, seg)) = res.u;
+    *reinterpret_cast<uint4*>(qs + sw128_offset(r, seg)) = res.u;
   }
 }
 

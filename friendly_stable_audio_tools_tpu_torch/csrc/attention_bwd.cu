@@ -179,8 +179,8 @@ struct Consumer {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int r0 = 16 * w + g, r1 = r0 + 8;
-      *reinterpret_cast<uint32_t*>(ds_tile + swizzled(r0, j) + 4 * tq) = dsa[j >> 1][(j & 1) * 2];
-      *reinterpret_cast<uint32_t*>(ds_tile + swizzled(r1, j) + 4 * tq) =
+      *reinterpret_cast<uint32_t*>(ds_tile + sw128_offset(r0, j) + 4 * tq) = dsa[j >> 1][(j & 1) * 2];
+      *reinterpret_cast<uint32_t*>(ds_tile + sw128_offset(r1, j) + 4 * tq) =
           dsa[j >> 1][(j & 1) * 2 + 1];
     }
 

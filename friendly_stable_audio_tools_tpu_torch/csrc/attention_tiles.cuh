@@ -1,77 +1,20 @@
 // Hopper building blocks of the head-pair attention kernels (attention.cu:
-// K1/K5/K10, attention_bwd.cu: K6): TMA loads into mbarrier-guarded shared
-// memory, warpgroup matrix products (wgmma) on 128B-swizzled bf16 tiles, the
-// bulk reduce-add of an fp32 tile into device memory, and the host-side
-// tensor maps. Every tile row is one head's 64 bf16 dims: 128 bytes, exactly
-// one row of the 128-byte swizzle, so a TMA load with
+// K1/K5/K10, attention_bwd.cu: K6) on top of the shared ones in hopper.cuh:
+// the head-row tiles, the bulk reduce-add of an fp32 tile into device memory,
+// and the m64n64 bf16 wgmma forms. Every tile row is one head's 64 bf16 dims:
+// 128 bytes, exactly one row of the 128-byte swizzle, so a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the layout wgmma reads.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encode is reached through the runtime
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace fsat_attn {
+
+using namespace fsat_hopper;
 
 constexpr int kD = 64;          // head dim
 constexpr int kRowBytes = 128;  // one head's row of bf16: one 128B swizzle row
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of the 16-byte chunk `chunk` of row `row` in a 128B-swizzled
-// tile whose base is 1024-byte aligned (what TMA's SWIZZLE_128B writes).
-__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
-}
-
-// ---- mbarriers ------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed. A wait of 2^26
-// polls (seconds) means a fault in the pipeline: it traps, so the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) asm volatile("trap;\n");
-  }
-}
-
-// Makes this thread's generic-proxy shared-memory writes visible to the async
-// proxy (wgmma operands, bulk copies); a barrier must follow before the reader.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // 2^x on the special-function unit (ex2.approx.ftz: 2 ulp; 2^-inf = 0).
 __device__ __forceinline__ float ex2(float x) {
@@ -80,22 +23,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// bar.sync on named barrier `id` (1..15; 0 is __syncthreads) over n threads.
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
 // ---- TMA --------------------------------------------------------------------
-
-// Box (c0, c1, c2) of a 3-D tensor map into dst, completion counted on bar.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // dst[i] += src[i] for `bytes` / 4 floats, shared -> global, asynchronously.
 __device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src, uint32_t bytes) {
@@ -119,56 +47,11 @@ __device__ __forceinline__ void bulk_wait_all() {
 
 // ---- wgmma ------------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a 128B-swizzled tile at `addr`
-// (1024-byte aligned atoms; a K-major operand may start 32*j bytes into its
-// atom to take the j-th 16-deep slice). K-major: 8-row groups `sbo` apart,
-// `lbo` unused. MN-major: an atom is 8 K-rows of 64 MN elements; K groups of
-// 8 rows `sbo` apart, MN atoms `lbo` apart (one atom at MN 64, so any value).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major tile of 64-dim rows: 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
-
-// MN-major tile (rows along K, 64 MN elements per row).
+// MN-major tile (rows along K, 64 MN elements per row: one atom at MN 64,
+// so `lbo` takes any value).
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 1024, 1024);
 }
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across an asynchronous wgmma (from its start to its wait).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define FSAT_WGMMA_D32                                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define FSAT_WGMMA_OUT32(d)                                                                    \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
 // d (+)= A B, m64n64k16, bf16 operands from shared memory, fp32 d. d's layout
 // per warp w of the warpgroup and lane l (g = l / 4, t = l % 4): d[4j + e] is
@@ -212,52 +95,12 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[32], int j, uint32_t (
 
 // ---- host: tensor maps --------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A map over a [B, T, C] bf16 tensor whose boxes are `box_rows` rows of one
 // head's 64 columns, 128B-swizzled: coordinates (column, t, b); rows at or
 // past T read as zeros, and no box crosses into the next batch.
 inline cudaError_t head_rows_map(CUtensorMap* map, const void* base, int C, int T, int B,
                                  int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kD, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// Rounds a dynamic shared-memory base up to 1024 bytes (the swizzle atom).
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023) & ~1023u) - a);
+  return sw128_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, C, T, B, kD, box_rows);
 }
 
 }  // namespace fsat_attn

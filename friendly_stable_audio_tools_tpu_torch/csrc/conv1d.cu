@@ -1,19 +1,19 @@
-// K2-K4: the Oobleck VAE decoder's fused snake -> conv kernels, channels-last.
+// K2's thin route and K3: fused snake -> conv kernels, channels-last.
 //
-// K2 snake_conv1d          replaces conv1d.py:_forward / _kernel (:91, :60)
-// K3 fused_residual_unit   replaces conv1d.py:_ru_forward / _ru_kernel (:507, :473)
-// K4 snake_conv_transpose1d replaces conv1d.py:_upk_forward / _upk_kernel (:262, :228)
-// (all in friendly_stable_audio_tools_tpu/ops/pallas/).
+// K2 snake_conv1d, thin route replaces conv1d.py:_forward / _kernel (:91, :60)
+// K3 fused_residual_unit      replaces conv1d.py:_ru_forward / _ru_kernel (:507, :473)
+// (both in friendly_stable_audio_tools_tpu/ops/pallas/).
 //
 // Common rules, as in the TPU kernels: the snake runs in fp32 with the
 // polynomial sin^2 (common.cuh), its result is rounded to bf16 before the
 // products, products accumulate in fp32, bias adds in fp32, and the result is
-// rounded to bf16 once. K3 and K4 run their products on the tensor cores
-// (WMMA bf16 16x16x16, fp32 accumulate); K2 serves the decoder's two thin
-// convolutions (64 -> 2048 at 1024 frames, 128 -> 2 at 2M samples) on the
-// CUDA cores, where a tensor-core tile would be mostly padding. K2 also runs
-// in fp32 (templated on the element type); K3 and K4 in fp32 are in
-// conv1d_f32.cu.
+// rounded to bf16 once. K3 runs its products on the tensor cores (WMMA bf16
+// 16x16x16, fp32 accumulate); K2's thin route (ops/kernels/conv1d.py:
+// conv_route) serves the convolutions a tensor-core tile would mostly pad,
+// Cout 2 (the decoders' conv_out) and Cin 1 or 2 (the encoders' conv_in),
+// on the CUDA cores; its other shapes take the wgmma kernel of
+// conv_wgmma.cu, as K4 does. K2 also runs in fp32 (templated on the element
+// type); K3 in fp32 is in conv1d_f32.cu.
 #include <mma.h>
 
 #include "common.cuh"
@@ -26,7 +26,7 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-// Tile geometry shared by K3 and K4: 256 threads = 8 warps laid out 2 (rows)
+// K3's tile geometry: 256 threads = 8 warps laid out 2 (rows)
 // x 4 (columns), each warp owning a 32 x 32 block of a 64 x 128 output tile.
 constexpr int kThreads = 256;
 constexpr int kRows = 64;   // output rows per block
@@ -62,8 +62,7 @@ __device__ __forceinline__ void load_x_tile(const bf16* __restrict__ xb, int T, 
 }
 
 // Loads w[k0:k0+32, n0:n0+128] of a row-major [*, ncols] bf16 matrix into ws
-// [32][kWld]; columns at or past ncols (a last chunk of K4 at Cout % 128 != 0,
-// ncols % 8 == 0) are zero.
+// [32][kWld]; columns at or past ncols (ncols % 8 == 0) are zero.
 __device__ __forceinline__ void load_w_tile(const bf16* __restrict__ w, int ncols, int k0, int n0,
                                             bf16* __restrict__ ws) {
   for (int i = threadIdx.x; i < kKC * (kNC / 8); i += kThreads) {
@@ -313,81 +312,6 @@ fused_residual_unit_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4: snake -> ConvTranspose1d(k = 2s, stride s, padding s/2), polyphase.
-// Output phase r of row q reads x[q] (tap r + s/2) and x[q-1] (tap r + s/2 + s)
-// when r < s/2, x[q+1] (tap r + s/2 - s) otherwise (conv1d.py:217-225). One
-// block per (64-row q tile, phase x 128-column Cout chunk, batch); the block
-// writes its phase's rows of the interleaved output. Cout % 32 == 0: a last
-// chunk narrower than 128 columns (the DAC decoder's 192 and 96) reads zero
-// weights past Cout and writes only its columns.
-// ---------------------------------------------------------------------------
-
-size_t upk_smem_bytes() {
-  return (size_t)(kRows + 2) * kXld * sizeof(bf16) + (size_t)2 * kKC * kWld * sizeof(bf16) +
-         (size_t)kRows * kSld * sizeof(float);
-}
-
-__global__ void __launch_bounds__(kThreads)
-snake_conv_transpose1d_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                              const float* __restrict__ bias, const float* __restrict__ ab,
-                              bf16* __restrict__ y, int T, int Cin, int Cout, int s) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                // [kRows + 2][kXld]: x[q0 - 1 + i]
-  bf16* ws = xs + (kRows + 2) * kXld;                      // [2][kKC][kWld]
-  float* sc = reinterpret_cast<float*>(ws + 2 * kKC * kWld);  // [kRows][kSld]
-
-  const int warp = threadIdx.x >> 5, wm = warp >> 2, wn = warp & 3;
-  const int q0 = blockIdx.x * kRows, b = blockIdx.z;
-  const int r = blockIdx.y % s, n0 = (blockIdx.y / s) * kNC;
-  const int half = s / 2;
-  const bool left = r < half;
-  const int tap_a = r + half;                           // pairs with x[q]
-  const int tap_b = left ? r + half + s : r + half - s;  // pairs with x[q-1] or x[q+1]
-  const int row_b = left ? 0 : 2;                       // xs row of that neighbour for q = q0
-  const bf16* xb = x + (size_t)b * T * Cin;
-  FragC acc[2][2];
-  zero_acc(acc);
-
-  for (int k0 = 0; k0 < Cin; k0 += kKC) {
-    __syncthreads();
-    load_x_tile(xb, T, Cin, q0 - 1, kRows + 2, k0, ab, xs);
-    load_w_tile(w + (size_t)tap_a * Cin * Cout, Cout, k0, n0, ws);
-    load_w_tile(w + (size_t)tap_b * Cin * Cout, Cout, k0, n0, ws + kKC * kWld);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      FragA a0[2], a1[2];
-      FragB b0[2], b1[2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        wmma::load_matrix_sync(a0[mi], xs + (wm * 32 + mi * 16 + 1) * kXld + kk, kXld);
-        wmma::load_matrix_sync(a1[mi], xs + (wm * 32 + mi * 16 + row_b) * kXld + kk, kXld);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        wmma::load_matrix_sync(b0[ni], ws + kk * kWld + wn * 32 + ni * 16, kWld);
-        wmma::load_matrix_sync(b1[ni], ws + (kKC + kk) * kWld + wn * 32 + ni * 16, kWld);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          wmma::mma_sync(acc[mi][ni], a0[mi], b0[ni], acc[mi][ni]);
-          wmma::mma_sync(acc[mi][ni], a1[mi], b1[ni], acc[mi][ni]);
-        }
-    }
-  }
-  store_acc(sc, acc, wm, wn);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * kNC; i += kThreads) {
-    const int m = i / kNC, c = i % kNC, q = q0 + m;
-    if (q < T && n0 + c < Cout)
-      y[((size_t)b * T * s + (size_t)q * s + r) * Cout + n0 + c] =
-          __float2bfloat16_rn(sc[m * kSld + c] + bias[n0 + c]);
-  }
-}
-
 }  // namespace
 
 extern "C" int fsat_snake_conv1d(const void* x, const void* w, const float* bias, const float* ab,
@@ -414,18 +338,5 @@ extern "C" int fsat_fused_residual_unit(const void* x, const void* w1, const flo
   fused_residual_unit_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1, ab1,
       static_cast<const bf16*>(w2), b2, ab2, static_cast<bf16*>(y), T, C, dil);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fsat_snake_conv_transpose1d(const void* x, const void* w, const float* bias,
-                                           const float* ab, void* y, int B, int T, int Cin,
-                                           int Cout, int stride, void* stream) {
-  const size_t smem = upk_smem_bytes();
-  cudaError_t err = allow_smem(snake_conv_transpose1d_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kRows - 1) / kRows, stride * ((Cout + kNC - 1) / kNC), B);
-  snake_conv_transpose1d_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), bias, ab, static_cast<bf16*>(y), T,
-      Cin, Cout, stride);
   return (int)cudaGetLastError();
 }

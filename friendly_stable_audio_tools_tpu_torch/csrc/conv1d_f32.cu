@@ -1,14 +1,11 @@
-// K3 and K4 in fp32: the fused Oobleck residual unit and the fused snake ->
-// polyphase transposed conv for fp32 callers, channels-last.
+// K3 in fp32: the fused Oobleck residual unit for fp32 callers, channels-last.
 //
-// K3 fused_residual_unit_f32    replaces conv1d.py:_ru_forward / _ru_kernel (:507, :473)
-// K4 snake_conv_transpose1d_f32 replaces conv1d.py:_upk_forward / _upk_kernel (:262, :228)
-// (friendly_stable_audio_tools_tpu/ops/pallas/), whose kernels compute in the
+// K3 fused_residual_unit_f32 replaces conv1d.py:_ru_forward / _ru_kernel (:507, :473)
+// (friendly_stable_audio_tools_tpu/ops/pallas/), whose kernel computes in the
 // caller's dtype: for an fp32 model the snake stays fp32 and is not rounded,
 // the products and their sums are fp32, the bias adds in fp32.
 //
-// What bounds them: the products (K3 at C = 1024 is 16 x C^2 operations per
-// row). They must stay fp32-accurate, so they run as 3xTF32 on the tensor
+// What bounds it: the products (16 x C^2 operations per row, at C = 1024). They must stay fp32-accurate, so they run as 3xTF32 on the tensor
 // cores (WMMA m16n16k8): each operand a is split into a_big = tf32(a) and
 // a_small = tf32(a - a_big), and a.b is taken as a_big.b_small +
 // a_small.b_big + a_big.b_big with fp32 accumulation. The dropped
@@ -24,9 +21,8 @@
 // tile for all C columns (133 KB at C = 1024), which in fp32 would be 266 KB,
 // over a Hopper block's 227 KB. So the fp32 block owns 32 rows and steps the
 // input channels 16 at a time: h 132 KB, the seven taps' weights 61 KB, the x
-// tile 8 KB at dilation 9, 201 KB in all at C = 1024. K4 gives each block a
-// 64-row q tile of one output phase and 32 output columns, so any Cout % 32
-// == 0 runs it (the DAC decoder's 768, 384, 192, 96).
+// tile 8 KB at dilation 9, 201 KB in all at C = 1024. (K4 in fp32 is the
+// wgmma kernel of conv_wgmma.cu.)
 #include <mma.h>
 
 #include "common.cuh"
@@ -240,82 +236,6 @@ fused_residual_unit_f32_kernel(const float* __restrict__ x, const float* __restr
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4 fp32: snake -> ConvTranspose1d(k = 2s, stride s, padding s/2), polyphase.
-// Output phase r of row q reads x[q] (tap r + s/2) and x[q-1] (tap r + s/2 + s)
-// when r < s/2, x[q+1] (tap r + s/2 - s) otherwise (conv1d.py:217-225). One
-// block per (64-row q tile, phase x 32-column Cout chunk, batch); warps 4
-// (16 rows) x 2 (16 columns); 32 input channels per step.
-// ---------------------------------------------------------------------------
-
-constexpr int kUpRows = 64;
-constexpr int kUpNC = 32;
-constexpr int kUpKC = 32;
-constexpr int kUpXld = 40;  // x tile row stride (floats), a multiple of 8
-constexpr int kUpWld = 40;  // weight tile row stride
-constexpr int kUpSld = 40;  // epilogue scratch row stride
-
-size_t upk_f32_smem_bytes() {
-  return ((size_t)(kUpRows + 2) * kUpXld + (size_t)2 * kUpKC * kUpWld +
-          (size_t)kUpRows * kUpSld) * sizeof(float);
-}
-
-__global__ void __launch_bounds__(kThreads)
-snake_conv_transpose1d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                  const float* __restrict__ bias, const float* __restrict__ ab,
-                                  float* __restrict__ y, int T, int Cin, int Cout, int s) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [kUpRows + 2][kUpXld]: x[q0 - 1 + i]
-  float* ws = xs + (kUpRows + 2) * kUpXld;      // [2][kUpKC][kUpWld]
-  float* sc = ws + 2 * kUpKC * kUpWld;          // [kUpRows][kUpSld]
-
-  const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-  const int q0 = blockIdx.x * kUpRows, b = blockIdx.z;
-  const int r = blockIdx.y % s, n0 = (blockIdx.y / s) * kUpNC;
-  const int half = s / 2;
-  const bool left = r < half;
-  const int tap_a = r + half;                            // pairs with x[q]
-  const int tap_b = left ? r + half + s : r + half - s;  // pairs with x[q-1] or x[q+1]
-  const int row_b = left ? 0 : 2;                        // xs row of that neighbour for q = q0
-  const float* xb = x + (size_t)b * T * Cin;
-  FragC acc;
-  wmma::fill_fragment(acc, 0.f);
-
-  for (int k0 = 0; k0 < Cin; k0 += kUpKC) {
-    __syncthreads();
-    load_x_f32<kUpKC, kUpXld>(xb, T, Cin, q0 - 1, kUpRows + 2, k0, ab, xs);
-    load_w_f32<kUpKC, kUpNC, kUpWld>(w + (size_t)tap_a * Cin * Cout, Cout, k0, n0, ws);
-    load_w_f32<kUpKC, kUpNC, kUpWld>(w + (size_t)tap_b * Cin * Cout, Cout, k0, n0,
-                                     ws + kUpKC * kUpWld);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kUpKC; kk += 8) {
-      FragA a0, a0_s, a1, a1_s;
-      FragB b0, b0_s, b1, b1_s;
-      wmma::load_matrix_sync(a0, xs + (wm * 16 + 1) * kUpXld + kk, kUpXld);
-      wmma::load_matrix_sync(a1, xs + (wm * 16 + row_b) * kUpXld + kk, kUpXld);
-      wmma::load_matrix_sync(b0, ws + kk * kUpWld + wn * 16, kUpWld);
-      wmma::load_matrix_sync(b1, ws + (kUpKC + kk) * kUpWld + wn * 16, kUpWld);
-      split_tf32(a0, a0_s);
-      split_tf32(a1, a1_s);
-      split_tf32(b0, b0_s);
-      split_tf32(b1, b1_s);
-      FragC part;
-      wmma::fill_fragment(part, 0.f);
-      mma3(part, a0, a0_s, b0, b0_s);
-      mma3(part, a1, a1_s, b1, b1_s);
-      add_part(acc, part);
-    }
-  }
-  wmma::store_matrix_sync(sc + wm * 16 * kUpSld + wn * 16, acc, kUpSld, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kUpRows * kUpNC; i += kThreads) {
-    const int m = i / kUpNC, c = i % kUpNC, q = q0 + m;
-    if (q < T)
-      y[((size_t)b * T * s + (size_t)q * s + r) * Cout + n0 + c] = sc[m * kUpSld + c] + bias[n0 + c];
-  }
-}
-
 }  // namespace
 
 // K3 fp32: x, y [B, T, C] fp32; w1 [7, C, C], w2 [C, C] fp32; b1, b2 [C];
@@ -330,19 +250,5 @@ extern "C" int fsat_fused_residual_unit_f32(const float* x, const float* w1, con
   const dim3 grid((T + kRuRows - 1) / kRuRows, B);
   fused_residual_unit_f32_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, w1, b1, ab1, w2, b2, ab2, y, T, C, dil);
-  return (int)cudaGetLastError();
-}
-
-// K4 fp32: x [B, T, Cin], w [2s, Cin, Cout], bias [Cout], ab [2, Cin] or
-// null -> y [B, T*s, Cout], all fp32. Cin % 32 == 0, Cout % 32 == 0.
-extern "C" int fsat_snake_conv_transpose1d_f32(const float* x, const float* w, const float* bias,
-                                               const float* ab, float* y, int B, int T, int Cin,
-                                               int Cout, int stride, void* stream) {
-  const size_t smem = upk_f32_smem_bytes();
-  cudaError_t err = allow_smem(snake_conv_transpose1d_f32_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kUpRows - 1) / kUpRows, stride * (Cout / kUpNC), B);
-  snake_conv_transpose1d_f32_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w, bias, ab, y, T, Cin, Cout, stride);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,538 @@
+// K2 (its wide route) and K4 on Hopper: one tap-list implicit-GEMM kernel,
+// templated on the element type (bf16, fp32), channels-last.
+//
+// K2 snake_conv1d, wide route  replaces conv1d.py:_forward / _kernel (:91, :60)
+// K4 snake_conv_transpose1d    replaces conv1d.py:_upk_forward / _upk_kernel (:262, :228)
+// (friendly_stable_audio_tools_tpu/ops/pallas/).
+//
+// Both are sums over taps: a tap is an input row offset paired with a
+// [Cin, Cout] weight slice. K2's tap j reads x[t + j dil - pad] against
+// w[j], j < k; K4's output phase r of row q (y row q s + r) reads x[q]
+// against w[r + s/2], then x[q - 1] against w[r + s/2 + s] when r < s/2 or
+// x[q + 1] against w[r + s/2 - s] otherwise (conv1d.py:217-220). The
+// numerics are the TPU kernels': the snake in fp32 with the polynomial sin^2
+// (common.cuh), rounded to bf16 before the products in bf16 and not rounded
+// in fp32; fp32 accumulation; the bias in fp32; one rounding at the end.
+//
+// Bound (the products at 989 TFLOP/s in bf16 or 3xTF32's 165 in fp32, or
+// each input read and each output written once at 3.35 TB/s, the larger):
+// bf16 K2 8.64 ms per SA 1.0 DAC decode (its 768 -> 768 k7 conv 0.2736 ms),
+// fp32 K2 580.7 ms per SA 1.0 training step's DAC encode, bf16 K4 1.14 ms per
+// DAC decode, fp32 K4 22.49 ms per SA 2.0 decode; all set by the products.
+//
+// What bounded the kernels this replaces: K2 ran every conv on the CUDA
+// cores (FFMA, 16 input channels staged per step with scalar loads and two
+// __syncthreads), ~2% of the bf16 peak at the DAC's 768 -> 768 k7 conv (12.76
+// ms against a bound of 0.2736 ms, NVIDIA H100 80GB HBM3 at 700 W; cuDNN
+// 0.578); the WMMA K4 loaded its tiles synchronously, went through fp32
+// shared memory in its epilogue and wasted a quarter of its last 128-column
+// chunk at Cout 96 and 192; the fp32 K4 ran WMMA 3xTF32 on 32-column blocks
+// (~9% of the fp32-accurate rate). Here:
+// - A block owns 128 output rows x N columns (N | Cout, at most 256: 96, 192,
+//   768 = 3 x 256, 1536 and 2048 tile with no padding). Two consumer
+//   warpgroups of 64 rows each run wgmma; one producer warp keeps a ring of
+//   kStages stages filled by TMA, each stage guarded by a "full" mbarrier
+//   (TMA bytes) and an "empty" one (the consumers' release).
+// - A stage is one tap's A tile (128 rows x one 128-byte row of channels: 64
+//   bf16 or 32 fp32) and its B tile(s), each loaded by TMA from a 3-D tensor
+//   map: x [B, T, Cin] at row t0 + the tap's offset, and the weights, which
+//   the wrapper lays out K-major as [taps, Cout, Cin] (fsat_conv_weights,
+//   below). TMA fills rows < 0 and >= T, and channels >= Cin, with zeros, so
+//   K2's 'same' padding and K4's zero edges cost no code, and no tile crosses
+//   a batch. Each tap is its own load; the halo rows come from L2. The loop
+//   runs the taps inside the channel chunks, so consecutive loads read
+//   neighbouring rows of one channel slice.
+// - The snake, when given, is applied by each consumer warpgroup to its 64
+//   rows of the landed A tile, once per tap: bf16 in place through the
+//   swizzle, rounded to bf16, then fence.proxy.async; fp32 in registers.
+// - bf16: wgmma m64nNk16 with both operands from shared memory, fp32
+//   accumulators in registers.
+// - fp32 stays fp32-accurate as 3xTF32 (a.b = a_lo.b_hi + a_hi.b_lo +
+//   a_hi.b_hi, each part rounded to tf32 to nearest; the dropped a_lo.b_lo is
+//   ~2^-22 of the product): A is read from shared memory into registers,
+//   snaked, split, and fed as wgmma's register operand (m64nNk8 .tf32); B
+//   comes as two tf32-rounded K-major tiles, w_hi and w_lo, which the wrapper
+//   prepares per call ([taps, 2, Cout, Cin]: one transposing pass over the
+//   weights). The tensor cores' fp32 accumulate does not round to nearest:
+//   carried over a whole reduction its error grows with the length. So each
+//   stage's products (32 channels x 3) go into a register partial sum, which
+//   is added into the fp32 total on the CUDA cores (round to nearest) and
+//   zeroed every `flush` stages: conv1d.py:F32_FLUSH = 2 (64 channels). At
+//   the DAC encode's 7 x 1024 reduction the kernel's rel-L2 against fp64 is
+//   3.6e-7, 4.9e-7, 9.0e-7, 1.8e-6 and 4.9e-5 at 1, 2, 4, 8 stages and the
+//   whole reduction (the plain fp32 version's own 1.5e-6); 2 is the longest
+//   interval whose emulation with a truncating accumulate stays within 1e-6
+//   (tests/test_torch_conv_schedule.py); it costs ~5% against 4 stages.
+//   Zeroing the partial on the CUDA cores, rather than starting it with a
+//   scale-d = 0 wgmma, took 12-23% off at flush 2 (two runs).
+// - The epilogue adds the fp32 bias, rounds once and stores from registers:
+//   K2 rows t, K4 rows q s + r (a block keeps one phase).
+// Tile width and stages, measured on an H100 80GB HBM3 at 700 W
+// (conv_variants.py): N is the widest of the instantiated widths that
+// divides Cout (conv1d.py:conv_tile_n): at the DAC's 768 -> 768 k7 conv in
+// bf16 0.398 ms at N 256 against 0.420, 0.475, 0.553, 0.740 and 0.876 ms at
+// 192, 128, 96, 64 and 32, and the widest was the fastest at every DAC
+// shape but the 64-channel conv_in. At most 4 stages fill the ring (bf16 N
+// 256 and fp32 N 128: 4 x 48 KB): at the DAC decode's shapes 3 and 6 stages
+// were up to 16% and 5% slower, and at most 1% faster. ptxas gives the
+// 288 threads 168 registers (as for 384: three warpgroups), and bf16 N 256
+// and fp32 N 128 spill 24 and 80 bytes. The Cout chunk varies fastest across
+// the grid, so the blocks of one row tile run together and share their A
+// tiles in L2.
+#include "hopper.cuh"
+
+using namespace fsat_hopper;
+
+namespace {
+
+constexpr int kConsumers = 2;                     // warpgroups of 64 rows
+constexpr int kM = 64 * kConsumers;               // output rows per block
+constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
+constexpr int kATile = kM * kSwizzleRow;          // one tap's A tile: 16 KB
+constexpr int kMaxStages = 4;
+constexpr int kSmemBudget = 227 * 1024 - 1024 - 2 * kMaxStages * 8;
+
+template <typename T>
+struct ConvElem;
+template <>
+struct ConvElem<bf16> {
+  static constexpr int kKC = 64;     // channels in one 128-byte row
+  static constexpr int kBTiles = 1;  // w
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct ConvElem<float> {
+  static constexpr int kKC = 32;
+  static constexpr int kBTiles = 2;  // w_hi, w_lo
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+template <typename T, int N>
+struct ConvTile {
+  static constexpr int kKC = ConvElem<T>::kKC;
+  static constexpr int kBTiles = ConvElem<T>::kBTiles;
+  static constexpr int kBTile = N * kSwizzleRow;
+  static constexpr int kStage = kATile + kBTiles * kBTile;
+  static constexpr int kStages = kSmemBudget / kStage < kMaxStages ? kSmemBudget / kStage : kMaxStages;
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStage + 2 * kStages * sizeof(uint64_t);
+};
+
+// What one launch computes.
+struct ConvPlan {
+  int T;         // rows of x (K4: input rows q)
+  int cin, cout;
+  int taps;      // taps per output row: K2 k, K4 2
+  int dil, pad;  // K2
+  int stride;    // K4 s (even); 0 for K2
+  int n_chunks;  // Cout / N
+  int flush;     // fp32: stages per tensor-core partial sum
+};
+
+// The weight slice and the input row offset of tap j (K4: of output phase `phase`).
+__device__ __forceinline__ void tap_at(const ConvPlan& p, int phase, int j, int& w_index,
+                                       int& row_off) {
+  if (p.stride == 0) {
+    w_index = j;
+    row_off = j * p.dil - p.pad;
+    return;
+  }
+  const int half = p.stride / 2;
+  const bool left = phase < half;
+  w_index = j == 0 ? phase + half : (left ? phase + half + p.stride : phase + half - p.stride);
+  row_off = j == 0 ? 0 : (left ? -1 : 1);
+}
+
+// ---- the products ------------------------------------------------------------
+
+// d += A B, m64nCHk16, bf16 A and B K-major in shared memory.
+template <int CH>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[CH / 2], uint64_t da, uint64_t db) {
+  if constexpr (CH == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FSAT_WGMMA_D16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : FSAT_WGMMA_OUT16(d)
+        : "l"(da), "l"(db), "r"(1));
+  } else if constexpr (CH == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FSAT_WGMMA_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : FSAT_WGMMA_OUT32(d)
+        : "l"(da), "l"(db), "r"(1));
+  } else if constexpr (CH == 96) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " FSAT_WGMMA_D48
+        ", %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : FSAT_WGMMA_OUT48(d)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    static_assert(CH == 128, "bf16 wgmma widths: 32, 64, 96, 128");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FSAT_WGMMA_D64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : FSAT_WGMMA_OUT64(d)
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+// d (+)= A B, m64nCHk8, tf32 A from registers (a[e]: row g + 8 (e & 1),
+// column t + 4 (e >> 1) of the warp's 16 x 8 slice), B K-major in shared
+// memory; d is first zeroed when accumulate == 0.
+template <int CH>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[CH / 2], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  if constexpr (CH == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FSAT_WGMMA_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : FSAT_WGMMA_OUT16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    static_assert(CH == 64, "tf32 wgmma widths: 32, 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FSAT_WGMMA_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : FSAT_WGMMA_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+
+// fp32 -> tf32, round to nearest (ties away), in an fp32 container.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// ---- the snake on a landed A tile ----------------------------------------------
+
+// The bf16 snake in place on 64 rows of a 128B-swizzled tile of 64 channels
+// from c0 (physical chunk p of row r holds channels c0 + 8 (p ^ (r & 7)) ..
+// + 8); channels at or past Cin (zeros) are left alone. Cin % 8 == 0.
+__device__ __forceinline__ void snake_rows_bf16(unsigned char* rows, int c0, int cin,
+                                                const float* __restrict__ ab, int tid) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = tid + q * 128, r = i >> 3, p = i & 7;
+    const int ch = c0 + ((p ^ (r & 7)) << 3);
+    if (ch < cin) {
+      uint4* ptr = reinterpret_cast<uint4*>(rows + r * kSwizzleRow + p * 16);
+      Pack8 v;
+      v.u = *ptr;
+      const float4 a0 = *reinterpret_cast<const float4*>(ab + ch);
+      const float4 a1 = *reinterpret_cast<const float4*>(ab + ch + 4);
+      const float4 i0 = *reinterpret_cast<const float4*>(ab + cin + ch);
+      const float4 i1 = *reinterpret_cast<const float4*>(ab + cin + ch + 4);
+      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float ib[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v.h[e] = __float2bfloat16_rn(snake_poly(__bfloat162float(v.h[e]), al[e], ib[e]));
+      *ptr = v.u;
+    }
+  }
+}
+
+// ---- the kernel -------------------------------------------------------------------
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Bias, one rounding, and the store of a warpgroup's 64 x N accumulator:
+// K2 rows t, K4 rows q s + phase; rows at or past T are dropped.
+template <typename T, int N, int CH>
+__device__ __forceinline__ void store_tile(const float (&acc)[N / CH][CH / 2], const ConvPlan& p,
+                                           const float* __restrict__ bias, T* __restrict__ y, int b,
+                                           int row0, int n0, int phase, int tq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = row0 + 8 * h;
+    if (t >= p.T) continue;
+    const size_t out_row =
+        p.stride ? ((size_t)b * p.T + t) * p.stride + phase : (size_t)b * p.T + t;
+    T* dst = y + out_row * p.cout + n0 + 2 * tq;
+    const float* bb = bias + n0 + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < N / CH; ++c)
+#pragma unroll
+      for (int j = 0; j < CH / 8; ++j) {
+        const int col = c * CH + 8 * j;
+        store2(dst + col, acc[c][4 * j + 2 * h] + bb[col], acc[c][4 * j + 2 * h + 1] + bb[col + 1]);
+      }
+  }
+}
+
+template <typename T, int N, int CH>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_taps_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ bias, const float* __restrict__ ab, T* __restrict__ y,
+                 const ConvPlan p) {
+  using Tile = ConvTile<T, N>;
+  constexpr int kStages = Tile::kStages;
+  constexpr int kNC = N / CH;  // wgmma column blocks of the tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * Tile::kStage);
+  uint64_t* empty = full + kStages;
+
+  const int chunk = blockIdx.x % p.n_chunks;
+  const int rest = blockIdx.x / p.n_chunks;
+  const int phase = p.stride ? rest % p.stride : 0;
+  const int r0 = (p.stride ? rest / p.stride : rest) * kM;
+  const int n0 = chunk * N, b = blockIdx.y;
+  const int n_iter = (p.cin + Tile::kKC - 1) / Tile::kKC * p.taps;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // the producer warp: one thread starts the loads
+    if (threadIdx.x == kConsumers * 128) {
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) + 1) & 1);
+        int w_index, row_off;
+        tap_at(p, phase, it % p.taps, w_index, row_off);
+        const int c0 = (it / p.taps) * Tile::kKC;
+        unsigned char* st = smem + s * Tile::kStage;
+        mbar_expect_tx(&full[s], Tile::kStage);
+        tma_load_3d(st, &xmap, &full[s], c0, r0 + row_off, b);
+#pragma unroll
+        for (int h = 0; h < Tile::kBTiles; ++h)
+          tma_load_3d(st + kATile + h * Tile::kBTile, &wmap, &full[s], c0, n0,
+                      w_index * Tile::kBTiles + h);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows r0 + 64 wg .. + 64
+  const int tid = threadIdx.x & 127, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int row_a = wg * 64 + warp * 16 + g;  // the lane's first row in the A tile
+  float acc[kNC][CH / 2];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < CH / 2; ++i) acc[c][i] = 0.f;
+
+  if constexpr (sizeof(T) == 2) {
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kStages;
+      unsigned char* st = smem + s * Tile::kStage;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      if (ab != nullptr) {
+        snake_rows_bf16(st + wg * 64 * kSwizzleRow, (it / p.taps) * Tile::kKC, p.cin, ab, tid);
+        fence_proxy_async();
+        bar_sync(1 + wg, 128);
+      }
+      const uint32_t a_addr = smem_u32(st) + wg * 64 * kSwizzleRow;
+      const uint32_t b_addr = smem_u32(st) + kATile;
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) reg_fence(acc[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int c = 0; c < kNC; ++c)
+          wgmma_bf16<CH>(acc[c], kmajor_desc(a_addr + kk * 32),
+                         kmajor_desc(b_addr + c * CH * kSwizzleRow + kk * 32));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) reg_fence(acc[c]);
+      mbar_arrive(&empty[s]);
+    }
+  } else {
+    float part[kNC][CH / 2];
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int i = 0; i < CH / 2; ++i) part[c][i] = 0.f;
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kStages;
+      const unsigned char* st = smem + s * Tile::kStage;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      const int c0 = (it / p.taps) * Tile::kKC;
+      uint32_t a_hi[4][4], a_lo[4][4];  // the four k8 slices of the stage's 32 channels
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row_a + 8 * (e & 1), col = 8 * kk + tq + 4 * (e >> 1);
+          float v = *reinterpret_cast<const float*>(st + sw128_offset(r, col >> 2) + (col & 3) * 4);
+          const int ch = c0 + col;
+          if (ab != nullptr && ch < p.cin) v = snake_poly(v, ab[ch], ab[p.cin + ch]);
+          a_hi[kk][e] = tf32_rna(v);
+          a_lo[kk][e] = tf32_rna(v - __uint_as_float(a_hi[kk][e]));
+        }
+      const uint32_t hi_addr = smem_u32(st) + kATile, lo_addr = hi_addr + Tile::kBTile;
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) reg_fence(part[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int c = 0; c < kNC; ++c) {
+          const uint32_t off = c * CH * kSwizzleRow + kk * 32;
+          wgmma_tf32<CH>(part[c], a_lo[kk], kmajor_desc(hi_addr + off), 1);
+          wgmma_tf32<CH>(part[c], a_hi[kk], kmajor_desc(lo_addr + off), 1);
+          wgmma_tf32<CH>(part[c], a_hi[kk], kmajor_desc(hi_addr + off), 1);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) reg_fence(part[c]);
+      mbar_arrive(&empty[s]);
+      if ((it + 1) % p.flush == 0 || it + 1 == n_iter) {
+#pragma unroll
+        for (int c = 0; c < kNC; ++c)
+#pragma unroll
+          for (int i = 0; i < CH / 2; ++i) {
+            acc[c][i] += part[c][i];
+            part[c][i] = 0.f;
+          }
+      }
+    }
+  }
+  store_tile<T, N, CH>(acc, p, bias, y, b, r0 + row_a, n0, phase, tq);
+}
+
+template <typename T, int N, int CH>
+int launch_conv_taps(const ConvPlan& p, const void* x, const void* wk, int w_taps,
+                     const float* bias, const float* ab, void* y, int B, cudaStream_t stream) {
+  using Tile = ConvTile<T, N>;
+  CUtensorMap xmap, wmap;
+  cudaError_t err = sw128_map_3d(&xmap, ConvElem<T>::kMap, sizeof(T), x, p.cin, p.T, B,
+                                 Tile::kKC, kM);
+  if (err == cudaSuccess)
+    err = sw128_map_3d(&wmap, ConvElem<T>::kMap, sizeof(T), wk, p.cin, p.cout,
+                       (uint64_t)w_taps * Tile::kBTiles, Tile::kKC, N);
+  if (err == cudaSuccess) err = allow_smem(conv_taps_kernel<T, N, CH>, Tile::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((p.T + kM - 1) / kM) * (p.stride ? p.stride : 1) * p.n_chunks;
+  if (blocks >= (1ll << 31) || B > 65535) return (int)cudaErrorInvalidConfiguration;
+  conv_taps_kernel<T, N, CH><<<dim3((unsigned)blocks, B), kThreads, Tile::kSmem, stream>>>(
+      xmap, wmap, bias, ab, static_cast<T*>(y), p);
+  return (int)cudaGetLastError();
+}
+
+// Picks the instantiation of tile width n (conv1d.py:TILE_N): bf16 composes
+// 256 and 192 from two wgmmas of 128 and 96 columns, fp32 128 and 96 from
+// two of 64 and three of 32.
+template <typename T>
+int dispatch(ConvPlan p, int n, const void* x, const void* wk, int w_taps, const float* bias,
+             const float* ab, void* y, int B, void* stream) {
+  if (n <= 0 || p.cout % n || p.cin * (int)sizeof(T) % 16 || p.flush < 1)
+    return (int)cudaErrorInvalidValue;
+  p.n_chunks = p.cout / n;
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (sizeof(T) == 2) {
+    switch (n) {
+      case 256: return launch_conv_taps<T, 256, 128>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 192: return launch_conv_taps<T, 192, 96>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 128: return launch_conv_taps<T, 128, 128>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 96: return launch_conv_taps<T, 96, 96>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 64: return launch_conv_taps<T, 64, 64>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 32: return launch_conv_taps<T, 32, 32>(p, x, wk, w_taps, bias, ab, y, B, st);
+    }
+  } else {
+    switch (n) {
+      case 128: return launch_conv_taps<T, 128, 64>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 96: return launch_conv_taps<T, 96, 32>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 64: return launch_conv_taps<T, 64, 64>(p, x, wk, w_taps, bias, ab, y, B, st);
+      case 32: return launch_conv_taps<T, 32, 32>(p, x, wk, w_taps, bias, ab, y, B, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- the weights, K-major ---------------------------------------------------------
+
+// w [taps, Cin, Cout] -> [taps, Cout, Cin] (bf16), or [taps, 2, Cout, Cin]
+// fp32 with w_hi = tf32(w) and w_lo = tf32(w - w_hi) (kSplit), through a
+// 32 x 32 shared-memory transpose.
+template <typename T, bool kSplit>
+__global__ void conv_weights_kernel(const T* __restrict__ w, T* __restrict__ out, int cin,
+                                    int cout) {
+  __shared__ float tile[32][33];
+  const int j = blockIdx.z, c0 = blockIdx.y * 32, n0 = blockIdx.x * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, n = n0 + tx;
+    float v = 0.f;
+    if (c < cin && n < cout) {
+      if constexpr (sizeof(T) == 2) v = __bfloat162float(w[((size_t)j * cin + c) * cout + n]);
+      else v = w[((size_t)j * cin + c) * cout + n];
+    }
+    tile[i][tx] = v;
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int n = n0 + i, c = c0 + tx;
+    if (n >= cout || c >= cin) continue;
+    const float v = tile[tx][i];
+    if constexpr (kSplit) {
+      const uint32_t hi = tf32_rna(v);
+      out[((size_t)(2 * j) * cout + n) * cin + c] = __uint_as_float(hi);
+      out[((size_t)(2 * j + 1) * cout + n) * cin + c] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+    } else {
+      out[((size_t)j * cout + n) * cin + c] = __float2bfloat16_rn(v);  // exact: v is a bf16
+    }
+  }
+}
+
+}  // namespace
+
+// w [taps, Cin, Cout] -> out: [taps, Cout, Cin] bf16 (f32 == 0) or [taps, 2,
+// Cout, Cin] fp32 tf32 hi/lo parts (f32 != 0), the wide kernel's weights.
+extern "C" int fsat_conv_weights(const void* w, void* out, int taps, int cin, int cout, int f32,
+                                 void* stream) {
+  const dim3 grid((cout + 31) / 32, (cin + 31) / 32, taps), block(32, 8);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    conv_weights_kernel<float, true><<<grid, block, 0, st>>>(static_cast<const float*>(w),
+                                                             static_cast<float*>(out), cin, cout);
+  else
+    conv_weights_kernel<bf16, false><<<grid, block, 0, st>>>(static_cast<const bf16*>(w),
+                                                             static_cast<bf16*>(out), cin, cout);
+  return (int)cudaGetLastError();
+}
+
+// K2, wide route: x [B, T, Cin], wk from fsat_conv_weights (k taps), bias
+// [Cout] fp32, ab [2, Cin] fp32 or null -> y [B, T, Cout]; bf16 (f32 == 0)
+// or fp32 with `flush` stages per tensor-core partial sum. n: the tile
+// width, n | Cout; Cin * elem % 16 == 0.
+extern "C" int fsat_conv_taps_k2(const void* x, const void* wk, const float* bias, const float* ab,
+                                 void* y, int B, int T, int Cin, int Cout, int K, int dil, int pad,
+                                 int n, int f32, int flush, void* stream) {
+  const ConvPlan p{T, Cin, Cout, K, dil, pad, 0, 0, flush};
+  return f32 ? dispatch<float>(p, n, x, wk, K, bias, ab, y, B, stream)
+             : dispatch<bf16>(p, n, x, wk, K, bias, ab, y, B, stream);
+}
+
+// K4: x [B, T, Cin], wk from fsat_conv_weights (2 s taps), bias, ab as K2
+// -> y [B, T s, Cout]; s even.
+extern "C" int fsat_conv_taps_k4(const void* x, const void* wk, const float* bias, const float* ab,
+                                 void* y, int B, int T, int Cin, int Cout, int stride, int n,
+                                 int f32, int flush, void* stream) {
+  if (stride < 2 || stride % 2) return (int)cudaErrorInvalidValue;
+  const ConvPlan p{T, Cin, Cout, 2, 1, 0, stride, 0, flush};
+  return f32 ? dispatch<float>(p, n, x, wk, 2 * stride, bias, ab, y, B, stream)
+             : dispatch<bf16>(p, n, x, wk, 2 * stride, bias, ab, y, B, stream);
+}

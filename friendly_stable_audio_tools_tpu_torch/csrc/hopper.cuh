@@ -1,0 +1,202 @@
+// Hopper building blocks shared by the wgmma/TMA kernels (attention.cu,
+// attention_bwd.cu, conv_wgmma.cu): mbarriers, TMA loads into
+// mbarrier-guarded shared memory, warpgroup matrix products (wgmma) on
+// 128B-swizzled tiles, and the host-side tensor maps. A tile row is 128
+// bytes (64 bf16 or 32 fp32), exactly one row of the 128-byte swizzle, so a
+// TMA load with CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the layout wgmma
+// reads.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encode is reached through the runtime
+
+#include "common.cuh"
+
+namespace fsat_hopper {
+
+constexpr int kSwizzleRow = 128;  // bytes in one row of the 128B swizzle
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of the 16-byte chunk `chunk` of row `row` in a 128B-swizzled
+// tile whose base is 1024-byte aligned (what TMA's SWIZZLE_128B writes).
+__device__ __forceinline__ uint32_t sw128_offset(int row, int chunk) {
+  return row * kSwizzleRow + ((chunk ^ (row & 7)) << 4);
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A wait of 2^26
+// polls (seconds) means a fault in the pipeline: it traps, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) asm volatile("trap;\n");
+  }
+}
+
+// Makes this thread's generic-proxy shared-memory writes visible to the async
+// proxy (wgmma operands, bulk copies); a barrier must follow before the reader.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bar.sync on named barrier `id` (1..15; 0 is __syncthreads) over n threads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// Box (c0, c1, c2) of a 3-D tensor map into dst, completion counted on bar.
+// Coordinates may be negative or run past the tensor: those elements arrive
+// as zeros (and count towards the transaction bytes like the others).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128B-swizzled tile at `addr`
+// (1024-byte aligned atoms; a K-major operand may start 32*j bytes into its
+// atom to take the j-th 32-byte deep slice: 16 bf16 or 8 tf32). K-major:
+// 8-row groups `sbo` apart, `lbo` unused. MN-major: an atom is 8 K-rows of 64
+// MN elements; K groups of 8 rows `sbo` apart, MN atoms `lbo` apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major tile of 128-byte rows: 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma (from its start to its wait).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Operand lists of the fp32 accumulator of an m64nN wgmma (N / 2 registers
+// per thread). The layout per warp w of the warpgroup and lane l (g = l / 4,
+// t = l % 4): d[4j + e] is row 16w + g + 8 (e / 2), column 8j + 2t + (e % 2).
+#define FSAT_IDX_0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define FSAT_IDX_16 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define FSAT_IDX_32 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define FSAT_IDX_48 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define FSAT_WGMMA_D16 "{" FSAT_IDX_0 "}"
+#define FSAT_WGMMA_D32 "{" FSAT_IDX_0 ", " FSAT_IDX_16 "}"
+#define FSAT_WGMMA_D48 "{" FSAT_IDX_0 ", " FSAT_IDX_16 ", " FSAT_IDX_32 "}"
+#define FSAT_WGMMA_D64 "{" FSAT_IDX_0 ", " FSAT_IDX_16 ", " FSAT_IDX_32 ", " FSAT_IDX_48 "}"
+#define FSAT_OUT16(d, o)                                                                         \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]),    \
+      "+f"(d[o + 6]), "+f"(d[o + 7]), "+f"(d[o + 8]), "+f"(d[o + 9]), "+f"(d[o + 10]),           \
+      "+f"(d[o + 11]), "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), "+f"(d[o + 15])
+#define FSAT_WGMMA_OUT16(d) FSAT_OUT16(d, 0)
+#define FSAT_WGMMA_OUT32(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16)
+#define FSAT_WGMMA_OUT48(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16), FSAT_OUT16(d, 32)
+#define FSAT_WGMMA_OUT64(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16), FSAT_OUT16(d, 32), FSAT_OUT16(d, 48)
+
+// ---- host: tensor maps --------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 128B-swizzled map over a row-major [d2, d1, d0] tensor (d0 contiguous,
+// `elem` bytes each) whose boxes are [1, box1, box0]; coordinates (i0, i1,
+// i2); elements outside the tensor read as zeros, and no box crosses into
+// the next d2 slice. d0 * elem must be a multiple of 16 and box0 * elem 128.
+inline cudaError_t sw128_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
+                                const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                                uint32_t box0, uint32_t box1) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * elem, d1 * d0 * elem};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, dtype, 3, const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Rounds a dynamic shared-memory base up to 1024 bytes (the swizzle atom).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+}  // namespace fsat_hopper

@@ -47,8 +47,9 @@ SIGNATURES = {
     "fsat_snake_conv1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_fused_residual_unit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fsat_fused_residual_unit_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fsat_snake_conv_transpose1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fsat_snake_conv_transpose1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fsat_conv_weights": [_P, _P, _I, _I, _I, _I, _P],
+    "fsat_conv_taps_k2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_conv_taps_k4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_glu_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fsat_glu_mlp_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fsat_ln_modulate": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],

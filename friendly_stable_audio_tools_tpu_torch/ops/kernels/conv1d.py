@@ -1,10 +1,10 @@
 """Fused snake -> conv kernels of the Oobleck VAE (K2, K3, K4).
 
 Each public function takes channels-last tensors ``[B, T, C]`` and runs
-either its CUDA kernel (``csrc/conv1d.cu``) or its plain PyTorch version:
-the plain version for a tensor on the CPU, the kernel for a tensor on a
-CUDA device, where the wrapper raises on anything the kernel does not take.
-Nothing falls back from the kernel to the plain version.
+either a CUDA kernel or its plain PyTorch version: the plain version for a
+tensor on the CPU, a kernel for a tensor on a CUDA device, where the wrapper
+raises on anything the kernel does not take. Nothing falls back from the
+kernel to the plain version.
 
 The kernels have no backward, as the JAX package has none in Pallas (it
 differentiates the plain XLA forms, conv1d.py:159-163, 401-409, 557-561):
@@ -19,37 +19,38 @@ products (:67-70), fp32 accumulation, bias in fp32, one rounding at the end.
 The kernels dispatch on the activation dtype as the Pallas kernels compute
 in it: bf16 activations run the bf16 kernels; fp32 activations (an fp32
 model, which is what the reference runs unless a config sets `model_half`)
-run fp32 kernels that round nothing (csrc/conv1d_f32.cu; K2 is one kernel
-templated on the element type). The fp32 K3 and K4 run their products as
-3xTF32 on the tensor cores (each operand split into two TF32 parts, three
-products), which keeps fp32 accuracy; 1xTF32 would keep ~3 digits.
+run fp32 kernels that round nothing. The fp32 tensor-core products are
+3xTF32 (each operand split into two TF32 parts, three products), which
+keeps fp32 accuracy; 1xTF32 would keep ~3 digits.
 
 What bounds them on the H100, and what the design does about it:
 
-* K2 ``snake_conv1d`` (replaces ``_forward``/``_kernel``, conv1d.py:91, :60).
-  The decoder's two stride-1 convs are thin: conv_in is 64 -> 2048 over 1024
-  frames, conv_out 128 -> 2 over 2,097,152 samples; the encoder's are
-  2 -> 128 (k 7) over 2,097,152 samples and 2048 -> 128 (k 3) over 1024
-  frames, at training batch 8. Input channels are staged 16 at a time with
-  the channels past Cin zero, so Cin = 2 is read in bounds. conv_out is bound by
-  reading its 512 MB input once; a tensor-core tile would be 98% padding at
-  Cout = 2. The kernel keeps an x tile and its halo in shared memory, applies
-  the snake once per element, and accumulates 16 rows of one output column
-  per thread on the CUDA cores.
+* K2 ``snake_conv1d`` (replaces ``_forward``/``_kernel``, conv1d.py:91, :60)
+  takes one of two kernels by shape alone (:func:`conv_route`). Its wide
+  convolutions (the DAC's residual k7 and 1x1 convs at 96-1536 channels,
+  the Oobleck's 64 -> 2048 and 2048 -> 128, the SEANet's) are GEMMs over
+  taps, bound by tensor-core work: they run the wgmma kernel of
+  ``csrc/conv_wgmma.cu`` (TMA-fed 128 x N tiles, N | Cout up to 256,
+  :func:`conv_tile_n`), bf16 or 3xTF32. Its thin convolutions, Cout 2 (the
+  decoders' conv_out: bound by reading the input once; a tensor-core tile
+  would be 98% padding) and Cin 1 or 2 (the encoders' conv_in, whose rows TMA
+  cannot map), stay on the CUDA cores (``csrc/conv1d.cu``: an x tile and its
+  halo in shared memory, the snake once per element, 16 rows of one output
+  column per thread).
 * K3 ``fused_residual_unit`` (replaces ``_ru_forward``/``_ru_kernel``,
   conv1d.py:507, :473). Bound by tensor-core work (~137 GFLOP per unit at
   C = 1024) and by shared memory: Hopper gives a block 227 KB against the
   TPU's multi-MB VMEM, so the block holds a 64-row tile of ``h`` for all C
   columns (133 KB at C = 1024) and builds it 128 columns at a time; the x
   tile with its 6*dilation halo is loaded once per 32-channel step and
-  serves all seven taps. ``h`` never reaches device memory.
+  serves all seven taps. ``h`` never reaches device memory. (fp32:
+  ``csrc/conv1d_f32.cu``.)
 * K4 ``snake_conv_transpose1d`` (replaces ``_upk_forward``/``_upk_kernel``,
   conv1d.py:262, :228). Polyphase: each output phase is a two-tap product
-  of x[q] with x[q-1] or x[q+1], so a block computes one phase for a q tile
-  and writes its rows of the interleaved output; no zero-stuffed input is
-  ever formed. Both kernels take Cin and Cout in multiples of 32; the bf16
-  one works in 128-column chunks of Cout, the last of which may be partial
-  (the DAC decoder's 384 -> 192 and 192 -> 96 upsamples).
+  of x[q] with x[q-1] or x[q+1], so it is the same tap-list GEMM as K2's
+  wide route, in the same kernel: a block computes one phase for a 128-row
+  q tile and writes its rows of the interleaved output; no zero-stuffed
+  input is ever formed.
 
 The TPU package sends some decoder shapes to plain XLA for lack of VMEM
 (``_upk_gemm`` for cin 2048/1024, ``_ru_xla`` for C = 1024). Hopper has no
@@ -66,13 +67,24 @@ import torch.nn.functional as F
 from . import build
 
 # launch counts: each wrapper adds one where it launches its kernel (the
-# bf16 kernels, then the fp32 ones)
+# bf16 kernels, then the fp32 ones); K2 counts its thin route
+# (snake_conv1d_*) and its wide route (snake_conv1d_wide_*) apart
 snake_conv1d_launches = 0
+snake_conv1d_wide_launches = 0
 fused_residual_unit_launches = 0
 snake_conv_transpose1d_launches = 0
 snake_conv1d_f32_launches = 0
+snake_conv1d_wide_f32_launches = 0
 fused_residual_unit_f32_launches = 0
 snake_conv_transpose1d_f32_launches = 0
+
+# the wgmma kernel's Cout tile widths, widest first (csrc/conv_wgmma.cu:
+# dispatch); bf16 up to 256 columns, fp32 up to 128 (its tensor-core partial
+# sum and fp32 total both live in registers)
+TILE_N = {torch.bfloat16: (256, 192, 128, 96, 64, 32), torch.float32: (128, 96, 64, 32)}
+# fp32: stages (32 input channels of one tap each) per tensor-core partial
+# sum before it is added into the fp32 total (csrc/conv_wgmma.cu)
+F32_FLUSH = 2
 
 _INV_PI = 0.3183098861837907
 _SIN2_C = (9.869603239633658, -32.469601846083854, 42.72581061829601,
@@ -111,6 +123,53 @@ def _stack_snake(alpha, inv_beta) -> tp.Optional[torch.Tensor]:
     if alpha is None:
         return None
     return torch.stack([alpha.float(), inv_beta.float()]).contiguous()
+
+
+def conv_tile_n(cout: int, dtype) -> tp.Optional[int]:
+    """The wgmma kernel's Cout tile width for `cout` outputs: the widest of
+    TILE_N[dtype] that divides it (768 -> 256, 384 and 192 -> 192, 96 -> 96
+    in bf16), or None when none does."""
+    return next((n for n in TILE_N[dtype] if cout % n == 0), None)
+
+
+def conv_route(cin: int, cout: int, k: int, dtype) -> str:
+    """K2's kernel for a [*, cin] -> [*, cout] conv of `k` taps on `dtype`
+    activations, by the shape alone: "wide" (csrc/conv_wgmma.cu) or "thin"
+    (the CUDA-core kernel of csrc/conv1d.cu).
+
+    Thin: Cin * elem % 16 != 0 (Cin 1 and 2: the encoders' conv_in, whose
+    rows TMA cannot map) or a Cout that no tile width divides (Cout 1 and 2:
+    the decoders' conv_out, bound by reading its input once, where a
+    tensor-core tile would be almost all padding). Every other shape
+    chip_smoke.py times, from the SEANet's 32 channels to the DAC's 1536,
+    takes the wide kernel (`k` plays no part: 1x1 and k7 convs take the same
+    route)."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if (cin * elem) % 16 or conv_tile_n(cout, dtype) is None:
+        return "thin"
+    return "wide"
+
+
+def _k_major_weights(w: torch.Tensor, dtype) -> torch.Tensor:
+    """w [taps, Cin, Cout] -> the wgmma kernel's K-major weights: [taps,
+    Cout, Cin] in bf16, or [taps, 2, Cout, Cin] fp32 holding the tf32
+    parts w_hi = tf32(w), w_lo = tf32(w - w_hi) (one pass over the weights,
+    ``fsat_conv_weights``)."""
+    taps, cin, cout = w.shape
+    f32 = dtype == torch.float32
+    wc = w.to(dtype).contiguous()
+    out = torch.empty((taps, 2, cout, cin) if f32 else (taps, cout, cin), device=w.device,
+                      dtype=dtype)
+    err = build.library().fsat_conv_weights(_ptr(wc), _ptr(out), taps, cin, cout, int(f32),
+                                            _stream(w.device))
+    build.check(err, "conv weights")
+    return out
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte aligned address, as a TMA tensor map needs."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _check_cuda(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
@@ -161,6 +220,7 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
     parameters (None skips the snake). The plain version takes the same
     arguments."""
     global snake_conv1d_launches, snake_conv1d_f32_launches
+    global snake_conv1d_wide_launches, snake_conv1d_wide_f32_launches
     k, cin, cout = w.shape
     if padding is None:
         padding = (dilation * (k - 1)) // 2
@@ -171,18 +231,30 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
     _check_cuda("snake_conv1d", x, w, bias, alpha, inv_beta)
     ab = _stack_snake(alpha, inv_beta)
     b, t, _ = x.shape
-    x = x.contiguous()
-    wc = w.to(x.dtype).contiguous()
+    f32 = x.dtype == torch.float32
     bias = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
     y = torch.empty(b, t, cout, device=x.device, dtype=x.dtype)
     lib = build.library()
-    fn = lib.fsat_snake_conv1d_f32 if x.dtype == torch.float32 else lib.fsat_snake_conv1d
-    err = fn(_ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, k, dilation,
-             padding, _stream(x.device))
-    if x.dtype == torch.float32:
-        snake_conv1d_f32_launches += 1
+    if conv_route(cin, cout, k, x.dtype) == "wide":
+        x = _tma_ready(x)
+        err = lib.fsat_conv_taps_k2(_ptr(x), _ptr(_k_major_weights(w, x.dtype)), _ptr(bias),
+                                    _ptr(ab), _ptr(y), b, t, cin, cout, k, dilation, padding,
+                                    conv_tile_n(cout, x.dtype), int(f32), F32_FLUSH,
+                                    _stream(x.device))
+        if f32:
+            snake_conv1d_wide_f32_launches += 1
+        else:
+            snake_conv1d_wide_launches += 1
     else:
-        snake_conv1d_launches += 1
+        x = x.contiguous()
+        wc = w.to(x.dtype).contiguous()
+        fn = lib.fsat_snake_conv1d_f32 if f32 else lib.fsat_snake_conv1d
+        err = fn(_ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, k, dilation,
+                 padding, _stream(x.device))
+        if f32:
+            snake_conv1d_f32_launches += 1
+        else:
+            snake_conv1d_launches += 1
     build.check(err, "snake_conv1d")
     return y
 
@@ -284,18 +356,17 @@ def snake_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[t
     _check_cuda("snake_conv_transpose1d", x, w, bias, alpha, inv_beta)
     ab = _stack_snake(alpha, inv_beta)
     f32 = x.dtype == torch.float32
-    if cin % 32 or cout % 32:
-        raise ValueError(f"snake_conv_transpose1d: the CUDA kernels take Cin % 32 == 0 and "
-                         f"Cout % 32 == 0, got {cin} -> {cout}")
+    n = conv_tile_n(cout, x.dtype)
+    if (cin * x.element_size()) % 16 or n is None:
+        raise ValueError(f"snake_conv_transpose1d: the CUDA kernel takes Cin * elem % 16 == 0 and "
+                         f"Cout % {TILE_N[x.dtype][-1]} == 0, got {cin} -> {cout} in {x.dtype}")
     b, t, _ = x.shape
-    x = x.contiguous()
-    wc = w.to(x.dtype).contiguous()
+    x = _tma_ready(x)
     bias = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
     y = torch.empty(b, t * stride, cout, device=x.device, dtype=x.dtype)
-    lib = build.library()
-    fn = lib.fsat_snake_conv_transpose1d_f32 if f32 else lib.fsat_snake_conv_transpose1d
-    err = fn(_ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, stride,
-             _stream(x.device))
+    err = build.library().fsat_conv_taps_k4(
+        _ptr(x), _ptr(_k_major_weights(w, x.dtype)), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout,
+        stride, n, int(f32), F32_FLUSH, _stream(x.device))
     if f32:
         snake_conv_transpose1d_f32_launches += 1
     else:

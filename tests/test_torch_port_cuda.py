@@ -302,14 +302,16 @@ def test_flash_backward_fused_matches_plain_in_fp32(gen, bh, t, d, kv):
 
 def test_fp32_conv_kernels_match_plain(gen):
     """K2, K3 and K4 on fp32 activations run the fp32 kernels (their own
-    launch counts), with and without the snake, at the DAC decoder's Cout 96."""
+    launch counts; both K2 shapes take the wide route), with and without the
+    snake, at the DAC decoder's Cout 96."""
     x = _rnd(gen, 2, 333, 128, scale=0.5)
     a = _rnd(gen, 128).abs() + 0.5
     ib = 1.0 / a
     bias = _rnd(gen, 128, scale=0.1)
     w = _rnd(gen, 7, 128, 128, scale=0.03)
-    before = (tconv.snake_conv1d_f32_launches, tconv.fused_residual_unit_f32_launches,
-              tconv.snake_conv_transpose1d_f32_launches, tconv.snake_conv1d_launches)
+    before = (tconv.snake_conv1d_f32_launches, tconv.snake_conv1d_wide_f32_launches,
+              tconv.fused_residual_unit_f32_launches, tconv.snake_conv_transpose1d_f32_launches,
+              tconv.snake_conv1d_launches, tconv.snake_conv1d_wide_launches)
     _close(tconv.snake_conv1d(x, w, bias, a, ib, dilation=3),
            tconv.snake_conv1d_plain(x, w, bias, a, ib, dilation=3), 1e-5)
     _close(tconv.snake_conv1d(x, w[:1, :, :96], None), tconv.snake_conv1d_plain(x, w[:1, :, :96], None),
@@ -321,9 +323,10 @@ def test_fp32_conv_kernels_match_plain(gen):
         got = tconv.snake_conv_transpose1d(x, wt, bias[:96], aa, ii, stride=4)
         assert got.dtype == torch.float32 and got.shape == (2, 333 * 4, 96)
         _close(got, tconv.snake_conv_transpose1d_plain(x, wt, bias[:96], aa, ii, stride=4), 1e-5)
-    after = (tconv.snake_conv1d_f32_launches, tconv.fused_residual_unit_f32_launches,
-             tconv.snake_conv_transpose1d_f32_launches, tconv.snake_conv1d_launches)
-    assert tuple(b - a_ for a_, b in zip(before, after)) == (2, 1, 2, 0)
+    after = (tconv.snake_conv1d_f32_launches, tconv.snake_conv1d_wide_f32_launches,
+             tconv.fused_residual_unit_f32_launches, tconv.snake_conv_transpose1d_f32_launches,
+             tconv.snake_conv1d_launches, tconv.snake_conv1d_wide_launches)
+    assert tuple(b - a_ for a_, b in zip(before, after)) == (0, 2, 1, 2, 0, 0)
     with pytest.raises(ValueError):  # Cout % 32 != 0
         tconv.snake_conv_transpose1d(x, wt[..., :80], None, stride=4)
 
@@ -520,14 +523,16 @@ def test_tiny_lm_generates_through_k13(gen):
     for fused in (False, True):
         model = create_model_from_config(config, device="cuda", fused_mlp=fused)
         before = (tmlp.launches, tconv.snake_conv1d_f32_launches,
-                  tconv.snake_conv_transpose1d_f32_launches)
+                  tconv.snake_conv1d_wide_f32_launches, tconv.snake_conv_transpose1d_f32_launches)
         codes[fused] = model.generate(max_gen_len=20, conditioning_tensors=cond, cfg_scale=3.0,
                                       temp=0.0)
         audio = model.pretransform.decode_tokens(codes[fused])
         after = (tmlp.launches, tconv.snake_conv1d_f32_launches,
-                 tconv.snake_conv_transpose1d_f32_launches)
-        # 24 steps of the delay pattern: a prefill and 23 decode steps, 2 layers
-        assert tuple(b - a for a, b in zip(before, after)) == (48 if fused else 0, 6, 1)
+                 tconv.snake_conv1d_wide_f32_launches, tconv.snake_conv_transpose1d_f32_launches)
+        # 24 steps of the delay pattern: a prefill and 23 decode steps, 2 layers;
+        # K2 on the wide route at 16 -> 64 and 16 -> 32, on the thin one at
+        # Cout 16, 8 and 1 (no tile width divides them)
+        assert tuple(b - a for a, b in zip(before, after)) == (48 if fused else 0, 4, 2, 1)
         assert audio.shape == (1, 1, 119) and torch.isfinite(audio).all()
     assert torch.equal(codes[False], codes[True])
 
@@ -628,3 +633,40 @@ def test_tiny_adaln_dit_runs_k11_and_k12(gen):
         assert out.shape == (1, 300, 16) and torch.isfinite(out).all()
         errs[fused] = ((out.float() - ref).norm() / ref.norm()).item()
     assert errs[True] <= 1.5 * errs[False], errs
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-5)])
+def test_wide_conv_kernel_at_the_dac_widths_and_ragged_lengths(gen, dtype, tol):
+    """K2's wide route (the wgmma kernel) at the DAC's 768, 384, 192 and 96
+    channels and K4 at its four upsamples, at lengths that are no multiple of
+    the 128-row tile, batch 2, with and without the snake, against the plain
+    versions (one rounding apart in bf16; summation order in fp32, where the
+    products are 3xTF32): one launch of the route's own count each; a Cout 2
+    conv takes the thin route."""
+    for c, t, d in ((768, 301, 9), (384, 333, 3), (192, 130, 1), (96, 77, 9)):
+        x = _rnd(gen, 2, t, c, scale=0.5).to(dtype)
+        w = _rnd(gen, 7, c, c, scale=1 / (7 * c) ** 0.5)
+        bias = _rnd(gen, c, scale=0.1)
+        a = _rnd(gen, c).abs() + 0.5
+        for aa, ib in ((a, 1.0 / a), (None, None)):
+            before = (tconv.snake_conv1d_wide_launches, tconv.snake_conv1d_wide_f32_launches)
+            got = tconv.snake_conv1d(x, w, bias, aa, ib, dilation=d)
+            wide = dtype == torch.float32
+            assert (tconv.snake_conv1d_wide_launches, tconv.snake_conv1d_wide_f32_launches) == (
+                before[0] + (not wide), before[1] + wide)
+            _close(got, tconv.snake_conv1d_plain(x, w, bias, aa, ib, dilation=d), tol)
+        if c > 96:
+            s = 8 if c == 768 else 4
+            wt = _rnd(gen, 2 * s, c, c // 2, scale=1 / (2 * c) ** 0.5)
+            got = tconv.snake_conv_transpose1d(x, wt, bias[:c // 2], a, 1.0 / a, stride=s)
+            assert got.shape == (2, t * s, c // 2)
+            _close(got, tconv.snake_conv_transpose1d_plain(x, wt, bias[:c // 2], a, 1.0 / a,
+                                                           stride=s), tol)
+    x = _rnd(gen, 2, 300, 96, scale=0.5).to(dtype)
+    before = (tconv.snake_conv1d_launches, tconv.snake_conv1d_f32_launches)
+    w2 = _rnd(gen, 7, 96, 2, scale=0.05)
+    _close(tconv.snake_conv1d(x, w2, None), tconv.snake_conv1d_plain(x, w2, None), tol)
+    f32 = dtype == torch.float32
+    assert (tconv.snake_conv1d_launches, tconv.snake_conv1d_f32_launches) == (
+        before[0] + (not f32), before[1] + f32)
+
