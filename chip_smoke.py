@@ -25,8 +25,9 @@ Phases (any failure raises and the script exits non-zero):
    call's time where one computes the same function; K1 (its K10a launch
    included) per call beside its earlier row (`EARLIER_MS`); each K2 shape
    names the route `conv_route` gave it, and a wide one also times the thin
-   route's kernel; each path's K2 and K4 totals print beside PR 13's
-   (`EARLIER_CONV_MS`, `log_conv_path`); the wide K2 and K4 at ragged
+   route's kernel; each path's K2 and K4 totals print beside the earlier
+   ones (`EARLIER_CONV_MS`, `log_conv_path`), flagged where they drift more than
+   CONV_DRIFT (5%) from it; the wide K2 and K4 at ragged
    shapes (B 2, T 333, 96 -> 96, dilation 9; B 2, T 77, 192 -> 96, stride 8,
    both with a snake);
    3b. the training attention kernels K5 (forward with LSE) and K6
@@ -53,13 +54,17 @@ Phases (any failure raises and the script exits non-zero):
    1501, D 64) and at T 1100, with bounds counted on the causal triangle and
    SDPA's causal fp32 times; the fp32 K2 at the LM's SEANet encode shapes
    (B 8 x 960,000 samples, 10 calls per training step);
-   3i. the fused SwiGLU MLP K13 against its plain version: fp32 at the
-   audio LM's decode (M 2, K 1024, inner 4096, Kout 1024: 24 calls per
-   decode step) and at M 16 (rel-L2 1e-5), bf16 at SAO's DiT (M 2080, K
-   1536, inner 6144; one bf16 rounding), each with its bound and the
-   unfused cuBLAS chain's time; the fp32 K2 and K4 at every shape of the
-   LM's SEANet token decode (1500 frames to 959,992 samples: 10 and 3
-   calls);
+   3i. the fused SwiGLU MLP K13 against its plain version through the
+   route `mlp.route` names: the streaming route in fp32 at the audio LM's
+   decode (M 2, K 1024, inner 4096, Kout 1024: 24 calls per decode step)
+   and at M 16 (rel-L2 1e-5); the tensor-core route at SAO's DiT (K 1536,
+   inner 6144, Kout 1536) in bf16 at M 2050 (the generation's CFG batch 2
+   x 1025 tokens) and 2080 (the training pad; one bf16 rounding) and in
+   fp32 at M 2080; each with its plan, bound, the unfused cuBLAS chain's
+   time and the earlier CUDA-core K13's figures, the tensor-core route's time split into the
+   fp32 weights' tf32 parts, GEMM1 and GEMM2; the fp32 K2 and K4 at every
+   shape of the LM's SEANet token decode (1500 frames to 959,992 samples:
+   10 and 3 calls);
    3j. the adaLN elementwise kernels K11 (LayerNorm + modulate) and K12
    (gated residual) against their plain chains (one bf16 rounding) and
    against the Pallas kernels' own arithmetic, in bf16 at the adaLN DiT's
@@ -94,6 +99,12 @@ Phases (any failure raises and the script exits non-zero):
    2400 and K10a 2400: K1 reads k roped once per call); then
    `profile_generation.profile_backbone` on one CFG step of the same model
    (device-busy share, K1's share of the device time);
+   5b. the same model with `fused_mlp` set on its DiT's FeedForwards: one
+   DiT forward against the one without it and, with the kernels (K13
+   included) against the fp32 DiT, within DIT_ERR_RATIO of the plain bf16
+   error; the 100-step generation (K13 2400 on its tensor-core route, the
+   other counts as in [5]) and one profiled CFG step (K13's share); both
+   generations' s-audio/s and both steps' device times side by side;
 6. one training step of the fp32 DiT at batch 8 with the attention kernels,
    with their plain versions in bf16, and with fp32 plain attention as the
    reference: loss and weight gradients of layers 0, 11 and 23;
@@ -208,8 +219,9 @@ their own, `*_f32` and `flash_forward_serving`; K2's wide route, the
 wgmma kernel of conv_wgmma.cu, as `snake_conv1d_wide` and
 `snake_conv1d_wide_f32`, its thin route as `snake_conv1d` and
 `snake_conv1d_f32`; the bf16 K7 as
-`flash_forward_bf16`; K13 as `glu_mlp`, its
-times per decode step; K11 and K12 as `ln_modulate` and `gated_residual`,
+`flash_forward_bf16`; K13's streaming route as `glu_mlp`, its
+times per decode step, its tensor-core route as `glu_mlp_tensor`, its
+times per SAO CFG step with `fused_mlp`; K11 and K12 as `ln_modulate` and `gated_residual`,
 their times per adaLN denoising step), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
 chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
@@ -401,32 +413,34 @@ EARLIER_E2E = {
             "runs); one DiT call's device time 22.771 ms, K1 10.949 ms of it",
     "[7]": "4.2910 s per step at 24 layers; 2.9674 s at 6 layers, encode 2.5615 s (PR 13 final run)",
 }
-# the K2/K4 totals per main path of PR 13's final run, before the wgmma
-# redesign of K2's wide route and K4 (chip_smoke.py, NVIDIA H100 80GB HBM3,
-# 700 W): (kernel ms, cuDNN ms) by (kernel, results field), K2 over both of
-# today's routes; printed beside this run's (`log_conv_path`)
+# the K2/K4 totals per main path of the wgmma kernel's first measured run
+# (PERF.md §6; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W):
+# (kernel ms, cuDNN ms) by (kernel, results field), K2 over both routes;
+# printed beside this run's (`log_conv_path`), which must stay within
+# CONV_DRIFT of them now that the mainloop is shared with K13
 EARLIER_CONV_MS = {
-    ("snake_conv1d", "ms"): (20.6433, 32.4092),
-    ("snake_conv1d", "sao_decode_ms"): (3.7293, 5.5645),
-    ("snake_conv1d", "encode_ms"): (25.6179, 16.2646),
-    ("snake_conv1d", "sa2_encode_ms"): (130.4270, 81.0062),
-    ("snake_conv1d", "sa1_decode_ms"): (356.4943, 92.7225),
-    ("snake_conv_transpose1d", "ms"): (52.9261, 24.9900),
-    ("snake_conv_transpose1d", "sao_decode_ms"): (8.6790, 4.4404),
-    ("snake_conv_transpose1d", "sa1_decode_ms"): (15.8439, 6.7058),
-    ("snake_conv1d_f32", "ms"): (371.1165, 196.2168),
-    ("snake_conv1d_f32", "sao_decode_ms"): (4.1359, 4.1603),
-    ("snake_conv1d_f32", "sa2_decode_ms"): (23.6577, 24.4066),
-    ("snake_conv1d_f32", "encode_ms"): (26.0489, 14.5616),
-    ("snake_conv1d_f32", "sa2_encode_ms"): (128.0163, 78.3018),
-    ("snake_conv1d_f32", "sa1_encode_ms"): (4844.5865, 2416.5526),
-    ("snake_conv1d_f32", "lm_encode_ms"): (28.0752, 19.4414),
-    ("snake_conv1d_f32", "lm_decode_ms"): (3.7736, 2.7514),
-    ("snake_conv_transpose1d_f32", "ms"): (69.5895, 34.6822),
-    ("snake_conv_transpose1d_f32", "sao_decode_ms"): (44.0044, 22.6321),
-    ("snake_conv_transpose1d_f32", "sa2_decode_ms"): (262.3492, 161.7039),
-    ("snake_conv_transpose1d_f32", "lm_decode_ms"): (3.7161, 2.4967),
+    ("snake_conv1d", "ms"): (20.2250, 32.4689),
+    ("snake_conv1d", "sao_decode_ms"): (3.7150, 5.5866),
+    ("snake_conv1d", "encode_ms"): (22.6584, 16.4194),
+    ("snake_conv1d", "sa2_encode_ms"): (125.6387, 80.7750),
+    ("snake_conv1d", "sa1_decode_ms"): (23.6977, 92.4361),
+    ("snake_conv_transpose1d", "ms"): (20.5220, 25.0198),
+    ("snake_conv_transpose1d", "sao_decode_ms"): (3.8878, 4.4417),
+    ("snake_conv_transpose1d", "sa1_decode_ms"): (3.1046, 6.7692),
+    ("snake_conv1d_f32", "ms"): (80.8022, 196.1677),
+    ("snake_conv1d_f32", "sao_decode_ms"): (4.0920, 4.1492),
+    ("snake_conv1d_f32", "sa2_decode_ms"): (23.4953, 24.6402),
+    ("snake_conv1d_f32", "encode_ms"): (24.4987, 14.5894),
+    ("snake_conv1d_f32", "sa2_encode_ms"): (125.5002, 78.6261),
+    ("snake_conv1d_f32", "sa1_encode_ms"): (946.1646, 2442.1757),
+    ("snake_conv1d_f32", "lm_encode_ms"): (12.7321, 19.3503),
+    ("snake_conv1d_f32", "lm_decode_ms"): (1.9453, 2.7532),
+    ("snake_conv_transpose1d_f32", "ms"): (13.0328, 35.2888),
+    ("snake_conv_transpose1d_f32", "sao_decode_ms"): (10.7633, 23.1376),
+    ("snake_conv_transpose1d_f32", "sa2_decode_ms"): (60.9337, 161.6038),
+    ("snake_conv_transpose1d_f32", "lm_decode_ms"): (1.0543, 2.5403),
 }
+CONV_DRIFT = 0.05
 # the DAC decoder's upsample strides (dac_codec.py's rates at SA 1.0)
 DAC_RATES = (8, 8, 4, 4)
 # the K2 calls of the Oobleck decode (conv_in, conv_out) and of one Oobleck
@@ -769,7 +783,8 @@ def conv_case(results, name, label, field, x, w, bias, a, ib, kernel, plain, flo
 
 def log_conv_path(results, name, dtype, field, what):
     """K2's (both routes) or K4's total per main path `what` on `dtype`,
-    beside PR 13's figure (EARLIER_CONV_MS), with the bound and cuDNN's time."""
+    beside the earlier figure (EARLIER_CONV_MS) and whether it is within
+    CONV_DRIFT of it, with the bound and cuDNN's time."""
     names = [conv_name(name, dtype)]
     if name == "snake_conv1d":
         names.append(conv_name("snake_conv1d_wide", dtype))
@@ -780,10 +795,12 @@ def log_conv_path(results, name, dtype, field, what):
     lib = None if None in libs else sum(libs)
     parts = ", ".join(f"{n} {results[n][field]:.4f}" for n in names)
     was, was_lib = EARLIER_CONV_MS[(conv_name(name, dtype), field)]
-    log(f"  {conv_name(name, dtype)}: {tot['']:.4f} ms per {what} "
-        f"({parts}); PR 13 {was:.4f} ms ({was / tot['']:.2f}x faster), plain {tot['plain_']:.4f} ms, "
-        f"bound {tot['bound_']:.4f} ms, cuDNN {'none' if lib is None else f'{lib:.4f} ms'} (PR 13 run "
-        f"{was_lib:.4f} ms); card {smi_line()}")
+    ratio = tot[''] / was
+    log(f"  {conv_name(name, dtype)}: {tot['']:.4f} ms per {what} ({parts}); earlier "
+        f"{was:.4f} ms ({ratio:.3f}x, {'within' if abs(ratio - 1) <= CONV_DRIFT else 'OUTSIDE'} "
+        f"{CONV_DRIFT:.0%}), plain {tot['plain_']:.4f} ms, bound {tot['bound_']:.4f} ms, cuDNN "
+        f"{'none' if lib is None else f'{lib:.4f} ms'} (earlier {was_lib:.4f} ms); card "
+        f"{smi_line()}")
 
 
 def kernel_phase(results):
@@ -1696,66 +1713,103 @@ def graph_ms(fns, rounds=5):
     return timed_ms(graph.replay, 3) / (rounds * len(fns))
 
 
+# K13 at the main paths' shapes: (M, K, inner, Kout, dtype name, label);
+# the LM's decode (M 2: one row and its CFG twin, 24 calls per decode step)
+# and SAO's generation (M 2050: CFG batch 2 x 1025 tokens, 24 calls per CFG
+# step with fused_mlp) are the two routes' main-path shapes
+K13_CASES = [
+    (2, 1024, 4096, 1024, "fp32", "M2 K1024 inner4096 Kout1024 fp32 (LM decode)"),
+    (16, 1024, 4096, 1024, "fp32", "M16 K1024 inner4096 Kout1024 fp32"),
+    (2050, 1536, 6144, 1536, "bf16", "M2050 K1536 inner6144 Kout1536 bf16 (SAO generation)"),
+    (2080, 1536, 6144, 1536, "bf16", "M2080 K1536 inner6144 Kout1536 bf16 (SAO DiT, training pad)"),
+    (2080, 1536, 6144, 1536, "fp32", "M2080 K1536 inner6144 Kout1536 fp32"),
+]
+K13_MAIN = {"glu_mlp": K13_CASES[0][5], "glu_mlp_tensor": K13_CASES[2][5]}
+# the earlier K13 (FFMA on the CUDA cores) and the unfused cuBLAS chain in
+# the same run, ms per call (PERF.md §6; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_K13 = {K13_CASES[0][5]: (0.0445, 0.0386), K13_CASES[1][5]: (0.0830, 0.0892),
+               K13_CASES[3][5]: (10.7117, 0.3665)}
+
+
 def glu_mlp_phase(results):
-    """[3i] K13 against its plain version: fp32 at the audio LM's decode (M 2
-    = one row and its CFG twin, K 1024, inner 4096, Kout 1024: 24 calls per
-    decode step) and at M 16; bf16 at Stable Audio Open's DiT (M 2080 = CFG
-    batch 2 x 1040 tokens, K 1536, inner 6144, Kout 1536), which the switch
-    reaches in a bf16 DiT. Bound: the weights, x and y read or written once
-    (bytes), or the three products at the fp32-accurate or bf16 rate. The
-    library time is the unfused chain on cuBLAS (F.linear, silu * mul,
-    F.linear; TF32 off), which no single PyTorch call replaces. The fp32
-    calls last tens of microseconds, less than the host takes to launch
-    them, so they are timed as CUDA-graph replays (`graph_ms`) cycling
-    through 4 sets of weights (201 MB, four times the L2 cache), as the
-    decode reads a new layer's weights at every call; the bf16 DiT shape
-    with CUDA events around back-to-back calls."""
+    """[3i] K13 against its plain version through the route `mlp.route`
+    names at each shape of K13_CASES: fp32 at the audio LM's decode (M 2,
+    the streaming route) and at M 16; bf16 at SAO's DiT in generation (M
+    2050) and at the training pad (M 2080), fp32 at M 2080 (the tensor-core
+    route). Bound: the weights, x and y read or written once (bytes), or the
+    three products at the bf16 or fp32-accurate rate. The library time is
+    the unfused chain on cuBLAS (F.linear, silu * mul, F.linear; TF32 off),
+    which no single PyTorch call replaces. Times are device time per call
+    under torch.profiler (`device_profile`: the sum of a call's kernels, so
+    the host's launch cost does not count), the calls cycling through
+    weight sets that together exceed the 50 MB L2 twice, as the model reads
+    a new layer's weights at every call; the tensor-core route's time is
+    split into the fp32 weights' tf32 parts, GEMM1 and GEMM2. Each line
+    names the route, its plan (tile widths and blocks) and the earlier
+    CUDA-core K13's figures."""
     import torch
     import torch.nn.functional as F
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import mlp
 
     rnd = randn_fn(17)
-    k13 = results["glu_mlp"]
-    decode_label = "M2 K1024 inner4096 Kout1024 fp32"
-    k13["weight"][decode_label] = LM_LAYERS
-    for m, k, inner, kout, dt, label in [
-            (2, 1024, 4096, 1024, torch.float32, decode_label),
-            (16, 1024, 4096, 1024, torch.float32, "M16 K1024 inner4096 Kout1024 fp32"),
-            (2080, 1536, 6144, 1536, torch.bfloat16, "M2080 K1536 inner6144 Kout1536 bf16 (SAO DiT)")]:
-        f32 = dt == torch.float32
+    results["glu_mlp"]["weight"][K13_MAIN["glu_mlp"]] = LM_LAYERS
+    results["glu_mlp_tensor"]["weight"][K13_MAIN["glu_mlp_tensor"]] = 24
+    for m, k, inner, kout, dt_name, label in K13_CASES:
+        dt = torch.float32 if dt_name == "fp32" else torch.bfloat16
         x = rnd(m, k).to(dt)
+        per_set = inner * (2 * k + kout) * x.element_size()
         sets = [(rnd(2 * inner, k, scale=k ** -0.5).to(dt), rnd(2 * inner, scale=0.1),
-                 rnd(kout, inner, scale=inner ** -0.5).to(dt)) for _ in range(4 if f32 else 1)]
+                 rnd(kout, inner, scale=inner ** -0.5).to(dt))
+                for _ in range(max(1, math.ceil(100e6 / per_set)))]
 
         def chain(x, w_in, b_in, w_out):
             v, g = F.linear(x, w_in, b_in.to(dt)).chunk(2, dim=-1)
             return F.linear(v * F.silu(g), w_out)
 
-        calls = {name: [lambda fn=fn, ws=ws: fn(x, *ws) for ws in sets]
-                 for name, fn in (("kernel", mlp.glu_mlp), ("plain", mlp.glu_mlp_plain),
-                                  ("library", chain))}
+        route = mlp.route(m, k, inner, kout, dt)
+        entry = "glu_mlp" if route == "stream" else "glu_mlp_tensor"
         y = torch.empty(m, kout, device=DEVICE, dtype=dt)
         flops = 2 * m * k * 2 * inner + 2 * m * inner * kout
-        bound = bound_ms(flops, nbytes(x, *sets[0], y),
-                         peak=PEAK_FP32_ACCURATE if f32 else PEAK_FLOPS)
+        bound = bound_ms(flops, nbytes(x, *sets[0], y), peak=PEAK_FLOPS if dt_name == "bf16"
+                         else PEAK_FP32_ACCURATE)
         del y
-        tol = "glu_mlp" if f32 else "glu_mlp_bf16"
+        tol = "glu_mlp" if dt_name == "fp32" else "glu_mlp_bf16"
+        rounds = 5 if m <= 16 else 2
         with torch.no_grad():
-            out = calls["kernel"][0]()
+            out = mlp.glu_mlp(x, *sets[0])
             torch.cuda.synchronize()
-            checked = within(tol, out, calls["plain"][0]())
+            checked = within(tol, out, mlp.glu_mlp_plain(x, *sets[0]))
             del out
-            if f32:
-                times = [graph_ms(calls[name]) for name in ("kernel", "plain", "library")]
-            else:
-                times = [timed_ms(calls[name][0], 3) for name in ("kernel", "plain", "library")]
-        report(results, "glu_mlp", label, label == decode_label, *checked, *times, bound=bound,
-               tol_name=tol, extra=f"; plan (M tile, splits) {mlp.plan(m, inner)}; timed "
-                                   f"{'as CUDA-graph replays' if f32 else 'back to back'}")
-        del x, sets, calls
-    log(f"  glu_mlp: {k13['ms']:.4f} ms per {k13['per']}, plain {k13['plain_ms']:.4f} ms, bound "
-        f"{k13['bound_ms']:.4f} ms, unfused cuBLAS chain {k13['library_ms']:.4f} ms")
+            times = {}
+            for name, fn in (("kernel", mlp.glu_mlp), ("plain", mlp.glu_mlp_plain),
+                             ("library", chain)):
+                calls = [lambda fn=fn, ws=ws: fn(x, *ws) for ws in sets] * rounds
+                times[name] = device_profile(calls)
+        if route == "stream":
+            blocks, rows, span = mlp.stream_grid(inner, kout, dt)
+            plan = f"M tile {mlp.stream_plan(m)}, {blocks} blocks, {rows} outputs each"
+        else:
+            tp_ = mlp.tensor_plan(m, inner, kout, dt)
+            plan = (f"GEMM1 N {tp_['glu_n']} ({tp_['glu_blocks']} blocks), GEMM2 N {tp_['out_n']} "
+                    f"k split {tp_['k_split']} ({tp_['out_blocks']} blocks)")
+            parts = {"tf32 split": "tf32_split_kernel", "GEMM1": "glu_gemm_kernel",
+                     "GEMM2": "out_gemm_kernel", "split-k sum": "split_k_reduce_kernel"}
+            by_name = times["kernel"][2]
+            plan += "; " + ", ".join(
+                f"{part} {sum(ms for n, ms in by_name.items() if key in n):.4f} ms"
+                for part, key in parts.items() if any(key in n for n in by_name))
+        was = EARLIER_K13.get(label)
+        extra = (f"; route {route}: {plan}; device time per call" +
+                 ("" if was is None else f"; earlier CUDA-core K13: {was[0]:.4f} ms (cuBLAS chain {was[1]:.4f} ms)"))
+        results[entry]["weight"].setdefault(label, 1)
+        report(results, entry, label, label == K13_MAIN[entry], *checked, times["kernel"][0],
+               times["plain"][0], times["library"][0], bound=bound, tol_name=tol, extra=extra)
+        del x, sets
+    for entry in ("glu_mlp", "glu_mlp_tensor"):
+        r = results[entry]
+        log(f"  {entry}: {r['ms']:.4f} ms per {r['per']}, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, unfused cuBLAS chain {r['library_ms']:.4f} ms; card {smi_line()}")
 
 
 def seanet_decode_steps(config):
@@ -2305,7 +2359,8 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "flash_forward_causal": ("flash", "causal_forward_launches"),
     "flash_forward_causal_serving": ("flash", "causal_serving_launches"),
     "flash_backward_causal": ("flash", "causal_backward_launches"),
-    "glu_mlp": ("mlp", "launches"),
+    "glu_mlp": ("mlp", "stream_launches"),
+    "glu_mlp_tensor": ("mlp", "tensor_launches"),
     "ln_modulate": ("elementwise", "lnmod_launches"),
     "gated_residual": ("elementwise", "gres_launches"),
 }
@@ -2930,21 +2985,62 @@ def generation_phase(model, config, prompt, sample_size, expected, min_counts):
 def profile_sao_step(model, config):
     """One SAO bf16 denoising step's backbone call under torch.profiler
     (profile_generation.profile_backbone, 3 calls): the device-busy share of
-    the wall and K1's share of the device time (the pair attention kernel
-    and its K10a rope), to say whether the host sets the step's pace."""
+    the wall, K1's share of the device time (the pair attention kernel and
+    its K10a rope) and K13's (with fused_mlp), to say whether the host sets
+    the step's pace. Returns the profile."""
     from friendly_stable_audio_tools_tpu_torch.profile_generation import profile_backbone
 
     prof = profile_backbone(model, config, steps=3, cfg_scale=CFG_SCALE)
     cats = prof["by_category_ms"]
     device = prof["device_ms_per_step"]
     k1 = cats.get("K1/K5/K10 pair attention", 0.0) + cats.get("K10a rope_pair", 0.0)
+    k13 = cats.get("K13 glu_mlp", 0.0)
     log(f"  profiled SAO bf16 step (one CFG backbone call, mean of 3): wall "
         f"{prof['wall_ms_per_step']:.3f} ms, device busy {device:.3f} ms "
         f"({100 * (1 - prof['idle_share']):.1f}% of the wall); K1 + its K10a {k1:.3f} ms = "
-        f"{100 * k1 / device:.1f}% of the device time; by category "
-        + ", ".join(f"{c} {ms:.3f}" for c, ms in list(cats.items())[:6]) + f"; card {smi_line()}")
+        f"{100 * k1 / device:.1f}% of the device time; K13 {k13:.3f} ms = {100 * k13 / device:.1f}%; "
+        f"by category " + ", ".join(f"{c} {ms:.3f}" for c, ms in list(cats.items())[:7])
+        + f"; card {smi_line()}")
     if device <= 0 or k1 <= 0:
         raise AssertionError("the profiled SAO step shows no device time in K1")
+    return prof
+
+
+def sao_fused_mlp_phase(model, config, launches_off, rate_off, prof_off):
+    """[5b] The same SAO bf16 model with `fused_mlp` set on every DiT
+    FeedForward (what create_model_from_config(..., fused_mlp=True) sets):
+    one full-size DiT forward with CFG against the fp32 DiT, with the kernels
+    (K13 included) within DIT_ERR_RATIO of the plain bf16 error, and against
+    the same forward without it; then the 100-step generation (K13 24 per
+    step on the tensor-core route: 2,400, and the other counts as in [5])
+    and one profiled CFG step. Both walls and both steps' device times print
+    side by side. Leaves the switch off. Returns the launch counts."""
+    import torch
+
+    set_fused_mlp(model, False)
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    frames = SAMPLE_SIZE // model.pretransform.downsampling_ratio
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner([PROMPT], device=DEVICE))
+        x = torch.randn(1, frames, model.io_channels, generator=g, device=DEVICE)
+        t = torch.full((1,), 0.6, device=DEVICE)
+        off = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+        set_fused_mlp(model, True)
+        on = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+    log(f"  DiT forward with fused_mlp vs without: rel-L2 {rel_err(on, off):.3g}")
+    del off, on
+    dit_forward_phase(model, frames, PROMPT, "SAO 1.0 with fused_mlp")
+    expected = {k: v for k, v in launches_off.items() if k in KERNELS}
+    expected.update(glu_mlp=0, glu_mlp_tensor=24 * STEPS)
+    launches, _, rate = generation_phase(model, config, PROMPT, SAMPLE_SIZE, expected=expected,
+                                         min_counts={})
+    prof = profile_sao_step(model, config)
+    set_fused_mlp(model, False)
+    log(f"  SAO bf16 generation, this run: fused_mlp off ([5]) {rate_off:.3f} s-audio/s, on "
+        f"{rate:.3f} s-audio/s; one CFG step's device time off {prof_off['device_ms_per_step']:.3f} ms, "
+        f"on {prof['device_ms_per_step']:.3f} ms (K13 {prof['by_category_ms'].get('K13 glu_mlp', 0.0):.3f} "
+        f"ms of it); card {smi_line()}")
+    return launches
 
 
 def bench_recipe(model):
@@ -3325,7 +3421,12 @@ def new_results():
             per=f"audio LM training step ({LM_LAYERS} calls at B{TRAIN_BATCH} x H{LM_HEADS} T{LM_T})"),
         "glu_mlp": dict(
             route="cuda", source=src + "glu_mlp.cu", replaces=tpu + "mlp.py:145",
-            per=f"audio LM decode step ({LM_LAYERS} calls at M2 K1024 inner4096 Kout1024, fp32)"),
+            per=f"audio LM decode step ({LM_LAYERS} calls at M2 K1024 inner4096 Kout1024, fp32; "
+                f"the streaming route)"),
+        "glu_mlp_tensor": dict(
+            route="cuda", source=src + "glu_mlp.cu", replaces=tpu + "mlp.py:145",
+            per="SAO 1.0 bf16 CFG step with fused_mlp (24 calls at M2050 K1536 inner6144 "
+                "Kout1536; the tensor-core route)"),
         "ln_modulate": dict(
             route="cuda", source=src + "elementwise.cu", replaces=tpu + "elementwise.py:98",
             per=f"adaLN DiT generation step ({2 * ADALN_LAYERS} calls at B2 T{ADALN_T} "
@@ -3430,8 +3531,9 @@ def main():
     seanet_conv_phase(results, lm_config)
     lstm_tf32_check(lm_config)
     done("[3h]")
-    log("[3i] the fused SwiGLU MLP K13 vs its plain version (fp32 at the audio LM's decode, bf16 "
-        "at SAO's DiT); the fp32 K2 and K4 at the LM's SEANet token-decode shapes")
+    log("[3i] the fused SwiGLU MLP K13 vs its plain version through each route (streaming: fp32 "
+        "at the audio LM's decode M 2 and M 16; tensor cores: SAO's DiT at M 2050 and 2080, bf16 "
+        "and fp32); the fp32 K2 and K4 at the LM's SEANet token-decode shapes")
     glu_mlp_phase(results)
     seanet_decode_conv_phase(results, lm_config)
     done("[3i]")
@@ -3483,18 +3585,23 @@ def main():
 
     log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7, bench.py's "
         "bf16 recipe")
-    launches, _, _ = generation_phase(
+    launches, _, rate_sao = generation_phase(
         model, config, PROMPT, SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 24 * STEPS,
                   "pair_long_attention": 0,
                   "fused_residual_unit": 15, "snake_conv_transpose1d": 5, "ln_modulate": 0,
-                  "gated_residual": 0, **NO_TRAINING},
+                  "gated_residual": 0, "glu_mlp": 0, "glu_mlp_tensor": 0, **NO_TRAINING},
         min_counts=k2_counts(OOBLECK_DECODE_K2, torch.bfloat16))
-    profile_sao_step(model, config)
+    prof_sao = profile_sao_step(model, config)
     log_earlier_e2e("[5]")
+    done("[5]")
+    log("[5b] SAO 1.0 text-to-audio with fused_mlp (K13's tensor-core route in every DiT "
+        "FeedForward), bench.py's bf16 recipe: a DiT forward vs without it and vs fp32, the "
+        "100-step generation, one profiled CFG step")
+    launches_fused = sao_fused_mlp_phase(model, config, launches, rate_sao, prof_sao)
     del model
     torch.cuda.empty_cache()
-    done("[5]")
+    done("[5b]")
 
     # phases 6-7 write ~23 GB (a de-zeroed DiT and a full training checkpoint)
     # into the checkout's build/ directory, which the kernel build uses too
@@ -3658,7 +3765,8 @@ def main():
     torch.cuda.empty_cache()
     done("[14]")
 
-    by_path = {"generate": launches, "generate_long": launches_long, "train": counts_train,
+    by_path = {"generate": launches, "generate_fused_mlp": launches_fused,
+               "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
                "generate_sa1": launches_sa1, "generate_fp32": launches_fp32,
                "train_sa1": counts_sa1, "lm_tokenize": counts_lm_tok, "lm_step": counts_lm_step,

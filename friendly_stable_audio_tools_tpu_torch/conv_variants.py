@@ -4,7 +4,8 @@ wide route and K4) on the card.
     python -m friendly_stable_audio_tools_tpu_torch.conv_variants [--out conv.json] [--check]
 
 1. ``ptxas``: registers, shared memory and spills of every kernel in
-   conv_wgmma.cu (nvcc -Xptxas -v with build.NVCC_FLAGS);
+   conv_wgmma.cu (nvcc -Xptxas -v with build.NVCC_FLAGS; the mainloop is
+   csrc/taps_wgmma.cuh);
 2. ``check``: the wide kernel in bf16 and fp32, K2 and K4, against the
    plain versions at ragged and at DAC/Oobleck widths (rel-L2 within 2e-3
    in bf16, 1e-5 in fp32); with --check the script stops here;
@@ -46,7 +47,7 @@ from pathlib import Path
 
 from .ops.kernels import build
 
-# variant library -> [(text in conv_wgmma.cu, replacement), ...]
+# variant library -> [(text in conv_wgmma.cu or taps_wgmma.cuh, replacement), ...]
 VARIANTS = {
     "stages6": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 6;")],
     "stages3": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 3;")],
@@ -78,17 +79,26 @@ def start_ptxas_report(nvcc: str, tmp: str) -> subprocess.Popen:
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+def substitute(src: Path, files, edits, name: str) -> None:
+    """Applies each (old, new) of `edits` to the one file of `files` under
+    src that holds `old`, which must occur exactly once in all of them."""
+    texts = {f: (src / f).read_text() for f in files}
+    for old, new in edits:
+        hits = [f for f, t in texts.items() if old in t]
+        if len(hits) != 1 or texts[hits[0]].count(old) != 1:
+            raise RuntimeError(f"variant {name}: {old!r} not found exactly once in {files}")
+        texts[hits[0]] = texts[hits[0]].replace(old, new)
+    for f, t in texts.items():
+        (src / f).write_text(t)
+
+
 def build_variant(name: str, tmp: Path, nvcc: str) -> ctypes.CDLL:
-    """conv_wgmma.cu with VARIANTS[name]'s substitutions, compiled alone into tmp/name."""
+    """conv_wgmma.cu and its mainloop (taps_wgmma.cuh) with VARIANTS[name]'s
+    substitutions, compiled alone into tmp/name."""
     src = tmp / name
     shutil.copytree(build.CSRC_DIR, src)
+    substitute(src, ("conv_wgmma.cu", "taps_wgmma.cuh"), VARIANTS[name], name)
     cu = src / "conv_wgmma.cu"
-    text = cu.read_text()
-    for old, new in VARIANTS[name]:
-        if text.count(old) != 1:
-            raise RuntimeError(f"variant {name}: {old!r} found {text.count(old)} times, not once")
-        text = text.replace(old, new)
-    cu.write_text(text)
     lib = src / "lib.so"
     subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", "-I", str(src), "-o", str(lib), str(cu)],
                    check=True, capture_output=True)

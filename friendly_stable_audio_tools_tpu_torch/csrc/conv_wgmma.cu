@@ -79,198 +79,9 @@
 // and fp32 N 128 spill 24 and 80 bytes. The Cout chunk varies fastest across
 // the grid, so the blocks of one row tile run together and share their A
 // tiles in L2.
-#include "hopper.cuh"
-
-using namespace fsat_hopper;
+#include "taps_wgmma.cuh"
 
 namespace {
-
-constexpr int kConsumers = 2;                     // warpgroups of 64 rows
-constexpr int kM = 64 * kConsumers;               // output rows per block
-constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
-constexpr int kATile = kM * kSwizzleRow;          // one tap's A tile: 16 KB
-constexpr int kMaxStages = 4;
-constexpr int kSmemBudget = 227 * 1024 - 1024 - 2 * kMaxStages * 8;
-
-template <typename T>
-struct ConvElem;
-template <>
-struct ConvElem<bf16> {
-  static constexpr int kKC = 64;     // channels in one 128-byte row
-  static constexpr int kBTiles = 1;  // w
-  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-};
-template <>
-struct ConvElem<float> {
-  static constexpr int kKC = 32;
-  static constexpr int kBTiles = 2;  // w_hi, w_lo
-  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-};
-
-template <typename T, int N>
-struct ConvTile {
-  static constexpr int kKC = ConvElem<T>::kKC;
-  static constexpr int kBTiles = ConvElem<T>::kBTiles;
-  static constexpr int kBTile = N * kSwizzleRow;
-  static constexpr int kStage = kATile + kBTiles * kBTile;
-  static constexpr int kStages = kSmemBudget / kStage < kMaxStages ? kSmemBudget / kStage : kMaxStages;
-  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStage + 2 * kStages * sizeof(uint64_t);
-};
-
-// What one launch computes.
-struct ConvPlan {
-  int T;         // rows of x (K4: input rows q)
-  int cin, cout;
-  int taps;      // taps per output row: K2 k, K4 2
-  int dil, pad;  // K2
-  int stride;    // K4 s (even); 0 for K2
-  int n_chunks;  // Cout / N
-  int flush;     // fp32: stages per tensor-core partial sum
-};
-
-// The weight slice and the input row offset of tap j (K4: of output phase `phase`).
-__device__ __forceinline__ void tap_at(const ConvPlan& p, int phase, int j, int& w_index,
-                                       int& row_off) {
-  if (p.stride == 0) {
-    w_index = j;
-    row_off = j * p.dil - p.pad;
-    return;
-  }
-  const int half = p.stride / 2;
-  const bool left = phase < half;
-  w_index = j == 0 ? phase + half : (left ? phase + half + p.stride : phase + half - p.stride);
-  row_off = j == 0 ? 0 : (left ? -1 : 1);
-}
-
-// ---- the products ------------------------------------------------------------
-
-// d += A B, m64nCHk16, bf16 A and B K-major in shared memory.
-template <int CH>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[CH / 2], uint64_t da, uint64_t db) {
-  if constexpr (CH == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FSAT_WGMMA_D16
-        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : FSAT_WGMMA_OUT16(d)
-        : "l"(da), "l"(db), "r"(1));
-  } else if constexpr (CH == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FSAT_WGMMA_D32
-        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : FSAT_WGMMA_OUT32(d)
-        : "l"(da), "l"(db), "r"(1));
-  } else if constexpr (CH == 96) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " FSAT_WGMMA_D48
-        ", %48, %49, p, 1, 1, 0, 0;\n}\n"
-        : FSAT_WGMMA_OUT48(d)
-        : "l"(da), "l"(db), "r"(1));
-  } else {
-    static_assert(CH == 128, "bf16 wgmma widths: 32, 64, 96, 128");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FSAT_WGMMA_D64
-        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : FSAT_WGMMA_OUT64(d)
-        : "l"(da), "l"(db), "r"(1));
-  }
-}
-
-// d (+)= A B, m64nCHk8, tf32 A from registers (a[e]: row g + 8 (e & 1),
-// column t + 4 (e >> 1) of the warp's 16 x 8 slice), B K-major in shared
-// memory; d is first zeroed when accumulate == 0.
-template <int CH>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[CH / 2], const uint32_t (&a)[4], uint64_t db,
-                                           int accumulate) {
-  if constexpr (CH == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FSAT_WGMMA_D16
-        ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : FSAT_WGMMA_OUT16(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  } else {
-    static_assert(CH == 64, "tf32 wgmma widths: 32, 64");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FSAT_WGMMA_D32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : FSAT_WGMMA_OUT32(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  }
-}
-
-// fp32 -> tf32, round to nearest (ties away), in an fp32 container.
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// ---- the snake on a landed A tile ----------------------------------------------
-
-// The bf16 snake in place on 64 rows of a 128B-swizzled tile of 64 channels
-// from c0 (physical chunk p of row r holds channels c0 + 8 (p ^ (r & 7)) ..
-// + 8); channels at or past Cin (zeros) are left alone. Cin % 8 == 0.
-__device__ __forceinline__ void snake_rows_bf16(unsigned char* rows, int c0, int cin,
-                                                const float* __restrict__ ab, int tid) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int i = tid + q * 128, r = i >> 3, p = i & 7;
-    const int ch = c0 + ((p ^ (r & 7)) << 3);
-    if (ch < cin) {
-      uint4* ptr = reinterpret_cast<uint4*>(rows + r * kSwizzleRow + p * 16);
-      Pack8 v;
-      v.u = *ptr;
-      const float4 a0 = *reinterpret_cast<const float4*>(ab + ch);
-      const float4 a1 = *reinterpret_cast<const float4*>(ab + ch + 4);
-      const float4 i0 = *reinterpret_cast<const float4*>(ab + cin + ch);
-      const float4 i1 = *reinterpret_cast<const float4*>(ab + cin + ch + 4);
-      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float ib[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v.h[e] = __float2bfloat16_rn(snake_poly(__bfloat162float(v.h[e]), al[e], ib[e]));
-      *ptr = v.u;
-    }
-  }
-}
-
-// ---- the kernel -------------------------------------------------------------------
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// Bias, one rounding, and the store of a warpgroup's 64 x N accumulator:
-// K2 rows t, K4 rows q s + phase; rows at or past T are dropped.
-template <typename T, int N, int CH>
-__device__ __forceinline__ void store_tile(const float (&acc)[N / CH][CH / 2], const ConvPlan& p,
-                                           const float* __restrict__ bias, T* __restrict__ y, int b,
-                                           int row0, int n0, int phase, int tq) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int t = row0 + 8 * h;
-    if (t >= p.T) continue;
-    const size_t out_row =
-        p.stride ? ((size_t)b * p.T + t) * p.stride + phase : (size_t)b * p.T + t;
-    T* dst = y + out_row * p.cout + n0 + 2 * tq;
-    const float* bb = bias + n0 + 2 * tq;
-#pragma unroll
-    for (int c = 0; c < N / CH; ++c)
-#pragma unroll
-      for (int j = 0; j < CH / 8; ++j) {
-        const int col = c * CH + 8 * j;
-        store2(dst + col, acc[c][4 * j + 2 * h] + bb[col], acc[c][4 * j + 2 * h + 1] + bb[col + 1]);
-      }
-  }
-}
 
 template <typename T, int N, int CH>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -416,20 +227,8 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
 template <typename T, int N, int CH>
 int launch_conv_taps(const ConvPlan& p, const void* x, const void* wk, int w_taps,
                      const float* bias, const float* ab, void* y, int B, cudaStream_t stream) {
-  using Tile = ConvTile<T, N>;
-  CUtensorMap xmap, wmap;
-  cudaError_t err = sw128_map_3d(&xmap, ConvElem<T>::kMap, sizeof(T), x, p.cin, p.T, B,
-                                 Tile::kKC, kM);
-  if (err == cudaSuccess)
-    err = sw128_map_3d(&wmap, ConvElem<T>::kMap, sizeof(T), wk, p.cin, p.cout,
-                       (uint64_t)w_taps * Tile::kBTiles, Tile::kKC, N);
-  if (err == cudaSuccess) err = allow_smem(conv_taps_kernel<T, N, CH>, Tile::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)((p.T + kM - 1) / kM) * (p.stride ? p.stride : 1) * p.n_chunks;
-  if (blocks >= (1ll << 31) || B > 65535) return (int)cudaErrorInvalidConfiguration;
-  conv_taps_kernel<T, N, CH><<<dim3((unsigned)blocks, B), kThreads, Tile::kSmem, stream>>>(
-      xmap, wmap, bias, ab, static_cast<T*>(y), p);
-  return (int)cudaGetLastError();
+  return launch_taps<T, N>(conv_taps_kernel<T, N, CH>, p, x, wk, w_taps * ConvElem<T>::kBTiles, B,
+                           stream, bias, ab, static_cast<T*>(y));
 }
 
 // Picks the instantiation of tile width n (conv1d.py:TILE_N): bf16 composes
@@ -440,7 +239,6 @@ int dispatch(ConvPlan p, int n, const void* x, const void* wk, int w_taps, const
              const float* ab, void* y, int B, void* stream) {
   if (n <= 0 || p.cout % n || p.cin * (int)sizeof(T) % 16 || p.flush < 1)
     return (int)cudaErrorInvalidValue;
-  p.n_chunks = p.cout / n;
   cudaStream_t st = (cudaStream_t)stream;
   if constexpr (sizeof(T) == 2) {
     switch (n) {

@@ -7,67 +7,222 @@
 // h = v * (g * sigmoid(g)) rounds at each product; out accumulates h.Wo in
 // fp32 and rounds once. T is float (every rounding is the identity) or bf16.
 //
-// Weights are read in the port's nn.Linear layouts, contiguous along their
-// input dimension: w_in [2 * inner, K] (GLU.proj.weight: value rows first,
-// gate rows after, as the JAX package's w_in[:, :inner] / w_in[:, inner:]),
-// w_out [Kout, inner] (linear_out.weight).
+// Weights come in the port's nn.Linear layouts, contiguous along their input
+// dimension: w_in [2 * inner, K] (GLU.proj.weight: value rows first, gate
+// rows after, as the JAX package's w_in[:, :inner] / w_in[:, inner:]),
+// w_out [Kout, inner] (linear_out.weight). Both are already K-major, the
+// layout wgmma reads B in.
 //
-// What bounds it on the H100: at the audio LM's decode (M 2 = one row and its
-// CFG twin, K 1024, inner 4096, Kout 1024, fp32) the 50.3 MB of weights, read
-// once, against ~50 MFLOP: a GEMV chain bound by device memory (15.0 us at
-// 3.35 TB/s). The TPU kernel keeps one M block in VMEM and walks the inner
-// dimension in order, carrying its fp32 accumulator across grid steps; here
-// blocks run in parallel in no order, so the inner dimension is cut into
-// 32-column tiles, spread over `n_split` blocks (128 blocks at the decode
-// shape: about one wave on the 132 SMs). A block stages its x rows in shared
-// memory, forms v, g and h for its 32 columns there (one warp per column,
-// lanes along K with 16-byte loads; h never reaches device memory), then adds
-// h times its 32-column slice of every w_out row into an fp32 [BM, Kout]
-// accumulator in shared memory (a group of lanes per w_out row, each lane 16
-// bytes of it). Each block writes its accumulator to an fp32 partial
-// [n_split, M, Kout]; a second small kernel sums the partials in a fixed
-// order and rounds, so the result does not depend on scheduling. Large M
-// (a prompt's prefill, a DiT's [2080, 1536] tokens) tiles M by BM = 8 rows
-// per block; each block then reads every weight it needs once per M tile,
-// from L2 where it can. Products run on the CUDA cores in fp32; a large-M
-// call is bound by operations and is slow here (a tensor-core version is
-// later work).
-#include "common.cuh"
+// Two routes, chosen by shape alone (ops/kernels/mlp.py:route):
+//
+// The tensor-core route (large M: a DiT's [2050-2080, 1536] tokens, a
+// prompt's prefill) is bound by the products: 117.8 GFLOP at SAO's DiT
+// shape, 0.119 ms at the bf16 rate. It runs two GEMMs on gemm_mainloop
+// (taps_wgmma.cuh): the convolution kernel's wgmma/TMA mainloop in its
+// one-tap case, with its tiles, ring, products and fp32 flush:
+// - glu_gemm_kernel: a block owns 128 rows x N / 2 columns of h. Its B tile
+//   is stacked: per stage the producer loads the value rows [n0, n0 + N/2)
+//   and the gate rows [inner + n0, ...) of w_in by TMA from one map over
+//   w_in as [2, inner, K], so one wgmma of width N yields v in its first
+//   column block and g in its second, and a thread holds v and g of the same
+//   column in the same register index: the GLU runs in registers at the
+//   rounding points above and h is stored in T, [M, inner].
+// - out_gemm_kernel: y = h w_out^T, rounded once (no bias: the caller adds
+//   linear_out's, JAX :121-122); optionally split over inner into fp32
+//   partials summed in a fixed order (split_k_reduce_kernel), which fills
+//   the card at small M.
+// The TPU kernel keeps h and a [bm, Kout] fp32 accumulator in VMEM across
+// its sequential inner grid axis. On Hopper a 128-row x 1536 fp32
+// accumulator is 768 KB, which neither registers nor shared memory hold, and
+// recomputing h per output-column tile would multiply GEMM1 by Kout / N; so
+// h goes through device memory: 25.6 MB in bf16 at SAO's shape, written and
+// read back, ~15 us at 3.35 TB/s (~12% of the bound). The same function,
+// not the TPU kernel's blocks. The grid runs its row tiles fastest (the
+// convolution runs its column tiles fastest), so the blocks in flight share
+// one weight tile in L2 and each weight tile is read from device memory
+// about once; x (6.4 MB) stays in L2. fp32 is 3xTF32 as in the convolution:
+// A split in registers, B as tf32 hi/lo tiles that fsat_tf32_split prepares
+// per call ([parts, 2, rows, K]: 113 MB of fp32 weights read, 226 MB written
+// at SAO's shape), the partial sum flushed into the fp32 total every `flush`
+// stages (ops/kernels/mlp.py:F32_FLUSH).
+//
+// The streaming route (M <= 16: the audio LM's decode at M 2 = one row and
+// its CFG twin, K 1024, inner 4096, Kout 1024, fp32) is a GEMV chain bound
+// by reading the 50.3 MB of weights once: 15.0 us at 3.35 TB/s. It stays on
+// the CUDA cores, one cooperative launch of up to one block per SM (128 at
+// the decode), each with a producer warp that keeps a ring of 32 KB stages
+// filled by 2-D TMA (~190 KB in flight per SM at M 2) and eight consumer
+// warps. Phase 1: block b forms h for 32 columns (value and gate rows of
+// w_in, 256 K at a time; a warp 4 columns, a lane 8 K positions, partial
+// dot products in registers, reduced across the warp, the GLU at the
+// rounding points) and stores them in an fp32 scratch h [M, inner]. A grid
+// barrier. Phase 2: block b computes its R = Kout / blocks outputs (8 at
+// the decode) for every row, each output's whole inner reduction in one warp
+// in a fixed order, from w_out's rows and h. The producer starts on the
+// w_out rows as soon as phase 1's stages are consumed, so they arrive
+// during the barrier. The TPU kernel carries an fp32 [bm, Kout] accumulator
+// across its sequential inner axis; blocks here run in parallel, so the
+// barrier takes the place of that order and no output is summed from
+// partials of several blocks: the result does not depend on scheduling,
+// and no second launch sums partials. (Summing the blocks' partials in the
+// launch, by an atomic ticket per output slice, left the blocks that drew
+// the last tickets summing 1-8 MB alone: 0.085-0.68 ms at M 16; PERF.md,
+// §6.)
+#include <mutex>
+
+#include "taps_wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBJ = 32;  // GLU columns per tile
+// ---- the tensor-core route ---------------------------------------------------------
 
-// Eight bf16 or four fp32 values: one 16-byte load, widened to fp32.
-template <typename T>
-struct Vec16 {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-__device__ __forceinline__ void load16(const float* p, float (&out)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
+template <typename T, int N, int CH>
+__global__ void __launch_bounds__(kThreads, 1)
+glu_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ bias, T* __restrict__ h, const ConvPlan p) {
+  gemm_mainloop<T, N, CH, kEpiGlu>(&xmap, &wmap, bias, h, nullptr, p);
 }
 
-__device__ __forceinline__ void load16(const bf16* p, float (&out)[8]) {
+template <typename T, int N, int CH>
+__global__ void __launch_bounds__(kThreads, 1)
+out_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                T* __restrict__ y, float* __restrict__ partial, const ConvPlan p) {
+  gemm_mainloop<T, N, CH, kEpiGemm>(&xmap, &wmap, nullptr, y, partial, p);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// y[i] = round_T(partial[0][i] + partial[1][i] + ...), the splits in order.
+template <typename T>
+__global__ void split_k_reduce_kernel(const float* __restrict__ partial, T* __restrict__ y,
+                                      long long total, int k_split) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < k_split; ++k) s += partial[k * total + i];
+    store1(y + i, s);
+  }
+}
+
+// w [parts * rows, K] fp32 -> out [parts, 2, rows, K]: each part's tf32 hi
+// = tf32(w) and lo = tf32(w - hi), the fp32 GEMMs' B operands. K % 4 == 0.
+__global__ void tf32_split_kernel(const float4* __restrict__ w, float4* __restrict__ out,
+                                  long long part_vecs, int parts) {
+  const long long total = part_vecs * parts;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long q = i / part_vecs, r = i % part_vecs;
+    const float4 v = w[i];
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+    float hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[e] = __uint_as_float(tf32_rna(vv[e]));
+      lo[e] = __uint_as_float(tf32_rna(vv[e] - hi[e]));
+    }
+    out[2 * q * part_vecs + r] = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    out[(2 * q + 1) * part_vecs + r] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// GEMM1 at stacked tile width n (N / 2 columns of h per block): bf16 256,
+// 192, 128 (two wgmmas of 128, 96, 64 columns); fp32 128, 64 (two of 64, 32).
+template <typename T>
+int glu_dispatch(const ConvPlan& p, int n, const void* x, const void* w, const float* b, void* h,
+                 cudaStream_t st) {
+  const int sl = 2 * ConvElem<T>::kBTiles;
+  T* out = static_cast<T*>(h);
+  if constexpr (sizeof(T) == 2) {
+    switch (n) {
+      case 256: return launch_taps<T, 256>(glu_gemm_kernel<T, 256, 128>, p, x, w, sl, 1, st, b, out);
+      case 192: return launch_taps<T, 192>(glu_gemm_kernel<T, 192, 96>, p, x, w, sl, 1, st, b, out);
+      case 128: return launch_taps<T, 128>(glu_gemm_kernel<T, 128, 64>, p, x, w, sl, 1, st, b, out);
+    }
+  } else {
+    switch (n) {
+      case 128: return launch_taps<T, 128>(glu_gemm_kernel<T, 128, 64>, p, x, w, sl, 1, st, b, out);
+      case 64: return launch_taps<T, 64>(glu_gemm_kernel<T, 64, 32>, p, x, w, sl, 1, st, b, out);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// GEMM2 at tile width n: bf16 256, 192, 128; fp32 128, 96, 64 (the
+// convolution's compositions).
+template <typename T>
+int out_dispatch(const ConvPlan& p, int n, const void* h, const void* w, void* y, float* partial,
+                 cudaStream_t st) {
+  const int sl = ConvElem<T>::kBTiles;
+  T* out = static_cast<T*>(y);
+  if constexpr (sizeof(T) == 2) {
+    switch (n) {
+      case 256: return launch_taps<T, 256>(out_gemm_kernel<T, 256, 128>, p, h, w, sl, 1, st, out, partial);
+      case 192: return launch_taps<T, 192>(out_gemm_kernel<T, 192, 96>, p, h, w, sl, 1, st, out, partial);
+      case 128: return launch_taps<T, 128>(out_gemm_kernel<T, 128, 128>, p, h, w, sl, 1, st, out, partial);
+    }
+  } else {
+    switch (n) {
+      case 128: return launch_taps<T, 128>(out_gemm_kernel<T, 128, 64>, p, h, w, sl, 1, st, out, partial);
+      case 96: return launch_taps<T, 96>(out_gemm_kernel<T, 96, 32>, p, h, w, sl, 1, st, out, partial);
+      case 64: return launch_taps<T, 64>(out_gemm_kernel<T, 64, 64>, p, h, w, sl, 1, st, out, partial);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int out_gemm(int M, int inner, int Kout, int n, int raster, int k_split, int flush, const void* h,
+             const void* w, void* y, float* partial, cudaStream_t st) {
+  ConvPlan p{M, inner, Kout, 1, 1, 0, 0, 0, flush};
+  p.m_fastest = raster;
+  p.k_split = k_split;
+  int err = out_dispatch<T>(p, n, h, w, y, k_split > 1 ? partial : nullptr, st);
+  if (err != 0 || k_split == 1) return err;
+  const long long total = (long long)M * Kout;
+  const int blocks = (int)((total + 255) / 256 < 4 * 132 ? (total + 255) / 256 : 4 * 132);
+  split_k_reduce_kernel<T><<<blocks, 256, 0, st>>>(partial, static_cast<T*>(y), total, k_split);
+  return (int)cudaGetLastError();
+}
+
+// ---- the streaming route -----------------------------------------------------------
+
+constexpr int kStreamWarps = 8;                          // consumer warps
+constexpr int kConsumerThreads = kStreamWarps * 32;
+constexpr int kStreamThreads = kConsumerThreads + 32;    // + one producer warp
+constexpr int kCols = 32;        // columns of h per phase-1 tile
+constexpr int kKB = 256;         // elements per TMA box row: K (phase 1) or inner (phase 2)
+constexpr int kSlot = 32 * 1024; // bytes of one ring stage
+constexpr int kMaxStreamStages = 6;
+constexpr int kMaxOutRows = 32;  // phase 2: w_out rows per block, at most
+constexpr int kSmemLimit = 227 * 1024;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// Eight elements from shared memory, widened to fp32: two 16-byte words of
+// fp32 (at p and p + 128 elements) or one of bf16.
+__device__ __forceinline__ void load8(const float* p, float (&out)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 128);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float (&out)[8]) {
   Pack8 pk;
-  pk.u = __ldg(reinterpret_cast<const uint4*>(p));
+  pk.u = *reinterpret_cast<const uint4*>(p);
 #pragma unroll
   for (int e = 0; e < 8; ++e) out[e] = __bfloat162float(pk.h[e]);
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_t(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_t(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-// the rounding to T at each of the TPU kernel's cast points
-__device__ __forceinline__ float rnd(float v, const float*) { return v; }
-__device__ __forceinline__ float rnd(float v, const bf16*) { return round_bf16(v); }
+// The fp32 at p and p + 128 (fp32 lanes) or p .. p + 7 (bf16 lanes): the
+// eight positions a lane takes of a 256-wide box row, matching load8.
+__device__ __forceinline__ void load8_f32(const float* p, bool f32_layout, float (&out)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + (f32_layout ? 128 : 4));
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -75,196 +230,391 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One block per (split s, M tile); shared memory: xs [BM][K], hs [BM][kBJ],
-// acc [BM][Kout], all fp32. Split s takes inner tiles [s * per, (s+1) * per).
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-glu_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
-               const float* __restrict__ b_in, const T* __restrict__ w_out,
-               float* __restrict__ partial, int M, int K, int inner, int Kout, int per) {
-  constexpr int V = Vec16<T>::N;
-  constexpr int LPR = kBJ / V;   // lanes per w_out row slice (fp32 8, bf16 4)
-  constexpr int RPW = 32 / LPR;  // w_out rows per warp and step
-  extern __shared__ __align__(16) float smf[];
-  float* xs = smf;
-  float* hs = xs + BM * K;
-  float* acc = hs + BM * kBJ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.y * BM;
-  const int n_tiles = inner / kBJ;
-  const int jt0 = blockIdx.x * per, jt1 = min(jt0 + per, n_tiles);
-
-  for (int i = threadIdx.x; i < BM * K; i += kThreads) {
-    const int m = i / K, k = i % K;
-    xs[i] = (m0 + m < M) ? to_f(x[(size_t)(m0 + m) * K + k]) : 0.f;
+// A barrier across the whole grid, whose blocks a cooperative launch keeps
+// resident together: thread 0 of each block arrives (after every thread
+// of the block fenced its writes and met at bar_sync); the last to arrive
+// resets the count for the next launch and starts the next generation.
+__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned n_blocks) {
+  volatile unsigned* gen = bar + 1;
+  const unsigned my_gen = *gen;
+  __threadfence();
+  if (atomicAdd(bar, 1u) == n_blocks - 1) {
+    bar[0] = 0;
+    __threadfence();
+    atomicAdd(bar + 1, 1u);
+  } else {
+    for (uint32_t polls = 0; *gen == my_gen; ++polls) {
+      __nanosleep(64);
+      if (polls == (1u << 26)) asm volatile("trap;\n");
+    }
   }
-  for (int i = threadIdx.x; i < BM * Kout; i += kThreads) acc[i] = 0.f;
+  __threadfence();
+}
+
+// Phase 2's stage: `boxes` TMA boxes of [rows, 256] of w_out side by side,
+// an inner span of 256 * boxes; the most that fit a ring stage, at most 4.
+__host__ __device__ inline int out_boxes(int rows, int elem) {
+  const int fit = kSlot / (rows * kKB * elem);
+  return fit < 1 ? 0 : (fit > 4 ? 4 : fit);
+}
+
+// Shared memory of the streaming kernel, in bytes from the 1024-aligned
+// base: the ring, x as fp32 [BM][kpad] (in phase 2 a chunk of h [BM][span]
+// in the same place), v and h of a tile [BM][kCols], the barriers.
+struct StreamSmem {
+  int kpad, span, x, vs, hs, bars, total;
+};
+
+__host__ __device__ inline StreamSmem stream_smem(int bm, int K, int span, int stages) {
+  StreamSmem s;
+  s.kpad = (K + kKB - 1) / kKB * kKB;
+  s.span = span;
+  s.x = stages * kSlot;
+  s.vs = s.x + bm * (s.kpad > span ? s.kpad : span) * 4;
+  s.hs = s.vs + bm * kCols * 4;
+  s.bars = s.hs + bm * kCols * 4;
+  s.total = 1024 + s.bars + 2 * stages * 8;
+  return s;
+}
+
+inline int stream_stages(int bm, int K, int span) {
+  for (int st = kMaxStreamStages; st >= 2; --st)
+    if (stream_smem(bm, K, span, st).total <= kSmemLimit) return st;
+  return 0;
+}
+
+// One cooperative launch of G blocks (all resident at once), rows [0, M <=
+// BM) of x. Phase 1: block b forms h for the column tiles b, b + G, ... (32
+// columns each: the value rows' nk K chunks, then the gate rows', streamed
+// through the ring) and stores them in `hbuf` [M, inner] fp32. A grid
+// barrier. Phase 2: block b computes outputs [b R, b R + R) of every row,
+// each the whole inner reduction in one warp in a fixed order, from w_out's
+// rows (streamed through the ring; the producer starts on them as soon as
+// phase 1's stages are done, so they arrive during the barrier) and from h
+// (a span of it at a time from hbuf into shared memory). No partial sums.
+template <typename T, int BM>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+glu_stream_kernel(const __grid_constant__ CUtensorMap win_map,
+                  const __grid_constant__ CUtensorMap wout_map, const T* __restrict__ x,
+                  const float* __restrict__ b_in, float* __restrict__ hbuf,
+                  unsigned* __restrict__ bar, T* __restrict__ y, int M, int K, int inner,
+                  int Kout, int R, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int boxes = out_boxes(R, sizeof(T)), span = boxes * kKB;
+  const StreamSmem L = stream_smem(BM, K, span, stages);
+  float* xs = reinterpret_cast<float*>(smem + L.x);
+  float* hc = xs;  // phase 2: h [BM][span]
+  float* vs = reinterpret_cast<float*>(smem + L.vs);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  const int nk = L.kpad / kKB, G = gridDim.x, b = blockIdx.x;
+  const int n_tiles = inner / kCols, my_tiles = (n_tiles - b + G - 1) / G;
+  const int n_out = (inner + span - 1) / span, n0 = b * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  for (int jt = jt0; jt < jt1; ++jt) {
-    const int j0 = jt * kBJ;
-    // v, g and h for the tile's 32 columns: warp w takes columns w, w + 8, ...
-    for (int jj = warp; jj < kBJ; jj += kWarps) {
-      const T* wv = w_in + (size_t)(j0 + jj) * K;
-      const T* wg = w_in + (size_t)(inner + j0 + jj) * K;
-      float av[BM], ag[BM];
+  if (warp == kStreamWarps) {  // the producer warp: one thread starts the loads
+    if (lane == 0) {
+      const int n1 = 2 * nk * my_tiles;
+      for (int i = 0; i < n1 + (n0 < Kout ? n_out : 0); ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(&empty[s], ((i / stages) + 1) & 1);
+        unsigned char* dst = smem + s * kSlot;
+        if (i < n1) {
+          const int t = b + (i / (2 * nk)) * G, j = i % (2 * nk);
+          mbar_expect_tx(&full[s], kCols * kKB * sizeof(T));
+          tma_load_2d(dst, &win_map, &full[s], (j % nk) * kKB, (j / nk) * inner + t * kCols);
+        } else {
+          const int c = i - n1;
+          mbar_expect_tx(&full[s], boxes * R * kKB * sizeof(T));
+          for (int q = 0; q < boxes; ++q)
+            tma_load_2d(dst + q * R * kKB * sizeof(T), &wout_map, &full[s], c * span + q * kKB, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // x rows as fp32, zeros past M and K, 16 loads in flight per thread
+  constexpr int kXBatch = 16;
+  for (int i0 = tid; i0 < BM * L.kpad; i0 += kConsumerThreads * kXBatch) {
+    float v[kXBatch];
 #pragma unroll
-      for (int m = 0; m < BM; ++m) av[m] = ag[m] = 0.f;
-#pragma unroll 4
-      for (int k = lane * V; k < K; k += 32 * V) {
-        float fv[V], fg[V];
-        load16(wv + k, fv);
-        load16(wg + k, fg);
+    for (int u = 0; u < kXBatch; ++u) {
+      const int i = i0 + u * kConsumerThreads, m = i / L.kpad, k = i % L.kpad;
+      v[u] = (i < BM * L.kpad && m < M && k < K) ? to_f(x[(size_t)m * K + k]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kXBatch; ++u)
+      if (i0 + u * kConsumerThreads < BM * L.kpad) xs[i0 + u * kConsumerThreads] = v[u];
+  }
+  bar_sync(1, kConsumerThreads);
+
+  // phase 1: v, then g and h, for the warp's 4 columns of each tile: lane l
+  // takes K positions 4l .. 4l + 3 and 128 + 4l .. (fp32) or 8l .. 8l + 7
+  // (bf16) of each chunk
+  constexpr int kRows = kCols / kStreamWarps;
+  const T* tag = nullptr;
+  const int kx = sizeof(T) == 4 ? 4 * lane : 8 * lane;
+  int it = 0;
+  for (int ti = 0; ti < my_tiles; ++ti) {
+    const int j0 = (b + ti * G) * kCols;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float acc[kRows][BM];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int m = 0; m < BM; ++m) acc[r][m] = 0.f;
+      for (int c = 0; c < nk; ++c, ++it) {
+        const int s = it % stages;
+        mbar_wait(&full[s], (it / stages) & 1);
+        const T* tile = reinterpret_cast<const T*>(smem + s * kSlot);
+        float w[kRows][8];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) load8(tile + (warp * kRows + r) * kKB + kx, w[r]);
+        mbar_arrive(&empty[s]);
 #pragma unroll
         for (int m = 0; m < BM; ++m) {
-          // K % V == 0, so each lane's V values of x are 16-byte aligned
-          const float4* xr = reinterpret_cast<const float4*>(xs + m * K + k);
+          float xv[8];
+          load8_f32(xs + m * L.kpad + c * kKB + kx, sizeof(T) == 4, xv);
 #pragma unroll
-          for (int q = 0; q < V / 4; ++q) {
-            const float4 xv = xr[q];
-            av[m] = fmaf(xv.x, fv[4 * q], av[m]);
-            av[m] = fmaf(xv.y, fv[4 * q + 1], av[m]);
-            av[m] = fmaf(xv.z, fv[4 * q + 2], av[m]);
-            av[m] = fmaf(xv.w, fv[4 * q + 3], av[m]);
-            ag[m] = fmaf(xv.x, fg[4 * q], ag[m]);
-            ag[m] = fmaf(xv.y, fg[4 * q + 1], ag[m]);
-            ag[m] = fmaf(xv.z, fg[4 * q + 2], ag[m]);
-            ag[m] = fmaf(xv.w, fg[4 * q + 3], ag[m]);
-          }
+          for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[r][m] = fmaf(w[r][e], xv[e], acc[r][m]);
         }
       }
 #pragma unroll
-      for (int m = 0; m < BM; ++m) {
-        const float sv = warp_sum(av[m]), sg = warp_sum(ag[m]);
-        if (lane == m) {
-          float v = rnd(sv, x), g = rnd(sg, x);
-          if (b_in != nullptr) {
-            v = rnd(v + rnd(b_in[j0 + jj], x), x);
-            g = rnd(g + rnd(b_in[inner + j0 + jj], x), x);
+      for (int r = 0; r < kRows; ++r) {
+        const int col = warp * kRows + r;
+        const float bias = b_in != nullptr ? to_t(b_in[half * inner + j0 + col], tag) : 0.f;
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          const float sum = warp_sum(acc[r][m]);
+          if (lane == m && m < M) {  // row m's GLU on lane m
+            float val = to_t(sum, tag);
+            if (b_in != nullptr) val = to_t(val + bias, tag);
+            if (half == 0) {
+              vs[m * kCols + col] = val;
+            } else {
+              const float sig = to_t(1.f / (1.f + expf(-val)), tag);
+              hbuf[(size_t)m * inner + j0 + col] =
+                  to_t(vs[m * kCols + col] * to_t(val * sig, tag), tag);
+            }
           }
-          const float sig = rnd(1.f / (1.f + expf(-g)), x);
-          hs[m * kBJ + jj] = rnd(v * rnd(g * sig, x), x);
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __threadfence();
+  bar_sync(1, kConsumerThreads);
+  if (tid == 0) grid_barrier(bar, G);
+  bar_sync(1, kConsumerThreads);
+  if (n0 >= Kout) return;
+
+  // phase 2: y[m][n0 + r] for the block's R rows, warp w rows w, w + 8, ...;
+  // lanes take inner positions of each 256-wide box as phase 1's lanes take K
+  constexpr int kMaxRowsPerWarp = kMaxOutRows / kStreamWarps;
+  float acc[kMaxRowsPerWarp][BM];
+#pragma unroll
+  for (int r = 0; r < kMaxRowsPerWarp; ++r)
+#pragma unroll
+    for (int m = 0; m < BM; ++m) acc[r][m] = 0.f;
+  // a thread's share of one span of h: at most BM * 1024 / 4 float4s over the 256 threads
+  constexpr int kHLoads = BM * 4 * kKB / 4 / kConsumerThreads;
+  for (int c = 0; c < n_out; ++c, ++it) {
+    // h's span [c span, c span + span) into shared memory (zeros past inner),
+    // every load issued before the first store
+    float4 hv4[kHLoads];
+#pragma unroll
+    for (int u = 0; u < kHLoads; ++u) {
+      const int i = tid + u * kConsumerThreads;
+      const int m = i / (span / 4), p = 4 * (i % (span / 4)), j = c * span + p;
+      hv4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < BM * span / 4 && m < M && j < inner)
+        hv4[u] = __ldcg(reinterpret_cast<const float4*>(hbuf + (size_t)m * inner + j));
+    }
+#pragma unroll
+    for (int u = 0; u < kHLoads; ++u) {
+      const int i = tid + u * kConsumerThreads;
+      if (i < BM * span / 4)
+        *reinterpret_cast<float4*>(hc + (i / (span / 4)) * span + 4 * (i % (span / 4))) = hv4[u];
+    }
+    bar_sync(1, kConsumerThreads);
+    const int s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    const T* tile = reinterpret_cast<const T*>(smem + s * kSlot);
+#pragma unroll
+    for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
+      const int r = warp + rr * kStreamWarps;
+      if (r >= R) break;
+      for (int q = 0; q < boxes; ++q) {
+        float w[8];
+        load8(tile + (q * R + r) * kKB + kx, w);
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          float hv[8];
+          load8_f32(hc + m * span + q * kKB + kx, sizeof(T) == 4, hv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[rr][m] = fmaf(w[e], hv[e], acc[rr][m]);
         }
       }
     }
-    __syncthreads();
-    // acc[m][n] += h[m][:] . w_out[n, j0:j0+32]: LPR lanes per row, V columns each
-    const int sub = lane % LPR, rw = lane / LPR;
-    float hr[BM][V];
+    mbar_arrive(&empty[s]);
+    bar_sync(1, kConsumerThreads);  // hc is rewritten by the next span
+  }
 #pragma unroll
-    for (int m = 0; m < BM; ++m)
+  for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
+    const int n = n0 + warp + rr * kStreamWarps;
+    if (warp + rr * kStreamWarps >= R) break;
 #pragma unroll
-      for (int e = 0; e < V; ++e) hr[m][e] = hs[m * kBJ + sub * V + e];
-#pragma unroll 4
-    for (int n0 = warp * RPW; n0 < Kout; n0 += kWarps * RPW) {
-      const int n = n0 + rw;
-      float p[BM];
-#pragma unroll
-      for (int m = 0; m < BM; ++m) p[m] = 0.f;
-      if (n < Kout) {
-        float fw[V];
-        load16(w_out + (size_t)n * inner + j0 + sub * V, fw);
-#pragma unroll
-        for (int m = 0; m < BM; ++m)
-#pragma unroll
-          for (int e = 0; e < V; ++e) p[m] = fmaf(hr[m][e], fw[e], p[m]);
-      }
-#pragma unroll
-      for (int m = 0; m < BM; ++m) {
-#pragma unroll
-        for (int o = LPR / 2; o > 0; o >>= 1) p[m] += __shfl_xor_sync(0xffffffffu, p[m], o);
-      }
-      if (sub == 0 && n < Kout) {
-#pragma unroll
-        for (int m = 0; m < BM; ++m) acc[m * Kout + n] += p[m];
-      }
+    for (int m = 0; m < BM; ++m) {
+      const float sum = warp_sum(acc[rr][m]);
+      if (lane == 0 && m < M && n < Kout) store1(y + (size_t)m * Kout + n, sum);
     }
-    __syncthreads();  // hs is rewritten by the next tile
-  }
-
-  float* out = partial + (size_t)blockIdx.x * M * Kout;
-  for (int i = threadIdx.x; i < BM * Kout; i += kThreads) {
-    const int m = i / Kout, n = i % Kout;
-    if (m0 + m < M) out[(size_t)(m0 + m) * Kout + n] = acc[i];
   }
 }
 
-// y[i] = round_T(sum over s of partial[s][i]), s in a fixed order: warp w
-// sums the splits s = w, w + 8, ... of 32 consecutive outputs, then the eight
-// warp sums add in warp order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-glu_mlp_reduce_kernel(const float* __restrict__ partial, T* __restrict__ y, int total,
-                      int n_split) {
-  __shared__ float part[kWarps][32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (i < total)
-    for (int sp = warp; sp < n_split; sp += kWarps) s += partial[(size_t)sp * total + i];
-  part[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && i < total) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += part[w][lane];
-    store_t(y + i, t);
+// The grid of a launch at this shape: G blocks, all resident at once (one
+// per SM at most, and enough that each takes at most kMaxOutRows outputs),
+// and R outputs per block; false where the kernel does not take the shape.
+// The answer for the last device and shape is kept: the queries cost tens
+// of microseconds, and the LM's decode calls one shape thousands of times.
+template <typename T, int BM>
+bool stream_grid(int K, int inner, int Kout, int& G, int& R, int& stages, int& smem) {
+  static std::mutex lock;
+  static int key[4] = {-1, -1, -1, -1}, val[4];
+  static bool fits = false;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  std::lock_guard<std::mutex> guard(lock);
+  if (key[0] != dev || key[1] != K || key[2] != inner || key[3] != Kout) {
+    int sms = 0, per_sm = 0;
+    fits = K * (int)sizeof(T) % 16 == 0 && inner % kCols == 0 && inner * (int)sizeof(T) % 16 == 0 &&
+           cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess;
+    if (fits) {
+      val[0] = inner / kCols < sms ? inner / kCols : sms;
+      val[1] = (Kout + val[0] - 1) / val[0];
+      const int span = out_boxes(val[1], sizeof(T)) * kKB;
+      val[2] = stream_stages(BM, K, span);
+      val[3] = stream_smem(BM, K, span, val[2]).total;
+      fits = val[1] <= kMaxOutRows && val[2] > 0 &&
+             allow_smem(glu_stream_kernel<T, BM>, val[3]) == cudaSuccess &&
+             cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, glu_stream_kernel<T, BM>,
+                                                           kStreamThreads, val[3]) == cudaSuccess &&
+             per_sm >= 1;
+    }
+    key[0] = dev, key[1] = K, key[2] = inner, key[3] = Kout;
   }
-}
-
-size_t glu_mlp_smem_bytes(int bm, int K, int Kout) {
-  return (size_t)bm * (K + kBJ + Kout) * sizeof(float);
+  G = val[0], R = val[1], stages = val[2], smem = val[3];
+  return fits;
 }
 
 template <typename T, int BM>
-int launch_glu_mlp(const void* x, const void* w_in, const float* b_in, const void* w_out,
-                   float* partial, void* y, int M, int K, int inner, int Kout, int n_split,
-                   cudaStream_t stream) {
-  const int n_tiles = inner / kBJ;
-  const int per = (n_tiles + n_split - 1) / n_split;
-  const size_t smem = glu_mlp_smem_bytes(BM, K, Kout);
-  cudaError_t err = allow_smem(glu_mlp_kernel<T, BM>, smem);
+int launch_stream(const void* x, const void* w_in, const float* b_in, const void* w_out,
+                  float* hbuf, unsigned* bar, void* y, int M, int K, int inner, int Kout,
+                  cudaStream_t st) {
+  int G, R, stages, smem;
+  if (M > BM || !stream_grid<T, BM>(K, inner, Kout, G, R, stages, smem))
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType dt =
+      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap win_map, wout_map;
+  cudaError_t err = plain_map_2d(&win_map, dt, sizeof(T), w_in, K, 2 * (uint64_t)inner, kKB, kCols);
+  if (err == cudaSuccess) err = plain_map_2d(&wout_map, dt, sizeof(T), w_out, inner, Kout, kKB, R);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_split, (M + BM - 1) / BM);
-  glu_mlp_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_in), b_in, static_cast<const T*>(w_out),
-      partial, M, K, inner, Kout, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int total = M * Kout;
-  glu_mlp_reduce_kernel<T><<<(total + 31) / 32, kThreads, 0, stream>>>(
-      partial, static_cast<T*>(y), total, n_split);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, 1, 1);
+  cfg.blockDim = dim3(kStreamThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, glu_stream_kernel<T, BM>, win_map, wout_map,
+                           static_cast<const T*>(x), b_in, hbuf, bar, static_cast<T*>(y), M, K,
+                           inner, Kout, R, stages);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// bm is the wrapper's M tile (ops/kernels/mlp.py:plan): 2 or 8 rows.
+// bm: the M tile of the wrapper's plan (ops/kernels/mlp.py:stream_plan),
+// 2, 4, 8 or 16, M <= bm.
 template <typename T>
-int glu_mlp_entry(const void* x, const void* w_in, const float* b_in, const void* w_out,
-                  float* partial, void* y, int M, int K, int inner, int Kout, int n_split, int bm,
-                  void* stream) {
+int stream_entry(const void* x, const void* w_in, const float* b_in, const void* w_out,
+                 float* hbuf, unsigned* bar, void* y, int M, int K, int inner, int Kout, int bm,
+                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (K % Vec16<T>::N || inner % kBJ || n_split < 1) return (int)cudaErrorInvalidValue;
-  if (bm == 2)
-    return launch_glu_mlp<T, 2>(x, w_in, b_in, w_out, partial, y, M, K, inner, Kout, n_split, st);
-  if (bm == 8)
-    return launch_glu_mlp<T, 8>(x, w_in, b_in, w_out, partial, y, M, K, inner, Kout, n_split, st);
+  switch (bm) {
+    case 2: return launch_stream<T, 2>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
+    case 4: return launch_stream<T, 4>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
+    case 8: return launch_stream<T, 8>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
+    case 16: return launch_stream<T, 16>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K13 on bf16 x, w_in, w_out and y (fp32 biases and partials).
-extern "C" int fsat_glu_mlp(const void* x, const void* w_in, const float* b_in, const void* w_out,
-                            float* partial, void* y, int M, int K, int inner, int Kout,
-                            int n_split, int bm, void* stream) {
-  return glu_mlp_entry<bf16>(x, w_in, b_in, w_out, partial, y, M, K, inner, Kout, n_split, bm,
-                             stream);
+// The tensor-core route's GEMM1 with the GLU epilogue: x [M, K], w = w_in
+// [2 * inner, K] (bf16) or fsat_tf32_split's [2, 2, inner, K] (fp32), b_in
+// [2 * inner] fp32 or null -> h [M, inner]. n: the stacked tile width;
+// raster 1 runs the row tiles fastest. K * elem and inner * elem % 16 == 0.
+extern "C" int fsat_glu_gemm(const void* x, const void* w, const float* b_in, void* h, int M, int K,
+                             int inner, int n, int raster, int f32, int flush, void* stream) {
+  const int elem = f32 ? 4 : 2;
+  if (K * elem % 16 || inner * elem % 16 || M < 1 || flush < 1) return (int)cudaErrorInvalidValue;
+  ConvPlan p{M, K, inner, 1, 1, 0, 0, 0, flush};
+  p.b_parts = 2;
+  p.m_fastest = raster;
+  cudaStream_t st = (cudaStream_t)stream;
+  return f32 ? glu_dispatch<float>(p, n, x, w, b_in, h, st) : glu_dispatch<bf16>(p, n, x, w, b_in, h, st);
 }
 
-// K13 on fp32 x, w_in, w_out and y.
-extern "C" int fsat_glu_mlp_f32(const void* x, const void* w_in, const float* b_in,
-                                const void* w_out, float* partial, void* y, int M, int K,
-                                int inner, int Kout, int n_split, int bm, void* stream) {
-  return glu_mlp_entry<float>(x, w_in, b_in, w_out, partial, y, M, K, inner, Kout, n_split, bm,
-                              stream);
+// GEMM2: h [M, inner], w = w_out [Kout, inner] (bf16) or fsat_tf32_split's
+// [1, 2, Kout, inner] (fp32) -> y [M, Kout]; k_split > 1 sums fp32 partials
+// [k_split, M, Kout] (`partial`) in a second launch. Kout even.
+extern "C" int fsat_out_gemm(const void* h, const void* w, void* y, float* partial, int M, int inner,
+                             int Kout, int n, int raster, int k_split, int f32, int flush,
+                             void* stream) {
+  const int elem = f32 ? 4 : 2;
+  if (inner * elem % 16 || Kout % 2 || M < 1 || k_split < 1 || flush < 1 ||
+      (k_split > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return f32 ? out_gemm<float>(M, inner, Kout, n, raster, k_split, flush, h, w, y, partial, st)
+             : out_gemm<bf16>(M, inner, Kout, n, raster, k_split, flush, h, w, y, partial, st);
+}
+
+// w [parts * rows, K] fp32 -> out [parts, 2, rows, K], the tf32 hi/lo parts.
+extern "C" int fsat_tf32_split(const float* w, float* out, int rows, int K, int parts, void* stream) {
+  if (K % 4 || rows < 1 || parts < 1) return (int)cudaErrorInvalidValue;
+  const long long part_vecs = (long long)rows * K / 4;
+  const long long total = part_vecs * parts;
+  const int blocks = (int)((total + 255) / 256 < 8 * 132 ? (total + 255) / 256 : 8 * 132);
+  tf32_split_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(w), reinterpret_cast<float4*>(out), part_vecs, parts);
+  return (int)cudaGetLastError();
+}
+
+// The streaming route: x [M, K], w_in [2 * inner, K], b_in or null, w_out
+// [Kout, inner] (all T) -> y [M, Kout], M <= bm; hbuf: fp32 [M, inner]
+// scratch; bar: two zeroed words that the grid barrier leaves ready for
+// the next launch (one launch at a time per word pair).
+extern "C" int fsat_glu_stream(const void* x, const void* w_in, const float* b_in,
+                               const void* w_out, float* hbuf, unsigned* bar, void* y, int M,
+                               int K, int inner, int Kout, int bm, int f32, void* stream) {
+  return f32 ? stream_entry<float>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, bm, stream)
+             : stream_entry<bf16>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, bm, stream);
 }

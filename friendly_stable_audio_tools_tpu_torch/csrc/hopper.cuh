@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the wgmma/TMA kernels (attention.cu,
-// attention_bwd.cu, conv_wgmma.cu): mbarriers, TMA loads into
+// attention_bwd.cu, conv_wgmma.cu, glu_mlp.cu): mbarriers, TMA loads into
 // mbarrier-guarded shared memory, warpgroup matrix products (wgmma) on
 // 128B-swizzled tiles, and the host-side tensor maps. A tile row is 128
 // bytes (64 bf16 or 32 fp32), exactly one row of the 128-byte swizzle, so a
@@ -87,6 +87,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Box (c0, c1) of a 2-D tensor map into dst, as tma_load_3d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -190,6 +200,25 @@ inline cudaError_t sw128_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, int
   const CUresult r = encode(map, dtype, 3, const_cast<void*>(base), dims, strides, box, step,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// An unswizzled map over a row-major [d1, d0] tensor (d0 contiguous, `elem`
+// bytes each) whose boxes are [box1, box0], landing row after row in shared
+// memory; elements outside the tensor read as zeros. d0 * elem and box0 *
+// elem must be multiples of 16.
+inline cudaError_t plain_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
+                                const void* base, uint64_t d0, uint64_t d1, uint32_t box0,
+                                uint32_t box1) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {d0 * elem};
+  const cuuint32_t box[2] = {box0, box1};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

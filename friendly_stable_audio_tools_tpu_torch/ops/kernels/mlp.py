@@ -3,10 +3,24 @@
 Replaces friendly_stable_audio_tools_tpu/ops/pallas/mlp.py:_glu_mlp_impl
 (:145; `_glu_mlp_kernel` :116, pallas_call :172), which the JAX package's
 `FeedForward` runs when its fused-MLP switch is on (models/transformer.py:
-103-123). :func:`glu_mlp` runs the CUDA kernel (csrc/glu_mlp.cu) on a CUDA
-tensor and raises on what the kernel does not take; :func:`glu_mlp_plain`,
-the unfused chain at the kernel's rounding points (JAX `_xla_reference`,
-:198-202), serves CPU tensors. Nothing falls back from the kernel.
+103-123). :func:`glu_mlp` runs a CUDA kernel (csrc/glu_mlp.cu) on a CUDA
+tensor and raises on what the kernels do not take; :func:`glu_mlp_plain`,
+the unfused chain at the kernels' rounding points (JAX `_xla_reference`,
+:198-202), serves CPU tensors. Nothing falls back from a kernel.
+
+Two routes, chosen by the shape alone (:func:`route`):
+
+* "stream" (M <= 16: the audio LM's decode at M 2): a GEMV chain bound by
+  reading the weights once; CUDA cores, one cooperative launch whose blocks
+  stream their slices of w_in, then of w_out, through a TMA-fed ring: h
+  for 32 columns per block, a grid barrier, then each block's own outputs
+  over all of h, so no partial sums at all.
+* "tensor" (large M: a DiT's tokens, a prompt's prefill): bound by the
+  products; two wgmma/TMA GEMMs on the convolution kernels' mainloop
+  (csrc/taps_wgmma.cuh): GEMM1 with the GLU as its epilogue writes h [M,
+  inner] in the input dtype, GEMM2 multiplies it into w_out. bf16 reads the
+  weights as they are; fp32 runs 3xTF32 on tf32 hi/lo parts of the weights
+  that each call prepares (:func:`tensor_weights`).
 
 Weights come in the port's nn.Linear layouts: ``w_in`` is
 ``GLU.proj.weight`` [2 * inner, K] with the value rows first and the gate
@@ -14,44 +28,158 @@ rows after (JAX ``w_in[:, :inner]`` / ``w_in[:, inner:]``), ``b_in`` its
 bias [2 * inner] or None, ``w_out`` is ``linear_out.weight`` [Kout, inner].
 The caller adds the output bias (JAX :121-122).
 
-The kernel has no backward, as the JAX package's has none: its custom_vjp
+The kernels have no backward, as the JAX package's has none: its custom_vjp
 differentiates the plain chain (:211-219). `FeedForward` therefore takes
 the plain chain under grad, and on a CUDA tensor the wrapper raises when an
-input needs a gradient. What bounds the kernel on the H100 and what its
+input needs a gradient. What bounds each route on the H100 and what its
 design does about it: csrc/glu_mlp.cu.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import typing as tp
 
 import torch
 
 from . import build
+from .conv1d import F32_FLUSH, _stream, _tma_ready
 
-# launch count: the wrapper adds one where it launches the kernel (fp32 or bf16)
+# launch counts: the wrapper adds one to `launches` and one to its route's
+# count where it launches a route's kernels (fp32 or bf16); a tensor-core
+# call is 2-4 kernels (the fp32 weight parts, GEMM1, GEMM2, a split-k sum)
 launches = 0
+stream_launches = 0
+tensor_launches = 0
 
-BLOCK_J = 32  # the kernel's inner tile (csrc/glu_mlp.cu: kBJ)
-BLOCKS = 2 * 132  # blocks to aim for: two per SM of the H100
-SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
+# the streaming route (csrc/glu_mlp.cu): columns of h per phase-1 tile,
+# elements per TMA box row, bytes per ring stage, its most stages, its most
+# outputs per block, the SMs its blocks fill (the H100's 132)
+STREAM_COLS = 32
+STREAM_BOX = 256
+STREAM_SLOT = 32 * 1024
+STREAM_MAX_STAGES = 6
+STREAM_MAX_OUT_ROWS = 32
+SMEM_LIMIT = 227 * 1024
+# the largest M the streaming route takes (the crossover measured by
+# mlp_variants.py at the LM's widths on an H100: fp32 streams faster than
+# the tensor cores up to its limit of 16, bf16 up to M 4; PERF.md §6);
+# above it the tensor-core route
+STREAM_MAX_M = {torch.float32: 16, torch.bfloat16: 4}
+# the tensor-core route: GEMM1's stacked tile width (N / 2 columns of h per
+# block) and GEMM2's tile width, by dtype (mlp_variants.py)
+GLU_TILE_N = {torch.bfloat16: 256, torch.float32: 128}
+OUT_TILE_N = {torch.bfloat16: 256, torch.float32: 128}
+# both run their row tiles fastest across the grid, so that the blocks in
+# flight share a weight tile in L2 (the raster argument, 1)
+ROWS_FASTEST = 1
+# GEMM2 may split its inner reduction over blockIdx.y into at most MAX_SPLIT
+# fp32 partials, each at least MIN_SPLIT_STAGES stages deep (tensor_plan):
+# the card's SMs, peaks (bf16; fp32 at 3xTF32's third of the TF32 rate) and
+# the share of an SM's peak the mainloop reaches (0.79 measured at M 2080)
+SMS = 132
+PEAK = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+PEAK_BYTES = 3.35e12
+MAINLOOP_SHARE = 0.75
+MAX_SPLIT = 8
+MIN_SPLIT_STAGES = 8
+ROW_TILE = 128  # rows per block of the tensor-core route
+# fp32: the tensor-core partial sum is flushed every F32_FLUSH stages, as
+# the convolution's (conv1d.F32_FLUSH; at GEMM2's 6144-long reduction too)
+
+_barriers: tp.Dict[tp.Any, torch.Tensor] = {}
 
 
-def plan(m: int, inner: int) -> tp.Tuple[int, int]:
-    """(M tile, number of splits of the inner dimension) for M rows: a tile
-    of 2 rows (the LM's decode: one row and its CFG twin) or 8, and enough
-    splits that the grid holds about BLOCKS blocks."""
-    bm = 2 if m <= 2 else 8
-    n_tiles = inner // BLOCK_J
-    n_split = min(n_tiles, max(1, math.ceil(BLOCKS / math.ceil(m / bm))))
-    per = math.ceil(n_tiles / n_split)
-    return bm, math.ceil(n_tiles / per)
+def _elem(dtype) -> int:
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def stream_plan(m: int) -> int:
+    """The streaming kernel's M tile (it takes M <= 16): the least of 2 (the
+    decode: one row and its CFG twin), 4, 8, 16 that holds M."""
+    return next(bm for bm in (2, 4, 8, 16) if m <= bm) if m <= 16 else 16
+
+
+def stream_grid(inner: int, kout: int, dtype) -> tp.Tuple[int, int, int]:
+    """(blocks, outputs per block, inner span per phase-2 stage) of a
+    streaming launch (csrc/glu_mlp.cu:stream_grid, out_boxes)."""
+    blocks = min(inner // STREAM_COLS, SMS)
+    rows = math.ceil(kout / blocks)
+    boxes = min(4, STREAM_SLOT // (rows * STREAM_BOX * _elem(dtype)))
+    return blocks, rows, boxes * STREAM_BOX
+
+
+def stream_stages(bm: int, k: int, span: int) -> int:
+    """Ring stages of the streaming kernel beside x [bm, K] (in phase 2 a
+    span of h) as fp32 in shared memory (csrc/glu_mlp.cu:stream_stages); 0
+    if fewer than 2 fit."""
+    kpad = math.ceil(k / STREAM_BOX) * STREAM_BOX
+    for stages in range(STREAM_MAX_STAGES, 1, -1):
+        total = (1024 + stages * STREAM_SLOT + bm * max(kpad, span) * 4
+                 + 2 * bm * STREAM_COLS * 4 + 2 * stages * 8)
+        if total <= SMEM_LIMIT:
+            return stages
+    return 0
+
+
+@functools.lru_cache(maxsize=256)
+def stream_fits(m: int, k: int, inner: int, kout: int, dtype) -> bool:
+    if m > 16 or (k * _elem(dtype)) % 16 or inner % STREAM_COLS:
+        return False
+    _, rows, span = stream_grid(inner, kout, dtype)
+    return rows <= STREAM_MAX_OUT_ROWS and stream_stages(stream_plan(m), k, span) > 0
+
+
+@functools.lru_cache(maxsize=256)
+def tensor_fits(k: int, inner: int, kout: int, dtype) -> bool:
+    return (k * _elem(dtype)) % 16 == 0 and (inner * _elem(dtype)) % 16 == 0 and kout % 2 == 0
+
+
+@functools.lru_cache(maxsize=256)  # the shape decides; the LM's decode asks thousands of times
+def route(m: int, k: int, inner: int, kout: int, dtype) -> tp.Optional[str]:
+    """K13's route for x [M, K], inner and Kout on `dtype`, by the shape
+    alone: "stream" for M <= STREAM_MAX_M[dtype] (the measured crossover),
+    "tensor" above it; the other route where the shape does not fit the
+    preferred one (stream: M <= 16, K * elem % 16, inner % 32, at most 32
+    outputs per block, x beside two stages in shared memory; tensor: K *
+    elem and inner * elem % 16, Kout even); None where neither does."""
+    fits = {"stream": stream_fits(m, k, inner, kout, dtype),
+            "tensor": tensor_fits(k, inner, kout, dtype)}
+    order = ("stream", "tensor") if m <= STREAM_MAX_M[dtype] else ("tensor", "stream")
+    return next((r for r in order if fits[r]), None)
+
+
+def gemm2_cost(m: int, inner: int, kout: int, dtype, k_split: int) -> float:
+    """A model of GEMM2's time in seconds at k split `k_split`: waves of its
+    grid times one block's products at MAINLOOP_SHARE of an SM's peak, plus
+    the split partials' round trip through device memory."""
+    blocks = math.ceil(m / ROW_TILE) * math.ceil(kout / OUT_TILE_N[dtype]) * k_split
+    block = 2 * ROW_TILE * OUT_TILE_N[dtype] * inner / (PEAK[dtype] / SMS * MAINLOOP_SHARE)
+    partials = 2 * k_split * m * kout * 4 / PEAK_BYTES if k_split > 1 else 0.0
+    return math.ceil(blocks / SMS) * block / k_split + partials
+
+
+@functools.lru_cache(maxsize=256)
+def tensor_plan(m: int, inner: int, kout: int, dtype) -> tp.Dict[str, int]:
+    """The tensor-core route's launch plan: GEMM1's stacked tile width and
+    blocks, GEMM2's tile width, k split and blocks. GEMM2 splits its inner
+    reduction where `gemm2_cost` says it pays, into at most MAX_SPLIT
+    partials of at least MIN_SPLIT_STAGES stages each: at small M its grid
+    is a few blocks, and at M ~2080 in fp32 its 204 blocks are 1.55 waves
+    (mlp_variants.py measured both)."""
+    rows = math.ceil(m / ROW_TILE)
+    glu_n, out_n = GLU_TILE_N[dtype], OUT_TILE_N[dtype]
+    stages = math.ceil(inner / (64 if dtype == torch.bfloat16 else 32))
+    splits = range(1, max(1, min(MAX_SPLIT, stages // MIN_SPLIT_STAGES)) + 1)
+    k_split = min(splits, key=lambda ks: gemm2_cost(m, inner, kout, dtype, ks))
+    return dict(glu_n=glu_n, glu_blocks=rows * math.ceil(inner / (glu_n // 2)), out_n=out_n,
+                k_split=k_split, out_blocks=rows * math.ceil(kout / out_n) * k_split)
 
 
 def glu_mlp_plain(x: torch.Tensor, w_in: torch.Tensor, b_in: tp.Optional[torch.Tensor],
                   w_out: torch.Tensor) -> torch.Tensor:
-    """The chain in x's dtype at the kernel's rounding points: products
+    """The chain in x's dtype at the kernels' rounding points: products
     accumulated in fp32 and rounded, bias added in x's dtype, sigmoid in fp32
     rounded, each product of the silu-mul rounded."""
     dt = x.dtype
@@ -68,10 +196,71 @@ def glu_mlp_plain(x: torch.Tensor, w_in: torch.Tensor, b_in: tp.Optional[torch.T
     return (h.float() @ w_out.to(dt).float().T).to(dt)
 
 
+def tensor_weights(w_in: torch.Tensor, w_out: torch.Tensor,
+                   dtype) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core route's B operands: bf16 w_in and w_out as they are;
+    fp32 their tf32 hi/lo parts, w_in as [2 (value, gate), 2 (hi, lo),
+    inner, K] and w_out as [1, 2, Kout, inner] (one pass over the weights,
+    ``fsat_tf32_split``)."""
+    w_in, w_out = _tma_ready(w_in), _tma_ready(w_out)
+    if dtype == torch.bfloat16:
+        return w_in, w_out
+    lib, st = build.library(), _stream(w_in.device)
+    out = []
+    for w, parts in ((w_in, 2), (w_out, 1)):
+        rows, k = w.shape[0] // parts, w.shape[1]
+        split = torch.empty(parts, 2, rows, k, device=w.device, dtype=torch.float32)
+        build.check(lib.fsat_tf32_split(w.data_ptr(), split.data_ptr(), rows, k, parts, st),
+                    "glu_mlp weights")
+        out.append(split)
+    return out[0], out[1]
+
+
+def _scratch_for(device) -> torch.Tensor:
+    """The streaming kernel's grid-barrier words on `device`, zeroed once:
+    each launch leaves them ready for the next on the stream."""
+    t = _barriers.get(device)
+    if t is None:
+        t = torch.zeros(2, device=device, dtype=torch.int32)
+        _barriers[device] = t
+    return t
+
+
+def _glu_stream(x2, w_in, b, w_out, y, k, inner, kout):
+    m = x2.shape[0]
+    hbuf = torch.empty(m, inner, device=x2.device, dtype=torch.float32)
+    w_in, w_out = _tma_ready(w_in), _tma_ready(w_out)
+    return build.library().fsat_glu_stream(
+        x2.data_ptr(), w_in.data_ptr(), None if b is None else b.data_ptr(), w_out.data_ptr(),
+        hbuf.data_ptr(), _scratch_for(x2.device).data_ptr(), y.data_ptr(), m, k, inner, kout,
+        stream_plan(m), int(x2.dtype == torch.float32), _stream(x2.device))
+
+
+def _glu_tensor(x2, w_in, b, w_out, y, k, inner, kout):
+    m, dt = x2.shape[0], x2.dtype
+    plan = tensor_plan(m, inner, kout, dt)
+    f32 = int(dt == torch.float32)
+    wi, wo = tensor_weights(w_in, w_out, dt)
+    h = torch.empty(m, inner, device=x2.device, dtype=dt)
+    lib, st = build.library(), _stream(x2.device)
+    err = lib.fsat_glu_gemm(x2.data_ptr(), wi.data_ptr(), None if b is None else b.data_ptr(),
+                            h.data_ptr(), m, k, inner, plan["glu_n"], ROWS_FASTEST, f32, F32_FLUSH, st)
+    if err:
+        return err
+    partial = None
+    if plan["k_split"] > 1:
+        partial = torch.empty(plan["k_split"], m, kout, device=x2.device, dtype=torch.float32)
+    return lib.fsat_out_gemm(h.data_ptr(), wo.data_ptr(), y.data_ptr(),
+                             None if partial is None else partial.data_ptr(), m, inner, kout,
+                             plan["out_n"], ROWS_FASTEST, plan["k_split"], f32, F32_FLUSH, st)
+
+
 def glu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: tp.Optional[torch.Tensor],
             w_out: torch.Tensor) -> torch.Tensor:
-    """x [..., K] -> [..., Kout] (see the module docstring for the layouts)."""
-    global launches
+    """x [..., K] -> [..., Kout] (see the module docstring for the layouts),
+    through the route :func:`route` names (the card tests and
+    mlp_variants.py replace `route` to run either)."""
+    global launches, stream_launches, tensor_launches
     k = x.shape[-1]
     inner = w_in.shape[0] // 2
     kout = w_out.shape[0]
@@ -84,31 +273,33 @@ def glu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: tp.Optional[torch.Tensor]
         return glu_mlp_plain(x, w_in, b_in, w_out)
     tensors = (x, w_in, b_in, w_out)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError("glu_mlp: the CUDA kernel has no backward (the JAX package "
+        raise RuntimeError("glu_mlp: the CUDA kernels have no backward (the JAX package "
                            "differentiates the plain chain, ops/pallas/mlp.py:211-219); "
                            "FeedForward takes the plain chain under grad")
     if x.dtype not in (torch.float32, torch.bfloat16) or w_in.dtype != x.dtype \
             or w_out.dtype != x.dtype:
-        raise TypeError(f"glu_mlp: the CUDA kernel takes fp32 or bf16 x with weights of its "
+        raise TypeError(f"glu_mlp: the CUDA kernels take fp32 or bf16 x with weights of its "
                         f"dtype, got x {x.dtype}, w_in {w_in.dtype}, w_out {w_out.dtype}")
     if any(t is not None and t.device != x.device for t in tensors):
         raise ValueError(f"glu_mlp: all tensors must be on {x.device}")
-    x2 = x.reshape(-1, k).contiguous()
+    x2 = _tma_ready(x.reshape(-1, k))
     m = x2.shape[0]
-    bm, n_split = plan(m, inner)
-    if k % 8 or inner % BLOCK_J or bm * (k + BLOCK_J + kout) * 4 > SMEM_LIMIT or m == 0:
-        raise ValueError(f"glu_mlp: the CUDA kernel takes K % 8 == 0, inner % {BLOCK_J} == 0 "
-                         f"and K + Kout <= {SMEM_LIMIT // 32 - BLOCK_J}, got M {m}, K {k}, "
-                         f"inner {inner}, Kout {kout}")
-    w_in, w_out = w_in.contiguous(), w_out.contiguous()
+    chosen = route(m, k, inner, kout, x.dtype)
+    fits = {"stream": stream_fits, "tensor": lambda m, *shape: tensor_fits(*shape)}
+    if m == 0 or chosen not in fits or not fits[chosen](m, k, inner, kout, x.dtype):
+        raise ValueError(f"glu_mlp: no CUDA route takes M {m}, K {k}, inner {inner}, Kout {kout} "
+                         f"in {x.dtype} (route {chosen}; stream: M <= 16, K * elem % 16 == 0, "
+                         f"inner % {STREAM_COLS} == 0, at most {STREAM_MAX_OUT_ROWS} outputs per "
+                         f"block, x in shared memory; tensor: K * elem and inner * elem % 16 == "
+                         f"0, Kout even)")
     b = None if b_in is None else b_in.float().contiguous()
-    partial = torch.empty(n_split, m, kout, device=x.device, dtype=torch.float32)
     y = torch.empty(m, kout, device=x.device, dtype=x.dtype)
-    lib = build.library()
-    fn = lib.fsat_glu_mlp_f32 if x.dtype == torch.float32 else lib.fsat_glu_mlp
-    err = fn(x2.data_ptr(), w_in.data_ptr(), None if b is None else b.data_ptr(),
-             w_out.data_ptr(), partial.data_ptr(), y.data_ptr(), m, k, inner, kout, n_split, bm,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    if chosen == "stream":
+        err = _glu_stream(x2, w_in, b, w_out, y, k, inner, kout)
+        stream_launches += 1
+    else:
+        err = _glu_tensor(x2, w_in, b, w_out, y, k, inner, kout)
+        tensor_launches += 1
     launches += 1
-    build.check(err, "glu_mlp")
+    build.check(err, f"glu_mlp ({chosen} route)")
     return y.view(*x.shape[:-1], kout)

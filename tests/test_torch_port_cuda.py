@@ -8,9 +8,9 @@ rounding of the output apart, with attention's online softmax rounding P
 against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
 activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4); K8's
 dq, whose parts arrive through atomics in a varying order, to 1e-5 too.
-K13 (the fused SwiGLU MLP) to rel-L2 1e-5 in fp32 and 2e-3 (one bf16
-rounding) in bf16, and bit for bit against itself (its partials add in a
-fixed order). K11 and K12 (the adaLN elementwise kernels) against the Pallas
+K13 (the fused SwiGLU MLP), on each route, to rel-L2 1e-5 in fp32 and 2e-3
+(one bf16 rounding) in bf16, and bit for bit against itself (both routes
+sum in a fixed order). K11 and K12 (the adaLN elementwise kernels) against the Pallas
 kernels' arithmetic to rel-L2 1e-3 and one bf16 step of the largest value
 (fp32 sums in another order may move a result across one bf16 rounding),
 against the plain chains to 1e-2.
@@ -470,32 +470,80 @@ def test_tiny_lm_train_step_runs_the_causal_kernels(gen):
     assert torch.isfinite(loss)
 
 
-@pytest.mark.parametrize("m,k,inner,kout,dtype,bias", [
-    (2, 1024, 4096, 1024, torch.float32, True), (100, 136, 256, 96, torch.float32, False),
-    (16, 256, 512, 128, torch.bfloat16, True), (2052, 128, 384, 200, torch.bfloat16, True)])
-def test_glu_mlp_matches_plain(gen, m, k, inner, kout, dtype, bias):
-    x = _rnd(gen, 3, m, k).to(dtype)
-    w_in = _rnd(gen, 2 * inner, k, scale=k ** -0.5).to(dtype)
-    b_in = _rnd(gen, 2 * inner, scale=0.1) if bias else None
-    w_out = _rnd(gen, kout, inner, scale=inner ** -0.5).to(dtype)
-    before = tmlp.launches
+def _glu_inputs(gen, m, k, inner, kout, dtype, bias):
+    return (_rnd(gen, m, k).to(dtype), _rnd(gen, 2 * inner, k, scale=k ** -0.5).to(dtype),
+            _rnd(gen, 2 * inner, scale=0.1) if bias else None,
+            _rnd(gen, kout, inner, scale=inner ** -0.5).to(dtype))
+
+
+def _route_counts():
+    return tmlp.launches, tmlp.stream_launches, tmlp.tensor_launches
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2, 100, 2050])
+@pytest.mark.parametrize("route", ["stream", "tensor"])
+def test_glu_mlp_matches_plain(gen, monkeypatch, route, m, dtype, bias):
+    """Each route (forced) at ragged M, with and without the bias, against
+    the plain version; twice on the same inputs with the same bits (both
+    routes sum in a fixed order); one launch count per call on the route's
+    counter. K 256, inner 640 (5 of bf16 GEMM1's 128-column tiles, 20 of the
+    streaming tiles' 32), Kout 200 (a ragged last tile of GEMM2). The
+    streaming kernel takes M <= 16 and refuses more."""
+    x, w_in, b_in, w_out = _glu_inputs(gen, m, 256, 640, 200, dtype, bias)
+    monkeypatch.setattr(tmlp, "route", lambda *shape: route)
+    if route == "stream" and m > 16:
+        with pytest.raises(ValueError):
+            tmlp.glu_mlp(x, w_in, b_in, w_out)
+        return
+    before = _route_counts()
     with torch.no_grad():
         got = tmlp.glu_mlp(x, w_in, b_in, w_out)
         again = tmlp.glu_mlp(x, w_in, b_in, w_out)
-    assert tmlp.launches == before + 2 and got.shape == (3, m, kout) and got.dtype == dtype
-    assert torch.equal(got, again)
+    after = _route_counts()
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (
+        2, 2 if route == "stream" else 0, 2 if route == "tensor" else 0)
+    assert got.shape == (m, 200) and got.dtype == dtype and torch.equal(got, again)
     _close(got, tmlp.glu_mlp_plain(x, w_in, b_in, w_out), 1e-5 if dtype == torch.float32 else 2e-3)
 
 
-def test_glu_mlp_raises_on_what_the_kernel_does_not_take(gen):
+@pytest.mark.parametrize("m,k,inner,kout,dtype,bias", [
+    (2, 1024, 4096, 1024, torch.float32, True), (100, 136, 256, 96, torch.float32, False),
+    (16, 256, 512, 128, torch.bfloat16, True), (2052, 128, 384, 200, torch.bfloat16, True),
+    (2050, 1536, 6144, 1536, torch.bfloat16, True), (2080, 1536, 6144, 1536, torch.float32, False)])
+def test_glu_mlp_routes_by_shape(gen, m, k, inner, kout, dtype, bias):
+    """Through the route `mlp.route` names (the LM's decode streams, the
+    DiT's tokens take the tensor cores), batched x [3, M / 3.., K]."""
+    x, w_in, b_in, w_out = _glu_inputs(gen, 3 * m, k, inner, kout, dtype, bias)
+    x = x.view(3, m, k)
+    route = tmlp.route(3 * m, k, inner, kout, dtype)
+    before = _route_counts()
+    with torch.no_grad():
+        got = tmlp.glu_mlp(x, w_in, b_in, w_out)
+    after = _route_counts()
+    assert after[1] - before[1] == (route == "stream") and after[2] - before[2] == (route == "tensor")
+    assert got.shape == (3, m, kout) and got.dtype == dtype
+    _close(got, tmlp.glu_mlp_plain(x, w_in, b_in, w_out), 1e-5 if dtype == torch.float32 else 2e-3)
+
+
+def test_glu_mlp_raises_on_what_the_kernel_does_not_take(gen, monkeypatch):
     x = _rnd(gen, 2, 128)
     w_in, w_out = _rnd(gen, 512, 128), _rnd(gen, 128, 256)
     with pytest.raises(TypeError):
         tmlp.glu_mlp(x, w_in.double(), None, w_out)
-    with pytest.raises(ValueError):  # inner 240 is no multiple of the kernel's 32 columns
+    with monkeypatch.context() as mp, pytest.raises(ValueError):
+        mp.setattr(tmlp, "route", lambda *shape: "stream")  # inner 240: no multiple of 32 columns
         tmlp.glu_mlp(x, _rnd(gen, 480, 128), None, _rnd(gen, 128, 240))
-    with pytest.raises(RuntimeError):  # no backward: a weight that needs a gradient
-        tmlp.glu_mlp(x, w_in.requires_grad_(True), None, w_out)
+    with pytest.raises(ValueError):  # an odd Kout at M 64: no tensor route, and M > 16
+        tmlp.glu_mlp(_rnd(gen, 64, 128), w_in, None, _rnd(gen, 127, 256))
+    with pytest.raises(ValueError):  # bf16 K 100: no 16-byte row for TMA, on either route
+        tmlp.glu_mlp(_rnd(gen, 2050, 100).to(torch.bfloat16),
+                     _rnd(gen, 512, 100).to(torch.bfloat16), None,
+                     _rnd(gen, 128, 256).to(torch.bfloat16))
+    for m in (2, 2050):  # no backward on either route: a weight that needs a gradient
+        with pytest.raises(RuntimeError):
+            tmlp.glu_mlp(_rnd(gen, m, 128), w_in.clone().requires_grad_(True), None, w_out)
 
 
 def test_tiny_lm_generates_through_k13(gen):
