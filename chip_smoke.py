@@ -1787,14 +1787,15 @@ def glu_mlp_phase(results):
                 calls = [lambda fn=fn, ws=ws: fn(x, *ws) for ws in sets] * rounds
                 times[name] = device_profile(calls)
         if route == "stream":
-            blocks, rows, span = mlp.stream_grid(inner, kout, dt)
-            plan = f"M tile {mlp.stream_plan(m)}, {blocks} blocks, {rows} outputs each"
+            sp = mlp.stream_plan(x.device, m, k, inner, kout, dt)
+            plan = (f"M tile {sp['m_tile']}, {sp['blocks']} blocks, {sp['outputs']} outputs each, "
+                    f"{sp['stages']} stages")
         else:
             tp_ = mlp.tensor_plan(m, inner, kout, dt)
             plan = (f"GEMM1 N {tp_['glu_n']} ({tp_['glu_blocks']} blocks), GEMM2 N {tp_['out_n']} "
-                    f"k split {tp_['k_split']} ({tp_['out_blocks']} blocks)")
+                    f"({tp_['out_blocks']} blocks)")
             parts = {"tf32 split": "tf32_split_kernel", "GEMM1": "glu_gemm_kernel",
-                     "GEMM2": "out_gemm_kernel", "split-k sum": "split_k_reduce_kernel"}
+                     "GEMM2": "out_gemm_kernel"}
             by_name = times["kernel"][2]
             plan += "; " + ", ".join(
                 f"{part} {sum(ms for n, ms in by_name.items() if key in n):.4f} ms"

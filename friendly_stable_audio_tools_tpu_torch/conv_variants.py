@@ -2,6 +2,7 @@
 wide route and K4) on the card.
 
     python -m friendly_stable_audio_tools_tpu_torch.conv_variants [--out conv.json] [--check]
+    python -m friendly_stable_audio_tools_tpu_torch.conv_variants --paths CHECKOUT [CHECKOUT ...]
 
 1. ``ptxas``: registers, shared memory and spills of every kernel in
    conv_wgmma.cu (nvcc -Xptxas -v with build.NVCC_FLAGS; the mainloop is
@@ -31,6 +32,13 @@ wide route and K4) on the card.
 Times are CUDA-event means over repeated calls of the kernel's launch
 alone (its K-major weights prepared once, outside the timing). Needs a CUDA
 device and nvcc.
+
+``--paths`` instead runs chip_smoke.py's convolution phases ([3], [3c],
+[3f], [3h], [3i]'s SEANet decode, [3k]) in each checkout given (the root of
+a checkout of this repo, e.g. the parent commit unpacked by ``git
+archive``), each in its own process, in turns (A, B, ..., B, A), and prints
+each run's per-path K2/K4 totals: a change to the convolution kernels held
+against its parent on one card.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import json
 import math
 import shutil
 import subprocess
+import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -69,6 +78,52 @@ DAC_K4 = [(4096, 1536, 768, 8), (32768, 768, 384, 8), (262144, 384, 192, 4),
           (1048576, 192, 96, 4)]
 # the DAC encode's longest reductions (T, C, k)
 FLUSH_CASES = [(8192, 1024, 7), (8192, 2048, 3)]
+# --paths: chip_smoke.py's convolution phases, run from a checkout's root
+PATHS_CODE = '''
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
+build.library()
+r = cs.new_results()
+cfg, sa2, sa1, lm = (json.loads(c.read_text())
+                     for c in (cs.SAO_CONFIG, cs.SA2_CONFIG, cs.SA1_CONFIG, cs.LM_CONFIG))
+cs.decode_conv_phase(r, torch.bfloat16, {"sa2": "ms", "sao": "sao_decode_ms"})
+cs.encoder_conv_phase(r, cfg, "encode_ms")
+cs.encoder_conv_phase(r, sa2, "sa2_encode_ms")
+cs.decode_conv_phase(r, torch.float32, {"sa2": "sa2_decode_ms", "sao": "sao_decode_ms", "sao_ru": "ms"})
+cs.encoder_conv_phase(r, cfg, "encode_ms", torch.float32)
+cs.encoder_conv_phase(r, sa2, "sa2_encode_ms", torch.float32)
+cs.dac_conv_phase(r)
+cs.dac_encode_conv_phase(r, sa1)
+cs.seanet_conv_phase(r, lm)
+cs.seanet_decode_conv_phase(r, lm)
+cs.dac_conv_phase(r, torch.bfloat16, "sa1_decode_ms")
+'''
+
+
+def paths(roots, out_path=None) -> None:
+    """chip_smoke.py's convolution phases in each checkout of `roots`, in
+    turns (roots, then reversed); prints and keeps each run's per-path
+    totals (chip_smoke's ' ms per ' lines)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    runs = []
+    for root in list(roots) + list(roots)[::-1]:
+        proc = subprocess.run([sys.executable, "-c", PATHS_CODE], cwd=root, capture_output=True,
+                              text=True)
+        if proc.returncode:
+            raise RuntimeError(f"conv_variants --paths in {root}:\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        totals = [line.strip() for line in proc.stdout.splitlines() if " ms per " in line]
+        runs.append({"root": str(root), "totals": totals})
+        print(f"{root} ({smi}):", *totals, sep="\n  ", flush=True)
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps({"card": smi, "runs": runs}, indent=1))
 
 
 def start_ptxas_report(nvcc: str, tmp: str) -> subprocess.Popen:
@@ -117,9 +172,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     ap.add_argument("--check", action="store_true", help="stop after the correctness checks")
+    ap.add_argument("--paths", nargs="+", metavar="CHECKOUT", default=None,
+                    help="time chip_smoke's conv phases in these checkouts, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("conv_variants: needs a CUDA device")
+    if args.paths:
+        paths(args.paths, args.out)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -28,9 +28,12 @@
 //   column in the same register index: the GLU runs in registers at the
 //   rounding points above and h is stored in T, [M, inner].
 // - out_gemm_kernel: y = h w_out^T, rounded once (no bias: the caller adds
-//   linear_out's, JAX :121-122); optionally split over inner into fp32
-//   partials summed in a fixed order (split_k_reduce_kernel), which fills
-//   the card at small M.
+//   linear_out's, JAX :121-122).
+// Each GEMM has one tile width per element type (GemmTiles) and one raster
+// order (taps_wgmma.cuh: kGemmRowsFastest), both measured by
+// mlp_variants.py. (Splitting GEMM2 over inner into fp32 partials summed in
+// a fixed order paid 1.8x at M 64-256 but 4% at the DiT's M 2080 in fp32
+// and lost in bf16; no path runs M 17-256, so there is no split. PERF.md §6.)
 // The TPU kernel keeps h and a [bm, Kout] fp32 accumulator in VMEM across
 // its sequential inner grid axis. On Hopper a 128-row x 1536 fp32
 // accumulator is 768 KB, which neither registers nor shared memory hold, and
@@ -68,6 +71,11 @@
 // launch, by an atomic ticket per output slice, left the blocks that drew
 // the last tickets summing 1-8 MB alone: 0.085-0.68 ms at M 16; PERF.md,
 // §6.)
+// The grid and the ring at a shape are decided here alone (stream_grid,
+// from the device's SM count and shared memory); the wrapper asks
+// fsat_glu_stream_plan before it picks the route.
+#include <cooperative_groups.h>
+
 #include <mutex>
 
 #include "taps_wgmma.cuh"
@@ -76,33 +84,36 @@ namespace {
 
 // ---- the tensor-core route ---------------------------------------------------------
 
+// The tile widths: GEMM1's stacked N (N / 2 columns of h per block) and
+// GEMM2's N, by element type. mlp_variants.py times the others (bf16 GEMM1
+// 192, 128, GEMM2 192, 128; fp32 GEMM1 64, GEMM2 96, 64) by substituting
+// these lines.
+template <typename T>
+struct GemmTiles;
+template <>
+struct GemmTiles<bf16> { static constexpr int kGlu = 256, kOut = 256; };
+template <>
+struct GemmTiles<float> { static constexpr int kGlu = 128, kOut = 128; };
+
+// The widest wgmma column block (bf16 up to 128, tf32 up to 64) dividing n.
+template <typename T>
+constexpr int wgmma_width(int n) {
+  return sizeof(T) == 2 ? (n % 128 == 0 ? 128 : n % 96 == 0 ? 96 : n % 64 == 0 ? 64 : 32)
+                        : (n % 64 == 0 ? 64 : 32);
+}
+
 template <typename T, int N, int CH>
 __global__ void __launch_bounds__(kThreads, 1)
 glu_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                 const float* __restrict__ bias, T* __restrict__ h, const ConvPlan p) {
-  gemm_mainloop<T, N, CH, kEpiGlu>(&xmap, &wmap, bias, h, nullptr, p);
+  gemm_mainloop<T, N, CH, kEpiGlu>(&xmap, &wmap, bias, h, p);
 }
 
 template <typename T, int N, int CH>
 __global__ void __launch_bounds__(kThreads, 1)
 out_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-                T* __restrict__ y, float* __restrict__ partial, const ConvPlan p) {
-  gemm_mainloop<T, N, CH, kEpiGemm>(&xmap, &wmap, nullptr, y, partial, p);
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// y[i] = round_T(partial[0][i] + partial[1][i] + ...), the splits in order.
-template <typename T>
-__global__ void split_k_reduce_kernel(const float* __restrict__ partial, T* __restrict__ y,
-                                      long long total, int k_split) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < k_split; ++k) s += partial[k * total + i];
-    store1(y + i, s);
-  }
+                T* __restrict__ y, const ConvPlan p) {
+  gemm_mainloop<T, N, CH, kEpiGemm>(&xmap, &wmap, nullptr, y, p);
 }
 
 // w [parts * rows, K] fp32 -> out [parts, 2, rows, K]: each part's tf32 hi
@@ -126,63 +137,23 @@ __global__ void tf32_split_kernel(const float4* __restrict__ w, float4* __restri
   }
 }
 
-// GEMM1 at stacked tile width n (N / 2 columns of h per block): bf16 256,
-// 192, 128 (two wgmmas of 128, 96, 64 columns); fp32 128, 64 (two of 64, 32).
 template <typename T>
-int glu_dispatch(const ConvPlan& p, int n, const void* x, const void* w, const float* b, void* h,
-                 cudaStream_t st) {
-  const int sl = 2 * ConvElem<T>::kBTiles;
-  T* out = static_cast<T*>(h);
-  if constexpr (sizeof(T) == 2) {
-    switch (n) {
-      case 256: return launch_taps<T, 256>(glu_gemm_kernel<T, 256, 128>, p, x, w, sl, 1, st, b, out);
-      case 192: return launch_taps<T, 192>(glu_gemm_kernel<T, 192, 96>, p, x, w, sl, 1, st, b, out);
-      case 128: return launch_taps<T, 128>(glu_gemm_kernel<T, 128, 64>, p, x, w, sl, 1, st, b, out);
-    }
-  } else {
-    switch (n) {
-      case 128: return launch_taps<T, 128>(glu_gemm_kernel<T, 128, 64>, p, x, w, sl, 1, st, b, out);
-      case 64: return launch_taps<T, 64>(glu_gemm_kernel<T, 64, 32>, p, x, w, sl, 1, st, b, out);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// GEMM2 at tile width n: bf16 256, 192, 128; fp32 128, 96, 64 (the
-// convolution's compositions).
-template <typename T>
-int out_dispatch(const ConvPlan& p, int n, const void* h, const void* w, void* y, float* partial,
-                 cudaStream_t st) {
-  const int sl = ConvElem<T>::kBTiles;
-  T* out = static_cast<T*>(y);
-  if constexpr (sizeof(T) == 2) {
-    switch (n) {
-      case 256: return launch_taps<T, 256>(out_gemm_kernel<T, 256, 128>, p, h, w, sl, 1, st, out, partial);
-      case 192: return launch_taps<T, 192>(out_gemm_kernel<T, 192, 96>, p, h, w, sl, 1, st, out, partial);
-      case 128: return launch_taps<T, 128>(out_gemm_kernel<T, 128, 128>, p, h, w, sl, 1, st, out, partial);
-    }
-  } else {
-    switch (n) {
-      case 128: return launch_taps<T, 128>(out_gemm_kernel<T, 128, 64>, p, h, w, sl, 1, st, out, partial);
-      case 96: return launch_taps<T, 96>(out_gemm_kernel<T, 96, 32>, p, h, w, sl, 1, st, out, partial);
-      case 64: return launch_taps<T, 64>(out_gemm_kernel<T, 64, 64>, p, h, w, sl, 1, st, out, partial);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+int glu_gemm(int M, int K, int inner, int flush, const void* x, const void* w, const float* b,
+             void* h, cudaStream_t st) {
+  constexpr int N = GemmTiles<T>::kGlu;
+  ConvPlan p{M, K, inner, 1, 1, 0, 0, 0, flush};
+  p.b_parts = 2;
+  return launch_taps<T, N>(glu_gemm_kernel<T, N, N / 2>, p, x, w, 2 * ConvElem<T>::kBTiles, 1, st,
+                           b, static_cast<T*>(h));
 }
 
 template <typename T>
-int out_gemm(int M, int inner, int Kout, int n, int raster, int k_split, int flush, const void* h,
-             const void* w, void* y, float* partial, cudaStream_t st) {
+int out_gemm(int M, int inner, int Kout, int flush, const void* h, const void* w, void* y,
+             cudaStream_t st) {
+  constexpr int N = GemmTiles<T>::kOut;
   ConvPlan p{M, inner, Kout, 1, 1, 0, 0, 0, flush};
-  p.m_fastest = raster;
-  p.k_split = k_split;
-  int err = out_dispatch<T>(p, n, h, w, y, k_split > 1 ? partial : nullptr, st);
-  if (err != 0 || k_split == 1) return err;
-  const long long total = (long long)M * Kout;
-  const int blocks = (int)((total + 255) / 256 < 4 * 132 ? (total + 255) / 256 : 4 * 132);
-  split_k_reduce_kernel<T><<<blocks, 256, 0, st>>>(partial, static_cast<T*>(y), total, k_split);
-  return (int)cudaGetLastError();
+  return launch_taps<T, N>(out_gemm_kernel<T, N, wgmma_width<T>(N)>, p, h, w, ConvElem<T>::kBTiles,
+                           1, st, static_cast<T*>(y));
 }
 
 // ---- the streaming route -----------------------------------------------------------
@@ -199,6 +170,8 @@ constexpr int kSmemLimit = 227 * 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // Eight elements from shared memory, widened to fp32: two 16-byte words of
 // fp32 (at p and p + 128 elements) or one of bf16.
@@ -230,27 +203,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// A barrier across the whole grid, whose blocks a cooperative launch keeps
-// resident together: thread 0 of each block arrives (after every thread
-// of the block fenced its writes and met at bar_sync); the last to arrive
-// resets the count for the next launch and starts the next generation.
-__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned n_blocks) {
-  volatile unsigned* gen = bar + 1;
-  const unsigned my_gen = *gen;
-  __threadfence();
-  if (atomicAdd(bar, 1u) == n_blocks - 1) {
-    bar[0] = 0;
-    __threadfence();
-    atomicAdd(bar + 1, 1u);
-  } else {
-    for (uint32_t polls = 0; *gen == my_gen; ++polls) {
-      __nanosleep(64);
-      if (polls == (1u << 26)) asm volatile("trap;\n");
-    }
-  }
-  __threadfence();
-}
-
 // Phase 2's stage: `boxes` TMA boxes of [rows, 256] of w_out side by side,
 // an inner span of 256 * boxes; the most that fit a ring stage, at most 4.
 __host__ __device__ inline int out_boxes(int rows, int elem) {
@@ -260,9 +212,9 @@ __host__ __device__ inline int out_boxes(int rows, int elem) {
 
 // Shared memory of the streaming kernel, in bytes from the 1024-aligned
 // base: the ring, x as fp32 [BM][kpad] (in phase 2 a chunk of h [BM][span]
-// in the same place), v and h of a tile [BM][kCols], the barriers.
+// in the same place), v of a tile [BM][kCols], the barriers.
 struct StreamSmem {
-  int kpad, span, x, vs, hs, bars, total;
+  int kpad, span, x, vs, bars, total;
 };
 
 __host__ __device__ inline StreamSmem stream_smem(int bm, int K, int span, int stages) {
@@ -271,8 +223,7 @@ __host__ __device__ inline StreamSmem stream_smem(int bm, int K, int span, int s
   s.span = span;
   s.x = stages * kSlot;
   s.vs = s.x + bm * (s.kpad > span ? s.kpad : span) * 4;
-  s.hs = s.vs + bm * kCols * 4;
-  s.bars = s.hs + bm * kCols * 4;
+  s.bars = s.vs + bm * kCols * 4;
   s.total = 1024 + s.bars + 2 * stages * 8;
   return s;
 }
@@ -287,7 +238,10 @@ inline int stream_stages(int bm, int K, int span) {
 // BM) of x. Phase 1: block b forms h for the column tiles b, b + G, ... (32
 // columns each: the value rows' nk K chunks, then the gate rows', streamed
 // through the ring) and stores them in `hbuf` [M, inner] fp32. A grid
-// barrier. Phase 2: block b computes outputs [b R, b R + R) of every row,
+// barrier (cooperative groups' grid sync, whose arrival count the driver
+// keeps per launch, so launches on several streams at once do not meet
+// in it; every thread of every block takes part, the producer warp too).
+// Phase 2: block b computes outputs [b R, b R + R) of every row,
 // each the whole inner reduction in one warp in a fixed order, from w_out's
 // rows (streamed through the ring; the producer starts on them as soon as
 // phase 1's stages are done, so they arrive during the barrier) and from h
@@ -296,9 +250,8 @@ template <typename T, int BM>
 __global__ void __launch_bounds__(kStreamThreads, 1)
 glu_stream_kernel(const __grid_constant__ CUtensorMap win_map,
                   const __grid_constant__ CUtensorMap wout_map, const T* __restrict__ x,
-                  const float* __restrict__ b_in, float* __restrict__ hbuf,
-                  unsigned* __restrict__ bar, T* __restrict__ y, int M, int K, int inner,
-                  int Kout, int R, int stages) {
+                  const float* __restrict__ b_in, float* __restrict__ hbuf, T* __restrict__ y,
+                  int M, int K, int inner, int Kout, int R, int stages) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const int boxes = out_boxes(R, sizeof(T)), span = boxes * kKB;
@@ -306,7 +259,6 @@ glu_stream_kernel(const __grid_constant__ CUtensorMap win_map,
   float* xs = reinterpret_cast<float*>(smem + L.x);
   float* hc = xs;  // phase 2: h [BM][span]
   float* vs = reinterpret_cast<float*>(smem + L.vs);
-  float* hs = reinterpret_cast<float*>(smem + L.hs);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + stages;
   const int nk = L.kpad / kKB, G = gridDim.x, b = blockIdx.x;
@@ -322,25 +274,31 @@ glu_stream_kernel(const __grid_constant__ CUtensorMap win_map,
   }
   __syncthreads();
 
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   if (warp == kStreamWarps) {  // the producer warp: one thread starts the loads
-    if (lane == 0) {
-      const int n1 = 2 * nk * my_tiles;
-      for (int i = 0; i < n1 + (n0 < Kout ? n_out : 0); ++i) {
-        const int s = i % stages;
-        if (i >= stages) mbar_wait(&empty[s], ((i / stages) + 1) & 1);
-        unsigned char* dst = smem + s * kSlot;
-        if (i < n1) {
-          const int t = b + (i / (2 * nk)) * G, j = i % (2 * nk);
-          mbar_expect_tx(&full[s], kCols * kKB * sizeof(T));
-          tma_load_2d(dst, &win_map, &full[s], (j % nk) * kKB, (j / nk) * inner + t * kCols);
-        } else {
-          const int c = i - n1;
-          mbar_expect_tx(&full[s], boxes * R * kKB * sizeof(T));
-          for (int q = 0; q < boxes; ++q)
-            tma_load_2d(dst + q * R * kKB * sizeof(T), &wout_map, &full[s], c * span + q * kKB, n0);
-        }
+    const int n1 = 2 * nk * my_tiles, n_all = n1 + (n0 < Kout ? n_out : 0);
+    auto load = [&](int i) {
+      const int s = i % stages;
+      if (i >= stages) mbar_wait(&empty[s], ((i / stages) + 1) & 1);
+      unsigned char* dst = smem + s * kSlot;
+      if (i < n1) {
+        const int t = b + (i / (2 * nk)) * G, j = i % (2 * nk);
+        mbar_expect_tx(&full[s], kCols * kKB * sizeof(T));
+        tma_load_2d(dst, &win_map, &full[s], (j % nk) * kKB, (j / nk) * inner + t * kCols);
+      } else {
+        const int c = i - n1;
+        mbar_expect_tx(&full[s], boxes * R * kKB * sizeof(T));
+        for (int q = 0; q < boxes; ++q)
+          tma_load_2d(dst + q * R * kKB * sizeof(T), &wout_map, &full[s], c * span + q * kKB, n0);
       }
-    }
+    };
+    // phase 1's loads and the first `stages` of phase 2's take the slots
+    // that phase 1 frees; the rest wait for phase 2's, past the grid barrier
+    const int before = n_all < n1 + stages ? n_all : n1 + stages;
+    for (int i = 0; lane == 0 && i < before; ++i) load(i);
+    __syncwarp();
+    grid.sync();
+    for (int i = before; lane == 0 && i < n_all; ++i) load(i);
     return;
   }
 
@@ -416,10 +374,7 @@ glu_stream_kernel(const __grid_constant__ CUtensorMap win_map,
       __syncwarp();
     }
   }
-  __threadfence();
-  bar_sync(1, kConsumerThreads);
-  if (tid == 0) grid_barrier(bar, G);
-  bar_sync(1, kConsumerThreads);
+  grid.sync();
   if (n0 >= Kout) return;
 
   // phase 2: y[m][n0 + r] for the block's R rows, warp w rows w, w + 8, ...;
@@ -522,8 +477,7 @@ bool stream_grid(int K, int inner, int Kout, int& G, int& R, int& stages, int& s
 
 template <typename T, int BM>
 int launch_stream(const void* x, const void* w_in, const float* b_in, const void* w_out,
-                  float* hbuf, unsigned* bar, void* y, int M, int K, int inner, int Kout,
-                  cudaStream_t st) {
+                  float* hbuf, void* y, int M, int K, int inner, int Kout, cudaStream_t st) {
   int G, R, stages, smem;
   if (M > BM || !stream_grid<T, BM>(K, inner, Kout, G, R, stages, smem))
     return (int)cudaErrorInvalidValue;
@@ -544,57 +498,79 @@ int launch_stream(const void* x, const void* w_in, const float* b_in, const void
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, glu_stream_kernel<T, BM>, win_map, wout_map,
-                           static_cast<const T*>(x), b_in, hbuf, bar, static_cast<T*>(y), M, K,
-                           inner, Kout, R, stages);
+                           static_cast<const T*>(x), b_in, hbuf, static_cast<T*>(y), M, K, inner,
+                           Kout, R, stages);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// bm: the M tile of the wrapper's plan (ops/kernels/mlp.py:stream_plan),
-// 2, 4, 8 or 16, M <= bm.
+// The M tile of a streaming launch: the least of 2 (the decode: one row and
+// its CFG twin), 4, 8, 16 that holds M; 0 past 16.
+inline int stream_bm(int M) { return M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : M <= 16 ? 16 : 0; }
+
 template <typename T>
 int stream_entry(const void* x, const void* w_in, const float* b_in, const void* w_out,
-                 float* hbuf, unsigned* bar, void* y, int M, int K, int inner, int Kout, int bm,
-                 void* stream) {
+                 float* hbuf, void* y, int M, int K, int inner, int Kout, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (bm) {
-    case 2: return launch_stream<T, 2>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
-    case 4: return launch_stream<T, 4>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
-    case 8: return launch_stream<T, 8>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
-    case 16: return launch_stream<T, 16>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, st);
+  switch (stream_bm(M)) {
+    case 2: return launch_stream<T, 2>(x, w_in, b_in, w_out, hbuf, y, M, K, inner, Kout, st);
+    case 4: return launch_stream<T, 4>(x, w_in, b_in, w_out, hbuf, y, M, K, inner, Kout, st);
+    case 8: return launch_stream<T, 8>(x, w_in, b_in, w_out, hbuf, y, M, K, inner, Kout, st);
+    case 16: return launch_stream<T, 16>(x, w_in, b_in, w_out, hbuf, y, M, K, inner, Kout, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// plan = {M tile, blocks, outputs per block, ring stages, shared bytes} of a
+// streaming launch on the current device; an error where it does not fit.
+template <typename T>
+int stream_plan(int M, int K, int inner, int Kout, int* plan) {
+  int G = 0, R = 0, stages = 0, smem = 0;
+  bool fits = false;
+  switch (plan[0] = stream_bm(M)) {
+    case 2: fits = stream_grid<T, 2>(K, inner, Kout, G, R, stages, smem); break;
+    case 4: fits = stream_grid<T, 4>(K, inner, Kout, G, R, stages, smem); break;
+    case 8: fits = stream_grid<T, 8>(K, inner, Kout, G, R, stages, smem); break;
+    case 16: fits = stream_grid<T, 16>(K, inner, Kout, G, R, stages, smem); break;
+  }
+  plan[1] = G, plan[2] = R, plan[3] = stages, plan[4] = smem;
+  return M >= 1 && fits ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The tensor-core route's GEMM1 with the GLU epilogue: x [M, K], w = w_in
 // [2 * inner, K] (bf16) or fsat_tf32_split's [2, 2, inner, K] (fp32), b_in
-// [2 * inner] fp32 or null -> h [M, inner]. n: the stacked tile width;
-// raster 1 runs the row tiles fastest. K * elem and inner * elem % 16 == 0.
+// [2 * inner] fp32 or null -> h [M, inner]. K * elem and inner * elem % 16
+// == 0.
 extern "C" int fsat_glu_gemm(const void* x, const void* w, const float* b_in, void* h, int M, int K,
-                             int inner, int n, int raster, int f32, int flush, void* stream) {
+                             int inner, int f32, int flush, void* stream) {
   const int elem = f32 ? 4 : 2;
   if (K * elem % 16 || inner * elem % 16 || M < 1 || flush < 1) return (int)cudaErrorInvalidValue;
-  ConvPlan p{M, K, inner, 1, 1, 0, 0, 0, flush};
-  p.b_parts = 2;
-  p.m_fastest = raster;
   cudaStream_t st = (cudaStream_t)stream;
-  return f32 ? glu_dispatch<float>(p, n, x, w, b_in, h, st) : glu_dispatch<bf16>(p, n, x, w, b_in, h, st);
+  return f32 ? glu_gemm<float>(M, K, inner, flush, x, w, b_in, h, st)
+             : glu_gemm<bf16>(M, K, inner, flush, x, w, b_in, h, st);
 }
 
 // GEMM2: h [M, inner], w = w_out [Kout, inner] (bf16) or fsat_tf32_split's
-// [1, 2, Kout, inner] (fp32) -> y [M, Kout]; k_split > 1 sums fp32 partials
-// [k_split, M, Kout] (`partial`) in a second launch. Kout even.
-extern "C" int fsat_out_gemm(const void* h, const void* w, void* y, float* partial, int M, int inner,
-                             int Kout, int n, int raster, int k_split, int f32, int flush,
-                             void* stream) {
+// [1, 2, Kout, inner] (fp32) -> y [M, Kout]. Kout even.
+extern "C" int fsat_out_gemm(const void* h, const void* w, void* y, int M, int inner, int Kout,
+                             int f32, int flush, void* stream) {
   const int elem = f32 ? 4 : 2;
-  if (inner * elem % 16 || Kout % 2 || M < 1 || k_split < 1 || flush < 1 ||
-      (k_split > 1 && partial == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (inner * elem % 16 || Kout % 2 || M < 1 || flush < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return f32 ? out_gemm<float>(M, inner, Kout, n, raster, k_split, flush, h, w, y, partial, st)
-             : out_gemm<bf16>(M, inner, Kout, n, raster, k_split, flush, h, w, y, partial, st);
+  return f32 ? out_gemm<float>(M, inner, Kout, flush, h, w, y, st)
+             : out_gemm<bf16>(M, inner, Kout, flush, h, w, y, st);
+}
+
+// plan = {GEMM1's stacked tile width, its blocks, GEMM2's tile width, its
+// blocks} of a tensor-core call (what launch_taps launches).
+extern "C" int fsat_glu_tensor_plan(int M, int inner, int Kout, int f32, int* plan) {
+  const int glu_n = f32 ? GemmTiles<float>::kGlu : GemmTiles<bf16>::kGlu;
+  const int out_n = f32 ? GemmTiles<float>::kOut : GemmTiles<bf16>::kOut;
+  const int rows = (M + kM - 1) / kM;
+  plan[0] = glu_n, plan[1] = rows * ((inner + glu_n / 2 - 1) / (glu_n / 2));
+  plan[2] = out_n, plan[3] = rows * ((Kout + out_n - 1) / out_n);
+  return M >= 1 ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // w [parts * rows, K] fp32 -> out [parts, 2, rows, K], the tf32 hi/lo parts.
@@ -608,13 +584,17 @@ extern "C" int fsat_tf32_split(const float* w, float* out, int rows, int K, int 
   return (int)cudaGetLastError();
 }
 
-// The streaming route: x [M, K], w_in [2 * inner, K], b_in or null, w_out
-// [Kout, inner] (all T) -> y [M, Kout], M <= bm; hbuf: fp32 [M, inner]
-// scratch; bar: two zeroed words that the grid barrier leaves ready for
-// the next launch (one launch at a time per word pair).
+// The streaming route: x [M <= 16, K], w_in [2 * inner, K], b_in or null,
+// w_out [Kout, inner] (all T) -> y [M, Kout]; hbuf: fp32 [M, inner] scratch.
 extern "C" int fsat_glu_stream(const void* x, const void* w_in, const float* b_in,
-                               const void* w_out, float* hbuf, unsigned* bar, void* y, int M,
-                               int K, int inner, int Kout, int bm, int f32, void* stream) {
-  return f32 ? stream_entry<float>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, bm, stream)
-             : stream_entry<bf16>(x, w_in, b_in, w_out, hbuf, bar, y, M, K, inner, Kout, bm, stream);
+                               const void* w_out, float* hbuf, void* y, int M, int K, int inner,
+                               int Kout, int f32, void* stream) {
+  return f32 ? stream_entry<float>(x, w_in, b_in, w_out, hbuf, y, M, K, inner, Kout, stream)
+             : stream_entry<bf16>(x, w_in, b_in, w_out, hbuf, y, M, K, inner, Kout, stream);
+}
+
+// The streaming launch's plan at this shape on the current device (see
+// stream_plan); an error where the kernel does not take the shape there.
+extern "C" int fsat_glu_stream_plan(int M, int K, int inner, int Kout, int f32, int* plan) {
+  return f32 ? stream_plan<float>(M, K, inner, Kout, plan) : stream_plan<bf16>(M, K, inner, Kout, plan);
 }

@@ -10,12 +10,12 @@
 // - an epilogue chosen at compile time: the GLU (store_glu: a stacked
 //   [value; gate] B tile, so one wgmma of width N yields v and g of the
 //   same N / 2 columns in one thread's registers) or a GEMM's plain
-//   rounding or fp32 split-k partial (store_gemm);
+//   rounding (store_gemm);
 // - a B tile loaded in p.b_parts row blocks (the GLU's value rows and gate
 //   rows of w_in, from one map over w_in as [2, inner, K]);
-// - the raster order (p.m_fastest: row tiles fastest, so that the blocks
-//   running together share one weight tile in L2 and each weight tile is
-//   read from device memory about once) and a k split over blockIdx.y;
+// - the raster order (kGemmRowsFastest: row tiles fastest, so that the
+//   blocks running together share one weight tile in L2 and each weight
+//   tile is read from device memory about once);
 // - rows at or past T and columns at or past cout masked in the epilogues,
 //   so M, inner and Kout need not be tile multiples.
 // Each GEMM __global__ kernel is a thin shim over gemm_mainloop, so the
@@ -34,6 +34,9 @@ constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
 constexpr int kATile = kM * kSwizzleRow;          // one tap's A tile: 16 KB
 constexpr int kMaxStages = 4;
 constexpr int kSmemBudget = 227 * 1024 - 1024 - 2 * kMaxStages * 8;
+// the GEMMs' raster: row tiles fastest across the grid (the convolution
+// runs its column tiles fastest); mlp_variants.py times the other order
+constexpr bool kGemmRowsFastest = true;
 
 template <typename T>
 struct ConvElem;
@@ -72,8 +75,6 @@ struct ConvPlan {
   int flush;     // fp32: stages per tensor-core partial sum
   int b_parts = 1;    // row blocks of a stage's B tile: 2 for the GLU (value rows, gate rows)
   int n_rows = 0;     // row tiles x phases (set by launch_taps)
-  int m_fastest = 0;  // raster: the row tile (1) or the column tile (0) varies fastest
-  int k_split = 1;    // a GEMM's stages split over blockIdx.y (fixed-order sum after)
 };
 
 // The weight slice and the input row offset of tap j (K4: of output phase `phase`).
@@ -261,13 +262,11 @@ __device__ __forceinline__ void store_glu(const float (&acc)[2][CH / 2], const C
   }
 }
 
-// A GEMM's 64 x N accumulator rounded once to T (y [T, cout]), or, split over
-// k, stored unrounded as the split's fp32 partial [k_split, T, cout]; rows at
-// or past T and columns at or past cout (even) are dropped.
+// A GEMM's 64 x N accumulator rounded once to T (y [T, cout]); rows at or
+// past T and columns at or past cout (even) are dropped.
 template <typename T, int N, int CH>
 __device__ __forceinline__ void store_gemm(const float (&acc)[N / CH][CH / 2], const ConvPlan& p,
-                                           T* __restrict__ y, float* __restrict__ partial, int ks,
-                                           int row0, int n0, int tq) {
+                                           T* __restrict__ y, int row0, int n0, int tq) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = row0 + 8 * hh;
@@ -278,11 +277,7 @@ __device__ __forceinline__ void store_gemm(const float (&acc)[N / CH][CH / 2], c
       for (int j = 0; j < CH / 8; ++j) {
         const int col = n0 + c * CH + 8 * j + 2 * tq;
         if (col >= p.cout) continue;
-        const float a = acc[c][4 * j + 2 * hh], b = acc[c][4 * j + 2 * hh + 1];
-        if (partial != nullptr)
-          store2(partial + ((size_t)ks * p.T + t) * p.cout + col, a, b);
-        else
-          store2(y + (size_t)t * p.cout + col, a, b);
+        store2(y + (size_t)t * p.cout + col, acc[c][4 * j + 2 * hh], acc[c][4 * j + 2 * hh + 1]);
       }
   }
 }
@@ -294,15 +289,14 @@ enum : int { kEpiGlu = 1, kEpiGemm = 2 };  // gemm_mainloop's epilogues
 // the same ring of TMA-fed stages, products and fp32 flush; in addition a
 // B tile loaded in p.b_parts row blocks of N / b_parts rows (block q from
 // slice q of the weight map, stacked in shared memory: the GLU's value and
-// gate rows), the row tiles fastest across blockIdx.x where p.m_fastest,
-// the reduction split over blockIdx.y into p.k_split parts, and the
-// epilogue kEpi (store_glu, store_gemm). The convolution keeps its own
+// gate rows), the row tiles fastest across blockIdx.x (kGemmRowsFastest),
+// and the epilogue kEpi (store_glu, store_gemm). The convolution keeps its own
 // kernel: ptxas allocates the spill-prone fp32 instantiations differently
 // once it shares one with these options (its fp32 paths ran 8-18% slower).
 template <typename T, int N, int CH, int kEpi>
 __device__ __forceinline__ void gemm_mainloop(const CUtensorMap* xmap, const CUtensorMap* wmap,
                                               const float* __restrict__ bias, T* __restrict__ y,
-                                              float* __restrict__ partial, const ConvPlan p) {
+                                              const ConvPlan p) {
   using Tile = ConvTile<T, N>;
   constexpr int kStages = Tile::kStages;
   constexpr int kNC = N / CH;  // wgmma column blocks of the tile
@@ -311,13 +305,10 @@ __device__ __forceinline__ void gemm_mainloop(const CUtensorMap* xmap, const CUt
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * Tile::kStage);
   uint64_t* empty = full + kStages;
 
-  const int chunk = p.m_fastest ? blockIdx.x / p.n_rows : blockIdx.x % p.n_chunks;
-  const int r0 = (p.m_fastest ? blockIdx.x % p.n_rows : blockIdx.x / p.n_chunks) * kM;
-  const int part_rows = N / p.b_parts, n0 = chunk * part_rows, ks = blockIdx.y;
-  // this block's stages [it0, it0 + n_iter) of the whole reduction
-  const int n_all = (p.cin + Tile::kKC - 1) / Tile::kKC;
-  const int per = (n_all + p.k_split - 1) / p.k_split;
-  const int it0 = min(n_all, ks * per), n_iter = min(n_all, it0 + per) - it0;
+  const int chunk = kGemmRowsFastest ? blockIdx.x / p.n_rows : blockIdx.x % p.n_chunks;
+  const int r0 = (kGemmRowsFastest ? blockIdx.x % p.n_rows : blockIdx.x / p.n_chunks) * kM;
+  const int part_rows = N / p.b_parts, n0 = chunk * part_rows;
+  const int n_iter = (p.cin + Tile::kKC - 1) / Tile::kKC;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -333,7 +324,7 @@ __device__ __forceinline__ void gemm_mainloop(const CUtensorMap* xmap, const CUt
       for (int it = 0; it < n_iter; ++it) {
         const int s = it % kStages;
         if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) + 1) & 1);
-        const int c0 = (it0 + it) * Tile::kKC;
+        const int c0 = it * Tile::kKC;
         unsigned char* st = smem + s * Tile::kStage;
         mbar_expect_tx(&full[s], Tile::kStage);
         tma_load_3d(st, xmap, &full[s], c0, r0, 0);
@@ -433,7 +424,7 @@ __device__ __forceinline__ void gemm_mainloop(const CUtensorMap* xmap, const CUt
     static_assert(N == 2 * CH, "the GLU stacks its value and gate columns as two wgmma blocks");
     store_glu<T, CH>(acc, p, bias, y, r0 + row_a, n0, tq);
   } else {
-    store_gemm<T, N, CH>(acc, p, y, partial, ks, r0 + row_a, n0, tq);
+    store_gemm<T, N, CH>(acc, p, y, r0 + row_a, n0, tq);
   }
 }
 
@@ -457,10 +448,8 @@ int launch_taps(Kernel kernel, ConvPlan p, const void* x, const void* w, int w_s
   if (err == cudaSuccess) err = allow_smem(kernel, Tile::kSmem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)p.n_rows * p.n_chunks;
-  if (blocks >= (1ll << 31) || (long long)B * p.k_split > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  kernel<<<dim3((unsigned)blocks, B * p.k_split), kThreads, Tile::kSmem, stream>>>(xmap, wmap,
-                                                                                     args..., p);
+  if (blocks >= (1ll << 31) || B > 65535) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<dim3((unsigned)blocks, B), kThreads, Tile::kSmem, stream>>>(xmap, wmap, args..., p);
   return (int)cudaGetLastError();
 }
 

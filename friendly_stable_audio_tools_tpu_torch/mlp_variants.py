@@ -13,26 +13,26 @@ its streaming route) on the card.
    in a fixed order); with --check the script stops here;
 3. ``tile_n``: GEMM1's stacked tile widths and GEMM2's tile widths at the
    DiT's shape (M 2080 and 2050, K 1536, inner 6144, Kout 1536), bf16 and
-   fp32, the shipped widths (mlp.GLU_TILE_N, mlp.OUT_TILE_N) marked;
-4. ``raster``: each GEMM with its row tiles fastest (shipped) and with its
-   column tiles fastest (`glu{a}_out{b}`: 1 rows fastest), at the same
-   shapes;
-5. ``split``: GEMM2 split over inner into 1-4 fp32 partials at M 2080, and
-   the plan's split against none at M 64-256;
-6. ``stages``: the shipped library against variants with at most 3 and 6
+   fp32: the shipped library against libraries built with other widths
+   (csrc/glu_mlp.cu:GemmTiles substituted; each library reports its widths
+   through fsat_glu_tensor_plan);
+4. ``raster``: the shipped row tiles fastest against a library with the
+   column tiles fastest (taps_wgmma.cuh:kGemmRowsFastest), both GEMMs, at
+   the same shapes;
+5. ``stages``: the shipped library against variants with at most 3 and 6
    tensor-core stages (kMaxStages) and with 2, 3 and 4 streaming stages
    (kMaxStreamStages), in turns;
-7. ``crossover``: both routes at the audio LM's widths (K 1024, inner 4096,
+6. ``crossover``: both routes at the audio LM's widths (K 1024, inner 4096,
    Kout 1024) at M 2, 4, 8, 16 (the streaming kernel's M) and the tensor
    route at 32-256, fp32 and bf16, beside the unfused cuBLAS chain
    (F.linear, silu * mul, F.linear; TF32 off);
-8. ``flush``: the fp32 tensor-core route's error against fp64 at GEMM2's
+7. ``flush``: the fp32 tensor-core route's error against fp64 at GEMM2's
    6144-long reduction for partial sums of 1, 2, 4, 8 stages and of the
    whole reduction, beside the plain fp32 version.
 
 Times are device times per call from torch.profiler (the sum of the call's
-kernels: the fp32 weight parts, GEMM1, GEMM2 and a split-k sum, or the
-streaming kernel), weights cycling through sets that exceed the 50 MB L2
+kernels: the fp32 weight parts, GEMM1 and GEMM2, or the streaming
+kernel), weights cycling through sets that exceed the 50 MB L2
 where a set is smaller, as the model reads a new layer's weights at every
 call. Needs a CUDA device and nvcc.
 """
@@ -52,15 +52,35 @@ from pathlib import Path
 from .conv_variants import substitute
 from .ops.kernels import build
 
+# the shipped tile widths (GEMM1's stacked N, GEMM2's N) in csrc/glu_mlp.cu
+TILE_LINES = {"bf16": "struct GemmTiles<bf16> { static constexpr int kGlu = 256, kOut = 256; };",
+              "fp32": "struct GemmTiles<float> { static constexpr int kGlu = 128, kOut = 128; };"}
+
+
+def _tiles(bf16, fp32):
+    """Substitutions setting (GEMM1, GEMM2) widths per element type."""
+    return [(TILE_LINES[name], TILE_LINES[name].replace(
+        TILE_LINES[name][TILE_LINES[name].index("kGlu"):TILE_LINES[name].index(";")],
+        f"kGlu = {glu}, kOut = {out}")) for name, (glu, out) in (("bf16", bf16), ("fp32", fp32))]
+
+
 # variant library -> [(text in glu_mlp.cu or taps_wgmma.cuh, replacement), ...]
 VARIANTS = {
+    "glu192": _tiles((192, 256), (64, 128)),
+    "glu128": _tiles((128, 256), (64, 128)),
+    "out192": _tiles((256, 192), (128, 96)),
+    "out128": _tiles((256, 128), (128, 64)),
+    "cols_fastest": [("constexpr bool kGemmRowsFastest = true;",
+                      "constexpr bool kGemmRowsFastest = false;")],
     "tc_stages3": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 3;")],
     "tc_stages6": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 6;")],
     "stream_stages3": [("constexpr int kMaxStreamStages = 6;", "constexpr int kMaxStreamStages = 3;")],
     "stream_stages4": [("constexpr int kMaxStreamStages = 6;", "constexpr int kMaxStreamStages = 4;")],
     "stream_stages2": [("constexpr int kMaxStreamStages = 6;", "constexpr int kMaxStreamStages = 2;")],
 }
-ENTRY_POINTS = ("fsat_glu_gemm", "fsat_out_gemm", "fsat_tf32_split", "fsat_glu_stream")
+TILE_VARIANTS = ("shipped", "glu192", "glu128", "out192", "out128")
+ENTRY_POINTS = ("fsat_glu_gemm", "fsat_out_gemm", "fsat_glu_tensor_plan", "fsat_tf32_split",
+                "fsat_glu_stream")
 DIT = (1536, 6144, 1536)     # K, inner, Kout of SAO's DiT
 LM = (1024, 4096, 1024)      # of the audio LM
 DIT_M = (2080, 2050)         # CFG batch 2 x 1040 (training pad), x 1025 (generation)
@@ -175,7 +195,7 @@ def main(argv=None):
         built = {name: pool.submit(build_variant, name, Path(tmp), nvcc) for name in VARIANTS}
         libs = {"shipped": lib, **{name: fut.result() for name, fut in built.items()}}
         with torch.no_grad():
-            out["tile_n"], out["raster"], out["split"] = tile_phase(libs, rnd, weights)
+            out["tile_n"], out["raster"] = tile_phase(libs, rnd, weights)
             out["stages"] = stages_phase(libs, rnd, weights)
             out["crossover"] = crossover_phase(rnd, weights)
             out["flush"] = flush_phase(libs, rnd, rel)
@@ -202,10 +222,8 @@ def device_ms(fn, calls=10):
     return sum(by.values()), by
 
 
-def tensor_fn(lib, x, w_in, b_in, w_out, glu_n, out_n, raster=(1, 1), k_split=1):
-    """One tensor-core K13 call through `lib` at the given tile widths,
-    raster orders (GEMM1's, GEMM2's: 1 runs the row tiles fastest) and k
-    split (the wrapper's _glu_tensor with its plan replaced)."""
+def tensor_fn(lib, x, w_in, b_in, w_out):
+    """One tensor-core K13 call through `lib` (the wrapper's _glu_tensor)."""
     import torch
 
     from .ops.kernels import mlp
@@ -216,41 +234,44 @@ def tensor_fn(lib, x, w_in, b_in, w_out, glu_n, out_n, raster=(1, 1), k_split=1)
     f32 = int(dt == torch.float32)
     h = torch.empty(m, inner, device="cuda", dtype=dt)
     y = torch.empty(m, kout, device="cuda", dtype=dt)
-    partial = torch.empty(k_split, m, kout, device="cuda") if k_split > 1 else None
     b = None if b_in is None else b_in.float().contiguous()
     st = torch.cuda.current_stream().cuda_stream
 
     def run():
         wi, wo = mlp.tensor_weights(w_in, w_out, dt)
         build.check(lib.fsat_glu_gemm(x.data_ptr(), wi.data_ptr(), None if b is None else b.data_ptr(),
-                                      h.data_ptr(), m, k, inner, glu_n, raster[0], f32, mlp.F32_FLUSH,
-                                      st), "glu gemm")
-        build.check(lib.fsat_out_gemm(h.data_ptr(), wo.data_ptr(), y.data_ptr(),
-                                      None if partial is None else partial.data_ptr(), m, inner, kout,
-                                      out_n, raster[1], k_split, f32, mlp.F32_FLUSH, st), "out gemm")
+                                      h.data_ptr(), m, k, inner, f32, mlp.F32_FLUSH, st), "glu gemm")
+        build.check(lib.fsat_out_gemm(h.data_ptr(), wo.data_ptr(), y.data_ptr(), m, inner, kout, f32,
+                                      mlp.F32_FLUSH, st), "out gemm")
         return y
 
     return run
 
 
-def stream_fn(lib, x, w_in, b_in, w_out):
+def widths(lib, m, inner, kout, dt):
+    """(GEMM1's stacked N, GEMM2's N) that `lib` launches."""
     import torch
 
-    from .ops.kernels import mlp
+    plan = (ctypes.c_int * 4)()
+    build.check(lib.fsat_glu_tensor_plan(m, inner, kout, int(dt == torch.float32), plan), "plan")
+    return plan[0], plan[2]
+
+
+def stream_fn(lib, x, w_in, b_in, w_out):
+    import torch
 
     m, k = x.shape
     inner, kout = w_in.shape[0] // 2, w_out.shape[0]
     f32 = int(x.dtype == torch.float32)
     hbuf = torch.empty(m, inner, device="cuda")
-    bar = torch.zeros(2, device="cuda", dtype=torch.int32)
     y = torch.empty(m, kout, device="cuda", dtype=x.dtype)
     b = None if b_in is None else b_in.float().contiguous()
     st = torch.cuda.current_stream().cuda_stream
 
     def run():
         build.check(lib.fsat_glu_stream(x.data_ptr(), w_in.data_ptr(), None if b is None else b.data_ptr(),
-                                        w_out.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), y.data_ptr(),
-                                        m, k, inner, kout, mlp.stream_plan(m), f32, st), "stream")
+                                        w_out.data_ptr(), hbuf.data_ptr(), y.data_ptr(), m, k, inner,
+                                        kout, f32, st), "stream")
         return y
 
     return run
@@ -277,48 +298,27 @@ def _sets(weights, k, inner, kout, dt):
 def tile_phase(libs, rnd, weights):
     import torch
 
-    from .ops.kernels import mlp
-
-    tiles, raster, split = [], [], []
+    tiles, raster = [], []
     k, inner, kout = DIT
-    widths = {torch.bfloat16: ((256, 192, 128), (256, 192, 128)),
-              torch.float32: ((128, 64), (128, 96, 64))}
     for dt in (torch.bfloat16, torch.float32):
         sets = _sets(weights, k, inner, kout, dt)
         for m in DIT_M:
             x = rnd(m, k, scale=0.5).to(dt)
-            ship = (mlp.GLU_TILE_N[dt], mlp.OUT_TILE_N[dt])
 
-            def at(glu_n, out_n, raster=(1, 1), ks=1):
-                return cycled([tensor_fn(libs["shipped"], x, *ws, glu_n, out_n, raster, ks)
-                               for ws in sets])
+            def at(name):
+                return device_ms(cycled([tensor_fn(libs[name], x, *ws) for ws in sets]))
 
-            row = dict(dtype=str(dt), m=m, shipped=ship, glu={}, out={})
-            for n in widths[dt][0]:
-                row["glu"][n] = device_ms(at(n, ship[1]))
-            for n in widths[dt][1]:
-                row["out"][n] = device_ms(at(ship[0], n))
+            row = dict(dtype=str(dt), m=m, ms={})
+            for name in TILE_VARIANTS:
+                row["ms"][f"{name} {widths(libs[name], m, inner, kout, dt)}"] = at(name)
             tiles.append(row)
             print(json.dumps(row), flush=True)
-            rr = dict(dtype=str(dt), m=m, ms={f"glu{a}_out{b}": device_ms(at(*ship, (a, b)))
-                                              for a, b in ((1, 1), (0, 1), (1, 0), (0, 0))})
+            rr = dict(dtype=str(dt), m=m, ms={})  # in turns: each order's two runs
+            for name in ("shipped", "cols_fastest", "cols_fastest", "shipped"):
+                rr["ms"].setdefault(name, []).append(at(name))
             raster.append(rr)
             print(json.dumps(rr), flush=True)
-            sr = dict(dtype=str(dt), m=m, ms={ks: device_ms(at(*ship, ks=ks)) for ks in (1, 2, 3, 4)})
-            split.append(sr)
-            print(json.dumps(sr), flush=True)
-        lk, li, lo = LM
-        lsets = _sets(weights, lk, li, lo, dt)
-        for m in (64, 128, 256):
-            x = rnd(m, lk, scale=0.5).to(dt)
-            plan = mlp.tensor_plan(m, li, lo, dt)
-            sr = dict(dtype=str(dt), m=m, k=lk, inner=li, kout=lo, plan=plan,
-                      ms={ks: device_ms(cycled([tensor_fn(libs["shipped"], x, *ws, plan["glu_n"],
-                                                          plan["out_n"], (1, 1), ks) for ws in lsets]))[0]
-                          for ks in sorted({1, plan["k_split"], 2, 4, 8})})
-            split.append(sr)
-            print(json.dumps(sr), flush=True)
-    return tiles, raster, split
+    return tiles, raster
 
 
 def stages_phase(libs, rnd, weights):
@@ -331,11 +331,10 @@ def stages_phase(libs, rnd, weights):
         k, inner, kout = DIT
         sets = _sets(weights, k, inner, kout, dt)
         x = rnd(2050, k, scale=0.5).to(dt)
-        ship = (mlp.GLU_TILE_N[dt], mlp.OUT_TILE_N[dt])
         order = ["shipped", "tc_stages3", "tc_stages6", "tc_stages6", "tc_stages3", "shipped"]
         ms = {}
         for name in order:
-            t = device_ms(cycled([tensor_fn(libs[name], x, *ws, *ship) for ws in sets]))[0]
+            t = device_ms(cycled([tensor_fn(libs[name], x, *ws) for ws in sets]))[0]
             ms[name] = min(ms.get(name, t), t)
         rows.append(dict(route="tensor", dtype=str(dt), m=2050, ms=ms))
         print(json.dumps(rows[-1]), flush=True)
@@ -349,7 +348,7 @@ def stages_phase(libs, rnd, weights):
                 t = device_ms(cycled([stream_fn(libs[name], x, *ws) for ws in lsets]), 20)[0]
                 ms[name] = min(ms.get(name, t), t)
             rows.append(dict(route="stream", dtype=str(dt), m=m, ms=ms,
-                             stream_grid=mlp.stream_grid(inner, kout, dt)))
+                             plan=mlp.stream_plan(x.device, m, k, inner, kout, dt)))
             print(json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -405,14 +404,14 @@ def flush_phase(libs, rnd, rel):
     st = torch.cuda.current_stream().cuda_stream
     lib = libs["shipped"]
     wi, wo = mlp.tensor_weights(w_in, w_out, torch.float32)
-    build.check(lib.fsat_glu_gemm(x.data_ptr(), wi.data_ptr(), None, h.data_ptr(), m, k, inner, 128, 1,
-                                  1, mlp.F32_FLUSH, st), "glu gemm")
+    build.check(lib.fsat_glu_gemm(x.data_ptr(), wi.data_ptr(), None, h.data_ptr(), m, k, inner, 1,
+                                  mlp.F32_FLUSH, st), "glu gemm")
     ref = h.double() @ w_out.double().T
     row = dict(shape=[m, inner, kout], plain_fp32=rel(h @ w_out.T, ref))
     y = torch.empty(m, kout, device="cuda")
     for f in (1, 2, 4, 8, inner // 32):
-        build.check(lib.fsat_out_gemm(h.data_ptr(), wo.data_ptr(), y.data_ptr(), None, m, inner, kout,
-                                      128, 1, 1, 1, f, st), "out gemm")
+        build.check(lib.fsat_out_gemm(h.data_ptr(), wo.data_ptr(), y.data_ptr(), m, inner, kout, 1, f,
+                                      st), "out gemm")
         torch.cuda.synchronize()
         row[f"flush{f}"] = rel(y, ref)
     rows.append(row)

@@ -50,10 +50,12 @@ SIGNATURES = {
     "fsat_conv_weights": [_P, _P, _I, _I, _I, _I, _P],
     "fsat_conv_taps_k2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_conv_taps_k4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fsat_glu_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fsat_out_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_glu_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fsat_out_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fsat_glu_tensor_plan": [_I, _I, _I, _I, _P],
     "fsat_tf32_split": [_P, _P, _I, _I, _I, _P],
-    "fsat_glu_stream": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_glu_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fsat_glu_stream_plan": [_I, _I, _I, _I, _I, _P],
     "fsat_ln_modulate": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],
     "fsat_gated_residual": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
 }

@@ -37,8 +37,8 @@ design does about it: csrc/glu_mlp.cu.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-import math
 import typing as tp
 
 import torch
@@ -48,91 +48,38 @@ from .conv1d import F32_FLUSH, _stream, _tma_ready
 
 # launch counts: the wrapper adds one to `launches` and one to its route's
 # count where it launches a route's kernels (fp32 or bf16); a tensor-core
-# call is 2-4 kernels (the fp32 weight parts, GEMM1, GEMM2, a split-k sum)
+# call is 2-3 kernels (the fp32 weight parts, GEMM1, GEMM2)
 launches = 0
 stream_launches = 0
 tensor_launches = 0
 
-# the streaming route (csrc/glu_mlp.cu): columns of h per phase-1 tile,
-# elements per TMA box row, bytes per ring stage, its most stages, its most
-# outputs per block, the SMs its blocks fill (the H100's 132)
+# the streaming route takes M <= 16 and inner in tiles of STREAM_COLS
+# columns; its grid and ring at a shape are the kernel's to decide
+# (csrc/glu_mlp.cu:stream_grid, from the card's SMs and shared memory),
+# which :func:`stream_plan` asks
 STREAM_COLS = 32
-STREAM_BOX = 256
-STREAM_SLOT = 32 * 1024
-STREAM_MAX_STAGES = 6
-STREAM_MAX_OUT_ROWS = 32
-SMEM_LIMIT = 227 * 1024
-# the largest M the streaming route takes (the crossover measured by
-# mlp_variants.py at the LM's widths on an H100: fp32 streams faster than
-# the tensor cores up to its limit of 16, bf16 up to M 4; PERF.md §6);
-# above it the tensor-core route
-STREAM_MAX_M = {torch.float32: 16, torch.bfloat16: 4}
-# the tensor-core route: GEMM1's stacked tile width (N / 2 columns of h per
-# block) and GEMM2's tile width, by dtype (mlp_variants.py)
-GLU_TILE_N = {torch.bfloat16: 256, torch.float32: 128}
-OUT_TILE_N = {torch.bfloat16: 256, torch.float32: 128}
-# both run their row tiles fastest across the grid, so that the blocks in
-# flight share a weight tile in L2 (the raster argument, 1)
-ROWS_FASTEST = 1
-# GEMM2 may split its inner reduction over blockIdx.y into at most MAX_SPLIT
-# fp32 partials, each at least MIN_SPLIT_STAGES stages deep (tensor_plan):
-# the card's SMs, peaks (bf16; fp32 at 3xTF32's third of the TF32 rate) and
-# the share of an SM's peak the mainloop reaches (0.79 measured at M 2080)
-SMS = 132
-PEAK = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
-PEAK_BYTES = 3.35e12
-MAINLOOP_SHARE = 0.75
-MAX_SPLIT = 8
-MIN_SPLIT_STAGES = 8
-ROW_TILE = 128  # rows per block of the tensor-core route
+# the largest M the streaming route is preferred for (the crossover measured
+# by mlp_variants.py at the LM's widths on an H100: fp32 streams faster than
+# the tensor cores up to its limit of 16, bf16 up to M 8; PERF.md §6); above
+# it the tensor-core route
+STREAM_MAX_M = {torch.float32: 16, torch.bfloat16: 8}
 # fp32: the tensor-core partial sum is flushed every F32_FLUSH stages, as
 # the convolution's (conv1d.F32_FLUSH; at GEMM2's 6144-long reduction too)
-
-_barriers: tp.Dict[tp.Any, torch.Tensor] = {}
 
 
 def _elem(dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 4
 
 
-def stream_plan(m: int) -> int:
-    """The streaming kernel's M tile (it takes M <= 16): the least of 2 (the
-    decode: one row and its CFG twin), 4, 8, 16 that holds M."""
-    return next(bm for bm in (2, 4, 8, 16) if m <= bm) if m <= 16 else 16
+def stream_fits(m: int, k: int, inner: int, dtype) -> bool:
+    """The streaming kernel's preconditions on the shape: 1 <= M <= 16, rows
+    of x and w_in in 16-byte words (K * elem % 16), inner % STREAM_COLS."""
+    return 1 <= m <= 16 and (k * _elem(dtype)) % 16 == 0 and inner % STREAM_COLS == 0
 
 
-def stream_grid(inner: int, kout: int, dtype) -> tp.Tuple[int, int, int]:
-    """(blocks, outputs per block, inner span per phase-2 stage) of a
-    streaming launch (csrc/glu_mlp.cu:stream_grid, out_boxes)."""
-    blocks = min(inner // STREAM_COLS, SMS)
-    rows = math.ceil(kout / blocks)
-    boxes = min(4, STREAM_SLOT // (rows * STREAM_BOX * _elem(dtype)))
-    return blocks, rows, boxes * STREAM_BOX
-
-
-def stream_stages(bm: int, k: int, span: int) -> int:
-    """Ring stages of the streaming kernel beside x [bm, K] (in phase 2 a
-    span of h) as fp32 in shared memory (csrc/glu_mlp.cu:stream_stages); 0
-    if fewer than 2 fit."""
-    kpad = math.ceil(k / STREAM_BOX) * STREAM_BOX
-    for stages in range(STREAM_MAX_STAGES, 1, -1):
-        total = (1024 + stages * STREAM_SLOT + bm * max(kpad, span) * 4
-                 + 2 * bm * STREAM_COLS * 4 + 2 * stages * 8)
-        if total <= SMEM_LIMIT:
-            return stages
-    return 0
-
-
-@functools.lru_cache(maxsize=256)
-def stream_fits(m: int, k: int, inner: int, kout: int, dtype) -> bool:
-    if m > 16 or (k * _elem(dtype)) % 16 or inner % STREAM_COLS:
-        return False
-    _, rows, span = stream_grid(inner, kout, dtype)
-    return rows <= STREAM_MAX_OUT_ROWS and stream_stages(stream_plan(m), k, span) > 0
-
-
-@functools.lru_cache(maxsize=256)
 def tensor_fits(k: int, inner: int, kout: int, dtype) -> bool:
+    """The tensor-core route's: rows of 16-byte words for TMA (K * elem and
+    inner * elem % 16), Kout even (its epilogue stores column pairs)."""
     return (k * _elem(dtype)) % 16 == 0 and (inner * _elem(dtype)) % 16 == 0 and kout % 2 == 0
 
 
@@ -140,41 +87,38 @@ def tensor_fits(k: int, inner: int, kout: int, dtype) -> bool:
 def route(m: int, k: int, inner: int, kout: int, dtype) -> tp.Optional[str]:
     """K13's route for x [M, K], inner and Kout on `dtype`, by the shape
     alone: "stream" for M <= STREAM_MAX_M[dtype] (the measured crossover),
-    "tensor" above it; the other route where the shape does not fit the
-    preferred one (stream: M <= 16, K * elem % 16, inner % 32, at most 32
-    outputs per block, x beside two stages in shared memory; tensor: K *
-    elem and inner * elem % 16, Kout even); None where neither does."""
-    fits = {"stream": stream_fits(m, k, inner, kout, dtype),
-            "tensor": tensor_fits(k, inner, kout, dtype)}
+    "tensor" above it; the other route where the shape does not meet the
+    preferred one's preconditions (:func:`stream_fits`, :func:`tensor_fits`);
+    None where it meets neither's. Whether the streaming grid and ring fit
+    the card at the shape is the kernel's to say: :func:`glu_mlp` asks
+    :func:`stream_plan` and takes the tensor cores where they do not."""
+    fits = {"stream": stream_fits(m, k, inner, dtype), "tensor": tensor_fits(k, inner, kout, dtype)}
     order = ("stream", "tensor") if m <= STREAM_MAX_M[dtype] else ("tensor", "stream")
     return next((r for r in order if fits[r]), None)
 
 
-def gemm2_cost(m: int, inner: int, kout: int, dtype, k_split: int) -> float:
-    """A model of GEMM2's time in seconds at k split `k_split`: waves of its
-    grid times one block's products at MAINLOOP_SHARE of an SM's peak, plus
-    the split partials' round trip through device memory."""
-    blocks = math.ceil(m / ROW_TILE) * math.ceil(kout / OUT_TILE_N[dtype]) * k_split
-    block = 2 * ROW_TILE * OUT_TILE_N[dtype] * inner / (PEAK[dtype] / SMS * MAINLOOP_SHARE)
-    partials = 2 * k_split * m * kout * 4 / PEAK_BYTES if k_split > 1 else 0.0
-    return math.ceil(blocks / SMS) * block / k_split + partials
-
-
 @functools.lru_cache(maxsize=256)
+def stream_plan(device: torch.device, m: int, k: int, inner: int, kout: int,
+                dtype) -> tp.Optional[tp.Dict[str, int]]:
+    """The streaming launch on CUDA `device` as its kernel plans it (M tile,
+    blocks, outputs per block, ring stages, shared-memory bytes;
+    ``fsat_glu_stream_plan``), or None where the kernel does not take the
+    shape on that card."""
+    plan = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = build.library().fsat_glu_stream_plan(m, k, inner, kout, int(dtype == torch.float32),
+                                                   plan)
+    return None if err else dict(zip(("m_tile", "blocks", "outputs", "stages", "smem"), plan))
+
+
 def tensor_plan(m: int, inner: int, kout: int, dtype) -> tp.Dict[str, int]:
-    """The tensor-core route's launch plan: GEMM1's stacked tile width and
-    blocks, GEMM2's tile width, k split and blocks. GEMM2 splits its inner
-    reduction where `gemm2_cost` says it pays, into at most MAX_SPLIT
-    partials of at least MIN_SPLIT_STAGES stages each: at small M its grid
-    is a few blocks, and at M ~2080 in fp32 its 204 blocks are 1.55 waves
-    (mlp_variants.py measured both)."""
-    rows = math.ceil(m / ROW_TILE)
-    glu_n, out_n = GLU_TILE_N[dtype], OUT_TILE_N[dtype]
-    stages = math.ceil(inner / (64 if dtype == torch.bfloat16 else 32))
-    splits = range(1, max(1, min(MAX_SPLIT, stages // MIN_SPLIT_STAGES)) + 1)
-    k_split = min(splits, key=lambda ks: gemm2_cost(m, inner, kout, dtype, ks))
-    return dict(glu_n=glu_n, glu_blocks=rows * math.ceil(inner / (glu_n // 2)), out_n=out_n,
-                k_split=k_split, out_blocks=rows * math.ceil(kout / out_n) * k_split)
+    """The tensor-core route's launches as the kernels run them: GEMM1's
+    stacked tile width and blocks, GEMM2's tile width and blocks
+    (``fsat_glu_tensor_plan``; the widths are csrc/glu_mlp.cu:GemmTiles)."""
+    plan = (ctypes.c_int * 4)()
+    build.check(build.library().fsat_glu_tensor_plan(m, inner, kout, int(dtype == torch.float32),
+                                                      plan), "glu_mlp plan")
+    return dict(zip(("glu_n", "glu_blocks", "out_n", "out_blocks"), plan))
 
 
 def glu_mlp_plain(x: torch.Tensor, w_in: torch.Tensor, b_in: tp.Optional[torch.Tensor],
@@ -216,43 +160,26 @@ def tensor_weights(w_in: torch.Tensor, w_out: torch.Tensor,
     return out[0], out[1]
 
 
-def _scratch_for(device) -> torch.Tensor:
-    """The streaming kernel's grid-barrier words on `device`, zeroed once:
-    each launch leaves them ready for the next on the stream."""
-    t = _barriers.get(device)
-    if t is None:
-        t = torch.zeros(2, device=device, dtype=torch.int32)
-        _barriers[device] = t
-    return t
-
-
 def _glu_stream(x2, w_in, b, w_out, y, k, inner, kout):
     m = x2.shape[0]
     hbuf = torch.empty(m, inner, device=x2.device, dtype=torch.float32)
     w_in, w_out = _tma_ready(w_in), _tma_ready(w_out)
     return build.library().fsat_glu_stream(
         x2.data_ptr(), w_in.data_ptr(), None if b is None else b.data_ptr(), w_out.data_ptr(),
-        hbuf.data_ptr(), _scratch_for(x2.device).data_ptr(), y.data_ptr(), m, k, inner, kout,
-        stream_plan(m), int(x2.dtype == torch.float32), _stream(x2.device))
+        hbuf.data_ptr(), y.data_ptr(), m, k, inner, kout, int(x2.dtype == torch.float32),
+        _stream(x2.device))
 
 
 def _glu_tensor(x2, w_in, b, w_out, y, k, inner, kout):
     m, dt = x2.shape[0], x2.dtype
-    plan = tensor_plan(m, inner, kout, dt)
     f32 = int(dt == torch.float32)
     wi, wo = tensor_weights(w_in, w_out, dt)
     h = torch.empty(m, inner, device=x2.device, dtype=dt)
     lib, st = build.library(), _stream(x2.device)
     err = lib.fsat_glu_gemm(x2.data_ptr(), wi.data_ptr(), None if b is None else b.data_ptr(),
-                            h.data_ptr(), m, k, inner, plan["glu_n"], ROWS_FASTEST, f32, F32_FLUSH, st)
-    if err:
-        return err
-    partial = None
-    if plan["k_split"] > 1:
-        partial = torch.empty(plan["k_split"], m, kout, device=x2.device, dtype=torch.float32)
-    return lib.fsat_out_gemm(h.data_ptr(), wo.data_ptr(), y.data_ptr(),
-                             None if partial is None else partial.data_ptr(), m, inner, kout,
-                             plan["out_n"], ROWS_FASTEST, plan["k_split"], f32, F32_FLUSH, st)
+                            h.data_ptr(), m, k, inner, f32, F32_FLUSH, st)
+    return err or lib.fsat_out_gemm(h.data_ptr(), wo.data_ptr(), y.data_ptr(), m, inner, kout, f32,
+                                    F32_FLUSH, st)
 
 
 def glu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: tp.Optional[torch.Tensor],
@@ -285,13 +212,18 @@ def glu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: tp.Optional[torch.Tensor]
     x2 = _tma_ready(x.reshape(-1, k))
     m = x2.shape[0]
     chosen = route(m, k, inner, kout, x.dtype)
-    fits = {"stream": stream_fits, "tensor": lambda m, *shape: tensor_fits(*shape)}
-    if m == 0 or chosen not in fits or not fits[chosen](m, k, inner, kout, x.dtype):
+    plan = None
+    if chosen == "stream" and stream_fits(m, k, inner, x.dtype):
+        plan = stream_plan(x.device, m, k, inner, kout, x.dtype)
+        if plan is None and tensor_fits(k, inner, kout, x.dtype):
+            chosen = "tensor"  # the card holds no streaming grid or ring for this shape
+    fits = {"stream": plan is not None, "tensor": tensor_fits(k, inner, kout, x.dtype)}
+    if m == 0 or not fits.get(chosen, False):
         raise ValueError(f"glu_mlp: no CUDA route takes M {m}, K {k}, inner {inner}, Kout {kout} "
                          f"in {x.dtype} (route {chosen}; stream: M <= 16, K * elem % 16 == 0, "
-                         f"inner % {STREAM_COLS} == 0, at most {STREAM_MAX_OUT_ROWS} outputs per "
-                         f"block, x in shared memory; tensor: K * elem and inner * elem % 16 == "
-                         f"0, Kout even)")
+                         f"inner % {STREAM_COLS} == 0 and a grid and ring the card holds "
+                         f"(csrc/glu_mlp.cu:stream_grid); tensor: K * elem and inner * elem % 16 "
+                         f"== 0, Kout even)")
     b = None if b_in is None else b_in.float().contiguous()
     y = torch.empty(m, kout, device=x.device, dtype=x.dtype)
     if chosen == "stream":

@@ -32,7 +32,7 @@ CATEGORIES = [
     ("K7 flash_forward", ("flash_forward_kernel",)),
     ("K7 bf16 flash_forward", ("flash_forward_bf16_kernel",)),
     ("K13 glu_mlp", ("glu_gemm_kernel", "out_gemm_kernel", "glu_stream_kernel",
-                     "split_k_reduce_kernel", "tf32_split_kernel")),
+                     "tf32_split_kernel")),
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "winograd", "fft")),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "splitK")),
     ("softmax", ("softmax",)),

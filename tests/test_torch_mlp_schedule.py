@@ -50,6 +50,14 @@ from friendly_stable_audio_tools_tpu_torch.ops.kernels import mlp as tmlp
 from tests.test_torch_conv_schedule import tensor_core_product
 
 ROW_TILE = 128  # rows per block of the tensor-core route (csrc/taps_wgmma.cuh kM)
+# the shipped tile widths (GEMM1's stacked N, GEMM2's N; csrc/glu_mlp.cu:GemmTiles)
+# and the others mlp_variants.py times
+TILES = {torch.bfloat16: (256, 256), torch.float32: (128, 128)}
+OTHER_TILES = [(torch.bfloat16, (192, 192)), (torch.bfloat16, (128, 128)),
+               (torch.float32, (64, 96)), (torch.float32, (64, 64))]
+BOX = 256  # elements per TMA box row of the streaming route (csrc/glu_mlp.cu kKB)
+STREAM_COLS = tmlp.STREAM_COLS
+SMS = 132  # an H100's SMs: the streaming grid's most blocks (csrc/glu_mlp.cu:stream_grid)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 # (K, inner, Kout): within the sizes the kernels' tiles see at small scale,
 # the last with a ragged column tile in both GEMMs
@@ -129,12 +137,15 @@ def _product(a, b, dt):
     return tensor_core_product(a, b, tmlp.F32_FLUSH)
 
 
-def tensor_schedule(x, w_in, b_in, w_out):
-    """K13's tensor-core route as csrc/glu_mlp.cu schedules it."""
+def tensor_schedule(x, w_in, b_in, w_out, tiles=None):
+    """K13's tensor-core route as csrc/glu_mlp.cu schedules it, at the
+    tile widths `tiles` (GEMM1's stacked N, GEMM2's N; the shipped ones by
+    default)."""
     dt = x.dtype
     m, k = x.shape
     inner, kout = w_in.shape[0] // 2, w_out.shape[0]
-    cols, out_n = tmlp.GLU_TILE_N[dt] // 2, tmlp.OUT_TILE_N[dt]
+    glu_n, out_n = tiles or TILES[dt]
+    cols = glu_n // 2
     xf, wi, wo = x.float(), w_in.float(), w_out.float()
     h = torch.zeros(m, inner)
     for r0 in range(0, m, ROW_TILE):
@@ -189,6 +200,17 @@ def test_tensor_schedule_matches_plain(shape, m, bias, dtype):
     assert _rel(got, tmlp.glu_mlp_plain(x, w_in, b_in, w_out)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype,tiles", OTHER_TILES, ids=["bf16-192", "bf16-128", "fp32-64-96",
+                                                          "fp32-64"])
+@pytest.mark.parametrize("shape", SHAPES, ids=["k128", "k64", "ragged"])
+def test_tensor_schedule_at_other_tile_widths(shape, dtype, tiles):
+    """The widths mlp_variants.py substitutes compute the same function: a
+    ragged row tile (M 130) and ragged column tiles in both GEMMs."""
+    x, w_in, b_in, w_out = _torch(*_inputs(7 + shape[0], 130, *shape), dtype)
+    got = tensor_schedule(x, w_in, b_in, w_out, tiles)
+    assert _rel(got, tmlp.glu_mlp_plain(x, w_in, b_in, w_out)) <= TOL[dtype]
+
+
 # ---------------------------------------------------------------------------
 # the streaming route
 # ---------------------------------------------------------------------------
@@ -211,13 +233,13 @@ def warp_dot(a, b, dtype):
     lanes' sums by the butterfly of csrc/glu_mlp.cu:warp_sum (xor 16, 8, 4,
     2, 1). a, b [..., P]; P padded with zeros to a multiple of 256."""
     p = a.shape[-1]
-    pad = math.ceil(p / tmlp.STREAM_BOX) * tmlp.STREAM_BOX - p
+    pad = math.ceil(p / BOX) * BOX - p
     a = torch.nn.functional.pad(a.float(), (0, pad))
     b = torch.nn.functional.pad(b.float(), (0, pad))
     pos = lane_positions(dtype)
     acc = torch.zeros(*a.shape[:-1], 32)
-    for c in range(a.shape[-1] // tmlp.STREAM_BOX):
-        idx = c * tmlp.STREAM_BOX + pos  # [32, 8]
+    for c in range(a.shape[-1] // BOX):
+        idx = c * BOX + pos  # [32, 8]
         prod = a[..., idx] * b[..., idx]  # [..., 32, 8]
         for e in range(8):
             acc = acc + prod[..., e]
@@ -227,9 +249,17 @@ def warp_dot(a, b, dtype):
     return acc[..., 0]
 
 
-def stream_schedule(x, w_in, b_in, w_out, finish_order=None, barrier=True):
+def stream_grid(inner, kout, blocks=None):
+    """(G, R): the streaming kernel's blocks (one per 32-column tile of h,
+    one per SM at most) and outputs per block, as csrc/glu_mlp.cu:stream_grid
+    plans them on an H100; `blocks` sets G."""
+    blocks = blocks or min(inner // STREAM_COLS, SMS)
+    return blocks, math.ceil(kout / blocks)
+
+
+def stream_schedule(x, w_in, b_in, w_out, finish_order=None, barrier=True, blocks=None):
     """The streaming route as csrc/glu_mlp.cu schedules it: G blocks (one
-    per SM at most), phase 1 in `finish_order` (block b forms h for the
+    per SM at most; `blocks` sets G), phase 1 in `finish_order` (block b forms h for the
     32-column tiles b, b + G, ... and stores them in the fp32 scratch), the
     grid barrier (every block has arrived: no column of h is missing), then
     phase 2 (block b's R outputs, each one warp's sum over all of inner).
@@ -238,17 +268,17 @@ def stream_schedule(x, w_in, b_in, w_out, finish_order=None, barrier=True):
     m, k = x.shape
     inner, kout = w_in.shape[0] // 2, w_out.shape[0]
     assert m <= 16
-    blocks, rows, _ = tmlp.stream_grid(inner, kout, dt)
+    blocks, rows = stream_grid(inner, kout, blocks)
     hbuf = torch.full((m, inner), float("nan"))
     xf = x.float()
     arrived = 0
     for b in (finish_order if finish_order is not None else range(blocks)):
-        for j0 in range(b * tmlp.STREAM_COLS, inner, blocks * tmlp.STREAM_COLS):
-            cols = slice(j0, j0 + tmlp.STREAM_COLS)
+        for j0 in range(b * STREAM_COLS, inner, blocks * STREAM_COLS):
+            cols = slice(j0, j0 + STREAM_COLS)
             v = warp_dot(xf[:, None, :], w_in[cols].float()[None], dt)
-            g = warp_dot(xf[:, None, :], w_in[inner + j0:inner + j0 + tmlp.STREAM_COLS].float()[None], dt)
+            g = warp_dot(xf[:, None, :], w_in[inner + j0:inner + j0 + STREAM_COLS].float()[None], dt)
             bv = None if b_in is None else b_in[cols]
-            bg = None if b_in is None else b_in[inner + j0:inner + j0 + tmlp.STREAM_COLS]
+            bg = None if b_in is None else b_in[inner + j0:inner + j0 + STREAM_COLS]
             hbuf[:, cols] = _glu(v, g, bv, bg, dt).float()
         arrived += 1
         if not barrier:
@@ -280,7 +310,7 @@ def test_stream_result_does_not_depend_on_finish_order(dtype):
     columns of h that are not stored yet."""
     m, k, inner, kout = 2, 64, 512, 128
     x, w_in, b_in, w_out = _torch(*_inputs(5, m, k, inner, kout), dtype)
-    blocks = tmlp.stream_grid(inner, kout, dtype)[0]
+    blocks = stream_grid(inner, kout)[0]
     want = stream_schedule(x, w_in, b_in, w_out)
     rng = np.random.RandomState(0)
     for _ in range(4):
@@ -303,15 +333,17 @@ def test_warp_dot_is_the_kernel_order_not_any_order():
     assert _rel(got, ref) < 1e-6 and _rel(plain, ref) < 1e-6
 
 
-@pytest.mark.parametrize("inner,kout,blocks,rows,span", [
-    (4096, 1024, 128, 8, 1024), (6144, 1536, 132, 12, 512), (384, 200, 12, 17, 256),
-    (640, 200, 20, 10, 768)])
-def test_stream_grid(inner, kout, blocks, rows, span):
-    """One block per SM at most (inner / 32 blocks at the LM's 4096: 128),
-    R = ceil(Kout / blocks) outputs per block, phase 2's stages as wide in
-    inner as fit 32 KB (fp32)."""
-    assert tmlp.stream_grid(inner, kout, torch.float32) == (blocks, rows, span)
-    assert [tmlp.stream_plan(m) for m in (1, 2, 3, 4, 5, 8, 9, 16)] == [2, 2, 4, 4, 8, 8, 16, 16]
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocks", [1, 3, 5, 7])
+def test_stream_schedule_at_any_grid(blocks, dtype):
+    """The grid is the kernel's to plan from the card's SMs (fewer blocks
+    than tiles of h, a last block with fewer outputs): every G gives the
+    same bits, since each output is one warp's sum over all of h."""
+    k, inner, kout = SHAPES[2]
+    x, w_in, b_in, w_out = _torch(*_inputs(blocks, 3, k, inner, kout), dtype)
+    got = stream_schedule(x, w_in, b_in, w_out, blocks=blocks)
+    assert torch.equal(got, stream_schedule(x, w_in, b_in, w_out))
+    assert _rel(got, tmlp.glu_mlp_plain(x, w_in, b_in, w_out)) <= TOL[dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -393,21 +425,13 @@ def test_route_by_m_at_the_main_path_shapes(dtype):
 def test_route_falls_to_the_other_route_or_none():
     # inner 240 is no multiple of the streaming tiles' 32 columns
     assert tmlp.route(2, 128, 240, 128, torch.float32) == "tensor"
-    # Kout 300 over inner 256's 8 blocks: 38 outputs per block, past 32
-    assert tmlp.route(2, 128, 256, 300, torch.bfloat16) == "tensor"
+    # Kout 300 over inner 256's 8 blocks (38 outputs per block, past the
+    # kernel's 32) meets the shape's preconditions: on the card the kernel's
+    # plan refuses it and the wrapper takes the tensor cores
+    assert tmlp.route(2, 128, 256, 300, torch.bfloat16) == "stream"
     # M 17 and more never stream
-    assert not tmlp.stream_fits(17, 1024, 4096, 1024, torch.float32)
+    assert not tmlp.stream_fits(17, 1024, 4096, torch.float32)
     # an odd Kout does not fit the tensor route; K 100 in bf16 is no 16-byte row for TMA
     assert tmlp.route(2, 128, 256, 97, torch.float32) == "stream"
     assert tmlp.route(64, 128, 256, 97, torch.float32) is None
     assert tmlp.route(4096, 100, 256, 128, torch.bfloat16) is None
-
-
-@pytest.mark.parametrize("m,dtype,k_split", [(2080, torch.bfloat16, 1), (2050, torch.bfloat16, 1),
-                                             (2080, torch.float32, 3), (64, torch.bfloat16, 8),
-                                             (256, torch.float32, 8)])
-def test_tensor_plan_splits_gemm2_by_waves(m, dtype, k_split):
-    inner, kout = (6144, 1536) if m > 1000 else (4096, 1024)
-    plan = tmlp.tensor_plan(m, inner, kout, dtype)
-    assert plan["k_split"] == k_split
-    assert plan["out_blocks"] == math.ceil(m / ROW_TILE) * math.ceil(kout / plan["out_n"]) * k_split

@@ -546,6 +546,49 @@ def test_glu_mlp_raises_on_what_the_kernel_does_not_take(gen, monkeypatch):
             tmlp.glu_mlp(_rnd(gen, m, 128), w_in.clone().requires_grad_(True), None, w_out)
 
 
+def test_glu_mlp_streams_on_two_streams_at_once(gen):
+    """Streaming launches on two streams at once (each grid 20 blocks, so
+    both are resident together) give the bits each gives alone: each launch
+    meets its own grid barrier."""
+    calls = [_glu_inputs(gen, 2, 256, 640, 200, dtype, True)
+             for dtype in (torch.float32, torch.float32, torch.bfloat16)]
+    assert {tmlp.route(2, 256, 640, 200, c[0].dtype) for c in calls} == {"stream"}
+    with torch.no_grad():
+        alone = [tmlp.glu_mlp(*c) for c in calls]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        outs = [[], []]
+        for _ in range(20):
+            for i, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    outs[i].append([tmlp.glu_mlp(*c) for c in calls[i:i + 2]])
+        torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            assert all(torch.equal(g, a) for g, a in zip(got, alone[i:i + 2]))
+
+
+def test_glu_mlp_takes_the_tensor_cores_where_the_streaming_plan_does_not_fit(gen):
+    """The streaming kernel plans its grid from the card: at the LM's decode
+    128 blocks of 8 outputs; Kout 300 over inner 256's 8 blocks would be 38
+    outputs per block, past its 32, so the plan refuses and the call takes
+    the tensor cores, though `route` names the streaming route by shape."""
+    plan = tmlp.stream_plan(torch.device("cuda", torch.cuda.current_device()), 2, 1024, 4096, 1024,
+                            torch.float32)
+    assert plan is not None and (plan["m_tile"], plan["blocks"], plan["outputs"]) == (2, 128, 8)
+    x, w_in, b_in, w_out = _glu_inputs(gen, 2, 128, 256, 300, torch.bfloat16, True)
+    assert tmlp.route(2, 128, 256, 300, torch.bfloat16) == "stream"
+    assert tmlp.stream_plan(x.device, 2, 128, 256, 300, torch.bfloat16) is None
+    before = _route_counts()
+    with torch.no_grad():
+        got = tmlp.glu_mlp(x, w_in, b_in, w_out)
+    after = _route_counts()
+    assert (after[1] - before[1], after[2] - before[2]) == (0, 1)
+    _close(got, tmlp.glu_mlp_plain(x, w_in, b_in, w_out), 2e-3)
+
+
 def test_tiny_lm_generates_through_k13(gen):
     """A tiny audio LM with the fused MLP switched on generates on the card:
     K13 once per layer and decode_step call (a prefill and one call per
