@@ -394,6 +394,11 @@ K6_RUN_TO_RUN = 1e-6
 EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stats": 1.7254,
               "fused_qkv_rope_attention_backward": 6.7221, "rope_pair_k": 0.0792,
               "pair_long_attention": 6.4190}
+# the bf16 K7's per-call times by [3k] shape before its wgmma/TMA redesign
+# (the mma.sync kernel; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W): printed
+# beside this run's
+EARLIER_BF16_K7_MS = {"BH32 T4096 D64 kv_len None": 0.7587, "BH32 T2048 D64 kv_len None": 0.2046,
+                      "BH32 T1024 D80 kv_len None": 0.0929, "BH48 T8576 D64 kv_len 8449": 4.5652}
 # the end-to-end figures of the phases the redesigns move, from earlier runs
 # (PERF.md §5, chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): printed beside
 # this run's
@@ -1285,7 +1290,9 @@ def flash_bf16_phase(results):
     DiT forward, field sa2_xl_ms), where the fp32 K7 is held against its
     plain version too. Bound: 4 T kv_len D operations per head at the bf16
     (fp32: 3xTF32) rate, or q, out and the valid keys and values once at the
-    memory rate. Library: SDPA on the same heads, K/V cut to kv_len."""
+    memory rate. Library: SDPA on the same heads, K/V cut to kv_len. Each
+    bf16 shape also logs the kernel's time over SDPA's and the name of the
+    device kernel that ran (torch.profiler), which shows the head dim's route."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
@@ -1306,11 +1313,17 @@ def flash_bf16_phase(results):
             q, k, v = (rnd(bh, t, d).to(dt) for _ in range(3))
             kk, vv = k[:, :valid].contiguous(), v[:, :valid].contiguous()
             bound = bound_ms(4 * bh * t * valid * d, nbytes(q, q, kk, vv), peak=peak)
-            report(results, name, label, calls > 0, *compare(
-                name, lambda: flash.flash_forward(q, k, v, kv, save_stats=False)[0],
-                lambda: flash.flash_forward_plain(q, k, v, kv, save_stats=False)[0],
-                library_fn=lambda: sdpa(q[None], kk[None], vv[None])), bound=bound, field=field,
-                extra=f"; SDPA backend {sdpa_backend(q[None], kk[None], vv[None])}")
+            kernel_fn = lambda: flash.flash_forward(q, k, v, kv, save_stats=False)[0]  # noqa: E731
+            got = compare(name, kernel_fn, lambda: flash.flash_forward_plain(
+                q, k, v, kv, save_stats=False)[0], library_fn=lambda: sdpa(q[None], kk[None], vv[None]))
+            report(results, name, label, calls > 0, *got, bound=bound, field=field,
+                   extra=f"; SDPA backend {sdpa_backend(q[None], kk[None], vv[None])}")
+            if dt == torch.bfloat16:  # the device kernel the C entry chose for this head dim
+                route = [n for n in device_profile([kernel_fn])[2] if "bf16_kernel" in n]
+                was = EARLIER_BF16_K7_MS.get(label)
+                log(f"  flash_forward_bf16 {label}: {got[4] / got[6]:.2f}x SDPA's time"
+                    + ("" if was is None else f", was {was:.4f} ms ({was / got[4]:.2f}x)")
+                    + f"; D {d} ran {route}")
             del q, k, v, kk, vv
     r = results["flash_forward_bf16"]
     log(f"  flash_forward_bf16: {r['ms']:.4f} ms per SA 1.0 U-Net forward (14 calls), plain "

@@ -123,63 +123,6 @@ __device__ __forceinline__ void start_pv(float (&o)[32], const uint32_t (&pa)[kN
     wgmma_rs<1>(o, pa[kk], mnmajor_desc(v_tile + kk * 16 * kRowBytes));
 }
 
-// The online base-2 softmax on one score tile in registers (rows g and g + 8
-// of the lane's warp; keys at or past kv_len set to -inf first): updates the
-// running max m and the lane's part of the running sum l, leaves p in sc and
-// returns the rescale factors of the rows' earlier output in a0, a1. Every
-// tile holds a key below kv_len, so the new max is finite and 2^(-inf) = 0
-// takes care of masked keys and of the first tile's m = -inf.
-__device__ __forceinline__ void online_softmax(float (&sc)[kN / 64][32], int k0, int kv_len, int tq,
-                                               float& m0, float& m1, float& l0, float& l1,
-                                               float& a0, float& a1) {
-  constexpr int kChunks = kN / 64;
-  if (k0 + kN > kv_len) {
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if (k0 + c * 64 + 8 * (i >> 2) + 2 * tq + (i & 1) >= kv_len) sc[c][i] = -INFINITY;
-  }
-  float mx0 = m0, mx1 = m1;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sc[c][4 * j], sc[c][4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[c][4 * j + 2], sc[c][4 * j + 3]));
-    }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  a0 = ex2(m0 - mx0);
-  a1 = ex2(m1 - mx1);
-  float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sc[c][4 * j] = ex2(sc[c][4 * j] - mx0);
-      sc[c][4 * j + 1] = ex2(sc[c][4 * j + 1] - mx0);
-      sc[c][4 * j + 2] = ex2(sc[c][4 * j + 2] - mx1);
-      sc[c][4 * j + 3] = ex2(sc[c][4 * j + 3] - mx1);
-      ls0 += sc[c][4 * j] + sc[c][4 * j + 1];
-      ls1 += sc[c][4 * j + 2] + sc[c][4 * j + 3];
-    }
-  l0 = l0 * a0 + ls0;
-  l1 = l1 * a1 + ls1;
-  m0 = mx0;
-  m1 = mx1;
-}
-
-__device__ __forceinline__ void scores_to_a(const float (&sc)[kN / 64][32],
-                                            uint32_t (&pa)[kN / 16][4]) {
-#pragma unroll
-  for (int c = 0; c < kN / 64; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_to_a(sc[c], j, pa[c * 4 + j]);
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 pair_attention_kernel(const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ qkv,

@@ -6,264 +6,360 @@
 // in both of its forms: `_single_dot_kernel` (:121, with `_single_dot_core`
 // :93) for t_k <= 8192 and `_online_kernel` (:146) beyond. Per head:
 //     q' = bf16(fp32(q) * log2(e)/sqrt(D)),  s = q' k^T (fp32, keys >= kv_len masked),
-//     p = exp2(s - rowmax(s)), rounded to bf16 before p v,
-//     out = bf16((p v) / max(l, 1e-30)),  l = rowsum(p) in fp32.
+//     p = exp2(s - m), rounded to bf16 before p v,  l = rowsum(p) in fp32,
+//     out = bf16((p v) / max(l, 1e-30)).
 // Stable Audio 1.0's ADP U-Net in bench.py's bf16 recipe runs it at its
 // gated self-attention (B 2 x 16 heads under CFG: T 4096 and 2048 at D 64, T
 // 1024 at D 80; 14 calls per U-Net forward), and Stable Audio 2.0's DiT past
-// 8192 tokens (8449 padded to 8576 at 392 s) at D 64 with kv_len.
+// 8192 tokens (8449 padded to 8576 at 392 s) at D 64 with kv_len. The TPU
+// kernel takes one whole-row score dot with all of K in VMEM (single dot) or
+// loops over 512-key blocks (online); a Hopper block cannot hold K, and the
+// streaming loop gives the single dot's softmax up to the bf16 rounding of p
+// against a running rather than a final max, so one kernel serves both forms.
 //
-// Design: one block owns a 64-row q tile of one head (four warps of 16 rows)
-// and streams 64-key tiles of K and V through an online base-2 softmax with
-// the running max and sum in fp32 registers. The TPU kernel takes one
-// whole-row score dot with all of K in VMEM (single dot) or loops over 512-key
-// blocks (online); a Hopper block cannot hold K, and the streaming loop gives
-// the single dot's softmax up to the bf16 rounding of p against a running
-// rather than a final max, so one kernel serves both forms. Both products run
-// on the tensor cores as mma.sync m16n8k16 bf16 -> fp32 (FlashAttention-2's
-// register layout): q' stays in registers as A fragments for the whole key
-// loop, the score accumulators become P's A fragments in registers after the
-// softmax (no shared-memory round trip for S or P), and the output
-// accumulators are rescaled in registers, where each lane knows its rows.
-// K and V tiles are double-buffered in shared memory by cp.async (the next
-// tile loads while the current one computes; rows at or past kv_len are
-// zero-filled); V's B fragments come from ldmatrix.trans. Row strides of D + 8
-// bf16 keep the fragment loads free of bank conflicts at D 64 and 80.
-//
-// What bounds it on the H100: the tensor cores. The two products are 4 T^2 D
-// operations per head against 8 T D bytes in and out; at the U-Net's shapes
-// (BH 32) the bound at 989 TFLOP/s is 0.139 ms at T 4096 D 64, 0.0347 ms at
-// T 2048 D 64 and 0.0109 ms at T 1024 D 80 (the bytes take 0.020, 0.010 and
-// 0.006 ms at 3.35 TB/s). mma.sync reaches only part of that rate; wgmma with
-// TMA, FlashAttention-3's shape, is later work.
-#include "common.cuh"
+// What bounds it on the H100: the tensor cores. The two products are 4 T
+// kv_len D operations per head against 8 T D bytes in and out; at the
+// U-Net's shapes (BH 32) the bound at 989 TFLOP/s is 0.139 ms at T 4096 D 64,
+// 0.0347 ms at T 2048 D 64 and 0.0109 ms at T 1024 D 80 (the bytes take
+// 0.020, 0.010 and 0.006 ms at 3.35 TB/s). The mma.sync kernel this replaces
+// reached a fifth of that rate (0.7587 ms at T 4096, 2.1x SDPA); the design
+// here is the head-pair forward's (attention.cu), FlashAttention-3's shape:
+// - A producer warpgroup (one thread at work) streams K and V tiles of kN
+//   keys by TMA (3-D tensor maps over [BH, T, D]: rows at or past T arrive as
+//   zeros and no tile crosses a head) into a ring of kStages stages, each
+//   guarded by a "full" mbarrier (TMA bytes) and an "empty" one (the
+//   consumers' release).
+// - Two consumer warpgroups each own 64 q rows (128 per block). The q tile
+//   is read once, prescaled in fp32, rounded to bf16 and written into
+//   swizzled shared memory: wgmma's A operand for the whole key loop.
+//   S = q' K^T by wgmma into registers, the online base-2 softmax on the
+//   accumulators there (keys at or past kv_len masked only in the tile that
+//   holds kv_len), P rounded to bf16 in registers and fed back as wgmma's
+//   register A operand for P.V, O rescaled in registers. Tile j's score
+//   product is started together with tile j-1's P.V and softmaxed while P.V
+//   still runs, so the exponentials share time with the tensor cores.
+// - Head dim 80: a 160-byte row is not one row of the 128-byte swizzle, so
+//   every tile (q', K, V) is two panels: dims 0-63 under the 128B swizzle and
+//   dims 64-79 as 32-byte rows under the 32B swizzle, each with its own
+//   tensor map. S takes 4 + 1 k-slices, P.V one n64 and one n16 wgmma per
+//   k-slice; nothing is padded, so D 80 does 80/64 of D 64's products.
+// Tiles: kN 128 keys and 3 stages (chosen by pair_attention_variants.py on
+// the card, which times kN 64 and 2-4 stages beside them; PERF.md §6), one
+// block per SM (384 threads at 168 registers each), a plain grid of
+// ceil(T/128) x BH blocks: at T 1024 that is 256 blocks, 1.9 waves on 132
+// SMs, whose tail a persistent schedule would take.
+#include "attention_tiles.cuh"
+
+using namespace fsat_attn;
 
 namespace {
 
-constexpr int kTile = 64;   // q rows of a block; keys of a key tile
-constexpr int kWarps = 4;   // 16 q rows each
-constexpr int kThreads = kWarps * 32;
+constexpr int kConsumers = 2;                     // warpgroups of 64 q rows
+constexpr int kM = 64 * kConsumers;               // q rows per block
+constexpr int kThreads = (kConsumers + 1) * 128;  // + one producer warpgroup
+constexpr int kN = 128;                           // keys per pipeline stage
+constexpr int kStages = 3;
+constexpr int kChunks = kN / 64;                  // 64-key column blocks of a score tile
+constexpr bool kPingPong = true;    // the consumer warpgroups issue their products in turns
+constexpr bool kScoresN128 = false;  // S as m64n128 products (kN 128) instead of two m64n64
+constexpr int kTurnBarrier = 3;      // named barriers 3, 4: the warpgroups' turns
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half: the lower column
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// c += a b, m16n8k16, a row-major bf16 (4 registers), b column-major bf16 (2), c fp32 (4)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// d (+)= A B, m64n128k16 from shared memory, the accumulator as two m64n64
+// halves (keys 0-63 in d0, 64-127 in d1: the same registers in order).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FSAT_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FSAT_OUT16(d0, 0), FSAT_OUT16(d0, 16), FSAT_OUT16(d1, 0), FSAT_OUT16(d1, 16)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Four transposed 8x8 bf16 matrices from shared memory: lane i gives the
-// address of row i % 8 of matrix i / 8; register j receives, for lane l,
-// matrix j's elements (row 2 (l % 4) and 2 (l % 4) + 1, column l / 4).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
-// then not read).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {  // all but the newest group complete
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Starts the copy of rows [k0, k0 + 64) of one head's [T, D] tensor into
-// dst [64][D + 8]; rows at or past `limit` are zero.
+// A block's shared memory at head dim D: q', then the K ring, then the V
+// ring, each tile as a 64-dim panel of 128-byte rows and (D 80) a 16-dim
+// panel of 32-byte rows right after it; then the mbarriers.
 template <int D>
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, int k0, int limit,
-                                           bf16* dst) {
-  constexpr int kSeg = D / 8;
-  for (int i = threadIdx.x; i < kTile * kSeg; i += kThreads) {
-    const int r = i / kSeg, seg = i % kSeg;
-    const bool valid = k0 + r < limit;
-    cp_async16(dst + r * (D + 8) + seg * 8, src + (size_t)(valid ? k0 + r : 0) * D + seg * 8,
-               valid);
+struct Layout {
+  static constexpr int kTail = D - kD;   // dims in the second panel: 0 or 16
+  static constexpr int kTailRow = 2 * kTail;  // its row bytes
+  static constexpr int kQBytes = kM * (kRowBytes + kTailRow);
+  static constexpr int kTileBytes = kN * (kRowBytes + kTailRow);  // one K or V stage
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + 2 * (size_t)kStages * kTileBytes + 2 * kStages * sizeof(uint64_t);
+  static_assert(kTail == 0 || kTail == 16, "head dim 64 or 80");
+  static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0, "panels on the swizzle atom");
+};
+
+// Rows [r0, r0 + 64) of one head's q, prescaled in fp32 and rounded to bf16
+// into the warpgroup's swizzled panels (qa: dims 0-63, qt: dims 64-79);
+// rows at or past T are zero. All loads are started before any is used.
+template <int D>
+__device__ __forceinline__ void prescale_q_tile(const bf16* __restrict__ qh, unsigned char* qa,
+                                                unsigned char* qt, int r0, int T, float prescale,
+                                                int tid) {
+  constexpr int kSeg = D / 8;  // 16-byte chunks per row
+  constexpr int kIters = 64 * kSeg / 128;
+  Pack8 in[kIters];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = tid + it * 128, r = i / kSeg, seg = i % kSeg;
+    in[it].u = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < T) in[it].u = *reinterpret_cast<const uint4*>(qh + (size_t)(r0 + r) * D + seg * 8);
+  }
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = tid + it * 128, r = i / kSeg, seg = i % kSeg;
+    Pack8 res;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      res.h[j] = __float2bfloat16_rn(__bfloat162float(in[it].h[j]) * prescale);
+    unsigned char* dst = seg < 8 ? qa + sw128_offset(r, seg) : qt + sw32_offset(r, seg - 8);
+    *reinterpret_cast<uint4*>(dst) = res.u;
   }
 }
 
-// Two bf16 of row `row` at columns (c, c + 1), prescaled in fp32 and rounded
-// to bf16 (the kernel's q'), packed; zero past T.
-__device__ __forceinline__ uint32_t q_pair(const bf16* __restrict__ qh, int row, int T, int D,
-                                           int c, float prescale) {
-  if (row >= T) return 0u;
-  const float2 x =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qh + (size_t)row * D + c));
-  return pack_bf16(x.x * prescale, x.y * prescale);
+// S = q' K^T for the warpgroup's 64 rows and the kN keys of one stage.
+template <int D>
+__device__ __forceinline__ void start_scores(float (&sc)[kChunks][32], uint32_t qa, uint32_t qt,
+                                             uint32_t k_tile) {
+  if constexpr (kScoresN128) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n128(sc[0], sc[1], kmajor_desc(qa + kk * 32), kmajor_desc(k_tile + kk * 32), kk > 0);
+    if constexpr (Layout<D>::kTail > 0)
+      wgmma_ss_n128(sc[0], sc[1], kmajor32_desc(qt), kmajor32_desc(k_tile + kN * kRowBytes), 1);
+    return;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      wgmma_ss<0, 0>(sc[c], kmajor_desc(qa + kk * 32),
+                     kmajor_desc(k_tile + c * 64 * kRowBytes + kk * 32), kk > 0);
+  if constexpr (Layout<D>::kTail > 0) {
+    const uint32_t k_tail = k_tile + kN * kRowBytes;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      wgmma_ss<0, 0>(sc[c], kmajor32_desc(qt), kmajor32_desc(k_tail + c * 64 * 32), 1);
+  }
 }
 
+// O += bf16(P) V: P from registers, V's panels MN-major (keys along K).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_forward_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ out, int T, int kv_len,
-                          float prescale) {
-  constexpr int LD = D + 8;   // shared row stride (bf16)
-  constexpr int KS = D / 16;  // k-steps of the score product
-  constexpr int NT = D / 8;   // 8-wide column tiles of the output
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [2][64][LD]
-  bf16* Vs = Ks + 2 * kTile * LD;            // [2][64][LD]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;  // fragment row group, column pair
-  const size_t head = (size_t)blockIdx.y * T * D;
-  const bf16* kh = k + head;
-  const bf16* vh = v + head;
-  const int n_tiles = (kv_len + kTile - 1) / kTile;
-
-  stage_tile<D>(kh, 0, kv_len, Ks);
-  stage_tile<D>(vh, 0, kv_len, Vs);
-  cp_async_commit();
-
-  // this lane's rows of the q tile, and q' as A fragments
-  const int r0 = blockIdx.x * kTile + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[KS][4];
+__device__ __forceinline__ void start_pv(float (&o)[32], float (&ot)[8],
+                                         const uint32_t (&pa)[kN / 16][4], uint32_t v_tile) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int c = ks * 16 + 2 * tig;
-    qa[ks][0] = q_pair(q + head, r0, T, D, c, prescale);
-    qa[ks][1] = q_pair(q + head, r1, T, D, c, prescale);
-    qa[ks][2] = q_pair(q + head, r0, T, D, c + 8, prescale);
-    qa[ks][3] = q_pair(q + head, r1, T, D, c + 8, prescale);
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    wgmma_rs<1>(o, pa[kk], mnmajor_desc(v_tile + kk * 16 * kRowBytes));
+    if constexpr (Layout<D>::kTail > 0)
+      wgmma_rs16<1>(ot, pa[kk], mnmajor32_desc(v_tile + kN * kRowBytes + kk * 16 * 32));
   }
+}
 
-  float o[NT][4];
+// Keeps the output accumulators (ot only at D 80) in place across a wgmma.
+template <int D>
+__device__ __forceinline__ void fence_out(float (&o)[32], float (&ot)[8]) {
+  reg_fence(o);
+  if constexpr (Layout<D>::kTail > 0) reg_fence(ot);
+}
+
+// Rescales the output rows g (by a0) and g + 8 (by a1) of the lane's warp.
+template <int D>
+__device__ __forceinline__ void rescale_out(float (&o)[32], float (&ot)[8], float a0, float a1) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows r0, r1
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_tiles) {
-      stage_tile<D>(kh, (kt + 1) * kTile, kv_len, Ks + (buf ^ 1) * kTile * LD);
-      stage_tile<D>(vh, (kt + 1) * kTile, kv_len, Vs + (buf ^ 1) * kTile * LD);
+  for (int j = 0; j < 8; ++j) {
+    o[4 * j] *= a0;
+    o[4 * j + 1] *= a0;
+    o[4 * j + 2] *= a1;
+    o[4 * j + 3] *= a1;
+  }
+  if constexpr (Layout<D>::kTail > 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ot[4 * j] *= a0;
+      ot[4 * j + 1] *= a0;
+      ot[4 * j + 2] *= a1;
+      ot[4 * j + 3] *= a1;
     }
-    cp_async_commit();  // possibly empty: the wait below then always leaves one group
-    cp_async_wait_prev();
-    __syncthreads();
-    const bf16* Kt = Ks + buf * kTile * LD;
-    const bf16* Vt = Vs + buf * kTile * LD;
+  }
+}
 
-    // S = q' K^T: the warp's 16 rows x 64 keys, 8 column tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* kp = Kt + (j * 8 + g) * LD + ks * 16 + 2 * tig;
-        mma_bf16(s[j], qa[ks], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ CUtensorMap ktail, const __grid_constant__ CUtensorMap vtail,
+                  const bf16* __restrict__ q, bf16* __restrict__ out, int T, int kv_len,
+                  float prescale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Qs = smem;                        // [kM][128 B], then (D 80) [kM][32 B]
+  unsigned char* Ks = Qs + L::kQBytes;             // [kStages] x ([kN][128 B], [kN][32 B])
+  unsigned char* Vs = Ks + kStages * L::kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kStages * L::kTileBytes);
+  uint64_t* empty = full + kStages;
+
+  const int q0 = blockIdx.x * kM, bh = blockIdx.y;
+  const int n_tiles = (kv_len + kN - 1) / kN;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // producer warpgroup: one thread starts the loads
+    if (threadIdx.x == kConsumers * 128) {
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) + 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+        unsigned char* kd = Ks + s * L::kTileBytes;
+        unsigned char* vd = Vs + s * L::kTileBytes;
+        tma_load_3d(kd, &kmap, &full[s], 0, kt * kN, bh);
+        tma_load_3d(vd, &vmap, &full[s], 0, kt * kN, bh);
+        if constexpr (L::kTail > 0) {
+          tma_load_3d(kd + kN * kRowBytes, &ktail, &full[s], kD, kt * kN, bh);
+          tma_load_3d(vd + kN * kRowBytes, &vtail, &full[s], kD, kt * kN, bh);
+        }
       }
     }
-    const int k0 = kt * kTile;
-    if (k0 + kTile > kv_len) {
+  } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 64
+    const int tid = threadIdx.x & 127, warp = tid >> 5;
+    const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+    unsigned char* Qa = Qs + wg * 64 * kRowBytes;
+    unsigned char* Qt = Qs + kM * kRowBytes + wg * 64 * L::kTailRow;
+    prescale_q_tile<D>(q + (size_t)bh * T * D, Qa, Qt, q0 + wg * 64, T, prescale, tid);
+    fence_proxy_async();
+    bar_sync(1 + wg, 128);
+    // turns: a warpgroup starts its products after the other one started its
+    // own (warpgroup 0 first), so one softmaxes while the other's run
+    auto my_turn = [&] {
+      if constexpr (kPingPong) bar_sync(kTurnBarrier + wg, 256);
+    };
+    auto pass_turn = [&] {
+      if constexpr (kPingPong) bar_arrive(kTurnBarrier + 1 - wg, 256);
+    };
+    if (wg == 1) pass_turn();
+
+    const uint32_t qa = smem_u32(Qa), qt = smem_u32(Qt);
+    const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+    float o[32], ot[8];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ot[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g, g + 8 (lane's part of l)
+    float a0, a1;
+    float sc[kChunks][32];
+    uint32_t pa[kN / 16][4];
+
+    // Tile kt's scores are computed while tile kt - 1's P.V runs: both
+    // products are started, the scores waited for and softmaxed while P.V
+    // still runs on the tensor cores, then P.V waited for and O rescaled.
+    mbar_wait(&full[0], 0);
+    my_turn();
+    wgmma_fence();
+    start_scores<D>(sc, qa, qt, k_addr);
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) reg_fence(sc[c]);
+    online_softmax(sc, 0, kv_len, tq, m0, m1, l0, l1, a0, a1);
+    scores_to_a(sc, pa);
+    for (int kt = 1; kt < n_tiles; ++kt) {
+      const int s = kt % kStages, sp = (kt - 1) % kStages;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      my_turn();
+      fence_out<D>(o, ot);
+      wgmma_fence();
+      start_scores<D>(sc, qa, qt, k_addr + s * L::kTileBytes);
+      wgmma_commit();
+      start_pv<D>(o, ot, pa, v_addr + sp * L::kTileBytes);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<1>();  // the scores
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) reg_fence(sc[c]);
+      online_softmax(sc, kt * kN, kv_len, tq, m0, m1, l0, l1, a0, a1);
+      wgmma_wait<0>();  // the previous tile's P.V
+      fence_out<D>(o, ot);
+      mbar_arrive(&empty[sp]);
+      rescale_out<D>(o, ot, a0, a1);
+      scores_to_a(sc, pa);
+    }
+    my_turn();
+    fence_out<D>(o, ot);
+    wgmma_fence();
+    start_pv<D>(o, ot, pa, v_addr + ((n_tiles - 1) % kStages) * L::kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_out<D>(o, ot);
+    if (wg == 0) pass_turn();  // warpgroup 1's last turn (its own last pass has no taker)
+    mbar_arrive(&empty[(n_tiles - 1) % kStages]);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const int t0 = q0 + wg * 64 + warp * 16 + g, t1 = t0 + 8;
+    bf16* oh = out + (size_t)bh * T * D + 2 * tq;
+    if (t0 < T) {
+      bf16* dst = oh + (size_t)t0 * D;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+      if constexpr (L::kTail > 0) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + j * 8 + 2 * tig + (e & 1) >= kv_len) s[j][e] = -INFINITY;
-    }
-
-    // online base-2 softmax: elements 0, 1 are row r0, 2, 3 row r1; the four
-    // lanes of a quad share a row
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float alpha[2], ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = (m_new == -INFINITY) ? 1.f : exp2f(m[h] - m_new);
-      m[h] = m_new;
-    }
-    uint32_t pa[4][4];  // P as A fragments: k-step kk covers keys 16 kk .. 16 kk + 15
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = (s[j][e] == -INFINITY) ? 0.f : exp2f(s[j][e] - m[e >> 1]);
-        ls[e >> 1] += p[e];
-      }
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ls[h] += __shfl_xor_sync(0xffffffffu, ls[h], 1);
-      ls[h] += __shfl_xor_sync(0xffffffffu, ls[h], 2);
-      l[h] = l[h] * alpha[h] + ls[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      o[nt][0] *= alpha[0];
-      o[nt][1] *= alpha[0];
-      o[nt][2] *= alpha[1];
-      o[nt][3] *= alpha[1];
-    }
-
-    // O += P V: V's B fragments for two column tiles per ldmatrix
-    const int mat = lane >> 3, mrow = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vt + (kk * 16 + (mat & 1) * 8 + mrow) * LD + (nt + (mat >> 1)) * 8);
-        mma_bf16(o[nt], pa[kk], b[0], b[1]);
-        mma_bf16(o[nt + 1], pa[kk], b[2], b[3]);
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<uint32_t*>(dst + kD + 8 * j) =
+              pack_bf16(ot[4 * j] / d0, ot[4 * j + 1] / d0);
       }
     }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-
-  const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
-  bf16* oh = out + head;
+    if (t1 < T) {
+      bf16* dst = oh + (size_t)t1 * D;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = nt * 8 + 2 * tig;
-    if (r0 < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r0 * D + c) =
-          pack_bf16(o[nt][0] / den0, o[nt][1] / den0);
-    if (r1 < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r1 * D + c) =
-          pack_bf16(o[nt][2] / den1, o[nt][3] / den1);
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      if constexpr (L::kTail > 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<uint32_t*>(dst + kD + 8 * j) =
+              pack_bf16(ot[4 * j + 2] / d1, ot[4 * j + 3] / d1);
+      }
+    }
   }
 }
 
 template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T, int kv_len,
            float prescale, cudaStream_t st) {
-  const size_t smem = (size_t)4 * kTile * (D + 8) * sizeof(bf16);
-  cudaError_t err = allow_smem(flash_forward_bf16_kernel<D>, smem);
+  CUtensorMap kmap, vmap, ktail, vtail;
+  cudaError_t err = head_rows_map(&kmap, k, D, T, BH, kN);
+  if (err == cudaSuccess) err = head_rows_map(&vmap, v, D, T, BH, kN);
+  if (D > kD) {
+    if (err == cudaSuccess) err = head_tail_map(&ktail, k, D, T, BH, kN);
+    if (err == cudaSuccess) err = head_tail_map(&vtail, v, D, T, BH, kN);
+  } else {  // unread at D 64
+    ktail = kmap;
+    vtail = vmap;
+  }
+  if (err == cudaSuccess) err = allow_smem(flash_bf16_kernel<D>, Layout<D>::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kTile - 1) / kTile, BH);
-  flash_forward_bf16_kernel<D><<<grid, kThreads, smem, st>>>(q, k, v, out, T, kv_len, prescale);
+  const dim3 grid((T + kM - 1) / kM, BH);
+  flash_bf16_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(kmap, vmap, ktail, vtail, q,
+                                                                      out, T, kv_len, prescale);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the wgmma/TMA kernels (attention.cu,
-// attention_bwd.cu, conv_wgmma.cu, glu_mlp.cu): mbarriers, TMA loads into
-// mbarrier-guarded shared memory, warpgroup matrix products (wgmma) on
-// 128B-swizzled tiles, and the host-side tensor maps. A tile row is 128
-// bytes (64 bf16 or 32 fp32), exactly one row of the 128-byte swizzle, so a
-// TMA load with CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the layout wgmma
-// reads.
+// attention_bwd.cu, flash_attention_bf16.cu, conv_wgmma.cu, glu_mlp.cu):
+// mbarriers, TMA loads into mbarrier-guarded shared memory, warpgroup matrix
+// products (wgmma) on swizzled tiles, and the host-side tensor maps. A tile
+// row is 128 bytes (64 bf16 or 32 fp32), exactly one row of the 128-byte
+// swizzle, so a TMA load with CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the
+// layout wgmma reads; the 16 columns past 64 of a head dim of 80 are a
+// second panel of 32-byte rows under the 32-byte swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encode is reached through the runtime
@@ -112,6 +113,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The same for a 32B-swizzled tile (32-byte rows: 16 bf16; 256-byte aligned
+// atoms of 8 rows): layout type 3 in bits 62-63 where the 128B swizzle has 1.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return sw128_desc(addr, lbo, sbo) | (3ull << 62);
+}
+
 // K-major tile of 128-byte rows: 8-row groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 16, 1024);
@@ -184,13 +191,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 128B-swizzled map over a row-major [d2, d1, d0] tensor (d0 contiguous,
+// A swizzled map over a row-major [d2, d1, d0] tensor (d0 contiguous,
 // `elem` bytes each) whose boxes are [1, box1, box0]; coordinates (i0, i1,
 // i2); elements outside the tensor read as zeros, and no box crosses into
-// the next d2 slice. d0 * elem must be a multiple of 16 and box0 * elem 128.
-inline cudaError_t sw128_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
-                                const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-                                uint32_t box0, uint32_t box1) {
+// the next d2 slice. d0 * elem must be a multiple of 16 and box0 * elem the
+// swizzle's row: 128 bytes (SWIZZLE_128B) or 32 (SWIZZLE_32B).
+inline cudaError_t swizzled_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
+                                   const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                                   uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {d0, d1, d2};
@@ -198,9 +206,17 @@ inline cudaError_t sw128_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, int
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(map, dtype, 3, const_cast<void*>(base), dims, strides, box, step,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// swizzled_map_3d with the 128B swizzle: box0 * elem = 128.
+inline cudaError_t sw128_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, int elem,
+                                const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                                uint32_t box0, uint32_t box1) {
+  return swizzled_map_3d(map, dtype, elem, base, d0, d1, d2, box0, box1,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // An unswizzled map over a row-major [d1, d0] tensor (d0 contiguous, `elem`

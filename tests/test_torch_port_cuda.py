@@ -185,11 +185,19 @@ def test_attention_beyond_the_long_path_raises_on_cuda(gen):
                                        rotary_freqs(8193, 32, device="cuda"), 1)
 
 
-@pytest.mark.parametrize("bh,t,d,kv", [(3, 300, 80, 290), (2, 1024, 64, None), (2, 77, 64, None),
-                                       (1, 8576, 64, 8449)])
+@pytest.mark.parametrize("bh,t,d,kv", [
+    (3, 300, 80, 290), (2, 1024, 64, None), (2, 77, 64, None), (1, 8576, 64, 8449),
+    (2, 4096, 64, None), (2, 1024, 80, None),  # the U-Net's levels, two heads
+    (2, 16, 64, None), (2, 16, 80, None),  # fewer rows than one warpgroup
+    (2, 129, 64, None), (2, 129, 80, None),  # one key past a 128-key tile
+    (2, 200, 64, 1), (2, 200, 80, 1),  # one valid key
+    (2, 300, 64, 192), (2, 300, 80, 192),  # kv_len in the middle of a tile
+    (2, 8576, 80, 8449)])
 def test_flash_forward_bf16_matches_plain(gen, bh, t, d, kv):
-    """K7 in bf16 (serving) against its plain version: one launch of its own
-    counter, bf16 out, rel-L2 1e-2; with its LSE, or causal, it raises."""
+    """K7 in bf16 (serving) against its plain version at ragged T and kv_len
+    around its 128-row q tiles and 128-key tiles, at head dims 64 and 80:
+    one launch of its own counter, bf16 out, rel-L2 1e-2; with its LSE, or
+    causal, it raises."""
     q, k, v = (_rnd(gen, bh, t, d).to(torch.bfloat16) for _ in range(3))
     before = (tflash.serving_bf16_launches, tflash.serving_launches)
     out, lse = tflash.flash_forward(q, k, v, kv, save_stats=False)
