@@ -81,7 +81,9 @@ Phases (any failure raises and the script exits non-zero):
    x 16 heads: T 4096 and 2048 at head dim 64, T 1024 at head dim 80), at a
    ragged T 300 with kv_len 290, and at SA 2.0's DiT past 8192 tokens (B 2 x
    24 heads, T 8576, kv_len 8449; the fp32 K7 there too), with SDPA's bf16
-   time; the bf16 K2 and K4 at every shape of the DAC decode (26 and 4
+   time, each bf16 shape's ratio to it beside the earlier kernel's time
+   (`EARLIER_BF16_K7_MS`) and the device kernel that ran (its head dim's
+   route); the bf16 K2 and K4 at every shape of the DAC decode (26 and 4
    calls, K4 at Cout 768, 384, 192 and 96);
 4. the Oobleck VAE in fp32 (an encode of 2 x 2,097,152 samples and a short
    decode) with the fp32 kernels against the fp32 plain versions; then, in
@@ -397,6 +399,10 @@ EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stat
 # the bf16 K7's per-call times by [3k] shape before its wgmma/TMA redesign
 # (the mma.sync kernel; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W): printed
 # beside this run's
+# calls per timing in [3k]: at 3, the host's time between calls showed in the
+# smaller shapes' times (T 1024 D 80: 0.0625 ms against 0.0294 ms of device
+# time under torch.profiler; NVIDIA H100 80GB HBM3, 700 W)
+BF16_K7_REPS = 10
 EARLIER_BF16_K7_MS = {"BH32 T4096 D64 kv_len None": 0.7587, "BH32 T2048 D64 kv_len None": 0.2046,
                       "BH32 T1024 D80 kv_len None": 0.0929, "BH48 T8576 D64 kv_len 8449": 4.5652}
 # the end-to-end figures of the phases the redesigns move, from earlier runs
@@ -1315,7 +1321,8 @@ def flash_bf16_phase(results):
             bound = bound_ms(4 * bh * t * valid * d, nbytes(q, q, kk, vv), peak=peak)
             kernel_fn = lambda: flash.flash_forward(q, k, v, kv, save_stats=False)[0]  # noqa: E731
             got = compare(name, kernel_fn, lambda: flash.flash_forward_plain(
-                q, k, v, kv, save_stats=False)[0], library_fn=lambda: sdpa(q[None], kk[None], vv[None]))
+                q, k, v, kv, save_stats=False)[0], reps=BF16_K7_REPS,
+                library_fn=lambda: sdpa(q[None], kk[None], vv[None]))
             report(results, name, label, calls > 0, *got, bound=bound, field=field,
                    extra=f"; SDPA backend {sdpa_backend(q[None], kk[None], vv[None])}")
             if dt == torch.bfloat16:  # the device kernel the C entry chose for this head dim

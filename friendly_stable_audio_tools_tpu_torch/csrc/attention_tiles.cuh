@@ -1,7 +1,7 @@
 // Hopper building blocks of the attention kernels (attention.cu: K1/K5/K10,
 // attention_bwd.cu: K6, flash_attention_bf16.cu: the bf16 K7) on top of the
 // shared ones in hopper.cuh: the head-row tiles, the bulk reduce-add of an
-// fp32 tile into device memory, the m64n64 (and m64n16) bf16 wgmma forms and
+// fp32 tile into device memory, the m64n64 (m64n128, m64n16) bf16 wgmma forms and
 // the online softmax on score accumulators. A tile row is one head's first
 // 64 bf16 dims: 128 bytes, exactly one row of the 128-byte swizzle, so a TMA
 // load with CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the layout wgmma
@@ -85,6 +85,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : FSAT_WGMMA_OUT32(d)
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (+)= A B, m64n128k16 from shared memory, both operands K-major; the
+// accumulator as two m64n64 halves (columns 0-63 in d0, 64-127 in d1: the
+// registers of one m64n128 accumulator in order).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FSAT_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FSAT_OUT16(d0, 0), FSAT_OUT16(d0, 16), FSAT_OUT16(d1, 0), FSAT_OUT16(d1, 16)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d += A B, m64n64k16, A from registers (a[0..3]: rows g / g + 8, columns

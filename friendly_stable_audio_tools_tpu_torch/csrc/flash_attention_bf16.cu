@@ -32,22 +32,30 @@
 // - Two consumer warpgroups each own 64 q rows (128 per block). The q tile
 //   is read once, prescaled in fp32, rounded to bf16 and written into
 //   swizzled shared memory: wgmma's A operand for the whole key loop.
-//   S = q' K^T by wgmma into registers, the online base-2 softmax on the
-//   accumulators there (keys at or past kv_len masked only in the tile that
-//   holds kv_len), P rounded to bf16 in registers and fed back as wgmma's
-//   register A operand for P.V, O rescaled in registers. Tile j's score
-//   product is started together with tile j-1's P.V and softmaxed while P.V
-//   still runs, so the exponentials share time with the tensor cores.
+//   S = q' K^T by wgmma into registers (one m64n128 product per k-slice),
+//   the online base-2 softmax on the accumulators there (keys at or past
+//   kv_len masked only in the tile that holds kv_len), P rounded to bf16 in
+//   registers and fed back as wgmma's register A operand for P.V, O
+//   rescaled in registers. Tile j's score product is started together with
+//   tile j-1's P.V and softmaxed while P.V still runs, and the two
+//   warpgroups start their products in turns (two named barriers), so one
+//   warpgroup's exponentials run while the other's products hold the
+//   tensor cores (FlashAttention-3's intra- and inter-warpgroup overlap).
 // - Head dim 80: a 160-byte row is not one row of the 128-byte swizzle, so
 //   every tile (q', K, V) is two panels: dims 0-63 under the 128B swizzle and
 //   dims 64-79 as 32-byte rows under the 32B swizzle, each with its own
 //   tensor map. S takes 4 + 1 k-slices, P.V one n64 and one n16 wgmma per
 //   k-slice; nothing is padded, so D 80 does 80/64 of D 64's products.
-// Tiles: kN 128 keys and 3 stages (chosen by pair_attention_variants.py on
-// the card, which times kN 64 and 2-4 stages beside them; PERF.md §6), one
-// block per SM (384 threads at 168 registers each), a plain grid of
-// ceil(T/128) x BH blocks: at T 1024 that is 256 blocks, 1.9 waves on 132
-// SMs, whose tail a persistent schedule would take.
+// Tiles: kN 128 keys and 3 stages, the turns, and S as m64n128 products
+// rather than two m64n64 (pair_attention_variants.py on the card times kN 64,
+// 2 and 4 stages and the warpgroups without turns beside them; PERF.md §6);
+// one block per SM (384 threads: ptxas allows 168 registers each and uses
+// ~160), a plain grid of ceil(T/128) x BH blocks: at T 1024 that is 256
+// blocks, 1.9 waves on 132 SMs, whose tail a persistent schedule would take.
+// What bounds it now: each score takes an ex2 on the special-function units
+// (16 per SM and clock: 1/16 clock, as long as its 4 D = 256 product
+// operations take on the tensor cores at D 64), and the two overlap only in
+// part.
 #include "attention_tiles.cuh"
 
 using namespace fsat_attn;
@@ -60,25 +68,8 @@ constexpr int kThreads = (kConsumers + 1) * 128;  // + one producer warpgroup
 constexpr int kN = 128;                           // keys per pipeline stage
 constexpr int kStages = 3;
 constexpr int kChunks = kN / 64;                  // 64-key column blocks of a score tile
-constexpr bool kPingPong = true;    // the consumer warpgroups issue their products in turns
-constexpr bool kScoresN128 = false;  // S as m64n128 products (kN 128) instead of two m64n64
-constexpr int kTurnBarrier = 3;      // named barriers 3, 4: the warpgroups' turns
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// d (+)= A B, m64n128k16 from shared memory, the accumulator as two m64n64
-// halves (keys 0-63 in d0, 64-127 in d1: the same registers in order).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FSAT_WGMMA_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FSAT_OUT16(d0, 0), FSAT_OUT16(d0, 16), FSAT_OUT16(d1, 0), FSAT_OUT16(d1, 16)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+constexpr bool kTurns = true;    // the consumer warpgroups start their products in turns
+constexpr int kTurnBarrier = 3;  // named barriers 3, 4: the warpgroups' turns
 
 // A block's shared memory at head dim D: q', then the K ring, then the V
 // ring, each tile as a 64-dim panel of 128-byte rows and (D 80) a 16-dim
@@ -123,30 +114,25 @@ __device__ __forceinline__ void prescale_q_tile(const bf16* __restrict__ qh, uns
   }
 }
 
-// S = q' K^T for the warpgroup's 64 rows and the kN keys of one stage.
+// One k-slice of the scores: an m64nkN product (two m64n64 halves at kN 128).
+__device__ __forceinline__ void score_slice(float (&sc)[kChunks][32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  if constexpr (kChunks == 2)
+    wgmma_ss_n128(sc[0], sc[1], da, db, accumulate);
+  else
+    wgmma_ss<0, 0>(sc[0], da, db, accumulate);
+}
+
+// S = q' K^T for the warpgroup's 64 rows and the kN keys of one stage: the
+// first panel's four k-slices, then (D 80) the second panel's one.
 template <int D>
 __device__ __forceinline__ void start_scores(float (&sc)[kChunks][32], uint32_t qa, uint32_t qt,
                                              uint32_t k_tile) {
-  if constexpr (kScoresN128) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n128(sc[0], sc[1], kmajor_desc(qa + kk * 32), kmajor_desc(k_tile + kk * 32), kk > 0);
-    if constexpr (Layout<D>::kTail > 0)
-      wgmma_ss_n128(sc[0], sc[1], kmajor32_desc(qt), kmajor32_desc(k_tile + kN * kRowBytes), 1);
-    return;
-  }
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-      wgmma_ss<0, 0>(sc[c], kmajor_desc(qa + kk * 32),
-                     kmajor_desc(k_tile + c * 64 * kRowBytes + kk * 32), kk > 0);
-  if constexpr (Layout<D>::kTail > 0) {
-    const uint32_t k_tail = k_tile + kN * kRowBytes;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-      wgmma_ss<0, 0>(sc[c], kmajor32_desc(qt), kmajor32_desc(k_tail + c * 64 * 32), 1);
-  }
+    score_slice(sc, kmajor_desc(qa + kk * 32), kmajor_desc(k_tile + kk * 32), kk > 0);
+  if constexpr (Layout<D>::kTail > 0)
+    score_slice(sc, kmajor32_desc(qt), kmajor32_desc(k_tile + kN * kRowBytes), 1);
 }
 
 // O += bf16(P) V: P from registers, V's panels MN-major (keys along K).
@@ -191,7 +177,7 @@ __device__ __forceinline__ void rescale_out(float (&o)[32], float (&ot)[8], floa
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bf16_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                   const __grid_constant__ CUtensorMap ktail, const __grid_constant__ CUtensorMap vtail,
                   const bf16* __restrict__ q, bf16* __restrict__ out, int T, int kv_len,
                   float prescale) {
@@ -243,10 +229,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constan
     // turns: a warpgroup starts its products after the other one started its
     // own (warpgroup 0 first), so one softmaxes while the other's run
     auto my_turn = [&] {
-      if constexpr (kPingPong) bar_sync(kTurnBarrier + wg, 256);
+      if constexpr (kTurns) bar_sync(kTurnBarrier + wg, 256);
     };
     auto pass_turn = [&] {
-      if constexpr (kPingPong) bar_arrive(kTurnBarrier + 1 - wg, 256);
+      if constexpr (kTurns) bar_arrive(kTurnBarrier + 1 - wg, 256);
     };
     if (wg == 1) pass_turn();
 
@@ -355,10 +341,10 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T
     ktail = kmap;
     vtail = vmap;
   }
-  if (err == cudaSuccess) err = allow_smem(flash_bf16_kernel<D>, Layout<D>::kSmemBytes);
+  if (err == cudaSuccess) err = allow_smem(flash_forward_bf16_kernel<D>, Layout<D>::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + kM - 1) / kM, BH);
-  flash_bf16_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(kmap, vmap, ktail, vtail, q,
+  flash_forward_bf16_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(kmap, vmap, ktail, vtail, q,
                                                                       out, T, kv_len, prescale);
   return (int)cudaGetLastError();
 }

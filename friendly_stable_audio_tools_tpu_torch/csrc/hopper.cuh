@@ -77,6 +77,11 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// bar.arrive on named barrier `id`: counts this warp towards n without waiting.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ---- TMA --------------------------------------------------------------------
 
 // Box (c0, c1, c2) of a 3-D tensor map into dst, completion counted on bar.

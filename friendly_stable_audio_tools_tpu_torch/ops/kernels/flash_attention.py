@@ -73,8 +73,9 @@ ops/kernels/attention.py). It computes what ``_single_dot_kernel`` computes
 on bf16 inputs (q prescaled in fp32 and rounded to bf16, scores and the
 softmax in fp32, P rounded to bf16 before P.V, the output rounded once) and
 what ``_online_kernel`` computes beyond 8192 keys: both are one streaming
-loop here, the fp32 K7 likewise. Its products run on the tensor cores
-(mma.sync bf16 with fp32 accumulation).
+loop here, the fp32 K7 likewise. Its products run on the tensor cores as
+wgmma on K/V tiles that a producer warpgroup streams in by TMA (the head-pair
+forward's design; at head dim 80 each tile is a 64-dim and a 16-dim panel).
 
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
 the kernels or raise. The CUDA kernels take q, k and v of one length; K7

@@ -16,10 +16,8 @@ into a library of its own:
   timing only);
 * ``bf16_keys64``, ``bf16_stages2``, ``bf16_stages4``: the bf16 K7 with 64
   keys per stage, or 2 or 4 stages instead of 3;
-* ``bf16_turns_off``: the bf16 K7's consumer warpgroups issuing their
-  products freely instead of in turns;
-* ``bf16_scores_n128``: its scores as one m64n128 product per k-slice
-  instead of two m64n64.
+* ``bf16_turns_off``: the bf16 K7's consumer warpgroups starting their
+  products freely instead of in turns.
 
 ``--parent CHECKOUT`` adds the bf16 K7 built from another checkout's
 csrc/flash_attention_bf16.cu (e.g. the parent commit unpacked by ``git
@@ -62,10 +60,8 @@ VARIANTS = {
     "bf16_keys64": (BF16_SOURCE, [("constexpr int kN = 128;", "constexpr int kN = 64;")]),
     "bf16_stages2": (BF16_SOURCE, [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
     "bf16_stages4": (BF16_SOURCE, [("constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
-    "bf16_turns_off": (BF16_SOURCE, [("constexpr bool kPingPong = true;",
-                                      "constexpr bool kPingPong = false;")]),
-    "bf16_scores_n128": (BF16_SOURCE, [("constexpr bool kScoresN128 = false;",
-                                        "constexpr bool kScoresN128 = true;")]),
+    "bf16_turns_off": (BF16_SOURCE, [("constexpr bool kTurns = true;",
+                                      "constexpr bool kTurns = false;")]),
 }
 SOURCES = ("attention.cu", "attention_bwd.cu", "attention_rope.cu", BF16_SOURCE)
 ENTRY_POINTS = {"attention.cu": "fsat_pair_attention", "attention_bwd.cu": "fsat_pair_attention_bwd",
