@@ -100,7 +100,8 @@ __device__ __forceinline__ void prescale_q_tile(const bf16* __restrict__ qh, uns
   for (int it = 0; it < kIters; ++it) {
     const int i = tid + it * 128, r = i / kSeg, seg = i % kSeg;
     in[it].u = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T) in[it].u = *reinterpret_cast<const uint4*>(qh + (size_t)(r0 + r) * D + seg * 8);
+    if (r0 + r < T)
+      in[it].u = *reinterpret_cast<const uint4*>(qh + (size_t)(r0 + r) * D + seg * 8);
   }
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -177,10 +178,11 @@ __device__ __forceinline__ void rescale_out(float (&o)[32], float (&ot)[8], floa
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-                  const __grid_constant__ CUtensorMap ktail, const __grid_constant__ CUtensorMap vtail,
-                  const bf16* __restrict__ q, bf16* __restrict__ out, int T, int kv_len,
-                  float prescale) {
+flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap ktail,
+                          const __grid_constant__ CUtensorMap vtail, const bf16* __restrict__ q,
+                          bf16* __restrict__ out, int T, int kv_len, float prescale) {
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -344,8 +346,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T
   if (err == cudaSuccess) err = allow_smem(flash_forward_bf16_kernel<D>, Layout<D>::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + kM - 1) / kM, BH);
-  flash_forward_bf16_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(kmap, vmap, ktail, vtail, q,
-                                                                      out, T, kv_len, prescale);
+  flash_forward_bf16_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(
+      kmap, vmap, ktail, vtail, q, out, T, kv_len, prescale);
   return (int)cudaGetLastError();
 }
 

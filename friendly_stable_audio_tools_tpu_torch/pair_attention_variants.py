@@ -64,7 +64,8 @@ VARIANTS = {
                                       "constexpr bool kTurns = false;")]),
 }
 SOURCES = ("attention.cu", "attention_bwd.cu", "attention_rope.cu", BF16_SOURCE)
-ENTRY_POINTS = {"attention.cu": "fsat_pair_attention", "attention_bwd.cu": "fsat_pair_attention_bwd",
+ENTRY_POINTS = {"attention.cu": "fsat_pair_attention",
+                "attention_bwd.cu": "fsat_pair_attention_bwd",
                 "attention_rope.cu": "fsat_rope_pair", BF16_SOURCE: "fsat_flash_forward_bf16"}
 PTXAS_REPORT = ("attention.cu", BF16_SOURCE)  # printed with -Xptxas -v for the shipped build
 # (B, T, H, kv_len) of each head-pair kernel's main path
@@ -151,8 +152,10 @@ def main(argv=None):
             (BF16_SOURCE,))
     # the cases each library runs: the shipped one all, the others those of
     # the source they change
+    changed = {name: BF16_SOURCE if name == "parent" else VARIANTS[name][0]
+               for name in names if name != "shipped"}
     runs = {name: [key for key, f in CASE_SOURCES.items()
-                   if name == "shipped" or f == (BF16_SOURCE if name == "parent" else VARIANTS[name][0])]
+                   if name == "shipped" or f == changed[name]]
             for name in names}
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -222,8 +225,9 @@ def main(argv=None):
                 r["ms"].append(timed_ms(lambda: call(c)))
                 r["kernel_ms"].append(kernel_ms(lambda: call(c), KERNEL_NAMES[key]))
     build._lib = None
-    summary = {"card": smi, "shapes": {k: list(v) for k, v in {**PAIR_SHAPES, **BF16_SHAPES}.items()},
-               "variants": {}, "sdpa_ms": {}}
+    shapes = {**PAIR_SHAPES, **BF16_SHAPES}
+    summary = {"card": smi, "shapes": {k: list(v) for k, v in shapes.items()}, "variants": {},
+               "sdpa_ms": {}}
     if not args.check:
         for key, qkv in sdpa.items():
             summary["sdpa_ms"][key] = min(
@@ -234,10 +238,11 @@ def main(argv=None):
             key: {"ms": min(r["ms"], default=None), "kernel_ms": min(r["kernel_ms"], default=None),
                   "rel_l2": r["rel_l2"]}
             for key, r in results[name].items()}
-        print(f"{name:13s} " + "  ".join(
-            f"{key} rel-L2 {r['rel_l2']:.2e}" + ("" if r["ms"] is None else
-                                                  f" {r['ms']:.4f} ms (kernel {r['kernel_ms']:.4f})")
-            for key, r in summary["variants"][name].items()), flush=True)
+        timed = lambda r: "" if r["ms"] is None else (  # noqa: E731
+            f" {r['ms']:.4f} ms (kernel {r['kernel_ms']:.4f})")
+        print(f"{name:13s} " + "  ".join(f"{key} rel-L2 {r['rel_l2']:.2e}{timed(r)}"
+                                         for key, r in summary["variants"][name].items()),
+              flush=True)
     for key, ms in summary["sdpa_ms"].items():
         print(f"SDPA          {key} {ms:.4f} ms", flush=True)
     print(f"card: {smi}")
