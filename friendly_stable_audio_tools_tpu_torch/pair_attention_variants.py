@@ -19,9 +19,9 @@ into a library of its own:
 * ``bf16_turns_off``: the bf16 K7's consumer warpgroups starting their
   products freely instead of in turns.
 
-``--parent CHECKOUT`` adds the bf16 K7 built from another checkout's
-csrc/flash_attention_bf16.cu (e.g. the parent commit unpacked by ``git
-archive`` into a directory .gitignore lists), timed in the same turns.
+``--parent CHECKOUT`` adds the kernels built from another checkout's csrc/
+(e.g. the parent commit unpacked by ``git archive`` into a directory
+.gitignore lists), timed at every case in the same turns.
 
 The shipped build prints ``-Xptxas -v`` for attention.cu and
 flash_attention_bf16.cu (registers, shared memory, spills). K1, K5, K10 and
@@ -127,7 +127,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--out", default="", help="write the results as JSON here")
     p.add_argument("--parent", default="", metavar="CHECKOUT",
-                   help="also time the bf16 K7 built from this checkout's csrc/")
+                   help="also time the kernels built from this checkout's csrc/")
     p.add_argument("--check", action="store_true", help="stop after one correctness pass")
     args = p.parse_args(argv)
 
@@ -148,14 +148,11 @@ def main(argv=None):
     if args.parent:
         names.append("parent")
         libs["parent"] = build_variant(
-            "parent", tmp, Path(args.parent) / build.CSRC_DIR.relative_to(build.PACKAGE_DIR.parent),
-            (BF16_SOURCE,))
-    # the cases each library runs: the shipped one all, the others those of
-    # the source they change
-    changed = {name: BF16_SOURCE if name == "parent" else VARIANTS[name][0]
-               for name in names if name != "shipped"}
+            "parent", tmp, Path(args.parent) / build.CSRC_DIR.relative_to(build.PACKAGE_DIR.parent))
+    # the cases each library runs: the shipped and the parent's all, a
+    # variant those of the source it changes
     runs = {name: [key for key, f in CASE_SOURCES.items()
-                   if name == "shipped" or f == changed[name]]
+                   if name in ("shipped", "parent") or f == VARIANTS[name][0]]
             for name in names}
 
     g = torch.Generator(device="cuda").manual_seed(0)
