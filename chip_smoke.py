@@ -41,8 +41,9 @@ Phases (any failure raises and the script exits non-zero):
    against their plain versions at SA 2.0's shape (B 2, T 6272, kv_len 6145,
    24 heads) and three smaller ragged ones, each beside its earlier row;
    3e. the fp32 training attention kernels K7 (forward with LSE) and K9
-   (two-pass backward) against their plain versions at SA 2.0's training
-   shape (B 8 x 24 heads, T 6272, kv_len 6145) and two smaller ragged ones;
+   (the backward, 3xTF32 on the tensor cores) against their plain versions at
+   SA 2.0's training shape (B 8 x 24 heads, T 6272, kv_len 6145) and two
+   smaller ragged ones, K9 beside its earlier FFMA row and SDPA's backward;
    3f. the fp32 kernels against their fp32 plain versions (TF32 off): K2,
    K3 and K4 at every shape of [3] and [3c]; K2 and K4 at the DAC decode's
    shapes at 4096 latent frames (26 and 4 calls); K2 at the DAC encode's
@@ -52,7 +53,7 @@ Phases (any failure raises and the script exits non-zero):
    3h. the causal K7 with and without its LSE and the causal K9 against
    their plain versions in fp32 at the audio LM's shape (B 8 x 16 heads, T
    1501, D 64) and at T 1100, with bounds counted on the causal triangle and
-   SDPA's causal fp32 times; the fp32 K2 at the LM's SEANet encode shapes
+   SDPA's causal fp32 times, the causal K9 beside its earlier FFMA row; the fp32 K2 at the LM's SEANet encode shapes
    (B 8 x 960,000 samples, 10 calls per training step);
    3i. the fused SwiGLU MLP K13 against its plain version through the
    route `mlp.route` names: the streaming route in fp32 at the audio LM's
@@ -337,8 +338,9 @@ TOL = {
     # K10: K1's online softmax against a whole-sequence one
     "pair_long_attention": (1e-2, 2.0 ** -5),
     # K7 and K9 in fp32 against the same formulas in fp32 (TF32 off): only
-    # the summation order and the online softmax's rescaling differ; 1xTF32
-    # products keep ~3 decimal digits and would fail them
+    # the summation order, the online softmax's rescaling and K9's 3xTF32
+    # products (~2e-6 rel-L2) differ; 1xTF32 products keep ~3 decimal digits
+    # and would fail them
     "flash_forward": (1e-5, 1e-4),
     "flash_backward": (1e-4, 1e-3),
     # K8 the same way: summation order only; dq's parts from the key tiles
@@ -390,12 +392,14 @@ LSE_ATOL = 2e-3
 # K6 against itself on the same inputs: dq's key-block partials are summed
 # by reduce-adds in whatever order the blocks finish (fp32 rounding only)
 K6_RUN_TO_RUN = 1e-6
-# the redesigned head-pair kernels' per-call times at their main-path shapes
-# before the wgmma/TMA redesign (PERF.md §6's earlier rows, NVIDIA H100 80GB
-# HBM3, 700 W): printed beside this run's
+# the redesigned kernels' per-call times at their main-path shapes before
+# their wgmma/TMA redesigns (PERF.md §6's earlier rows, NVIDIA H100 80GB
+# HBM3, 700 W: the head-pair kernels' first CUDA versions, K9's and the
+# causal K9's FFMA two-pass kernels): printed beside this run's
 EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stats": 1.7254,
               "fused_qkv_rope_attention_backward": 6.7221, "rope_pair_k": 0.0792,
-              "pair_long_attention": 6.4190}
+              "pair_long_attention": 6.4190, "flash_backward": 206.1132,
+              "flash_backward_causal": 4.8726}
 # the bf16 K7's per-call times by [3k] shape before its wgmma/TMA redesign
 # (the mma.sync kernel; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W): printed
 # beside this run's
@@ -1478,7 +1482,7 @@ def sdpa_backend(q, k, v):
 
 
 def flash_phase(results):
-    """[3e] K7 (forward with LSE) and K9 (two-pass backward) against their
+    """[3e] K7 (forward with LSE) and K9 (the backward) against their
     plain versions in fp32 (TF32 off); K9 gets the plain forward's out and
     lse, so the compare isolates the backward, and dO is zero on the padded
     rows, as on the transformer's path. Library calls: SDPA on the same fp32
@@ -1532,10 +1536,12 @@ def flash_phase(results):
         o4 = sdpa(q4, k4, v4)
         g4 = do.view(b, h, t, 64)
         lib_ms = timed_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 3)
-        report(results, "flash_backward", label, main, ok, max_abs, max(rels), peak, timed_ms(k9, 3),
+        ms = timed_ms(k9, 3)
+        report(results, "flash_backward", label, main, ok, max_abs, max(rels), peak, ms,
                timed_ms(k9_plain, 3), lib_ms, bound=bound,
                extra=f" (rel-L2 of dq/dk/dv: {' '.join(f'{r:.3g}' for r in rels)}; padded rows "
-                     f"zero: {pad_zero}; at the CUDA cores' fp32 rate {cores_ms:.4f} ms)")
+                     f"zero: {pad_zero}; {ms / lib_ms:.2f}x SDPA's backward; at the CUDA cores' "
+                     f"fp32 rate {cores_ms:.4f} ms)")
         del q, k, v, do, out_p, lse_p, q4, k4, v4, o4
     for name, calls in (("flash_forward", 2 * 24), ("flash_backward", 24)):
         r = results[name]
@@ -1638,9 +1644,10 @@ def causal_flash_phase(results):
     (B 8 x 16 heads, T 1501, D 64: 24 calls of K7 with its LSE and of K9 per
     training step, 24 of K7 without it per no-grad forward) and at a
     non-multiple length above 1024. K9 gets the plain forward's out and lse.
-    Bounds on the causal triangle: the forward's 2 products, the 7 that K9's
-    two passes run. Library calls: SDPA with is_causal on the same fp32
-    heads (EFFICIENT_ATTENTION), forward, and forward + backward beside K9."""
+    Bounds on the causal triangle: the forward's 2 products, the backward's
+    5 (s, dp, dv, dk, dq: what the work needs, as [3e] counts them). Library
+    calls: SDPA with is_causal on the same fp32 heads (EFFICIENT_ATTENTION),
+    forward, and forward + backward beside K9 (its backward alone logged)."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
@@ -1689,7 +1696,7 @@ def causal_flash_phase(results):
               and max(rels) <= TOL["flash_backward_causal"][0])
         max_abs = max((a - w).abs().max().item() for a, w in zip(got, want))
         peak = max(w.abs().max().item() for w in want)
-        bound = causal_bound(bh, t, 7, [q, k, v, out_p, lse_p, do], list(got))
+        bound = causal_bound(bh, t, 5, [q, k, v, out_p, lse_p, do], list(got))
         del got, want
         o4 = sdpa(q4, k4, v4, is_causal=True)
         g4 = do[None]
@@ -1700,11 +1707,12 @@ def causal_flash_phase(results):
             o = sdpa(q4, k4, v4, is_causal=True)
             return torch.autograd.grad(o, (q4, k4, v4), g4)
 
-        report(results, "flash_backward_causal", label, main, ok, max_abs, max(rels), peak,
-               timed_ms(k9, 3), timed_ms(k9_plain, 3), timed_ms(sdpa_fwd_bwd, 3), bound=bound,
+        ms = timed_ms(k9, 3)
+        report(results, "flash_backward_causal", label, main, ok, max_abs, max(rels), peak, ms,
+               timed_ms(k9_plain, 3), timed_ms(sdpa_fwd_bwd, 3), bound=bound,
                extra=f" (rel-L2 of dq/dk/dv: {' '.join(f'{r:.3g}' for r in rels)}; SDPA "
                      f"backend {backend}, its forward + backward as the library time, its "
-                     f"backward alone {sdpa_bwd_ms:.4f} ms)")
+                     f"backward alone {sdpa_bwd_ms:.4f} ms: {ms / sdpa_bwd_ms:.2f}x)")
         del q, k, v, do, out_p, lse_p, q4, k4, v4, o4
     for name in ("flash_forward_causal", "flash_forward_causal_serving", "flash_backward_causal"):
         r = results[name]
@@ -3394,7 +3402,8 @@ def new_results():
             route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:230",
             per=f"SA 2.0 training step (48 calls at B{TRAIN_BATCH} H24 T{LONG_T} kv_len {LONG_KV})"),
         "flash_backward": dict(
-            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:565",
+            route="cuda", source=src + "flash_attention_bwd_f32.cu",
+            replaces=tpu + "flash_attention.py:565",
             per=f"SA 2.0 training step (24 calls at B{TRAIN_BATCH} H24 T{LONG_T} kv_len {LONG_KV})"),
         "flash_backward_fused": dict(
             route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:426",
@@ -3438,7 +3447,8 @@ def new_results():
             per=f"audio LM no-grad forward ({LM_LAYERS} calls at B{TRAIN_BATCH} x H{LM_HEADS} "
                 f"T{LM_T})"),
         "flash_backward_causal": dict(
-            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:565",
+            route="cuda", source=src + "flash_attention_bwd_f32.cu",
+            replaces=tpu + "flash_attention.py:565",
             per=f"audio LM training step ({LM_LAYERS} calls at B{TRAIN_BATCH} x H{LM_HEADS} T{LM_T})"),
         "glu_mlp": dict(
             route="cuda", source=src + "glu_mlp.cu", replaces=tpu + "mlp.py:145",

@@ -1,12 +1,12 @@
-// K7, K8 and K9: head-split attention on [B*H, T, D] tensors, forward with
-// the base-2 log-sum-exp, its single-pass backward and its two-pass
-// FlashAttention-2 backward, in fp32. The JAX package's `_flash_backward`
-// (flash_attention.py:576-579) takes the single pass (K8) wherever its VMEM
-// plan fits and the two passes (K9) elsewhere; ops/kernels/
+// K7 and K8: head-split attention on [B*H, T, D] tensors, forward with the
+// base-2 log-sum-exp and its single-pass backward, in fp32. The JAX
+// package's `_flash_backward` (flash_attention.py:576-579) takes the single
+// pass (K8) wherever its VMEM plan fits and the two passes (K9, on the tensor
+// cores in flash_attention_bwd_f32.cu) elsewhere; ops/kernels/
 // flash_attention.py:backward_kernel makes the same choice. The training
 // path of the DiT's self-attention beyond 1168 tokens (Stable Audio 2.0:
-// 6145 tokens padded to 6272, kv_len 6145: K9) runs them at D 64, as the JAX
-// package's unpack branch does (flash_attention.py:1351-1389). The ADP
+// 6145 tokens padded to 6272, kv_len 6145: K7 and K9) runs them at D 64, as
+// the JAX package's unpack branch does (flash_attention.py:1351-1389). The ADP
 // U-Net's self-attention at T >= 1024 (Stable Audio 1.0: T 4096 and 2048 at
 // D 64, T 1024 at D 80) runs the forward without the log-sum-exp when it
 // serves, and the forward with it and K8 when it trains, as the JAX
@@ -30,7 +30,7 @@
 //     qs = q * log2(e)/sqrt(D), s = qs k^T, keys >= kv_len masked,
 //     p = exp2(s - lse), dp = dO v^T, ds = p * (dp - delta) (no scale),
 //     dq = (ds k) / sqrt(D), dk = (ds^T qs) / log2(e), dv = p^T dO:
-//   five products, where K9 takes seven. The TPU kernel keeps the whole K
+//   five products, where the TPU's K9 takes seven. The TPU kernel keeps the whole K
 //   and V of a head in VMEM and carries dk/dv in a resident block across its
 //   sequential q grid. Hopper has neither (K and V of a head at T 4096 are
 //   2 MB in fp32; blocks run in no order), so this is FlashAttention-2's
@@ -45,25 +45,13 @@
 //   dq rows at the same time.
 // Causal K7 replaces `_flash_forward` with `causal` set: `_online_kernel`
 //   (:146; the mask k_pos <= q_pos at :167-169, the skipped key blocks at
-//   :185-188). Causal K9 replaces `_flash_backward` with `causal` set:
-//   `_bwd_dq_kernel` (:477, mask :497-499, key chunks up to the diagonal
-//   :509-511) and `_bwd_dkv_kernel` (:518, mask :537-539, q chunks from the
-//   diagonal on :554-557). The TPU kernels skip whole 256/512 blocks and
-//   mask every score of a block they keep; here the q and key tiles are both
-//   64 wide, so a q tile reads key tiles up to the diagonal tile only (the
-//   dq pass likewise), a key tile reads q tiles from the diagonal tile on,
-//   and only the diagonal tile is masked: at T 1501 the forward computes 300
-//   of the 576 tiles of a head, the triangle plus half the diagonal. The
-//   work of a q tile grows with its index, so the forward and the dq pass
-//   start the heaviest tiles first (block x runs q tile n - 1 - x).
-// K9 replaces `_flash_backward` (:565) in its non-causal two-pass case:
-//   `_bwd_dq_kernel` (:477, call :605) and `_bwd_dkv_kernel` (:518, call
-//   :621). Per head, with delta = rowsum(dO * O) computed beside the kernel:
-//     s = (q k^T) * log2(e)/8, keys >= kv_len masked, p = exp2(s - lse),
-//     dp = dO v^T, ds = p * (dp - delta) / 8,
-//     dq = ds k (dq pass: one block per 64-row q tile, looping over keys),
-//     dk = ds^T q, dv = p^T dO (dk/dv pass: one block per 64-key tile,
-//     looping over q tiles). Accumulators stay in registers; no atomics.
+//   :185-188). The TPU kernel skips whole 256/512 blocks and masks every
+//   score of a block it keeps; here the q and key tiles are both 64 wide, so
+//   a q tile reads key tiles up to the diagonal tile only and only the
+//   diagonal tile is masked: at T 1501 the forward computes 300 of the 576
+//   tiles of a head, the triangle plus half the diagonal. The work of a q
+//   tile grows with its index, so the forward starts the heaviest tiles
+//   first (block x runs q tile n - 1 - x).
 //
 // Numerics: every product is fp32 on the CUDA cores (FFMA), so the result is
 // the JAX package's fp32 math up to summation order. Rows at or beyond T are
@@ -72,8 +60,7 @@
 //
 // What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
 // forward is 2 products of 192 x 6145^2 x 64 multiply-adds (1.86 TFLOP)
-// over ~1.2 GB of inputs and outputs; the backward 7 products in the
-// two-pass form. At Stable Audio 1.0's training shapes (B 8 x 16 heads) K8's
+// over ~1.2 GB of inputs and outputs. At Stable Audio 1.0's training shapes (B 8 x 16 heads) K8's
 // five products are 1.37 TFLOP at T 4096 D 64 over ~0.7 GB. Register tiling
 // keeps the shared-memory traffic under the FFMA rate: each thread owns an
 // 8 x 4 tile of every product and reads its operands as 16-byte vectors (3
@@ -92,11 +79,10 @@
 
 namespace {
 
-constexpr int kD = 64;        // head dim of K9
+constexpr int kD = 64;        // the default head dim of the tile helpers
 constexpr int kT = 64;        // q rows of a q tile, keys of a key tile
 constexpr int kF = kD + 4;    // fp32 shared-memory row stride: 16-byte rows, no bank conflicts
 constexpr int kThreads = 128; // tx = tid % 16 (columns), ty = tid / 16 (8-row groups)
-constexpr size_t kTileBytes = (size_t)kT * kF * sizeof(float);
 
 template <int D>
 constexpr size_t tile_bytes() { return (size_t)kT * (D + 4) * sizeof(float); }
@@ -249,19 +235,6 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Writes the thread's 8 x 4 tile (rows r0 + 8 ty + i, dims 4 tx ..) of a
-// [rows, 64] tensor, rows at or beyond `rows` left out.
-__device__ __forceinline__ void store_tile(const float (&acc)[8][4], float* __restrict__ dst,
-                                           int r0, int rows) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + tid_y() * 8 + i;
-    if (r < rows)
-      *reinterpret_cast<float4*>(dst + (size_t)r * kD + tid_x() * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-}
-
 // Causal: the q tile and the key tile are both 64 wide, so q tile i reads
 // key tiles 0..i only and masks keys past each row's own position on tile i
 // alone. Its work grows with i, so the grid runs the heaviest tiles first.
@@ -364,137 +337,6 @@ int launch_flash_forward(const float* q, const float* k, const float* v, float* 
   flash_forward_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, T,
                                                                       kv_len, prescale);
   return (int)cudaGetLastError();
-}
-
-// K9, dq pass: one block per (64-row q tile, head), looping over key tiles
-// (causal: up to the diagonal tile, heaviest q tiles first).
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int T, int kv_len, float scale_log2e, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;              // [64][kF] q of this block's rows
-  float* DOs = Qs + kT * kF;     // [64][kF] dO of this block's rows
-  float* Ks = DOs + kT * kF;     // [64][kF] the current key tile
-  float* Vs = Ks + kT * kF;      // [64][kF]
-  float* DSs = Vs + kT * kF;     // [64][kF] ds of the current key tile
-  const int tx = tid_x(), ty = tid_y();
-  const int qt = causal_q_tile(kCausal);
-  const int q0 = qt * kT;
-  const size_t head = (size_t)blockIdx.y * T * kD;
-  const size_t stats = (size_t)blockIdx.y * T;
-
-  load_tile(q + head, q0, T, Qs, 1.f);
-  load_tile(dout + head, q0, T, DOs, 1.f);
-  float row_lse[8], row_delta[8], acc[8][4], s[8][4], dp[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + ty * 8 + i;
-    row_lse[i] = r < T ? lse[stats + r] : 0.f;
-    row_delta[i] = r < T ? delta[stats + r] : 0.f;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
-  }
-
-  int n_k = (kv_len + kT - 1) / kT;
-  if (kCausal) n_k = min(n_k, qt + 1);
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kT;
-    const bool diag = kCausal && kt == qt;
-    __syncthreads();  // Qs/DOs written; the previous tile's readers of Ks, Vs, DSs are done
-    load_tile(k + head, k0, T, Ks, 1.f);
-    load_tile(v + head, k0, T, Vs, 1.f);
-    __syncthreads();
-    mm_abt(s, Qs, Ks);
-    mm_abt(dp, DOs, Vs);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool keep = k0 + c < kv_len && !(diag && c > ty * 8 + i);
-        const float p = keep ? exp2f(s[i][j] * scale_log2e - row_lse[i]) : 0.f;
-        DSs[(ty * 8 + i) * kF + c] = p * (dp[i][j] - row_delta[i]) * scale;
-      }
-    __syncthreads();
-    mm_ab_acc(acc, DSs, Ks);  // dq += ds k
-  }
-  store_tile(acc, dq + head, q0, T);
-}
-
-// K9, dk/dv pass: one block per (64-key tile, head), looping over q tiles
-// (causal: from the diagonal tile on; the low key tiles, which see the most
-// q tiles, come first in the grid's order).
-// The thread's 8 x 4 tiles are (keys 8 ty + i) x (q rows tx + 16 j) for the
-// transposed scores and (keys 8 ty + i) x (dims 4 tx ..) for dk and dv.
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int T, int kv_len,
-                     float scale_log2e, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;              // [64][kF] this block's keys
-  float* Vs = Ks + kT * kF;      // [64][kF]
-  float* Qs = Vs + kT * kF;      // [64][kF] the current q tile
-  float* DOs = Qs + kT * kF;     // [64][kF]
-  float* PTs = DOs + kT * kF;    // [64][kF] p^T of the current q tile
-  float* DSTs = PTs + kT * kF;   // [64][kF] ds^T
-  float* lse_s = DSTs + kT * kF; // [64]
-  float* delta_s = lse_s + kT;   // [64]
-  const int tx = tid_x(), ty = tid_y();
-  const int k0 = blockIdx.x * kT;
-  const size_t head = (size_t)blockIdx.y * T * kD;
-  const size_t stats = (size_t)blockIdx.y * T;
-
-  float acc_k[8][4], acc_v[8][4], s[8][4], dp[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc_k[i][u] = acc_v[i][u] = 0.f;
-  if (k0 >= kv_len) {  // every key masked: zero gradient
-    store_tile(acc_k, dk + head, k0, T);
-    store_tile(acc_v, dv + head, k0, T);
-    return;
-  }
-  load_tile(k + head, k0, T, Ks, 1.f);
-  load_tile(v + head, k0, T, Vs, 1.f);
-
-  const int n_q = (T + kT - 1) / kT;
-  for (int qt = kCausal ? blockIdx.x : 0; qt < n_q; ++qt) {
-    const int q0 = qt * kT;
-    const bool diag = kCausal && qt == (int)blockIdx.x;
-    __syncthreads();  // Ks/Vs written; the previous tile's readers of Qs, DOs, PTs, DSTs are done
-    load_tile(q + head, q0, T, Qs, 1.f);
-    load_tile(dout + head, q0, T, DOs, 1.f);
-    for (int i = threadIdx.x; i < kT; i += kThreads) {
-      lse_s[i] = q0 + i < T ? lse[stats + q0 + i] : 0.f;
-      delta_s[i] = q0 + i < T ? delta[stats + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    mm_abt(dp, Vs, DOs);  // dp^T = v dO^T
-    mm_abt(s, Ks, Qs);    // s^T = k q^T
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const bool key_ok = k0 + ty * 8 + i < kv_len;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool keep = key_ok && q0 + c < T && !(diag && ty * 8 + i > c);
-        const float p = keep ? exp2f(s[i][j] * scale_log2e - lse_s[c]) : 0.f;
-        PTs[(ty * 8 + i) * kF + c] = p;
-        DSTs[(ty * 8 + i) * kF + c] = p * (dp[i][j] - delta_s[c]) * scale;
-      }
-    }
-    __syncthreads();
-    mm_ab_acc(acc_v, PTs, DOs);  // dv += p^T dO
-    mm_ab_acc(acc_k, DSTs, Qs);  // dk += ds^T q
-  }
-  store_tile(acc_k, dk + head, k0, T);
-  store_tile(acc_v, dv + head, k0, T);
 }
 
 // K8: one block per (64-key tile, head), looping over every q tile of the
@@ -640,43 +482,6 @@ extern "C" int fsat_flash_forward(const float* q, const float* k, const float* v
     return launch_flash_forward<80, true>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
   if (D == 80) return launch_flash_forward<80, false>(q, k, v, out, lse, BH, T, kv_len, prescale, st);
   return (int)cudaErrorInvalidValue;
-}
-
-template <bool kCausal>
-int launch_flash_backward(const float* q, const float* k, const float* v, const float* dout,
-                          const float* lse, const float* delta, float* dq, float* dk, float* dv,
-                          int BH, int T, int kv_len, float scale_log2e, float scale,
-                          cudaStream_t st) {
-  const size_t smem_dq = 5 * kTileBytes;
-  const size_t smem_dkv = 6 * kTileBytes + 2 * kT * sizeof(float);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<kCausal>, smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(flash_bwd_dkv_kernel<kCausal>, smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kT - 1) / kT, BH);
-  flash_bwd_dq_kernel<kCausal><<<grid, kThreads, smem_dq, st>>>(q, k, v, dout, lse, delta, dq, T,
-                                                                 kv_len, scale_log2e, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<kCausal><<<grid, kThreads, smem_dkv, st>>>(q, k, v, dout, lse, delta, dk,
-                                                                   dv, T, kv_len, scale_log2e,
-                                                                   scale);
-  return (int)cudaGetLastError();
-}
-
-// K9: q, k, v, out's dO [BH, T, 64] fp32, lse/delta [BH, T] fp32 -> dq, dk,
-// dv [BH, T, 64] fp32; causal != 0 masks key j > query i. Two launches on
-// `stream` (the dq pass, then dk/dv).
-extern "C" int fsat_flash_backward(const float* q, const float* k, const float* v,
-                                   const float* dout, const float* lse, const float* delta,
-                                   float* dq, float* dk, float* dv, int BH, int T, int kv_len,
-                                   int causal, float scale_log2e, float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (causal)
-    return launch_flash_backward<true>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
-                                       scale_log2e, scale, st);
-  return launch_flash_backward<false>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
-                                      scale_log2e, scale, st);
 }
 
 // K8: q, k, v, out's dO [BH, T, D] fp32 (D 64 or 80), lse/delta [BH, T] fp32

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma/TMA kernels (attention.cu,
-// attention_bwd.cu, flash_attention_bf16.cu, conv_wgmma.cu, glu_mlp.cu):
-// mbarriers, TMA loads into mbarrier-guarded shared memory, warpgroup matrix
-// products (wgmma) on swizzled tiles, and the host-side tensor maps. A tile
+// attention_bwd.cu, flash_attention_bf16.cu, flash_attention_bwd_f32.cu,
+// conv_wgmma.cu, glu_mlp.cu): mbarriers, TMA loads into mbarrier-guarded
+// shared memory, warpgroup matrix products (wgmma, bf16 and tf32) on swizzled
+// tiles, and the host-side tensor maps. A tile
 // row is 128 bytes (64 bf16 or 32 fp32), exactly one row of the 128-byte
 // swizzle, so a TMA load with CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the
 // layout wgmma reads; the 16 columns past 64 of a head dim of 80 are a
@@ -169,6 +170,37 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #define FSAT_WGMMA_OUT32(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16)
 #define FSAT_WGMMA_OUT48(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16), FSAT_OUT16(d, 32)
 #define FSAT_WGMMA_OUT64(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16), FSAT_OUT16(d, 32), FSAT_OUT16(d, 48)
+
+// d (+)= A B, m64nCHk8, tf32 A from registers (a[e]: row g + 8 (e & 1),
+// column t + 4 (e >> 1) of the warp's 16 x 8 slice), B K-major in shared
+// memory; d is first zeroed when accumulate == 0.
+template <int CH>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[CH / 2], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  if constexpr (CH == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FSAT_WGMMA_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : FSAT_WGMMA_OUT16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    static_assert(CH == 64, "tf32 wgmma widths: 32, 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FSAT_WGMMA_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : FSAT_WGMMA_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+
+// fp32 -> tf32, round to nearest (ties away), in an fp32 container.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
 
 // ---- host: tensor maps --------------------------------------------------------
 

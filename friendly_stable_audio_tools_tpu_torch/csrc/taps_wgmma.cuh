@@ -128,37 +128,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[CH / 2], uint64_t da, uint
   }
 }
 
-// d (+)= A B, m64nCHk8, tf32 A from registers (a[e]: row g + 8 (e & 1),
-// column t + 4 (e >> 1) of the warp's 16 x 8 slice), B K-major in shared
-// memory; d is first zeroed when accumulate == 0.
-template <int CH>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[CH / 2], const uint32_t (&a)[4], uint64_t db,
-                                           int accumulate) {
-  if constexpr (CH == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FSAT_WGMMA_D16
-        ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : FSAT_WGMMA_OUT16(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  } else {
-    static_assert(CH == 64, "tf32 wgmma widths: 32, 64");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FSAT_WGMMA_D32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : FSAT_WGMMA_OUT32(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  }
-}
-
-// fp32 -> tf32, round to nearest (ties away), in an fp32 container.
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
 // ---- the snake on a landed A tile ----------------------------------------------
 
 // The bf16 snake in place on 64 rows of a 128B-swizzled tile of 64 channels

@@ -1,7 +1,7 @@
 """Head-split attention on ``[B*H, T, D]`` tensors: the forward with or
 without its base-2 log-sum-exp (K7), the single-pass backward (K8), the
-two-pass FlashAttention-2 backward (K9), their plain versions and their
-autograd binding.
+backward the JAX package runs in two passes (K9), their plain versions and
+their autograd binding.
 
 Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
 
@@ -49,17 +49,22 @@ key j > query i::
 
 What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
 forward's two products are 1.86 TFLOP over ~1.2 GB; the function's
-backward is five products (4.64 TFLOP), which K8 does as five and the
-two-pass form as seven. The products must stay fp32-accurate (1xTF32 keeps
-~3 digits), so the kernels (csrc/flash_attention.cu) run them as FFMA on
-the CUDA cores, register-tiled 8 x 4 per thread from 64 x 64 fp32 tiles in
-shared memory; K7 streams key tiles through an online base-2 softmax, which
-gives the TPU kernel's whole-row softmax up to rounding. The TPU's K8
-carries dk/dv across a sequential q grid with K and V resident in VMEM;
-the CUDA K8 is FlashAttention-2's single pass instead: one block per key
-tile keeps dk/dv in registers over every q tile and adds its part of dq
+backward is five products (4.64 TFLOP), which K8 and K9 do as five where
+the TPU's two passes take seven. The products must stay fp32-accurate
+(1xTF32 keeps ~3 digits). K7 and K8 (csrc/flash_attention.cu) run them as
+FFMA on the CUDA cores, register-tiled 8 x 4 per thread from 64 x 64 fp32
+tiles in shared memory; K7 streams key tiles through an online base-2
+softmax, which gives the TPU kernel's whole-row softmax up to rounding. The
+TPU's K8 carries dk/dv across a sequential q grid with K and V resident in
+VMEM; the CUDA K8 is FlashAttention-2's single pass instead: one block per
+key tile keeps dk/dv in registers over every q tile and adds its part of dq
 into a zeroed fp32 buffer with atomics, so dq's summation order (and its
-last bits) changes from run to run.
+last bits) changes from run to run. K9 (csrc/flash_attention_bwd_f32.cu) is
+the same single pass on the tensor cores, every product as 3xTF32 wgmma on
+TMA-fed tiles: a block per 64 keys holds their K, V and K^T as tf32 hi/lo
+tiles, two warpgroups take the q tiles in turn, and each q tile's dq rows
+go into the zeroed dq by bulk reduce-adds, so its dq too is summed in an
+order that changes from run to run (dk and dv are bit-equal between runs).
 
 The causal kernels skip the key tiles past a q tile's diagonal (and the q
 tiles before a key tile's) and mask only the diagonal tile: at T 1501 the
@@ -98,7 +103,7 @@ from . import build
 forward_launches = 0   # K7 with its LSE (training)
 serving_launches = 0   # K7 without it (serving)
 serving_bf16_launches = 0  # K7 in bf16, without its LSE
-backward_launches = 0  # K9 (one dq pass and one dk/dv pass per count)
+backward_launches = 0  # K9
 fused_backward_launches = 0  # K8
 # the causal kernels, counted apart from the non-causal ones
 causal_forward_launches = 0   # causal K7 with its LSE
@@ -343,7 +348,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
                    lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None,
                    causal: bool = False):
     """K9: (dq, dk, dv) [BH, T, 64] from q, k, v, K7's out and lse, and
-    dL/d(out); causal for the backward of a causal K7."""
+    dL/d(out), in one launch; causal for the backward of a causal K7."""
     global backward_launches, causal_backward_launches
     valid = _valid_len(k.shape[1], kv_len)
     _check_causal(q, k, causal)
@@ -352,7 +357,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     q, k, v, out, do = _cuda_args("flash_backward", q, k, v, out, do)
     bh, t, d = q.shape
     lse, delta = _lse_delta("flash_backward", lse, out, do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq = torch.zeros_like(q)  # the key blocks add their parts into it
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = build.library().fsat_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid, int(causal),

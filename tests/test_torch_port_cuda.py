@@ -7,7 +7,9 @@ are bf16 unless a test says otherwise; tolerance: rel-L2 1e-2 (one bf16
 rounding of the output apart, with attention's online softmax rounding P
 against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
 activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4); K8's
-dq, whose parts arrive through atomics in a varying order, to 1e-5 too.
+dq, whose parts arrive through atomics in a varying order, to 1e-5 too;
+K9's dk and dv bit for bit against themselves run to run, its dq (summed
+by reduce-adds in a varying order) to 1e-6.
 K13 (the fused SwiGLU MLP), on each route, to rel-L2 1e-5 in fp32 and 2e-3
 (one bf16 rounding) in bf16, and bit for bit against itself (both routes
 sum in a fixed order). K11 and K12 (the adaLN elementwise kernels) against the Pallas
@@ -224,13 +226,28 @@ def test_bf16_conv_transpose_at_the_dac_widths(gen):
         _close(got, tconv.snake_conv_transpose1d_plain(x, wt, bias, stride=4), 2e-3)
 
 
+def _k9_agrees_with_itself(first, second):
+    """K9 run twice on the same inputs: dk and dv bit-equal (fixed sums), dq
+    (summed by reduce-adds in whatever order the key blocks get there)
+    within rel-L2 1e-6."""
+    dq0, dk0, dv0 = first
+    dq1, dk1, dv1 = second
+    assert torch.equal(dk0, dk1) and torch.equal(dv0, dv1)
+    _close(dq1, dq0, tol=1e-6)
+
+
 def test_flash_kernels_match_plain_in_fp32(gen):
     """K7 (out rel-L2 1e-5, LSE max abs 1e-4) and K9 (dq, dk, dv rel-L2 1e-4
-    each, exactly zero on padded rows) against their plain versions in fp32,
-    at ragged lengths; one launch each per call."""
+    each, exactly zero on the rows at or past kv_len) against their plain
+    versions in fp32, at ragged lengths (below, at and just past one 64-row
+    tile), kv_len one key, in the middle of a key block and SA 2.0's, one
+    head and SA 2.0's length; one launch each per call, and K9 against
+    itself run to run."""
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as tflash
 
-    for bh, t, kv in ((3, 200, 190), (2, 77, None), (2, 1424, None)):
+    for bh, t, kv in ((3, 200, 190), (2, 77, None), (2, 1424, None), (2, 64, None), (3, 65, None),
+                      (2, 129, None), (2, 150, 1), (2, 300, 161), (1, 333, None),
+                      (2, 6272, 6145)):
         q, k, v = (_rnd(gen, bh, t, 64) for _ in range(3))
         do = _rnd(gen, bh, t, 64)
         if kv is not None:
@@ -242,10 +259,17 @@ def test_flash_kernels_match_plain_in_fp32(gen):
         out_p, lse_p = tflash.flash_forward_plain(q, k, v, kv)
         _close(out, out_p, tol=1e-5)
         assert (lse - lse_p).abs().max().item() <= 1e-4
-        for got, want in zip(grads, tflash.flash_backward_plain(q, k, v, out, lse, do, kv)):
-            _close(got, want, tol=1e-4)
+        for name, got, want in zip("dq dk dv".split(), grads,
+                                   tflash.flash_backward_plain(q, k, v, out, lse, do, kv)):
+            if kv == 1 and name != "dv":
+                # one visible key: p = 1 and delta = dp, so ds, dq and dk are
+                # zero but for the rounding of dp - delta on either side
+                assert got.abs().max().item() <= 1e-5 and want.abs().max().item() <= 1e-5
+            else:
+                _close(got, want, tol=1e-4)
             if kv is not None:
                 assert not got[:, kv:].any()
+        _k9_agrees_with_itself(grads, tflash.flash_backward(q, k, v, out, lse, do, kv))
 
 
 def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
@@ -402,11 +426,13 @@ def _causal_counts():
             tflash.backward_launches, tflash.fused_backward_launches)
 
 
-@pytest.mark.parametrize("bh,t", [(3, 200), (4, 1501), (2, 1100)])
+@pytest.mark.parametrize("bh,t", [(3, 200), (4, 1501), (2, 1100), (1, 64), (2, 65),
+                                  (1, 129)])
 def test_causal_flash_kernels_match_plain_in_fp32(gen, bh, t):
     """The causal K7 with and without its LSE and the causal K9 against their
     plain versions (rel-L2 1e-5, K9 1e-4), each counted apart from the
-    non-causal kernels; causal needs as many queries as keys."""
+    non-causal kernels, K9 against itself run to run; causal needs as many
+    queries as keys."""
     q, k, v, do = (_rnd(gen, bh, t, 64) for _ in range(4))
     before = _causal_counts()
     out, lse = tflash.flash_forward(q, k, v, causal=True)
@@ -419,6 +445,7 @@ def test_causal_flash_kernels_match_plain_in_fp32(gen, bh, t):
     assert (lse - lse_p).abs().max().item() <= 1e-4
     for got, want in zip(grads, tflash.flash_backward_plain(q, k, v, out_p, lse_p, do, causal=True)):
         _close(got, want, 1e-4)
+    _k9_agrees_with_itself(grads, tflash.flash_backward(q, k, v, out_p, lse_p, do, causal=True))
     with pytest.raises(ValueError, match="as many queries as keys"):
         tflash.flash_forward(q, k[:, :t - 1].contiguous(), v[:, :t - 1].contiguous(), causal=True)
 
