@@ -30,9 +30,9 @@
 //     qs = q * log2(e)/sqrt(D), s = qs k^T, keys >= kv_len masked,
 //     p = exp2(s - lse), dp = dO v^T, ds = p * (dp - delta) (no scale),
 //     dq = (ds k) / sqrt(D), dk = (ds^T qs) / log2(e), dv = p^T dO:
-//   five products, where the TPU's K9 takes seven. The TPU kernel keeps the whole K
-//   and V of a head in VMEM and carries dk/dv in a resident block across its
-//   sequential q grid. Hopper has neither (K and V of a head at T 4096 are
+//   five products, where the TPU's K9 takes seven. The TPU kernel keeps the
+//   whole K and V of a head in VMEM and carries dk/dv in a resident block
+//   across its sequential q grid. Hopper has neither (K and V of a head at T 4096 are
 //   2 MB in fp32; blocks run in no order), so this is FlashAttention-2's
 //   single pass: one block owns a 64-key tile, keeps its dk/dv in registers,
 //   loops over every q tile (recomputing s and p, then dp and ds), and adds
@@ -60,8 +60,9 @@
 //
 // What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
 // forward is 2 products of 192 x 6145^2 x 64 multiply-adds (1.86 TFLOP)
-// over ~1.2 GB of inputs and outputs. At Stable Audio 1.0's training shapes (B 8 x 16 heads) K8's
-// five products are 1.37 TFLOP at T 4096 D 64 over ~0.7 GB. Register tiling
+// over ~1.2 GB of inputs and outputs. At Stable Audio 1.0's training shapes
+// (B 8 x 16 heads) K8's five products are 1.37 TFLOP at T 4096 D 64 over
+// ~0.7 GB. Register tiling
 // keeps the shared-memory traffic under the FFMA rate: each thread owns an
 // 8 x 4 tile of every product and reads its operands as 16-byte vectors (3
 // shared loads per 32 FFMA), and the softmax row reductions run over the 16

@@ -22,18 +22,17 @@
 // The FFMA kernels this replaces ran seven products (two passes, each
 // recomputing s and dp) on the CUDA cores at ~47% of their 66.9 TFLOP/s: 206
 // ms, 1.5x SDPA's backward. The tensor cores keep fp32 accuracy only as
-// 3xTF32: a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, three wgmma issues per k8
-// slice (1xTF32 keeps ~3 decimal digits). The hi part is the raw fp32 value,
-// whose low 13 bits the tensor cores drop (truncation), and lo = tf32(x -
-// trunc(x)) rounded to nearest: measured on the H100 at the main shapes, this
-// keeps K9 within 3e-6 rel-L2 of its fp32 plain version (hi rounded to
-// nearest, lo = tf32(x - hi): 2e-6) and saves a conversion per operand and
-// the rewrite of the K and V tiles (kRawHi; PERF.md §6).
+// 3xTF32: a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi with hi = tf32(x) and lo =
+// tf32(x - hi), both rounded to nearest, three wgmma issues per k8 slice
+// (1xTF32 keeps ~3 decimal digits). The raw fp32 value also serves as hi
+// (the tensor cores drop its low 13 bits) with lo = tf32(x - trunc(x)):
+// within 3e-6 rel-L2 at the main shapes on the H100 but slower in this
+// kernel (pair_attention_variants.py's `k9_raw_hi`; PERF.md §6).
 //
 // Design: FlashAttention-2/3's single pass over key blocks (attention_bwd.cu's
 // skeleton for K6), q-major. A block owns 64 keys of one head: their K and V
-// arrive by TMA (the hi parts) and get their lo tiles once, with K^T's hi and
-// lo written beside them; all six stay in shared memory for the call. Two
+// arrive by TMA and are split once into tf32 hi/lo tiles (hi in place), with
+// K^T written beside them; all six stay in shared memory for the call. Two
 // warpgroups take the head's q tiles of 64 rows in turn (warpgroup w: tiles
 // w, w + 2, ...; causal: from the block's diagonal tile on, where alone keys
 // past a row's position are masked). Each streams its own q and dO tiles by
@@ -50,20 +49,25 @@
 // What is hard in fp32, and what the arrangement does about it:
 // 1. tf32 wgmma reads shared-memory operands K-major only (the transpose bits
 //    exist for 16-bit types alone), and three of the five products contract
-//    over the sequence. Every A operand therefore comes from registers: each
-//    thread loads its own fragment from an fp32 tile in whatever order the
-//    fragment needs and splits it there, as the conv kernel splits its A
-//    (conv_wgmma.cu): q and dO row by row for S and dP, the same TMA tiles
-//    down their columns for dO^T and q^T, and dS from the dS^T tiles. No
-//    q-side tile is transposed or split in shared memory.
+//    over the sequence. Every A operand therefore comes from registers: q and
+//    dO for S and dP, loaded row by row from their TMA tiles and split there,
+//    as the conv kernel splits its A (conv_wgmma.cu); dO^T and q^T for dV^T
+//    and dK^T, loaded down the columns of the same tiles; dS for dq, straight
+//    from its accumulator. No q-side tile is transposed or split in shared
+//    memory.
 // 2. Every B operand is a K-major tile pair the kernel writes: K and V (keys
 //    x dims) for S and dP, K^T for dq, and P^T and dS^T for dV^T and dK^T,
 //    stored from the S and dS accumulators (rows q) transposed into [keys][q]
-//    hi/lo tiles; under the 128-byte swizzle a warp's stores there hit 32
-//    distinct banks.
-// 3. No A operand comes from an accumulator, so the accumulator's column pairs
-//    (8j + 2t, 8j + 2t + 1) never have to become a register-A fragment's
-//    columns (t, t + 4): no k permutation and no quad shuffle.
+//    hi/lo tiles.
+// 3. A tf32 accumulator is not a tf32 register-A fragment: a thread holds
+//    columns 8j + 2t and 8j + 2t + 1, where register A wants k positions t
+//    and t + 4. The products that contract over q rows or keys therefore
+//    take each k8 slice's rows in the order [0, 2, 4, 6, 1, 3, 5, 7]
+//    (pos8): dS's accumulator is then dq's A as it stands (K^T's keys
+//    written in that order), and P^T's and dS^T's columns are stored in it.
+//    The same order makes the transposed loads of dO^T and q^T (rows 2t, 2t
+//    + 1 of a 128B-swizzled tile) and the transposed stores hit 32 distinct
+//    banks, where rows t, t + 4 hit 16.
 // 4. The tensor cores' fp32 accumulate truncates. Summed in the accumulators
 //    over SA 2.0's 6272 q rows, dK and dV would drift ~6e-5 rel-L2 from the
 //    exact sums (tests/test_torch_flash_bwd_schedule.py emulates it); so each
@@ -80,6 +84,12 @@
 //   one and allow 168, the limit of K6's layout). Live at most: the dK^T and
 //   dV^T totals (64), S and dP or dS and a product's result (64), and one
 //   product's A fragments (8 k8 slices x 4 x hi/lo: 64), ~200 with addresses.
+// What bounds it now (measured on the H100, PERF.md §6): about half the
+// 3xTF32 bound at SA 2.0's shape. Each warpgroup runs its five products one
+// after another, each waited for before the next (the exponentials overlap
+// dP only), and two warpgroups per SM overlap those chains only in part;
+// shared memory (~400 KB of wgmma B reads, fragment loads and tile stores
+// per q tile) and the dq reduce-adds (~2% of the time) are not the limit.
 //
 // dq is summed in an order that changes from run to run (the key blocks'
 // reduce-adds land in L2 in whatever order the blocks get there), as with K8
@@ -104,12 +114,6 @@ constexpr int kQ = 64;                      // q rows per tile
 constexpr int kPanel = 64 * kSwizzleRow;    // 64 rows of 32 fp32 (128 bytes): 8 KB
 constexpr int kTile = 2 * kPanel;           // 64 x 64 fp32 as two panels: 16 KB
 constexpr int kStageRow = kD + 4;           // a staged dq row: 68 floats (272 bytes)
-// Each operand's hi part is its raw fp32 value, which the tensor cores read
-// as tf32 by dropping the low 13 bits (truncation), and lo = tf32(x -
-// trunc(x)) rounded to nearest; false: hi = tf32(x) rounded to nearest and
-// lo = tf32(x - hi), as the conv kernel splits (pair_attention_variants.py's
-// `k9_rn_hi`; PERF.md has both variants' times and errors).
-constexpr bool kRawHi = true;
 
 struct Layout {  // byte offsets into the 1024-aligned dynamic shared memory
   static constexpr int k_hi = 0;              // K [keys][dims], hi in place of the TMA tile
@@ -137,19 +141,27 @@ __device__ __forceinline__ uint32_t tile_off(int row, int col) {
   return (col >> 5) * kPanel + sw128_offset(row, (col & 31) >> 2) + (col & 3) * 4;
 }
 
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (kRawHi) {
-    hi = __float_as_uint(x);
-    lo = tf32_rna(x - __uint_as_float(hi & 0xFFFFE000u));
-  } else {
-    hi = tf32_rna(x);
-    lo = tf32_rna(x - __uint_as_float(hi));
-  }
+// The k order of the products that contract over q rows (dV^T, dK^T) or
+// keys (dq): within each 8, k position p holds row sigma(p) = 2p (p < 4) or
+// 2(p - 4) + 1, and row r sits at position pos(r). An accumulator's column
+// pair (8j + 2t, 8j + 2t + 1) is then exactly a register-A fragment's
+// positions (t, t + 4), and a thread's transposed loads (rows 2t, 2t + 1 of
+// a 128B-swizzled tile) hit 32 distinct banks where rows t, t + 4 hit 16.
+__device__ __forceinline__ int pos8(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
 }
 
-// The A operand of a 64 x 64 x 64 product from an fp32 tile: fragment
-// (kk, e) is element (m, k) = (16 warp + g + 8 (e & 1), 8 kk + t + 4 (e >> 1)),
-// read as tile[m][k], or as tile[k][m] with kTrans, split into tf32 hi and lo.
+// x = hi + lo to ~2^-22: hi = tf32(x), lo = tf32(x - hi), rounded to nearest.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The A operand of a 64 x 64 x 64 product from an fp32 tile, split into
+// tf32 hi and lo: fragment (kk, e) is element (m, k) = (16 warp + g + 8 (e &
+// 1), 8 kk + t + 4 (e >> 1)) read as tile[m][k]; with kTrans, the element of
+// position k in the permuted order (row 8 kk + 2t + (e >> 1)) read as
+// tile[row][m].
 template <bool kTrans>
 __device__ __forceinline__ void load_a(const unsigned char* tile, int warp, int g, int t,
                                        uint32_t (&hi)[8][4], uint32_t (&lo)[8][4]) {
@@ -157,25 +169,23 @@ __device__ __forceinline__ void load_a(const unsigned char* tile, int warp, int 
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int m = 16 * warp + g + 8 * (e & 1), k = 8 * kk + t + 4 * (e >> 1);
-      const float x =
-          *reinterpret_cast<const float*>(tile + (kTrans ? tile_off(k, m) : tile_off(m, k)));
-      split_tf32(x, hi[kk][e], lo[kk][e]);
+      const int m = 16 * warp + g + 8 * (e & 1);
+      const uint32_t off = kTrans ? tile_off(8 * kk + 2 * t + (e >> 1), m)
+                                  : tile_off(m, 8 * kk + t + 4 * (e >> 1));
+      split_tf32(*reinterpret_cast<const float*>(tile + off), hi[kk][e], lo[kk][e]);
     }
 }
 
-// The same from a tile pair split already (hi, lo), read as tile[k][m].
-__device__ __forceinline__ void load_a_split(const unsigned char* hi_tile,
-                                             const unsigned char* lo_tile, int warp, int g, int t,
-                                             uint32_t (&hi)[8][4], uint32_t (&lo)[8][4]) {
+// The A operand from a 64 x 64 accumulator in registers (rows m, columns
+// the k rows in the permuted order): fragment (kk, e) is the accumulator's
+// row 16 warp + g + 8 (e & 1), column 8 kk + 2t + (e >> 1).
+__device__ __forceinline__ void acc_to_a_tf32(const float (&d)[32], uint32_t (&hi)[8][4],
+                                              uint32_t (&lo)[8][4]) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const uint32_t off = tile_off(8 * kk + t + 4 * (e >> 1), 16 * warp + g + 8 * (e & 1));
-      hi[kk][e] = *reinterpret_cast<const uint32_t*>(hi_tile + off);
-      lo[kk][e] = *reinterpret_cast<const uint32_t*>(lo_tile + off);
-    }
+    for (int e = 0; e < 4; ++e)
+      split_tf32(d[4 * kk + 2 * (e & 1) + (e >> 1)], hi[kk][e], lo[kk][e]);
 }
 
 // d = A B over 64 deep (d zeroed by the first issue), 3xTF32: per k8 slice
@@ -200,17 +210,18 @@ __device__ __forceinline__ void finish(float (&d)[32]) {
 }
 
 // A 64 x 64 accumulator (element i: row m = 16 warp + g + 8 ((i >> 1) & 1),
-// column n = 8 (i >> 2) + 2t + (i & 1)) stored transposed, as [n][m], into a
-// hi/lo tile pair.
+// column n = 8 (i >> 2) + 2t + (i & 1)) stored transposed into a hi/lo tile
+// pair: row n, the m order permuted (column pos8(m)).
 __device__ __forceinline__ void store_t(const float (&d)[32], unsigned char* hi_tile,
                                         unsigned char* lo_tile, int warp, int g, int t) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int m = 16 * warp + g + 8 * ((i >> 1) & 1), n = 8 * (i >> 2) + 2 * t + (i & 1);
+    const uint32_t off = tile_off(n, pos8(m));
     uint32_t hi, lo;
     split_tf32(d[i], hi, lo);
-    *reinterpret_cast<uint32_t*>(hi_tile + tile_off(n, m)) = hi;
-    *reinterpret_cast<uint32_t*>(lo_tile + tile_off(n, m)) = lo;
+    *reinterpret_cast<uint32_t*>(hi_tile + off) = hi;
+    *reinterpret_cast<uint32_t*>(lo_tile + off) = lo;
   }
 }
 
@@ -267,20 +278,20 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if (tid == 0 && q_first < n_q) load_q_tile(mine, q_full, &qmap, &dmap, q_first * kQ, bh);
 
-  // K and V split into hi (in place, unless the raw tile is the hi part)
-  // and lo; K^T beside them
+  // K and V split into hi (in place) and lo; K^T beside them, its keys in
+  // the permuted order
   mbar_wait(kv_full, 0);
   for (int i = threadIdx.x; i < kKeys * kD; i += kThreads) {
     const int r = i / kD, c = i % kD;
-    const uint32_t off = tile_off(r, c), off_t = tile_off(c, r);
+    const uint32_t off = tile_off(r, c), off_t = tile_off(c, pos8(r));
     uint32_t hi, lo;
     split_tf32(*reinterpret_cast<const float*>(smem + Layout::k_hi + off), hi, lo);
-    if (!kRawHi) *reinterpret_cast<uint32_t*>(smem + Layout::k_hi + off) = hi;
+    *reinterpret_cast<uint32_t*>(smem + Layout::k_hi + off) = hi;
     *reinterpret_cast<uint32_t*>(smem + Layout::k_lo + off) = lo;
     *reinterpret_cast<uint32_t*>(smem + Layout::kt_hi + off_t) = hi;
     *reinterpret_cast<uint32_t*>(smem + Layout::kt_lo + off_t) = lo;
     split_tf32(*reinterpret_cast<const float*>(smem + Layout::v_hi + off), hi, lo);
-    if (!kRawHi) *reinterpret_cast<uint32_t*>(smem + Layout::v_hi + off) = hi;
+    *reinterpret_cast<uint32_t*>(smem + Layout::v_hi + off) = hi;
     *reinterpret_cast<uint32_t*>(smem + Layout::v_lo + off) = lo;
   }
   fence_proxy_async();
@@ -346,7 +357,7 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     store_t(dp, mine + Layout::x_hi, mine + Layout::x_lo, warp, g, t);
     fence_proxy_async();
     load_a<true>(mine + Layout::q, warp, g, t, a_hi, a_lo);
-    bar_sync(bar, 128);
+    bar_sync(bar, 128);  // dS^T stored, q and dO read
     if (tid == 0 && qt + kConsumers < n_q)
       load_q_tile(mine, q_full, &qmap, &dmap, (qt + kConsumers) * kQ, bh);
     product(part, a_hi, a_lo, x_hi, x_lo);
@@ -354,12 +365,12 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i = 0; i < 32; ++i) tot_k[i] += part[i];
 
-    // dq = dS K (dS read back from the dS^T tiles), staged as 64 rows and
-    // added into dq by one bulk reduce-add per row
-    load_a_split(mine + Layout::x_hi, mine + Layout::x_lo, warp, g, t, a_hi, a_lo);
+    // dq = dS K with dS from its accumulator, staged as 64 rows and added
+    // into dq by one bulk reduce-add per row
+    acc_to_a_tf32(dp, a_hi, a_lo);
     product(part, a_hi, a_lo, s_base + Layout::kt_hi, s_base + Layout::kt_lo);
     finish(part);
-    bar_sync(bar, 128);  // every lane has read dS
+    bar_sync(bar, 128);  // every lane's dK^T product has read dS^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -379,8 +390,8 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int i = 0; i < 32; ++i) staged[i * 128 + tid] = wg == 0 ? tot_k[i] : tot_v[i];
   __syncthreads();
-  const float* theirs =
-      reinterpret_cast<const float*>(smem + Layout::wg + (1 - wg) * Layout::wg_bytes + Layout::x_hi);
+  const unsigned char* other = smem + Layout::wg + (1 - wg) * Layout::wg_bytes;
+  const float* theirs = reinterpret_cast<const float*>(other + Layout::x_hi);
   float* out = (wg == 0 ? dv : dk) + head;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {

@@ -18,9 +18,9 @@ into a library of its own:
   keys per stage, or 2 or 4 stages instead of 3;
 * ``bf16_turns_off``: the bf16 K7's consumer warpgroups starting their
   products freely instead of in turns;
-* ``k9_rn_hi``: K9 with each operand's tf32 hi part rounded to nearest and
-  lo = tf32(x - hi), instead of the raw fp32 value as hi (the tensor cores
-  read its top 19 bits) and lo = tf32(x - trunc(x));
+* ``k9_raw_hi``: K9 with the raw fp32 value as each operand's tf32 hi part
+  (the tensor cores read its top 19 bits) and lo = tf32(x - trunc(x)),
+  instead of hi = tf32(x) and lo = tf32(x - hi) rounded to nearest;
 * ``k9_no_dq_reduce``: K9 without its dq reduce-adds (its dq is then zero:
   timing only);
 * ``k9_one_dq_reduce``: K9 with one 16 KB reduce-add per q tile instead of
@@ -81,7 +81,10 @@ VARIANTS = {
     "bf16_stages4": (BF16_SOURCE, [("constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
     "bf16_turns_off": (BF16_SOURCE, [("constexpr bool kTurns = true;",
                                       "constexpr bool kTurns = false;")]),
-    "k9_rn_hi": (K9_SOURCE, [("constexpr bool kRawHi = true;", "constexpr bool kRawHi = false;")]),
+    "k9_raw_hi": (K9_SOURCE, [(
+        "  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));",
+        "  hi = __float_as_uint(x);\n"
+        "  lo = tf32_rna(x - __uint_as_float(hi & 0xFFFFE000u));")]),
     "k9_no_dq_reduce": (K9_SOURCE, [(K9_ROW_REDUCE, "{}")]),
     "k9_one_dq_reduce": (K9_SOURCE, [(
         "if (tid < kQ && q0 + tid < T)\n      " + K9_ROW_REDUCE,
