@@ -43,17 +43,20 @@ Phases (any failure raises and the script exits non-zero):
    3e. the fp32 training attention kernels K7 (forward with LSE) and K9
    (the backward, 3xTF32 on the tensor cores) against their plain versions at
    SA 2.0's training shape (B 8 x 24 heads, T 6272, kv_len 6145) and two
-   smaller ragged ones, K9 beside its earlier FFMA row and SDPA's backward;
+   smaller ragged ones, K7 and K9 beside their earlier FFMA rows, SDPA and
+   its backward;
    3f. the fp32 kernels against their fp32 plain versions (TF32 off): K2,
    K3 and K4 at every shape of [3] and [3c]; K2 and K4 at the DAC decode's
    shapes at 4096 latent frames (26 and 4 calls); K2 at the DAC encode's
    shapes at 4,194,304 samples (26 calls per clip, 8 clips per SA 1.0
    training step); K7 without its LSE at the ADP U-Net's self-attention
-   (B 2 x 16 heads: T 4096 and 2048 at head dim 64, T 1024 at head dim 80);
+   (B 2 x 16 heads: T 4096 and 2048 at head dim 64, T 1024 at head dim 80),
+   beside its earlier FFMA rows;
    3h. the causal K7 with and without its LSE and the causal K9 against
    their plain versions in fp32 at the audio LM's shape (B 8 x 16 heads, T
    1501, D 64) and at T 1100, with bounds counted on the causal triangle and
-   SDPA's causal fp32 times, the causal K9 beside its earlier FFMA row; the fp32 K2 at the LM's SEANet encode shapes
+   SDPA's causal fp32 times, the causal K7 and K9 beside their earlier FFMA
+   rows; the fp32 K2 at the LM's SEANet encode shapes
    (B 8 x 960,000 samples, 10 calls per training step);
    3i. the fused SwiGLU MLP K13 against its plain version through the
    route `mlp.route` names: the streaming route in fp32 at the audio LM's
@@ -76,7 +79,7 @@ Phases (any failure raises and the script exits non-zero):
    ADP U-Net's training shapes (B 8 x 16 heads: T 4096 and 2048 at head dim
    64, T 1024 at head dim 80), at a DiT shape where K8's plan fits (B 2 x 24
    heads, T 1184, kv_len 1177) and a small ragged one; K7 with its LSE at
-   the three U-Net shapes;
+   the three U-Net shapes; each beside its earlier FFMA row;
    3k. K7 in bf16 (serving, csrc/flash_attention_bf16.cu) against its plain
    version at the ADP U-Net's self-attention in bench.py's bf16 recipe (B 2
    x 16 heads: T 4096 and 2048 at head dim 64, T 1024 at head dim 80), at a
@@ -338,18 +341,19 @@ TOL = {
     # K10: K1's online softmax against a whole-sequence one
     "pair_long_attention": (1e-2, 2.0 ** -5),
     # K7 and K9 in fp32 against the same formulas in fp32 (TF32 off): only
-    # the summation order, the online softmax's rescaling and K9's 3xTF32
-    # products (~2e-6 rel-L2) differ; 1xTF32 products keep ~3 decimal digits
-    # and would fail them
+    # the summation order, the online softmax's rescaling and the 3xTF32
+    # products (~1-2e-6 rel-L2) differ; 1xTF32 products keep ~3 decimal
+    # digits and would fail them
     "flash_forward": (1e-5, 1e-4),
     "flash_backward": (1e-4, 1e-3),
-    # K8 the same way: summation order only; dq's parts from the key tiles
-    # arrive through atomics in an order that changes from run to run, which
-    # is a summation order too
+    # K8 the same way (3xTF32): dq's parts from the key blocks arrive through
+    # bulk reduce-adds in an order that changes from run to run, which is a
+    # summation order too
     "flash_backward_fused": (1e-5, 1e-4),
     # the fp32 kernels against their fp32 plain versions (TF32 off): K7
-    # without its LSE (FFMA), K2 (FFMA), K3 and K4 (3xTF32, each tensor-core
-    # partial sum of at most six products added in fp32): summation order only
+    # without its LSE (3xTF32, each key tile's P.V added in fp32), K2 (thin
+    # route: FFMA), K3 and K4 (3xTF32, each tensor-core partial sum of at most
+    # six products added in fp32): summation order only
     "flash_forward_serving": (1e-5, 1e-4),
     "snake_conv1d_f32": (1e-5, 1e-4),
     "fused_residual_unit_f32": (1e-5, 1e-4),
@@ -395,11 +399,24 @@ K6_RUN_TO_RUN = 1e-6
 # the redesigned kernels' per-call times at their main-path shapes before
 # their wgmma/TMA redesigns (PERF.md §6's earlier rows, NVIDIA H100 80GB
 # HBM3, 700 W: the head-pair kernels' first CUDA versions, K9's and the
-# causal K9's FFMA two-pass kernels): printed beside this run's
+# causal K9's FFMA two-pass kernels, the fp32 K7's and K8's FFMA kernels),
+# by label where a kernel has several main-path shapes: printed beside this
+# run's
 EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stats": 1.7254,
               "fused_qkv_rope_attention_backward": 6.7221, "rope_pair_k": 0.0792,
               "pair_long_attention": 6.4190, "flash_backward": 206.1132,
-              "flash_backward_causal": 4.8726}
+              "flash_backward_causal": 4.8726,
+              "flash_forward": {"B8 T6272 H24 kv_len 6145": 51.6539,
+                                "BH128 T4096 D64 kv_len None": 14.9957,
+                                "BH128 T2048 D64 kv_len None": 3.8476,
+                                "BH128 T1024 D80 kv_len None": 1.5490},
+              "flash_forward_serving": {"BH32 T4096 D64": 3.9423, "BH32 T2048 D64": 1.0357,
+                                        "BH32 T1024 D80": 0.4230,
+                                        "BH48 T8576 D64 kv_len 8449": 24.2365},
+              "flash_forward_causal": 1.2969, "flash_forward_causal_serving": 1.6428,
+              "flash_backward_fused": {"BH128 T4096 D64 kv_len None": 44.8828,
+                                       "BH128 T2048 D64 kv_len None": 11.9388,
+                                       "BH128 T1024 D80 kv_len None": 4.9380}}
 # the bf16 K7's per-call times by [3k] shape before its wgmma/TMA redesign
 # (the mma.sync kernel; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W): printed
 # beside this run's
@@ -417,11 +434,19 @@ EARLIER_E2E = {
     "[8]": "12.719 s-audio/s, 219.6 ms per step (PR 9 run); 28.284 s-audio/s, 96.414 ms per step, "
            "decode 0.4351 s (PR 13 final run)",
     "[15]": "18.272 s-audio/s, 5.2053 s, decode 0.4301 s (PR 13 final run)",
-    "[10]": "generate_diffusion_cond 16.2844 s = 5.840 s-audio/s, decode 0.5259 s (PR 13 final run)",
+    "[10]": "generate_diffusion_cond 16.2844 s = 5.840 s-audio/s, decode 0.5259 s (PR 13 final "
+            "run); 5.965 s-audio/s (PR 14 run 1); the fp32 K7 14 x 100 serving calls, 16.6371 ms "
+            "per step ([3f], PR 6's rows)",
     "[10b]": "generate_diffusion_cond 10.8833 s = 4.369 s-audio/s, decode 0.3212 s (PR 13 final run)",
-    "[11]": "8.0671 s per step, encode 6.1568 s (PR 13 final run)",
-    "[9]": "19.2305 s per step at 6 layers, encode 15.0487 s (PR 13 final run)",
-    "[12]": "1.2437 s per step, tokenize 0.1200 s (PR 13 final run)",
+    "[11]": "8.0671 s per step, encode 6.1568 s (PR 13 final run); 4.2063 s per step, encode "
+            "2.3007 s (PR 14 run 1); K7 with LSE + K8 per step 62.3708 + 191.0269 ms ([3g], PR "
+            "8's rows)",
+    "[9]": "19.2305 s per step at 6 layers, encode 15.0487 s (PR 13 final run); 18.6368 and "
+           "18.6811 s (PR 17 runs); K7 with LSE 12 calls x 51.6539 ms per 6-layer step ([3e])",
+    "[12]": "1.2437 s per step, tokenize 0.1200 s (PR 13 final run); 1.1302 and 1.2948 s (PR 17 "
+            "runs); the causal K7 with LSE 24 x 1.2969 = 31.1247 ms per step ([3h])",
+    "[12b]": "the causal K7 without LSE 24 x 1.6428 = 39.4271 ms per no-grad forward ([3h], PR 9)",
+    "[15b]": "the fp32 K7 24 x 24.2365 = 581.6753 ms per DiT forward ([3k], PR 12 final run)",
     "[13]": "7.418 / 8.001 ms per decode step (fused MLP off / on), token decode 0.0380 / 0.0394 s "
             "(PR 13 final run)",
     "[14]": "30.190 and 44.867 ms per step with fused_ew, 33.171 and 41.281 without (two "
@@ -557,7 +582,7 @@ def report(results, name, label, main_path, ok, max_abs, rel_l2, peak, ms, plain
     if not ok:
         raise AssertionError(f"{name} {label} disagrees with its plain version")
     if main_path and name in EARLIER_MS:
-        log_against_earlier(name, ms, bound, lib_ms)
+        log_against_earlier(name, label, ms, bound, lib_ms)
     r = results[name]
     if main_path:
         w = r["weight"].get(label, 1)
@@ -667,13 +692,19 @@ def log_earlier_e2e(phase, extra=""):
         f"{smi_line()}")
 
 
-def log_against_earlier(name, ms, bound, lib_ms):
-    """One kernel's per-call time at its main-path shape beside its earlier
-    row, its bound and the library call's time."""
+def log_against_earlier(name, label, ms, bound, lib_ms):
+    """One kernel's per-call time at a main-path shape beside its earlier
+    row (the label's, where the kernel has several), its bound, its share of
+    the bound and the library call's time."""
     was = EARLIER_MS[name]
+    if isinstance(was, dict):
+        if label not in was:
+            return
+        was = was[label]
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"  {name} per call at its main-path shape: {ms:.4f} ms (was {was:.4f} ms before the "
-        f"redesign, {was / ms:.2f}x), bound {bound[0]:.4f} ms ({bound[1]}), library {lib}")
+    log(f"  {name} {label} per call at its main-path shape: {ms:.4f} ms (was {was:.4f} ms before "
+        f"the redesign, {was / ms:.2f}x), bound {bound[0]:.4f} ms ({bound[1]}, "
+        f"{bound[0] / ms:.0%} of it), library {lib}")
 
 
 def attention_bound(b, h, valid, products, in_tensors, out_tensors):
@@ -3664,6 +3695,8 @@ def main():
         f"recipe vs plain versions")
     model = build_model(sa2_config)
     counts_xl32, counts_xl16 = sa2_xl_forward_phase(model)  # leaves the model in the recipe
+    log_earlier_e2e("[15b]", f"; the fp32 K7 per DiT forward in this run's [3k]: "
+                             f"{results['flash_forward_serving']['sa2_xl_ms']:.4f} ms (24 calls)")
     done("[15b]")
     log("[4b] SA 2.0's DiT at 6144 latent frames: kernels vs plain versions")
     dit_forward_phase(model, SA2_SAMPLE_SIZE // 2048, SA2_PROMPT, "SA 2.0")
@@ -3694,7 +3727,8 @@ def main():
             f"{TRAIN_BATCH}, {SA2_TRAIN_STEPS} steps from {SA2_WAVS} synthetic {SA2_WAV_SECONDS} s "
             f"WAVs")
         counts_long = longform_training_phase(sa2_train_config, tmp, sa2_dit_path)
-    log_earlier_e2e("[9]")
+    log_earlier_e2e("[9]", f"; K7 with LSE per 24-layer step (48 calls) in this run's [3e]: "
+                           f"{results['flash_forward']['ms']:.4f} ms")
     done("[9]")
 
     log("[4c] SA 1.0's U-Net at 4096 latent frames: kernels vs plain versions, fp32")
@@ -3725,7 +3759,8 @@ def main():
     log(f"  SA 1.0 generation, this run: bf16 recipe ([15]) {rate_sa1_bf16:.3f} s-audio/s, fp32 CLI "
         f"([10]) {rate_sa1:.3f} s-audio/s; card {smi_line()}")
     torch.cuda.empty_cache()
-    log_earlier_e2e("[10]")
+    log_earlier_e2e("[10]", f"; the fp32 K7 per step (14 calls) in this run's [3f]: "
+                            f"{results['flash_forward_serving']['ms']:.4f} ms")
     done("[10]")
     log(f"[10b] the repaired dtype: the generate CLI on stable_audio_open_1_0.json in fp32 (K1 on "
         f"bf16 casts of the fp32 qkv, the fp32 K2/K3/K4 in the decode)")
@@ -3746,7 +3781,9 @@ def main():
         log(f"[11] SA 1.0 training path: train.main on stable_audio_1_0.json, batch {TRAIN_BATCH}, "
             f"{SA1_TRAIN_STEPS} steps from {SA1_WAVS} synthetic {SA1_WAV_SECONDS} s WAVs")
         counts_sa1 = sa1_training_phase(sa1_config, tmp, unet_path)
-    log_earlier_e2e("[11]")
+    log_earlier_e2e("[11]", f"; K7 with LSE + K8 per step in this run's [3g]: "
+                            f"{results['flash_forward']['sa1_train_ms']:.4f} + "
+                            f"{results['flash_backward_fused']['ms']:.4f} ms")
     done("[11]")
 
     # phases 12b and 12 write ~3 GB (the de-zeroed LM with T5 and the tokenizer, 8 WAVs)
@@ -3754,12 +3791,15 @@ def main():
         f"T {LM_T}: the causal K7/K9 vs their fp32 plain versions; a no-grad forward")
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         lm_path, counts_lm_tok, counts_lm_step, counts_lm_eval = lm_train_step_phase(lm_config, tmp)
+        log_earlier_e2e("[12b]", f"; in this run's [3h]: "
+                                 f"{results['flash_forward_causal_serving']['ms']:.4f} ms")
         done("[12b]")
         log(f"[12] audio LM training path: train.main on musicgen_small_32khz.json, batch "
             f"{TRAIN_BATCH}, {LM_TRAIN_STEPS} steps from {LM_WAVS} synthetic {LM_WAV_SECONDS} s "
             f"mono WAVs")
         counts_lm = lm_training_phase(lm_config, tmp, lm_path)
-    log_earlier_e2e("[12]")
+    log_earlier_e2e("[12]", f"; the causal K7 with LSE per step in this run's [3h]: "
+                            f"{results['flash_forward_causal']['ms']:.4f} ms")
     done("[12]")
 
     log(f"[13b] the audio LM's cached decode at full width ({LM_GEN_DEPTH} of its 24 layers): "

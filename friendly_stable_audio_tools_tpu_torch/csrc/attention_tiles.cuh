@@ -1,12 +1,14 @@
 // Hopper building blocks of the attention kernels (attention.cu: K1/K5/K10,
-// attention_bwd.cu: K6, flash_attention_bf16.cu: the bf16 K7) on top of the
-// shared ones in hopper.cuh: the head-row tiles, the bulk reduce-add of an
-// fp32 tile into device memory, the m64n64 (m64n128, m64n16) bf16 wgmma forms and
-// the online softmax on score accumulators. A tile row is one head's first
-// 64 bf16 dims: 128 bytes, exactly one row of the 128-byte swizzle, so a TMA
-// load with CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the layout wgmma
-// reads. At head dim 80 the last 16 dims are a panel of their own, 32-byte
-// rows under CU_TENSOR_MAP_SWIZZLE_32B.
+// attention_bwd.cu: K6, flash_attention_bf16.cu: the bf16 K7,
+// flash_attention.cu: the fp32 K7, flash_attention_bwd_f32.cu: K8 and K9) on
+// top of the shared ones in hopper.cuh: the head-row tiles, the bulk
+// reduce-add of an fp32 tile into device memory, the m64n64 (m64n128, m64n16)
+// bf16 wgmma forms, the 3xTF32 split and k order, and the online softmax on
+// score accumulators. A tile row is one head's first 64 bf16 dims: 128
+// bytes, exactly one row of the 128-byte swizzle, so a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the layout wgmma reads. At head
+// dim 80 the last 16 dims are a panel of their own, 32-byte rows under
+// CU_TENSOR_MAP_SWIZZLE_32B (fp32: two such panels of 8 dims).
 #pragma once
 
 #include "hopper.cuh"
@@ -137,6 +139,62 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[32], int j, uint32_t (
   a[1] = pack_bf16(d[8 * j + 2], d[8 * j + 3]);
   a[2] = pack_bf16(d[8 * j + 4], d[8 * j + 5]);
   a[3] = pack_bf16(d[8 * j + 6], d[8 * j + 7]);
+}
+
+// ---- fp32 on the tensor cores: 3xTF32 ---------------------------------------------
+
+// The k order of the fp32 products that contract over q rows or keys (K9's
+// dV^T, dK^T and dq, K7's P.V): within each 8, k position p holds row
+// sigma(p) = 2p (p < 4) or 2(p - 4) + 1, and row r sits at position pos8(r).
+// An accumulator's column pair (8j + 2t, 8j + 2t + 1) is then exactly a
+// register-A fragment's positions (t, t + 4), and a thread's transposed
+// loads (rows 2t, 2t + 1 of a 128B-swizzled tile) hit 32 distinct banks
+// where rows t, t + 4 hit 16.
+__device__ __forceinline__ int pos8(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+}
+
+// x = hi + lo to ~2^-22: hi = tf32(x), lo = tf32(x - hi), rounded to nearest.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The tf32 A operand of a product over 64 k rows from a 64 x 64 fp32
+// accumulator in registers (rows m, columns the k rows in the pos8 order),
+// split into hi and lo: fragment (kk, e) is the accumulator's row 16 warp +
+// g + 8 (e & 1), column 8 kk + 2t + (e >> 1).
+__device__ __forceinline__ void acc_to_a_tf32(const float (&d)[32], uint32_t (&hi)[8][4],
+                                              uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_tf32(d[4 * kk + 2 * (e & 1) + (e >> 1)], hi[kk][e], lo[kk][e]);
+}
+
+// A [64][D] fp32 tile (D 64 or 80; rows along M or N, dims along K), as the
+// TMA boxes write it: dims 0-63 as two 128B-swizzled panels of 32 (8 KB
+// each), dims 64-79 as two 32B-swizzled panels of 8 (2 KB each: one k8
+// slice apiece); what the K-major wgmma operands read.
+constexpr int kF32Panel = 64 * kSwizzleRow;  // 64 rows of 32 fp32 (128 bytes)
+constexpr int kF32TailPanel = 64 * 32;       // 64 rows of 8 fp32 (32 bytes)
+
+// Byte offset of the 16-byte chunk holding element (r, c), c % 4 == 0.
+__device__ __forceinline__ uint32_t f32_row_off(int r, int c) {
+  if (c < 64) return (c >> 5) * kF32Panel + sw128_offset(r, (c & 31) >> 2);
+  return 2 * kF32Panel + ((c - 64) >> 3) * kF32TailPanel + sw32_offset(r, ((c - 64) & 7) >> 2);
+}
+
+// Byte offset of element (r, c).
+__device__ __forceinline__ uint32_t f32_row_elem(int r, int c) {
+  return f32_row_off(r, c & ~3) + (c & 3) * 4;
+}
+
+// K-major descriptor of k8 slice kk (dims 8 kk .. 8 kk + 7) of the tile.
+__device__ __forceinline__ uint64_t f32_row_desc(uint32_t tile, int kk) {
+  return kk < 8 ? kmajor_desc(tile + (kk >> 2) * kF32Panel + (kk & 3) * 32)
+                : kmajor32_desc(tile + 2 * kF32Panel + (kk - 8) * kF32TailPanel);
 }
 
 // ---- the online softmax -------------------------------------------------------

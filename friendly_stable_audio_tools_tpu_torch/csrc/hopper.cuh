@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the wgmma/TMA kernels (attention.cu,
-// attention_bwd.cu, flash_attention_bf16.cu, flash_attention_bwd_f32.cu,
-// conv_wgmma.cu, glu_mlp.cu): mbarriers, TMA loads into mbarrier-guarded
-// shared memory, warpgroup matrix products (wgmma, bf16 and tf32) on swizzled
-// tiles, and the host-side tensor maps. A tile
-// row is 128 bytes (64 bf16 or 32 fp32), exactly one row of the 128-byte
+// attention_bwd.cu, flash_attention.cu, flash_attention_bf16.cu,
+// flash_attention_bwd_f32.cu, conv_wgmma.cu, glu_mlp.cu): mbarriers, TMA
+// loads into mbarrier-guarded shared memory, warpgroup matrix products
+// (wgmma, bf16 and tf32) on swizzled tiles, and the host-side tensor maps. A
+// tile row is 128 bytes (64 bf16 or 32 fp32), exactly one row of the 128-byte
 // swizzle, so a TMA load with CU_TENSOR_MAP_SWIZZLE_128B lands a tile in the
 // layout wgmma reads; the 16 columns past 64 of a head dim of 80 are a
 // second panel of 32-byte rows under the 32-byte swizzle.
@@ -160,6 +160,7 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #define FSAT_IDX_48 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 #define FSAT_WGMMA_D16 "{" FSAT_IDX_0 "}"
 #define FSAT_WGMMA_D32 "{" FSAT_IDX_0 ", " FSAT_IDX_16 "}"
+#define FSAT_WGMMA_D40 "{" FSAT_IDX_0 ", " FSAT_IDX_16 ", %32, %33, %34, %35, %36, %37, %38, %39}"
 #define FSAT_WGMMA_D48 "{" FSAT_IDX_0 ", " FSAT_IDX_16 ", " FSAT_IDX_32 "}"
 #define FSAT_WGMMA_D64 "{" FSAT_IDX_0 ", " FSAT_IDX_16 ", " FSAT_IDX_32 ", " FSAT_IDX_48 "}"
 #define FSAT_OUT16(d, o)                                                                         \
@@ -168,6 +169,9 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
       "+f"(d[o + 11]), "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), "+f"(d[o + 15])
 #define FSAT_WGMMA_OUT16(d) FSAT_OUT16(d, 0)
 #define FSAT_WGMMA_OUT32(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16)
+#define FSAT_WGMMA_OUT40(d)                                                                      \
+  FSAT_OUT16(d, 0), FSAT_OUT16(d, 16), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
 #define FSAT_WGMMA_OUT48(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16), FSAT_OUT16(d, 32)
 #define FSAT_WGMMA_OUT64(d) FSAT_OUT16(d, 0), FSAT_OUT16(d, 16), FSAT_OUT16(d, 32), FSAT_OUT16(d, 48)
 
@@ -184,15 +188,48 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[CH / 2], const uint32_t (&
         ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
         : FSAT_WGMMA_OUT16(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  } else {
-    static_assert(CH == 64, "tf32 wgmma widths: 32, 64");
+  } else if constexpr (CH == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FSAT_WGMMA_D32
         ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
         : FSAT_WGMMA_OUT32(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    static_assert(CH == 80, "tf32 wgmma widths: 32, 64, 80");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 " FSAT_WGMMA_D40
+        ", {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : FSAT_WGMMA_OUT40(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   }
+}
+
+// d (+)= A B, m64n64k8, tf32 A and B both K-major in shared memory (tf32
+// operands from shared memory are K-major only); d is first zeroed when
+// accumulate == 0.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FSAT_WGMMA_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : FSAT_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, m64n16k8, tf32 A and B both K-major in shared memory (d[4j +
+// e], j < 2, as above).
+__device__ __forceinline__ void wgmma_tf32_ss16(float (&d)[8], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // fp32 -> tf32, round to nearest (ties away), in an fp32 container.

@@ -39,7 +39,7 @@ SIGNATURES = {
     "fsat_pair_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _P],
     "fsat_rope_pair": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "fsat_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fsat_flash_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fsat_flash_forward_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fsat_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "fsat_flash_backward_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],

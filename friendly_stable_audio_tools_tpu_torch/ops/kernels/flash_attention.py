@@ -51,20 +51,22 @@ What bounds them on the H100: compute. At B8 T6272 kv_len 6145 H24 the
 forward's two products are 1.86 TFLOP over ~1.2 GB; the function's
 backward is five products (4.64 TFLOP), which K8 and K9 do as five where
 the TPU's two passes take seven. The products must stay fp32-accurate
-(1xTF32 keeps ~3 digits). K7 and K8 (csrc/flash_attention.cu) run them as
-FFMA on the CUDA cores, register-tiled 8 x 4 per thread from 64 x 64 fp32
-tiles in shared memory; K7 streams key tiles through an online base-2
-softmax, which gives the TPU kernel's whole-row softmax up to rounding. The
-TPU's K8 carries dk/dv across a sequential q grid with K and V resident in
-VMEM; the CUDA K8 is FlashAttention-2's single pass instead: one block per
-key tile keeps dk/dv in registers over every q tile and adds its part of dq
-into a zeroed fp32 buffer with atomics, so dq's summation order (and its
-last bits) changes from run to run. K9 (csrc/flash_attention_bwd_f32.cu) is
-the same single pass on the tensor cores, every product as 3xTF32 wgmma on
-TMA-fed tiles: a block per 64 keys holds their K, V and K^T as tf32 hi/lo
-tiles, two warpgroups take the q tiles in turn, and each q tile's dq rows
-go into the zeroed dq by bulk reduce-adds, so its dq too is summed in an
-order that changes from run to run (dk and dv are bit-equal between runs).
+(1xTF32 keeps ~3 digits), so every kernel runs them on the tensor cores as
+3xTF32 wgmma on TMA-fed tiles (hi = tf32(x), lo = tf32(x - hi); a_lo b_hi +
+a_hi b_lo + a_hi b_hi). K7 (csrc/flash_attention.cu) splits K and V^T into
+tf32 hi/lo parts in a pre-pass (scratch from :func:`forward_scratch_floats`),
+then a producer warp streams their 64-key tiles into a ring and two
+consumer warpgroups of 64 q rows run S = q' K^T, an online base-2 softmax
+and P.V in turns, each tile's P.V added into fp32 totals; this gives the
+TPU kernel's whole-row softmax up to rounding. The TPU's K8 carries dk/dv
+across a sequential q grid with K and V resident in VMEM; K8 and K9
+(csrc/flash_attention_bwd_f32.cu) are FlashAttention-2's single pass
+instead: a block per 64 keys holds their K, V and K^T as tf32 hi/lo tiles,
+its warpgroups take the q tiles in turn, and each q tile's dq rows go into
+the zeroed dq by bulk reduce-adds, so dq is summed in an order that changes
+from run to run (dk and dv are bit-equal between runs). K8 at D 64 is K9's
+kernel with K8's constants (q prescaled, ds unscaled, the scale on dq and
+dk); at D 80 a kernel of its own with one warpgroup per block.
 
 The causal kernels skip the key tiles past a q tile's diagonal (and the q
 tiles before a key tile's) and mask only the diagonal tile: at T 1501 the
@@ -80,7 +82,8 @@ softmax in fp32, P rounded to bf16 before P.V, the output rounded once) and
 what ``_online_kernel`` computes beyond 8192 keys: both are one streaming
 loop here, the fp32 K7 likewise. Its products run on the tensor cores as
 wgmma on K/V tiles that a producer warpgroup streams in by TMA (the head-pair
-forward's design; at head dim 80 each tile is a 64-dim and a 16-dim panel).
+forward's design; at head dim 80 each tile is a 64-dim and a 16-dim panel;
+the fp32 K7 takes the same design with 3xTF32 products).
 
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
 the kernels or raise. The CUDA kernels take q, k and v of one length; K7
@@ -285,6 +288,14 @@ def _lse_delta(name: str, lse: torch.Tensor, out: torch.Tensor, do: torch.Tensor
     return lse.contiguous(), (do * out).sum(-1)
 
 
+def forward_scratch_floats(bh: int, t: int, d: int) -> int:
+    """fp32 K7's scratch (csrc/flash_attention.cu): the pre-pass's tf32 hi/lo
+    parts of K [2, BH, T, D] and of V^T [2, BH, D, Tp], Tp = T rounded up to
+    the 64-key tile."""
+    tp = (t + 63) // 64 * 64
+    return 2 * bh * t * d + 2 * bh * d * tp
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -328,9 +339,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
+    scratch = torch.empty(forward_scratch_floats(bh, t, d), device=q.device, dtype=torch.float32)
     err = build.library().fsat_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), bh, t, valid, d, int(causal),
+        None if lse is None else lse.data_ptr(), scratch.data_ptr(), bh, t, valid, d, int(causal),
         LOG2E / math.sqrt(d), _stream(q.device))
     build.check(err, "flash_forward")
     if causal and save_stats:

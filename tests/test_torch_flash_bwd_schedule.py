@@ -28,9 +28,20 @@ rather than summing them in the accumulators: over SA 2.0's 6272 q rows the
 truncating accumulate alone drifts past 1e-5. The launch plan (the kernel's
 shared-memory layout and its TMA boxes) is checked against the card's
 limits. Inputs come from numpy with fixed seeds.
+
+K8 (`flash_backward_fused`, non-causal) runs the same kernel at head dim 64
+with its own formula order: q' = q log2(e)/sqrt(D) as the A operand of S
+and of dK^T, P = exp2(S - lse), dS = P (dP - delta) unscaled, dq = (dS K) /
+sqrt(D), dk = (dS^T q') / log2(e). At head dim 80 one warpgroup takes every
+q tile (the tiles do not fit two), S and dP sum ten k8 slices, dq is an
+m64n80 product, and dK and dV take dims 0-63 as above and dims 64-79 from
+products with the keys as rows: dV[:, 64:] = P^T dO[:, 64:] and dK[:, 64:] =
+dS^T q'[:, 64:]. Against `flash_backward_fused_plain`: rel-L2 <= 1e-5;
+against the JAX `_flash_backward_fused` in interpret mode: rel-L2 <= 1e-4.
 """
 
 import functools
+import math
 import re
 
 import jax.numpy as jnp
@@ -93,13 +104,19 @@ def _tiles(x, n):
     return pad.view(bh, n, TILE, d)
 
 
-def backward_schedule(q, k, v, out, lse, do, kv_len=None, causal=False):
-    """K9 as the kernel schedules it: (dq, dk, dv) [BH, T, 64] fp32."""
+def backward_schedule(q, k, v, out, lse, do, kv_len=None, causal=False, fused=False):
+    """K9 (or with `fused`, K8) as the kernel schedules it: (dq, dk, dv)
+    [BH, T, D] fp32, D 64 or 80."""
     bh, t, d = q.shape
     valid = kv_len or t
     n = (t + TILE - 1) // TILE
+    scale = 1.0 / math.sqrt(d)
+    # (q's factor, s's, ds's, dq's, dk's): K8's order or K9's
+    c_q, c_s, c_ds, c_dq, c_dk = ((scale * tflash.LOG2E, 1.0, 1.0, scale, 1.0 / tflash.LOG2E)
+                                  if fused else (1.0, scale * tflash.LOG2E, scale, 1.0, 1.0))
+    warpgroups = WARPGROUPS if d == 64 else 1
     delta = (do * out).sum(-1)  # beside the kernel, as the wrapper computes it
-    qt, dot, kt, vt = (_tiles(x, n) for x in (q, do, k, v))
+    qt, dot, kt, vt = (_tiles(x, n) for x in (q * c_q, do, k, v))
     lse_t, delta_t = (_tiles(x[..., None], n)[..., 0] for x in (lse, delta))
     dq = torch.zeros(bh, n * TILE, d)
     dk = torch.zeros(bh, n * TILE, d)
@@ -108,10 +125,10 @@ def backward_schedule(q, k, v, out, lse, do, kv_len=None, causal=False):
     for kb in range((valid + TILE - 1) // TILE):
         k0 = kb * TILE
         keys = k0 + rows
-        tot_k = [torch.zeros(bh, d, TILE) for _ in range(WARPGROUPS)]
-        tot_v = [torch.zeros(bh, d, TILE) for _ in range(WARPGROUPS)]
-        for w in range(WARPGROUPS):
-            tiles = list(range((kb if causal else 0) + w, n, WARPGROUPS))
+        tot_k = [torch.zeros(bh, d, TILE) for _ in range(warpgroups)]
+        tot_v = [torch.zeros(bh, d, TILE) for _ in range(warpgroups)]
+        for w in range(warpgroups):
+            tiles = list(range((kb if causal else 0) + w, n, warpgroups))
             if not tiles:
                 continue
             # the warpgroup's tiles are independent until their sums: batched
@@ -121,19 +138,23 @@ def backward_schedule(q, k, v, out, lse, do, kv_len=None, causal=False):
             if causal:
                 keep &= keys[None, None, :] <= q_rows[:, :, None]
             s = product(qs, kt[:, kb, None].transpose(-1, -2))
-            p = torch.where(keep, torch.exp2(s * (tflash.LOG2E / 8) - lse_t[:, tiles, :, None]),
-                            torch.zeros(()))
+            p = torch.where(keep, torch.exp2(s * c_s - lse_t[:, tiles, :, None]), torch.zeros(()))
             dp = product(dos, vt[:, kb, None].transpose(-1, -2))
-            ds = p * (dp - delta_t[:, tiles, :, None]) * (1.0 / 8)
-            part_v = product(dos.transpose(-1, -2), p)   # dV^T
-            part_k = product(qs.transpose(-1, -2), ds)   # dK^T
+            ds = p * (dp - delta_t[:, tiles, :, None]) * c_ds
+            part_v = product(dos[..., :64].transpose(-1, -2), p)   # dV^T, dims 0-63
+            part_k = product(qs[..., :64].transpose(-1, -2), ds)   # dK^T
+            if d > 64:  # dims 64-79: the keys as rows
+                part_v = torch.cat([part_v, product(p.transpose(-1, -2), dos[..., 64:])
+                                    .transpose(-1, -2)], dim=-2)
+                part_k = torch.cat([part_k, product(ds.transpose(-1, -2), qs[..., 64:])
+                                    .transpose(-1, -2)], dim=-2)
             part_q = product(ds, kt[:, kb, None])        # dq
             for i, tile in enumerate(tiles):
                 tot_v[w] = tot_v[w] + part_v[:, i]
                 tot_k[w] = tot_k[w] + part_k[:, i]
-                dq[:, tile * TILE:(tile + 1) * TILE] += part_q[:, i]
-        dv[:, k0:k0 + TILE] = (tot_v[0] + tot_v[1]).transpose(-1, -2)
-        dk[:, k0:k0 + TILE] = (tot_k[1] + tot_k[0]).transpose(-1, -2)
+                dq[:, tile * TILE:(tile + 1) * TILE] += part_q[:, i] * c_dq
+        dv[:, k0:k0 + TILE] = sum(tot_v).transpose(-1, -2)
+        dk[:, k0:k0 + TILE] = (sum(tot_k) * c_dk).transpose(-1, -2)
     return dq[:, :t], dk[:, :t], dv[:, :t]
 
 
@@ -250,6 +271,65 @@ def test_launch_plan_fits_the_card():
         tflash._cuda_args("flash_backward", meta[1], meta[1])
     with pytest.raises(NotImplementedError, match="queue B"):  # K9 at D 80 stays to port
         tflash._cuda_args("flash_backward", torch.empty(2, 64, 80, device="meta"))
+
+
+# (BH, T, D, kv_len) of K8: T below one tile; D 80 with a masked tail; kv_len
+# one key into a key block at D 80; a ragged T past two tiles at D 64
+K8_CASES = [(2, 77, 64, None), (2, 200, 80, 190), (1, 130, 80, 65), (2, 150, 64, 129)]
+
+
+@functools.lru_cache(maxsize=None)
+def _k8_case(bh, t, d, kv_len):
+    """Inputs from numpy (the JAX forward's out and lse) and K8's schedule."""
+    rng = np.random.RandomState(t + 5 * d + 7 * bh + (kv_len or 0))
+    q, k, v, g = (rng.randn(bh, t, d).astype(np.float32) for _ in range(4))
+    if kv_len is not None:
+        g[:, kv_len:] = 0  # as on the transformer's path
+    out, lse = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), False,
+                                  jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K, save_stats=True,
+                                  kv_len=kv_len)
+    inputs = [torch.tensor(np.asarray(x, np.float32)) for x in (q, k, v, out)]
+    inputs += [torch.tensor(np.asarray(lse)[:, :t, 0]), torch.tensor(g)]
+    return (q, k, v, out, lse, g), inputs, backward_schedule(*inputs, kv_len, fused=True)
+
+
+@pytest.mark.parametrize("bh,t,d,kv_len", K8_CASES)
+def test_k8_schedule_matches_plain(interpret, bh, t, d, kv_len):
+    _, inputs, got = _k8_case(bh, t, d, kv_len)
+    want = tflash.flash_backward_fused_plain(*inputs, kv_len)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == (bh, t, d)
+        assert _rel(_np(a), _np(b)) <= 1e-5, name
+        if kv_len is not None:
+            assert not _np(a)[:, kv_len:].any(), name
+
+
+@pytest.mark.parametrize("bh,t,d,kv_len", K8_CASES)
+def test_k8_schedule_matches_pallas(interpret, bh, t, d, kv_len):
+    (q, k, v, out, lse, g), _, got = _k8_case(bh, t, d, kv_len)
+    want = jfa._flash_backward_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
+                                     jnp.asarray(g), kv_len or t)
+    assert want is not None  # the JAX package's plan fits: it runs K8 here
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(_np(a), b) <= 1e-4, name
+
+
+def test_k8_d80_launch_plan_fits_the_card():
+    """K8 at head dim 80 (one warpgroup per block): K and V hi/lo as [64][80]
+    tiles (two 128B-swizzled panels of 32 dims, two 32B-swizzled of 8), K^T
+    hi/lo as 80 dims x 64 keys, the q and dO tiles, the P^T/dS^T hi/lo pair
+    (which also stages the 64 dq rows of 84 floats), the 16 dims' dO^T and
+    q'^T hi/lo, two mbarriers and 1024 bytes of slack fit one block; every
+    panel starts on its swizzle atom; the TMA boxes are one swizzle row."""
+    text = SOURCE.read_text()
+    assert _constant("kD80", text) == "80" and _constant("kStageRow80", text) == "kD80 + 4"
+    row_tile = 64 * 80 * 4
+    kt_pair, x_pair, tail = 2 * 80 * 128 * 2, 2 * 64 * 32 * 4 * 2, 16 * 128 * 2
+    smem = 4 * row_tile + kt_pair + 2 * row_tile + x_pair + 4 * tail + 2 * 8 + 1024
+    assert smem == 214_032 <= SMEM_LIMIT
+    assert row_tile % 1024 == 0 and 80 * 128 % 1024 == 0 and tail % 1024 == 0
+    assert 64 * 32 % 256 == 0 and 32 * 4 == 128 and 8 * 4 == 32
+    assert 64 * (80 + 4) * 4 <= x_pair and (80 + 4) * 4 % 16 == 0 and 80 * 4 % 16 == 0
 
 
 def test_cpu_tensors_launch_nothing(interpret):

@@ -311,11 +311,15 @@ def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
     _close(qkv.grad, ref.grad, tol=1e-4)
 
 
-@pytest.mark.parametrize("bh,t,d,kv", [(3, 200, 80, 190), (2, 1184, 64, 1177), (4, 1024, 80, None)])
+@pytest.mark.parametrize("bh,t,d,kv", [(3, 200, 80, 190), (2, 1184, 64, 1177), (4, 1024, 80, None),
+                                       (2, 77, 64, None), (2, 130, 64, 65), (2, 150, 80, 129),
+                                       (2, 2048, 64, None)])
 def test_flash_backward_fused_matches_plain_in_fp32(gen, bh, t, d, kv):
     """K8 (one launch) against its plain version from the same residuals:
-    dq, dk, dv rel-L2 1e-5 each, exactly zero on padded rows; other head
-    dims raise."""
+    dq, dk, dv rel-L2 1e-5 each, exactly zero on padded rows, at T below,
+    past and at whole tiles, kv_len one key into a tile, head dims 64 and
+    80; run twice, dk and dv bit-equal and dq within rel-L2 1e-6 (summed in
+    a varying order); other head dims raise."""
     q, k, v, do = (_rnd(gen, bh, t, d) for _ in range(4))
     if kv is not None:
         do[:, kv:] = 0
@@ -327,6 +331,7 @@ def test_flash_backward_fused_matches_plain_in_fp32(gen, bh, t, d, kv):
         _close(got, want, tol=1e-5)
         if kv is not None:
             assert not got[:, kv:].any()
+    _k9_agrees_with_itself(grads, tflash.flash_backward_fused(q, k, v, out, lse, do, kv))
     with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
         tflash.flash_backward_fused(*(x[..., :48].contiguous() for x in (q, k, v, out)),
                                     lse, do[..., :48].contiguous(), kv)
@@ -363,17 +368,41 @@ def test_fp32_conv_kernels_match_plain(gen):
         tconv.snake_conv_transpose1d(x, wt[..., :80], None, stride=4)
 
 
-@pytest.mark.parametrize("t,d", [(1024, 80), (2048, 64), (200, 80)])
-def test_flash_forward_serving_matches_plain(gen, t, d):
-    """K7 without the LSE (the ADP U-Net's self-attention) at head dims 64
-    and 80 against its plain version; other head dims raise."""
-    q, k, v = (_rnd(gen, 6, t, d) for _ in range(3))
+@pytest.mark.parametrize("t,d,kv", [(1024, 80, None), (2048, 64, None), (200, 80, None),
+                                    (77, 64, None), (130, 80, 65), (8576, 64, 8449)])
+def test_flash_forward_serving_matches_plain(gen, t, d, kv):
+    """K7 without the LSE (the ADP U-Net's self-attention; the DiT's past
+    8192 tokens) at head dims 64 and 80 against its plain version, at T
+    below and past whole tiles and kv_len one key into a tile; other head
+    dims raise."""
+    q, k, v = (_rnd(gen, 6 if t < 8192 else 2, t, d) for _ in range(3))
     before = tflash.serving_launches
-    out, lse = tflash.flash_forward(q, k, v, save_stats=False)
+    out, lse = tflash.flash_forward(q, k, v, kv, save_stats=False)
     assert lse is None and tflash.serving_launches == before + 1
-    _close(out, tflash.flash_forward_plain(q, k, v, save_stats=False)[0], 1e-5)
+    _close(out, tflash.flash_forward_plain(q, k, v, kv, save_stats=False)[0], 1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
         tflash.flash_forward(q[..., :48], k[..., :48], v[..., :48], save_stats=False)
+
+
+@pytest.mark.parametrize("bh,t,d,kv,causal", [(3, 200, 80, None, True), (2, 1501, 80, None, True),
+                                              (2, 130, 80, 65, False), (3, 333, 64, 257, False),
+                                              (2, 1024, 80, None, False)])
+def test_fp32_flash_forward_with_and_without_lse_at_d80_and_kv_len(gen, bh, t, d, kv, causal):
+    """The fp32 K7 with and without its LSE, causal or with kv_len one key
+    into a tile, at head dims 80 and 64, against its plain version (out
+    rel-L2 1e-5, LSE max abs 1e-4), one launch each under its own counter."""
+    q, k, v = (_rnd(gen, bh, t, d) for _ in range(3))
+    counts = lambda: (tflash.forward_launches, tflash.serving_launches,  # noqa: E731
+                      tflash.causal_forward_launches, tflash.causal_serving_launches)
+    before = counts()
+    out, lse = tflash.flash_forward(q, k, v, kv, causal=causal)
+    served, none = tflash.flash_forward(q, k, v, kv, save_stats=False, causal=causal)
+    step = (0, 0, 1, 1) if causal else (1, 1, 0, 0)
+    assert none is None and counts() == tuple(a + b for a, b in zip(before, step))
+    out_p, lse_p = tflash.flash_forward_plain(q, k, v, kv, causal=causal)
+    _close(out, out_p, 1e-5)
+    _close(served, out_p, 1e-5)
+    assert (lse - lse_p).abs().max().item() <= 1e-4
 
 
 def test_sdpa_gate_sends_long_self_attention_to_k7(gen):
@@ -427,7 +456,7 @@ def _causal_counts():
 
 
 @pytest.mark.parametrize("bh,t", [(3, 200), (4, 1501), (2, 1100), (1, 64), (2, 65),
-                                  (1, 129)])
+                                  (1, 129), (2, 127)])
 def test_causal_flash_kernels_match_plain_in_fp32(gen, bh, t):
     """The causal K7 with and without its LSE and the causal K9 against their
     plain versions (rel-L2 1e-5, K9 1e-4), each counted apart from the
