@@ -27,9 +27,14 @@ Phases (any failure raises and the script exits non-zero):
    names the route `conv_route` gave it, and a wide one also times the thin
    route's kernel; each path's K2 and K4 totals print beside the earlier
    ones (`EARLIER_CONV_MS`, `log_conv_path`), flagged where they drift more than
-   CONV_DRIFT (5%) from it; the wide K2 and K4 at ragged
-   shapes (B 2, T 333, 96 -> 96, dilation 9; B 2, T 77, 192 -> 96, stride 8,
-   both with a snake);
+   CONV_DRIFT (5%) from it; each K3 shape (here, in [3c] and [3f]) names
+   the route `ru_route` gave it and prints beside its WMMA kernel's time
+   (`EARLIER_MS`) and the unfused library chain (cuDNN's k7 conv on the
+   snaked input, then a cuBLAS GEMM; TF32 off in fp32), each path's K3
+   total beside the earlier one (`EARLIER_RU_MS`, `log_ru_path`); the wide
+   K2 and K4 at ragged shapes (B 2, T 333, 96 -> 96, dilation 9; B 2, T 77,
+   192 -> 96, stride 8, both with a snake), K3 at B 2, T 333, C 128 and T
+   77, C 1024 (the split route), dilation 9;
    3b. the training attention kernels K5 (forward with LSE) and K6
    (backward) against their plain versions at the training shape (B 8,
    T 1040, kv_len 1025, 24 heads) and three smaller ones; K6 twice on the
@@ -352,8 +357,8 @@ TOL = {
     "flash_backward_fused": (1e-5, 1e-4),
     # the fp32 kernels against their fp32 plain versions (TF32 off): K7
     # without its LSE (3xTF32, each key tile's P.V added in fp32), K2 (thin
-    # route: FFMA), K3 and K4 (3xTF32, each tensor-core partial sum of at most
-    # six products added in fp32): summation order only
+    # route: FFMA), K3 and K4 (3xTF32, each tensor-core partial sum added
+    # into an fp32 total every F32_FLUSH stages): summation order only
     "flash_forward_serving": (1e-5, 1e-4),
     "snake_conv1d_f32": (1e-5, 1e-4),
     "fused_residual_unit_f32": (1e-5, 1e-4),
@@ -399,7 +404,8 @@ K6_RUN_TO_RUN = 1e-6
 # the redesigned kernels' per-call times at their main-path shapes before
 # their wgmma/TMA redesigns (PERF.md §6's earlier rows, NVIDIA H100 80GB
 # HBM3, 700 W: the head-pair kernels' first CUDA versions, K9's and the
-# causal K9's FFMA two-pass kernels, the fp32 K7's and K8's FFMA kernels),
+# causal K9's FFMA two-pass kernels, the fp32 K7's and K8's FFMA kernels,
+# K3's WMMA kernels),
 # by label where a kernel has several main-path shapes: printed beside this
 # run's
 EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stats": 1.7254,
@@ -416,7 +422,53 @@ EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stat
               "flash_forward_causal": 1.2969, "flash_forward_causal_serving": 1.6428,
               "flash_backward_fused": {"BH128 T4096 D64 kv_len None": 44.8828,
                                        "BH128 T2048 D64 kv_len None": 11.9388,
-                                       "BH128 T1024 D80 kv_len None": 4.9380}}
+                                       "BH128 T1024 D80 kv_len None": 4.9380},
+              # K3's WMMA kernels by shape (PR 18's final run)
+              "fused_residual_unit": {
+                  "B1 T49152 C1024 d1": 17.5744, "B1 T49152 C1024 d3": 17.6944,
+                  "B1 T49152 C1024 d9": 17.8331, "B1 T393216 C512 d1": 26.7915,
+                  "B1 T393216 C512 d3": 26.8292, "B1 T393216 C512 d9": 27.1197,
+                  "B1 T1572864 C256 d1": 16.9001, "B1 T1572864 C256 d3": 17.1951,
+                  "B1 T1572864 C256 d9": 17.2026, "B1 T6291456 C128 d1": 19.3452,
+                  "B1 T6291456 C128 d3": 19.3974, "B1 T6291456 C128 d9": 19.4361,
+                  "B1 T12582912 C128 d1": 38.0549, "B1 T12582912 C128 d3": 38.4133,
+                  "B1 T12582912 C128 d9": 38.728, "B1 T8192 C1024 d1": 2.9059,
+                  "B1 T8192 C1024 d3": 2.9204, "B1 T8192 C1024 d9": 2.9471,
+                  "B1 T65536 C512 d1": 4.6269, "B1 T65536 C512 d3": 4.707,
+                  "B1 T65536 C512 d9": 4.7626, "B1 T262144 C256 d1": 2.9279,
+                  "B1 T262144 C256 d3": 2.9357, "B1 T262144 C256 d9": 2.9809,
+                  "B1 T1048576 C128 d1": 3.2292, "B1 T1048576 C128 d3": 3.2337,
+                  "B1 T1048576 C128 d9": 3.2813, "B1 T2097152 C128 d1": 6.4458,
+                  "B1 T2097152 C128 d3": 6.5202, "B1 T2097152 C128 d9": 6.5828},
+              "fused_residual_unit_f32": {
+                  "B1 T49152 C1024 d1": 77.1196, "B1 T49152 C1024 d3": 77.411,
+                  "B1 T49152 C1024 d9": 78.5386, "B1 T393216 C512 d1": 124.522,
+                  "B1 T393216 C512 d3": 125.9183, "B1 T393216 C512 d9": 128.3895,
+                  "B1 T1572864 C256 d1": 79.6042, "B1 T1572864 C256 d3": 79.8809,
+                  "B1 T1572864 C256 d9": 81.1486, "B1 T6291456 C128 d1": 82.6592,
+                  "B1 T6291456 C128 d3": 83.0249, "B1 T6291456 C128 d9": 84.336,
+                  "B1 T12582912 C128 d1": 165.0171, "B1 T12582912 C128 d3": 165.5645,
+                  "B1 T12582912 C128 d9": 167.9183, "B1 T8192 C1024 d1": 13.1292,
+                  "B1 T8192 C1024 d3": 12.9979, "B1 T8192 C1024 d9": 13.0624,
+                  "B1 T65536 C512 d1": 21.8553, "B1 T65536 C512 d3": 22.2303,
+                  "B1 T65536 C512 d9": 22.8334, "B1 T262144 C256 d1": 13.4643,
+                  "B1 T262144 C256 d3": 13.6296, "B1 T262144 C256 d9": 13.835,
+                  "B1 T1048576 C128 d1": 13.9597, "B1 T1048576 C128 d3": 14.0166,
+                  "B1 T1048576 C128 d9": 14.306, "B1 T2097152 C128 d1": 27.8211,
+                  "B1 T2097152 C128 d3": 28.1017, "B1 T2097152 C128 d9": 28.5221}}
+# K3's WMMA kernels per main path (PERF.md §6's rows; NVIDIA H100 80GB HBM3,
+# 700 W): ms by (kernel, results field), printed beside this run's
+# (`log_ru_path`)
+EARLIER_RU_MS = {
+    ("fused_residual_unit", "ms"): 353.5303,
+    ("fused_residual_unit", "sao_decode_ms"): 60.3580,
+    ("fused_residual_unit", "encode_ms"): 482.5375,
+    ("fused_residual_unit", "sa2_encode_ms"): 2818.7930,
+    ("fused_residual_unit_f32", "ms"): 271.4719,
+    ("fused_residual_unit_f32", "sa2_decode_ms"): 1606.9373,
+    ("fused_residual_unit_f32", "encode_ms"): 2174.3403,
+    ("fused_residual_unit_f32", "sa2_encode_ms"): 12847.6923,
+}
 # the bf16 K7's per-call times by [3k] shape before its wgmma/TMA redesign
 # (the mma.sync kernel; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W): printed
 # beside this run's
@@ -746,6 +798,38 @@ def conv_library(x, w, bias, alpha, inv_beta, dilation=1, stride=None):
     return lambda: F.conv_transpose1d(xs, wt, bb, stride=stride, padding=stride // 2)
 
 
+def ru_library(x, w1, b1, alpha1, inv_beta1, w2, dilation):
+    """The unfused library chain timed beside K3 (never called by the port):
+    cuDNN's k7 dilated conv (+ b1) on the already snaked input, then a
+    cuBLAS GEMM by w2, in x's dtype (fp32 with TF32 off), channels-first; it
+    leaves snake2, b2 and the residual out."""
+    import torch
+    import torch.nn.functional as F
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    dt = x.dtype
+    xs = conv1d.snake(x.float(), alpha1, inv_beta1).to(dt).transpose(1, 2).contiguous()
+    w1t = w1.permute(2, 1, 0).to(dt).contiguous()
+    w2t = w2.t().to(dt).contiguous()
+    bb = b1.to(dt)
+    return lambda: torch.matmul(w2t, F.conv1d(xs, w1t, bb, padding=3 * dilation,
+                                              dilation=dilation))
+
+
+def log_ru_path(results, dtype, field, what):
+    """K3's total per main path `what` on `dtype` beside its earlier figure
+    (EARLIER_RU_MS), with the plain version's, the bound and its share of
+    it, and the unfused library chain's."""
+    name = conv_name("fused_residual_unit", dtype)
+    r = results[name]
+    ms, bound, lib = r[field], r["bound_" + field], r["library_" + field]
+    was = EARLIER_RU_MS[(name, field)]
+    log(f"  {name}: {ms:.4f} ms per {what}; earlier {was:.4f} ms ({was / ms:.2f}x), plain "
+        f"{r['plain_' + field]:.4f} ms, bound {bound:.4f} ms ({bound / ms:.0%} of it), library "
+        f"chain {'none' if lib is None else f'{lib:.4f} ms'}; card {smi_line()}")
+
+
 def conv_name(name, dtype):
     """The results entry of conv kernel `name` for activations of `dtype`."""
     import torch
@@ -918,8 +1002,9 @@ def decode_conv_phase(results, dtype, fields):
                     ru,
                     lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
                     lambda: segmented(lambda xs: conv1d.fused_residual_unit_plain(
-                        xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d)),
-                    bound=bound, field=ru_field)
+                        xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d),
+                    library_fn=ru_library(x, w1, b1, a1, i1, w2, d)),
+                    bound=bound, field=ru_field, extra=f", route {conv1d.ru_route(c, dtype)}")
             del x
         # K4: the 5 upsamples
         for t, cin, cout, st in [(frames, 2048, 1024, 8), (frames * 8, 1024, 512, 8),
@@ -935,6 +1020,7 @@ def decode_conv_phase(results, dtype, fields):
                       2 * t * st * cin * cout * 2, halo=1, up=st, stride=st)
             del x
         what = f"{'SA 2.0' if which == 'sa2' else 'SAO 1.0'} decode"
+        log_ru_path(results, dtype, ru_field, f"{what} (15 calls)")
         log_conv_path(results, "snake_conv1d", dtype, field, f"{what} (2 calls)")
         log_conv_path(results, "snake_conv_transpose1d", dtype, field, f"{what} (5 calls)")
 
@@ -964,6 +1050,15 @@ def decode_conv_phase(results, dtype, fields):
     report(results, name, "B2 T333 C128 d9", False, *compare(
         name, lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9),
         lambda: conv1d.fused_residual_unit_plain(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=9)))
+    # the split route under one row tile, both zero edges in its halo
+    x = rnd(2, 77, 1024, scale=0.5).to(dtype)
+    w1, w2 = rnd(7, 1024, 1024, scale=1 / math.sqrt(7 * 1024)), rnd(1024, 1024, scale=1 / 32)
+    b1k, b2k = rnd(1024, scale=0.1), rnd(1024, scale=0.1)
+    (a1, i1), (a2, i2) = snake_params(rnd, 1024), snake_params(rnd, 1024)
+    report(results, name, "B2 T77 C1024 d9", False, *compare(
+        name, lambda: conv1d.fused_residual_unit(x, w1, b1k, a1, i1, w2, b2k, a2, i2, dilation=9),
+        lambda: conv1d.fused_residual_unit_plain(x, w1, b1k, a1, i1, w2, b2k, a2, i2, dilation=9)),
+        extra=f", route {conv1d.ru_route(1024, dtype)}")
     cout = 96 if dtype == torch.float32 else 128  # the shapes of earlier runs
     x = rnd(2, 77, 128, scale=0.5).to(dtype)
     w = rnd(8, 128, cout, scale=1 / math.sqrt(2 * 128))
@@ -1100,14 +1195,13 @@ def encoder_conv_phase(results, config, field, dtype=None):
                 ru,
                 lambda: conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d),
                 lambda: segmented(lambda xs: conv1d.fused_residual_unit_plain(
-                    xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d)),
-                bound=bound, field=field)
+                    xs, w1, b1, a1, i1, w2, b2, a2, i2, dilation=d), x, 3 * d),
+                library_fn=ru_library(x, w1, b1, a1, i1, w2, d)),
+                bound=bound, field=field, extra=f", route {conv1d.ru_route(c, dtype)}")
         del x
     log_conv_path(results, "snake_conv1d", dtype, field,
                   f"training-step encode ({2 * calls} calls: 2 per call, {calls} calls at batch {b})")
-    r = results[ru]
-    log(f"  {ru}: {r[field]:.4f} ms per training-step encode ({calls} calls at batch "
-        f"{b}), plain {r['plain_' + field]:.4f} ms, bound {r['bound_' + field]:.4f} ms")
+    log_ru_path(results, dtype, field, f"training-step encode ({calls} calls at batch {b})")
 
 
 def dac_decode_k2_cases():
@@ -3445,7 +3539,7 @@ def new_results():
         "snake_conv1d_wide": dict(route="cuda", source=src + "conv_wgmma.cu",
                                   replaces=tpu + "conv1d.py:91",
                                   per="SA 2.0 decode (1 call on the wide route: conv_in 64 -> 2048)"),
-        "fused_residual_unit": dict(route="cuda", source=src + "conv1d.cu",
+        "fused_residual_unit": dict(route="cuda", source=src + "residual_unit.cu",
                                     replaces=tpu + "conv1d.py:507", per="SA 2.0 decode (15 calls)"),
         "snake_conv_transpose1d": dict(route="cuda", source=src + "conv_wgmma.cu",
                                        replaces=tpu + "conv1d.py:262", per="SA 2.0 decode (5 calls)"),
@@ -3464,7 +3558,7 @@ def new_results():
         "snake_conv1d_wide_f32": dict(route="cuda", source=src + "conv_wgmma.cu",
                                       replaces=tpu + "conv1d.py:91",
                                       per="SA 1.0 DAC decode (25 calls on the wide route)"),
-        "fused_residual_unit_f32": dict(route="cuda", source=src + "conv1d_f32.cu",
+        "fused_residual_unit_f32": dict(route="cuda", source=src + "residual_unit.cu",
                                         replaces=tpu + "conv1d.py:507",
                                         per="SAO 1.0 fp32 decode (15 calls)"),
         "snake_conv_transpose1d_f32": dict(route="cuda", source=src + "conv_wgmma.cu",

@@ -5,8 +5,8 @@ wide route and K4) on the card.
     python -m friendly_stable_audio_tools_tpu_torch.conv_variants --paths CHECKOUT [CHECKOUT ...]
 
 1. ``ptxas``: registers, shared memory and spills of every kernel in
-   conv_wgmma.cu (nvcc -Xptxas -v with build.NVCC_FLAGS; the mainloop is
-   csrc/taps_wgmma.cuh);
+   conv_wgmma.cu and residual_unit.cu (K3) (nvcc -Xptxas -v with
+   build.NVCC_FLAGS; the mainloops are csrc/taps_wgmma.cuh);
 2. ``check``: the wide kernel in bf16 and fp32, K2 and K4, against the
    plain versions at ragged and at DAC/Oobleck widths (rel-L2 within 2e-3
    in bf16, 1e-5 in fp32); with --check the script stops here;
@@ -23,7 +23,17 @@ wide route and K4) on the card.
    the best of its two turns, with the shipped library and with
    ``scale_d_zero`` (the partial sum started by a scale-d = 0 wgmma after each
    flush instead of zeroed by the CUDA cores);
-6. ``profile``: torch.profiler over calls of the public wrappers at
+6. ``k3``: K3 (csrc/residual_unit.cu) at SA 2.0's decode shapes (C 1024,
+   512, 256, 128, dilation 3) in bf16 and fp32, through its C entry with
+   its weights prepared once: the shipped route and plan beside, in turns,
+   the other route wherever both run (bf16 C <= 512), the split route's
+   conv snaking each tap's A tile (``ru_split_tap_snake``), smaller rings
+   and two blocks per SM at bf16 C 128 (``ru_2cta``), each with its rel-L2
+   to the shipped kernel's output, and, timing only, the fused route
+   without its weight loads past the first ring (``ru_no_w_loads``: the
+   most a multicast of the weight tiles could save); each with its share
+   of the bound;
+7. ``profile``: torch.profiler over calls of the public wrappers at
    main-path shapes: the device time of the conv kernel, of the weights'
    K-major pass and of everything else per call, and the conv kernel's
    share of its bound; the Oobleck upsamples (which fuse the snake) also
@@ -37,8 +47,8 @@ device and nvcc.
 [3f], [3h], [3i]'s SEANet decode, [3k]) in each checkout given (the root of
 a checkout of this repo, e.g. the parent commit unpacked by ``git
 archive``), each in its own process, in turns (A, B, ..., B, A), and prints
-each run's per-path K2/K4 totals: a change to the convolution kernels held
-against its parent on one card.
+each run's per-path K2/K4 totals and K3's: a change to the convolution
+kernels held against its parent on one card.
 """
 
 from __future__ import annotations
@@ -64,9 +74,35 @@ VARIANTS = {
     # where the shipped kernel zeroes it on the CUDA cores
     "scale_d_zero": [("a_lo[kk], kmajor_desc(hi_addr + off), 1);",
                       "a_lo[kk], kmajor_desc(hi_addr + off), (it % p.flush) || kk);"),
-                     ("            acc[c][i] += part[c][i];\n            part[c][i] = 0.f;\n",
-                      "            acc[c][i] += part[c][i];\n")],
+                     ("            acc[c][i] += part[c][i];\n            part[c][i] = 0.f;\n"
+                      "          }\n      }\n    }\n  }\n  if constexpr (kEpi == kEpiRuH)",
+                      "            acc[c][i] += part[c][i];\n"
+                      "          }\n      }\n    }\n  }\n  if constexpr (kEpi == kEpiRuH)")],
 }
+# K3 variant libraries (csrc/residual_unit.cu substituted), timed beside the
+# shipped one in k3_phase; none ships as a knob
+RU_VARIANTS = {
+    # two blocks per SM on the fused route: launch bounds (288, 2), at most
+    # 112 registers a thread; run with rings cut to fit two blocks' shared
+    # memory (RU_2CTA_PLAN)
+    "ru_2cta": [("__global__ void __launch_bounds__(kThreads, 1)\nru_fused_kernel(",
+                 "__global__ void __launch_bounds__(kThreads, 2)\nru_fused_kernel(")],
+    # the split route's conv snaking each tap's A tile (K2's way), not one
+    # snake pass over x before it
+    "ru_split_tap_snake": [("constexpr bool kRuSplitPreSnake = true;",
+                            "constexpr bool kRuSplitPreSnake = false;")],
+    # timing only (its results are wrong): the fused route loads no weight
+    # tile past the ring's first fill, so no weight reads from L2 at all;
+    # a cluster multicast of each tile to two blocks would save at most
+    # half of what this saves
+    "ru_no_w_loads": [("        mbar_expect_tx(&w_full[s], kRuWStage);\n",
+                       "        if (wi >= p.w_stages) {\n          mbar_arrive(&w_full[s]);\n"
+                       "          ++wi;\n          return;\n        }\n"
+                       "        mbar_expect_tx(&w_full[s], kRuWStage);\n")],
+}
+RU_2CTA_PLAN = dict(x_slots=2, w_stages=2)  # 113,728 bytes at C 128: two fit an SM's 228 KB
+# K3 at SA 2.0's decode shapes (C, T), dilation 3, B 1
+RU_SHAPES = [(1024, 49152), (512, 393216), (256, 1572864), (128, 6291456)]
 STAGE_VARIANTS = ("stages6", "stages3")
 FLUSH_VARIANTS = ("scale_d_zero",)
 # the DAC decode of 4096 latent frames: (T, Cin, Cout, k, dilation) of K2,
@@ -102,6 +138,11 @@ cs.dac_encode_conv_phase(r, sa1)
 cs.seanet_conv_phase(r, lm)
 cs.seanet_decode_conv_phase(r, lm)
 cs.dac_conv_phase(r, torch.bfloat16, "sa1_decode_ms")
+for name in ("fused_residual_unit", "fused_residual_unit_f32"):
+    for field in ("ms", "sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms"):
+        if field in r[name]:
+            print(f"  {name} {field}: {r[name][field]:.4f} ms per path (plain "
+                  f"{r[name]['plain_' + field]:.4f} ms, bound {r[name]['bound_' + field]:.4f} ms)")
 '''
 
 
@@ -126,11 +167,12 @@ def paths(roots, out_path=None) -> None:
         Path(out_path).write_text(json.dumps({"card": smi, "runs": runs}, indent=1))
 
 
-def start_ptxas_report(nvcc: str, tmp: str) -> subprocess.Popen:
-    """Starts nvcc -Xptxas -v on conv_wgmma.cu (each kernel's registers,
-    shared memory and spills on its stderr), beside the library's build."""
+def start_ptxas_report(nvcc: str, tmp: str, source: str = "conv_wgmma.cu") -> subprocess.Popen:
+    """Starts nvcc -Xptxas -v on `source` (each kernel's registers, shared
+    memory and spills on its stderr), beside the library's build."""
     return subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC_DIR),
-                             "-c", "-o", str(Path(tmp) / "c.o"), str(build.CSRC_DIR / "conv_wgmma.cu")],
+                             "-c", "-o", str(Path(tmp) / (source + ".o")),
+                             str(build.CSRC_DIR / source)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -149,16 +191,26 @@ def substitute(src: Path, files, edits, name: str) -> None:
 
 def build_variant(name: str, tmp: Path, nvcc: str) -> ctypes.CDLL:
     """conv_wgmma.cu and its mainloop (taps_wgmma.cuh) with VARIANTS[name]'s
-    substitutions, compiled alone into tmp/name."""
+    substitutions, compiled alone into tmp/name; for a K3 variant
+    (RU_VARIANTS) residual_unit.cu with its substitutions, and conv_wgmma.cu
+    beside it."""
     src = tmp / name
     shutil.copytree(build.CSRC_DIR, src)
-    substitute(src, ("conv_wgmma.cu", "taps_wgmma.cuh"), VARIANTS[name], name)
-    cu = src / "conv_wgmma.cu"
+    ru = name in RU_VARIANTS
+    files = ("residual_unit.cu",) if ru else ("conv_wgmma.cu", "taps_wgmma.cuh")
+    substitute(src, files, (RU_VARIANTS if ru else VARIANTS)[name], name)
+    cus = [str(src / "conv_wgmma.cu")] + ([str(src / "residual_unit.cu")] if ru else [])
     lib = src / "lib.so"
-    subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", "-I", str(src), "-o", str(lib), str(cu)],
-                   check=True, capture_output=True)
+    proc = subprocess.run([nvcc, *build.NVCC_FLAGS, *(["-Xptxas", "-v"] if ru else []), "-shared",
+                           "-I", str(src), "-o", str(lib), *cus],
+                          check=True, capture_output=True, text=True)
+    if ru:  # the variant kernels' registers and spills
+        print(f"ptxas, {name}:", *(line for line in proc.stderr.splitlines()
+                                   if "ru_fused_kernel" in line or "registers" in line
+                                   or "spill" in line), sep="\n  ", flush=True)
     handle = ctypes.CDLL(str(lib))
-    for fn in ("fsat_conv_weights", "fsat_conv_taps_k2", "fsat_conv_taps_k4"):
+    for fn in ("fsat_conv_weights", "fsat_conv_taps_k2", "fsat_conv_taps_k4") + (
+            ("fsat_fused_residual_unit",) if ru else ()):
         getattr(handle, fn).argtypes = build.SIGNATURES[fn]
         getattr(handle, fn).restype = ctypes.c_int
     return handle
@@ -187,10 +239,11 @@ def main(argv=None):
     out = {"card": smi}
     nvcc = build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
-        proc = start_ptxas_report(nvcc, tmp)
+        procs = [start_ptxas_report(nvcc, tmp, f) for f in ("conv_wgmma.cu", "residual_unit.cu")]
         lib = build.library()
-        _, out["ptxas"] = proc.communicate()
-    if proc.returncode:
+        reports = [proc.communicate()[1] for proc in procs]
+    out["ptxas"] = "\n".join(reports)
+    if any(proc.returncode for proc in procs):
         raise RuntimeError(out["ptxas"])
     print(out["ptxas"], flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -266,8 +319,10 @@ def main(argv=None):
             raise SystemExit("conv_variants: a wide-kernel result disagrees with its plain version")
         return
 
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = {name: pool.submit(build_variant, name, Path(tmp), nvcc) for name in VARIANTS}
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(len(VARIANTS) + len(RU_VARIANTS)) as pool:
+        built = {name: pool.submit(build_variant, name, Path(tmp), nvcc)
+                 for name in list(VARIANTS) + list(RU_VARIANTS)}
         libs = {"shipped": lib, **{name: fut.result() for name, fut in built.items()}}
         # 3. tile widths and 4. stages, bf16 and fp32, at the DAC decode's shapes
         tiles, stages = [], []
@@ -309,6 +364,8 @@ def main(argv=None):
 
         # 5. the fp32 flush interval at the longest reductions
         out["flush"] = flush_phase(libs, rnd, rel, timed_ms, k2_call)
+        # 6. K3's routes, tiles and variants
+        out["k3"] = k3_phase(libs, rnd, timed_ms)
     out["profile"] = profile_phase(rnd)
     _finish(out, args.out)
 
@@ -367,6 +424,78 @@ def profile_phase(rnd, calls=5):
             rows.append(row)
             print(row, flush=True)
             del x
+    return rows
+
+
+def k3_phase(libs, rnd, timed_ms):
+    """K3 at RU_SHAPES in bf16 and fp32: the shipped route and plan and the
+    variants that apply to each shape, in turns (shipped, variants, variants
+    reversed, shipped), the best of two turns; each with its share of the
+    bound (16 C^2 T products at 989 TFLOP/s in bf16, 165 in fp32)."""
+    import torch
+
+    from .ops.kernels import conv1d
+
+    rows = []
+    with torch.no_grad():
+        for dt, peak in ((torch.bfloat16, 989e12), (torch.float32, 495e12 / 3)):
+            f32 = dt == torch.float32
+            for c, t in RU_SHAPES:
+                d = 3
+                x = rnd(1, t, c, scale=0.5).to(dt)
+                w1, w2 = rnd(7, c, c, scale=(7 * c) ** -0.5), rnd(c, c, scale=c ** -0.5)
+                b1, b2 = rnd(c, scale=0.1), rnd(c, scale=0.1)
+                ab1 = torch.stack([rnd(c).abs() + 0.5, 1 / (rnd(c).abs() + 0.5)]).contiguous()
+                ab2 = torch.stack([rnd(c).abs() + 0.5, 1 / (rnd(c).abs() + 0.5)]).contiguous()
+                wk = conv1d._ru_weights(w1, w2, dt)
+                y, h = torch.empty_like(x), torch.empty_like(x)
+
+                def call(handle, route, plan):
+                    hp = h.data_ptr() if route == "split" else None
+                    pl = plan or dict(x_slots=0, w_stages=0)
+                    return lambda: build.check(handle.fsat_fused_residual_unit(
+                        x.data_ptr(), wk.data_ptr(), b1.data_ptr(), ab1.data_ptr(), b2.data_ptr(),
+                        ab2.data_ptr(), hp, y.data_ptr(), 1, t, c, d, pl["x_slots"],
+                        pl["w_stages"], int(f32), conv1d.F32_FLUSH,
+                        torch.cuda.current_stream().cuda_stream), "k3")
+
+                route = conv1d.ru_route(c, dt)
+                fused_fits = not f32 and 128 * c * 2 <= conv1d.RU_H_MAX
+                plan = conv1d.ru_plan(c, d) if fused_fits else None
+                cases = {"shipped": call(libs["shipped"], route, plan)}
+                if fused_fits:  # both routes run here: the other one
+                    other = "split" if route == "fused" else "fused"
+                    cases[f"{other} route"] = call(libs["shipped"], other, plan)
+                    # the fused route without its weight loads past the ring's first fill
+                    cases["ru_no_w_loads (timing only)"] = call(libs["ru_no_w_loads"], "fused",
+                                                                plan)
+                if route == "split":
+                    cases["ru_split_tap_snake"] = call(libs["ru_split_tap_snake"], "split", None)
+                if route == "fused":  # the 2-block rings, one block and two per SM
+                    cases["fused 2x2 ring"] = call(libs["shipped"], "fused", RU_2CTA_PLAN)
+                    cases["ru_2cta"] = call(libs["ru_2cta"], "fused", RU_2CTA_PLAN)
+                agree = {}  # each case's output against the shipped one's
+                cases["shipped"]()
+                ref = y.clone()
+                for name, fn in cases.items():
+                    if "timing only" not in name and name != "shipped":
+                        y.zero_()
+                        fn()
+                        agree[name] = ((y.double() - ref.double()).norm()
+                                       / ref.double().norm()).item()
+                order = list(cases) + list(cases)[::-1]
+                times = {}
+                for name in order:
+                    ms = timed_ms(cases[name], 5)
+                    times[name] = min(times.get(name, ms), ms)
+                bound = 16 * c * c * t / peak * 1e3
+                row = dict(dtype=str(dt), C=c, T=t, dilation=d, route=route,
+                           plan=plan if route == "fused" else None,
+                           bound_ms=bound, ms=times, rel_l2_to_shipped=agree,
+                           share={k: bound / v for k, v in times.items()})
+                rows.append(row)
+                print(row, flush=True)
+                del x, y, h, wk, ref
     return rows
 
 

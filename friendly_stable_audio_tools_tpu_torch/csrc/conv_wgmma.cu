@@ -78,7 +78,9 @@
 // 288 threads 168 registers (as for 384: three warpgroups), and bf16 N 256
 // and fp32 N 128 spill 24 and 80 bytes. The Cout chunk varies fastest across
 // the grid, so the blocks of one row tile run together and share their A
-// tiles in L2.
+// tiles in L2. The body is taps_wgmma.cuh's conv_mainloop, which K3's split
+// route (residual_unit.cu) runs with an epilogue of its own;
+// conv_taps_kernel is its shim.
 #include "taps_wgmma.cuh"
 
 namespace {
@@ -88,140 +90,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 conv_taps_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                  const float* __restrict__ bias, const float* __restrict__ ab, T* __restrict__ y,
                  const ConvPlan p) {
-  using Tile = ConvTile<T, N>;
-  constexpr int kStages = Tile::kStages;
-  constexpr int kNC = N / CH;  // wgmma column blocks of the tile
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * Tile::kStage);
-  uint64_t* empty = full + kStages;
-
-  const int chunk = blockIdx.x % p.n_chunks;
-  const int rest = blockIdx.x / p.n_chunks;
-  const int phase = p.stride ? rest % p.stride : 0;
-  const int r0 = (p.stride ? rest / p.stride : rest) * kM;
-  const int n0 = chunk * N, b = blockIdx.y;
-  const int n_iter = (p.cin + Tile::kKC - 1) / Tile::kKC * p.taps;
-  const int wg = threadIdx.x >> 7;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers * 128);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == kConsumers) {  // the producer warp: one thread starts the loads
-    if (threadIdx.x == kConsumers * 128) {
-      for (int it = 0; it < n_iter; ++it) {
-        const int s = it % kStages;
-        if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) + 1) & 1);
-        int w_index, row_off;
-        tap_at(p, phase, it % p.taps, w_index, row_off);
-        const int c0 = (it / p.taps) * Tile::kKC;
-        unsigned char* st = smem + s * Tile::kStage;
-        mbar_expect_tx(&full[s], Tile::kStage);
-        tma_load_3d(st, &xmap, &full[s], c0, r0 + row_off, b);
-#pragma unroll
-        for (int h = 0; h < Tile::kBTiles; ++h)
-          tma_load_3d(st + kATile + h * Tile::kBTile, &wmap, &full[s], c0, n0,
-                      w_index * Tile::kBTiles + h);
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns rows r0 + 64 wg .. + 64
-  const int tid = threadIdx.x & 127, warp = tid >> 5;
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int row_a = wg * 64 + warp * 16 + g;  // the lane's first row in the A tile
-  float acc[kNC][CH / 2];
-#pragma unroll
-  for (int c = 0; c < kNC; ++c)
-#pragma unroll
-    for (int i = 0; i < CH / 2; ++i) acc[c][i] = 0.f;
-
-  if constexpr (sizeof(T) == 2) {
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % kStages;
-      unsigned char* st = smem + s * Tile::kStage;
-      mbar_wait(&full[s], (it / kStages) & 1);
-      if (ab != nullptr) {
-        snake_rows_bf16(st + wg * 64 * kSwizzleRow, (it / p.taps) * Tile::kKC, p.cin, ab, tid);
-        fence_proxy_async();
-        bar_sync(1 + wg, 128);
-      }
-      const uint32_t a_addr = smem_u32(st) + wg * 64 * kSwizzleRow;
-      const uint32_t b_addr = smem_u32(st) + kATile;
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) reg_fence(acc[c]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < kNC; ++c)
-          wgmma_bf16<CH>(acc[c], kmajor_desc(a_addr + kk * 32),
-                         kmajor_desc(b_addr + c * CH * kSwizzleRow + kk * 32));
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) reg_fence(acc[c]);
-      mbar_arrive(&empty[s]);
-    }
-  } else {
-    float part[kNC][CH / 2];
-#pragma unroll
-    for (int c = 0; c < kNC; ++c)
-#pragma unroll
-      for (int i = 0; i < CH / 2; ++i) part[c][i] = 0.f;
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % kStages;
-      const unsigned char* st = smem + s * Tile::kStage;
-      mbar_wait(&full[s], (it / kStages) & 1);
-      const int c0 = (it / p.taps) * Tile::kKC;
-      uint32_t a_hi[4][4], a_lo[4][4];  // the four k8 slices of the stage's 32 channels
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = row_a + 8 * (e & 1), col = 8 * kk + tq + 4 * (e >> 1);
-          float v = *reinterpret_cast<const float*>(st + sw128_offset(r, col >> 2) + (col & 3) * 4);
-          const int ch = c0 + col;
-          if (ab != nullptr && ch < p.cin) v = snake_poly(v, ab[ch], ab[p.cin + ch]);
-          a_hi[kk][e] = tf32_rna(v);
-          a_lo[kk][e] = tf32_rna(v - __uint_as_float(a_hi[kk][e]));
-        }
-      const uint32_t hi_addr = smem_u32(st) + kATile, lo_addr = hi_addr + Tile::kBTile;
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) reg_fence(part[c]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          const uint32_t off = c * CH * kSwizzleRow + kk * 32;
-          wgmma_tf32<CH>(part[c], a_lo[kk], kmajor_desc(hi_addr + off), 1);
-          wgmma_tf32<CH>(part[c], a_hi[kk], kmajor_desc(lo_addr + off), 1);
-          wgmma_tf32<CH>(part[c], a_hi[kk], kmajor_desc(hi_addr + off), 1);
-        }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) reg_fence(part[c]);
-      mbar_arrive(&empty[s]);
-      if ((it + 1) % p.flush == 0 || it + 1 == n_iter) {
-#pragma unroll
-        for (int c = 0; c < kNC; ++c)
-#pragma unroll
-          for (int i = 0; i < CH / 2; ++i) {
-            acc[c][i] += part[c][i];
-            part[c][i] = 0.f;
-          }
-      }
-    }
-  }
-  store_tile<T, N, CH>(acc, p, bias, y, b, r0 + row_a, n0, phase, tq);
+  conv_mainloop<T, N, CH, kEpiConv>(&xmap, &wmap, bias, ab, y, p, nullptr);
 }
 
 template <typename T, int N, int CH>

@@ -38,13 +38,17 @@ What bounds them on the H100, and what the design does about it:
   halo in shared memory, the snake once per element, 16 rows of one output
   column per thread).
 * K3 ``fused_residual_unit`` (replaces ``_ru_forward``/``_ru_kernel``,
-  conv1d.py:507, :473). Bound by tensor-core work (~137 GFLOP per unit at
-  C = 1024) and by shared memory: Hopper gives a block 227 KB against the
-  TPU's multi-MB VMEM, so the block holds a 64-row tile of ``h`` for all C
-  columns (133 KB at C = 1024) and builds it 128 columns at a time; the x
-  tile with its 6*dilation halo is loaded once per 32-channel step and
-  serves all seven taps. ``h`` never reaches device memory. (fp32:
-  ``csrc/conv1d_f32.cu``.)
+  conv1d.py:507, :473). Bound by tensor-core work (16 C^2 products per row:
+  ~137 GFLOP per unit at C = 1024); Hopper gives a block 227 KB of shared
+  memory against the TPU's multi-MB VMEM. ``csrc/residual_unit.cu`` takes
+  one of two routes by (C, dtype) alone (:func:`ru_route`). Fused, bf16 C
+  128: per 64-channel chunk one TMA box of x with its 6*dilation halo,
+  snaked once and read by all seven taps at their row offsets (A by
+  ldmatrix), the taps' K-major weights through a TMA ring, ``h`` kept in
+  shared memory as stage 2's A operand (:func:`ru_plan` cuts the shared
+  memory). Split, every other shape: a pass snakes x once, the wgmma conv
+  kernel writes ``h`` to a scratch with its epilogue, and a GEMM adds the
+  residual.
 * K4 ``snake_conv_transpose1d`` (replaces ``_upk_forward``/``_upk_kernel``,
   conv1d.py:262, :228). Polyphase: each output phase is a two-tap product
   of x[q] with x[q-1] or x[q+1], so it is the same tap-list GEMM as K2's
@@ -85,6 +89,18 @@ TILE_N = {torch.bfloat16: (256, 192, 128, 96, 64, 32), torch.float32: (128, 96, 
 # fp32: stages (32 input channels of one tap each) per tensor-core partial
 # sum before it is added into the fp32 total (csrc/conv_wgmma.cu)
 F32_FLUSH = 2
+
+# K3 (csrc/residual_unit.cu): the fused route (bf16) holds a 128-row tile of
+# h in shared memory, at most RU_H_MAX bytes of a block's SMEM_MAX, beside
+# an x ring of TMA boxes (64 channels: a 128-byte row, with the 6*dilation
+# halo) and a weight ring. It takes bf16 C up to RU_FUSED_MAX_C: the split
+# route (a snake pass, the conv, the GEMM) ran faster at every other shape
+# where both run, and in fp32 (conv_variants.py, NVIDIA H100 80GB HBM3,
+# 700 W)
+M_TILE = 128
+SMEM_MAX = 232448
+RU_H_MAX = 128 * 1024
+RU_FUSED_MAX_C = 128
 
 _INV_PI = 0.3183098861837907
 _SIN2_C = (9.869603239633658, -32.469601846083854, 42.72581061829601,
@@ -150,19 +166,63 @@ def conv_route(cin: int, cout: int, k: int, dtype) -> str:
     return "wide"
 
 
-def _k_major_weights(w: torch.Tensor, dtype) -> torch.Tensor:
+def _k_major_weights(w: torch.Tensor, dtype,
+                     out: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
     """w [taps, Cin, Cout] -> the wgmma kernel's K-major weights: [taps,
     Cout, Cin] in bf16, or [taps, 2, Cout, Cin] fp32 holding the tf32
     parts w_hi = tf32(w), w_lo = tf32(w - w_hi) (one pass over the weights,
-    ``fsat_conv_weights``)."""
+    ``fsat_conv_weights``), into `out` where given (contiguous)."""
     taps, cin, cout = w.shape
     f32 = dtype == torch.float32
     wc = w.to(dtype).contiguous()
-    out = torch.empty((taps, 2, cout, cin) if f32 else (taps, cout, cin), device=w.device,
-                      dtype=dtype)
+    if out is None:
+        out = torch.empty((taps, 2, cout, cin) if f32 else (taps, cout, cin), device=w.device,
+                          dtype=dtype)
     err = build.library().fsat_conv_weights(_ptr(wc), _ptr(out), taps, cin, cout, int(f32),
                                             _stream(w.device))
     build.check(err, "conv weights")
+    return out
+
+
+def ru_route(c: int, dtype) -> str:
+    """K3's route for C channels on `dtype` activations, by (C, dtype) alone:
+    "fused" (h in shared memory) in bf16 up to RU_FUSED_MAX_C (C 128), else
+    "split" (a snake pass, then h through a device scratch)."""
+    return "fused" if dtype == torch.bfloat16 and c <= RU_FUSED_MAX_C else "split"
+
+
+def ru_plan(c: int, dilation: int) -> dict:
+    """The fused route's launch plan (csrc/residual_unit.cu: RuPlan; bf16,
+    128 columns a pass): the x box's rows (128 rows and the 6*dilation halo,
+    rounded up to 8), x boxes and weight tiles in flight (two x slots where
+    they fit, then the most weight stages, 4 to 2), and the shared memory it
+    takes: 1024 (alignment) + h + the x ring + the weight ring + the
+    mbarriers. Raises where nothing fits."""
+    box_rows = (M_TILE + 6 * dilation + 7) // 8 * 8
+    for x_slots in (2, 1):
+        for w_stages in (4, 3, 2):
+            smem = (1024 + M_TILE * c * 2 + x_slots * box_rows * 128 + w_stages * 128 * 128
+                    + 16 * (x_slots + w_stages))
+            if smem <= SMEM_MAX and box_rows <= 256 and c % 128 == 0:
+                return dict(box_rows=box_rows, x_slots=x_slots, w_stages=w_stages, smem=smem)
+    raise ValueError(f"fused_residual_unit: no fused plan fits C = {c}, dilation {dilation}")
+
+
+def split_tile_n(c: int, dtype) -> int:
+    """The split route's tile width (its conv and GEMM launches,
+    csrc/residual_unit.cu: launch_split): bf16 256 where it divides C, else
+    128; fp32 128."""
+    return 256 if dtype == torch.bfloat16 and c % 256 == 0 else 128
+
+
+def _ru_weights(w1: torch.Tensor, w2: torch.Tensor, dtype) -> torch.Tensor:
+    """K3's K-major weights in one tensor: [8, C, C] bf16 or [8, 2, C, C]
+    fp32 tf32 hi/lo, slices 0-6 w1's taps and 7 w2."""
+    c = w2.shape[0]
+    out = torch.empty((8, 2, c, c) if dtype == torch.float32 else (8, c, c), device=w1.device,
+                      dtype=dtype)
+    _k_major_weights(w1, dtype, out[:7])
+    _k_major_weights(w2[None], dtype, out[7:])
     return out
 
 
@@ -289,21 +349,23 @@ def fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
     _check_cuda("fused_residual_unit", x, w1, b1, w2, b2, alpha1, inv_beta1, alpha2, inv_beta2)
     ab1 = _stack_snake(alpha1, inv_beta1)
     ab2 = _stack_snake(alpha2, inv_beta2)
+    route = ru_route(c, x.dtype)
     if k != 7 or c % 128:
         raise ValueError(f"fused_residual_unit: the CUDA kernel takes k = 7 and C % 128 == 0, "
                          f"got k = {k}, C = {c}")
     f32 = x.dtype == torch.float32
     b, t, _ = x.shape
-    x = x.contiguous()
-    w1c = w1.to(x.dtype).contiguous()
-    w2c = w2.to(x.dtype).contiguous()
-    b1c = b1.float().contiguous()
-    b2c = b2.float().contiguous()
+    x = _tma_ready(x)
+    wk = _ru_weights(w1, w2, x.dtype)
     y = torch.empty_like(x)
-    lib = build.library()
-    fn = lib.fsat_fused_residual_unit_f32 if f32 else lib.fsat_fused_residual_unit
-    err = fn(_ptr(x), _ptr(w1c), _ptr(b1c), _ptr(ab1), _ptr(w2c), _ptr(b2c), _ptr(ab2), _ptr(y),
-             b, t, c, dilation, _stream(x.device))
+    if route == "fused":
+        h, plan = None, ru_plan(c, dilation)
+    else:
+        h, plan = torch.empty_like(x), dict(x_slots=0, w_stages=0)
+    b1c, b2c = b1.float().contiguous(), b2.float().contiguous()
+    err = build.library().fsat_fused_residual_unit(
+        _ptr(x), _ptr(wk), _ptr(b1c), _ptr(ab1), _ptr(b2c), _ptr(ab2), _ptr(h), _ptr(y), b, t, c,
+        dilation, plan["x_slots"], plan["w_stages"], int(f32), F32_FLUSH, _stream(x.device))
     if f32:
         fused_residual_unit_f32_launches += 1
     else:

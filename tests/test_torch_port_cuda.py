@@ -77,6 +77,58 @@ def test_conv_kernels_match_plain(gen):
            tconv.snake_conv_transpose1d_plain(x, wt, bias, a, ib, stride=4))
 
 
+# K3 by route (conv1d.ru_route): (dtype, C, B, T, dilation); T 333 (no
+# multiple of the 128-row tile) and T 77 (under one tile) at B 2, dilation 9
+# reaching 27 rows past both ends; every shape but bf16 C 128 on the split
+# route
+RU_SHAPES = [(dt, c, 2, t, d) for dt in (torch.bfloat16, torch.float32)
+             for c, t, d in ((128, 333, 9), (128, 77, 1), (256, 333, 3), (256, 77, 9),
+                             (512, 333, 9), (1024, 77, 9), (1024, 333, 1))]
+
+
+def _ru_forced(dt, c):
+    """The routes a shape can take beside its own (None): the split one
+    anywhere, the fused one in bf16 where h's tile fits (128 x C x 2 <=
+    RU_H_MAX)."""
+    fused_fits = dt == torch.bfloat16 and 128 * c * 2 <= tconv.RU_H_MAX
+    return [None] + [r for r in ("fused", "split")
+                     if (r == "split" or fused_fits) and r != tconv.ru_route(c, dt)]
+
+
+RU_CASES = [(*shape, force) for shape in RU_SHAPES for force in _ru_forced(shape[0], shape[1])]
+
+
+def _ru_inputs(gen, dt, c, b, t):
+    x = _rnd(gen, b, t, c, scale=0.5).to(dt)
+    w1, w2 = _rnd(gen, 7, c, c, scale=(7 * c) ** -0.5), _rnd(gen, c, c, scale=c ** -0.5)
+    b1, b2 = _rnd(gen, c, scale=0.1), _rnd(gen, c, scale=0.1)
+    a1, a2 = _rnd(gen, c).abs() + 0.5, _rnd(gen, c).abs() + 0.5
+    return x, w1, b1, a1, 1.0 / a1, w2, b2, a2, 1.0 / a2
+
+
+@pytest.mark.parametrize("dt,c,b,t,d,force", RU_CASES)
+def test_fused_residual_unit_routes_match_plain(gen, monkeypatch, dt, c, b, t, d, force):
+    """K3 on each route against its plain version: bf16 within one rounding
+    (rel-L2 2e-3, max abs 2^-6 of max|plain|), fp32 rel-L2 1e-5; one launch
+    of the dtype's counter per call on either route. `force` replaces
+    conv1d.ru_route with the route the shape does not take by default."""
+    if force is not None:
+        monkeypatch.setattr(tconv, "ru_route", lambda *_: force)
+    args = _ru_inputs(gen, dt, c, b, t)
+    name = ("fused_residual_unit_f32_launches" if dt == torch.float32
+            else "fused_residual_unit_launches")
+    before = getattr(tconv, name)
+    got = tconv.fused_residual_unit(*args, dilation=d)
+    assert getattr(tconv, name) == before + 1
+    want = tconv.fused_residual_unit_plain(*args, dilation=d)
+    assert got.dtype == dt and got.shape == (b, t, c)
+    if dt == torch.float32:
+        _close(got, want, 1e-5)
+    else:
+        _close(got, want, 2e-3)
+        assert (got.float() - want.float()).abs().max() <= 2.0 ** -6 * want.float().abs().max()
+
+
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x64 = _rnd(gen, 1, 64, 128).double()
     with pytest.raises(TypeError):  # bf16 or fp32 only
