@@ -25,7 +25,11 @@ Phases (any failure raises and the script exits non-zero):
    call's time where one computes the same function; K1 (its K10a launch
    included) per call beside its earlier row (`EARLIER_MS`); each K2 shape
    names the route `conv_route` gave it, and a wide one also times the thin
-   route's kernel; each path's K2 and K4 totals print beside the earlier
+   route's kernel; each thin K2 shape (here, in [3c], [3f], [3h], [3i] and
+   [3k]) prints beside the time of the thin route's kernel before its
+   redesign, measured in the same turns as the redesigned one
+   (`EARLIER_MS`), with its bound and cuDNN's time; each path's K2 and K4
+   totals print beside the earlier
    ones (`EARLIER_CONV_MS`, `log_conv_path`), flagged where they drift more than
    CONV_DRIFT (5%) from it; each K3 shape (here, in [3c] and [3f]) names
    the route `ru_route` gave it and prints beside its WMMA kernel's time
@@ -44,7 +48,9 @@ Phases (any failure raises and the script exits non-zero):
    sample sizes (the encode runs one clip at a time, `iterate_batch`);
    3d. the long-sequence attention kernels K10a (rope K once) and K10
    against their plain versions at SA 2.0's shape (B 2, T 6272, kv_len 6145,
-   24 heads) and three smaller ragged ones, each beside its earlier row;
+   24 heads) and three smaller ragged ones, each beside its earlier row
+   (K10a by its device time under torch.profiler, beside its kernel's
+   before its redesign, timed in the same turns as the redesigned one);
    3e. the fp32 training attention kernels K7 (forward with LSE) and K9
    (the backward, 3xTF32 on the tensor cores) against their plain versions at
    SA 2.0's training shape (B 8 x 24 heads, T 6272, kv_len 6145) and two
@@ -409,7 +415,11 @@ K6_RUN_TO_RUN = 1e-6
 # by label where a kernel has several main-path shapes: printed beside this
 # run's
 EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stats": 1.7254,
-              "fused_qkv_rope_attention_backward": 6.7221, "rope_pair_k": 0.0792,
+              "fused_qkv_rope_attention_backward": 6.7221,
+              # K10a's kernel before its redesign: device time per call (torch.profiler),
+              # in the same turns as the redesigned one (pair_attention_variants
+              # --cases K10a --parent)
+              "rope_pair_k": 0.0396,
               "pair_long_attention": 6.4190, "flash_backward": 206.1132,
               "flash_backward_causal": 4.8726,
               "flash_forward": {"B8 T6272 H24 kv_len 6145": 51.6539,
@@ -455,7 +465,21 @@ EARLIER_MS = {"fused_qkv_rope_attention": 0.5330, "fused_qkv_rope_attention_stat
                   "B1 T262144 C256 d3": 13.6296, "B1 T262144 C256 d9": 13.835,
                   "B1 T1048576 C128 d1": 13.9597, "B1 T1048576 C128 d3": 14.0166,
                   "B1 T1048576 C128 d9": 14.306, "B1 T2097152 C128 d1": 27.8211,
-                  "B1 T2097152 C128 d3": 28.1017, "B1 T2097152 C128 d9": 28.5221}}
+                  "B1 T2097152 C128 d3": 28.1017, "B1 T2097152 C128 d9": 28.5221},
+              # K2's thin route before its redesign (the CUDA-core kernel of every
+              # thin shape), by main-path shape, in the same turns as the
+              # redesigned kernels (conv_variants --thin)
+              "snake_conv1d": {
+                  "B1 T12582912 128->2 d1": 19.8786, "B1 T2097152 128->2 d1": 3.5417,
+                  "B1 T2097152 2->128 k7": 2.5962, "B1 T12582912 2->128 k7": 15.5055,
+                  "DAC B1 T4194304 96->2 k7 d1": 3.8596},
+              "snake_conv1d_f32": {
+                  "B1 T12582912 128->2 d1": 23.3217, "B1 T2097152 128->2 d1": 3.9940,
+                  "B1 T2097152 2->128 k7": 2.6067, "B1 T12582912 2->128 k7": 15.5502,
+                  "DAC B1 T4194304 96->2 k7 d1": 4.2262,
+                  "DAC encode B1 T4194304 2->128 k7 d1": 5.1968,
+                  "SEANet encode B8 T960000 1->64 k7": 4.7355,
+                  "SEANet decode B1 T959992 64->1 k7": 0.6505}}
 # K3's WMMA kernels per main path (PERF.md §6's rows; NVIDIA H100 80GB HBM3,
 # 700 W): ms by (kernel, results field), printed beside this run's
 # (`log_ru_path`)
@@ -854,10 +878,11 @@ def k2_counts(shapes, dtype, times=1):
 
 
 def thin_k2_fn(x, w, bias, alpha, inv_beta, dilation):
-    """The CUDA-core K2 kernel (the thin route) launched directly on a call
-    that conv_route sends to the wide kernel, outside the launch counts: its
-    time beside the wide kernel's at every wide shape is what draws the
-    route's boundary."""
+    """The thin route's kernel (the design conv1d.thin_design gives the
+    shape: the CUDA-core kernel, which takes any shape, at every wide shape
+    chip_smoke times) launched directly on a call that conv_route sends to
+    the wide kernel, outside the launch counts: its time beside the wide
+    kernel's at every wide shape is what draws the route's boundary."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import build, conv1d
@@ -869,11 +894,12 @@ def thin_k2_fn(x, w, bias, alpha, inv_beta, dilation):
     y = torch.empty(x.shape[0], x.shape[1], cout, device=x.device, dtype=x.dtype)
     lib = build.library()
     fn = lib.fsat_snake_conv1d_f32 if x.dtype == torch.float32 else lib.fsat_snake_conv1d
+    design = conv1d.THIN_DESIGNS[conv1d.thin_design(cin, cout, k, dilation, x.dtype)]
 
     def run():
         build.check(fn(xc.data_ptr(), wc.data_ptr(), bb.data_ptr(),
                        None if ab is None else ab.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
-                       cin, cout, k, dilation, dilation * (k - 1) // 2,
+                       cin, cout, k, dilation, dilation * (k - 1) // 2, design,
                        torch.cuda.current_stream().cuda_stream), "thin K2")
         return y
 
@@ -1567,10 +1593,16 @@ def long_attention_phase(results):
         f = rotary_freqs(t, 32, device=DEVICE)
         khat = attention.rope_pair_k_plain(qkv, f, h)
         k_part = qkv[..., h * 64:2 * h * 64]
-        report(results, "rope_pair_k", label, main, *compare(
+        ok, max_abs, rel_l2, peak, wall, plain_ms, _ = compare(
             "rope_pair_k", lambda: attention.rope_pair_k(qkv, f, h),
-            lambda: attention.rope_pair_k_plain(qkv, f, h)),
-            bound=bound_ms(0, (nbytes(k_part) + nbytes(khat)) * valid // t + nbytes(f) * 2))
+            lambda: attention.rope_pair_k_plain(qkv, f, h))
+        # K10a's own device time: a call's wall (its tables made, then ~30 us
+        # of kernel) is the host's launch rate
+        by_name = device_profile([lambda: attention.rope_pair_k(qkv, f, h)] * 10)[2]
+        ms = sum(v for name, v in by_name.items() if "rope_" in name)
+        report(results, "rope_pair_k", label, main, ok, max_abs, rel_l2, peak, ms, plain_ms,
+               bound=bound_ms(0, (nbytes(k_part) + nbytes(khat)) * valid // t + nbytes(f) * 2),
+               extra=f", device time (the wrapper's wall {wall:.4f} ms)")
         q, k, v = sdpa_inputs(qkv, f, h, kv)
         qv = qkv[..., :h * 64], qkv[..., 2 * h * 64:]
         report(results, "pair_long_attention", label, main, *compare(

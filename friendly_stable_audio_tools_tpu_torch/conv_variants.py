@@ -43,6 +43,24 @@ Times are CUDA-event means over repeated calls of the kernel's launch
 alone (its K-major weights prepared once, outside the timing). Needs a CUDA
 device and nvcc.
 
+``--thin [CHECKOUT]`` instead runs the thin route's sections (csrc/conv1d.cu):
+
+1. ``ptxas`` of conv1d.cu;
+2. ``check``: the thin route through the public wrapper at ragged and odd
+   shapes of its three kernels (conv1d.thin_design), with and without the
+   snake, bf16 and fp32, against the plain versions (bf16 rel-L2 2e-3 and
+   max abs 2^-6 of max|plain|, fp32 rel-L2 1e-5), one launch of the thin
+   route's count each; with --check the script stops here;
+3. ``thin``: every main-path thin shape (THIN_CASES: the Oobleck, DAC and
+   SEANet conv_in and conv_out at chip_smoke's lengths) through the C
+   entry, against the plain version, timed in turns with the kernel built
+   from CHECKOUT's csrc/conv1d.cu (e.g. the parent commit unpacked by ``git
+   archive``; its entry takes no design) where given: CHECKOUT, shipped,
+   shipped, CHECKOUT, the best of each's two turns; beside them cuDNN's
+   conv1d on the snaked input (TF32 off) and the bound (bytes: x read
+   once, y written once, at 3.35 TB/s; or the products at the dtype's
+   rate).
+
 ``--paths`` instead runs chip_smoke.py's convolution phases ([3], [3c],
 [3f], [3h], [3i]'s SEANet decode, [3k]) in each checkout given (the root of
 a checkout of this repo, e.g. the parent commit unpacked by ``git
@@ -114,6 +132,30 @@ DAC_K4 = [(4096, 1536, 768, 8), (32768, 768, 384, 8), (262144, 384, 192, 4),
           (1048576, 192, 96, 4)]
 # the DAC encode's longest reductions (T, C, k)
 FLUSH_CASES = [(8192, 1024, 7), (8192, 2048, 3)]
+# K2's thin route at its main-path shapes (chip_smoke [3], [3c], [3f], [3h],
+# [3i], [3k]): (label, dtype, B, T, Cin, Cout, k, snake, bias)
+THIN_CASES = [
+    ("Oobleck conv_in SA 2.0", "fp32", 1, 12582912, 2, 128, 7, False, True),
+    ("Oobleck conv_in SA 2.0", "bf16", 1, 12582912, 2, 128, 7, False, True),
+    ("Oobleck conv_in SAO", "fp32", 1, 2097152, 2, 128, 7, False, True),
+    ("Oobleck conv_in SAO", "bf16", 1, 2097152, 2, 128, 7, False, True),
+    ("Oobleck conv_out SA 2.0", "bf16", 1, 12582912, 128, 2, 7, True, False),
+    ("Oobleck conv_out SA 2.0", "fp32", 1, 12582912, 128, 2, 7, True, False),
+    ("Oobleck conv_out SAO", "bf16", 1, 2097152, 128, 2, 7, True, False),
+    ("Oobleck conv_out SAO", "fp32", 1, 2097152, 128, 2, 7, True, False),
+    ("DAC conv_in", "fp32", 1, 4194304, 2, 128, 7, False, True),
+    ("DAC conv_out", "bf16", 1, 4194304, 96, 2, 7, False, True),
+    ("DAC conv_out", "fp32", 1, 4194304, 96, 2, 7, False, True),
+    ("SEANet conv_in", "fp32", 8, 960000, 1, 64, 7, False, True),
+    ("SEANet conv_out", "fp32", 1, 959992, 64, 1, 7, False, True),
+]
+# ragged and odd thin shapes of the three kernels: (B, T, Cin, Cout, k, dilation)
+THIN_CHECKS = [(2, 333, 2, 128, 7, 1), (2, 77, 1, 64, 3, 1), (2, 333, 128, 2, 7, 1),
+               (2, 77, 96, 2, 3, 1), (1, 300, 64, 1, 7, 1), (2, 333, 3, 48, 7, 3),
+               (2, 130, 64, 48, 7, 1), (2, 300, 4, 4, 7, 9), (1, 211, 16, 3, 7, 1),
+               (1, 211, 32, 4, 7, 2), (2, 500, 300, 1, 5, 1), (1, 129, 2048, 2, 3, 1),
+               (1, 400, 2, 600, 7, 1), (2, 333, 1, 40, 5, 3), (1, 77, 2, 8, 7, 2),
+               (1, 600, 1, 120, 15, 1)]
 # --paths: chip_smoke.py's convolution phases, run from a checkout's root
 PATHS_CODE = '''
 import json, sys, time
@@ -216,6 +258,136 @@ def build_variant(name: str, tmp: Path, nvcc: str) -> ctypes.CDLL:
     return handle
 
 
+def build_thin_parent(checkout: str, tmp: str, nvcc: str):
+    """The thin route's kernel of another checkout (its csrc/conv1d.cu),
+    built alone and bound -> (library, whether its entries take the design
+    argument: the kernel before the three designs took none)."""
+    csrc = Path(checkout) / build.CSRC_DIR.relative_to(build.PACKAGE_DIR.parent)
+    lib = Path(tmp) / "thin_parent.so"
+    subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared", "-I", str(csrc), "-o", str(lib),
+                    str(csrc / "conv1d.cu")], check=True, capture_output=True, text=True)
+    designs = "int design" in (csrc / "conv1d.cu").read_text()
+    handle = ctypes.CDLL(str(lib))
+    for fn in ("fsat_snake_conv1d", "fsat_snake_conv1d_f32"):
+        sig = build.SIGNATURES[fn]
+        getattr(handle, fn).argtypes = sig if designs else sig[:12] + sig[13:]
+        getattr(handle, fn).restype = ctypes.c_int
+    return handle, designs
+
+
+def thin_check(rnd, rel):
+    """The thin route through snake_conv1d at THIN_CHECKS, both dtypes, with
+    and without the snake: one thin launch each, within K2's tolerances."""
+    import torch
+
+    from .ops.kernels import conv1d
+
+    checks = []
+    with torch.no_grad():
+        for dt, tol in ((torch.bfloat16, 2e-3), (torch.float32, 1e-5)):
+            for b, t, cin, cout, k, d in THIN_CHECKS:
+                for sn in (True, False):
+                    x = rnd(b, t, cin, scale=0.5).to(dt)
+                    w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+                    bb = rnd(cout, scale=0.1)
+                    a, ib = ((rnd(cin).abs() + 0.5), 1 / (rnd(cin).abs() + 0.5)) if sn else (None,
+                                                                                            None)
+                    counter = "snake_conv1d_f32_launches" if dt == torch.float32 else \
+                        "snake_conv1d_launches"
+                    before = getattr(conv1d, counter)
+                    got = conv1d.snake_conv1d(x, w, bb, a, ib, dilation=d)
+                    launched = getattr(conv1d, counter) - before
+                    want = conv1d.snake_conv1d_plain(x, w, bb, a, ib, dilation=d)
+                    err = rel(got, want)
+                    max_abs = (got.float() - want.float()).abs().max().item()
+                    ok = err <= tol and launched == 1 and (
+                        dt == torch.float32 or max_abs <= 2.0 ** -6 * want.float().abs().max().item())
+                    checks.append(dict(kernel="K2 thin", dtype=str(dt), shape=[b, t, cin, cout, k, d],
+                                       snake=sn, design=conv1d.thin_design(cin, cout, k, d, dt),
+                                       rel_l2=err, max_abs=max_abs, ok=ok))
+                    print(checks[-1], flush=True)
+    return checks
+
+
+def thin_phase(rnd, rel, timed_ms, parent=None):
+    """THIN_CASES through the thin route's C entry (and, where given, the
+    parent's, in turns), against the plain version, beside cuDNN and the
+    bound; each time the best of its two turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from .ops.kernels import conv1d
+
+    rows = []
+    lib = build.library()
+    with torch.no_grad():
+        for label, dt_name, b, t, cin, cout, k, sn, has_bias in THIN_CASES:
+            dt = torch.bfloat16 if dt_name == "bf16" else torch.float32
+            f32 = dt == torch.float32
+            x = rnd(b, t, cin, scale=0.5).to(dt)
+            w = rnd(k, cin, cout, scale=1 / math.sqrt(k * cin))
+            bb = rnd(cout, scale=0.1) if has_bias else None
+            a, ib = ((rnd(cin).abs() + 0.5), 1 / (rnd(cin).abs() + 0.5)) if sn else (None, None)
+            wc = w.to(dt).contiguous()
+            bias = (torch.zeros(cout, device="cuda") if bb is None else bb).contiguous()
+            ab = conv1d._stack_snake(a, ib)
+            y = torch.empty(b, t, cout, device="cuda", dtype=dt)
+            pad = (k - 1) // 2
+            design = conv1d.thin_design(cin, cout, k, 1, dt)
+            stream = torch.cuda.current_stream().cuda_stream
+            args = (x.data_ptr(), wc.data_ptr(), bias.data_ptr(), None if ab is None else ab.data_ptr(),
+                    y.data_ptr(), b, t, cin, cout, k, 1, pad)
+            entry = "fsat_snake_conv1d_f32" if f32 else "fsat_snake_conv1d"
+            calls = {"shipped": lambda: build.check(
+                getattr(lib, entry)(*args, conv1d.THIN_DESIGNS[design], stream), "thin K2")}
+            if parent is not None:
+                handle, designs = parent
+                extra = (conv1d.THIN_DESIGNS[design],) if designs else ()
+                calls["parent"] = lambda: build.check(
+                    getattr(handle, entry)(*args, *extra, stream), "parent thin K2")
+            calls["shipped"]()
+            torch.cuda.synchronize()
+            want = conv1d.snake_conv1d_plain(x, w, bb, a, ib)
+            err = rel(y, want)
+            max_abs = (y.float() - want.float()).abs().max().item()
+            peak = want.float().abs().max().item()
+            del want
+            ok = err <= (1e-5 if f32 else 2e-3) and (f32 or max_abs <= 2.0 ** -6 * peak)
+            if parent is not None:
+                y_new = y.clone()
+                calls["parent"]()
+                torch.cuda.synchronize()
+                parent_err = rel(y, y_new)
+                del y_new
+            xs = (x.float() if a is None else conv1d.snake(x.float(), a, ib)).to(dt)
+            xs = xs.transpose(1, 2).contiguous()
+            wt = w.permute(2, 1, 0).to(dt).contiguous()
+            bt = None if bb is None else bb.to(dt)
+            calls["cuDNN"] = lambda: F.conv1d(xs, wt, bt, padding="same")
+            turns = (["parent"] if parent is not None else []) + ["shipped"]
+            order = turns + turns[::-1] + ["cuDNN", "cuDNN"]
+            times = {}
+            for name in order:
+                ms = timed_ms(calls[name], 5)
+                times[name] = min(times.get(name, ms), ms)
+            del xs
+            nbytes = (x.numel() + y.numel() + w.numel()) * x.element_size() + 4 * bias.numel()
+            flops = 2 * b * t * cin * cout * k
+            t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / (495e12 / 3 if f32 else 989e12) * 1e3
+            bound = max(t_bytes, t_ops)
+            row = dict(label=label, dtype=dt_name, shape=[b, t, cin, cout, k], snake=sn,
+                       design=design, rel_l2=err, max_abs=max_abs, ok=ok, ms=times,
+                       bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       share=bound / times["shipped"])
+            if parent is not None:
+                row["rel_l2_to_parent"] = parent_err
+                row["speedup_over_parent"] = times["parent"] / times["shipped"]
+            rows.append(row)
+            print(row, flush=True)
+            del x, y
+    return rows
+
+
 def main(argv=None):
     import torch
 
@@ -226,6 +398,8 @@ def main(argv=None):
     ap.add_argument("--check", action="store_true", help="stop after the correctness checks")
     ap.add_argument("--paths", nargs="+", metavar="CHECKOUT", default=None,
                     help="time chip_smoke's conv phases in these checkouts, in turns")
+    ap.add_argument("--thin", nargs="?", const="", default=None, metavar="CHECKOUT",
+                    help="run the thin route's sections instead (against CHECKOUT's kernel)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("conv_variants: needs a CUDA device")
@@ -238,9 +412,12 @@ def main(argv=None):
                          capture_output=True, text=True).stdout.strip()
     out = {"card": smi}
     nvcc = build.find_nvcc()
+    thin = args.thin is not None
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [start_ptxas_report(nvcc, tmp, f) for f in ("conv_wgmma.cu", "residual_unit.cu")]
+        sources = ("conv1d.cu",) if thin else ("conv_wgmma.cu", "residual_unit.cu")
+        procs = [start_ptxas_report(nvcc, tmp, f) for f in sources]
         lib = build.library()
+        parent = build_thin_parent(args.thin, tmp, nvcc) if thin and args.thin else None
         reports = [proc.communicate()[1] for proc in procs]
     out["ptxas"] = "\n".join(reports)
     if any(proc.returncode for proc in procs):
@@ -278,6 +455,19 @@ def main(argv=None):
             x.data_ptr(), wk.data_ptr(), bias.data_ptr(), None, y.data_ptr(), x.shape[0],
             x.shape[1], cin, cout, s, n, int(f32), conv1d.F32_FLUSH,
             torch.cuda.current_stream().cuda_stream), "k4")
+
+    if thin:
+        out["check"] = thin_check(rnd, rel)
+        failed = not all(c["ok"] for c in out["check"])
+        if not (args.check or failed):
+            out["thin"] = thin_phase(rnd, rel, timed_ms, parent)
+            failed = not all(r["ok"] for r in out["thin"])
+        out["card"] = smi
+        print(f"card: {smi}", flush=True)
+        _finish(out, args.out)
+        if failed:
+            raise SystemExit("conv_variants: a thin-route result disagrees with its plain version")
+        return
 
     # 2. correctness through the public wrappers
     checks = []

@@ -43,8 +43,8 @@ SIGNATURES = {
     "fsat_flash_forward_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fsat_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "fsat_flash_backward_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "fsat_snake_conv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fsat_snake_conv1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_snake_conv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fsat_snake_conv1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_fused_residual_unit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _P],
     "fsat_conv_weights": [_P, _P, _I, _I, _I, _I, _P],

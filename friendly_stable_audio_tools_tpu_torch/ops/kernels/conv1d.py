@@ -31,12 +31,21 @@ What bounds them on the H100, and what the design does about it:
   the Oobleck's 64 -> 2048 and 2048 -> 128, the SEANet's) are GEMMs over
   taps, bound by tensor-core work: they run the wgmma kernel of
   ``csrc/conv_wgmma.cu`` (TMA-fed 128 x N tiles, N | Cout up to 256,
-  :func:`conv_tile_n`), bf16 or 3xTF32. Its thin convolutions, Cout 2 (the
-  decoders' conv_out: bound by reading the input once; a tensor-core tile
-  would be 98% padding) and Cin 1 or 2 (the encoders' conv_in, whose rows TMA
-  cannot map), stay on the CUDA cores (``csrc/conv1d.cu``: an x tile and its
-  halo in shared memory, the snake once per element, 16 rows of one output
-  column per thread).
+  :func:`conv_tile_n`), bf16 or 3xTF32. Its thin convolutions take
+  ``csrc/conv1d.cu``, one of three kernels by shape and dtype
+  (:func:`thin_design`).
+  Thin-out (Cout 1 or 2: the decoders' conv_out, bound by reading x once):
+  Z = snake(x) W over the K * Cout (tap, output) columns, one product with
+  no tap shift on the tensor cores (mma.sync, bf16 or 3xTF32, N padded to 8
+  or 16, not to a 32-wide tile), x streamed by cp.async and snaked once,
+  then each output the sum of its K taps' Z columns. Thin-in (Cin 1 or 2:
+  the encoders' conv_in, bound by writing y), in bf16 one 16-deep product of
+  each row's K * Cin taps on the tensor cores, the x rows staged once as
+  bf16 pairs and each warp's output tile written with 16-byte stores; in
+  fp32 (and at every other thin shape) on the CUDA cores: a block's x rows
+  and halo staged once, the weights of all Cout in shared memory, each
+  thread 16 rows of a 16-byte output vector (the real K * Cin products
+  only).
 * K3 ``fused_residual_unit`` (replaces ``_ru_forward``/``_ru_kernel``,
   conv1d.py:507, :473). Bound by tensor-core work (16 C^2 products per row:
   ~137 GFLOP per unit at C = 1024); Hopper gives a block 227 KB of shared
@@ -89,6 +98,18 @@ TILE_N = {torch.bfloat16: (256, 192, 128, 96, 64, 32), torch.float32: (128, 96, 
 # fp32: stages (32 input channels of one tap each) per tensor-core partial
 # sum before it is added into the fp32 total (csrc/conv_wgmma.cu)
 F32_FLUSH = 2
+
+# K2's thin-out design (csrc/conv1d.cu, thin_out_kernel): at most
+# THIN_OUT_MAX_N (tap, output) columns of Z (four n8 tiles), Cin up to
+# THIN_OUT_MAX_CIN (B^T and Z in one block's shared memory) and a halo
+# (k - 1) * dilation up to THIN_OUT_MAX_HALO
+THIN_OUT_MAX_N = 32
+THIN_OUT_MAX_CIN = {torch.bfloat16: 1024, torch.float32: 256}
+THIN_OUT_MAX_HALO = 256
+# K2's bf16 thin-in design (thin_in_kernel): up to 16 n8 tiles of outputs
+THIN_IN_MAX_COUT = 128
+# the C entry's design numbers (csrc/conv1d.cu: thin_entry)
+THIN_DESIGNS = {"cuda_cores": 0, "out": 1, "in": 2}
 
 # K3 (csrc/residual_unit.cu): the fused route (bf16) holds a 128-row tile of
 # h in shared memory, at most RU_H_MAX bytes of a block's SMEM_MAX, beside
@@ -164,6 +185,27 @@ def conv_route(cin: int, cout: int, k: int, dtype) -> str:
     if (cin * elem) % 16 or conv_tile_n(cout, dtype) is None:
         return "thin"
     return "wide"
+
+
+def thin_design(cin: int, cout: int, k: int, dilation: int, dtype) -> str:
+    """The thin route's kernel (csrc/conv1d.cu) for a conv conv_route sends
+    to "thin": "out" (the decoders' conv_out: the tensor-core Z product,
+    thin_out_kernel) where its k * Cout (tap, output) columns fit
+    THIN_OUT_MAX_N, x's rows are whole 16-byte words and B^T, Z and the halo
+    fit a block; "in" (the encoders' conv_in in bf16: one 16-deep tensor-core
+    product per row, thin_in_kernel) for bf16 Cin 1 or 2 with k * Cin <=
+    16 and Cout a multiple of 8 up to THIN_IN_MAX_COUT; "cuda_cores" (the
+    CUDA-core thin_cores_kernel, which takes any shape) everywhere else: the
+    conv_in in fp32, whose FFMA reached ~74% of the bytes' bound on an H100
+    SXM at 700 W, and every other thin shape."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if (k * cout <= THIN_OUT_MAX_N and (cin * elem) % 16 == 0 and cin <= THIN_OUT_MAX_CIN[dtype]
+            and (k - 1) * dilation <= THIN_OUT_MAX_HALO):
+        return "out"
+    if (dtype == torch.bfloat16 and cin <= 2 and k * cin <= 16 and cout % 8 == 0
+            and cout <= THIN_IN_MAX_COUT):
+        return "in"
+    return "cuda_cores"
 
 
 def _k_major_weights(w: torch.Tensor, dtype,
@@ -309,8 +351,9 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
         x = x.contiguous()
         wc = w.to(x.dtype).contiguous()
         fn = lib.fsat_snake_conv1d_f32 if f32 else lib.fsat_snake_conv1d
+        design = THIN_DESIGNS[thin_design(cin, cout, k, dilation, x.dtype)]
         err = fn(_ptr(x), _ptr(wc), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout, k, dilation,
-                 padding, _stream(x.device))
+                 padding, design, _stream(x.device))
         if f32:
             snake_conv1d_f32_launches += 1
         else:

@@ -31,6 +31,10 @@ into a library of its own (run on the cases of the kernel it changes):
 * ``k7_f32_turns_off``: the fp32 K7's consumer warpgroups starting their
   products freely instead of in turns.
 
+K10a (attention_rope.cu) runs at ROPE_SHAPES (``--cases K10a``); with
+``--parent`` its output is also held bit for bit against the parent's
+kernel (``k10a_bit_equal_to_parent``).
+
 ``--parent CHECKOUT`` adds the kernels built from another checkout's csrc/
 (e.g. the parent commit unpacked by ``git archive`` into a directory
 .gitignore lists), timed at every case in the same turns: where K7's, K8's
@@ -40,7 +44,7 @@ its K7 entry, which takes no scratch, is called without it. ``--cases S``
 keeps the cases whose name holds S (e.g. ``K9``; ``K7f32,K8``: either).
 
 The shipped build prints ``-Xptxas -v`` for attention.cu,
-flash_attention.cu, flash_attention_bf16.cu and flash_attention_bwd_f32.cu
+attention_rope.cu, flash_attention.cu, flash_attention_bf16.cu and flash_attention_bwd_f32.cu
 (registers, shared memory, spills). K1, K5, K10 and
 K6 run at their main-path shapes (chip_smoke's), and the bf16 K7 at the
 ADP U-Net's (BH 32: T 4096 and 2048 at D 64, T 1024 at D 80) and SA 2.0's
@@ -118,7 +122,7 @@ ENTRY_POINTS = ("fsat_pair_attention", "fsat_pair_attention_bwd", "fsat_rope_pai
                 "fsat_flash_forward_bf16", "fsat_flash_backward", "fsat_flash_forward",
                 "fsat_flash_backward_fused")
 # -Xptxas -v for the shipped build
-PTXAS_REPORT = ("attention.cu", BF16_SOURCE, K7_SOURCE, K9_SOURCE)
+PTXAS_REPORT = ("attention.cu", "attention_rope.cu", BF16_SOURCE, K7_SOURCE, K9_SOURCE)
 # (B, T, H, kv_len) of each head-pair kernel's main path
 PAIR_SHAPES = {"K1": (2, 1025, 24, None), "K5": (8, 1040, 24, 1025), "K10": (2, 6272, 24, 6145),
                "K6": (8, 1040, 24, 1025)}
@@ -148,19 +152,27 @@ K7_F32_SHAPES = {
 # (BH, T, D) of K8's: SA 1.0's U-Net training (B 8 x 16 heads)
 K8_SHAPES = {"K8 BH128 T4096 D64": (128, 4096, 64), "K8 BH128 T2048 D64": (128, 2048, 64),
              "K8 BH128 T1024 D80": (128, 1024, 80)}
+# (B, T, H, part) of K10a's: k at SA 2.0's long-form serving shape (24 calls
+# per generation step) and SAO 1.0's (B2 T1025), q (prescaled by
+# log2(e)/8) and k at SAO 1.0's training shape (K6's two calls); each
+# output also held bit for bit against the parent's where --parent is given
+ROPE_SHAPES = {"K10a k B2 T6272 H24": (2, 6272, 24, 1), "K10a k B2 T1025 H24": (2, 1025, 24, 1),
+               "K10a q B8 T1040 H24": (8, 1040, 24, 0), "K10a k B8 T1040 H24": (8, 1040, 24, 1)}
 # the kernel whose device time each case reports (a substring of its name;
 # K9's matches both of the FFMA two-pass kernels)
 KERNEL_NAMES = {"K1": "pair_attention_kernel", "K5": "pair_attention_kernel",
                 "K10": "pair_attention_kernel", "K6": "pair_bwd_kernel",
                 **{key: "bf16_kernel" for key in BF16_SHAPES},
                 **{key: "flash_bwd" for key in {**K9_SHAPES, **K8_SHAPES}},
-                **{key: "flash_" for key in K7_F32_SHAPES}}
+                **{key: "flash_" for key in K7_F32_SHAPES},
+                **{key: "rope_" for key in ROPE_SHAPES}}
 # the source each case's kernel is built from
 CASE_SOURCES = {"K1": "attention.cu", "K5": "attention.cu", "K10": "attention.cu",
                 "K6": "attention_bwd.cu", **{key: BF16_SOURCE for key in BF16_SHAPES},
                 **{key: K9_SOURCE for key in K9_SHAPES},
                 **{key: K7_SOURCE for key in K7_F32_SHAPES},
-                **{key: K9_SOURCE for key in K8_SHAPES}}
+                **{key: K9_SOURCE for key in K8_SHAPES},
+                **{key: "attention_rope.cu" for key in ROPE_SHAPES}}
 
 
 class _OldForward:
@@ -335,6 +347,20 @@ def main(argv=None):
         valid = kv or t
         kk, vv = k[:, :valid].contiguous(), v[:, :valid].contiguous()
         sdpa[key] = (q[None], kk[None], vv[None], causal)
+    for key, (b, t, h, part) in ROPE_SHAPES.items():
+        if key not in wanted:
+            continue
+        qkv = torch.randn(b, t, 3 * h * 64, generator=g, device="cuda").to(torch.bfloat16)
+        f = rotary_freqs(t, 32, device="cuda")
+        _, _, cos, sin = attention._cuda_inputs("rope_pair", qkv, f, h)
+        cases[key] = (qkv, cos, sin, h, part, attention.LOG2E / 8 if part == 0 else 1.0, f)
+        # k through the public wrapper (its tables made per call, as chip_smoke
+        # [3d] times it), q as K6 launches it (its tables made once per call
+        # for both parts)
+        calls[key] = (lambda c: attention.rope_pair_k(c[0], c[6], c[3])) if part else (
+            lambda c: attention._rope_launch(*c[:6]))
+        plains[key] = (attention.rope_pair_q_plain if part == 0 else attention.rope_pair_k_plain)(
+            qkv, f, h)
     for key, (bh, t, d) in K8_SHAPES.items():
         if key not in wanted:
             continue
@@ -374,6 +400,7 @@ def main(argv=None):
         return ((out.float() - plain.float()).norm() / plain.float().norm()).item()
 
     results = {name: {} for name in names}
+    rope_outs = {}  # K10a's first output per library, held bit for bit against the parent's
     for name in names if args.check else names + names[::-1]:
         build._lib = libs[name]
         for key in runs[name]:
@@ -381,6 +408,8 @@ def main(argv=None):
             out = call(c)
             torch.cuda.synchronize()
             rel = rel_l2(out, plains[key])
+            if key in ROPE_SHAPES:
+                rope_outs.setdefault(name, {}).setdefault(key, out)
             del out
             r = results[name].setdefault(key, {"ms": [], "kernel_ms": [], "rel_l2": rel})
             if not args.check:
@@ -388,10 +417,14 @@ def main(argv=None):
                 r["kernel_ms"].append(kernel_ms(lambda: call(c), KERNEL_NAMES[key]))
     build._lib = None
     shapes = {key: v for key, v in {**PAIR_SHAPES, **BF16_SHAPES, **K9_SHAPES, **K7_F32_SHAPES,
-                                    **K8_SHAPES}.items()
+                                    **K8_SHAPES, **ROPE_SHAPES}.items()
               if key in wanted}
     summary = {"card": smi, "shapes": {k: list(v) for k, v in shapes.items()}, "variants": {},
-               "sdpa_ms": {}, "sdpa_backward_ms": {}}
+               "sdpa_ms": {}, "sdpa_backward_ms": {},
+               "k10a_bit_equal_to_parent": {
+                   key: torch.equal(out, rope_outs["parent"][key])
+                   for key, out in rope_outs.get("shipped", {}).items()
+                   if key in rope_outs.get("parent", {})}}
     if not args.check:
         for key, (q, k, v, *causal) in sdpa.items():
             summary["sdpa_ms"][key] = min(
@@ -412,6 +445,8 @@ def main(argv=None):
         print(f"{name:13s} " + "  ".join(f"{key} rel-L2 {r['rel_l2']:.2e}{timed(r)}"
                                          for key, r in summary["variants"][name].items()),
               flush=True)
+    for key, equal in summary["k10a_bit_equal_to_parent"].items():
+        print(f"{key}: bit-equal to the parent's: {equal}", flush=True)
     for key, ms in summary["sdpa_ms"].items():
         print(f"SDPA          {key} {ms:.4f} ms", flush=True)
     for key, ms in summary["sdpa_backward_ms"].items():

@@ -877,3 +877,103 @@ def test_wide_conv_kernel_at_the_dac_widths_and_ragged_lengths(gen, dtype, tol):
     assert (tconv.snake_conv1d_launches, tconv.snake_conv1d_f32_launches) == (
         before[0] + (not f32), before[1] + f32)
 
+
+
+# K2's thin route (csrc/conv1d.cu) at every main-path thin shape: (Cin,
+# Cout, k, snake, bias) of the Oobleck conv_in and conv_out, the DAC's and
+# the SEANet's, at batch 2 and lengths past one block tile (3000) and ragged
+# ones (333, under one thin-out tile; 77)
+THIN_MAIN = [(2, 128, 7, False, True), (128, 2, 7, True, False), (96, 2, 7, False, True),
+             (1, 64, 7, False, True), (64, 1, 7, False, True)]
+# odd thin shapes of both designs: (T, Cin, Cout, k, dilation)
+THIN_ODD = [(333, 3, 48, 7, 3), (130, 64, 48, 7, 1), (300, 4, 4, 7, 9), (211, 16, 3, 7, 1),
+            (211, 40, 2, 3, 2), (400, 2, 600, 7, 1), (129, 2048, 2, 3, 1), (500, 300, 1, 5, 1),
+            (333, 1, 40, 5, 3), (77, 2, 8, 7, 2), (600, 1, 120, 15, 1)]
+
+
+def _thin_close(got, want, dtype):
+    """K2's tolerance: bf16 within one rounding (rel-L2 2e-3, max abs 2^-6
+    of max|plain|), fp32 rel-L2 1e-5."""
+    if dtype == torch.float32:
+        _close(got, want, 1e-5)
+    else:
+        _close(got, want, 2e-3)
+        assert (got.float() - want.float()).abs().max() <= 2.0 ** -6 * want.float().abs().max()
+
+
+def _thin_case(gen, dtype, b, t, cin, cout, k, d, snake, bias):
+    x = _rnd(gen, b, t, cin, scale=0.5).to(dtype)
+    w = _rnd(gen, k, cin, cout, scale=1 / (k * cin) ** 0.5)
+    bb = _rnd(gen, cout, scale=0.1) if bias else None
+    a = _rnd(gen, cin).abs() + 0.5 if snake else None
+    ib = 1.0 / (_rnd(gen, cin).abs() + 0.5) if snake else None
+    name = "snake_conv1d_f32_launches" if dtype == torch.float32 else "snake_conv1d_launches"
+    before = getattr(tconv, name)
+    got = tconv.snake_conv1d(x, w, bb, a, ib, dilation=d)
+    assert getattr(tconv, name) == before + 1
+    assert got.dtype == dtype and got.shape == (b, t, cout)
+    _thin_close(got, tconv.snake_conv1d_plain(x, w, bb, a, ib, dilation=d), dtype)
+
+
+@pytest.mark.parametrize("t", [3000, 333, 77])
+@pytest.mark.parametrize("cin,cout,k,snake,bias", THIN_MAIN)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_thin_conv_kernels_at_the_main_path_thin_shapes(gen, dtype, cin, cout, k, snake, bias, t):
+    """Each main-path thin shape on its kernel (conv_out thin-out; conv_in
+    thin-in in bf16, the CUDA-core kernel in fp32), with and without the
+    snake where the path has none, one launch of the thin route's count per
+    call."""
+    assert tconv.conv_route(cin, cout, k, dtype) == "thin"
+    for sn in {snake, False}:
+        _thin_case(gen, dtype, 2, t, cin, cout, k, 1, sn, bias)
+
+
+@pytest.mark.parametrize("t,cin,cout,k,d", THIN_ODD)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_thin_conv_kernels_at_odd_shapes(gen, dtype, t, cin, cout, k, d):
+    """The thin route's other shapes, each on the kernel thin_design gives
+    it: channel chunks and column passes of the CUDA-core kernel, three and
+    four n8 tiles and a ragged last chunk of thin-out, thin-in's Cin 1 pairs
+    at a dilation, one n8 tile and all 16 fragment k, with the snake."""
+    assert tconv.conv_route(cin, cout, k, dtype) == "thin"
+    _thin_case(gen, dtype, 2, t, cin, cout, k, d, True, True)
+
+
+def _rope_formula(qkv, freqs, num_heads, part, scale):
+    """K10a's arithmetic in plain torch on the card: c = fp32(cos s), s' =
+    fp32(sin s), partner = -x[d + rot/2] or x[d - rot/2], y = fma(x, c,
+    fp32(partner s')) over the rotated dims (nvcc's contraction of x * c +
+    partner * s' in the kernel before its redesign, which the kernel now
+    writes out; x c is exact in fp64, the sum rounded once), x s beyond,
+    rounded to bf16."""
+    b, t, three_hd = qkv.shape
+    hd = three_hd // 3
+    rot = freqs.shape[-1]
+    f = freqs[-t:].float()
+    c = (torch.cos(f) * scale).double()[:, None]
+    s = (torch.sin(f) * scale).double()[:, None]
+    x = qkv[..., part * hd:(part + 1) * hd].float().view(b, t, num_heads, 64)
+    xr = x[..., :rot].double()
+    partner = torch.cat([-xr[..., rot // 2:], xr[..., :rot // 2]], dim=-1)
+    y = x * scale
+    y[..., :rot] = (xr * c + (partner * s).float().double()).float()
+    return y.reshape(b, t, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t", [77, 1025, 6145])
+@pytest.mark.parametrize("h", [2, 24])
+@pytest.mark.parametrize("part", [1, 0])
+def test_rope_pair_matches_its_formula_bit_for_bit(gen, part, h, t):
+    """K10a, k (scale 1) and q (K6's prescale log2(e)/8), bit for bit
+    against its formula (the parent kernel's arithmetic) and within
+    rope_pair_k's tolerance of the plain version; one launch per call."""
+    qkv = _rnd(gen, 2, t, 3 * h * 64).to(torch.bfloat16)
+    f = rotary_freqs(t, 32, device="cuda")
+    _, _, cos, sin = tattn._cuda_inputs("rope_pair", qkv, f, h)
+    scale = 1.0 if part else tattn.LOG2E / 8
+    before = tattn.rope_k_launches
+    got = tattn._rope_launch(qkv, cos, sin, h, part, scale)
+    assert tattn.rope_k_launches == before + 1
+    assert torch.equal(got, _rope_formula(qkv, f, h, part, scale))
+    plain = (tattn.rope_pair_k_plain if part else tattn.rope_pair_q_plain)(qkv, f, h)
+    _close(got, plain, tol=1e-3)
