@@ -325,10 +325,8 @@ TRAIN_DEPTH = 6
 LM_GEN_DEPTH = 6
 # the adaLN DiT (phases 3j, 14b, 14): SAO 1.0's DiT with global_cond_type
 # "adaLN", 1024 latent frames (nothing prepended), 1536 wide, 24 layers, two
-# K11 and two K12 calls per layer and forward; EW_SETS input sets of [3j]'s
-# timings (8 x 12.6-18.9 MB: twice the 50 MB L2 cache)
+# K11 and two K12 calls per layer and forward
 ADALN_T, ADALN_DIM, ADALN_LAYERS = 1024, 1536, 24
-EW_SETS = 8
 
 # tolerances of the kernel-vs-plain compares (bf16 in and out; both sides
 # accumulate in fp32 and round the result once, in different orders):
@@ -2071,14 +2069,17 @@ def elementwise_phase(results):
     scale, shift and gate are chunks of one [B, 1, 6D] projection, as the
     DiT hands them over. Bound: each [B, T, D] tensor read or written once
     at 3.35 TB/s. Calls last microseconds, so each is timed as CUDA-graph
-    replays (`graph_ms`) cycling through EW_SETS input sets (over 100 MB,
-    twice the L2 cache); no single PyTorch call computes either function."""
+    replays (`graph_ms`) cycling through as many input sets as make x (K11)
+    or y (K12) alone at least twice the card's L2 cache, every call's output
+    kept to the end of the capture so that no two calls write one buffer;
+    no single PyTorch call computes either function."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import elementwise as ew
 
     rnd = randn_fn(23)
     d = ADALN_DIM
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
     main_label = f"B2 T{ADALN_T} D{d}"
     for name in ("ln_modulate", "gated_residual"):
         results[name]["weight"][main_label] = 2 * ADALN_LAYERS
@@ -2088,7 +2089,7 @@ def elementwise_phase(results):
     for name, b, t, gamma in cases:
         lnmod = name == "ln_modulate"
         sets = []
-        for _ in range(EW_SETS):
+        for _ in range(max(2, -(-2 * l2 // (b * t * d * 2)))):
             x = rnd(b, t, d).to(torch.bfloat16)
             scale, shift, gate = (rnd(b, 1, 6 * d, scale=0.3).to(torch.bfloat16)
                                   .chunk(6, dim=-1)[:3])
@@ -2108,7 +2109,12 @@ def elementwise_phase(results):
             m_ok, m_abs, m_rel, _ = within(name + "_kernel_math", out, math_ref(*sets[0]))
             bound = bound_ms(0, nbytes(*sets[0], out))
             del out
-            times = [graph_ms([lambda s=s, fn=fn: fn(*s) for s in sets]) for fn in (kernel, plain)]
+            times = []
+            for fn in (kernel, plain):
+                kept = []
+                times.append(graph_ms([lambda s=s, fn=fn, kept=kept: kept.append(fn(*s))
+                                       for s in sets]))
+            del kept
         extra = (f"; against the Pallas kernel's arithmetic max_abs {m_abs:.4g} rel_l2 {m_rel:.3g} "
                  f"tol {TOL[name + '_kernel_math']} {'OK' if m_ok else 'FAIL'}; CUDA-graph replays")
         if not m_ok:

@@ -56,7 +56,7 @@ SIGNATURES = {
     "fsat_tf32_split": [_P, _P, _I, _I, _I, _P],
     "fsat_glu_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fsat_glu_stream_plan": [_I, _I, _I, _I, _I, _P],
-    "fsat_ln_modulate": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    "fsat_ln_modulate": [_P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "fsat_gated_residual": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
 }
 

@@ -28,12 +28,15 @@ fp32 math and bf16 roundings, for holding the CUDA kernels to them.
 Each kernel's autograd binding launches it in the forward and
 differentiates the plain chain in the backward, as the JAX custom_vjps
 recompute through XLA (:119-135, :185-201); no backward kernel exists.
+K11's launch (grid, warps a block, staged batch rows) is planned here by
+:func:`lnmod_plan` from the card's SM count and passed to its C entry.
 What bounds the kernels on the H100 and what their design does about it:
 csrc/elementwise.cu.
 """
 
 from __future__ import annotations
 
+import functools
 import typing as tp
 
 import torch
@@ -46,6 +49,71 @@ gres_launches = 0  # K12
 
 MAX_DIM = 4096
 EPS = 1e-5
+
+# K11's launch plan (csrc/elementwise.cu): the card's per-SM limits
+LN_WARPS = 8  # warps a block
+H100_SMS = 132
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use (227 KB)
+SMEM_PER_SM = 233_472  # and an SM holds (228 KB), 1 KB of it reserved per block
+SMEM_RESERVED = 1024
+
+
+class LnmodPlan(tp.NamedTuple):
+    """K11's launch: `grid` blocks of `warps` warps; a lane group of `lanes`
+    lanes (32, or 16 at D 128) owns one row at a time, each lane `vectors`
+    16-byte vectors of it; each block stages gamma (fp32) and the scale and
+    shift rows (bf16) of up to `slots` batch indices in `smem` bytes of
+    shared memory."""
+    grid: int
+    warps: int
+    lanes: int
+    vectors: int
+    slots: int
+    smem: int
+
+
+def lnmod_warps_per_sm(vectors: int) -> int:
+    """Warps an SM holds of K11 with `vectors` vectors a lane: its launch
+    bounds keep it to 64 registers a thread up to 4 vectors, 80 up to 6,
+    128 up to 11 and 255 above."""
+    return 32 if vectors <= 4 else 24 if vectors <= 6 else 16 if vectors <= 11 else 8
+
+
+@functools.lru_cache(maxsize=256)
+def lnmod_plan(rows: int, t: int, d: int, sm_count: int) -> LnmodPlan:
+    """K11's launch for `rows` = B * T rows of width `d` on a card of
+    `sm_count` SMs.
+
+    The grid is what the card holds at once (by the warps the kernel's
+    registers allow an SM and by shared memory), or one block a row where
+    there are fewer rows, so every row is requested in one wave. The kernel
+    splits the rows evenly over the blocks in contiguous runs (block b
+    takes rows // grid rows, one more where b < rows % grid) and each
+    block's over its lane groups alike, so a block's n rows span at most
+    (n + t - 2) // t + 1 batch indices, and `slots` covers that span
+    wherever shared memory allows."""
+    lanes = min(32, d // 8)
+    vectors = -(-d // (8 * lanes))
+    by_regs = lnmod_warps_per_sm(vectors) // LN_WARPS
+    grid = min(rows, sm_count * by_regs)
+    while True:
+        n = -(-rows // grid)  # the most rows a block takes
+        slots = min(rows // t, (n + t - 2) // t + 1)
+        slots = min(slots, SMEM_PER_BLOCK // (4 * d) - 1)
+        smem = 4 * d * (1 + slots)
+        fits = sm_count * min(by_regs, SMEM_PER_SM // (smem + SMEM_RESERVED))
+        if grid <= fits:
+            return LnmodPlan(grid, LN_WARPS, lanes, vectors, slots, smem)
+        grid = fits
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of `device`'s card; off a card (meta tensors) those of the
+    H100 SXM the kernels are built for."""
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def eligible(x: torch.Tensor, vec: torch.Tensor, other: torch.Tensor) -> bool:
@@ -137,8 +205,10 @@ def _check_cuda(name: str, x: torch.Tensor, *others: tp.Optional[torch.Tensor]) 
         raise ValueError(f"{name}: all tensors must be on {x.device}")
 
 
-def _launch_ln_modulate(x, gamma, scale, shift):
-    global lnmod_launches
+def _lnmod_args(x, gamma, scale, shift):
+    """K11's arguments as its C entry reads them, checked, with tensors in
+    place of pointers: (x, gamma, gamma_kind, scale, scale_stride, shift,
+    shift_stride). The DiT's scale and shift are read in place."""
     _check_cuda("ln_modulate", x, gamma, scale, shift)
     b, t, d = x.shape
     x = _activation(x, x.shape, "ln_modulate x")
@@ -154,12 +224,22 @@ def _launch_ln_modulate(x, gamma, scale, shift):
             raise TypeError(f"ln_modulate: gamma must be fp32 or bf16 [{d}], got {gamma.dtype} "
                             f"{list(gamma.shape)}")
         gamma = gamma.contiguous()
+        if gamma.data_ptr() % 16:
+            gamma = gamma.clone()
         kind = kinds[gamma.dtype]
+    return x, gamma, kind, scale, scale_stride, shift, shift_stride
+
+
+def _launch_ln_modulate(x, gamma, scale, shift):
+    global lnmod_launches
+    x, gamma, kind, scale, scale_stride, shift, shift_stride = _lnmod_args(x, gamma, scale, shift)
+    b, t, d = x.shape
+    plan = lnmod_plan(b * t, t, d, sm_count(x.device))
     out = torch.empty_like(x)
     err = build.library().fsat_ln_modulate(
         x.data_ptr(), None if gamma is None else gamma.data_ptr(), kind, scale.data_ptr(),
-        shift.data_ptr(), scale_stride, shift_stride, out.data_ptr(), b * t, t, d,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        shift.data_ptr(), scale_stride, shift_stride, out.data_ptr(), b * t, t, d, plan.grid,
+        plan.warps, plan.slots, torch.cuda.current_stream(x.device).cuda_stream)
     lnmod_launches += 1
     build.check(err, "ln_modulate")
     return out

@@ -755,18 +755,52 @@ def _one_rounding(got, want):
     assert (got.float() - want.float()).abs().max() <= 2.0 ** -7 * want.float().abs().max()
 
 
-@pytest.mark.parametrize("b,t,d,gamma", [(2, 1024, 1536, "bf16"), (2, 1024, 1536, None),
-                                         (3, 77, 128, "fp32"), (1, 300, 4096, "bf16")])
-def test_ln_modulate_kernel_matches_plain(gen, b, t, d, gamma):
+# K11 at the gate's edges: the DiT's width with each gamma; D 128 (two rows
+# a warp) at T 1, 77 and 1025; D 4096 at T 300; B * T not a multiple of a
+# block's 8 warps (231, 2331, 26 rows) and batch rows split across two
+# blocks (T 77, 777, 13, 1025); T 1 (a block's rows in eight batch
+# indices); a lane's last vector past the row (D 384); more rows than the
+# card holds at once (each warp then takes several: D 1536 B8 T1024, D 128
+# B8 T8448, D 4096 B2 T2000)
+LNMOD_CASES = [(2, 1024, 1536, "bf16"), (2, 1024, 1536, None), (2, 1024, 1536, "fp32"),
+               (3, 777, 1536, "bf16"), (3, 77, 128, "fp32"), (2, 1, 128, None),
+               (2, 1025, 128, "bf16"), (1, 300, 4096, "bf16"), (2, 300, 4096, "fp32"),
+               (2, 13, 1536, None), (8, 1, 256, "bf16"), (3, 50, 384, "fp32"),
+               (8, 1024, 1536, "bf16"), (8, 8448, 128, None), (2, 2000, 4096, "bf16")]
+
+
+def _lnmod_inputs(gen, b, t, d, gamma):
     x = _rnd(gen, b, t, d).to(torch.bfloat16)
     g = None if gamma is None else (1 + _rnd(gen, d, scale=0.1)).to(
         torch.bfloat16 if gamma == "bf16" else torch.float32)
     scale, shift, _ = _adaln_vectors(gen, b, d)
+    return x, g, scale, shift
+
+
+@pytest.mark.parametrize("b,t,d,gamma", LNMOD_CASES)
+def test_ln_modulate_kernel_matches_plain(gen, b, t, d, gamma):
+    x, g, scale, shift = _lnmod_inputs(gen, b, t, d, gamma)
     before = tew.lnmod_launches
     got = tew.ln_modulate(x, g, scale, shift)
     assert tew.lnmod_launches == before + 1 and got.dtype == torch.bfloat16
     _one_rounding(got, tew.ln_modulate_kernel_math(x, g, scale, shift))
     _close(got, tew.ln_modulate_plain(x, g, scale, shift))
+
+
+@pytest.mark.parametrize("b,t,d,gamma", [(2, 1024, 1536, "bf16"), (3, 77, 128, "fp32"),
+                                         (8, 1, 4096, None)])
+def test_ln_modulate_kernel_is_the_same_under_any_plan(gen, monkeypatch, b, t, d, gamma):
+    """K11 computes each row alike whatever its plan: 4 or 1 warps a block,
+    one block, a grid of one block an SM, nothing staged, one slot staged
+    (the other rows' vectors read from global memory): bit for bit."""
+    x, g, scale, shift = _lnmod_inputs(gen, b, t, d, gamma)
+    want = tew.ln_modulate(x, g, scale, shift)
+    plan = tew.lnmod_plan(b * t, t, d, tew.sm_count(x.device))
+    for other in (plan._replace(warps=4), plan._replace(warps=1), plan._replace(grid=1),
+                  plan._replace(grid=132), plan._replace(slots=0),
+                  plan._replace(grid=3, slots=1)):
+        monkeypatch.setattr(tew, "lnmod_plan", lambda *a, other=other: other)
+        assert torch.equal(tew.ln_modulate(x, g, scale, shift), want), other
 
 
 @pytest.mark.parametrize("b,t,d", [(2, 1024, 1536), (3, 77, 128), (1, 300, 4096)])
