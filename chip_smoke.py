@@ -122,6 +122,19 @@ Phases (any failure raises and the script exits non-zero):
    error; the 100-step generation (K13 2400 on its tensor-core route, the
    other counts as in [5]) and one profiled CFG step (K13's share); both
    generations' s-audio/s and both steps' device times side by side;
+16. (after 5b, on the same model) init-audio generation and the other
+   samplers: a variation of [5]'s clip (`init_audio`, `init_noise_level`
+   1.0, 100 dpmpp-3m-sde steps, CFG 7), an inpainting with outpainting's
+   cut and paste (`mask_args`, 100 steps), one pass of each other sampler
+   from noise (INIT_SAMPLER_STEPS steps; k-dpm-adaptive until its
+   controller reaches sigma_min or 200 iterations); each with the walls
+   (the encode's too), peak memory and exact launch counts (the frozen
+   bf16 encode's K2 by route and K3 15 on top of the decode's; K1 = K10a =
+   24 x the model evaluations the step hook counted); then an
+   INIT_CHECK_STEPS-step inpainting with the kernels and with the plain
+   versions in bf16, each against an fp32 copy with the plain versions, its
+   audio and its latents: the kernels' rel-L2 within DIT_ERR_RATIO of the
+   plain bf16 one;
 6. one training step of the fp32 DiT at batch 8 with the attention kernels,
    with their plain versions in bf16, and with fp32 plain attention as the
    reference: loss and weight gradients of layers 0, 11 and 23;
@@ -323,6 +336,14 @@ LM_TRAIN_STEPS = 3
 # written (`at_depth`)
 TRAIN_DEPTH = 6
 LM_GEN_DEPTH = 6
+# init-audio generation ([16]): the outpainting of [5]'s clip (percent of
+# the clip: its first half pasted over the middle, kept there with soft
+# edges), the other samplers' steps, and the inpainting held against the
+# plain versions
+INIT_MASK_ARGS = {"cropfrom": 0, "pastefrom": 25, "pasteto": 75, "maskstart": 25, "maskend": 75,
+                  "softnessL": 5, "softnessR": 5, "marination": 0}
+INIT_SAMPLER_STEPS = 8
+INIT_CHECK_STEPS = 8
 # the adaLN DiT (phases 3j, 14b, 14): SAO 1.0's DiT with global_cond_type
 # "adaLN", 1024 latent frames (nothing prepended), 1536 wide, 24 layers, two
 # K11 and two K12 calls per layer and forward
@@ -3235,6 +3256,136 @@ def sao_fused_mlp_phase(model, config, launches_off, rate_off, prof_off):
     return launches
 
 
+def init_audio_call(model, label, expected, clip, **kw):
+    """One `generate_diffusion_cond` of one SAO prompt (CFG 7, seed 42) with
+    every launch count set to 0 just before and read just after; the step
+    hook counts the model evaluations. Checks finite nonzero [1, 2,
+    SAMPLE_SIZE] audio and the counts: `expected`, K1 and K10a 24 per
+    evaluation, every other kernel 0. Logs the walls (conditioners, encode,
+    decode, total), peak memory, the audio's rel-L2 to [5]'s `clip` and the
+    card. Returns (counts, evaluations)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+
+    phase = {"conditioners": 0.0, "encode": 0.0, "decode": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            phase[key] += time.perf_counter() - start
+            return out
+        return wrapper
+
+    evals = [0]
+
+    def count(info):
+        evals[0] += 1
+
+    pt = model.pretransform
+    with patched([(model.conditioner, "forward", timed(model.conditioner.forward, "conditioners")),
+                  (pt, "encode_nwc", timed(pt.encode_nwc, "encode")),
+                  (pt, "decode_nwc", timed(pt.decode_nwc, "decode"))]):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        audio = generate_diffusion_cond(model, cfg_scale=CFG_SCALE, conditioning=[PROMPT],
+                                        sample_size=SAMPLE_SIZE, sigma_min=0.3, sigma_max=500,
+                                        seed=42, callback=count, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+        launches = read_counts()
+    want = {name: 0 for name in KERNELS}
+    want.update(expected, fused_qkv_rope_attention=24 * evals[0], rope_pair_k=24 * evals[0])
+    rms = audio.float().square().mean().sqrt().item()
+    denoise = total - sum(phase.values())
+    log(f"  {label}: {evals[0]} model evaluations; wall conditioners {phase['conditioners']:.4f} s, "
+        f"encode {phase['encode']:.4f} s, denoise {denoise:.4f} s ({denoise / evals[0] * 1e3:.3f} ms "
+        f"per evaluation), decode {phase['decode']:.4f} s, total {total:.4f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; audio rms {rms:.4g}, rel-L2 to [5]'s "
+        f"clip {rel_err(audio, clip):.4g}; card {smi_line()}")
+    if tuple(audio.shape) != (1, 2, SAMPLE_SIZE) or not torch.isfinite(audio).all() or rms <= 0:
+        raise AssertionError(f"{label}: the output is not finite nonzero [1, 2, {SAMPLE_SIZE}] audio")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches}, expected {want}")
+    return launches, evals[0]
+
+
+def init_audio_phase(model, audio):
+    """[16] Init-audio generation and the other samplers on the SAO model in
+    bench.py's bf16 recipe, [5]'s generated clip (`audio`, [1, 2,
+    SAMPLE_SIZE]) as the init audio: a variation and an outpainting (100
+    dpmpp-3m-sde steps each), one pass of each other sampler from noise,
+    then the kernels against the plain versions on an inpainting. Returns
+    the launch counts per path."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from friendly_stable_audio_tools_tpu_torch.inference.sampling import SAMPLER_TYPES
+
+    init = (44100, audio[0])
+    decode = {"fused_residual_unit": 15, "snake_conv_transpose1d": 5,
+              **k2_counts(OOBLECK_DECODE_K2, torch.bfloat16)}
+    with_encode = {"fused_residual_unit": 30, "snake_conv_transpose1d": 5,
+                   **k2_counts(OOBLECK_DECODE_K2 + OOBLECK_ENCODE_K2, torch.bfloat16)}
+    paths = {}
+    paths["generate_variation"], _ = init_audio_call(
+        model, f"variation (init_noise_level 1.0, {STEPS} dpmpp-3m-sde steps)", with_encode, audio,
+        steps=STEPS, sampler_type="dpmpp-3m-sde", init_audio=init, init_noise_level=1.0)
+    paths["generate_inpaint"], _ = init_audio_call(
+        model, f"outpainting {INIT_MASK_ARGS} ({STEPS} dpmpp-3m-sde steps)", with_encode, audio,
+        steps=STEPS, sampler_type="dpmpp-3m-sde", init_audio=init, mask_args=INIT_MASK_ARGS)
+    # k-lms integrates its coefficients with scipy on the host: its import,
+    # timed here, would otherwise land in the first k-lms call's wall
+    start = time.perf_counter()
+    import scipy.integrate  # noqa: F401
+    log(f"  host: importing scipy.integrate took {time.perf_counter() - start:.4f} s")
+    samplers = {name: 0 for name in KERNELS}
+    for sampler in SAMPLER_TYPES:
+        if sampler == "dpmpp-3m-sde":
+            continue
+        how = ("until sigma_min or 200 iterations" if sampler == "k-dpm-adaptive"
+               else f"{INIT_SAMPLER_STEPS} steps")
+        counts, _ = init_audio_call(model, f"{sampler} from noise, {how}", decode, audio,
+                                    steps=INIT_SAMPLER_STEPS, sampler_type=sampler)
+        samplers = {k: samplers[k] + counts[k] for k in KERNELS}
+    paths["generate_samplers"] = samplers
+
+    # the kernels against the plain versions: the same inpainting (same
+    # seed, so the same draws) with the kernels, with the plain versions in
+    # bf16, and on an fp32 copy with the plain versions; its audio, and its
+    # latents (return_latents), which show the encode, the DiT and the
+    # sampler apart from the decode: at random weights the decoded audio
+    # barely moves with the latents (each [16] clip within rel-L2 ~3e-3 of
+    # [5]'s)
+    kw = dict(steps=INIT_CHECK_STEPS, cfg_scale=CFG_SCALE, conditioning=[PROMPT],
+              sample_size=SAMPLE_SIZE, sampler_type="dpmpp-3m-sde", sigma_min=0.3, sigma_max=500,
+              seed=7, init_audio=init, mask_args=INIT_MASK_ARGS)
+    model32 = copy.deepcopy(model)
+    model32.model.float()
+    model32.pretransform.float()
+    model32.pretransform.model_half = False
+    for what, latents in (("audio", False), ("latents", True)):
+        out_k = generate_diffusion_cond(model, return_latents=latents, **kw)
+        with plain_kernels():
+            out_p = generate_diffusion_cond(model, return_latents=latents, **kw)
+            out_32 = generate_diffusion_cond(model32, return_latents=latents, **kw)
+        err_k, err_p = rel_err(out_k, out_32), rel_err(out_p, out_32)
+        log(f"  {INIT_CHECK_STEPS}-step outpainting's {what} {list(out_k.shape)}, rel-L2 against an "
+            f"fp32 copy with the plain versions: kernels {err_k:.4g}, plain bf16 {err_p:.4g} (bound: "
+            f"kernels <= {DIT_ERR_RATIO} x plain); kernels vs plain {rel_err(out_k, out_p):.4g}")
+        if not (torch.isfinite(out_k).all() and err_k <= DIT_ERR_RATIO * err_p):
+            raise AssertionError(f"the inpainting's {what} with the kernels disagree with the plain "
+                                 f"versions")
+    del model32
+    torch.cuda.empty_cache()
+    return paths
+
+
 def bench_recipe(model):
     """bench.py's bf16 recipe (bench.py:67, 157-159): the DiT's and the
     VAE's weights in bf16, the VAE computing in bf16 (`model_half`). The
@@ -3779,7 +3930,7 @@ def main():
 
     log("[5] generation path: SAO 1.0 text-to-audio, 100 dpmpp-3m-sde steps, CFG 7, bench.py's "
         "bf16 recipe")
-    launches, _, rate_sao = generation_phase(
+    launches, sao_audio, rate_sao = generation_phase(
         model, config, PROMPT, SAMPLE_SIZE,
         expected={"fused_qkv_rope_attention": 24 * STEPS, "rope_pair_k": 24 * STEPS,
                   "pair_long_attention": 0,
@@ -3793,9 +3944,14 @@ def main():
         "FeedForward), bench.py's bf16 recipe: a DiT forward vs without it and vs fp32, the "
         "100-step generation, one profiled CFG step")
     launches_fused = sao_fused_mlp_phase(model, config, launches, rate_sao, prof_sao)
-    del model
-    torch.cuda.empty_cache()
     done("[5b]")
+    log(f"[16] init-audio generation on the same model: a variation and an outpainting of [5]'s "
+        f"clip ({STEPS} dpmpp-3m-sde steps, CFG {CFG_SCALE}), each other sampler from noise, an "
+        f"inpainting with the kernels vs the plain versions")
+    counts_init = init_audio_phase(model, sao_audio)
+    del model, sao_audio
+    torch.cuda.empty_cache()
+    done("[16]")
 
     # phases 6-7 write ~23 GB (a de-zeroed DiT and a full training checkpoint)
     # into the checkout's build/ directory, which the kernel build uses too
@@ -3978,7 +4134,7 @@ def main():
                "adaln_step": counts_adaln_step, "adaln_step_plain_ew": counts_adaln_step_off,
                "generate_adaln": counts_adaln, "generate_adaln_plain_ew": counts_adaln_off,
                "generate_sa1_bf16": launches_sa1_bf16, "sa2_xl_forward_fp32": counts_xl32,
-               "sa2_xl_forward_bf16": counts_xl16}
+               "sa2_xl_forward_bf16": counts_xl16, **counts_init}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]

@@ -44,7 +44,10 @@ def get_args(argv=None):
     p.add_argument("--ckpt-path", type=str, default="",
                    help="state_dict of the port's model (torch.save), e.g. converted with "
                         "friendly_stable_audio_tools_tpu_torch.utils.convert.")
-    p.add_argument("--sampler-type", type=str, default="dpmpp-3m-sde")
+    p.add_argument("--sampler-type", type=str, default="dpmpp-3m-sde",
+                   help="k-euler, k-heun, k-lms, k-dpmpp-2s-ancestral, k-dpm-2, dpmpp-2m-sde, "
+                        "dpmpp-3m-sde, k-dpm-fast or k-dpm-adaptive (a v-objective model); a "
+                        "rectified-flow model ignores it")
     p.add_argument("--sample-steps", type=int, default=100)
     p.add_argument("--cfg-scale", type=float, default=7.0)
     p.add_argument("--n-sample-per-cond", type=int, default=1)
@@ -52,7 +55,8 @@ def get_args(argv=None):
     p.add_argument("--clip-length", action="store_true",
                    help="Clip generated audio to the specified 'seconds_total'.")
     p.add_argument("--seed", type=int, default=-1)
-    p.add_argument("--verbose", action="store_true", help="print sampler it/s every 10 steps")
+    p.add_argument("--verbose", action="store_true",
+                   help="print the sampler's rate every 10 model evaluations")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a CUDA device) or cpu")
     return p.parse_args(argv)

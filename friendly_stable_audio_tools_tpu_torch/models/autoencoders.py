@@ -136,12 +136,14 @@ class AudioAutoencoder(nn.Module):
     """The VAE wrapper: encoder -> bottleneck encode, bottleneck decode -> decoder."""
 
     def __init__(self, encoder: tp.Optional[nn.Module], decoder: nn.Module,
-                 bottleneck: tp.Optional[nn.Module], downsampling_ratio: int):
+                 bottleneck: tp.Optional[nn.Module], downsampling_ratio: int,
+                 io_channels: int = 2):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
         self.bottleneck = bottleneck
         self.downsampling_ratio = downsampling_ratio
+        self.io_channels = io_channels
         # a discrete bottleneck (rvq) tokenizes (JAX :287-290)
         self.is_discrete = bool(getattr(bottleneck, "is_discrete", False))
         self.num_quantizers = bottleneck.num_quantizers if self.is_discrete else None
@@ -218,4 +220,4 @@ def create_autoencoder_from_config(ae: tp.Dict[str, tp.Any]) -> AudioAutoencoder
         encoder=create_encoder_from_config(ae["encoder"]) if "encoder" in ae else None,
         decoder=create_decoder_from_config(ae["decoder"]),
         bottleneck=create_bottleneck_from_config(bottleneck) if bottleneck else None,
-        downsampling_ratio=ae["downsampling_ratio"])
+        downsampling_ratio=ae["downsampling_ratio"], io_channels=ae.get("io_channels", 2))

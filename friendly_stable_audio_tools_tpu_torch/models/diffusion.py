@@ -54,7 +54,8 @@ class ConditionedDiffusionModelWrapper(nn.Module):
     def __init__(self, model: nn.Module, conditioner: tp.Optional[MultiConditioner],
                  io_channels: int, pretransform: tp.Optional[AutoencoderPretransform] = None,
                  cross_attn_cond_ids: tp.Sequence[str] = (),
-                 global_cond_ids: tp.Sequence[str] = (), diffusion_objective: str = "v"):
+                 global_cond_ids: tp.Sequence[str] = (), diffusion_objective: str = "v",
+                 sample_rate: tp.Optional[int] = None):
         super().__init__()
         self.model = model
         self.conditioner = conditioner
@@ -63,6 +64,7 @@ class ConditionedDiffusionModelWrapper(nn.Module):
         self.cross_attn_cond_ids = list(cross_attn_cond_ids)
         self.global_cond_ids = list(global_cond_ids)
         self.diffusion_objective = diffusion_objective
+        self.sample_rate = sample_rate  # init audio is resampled to it
 
     def get_conditioning_inputs(self, conditioning_tensors: tp.Dict[str, tp.Any],
                                 negative: bool = False) -> tp.Dict[str, tp.Any]:
@@ -111,4 +113,5 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> Condition
                       if pretransform else None),
         cross_attn_cond_ids=diffusion.get("cross_attention_cond_ids", []),
         global_cond_ids=diffusion.get("global_cond_ids", []),
-        diffusion_objective=diffusion.get("diffusion_objective", "v"))
+        diffusion_objective=diffusion.get("diffusion_objective", "v"),
+        sample_rate=config.get("sample_rate"))

@@ -36,6 +36,7 @@ class AutoencoderPretransform(nn.Module):
         self.model_half = model_half
         self.iterate_batch = iterate_batch
         self.downsampling_ratio = model.downsampling_ratio
+        self.io_channels = model.io_channels
         self.is_discrete = model.is_discrete
         self.num_quantizers = model.num_quantizers
         self.codebook_size = model.codebook_size

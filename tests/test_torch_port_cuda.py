@@ -1011,3 +1011,61 @@ def test_rope_pair_matches_its_formula_bit_for_bit(gen, part, h, t):
     assert torch.equal(got, _rope_formula(qkv, f, h, part, scale))
     plain = (tattn.rope_pair_k_plain if part else tattn.rope_pair_q_plain)(qkv, f, h)
     _close(got, plain, tol=1e-3)
+
+
+def test_tiny_init_audio_generation_runs_the_encoder_kernels(gen, monkeypatch):
+    """A tiny SAO-shaped model (DiT 256 wide, 2 layers; its Oobleck VAE 128
+    channels wide, the K3 kernels' width) in fp32 on the card: a variation
+    and an inpainting of init audio encode it through the fp32 K2 (conv_in
+    and conv_out) and K3 (6 residual units) once, on top of a generation
+    from noise's decode, and give finite audio. Without a CUDA device the
+    entry points raise rather than run on the CPU."""
+    import json
+    from pathlib import Path
+
+    from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_cond
+    from friendly_stable_audio_tools_tpu_torch.models.factory import create_model_from_config
+
+    repo = Path(__file__).resolve().parents[1]
+    config = json.loads((repo / "friendly_stable_audio_tools_tpu/configs/model_configs/txt2audio/"
+                                "stable_audio_open_1_0.json").read_text())
+    config["sample_size"] = 24 * 8
+    m = config["model"]
+    m["io_channels"] = 16
+    m["conditioning"]["cond_dim"] = 128
+    m["conditioning"]["configs"][0]["config"]["t5_model_name"] = "t5-small"
+    m["diffusion"]["config"].update(io_channels=16, embed_dim=256, depth=2, num_heads=4,
+                                    cond_token_dim=128, global_cond_dim=256)
+    pt = m["pretransform"]["config"]
+    pt.update(latent_dim=16, downsampling_ratio=8)
+    pt["encoder"]["config"].update(channels=128, c_mults=[1, 2], strides=[2, 4], latent_dim=32)
+    pt["decoder"]["config"].update(channels=128, c_mults=[1, 2], strides=[2, 4], latent_dim=16)
+    model = create_model_from_config(config, device="cuda")
+    init = (44100, _rnd(gen, 2, 200, scale=0.3).cpu())
+    cond = [{"prompt": "amen break", "seconds_start": 0, "seconds_total": 47}]
+
+    def counts():
+        return (tconv.snake_conv1d_f32_launches + tconv.snake_conv1d_wide_f32_launches,
+                tconv.fused_residual_unit_f32_launches, tattn.launches)
+
+    runs = {}
+    for mode, kw in (("noise", {}), ("variation", dict(init_audio=init, init_noise_level=3.0)),
+                     ("inpaint", dict(init_audio=init, mask_args=dict(
+                         cropfrom=0, pastefrom=25, pasteto=75, maskstart=25, maskend=75,
+                         softnessL=5, softnessR=5, marination=0)))):
+        before = counts()
+        audio = generate_diffusion_cond(model, steps=3, cfg_scale=7.0, conditioning=cond,
+                                        sample_size=24 * 8, sampler_type="dpmpp-3m-sde",
+                                        sigma_min=0.3, sigma_max=50, seed=1, **kw)
+        runs[mode] = tuple(b - a for a, b in zip(before, counts()))
+        assert audio.shape == (1, 2, 24 * 8) and audio.is_cuda and torch.isfinite(audio).all()
+    k2, k3, k1 = runs["noise"]
+    assert k2 > 0 and k3 == 6 and k1 == 2 * 3  # the decode; K1 per layer and step
+    for mode in ("variation", "inpaint"):
+        assert runs[mode] == (k2 + 2, k3 + 6, k1), runs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model_from_config(config)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_diffusion_cond(model, steps=1, conditioning=cond, sample_size=24 * 8,
+                                init_audio=init, device="cuda")

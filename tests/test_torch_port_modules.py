@@ -276,5 +276,8 @@ def test_sampler_generator_draws_are_reproducible():
     b = sample_k(model, noise, steps=5, sigma_min=0.3, sigma_max=5.0,
                  generator=torch.Generator().manual_seed(3))
     assert torch.equal(a, b) and torch.isfinite(a).all()
-    with pytest.raises(NotImplementedError):
-        sample_k(model, noise, steps=5, sampler_type="k-heun")
+    # every sampler of the JAX package runs; an unknown name raises as there
+    heun = sample_k(model, noise, steps=5, sampler_type="k-heun", sigma_min=0.3, sigma_max=5.0)
+    assert torch.isfinite(heun).all()
+    with pytest.raises(ValueError, match="Unknown sampler type"):
+        sample_k(model, noise, steps=5, sampler_type="k-nope")

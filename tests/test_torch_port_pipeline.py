@@ -9,8 +9,9 @@ then run with the same initial noise and the same per-step sampler noise
 the output's peak, covering fp32 rounding differences between XLA and
 PyTorch compounded over 8 sampler steps and the decoder.
 
-A subprocess runs the port (factory, generation, the generate and train
-CLIs, and a model with the CLAP text conditioner) behind an import hook that
+A subprocess runs the port (factory, generation from noise and from init
+audio, the generate and train CLIs, and a model with the CLAP text
+conditioner) behind an import hook that
 refuses jax, flax and the JAX package, and checks that none of them enters
 `sys.modules`.
 """
@@ -97,9 +98,11 @@ def test_generate_diffusion_cond_matches_jax(cfg_scale, scale_phi):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Factory, generation on the CPU, the generate CLI, one step of the
-    train CLI and a model with a `clap_text` conditioner, in a process whose
-    import hook refuses jax, flax and friendly_stable_audio_tools_tpu."""
+    """Factory, generation on the CPU (from noise, a variation and an
+    inpainting of init audio, and a k-dpm-adaptive pass), the generate CLI,
+    one step of the train CLI and a model with a `clap_text` conditioner, in
+    a process whose import hook refuses jax, flax and
+    friendly_stable_audio_tools_tpu."""
     config_path = tmp_path / "tiny_sao.json"
     config_path.write_text(json.dumps(tiny_sao_config()))
     clap_config = tiny_sao_config()
@@ -140,6 +143,19 @@ def test_port_runs_without_jax(tmp_path):
             sample_size={LATENTS * RATIO}, sampler_type="dpmpp-3m-sde", sigma_min=0.3,
             sigma_max=500, seed=5)
         assert audio.shape == (1, 2, {LATENTS * RATIO}) and torch.isfinite(audio).all()
+        # init-audio generation: a variation of that audio, an inpainting with
+        # a cut and paste, and one k-dpm-adaptive pass
+        init = (44100, audio[0])
+        cond = [{{"prompt": "x", "seconds_start": 0, "seconds_total": 47}}]
+        for kw in (dict(init_audio=init, init_noise_level=2.0, sampler_type="k-heun"),
+                   dict(init_audio=init, sampler_type="dpmpp-2m-sde", mask_args=dict(
+                       cropfrom=0, pastefrom=25, pasteto=75, maskstart=25, maskend=75,
+                       softnessL=5, softnessR=5, marination=0)),
+                   dict(sampler_type="k-dpm-adaptive")):
+            out = generate_diffusion_cond(model, steps=3, cfg_scale=7.0, conditioning=cond,
+                                          sample_size={LATENTS * RATIO}, sigma_min=0.3,
+                                          sigma_max=50, seed=6, **kw)
+            assert out.shape == (1, 2, {LATENTS * RATIO}) and torch.isfinite(out).all()
         main(["--model-config", {str(config_path)!r}, "--cond-yaml-path",
               {str(tmp_path / "prompts.yaml")!r}, "--output-dir", {str(tmp_path / "out")!r},
               "--sample-steps", "2", "--batch-size", "4", "--seed", "1", "--device", "cpu"])
