@@ -4,8 +4,9 @@ on one NVIDIA GPU: Stable Audio Open 1.0 text-to-audio and training, Stable
 Audio 2.0 long-form text-to-audio and training (and its DiT past 8192
 tokens), Stable Audio 1.0 text-to-audio (fp32 through the CLI, and in
 bench.py's bf16 recipe) and training, audio-LM training and generation
-(MusicGen small's widths), and text-to-audio through the adaLN DiT (SAO
-1.0's config with `global_cond_type: "adaLN"`), at full width. The training
+(MusicGen small's widths), text-to-audio through the adaLN DiT (SAO
+1.0's config with `global_cond_type: "adaLN"`), and AE-GAN training of the
+Stable Audio VAEs, at full width. The training
 phases [6], [7], [6b] and [9] run the DiT at TRAIN_DEPTH (6) of its 24
 layers and the LM generation phases [13b] and [13] the LM at LM_GEN_DEPTH
 (6) of its 24, to stay well inside the script's time limit; widths, shapes
@@ -239,6 +240,26 @@ Phases (any failure raises and the script exits non-zero):
    launch counts (K11 and K12 4,800 each on, 0 off); then the wall of one
    DiT call (a denoising step's) on and off in turns and a profiled window
    of each (device busy share, K11 + K12's device time).
+17. AE-GAN training of Stable Audio 2.0's Oobleck VAE as written (random
+   weights, fp32, batch 8 x 65536 stereo): K2 (thin-in, thin-out, wide),
+   K3 (C 128 and C 1024) and K4 (2048 -> 1024, stride 8) under grad, their
+   autograd Functions against the plain versions' autograd (output and
+   every input's gradient within AE_GRAD_RTOL, forward + backward timed),
+   and under torch.no_grad() nothing kept beyond the output; every shipped
+   autoencoder config and its AE-GAN wrapper built on the card; one
+   generator step with the kernels against the plain versions (losses and
+   gradients, AE_STEP_RTOL) and its device time split by torch.profiler
+   (the autoencoder's forward, the discriminator and the losses, the plain
+   backward); AE_STEPS steps through the train CLI from synthetic WAVs
+   (generator and discriminator in turn: every loss finite, every trained
+   gradient finite and nonzero, the EMA moving on generator steps only, K3
+   30, K4 5, K2 thin 2 and wide 2 per step), a resume from the step-2
+   checkpoint and the export; one generator and one discriminator step of
+   Stable Audio 1.0's DAC VAE and the DAC 2048/32 VAE (the SEANet + RVQ
+   tokenizer is built only: its decoded length differs from the input's);
+   the reconstruct CLI on a 10 s stereo WAV
+   (the output as long as the input, finite, one forward's launches per
+   chunk).
 
 [5], [7], [8] and [14] also print their earlier end-to-end figures
 (`EARLIER_E2E`) beside this run's, with the card's name and power limit.
@@ -348,6 +369,40 @@ INIT_CHECK_STEPS = 8
 # "adaLN", 1024 latent frames (nothing prepended), 1536 wide, 24 layers, two
 # K11 and two K12 calls per layer and forward
 ADALN_T, ADALN_DIM, ADALN_LAYERS = 1024, 1536, 24
+# AE-GAN training ([17]): Stable Audio 2.0's Oobleck VAE as written (batch
+# 8 x its 65536-sample crop, stereo, fp32) through the train CLI from 8
+# synthetic 3 s WAVs, AE_STEPS steps (generator and discriminator in
+# turn), a checkpoint every 2; one generator and one discriminator step of
+# Stable Audio 1.0's DAC VAE; the reconstruct CLI on a 10 s WAV
+AE_CONFIGS = REPO / "friendly_stable_audio_tools_tpu/configs/model_configs/autoencoders"
+AE_CONFIG = AE_CONFIGS / "stable_audio_2_0_vae.json"
+# the other shipped autoencoders, one generator and one discriminator step
+# each: Stable Audio 1.0's DAC VAE, the DAC 2048/32 VAE (mono, no EMA); the
+# SEANet + RVQ tokenizer (encodec_musicgen_rvq.json) is only built: its
+# decoder returns 640 T - 8 samples, which the AE-GAN losses refuse in both
+# packages (ROADMAP queue C)
+AE_OTHER_CONFIGS = [AE_CONFIGS / name for name in (
+    "stable_audio_1_0_vae.json", "dac_2048_32_vae.json")]
+AE_STEPS = 4
+AE_WAVS = 8
+AE_WAV_SECONDS = 3
+RECON_SECONDS = 10
+# K2-K4 under grad (kernel forward, plain backward) against the plain
+# version's autograd, fp32: rel-L2 of the output and each input's gradient
+# (the 3xTF32 forwards sit at <= 2.3e-6)
+AE_GRAD_RTOL = 1e-5
+# a whole generator step with the kernels against the plain versions (same
+# weights, reals and VAE noise): the losses' relative difference, and the
+# rel-L2 of the autoencoder's gradient as a whole, each parameter's error
+# held to that bound times the whole's norm (a weight-normed v's gradient
+# is its weight's less the projection on it, and may cancel: the plain
+# versions against themselves on reals perturbed by 2^-20 show the scale)
+AE_STEP_RTOL = (1e-5, 1e-4)
+# the port's conv kernels by device name (csrc/conv1d.cu, conv_wgmma.cu,
+# residual_unit.cu), for the profiled split of a generator step
+PORT_CONV_KERNELS = ("thin_cores_kernel", "thin_out_kernel", "thin_in_kernel",
+                     "conv_taps_kernel", "conv_weights_kernel", "ru_fused_kernel",
+                     "ru_conv_kernel", "ru_gemm_kernel", "ru_snake_kernel")
 
 # tolerances of the kernel-vs-plain compares (bf16 in and out; both sides
 # accumulate in fp32 and round the result once, in different orders):
@@ -2607,10 +2662,11 @@ def read_counts():
     return {name: getattr(mods[mod], attr) for name, (mod, attr) in KERNELS.items()}
 
 
-def train_args(config, tmp, name, n_wavs, seconds, dit_path):
+def train_args(config, tmp, name, n_wavs, seconds, dit_path=None):
     """Writes `n_wavs` synthetic WAVs of `seconds`, the model config and an
     audio_dir dataset config under tmp; returns the train CLI's arguments
-    (batch 8, 4 loader workers, the de-zeroed DiT as the starting weights)."""
+    (batch 8, 4 loader workers, the de-zeroed DiT as the starting weights
+    where `dit_path` is given)."""
     import numpy as np
     from scipy.io import wavfile
 
@@ -2629,7 +2685,8 @@ def train_args(config, tmp, name, n_wavs, seconds, dit_path):
     return ["--model-config", str(tmp / f"{name}_model.json"),
             "--dataset-config", str(tmp / f"{name}_data.json"),
             "--batch-size", str(TRAIN_BATCH), "--seed", "0", "--num-workers", "4",
-            "--save-dir", str(tmp / "run"), "--name", name, "--pretrained-ckpt-path", str(dit_path)]
+            "--save-dir", str(tmp / "run"), "--name", name] + (
+                [] if dit_path is None else ["--pretrained-ckpt-path", str(dit_path)])
 
 
 def train_timers(times, losses):
@@ -3689,6 +3746,497 @@ def cli_generation_phase(config_path, prompt, expected):
     return launches, seconds / total
 
 
+def ae_grad_cases(rnd, batch, n):
+    """[17]'s K2-K4 shapes under grad at Stable Audio 2.0's VAE, batch
+    `batch` x `n` samples: (result entry, label, wrapper, plain version,
+    inputs, static arguments); every input tensor requires grad."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    frames = n // 2048
+
+    def leaf(*shape, scale=1.0):
+        return rnd(*shape, scale=scale).requires_grad_(True)
+
+    def sn(c):
+        a, ib = snake_params(rnd, c)
+        return [a.requires_grad_(True), ib.requires_grad_(True)]
+
+    b = batch
+    return [
+        ("snake_conv1d_f32", f"B{b} T{n} 2->128 k7 (encoder conv_in, thin-in)",
+         conv1d.snake_conv1d, conv1d.snake_conv1d_plain,
+         [leaf(b, n, 2, scale=0.5), leaf(7, 2, 128, scale=0.25), leaf(128, scale=0.1), None, None],
+         (1,)),
+        ("snake_conv1d_f32", f"B{b} T{n} 128->2 k7 snake (decoder conv_out, thin-out)",
+         conv1d.snake_conv1d, conv1d.snake_conv1d_plain,
+         [leaf(b, n, 128, scale=0.5), leaf(7, 128, 2, scale=0.03), None] + sn(128), (1,)),
+        ("snake_conv1d_wide_f32", f"B{b} T{frames} 2048->128 k3 snake (encoder conv_out, wide)",
+         conv1d.snake_conv1d, conv1d.snake_conv1d_plain,
+         [leaf(b, frames, 2048, scale=0.5), leaf(3, 2048, 128, scale=0.013),
+          leaf(128, scale=0.1)] + sn(2048), (1,)),
+        ("snake_conv1d_wide_f32", f"B{b} T{frames} 64->2048 k7 (decoder conv_in, wide)",
+         conv1d.snake_conv1d, conv1d.snake_conv1d_plain,
+         [leaf(b, frames, 64, scale=1.0), leaf(7, 64, 2048, scale=0.05), leaf(2048, scale=0.1),
+          None, None], (1,)),
+        ("fused_residual_unit_f32", f"B{b} T{n} C128 d1", conv1d.fused_residual_unit,
+         conv1d.fused_residual_unit_plain,
+         [leaf(b, n, 128, scale=0.5), leaf(7, 128, 128, scale=0.03), leaf(128, scale=0.1)]
+         + sn(128) + [leaf(128, 128, scale=0.09), leaf(128, scale=0.1)] + sn(128), (1,)),
+        ("fused_residual_unit_f32", f"B{b} T{n // 256} C1024 d9", conv1d.fused_residual_unit,
+         conv1d.fused_residual_unit_plain,
+         [leaf(b, n // 256, 1024, scale=0.5), leaf(7, 1024, 1024, scale=0.012),
+          leaf(1024, scale=0.1)] + sn(1024) + [leaf(1024, 1024, scale=0.03),
+                                               leaf(1024, scale=0.1)] + sn(1024), (9,)),
+        ("snake_conv_transpose1d_f32", f"B{b} T{frames} 2048->1024 s8", conv1d.snake_conv_transpose1d,
+         conv1d.snake_conv_transpose1d_plain,
+         [leaf(b, frames, 2048, scale=0.5), leaf(16, 2048, 1024, scale=0.016),
+          leaf(1024, scale=0.1)] + sn(2048), (8,)),
+    ]
+
+
+def ae_grad_phase(results, batch=TRAIN_BATCH, n=65536):
+    """[17a] K2, K3 and K4 under grad, fp32 with TF32 off, at one shape of
+    each route of Stable Audio 2.0's VAE at batch 8 x 65536: the autograd
+    Function (the kernel's forward, the plain version's backward) against
+    the plain version's own autograd on the same inputs and upstream
+    gradient (rel-L2 of the output and of every input's gradient within
+    AE_GRAD_RTOL; one launch of the kernel per call), both timed forward +
+    backward; then under torch.no_grad() no graph and nothing kept beyond
+    the output. Adds {label: {rel_l2, ms, plain_ms}} under "ae_grad" in
+    each kernel's entry."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    rnd = randn_fn(17)
+    for name, label, fn, plain, args, static in ae_grad_cases(rnd, batch, n):
+        tensors = [a for a in args if a is not None]
+        attr = KERNELS[name][1]
+        before = getattr(conv1d, attr)
+        y = fn(*args, *static)
+        launched = getattr(conv1d, attr) - before
+        g = rnd(*y.shape)
+        got = torch.autograd.grad(y, tensors, g)
+        y_ref = plain(*args, *static)
+        want = torch.autograd.grad(y_ref, tensors, g)
+        rels = [rel_err(a, b) for a, b in zip((y, *got), (y_ref, *want))]
+        del y, y_ref, got, want
+        ms = timed_ms(lambda: torch.autograd.grad(fn(*args, *static), tensors, g), 3)
+        plain_ms = timed_ms(lambda: torch.autograd.grad(plain(*args, *static), tensors, g), 3)
+        ok = max(rels) <= AE_GRAD_RTOL and launched == 1 and all(math.isfinite(r) for r in rels)
+        results[name].setdefault("ae_grad", {})[label] = dict(rel_l2=max(rels), ms=ms,
+                                                              plain_ms=plain_ms)
+        log(f"  {name} under grad, {label}: rel-L2 output {rels[0]:.3g}, gradients "
+            f"{', '.join(f'{r:.3g}' for r in rels[1:])} (tol {AE_GRAD_RTOL}); forward + backward "
+            f"{ms:.4f} ms (kernel forward, plain backward) vs {plain_ms:.4f} ms (plain); "
+            f"{launched} launch {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {label}: the gradient through the kernel disagrees with "
+                                 f"the plain version's, or the kernel launched {launched} times")
+        del args, tensors, g
+        torch.cuda.empty_cache()
+    # under no_grad: the kernel alone, nothing saved
+    x = rnd(batch, n, 128, scale=0.5).requires_grad_(True)
+    w1, w2 = rnd(7, 128, 128, scale=0.03).requires_grad_(True), rnd(128, 128, scale=0.09)
+    b1 = rnd(128, scale=0.1)
+    (a1, i1), (a2, i2) = snake_params(rnd, 128), snake_params(rnd, 128)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y = conv1d.fused_residual_unit(x, w1, b1, a1, i1, w2, b1, a2, i2, dilation=1)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - base
+    log(f"  under torch.no_grad(): fused_residual_unit at B{batch} T{n} C128 keeps {kept} bytes "
+        f"beyond its inputs (its output: {y.untyped_storage().nbytes()}), grad_fn {y.grad_fn}")
+    if y.grad_fn is not None or kept != y.untyped_storage().nbytes():
+        raise AssertionError("a kernel under torch.no_grad() kept more than its output")
+
+
+def oobleck_ae_counts(config):
+    """What one forward of an Oobleck autoencoder (encode, then decode)
+    launches, fp32: K3 for each residual unit (3 per block, encoder and
+    decoder), K4 for each decoder upsample, K2 for the encoder's and the
+    decoder's conv_in and conv_out on the route `conv_route` gives each
+    (Stable Audio 2.0's VAE: thin for the encoder's conv_in and the
+    decoder's conv_out, wide for the other two); nothing else."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    enc, dec = config["model"]["encoder"]["config"], config["model"]["decoder"]["config"]
+    top = enc["c_mults"][-1] * enc["channels"]
+    counts = {name: 0 for name in KERNELS}
+    counts.update(fused_residual_unit_f32=2 * 3 * len(enc["c_mults"]),
+                  snake_conv_transpose1d_f32=len(dec["strides"]))
+    for cin, cout, k in ((enc["in_channels"], enc["channels"], 7), (top, enc["latent_dim"], 3),
+                         (dec["latent_dim"], top, 7), (dec["channels"], dec["out_channels"], 7)):
+        wide = conv1d.conv_route(cin, cout, k, torch.float32) == "wide"
+        counts["snake_conv1d_wide_f32" if wide else "snake_conv1d_f32"] += 1
+    return counts
+
+
+def ae_forward_counts(model, config):
+    """One encode + decode of a short clip under torch.no_grad(), with the
+    counts set to 0 just before and read just after."""
+    import torch
+
+    x = torch.zeros(1, 4 * model.downsampling_ratio, model.in_channels, device=DEVICE)
+    reset_counts()
+    with torch.no_grad():
+        model.decode_nwc(model.encode_nwc(x))
+    return read_counts()
+
+
+def ae_reals(config, batch, seed):
+    """[batch, sample_size, channels] synthetic audio on the card."""
+    import numpy as np
+    import torch
+
+    n = config["sample_size"]
+    audio = [synthetic_audio(seed + i, n, config["sample_rate"])[:config["audio_channels"]].T
+             for i in range(batch)]
+    return torch.from_numpy(np.stack(audio)).to(DEVICE)
+
+
+def port_conv_ms(by_name):
+    return sum(ms for name, ms in by_name.items() if any(k in name for k in PORT_CONV_KERNELS))
+
+
+def ae_step_phase(config):
+    """[17b] Stable Audio 2.0's VAE (random weights, seed 0) and its AE-GAN
+    wrapper from the factories: one generator step's launches at batch 8
+    (one forward's: `oobleck_ae_counts`), its losses and gradients with the
+    kernels against the plain versions on the same reals and VAE noise at
+    batch 2 (AE_STEP_RTOL; the plain versions' autograd at batch 8 would
+    not fit the card),
+    and its device time split under torch.profiler: the autoencoder's
+    forward (the port's kernels and the rest), the discriminator and the
+    losses (forward and backward, on the decoded audio as a leaf), and the
+    backward through the autoencoder (the plain versions' autograd): the
+    whole step less the two. Also builds every shipped autoencoder config
+    and its wrapper on the card."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+    from friendly_stable_audio_tools_tpu_torch.training.autoencoders import AutoencoderTrainingWrapper
+    from friendly_stable_audio_tools_tpu_torch.training.factory import (
+        create_training_wrapper_from_config,
+    )
+
+    for path in sorted(AE_CONFIGS.glob("*.json")):
+        cfg = json.loads(path.read_text())
+        m = create_model_from_config(cfg, device=DEVICE)
+        w = create_training_wrapper_from_config(cfg, m)
+        n_params = sum(p.numel() for p in m.parameters())
+        log(f"  {path.name}: {n_params / 1e6:.3f} M autoencoder and "
+            f"{sum(p.numel() for p in w.disc_params) / 1e6:.3f} M discriminator parameters on "
+            f"{next(m.parameters()).device}")
+        if not isinstance(w, AutoencoderTrainingWrapper):
+            raise AssertionError(f"{path.name}: the factory gave {type(w).__name__}")
+        del m, w
+    torch.cuda.empty_cache()
+
+    model = create_model_from_config(config, device=DEVICE)
+    wrapper = create_training_wrapper_from_config(config, model)
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def inputs(batch):
+        shape = (batch, config["sample_size"] // model.downsampling_ratio, model.latent_dim)
+        return ae_reals(config, batch, 300), {"noise": torch.randn(shape, generator=g,
+                                                                   device=DEVICE)}
+
+    def gen_step(reals, draws):
+        wrapper.gen_optimizer.zero_grad(set_to_none=True)
+        _, metrics = wrapper.generator_step(reals, draws)
+        return {k: v.item() for k, v in metrics.items()}, [p.grad for p in wrapper.gen_params]
+
+    reals, draws = inputs(TRAIN_BATCH)
+    gen_step(reals, draws)  # warm-up
+    reset_counts()
+    gen_step(reals, draws)
+    counts = read_counts()
+    # the plain versions' autograd keeps every layer's fp32 temporaries (the
+    # autograd Functions keep only their inputs): batch 2 for the compare
+    small = inputs(2)
+    metrics, grads = gen_step(*small)
+    with plain_kernels():
+        metrics_p, grads_p = gen_step(*small)
+        _, grads_q = gen_step(small[0] * (1 + 2.0 ** -20), small[1])
+    loss_rel = max(abs(metrics[k] - metrics_p[k]) / max(abs(metrics_p[k]), 1e-12) for k in metrics)
+    flat_p = torch.cat([b.flatten() for b in grads_p])
+    whole = rel_err(torch.cat([a.flatten() for a in grads]), flat_p)
+    whole_q = rel_err(torch.cat([q.flatten() for q in grads_q]), flat_p)
+    norm = flat_p.norm().item()
+    names = [n for n, _ in wrapper.gen_named]
+    per = sorted((((a - b).norm().item() / norm, rel_err(a, b), rel_err(q, b), n)
+                  for a, b, q, n in zip(grads, grads_p, grads_q, names)), reverse=True)
+    finite = all(torch.isfinite(a).all() and a.abs().max() > 0 for a in grads)
+    log(f"  generator step at batch 2, kernels vs plain versions: losses {metrics}; largest relative "
+        f"loss difference {loss_rel:.3g}; gradient rel-L2 {whole:.3g} as a whole (the plain "
+        f"versions on reals x (1 + 2^-20): {whole_q:.3g}); "
+        f"largest per parameter, as a share of the whole's norm, its own rel-L2 and the perturbed "
+        f"plain run's: " + ", ".join(f"{n} {e:.3g} / {r:.3g} / {q:.3g}" for e, r, q, n in per[:4])
+        + f" (tol {AE_STEP_RTOL}); all {len(grads)} gradients finite and nonzero: {finite}")
+    want = oobleck_ae_counts(config)
+    if counts != want:
+        raise AssertionError(f"a generator step launched {counts}, expected {want}")
+    if not (finite and loss_rel <= AE_STEP_RTOL[0] and whole <= AE_STEP_RTOL[1]
+            and per[0][0] <= AE_STEP_RTOL[1]):
+        raise AssertionError("the generator step with the kernels disagrees with the plain versions")
+    del grads, grads_p, grads_q, small, flat_p
+    wrapper.gen_optimizer.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # the split of a generator step's device time, batch 8
+    with torch.no_grad():
+        decoded = model.decode_nwc(model.encode_nwc(reals))
+
+    def disc_and_losses():
+        d = decoded.detach().requires_grad_(True)
+        r, f = reals.transpose(1, 2), d.transpose(1, 2)
+        info = {"reals": r, "decoded": f, "reals_left": r[:, 0:1], "reals_right": r[:, 1:2],
+                "decoded_left": f[:, 0:1], "decoded_right": f[:, 1:2],
+                "kl": torch.zeros((), device=DEVICE)}
+        dis, adv, fm = wrapper.discriminator.loss(reals, d)
+        info.update(loss_dis=dis, loss_adv=adv, feature_matching_distance=fm)
+        wrapper.losses_gen(info)[0].backward()
+
+    wrapper.discriminator.requires_grad_(False)
+    fwd_ms, _, fwd = device_profile([lambda: wrapper.forward_info(reals, False, draws)])
+    dl_ms, _, _ = device_profile([disc_and_losses])
+    step_ms, n_act, step = device_profile([lambda: gen_step(reals, draws)])
+    conv_fwd = port_conv_ms(fwd)
+    log(f"  generator step, device time (torch.profiler, {n_act:.0f} activities): {step_ms:.3f} ms "
+        f"= autoencoder forward {fwd_ms:.3f} ms (the port's K2/K3/K4 {conv_fwd:.3f} ms, the rest "
+        f"{fwd_ms - conv_fwd:.3f}) + discriminator and losses forward and backward {dl_ms:.3f} ms "
+        f"+ the autoencoder's backward (the plain versions' autograd) "
+        f"{step_ms - fwd_ms - dl_ms:.3f} ms; card {smi_line()}")
+    if port_conv_ms(step) <= 0 or step_ms <= 0:
+        raise AssertionError("the profiled generator step shows no device time in the port's kernels")
+    del model, wrapper, reals, decoded
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ae_step_recorder(records):
+    """A replacement for AutoencoderTrainingWrapper.train_step that times each
+    step between two synchronisations and records its kind, launches (the
+    counts' increase), metrics, whether every parameter it trained has a
+    finite nonzero gradient and whether it moved the EMA."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.training.autoencoders import AutoencoderTrainingWrapper
+
+    original = AutoencoderTrainingWrapper.train_step
+
+    def train_step(self, reals, *a, **kw):
+        disc = self.step % 2 == 1 and self.step >= self.warmup_steps
+        ema = [e.clone() for e in self.ema] if self.ema is not None else []
+        before = read_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = original(self, reals, *a, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        named = self.discriminator.named_parameters() if disc else self.gen_named
+        bad, zero = [], []
+        for name, p in named:
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                bad.append(name)
+            elif p.grad.abs().max() == 0:
+                zero.append(name)
+        records.append(dict(
+            kind="disc" if disc else "gen", seconds=seconds, metrics=metrics,
+            counts={k: v - before[k] for k, v in read_counts().items()}, bad=bad, zero=zero,
+            has_ema=self.ema is not None,
+            ema_moved=any(not torch.equal(e, f) for e, f in zip(ema, self.ema or []))))
+        return metrics
+
+    return [(AutoencoderTrainingWrapper, "train_step", train_step)]
+
+
+def check_ae_steps(records, per_step, label):
+    """Every loss finite, every trained parameter's gradient finite and
+    nonzero, the EMA (where kept) moved by generator steps only, `per_step`
+    launches in each step. A discriminator's logit biases (`conv_post.bias`) are the
+    exception to nonzero: while every logit sits inside the hinge's margin,
+    their gradient is -1 + 1 = 0 exactly (the mean of the real branch's
+    minus the fake branch's)."""
+    for i, r in enumerate(records):
+        if not all(math.isfinite(v) for v in r["metrics"].values()):
+            raise AssertionError(f"{label} step {i}: a loss is not finite: {r['metrics']}")
+        zero = [n for n in r["zero"] if not (r["kind"] == "disc" and n.endswith("conv_post.bias"))]
+        if r["bad"] or zero:
+            raise AssertionError(f"{label} step {i} ({r['kind']}): gradients missing or not "
+                                 f"finite {r['bad']}, zero {zero}")
+        if r["ema_moved"] != (r["has_ema"] and r["kind"] == "gen"):
+            raise AssertionError(f"{label} step {i} ({r['kind']}): EMA moved {r['ema_moved']}")
+        if r["counts"] != per_step:
+            raise AssertionError(f"{label} step {i}: launches {r['counts']}, expected {per_step}")
+
+
+def log_ae_steps(records, config, label):
+    """Logs each step and the generator and discriminator s/step, and the
+    trained s-audio/s over the mean step, the first step left out where
+    there are more than two."""
+    import torch
+
+    seconds = config["sample_size"] / config["sample_rate"]
+    later = records[1:] if len(records) > 2 else records
+    mean = statistics.mean(r["seconds"] for r in later)
+    by_kind = {k: [r["seconds"] for r in later if r["kind"] == k]
+               or [r["seconds"] for r in records if r["kind"] == k] for k in ("gen", "disc")}
+    log(f"  {label}: steps " + "; ".join(
+        f"{r['kind']} {r['seconds']:.4f} s loss {r['metrics']['loss']:.5g}, zero gradients "
+        f"{r['zero']}" for r in records))
+    log(f"  {label}: generator {statistics.mean(by_kind['gen'] or [0]):.4f} s/step, discriminator "
+        f"{statistics.mean(by_kind['disc'] or [0]):.4f} s/step; mean step {mean:.4f} s = "
+        f"{TRAIN_BATCH * seconds / mean:.4f} s-audio/s trained ({TRAIN_BATCH} x {seconds:.3f} s); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi_line()}")
+
+
+def ae_training_phase(config, tmp):
+    """[17c] The train entry point on Stable Audio 2.0's VAE as written:
+    AE_STEPS steps at batch 8 from AE_WAVS synthetic stereo WAVs (generator
+    and discriminator in turn), checkpoints every 2 steps; then a resume from
+    the step-2 checkpoint for one more step, and the EMA-preferring export
+    loaded back into a new model. Returns the launch counts of the two runs."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config, train
+
+    cfg = copy.deepcopy(config)
+    cfg["training"]["checkpoint"]["every_n_train_steps"] = 2
+    args = train_args(cfg, tmp, "ae", AE_WAVS, AE_WAV_SECONDS)
+    per_step = oobleck_ae_counts(config)
+    records = []
+    with patched(ae_step_recorder(records)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", str(AE_STEPS)])
+        total = time.perf_counter() - start
+        counts = read_counts()
+        ckpt = Path(trainer.ckpt_dir) / "step_2"
+        steps_done = trainer.wrapper.step
+        log_ae_steps(records, config, f"train CLI, {AE_STEPS} steps (run incl. set-up {total:.1f} s)")
+        del trainer
+        torch.cuda.empty_cache()
+        reset_counts()
+        resumed = train.main(args + ["--max-steps", "3", "--ckpt-path", str(ckpt)])
+        counts_resume = read_counts()
+    records, resumed_records = records[:AE_STEPS], records[AE_STEPS:]
+    check_ae_steps(records, per_step, "train CLI")
+    check_ae_steps(resumed_records, per_step, "resumed")
+    if [r["kind"] for r in records + resumed_records] != ["gen", "disc"] * (AE_STEPS // 2) + ["gen"]:
+        raise AssertionError(f"steps {[r['kind'] for r in records + resumed_records]} do not "
+                             f"alternate from the checkpoint's step")
+    w = resumed.wrapper
+    path = Path(tmp) / "vae.pt"
+    w.export_model(str(path))
+    model = create_model_from_config(cfg, device=DEVICE)
+    model.load_state_dict(torch.load(path, map_location=DEVICE, weights_only=True), strict=True)
+    params = dict(model.named_parameters())
+    same = all(torch.equal(params[n], e) for (n, _), e in zip(w.gen_named, w.ema))
+    log(f"  resumed from step 2: step {w.step}, {resumed_records[0]['kind']} step "
+        f"{resumed_records[0]['seconds']:.4f} s, launches {counts_resume}; export {path.name} "
+        f"loaded strictly, equal to the EMA: {same}")
+    if not (steps_done == AE_STEPS and w.step == 3 and same):
+        raise AssertionError("the step count, the resume or the export is off")
+    if counts != {k: v * AE_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"launch counts {counts} are not {AE_STEPS} x {per_step}")
+    del resumed, w, model
+    torch.cuda.empty_cache()
+    return counts, counts_resume
+
+
+def ae_config_steps_phase(config, label):
+    """[17d] One generator and one discriminator step of another shipped
+    autoencoder config as written, at batch 8 x its sample size from
+    synthetic audio, through its wrapper: the same checks, each step
+    launching what one forward of the autoencoder launches. Returns the
+    launch counts of the two steps."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+    from friendly_stable_audio_tools_tpu_torch.training.factory import (
+        create_training_wrapper_from_config,
+    )
+
+    model = create_model_from_config(config, device=DEVICE)
+    wrapper = create_training_wrapper_from_config(config, model)
+    per_step = ae_forward_counts(model, config)
+    reals = ae_reals(config, TRAIN_BATCH, 400)
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    with patched(ae_step_recorder(records)):
+        reset_counts()
+        for _ in range(2):
+            wrapper.train_step(reals)
+        counts = read_counts()
+    log_ae_steps(records, config, label)
+    log(f"  {label}: launches per step {per_step}")
+    check_ae_steps(records, per_step, label)
+    if [r["kind"] for r in records] != ["gen", "disc"] or sum(per_step.values()) == 0:
+        raise AssertionError(f"{label}: the steps do not alternate, or launch no kernel")
+    del model, wrapper, reals
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ae_reconstruct_phase(config, tmp):
+    """[17e] The port's reconstruct CLI on a synthetic RECON_SECONDS s stereo
+    WAV through Stable Audio 2.0's VAE (random weights): the output as long
+    as the input, finite, and each chunk's encode + decode launching one
+    forward's kernels. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from friendly_stable_audio_tools_tpu_torch import reconstruct_audios
+    from friendly_stable_audio_tools_tpu_torch.models.autoencoders import AudioAutoencoder
+
+    tmp = Path(tmp)
+    src, out = tmp / "recon_in", tmp / "recon_out"
+    src.mkdir()
+    sr = config["sample_rate"]
+    n = RECON_SECONDS * sr
+    wavfile.write(str(src / "clip.wav"), sr, (synthetic_audio(500, n, sr).T * 32767).astype(np.int16))
+    (tmp / "recon_model.json").write_text(json.dumps(config))
+    seen = []
+    original = AudioAutoencoder.reconstruct_nwc
+
+    def recorded(self, x, *a, **kw):
+        y = original(self, x, *a, **kw)
+        seen.append((tuple(x.shape), tuple(y.shape), bool(torch.isfinite(y).all())))
+        return y
+
+    ratio = config["model"]["downsampling_ratio"]
+    chunk = int(sr / ratio)  # --frame-duration 1.0
+    overlap = max(int(sr * 0.01 / ratio), 1)
+    padded = -(-n // ratio) * ratio
+    n_chunks = max(math.ceil((padded - chunk * ratio) / ((chunk - overlap) * ratio)) + 1, 1)
+    with patched([(AudioAutoencoder, "reconstruct_nwc", recorded)]):
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        reconstruct_audios.main(["--model-config", str(tmp / "recon_model.json"), "--audio-dir",
+                                 str(src), "--output-dir", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = read_counts()
+    rate, data = wavfile.read(str(out / "clip.wav"))
+    want = {k: v * n_chunks for k, v in oobleck_ae_counts(config).items()}
+    log(f"  reconstruct CLI: {RECON_SECONDS} s stereo at {sr} Hz in {n_chunks} chunks of {chunk} "
+        f"latents (overlap {overlap}), {wall:.3f} s wall incl. set-up; round trip {seen}; written "
+        f"{data.shape} at {rate} Hz; launches {counts}")
+    if not (seen and seen[0][2] and data.shape == (n, 2) and rate == sr):
+        raise AssertionError("the reconstruction is not finite audio of the input's length")
+    if counts != want:
+        raise AssertionError(f"reconstruct launches {counts}, expected {want}")
+    return counts
+
+
 def new_results():
     """The per-kernel results, keyed by kernel: where it comes from, what
     its times are per (`per`), and each main-path shape's weight (calls per
@@ -4124,6 +4672,20 @@ def main():
     torch.cuda.empty_cache()
     done("[14]")
 
+    log(f"[17] AE-GAN training of {AE_CONFIG.name} (batch {TRAIN_BATCH} x 65536, fp32): K2, K3 "
+        f"and K4 under grad vs plain autograd; a generator step vs the plain versions; "
+        f"{AE_STEPS} steps through the train CLI with a resume and the export; "
+        f"two steps of each DAC VAE; the reconstruct CLI")
+    ae_config = json.loads(AE_CONFIG.read_text())
+    ae_grad_phase(results)
+    counts_ae_step = ae_step_phase(ae_config)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        counts_ae, counts_ae_resume = ae_training_phase(ae_config, tmp)
+        counts_ae_other = {f"train_ae_{path.stem}": ae_config_steps_phase(
+            json.loads(path.read_text()), path.name) for path in AE_OTHER_CONFIGS}
+        counts_recon = ae_reconstruct_phase(ae_config, tmp)
+    done("[17]")
+
     by_path = {"generate": launches, "generate_fused_mlp": launches_fused,
                "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
@@ -4134,7 +4696,10 @@ def main():
                "adaln_step": counts_adaln_step, "adaln_step_plain_ew": counts_adaln_step_off,
                "generate_adaln": counts_adaln, "generate_adaln_plain_ew": counts_adaln_off,
                "generate_sa1_bf16": launches_sa1_bf16, "sa2_xl_forward_fp32": counts_xl32,
-               "sa2_xl_forward_bf16": counts_xl16, **counts_init}
+               "sa2_xl_forward_bf16": counts_xl16, **counts_init,
+               "ae_generator_step": counts_ae_step, "train_ae": counts_ae,
+               "train_ae_resume": counts_ae_resume, **counts_ae_other,
+               "reconstruct_ae": counts_recon}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -4147,6 +4712,8 @@ def main():
                   "sa1_encode_ms", "lm_encode_ms", "lm_decode_ms", "sa1_decode_ms", "sa2_xl_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
+        if "ae_grad" in r:  # [17]: under grad, forward + backward, kernel vs plain
+            out["ae_grad"] = r["ae_grad"]
         return out
 
     print(json.dumps({"kernels": [entry(name, r) for name, r in results.items()]}))

@@ -3,14 +3,16 @@
 Every layer of the snake decoder runs through a fused kernel: conv_in and
 conv_out through K2 (snake_conv1d), each upsample through K4
 (snake_conv_transpose1d), each residual unit through K3
-(fused_residual_unit). The snake encoder, which training runs frozen, uses
-K2 for conv_in and conv_out and K3 for its residual units; its strided
-downsamples are the plain reshape-GEMM form (ops/convs.py), as the JAX
-package leaves them to XLA. The kernels have no backward: the VAE runs under
-torch.no_grad() on the card. Channels-last [B, T, C]. The encoder and
-decoder run in the dtype of their input (the pretransform casts it, as the
-JAX package's does, models/pretransforms.py:80-81); their parameters stay
-fp32, as the JAX package's do. The `dac` encoder and decoder types are in
+(fused_residual_unit). The snake encoder uses K2 for conv_in and conv_out
+and K3 for its residual units; its strided downsamples are the plain
+reshape-GEMM form (ops/convs.py), as the JAX package leaves them to XLA. A
+diffusion model's trainer runs the VAE frozen under torch.no_grad(); the
+AE-GAN trainer (training/autoencoders.py) trains it, the kernels running
+forward and their plain versions differentiated, as the JAX package's
+custom_vjp does (ops/kernels/conv1d.py). Channels-last [B, T, C]. The
+encoder and decoder run in the dtype of their input (the pretransform casts
+it, as the JAX package's does, models/pretransforms.py:80-81); their
+parameters stay fp32, as the JAX package's do. The `dac` encoder and decoder types are in
 models/dac_codec.py, the `seanet` ones (the audio LM's EnCodec-style
 tokenizer, with the `rvq` bottleneck) in models/seanet.py.
 """
@@ -24,6 +26,7 @@ from torch import nn
 
 from ..ops.activations import SnakeBeta
 from ..ops.convs import WNConv1d, WNConvTranspose1d
+from ..ops.chunking import chunked_process
 from ..ops.kernels import conv1d as conv_kernels
 from .bottleneck import create_bottleneck_from_config
 
@@ -133,29 +136,46 @@ class OobleckDecoder(nn.Module):
 
 
 class AudioAutoencoder(nn.Module):
-    """The VAE wrapper: encoder -> bottleneck encode, bottleneck decode -> decoder."""
+    """The VAE wrapper: encoder -> bottleneck encode, bottleneck decode ->
+    decoder (JAX `AudioAutoencoderModule` :224 with the attributes of its
+    `AudioAutoencoder` :259)."""
 
     def __init__(self, encoder: tp.Optional[nn.Module], decoder: nn.Module,
                  bottleneck: tp.Optional[nn.Module], downsampling_ratio: int,
-                 io_channels: int = 2):
+                 io_channels: int = 2, sample_rate: tp.Optional[int] = None,
+                 latent_dim: tp.Optional[int] = None, in_channels: tp.Optional[int] = None,
+                 out_channels: tp.Optional[int] = None, soft_clip: bool = False):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
         self.bottleneck = bottleneck
         self.downsampling_ratio = downsampling_ratio
         self.io_channels = io_channels
+        self.sample_rate = sample_rate
+        self.latent_dim = latent_dim
+        self.in_channels = io_channels if in_channels is None else in_channels
+        self.out_channels = io_channels if out_channels is None else out_channels
+        self.soft_clip = soft_clip
         # a discrete bottleneck (rvq) tokenizes (JAX :287-290)
         self.is_discrete = bool(getattr(bottleneck, "is_discrete", False))
         self.num_quantizers = bottleneck.num_quantizers if self.is_discrete else None
         self.codebook_size = bottleneck.codebook_size if self.is_discrete else None
 
-    def encode_nwc(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_nwc(self, x: torch.Tensor, return_info: bool = False, sample: bool = False,
+                   generator: tp.Optional[torch.Generator] = None,
+                   noise: tp.Optional[torch.Tensor] = None):
         """audio [B, T, C] -> latents [B, T / ratio, latent_dim] (JAX
-        `_encode_nwc` :337, with no sampling rng: the VAE posterior mean)."""
+        `AudioAutoencoderModule.encode` :236), with the bottleneck's info
+        when `return_info` (a VAE's `kl`, an RVQ's `quantizer_loss` and
+        codes). A VAE returns its posterior mean unless `sample`, then a draw
+        from `generator`, or `noise` where given (bottleneck.py)."""
         if self.encoder is None:
             raise ValueError("this autoencoder config has no encoder")
-        z = self.encoder(x)
-        return self.bottleneck.encode(z) if self.bottleneck is not None else z
+        z, info = self.encoder(x), {}
+        if self.bottleneck is not None:
+            z, info = self.bottleneck.encode(z, return_info=True, sample=sample,
+                                             generator=generator, noise=noise)
+        return (z, info) if return_info else z
 
     def tokenize_nwc(self, x: torch.Tensor) -> torch.Tensor:
         """audio [B, T, C] -> the discrete bottleneck's codes [B, T / ratio, Q]."""
@@ -164,10 +184,31 @@ class AudioAutoencoder(nn.Module):
         return self.bottleneck.encode(self.encoder(x), return_info=True)[1]["quantizer_indices"]
 
     def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
-        """latents [B, L, latent_dim] -> audio [B, T, C]."""
+        """latents [B, L, latent_dim] -> audio [B, T, C] (the decoder alone,
+        as JAX `AudioAutoencoderModule.decode` :244; `soft_clip` is the
+        wrapper's, applied by :meth:`reconstruct_nwc`)."""
         if self.bottleneck is not None:
             z = self.bottleneck.decode(z)
         return self.decoder(z)
+
+    def reconstruct_nwc(self, x: torch.Tensor, chunk_size: tp.Optional[int] = None,
+                        overlap: int = 4) -> torch.Tensor:
+        """audio [B, T, C] -> its encode -> decode round trip [B, T, C] (JAX
+        `reconstruct_audio` :573, the posterior mean): with `chunk_size`
+        (latent frames), chunk by chunk of `chunk_size * ratio` samples that
+        overlap by `overlap * ratio`, the outputs crossfaded
+        (ops/chunking.py); T a multiple of the ratio."""
+        def round_trip(xc):
+            y = self.decode_nwc(self.encode_nwc(xc))
+            return torch.tanh(y) if self.soft_clip else y
+
+        if chunk_size is None:
+            return round_trip(x)
+        r = self.downsampling_ratio
+        return chunked_process(round_trip, x, chunk_in=chunk_size * r,
+                               hop_in=(chunk_size - overlap) * r, chunk_out=chunk_size * r,
+                               hop_out=(chunk_size - overlap) * r, overlap_out=overlap * r,
+                               out_channels=self.out_channels, out_length=x.shape[1])
 
     def decode_tokens_nwc(self, codes: torch.Tensor) -> torch.Tensor:
         """The discrete bottleneck's codes [B, L, Q] -> audio [B, T, C] (JAX
@@ -212,12 +253,25 @@ def create_decoder_from_config(config: tp.Dict[str, tp.Any]) -> nn.Module:
     raise NotImplementedError(f"decoder type {kind!r} is not in the torch port")
 
 
-def create_autoencoder_from_config(ae: tp.Dict[str, tp.Any]) -> AudioAutoencoder:
-    """An autoencoder's `model` config (JAX :675): encoder (when given) and
-    decoder, and the bottleneck."""
+def autoencoder_from_model_config(ae: tp.Dict[str, tp.Any],
+                                  sample_rate: tp.Optional[int] = None) -> AudioAutoencoder:
+    """An autoencoder from the inner `model` block of its config (a
+    pretransform's `config`): encoder (when given) and decoder, the
+    bottleneck, the channel counts and the decoder's `soft_clip` (JAX
+    :675-711)."""
     bottleneck = ae.get("bottleneck")
     return AudioAutoencoder(
         encoder=create_encoder_from_config(ae["encoder"]) if "encoder" in ae else None,
         decoder=create_decoder_from_config(ae["decoder"]),
         bottleneck=create_bottleneck_from_config(bottleneck) if bottleneck else None,
-        downsampling_ratio=ae["downsampling_ratio"], io_channels=ae.get("io_channels", 2))
+        downsampling_ratio=ae["downsampling_ratio"], io_channels=ae.get("io_channels", 2),
+        sample_rate=sample_rate, latent_dim=ae.get("latent_dim"),
+        in_channels=ae.get("in_channels"), out_channels=ae.get("out_channels"),
+        soft_clip=ae["decoder"].get("config", {}).get("soft_clip", False))
+
+
+def create_autoencoder_from_config(config: tp.Dict[str, tp.Any]) -> AudioAutoencoder:
+    """The `autoencoder` model type from its whole model config (JAX :675)."""
+    if config["model"].get("pretransform") is not None:
+        raise NotImplementedError("an autoencoder inside a pretransform is not in the torch port")
+    return autoencoder_from_model_config(config["model"], sample_rate=config["sample_rate"])

@@ -1,30 +1,55 @@
 """Bottlenecks (counterpart of friendly_stable_audio_tools_tpu/models/bottleneck.py).
 
-The VAE bottleneck of Stable Audio Open's pretransform. Encoding returns
-the posterior mean, as the JAX package's training path does: it encodes
-with no sampling rng (autoencoders.py:347-355, `vae_sample` with rng=None),
-where the upstream reference draws a sample. Decoding is the identity.
+The VAE bottleneck (`vae_sample`, :46-87): the encoder's [mean | scale]
+channels give stdev = softplus(scale) + 1e-4; encoding returns the
+posterior mean, as the JAX package's frozen encodes do (no sampling rng),
+or with `sample` a draw mean + stdev * noise, as its AE-GAN trainer does,
+and with `return_info` the KL to a standard normal, summed over channels
+and averaged over batch and time, in fp32. Decoding is the identity.
 
 The residual vector quantizer (`rvq`) of the audio LM's tokenizer
 (bottleneck.py:146-278): each of `num_quantizers` codebooks quantizes the
 residual the previous ones leave, by the nearest code in L2 (one matmul
 over the codebook, argmin), in fp32. Encoding returns the quantized latents
-and the codes; the straight-through form ze + (zq - ze) is kept, as it
-rounds in fp32 as the JAX package's does, and the next residual depends on
-it."""
+and the codes, and the JAX package's stateless training form: the
+straight-through estimator ze + sg(zq - ze) (rounded in fp32 as there; the
+next residual depends on it) and the commitment plus codebook loss as
+`quantizer_loss`, the codebooks learning from the loss instead of the
+upstream EMA updates."""
 
 from __future__ import annotations
 
 import typing as tp
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class VAEBottleneck(nn.Module):
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """[..., 2 * latent_dim] (mean | scale) -> the mean (bottleneck.py:63-84)."""
-        return x.chunk(2, dim=-1)[0]
+    def encode(self, x: torch.Tensor, return_info: bool = False, sample: bool = False,
+               generator: tp.Optional[torch.Generator] = None,
+               noise: tp.Optional[torch.Tensor] = None):
+        """[..., 2 * latent_dim] (mean | scale) -> latents in x's dtype: the
+        mean, or with `sample` mean + stdev * noise (`noise` where given,
+        else a standard normal draw from `generator`); with `return_info`
+        also {"kl": the fp32 KL}."""
+        mean, scale = x.chunk(2, dim=-1)
+        if not (return_info or sample):
+            return mean
+        mean32 = mean.float()
+        stdev = F.softplus(scale.float()) + 1e-4
+        var = stdev * stdev
+        latents = mean32
+        if sample:
+            if noise is None:
+                noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+            latents = mean32 + stdev * noise.float()
+        latents = latents.to(mean.dtype)
+        if not return_info:
+            return latents
+        kl = (mean32 * mean32 + var - torch.log(var) - 1).sum(-1).mean()
+        return latents, {"kl": kl}
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -43,13 +68,17 @@ class VectorQuantizer(nn.Module):
         self.codebook = nn.Parameter(torch.empty(codebook_size, codebook_dim))
 
     def forward(self, x: torch.Tensor):
-        """x [B, T, C_in] -> (quantized [B, T, C_in] in x's dtype, codes [B, T])."""
+        """x [B, T, C_in] -> (quantized [B, T, C_in] in x's dtype, codes
+        [B, T], commitment loss, codebook loss)."""
         z_e = (self.proj_in(x) if self.needs_proj else x).float()
         cb = self.codebook.float()
         d = z_e.square().sum(-1, keepdim=True) - 2 * (z_e @ cb.T) + cb.square().sum(-1)
         codes = d.argmin(-1)
-        z_q = (z_e + (cb[codes] - z_e)).to(x.dtype)  # the straight-through form
-        return (self.proj_out(z_q) if self.needs_proj else z_q), codes
+        cq = cb[codes]
+        commitment = (z_e - cq.detach()).square().mean()
+        codebook_loss = (z_e.detach() - cq).square().mean()
+        z_q = (z_e + (cq - z_e).detach()).to(x.dtype)  # the straight-through form
+        return (self.proj_out(z_q) if self.needs_proj else z_q), codes, commitment, codebook_loss
 
     def lookup(self, codes: torch.Tensor) -> torch.Tensor:
         """codes [B, T] -> their codebook rows [B, T, C_in], fp32 (JAX :197)."""
@@ -69,14 +98,17 @@ class ResidualVQ(nn.Module):
                                                               codebook_dim or input_dim))
 
     def forward(self, x: torch.Tensor):
-        """x [B, T, C] -> (z_q [B, T, C], codes [B, T, Q])."""
-        residual, z_q, codes = x, torch.zeros_like(x), []
+        """x [B, T, C] -> (z_q [B, T, C], codes [B, T, Q], the commitment and
+        codebook losses summed over the codebooks)."""
+        residual, z_q, codes, commit, cbl = x, torch.zeros_like(x), [], 0.0, 0.0
         for i in range(self.num_quantizers):
-            out, c = getattr(self, f"quantizer_{i}")(residual)
+            out, c, c_loss, cb_loss = getattr(self, f"quantizer_{i}")(residual)
             z_q = z_q + out
             residual = residual - out
             codes.append(c)
-        return z_q, torch.stack(codes, dim=-1)
+            commit = commit + c_loss
+            cbl = cbl + cb_loss
+        return z_q, torch.stack(codes, dim=-1), commit, cbl
 
     def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """codes [B, T, Q] -> latents [B, T, C]: the codebooks' rows summed (JAX :238)."""
@@ -86,9 +118,9 @@ class ResidualVQ(nn.Module):
 
 class RVQBottleneck(nn.Module):
     """The `rvq` bottleneck (JAX :233): encode to (latents, codes), decode the
-    identity. The lucidrains EMA options
-    of the config (`decay`, `threshold_ema_dead_code`, `kmeans_*`) act only
-    when the codec trains, which the port does not."""
+    identity. The lucidrains EMA options of the config (`decay`,
+    `threshold_ema_dead_code`, `kmeans_*`) are taken and unused, as in the
+    JAX package: the codebooks train through `quantizer_loss`."""
 
     is_discrete = True
 
@@ -99,9 +131,13 @@ class RVQBottleneck(nn.Module):
         self.codebook_size = codebook_size
         self.quantizer = ResidualVQ(dim, num_quantizers, codebook_size, codebook_dim)
 
-    def encode(self, x: torch.Tensor, return_info: bool = False):
-        z, codes = self.quantizer(x)
-        return (z, {"quantizer_indices": codes}) if return_info else z
+    def encode(self, x: torch.Tensor, return_info: bool = False, **_sampling):
+        """x [B, T, dim] -> z (and {"quantizer_indices", "quantizer_loss"});
+        the VAE's sampling arguments are taken and unused (JAX :265)."""
+        z, codes, commit, cbl = self.quantizer(x)
+        if not return_info:
+            return z
+        return z, {"quantizer_indices": codes, "quantizer_loss": commit + cbl}
 
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         return x

@@ -9,8 +9,8 @@ upsample the polyphase transposed-conv kernel K4 with no snake
 (ops/kernels/conv1d.py), as the JAX package sends them to its Pallas K2 and
 K4; the encoder's strided downsample is the plain reshape-GEMM form
 (ops/convs.py:snake_downsample_conv1d), as the JAX package leaves it to XLA.
-The kernels have no backward: the VAE runs frozen under torch.no_grad() on
-the card. Channels-last [B, T, C]. The residual-VQ codec (`DACCodecModule`,
+Under grad (AE-GAN training) the kernels run forward and their plain
+versions are differentiated (ops/kernels/conv1d.py). Channels-last [B, T, C]. The residual-VQ codec (`DACCodecModule`,
 `DACCodec`) is not in the port.
 """
 

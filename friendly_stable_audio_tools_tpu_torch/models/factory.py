@@ -2,7 +2,7 @@
 friendly_stable_audio_tools_tpu/models/factory.py:17).
 
 Reads the JAX package's model-config JSON schema as it stands; the
-`diffusion_cond` and `lm` model types are ported."""
+`diffusion_cond`, `lm` and `autoencoder` model types are ported."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from torch import nn
 
 from ..ops.norms import LayerNorm
 from ..utils.common import init_weights_, resolve_device
+from .autoencoders import create_autoencoder_from_config
 from .conditioners import CLAPTextConditioner
 from .diffusion import create_diffusion_cond_from_config
 from .lm import create_audio_lm_from_config
@@ -26,8 +27,8 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
     when there is no GPU) with random weights drawn from a generator seeded
     with `seed` (the JAX package's initialisation scheme,
     utils/common.init_weights_; a diffusion backbone is then halved, as the
-    JAX wrapper halves it, an LM is not). A CLAP conditioner then reads its
-    `clap_ckpt_path` when that file exists. Load a converted checkpoint over
+    JAX wrapper halves it, an LM or an autoencoder is not). A CLAP
+    conditioner then reads its `clap_ckpt_path` when that file exists. Load a converted checkpoint over
     the weights with `load_state_dict` (utils/convert.py). `fused_mlp` turns
     on the fused SwiGLU kernel K13 in every transformer FeedForward (the JAX
     package's FSAT_FUSED_MLP switch, off by default as there). `fused_ew`
@@ -40,7 +41,8 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
     if model_type is None:
         raise ValueError("model_type must be specified in model config")
     builders = {"diffusion_cond": create_diffusion_cond_from_config,
-                "lm": create_audio_lm_from_config}
+                "lm": create_audio_lm_from_config,
+                "autoencoder": create_autoencoder_from_config}
     if model_type not in builders:
         raise NotImplementedError(f"model type {model_type!r} is not in the torch port")
     with torch.device("meta"):

@@ -11,7 +11,7 @@ import typing as tp
 import torch
 from torch import nn
 
-from .autoencoders import AudioAutoencoder, create_autoencoder_from_config
+from .autoencoders import AudioAutoencoder, autoencoder_from_model_config
 
 
 class AutoencoderPretransform(nn.Module):
@@ -88,7 +88,7 @@ def create_pretransform_from_config(config: tp.Dict[str, tp.Any]) -> Autoencoder
         raise NotImplementedError(f"pretransform type {config.get('type')!r} is not in the torch port")
     if config.get("chunked", False):
         raise NotImplementedError("chunked decoding is not in the torch port")
-    autoencoder = create_autoencoder_from_config(config["config"])
+    autoencoder = autoencoder_from_model_config(config["config"])
     return AutoencoderPretransform(autoencoder, scale=config.get("scale", 1.0),
                                    model_half=config.get("model_half", False),
                                    iterate_batch=config.get("iterate_batch", False))

@@ -6,11 +6,16 @@ tensor on the CPU, a kernel for a tensor on a CUDA device, where the wrapper
 raises on anything the kernel does not take. Nothing falls back from the
 kernel to the plain version.
 
-The kernels have no backward, as the JAX package has none in Pallas (it
-differentiates the plain XLA forms, conv1d.py:159-163, 401-409, 557-561):
-the VAE runs frozen under torch.no_grad(), and on a CUDA tensor a wrapper
-raises when grad mode is on and any input requires grad, rather than
-return a result without an autograd graph.
+Under grad the kernels carry the gradient as the JAX package's do (its
+custom_vjp launches the Pallas forward and differentiates the plain XLA
+form, conv1d.py:150-163, 389-409, 548-561): where grad mode is on and an
+input requires grad, each wrapper runs an autograd Function
+(:class:`SnakeConv1d`, :class:`FusedResidualUnit`,
+:class:`SnakeConvTranspose1d`) whose forward launches the kernel and saves
+only its inputs (x, the weight-normed w, the bias, the effective snake
+parameters), and whose backward re-runs the plain version on them under
+autograd. Otherwise (a frozen encode, a decode) the kernel runs alone and
+nothing is saved. The kernels' launch counts are the same either way.
 
 Numerics of both paths follow the Pallas kernels they replace
 (friendly_stable_audio_tools_tpu/ops/pallas/conv1d.py): snake in fp32 with
@@ -78,6 +83,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .autograd import plain_grads
 
 # launch counts: each wrapper adds one where it launches its kernel (the
 # bf16 kernels, then the fp32 ones); K2 counts its thin route
@@ -274,14 +280,19 @@ def _tma_ready(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
+def uses_kernels(x: torch.Tensor) -> bool:
+    """Whether the wrappers launch a kernel for `x`: a tensor on a CUDA
+    device. (A function, so that the tests can drive the autograd Functions
+    on CPU tensors with the launches replaced by the plain versions.)"""
+    return x.device.type != "cpu"
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def _check_cuda(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
-    """Raises on what the kernels do not take, and on any input that would
-    need a gradient: the kernels have no backward, and their outputs carry no
-    autograd graph, so a call under grad would drop gradients silently."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, *tensors)):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward (the JAX package "
-                           f"differentiates its plain XLA form, ops/pallas/conv1d.py); run it "
-                           f"under torch.no_grad() or on frozen inputs")
+    """Raises on what the kernels do not take."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: the CUDA kernels take bf16 or fp32 activations, got {x.dtype}")
     for t in (x, *tensors):
@@ -321,16 +332,23 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
     w [k, Cin, Cout]; alpha/inv_beta the effective per-channel snake
     parameters (None skips the snake). The plain version takes the same
     arguments."""
-    global snake_conv1d_launches, snake_conv1d_f32_launches
-    global snake_conv1d_wide_launches, snake_conv1d_wide_f32_launches
-    k, cin, cout = w.shape
+    k = w.shape[0]
     if padding is None:
         padding = (dilation * (k - 1)) // 2
     if 2 * padding != dilation * (k - 1):
         raise ValueError("snake_conv1d computes 'same'-length convolutions only")
-    if x.device.type == "cpu":
+    if not uses_kernels(x):
         return snake_conv1d_plain(x, w, bias, alpha, inv_beta, dilation, padding)
     _check_cuda("snake_conv1d", x, w, bias, alpha, inv_beta)
+    if _needs_grad(x, w, bias, alpha, inv_beta):
+        return SnakeConv1d.apply(x, w, bias, alpha, inv_beta, dilation, padding)
+    return _launch_snake_conv1d(x, w, bias, alpha, inv_beta, dilation, padding)
+
+
+def _launch_snake_conv1d(x, w, bias, alpha, inv_beta, dilation: int, padding: int):
+    global snake_conv1d_launches, snake_conv1d_f32_launches
+    global snake_conv1d_wide_launches, snake_conv1d_wide_f32_launches
+    k, cin, cout = w.shape
     ab = _stack_snake(alpha, inv_beta)
     b, t, _ = x.shape
     f32 = x.dtype == torch.float32
@@ -362,6 +380,21 @@ def snake_conv1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[torch.Tenso
     return y
 
 
+class SnakeConv1d(torch.autograd.Function):
+    """K2 forward; the backward differentiates :func:`snake_conv1d_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, alpha, inv_beta, dilation, padding):
+        ctx.save_for_backward(x, w, bias, alpha, inv_beta)
+        ctx.conv = (dilation, padding)
+        return _launch_snake_conv1d(x, w, bias, alpha, inv_beta, dilation, padding)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_grads(snake_conv1d_plain, (*ctx.saved_tensors, *ctx.conv),
+                            ctx.needs_input_grad, grad_out)
+
+
 # ---------------------------------------------------------------------------
 # K3: whole Oobleck residual unit
 # ---------------------------------------------------------------------------
@@ -382,20 +415,28 @@ def fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
                         dilation: int = 1) -> torch.Tensor:
     """y = x + conv1x1(snake2(conv_k,dil(snake1(x)) + b1)) + b2 (cin == cout).
     w1 [k, C, C], w2 [C, C]; k = 7 on CUDA."""
-    global fused_residual_unit_launches, fused_residual_unit_f32_launches
     k, c, c2 = w1.shape
     if not (c == c2 == w2.shape[0] == w2.shape[1]):
         raise ValueError("fused_residual_unit needs cin == cout")
-    if x.device.type == "cpu":
-        return fused_residual_unit_plain(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
-                                         dilation)
-    _check_cuda("fused_residual_unit", x, w1, b1, w2, b2, alpha1, inv_beta1, alpha2, inv_beta2)
-    ab1 = _stack_snake(alpha1, inv_beta1)
-    ab2 = _stack_snake(alpha2, inv_beta2)
-    route = ru_route(c, x.dtype)
+    args = (x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2)
+    if not uses_kernels(x):
+        return fused_residual_unit_plain(*args, dilation)
+    _check_cuda("fused_residual_unit", *args)
     if k != 7 or c % 128:
         raise ValueError(f"fused_residual_unit: the CUDA kernel takes k = 7 and C % 128 == 0, "
                          f"got k = {k}, C = {c}")
+    if _needs_grad(*args):
+        return FusedResidualUnit.apply(*args, dilation)
+    return _launch_fused_residual_unit(*args, dilation)
+
+
+def _launch_fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
+                                dilation: int):
+    global fused_residual_unit_launches, fused_residual_unit_f32_launches
+    c = w1.shape[1]
+    ab1 = _stack_snake(alpha1, inv_beta1)
+    ab2 = _stack_snake(alpha2, inv_beta2)
+    route = ru_route(c, x.dtype)
     f32 = x.dtype == torch.float32
     b, t, _ = x.shape
     x = _tma_ready(x)
@@ -415,6 +456,22 @@ def fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2,
         fused_residual_unit_launches += 1
     build.check(err, "fused_residual_unit")
     return y
+
+
+class FusedResidualUnit(torch.autograd.Function):
+    """K3 forward; the backward differentiates :func:`fused_residual_unit_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2, dilation):
+        ctx.save_for_backward(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2, inv_beta2)
+        ctx.dilation = dilation
+        return _launch_fused_residual_unit(x, w1, b1, alpha1, inv_beta1, w2, b2, alpha2,
+                                           inv_beta2, dilation)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_grads(fused_residual_unit_plain, (*ctx.saved_tensors, ctx.dilation),
+                            ctx.needs_input_grad, grad_out)
 
 
 # ---------------------------------------------------------------------------
@@ -452,29 +509,50 @@ def snake_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, bias: tp.Optional[t
                            stride: int = 2) -> torch.Tensor:
     """Fused snake(x) -> ConvTranspose1d(k = 2s, stride s, padding s/2):
     x [B, T, Cin], w [2s, Cin, Cout] -> [B, T*s, Cout]."""
-    global snake_conv_transpose1d_launches, snake_conv_transpose1d_f32_launches
     k, cin, cout = w.shape
     if stride % 2 or k != 2 * stride:
         raise ValueError("snake_conv_transpose1d needs an even stride and k == 2 * stride")
-    if x.device.type == "cpu":
+    if not uses_kernels(x):
         return snake_conv_transpose1d_plain(x, w, bias, alpha, inv_beta, stride)
     _check_cuda("snake_conv_transpose1d", x, w, bias, alpha, inv_beta)
-    ab = _stack_snake(alpha, inv_beta)
-    f32 = x.dtype == torch.float32
-    n = conv_tile_n(cout, x.dtype)
-    if (cin * x.element_size()) % 16 or n is None:
+    if (cin * x.element_size()) % 16 or conv_tile_n(cout, x.dtype) is None:
         raise ValueError(f"snake_conv_transpose1d: the CUDA kernel takes Cin * elem % 16 == 0 and "
                          f"Cout % {TILE_N[x.dtype][-1]} == 0, got {cin} -> {cout} in {x.dtype}")
+    if _needs_grad(x, w, bias, alpha, inv_beta):
+        return SnakeConvTranspose1d.apply(x, w, bias, alpha, inv_beta, stride)
+    return _launch_snake_conv_transpose1d(x, w, bias, alpha, inv_beta, stride)
+
+
+def _launch_snake_conv_transpose1d(x, w, bias, alpha, inv_beta, stride: int):
+    global snake_conv_transpose1d_launches, snake_conv_transpose1d_f32_launches
+    _, cin, cout = w.shape
+    ab = _stack_snake(alpha, inv_beta)
+    f32 = x.dtype == torch.float32
     b, t, _ = x.shape
     x = _tma_ready(x)
     bias = (torch.zeros(cout, device=x.device) if bias is None else bias.float()).contiguous()
     y = torch.empty(b, t * stride, cout, device=x.device, dtype=x.dtype)
     err = build.library().fsat_conv_taps_k4(
         _ptr(x), _ptr(_k_major_weights(w, x.dtype)), _ptr(bias), _ptr(ab), _ptr(y), b, t, cin, cout,
-        stride, n, int(f32), F32_FLUSH, _stream(x.device))
+        stride, conv_tile_n(cout, x.dtype), int(f32), F32_FLUSH, _stream(x.device))
     if f32:
         snake_conv_transpose1d_f32_launches += 1
     else:
         snake_conv_transpose1d_launches += 1
     build.check(err, "snake_conv_transpose1d")
     return y
+
+
+class SnakeConvTranspose1d(torch.autograd.Function):
+    """K4 forward; the backward differentiates :func:`snake_conv_transpose1d_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, alpha, inv_beta, stride):
+        ctx.save_for_backward(x, w, bias, alpha, inv_beta)
+        ctx.stride = stride
+        return _launch_snake_conv_transpose1d(x, w, bias, alpha, inv_beta, stride)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_grads(snake_conv_transpose1d_plain, (*ctx.saved_tensors, ctx.stride),
+                            ctx.needs_input_grad, grad_out)

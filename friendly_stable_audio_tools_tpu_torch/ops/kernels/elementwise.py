@@ -42,6 +42,7 @@ import typing as tp
 import torch
 
 from . import build
+from .autograd import plain_grads
 
 # launch counts: each wrapper adds one where it launches its kernel
 lnmod_launches = 0  # K11
@@ -263,18 +264,6 @@ def _launch_gated_residual(y, gate, residual):
     return out
 
 
-def _plain_grads(fn, inputs, needs, grad_out):
-    """The gradients of the plain chain `fn` at `inputs` for those flagged
-    in `needs` (None elsewhere), recomputed under autograd."""
-    with torch.enable_grad():
-        leaves = [None if t is None else t.detach().requires_grad_(n)
-                  for t, n in zip(inputs, needs)]
-        out = fn(*leaves)
-        wanted = [t for t, n in zip(leaves, needs) if t is not None and n]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
-    return tuple(next(grads) if t is not None and n else None for t, n in zip(leaves, needs))
-
-
 class LnModulate(torch.autograd.Function):
     """K11 forward; the backward differentiates :func:`ln_modulate_plain`."""
 
@@ -285,7 +274,8 @@ class LnModulate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        return _plain_grads(ln_modulate_plain, ctx.saved_tensors, ctx.needs_input_grad, grad_out)
+        return plain_grads(ln_modulate_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                           grad_out)
 
 
 class GatedResidual(torch.autograd.Function):
@@ -298,8 +288,8 @@ class GatedResidual(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        return _plain_grads(gated_residual_plain, ctx.saved_tensors, ctx.needs_input_grad,
-                            grad_out)
+        return plain_grads(gated_residual_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                           grad_out)
 
 
 def ln_modulate(x: torch.Tensor, gamma: tp.Optional[torch.Tensor], scale: torch.Tensor,

@@ -5,9 +5,10 @@
         --dataset-config dataset.json --batch-size 8 --max-steps 1000 --save-dir runs/
 
 Flags and their defaults come from `defaults.ini` (in the working directory,
-else the repository's). Trains a `diffusion_cond` or an `lm` model on one device: a
-CUDA card by default, raising when there is none; `--device cpu` trains on
-the CPU through the kernels' plain versions. On the card the DiT trains in
+else the repository's). Trains a `diffusion_cond`, an `lm` or an
+`autoencoder` model on one device: a CUDA card by default, raising when
+there is none; `--device cpu` trains on the CPU through the kernels' plain
+versions. On the card the DiT trains in
 fp32 with its self-attention routed as the JAX package routes it
 (ops/kernels/attention.py:training_route): up to 1168 tokens through the
 pair kernels K5/K6, which cast to bf16 as the JAX pair path does; longer
@@ -20,8 +21,14 @@ friendly_stable_audio_tools_tpu_torch/configs/lm/musicgen_small_32khz.json)
 trains in fp32 from raw audio: the frozen SEANet tokenizer (fp32 K2 for
 its stride-1 convs, cuDNN's LSTM) gives the codes, and the causal
 transformer's self-attention runs the causal K7 with its LSE and the causal
-K9. TF32 is off for matrix products and convolutions (cuDNN's LSTM
-included), so plain fp32 layers compute in fp32.
+K9. An `autoencoder` model (e.g. the JAX package's
+configs/model_configs/autoencoders/stable_audio_2_0_vae.json) trains by
+AE-GAN in fp32 (training/autoencoders.py): generator and discriminator
+steps in turn, the VAE's K2, K3 and K4 forwards under autograd with their
+plain versions differentiated, the EnCodec STFT discriminator and the
+multi-resolution STFT losses on torch.stft. TF32 is off for matrix
+products and convolutions (cuDNN's LSTM included), so plain fp32 layers
+compute in fp32.
 Without `--pretrained-ckpt-path` the weights are random, drawn from
 `--seed`. Checkpoints (`torch.save`) go to
 `<save-dir>/<name>/<run id>/checkpoints/step_<n>/`; `--ckpt-path` resumes
@@ -103,7 +110,7 @@ def main(argv=None):
     if args.pretrained_ckpt_path:
         print(f"->->-> Loading a pretrained checkpoint from {args.pretrained_ckpt_path}...")
         _load_into(model, args.pretrained_ckpt_path, "pretrained checkpoint")
-    if args.pretransform_ckpt_path and model.pretransform is not None:
+    if args.pretransform_ckpt_path and getattr(model, "pretransform", None) is not None:
         print(f"->->-> Loading a pretransform checkpoint from {args.pretransform_ckpt_path}...")
         _load_into(model.pretransform.model, args.pretransform_ckpt_path, "pretransform checkpoint")
 

@@ -1,6 +1,6 @@
 """Optimizer and learning-rate schedule from the JSON config (counterpart of
 friendly_stable_audio_tools_tpu/training/scheduler.py: `inverse_lr_schedule`
-:14, `build_optimizer` :76).
+:14, ExponentialLR :67, `build_optimizer` :76).
 
 Adam and AdamW map to `torch.optim.Adam` / `torch.optim.AdamW` (Adam with a
 weight decay becomes AdamW, as optax.adamw in the JAX package); the schedule
@@ -45,7 +45,11 @@ def build_optimizer(config: tp.Dict[str, tp.Any], params: tp.Iterable[torch.nn.P
     multiplier = lambda step: 1.0  # noqa: E731
     if "scheduler" in config:
         sched = config["scheduler"]
-        if sched["type"] != "InverseLR":
+        if sched["type"] == "InverseLR":
+            multiplier = inverse_lr_schedule(lr, **sched.get("config", {}))
+        elif sched["type"] == "ExponentialLR":  # JAX :67-69
+            gamma = sched.get("config", {}).get("gamma", 0.999996)
+            multiplier = lambda step: gamma ** step  # noqa: E731
+        else:
             raise NotImplementedError(f"scheduler type {sched['type']!r} is not in the torch port")
-        multiplier = inverse_lr_schedule(lr, **sched.get("config", {}))
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, multiplier)

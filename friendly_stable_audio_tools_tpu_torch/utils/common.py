@@ -2,8 +2,8 @@
 
 `init_weights_` follows the JAX package's initialisers module by module:
 fan-in scaled normal for linear layers with zero bias, torch's fan-in
-uniform for the weight-normed convs with `g = ||v||` (so the initial weight
-equals v) and for the ADP U-Net's convs (weight and bias), unit gains, zero
+uniform for the weight-normed convs (the discriminator's 2-D ones too)
+with `g = ||v||` (so the initial weight equals v) and for the ADP U-Net's convs (weight and bias), unit gains, zero
 log-scale snake parameters and unit single-parameter ones, unit-normal
 embeddings, Fourier weights and vector-quantizer codebooks, fan-in scaled
 normal LSTM weights with zero biases, unit gain and zero bias for the LayerNorms
@@ -24,6 +24,7 @@ from torch import nn
 from ..models import adp
 from ..models.bottleneck import VectorQuantizer
 from ..models.clap import BiasLayerNorm
+from ..models.discriminators import WNConv2d
 from ..models.t5 import T5Attention
 from ..ops.activations import Snake, SnakeBeta
 from ..ops.convs import Conv1d, WNConv1d, WNConvTranspose1d
@@ -63,6 +64,11 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             m.g.copy_(m.v.square().sum(dim=(0, 2) if transposed else (0, 1)).sqrt())
             if m.bias is not None:
                 _uniform_(m.bias, bound, gen)
+        elif isinstance(m, WNConv2d):
+            bound = 1.0 / math.sqrt(m.v[0].numel())
+            _uniform_(m.v, bound, gen)
+            m.g.copy_(m.v.square().sum(dim=(1, 2, 3)).sqrt())
+            _uniform_(m.bias, bound, gen)
         elif isinstance(m, (adp.Conv1d, adp.ConvTranspose1d)):
             k, cin, cout = m.weight.shape
             bound = 1.0 / math.sqrt((cout if isinstance(m, adp.ConvTranspose1d) else cin) * k)

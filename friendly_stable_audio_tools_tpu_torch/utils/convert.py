@@ -38,6 +38,11 @@ H] and `bias_hh_l{n}`, with `bias_ih_l{n}` zero.
 :func:`clap_text_state_dict` reads a laion-clap checkpoint's text branch
 instead, by the key map of the JAX package's `models/clap.py:convert_clap_text_branch`.
 
+A standalone autoencoder (the `autoencoder` model type) carries over by
+:func:`convert_autoencoder`, and the AE-GAN trainer's EnCodec discriminator
+by :func:`convert_encodec_discriminator`: its scales `disc{i}` become
+`discs.{i}` and each 2-D conv's HWIO `v` torch's [out, in, kh, kw].
+
 Conv weights keep the JAX layout `[k, Cin, Cout]`, which the CUDA kernels
 read: a plain `Conv1d` kernel becomes `weight` unchanged, and the
 weight-normed convs keep `v`, `g`, `bias`. The magnitude `g` is per output
@@ -116,6 +121,29 @@ def seanet_codec_state_dict(tree: tp.Mapping, prefix: str = "") -> tp.Dict[str, 
         if lstm is not None:
             sd.update(_lstm_state(lstm, f"{prefix}{part}.lstm.lstm."))
     return sd
+
+
+def convert_autoencoder(tree: tp.Mapping, prefix: str = "") -> tp.Dict[str, torch.Tensor]:
+    """A JAX `AudioAutoencoder`'s `params` ({encoder, decoder, and any
+    bottleneck}; Oobleck, DAC or SEANet) -> the state_dict of the port's
+    `AudioAutoencoder` under `prefix` (`pretransform.model.` inside a
+    diffusion model or an LM)."""
+    return seanet_codec_state_dict(tree, prefix)
+
+
+def convert_encodec_discriminator(tree: tp.Mapping) -> tp.Dict[str, torch.Tensor]:
+    """A JAX `EncodecDiscriminator`'s params ({disc{i}: {conv_in, conv{j},
+    conv_mid, conv_post}}, each WNConv2d's `v` HWIO [kh, kw, in, out], `g`
+    and `bias` [out]) -> the state_dict of the port's (`discs.{i}.`, `v`
+    as torch's [out, in, kh, kw])."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "v":
+            arr = arr.transpose(3, 2, 0, 1)
+        disc = re.match(r"^disc(\d+)$", path[0]).group(1)
+        out[".".join(("discs", disc) + path[1:])] = torch.tensor(arr)
+    return out
 
 
 def convert_audio_lm(lm_params: tp.Mapping,

@@ -9,7 +9,9 @@ against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
 activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4); K8's
 dq, whose parts arrive through atomics in a varying order, to 1e-5 too;
 K9's dk and dv bit for bit against themselves run to run, its dq (summed
-by reduce-adds in a varying order) to 1e-6.
+by reduce-adds in a varying order) to 1e-6. K2-K4 under grad (their
+autograd Functions: the kernel forward, the plain backward) to rel-L2 1e-5
+in fp32 against the plain version's autograd.
 K13 (the fused SwiGLU MLP), on each route, to rel-L2 1e-5 in fp32 and 2e-3
 (one bf16 rounding) in bf16, and bit for bit against itself (both routes
 sum in a fixed order). K11 and K12 (the adaLN elementwise kernels) against the Pallas
@@ -190,23 +192,64 @@ def test_pair_backward_agrees_with_itself_run_to_run(gen, b, t, h, kv):
                                                                   dtype=torch.float32))
 
 
-def test_conv_kernels_refuse_inputs_that_need_grad(gen):
-    """K2-K4 have no backward: on CUDA, under grad with an input that
-    requires grad, each wrapper raises rather than return a detached result;
-    under torch.no_grad() it runs."""
-    x = _rnd(gen, 1, 256, 128, scale=0.5).to(torch.bfloat16)
-    a = _rnd(gen, 128).abs() + 0.5
-    w = _rnd(gen, 7, 128, 128, scale=0.03).requires_grad_(True)
-    wt = _rnd(gen, 4, 128, 128, scale=0.06).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tconv.snake_conv1d(x, w, None, a, 1.0 / a)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tconv.fused_residual_unit(x, w, None, a, 1.0 / a, w[0], None, a, 1.0 / a)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tconv.snake_conv_transpose1d(x.requires_grad_(True), wt.detach(), None, a, 1.0 / a,
-                                     stride=2)
+def _grad_case(gen, wrapper, plain, shapes, scales, static, dtype=torch.float32):
+    """The kernel's autograd Function against the plain version's autograd
+    on the same inputs (all requiring grad) and upstream gradient -> the
+    largest rel-L2 over the output and the inputs' gradients."""
+    args = [((_rnd(gen, *sh).abs() + 0.5) if sc == "pos" else _rnd(gen, *sh, scale=sc))
+            .requires_grad_(True) for sh, sc in zip(shapes, scales)]
+    args[0] = args[0].detach().to(dtype).requires_grad_(True)
+    y = wrapper(*args, *static)
+    assert type(y.grad_fn).__name__.startswith(("SnakeConv", "FusedResidual"))
+    g = _rnd(gen, *y.shape).to(dtype)
+    got = torch.autograd.grad(y, args, g)
+    y_ref = plain(*args, *static)
+    want = torch.autograd.grad(y_ref, args, g)
+    return max(((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip((y, *got), (y_ref, *want)))
+
+
+def test_conv_kernels_carry_the_gradient(gen):
+    """K2-K4 under grad, on each route: the kernel forward with the plain
+    version's backward against the plain version's autograd, fp32 to rel-L2
+    1e-5 over the output and the gradients of x, w, bias, alpha and inv_beta
+    (bf16 to 1e-2); one launch per call, and under torch.no_grad() no
+    autograd graph and nothing kept beyond the output."""
+    c = 128
+    snake = [(c,), (c,)]
+    cases = [  # (wrapper, plain, shapes, scales, static, dtype)
+        (tconv.snake_conv1d, tconv.snake_conv1d_plain, [(2, 999, 2), (7, 2, c), (c,)],
+         [0.5, 0.1, 0.1], (None, None, 1), torch.float32),  # thin: CUDA cores
+        (tconv.snake_conv1d, tconv.snake_conv1d_plain, [(2, 999, c), (7, c, 2), (2,)] + snake,
+         [0.5, 0.03, 0.1, "pos", "pos"], (1,), torch.float32),  # thin-out
+        (tconv.snake_conv1d, tconv.snake_conv1d_plain, [(2, 333, 256), (3, 256, c), (c,),
+                                                        (256,), (256,)],
+         [0.5, 0.03, 0.1, "pos", "pos"], (1,), torch.float32),  # wide
+        (tconv.fused_residual_unit, tconv.fused_residual_unit_plain,
+         [(2, 333, c), (7, c, c), (c,)] + snake + [(c, c), (c,)] + snake,
+         [0.5, 0.03, 0.1, "pos", "pos", 0.06, 0.1, "pos", "pos"], (9,), torch.float32),  # split
+        (tconv.fused_residual_unit, tconv.fused_residual_unit_plain,
+         [(2, 333, c), (7, c, c), (c,)] + snake + [(c, c), (c,)] + snake,
+         [0.5, 0.03, 0.1, "pos", "pos", 0.06, 0.1, "pos", "pos"], (3,), torch.bfloat16),  # fused
+        (tconv.snake_conv_transpose1d, tconv.snake_conv_transpose1d_plain,
+         [(2, 129, 256), (8, 256, c), (c,), (256,), (256,)],
+         [0.5, 0.06, 0.1, "pos", "pos"], (4,), torch.float32),
+    ]
+    for wrapper, plain, shapes, scales, static, dtype in cases:
+        before = sum(getattr(tconv, n) for n in dir(tconv) if n.endswith("_launches"))
+        rel = _grad_case(gen, wrapper, plain, shapes, scales, static, dtype)
+        after = sum(getattr(tconv, n) for n in dir(tconv) if n.endswith("_launches"))
+        assert after == before + 1, (wrapper.__name__, static)
+        assert rel < (1e-5 if dtype == torch.float32 else 1e-2), (wrapper.__name__, static, rel)
+    x = _rnd(gen, 1, 4096, c).requires_grad_(True)
+    w = _rnd(gen, 7, c, c, scale=0.03).requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     with torch.no_grad():
-        assert tconv.snake_conv1d(x, w, None, a, 1.0 / a).shape == (1, 256, 128)
+        y = tconv.snake_conv1d(x, w, None)
+    torch.cuda.synchronize()
+    assert y.grad_fn is None
+    assert torch.cuda.memory_allocated() == base + y.untyped_storage().nbytes()
 
 
 def test_long_attention_kernels_match_plain(gen):
