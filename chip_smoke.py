@@ -5,11 +5,13 @@ Audio 2.0 long-form text-to-audio and training (and its DiT past 8192
 tokens), Stable Audio 1.0 text-to-audio (fp32 through the CLI, and in
 bench.py's bf16 recipe) and training, audio-LM training and generation
 (MusicGen small's widths), text-to-audio through the adaLN DiT (SAO
-1.0's config with `global_cond_type: "adaLN"`), and AE-GAN training of the
-Stable Audio VAEs, at full width. The training
-phases [6], [7], [6b] and [9] run the DiT at TRAIN_DEPTH (6) of its 24
+1.0's config with `global_cond_type: "adaLN"`), AE-GAN training of the
+Stable Audio VAEs, and the diffusion trainer's options (pre-encoded
+latents, logit-normal timesteps, rectified flow, padding masks, the inpaint
+trainer, demos, the weight-norm fold, the profiler), at full width. The training
+phases [6], [7], [6b] and [9] run the DiT at TRAIN_DEPTH (4) of its 24
 layers and the LM generation phases [13b] and [13] the LM at LM_GEN_DEPTH
-(6) of its 24, to stay well inside the script's time limit; widths, shapes
+(3) of its 24, to stay well inside the script's time limit; widths, shapes
 and each kernel's calls per layer are as the configs write them.
 
     python3 chip_smoke.py
@@ -145,7 +147,7 @@ Phases (any failure raises and the script exits non-zero):
    route forced (the route the port took before it routed as the JAX
    package does): loss and weight gradients of layers 0, 11 and 23;
 7. the training path: `python -m friendly_stable_audio_tools_tpu_torch.train`'s
-   `main` on the SAO config from 16 synthetic 50 s WAVs, batch 8, 4 steps
+   `main` on the SAO config from 8 synthetic 50 s WAVs, batch 8, 4 steps
    with a checkpoint at step 4, then a resume for a fifth step; step time,
    throughput, memory and split, finite losses, moved weights, the EMA, and
    the kernels' launch counts as the code implies them (the frozen encode in
@@ -155,7 +157,7 @@ Phases (any failure raises and the script exits non-zero):
    bench.py's bf16 recipe, `generate_diffusion_cond` for one 285 s prompt, 100 dpmpp-3m-sde
    steps, CFG 7, 12,582,912 stereo samples; output checks, walls (CLAP,
    denoise per step, decode), peak memory, and the launch counts;
-9. the long-form training path: `train.main` on the SA 2.0 config from 8
+9. the long-form training path: `train.main` on the SA 2.0 config from 4
    synthetic 290 s WAVs, batch 8, 3 steps: step time, trained audio per
    second, the split, peak memory, finite losses, moved weights and the
    launch counts (K7/K9 and the fp32 encoder's K2/K3, no K5/K6);
@@ -193,7 +195,7 @@ Phases (any failure raises and the script exits non-zero):
    (K7 without its LSE: the q/k/v gradients of the 14 gated attentions are
    lost);
 11. the SA 1.0 training path: `train.main` on stable_audio_1_0.json as
-   written (CFG dropout 0.1, Adam at 5e-4, EMA) from 8 synthetic 96 s WAVs,
+   written (CFG dropout 0.1, Adam at 5e-4, EMA) from 4 synthetic 96 s WAVs,
    batch 8, 3 steps: step time, trained audio per second, the split, peak
    memory, finite losses, moved weights and the launch counts (K7 with its
    LSE 14 and K8 14 per step, the DAC encoder's fp32 K2 26 per clip (25 wide),
@@ -261,6 +263,23 @@ Phases (any failure raises and the script exits non-zero):
    (the output as long as the input, finite, one forward's launches per
    chunk).
 
+18. the diffusion trainer's options on SAO 1.0's fp32 DiT at full depth
+   and width (batch 8, 1024 latent frames, fixed draws, TF32 off): a
+   pre-encoded step (no encode: no K2/K3 launch), a logit-normal step, a
+   rectified-flow step, a `mask_padding` step (the self-attention masked:
+   the plain route, no attention kernel, as in the JAX package) and the
+   inpaint variant's step (`diffusion_cond_inpaint`, input_concat_dim 65,
+   built in memory), each with exact launch counts (K5 48, K6 24, K10a 96
+   on the mask-free steps) and held against the plain versions as [6]
+   holds its step (the masked one against every plain version in fp32);
+   whole train steps from pre-encoded latents and from raw audio, timed;
+   the VAE's weight norm folded (its encode within FP32_MODEL_RTOL of the
+   unfolded one, still through K2/K3); then 2 steps of the train CLI
+   (TRAIN_DEPTH layers) with a demo at step 2 (DEMO_STEPS steps,
+   DEMO_CFG_SCALES; its wavs and its K1/K10a/K2-K4 launches),
+   `--remove-pretransform-weight-norm post_load` and `--profile-dir` (a
+   trace written), exact launch counts.
+
 [5], [7], [8] and [14] also print their earlier end-to-end figures
 (`EARLIER_E2E`) beside this run's, with the card's name and power limit.
 
@@ -324,22 +343,24 @@ SA2_XL_PROMPT = {"prompt": "A slow ambient soundscape with evolving pads and dis
 DEVICE = "cuda"
 TRAIN_BATCH = 8
 TRAIN_STEPS = 4
-N_WAVS = 16
+N_WAVS = 8
 WAV_SECONDS = 50
 # the DiT's self-attention at training batch 8: 1024 latent frames + 1
 # prepended token, padded to 1040 (models/transformer.py:seq_pad_length)
 TRAIN_T, TRAIN_KV = 1040, 1025
-# SA 2.0 training (phase 9): 8 WAVs of 290 s (longer than the 285.3 s crop,
-# so no clip is padded), 3 steps
-SA2_WAVS = 8
+# SA 2.0 training (phase 9): 4 WAVs of 290 s (longer than the 285.3 s crop,
+# so no clip is padded; the loader samples a batch of 8 from them with
+# replacement: their synthesis took ~25 s of the run at 8), 3 steps
+SA2_WAVS = 4
 SA2_WAV_SECONDS = 290
 SA2_TRAIN_STEPS = 3
 # the ADP U-Net's flash-gated self-attention at 4096 latent frames, 16 heads:
 # (T, head dim, calls per U-Net call); SA 1.0 training (phases 11b, 11):
-# batch 8, and 8 WAVs of 96 s (longer than the 95.1 s crop), 3 steps
+# batch 8 sampled with replacement from 4 WAVs of 96 s (longer than the
+# 95.1 s crop), 3 steps
 SA1_ATTENTION = [(SA1_SAMPLE_SIZE // 1024, 64, 2), (SA1_SAMPLE_SIZE // 2048, 64, 6),
                  (SA1_SAMPLE_SIZE // 4096, 80, 6)]
-SA1_WAVS = 8
+SA1_WAVS = 4
 SA1_WAV_SECONDS = 96
 SA1_TRAIN_STEPS = 3
 # the audio LM (phases 3h, 12b, 12): MusicGen small's widths, 30 s of 32 kHz
@@ -355,8 +376,8 @@ LM_TRAIN_STEPS = 3
 # layers and the LM generation phases ([13b], [13]) the LM at LM_GEN_DEPTH
 # of its 24; widths, shapes and every kernel's calls per layer are as
 # written (`at_depth`)
-TRAIN_DEPTH = 6
-LM_GEN_DEPTH = 6
+TRAIN_DEPTH = 4
+LM_GEN_DEPTH = 3
 # init-audio generation ([16]): the outpainting of [5]'s clip (percent of
 # the clip: its first half pasted over the middle, kept there with soft
 # edges), the other samplers' steps, and the inpainting held against the
@@ -365,6 +386,16 @@ INIT_MASK_ARGS = {"cropfrom": 0, "pastefrom": 25, "pasteto": 75, "maskstart": 25
                   "softnessL": 5, "softnessR": 5, "marination": 0}
 INIT_SAMPLER_STEPS = 8
 INIT_CHECK_STEPS = 8
+# the diffusion trainer's options ([18]): the train CLI's demo at
+# DEMO_STEPS sampler steps (the config's 250 cut) and two cfg scales
+DEMO_STEPS = 8
+DEMO_CFG_SCALES = [3, 9]
+# its option steps with the bf16 pair kernels against fp32 attention: the
+# loss, one scalar, moves by ~1e-4 of itself either way (the plain bf16
+# versions too: 1.2e-4 on an H100 at SAO's shapes)
+OPTION_LOSS_RTOL = 1e-3
+# the train CLI's 2 steps there sample their batches of 8 from 2 WAVs
+OPTION_WAVS = 2
 # the adaLN DiT (phases 3j, 14b, 14): SAO 1.0's DiT with global_cond_type
 # "adaLN", 1024 latent frames (nothing prepended), 1536 wide, 24 layers, two
 # K11 and two K12 calls per layer and forward
@@ -4352,6 +4383,302 @@ def new_results():
     return results
 
 
+# ---------------------------------------------------------------------------
+# [18] the diffusion trainer's options
+# ---------------------------------------------------------------------------
+
+INPAINT_IDS = ["inpaint_mask", "inpaint_masked_input"]
+
+
+def inpaint_variant(config):
+    """SAO 1.0's config as a `diffusion_cond_inpaint` model, built in memory:
+    the DiT takes the keep mask and the masked latents (1 + 64 channels) by
+    input-concat; nothing else changes."""
+    c = copy.deepcopy(config)
+    c["model_type"] = "diffusion_cond_inpaint"
+    c["model"]["diffusion"]["input_concat_ids"] = list(INPAINT_IDS)
+    c["model"]["diffusion"]["config"]["input_concat_dim"] = 1 + c["model"]["io_channels"]
+    return c
+
+
+def option_inputs(model, config):
+    """Batch 8 of synthetic clips at the config's sample size on the card (4
+    clips, each twice), their metadata (each element valid over a prefix of
+    50-100%: the padding masks `mask_padding` reads), their latents from
+    the frozen encode, and fixed draws: uniform and logit-normal timesteps,
+    noise, a CFG dropout mask dropping element 0's conditioning tokens."""
+    import numpy as np
+    import torch
+
+    n = config["sample_size"]
+    clips = [synthetic_audio(300 + i, n).T for i in range(TRAIN_BATCH // 2)]
+    reals = torch.from_numpy(np.stack(clips * 2)).to(DEVICE)  # each clip twice, other masks
+    metadata = []
+    for i in range(TRAIN_BATCH):
+        pm = np.zeros(n, np.float32)
+        pm[:n * (TRAIN_BATCH + i) // (2 * TRAIN_BATCH)] = 1
+        metadata.append(dict(PROMPT, seconds_start=i, seconds_total=PROMPT["seconds_total"] - i,
+                             padding_mask=pm))
+    with torch.no_grad():
+        latents = model.pretransform.encode_nwc(reals)
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    draws = {"t": torch.rand(TRAIN_BATCH, generator=g, device=DEVICE),
+             "noise": torch.randn(latents.shape, generator=g, device=DEVICE),
+             "cfg_dropout_mask": torch.arange(TRAIN_BATCH, device=DEVICE) == 0,
+             "padding_dropout": False}
+    logit_t = torch.sigmoid(torch.randn(TRAIN_BATCH, generator=g, device=DEVICE))
+    return reals, metadata, latents, draws, logit_t
+
+
+def option_step(w, reals, metadata, draws, watched):
+    """The wrapper's loss and its backward (the step's compute; the
+    optimizer is the one every option shares) -> (loss, the DiT's output,
+    watched grads)."""
+    import torch
+
+    for p in w.trainable.values():
+        p.grad = None
+    w.model.train()
+    outputs = []
+    hook = w.model.model.register_forward_hook(lambda m, i, o: outputs.append(o.detach()))
+    try:
+        loss, _ = w.loss(reals, metadata, 0, draws)
+    finally:
+        hook.remove()
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), outputs[0], {k: p.grad.detach().clone() for k, p in watched.items()}
+
+
+def held_option_step(label, w, reals, metadata, draws, expected, masked=False):
+    """One option's step with the kernels, its launches read around it and
+    held to `expected`, then against the same step through the plain
+    versions. A mask-free step as [6] holds its step: the attention through
+    the plain bf16 pair versions and in fp32, the kernels' DiT output and
+    watched gradients at most DIT_ERR_RATIO times as far (rel-L2) from fp32
+    as the plain bf16 ones (the loss, one scalar of bf16-sized noise, within
+    OPTION_LOSS_RTOL of fp32). A masked step (its attention plain in both,
+    as in the JAX package) against every plain version, fp32 on both sides:
+    the loss within SA2_LOSS_RTOL, the gradients SA2_GRAD_RTOL. Returns the
+    launch counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+
+    layers = w.model.model.transformer.layers
+    depth = len(layers)
+    watched = {f"layers.{i}.{p}": getattr(layers[i].self_attn, p).weight
+               for i in (0, depth // 2 - 1, depth - 1) for p in ("to_qkv", "to_out")}
+    pt = w.model.pretransform
+    encoded = []
+    reset_counts()
+    start = time.perf_counter()
+    with patched([(pt, "encode_nwc", lambda x: encoded.append(type(pt).encode_nwc(pt, x))
+                   or encoded[-1])]):
+        loss_k, out_k, grads_k = option_step(w, reals, metadata, draws, watched)
+    wall = time.perf_counter() - start
+    counts = read_counts()
+    cat = lambda g: torch.cat([v.flatten() for v in g.values()])  # noqa: E731
+    if masked:
+        with plain_kernels():
+            loss_r, out_r, grads_r = option_step(w, reals, metadata, draws, watched)
+        err_k = rel_err(cat(grads_k), cat(grads_r))
+        ok = abs(loss_k - loss_r) <= SA2_LOSS_RTOL * abs(loss_r) and err_k <= SA2_GRAD_RTOL
+        detail = (f"every plain version {loss_r:.7g}; output rel-L2 {rel_err(out_k, out_r):.3g}, "
+                  f"watched gradients {err_k:.3g}")
+    else:
+        # the attention is what these runs compare: the encode's latents
+        # (K2/K3's, counted above) are reused rather than recomputed
+        reuse = [(pt, "encode_nwc", lambda x: encoded[0])] if encoded else []
+        with patched([(attention, "fused_qkv_rope_attention", plain_pair_attention)] + reuse):
+            loss_p, out_p, grads_p = option_step(w, reals, metadata, draws, watched)
+        with patched([(attention, "fused_qkv_rope_attention",
+                       attention.fused_qkv_rope_attention_plain)] + reuse):
+            loss_r, out_r, grads_r = option_step(w, reals, metadata, draws, watched)
+        err_k, err_p = rel_err(cat(grads_k), cat(grads_r)), rel_err(cat(grads_p), cat(grads_r))
+        out_k_err, out_p_err = rel_err(out_k, out_r), rel_err(out_p, out_r)
+        ok = (abs(loss_k - loss_r) <= OPTION_LOSS_RTOL * abs(loss_r)
+              and out_k_err <= DIT_ERR_RATIO * out_p_err and err_k <= DIT_ERR_RATIO * err_p)
+        detail = (f"plain bf16 {loss_p:.7g}, fp32 attention {loss_r:.7g}; rel-L2 against fp32: "
+                  f"output kernels {out_k_err:.3g}, plain bf16 {out_p_err:.3g}; watched gradients "
+                  f"kernels {err_k:.3g}, plain bf16 {err_p:.3g}")
+    finite = all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads_k.values())
+    log(f"  {label}: loss with the kernels {loss_k:.7g}, {detail}; loss + backward wall with the "
+        f"kernels {wall:.3f} s; launches {({k: v for k, v in counts.items() if v})}")
+    if not (finite and ok):
+        raise AssertionError(f"the {label} step with the kernels disagrees with the plain versions")
+    if counts != expected:
+        raise AssertionError(f"the {label} step launched {counts}, not {expected}")
+    return counts
+
+
+def timed_train_step(w, reals, metadata, draws):
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics = w.train_step(reals, metadata, draws=[draws])
+    torch.cuda.synchronize()
+    if not math.isfinite(metrics["loss"]):
+        raise AssertionError(f"the training step's loss is not finite: {metrics}")
+    return time.perf_counter() - start
+
+
+def training_options_phase(config):
+    """[18a] SAO 1.0's full-width fp32 DiT at full depth, batch 8, 1024
+    latent frames, fixed draws: a pre-encoded step (no encode: no K2/K3),
+    a logit-normal step, a rectified-flow step and a `mask_padding` step
+    (its self-attention masked: no attention kernel), each held against the
+    plain versions; whole train steps (optimizer and EMA included) from
+    pre-encoded latents and from raw audio, timed in turns; the weight-norm
+    fold of the VAE (its encode before and after); then the inpaint
+    variant's step. Returns the launch counts by step."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.models.utils import remove_weight_norm_
+    from friendly_stable_audio_tools_tpu_torch.training.diffusion import (
+        DiffusionCondInpaintTrainingWrapper,
+        DiffusionCondTrainingWrapper,
+    )
+
+    per_step = launches_per_step(config, "pair")
+    conv = {k for k in per_step if k.startswith(("snake_conv", "fused_residual"))}
+    pre_encoded = {k: 0 if k in conv else v for k, v in per_step.items()}
+    masked = {k: v if k in conv else 0 for k, v in per_step.items()}
+    opt = config["training"]["optimizer_configs"]
+
+    def wrapper(model, cls=DiffusionCondTrainingWrapper, **kw):
+        return cls(model, optimizer_configs=opt, use_ema=False, **kw)
+
+    model = build_model(config)
+    reals, metadata, latents, draws, logit_t = option_inputs(model, config)
+    counts = {"option_pre_encoded": held_option_step(
+        "pre-encoded", wrapper(model, pre_encoded=True), latents, metadata, draws, pre_encoded)}
+    counts["option_logit_normal"] = held_option_step(
+        "logit-normal", wrapper(model, timestep_sampler="logit_normal"), reals, metadata,
+        dict(draws, t=logit_t), per_step)
+    model.diffusion_objective = "rectified_flow"
+    counts["option_rectified_flow"] = held_option_step(
+        "rectified flow", wrapper(model), reals, metadata, draws, per_step)
+    model.diffusion_objective = "v"
+    counts["option_mask_padding"] = held_option_step(
+        "mask_padding", wrapper(model, mask_padding=True, mask_padding_dropout=0.1), reals,
+        metadata, draws, masked, masked=True)
+
+    w = DiffusionCondTrainingWrapper(model, optimizer_configs=opt)
+    timed_train_step(w, reals, metadata, draws)  # its optimizer state allocated
+    w.pre_encoded = True
+    pre_s = timed_train_step(w, latents, metadata, draws)
+    w.pre_encoded = False
+    raw_s = timed_train_step(w, reals, metadata, draws)
+    log(f"  a whole training step (conditioners, encode, DiT forward + backward, AdamW, EMA) at "
+        f"batch {TRAIN_BATCH}, {len(model.model.transformer.layers)} layers: from pre-encoded "
+        f"latents {pre_s:.4f} s, from raw audio "
+        f"{raw_s:.4f} s (the frozen encode {raw_s - pre_s:.4f} s of it); card {smi_line()}")
+    del w
+
+    with torch.no_grad():
+        clip = reals[:1]
+        before = model.pretransform.encode_nwc(clip)
+        remove_weight_norm_(model.pretransform.model)
+        reset_counts()
+        after = model.pretransform.encode_nwc(clip)
+        fold_counts = read_counts()
+    fold_err = rel_err(after, before)
+    log(f"  the VAE's weight norm folded: encode rel-L2 against the unfolded one {fold_err:.3g} "
+        f"(tol {FP32_MODEL_RTOL}), launches {({k: v for k, v in fold_counts.items() if v})}")
+    if not (fold_err <= FP32_MODEL_RTOL and fold_counts["fused_residual_unit_f32"] > 0):
+        raise AssertionError("the folded VAE's encode disagrees or left the kernels")
+    del model, latents, before, after
+    torch.cuda.empty_cache()
+
+    inp_config = inpaint_variant(config)
+    model = build_model(inp_config)
+    w = wrapper(model, cls=DiffusionCondInpaintTrainingWrapper)
+    draws["keep_mask"] = w.random_mask(TRAIN_BATCH, draws["noise"].shape[1])
+    log(f"  inpaint keep masks: {[round(float(r.float().mean()), 3) for r in draws['keep_mask']]} "
+        f"of each clip kept")
+    counts["option_inpaint"] = held_option_step(
+        f"inpaint (input_concat_dim {inp_config['model']['diffusion']['config']['input_concat_dim']})",
+        w, reals, metadata, draws, per_step)
+    del w, model, reals
+    torch.cuda.empty_cache()
+    return counts
+
+
+def training_demo_phase(config, tmp):
+    """[18b] The train entry point on SAO 1.0 (TRAIN_DEPTH layers): 2 steps
+    with the config's demo every 2 steps (one demo, DEMO_CFG_SCALES,
+    DEMO_STEPS sampler steps: cut from the config's 250),
+    `--remove-pretransform-weight-norm post_load` and `--profile-dir` over
+    step 2. Holds the demo's wavs, the folded VAE, the trace and the exact
+    launches (2 steps' and the demo's); returns (train counts, demo
+    counts)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import train
+    from friendly_stable_audio_tools_tpu_torch.training.demos import DiffusionCondDemoCallback
+
+    cfg = at_depth(config, TRAIN_DEPTH)
+    cfg["training"]["demo"].update(demo_every=2, demo_steps=DEMO_STEPS, num_demos=1,
+                                   demo_cfg_scales=DEMO_CFG_SCALES, demo_cond=[PROMPT])
+    cfg["training"]["checkpoint"]["every_n_train_steps"] = 1000
+    log(f"  the demo: {DEMO_STEPS} dpmpp-3m-sde steps (cut from the config's "
+        f"{config['training']['demo']['demo_steps']}), cfg scales {DEMO_CFG_SCALES}, one prompt")
+    args = train_args(cfg, tmp, "options", OPTION_WAVS, WAV_SECONDS)
+    prof = Path(tmp) / "profile"
+    demo_counts, demo_wall = {}, []
+    run_demo = DiffusionCondDemoCallback.run_demo
+
+    def counted(self, trainer, step, batch):
+        before = read_counts()
+        start = time.perf_counter()
+        run_demo(self, trainer, step, batch)
+        torch.cuda.synchronize()
+        demo_wall.append(time.perf_counter() - start)
+        demo_counts.update({k: v - before[k] for k, v in read_counts().items()})
+
+    with patched([(DiffusionCondDemoCallback, "run_demo", counted)]):
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", "2", "--remove-pretransform-weight-norm",
+                                     "post_load", "--profile-dir", str(prof),
+                                     "--profile-start-step", "1", "--profile-steps", "1"])
+        total = time.perf_counter() - start
+        counts = read_counts()
+    samples = Path(trainer.save_dir) / "samples" / "2"
+    wavs = sorted(p.name for p in samples.glob("*.wav")) if samples.is_dir() else []
+    want_wavs = sorted([f"demo_cfg{s}_0.wav" for s in DEMO_CFG_SCALES] + ["pretransform_recon.wav"])
+    names = [n for n, _ in trainer.wrapper.model.pretransform.named_parameters()]
+    folded = any(n.endswith(".kernel") for n in names) and not any(
+        n.endswith((".v", ".g")) for n in names)
+    traces = sorted(prof.glob("*.json")) if prof.is_dir() else []
+    trace_mb = traces[0].stat().st_size / 2**20 if traces else 0.0
+    step = trainer.wrapper.step
+    del trainer
+    torch.cuda.empty_cache()
+    per_step = launches_per_step(cfg, "pair")
+    want = {k: 2 * v + demo_counts.get(k, 0) for k, v in per_step.items()}
+    k1 = demo_counts.get("fused_qkv_rope_attention", 0)
+    log(f"  2 steps + the demo in {total:.1f} s (the demo {demo_wall[0] if demo_wall else 0:.2f} s); "
+        f"wavs {wavs}; VAE folded {folded}; trace {[t.name for t in traces]} {trace_mb:.1f} MiB")
+    log(f"  the demo's launches: K1 {k1}, K10a {demo_counts.get('rope_pair_k', 0)}, fp32 K2 "
+        f"{demo_counts.get('snake_conv1d_f32', 0)} thin + "
+        f"{demo_counts.get('snake_conv1d_wide_f32', 0)} wide, fp32 K3 "
+        f"{demo_counts.get('fused_residual_unit_f32', 0)}, fp32 K4 "
+        f"{demo_counts.get('snake_conv_transpose1d_f32', 0)}; the run's {counts}")
+    if not (step == 2 and wavs == want_wavs and folded and traces and trace_mb > 0):
+        raise AssertionError("the train CLI's demo, weight-norm fold or profile window is missing")
+    if not (k1 > 0 and k1 % TRAIN_DEPTH == 0 and demo_counts.get("rope_pair_k") == k1
+            and demo_counts.get("snake_conv_transpose1d_f32", 0) > 0
+            and demo_counts.get("fused_residual_unit_f32", 0) > 0):
+        raise AssertionError(f"the demo did not run the generation and decode kernels: {demo_counts}")
+    if counts != want:
+        raise AssertionError(f"the run launched {counts}, not 2 steps' and the demo's {want}")
+    return counts, demo_counts
+
+
+
 def main():
     import torch
 
@@ -4551,7 +4878,7 @@ def main():
     torch.cuda.empty_cache()
     done("[8]")
 
-    # phases 6b and 9 write ~4.6 GB (SA 2.0's de-zeroed DiT and 8 WAVs)
+    # phases 6b and 9 write ~4.2 GB (SA 2.0's de-zeroed DiT and 4 WAVs)
     log(f"[6b] one SA 2.0 DiT training step at batch {TRAIN_BATCH}, T {LONG_T} kv_len {LONG_KV} "
         f"({TRAIN_DEPTH} of the DiT's 24 layers): K7/K9 vs their fp32 plain versions vs the bf16 "
         f"K5/K6 route")
@@ -4686,6 +5013,16 @@ def main():
         counts_recon = ae_reconstruct_phase(ae_config, tmp)
     done("[17]")
 
+    log(f"[18] the diffusion trainer's options on SAO 1.0's fp32 DiT (24 layers, batch "
+        f"{TRAIN_BATCH}, 1024 latent frames, fixed draws): pre-encoded, logit-normal, rectified "
+        f"flow, mask_padding and the inpaint variant, each against the plain versions; whole steps "
+        f"from latents and from audio; the weight-norm fold; then the train CLI "
+        f"({TRAIN_DEPTH} layers) with a demo, the fold and the profiler")
+    counts_options = training_options_phase(config)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        counts_opt_train, counts_demo = training_demo_phase(config, tmp)
+    done("[18]")
+
     by_path = {"generate": launches, "generate_fused_mlp": launches_fused,
                "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
@@ -4699,7 +5036,8 @@ def main():
                "sa2_xl_forward_bf16": counts_xl16, **counts_init,
                "ae_generator_step": counts_ae_step, "train_ae": counts_ae,
                "train_ae_resume": counts_ae_resume, **counts_ae_other,
-               "reconstruct_ae": counts_recon}
+               "reconstruct_ae": counts_recon, **counts_options,
+               "train_options_cli": counts_opt_train}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]

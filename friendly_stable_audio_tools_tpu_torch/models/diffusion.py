@@ -5,7 +5,11 @@ Holds the diffusion backbone (`model`: the DiT, or Stable Audio 1.0's ADP
 U-Net `adp_cfg_1d`), the conditioners (`conditioner`) and the frozen
 pretransform (`pretransform`) as submodules, and maps conditioner outputs
 onto the backbone's inputs by conditioning id: cross-attention tokens are
-concatenated over the sequence, global conditions over channels."""
+concatenated over the sequence, global conditions over channels, the DiT's
+input-concat conditions over channels and its prepend conditions (with
+their masks) over the sequence. The `diffusion_cond_inpaint` model type is
+the same wrapper, its DiT taking the inpaint mask and the masked latents
+as input-concat conditions (`input_concat_ids`)."""
 
 from __future__ import annotations
 
@@ -55,7 +59,9 @@ class ConditionedDiffusionModelWrapper(nn.Module):
                  io_channels: int, pretransform: tp.Optional[AutoencoderPretransform] = None,
                  cross_attn_cond_ids: tp.Sequence[str] = (),
                  global_cond_ids: tp.Sequence[str] = (), diffusion_objective: str = "v",
-                 sample_rate: tp.Optional[int] = None):
+                 sample_rate: tp.Optional[int] = None,
+                 input_concat_ids: tp.Sequence[str] = (),
+                 prepend_cond_ids: tp.Sequence[str] = ()):
         super().__init__()
         self.model = model
         self.conditioner = conditioner
@@ -63,6 +69,8 @@ class ConditionedDiffusionModelWrapper(nn.Module):
         self.io_channels = io_channels
         self.cross_attn_cond_ids = list(cross_attn_cond_ids)
         self.global_cond_ids = list(global_cond_ids)
+        self.input_concat_ids = list(input_concat_ids)
+        self.prepend_cond_ids = list(prepend_cond_ids)
         self.diffusion_objective = diffusion_objective
         self.sample_rate = sample_rate  # init audio is resampled to it
 
@@ -90,19 +98,30 @@ class ConditionedDiffusionModelWrapper(nn.Module):
             return {"cross_attn_cond": cross, "cross_attn_mask": cross_mask,
                     "global_embed": global_cond}
         # the DiT ignores conditioning-token masks (reference dit.py:250-252)
-        return {"cross_attn_cond": cross, "global_embed": global_cond}
+        inputs = {"cross_attn_cond": cross, "global_embed": global_cond}
+        if self.input_concat_ids:
+            inputs["input_concat_cond"] = torch.cat(
+                [conditioning_tensors[key][0] for key in self.input_concat_ids], dim=-1)
+        if self.prepend_cond_ids:
+            inputs["prepend_cond"] = torch.cat(
+                [conditioning_tensors[key][0] for key in self.prepend_cond_ids], dim=1)
+            inputs["prepend_cond_mask"] = torch.cat(
+                [conditioning_tensors[key][1] for key in self.prepend_cond_ids], dim=1)
+        return inputs
 
 
 def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> ConditionedDiffusionModelWrapper:
-    """The `dit` and `adp_cfg_1d` backbones of a `diffusion_cond` config (JAX
-    diffusion.py:315)."""
+    """The `dit` and `adp_cfg_1d` backbones of a `diffusion_cond` or
+    `diffusion_cond_inpaint` config (JAX diffusion.py:315)."""
     model_config = config["model"]
     diffusion = model_config["diffusion"]
     backbones = {"dit": DiffusionTransformer, "adp_cfg_1d": UNetCFG1DWrapper}
     if diffusion["type"] not in backbones:
         raise NotImplementedError(f"diffusion type {diffusion['type']!r} is not in the torch port")
-    if diffusion.get("input_concat_ids") or diffusion.get("prepend_cond_ids"):
-        raise NotImplementedError("input-concat and prepend conditioning are not in the torch port")
+    if diffusion["type"] != "dit" and (diffusion.get("input_concat_ids")
+                                       or diffusion.get("prepend_cond_ids")):
+        raise NotImplementedError("the torch port takes input-concat and prepend conditioning "
+                                  "into the DiT only")
     conditioning = model_config.get("conditioning")
     pretransform = model_config.get("pretransform")
     return ConditionedDiffusionModelWrapper(
@@ -114,4 +133,6 @@ def create_diffusion_cond_from_config(config: tp.Dict[str, tp.Any]) -> Condition
         cross_attn_cond_ids=diffusion.get("cross_attention_cond_ids", []),
         global_cond_ids=diffusion.get("global_cond_ids", []),
         diffusion_objective=diffusion.get("diffusion_objective", "v"),
-        sample_rate=config.get("sample_rate"))
+        sample_rate=config.get("sample_rate"),
+        input_concat_ids=diffusion.get("input_concat_ids", []),
+        prepend_cond_ids=diffusion.get("prepend_cond_ids", []))

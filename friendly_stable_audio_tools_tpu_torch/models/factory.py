@@ -2,7 +2,8 @@
 friendly_stable_audio_tools_tpu/models/factory.py:17).
 
 Reads the JAX package's model-config JSON schema as it stands; the
-`diffusion_cond`, `lm` and `autoencoder` model types are ported."""
+`diffusion_cond` (and `diffusion_cond_inpaint`, the same wrapper), `lm`
+and `autoencoder` model types are ported."""
 
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
     if model_type is None:
         raise ValueError("model_type must be specified in model config")
     builders = {"diffusion_cond": create_diffusion_cond_from_config,
+                "diffusion_cond_inpaint": create_diffusion_cond_from_config,
                 "lm": create_audio_lm_from_config,
                 "autoencoder": create_autoencoder_from_config}
     if model_type not in builders:
@@ -49,7 +51,7 @@ def create_model_from_config(model_config: tp.Dict[str, tp.Any], seed: int = 0,
         model = builders[model_type](model_config)
     model = model.to_empty(device=device)
     init_weights_(model, torch.Generator(device=device).manual_seed(seed))
-    if model_type == "diffusion_cond":
+    if model_type in ("diffusion_cond", "diffusion_cond_inpaint"):
         with torch.no_grad():  # the JAX wrapper halves a fresh backbone (diffusion.py:103)
             for p in model.model.parameters():
                 p.mul_(0.5)

@@ -14,7 +14,10 @@ A stack built with `global_cond_dim` (the DiT's `global_cond_type="adaLN"`)
 modulates each block's norms and gates its residual branches from a global
 condition (TransformerBlock; the fused K11/K12 of ops/kernels/elementwise.py
 with `fused_ew`). In training mode with `grad_checkpointing` each block is
-recomputed in the backward pass (JAX transformer.py:619-627). Everything is
+recomputed in the backward pass (JAX transformer.py:619-627). A key mask
+[B, T] (the DiT's padding or prepend masks) sends the self-attention to
+the plain masked route, whose masked rows are zeroed (JAX :199-212,
+:298-301); mask-free calls keep the kernel routes above. Everything is
 channels-last [B, T, C].
 """
 
@@ -137,8 +140,11 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: tp.Optional[torch.Tensor] = None,
                 rotary_pos_emb: tp.Optional[torch.Tensor] = None,
                 kv_len: tp.Optional[int] = None,
-                kv_cache: tp.Optional[tp.Dict[str, tp.Any]] = None) -> torch.Tensor:
+                kv_cache: tp.Optional[tp.Dict[str, tp.Any]] = None,
+                mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = x.shape
+        if context is None and mask is not None:
+            return self._masked_self_attention(x, rotary_pos_emb, mask)
         if context is None and self.causal:
             q, k, v = (t.view(b, n, self.heads, self.dim_heads).transpose(1, 2)
                        for t in self.to_qkv(x).chunk(3, dim=-1))
@@ -165,6 +171,24 @@ class Attention(nn.Module):
         else:
             out = attention(q, k, v)
         return self.to_out(out.transpose(1, 2).reshape(b, n, self.dim))
+
+    def _masked_self_attention(self, x: torch.Tensor, rotary_pos_emb: tp.Optional[torch.Tensor],
+                               mask: torch.Tensor) -> torch.Tensor:
+        """Self-attention under a key mask [B, T] (True = valid; JAX :199-212,
+        :290-301): q and k roped in fp32 outside any kernel, the attention
+        through ops/attention.py's gate, which sends every masked call to the
+        plain path as the JAX gate sends it to `_xla_attention`, and the
+        masked positions' outputs zeroed after the projection."""
+        b, n, _ = x.shape
+        q, k, v = (t.view(b, n, self.heads, self.dim_heads).transpose(1, 2)
+                   for t in self.to_qkv(x).chunk(3, dim=-1))
+        if rotary_pos_emb is not None:
+            q = apply_rotary_pos_emb(q, rotary_pos_emb)
+            k = apply_rotary_pos_emb(k, rotary_pos_emb)
+        mask = mask.bool()
+        out = scaled_dot_product_attention(q, k, v, mask=mask, causal=self.causal)
+        out = self.to_out(out.transpose(1, 2).reshape(b, n, self.dim))
+        return torch.where(mask[:, :, None], out, torch.zeros_like(out))
 
 
 class TransformerBlock(nn.Module):
@@ -214,19 +238,21 @@ class TransformerBlock(nn.Module):
                 rotary_pos_emb: tp.Optional[torch.Tensor] = None, kv_len: tp.Optional[int] = None,
                 cross_cfg_skip: bool = False,
                 kv_cache: tp.Optional[tp.Dict[str, tp.Any]] = None,
-                global_cond: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                global_cond: tp.Optional[torch.Tensor] = None,
+                mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.global_cond_dim and global_cond is not None:
             ssg = self.to_scale_shift_gate(F.silu(global_cond))[:, None, :]
             scale_self, shift_self, gate_self, scale_ff, shift_ff, gate_ff = ssg.chunk(6, dim=-1)
             attn = self.self_attn(self.pre_norm(x, scale_shift=(scale_self, shift_self)),
-                                  rotary_pos_emb=rotary_pos_emb, kv_len=kv_len, kv_cache=kv_cache)
+                                  rotary_pos_emb=rotary_pos_emb, kv_len=kv_len, kv_cache=kv_cache,
+                                  mask=mask)
             x = elementwise.gated_residual(attn, gate_self, x, enabled=self.fused_ew)
             if context is not None:
                 x = x + self._cross(x, context, cross_cfg_skip)
             ff = self.ff(self.ff_norm(x, scale_shift=(scale_ff, shift_ff)))
             return elementwise.gated_residual(ff, gate_ff, x, enabled=self.fused_ew)
         x = x + self.self_attn(self.pre_norm(x), rotary_pos_emb=rotary_pos_emb, kv_len=kv_len,
-                               kv_cache=kv_cache)
+                               kv_cache=kv_cache, mask=mask)
         if context is not None:
             x = x + self._cross(x, context, cross_cfg_skip)
         return x + self.ff(self.ff_norm(x))
@@ -280,9 +306,16 @@ class ContinuousTransformer(nn.Module):
                 context: tp.Optional[torch.Tensor] = None,
                 cross_cfg_skip: bool = False,
                 kv_caches: tp.Optional[tp.List[tp.Dict[str, tp.Any]]] = None,
-                global_cond: tp.Optional[torch.Tensor] = None):
+                global_cond: tp.Optional[torch.Tensor] = None,
+                mask: tp.Optional[torch.Tensor] = None,
+                prepend_mask: tp.Optional[torch.Tensor] = None):
         """x [B, T, dim_in] -> [B, T, dim_out]; `global_cond` [B, dim] feeds
         every block's adaLN modulation (stacks built with `global_cond_dim`).
+        `mask` [B, T] and `prepend_mask` [B, P] (True = valid) mask the
+        self-attention's keys and zero its outputs at the masked positions;
+        with prepended tokens either one missing counts as all valid (JAX
+        :526-529). A masked stack never pads its sequence (JAX :571) and its
+        self-attention takes the plain route, as in the JAX package.
         With `kv_caches` (one static cache per layer, causal stacks only:
         models/lm_backbone.py:init_cache) the T tokens continue the cached
         sequence at the caches' index, their rotary angles sliced from a table
@@ -291,7 +324,13 @@ class ContinuousTransformer(nn.Module):
         if self.project_in is not None:
             x = self.project_in(x)
         if prepend_embeds is not None:
+            b, seq, n_pre = x.shape[0], x.shape[1], prepend_embeds.shape[1]
             x = torch.cat([prepend_embeds.to(x.dtype), x], dim=1)
+            if mask is not None or prepend_mask is not None:
+                def valid(m, n):
+                    return (torch.ones((b, n), dtype=torch.bool, device=x.device) if m is None
+                            else m.bool())
+                mask = torch.cat([valid(prepend_mask, n_pre), valid(mask, seq)], dim=1)
         rot_dim = min(max(self.dim_heads // 2, 32), self.dim_heads)
         if kv_caches is not None:
             if not self.causal:
@@ -309,7 +348,7 @@ class ContinuousTransformer(nn.Module):
         # the JAX package applies the rule off the CPU only; here the kernel
         # and its plain version both take kv_len, so it applies everywhere
         valid_len = x.shape[1]
-        padded = (None if self.causal else
+        padded = (None if self.causal or mask is not None else
                   seq_pad_length(valid_len, x.shape[0], self.dim_heads, self.dim // self.dim_heads))
         kv_len = None
         if padded is not None:
@@ -321,7 +360,7 @@ class ContinuousTransformer(nn.Module):
         remat = self.grad_checkpointing and self.training and torch.is_grad_enabled()
         for layer in self.layers:
             kw = dict(context=context, rotary_pos_emb=rot, kv_len=kv_len,
-                      cross_cfg_skip=cross_cfg_skip, global_cond=global_cond)
+                      cross_cfg_skip=cross_cfg_skip, global_cond=global_cond, mask=mask)
             x = checkpoint(layer, x, use_reentrant=False, **kw) if remat else layer(x, **kw)
         x = x[:, :valid_len]
         if self.project_out is not None:

@@ -1,5 +1,6 @@
 """Token sampling of the audio LM (counterpart of
-friendly_stable_audio_tools_tpu/models/utils.py:87-113).
+friendly_stable_audio_tools_tpu/models/utils.py:87-113), and the weight-norm
+fold of a model's convs (:func:`remove_weight_norm_`, JAX :59-80).
 
 `jax.random.categorical` draws argmax(logits + Gumbel noise); so does
 :func:`multinomial`, with the noise from an explicit `torch.Generator`. The
@@ -14,6 +15,7 @@ from __future__ import annotations
 import typing as tp
 
 import torch
+from torch import nn
 
 
 def gumbel(shape: tp.Sequence[int], generator: torch.Generator) -> torch.Tensor:
@@ -54,3 +56,17 @@ def sample_top_p(probs: torch.Tensor, p: float, generator: tp.Optional[torch.Gen
     probs_sort = probs_sort / probs_sort.sum(-1, keepdim=True)
     draw = multinomial(probs_sort, 1, generator, gumbel_noise)
     return sort_idx.gather(-1, draw)
+
+
+def remove_weight_norm_(model: nn.Module) -> nn.Module:
+    """Folds every weight-normed conv of `model` in place (ops/convs.py:
+    `fold_weight_norm_`): per output channel for a conv, per input channel
+    for a transposed conv, eps 1e-12, as the JAX package's
+    `remove_weight_norm_from_model` rewrites {v, g} into a kernel. The
+    convs' kernels then read the folded weight. Returns `model`."""
+    from ..ops.convs import WeightNormed
+
+    for m in model.modules():
+        if isinstance(m, WeightNormed):
+            m.fold_weight_norm_()
+    return model

@@ -24,6 +24,10 @@ causal set (the causal K7 with its LSE, then the causal K9; never K8, as in
 the JAX package, flash_attention.py:576), otherwise through the causal K7
 alone; its causal cross-attention (queries and conditioning tokens of
 different lengths) stays plain, with `_xla_attention`'s mask (:92-96).
+A key-masked self-attention (the DiT under `mask_padding` or a prepend
+mask, models/transformer.py) is plain too, wherever it runs: the JAX gate
+sends every masked call to `_xla_attention` (:57-64, :73-77), and no
+attention kernel (K1, K5, K6, K7) takes a mask.
 """
 
 from __future__ import annotations

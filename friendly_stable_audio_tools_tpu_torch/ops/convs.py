@@ -6,6 +6,9 @@ what the CUDA kernels read, so converted checkpoints need no transpose
 (torch's own Conv1d keeps `[Cout, Cin, k]`). Weight norm follows torch's
 `weight_norm(dim=0)`: the magnitude `g` is per OUTPUT channel for a conv and
 per INPUT channel for a transposed conv (whose dim 0 is in_channels).
+`fold_weight_norm_` replaces `v` and `g` by the plain weight they give
+(`kernel`, the same [k, Cin, Cout] layout; JAX models/utils.py:59-80, eps
+1e-12), which the kernels then read as before.
 
 The weight-normed convs run in the forms the Oobleck and SEANet codecs use:
 stride-1 'same' convs through the fused snake -> conv kernel K2,
@@ -73,7 +76,34 @@ class Conv1d(nn.Module):
         return x @ self.weight[0].to(x.dtype)
 
 
-class WNConv1d(nn.Module):
+class WeightNormed(nn.Module):
+    """The weight-norm parameters `v`, `g` and their fold into `kernel`."""
+
+    def _init_weight_norm(self, kernel_size: int, in_channels: int, out_channels: int,
+                          gains: int) -> None:
+        self.kernel_size = kernel_size
+        self.v = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels))
+        self.g = nn.Parameter(torch.empty(gains))
+        self.register_parameter("kernel", None)
+
+    def _normed(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def weight(self) -> torch.Tensor:
+        """The fp32 conv weight [k, Cin, Cout]."""
+        return self.kernel.float() if self.kernel is not None else self._normed()
+
+    @torch.no_grad()
+    def fold_weight_norm_(self) -> None:
+        """Replaces `v` and `g` by `kernel` = the weight they give, in v's dtype."""
+        if self.kernel is None:
+            self.kernel = nn.Parameter(self._normed().to(self.v.dtype),
+                                       requires_grad=self.v.requires_grad)
+            self.v = None
+            self.g = None
+
+
+class WNConv1d(WeightNormed):
     """Weight-normalised conv: w = g * v / ||v||_(k, in) per output channel.
     Stride 1 with 'same' padding (K2), or a strided conv with `padding`
     (default stride // 2): the encoders' downsample with kernel_size = 2 *
@@ -87,17 +117,16 @@ class WNConv1d(nn.Module):
         self.dilation = dilation
         self.stride = stride
         self.padding = stride // 2 if padding is None else padding
-        self.v = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels))
-        self.g = nn.Parameter(torch.empty(out_channels))
+        self._init_weight_norm(kernel_size, in_channels, out_channels, out_channels)
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
 
-    def weight(self) -> torch.Tensor:
+    def _normed(self) -> torch.Tensor:
         v = self.v.float()
         return v * (self.g.float() / (v.square().sum(dim=(0, 1)).sqrt() + 1e-12))
 
     def forward(self, x: torch.Tensor, snake: tp.Optional[tp.Tuple] = None) -> torch.Tensor:
         alpha, inv_beta = snake if snake is not None else (None, None)
-        s, k = self.stride, self.v.shape[0]
+        s, k = self.stride, self.kernel_size
         if s > 1 and s % 2 == 0 and k == 2 * s and self.padding == s // 2 and x.shape[1] % s == 0:
             return snake_downsample_conv1d(x, self.weight(), self.bias, alpha, inv_beta, s)
         if s > 1:
@@ -111,7 +140,7 @@ class WNConv1d(nn.Module):
                                          dilation=self.dilation)
 
 
-class WNConvTranspose1d(nn.Module):
+class WNConvTranspose1d(WeightNormed):
     """Weight-normalised ConvTranspose1d, norm per input channel: k = 2s,
     stride s, padding s/2 at an even s through K4; any other kernel size,
     padding or odd stride (the SEANet decoder's stride 5) as a plain
@@ -123,17 +152,16 @@ class WNConvTranspose1d(nn.Module):
         self.stride = stride
         self.padding = stride // 2 if padding is None else padding
         kernel_size = 2 * stride if kernel_size is None else kernel_size
-        self.v = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels))
-        self.g = nn.Parameter(torch.empty(in_channels))
+        self._init_weight_norm(kernel_size, in_channels, out_channels, in_channels)
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
 
-    def weight(self) -> torch.Tensor:
+    def _normed(self) -> torch.Tensor:
         v = self.v.float()
         return v * (self.g.float() / (v.square().sum(dim=(0, 2)).sqrt() + 1e-12))[None, :, None]
 
     def forward(self, x: torch.Tensor, snake: tp.Optional[tp.Tuple] = None) -> torch.Tensor:
         alpha, inv_beta = snake if snake is not None else (None, None)
-        s, k = self.stride, self.v.shape[0]
+        s, k = self.stride, self.kernel_size
         if s % 2 == 0 and k == 2 * s and self.padding == s // 2:
             return conv_kernels.snake_conv_transpose1d(x, self.weight(), self.bias, alpha,
                                                        inv_beta, stride=s)

@@ -34,7 +34,15 @@ Without `--pretrained-ckpt-path` the weights are random, drawn from
 `<save-dir>/<name>/<run id>/checkpoints/step_<n>/`; `--ckpt-path` resumes
 from one. Multi-device training (`--num-chips` > 1, `--num-nodes` > 1,
 `--strategy fsdp`) is not ported and raises. Metrics go to the console, or
-to wandb when `WANDB_API_KEY` is set.
+to wandb when `WANDB_API_KEY` is set. A config's `training.demo` section
+sets the demo callback (training/demos.py: wavs under
+`<save-dir>/<name>/<run id>/samples/<step>/`).
+`--remove-pretransform-weight-norm pre_load|post_load` folds the VAE's
+weight norm into plain weights before or after `--pretransform-ckpt-path`
+loads (models/utils.py:remove_weight_norm_; a checkpoint loaded after a
+pre_load fold must hold the folded weights). `--profile-dir` writes a
+torch.profiler Chrome trace of steps [`--profile-start-step`, +
+`--profile-steps`).
 """
 
 from __future__ import annotations
@@ -69,15 +77,15 @@ def main(argv=None):
     if args.num_nodes > 1 or args.num_chips > 1 or args.strategy == "fsdp":
         raise NotImplementedError("multi-device training is not in the torch port: "
                                   "run with --num-nodes 1 --num-chips 0|1 --strategy dp")
-    for flag in ("remove_pretransform_weight_norm", "profile_dir"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not in the torch port")
+    if args.remove_pretransform_weight_norm not in ("", "pre_load", "post_load"):
+        raise ValueError("--remove-pretransform-weight-norm takes pre_load or post_load")
 
     import numpy as np
     import torch
 
     from .data.dataset import create_dataloader_from_config
     from .models.factory import create_model_from_config
+    from .models.utils import remove_weight_norm_
     from .training.factory import (
         create_demo_callback_from_config,
         create_training_wrapper_from_config,
@@ -110,9 +118,14 @@ def main(argv=None):
     if args.pretrained_ckpt_path:
         print(f"->->-> Loading a pretrained checkpoint from {args.pretrained_ckpt_path}...")
         _load_into(model, args.pretrained_ckpt_path, "pretrained checkpoint")
-    if args.pretransform_ckpt_path and getattr(model, "pretransform", None) is not None:
+    pretransform = getattr(model, "pretransform", None)
+    if args.remove_pretransform_weight_norm == "pre_load" and pretransform is not None:
+        remove_weight_norm_(pretransform.model)
+    if args.pretransform_ckpt_path and pretransform is not None:
         print(f"->->-> Loading a pretransform checkpoint from {args.pretransform_ckpt_path}...")
-        _load_into(model.pretransform.model, args.pretransform_ckpt_path, "pretransform checkpoint")
+        _load_into(pretransform.model, args.pretransform_ckpt_path, "pretransform checkpoint")
+    if args.remove_pretransform_weight_norm == "post_load" and pretransform is not None:
+        remove_weight_norm_(pretransform.model)
 
     training_wrapper = create_training_wrapper_from_config(model_config, model)
     logger = ExperimentLogger(project=args.name, config={"model_config": model_config,
@@ -135,7 +148,8 @@ def main(argv=None):
         demo_callback=demo_callback, logger=logger, max_steps=args.max_steps or None,
         accum_batches=args.accum_batches,
         log_every=model_config["training"].get("logging", {}).get("log_every", 1),
-        gradient_clip_val=args.gradient_clip_val)
+        gradient_clip_val=args.gradient_clip_val, profile_dir=args.profile_dir or None,
+        profile_start_step=int(args.profile_start_step), profile_steps=int(args.profile_steps))
     trainer.fit(ckpt_path=args.ckpt_path or None, seed=seed)
     return trainer
 

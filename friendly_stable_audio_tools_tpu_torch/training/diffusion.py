@@ -1,16 +1,28 @@
 """Conditioned diffusion training (counterpart of
-friendly_stable_audio_tools_tpu/training/diffusion.py:DiffusionCondTrainingWrapper :84-390).
+friendly_stable_audio_tools_tpu/training/diffusion.py:DiffusionCondTrainingWrapper
+:84-390 and DiffusionCondInpaintTrainingWrapper :491-567).
 
 One step: conditioner embeddings (trainable number or int conditioners,
 frozen T5 or CLAP), frozen VAE encode of the raw audio (posterior mean,
-under torch.no_grad()), v-objective noising at quasi-random timesteps, the
-backbone's forward with CFG dropout and backward (the DiT, or Stable Audio
-1.0's ADP U-Net), then the optimizer (AdamW + InverseLR, or the Adam of a
-config that sets only `learning_rate`) and the EMA of the backbone's
-parameters. Gradient accumulation splits the batch into micro-batches whose
-gradients average into one update. Every random draw comes from the
-wrapper's `torch.Generator`; the tests pass the draws in instead
-(`draws=`), since the two frameworks' random streams differ.
+under torch.no_grad(); skipped with `pre_encoded`, whose batches hold
+latents, divided by the pretransform's scale), noising at quasi-random
+uniform or logit-normal timesteps under the v or the rectified-flow
+objective, the backbone's forward with CFG dropout and backward (the DiT,
+or Stable Audio 1.0's ADP U-Net), then the optimizer (AdamW + InverseLR,
+or the Adam of a config that sets only `learning_rate`) and the EMA of the
+backbone's parameters. With `mask_padding` the metadata's padding masks
+(resampled to the latent rate) mask the DiT's self-attention and the loss,
+unless the padding-mask dropout drops them for the step; `log_loss_info`
+adds the loss per eighth of the sigma range. Gradient accumulation splits
+the batch into micro-batches whose gradients average into one update.
+Every random draw comes from the wrapper's `torch.Generator`; the tests
+pass the draws in instead (`draws=`), since the two frameworks' random
+streams differ.
+
+The inpaint wrapper encodes once, draws a keep mask per element (random
+segments, everything, or a suffix to regenerate) and feeds the mask and
+the masked latents to the DiT as the `inpaint_mask` and
+`inpaint_masked_input` input-concat conditions.
 """
 
 from __future__ import annotations
@@ -49,24 +61,61 @@ def quasirandom_uniform(counter: int, n: int, shift: torch.Tensor) -> torch.Tens
     return torch.remainder(vdc + shift.float(), 1.0)
 
 
+def draw_timesteps(sampler: str, batch: int, qmc_counter: int, generator: torch.Generator,
+                   device: torch.device) -> torch.Tensor:
+    """[batch] timesteps in [0, 1) (JAX :68-74): "uniform" the rotated
+    quasi-random sequence, "logit_normal" sigmoid of standard normals."""
+    if sampler == "uniform":
+        shift = torch.rand((), generator=generator, device=device)
+        return quasirandom_uniform(qmc_counter, batch, shift)
+    if sampler == "logit_normal":
+        return torch.sigmoid(torch.randn(batch, generator=generator, device=device))
+    raise ValueError(f"Unknown timestep sampler {sampler}")
+
+
+def nearest_interp_mask(mask: torch.Tensor, length: int) -> torch.Tensor:
+    """[B, T] -> [B, length] by nearest interpolation (JAX :77-81)."""
+    idx = (torch.arange(length, device=mask.device) * mask.shape[1]) // length
+    return mask[:, idx]
+
+
+def padding_mask_from_metadata(metadata: tp.Sequence[dict]) -> tp.Optional[torch.Tensor]:
+    """The loader's per-sample padding masks stacked into [B, T] bool, or
+    None where the metadata carries none (JAX prepare_batch :365-367)."""
+    if not metadata or "padding_mask" not in metadata[0]:
+        return None
+    return torch.stack([torch.as_tensor(md["padding_mask"]).reshape(-1) for md in metadata]).bool()
+
+
 class DiffusionCondTrainingWrapper:
     """Owns the trainable/frozen split, the optimizer, the schedule, the EMA
-    and the step and quasi-random counters of one `diffusion_cond` model
-    trained from raw audio with the v objective and quasi-random uniform
-    timesteps (the settings of the Stable Audio configs).
+    and the step and quasi-random counters of one `diffusion_cond` model,
+    with the JAX wrapper's options (`mask_padding`, `mask_padding_dropout`,
+    `log_loss_info`, `pre_encoded`, `timestep_sampler`) and the model's
+    objective (`v` or `rectified_flow`).
 
     Trainable: the backbone and every conditioner whose `trainable` is not
     False (the JAX package's `Conditioner.trainable`: T5 is frozen, CLAP
     unless `finetune`); frozen: those and the pretransform."""
 
     def __init__(self, model, lr: tp.Optional[float] = None, use_ema: bool = True,
-                 optimizer_configs: tp.Optional[dict] = None, cfg_dropout_prob: float = 0.1):
+                 optimizer_configs: tp.Optional[dict] = None, cfg_dropout_prob: float = 0.1,
+                 mask_padding: bool = False, mask_padding_dropout: float = 0.0,
+                 log_loss_info: bool = False, pre_encoded: bool = False,
+                 timestep_sampler: str = "uniform"):
         if lr is None and optimizer_configs is None:
             raise ValueError("Must specify either lr or optimizer_configs in training config")
-        if model.diffusion_objective != "v" or model.pretransform is None:
-            raise NotImplementedError("the torch port trains the v objective through a pretransform")
+        if model.diffusion_objective not in ("v", "rectified_flow"):
+            raise ValueError(model.diffusion_objective)
+        if timestep_sampler not in ("uniform", "logit_normal"):
+            raise ValueError(f"Unknown timestep sampler {timestep_sampler}")
         self.model = model
         self.cfg_dropout_prob = cfg_dropout_prob
+        self.mask_padding = mask_padding
+        self.mask_padding_dropout = mask_padding_dropout
+        self.log_loss_info = log_loss_info
+        self.pre_encoded = pre_encoded
+        self.timestep_sampler = timestep_sampler
         self.gradient_clip_val = 0.0
 
         model.requires_grad_(False)
@@ -83,7 +132,8 @@ class DiffusionCondTrainingWrapper:
         self.optimizer, self.scheduler = build_optimizer(optimizer_configs["diffusion"],
                                                          list(self.trainable.values()))
         self.ema = [p.detach().clone() for p in self.dit_params] if use_ema else None
-        self.losses = MultiLoss([MSELoss("output", "targets", name="mse_loss")])
+        self.losses = MultiLoss([MSELoss("output", "targets", name="mse_loss",
+                                         mask_key="padding_mask" if mask_padding else None)])
         self.step = 0
         self.qmc_counter = 0
         self.generator = torch.Generator(device=self.device).manual_seed(0)
@@ -97,32 +147,73 @@ class DiffusionCondTrainingWrapper:
 
     # ---- the step ---------------------------------------------------------
 
+    def latents(self, reals: torch.Tensor) -> torch.Tensor:
+        """The diffusion input of a batch: the frozen encode of raw audio, or
+        with `pre_encoded` the batch's latents over the pretransform's scale
+        (JAX :231-242); a model without a pretransform diffuses `reals`."""
+        pt = self.model.pretransform
+        if pt is None:
+            return reals
+        if not self.pre_encoded:
+            return pt.encode_nwc(reals)
+        return reals / pt.scale if pt.scale != 1.0 else reals
+
     def loss(self, reals: torch.Tensor, metadata: tp.Sequence[dict], qmc_counter: int = 0,
-             draws: tp.Optional[dict] = None):
-        """reals [B, T, C] audio -> (loss, metrics). `draws` may hold "t" [B],
-        "noise" (the latents' shape) and "cfg_dropout_mask" [B] in place of
-        the generator's draws."""
+             draws: tp.Optional[dict] = None, extra_cond: tp.Optional[dict] = None,
+             encoded: bool = False):
+        """reals [B, T, C] audio (latents with `pre_encoded`, or the
+        diffusion input itself with `encoded`) -> (loss, metrics). `draws`
+        may hold "t" [B], "noise" (the latents' shape), "cfg_dropout_mask"
+        [B], "prepend_cfg_dropout_mask" [B] and "padding_dropout" (a bool:
+        whether this step drops the padding mask) in place of the
+        generator's draws. `extra_cond` adds conditioning tensors by id
+        (the inpaint wrapper's)."""
         draws = draws or {}
         model, dev = self.model, self.device
         cond = model.conditioner(metadata, device=dev) if model.conditioner is not None else {}
-        x = model.pretransform.encode_nwc(reals.to(dev))
+        cond.update(extra_cond or {})
+        reals = reals.to(dev)
+        x = reals if encoded else self.latents(reals)
+        mask = padding_mask_from_metadata(metadata) if self.mask_padding else None
+        if mask is not None:
+            mask = mask.to(dev)
+            if model.pretransform is not None and not (encoded or self.pre_encoded):
+                mask = nearest_interp_mask(mask, x.shape[1])
         t = draws.get("t")
         if t is None:
-            shift = torch.rand((), generator=self.generator, device=dev)
-            t = quasirandom_uniform(qmc_counter, x.shape[0], shift)
+            t = draw_timesteps(self.timestep_sampler, x.shape[0], qmc_counter, self.generator, dev)
         t = t.to(dev).float()
-        alphas, sigmas = (v[:, None, None] for v in get_alphas_sigmas(t))
+        if model.diffusion_objective == "v":
+            alphas, sigmas = get_alphas_sigmas(t)
+        else:
+            alphas, sigmas = 1 - t, t
+        alphas, sigmas = alphas[:, None, None], sigmas[:, None, None]
         noise = draws.get("noise")
         if noise is None:
             noise = torch.randn(x.shape, generator=self.generator, device=dev)
         noise = noise.to(dev).float()
+        if mask is not None and self.mask_padding_dropout > 0:
+            drop = draws.get("padding_dropout")
+            if drop is None:
+                drop = torch.rand((), generator=self.generator, device=dev) < self.mask_padding_dropout
+            mask = mask | torch.as_tensor(drop, device=dev)
+        x = x.float()
+        inputs = model.get_conditioning_inputs(cond) if cond else {}
         output = model.model(x * alphas + noise * sigmas, t,
                              cfg_dropout_prob=self.cfg_dropout_prob,
                              cfg_dropout_mask=draws.get("cfg_dropout_mask"),
                              generator=self.generator,
-                             **(model.get_conditioning_inputs(cond) if cond else {}))
-        loss, losses = self.losses({"output": output, "targets": noise * alphas - x * sigmas})
-        return loss, {**{k: v.detach() for k, v in losses.items()}, "std_data": x.std()}
+                             **({"prepend_cfg_dropout_mask": draws.get("prepend_cfg_dropout_mask")}
+                                if "prepend_cond" in inputs else {}),
+                             **({"mask": mask} if mask is not None else {}),
+                             **inputs)
+        targets = noise * alphas - x * sigmas if model.diffusion_objective == "v" else noise - x
+        loss, losses = self.losses({"output": output, "targets": targets, "padding_mask": mask})
+        metrics = {**{k: v.detach() for k, v in losses.items()},
+                   "std_data": x.std(unbiased=False)}
+        if self.log_loss_info:
+            metrics.update(sigma_bucket_losses(output.detach(), targets, sigmas.flatten()))
+        return loss, metrics
 
     def train_step(self, reals: torch.Tensor, metadata: tp.Sequence[dict], accum: int = 1,
                    draws: tp.Optional[tp.Sequence[dict]] = None) -> tp.Dict[str, float]:
@@ -188,6 +279,74 @@ class DiffusionCondTrainingWrapper:
         sd = {f"model.{n}": v for n, v in zip(names, dit)}
         sd.update({n: p.detach() for n, p in self.trainable.items() if not n.startswith("model.")})
         torch.save(sd, path)
+
+
+N_SIGMA_BUCKETS = 8
+
+
+@torch.no_grad()
+def sigma_bucket_losses(output: torch.Tensor, targets: torch.Tensor,
+                        sigmas: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
+    """`log_loss_info`'s diagnostics (JAX :281-294): each element's MSE,
+    averaged within each of eight equal sigma buckets (0 where a bucket is
+    empty), keyed by the bucket's lower edge."""
+    mse = (output.float() - targets.float()).square().mean(dim=(1, 2))
+    bucket = (sigmas.float() * N_SIGMA_BUCKETS).to(torch.int64).clamp(0, N_SIGMA_BUCKETS - 1)
+    out = {}
+    for i in range(N_SIGMA_BUCKETS):
+        hit = bucket == i
+        out[f"loss_sigma_{i / N_SIGMA_BUCKETS:.3f}"] = (
+            torch.where(hit, mse, torch.zeros_like(mse)).sum() / hit.sum().clamp_min(1))
+    return out
+
+
+class DiffusionCondInpaintTrainingWrapper(DiffusionCondTrainingWrapper):
+    """The `diffusion_cond_inpaint` trainer (JAX :491-567): the diffusion
+    input is encoded once (or read pre-encoded), a keep mask [B, L] drawn
+    per element by :meth:`random_mask` (1 = keep, 0 = regenerate), and the
+    mask [B, L, 1] and the masked latents [B, L, C] join the conditioning
+    as `inpaint_mask` and `inpaint_masked_input`, which the model's
+    `input_concat_ids` feed to the DiT. The keep mask is injectable as the
+    draw "keep_mask"."""
+
+    def __init__(self, model, max_mask_segments: int = 10, **kwargs):
+        super().__init__(model, **kwargs)
+        self.max_mask_segments = max_mask_segments
+
+    def random_mask(self, batch: int, length: int) -> torch.Tensor:
+        """[B, L] bool keep masks, one kind per element drawn uniformly
+        (JAX :500-532): 0, 1 to `max_mask_segments` segments regenerated,
+        each of a length uniform in 1 .. L // segments at a uniform start
+        (drawn with replacement); 1, everything regenerated; 2, a suffix of
+        a length uniform in 1 .. L regenerated."""
+        g, dev, n_max = self.generator, self.device, self.max_mask_segments
+        kind = torch.randint(0, 3, (batch,), generator=g, device=dev)
+        n_seg = torch.randint(1, n_max + 1, (batch, 1), generator=g, device=dev)
+        max_len = (length // n_seg).clamp_min(1)
+        lens = 1 + torch.floor(torch.rand((batch, n_max), generator=g, device=dev) * max_len).long()
+        starts = torch.floor(torch.rand((batch, n_max), generator=g, device=dev)
+                             * (length - lens + 1)).long()
+        active = torch.arange(n_max, device=dev)[None, :] < n_seg
+        pos = torch.arange(length, device=dev)[None, None, :]
+        regen = ((pos >= starts[..., None]) & (pos < (starts + lens)[..., None])
+                 & active[..., None]).any(dim=1)
+        suffix = torch.randint(1, length + 1, (batch, 1), generator=g, device=dev)
+        causal_keep = torch.arange(length, device=dev)[None, :] < (length - suffix)
+        kind = kind[:, None]
+        return torch.where(kind == 0, ~regen,
+                           torch.where(kind == 1, torch.zeros_like(regen), causal_keep))
+
+    def loss(self, reals: torch.Tensor, metadata: tp.Sequence[dict], qmc_counter: int = 0,
+             draws: tp.Optional[dict] = None, extra_cond=None, encoded: bool = False):
+        draws = draws or {}
+        x = self.latents(reals.to(self.device)).float()
+        keep = draws.get("keep_mask")
+        keep = (self.random_mask(x.shape[0], x.shape[1]) if keep is None
+                else keep.to(self.device).bool())
+        valid = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        inpaint = {"inpaint_mask": (keep[:, :, None].float(), valid),
+                   "inpaint_masked_input": (x * keep[:, :, None], valid)}
+        return super().loss(x, metadata, qmc_counter, draws, extra_cond=inpaint, encoded=True)
 
 
 @torch.no_grad()

@@ -2,20 +2,23 @@
 friendly_stable_audio_tools_tpu/training/factory.py). The port trains the
 `diffusion_cond` model type (the `diffusion_cond` branch, :67-82) with
 either backbone (the DiT of Stable Audio Open and 2.0, the ADP U-Net of
-Stable Audio 1.0) and the settings their configs use, and the `lm` model
-type (the `lm` branch, :115-124) from raw audio, and the `autoencoder`
-model type by AE-GAN training (the `autoencoder` branch, :17-55); the other
-trainers, the demo callbacks and the training options below raise
-NotImplementedError."""
+Stable Audio 1.0) and every option of the JAX wrapper, the
+`diffusion_cond_inpaint` type (:83-96), the `lm` model type (the `lm`
+branch, :115-124) from raw audio, and the `autoencoder` model type by
+AE-GAN training (the `autoencoder` branch, :17-55). The other trainers
+(`diffusion_uncond`, `diffusion_prior`, `diffusion_autoencoder`) and
+their demos raise NotImplementedError (ROADMAP queue A 7)."""
 
 from __future__ import annotations
 
 import torch
 
-# training-config keys of the JAX wrapper that the port does not take, with
-# the value that means "off"
-_NOT_PORTED = {"mask_padding": False, "mask_padding_dropout": 0.0, "log_loss_info": False,
-               "pre_encoded": False, "timestep_sampler": "uniform"}
+_NOT_PORTED = ("diffusion_uncond", "diffusion_prior", "diffusion_autoencoder")
+
+
+def _not_ported(model_type: str):
+    return NotImplementedError(f"model type {model_type!r} is not in the torch port yet "
+                               "(ROADMAP queue A 7)")
 
 
 def create_training_wrapper_from_config(model_config: dict, model):
@@ -25,7 +28,8 @@ def create_training_wrapper_from_config(model_config: dict, model):
         return _autoencoder_wrapper(model_config, model)
     if model_type == "lm":
         if training_config.get("pre_encoded", False):
-            raise NotImplementedError("training options not in the torch port: pre_encoded")
+            raise NotImplementedError("training options not in the torch port: pre_encoded "
+                                      "(LM training, ROADMAP queue A 6)")
         from .lm import AudioLanguageModelTrainingWrapper
 
         return AudioLanguageModelTrainingWrapper(
@@ -34,21 +38,29 @@ def create_training_wrapper_from_config(model_config: dict, model):
             use_ema=training_config.get("use_ema", False),
             optimizer_configs=training_config.get("optimizer_configs", None),
         )
-    if model_type != "diffusion_cond":
-        raise NotImplementedError(f"training model type {model_type!r} is not in the torch port")
-    set_ = {k: training_config[k] for k, off in _NOT_PORTED.items()
-            if training_config.get(k, off) != off}
-    if set_:
-        raise NotImplementedError(f"training options not in the torch port: {set_}")
-    from .diffusion import DiffusionCondTrainingWrapper
+    if model_type in _NOT_PORTED:
+        raise _not_ported(model_type)
+    if model_type not in ("diffusion_cond", "diffusion_cond_inpaint"):
+        raise NotImplementedError(f"Unknown model type: {model_type}")
+    from .diffusion import DiffusionCondInpaintTrainingWrapper, DiffusionCondTrainingWrapper
 
-    return DiffusionCondTrainingWrapper(
-        model,
+    common = dict(
         lr=training_config.get("learning_rate", None),
         use_ema=training_config.get("use_ema", True),
+        log_loss_info=training_config.get("log_loss_info", False),
         optimizer_configs=training_config.get("optimizer_configs", None),
+        pre_encoded=training_config.get("pre_encoded", False),
         cfg_dropout_prob=training_config.get("cfg_dropout_prob", 0.1),
+        timestep_sampler=training_config.get("timestep_sampler", "uniform"),
     )
+    if model_type == "diffusion_cond_inpaint":
+        return DiffusionCondInpaintTrainingWrapper(
+            model, max_mask_segments=training_config.get("max_mask_segments", 10), **common)
+    return DiffusionCondTrainingWrapper(
+        model,
+        mask_padding=training_config.get("mask_padding", False),
+        mask_padding_dropout=training_config.get("mask_padding_dropout", 0.0),
+        **common)
 
 
 def _autoencoder_wrapper(model_config: dict, model):
@@ -79,4 +91,34 @@ def _autoencoder_wrapper(model_config: dict, model):
 
 
 def create_demo_callback_from_config(model_config: dict, **kwargs):
-    raise NotImplementedError("training demos are not in the torch port yet")
+    """The demo callback of a model type (JAX :128-190), configured from
+    `training.demo`; training/demos.py."""
+    model_type = model_config["model_type"]
+    demo_config = model_config.get("training", {}).get("demo", {})
+    from . import demos
+
+    if model_type == "autoencoder":
+        return demos.AutoencoderDemoCallback(
+            demo_every=demo_config.get("demo_every", 2000),
+            max_num_sample=demo_config.get("max_num_sample", 4),
+            sample_size=model_config["sample_size"], sample_rate=model_config["sample_rate"],
+            **kwargs)
+    if model_type in ("diffusion_cond", "diffusion_cond_inpaint"):
+        return demos.DiffusionCondDemoCallback(
+            demo_every=demo_config.get("demo_every", 2000),
+            sample_size=model_config["sample_size"], sample_rate=model_config["sample_rate"],
+            demo_steps=demo_config.get("demo_steps", 250),
+            num_demos=demo_config.get("num_demos", 8),
+            demo_cfg_scales=demo_config.get("demo_cfg_scales", [3, 5, 7]),
+            demo_conditioning=demo_config.get("demo_cond", [{}]),
+            **kwargs)
+    if model_type == "lm":
+        return demos.AudioLanguageModelDemoCallback(
+            demo_every=demo_config.get("demo_every", 2000),
+            sample_size=model_config["sample_size"], sample_rate=model_config["sample_rate"],
+            demo_conditioning=demo_config.get("demo_cond", None),
+            num_demos=demo_config.get("num_demos", 8),
+            **kwargs)
+    if model_type in _NOT_PORTED:
+        raise _not_ported(model_type)
+    raise NotImplementedError(f"Unknown model type: {model_type}")

@@ -18,19 +18,11 @@ from __future__ import annotations
 
 import typing as tp
 
-import numpy as np
 import torch
 
-from .diffusion import clip_by_global_norm_
+from .diffusion import clip_by_global_norm_, nearest_interp_mask, padding_mask_from_metadata
 from .ema import ema_update_
 from .scheduler import build_optimizer
-
-
-def nearest_interp_mask(mask: torch.Tensor, length: int) -> torch.Tensor:
-    """[B, T] bool -> [B, length] by nearest interpolation (JAX
-    training/diffusion.py:_nearest_interp_mask)."""
-    idx = torch.arange(length, device=mask.device) * mask.shape[1] // length
-    return mask[:, idx]
 
 
 class AudioLanguageModelTrainingWrapper:
@@ -84,9 +76,9 @@ class AudioLanguageModelTrainingWrapper:
             codes = self.tokenize(reals)
         codes = codes.to(dev)
         b, k, t = codes.shape
-        if metadata and "padding_mask" in metadata[0]:
-            pm = np.stack([np.asarray(md["padding_mask"]).reshape(-1) for md in metadata])
-            token_mask = nearest_interp_mask(torch.as_tensor(pm.astype(bool), device=dev), t)
+        padding_mask = padding_mask_from_metadata(metadata)
+        if padding_mask is not None:
+            token_mask = nearest_interp_mask(padding_mask.to(dev), t)
         else:
             token_mask = torch.ones(b, t, dtype=torch.bool, device=dev)
         cond = lm.conditioner(metadata, device=dev) if lm.conditioner is not None else {}

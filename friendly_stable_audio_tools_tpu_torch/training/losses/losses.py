@@ -34,15 +34,27 @@ class L1Loss:
 
 
 class MSELoss:
-    """Weighted mean squared error in fp32 (the JAX module's padding mask is
-    not ported: training with `mask_padding` raises in the factory)."""
+    """Weighted mean squared error in fp32 (JAX :56-75). With `mask_key`
+    naming a mask in the info dict ([B, T] over channels-last [B, T, C],
+    True = counted), the loss is the sum over the kept elements divided by
+    their count (at least 1); a missing or None mask gives the plain mean."""
 
-    def __init__(self, key_a: str, key_b: str, weight: float = 1.0, name: str = "mse_loss"):
-        self.key_a, self.key_b = key_a, key_b
+    def __init__(self, key_a: str, key_b: str, weight: float = 1.0, name: str = "mse_loss",
+                 mask_key: tp.Optional[str] = None):
+        self.key_a, self.key_b, self.mask_key = key_a, key_b, mask_key
         self.weight, self.name = float(weight), name
 
     def __call__(self, info: tp.Dict[str, tp.Any]) -> torch.Tensor:
-        return self.weight * (info[self.key_a].float() - info[self.key_b].float()).square().mean()
+        sq = (info[self.key_a].float() - info[self.key_b].float()).square()
+        mask = info.get(self.mask_key) if self.mask_key is not None else None
+        if mask is None:
+            return self.weight * sq.mean()
+        mask = mask.bool()
+        if mask.dim() == 2 and sq.dim() == 3:
+            mask = mask[:, :, None]
+        mask = mask.expand_as(sq)
+        return self.weight * (torch.where(mask, sq, torch.zeros_like(sq)).sum()
+                              / mask.sum().clamp_min(1))
 
 
 class AuralossLoss:

@@ -5,8 +5,13 @@ Steps the wrapper over the data loader with gradient accumulation
 ahead of the optimizer, metrics logging every `log_every` steps, a
 checkpoint every `checkpoint_every` steps (directory `step_<n>/` holding
 `state.pt` from `torch.save` and `model_config.json`, plus a `last` link),
-resume from `ckpt_path`, and an optional demo callback. Single process,
-one device.
+resume from `ckpt_path`, an optional demo callback after every update
+(training/demos.py; a demo that raises prints its traceback and training
+goes on, JAX :203-209), and an optional profile window: with `profile_dir`,
+`torch.profiler` records steps [profile_start_step, profile_start_step +
+profile_steps) of this run (CPU, and CUDA where the model is on the card)
+and writes a Chrome trace there (JAX :61-66, :176-190, :217-220, which
+write a jax.profiler trace). Single process, one device.
 """
 
 from __future__ import annotations
@@ -28,8 +33,15 @@ class Trainer:
     def __init__(self, training_wrapper, dataloader, model_config: dict, save_dir: str = ".",
                  checkpoint_every: int = 10000, demo_callback=None,
                  logger: tp.Optional[ExperimentLogger] = None, max_steps: tp.Optional[int] = None,
-                 accum_batches: int = 1, log_every: int = 1, gradient_clip_val: float = 0.0):
+                 accum_batches: int = 1, log_every: int = 1, gradient_clip_val: float = 0.0,
+                 profile_dir: tp.Optional[str] = None, profile_start_step: int = 10,
+                 profile_steps: int = 5):
         self.wrapper = training_wrapper
+        self.save_dir = save_dir
+        self.profile_dir = profile_dir
+        self.profile_start_step = profile_start_step
+        self.profile_steps = profile_steps
+        self._profiler = None
         self.dataloader = dataloader
         self.model_config = model_config
         self.checkpoint_every = checkpoint_every
@@ -64,6 +76,27 @@ class Trainer:
         state = torch.load(path, map_location=self.wrapper.device, weights_only=True)
         self.wrapper.load_state_dict(state)
 
+    # ---- the profile window ------------------------------------------------------
+
+    def _start_profile(self) -> None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.wrapper.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.__enter__()
+
+    def _stop_profile(self) -> str:
+        if self.wrapper.device.type == "cuda":
+            torch.cuda.synchronize(self.wrapper.device)
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_steps_{self.profile_start_step}"
+                                              f"_{self.profile_start_step + self.profile_steps}.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}", flush=True)
+        return path
+
     # ---- the loop --------------------------------------------------------------
 
     def fit(self, ckpt_path: tp.Optional[str] = None, seed: int = 42) -> None:
@@ -85,8 +118,13 @@ class Trainer:
                     reals = torch.cat([r for r, _ in pending]).transpose(1, 2)
                     metadata = [m for _, ms in pending for m in ms]
                     pending = []
+                    if self.profile_dir and self._profiler is None and step == self.profile_start_step:
+                        self._start_profile()
                     metrics = wrapper.train_step(reals, metadata, accum=self.accum_batches)
                     step = wrapper.step
+                    if (self._profiler is not None
+                            and step >= self.profile_start_step + self.profile_steps):
+                        self._stop_profile()
 
                     self.metrics_logger.add({f"train/{k}": v for k, v in metrics.items()})
                     if (step - 1) % self.log_every == 0:
@@ -105,3 +143,6 @@ class Trainer:
         except KeyboardInterrupt:
             print("interrupted; saving checkpoint")
             self.save_checkpoint(step)
+        finally:
+            if self._profiler is not None:  # the run ended inside the window
+                self._stop_profile()

@@ -18,6 +18,15 @@ An adaLN DiT's `layer{i}/to_scale_shift_gate/kernel` [D, 6D] becomes
 column blocks (scale, shift and gate of the self-attention, then of the
 feed-forward) become the weight's six row blocks in the same order.
 
+The DiT's other conditioning inputs need no rule of their own:
+`to_prepend_embed/{0,2}/kernel` (the prepend condition's MLP) becomes
+`to_prepend_embed.{0,2}.weight` by the Dense rule, the preprocess conv
+widened by `input_concat_dim` keeps its `[1, C + Ci, C + Ci]` kernel as
+`weight`, and with `patch_size` p the transformer's `project_in` [p (C +
+Ci), dim] and `project_out` [dim, p C] transpose by the Dense rule, their
+rows in the JAX package's channel-major patch order, which the port's DiT
+folds the same way (tests/test_torch_train_options.py).
+
 The ADP U-Net (`adp_cfg_1d`), the DAC encoder and decoder and the `int`
 conditioners carry over by these rules alone: the port names their modules
 as the JAX package does (`down{i}`, `up{j}`, `to_scale_shift.1`,

@@ -303,17 +303,23 @@ def _audio(seed, n=2):
     return (np.random.RandomState(seed).randn(n, 1, FRAMES * RATIO) * 0.3).astype(np.float32)
 
 
+def _seanet_part(jae, part):
+    """The JAX codec's encoder or decoder as one jitted function of (params, x)."""
+    return jax.jit(lambda params, a: jae.module.apply(
+        {"params": params}, a, method=lambda m, y: getattr(m, part)(y)))
+
+
 def test_seanet_encoder_and_decoder_match_jax(lm_models):
     """Encoder latents (through the residual LSTM) and the decoder's audio
     from them: rel-L2 <= 1e-5."""
     jmodel, tmodel = lm_models
     jae, tae = jmodel.pretransform.model, tmodel.pretransform.model
     x = _audio(11).transpose(0, 2, 1)
-    want_z = jae.module.apply({"params": jae.params}, jnp.asarray(x), method=lambda m, a: m.encoder(a))
+    want_z = _seanet_part(jae, "encoder")(jae.params, jnp.asarray(x))
     with torch.no_grad():
         got_z = tae.encoder(_t(x))
         got_y = tae.decoder(got_z)
-    want_y = jae.module.apply({"params": jae.params}, want_z, method=lambda m, a: m.decoder(a))
+    want_y = _seanet_part(jae, "decoder")(jae.params, want_z)
     assert got_z.shape == (2, FRAMES, 16) and _rel(got_z, want_z) <= 1e-5
     assert got_y.shape == want_y.shape and _rel(got_y, want_y) <= 1e-5
 
@@ -323,12 +329,11 @@ def test_tokenize_matches_jax(lm_models):
     near-ties of a codebook's two nearest codes (1e-5 relative)."""
     jmodel, tmodel = lm_models
     x = _audio(12)
-    want = np.asarray(jmodel.pretransform.tokenize(jnp.asarray(x)))
+    want = np.asarray(jax.jit(jmodel.pretransform.tokenize)(jnp.asarray(x)))
     got = tmodel.pretransform.tokenize(_t(x)).numpy()
     assert got.shape == want.shape == (2, 4, FRAMES)
-    z = np.asarray(jmodel.pretransform.model.module.apply(
-        {"params": jmodel.pretransform.model.params}, jnp.asarray(x.transpose(0, 2, 1)),
-        method=lambda m, a: m.encoder(a)), np.float64)
+    z = np.asarray(_seanet_part(jmodel.pretransform.model, "encoder")(
+        jmodel.pretransform.model.params, jnp.asarray(x.transpose(0, 2, 1))), np.float64)
     books = [np.asarray(jmodel.pretransform.model.params["bottleneck"]["quantizer"]
                         [f"quantizer_{i}"]["codebook"], np.float64) for i in range(4)]
     residual, settled = z, np.zeros(z.shape[:2], bool)  # frames past a tie

@@ -126,20 +126,24 @@ def test_one_lm_train_step_matches_jax(lm_models, monkeypatch, forced):
             (a[0].shape, a[6])) or backward(*a, **kw))
 
     jw = JWrapper(jmodel, lr=LR)
-    captured, tx = {}, jw.tx
+    tx = jw.tx
+    # the optimizer state carries the step's gradients out of the jitted step
     jw.tx = optax.GradientTransformation(
-        tx.init, lambda g, s, p=None: captured.setdefault("grads", g) and tx.update(g, s, p))
+        lambda p: (tx.init(p), jax.tree_util.tree_map(jnp.zeros_like, p)),
+        lambda g, s, p=None: (lambda out: (out[0], (out[1], g)))(tx.update(g, s[0], p)))
     state = jw.init_state()
     batch = jw.prepare_batch(reals, metadata)
-    new_state, jmetrics = jw.train_step(state, batch, jax.random.PRNGKey(17), jw.frozen_arrays())
-    jgrads = captured["grads"]
+    new_state, jmetrics = jax.jit(jw.train_step)(state, batch, jax.random.PRNGKey(17),
+                                                 jw.frozen_arrays())
+    jgrads = new_state.opt_state[1]
+    state = state.replace(opt_state=state.opt_state[0])
 
     tmodel = create_model_from_config(config, device="cpu")
     tmodel.load_state_dict(sd, strict=True)
     tw = AudioLanguageModelTrainingWrapper(tmodel, lr=LR)
     codes = tw.tokenize(torch.tensor(reals).transpose(1, 2))
     np.testing.assert_array_equal(  # the same tokens on both sides
-        codes.numpy(), np.asarray(jmodel.pretransform.tokenize(jnp.asarray(reals))))
+        codes.numpy(), np.asarray(jax.jit(jmodel.pretransform.tokenize)(jnp.asarray(reals))))
     routed = []
     if forced:
         monkeypatch.setattr(tattention, "uses_kernels", lambda x: True)

@@ -40,6 +40,7 @@ on the CPU.
   entries.
 """
 
+import functools
 import types
 
 import jax
@@ -235,9 +236,9 @@ def test_unet_cfg_dropout_matches_jax(monkeypatch, proba, mask):
     if mask is not None:
         drawn = jnp.asarray(mask)[:, None, None]
         monkeypatch.setattr(jax.random, "bernoulli", lambda key, p, shape: drawn)
-    want = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(t), jnp.asarray(emb),
-                    embedding_mask=jnp.asarray(emask), embedding_mask_proba=proba, train=True,
-                    rngs={"cfg": jax.random.PRNGKey(7)})
+    want = jax.jit(functools.partial(jm.apply, embedding_mask_proba=proba, train=True))(
+        {"params": params}, jnp.asarray(x), jnp.asarray(t), jnp.asarray(emb),
+        embedding_mask=jnp.asarray(emask), rngs={"cfg": jax.random.PRNGKey(7)})
     tm = tadp.UNetCFG1d(**UNET)
     tm.load_state_dict(state_dict_from_jax(params), strict=True)
     tm.train()
@@ -317,8 +318,9 @@ def test_one_sa1_train_step_matches_jax(sa1_models, monkeypatch, cfg_dropout_pro
     jw = JWrapper(jmodel, lr=lr, cfg_dropout_prob=cfg_dropout_prob)
     state = jw.init_state()
     rng = jax.random.PRNGKey(17)
-    (jloss, _), jgrads = jw._loss_and_grads(state.params, jw.prepare_batch(reals, METADATA), rng,
-                                            state.qmc_counter)
+    (jloss, _), jgrads = jax.jit(jw._loss_and_grads)(
+        state.params, jw.prepare_batch(reals, METADATA), rng, state.qmc_counter,
+        jw.frozen_arrays())
 
     tmodel = create_model_from_config(config, device="cpu")
     tmodel.load_state_dict(sd, strict=True)

@@ -107,7 +107,8 @@ def test_one_train_step_matches_jax(models, cfg_dropout_prob):
     state = jw.init_state()
     batch = jw.prepare_batch(reals, METADATA)
     rng = jax.random.PRNGKey(11)
-    (jloss, _), jgrads = jw._loss_and_grads(state.params, batch, rng, state.qmc_counter)
+    (jloss, _), jgrads = jax.jit(jw._loss_and_grads)(state.params, batch, rng, state.qmc_counter,
+                                                     jw.frozen_arrays())
     new_state, _ = jw._apply_update(state, 2, jloss, {}, jgrads)
 
     tmodel = create_model_from_config(config, device="cpu")
@@ -183,8 +184,9 @@ def test_one_longform_train_step_matches_jax(longform_models, monkeypatch):
     jw = JWrapper(jmodel, optimizer_configs=opt, cfg_dropout_prob=0.0)
     state = jw.init_state()
     rng = jax.random.PRNGKey(12)
-    (jloss, _), jgrads = jw._loss_and_grads(state.params, jw.prepare_batch(reals, metadata), rng,
-                                            state.qmc_counter)
+    (jloss, _), jgrads = jax.jit(jw._loss_and_grads)(
+        state.params, jw.prepare_batch(reals, metadata), rng, state.qmc_counter,
+        jw.frozen_arrays())
 
     tmodel = create_model_from_config(config, device="cpu")
     tmodel.load_state_dict(sd, strict=True)
@@ -320,11 +322,21 @@ def test_grad_accumulation_averages_micro_batches_and_export_prefers_ema(models,
 @pytest.mark.parametrize("key,value", [("mask_padding", True), ("pre_encoded", True),
                                        ("timestep_sampler", "logit_normal")])
 def test_unported_training_options_raise(models, key, value):
+    """The three options that raised before they were ported: the factory
+    now builds the wrapper with each set, and one step runs (on audio with
+    padding masks, or on latents for `pre_encoded`; tests/
+    test_torch_train_options.py holds each against the JAX package)."""
     from friendly_stable_audio_tools_tpu_torch.training.factory import (
         create_training_wrapper_from_config,
     )
 
     config = copy.deepcopy(models[0])
     config["training"][key] = value
-    with pytest.raises(NotImplementedError, match=key):
-        create_training_wrapper_from_config(config, create_model_from_config(config, device="cpu"))
+    w = create_training_wrapper_from_config(config, create_model_from_config(config, device="cpu"))
+    assert getattr(w, key) == value
+    rng = np.random.RandomState(9)
+    metadata = [dict(md, padding_mask=np.ones(LATENTS * RATIO, np.float32)) for md in METADATA]
+    metadata[1]["padding_mask"][LATENTS * RATIO // 2:] = 0
+    shape = (2, LATENTS, 4) if key == "pre_encoded" else (2, LATENTS * RATIO, 2)
+    metrics = w.train_step(torch.tensor(rng.randn(*shape).astype(np.float32) * 0.3), metadata)
+    assert w.step == 1 and np.isfinite(metrics["loss"]) and metrics["loss"] > 0
