@@ -195,7 +195,7 @@ Phases (any failure raises and the script exits non-zero):
    (K7 without its LSE: the q/k/v gradients of the 14 gated attentions are
    lost);
 11. the SA 1.0 training path: `train.main` on stable_audio_1_0.json as
-   written (CFG dropout 0.1, Adam at 5e-4, EMA) from 4 synthetic 96 s WAVs,
+   written (CFG dropout 0.1, Adam at 5e-4, EMA) from 2 synthetic 96 s WAVs,
    batch 8, 3 steps: step time, trained audio per second, the split, peak
    memory, finite losses, moved weights and the launch counts (K7 with its
    LSE 14 and K8 14 per step, the DAC encoder's fp32 K2 26 per clip (25 wide),
@@ -279,6 +279,22 @@ Phases (any failure raises and the script exits non-zero):
    DEMO_CFG_SCALES; its wavs and its K1/K10a/K2-K4 launches),
    `--remove-pretransform-weight-norm post_load` and `--profile-dir` (a
    trace written), exact launch counts.
+19. Dance Diffusion and the other diffusion model types, after [3l] (the
+   fp32 K7 at head dim 32 against its plain version and SDPA at B1 x 16
+   heads, T 8192 / 4096 / 2048 / 1024, and with its LSE at T 8192):
+   [19a] each shipped dance_diffusion/*.json built on the card (one U-Net
+   forward each), then dance_diffusion_base_44k.json as written (223.2 M,
+   fp32, seed 0) through generate_diffusion_uncond at 65,536 samples, batch 4, 100
+   dpmpp-3m-sde steps (no launch: its attention is plain there); [19b] one
+   U-Net forward at 2,097,152 samples with the kernels against the plain
+   versions (FP32_MODEL_RTOL, 24 K7 launches), then DD_LONG_STEPS steps;
+   [19c] the train CLI on the config at batch 8 (3 steps, the demo at
+   DEMO_STEPS, a checkpoint and a resume); [19d] a diffusion autoencoder
+   (SA 2.0's VAE encoder and bottleneck, a dance_diffusion_base DAU1d
+   decoder, ratio 2048): a train step at batch 2 x 65,536 (fp32 K2 2, K3
+   15 under grad) and a 100-step DDIM decode; [19e] a mono-to-stereo prior
+   on the same U-Net: a train step and a `stereoize` at PRIOR_STEPS; each
+   with exact launch counts, walls and peak memory.
 
 [5], [7], [8] and [14] also print their earlier end-to-end figures
 (`EARLIER_E2E`) beside this run's, with the card's name and power limit.
@@ -292,7 +308,9 @@ wgmma kernel of conv_wgmma.cu, as `snake_conv1d_wide` and
 `flash_forward_bf16`; K13's streaming route as `glu_mlp`, its
 times per decode step, its tensor-core route as `glu_mlp_tensor`, its
 times per SAO CFG step with `fused_mlp`; K11 and K12 as `ln_modulate` and `gated_residual`,
-their times per adaLN denoising step), the nvidia-smi line, and
+their times per adaLN denoising step; the fp32 K7 at head dim 32 as
+`flash_forward_d32`, its times per Dance Diffusion U-Net forward at
+2,097,152 samples), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
 chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
 part alone (likewise `dac_conv_phase`, `dac_encode_conv_phase(results,
@@ -348,19 +366,19 @@ WAV_SECONDS = 50
 # the DiT's self-attention at training batch 8: 1024 latent frames + 1
 # prepended token, padded to 1040 (models/transformer.py:seq_pad_length)
 TRAIN_T, TRAIN_KV = 1040, 1025
-# SA 2.0 training (phase 9): 4 WAVs of 290 s (longer than the 285.3 s crop,
+# SA 2.0 training (phase 9): 2 WAVs of 290 s (longer than the 285.3 s crop,
 # so no clip is padded; the loader samples a batch of 8 from them with
-# replacement: their synthesis took ~25 s of the run at 8), 3 steps
-SA2_WAVS = 4
+# replacement: their synthesis took ~25 s of the run at 8, ~3 s each), 3 steps
+SA2_WAVS = 2
 SA2_WAV_SECONDS = 290
 SA2_TRAIN_STEPS = 3
 # the ADP U-Net's flash-gated self-attention at 4096 latent frames, 16 heads:
 # (T, head dim, calls per U-Net call); SA 1.0 training (phases 11b, 11):
-# batch 8 sampled with replacement from 4 WAVs of 96 s (longer than the
+# batch 8 sampled with replacement from 2 WAVs of 96 s (longer than the
 # 95.1 s crop), 3 steps
 SA1_ATTENTION = [(SA1_SAMPLE_SIZE // 1024, 64, 2), (SA1_SAMPLE_SIZE // 2048, 64, 6),
                  (SA1_SAMPLE_SIZE // 4096, 80, 6)]
-SA1_WAVS = 4
+SA1_WAVS = 2
 SA1_WAV_SECONDS = 96
 SA1_TRAIN_STEPS = 3
 # the audio LM (phases 3h, 12b, 12): MusicGen small's widths, 30 s of 32 kHz
@@ -482,6 +500,7 @@ TOL = {
     # both sides, summation order and the online softmax's rescaling only
     "flash_forward_causal": (1e-5, 1e-4),
     "flash_forward_causal_serving": (1e-5, 1e-4),
+    "flash_forward_d32": (1e-5, 1e-4),
     "flash_backward_causal": (1e-4, 1e-3),
     # K13 against its plain version at the same rounding points: fp32 both
     # sides (summation order only); bf16 one rounding of the output apart,
@@ -2662,6 +2681,7 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "glu_mlp_tensor": ("mlp", "tensor_launches"),
     "ln_modulate": ("elementwise", "lnmod_launches"),
     "gated_residual": ("elementwise", "gres_launches"),
+    "flash_forward_d32": ("flash", "d32_launches"),
 }
 
 
@@ -3896,11 +3916,10 @@ def oobleck_ae_counts(config):
 
     enc, dec = config["model"]["encoder"]["config"], config["model"]["decoder"]["config"]
     top = enc["c_mults"][-1] * enc["channels"]
-    counts = {name: 0 for name in KERNELS}
-    counts.update(fused_residual_unit_f32=2 * 3 * len(enc["c_mults"]),
-                  snake_conv_transpose1d_f32=len(dec["strides"]))
-    for cin, cout, k in ((enc["in_channels"], enc["channels"], 7), (top, enc["latent_dim"], 3),
-                         (dec["latent_dim"], top, 7), (dec["channels"], dec["out_channels"], 7)):
+    counts = encoder_counts(config)
+    counts["fused_residual_unit_f32"] *= 2
+    counts["snake_conv_transpose1d_f32"] = len(dec["strides"])
+    for cin, cout, k in ((dec["latent_dim"], top, 7), (dec["channels"], dec["out_channels"], 7)):
         wide = conv1d.conv_route(cin, cout, k, torch.float32) == "wide"
         counts["snake_conv1d_wide_f32" if wide else "snake_conv1d_f32"] += 1
     return counts
@@ -4359,6 +4378,10 @@ def new_results():
             route="cuda", source=src + "elementwise.cu", replaces=tpu + "elementwise.py:167",
             per=f"adaLN DiT generation step ({2 * ADALN_LAYERS} calls at B2 T{ADALN_T} "
                 f"D{ADALN_DIM}, bf16)"),
+        "flash_forward_d32": dict(
+            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:230",
+            per=f"Dance Diffusion U-Net forward at {DD_LONG} samples (24 calls at B1 x H16 D32: 6 "
+                f"each at T8192, T4096, T2048 and T1024)"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
@@ -4679,6 +4702,434 @@ def training_demo_phase(config, tmp):
 
 
 
+# ---------------------------------------------------------------------------
+# [3l] and [19] Dance Diffusion and the other diffusion model types
+# ---------------------------------------------------------------------------
+
+DD_CONFIG = REPO / ("friendly_stable_audio_tools_tpu/configs/model_configs/dance_diffusion/"
+                    "dance_diffusion_base_44k.json")
+DD_BATCH = 4  # the demo's count (training/demos.py:DiffusionDemoCallback)
+DD_LONG = 2_097_152  # generate_diffusion_uncond's default length
+DD_LONG_STEPS = 2
+DD_HEADS = 16  # 512 channels in heads of 32
+DD_T = (8192, 4096, 2048, 1024)  # the attention levels 9-12 at DD_LONG samples
+DD_TRAIN_STEPS = 3
+DD_WAVS = 8
+DD_WAV_SECONDS = 3
+DIFFAE_BATCH = 2
+DIFFAE_STEPS = 100
+PRIOR_STEPS = 8
+
+
+def flash_d32_phase(results):
+    """[3l] The fp32 K7 at head dim 32 (serving) against its plain version
+    at Dance Diffusion's attention shapes at 2,097,152 samples (B1 x 16
+    heads, T 8192 / 4096 / 2048 / 1024, 6 calls each per U-Net forward),
+    SDPA on the same fp32 heads beside it; then the form with the LSE at T
+    8192 (not on the path: under grad D 32 raises)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(19)
+    r = results["flash_forward_d32"]
+    for t in DD_T:
+        label = f"BH{DD_HEADS} T{t} D32"
+        r["weight"][label] = 6
+        q, k, v = (rnd(DD_HEADS, t, 32) for _ in range(3))
+        bound = bound_ms(4 * DD_HEADS * t * t * 32, nbytes(q, k, v, q), peak=PEAK_FP32_ACCURATE)
+        report(results, "flash_forward_d32", label, True, *compare(
+            "flash_forward_d32", lambda: flash.flash_forward(q, k, v, save_stats=False)[0],
+            lambda: flash.flash_forward_plain(q, k, v, save_stats=False)[0],
+            library_fn=lambda: sdpa(q[None], k[None], v[None])), bound=bound,
+            extra=f"; SDPA backend {sdpa_backend(q[None], k[None], v[None])}")
+        del q, k, v
+    t = DD_T[0]
+    q, k, v = (rnd(DD_HEADS, t, 32) for _ in range(3))
+    out, lse = flash.flash_forward(q, k, v)
+    out_p, lse_p = flash.flash_forward_plain(q, k, v)
+    ok, max_abs, rel_l2, peak = within("flash_forward_d32", out, out_p)
+    lse_err = (lse - lse_p).abs().max().item()
+    ms = timed_ms(lambda: flash.flash_forward(q, k, v), 3)
+    plain_ms = timed_ms(lambda: flash.flash_forward_plain(q, k, v), 3)
+    bound = bound_ms(4 * DD_HEADS * t * t * 32, nbytes(q, k, v, out, lse), peak=PEAK_FP32_ACCURATE)
+    report(results, "flash_forward_d32", f"BH{DD_HEADS} T{t} D32 with its LSE", False,
+           ok and lse_err <= FLASH_LSE_ATOL, max_abs, rel_l2, peak, ms, plain_ms, None,
+           bound=bound, extra=f", lse max_abs {lse_err:.3g} (tol {FLASH_LSE_ATOL})")
+    del q, k, v, out, lse, out_p, lse_p
+    log(f"  flash_forward_d32: {r['ms']:.4f} ms per Dance Diffusion U-Net forward at {DD_LONG} "
+        f"samples (24 calls), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms")
+
+
+def dd_flash_calls(config, sample_size):
+    """The fp32 K7 launches of one DAU1d forward at `sample_size`: six
+    self-attentions on each attention level (depth - n_attn_layers .. depth,
+    from level 2) whose length passes the flash gate (>= 1024 tokens)."""
+    unet = config["model"]["config"]
+    depth, strides = unet.get("depth", 14), [1] + list(unet.get("strides", [2] * 13))
+    first = max(2, depth - unet.get("n_attn_layers", 6))
+    return sum(6 for i in range(first, depth + 1)
+               if sample_size // math.prod(strides[:i]) >= 1024)
+
+
+def dd_generate(model, label, batch, sample_size, steps, expected):
+    """generate_diffusion_uncond (dpmpp-3m-sde, sigma 0.3 to 500) with the
+    counts set to 0 just before and read just after and a wall per model
+    evaluation (the step hook): checks the audio and the counts (`expected`,
+    by kernel, exactly); returns (counts, audio, wall)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.inference.generation import generate_diffusion_uncond
+
+    evals = []
+
+    def hook(info):
+        torch.cuda.synchronize()
+        evals.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    audio = generate_diffusion_uncond(model, steps=steps, batch_size=batch,
+                                      sample_size=sample_size, seed=0,
+                                      sampler_type="dpmpp-3m-sde", sigma_min=0.3, sigma_max=500,
+                                      callback=hook)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - start
+    counts = read_counts()
+    gaps = [b - a for a, b in zip([start] + evals[:-1], evals)]
+    seconds = batch * sample_size / model.sample_rate
+    rms = audio.float().square().mean().sqrt().item()
+    log(f"  {label}: audio {list(audio.shape)} rms {rms:.4g}; {steps} steps in {total:.3f} s = "
+        f"{seconds / total:.3f} s-audio/s; per model evaluation {statistics.median(gaps) * 1e3:.2f} "
+        f"ms (median of {len(gaps)}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K7 D32 launches "
+        f"{counts['flash_forward_d32']}")
+    if (tuple(audio.shape) != (batch, 2, sample_size) or not torch.isfinite(audio).all()
+            or rms <= 0):
+        raise AssertionError(f"{label}: not finite [{batch}, 2, {sample_size}] audio")
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, not {expected}")
+    return counts, audio, total
+
+
+def dd_generation_phase(config):
+    """[19a] Each shipped dance_diffusion/*.json built on the card with one
+    U-Net forward at its sample size (nothing launches: at most 512
+    tokens of attention); then dance_diffusion_base_44k.json as written
+    (223.2 M parameters, fp32, seed-0 weights) through
+    generate_diffusion_uncond at the config's 65,536 samples, batch 4, 100
+    steps: its attention (at most 256 tokens) stays plain, so nothing
+    launches. Returns (the model, the counts)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+
+    for path in sorted(DD_CONFIG.parent.glob("*.json")):
+        other = json.loads(path.read_text())
+        m = create_model_from_config(other, seed=0, device=DEVICE)
+        x = torch.randn(1, other["sample_size"], m.io_channels, device=DEVICE)
+        reset_counts()
+        with torch.no_grad():
+            y = m.model(x, torch.full((1,), 0.5, device=DEVICE))
+        counts = read_counts()
+        log(f"  {path.name}: built on the card, {sum(p.numel() for p in m.parameters()) / 1e6:.1f} "
+            f"M parameters; one U-Net forward at {other['sample_size']} samples "
+            f"{list(y.shape)}, launches {sum(counts.values())}")
+        if tuple(y.shape) != tuple(x.shape) or not torch.isfinite(y).all() or any(counts.values()):
+            raise AssertionError(f"{path.name}: the U-Net forward is off ({counts})")
+        del m, x, y
+        torch.cuda.empty_cache()
+    model = create_model_from_config(config, seed=0, device=DEVICE)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {DD_CONFIG.name}: {n / 1e6:.1f} M parameters, fp32")
+    want = {name: 0 for name in KERNELS}
+    want["flash_forward_d32"] = dd_flash_calls(config, config["sample_size"]) * STEPS
+    counts, _, _ = dd_generate(model, f"generation at {config['sample_size']} samples, batch "
+                               f"{DD_BATCH}", DD_BATCH, config["sample_size"], STEPS, want)
+    return model, counts
+
+
+def dd_long_phase(model, config):
+    """[19b] The same model at 2,097,152 samples, batch 1: one U-Net forward
+    with the kernels (24 fp32 K7 at head dim 32, `dd_flash_calls`) against
+    the plain versions
+    (rel-L2 FP32_MODEL_RTOL), then DD_LONG_STEPS sampler steps through
+    generate_diffusion_uncond with a wall per evaluation. Returns the
+    generation's counts."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn(1, DD_LONG, 2, generator=g, device=DEVICE)
+    t = torch.full((1,), 0.6, device=DEVICE)
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = model.model(x, t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = read_counts()
+        with plain_kernels():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            ref = model.model(x, t)
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - start
+    err = rel_err(out, ref)
+    log(f"  one U-Net forward at {DD_LONG} samples: {wall:.3f} s with the kernels, {plain_wall:.3f} "
+        f"s plain; rel-L2 {err:.3g} (tol {FP32_MODEL_RTOL}); launches {counts}")
+    calls = dd_flash_calls(config, DD_LONG)
+    want = {name: 0 for name in KERNELS}
+    want["flash_forward_d32"] = calls
+    if not (err <= FP32_MODEL_RTOL and torch.isfinite(out).all() and counts == want
+            and calls > 0):
+        raise AssertionError(f"the U-Net forward at {DD_LONG} samples: rel-L2 {err}, {counts}")
+    del x, out, ref
+    torch.cuda.empty_cache()
+    counts, _, _ = dd_generate(model, f"generation at {DD_LONG} samples, batch 1", 1, DD_LONG,
+                               DD_LONG_STEPS, {**want, "flash_forward_d32": calls * DD_LONG_STEPS})
+    return counts
+
+
+def dd_training_phase(config, tmp):
+    """[19c] The train entry point on dance_diffusion_base_44k.json as written
+    (it names no audio_channels; the CLI trains stereo): batch 8 from DD_WAVS
+    synthetic stereo WAVs, DD_TRAIN_STEPS (3) steps with the demo (4 demos,
+    DEMO_STEPS steps, cut from the config's 250) after step 2, a checkpoint
+    at step 2 and a resume from it that runs step 3 again. Returns the counts of
+    the two runs (nothing launches: the attention at 65,536 samples is
+    plain)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import train
+    from friendly_stable_audio_tools_tpu_torch.training.diffusion import (
+        DiffusionUncondTrainingWrapper,
+    )
+
+    cfg = copy.deepcopy(config)
+    cfg["training"]["demo"].update(demo_every=2, demo_steps=DEMO_STEPS)
+    cfg["training"]["checkpoint"] = {"every_n_train_steps": 2}
+    args = train_args({**cfg, "audio_channels": 2}, tmp, "dd", DD_WAVS, DD_WAV_SECONDS)
+    (Path(tmp) / "dd_model.json").write_text(json.dumps(cfg))
+    times, losses = [], []
+    step = DiffusionUncondTrainingWrapper.train_step
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+        losses.append(out["loss"])
+        return out
+
+    with patched([(DiffusionUncondTrainingWrapper, "train_step", timed)]):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", str(DD_TRAIN_STEPS)])
+        total = time.perf_counter() - start
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        samples = Path(trainer.save_dir) / "samples" / "2"
+        wavs = sorted(p.name for p in samples.glob("*.wav")) if samples.is_dir() else []
+        ckpt = Path(trainer.ckpt_dir) / "step_2"
+        done = trainer.wrapper.step
+        del trainer
+        torch.cuda.empty_cache()
+        reset_counts()
+        resumed = train.main(args + ["--max-steps", str(DD_TRAIN_STEPS), "--ckpt-path",
+                                     str(ckpt)])
+        counts_resume = read_counts()
+        resumed_step = resumed.wrapper.step
+        del resumed
+        torch.cuda.empty_cache()
+    med = statistics.median(times[1:DD_TRAIN_STEPS])
+    seconds = config["sample_size"] / config["sample_rate"]
+    log(f"  steps {[round(x, 4) for x in times]} s (the last the resume's); median of steps "
+        f"2-{DD_TRAIN_STEPS} {med:.4f} s = {TRAIN_BATCH * seconds / med:.3f} s-audio/s trained; "
+        f"losses {[round(x, 5) for x in losses]}; peak memory {peak:.2f} GiB; run incl. set-up, "
+        f"checkpoints and the demo {total:.1f} s; demo wavs {wavs}")
+    if not (done == DD_TRAIN_STEPS and resumed_step == DD_TRAIN_STEPS and len(times) == 4
+            and wavs == [f"demo_{i}.wav" for i in range(DD_BATCH)]
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError("the Dance Diffusion train CLI's steps, resume or demo are off")
+    zero = {name: 0 for name in KERNELS}
+    if counts != zero or counts_resume != zero:
+        raise AssertionError(f"the train CLI launched {counts} / {counts_resume} at 65,536 samples")
+    return counts, counts_resume
+
+
+def diffae_config():
+    """A diffusion autoencoder built in memory (no config is shipped; the
+    layout of the JAX package's tests/test_training_other.py at full width):
+    Stable Audio 2.0's VAE encoder and bottleneck, a dance_diffusion_base
+    DAU1d decoder taking the 64 latent channels by input-concat, ratio 2048."""
+    ae = json.loads(AE_CONFIG.read_text())
+    dd = json.loads(DD_CONFIG.read_text())
+    return {"model_type": "diffusion_autoencoder", "sample_size": dd["sample_size"],
+            "sample_rate": ae["sample_rate"], "audio_channels": 2,
+            "model": {"encoder": ae["model"]["encoder"], "bottleneck": ae["model"]["bottleneck"],
+                      "diffusion": {"type": "DAU1d", "config": {
+                          **dd["model"]["config"], "cond_dim": ae["model"]["latent_dim"]}},
+                      "latent_dim": ae["model"]["latent_dim"],
+                      "downsampling_ratio": ae["model"]["downsampling_ratio"], "io_channels": 2},
+            "training": {"learning_rate": 1e-4}}
+
+
+def encoder_counts(config):
+    """What one encode of an Oobleck encoder launches, fp32: K3 per residual
+    unit (3 per block) and K2 for conv_in and conv_out on their routes."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import conv1d
+
+    enc = config["model"]["encoder"]["config"]
+    want = {name: 0 for name in KERNELS}
+    want["fused_residual_unit_f32"] = 3 * len(enc["c_mults"])
+    for cin, cout, k in ((enc["in_channels"], enc["channels"], 7),
+                         (enc["c_mults"][-1] * enc["channels"], enc["latent_dim"], 3)):
+        wide = conv1d.conv_route(cin, cout, k, torch.float32) == "wide"
+        want["snake_conv1d_wide_f32" if wide else "snake_conv1d_f32"] += 1
+    return want
+
+
+def diffae_phase():
+    """[19d] The diffusion autoencoder: one train step at batch 2 x 65,536
+    (the Oobleck encoder's fp32 K2 and K3 under grad: 2 and 15), then the
+    encode and one DDIM decode of the batch at DIFFAE_STEPS steps (the
+    encoder's kernels once more; the U-Net's attention is plain at 65,536
+    samples). Returns (step counts, encode + decode counts)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+    from friendly_stable_audio_tools_tpu_torch.training.factory import (
+        create_training_wrapper_from_config,
+    )
+
+    config = diffae_config()
+    model = create_model_from_config(config, seed=0, device=DEVICE)
+    w = create_training_wrapper_from_config(config, model)
+    reals = ae_reals(config, DIFFAE_BATCH, 40)
+    want = encoder_counts(config)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics = w.train_step(reals, [{}] * DIFFAE_BATCH)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - start
+    step_counts = read_counts()
+    log(f"  train step at batch {DIFFAE_BATCH} x {config['sample_size']}: {step_s:.3f} s, loss "
+        f"{metrics['loss']:.5f}, latent_std {metrics['latent_std']:.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {step_counts}")
+    if step_counts != want or not math.isfinite(metrics["loss"]):
+        raise AssertionError(f"the diffusion autoencoder's step launched {step_counts}, not {want}")
+    model.eval()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with torch.no_grad():
+        latents = model.encode(reals.transpose(1, 2))
+        recon = model.decode(latents, steps=DIFFAE_STEPS,
+                             generator=torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - start
+    decode_counts = read_counts()
+    log(f"  encode + {DIFFAE_STEPS}-step DDIM decode: latents {list(latents.shape)}, audio "
+        f"{list(recon.shape)} in {decode_s:.3f} s; launches {decode_counts}")
+    if (tuple(recon.shape) != (DIFFAE_BATCH, 2, config["sample_size"])
+            or not torch.isfinite(recon).all() or decode_counts != want):
+        raise AssertionError(f"the DDIM decode: {list(recon.shape)}, launches {decode_counts}")
+    del model, w, reals, latents, recon
+    torch.cuda.empty_cache()
+    return step_counts, decode_counts
+
+
+def prior_phase():
+    """[19e] A mono-to-stereo prior on the dance_diffusion_base U-Net (the
+    dual-mono `source` by input-concat, 2 channels): one train step at batch
+    2 x 65,536 and one `stereoize` of a mono clip at PRIOR_STEPS steps;
+    nothing launches (plain attention at 65,536 samples). Returns (step
+    counts, stereoize counts)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+    from friendly_stable_audio_tools_tpu_torch.training.factory import (
+        create_training_wrapper_from_config,
+    )
+
+    dd = json.loads(DD_CONFIG.read_text())
+    config = {"model_type": "diffusion_prior", "sample_size": dd["sample_size"],
+              "sample_rate": dd["sample_rate"], "audio_channels": 2,
+              "model": {"prior_type": "mono_stereo", "conditioning": None, "io_channels": 2,
+                        "diffusion": {"type": "DAU1d", "input_concat_ids": ["source"],
+                                      "config": {**dd["model"]["config"], "cond_dim": 2}}},
+              "training": {"learning_rate": 1e-4, "prior_type": "mono_stereo"}}
+    model = create_model_from_config(config, seed=0, device=DEVICE)
+    w = create_training_wrapper_from_config(config, model)
+    reals = ae_reals(config, DIFFAE_BATCH, 50)
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics = w.train_step(reals, [{}] * DIFFAE_BATCH)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - start
+    step_counts = read_counts()
+    model.eval()
+    mono = reals[:1].mean(-1)[:, None, :].cpu().numpy()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    stereo = model.stereoize(mono, in_sr=config["sample_rate"], steps=PRIOR_STEPS,
+                             sampler_kwargs={"sampler_type": "dpmpp-3m-sde", "sigma_min": 0.3,
+                                             "sigma_max": 500}, seed=0)
+    torch.cuda.synchronize()
+    stereo_s = time.perf_counter() - start
+    stereo_counts = read_counts()
+    log(f"  train step at batch {DIFFAE_BATCH} x {config['sample_size']}: {step_s:.3f} s, loss "
+        f"{metrics['loss']:.5f}; stereoize {list(mono.shape)} -> {list(stereo.shape)} at "
+        f"{PRIOR_STEPS} steps in {stereo_s:.3f} s")
+    zero = {name: 0 for name in KERNELS}
+    if (tuple(stereo.shape) != (1, 2, config["sample_size"]) or not torch.isfinite(stereo).all()
+            or not math.isfinite(metrics["loss"]) or step_counts != zero or stereo_counts != zero):
+        raise AssertionError(f"the prior: {list(stereo.shape)}, {step_counts}, {stereo_counts}")
+    del model, w, reals, stereo
+    torch.cuda.empty_cache()
+    return step_counts, stereo_counts
+
+
+def dance_diffusion_phases(results, tmp):
+    """[19a]-[19e] in order; returns their counts by path."""
+    import torch
+
+    config = json.loads(DD_CONFIG.read_text())
+    log(f"[19a] {DD_CONFIG.name} as written: generate_diffusion_uncond at "
+        f"{config['sample_size']} samples, batch {DD_BATCH}, {STEPS} dpmpp-3m-sde steps")
+    model, counts_gen = dd_generation_phase(config)
+    log(f"[19b] the same model at {DD_LONG} samples: one U-Net forward kernels vs plain, then "
+        f"{DD_LONG_STEPS} steps")
+    counts_long = dd_long_phase(model, config)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[19c] the train CLI on {DD_CONFIG.name}: batch {TRAIN_BATCH}, {DD_TRAIN_STEPS} steps, "
+        f"the demo, a resume")
+    counts_train, counts_resume = dd_training_phase(config, tmp)
+    log("[19d] a diffusion autoencoder (SA 2.0's VAE encoder, a DAU1d decoder): a train step, "
+        "the DDIM decode")
+    counts_diffae, counts_diffae_dec = diffae_phase()
+    log("[19e] a mono-to-stereo prior on the DAU1d backbone: a train step, stereoize")
+    counts_prior, counts_stereo = prior_phase()
+    return {"generate_dd": counts_gen, "generate_dd_long": counts_long, "train_dd": counts_train,
+            "train_dd_resume": counts_resume, "diffae_step": counts_diffae,
+            "diffae_decode": counts_diffae_dec, "prior_step": counts_prior,
+            "prior_stereoize": counts_stereo}
+
+
 def main():
     import torch
 
@@ -4766,6 +5217,10 @@ def main():
     flash_bf16_phase(results)
     dac_conv_phase(results, torch.bfloat16, "sa1_decode_ms")
     done("[3k]")
+    log("[3l] the fp32 K7 at head dim 32 vs its plain version at Dance Diffusion's attention "
+        "shapes at 2,097,152 samples, SDPA beside it")
+    flash_d32_phase(results)
+    done("[3l]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -4878,7 +5333,7 @@ def main():
     torch.cuda.empty_cache()
     done("[8]")
 
-    # phases 6b and 9 write ~4.2 GB (SA 2.0's de-zeroed DiT and 4 WAVs)
+    # phases 6b and 9 write ~4.2 GB (SA 2.0's de-zeroed DiT and 2 WAVs)
     log(f"[6b] one SA 2.0 DiT training step at batch {TRAIN_BATCH}, T {LONG_T} kv_len {LONG_KV} "
         f"({TRAIN_DEPTH} of the DiT's 24 layers): K7/K9 vs their fp32 plain versions vs the bf16 "
         f"K5/K6 route")
@@ -5023,6 +5478,10 @@ def main():
         counts_opt_train, counts_demo = training_demo_phase(config, tmp)
     done("[18]")
 
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        counts_dd = dance_diffusion_phases(results, tmp)
+    done("[19]")
+
     by_path = {"generate": launches, "generate_fused_mlp": launches_fused,
                "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
@@ -5037,7 +5496,7 @@ def main():
                "ae_generator_step": counts_ae_step, "train_ae": counts_ae,
                "train_ae_resume": counts_ae_resume, **counts_ae_other,
                "reconstruct_ae": counts_recon, **counts_options,
-               "train_options_cli": counts_opt_train}
+               "train_options_cli": counts_opt_train, **counts_dd}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]

@@ -1,5 +1,5 @@
 // K7 in fp32: the forward of head-split attention on [B*H, T, D] tensors, D
-// 64 or 80, causal or not, with its base-2 log-sum-exp or without, on the
+// 32, 64 or 80, causal or not, with its base-2 log-sum-exp or without, on the
 // tensor cores (3xTF32 wgmma on TMA-fed tiles).
 //
 // Replaces `_flash_forward` (friendly_stable_audio_tools_tpu/ops/pallas/
@@ -20,7 +20,10 @@
 // kv_len 6145, B 8 x 24 heads, with the LSE), Stable Audio 1.0's ADP U-Net
 // (B 2 x 16 heads serving, B 8 x 16 training with the LSE; T 4096 and 2048
 // at D 64, T 1024 at D 80), the audio LM's causal self-attention (B 8 x 16
-// heads, T 1501) and SA 2.0's DiT past 8192 tokens (8449 padded to 8576).
+// heads, T 1501), SA 2.0's DiT past 8192 tokens (8449 padded to 8576) and
+// Dance Diffusion's U-Net (16 heads of 32 on its 512-channel levels; T 8192,
+// 4096, 2048 and 1024 at generate_diffusion_uncond's default 2,097,152
+// samples, serving).
 //
 // What bounds it on the H100: the products. 4 T kv_len D operations per head
 // against 16 T D bytes in and out; at SA 2.0's training shape that is 1.86
@@ -90,6 +93,10 @@
 //   each) and two 32B-swizzled panels of 8 dims (2 KB each: one k8 slice
 //   apiece, the bf16 K7's 32B descriptors); S takes 8 + 2 slices, P.V is one
 //   m64n80 product per slice. Nothing is padded.
+// - D 32 tiles: a [64][32] fp32 tile is exactly one 128B-swizzled panel (K
+//   takes one box, no tail map); V^T's two panels are 32 rows each. S takes
+//   4 k8 slices, P.V m64n32 products. The 8-slot ring and the q' tiles take
+//   163,840 bytes.
 // Measured (ptxas): 153-167 registers, no spills.
 // What bounds it now (measured on the H100, PERF.md §6): the tensor cores,
 // at 55-73% of the bound at D 64 above 2048 keys; at T 1024 D 80 (41%) and
@@ -114,9 +121,11 @@ constexpr int kTurnBarrier = 3;                  // named barriers 3, 4: the war
 
 template <int D>
 struct Layout {
-  static_assert(D == 64 || D == 80, "K7 takes head dim 64 or 80");
+  static_assert(D == 32 || D == 64 || D == 80, "K7 takes head dim 32, 64 or 80");
   static constexpr int kTile = 64 * D * 4;           // one [64][D] fp32 tile, either kind
-  static constexpr int kSlots = D == 64 ? 4 : 3;     // K or V^T hi/lo tile pairs in the ring
+  // K or V^T hi/lo tile pairs in the ring: at D 32 a tile is one 8 KB panel
+  // and a product a quarter of D 64's, so the ring runs deeper ahead
+  static constexpr int kSlots = D == 32 ? 8 : D == 64 ? 4 : 3;
   static constexpr int kSlotBytes = 2 * kTile;       // hi, then lo
   // q' hi, lo of warpgroup w at w 2 kTile, then the ring
   static constexpr int kRing = kConsumers * 2 * kTile;
@@ -259,7 +268,7 @@ flash_forward_f32_kernel(const __grid_constant__ CUtensorMap kmap,
           const int c2 = part * BH + bh;
           if ((i & 1) == 0) {
             tma_load_3d(tile, &kmap, &full[s], 0, k0, c2);
-            tma_load_3d(tile + kF32Panel, &kmap, &full[s], 32, k0, c2);
+            if constexpr (D > 32) tma_load_3d(tile + kF32Panel, &kmap, &full[s], 32, k0, c2);
             if constexpr (D > 64) {
               tma_load_3d(tile + 2 * kF32Panel, &ktail, &full[s], 64, k0, c2);
               tma_load_3d(tile + 2 * kF32Panel + kF32TailPanel, &ktail, &full[s], 72, k0, c2);
@@ -387,7 +396,7 @@ int launch(const float* q, const float* k, const float* v, float* out, float* ls
   if (err == cudaSuccess && D > 64)
     err = swizzled_map_3d(&ktail, f32, 4, kparts, D, T, 2 * BH, 8, kN,
                           CU_TENSOR_MAP_SWIZZLE_32B);
-  if (D == 64) ktail = kmap;  // unread
+  if (D <= 64) ktail = kmap;  // unread
   if (err == cudaSuccess) err = sw128_map_3d(&vmap, f32, 4, vparts, Tp, D, 2 * BH, 32, D);
   const size_t smem = L::kBytes + 1024;
   if (err == cudaSuccess) err = allow_smem(flash_forward_f32_kernel<D, kCausal>, smem);
@@ -400,8 +409,8 @@ int launch(const float* q, const float* k, const float* v, float* out, float* ls
 
 }  // namespace
 
-// K7 in fp32: q, k, v [BH, T, D] fp32 contiguous (16-byte aligned), D 64 or
-// 80, 1 <= kv_len <= T -> out [BH, T, D] fp32 and, when lse is not null,
+// K7 in fp32: q, k, v [BH, T, D] fp32 contiguous (16-byte aligned), D 32, 64
+// or 80, 1 <= kv_len <= T -> out [BH, T, D] fp32 and, when lse is not null,
 // lse [BH, T] fp32 (base 2). scratch: 2 BH T D + 2 BH D Tp floats (Tp = T
 // rounded up to 64), 16-byte aligned, for the pre-pass's tf32 parts of K and
 // V^T (the argument the FFMA kernel's entry did not have: a kernel
@@ -412,6 +421,9 @@ extern "C" int fsat_flash_forward(const float* q, const float* k, const float* v
                                   float* lse, float* scratch, int BH, int T, int kv_len, int D,
                                   int causal, float prescale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == 32 && causal)
+    return launch<32, true>(q, k, v, out, lse, scratch, BH, T, kv_len, prescale, st);
+  if (D == 32) return launch<32, false>(q, k, v, out, lse, scratch, BH, T, kv_len, prescale, st);
   if (D == 64 && causal)
     return launch<64, true>(q, k, v, out, lse, scratch, BH, T, kv_len, prescale, st);
   if (D == 64) return launch<64, false>(q, k, v, out, lse, scratch, BH, T, kv_len, prescale, st);

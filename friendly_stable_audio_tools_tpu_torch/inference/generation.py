@@ -1,8 +1,10 @@
-"""Conditioned generation (counterpart of
-friendly_stable_audio_tools_tpu/inference/generation.py:generate_diffusion_cond
-:168 and build_mask :336).
+"""Generation (counterpart of
+friendly_stable_audio_tools_tpu/inference/generation.py:generate_diffusion_uncond
+:75, generate_diffusion_cond :168 and build_mask :336).
 
-The conditioners on the prompt metadata (or given conditioning tensors),
+Unconditional generation: seeded noise, optional init audio, the sampler
+over the backbone, then the pretransform decode. Conditioned generation:
+the conditioners on the prompt metadata (or given conditioning tensors),
 seeded noise, optional init audio (prepared to the VAE's channels and the
 clip's length, encoded once through the pretransform to the posterior mean,
 repeated per sample; cut and pasted for outpainting), the sampler over the
@@ -27,6 +29,108 @@ import torch
 from ..utils.common import resolve_device
 from .sampling import Noise, sample_k, sample_rf
 from .utils import prepare_audio
+
+
+def _generator_and_noise(seed: int, noise: tp.Optional[torch.Tensor], shape: tp.Tuple[int, ...],
+                         device: torch.device):
+    """The sampler's generator seeded with `seed` (-1: a random seed) and
+    the initial unit noise: `noise` where given, else its first draw."""
+    seed = int(seed) if seed != -1 else int(np.random.randint(0, 2**31 - 1))
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=device)
+    return generator, noise.to(device)
+
+
+def _init_latents(model, init_audio: tp.Tuple[int, tp.Any], audio_sample_size: int, n: int,
+                  device: torch.device) -> torch.Tensor:
+    """`init_audio` prepared to the model's rate, length and channels,
+    encoded through its pretransform where it has one, repeated n times:
+    [n, L, C]."""
+    in_sr, audio = init_audio
+    io_channels = (model.pretransform.io_channels if model.pretransform is not None
+                   else model.io_channels)
+    prepared = prepare_audio(audio, in_sr=in_sr, target_sr=model.sample_rate,
+                             target_length=audio_sample_size, target_channels=io_channels,
+                             device=device).transpose(1, 2)
+    if model.pretransform is not None:
+        prepared = model.pretransform.encode_nwc(prepared)
+    return prepared.repeat_interleave(n, dim=0)
+
+
+def _sample_and_decode(model, noise: torch.Tensor, init_latent: tp.Optional[torch.Tensor],
+                       mask: tp.Optional[torch.Tensor], steps: int, generator: torch.Generator,
+                       return_latents: bool, sampler_kwargs: dict, **extra) -> torch.Tensor:
+    """The model's sampler (`sample_k` for the v objective, `sample_rf` for
+    rectified flow, which takes sigma_max alone: the k-sampler keyword
+    arguments are dropped, JAX generation.py:118-122), then the
+    pretransform's decode unless `return_latents`: [B, C, T]. `extra` goes
+    to the sampler (the step hook, injected draws, the backbone's inputs)."""
+    if model.diffusion_objective == "v":
+        latents = sample_k(model.model, noise, init_latent, mask, steps, generator=generator,
+                           **sampler_kwargs, **extra)
+    elif model.diffusion_objective == "rectified_flow":
+        for key in ("sigma_min", "sampler_type", "rho"):
+            sampler_kwargs.pop(key, None)
+        extra.pop("step_noise", None)
+        extra.pop("merge_noise", None)
+        latents = sample_rf(model.model, noise, init_data=init_latent, steps=steps,
+                            **sampler_kwargs, **extra)
+    else:
+        raise ValueError(f"No such sampling mode: '{model.diffusion_objective}'")
+    if model.pretransform is not None and not return_latents:
+        return model.pretransform.decode_nwc(latents).transpose(1, 2)
+    return latents.transpose(1, 2)
+
+
+@torch.no_grad()
+def generate_diffusion_uncond(
+    model,
+    steps: int = 250,
+    batch_size: int = 1,
+    sample_size: int = 2097152,
+    seed: int = -1,
+    device: tp.Optional[tp.Union[str, torch.device]] = None,
+    init_audio: tp.Optional[tp.Tuple[int, tp.Any]] = None,
+    init_noise_level: float = 1.0,
+    return_latents: bool = False,
+    disable_tqdm: bool = False,
+    callback: tp.Optional[tp.Callable] = None,
+    verbose: bool = False,
+    noise: tp.Optional[torch.Tensor] = None,
+    step_noise: Noise = None,
+    **sampler_kwargs,
+) -> torch.Tensor:
+    """Unconditional generation (JAX generation.py:75-167): returns audio
+    [B, io_channels, sample_size] (latents [B, C, L] with `return_latents`)
+    of a `diffusion_uncond` model (models/diffusion.py:DiffusionModelWrapper).
+    The default length, 2,097,152 samples, is the JAX package's: at Dance
+    Diffusion's depth it runs attention levels of 8192 to 1024 tokens, which
+    the fp32 flash kernel K7 at head dim 32 serves on the card.
+
+    `init_audio` (sample rate, array or tensor) is prepared to the model's
+    rate, length and channels, encoded through the pretransform where there
+    is one, and repeated per sample: a variation at sigma_max =
+    `init_noise_level`. The v objective samples with `sample_k` (default
+    dpmpp-2m-sde), rectified flow with `sample_rf` (the k-sampler kwargs
+    dropped, as JAX :118-122). The initial noise ([B, L, C]) and the
+    sampler's draws come from a generator seeded with `seed` unless `noise`
+    and `step_noise` inject them; `callback` and `verbose` are the
+    per-evaluation hook. `device` defaults to the model's."""
+    device = resolve_device(next(model.parameters()).device if device is None else device,
+                            'device="cpu"')
+    audio_sample_size = sample_size
+    if model.pretransform is not None:
+        sample_size //= model.pretransform.downsampling_ratio
+    generator, noise = _generator_and_noise(seed, noise,
+                                            (batch_size, sample_size, model.io_channels), device)
+    init_latent = None
+    if init_audio is not None:
+        init_latent = _init_latents(model, init_audio, audio_sample_size, batch_size, device)
+        sampler_kwargs["sigma_max"] = init_noise_level
+    return _sample_and_decode(model, noise, init_latent, None, steps, generator, return_latents,
+                              sampler_kwargs, callback=callback, verbose=verbose,
+                              step_noise=step_noise)
 
 
 @torch.no_grad()
@@ -90,24 +194,11 @@ def generate_diffusion_cond(
         inputs.update(model.get_conditioning_inputs(negative_conditioning_tensors, negative=True))
     num_sample = next(iter(conditioning_tensors.values()))[0].shape[0]
 
-    seed = int(seed) if seed != -1 else int(np.random.randint(0, 2**31 - 1))
-    generator = torch.Generator(device=device).manual_seed(seed)
-    if noise is None:
-        noise = torch.randn((num_sample, sample_size, model.io_channels), generator=generator,
-                            device=device)
-    noise = noise.to(device)
-
+    generator, noise = _generator_and_noise(seed, noise,
+                                            (num_sample, sample_size, model.io_channels), device)
     init_latent, mask = None, None
     if init_audio is not None:
-        in_sr, audio = init_audio
-        io_channels = (model.pretransform.io_channels if model.pretransform is not None
-                       else model.io_channels)
-        prepared = prepare_audio(audio, in_sr=in_sr, target_sr=model.sample_rate,
-                                 target_length=audio_sample_size, target_channels=io_channels,
-                                 device=device).transpose(1, 2)
-        if model.pretransform is not None:
-            prepared = model.pretransform.encode_nwc(prepared)
-        init_latent = prepared.repeat_interleave(num_sample, dim=0)  # [B, L, C]
+        init_latent = _init_latents(model, init_audio, audio_sample_size, num_sample, device)
         if mask_args is not None:
             # outpainting's cut and paste (JAX generation.py:244-258)
             cropfrom = math.floor(mask_args["cropfrom"] / 100.0 * sample_size)
@@ -122,23 +213,10 @@ def generate_diffusion_cond(
             mask = build_mask(sample_size, mask_args, device=device)[None, :, None]
         else:
             sampler_kwargs["sigma_max"] = init_noise_level
-
     inputs.update(cfg_scale=cfg_scale, scale_phi=scale_phi)
-    if model.diffusion_objective == "v":
-        latents = sample_k(model.model, noise, init_latent, mask, steps, generator=generator,
-                           callback=callback, verbose=verbose, step_noise=step_noise,
-                           merge_noise=merge_noise, **sampler_kwargs, **inputs)
-    elif model.diffusion_objective == "rectified_flow":
-        # sample_rf takes sigma_max alone, which carries init_noise_level
-        for key in ("sigma_min", "sampler_type", "rho"):
-            sampler_kwargs.pop(key, None)
-        latents = sample_rf(model.model, noise, init_data=init_latent, steps=steps,
-                            callback=callback, verbose=verbose, **sampler_kwargs, **inputs)
-    else:
-        raise ValueError(f"No such sampling mode: '{model.diffusion_objective}'")
-    if model.pretransform is not None and not return_latents:
-        return model.pretransform.decode_nwc(latents).transpose(1, 2)
-    return latents.transpose(1, 2)
+    return _sample_and_decode(model, noise, init_latent, mask, steps, generator, return_latents,
+                              sampler_kwargs, callback=callback, verbose=verbose,
+                              step_noise=step_noise, merge_noise=merge_noise, **inputs)
 
 
 def build_mask(sample_size: int, mask_args: tp.Dict[str, float],

@@ -1,11 +1,12 @@
-"""k-diffusion and rectified-flow sampling (counterpart of
+"""k-diffusion, DDIM and rectified-flow sampling (counterpart of
 friendly_stable_audio_tools_tpu/inference/sampling.py).
 
 Every sampler of the JAX package's `sample_k` (the seven of `_K_SAMPLERS`,
 `k-dpm-fast` and `k-dpm-adaptive`) with its three starts (from noise,
 variation, inpainting with the per-step merge), the v-denoiser wrapper, the
-`cond_fn` guidance hook and the per-evaluation step hook; and `sample_rf`
-for rectified-flow models. Each runs as a Python loop over steps; the state
+`cond_fn` guidance hook and the per-evaluation step hook; DDIM `sample`
+for v-objective models (the diffusion autoencoder's decode); and
+`sample_rf` for rectified-flow models. Each runs as a Python loop over steps; the state
 stays fp32 on the model's device whatever the model's dtype.
 
 Noise. The samplers' standard-normal draws come from the caller's
@@ -523,6 +524,45 @@ def sample_k(model_fn: tp.Callable, noise: torch.Tensor,
                                    atol=0.01)
     return _K_SAMPLERS[sampler_type](denoiser, x, sigmas, generator=generator, merge=merge,
                                      noise=step_noise)
+
+
+# --------------------------------------------------------------------------
+# v-diffusion DDIM (JAX sampling.py:855-898)
+# --------------------------------------------------------------------------
+
+
+def sample(model_fn: tp.Callable, x: torch.Tensor, steps: int, eta: float = 0.0,
+           generator: tp.Optional[torch.Generator] = None, noise: Noise = None,
+           verbose: bool = False, callback: tp.Optional[tp.Callable] = None,
+           **extra_args) -> torch.Tensor:
+    """DDIM for v-objective models: t from 1 down to 0 in `steps` equal
+    steps (the schedule in fp32, as the JAX scan has it); each step predicts
+    x0 = x alpha - v sigma and eps = x sigma + v alpha and recombines them at
+    the next step's (alpha, sigma), with `eta` > 0 adding fresh noise of
+    the DDIM sigma (step i's draw `noise[i]`, else from `generator`). The
+    final step keeps x (the JAX `jnp.where(i < steps - 1, ...)`) and the
+    last prediction is returned. The step hook sees (x, sigma, pred)."""
+    emit = make_step_emitter(verbose=verbose, callback=callback, total_steps=steps)
+    t = torch.from_numpy(np.linspace(1, 0, steps + 1, dtype=np.float32)[:-1]).to(x.device)
+    alphas, sigmas = torch.cos(t * (math.pi / 2)), torch.sin(t * (math.pi / 2))
+    x = x.float()
+    pred = torch.zeros_like(x)
+    for i in range(steps):
+        v = model_fn(x, t[i].expand(x.shape[0]), **extra_args).float()
+        pred = x * alphas[i] - v * sigmas[i]
+        if emit is not None:
+            emit(x, float(sigmas[i]), pred)
+        if i == steps - 1:
+            break
+        eps = x * sigmas[i] + v * alphas[i]
+        a_next, s_next = alphas[i + 1], sigmas[i + 1]
+        ddim_sigma = eta * torch.sqrt(s_next ** 2 / sigmas[i].square().clamp_min(1e-20)) \
+            * torch.sqrt((1 - alphas[i] ** 2 / a_next.square().clamp_min(1e-20)).clamp_min(0.0))
+        adjusted_sigma = torch.sqrt((s_next ** 2 - ddim_sigma ** 2).clamp_min(0.0))
+        x = pred * a_next + eps * adjusted_sigma
+        if eta:
+            x = x + _draw(noise, i, x, generator) * ddim_sigma
+    return pred
 
 
 # --------------------------------------------------------------------------

@@ -14,11 +14,14 @@ encoder and decoder run in the dtype of their input (the pretransform casts
 it, as the JAX package's does, models/pretransforms.py:80-81); their
 parameters stay fp32, as the JAX package's do. The `dac` encoder and decoder types are in
 models/dac_codec.py, the `seanet` ones (the audio LM's EnCodec-style
-tokenizer, with the `rvq` bottleneck) in models/seanet.py.
+tokenizer, with the `rvq` bottleneck) in models/seanet.py. The diffusion
+autoencoder (`diffusion_autoencoder`, :class:`DiffusionAutoencoder`) pairs
+such an encoder with a diffusion decoder sampled by DDIM.
 """
 
 from __future__ import annotations
 
+import math
 import typing as tp
 
 import torch
@@ -275,3 +278,99 @@ def create_autoencoder_from_config(config: tp.Dict[str, tp.Any]) -> AudioAutoenc
     if config["model"].get("pretransform") is not None:
         raise NotImplementedError("an autoencoder inside a pretransform is not in the torch port")
     return autoencoder_from_model_config(config["model"], sample_rate=config["sample_rate"])
+
+
+class DiffusionAutoencoder(AudioAutoencoder):
+    """An autoencoder whose decoder is a diffusion model conditioned on the
+    latents (JAX :714-774): `encode` through the encoder and bottleneck (on
+    the card the Oobleck or DAC encoder's kernels K2 and K3), `decode` through
+    the bottleneck's and the optional decoder's decode, the nearest upsample
+    of the latents to the diffusion length ((arange(L_up) L) // L_up), DDIM
+    over `diffusion` (a models/diffusion.py:DiffusionModelWrapper whose
+    backbone takes the latents as its input-concat condition) and the
+    pretransform's decode where there is one."""
+
+    def __init__(self, encoder: tp.Optional[nn.Module], decoder: tp.Optional[nn.Module],
+                 bottleneck: tp.Optional[nn.Module], diffusion: nn.Module,
+                 diffusion_downsampling_ratio: int, downsampling_ratio: int, io_channels: int,
+                 sample_rate: int, latent_dim: int, pretransform: tp.Optional[nn.Module] = None):
+        super().__init__(encoder, decoder, bottleneck, downsampling_ratio, io_channels,
+                         sample_rate, latent_dim)
+        self.diffusion = diffusion
+        self.pretransform = pretransform
+        self.diffusion_downsampling_ratio = diffusion_downsampling_ratio
+        self.min_length = downsampling_ratio * diffusion_downsampling_ratio
+
+    def decode_nwc(self, z: torch.Tensor) -> torch.Tensor:
+        """The bottleneck's and the decoder's decode alone (JAX :755-762)."""
+        if self.bottleneck is not None:
+            z = self.bottleneck.decode(z)
+        return z if self.decoder is None else self.decoder(z)
+
+    @torch.no_grad()
+    def encode(self, audio: torch.Tensor, **kwargs) -> torch.Tensor:
+        """audio [B, C, T] -> latents [B, latent_dim, L] (JAX
+        AudioAutoencoder.encode: the pretransform's encode first)."""
+        x = audio.transpose(1, 2)
+        if self.pretransform is not None:
+            x = self.pretransform.encode_nwc(x)
+        return self.encode_nwc(x, **kwargs).transpose(1, 2)
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor, steps: int = 100,
+               generator: tp.Optional[torch.Generator] = None,
+               noise: tp.Optional[torch.Tensor] = None, **sampler_kwargs) -> torch.Tensor:
+        """latents [B, latent_dim, L] -> audio [B, io_channels, L * ratio]
+        (JAX :737-774): DDIM at eta 0 from unit noise ([B, L * ratio,
+        io_channels]: `noise`, else a draw from `generator`) with the
+        upsampled latents as the backbone's input-concat condition."""
+        from ..inference.sampling import sample
+
+        z = latents.transpose(1, 2)
+        up = z.shape[1] * self.downsampling_ratio
+        z = self.decode_nwc(z)
+        if z.shape[1] != up:
+            z = z[:, (torch.arange(up, device=z.device) * z.shape[1]) // up]
+        if noise is None:
+            noise = torch.randn((z.shape[0], up, self.io_channels), generator=generator,
+                                device=z.device)
+        decoded = sample(self.diffusion.model, noise.to(z.device), steps, 0,
+                         input_concat_cond=z, **sampler_kwargs)
+        if self.pretransform is not None:
+            decoded = self.pretransform.decode_nwc(decoded)
+        return decoded.transpose(1, 2)
+
+
+def create_diffAE_from_config(config: tp.Dict[str, tp.Any]) -> DiffusionAutoencoder:
+    """The `diffusion_autoencoder` model type (JAX :777-834): encoder and
+    decoder (each optional), bottleneck, pretransform, and a `DAU1d`,
+    `adp_1d` or `dit` diffusion decoder taking the latents by input-concat."""
+    from .diffusion import DiffusionModelWrapper, UNet1DCondWrapper
+    from .dance_diffusion import DAU1DCondWrapper
+    from .dit import DiffusionTransformer
+    from .pretransforms import create_pretransform_from_config
+
+    ae = config["model"]
+    diffusion = ae["diffusion"]
+    kind, cfg = diffusion["type"], diffusion["config"]
+    if kind == "DAU1d":
+        backbone, ratio = DAU1DCondWrapper(**cfg), math.prod(cfg.get("strides", [2] * 13))
+    elif kind == "adp_1d":
+        backbone, ratio = UNet1DCondWrapper(**cfg), math.prod(cfg["factors"])
+    elif kind == "dit":
+        backbone, ratio = DiffusionTransformer(**cfg), 1
+    else:
+        raise NotImplementedError(f"No such model type: '{kind}'")
+    bottleneck, pretransform = ae.get("bottleneck"), ae.get("pretransform")
+    return DiffusionAutoencoder(
+        encoder=create_encoder_from_config(ae["encoder"]) if "encoder" in ae else None,
+        decoder=create_decoder_from_config(ae["decoder"]) if "decoder" in ae else None,
+        bottleneck=create_bottleneck_from_config(bottleneck) if bottleneck else None,
+        diffusion=DiffusionModelWrapper(backbone, io_channels=ae["io_channels"],
+                                        sample_size=config.get("sample_size", 0),
+                                        sample_rate=config["sample_rate"],
+                                        min_input_length=ratio),
+        diffusion_downsampling_ratio=ratio, downsampling_ratio=ae["downsampling_ratio"],
+        io_channels=ae["io_channels"], sample_rate=config["sample_rate"],
+        latent_dim=ae["latent_dim"],
+        pretransform=create_pretransform_from_config(pretransform) if pretransform else None)

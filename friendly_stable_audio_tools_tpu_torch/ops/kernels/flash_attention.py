@@ -88,7 +88,10 @@ the fp32 K7 takes the same design with 3xTF32 products).
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
 the kernels or raise. The CUDA kernels take q, k and v of one length; K7
 fp32 or bf16 (bf16 only without the LSE and not causal), K8 and K9 fp32;
-K7 and K8 head dim 64 or 80, K9 head dim 64. The other variants of the TPU
+the fp32 K7 head dim 32, 64 or 80 (32: Dance Diffusion's U-Net at
+generate_diffusion_uncond's default length), the bf16 K7 and K8 64 or 80,
+K9 64. Under grad a head dim that the chosen backward does not take raises
+before K7 launches. The other variants of the TPU
 kernels (bf16 K7 with its LSE, the rope-fused one, other head dims,
 rectangular calls, K9 at D 80) are still to be ported (ROADMAP queue B).
 """
@@ -112,6 +115,9 @@ fused_backward_launches = 0  # K8
 causal_forward_launches = 0   # causal K7 with its LSE
 causal_serving_launches = 0   # causal K7 without it
 causal_backward_launches = 0  # causal K9
+# the fp32 K7 at head dim 32 (Dance Diffusion's U-Net), counted apart from
+# D 64 and 80, with or without its LSE
+d32_launches = 0
 
 LOG2E = 1.4426950408889634
 # fp32 score bytes one chunk of heads of a plain version may hold (one
@@ -249,7 +255,9 @@ def backward_kernel(t_q: int, t_k: int, d: int, causal: bool = False) -> str:
     return "K8" if bwd_fused_plan(t_q, (t_k + 15) // 16 * 16, d) is not None else "K9"
 
 
-FLASH_HEAD_DIMS = (64, 80)  # K7's and K8's CUDA kernels
+FLASH_HEAD_DIMS = (32, 64, 80)  # the fp32 K7's CUDA kernel
+BF16_HEAD_DIMS = (64, 80)  # the bf16 K7's
+FUSED_BACKWARD_HEAD_DIMS = (64, 80)  # K8's
 BACKWARD_HEAD_DIMS = (64,)  # K9's
 
 
@@ -309,7 +317,7 @@ def _flash_forward_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid
             "flash_forward: the bf16 CUDA kernel serves non-causal calls without the LSE; bf16 "
             "K7 with its LSE (a bf16 training step) and causal bf16 K7 are still to be ported "
             "(ROADMAP queue B)")
-    q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FLASH_HEAD_DIMS,
+    q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=BF16_HEAD_DIMS,
                          dtype=torch.bfloat16)
     bh, t, d = q.shape
     out = torch.empty_like(q)
@@ -329,6 +337,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query i. On CUDA, fp32 runs the fp32 kernel and bf16 the bf16 one
     (serving only); another dtype raises."""
     global forward_launches, serving_launches, causal_forward_launches, causal_serving_launches
+    global d32_launches
     valid = _valid_len(k.shape[1], kv_len)
     _check_causal(q, k, causal)
     if q.device.type == "cpu":
@@ -345,7 +354,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if lse is None else lse.data_ptr(), scratch.data_ptr(), bh, t, valid, d, int(causal),
         LOG2E / math.sqrt(d), _stream(q.device))
     build.check(err, "flash_forward")
-    if causal and save_stats:
+    if d == 32:
+        d32_launches += 1
+    elif causal and save_stats:
         causal_forward_launches += 1
     elif causal:
         causal_serving_launches += 1
@@ -392,7 +403,7 @@ def flash_backward_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out:
     if q.device.type == "cpu":
         return flash_backward_fused_plain(q, k, v, out, lse, do, kv_len)
     q, k, v, out, do = _cuda_args("flash_backward_fused", q, k, v, out, do,
-                                  head_dims=FLASH_HEAD_DIMS)
+                                  head_dims=FUSED_BACKWARD_HEAD_DIMS)
     bh, t, d = q.shape
     lse, delta = _lse_delta("flash_backward_fused", lse, out, do)
     dq = torch.zeros_like(q)  # the key tiles add their parts into it
@@ -420,12 +431,31 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_backward(q, k, v, out, lse, do, kv_len)
 
 
+def check_backward_head_dim(t_q: int, t_k: int, d: int, causal: bool = False) -> None:
+    """Raises, naming ROADMAP queue B, where the backward that
+    :func:`flash_attention_backward` would choose on CUDA tensors has no
+    kernel at head dim d (K8 takes 64 and 80, K9 64): a training call at
+    head dim 32 (Dance Diffusion's U-Net from 262,144 samples) stops here,
+    before its forward launches anything."""
+    kernel = backward_kernel(t_q, t_k, d, causal)
+    dims = FUSED_BACKWARD_HEAD_DIMS if kernel == "K8" else BACKWARD_HEAD_DIMS
+    if d not in dims:
+        raise NotImplementedError(
+            f"flash attention under grad: the backward {kernel} takes head dim "
+            f"{' or '.join(map(str, dims))} on the card, got {d}; {kernel} at head dim {d} is "
+            f"still to be ported (ROADMAP queue B)")
+
+
 class FlashAttention(torch.autograd.Function):
     """K7 with its LSE forward, K8 or K9 backward (the ``_flash`` custom_vjp)
-    on q, k, v [BH, T, D]; kv_len and causal take no gradient."""
+    on q, k, v [BH, T, D]; kv_len and causal take no gradient. On CUDA
+    tensors a head dim that the backward's kernel does not take raises before
+    the forward launches (:func:`check_backward_head_dim`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len=None, causal=False):
+        if q.device.type != "cpu":
+            check_backward_head_dim(q.shape[1], k.shape[1], q.shape[2], causal)
         if causal:
             out, lse = flash_forward(q, k, v, kv_len, save_stats=True, causal=True)
         else:

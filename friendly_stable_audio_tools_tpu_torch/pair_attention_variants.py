@@ -107,7 +107,7 @@ VARIANTS = {
         "if (tid < kQ && q0 + tid < T)\n      " + K9_ROW_REDUCE,
         "if (tid == 0 && q0 + kQ <= T)\n"
         "      bulk_reduce_add_f32(dq + head + (size_t)q0 * kD, staged, kQ * kD * 4);")]),
-    "k7_f32_slots2": (K7_SOURCE, [("static constexpr int kSlots = D == 64 ? 4 : 3;",
+    "k7_f32_slots2": (K7_SOURCE, [("static constexpr int kSlots = D == 32 ? 8 : D == 64 ? 4 : 3;",
                                    "static constexpr int kSlots = 2;")]),
     "k7_f32_turns_off": (K7_SOURCE, [
         ("auto my_turn = [&] { bar_sync(kTurnBarrier + wg, 256); };", "auto my_turn = [&] {};"),

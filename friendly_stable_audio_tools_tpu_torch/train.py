@@ -6,7 +6,8 @@
 
 Flags and their defaults come from `defaults.ini` (in the working directory,
 else the repository's). Trains a `diffusion_cond`, an `lm` or an
-`autoencoder` model on one device: a CUDA card by default, raising when
+`autoencoder` model, or a `diffusion_uncond` (Dance Diffusion),
+`diffusion_prior` or `diffusion_autoencoder` one, on one device: a CUDA card by default, raising when
 there is none; `--device cpu` trains on the CPU through the kernels' plain
 versions. On the card the DiT trains in
 fp32 with its self-attention routed as the JAX package routes it
@@ -28,7 +29,12 @@ steps in turn, the VAE's K2, K3 and K4 forwards under autograd with their
 plain versions differentiated, the EnCodec STFT discriminator and the
 multi-resolution STFT losses on torch.stft. TF32 is off for matrix
 products and convolutions (cuDNN's LSTM included), so plain fp32 layers
-compute in fp32.
+compute in fp32. Dance Diffusion's U-Net (`DAU1d`, e.g. the JAX package's
+configs/model_configs/dance_diffusion/dance_diffusion_base_44k.json) trains
+in fp32 at its config's 65,536 samples, where its self-attention (at most
+256 tokens) is plain; from 262,144 samples its attention levels reach the
+flash gate at head dim 32, whose backward kernels are still to be ported:
+such a step raises before any launch.
 Without `--pretrained-ckpt-path` the weights are random, drawn from
 `--seed`. Checkpoints (`torch.save`) go to
 `<save-dir>/<name>/<run id>/checkpoints/step_<n>/`; `--ckpt-path` resumes
@@ -112,7 +118,8 @@ def main(argv=None):
     train_dl = create_dataloader_from_config(
         dataset_config, batch_size=args.batch_size, num_workers=args.num_workers,
         sample_rate=model_config["sample_rate"], sample_size=model_config["sample_size"],
-        audio_channels=model_config["audio_channels"], seed=seed)
+        # the shipped Dance Diffusion configs name no audio_channels: stereo, as their U-Net
+        audio_channels=model_config.get("audio_channels", 2), seed=seed)
 
     model = create_model_from_config(model_config, seed=seed, device=device)
     if args.pretrained_ckpt_path:

@@ -19,6 +19,16 @@ failed demo is not retried on the CPU or through the plain versions.
   (`demo_cfg<scale>_<i>.wav`). An inpaint model's demo regenerates
   everything: its `inpaint_mask` and `inpaint_masked_input` are zeros
   (the JAX package's demo has no inpaint conditioning to give it).
+  A mono-to-stereo prior's demo takes its `source` from the batch: the
+  dual-mono version of its first clips, one generation per clip.
+- :class:`DiffusionDemoCallback` (`diffusion_uncond`): the EMA weights
+  swapped in as above, `num_demos` unconditional generations with
+  dpmpp-3m-sde between sigma 0.3 and 500, seeded with the step
+  (`demo_<i>.wav`).
+- :class:`DiffusionAutoencoderDemoCallback` (`diffusion_autoencoder`): the
+  EMA weights of both trees swapped in, the batch's first clips encoded and
+  decoded by DDIM at `demo_steps` (`recon_<i>.wav`, `real_<i>.wav`), the
+  mel spectrogram of the first and the latents' PCA point cloud.
 - :class:`AutoencoderDemoCallback`: the batch's round trip through the live
   autoencoder (`recon_<i>.wav`, `real_<i>.wav`), the mel spectrogram of
   the first reconstruction and the latents' PCA point cloud
@@ -70,6 +80,89 @@ class DemoCallback:
         return path
 
 
+class _EMAWeights:
+    """The trainer's EMA weights in its trained parameters for the block
+    (where it keeps an EMA), the live ones restored after; the model in eval
+    mode meanwhile."""
+
+    def __init__(self, wrapper, model):
+        self.wrapper, self.model = wrapper, model
+
+    def __enter__(self):
+        w = self.wrapper
+        self.live = None
+        if w.ema is not None:
+            self.live = [p.detach().clone() for p in w.dit_params]
+            for p, e in zip(w.dit_params, w.ema):
+                p.copy_(e)
+        self.was_training = self.model.training
+        self.model.eval()
+        return self
+
+    def __exit__(self, *exc):
+        if self.live is not None:
+            for p, v in zip(self.wrapper.dit_params, self.live):
+                p.copy_(v)
+        self.model.train(self.was_training)
+
+
+class DiffusionDemoCallback(DemoCallback):
+    """Unconditional sampling demos (JAX demos.py:106-135)."""
+
+    def __init__(self, demo_every: int = 2000, num_demos: int = 4, demo_steps: int = 250,
+                 sample_rate: int = 48000, sample_size: int = 65536, **kwargs):
+        super().__init__(demo_every)
+        self.num_demos = num_demos
+        self.demo_steps = demo_steps
+        self.sample_rate = sample_rate
+        self.sample_size = sample_size
+
+    def run_demo(self, trainer, step: int, batch) -> None:
+        from ..inference.generation import generate_diffusion_uncond
+
+        model = trainer.wrapper.model
+        with _EMAWeights(trainer.wrapper, model):
+            audio = generate_diffusion_uncond(
+                model, steps=self.demo_steps, batch_size=self.num_demos,
+                sample_size=self.sample_size, seed=step, sampler_type="dpmpp-3m-sde",
+                sigma_min=0.3, sigma_max=500)
+        out = self.out_dir(trainer, step)
+        for i, clip in enumerate(audio):
+            _write(trainer, out, f"demo_{i}.wav", f"demo/audio_{i}", clip, self.sample_rate, step)
+
+
+class DiffusionAutoencoderDemoCallback(DemoCallback):
+    """Encode -> DDIM decode reconstructions (JAX demos.py:193-240)."""
+
+    def __init__(self, demo_every: int = 2000, max_num_sample: int = 4, demo_steps: int = 100,
+                 sample_size: int = 65536, sample_rate: int = 48000, **kwargs):
+        super().__init__(demo_every)
+        self.max_num_sample = max_num_sample
+        self.demo_steps = demo_steps
+        self.sample_rate = sample_rate
+
+    def run_demo(self, trainer, step: int, batch) -> None:
+        model = trainer.wrapper.model
+        dev = trainer.wrapper.device
+        reals = batch[0][:self.max_num_sample].to(dev)  # [B, T, C]
+        with _EMAWeights(trainer.wrapper, model):
+            latents = model.encode(reals.transpose(1, 2))
+            recon = model.decode(latents, steps=self.demo_steps,
+                                 generator=torch.Generator(device=dev).manual_seed(step))
+        out = self.out_dir(trainer, step)
+        for i in range(recon.shape[0]):
+            _write(trainer, out, f"recon_{i}.wav", f"demo/diffae_recon_{i}", recon[i],
+                   self.sample_rate, step)
+            _write(trainer, out, f"real_{i}.wav", f"demo/diffae_real_{i}", reals[i].T,
+                   self.sample_rate, step)
+        fig = audio_spectrogram_image(recon[0].float().cpu().numpy(), self.sample_rate)
+        if fig is not None:
+            trainer.logger.log_image("demo/diffae_recon_melspec", fig, step=step)
+        pc = pca_point_cloud(latents.float().cpu().numpy())
+        np.save(os.path.join(out, "latent_pca.npy"), pc)
+        trainer.logger.log_object3d("demo/diffae_latent_pca", pc, step=step)
+
+
 class DiffusionCondDemoCallback(DemoCallback):
     def __init__(self, demo_every: int = 2000, num_demos: int = 8, demo_steps: int = 250,
                  sample_size: int = 2097152, sample_rate: int = 44100,
@@ -83,14 +176,22 @@ class DiffusionCondDemoCallback(DemoCallback):
         self.demo_conditioning = (demo_conditioning or [{}])[:num_demos]
         self.demo_cfg_scales = list(demo_cfg_scales)
 
-    def conditioning_tensors(self, model) -> dict:
-        """The conditioner's tensors for `demo_conditioning`, and zeros for
-        an inpaint model's `inpaint_mask` [B, L, 1] and
-        `inpaint_masked_input` [B, L, C] (everything regenerated)."""
+    def conditioning_tensors(self, model, batch=None) -> dict:
+        """The conditioner's tensors for `demo_conditioning`, zeros for an
+        inpaint model's `inpaint_mask` [B, L, 1] and `inpaint_masked_input`
+        [B, L, C] (everything regenerated), and a prior's `source`: the
+        dual-mono version of the batch's first clips (as many as
+        `demo_conditioning`), encoded where the model has a pretransform."""
         dev = next(model.parameters()).device
         cond = (model.conditioner(self.demo_conditioning, device=dev)
                 if model.conditioner is not None else {})
         b = len(self.demo_conditioning)
+        if "source" in model.input_concat_ids and "source" not in cond and batch is not None:
+            reals = batch[0][:b].to(dev).float()
+            source = reals.mean(-1, keepdim=True).repeat(1, 1, reals.shape[-1])
+            if model.pretransform is not None:
+                source = model.pretransform.encode_nwc(source)
+            cond["source"] = (source, torch.ones(source.shape[:2], dtype=torch.bool, device=dev))
         length = self.sample_size // (model.pretransform.downsampling_ratio
                                       if model.pretransform is not None else 1)
         for key, channels in (("inpaint_mask", 1), ("inpaint_masked_input", model.io_channels)):
@@ -104,21 +205,14 @@ class DiffusionCondDemoCallback(DemoCallback):
 
         wrapper = trainer.wrapper
         model = wrapper.model
-        live = None
-        if wrapper.ema is not None:
-            live = [p.detach().clone() for p in wrapper.dit_params]
-            for p, e in zip(wrapper.dit_params, wrapper.ema):
-                p.copy_(e)
-        was_training = model.training
-        model.eval()
-        try:
+        with _EMAWeights(wrapper, model):
             out = self.out_dir(trainer, step)
             if batch is not None and model.pretransform is not None:
                 latents = wrapper.latents(batch[0][:1].to(wrapper.device))
                 recon = model.pretransform.decode_nwc(latents).transpose(1, 2)
                 _write(trainer, out, "pretransform_recon.wav", "demo/pretransform_recon",
                        recon[0], self.sample_rate, step)
-            cond = self.conditioning_tensors(model)
+            cond = self.conditioning_tensors(model, batch)
             for cfg_scale in self.demo_cfg_scales:
                 audio = generate_diffusion_cond(
                     model, steps=self.demo_steps, cfg_scale=cfg_scale, conditioning_tensors=cond,
@@ -127,11 +221,6 @@ class DiffusionCondDemoCallback(DemoCallback):
                 for i, clip in enumerate(audio):
                     _write(trainer, out, f"demo_cfg{cfg_scale}_{i}.wav",
                            f"demo/audio_cfg{cfg_scale}_{i}", clip, self.sample_rate, step)
-        finally:
-            if live is not None:
-                for p, v in zip(wrapper.dit_params, live):
-                    p.copy_(v)
-            model.train(was_training)
 
 
 class AutoencoderDemoCallback(DemoCallback):

@@ -19,6 +19,12 @@ Every random draw comes from the wrapper's `torch.Generator`; the tests
 pass the draws in instead (`draws=`), since the two frameworks' random
 streams differ.
 
+The unconditional wrapper (`diffusion_uncond`: Dance Diffusion) is the
+same step without a conditioner or CFG dropout; the mono-to-stereo prior's
+and the diffusion autoencoder's trainers are in
+training/diffusion_prior_trainer.py and
+training/diffusion_autoencoder_trainer.py.
+
 The inpaint wrapper encodes once, draws a keep mask per element (random
 segments, everything, or a suffix to regenerate) and feeds the mask and
 the masked latents to the DiT as the `inpaint_mask` and
@@ -209,11 +215,18 @@ class DiffusionCondTrainingWrapper:
                              **inputs)
         targets = noise * alphas - x * sigmas if model.diffusion_objective == "v" else noise - x
         loss, losses = self.losses({"output": output, "targets": targets, "padding_mask": mask})
+        loss, losses = self.extra_losses(loss, losses, output, x * alphas + noise * sigmas,
+                                         alphas, sigmas)
         metrics = {**{k: v.detach() for k, v in losses.items()},
                    "std_data": x.std(unbiased=False)}
         if self.log_loss_info:
             metrics.update(sigma_bucket_losses(output.detach(), targets, sigmas.flatten()))
         return loss, metrics
+
+    def extra_losses(self, loss, losses, output, noised, alphas, sigmas):
+        """Further loss terms of a derived trainer (the prior's reconstruction
+        loss): (loss, losses) as they stand here."""
+        return loss, losses
 
     def train_step(self, reals: torch.Tensor, metadata: tp.Sequence[dict], accum: int = 1,
                    draws: tp.Optional[tp.Sequence[dict]] = None) -> tp.Dict[str, float]:
@@ -279,6 +292,50 @@ class DiffusionCondTrainingWrapper:
         sd = {f"model.{n}": v for n, v in zip(names, dit)}
         sd.update({n: p.detach() for n, p in self.trainable.items() if not n.startswith("model.")})
         torch.save(sd, path)
+
+
+class DiffusionUncondTrainingWrapper(DiffusionCondTrainingWrapper):
+    """The `diffusion_uncond` trainer (JAX training/diffusion.py:392-470):
+    Adam at `lr` (or `optimizer_configs`), the EMA of the backbone, MSE on
+    the v target (or the rectified-flow target noise - x) at quasi-random
+    uniform timesteps, the frozen pretransform's encode unless
+    `pre_encoded` (whose batches are the diffusion input itself, as in the
+    JAX step), and the EMA-preferring export. The step, state, update and
+    export are the conditioned trainer's, with no conditioner and no CFG
+    dropout; the draws "t" and "noise" are injectable as there."""
+
+    def __init__(self, model, lr: tp.Optional[float] = None, use_ema: bool = True,
+                 optimizer_configs: tp.Optional[dict] = None, pre_encoded: bool = False,
+                 timestep_sampler: str = "uniform"):
+        super().__init__(model, lr=lr, use_ema=use_ema, optimizer_configs=optimizer_configs,
+                         cfg_dropout_prob=0.0, pre_encoded=pre_encoded,
+                         timestep_sampler=timestep_sampler)
+
+    def latents(self, reals: torch.Tensor) -> torch.Tensor:
+        pt = self.model.pretransform
+        return reals if pt is None or self.pre_encoded else pt.encode_nwc(reals)
+
+    def loss(self, reals: torch.Tensor, metadata: tp.Sequence[dict], qmc_counter: int = 0,
+             draws: tp.Optional[dict] = None):
+        draws, model, dev = draws or {}, self.model, self.device
+        x = self.latents(reals.to(dev)).float()
+        t = draws.get("t")
+        if t is None:
+            t = draw_timesteps(self.timestep_sampler, x.shape[0], qmc_counter, self.generator, dev)
+        t = t.to(dev).float()
+        if model.diffusion_objective == "v":
+            alphas, sigmas = get_alphas_sigmas(t)
+        else:
+            alphas, sigmas = 1 - t, t
+        alphas, sigmas = alphas[:, None, None], sigmas[:, None, None]
+        noise = draws.get("noise")
+        if noise is None:
+            noise = torch.randn(x.shape, generator=self.generator, device=dev)
+        noise = noise.to(dev).float()
+        output = model.model(x * alphas + noise * sigmas, t)
+        targets = noise * alphas - x * sigmas if model.diffusion_objective == "v" else noise - x
+        loss, losses = self.losses({"output": output, "targets": targets})
+        return loss, {k: v.detach() for k, v in losses.items()}
 
 
 N_SIGMA_BUCKETS = 8

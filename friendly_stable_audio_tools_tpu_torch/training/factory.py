@@ -1,24 +1,17 @@
 """Training-wrapper and demo-callback factories (counterpart of
-friendly_stable_audio_tools_tpu/training/factory.py). The port trains the
-`diffusion_cond` model type (the `diffusion_cond` branch, :67-82) with
-either backbone (the DiT of Stable Audio Open and 2.0, the ADP U-Net of
-Stable Audio 1.0) and every option of the JAX wrapper, the
-`diffusion_cond_inpaint` type (:83-96), the `lm` model type (the `lm`
-branch, :115-124) from raw audio, and the `autoencoder` model type by
-AE-GAN training (the `autoencoder` branch, :17-55). The other trainers
-(`diffusion_uncond`, `diffusion_prior`, `diffusion_autoencoder`) and
-their demos raise NotImplementedError (ROADMAP queue A 7)."""
+friendly_stable_audio_tools_tpu/training/factory.py). Every model type of
+the JAX factory trains in the port: `diffusion_cond` (the `diffusion_cond`
+branch, :67-82) with either backbone (the DiT of Stable Audio Open and 2.0,
+the ADP U-Net of Stable Audio 1.0) and every option of the JAX wrapper, the
+`diffusion_cond_inpaint` type (:83-96), `diffusion_uncond` (Dance
+Diffusion, :58-64), the mono-to-stereo `diffusion_prior` (:97-106), the
+`diffusion_autoencoder` (:107-114), the `lm` model type (the `lm` branch,
+:115-124) from raw audio, and the `autoencoder` model type by AE-GAN
+training (the `autoencoder` branch, :17-55)."""
 
 from __future__ import annotations
 
 import torch
-
-_NOT_PORTED = ("diffusion_uncond", "diffusion_prior", "diffusion_autoencoder")
-
-
-def _not_ported(model_type: str):
-    return NotImplementedError(f"model type {model_type!r} is not in the torch port yet "
-                               "(ROADMAP queue A 7)")
 
 
 def create_training_wrapper_from_config(model_config: dict, model):
@@ -38,8 +31,26 @@ def create_training_wrapper_from_config(model_config: dict, model):
             use_ema=training_config.get("use_ema", False),
             optimizer_configs=training_config.get("optimizer_configs", None),
         )
-    if model_type in _NOT_PORTED:
-        raise _not_ported(model_type)
+    if model_type == "diffusion_uncond":
+        from .diffusion import DiffusionUncondTrainingWrapper
+
+        return DiffusionUncondTrainingWrapper(
+            model, lr=training_config["learning_rate"],
+            pre_encoded=training_config.get("pre_encoded", False))
+    if model_type == "diffusion_prior":
+        from .diffusion_prior_trainer import DiffusionPriorTrainingWrapper
+
+        return DiffusionPriorTrainingWrapper(
+            model, lr=training_config["learning_rate"],
+            prior_type=training_config.get("prior_type", "mono_stereo"),
+            log_loss_info=training_config.get("log_loss_info", False),
+            use_reconstruction_loss=training_config.get("use_reconstruction_loss", False))
+    if model_type == "diffusion_autoencoder":
+        from .diffusion_autoencoder_trainer import DiffusionAutoencoderTrainingWrapper
+
+        return DiffusionAutoencoderTrainingWrapper(
+            model, lr=training_config["learning_rate"],
+            use_reconstruction_loss=training_config.get("use_reconstruction_loss", False))
     if model_type not in ("diffusion_cond", "diffusion_cond_inpaint"):
         raise NotImplementedError(f"Unknown model type: {model_type}")
     from .diffusion import DiffusionCondInpaintTrainingWrapper, DiffusionCondTrainingWrapper
@@ -103,7 +114,20 @@ def create_demo_callback_from_config(model_config: dict, **kwargs):
             max_num_sample=demo_config.get("max_num_sample", 4),
             sample_size=model_config["sample_size"], sample_rate=model_config["sample_rate"],
             **kwargs)
-    if model_type in ("diffusion_cond", "diffusion_cond_inpaint"):
+    if model_type == "diffusion_uncond":
+        return demos.DiffusionDemoCallback(
+            demo_every=demo_config.get("demo_every", 2000),
+            demo_steps=demo_config.get("demo_steps", 250),
+            sample_rate=model_config["sample_rate"], sample_size=model_config["sample_size"],
+            **kwargs)
+    if model_type == "diffusion_autoencoder":
+        return demos.DiffusionAutoencoderDemoCallback(
+            demo_every=demo_config.get("demo_every", 2000),
+            max_num_sample=demo_config.get("max_num_sample", 4),
+            demo_steps=demo_config.get("demo_steps", 100),
+            sample_size=model_config["sample_size"], sample_rate=model_config["sample_rate"],
+            **kwargs)
+    if model_type in ("diffusion_cond", "diffusion_cond_inpaint", "diffusion_prior"):
         return demos.DiffusionCondDemoCallback(
             demo_every=demo_config.get("demo_every", 2000),
             sample_size=model_config["sample_size"], sample_rate=model_config["sample_rate"],
@@ -119,6 +143,4 @@ def create_demo_callback_from_config(model_config: dict, **kwargs):
             demo_conditioning=demo_config.get("demo_cond", None),
             num_demos=demo_config.get("num_demos", 8),
             **kwargs)
-    if model_type in _NOT_PORTED:
-        raise _not_ported(model_type)
     raise NotImplementedError(f"Unknown model type: {model_type}")

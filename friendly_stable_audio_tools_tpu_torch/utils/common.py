@@ -3,7 +3,8 @@
 `init_weights_` follows the JAX package's initialisers module by module:
 fan-in scaled normal for linear layers with zero bias, torch's fan-in
 uniform for the weight-normed convs (the discriminator's 2-D ones too)
-with `g = ||v||` (so the initial weight equals v) and for the ADP U-Net's convs (weight and bias), unit gains, zero
+with `g = ||v||` (so the initial weight equals v) and for the ADP and
+Dance Diffusion U-Nets' convs (weight and bias), unit gains, zero
 log-scale snake parameters and unit single-parameter ones, unit-normal
 embeddings, Fourier weights and vector-quantizer codebooks, fan-in scaled
 normal LSTM weights with zero biases, unit gain and zero bias for the LayerNorms
@@ -21,7 +22,7 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..models import adp
+from ..models import adp, dance_diffusion
 from ..models.bottleneck import VectorQuantizer
 from ..models.clap import BiasLayerNorm
 from ..models.discriminators import WNConv2d
@@ -69,11 +70,14 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             _uniform_(m.v, bound, gen)
             m.g.copy_(m.v.square().sum(dim=(1, 2, 3)).sqrt())
             _uniform_(m.bias, bound, gen)
-        elif isinstance(m, (adp.Conv1d, adp.ConvTranspose1d)):
+        elif isinstance(m, (adp.Conv1d, adp.ConvTranspose1d, dance_diffusion.Conv1d,
+                            dance_diffusion.ConvTranspose1d)):
             k, cin, cout = m.weight.shape
-            bound = 1.0 / math.sqrt((cout if isinstance(m, adp.ConvTranspose1d) else cin) * k)
+            transposed = isinstance(m, (adp.ConvTranspose1d, dance_diffusion.ConvTranspose1d))
+            bound = 1.0 / math.sqrt((cout if transposed else cin) * k)
             _uniform_(m.weight, bound, gen)
-            _uniform_(m.bias, bound, gen)
+            if m.bias is not None:
+                _uniform_(m.bias, bound, gen)
         elif isinstance(m, Snake):
             m.alpha.fill_(1.0)
         elif isinstance(m, SnakeBeta):

@@ -47,6 +47,15 @@ H] and `bias_hh_l{n}`, with `bias_ih_l{n}` zero.
 :func:`clap_text_state_dict` reads a laion-clap checkpoint's text branch
 instead, by the key map of the JAX package's `models/clap.py:convert_clap_text_branch`.
 
+Dance Diffusion's U-Net (`DAU1d`) needs no rule of its own either: its
+blocks keep the JAX names (`level{i}_in0`, `level{i}_attn3`, `conv1`,
+`gn1`, `qkv_proj`, `timestep_embed`, `act1` for a Snake), its conv kernels
+the [k, Cin, Cout] layout and its GroupNorms `scale` and `bias`. The
+unconditional wrapper carries over by :func:`convert_diffusion_uncond`, the
+diffusion autoencoder by :func:`convert_diffusion_autoencoder` (its `ae`
+and `diffusion` trees), the mono-to-stereo prior by
+:func:`convert_conditioned_diffusion`.
+
 A standalone autoencoder (the `autoencoder` model type) carries over by
 :func:`convert_autoencoder`, and the AE-GAN trainer's EnCodec discriminator
 by :func:`convert_encodec_discriminator`: its scales `disc{i}` become
@@ -187,6 +196,31 @@ def convert_conditioned_diffusion(dit_params: tp.Mapping,
     sd = state_dict_from_jax(dit_params, "model.")
     for key, tree in (conditioner_params or {}).items():
         sd.update(state_dict_from_jax(tree, f"conditioner.conditioners.{key}."))
+    if pretransform_params is not None:
+        sd.update(state_dict_from_jax(pretransform_params, "pretransform.model."))
+    return sd
+
+
+def convert_diffusion_uncond(params: tp.Mapping,
+                             pretransform_params: tp.Optional[tp.Mapping] = None
+                             ) -> tp.Dict[str, torch.Tensor]:
+    """A JAX `DiffusionModelWrapper`'s `params` (the backbone's tree: Dance
+    Diffusion's `level{i}_*` blocks, the ADP `UNet1d` or the DiT) and its
+    pretransform's -> a state_dict of the port's `DiffusionModelWrapper`."""
+    sd = state_dict_from_jax(params, "model.")
+    if pretransform_params is not None:
+        sd.update(state_dict_from_jax(pretransform_params, "pretransform.model."))
+    return sd
+
+
+def convert_diffusion_autoencoder(ae_params: tp.Mapping, diffusion_params: tp.Mapping,
+                                  pretransform_params: tp.Optional[tp.Mapping] = None
+                                  ) -> tp.Dict[str, torch.Tensor]:
+    """A JAX `DiffusionAutoencoder`'s two trees (`params`: encoder, decoder
+    and bottleneck; `diffusion.params`: the diffusion backbone) and its
+    pretransform's -> a state_dict of the port's `DiffusionAutoencoder`."""
+    sd = convert_autoencoder(ae_params)
+    sd.update(state_dict_from_jax(diffusion_params, "diffusion.model."))
     if pretransform_params is not None:
         sd.update(state_dict_from_jax(pretransform_params, "pretransform.model."))
     return sd

@@ -125,13 +125,15 @@ def test_demo_factory_dispatch():
     cases = {"autoencoder": demos.AutoencoderDemoCallback,
              "diffusion_cond": demos.DiffusionCondDemoCallback,
              "diffusion_cond_inpaint": demos.DiffusionCondDemoCallback,
-             "lm": demos.AudioLanguageModelDemoCallback}
+             "lm": demos.AudioLanguageModelDemoCallback,
+             "diffusion_uncond": demos.DiffusionDemoCallback,
+             "diffusion_prior": demos.DiffusionCondDemoCallback,
+             "diffusion_autoencoder": demos.DiffusionAutoencoderDemoCallback}
     for model_type, cls in cases.items():
         cb = create_demo_callback_from_config({**base, "model_type": model_type})
         assert isinstance(cb, cls) and cb.demo_every == 7, model_type
-    for model_type in ("diffusion_uncond", "diffusion_prior", "diffusion_autoencoder"):
-        with pytest.raises(NotImplementedError, match="A 7"):
-            create_demo_callback_from_config({**base, "model_type": model_type})
+    with pytest.raises(NotImplementedError, match="Unknown model type"):
+        create_demo_callback_from_config({**base, "model_type": "diffusion_unknown"})
 
 
 def test_train_cli_demo_weight_norm_fold_and_profile(tmp_path):

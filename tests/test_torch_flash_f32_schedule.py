@@ -152,10 +152,11 @@ def test_o_needs_fp32_totals_over_long_sequences(per_tile, within):
 
 def _slots(d: int, text: str) -> int:
     """Layout<D>::kSlots as the source (or a variant) writes it."""
-    found = re.findall(r"static constexpr int kSlots = (?:D == 64 \? (\d+) : (\d+)|(\d+));", text)
+    found = re.findall(r"static constexpr int kSlots = "
+                       r"(?:D == 32 \? (\d+) : D == 64 \? (\d+) : (\d+)|(\d+));", text)
     assert len(found) == 1
-    d64, d80, fixed = found[0]
-    return int(fixed or (d64 if d == 64 else d80))
+    d32, d64, d80, fixed = found[0]
+    return int(fixed or {32: d32, 64: d64, 80: d80}[d])
 
 
 def _constant(name: str, text: str) -> str:
@@ -178,7 +179,7 @@ def _variant_texts():
     return texts
 
 
-@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("d", [32, 64, 80])
 def test_launch_plan_fits_the_card(d):
     """Shared memory (q' hi/lo of two warpgroups, kSlots slots of a K or V^T
     hi/lo tile pair, two mbarriers per slot, 1024 bytes of alignment slack)
@@ -195,13 +196,15 @@ def test_launch_plan_fits_the_card(d):
         slots = _slots(d, changed)
         smem = 2 * 2 * tile + slots * 2 * tile + 2 * slots * 8 + 1024
         assert smem <= SMEM_LIMIT, (name, smem)
-    assert _slots(d, text) == {64: 4, 80: 3}[d]
-    assert {64: 196_608, 80: 204_800}[d] == 2 * 2 * tile + _slots(d, text) * 2 * tile
-    # panels: [64][D] tiles as 128B-swizzled 32-dim panels (8 KB) and, at D
-    # 80, 32B-swizzled 8-dim panels (2 KB); V^T tiles as D rows of 32 keys
+    assert _slots(d, text) == {32: 8, 64: 4, 80: 3}[d]
+    assert {32: 163_840, 64: 196_608, 80: 204_800}[d] == (
+        2 * 2 * tile + _slots(d, text) * 2 * tile)
+    # panels: [64][D] tiles as 128B-swizzled 32-dim panels (8 KB; one at D
+    # 32) and, at D 80, 32B-swizzled 8-dim panels (2 KB); V^T tiles as D
+    # rows of 32 keys
     assert tile % 1024 == 0 and 64 * 128 % 1024 == 0 and 64 * 32 % 256 == 0
     assert (d * 128) % 1024 == 0 and d <= 256
-    assert 32 * 4 == 128 and 8 * 4 == 32 and (d - 64) in (0, 16)
+    assert 32 * 4 == 128 and 8 * 4 == 32 and (d - 64) in (-32, 0, 16)
     # the C entry lays the scratch out as the wrapper sizes it: K's two parts,
     # then V^T's, whose key stride is T rounded up to the 64-key tile
     assert "uint32_t* vparts = kparts + 2 * (size_t)BH * T * D;" in text

@@ -6,7 +6,8 @@ no JAX, and tests/conftest.py imports it, so run this file there with
 are bf16 unless a test says otherwise; tolerance: rel-L2 1e-2 (one bf16
 rounding of the output apart, with attention's online softmax rounding P
 against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
-activations) are held to fp32 tolerances: rel-L2 1e-5 (K9 1e-4); K8's
+activations; the fp32 K7 at head dim 32 too) are held to fp32 tolerances:
+rel-L2 1e-5 (K9 1e-4); K8's
 dq, whose parts arrive through atomics in a varying order, to 1e-5 too;
 K9's dk and dv bit for bit against themselves run to run, its dq (summed
 by reduce-adds in a varying order) to 1e-6. K2-K4 under grad (their
@@ -365,6 +366,31 @@ def test_flash_kernels_match_plain_in_fp32(gen):
             if kv is not None:
                 assert not got[:, kv:].any()
         _k9_agrees_with_itself(grads, tflash.flash_backward(q, k, v, out, lse, do, kv))
+
+
+@pytest.mark.parametrize("bh,t,kv", [(16, 1024, None), (16, 2048, None), (2, 200, 190),
+                                     (2, 77, None), (3, 129, None), (2, 300, 1),
+                                     (1, 8192, None)])
+def test_flash_forward_f32_at_head_dim_32_matches_plain(gen, bh, t, kv):
+    """The fp32 K7 at head dim 32 (Dance Diffusion's U-Net: 16 heads, T
+    1024-8192), serving and with its LSE, at ragged lengths and kv_len:
+    out rel-L2 1e-5, LSE max abs 1e-4, one launch of its own counter per
+    call; under grad it raises before any launch (K8/K9 at D 32 unported)."""
+    q, k, v = (_rnd(gen, bh, t, 32) for _ in range(3))
+    before = (tflash.d32_launches, tflash.serving_launches, tflash.forward_launches)
+    out, lse = tflash.flash_forward(q, k, v, kv, save_stats=False)
+    out_lse, lse = tflash.flash_forward(q, k, v, kv)
+    assert (tflash.d32_launches, tflash.serving_launches, tflash.forward_launches) == (
+        before[0] + 2, before[1], before[2])
+    out_p, lse_p = tflash.flash_forward_plain(q, k, v, kv)
+    _close(out, out_p, tol=1e-5)
+    _close(out_lse, out_p, tol=1e-5)
+    assert (lse - lse_p).abs().max().item() <= 1e-4
+    if t >= 1024:
+        qg = q.clone().requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+            tflash.FlashAttention.apply(qg, k, v)
+        assert tflash.d32_launches == before[0] + 2
 
 
 def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
