@@ -263,14 +263,15 @@ Phases (any failure raises and the script exits non-zero):
    (the output as long as the input, finite, one forward's launches per
    chunk).
 
-18. the diffusion trainer's options on SAO 1.0's fp32 DiT at full depth
-   and width (batch 8, 1024 latent frames, fixed draws, TF32 off): a
+18. the diffusion trainer's options on SAO 1.0's fp32 DiT at full width and
+   OPTIONS_DEPTH (8) of its 24 layers (all 24 until [19f] and [19g] came;
+   batch 8, 1024 latent frames, fixed draws, TF32 off): a
    pre-encoded step (no encode: no K2/K3 launch), a logit-normal step, a
    rectified-flow step, a `mask_padding` step (the self-attention masked:
    the plain route, no attention kernel, as in the JAX package) and the
    inpaint variant's step (`diffusion_cond_inpaint`, input_concat_dim 65,
-   built in memory), each with exact launch counts (K5 48, K6 24, K10a 96
-   on the mask-free steps) and held against the plain versions as [6]
+   built in memory), each with exact launch counts (per layer K5 2, K6 1,
+   K10a 4 on the mask-free steps) and held against the plain versions as [6]
    holds its step (the masked one against every plain version in fp32);
    whole train steps from pre-encoded latents and from raw audio, timed;
    the VAE's weight norm folded (its encode within FP32_MODEL_RTOL of the
@@ -294,7 +295,19 @@ Phases (any failure raises and the script exits non-zero):
    decoder, ratio 2048): a train step at batch 2 x 65,536 (fp32 K2 2, K3
    15 under grad) and a 100-step DDIM decode; [19e] a mono-to-stereo prior
    on the same U-Net: a train step and a `stereoize` at PRIOR_STEPS; each
-   with exact launch counts, walls and peak memory.
+   with exact launch counts, walls and peak memory. After [3m] (K8 and K9
+   at head dim 32 against their plain versions and SDPA's backward: K8 at
+   BH 32 T 1024 and BH 16 T 2048 / 4096, K9 at BH 16 T 8192, each also
+   with kv_len < T; FlashAttention against the plain autograd), the
+   config trains past 131,072 samples: [19f] the train CLI on a copy of
+   dance_diffusion_base_44k.json with only sample_size changed, at 2 x
+   262,144 (6 K7 and 6 K8 at D 32 per step: T 1024) and 1 x 524,288 (12
+   and 12: T 2048 and 1024), 3 steps each (times, trained s-audio/s, peak
+   memory, exact counts), one 2 x 262,144 step with the kernels against
+   the plain versions, and the U-Net's inner levels 9-14 under grad at the
+   shapes of a 2,097,152-sample step (K9 at T 8192: 6; K8 18; K7 24; the
+   outer levels' fp32 convs would need ~160 GB without remat); [19g] one
+   step each of the prior and the diffusion autoencoder at 2 x 262,144.
 
 [5], [7], [8] and [14] also print their earlier end-to-end figures
 (`EARLIER_E2E`) beside this run's, with the card's name and power limit.
@@ -310,7 +323,9 @@ times per decode step, its tensor-core route as `glu_mlp_tensor`, its
 times per SAO CFG step with `fused_mlp`; K11 and K12 as `ln_modulate` and `gated_residual`,
 their times per adaLN denoising step; the fp32 K7 at head dim 32 as
 `flash_forward_d32`, its times per Dance Diffusion U-Net forward at
-2,097,152 samples), the nvidia-smi line, and
+2,097,152 samples; K8 and K9 at head dim 32 as `flash_backward_fused_d32`
+and `flash_backward_d32`, their times per Dance Diffusion training step at
+2 x 262,144 and at 2,097,152 samples), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
 chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
 part alone (likewise `dac_conv_phase`, `dac_encode_conv_phase(results,
@@ -395,6 +410,9 @@ LM_TRAIN_STEPS = 3
 # of its 24; widths, shapes and every kernel's calls per layer are as
 # written (`at_depth`)
 TRAIN_DEPTH = 4
+# [18a] runs the trainer's options on the DiT at OPTIONS_DEPTH of its 24
+# layers (all 24 until [19f] and [19g] came and the run needed the time)
+OPTIONS_DEPTH = 8
 LM_GEN_DEPTH = 3
 # init-audio generation ([16]): the outpainting of [5]'s clip (percent of
 # the clip: its first half pasted over the middle, kept there with soft
@@ -501,6 +519,8 @@ TOL = {
     "flash_forward_causal": (1e-5, 1e-4),
     "flash_forward_causal_serving": (1e-5, 1e-4),
     "flash_forward_d32": (1e-5, 1e-4),
+    "flash_backward_fused_d32": (1e-5, 1e-4),
+    "flash_backward_d32": (1e-5, 1e-4),
     "flash_backward_causal": (1e-4, 1e-3),
     # K13 against its plain version at the same rounding points: fp32 both
     # sides (summation order only); bf16 one rounding of the output apart,
@@ -2682,6 +2702,8 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "ln_modulate": ("elementwise", "lnmod_launches"),
     "gated_residual": ("elementwise", "gres_launches"),
     "flash_forward_d32": ("flash", "d32_launches"),
+    "flash_backward_fused_d32": ("flash", "d32_fused_backward_launches"),
+    "flash_backward_d32": ("flash", "d32_backward_launches"),
 }
 
 
@@ -4318,7 +4340,8 @@ def new_results():
             replaces=tpu + "flash_attention.py:565",
             per=f"SA 2.0 training step (24 calls at B{TRAIN_BATCH} H24 T{LONG_T} kv_len {LONG_KV})"),
         "flash_backward_fused": dict(
-            route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:426",
+            route="cuda", source=src + "flash_attention_bwd_f32.cu",
+            replaces=tpu + "flash_attention.py:426",
             per=f"SA 1.0 training step (14 calls at B{TRAIN_BATCH} x H16: 2 at T4096 D64, 6 at "
                 f"T2048 D64, 6 at T1024 D80)"),
         "snake_conv1d": dict(route="cuda", source=src + "conv1d.cu", replaces=tpu + "conv1d.py:91",
@@ -4382,6 +4405,16 @@ def new_results():
             route="cuda", source=src + "flash_attention.cu", replaces=tpu + "flash_attention.py:230",
             per=f"Dance Diffusion U-Net forward at {DD_LONG} samples (24 calls at B1 x H16 D32: 6 "
                 f"each at T8192, T4096, T2048 and T1024)"),
+        "flash_backward_fused_d32": dict(
+            route="cuda", source=src + "flash_attention_bwd_f32.cu",
+            replaces=tpu + "flash_attention.py:426",
+            per="Dance Diffusion training step at 2 x 262,144 samples (6 calls at B2 x H16 T1024 "
+                "D32)"),
+        "flash_backward_d32": dict(
+            route="cuda", source=src + "flash_attention_bwd_f32.cu",
+            replaces=tpu + "flash_attention.py:565",
+            per=f"Dance Diffusion training step at {DD_LONG} samples (6 calls at B1 x H16 T8192 "
+                f"D32, the first attention level)"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
@@ -4548,8 +4581,9 @@ def timed_train_step(w, reals, metadata, draws):
 
 
 def training_options_phase(config):
-    """[18a] SAO 1.0's full-width fp32 DiT at full depth, batch 8, 1024
-    latent frames, fixed draws: a pre-encoded step (no encode: no K2/K3),
+    """[18a] SAO 1.0's full-width fp32 DiT (main() passes it at
+    OPTIONS_DEPTH layers), batch 8, 1024 latent frames, fixed draws: a
+    pre-encoded step (no encode: no K2/K3),
     a logit-normal step, a rectified-flow step and a `mask_padding` step
     (its self-attention masked: no attention kernel), each held against the
     plain versions; whole train steps (optimizer and EMA included) from
@@ -4726,7 +4760,8 @@ def flash_d32_phase(results):
     at Dance Diffusion's attention shapes at 2,097,152 samples (B1 x 16
     heads, T 8192 / 4096 / 2048 / 1024, 6 calls each per U-Net forward),
     SDPA on the same fp32 heads beside it; then the form with the LSE at T
-    8192 (not on the path: under grad D 32 raises)."""
+    8192 (a 2,097,152-sample training step's first attention level; its
+    backward is K9, [3m])."""
     import torch
 
     from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
@@ -4765,13 +4800,9 @@ def flash_d32_phase(results):
 
 def dd_flash_calls(config, sample_size):
     """The fp32 K7 launches of one DAU1d forward at `sample_size`: six
-    self-attentions on each attention level (depth - n_attn_layers .. depth,
-    from level 2) whose length passes the flash gate (>= 1024 tokens)."""
-    unet = config["model"]["config"]
-    depth, strides = unet.get("depth", 14), [1] + list(unet.get("strides", [2] * 13))
-    first = max(2, depth - unet.get("n_attn_layers", 6))
-    return sum(6 for i in range(first, depth + 1)
-               if sample_size // math.prod(strides[:i]) >= 1024)
+    self-attentions on each attention level whose length passes the flash
+    gate (>= 1024 tokens; `dd_step_counts`)."""
+    return dd_step_counts(config, sample_size)["flash_forward_d32"]
 
 
 def dd_generate(model, label, batch, sample_size, steps, expected):
@@ -5050,6 +5081,19 @@ def diffae_phase():
     return step_counts, decode_counts
 
 
+def prior_config():
+    """A mono-to-stereo prior on the dance_diffusion_base U-Net (the
+    dual-mono `source` by input-concat, 2 channels), at the config's sample
+    size."""
+    dd = json.loads(DD_CONFIG.read_text())
+    return {"model_type": "diffusion_prior", "sample_size": dd["sample_size"],
+            "sample_rate": dd["sample_rate"], "audio_channels": 2,
+            "model": {"prior_type": "mono_stereo", "conditioning": None, "io_channels": 2,
+                      "diffusion": {"type": "DAU1d", "input_concat_ids": ["source"],
+                                    "config": {**dd["model"]["config"], "cond_dim": 2}}},
+            "training": {"learning_rate": 1e-4, "prior_type": "mono_stereo"}}
+
+
 def prior_phase():
     """[19e] A mono-to-stereo prior on the dance_diffusion_base U-Net (the
     dual-mono `source` by input-concat, 2 channels): one train step at batch
@@ -5063,13 +5107,7 @@ def prior_phase():
         create_training_wrapper_from_config,
     )
 
-    dd = json.loads(DD_CONFIG.read_text())
-    config = {"model_type": "diffusion_prior", "sample_size": dd["sample_size"],
-              "sample_rate": dd["sample_rate"], "audio_channels": 2,
-              "model": {"prior_type": "mono_stereo", "conditioning": None, "io_channels": 2,
-                        "diffusion": {"type": "DAU1d", "input_concat_ids": ["source"],
-                                      "config": {**dd["model"]["config"], "cond_dim": 2}}},
-              "training": {"learning_rate": 1e-4, "prior_type": "mono_stereo"}}
+    config = prior_config()
     model = create_model_from_config(config, seed=0, device=DEVICE)
     w = create_training_wrapper_from_config(config, model)
     reals = ae_reals(config, DIFFAE_BATCH, 50)
@@ -5103,8 +5141,347 @@ def prior_phase():
     return step_counts, stereo_counts
 
 
+# ---------------------------------------------------------------------------
+# [3m], [19f] and [19g] K8 and K9 at head dim 32: the Dance Diffusion family
+# trains past 131,072 samples
+# ---------------------------------------------------------------------------
+
+# (BH, T, kv_len, kernel, calls per step) of [3m]: K8 at the first attention
+# level of a 2 x 262,144-sample step (T 1024, 2 x 16 heads: 6 calls), of a 1 x
+# 524,288 one (T 2048) and of a 1 x 1,048,576 one (T 4096); K9 at a
+# 2,097,152-sample step's first attention level (T 8192: 6 calls); each once
+# with kv_len < T
+D32_BWD_CASES = [(32, 1024, None, "K8", 6), (16, 2048, None, "K8", 0),
+                 (16, 4096, None, "K8", 0), (16, 8192, None, "K9", 6),
+                 (16, 1000, 937, "K8", 0), (8, 1000, 937, "K9", 0)]
+# (BH, T, backward) of [3m]'s FlashAttention forward and backward against
+# the plain autograd
+D32_AUTOGRAD_CASES = ((32, 1024, "K8"), (16, 8192, "K9"))
+# [19f]'s train CLI runs: (batch, samples per clip)
+DD_TRAIN_SIZES = ((2, 262_144), (1, 524_288))
+DD_TRAIN_WAV_SECONDS = 12  # 529,200 samples at 44.1 kHz: a clip of 524,288 fits
+DD_BIG_BATCH, DD_BIG = 2, 262_144  # [19f]'s kernels-vs-plain step and [19g]'s steps
+DD_INNER_LEVEL = 9  # the first attention level: 8192 tokens at DD_LONG samples
+
+
+def flash_d32_backward_phase(results):
+    """[3m] K8 and K9 at head dim 32 against their plain versions (rel-L2
+    1e-5 for dq, dk and dv; dO zero on rows past kv_len, as on a padded
+    path, and those rows' dk/dv zero) at D32_BWD_CASES, each timed beside
+    its bound (5 products at 3xTF32's rate, or the bytes), its plain
+    version and SDPA's fp32 backward on the same heads; then one
+    FlashAttention forward and backward (K7 with its LSE, then K8 at T 1024
+    and K9 at T 8192) against the plain autograd of softmax(q k^T / sqrt(32)) v."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(26)
+    for bh, t, kv, kernel, calls in D32_BWD_CASES:
+        name = "flash_backward_fused_d32" if kernel == "K8" else "flash_backward_d32"
+        label = f"BH{bh} T{t} D32 kv_len {kv}"
+        if calls:
+            results[name]["weight"][label] = calls
+        if kv is None and flash.backward_kernel(t, t, 32) != kernel:
+            raise AssertionError(f"{label}: the JAX package would run "
+                                 f"{flash.backward_kernel(t, t, 32)}, not {kernel}")
+        valid = kv or t
+        q, k, v, do = (rnd(bh, t, 32) for _ in range(4))
+        if kv is not None:
+            do[:, kv:] = 0
+        out_p, lse_p = flash.flash_forward_plain(q, k, v, kv)
+        if kernel == "K8":
+            def fn():
+                return flash.flash_backward_fused(q, k, v, out_p, lse_p, do, kv)
+
+            def plain():
+                return flash.flash_backward_fused_plain(q, k, v, out_p, lse_p, do, kv)
+        else:
+            def fn():
+                return flash.flash_backward(q, k, v, out_p, lse_p, do, kv)
+
+            def plain():
+                return flash.flash_backward_plain(q, k, v, out_p, lse_p, do, kv)
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        rels = [rel_err(a, w) for a, w in zip(got, want)]
+        pad_zero = kv is None or not any(a[:, kv:].any() for a in got[1:])
+        ok = (all(bool(torch.isfinite(a).all()) for a in got) and pad_zero
+              and max(rels) <= TOL[name][0])
+        max_abs = max((a - w).abs().max().item() for a, w in zip(got, want))
+        peak = max(w.abs().max().item() for w in want)
+        bound, cores_ms = flash_bound(bh, valid, 5, [q, k, v, out_p, lse_p, do], list(got), 32)
+        del got, want
+        q4 = q[None].clone().requires_grad_(True)
+        k4, v4 = (x[None, :, :valid].clone().requires_grad_(True) for x in (k, v))
+        backend = sdpa_backend(q4, k4, v4)
+        o4 = sdpa(q4, k4, v4)
+        g4 = do[None]
+        lib_ms = timed_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 3)
+        report(results, name, label, calls > 0, ok, max_abs, max(rels), peak, timed_ms(fn, 3),
+               timed_ms(plain, 3), lib_ms, bound=bound,
+               extra=f" ({kernel}; rel-L2 of dq/dk/dv: {' '.join(f'{r:.3g}' for r in rels)}; "
+                     f"padded rows zero: {pad_zero}; SDPA backend {backend}; at the CUDA cores' "
+                     f"fp32 rate {cores_ms:.4f} ms)")
+        del q, k, v, do, out_p, lse_p, q4, k4, v4, o4
+        torch.cuda.empty_cache()
+    for bh, t, kernel in D32_AUTOGRAD_CASES:
+        q, k, v = (rnd(bh, t, 32).requires_grad_(True) for _ in range(3))
+        do = rnd(bh, t, 32)
+        out = flash.FlashAttention.apply(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        ref = torch.softmax((q @ k.transpose(1, 2)) * 32 ** -0.5, dim=-1) @ v
+        want = torch.autograd.grad(ref, (q, k, v), do)
+        rels = [rel_err(out, ref)] + [rel_err(a, w) for a, w in zip(grads, want)]
+        log(f"  FlashAttention at BH{bh} T{t} D32 (K7 with its LSE, then {kernel}) against the "
+            f"plain autograd: rel-L2 of out/dq/dk/dv {' '.join(f'{r:.3g}' for r in rels)} (tol "
+            f"{TOL['flash_backward_d32'][0]})")
+        if not max(rels) <= TOL["flash_backward_d32"][0]:
+            raise AssertionError(f"FlashAttention at BH{bh} T{t} D32 disagrees with autograd")
+        del q, k, v, do, out, grads, ref, want
+        torch.cuda.empty_cache()
+    for name in ("flash_backward_fused_d32", "flash_backward_d32"):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per {r['per']}, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+
+
+def nonzero(counts):
+    """The launch counts that are not 0."""
+    return {name: n for name, n in counts.items() if n}
+
+
+def dd_step_counts(config, sample_size):
+    """What one Dance Diffusion training step at `sample_size` launches: on
+    each attention level whose length passes the flash gate, 6 K7 at head
+    dim 32 with their LSE and 6 of the backward the JAX package would
+    choose there (K8 where its plan fits, else K9)."""
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    unet = config["model"]["config"]
+    depth, strides = unet.get("depth", 14), [1] + list(unet.get("strides", [2] * 13))
+    first = max(2, depth - unet.get("n_attn_layers", 6))
+    want = {name: 0 for name in KERNELS}
+    for i in range(first, depth + 1):
+        t = sample_size // math.prod(strides[:i])
+        if t >= 1024:
+            want["flash_forward_d32"] += 6
+            bwd = {"K8": "flash_backward_fused_d32", "K9": "flash_backward_d32"}[
+                flash.backward_kernel(t, t, 32)]
+            want[bwd] += 6
+    return want
+
+
+def dd_big_training_phase(config, tmp):
+    """[19f] dance_diffusion_base_44k.json as written but for its sample
+    size (a copy in tmp), through the train CLI at DD_TRAIN_SIZES (2 x
+    262,144: one attention level through the kernels, T 1024 at B2 x H16;
+    1 x 524,288: T 2048 and 1024), DD_TRAIN_STEPS steps each from synthetic
+    stereo WAVs, no demo: step times, trained s-audio/s, peak memory, finite
+    losses and weights, and the launches exactly (6 K7 and 6 K8 at D 32 per
+    attention level and step). Then one step at 2 x 262,144 with the kernels
+    against the same step on the plain versions (same weights, timesteps
+    and noise; the loss and the gradient to FP32_MODEL_RTOL), and the
+    U-Net's inner levels 9-14 under grad at the shapes of a 2,097,152-sample
+    step (their input [1, 16384, 512]; the outer levels' fp32 convs would
+    need ~160 GB without remat): K9 at T 8192, K8 at 4096-1024, against the
+    plain versions. Returns the counts by run."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config, train
+    from friendly_stable_audio_tools_tpu_torch.training.diffusion import (
+        DiffusionUncondTrainingWrapper,
+    )
+    from friendly_stable_audio_tools_tpu_torch.training.factory import (
+        create_training_wrapper_from_config,
+    )
+
+    runs = {}
+    step = DiffusionUncondTrainingWrapper.train_step
+    for batch, size in DD_TRAIN_SIZES:
+        name = f"dd{size}"
+        cfg = copy.deepcopy(config)
+        cfg["sample_size"] = size
+        cfg["training"]["demo"]["demo_every"] = 10 * DD_TRAIN_STEPS  # no demo in these runs
+        args = train_args({**cfg, "audio_channels": 2}, tmp, name, batch, DD_TRAIN_WAV_SECONDS)
+        (Path(tmp) / f"{name}_model.json").write_text(json.dumps(cfg))
+        args[args.index("--batch-size") + 1] = str(batch)
+        times, losses = [], []
+
+        def timed(self, *a, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = step(self, *a, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            losses.append(out["loss"])
+            return out
+
+        with patched([(DiffusionUncondTrainingWrapper, "train_step", timed)]):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            start = time.perf_counter()
+            trainer = train.main(args + ["--max-steps", str(DD_TRAIN_STEPS)])
+            total = time.perf_counter() - start
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            finite = all(bool(torch.isfinite(p).all()) for p in trainer.wrapper.model.parameters())
+            done = trainer.wrapper.step
+            del trainer
+            torch.cuda.empty_cache()
+        per_step = dd_step_counts(cfg, size)
+        want = {k: n * DD_TRAIN_STEPS for k, n in per_step.items()}
+        med = statistics.median(times[1:DD_TRAIN_STEPS])
+        seconds = batch * size / cfg["sample_rate"]
+        log(f"  {batch} x {size} samples: steps {[round(x, 4) for x in times]} s; median of steps "
+            f"2-{DD_TRAIN_STEPS} {med:.4f} s = {seconds / med:.3f} s-audio/s trained; losses "
+            f"{[round(x, 5) for x in losses]}; peak memory {peak:.2f} GiB; run incl. set-up "
+            f"{total:.1f} s; launches per step "
+            f"{nonzero(per_step)}, counted {nonzero(counts)}")
+        if not (done == DD_TRAIN_STEPS and len(times) == DD_TRAIN_STEPS and finite
+                and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"the train CLI at {batch} x {size}: steps, losses or weights off")
+        if counts != want or not per_step["flash_backward_fused_d32"]:
+            raise AssertionError(f"the train CLI at {batch} x {size} launched {counts}, not {want}")
+        runs[f"train_dd_{batch}x{size}"] = counts
+
+    cfg = copy.deepcopy(config)
+    cfg["sample_size"] = DD_BIG
+    model = create_model_from_config(cfg, seed=0, device=DEVICE)
+    w = create_training_wrapper_from_config(cfg, model)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    reals = ae_reals({**cfg, "audio_channels": 2}, DD_BIG_BATCH, 60)
+    draws = {"t": torch.rand(DD_BIG_BATCH, generator=g, device=DEVICE),
+             "noise": torch.randn(reals.shape, generator=g, device=DEVICE)}
+    params = [p for p in model.model.parameters() if p.requires_grad]
+
+    def one_step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = w.loss(reals, [{}] * DD_BIG_BATCH, 0, draws)
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.flatten() for p in params])
+
+    reset_counts()
+    loss_k, grad_k = one_step()
+    counts = read_counts()
+    with plain_kernels():
+        loss_p, grad_p = one_step()
+    err, loss_err = rel_err(grad_k, grad_p), abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  one step at {DD_BIG_BATCH} x {DD_BIG} with the kernels against the plain versions: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3g}), gradient rel-L2 {err:.3g} (tol "
+        f"{FP32_MODEL_RTOL}), finite {bool(torch.isfinite(grad_k).all())}; launches "
+        f"{nonzero(counts)}")
+    if not (err <= FP32_MODEL_RTOL and loss_err <= FP32_MODEL_RTOL
+            and bool(torch.isfinite(grad_k).all()) and counts == dd_step_counts(cfg, DD_BIG)):
+        raise AssertionError("the step at 2 x 262,144 with the kernels disagrees with the plain one")
+    del w, reals, draws, grad_k, grad_p
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    unet = model.model
+    if DD_INNER_LEVEL != unet.depth - cfg["model"]["config"]["n_attn_layers"]:
+        raise AssertionError(f"level {DD_INNER_LEVEL} is not the U-Net's first attention level")
+    c = unet.channels[DD_INNER_LEVEL - 2]
+    t_in = DD_LONG // math.prod(unet.strides[:DD_INNER_LEVEL - 1])
+    h = torch.randn(1, t_in, c, generator=g, device=DEVICE, requires_grad=True)
+    inner = [p for n, p in unet.named_parameters()
+             if n.startswith(tuple(f"level{i}_" for i in range(DD_INNER_LEVEL, unet.depth + 1)))]
+
+    def inner_step():
+        unet.zero_grad(set_to_none=True)
+        h.grad = None
+        unet._level(h, DD_INNER_LEVEL).backward(cot)
+        return torch.cat([h.grad.flatten()] + [p.grad.flatten() for p in inner])
+
+    cot = torch.randn(h.shape, generator=g, device=DEVICE) * 1e-3
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    grad_k = inner_step()
+    torch.cuda.synchronize()
+    inner_s = time.perf_counter() - start
+    counts = read_counts()
+    with plain_kernels():
+        grad_p = inner_step()
+    err = rel_err(grad_k, grad_p)
+    want = dd_step_counts(cfg, DD_LONG)  # levels 1-8 hold no attention
+    log(f"  the U-Net's levels {DD_INNER_LEVEL}-{unet.depth} under grad at a {DD_LONG}-sample "
+        f"step's shapes (input {list(h.shape)}): {inner_s:.3f} s, rel-L2 of the gradients "
+        f"against the plain versions {err:.3g} (tol {FP32_MODEL_RTOL}); launches "
+        f"{nonzero(counts)}")
+    if not (err <= FP32_MODEL_RTOL and bool(torch.isfinite(grad_k).all()) and counts == want
+            and want["flash_backward_d32"] > 0):
+        raise AssertionError(f"the inner levels at {DD_LONG} samples: rel-L2 {err}, {counts}")
+    runs["train_dd_inner_levels"] = counts
+    del model, unet, h, grad_k, grad_p
+    torch.cuda.empty_cache()
+    return runs
+
+
+def dd_big_step(label, config, want_extra):
+    """One train step of a diffusion_prior or diffusion_autoencoder (`config`
+    at DD_BIG samples) at batch DD_BIG_BATCH: its wall, loss, finite
+    gradients, peak memory and launches (the U-Net's attention level at T
+    1024 through K7 and K8 at head dim 32, plus `want_extra`), exactly.
+    Returns the counts."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import create_model_from_config
+    from friendly_stable_audio_tools_tpu_torch.training.factory import (
+        create_training_wrapper_from_config,
+    )
+
+    model = create_model_from_config(config, seed=0, device=DEVICE)
+    w = create_training_wrapper_from_config(config, model)
+    reals = ae_reals(config, DD_BIG_BATCH, 70)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grads = []
+    apply_update = w.apply_update
+
+    def kept(*a, **kw):  # the gradients as the update finds them
+        grads.extend(p.grad for p in model.parameters() if p.grad is not None)
+        return apply_update(*a, **kw)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with patched([(w, "apply_update", kept)]):
+        metrics = w.train_step(reals, [{}] * DD_BIG_BATCH)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - start
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(grads) and all(bool(torch.isfinite(x).all()) for x in grads)
+    want = dd_step_counts({"model": {"config": config["model"]["diffusion"]["config"]}}, DD_BIG)
+    for name, n in want_extra.items():
+        want[name] += n
+    log(f"  {label}: one step at {DD_BIG_BATCH} x {DD_BIG} in {step_s:.3f} s, loss "
+        f"{metrics['loss']:.5f}, gradients finite {finite}; peak memory {peak:.2f} GiB; "
+        f"launches {nonzero(counts)}")
+    if not (finite and math.isfinite(metrics["loss"]) and counts == want):
+        raise AssertionError(f"{label} at {DD_BIG_BATCH} x {DD_BIG}: launched {counts}, not {want}")
+    del model, w, reals, grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dd_big_steps_phase():
+    """[19g] One train step each of the mono-to-stereo prior ([19e]'s) and
+    the diffusion autoencoder ([19d]'s) at 2 x 262,144 samples: the U-Net's
+    first attention level (T 1024) through K7 and K8 at head dim 32, and
+    the diffAE's encoder through its fp32 K2 and K3. Returns the counts."""
+    prior = {**prior_config(), "sample_size": DD_BIG}
+    diffae = {**diffae_config(), "sample_size": DD_BIG}
+    return {"prior_step_262k": dd_big_step("the prior", prior, {}),
+            "diffae_step_262k": dd_big_step("the diffusion autoencoder", diffae,
+                                            encoder_counts(diffae))}
+
+
 def dance_diffusion_phases(results, tmp):
-    """[19a]-[19e] in order; returns their counts by path."""
+    """[19a]-[19g] in order; returns their counts by path."""
     import torch
 
     config = json.loads(DD_CONFIG.read_text())
@@ -5124,10 +5501,18 @@ def dance_diffusion_phases(results, tmp):
     counts_diffae, counts_diffae_dec = diffae_phase()
     log("[19e] a mono-to-stereo prior on the DAU1d backbone: a train step, stereoize")
     counts_prior, counts_stereo = prior_phase()
+    log(f"[19f] the train CLI on {DD_CONFIG.name} past 131,072 samples (K7 and K8 at head dim 32 "
+        f"under grad): {' and '.join(f'{b} x {n}' for b, n in DD_TRAIN_SIZES)}, "
+        f"{DD_TRAIN_STEPS} steps each; a step kernels vs plain; the inner levels at {DD_LONG} "
+        f"samples (K9)")
+    counts_big = dd_big_training_phase(config, tmp)
+    log(f"[19g] one step each of the prior and the diffusion autoencoder at {DD_BIG_BATCH} x "
+        f"{DD_BIG}")
+    counts_big_steps = dd_big_steps_phase()
     return {"generate_dd": counts_gen, "generate_dd_long": counts_long, "train_dd": counts_train,
             "train_dd_resume": counts_resume, "diffae_step": counts_diffae,
             "diffae_decode": counts_diffae_dec, "prior_step": counts_prior,
-            "prior_stereoize": counts_stereo}
+            "prior_stereoize": counts_stereo, **counts_big, **counts_big_steps}
 
 
 def main():
@@ -5221,6 +5606,11 @@ def main():
         "shapes at 2,097,152 samples, SDPA beside it")
     flash_d32_phase(results)
     done("[3l]")
+    log("[3m] K8 and K9 at head dim 32 vs their plain versions at Dance Diffusion's training "
+        "shapes (T 1024-4096: K8; T 8192: K9), SDPA's backward beside them; FlashAttention vs "
+        "the plain autograd")
+    flash_d32_backward_phase(results)
+    done("[3m]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -5468,12 +5858,13 @@ def main():
         counts_recon = ae_reconstruct_phase(ae_config, tmp)
     done("[17]")
 
-    log(f"[18] the diffusion trainer's options on SAO 1.0's fp32 DiT (24 layers, batch "
+    log(f"[18] the diffusion trainer's options on SAO 1.0's fp32 DiT ({OPTIONS_DEPTH} of 24 "
+        f"layers, batch "
         f"{TRAIN_BATCH}, 1024 latent frames, fixed draws): pre-encoded, logit-normal, rectified "
         f"flow, mask_padding and the inpaint variant, each against the plain versions; whole steps "
         f"from latents and from audio; the weight-norm fold; then the train CLI "
         f"({TRAIN_DEPTH} layers) with a demo, the fold and the profiler")
-    counts_options = training_options_phase(config)
+    counts_options = training_options_phase(at_depth(config, OPTIONS_DEPTH))
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         counts_opt_train, counts_demo = training_demo_phase(config, tmp)
     done("[18]")

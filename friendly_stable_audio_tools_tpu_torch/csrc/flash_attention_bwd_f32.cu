@@ -1,8 +1,8 @@
 // K9 and K8: the fp32 FlashAttention backward of head-split attention on
 // [B*H, T, D] tensors as one pass over key blocks on the tensor cores
-// (3xTF32 wgmma on TMA-fed tiles): K9 at D 64, causal or not; K8 at D 64
-// (the same kernel, its constants K8's) and D 80 (one warpgroup per block,
-// below the D 64 kernel).
+// (3xTF32 wgmma on TMA-fed tiles): K9 at D 64, causal or not, and at D 32;
+// K8 at D 32 and 64 (the same kernel, its constants K8's) and D 80 (one
+// warpgroup per block, below the two-warpgroup kernel).
 //
 // K8 replaces `_flash_backward_fused` (friendly_stable_audio_tools_tpu/ops/
 // pallas/flash_attention.py:426, call :451; `_bwd_fused_kernel` :367), the
@@ -13,7 +13,10 @@
 //   p = exp2(s - lse), ds = p * (dO v^T - delta) (no scale),
 //   dq = (ds k)/sqrt(D), dk = (ds^T qs)/log2(e), dv = p^T dO.
 // Stable Audio 1.0's U-Net trains its gated self-attention through it (B 8 x
-// 16 heads: T 4096 and 2048 at D 64, T 1024 at D 80). The TPU kernel keeps
+// 16 heads: T 4096 and 2048 at D 64, T 1024 at D 80), and Dance Diffusion's
+// U-Net (DAU1d: 16 heads of 32 on its 512-channel levels) from 262,144
+// samples, where its attention's T 1024, 2048 and 4096 fit K8's plan (a
+// 2,097,152-sample step's T 8192 takes K9). The TPU kernel keeps
 // K and V of a head in VMEM and carries dk/dv across a sequential q grid;
 // here, as for K9, one block owns 64 keys and loops over the q tiles. The
 // FFMA kernel it replaces (PR 8's, on the CUDA cores) ran at 5.4-7.6x the
@@ -101,6 +104,21 @@
 //   one and allow 168, the limit of K6's layout). Live at most: the dK^T and
 //   dV^T totals (64), S and dP or dS and a product's result (64), and one
 //   product's A fragments (8 k8 slices x 4 x hi/lo: 64), ~200 with addresses.
+// Head dim 32 (the template's other instance): a [64][32] tile (K, V, q, dO)
+// is one 128B-swizzled panel, so each TMA load is one box; K^T is two panels
+// of 32 rows; S and dP contract over 4 k8 slices and dq = dS K is m64n32.
+// dV^T and dK^T keep the head dims on wgmma's M, which is 64 rows by
+// construction: M is padded to 64 with zero rows (warps 2 and 3 load no
+// fragments and give zeros; their totals are never written), which costs
+// two full m64n64 products per q tile where the work needs two halves (84
+// units of m64n64k8 per tile where the function needs 60: at most 71% of
+// the bound). Swapping those products to keys along M (dV = P^T dO, m64n32,
+// with P^T as a shared-memory A operand and dO^T, q^T staged transposed, as
+// the D 80 kernel does for its last 16 dims) would remove the padding; kept
+// for later, as the simple form is right first. Shared memory 148,504 bytes
+// (below); the staged dq rows are 36 floats and one reduce-add moves 128
+// bytes. Measured on the H100 (PERF.md §6): 22-27% of the bound at T
+// 1024-8192, the dq reduce-adds 8-11% of the time (2% at D 64).
 // What bounds it now (measured on the H100, PERF.md §6): about half the
 // 3xTF32 bound at SA 2.0's shape. Each warpgroup runs its five products one
 // after another, each waited for before the next (the exponentials overlap
@@ -129,51 +147,69 @@ constexpr int kThreads = kConsumers * 128;  // and no producer warp (see above)
 constexpr int kKeys = 64;                   // keys per block
 constexpr int kQ = 64;                      // q rows per tile
 constexpr int kPanel = 64 * kSwizzleRow;    // 64 rows of 32 fp32 (128 bytes): 8 KB
-constexpr int kTile = 2 * kPanel;           // 64 x 64 fp32 as two panels: 16 KB
-constexpr int kStageRow = kD + 4;           // a staged dq row: 68 floats (272 bytes)
+constexpr int kXTile = 2 * kPanel;          // P^T or dS^T, [64 keys][64 q rows]: 16 KB
 
+// The kernel's shared memory at head dim D (32 or 64): a [64][D] tile (K, V,
+// q, dO) is D / 32 panels of 64 rows, K^T [D][64 keys] two panels of D rows;
+// the P^T/dS^T pairs do not depend on D.
+template <int D>
 struct Layout {  // byte offsets into the 1024-aligned dynamic shared memory
-  static constexpr int k_hi = 0;              // K [keys][dims], hi in place of the TMA tile
+  static_assert(D == 32 || D == 64, "the two-warpgroup kernel takes head dim 32 or 64");
+  static constexpr int kTile = 64 * D * 4;       // one [64][D] or [D][64] fp32 tile
+  static constexpr int kKtPanel = D * kSwizzleRow;  // K^T: D dims x 32 key positions
+  static constexpr int kStageRow = D + 4;        // a staged dq row: 36 or 68 floats
+  static constexpr int k_hi = 0;                 // K [keys][dims], hi in place of the TMA tile
   static constexpr int k_lo = k_hi + kTile;
-  static constexpr int v_hi = k_lo + kTile;   // V [keys][dims]
+  static constexpr int v_hi = k_lo + kTile;      // V [keys][dims]
   static constexpr int v_lo = v_hi + kTile;
-  static constexpr int kt_hi = v_lo + kTile;  // K^T [dims][keys]
+  static constexpr int kt_hi = v_lo + kTile;     // K^T [dims][keys]
   static constexpr int kt_lo = kt_hi + kTile;
-  static constexpr int wg = kt_lo + kTile;    // then per warpgroup, at these offsets:
-  static constexpr int q = 0;                 //   the q tile [rows][dims] (TMA)
-  static constexpr int dout = q + kTile;      //   the dO tile
-  static constexpr int x_hi = dout + kTile;   //   P^T, then dS^T [keys][rows]; then dq rows
-  static constexpr int x_lo = x_hi + kTile;
-  static constexpr int wg_bytes = x_lo + kTile;
+  static constexpr int wg = kt_lo + kTile;       // then per warpgroup, at these offsets:
+  static constexpr int q = 0;                    //   the q tile [rows][dims] (TMA)
+  static constexpr int dout = q + kTile;         //   the dO tile
+  static constexpr int x_hi = dout + kTile;      //   P^T, then dS^T [keys][rows]; then dq rows
+  static constexpr int x_lo = x_hi + kXTile;
+  static constexpr int wg_bytes = x_lo + kXTile;
   static constexpr int bars = wg + kConsumers * wg_bytes;  // kv_full, q_full[kConsumers]
   static constexpr int bytes = bars + (1 + kConsumers) * 8;
+  static_assert(kTile % 1024 == 0 && kKtPanel % 1024 == 0, "panels on the swizzle atom");
+  static_assert(kQ * kStageRow * 4 <= 2 * kXTile, "a tile's dq rows fit the hi/lo tile pair");
+  static_assert(bytes + 1024 <= 232448, "one block's shared memory");
 };
-static_assert(kQ * kStageRow * 4 <= 2 * kTile, "a tile's dq rows fit the hi/lo tile pair");
-static_assert(Layout::bytes + 1024 <= 232448, "one block's shared memory");
 
 // Byte offset of element (row, col) of a K-major fp32 tile kept as
 // 128B-swizzled panels of 32 columns, `panel` bytes apart: what TMA boxes of
 // 32 columns write, and the layout wgmma reads (rows along M or N, columns
-// along K). K^T at D 80 has panels of 80 rows, the dims 64-79 tiles of 16.
+// along K). K^T has panels of D rows (80 at D 80, the dims 64-79 tiles 16).
 __device__ __forceinline__ uint32_t t_off(int row, int col, int panel) {
   return (col >> 5) * panel + sw128_offset(row, (col & 31) >> 2) + (col & 3) * 4;
 }
 
-// The same for a 64 x 64 tile (two panels of 64 rows).
+// The same for a tile of 64 rows (K, V, q, dO, P^T, dS^T).
 __device__ __forceinline__ uint32_t tile_off(int row, int col) {
   return t_off(row, col, kPanel);
 }
 
-// The A operand of a 64 x 64 x 64 product from an fp32 tile, times `scale`
-// and split into tf32 hi and lo: fragment (kk, e) is element (m, k) = (16
-// warp + g + 8 (e & 1), 8 kk + t + 4 (e >> 1)) read as tile[m][k]; with
-// kTrans, the element of position k in the permuted order (row 8 kk + 2t +
-// (e >> 1)) read as tile[row][m].
-template <bool kTrans>
+// The A operand of a product from an fp32 tile of 64 rows, times `scale`
+// and split into tf32 hi and lo. Without kTrans (S, dP: M = q rows, K = the
+// D head dims): fragment (kk, e), kk < D / 8, is element (m, k) = (16 warp +
+// g + 8 (e & 1), 8 kk + t + 4 (e >> 1)) read as tile[m][k]. With kTrans
+// (dV^T, dK^T: M = head dims, K = 64 q rows): the element of position k in
+// the permuted order (row 8 kk + 2t + (e >> 1)) read as tile[row][m]; M is
+// 64 whatever D is, so at D 32 the rows m >= 32 (warps 2 and 3) are zeros.
+template <bool kTrans, int D>
 __device__ __forceinline__ void load_a(const unsigned char* tile, int warp, int g, int t,
                                        float scale, uint32_t (&hi)[8][4], uint32_t (&lo)[8][4]) {
+  constexpr int kSlices = kTrans ? 8 : D / 8;
+  if (kTrans && 16 * warp >= D) {  // warp-uniform: the padded rows of M
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hi[kk][e] = lo[kk][e] = 0u;
+    return;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kSlices; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int m = 16 * warp + g + 8 * (e & 1);
@@ -183,23 +219,26 @@ __device__ __forceinline__ void load_a(const unsigned char* tile, int warp, int 
     }
 }
 
-// d = A B over 64 deep (d zeroed by the first issue), 3xTF32: per k8 slice
-// a_lo b_hi, a_hi b_lo, a_hi b_hi. B: a K-major hi/lo tile pair.
-__device__ __forceinline__ void product(float (&d)[32], const uint32_t (&hi)[8][4],
+// d = A B, m64nN, over kSlices k8 slices (d zeroed by the first issue),
+// 3xTF32: per slice a_lo b_hi, a_hi b_lo, a_hi b_hi. B: a K-major hi/lo tile
+// pair whose 128B-swizzled panels of 32 k positions lie kPanelBytes apart.
+template <int N, int kSlices, int kPanelBytes>
+__device__ __forceinline__ void product(float (&d)[N / 2], const uint32_t (&hi)[8][4],
                                         const uint32_t (&lo)[8][4], uint32_t b_hi, uint32_t b_lo) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t off = (kk >> 2) * kPanel + (kk & 3) * 32;
-    wgmma_tf32<64>(d, lo[kk], kmajor_desc(b_hi + off), kk > 0);
-    wgmma_tf32<64>(d, hi[kk], kmajor_desc(b_lo + off), 1);
-    wgmma_tf32<64>(d, hi[kk], kmajor_desc(b_hi + off), 1);
+  for (int kk = 0; kk < kSlices; ++kk) {
+    const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
+    wgmma_tf32<N>(d, lo[kk], kmajor_desc(b_hi + off), kk > 0);
+    wgmma_tf32<N>(d, hi[kk], kmajor_desc(b_lo + off), 1);
+    wgmma_tf32<N>(d, hi[kk], kmajor_desc(b_hi + off), 1);
   }
   wgmma_commit();
 }
 
 // Waits for the warpgroup's products and fences their accumulator.
-__device__ __forceinline__ void finish(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void finish(float (&d)[N]) {
   wgmma_wait<0>();
   reg_fence(d);
 }
@@ -220,16 +259,23 @@ __device__ __forceinline__ void store_t(const float (&d)[32], unsigned char* hi_
   }
 }
 
+// Rows r0 .. r0 + 63 of one head's [T, D] tensor through `map` into a [64][D]
+// tile: D / 32 boxes of 32 dims.
+template <int D>
+__device__ __forceinline__ void load_rows(unsigned char* tile, const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int bh) {
+#pragma unroll
+  for (int p = 0; p < D / 32; ++p) tma_load_3d(tile + p * kPanel, map, bar, 32 * p, r0, bh);
+}
+
 // Rows q0 .. q0 + 63 of one head's q and dO into a warpgroup's tiles.
+template <int D>
 __device__ __forceinline__ void load_q_tile(unsigned char* wg_smem, uint64_t* bar,
                                             const CUtensorMap* qmap, const CUtensorMap* dmap,
                                             int q0, int bh) {
-  mbar_expect_tx(bar, 2 * kTile);
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    tma_load_3d(wg_smem + Layout::q + p * kPanel, qmap, bar, 32 * p, q0, bh);
-    tma_load_3d(wg_smem + Layout::dout + p * kPanel, dmap, bar, 32 * p, q0, bh);
-  }
+  mbar_expect_tx(bar, 2 * Layout<D>::kTile);
+  load_rows<D>(wg_smem + Layout<D>::q, qmap, bar, q0, bh);
+  load_rows<D>(wg_smem + Layout<D>::dout, dmap, bar, q0, bh);
 }
 
 // The constants of the two formulas (1 where a formula has none: an exact
@@ -242,7 +288,7 @@ struct Scales {
   float q, s, ds, dq, dk;
 };
 
-template <bool kCausal, bool kFused>
+template <int D, bool kCausal, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
@@ -251,25 +297,26 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                      const float* __restrict__ delta, float* __restrict__ dq,
                      float* __restrict__ dk, float* __restrict__ dv, int T, int kv_len,
                      Scales given) {
+  using L = Layout<D>;
   // the constants each formula lacks are compile-time ones (no multiply)
   const Scales sc = kFused ? Scales{given.q, 1.f, 1.f, given.dq, given.dk}
                            : Scales{1.f, given.s, given.ds, 1.f, 1.f};
   const int kb = blockIdx.x, bh = blockIdx.y, k0 = kb * kKeys;
-  const size_t head = (size_t)bh * T * kD;
+  const size_t head = (size_t)bh * T * D;
   if (k0 >= kv_len) {  // every key of the block masked: zero gradients
-    for (int i = threadIdx.x; i < kKeys * kD; i += kThreads) {
-      const int r = k0 + i / kD;
-      if (r < T) dk[head + (size_t)r * kD + i % kD] = dv[head + (size_t)r * kD + i % kD] = 0.f;
+    for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
+      const int r = k0 + i / D;
+      if (r < T) dk[head + (size_t)r * D + i % D] = dv[head + (size_t)r * D + i % D] = 0.f;
     }
     return;
   }
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + Layout::bars);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint64_t* q_full = kv_full + 1 + wg;
-  unsigned char* mine = smem + Layout::wg + wg * Layout::wg_bytes;
+  unsigned char* mine = smem + L::wg + wg * L::wg_bytes;
   const int n_q = (T + kQ - 1) / kQ;
   const int q_first = (kCausal ? kb : 0) + wg;
   if (threadIdx.x == 0) {
@@ -278,40 +325,38 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(kv_full, 2 * kTile);
-    for (int p = 0; p < 2; ++p) {
-      tma_load_3d(smem + Layout::k_hi + p * kPanel, &kmap, kv_full, 32 * p, k0, bh);
-      tma_load_3d(smem + Layout::v_hi + p * kPanel, &vmap, kv_full, 32 * p, k0, bh);
-    }
+    mbar_expect_tx(kv_full, 2 * L::kTile);
+    load_rows<D>(smem + L::k_hi, &kmap, kv_full, k0, bh);
+    load_rows<D>(smem + L::v_hi, &vmap, kv_full, k0, bh);
   }
-  if (tid == 0 && q_first < n_q) load_q_tile(mine, q_full, &qmap, &dmap, q_first * kQ, bh);
+  if (tid == 0 && q_first < n_q) load_q_tile<D>(mine, q_full, &qmap, &dmap, q_first * kQ, bh);
 
   // K and V split into hi (in place) and lo; K^T beside them, its keys in
   // the permuted order
   mbar_wait(kv_full, 0);
-  for (int i = threadIdx.x; i < kKeys * kD; i += kThreads) {
-    const int r = i / kD, c = i % kD;
-    const uint32_t off = tile_off(r, c), off_t = tile_off(c, pos8(r));
+  for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const uint32_t off = tile_off(r, c), off_t = t_off(c, pos8(r), L::kKtPanel);
     uint32_t hi, lo;
-    split_tf32(*reinterpret_cast<const float*>(smem + Layout::k_hi + off), hi, lo);
-    *reinterpret_cast<uint32_t*>(smem + Layout::k_hi + off) = hi;
-    *reinterpret_cast<uint32_t*>(smem + Layout::k_lo + off) = lo;
-    *reinterpret_cast<uint32_t*>(smem + Layout::kt_hi + off_t) = hi;
-    *reinterpret_cast<uint32_t*>(smem + Layout::kt_lo + off_t) = lo;
-    split_tf32(*reinterpret_cast<const float*>(smem + Layout::v_hi + off), hi, lo);
-    *reinterpret_cast<uint32_t*>(smem + Layout::v_hi + off) = hi;
-    *reinterpret_cast<uint32_t*>(smem + Layout::v_lo + off) = lo;
+    split_tf32(*reinterpret_cast<const float*>(smem + L::k_hi + off), hi, lo);
+    *reinterpret_cast<uint32_t*>(smem + L::k_hi + off) = hi;
+    *reinterpret_cast<uint32_t*>(smem + L::k_lo + off) = lo;
+    *reinterpret_cast<uint32_t*>(smem + L::kt_hi + off_t) = hi;
+    *reinterpret_cast<uint32_t*>(smem + L::kt_lo + off_t) = lo;
+    split_tf32(*reinterpret_cast<const float*>(smem + L::v_hi + off), hi, lo);
+    *reinterpret_cast<uint32_t*>(smem + L::v_hi + off) = hi;
+    *reinterpret_cast<uint32_t*>(smem + L::v_lo + off) = lo;
   }
   fence_proxy_async();
   __syncthreads();
 
   const uint32_t s_base = smem_u32(smem);
-  const uint32_t x_hi = smem_u32(mine + Layout::x_hi), x_lo = smem_u32(mine + Layout::x_lo);
-  float* staged = reinterpret_cast<float*>(mine + Layout::x_hi);
+  const uint32_t x_hi = smem_u32(mine + L::x_hi), x_lo = smem_u32(mine + L::x_lo);
+  float* staged = reinterpret_cast<float*>(mine + L::x_hi);
   const float* lse_bh = lse + (size_t)bh * T;
   const float* delta_bh = delta + (size_t)bh * T;
   const int bar = 1 + wg;  // the warpgroup's named barrier
-  float tot_k[32], tot_v[32];
+  float tot_k[32], tot_v[32];  // dK^T, dV^T: 64 (padded) dims x 64 keys
 #pragma unroll
   for (int i = 0; i < 32; ++i) tot_k[i] = tot_v[i] = 0.f;
 
@@ -327,15 +372,15 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       del_r[h] = r0 + 8 * h < T ? delta_bh[r0 + 8 * h] : 0.f;
     }
     uint32_t a_hi[8][4], a_lo[8][4];
-    float s[32], dp[32], part[32];  // each written first by a product's zeroing issue
+    float s[32], dp[32], part[32], part_q[D / 2];  // each written first by a zeroing issue
     mbar_wait(q_full, it & 1);
 
-    // S = q K^T, then dP = dO V^T while p = exp2(s log2(e)/8 - lse)
-    load_a<false>(mine + Layout::q, warp, g, t, sc.q, a_hi, a_lo);
-    product(s, a_hi, a_lo, s_base + Layout::k_hi, s_base + Layout::k_lo);
+    // S = q K^T, then dP = dO V^T while p = exp2(s log2(e)/sqrt(D) - lse)
+    load_a<false, D>(mine + L::q, warp, g, t, sc.q, a_hi, a_lo);
+    product<64, D / 8, kPanel>(s, a_hi, a_lo, s_base + L::k_hi, s_base + L::k_lo);
     finish(s);
-    load_a<false>(mine + Layout::dout, warp, g, t, 1.f, a_hi, a_lo);
-    product(dp, a_hi, a_lo, s_base + Layout::v_hi, s_base + Layout::v_lo);
+    load_a<false, D>(mine + L::dout, warp, g, t, 1.f, a_hi, a_lo);
+    product<64, D / 8, kPanel>(dp, a_hi, a_lo, s_base + L::v_hi, s_base + L::v_lo);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int row = r0 + 8 * ((i >> 1) & 1), key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
@@ -350,11 +395,11 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     // have been read from it
     if (tid < kQ) bulk_wait_read<0>();
     bar_sync(bar, 128);
-    store_t(s, mine + Layout::x_hi, mine + Layout::x_lo, warp, g, t);
+    store_t(s, mine + L::x_hi, mine + L::x_lo, warp, g, t);
     fence_proxy_async();
     bar_sync(bar, 128);
-    load_a<true>(mine + Layout::dout, warp, g, t, 1.f, a_hi, a_lo);
-    product(part, a_hi, a_lo, x_hi, x_lo);
+    load_a<true, D>(mine + L::dout, warp, g, t, 1.f, a_hi, a_lo);
+    product<64, 8, kPanel>(part, a_hi, a_lo, x_hi, x_lo);
     finish(part);
 #pragma unroll
     for (int i = 0; i < 32; ++i) tot_v[i] += part[i];
@@ -362,33 +407,33 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     // dK^T += q^T dS, with dS^T in the tile pair; the stage is free once the
     // q^T fragments are read, so the warpgroup's next tile is loaded
     bar_sync(bar, 128);  // every lane's dV^T product has read P^T
-    store_t(dp, mine + Layout::x_hi, mine + Layout::x_lo, warp, g, t);
+    store_t(dp, mine + L::x_hi, mine + L::x_lo, warp, g, t);
     fence_proxy_async();
-    load_a<true>(mine + Layout::q, warp, g, t, sc.q, a_hi, a_lo);
+    load_a<true, D>(mine + L::q, warp, g, t, sc.q, a_hi, a_lo);
     bar_sync(bar, 128);  // dS^T stored, q and dO read
     if (tid == 0 && qt + kConsumers < n_q)
-      load_q_tile(mine, q_full, &qmap, &dmap, (qt + kConsumers) * kQ, bh);
-    product(part, a_hi, a_lo, x_hi, x_lo);
+      load_q_tile<D>(mine, q_full, &qmap, &dmap, (qt + kConsumers) * kQ, bh);
+    product<64, 8, kPanel>(part, a_hi, a_lo, x_hi, x_lo);
     finish(part);
 #pragma unroll
     for (int i = 0; i < 32; ++i) tot_k[i] += part[i];
 
-    // dq = dS K with dS from its accumulator, staged as 64 rows and added
-    // into dq by one bulk reduce-add per row
+    // dq = dS K (m64nD) with dS from its accumulator, staged as 64 rows and
+    // added into dq by one bulk reduce-add per row
     acc_to_a_tf32(dp, a_hi, a_lo);
-    product(part, a_hi, a_lo, s_base + Layout::kt_hi, s_base + Layout::kt_lo);
-    finish(part);
+    product<D, 8, L::kKtPanel>(part_q, a_hi, a_lo, s_base + L::kt_hi, s_base + L::kt_lo);
+    finish(part_q);
     bar_sync(bar, 128);  // every lane's dK^T product has read dS^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(staged + (16 * warp + g + 8 * h) * kStageRow + 8 * j + 2 * t) =
-            make_float2(part[4 * j + 2 * h] * sc.dq, part[4 * j + 2 * h + 1] * sc.dq);
+        *reinterpret_cast<float2*>(staged + (16 * warp + g + 8 * h) * L::kStageRow + 8 * j + 2 * t) =
+            make_float2(part_q[4 * j + 2 * h] * sc.dq, part_q[4 * j + 2 * h + 1] * sc.dq);
     fence_proxy_async();
     bar_sync(bar, 128);
     if (tid < kQ && q0 + tid < T)
-      bulk_reduce_add_f32(dq + head + (size_t)(q0 + tid) * kD, staged + tid * kStageRow, kD * 4);
+      bulk_reduce_add_f32(dq + head + (size_t)(q0 + tid) * D, staged + tid * L::kStageRow, D * 4);
   }
 
   // epilogue: warpgroup 0 writes dv and warpgroup 1 dk, each adding the
@@ -398,39 +443,39 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int i = 0; i < 32; ++i) staged[i * 128 + tid] = wg == 0 ? tot_k[i] : tot_v[i];
   __syncthreads();
-  const unsigned char* other = smem + Layout::wg + (1 - wg) * Layout::wg_bytes;
-  const float* theirs = reinterpret_cast<const float*>(other + Layout::x_hi);
+  const unsigned char* other = smem + L::wg + (1 - wg) * L::wg_bytes;
+  const float* theirs = reinterpret_cast<const float*>(other + L::x_hi);
   float* out = (wg == 0 ? dv : dk) + head;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int d = 16 * warp + g + 8 * ((i >> 1) & 1), key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
     const float val = wg == 0 ? tot_v[i] + theirs[i * 128 + tid]
                               : (tot_k[i] + theirs[i * 128 + tid]) * sc.dk;
-    if (key < T) out[(size_t)key * kD + d] = val;
+    if (d < D && key < T) out[(size_t)key * D + d] = val;
   }
 }
 
-// A map over a [BH, T, 64] fp32 tensor whose boxes are 64 rows of 32 dims,
+// A map over a [BH, T, D] fp32 tensor whose boxes are 64 rows of 32 dims,
 // 128B-swizzled: coordinates (dim, t, bh); rows at or past T read as zeros.
-inline cudaError_t rows_map(CUtensorMap* map, const float* base, int T, int BH) {
-  return sw128_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, kD, T, BH, 32, 64);
+inline cudaError_t rows_map(CUtensorMap* map, const float* base, int D, int T, int BH) {
+  return sw128_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, D, T, BH, 32, 64);
 }
 
-template <bool kCausal, bool kFused>
+template <int D, bool kCausal, bool kFused>
 int launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
            const float* delta, float* dq, float* dk, float* dv, int BH, int T, int kv_len,
            Scales sc, cudaStream_t st) {
   CUtensorMap qmap, kmap, vmap, dmap;
-  cudaError_t err = rows_map(&qmap, q, T, BH);
-  if (err == cudaSuccess) err = rows_map(&kmap, k, T, BH);
-  if (err == cudaSuccess) err = rows_map(&vmap, v, T, BH);
-  if (err == cudaSuccess) err = rows_map(&dmap, dout, T, BH);
-  const size_t smem = Layout::bytes + 1024;
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_f32_kernel<kCausal, kFused>, smem);
+  cudaError_t err = rows_map(&qmap, q, D, T, BH);
+  if (err == cudaSuccess) err = rows_map(&kmap, k, D, T, BH);
+  if (err == cudaSuccess) err = rows_map(&vmap, v, D, T, BH);
+  if (err == cudaSuccess) err = rows_map(&dmap, dout, D, T, BH);
+  const size_t smem = Layout<D>::bytes + 1024;
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_f32_kernel<D, kCausal, kFused>, smem);
   if (err != cudaSuccess) return (int)err;
   if (BH > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((T + kKeys - 1) / kKeys, BH);
-  flash_bwd_f32_kernel<kCausal, kFused><<<grid, kThreads, smem, st>>>(
+  flash_bwd_f32_kernel<D, kCausal, kFused><<<grid, kThreads, smem, st>>>(
       qmap, kmap, vmap, dmap, lse, delta, dq, dk, dv, T, kv_len, sc);
   return (int)cudaGetLastError();
 }
@@ -470,15 +515,15 @@ struct Layout80 {  // byte offsets into the 1024-aligned dynamic shared memory
   static constexpr int q = kt_lo + 2 * kKtPanel80;  // the q tile [rows][dims] (TMA)
   static constexpr int dout = q + kRowTile80;        // the dO tile
   static constexpr int x_hi = dout + kRowTile80;     // P^T, then dS^T [keys][q]; then dq rows
-  static constexpr int x_lo = x_hi + kTile;
-  static constexpr int dot_hi = x_lo + kTile;        // dO[:, 64:80]^T [16][q positions]
+  static constexpr int x_lo = x_hi + kXTile;
+  static constexpr int dot_hi = x_lo + kXTile;        // dO[:, 64:80]^T [16][q positions]
   static constexpr int dot_lo = dot_hi + 2 * kTailT;
   static constexpr int qt_hi = dot_lo + 2 * kTailT;  // q'[:, 64:80]^T
   static constexpr int qt_lo = qt_hi + 2 * kTailT;
   static constexpr int bars = qt_lo + 2 * kTailT;    // kv_full, q_full
   static constexpr int bytes = bars + 2 * 8;
 };
-static_assert(kQ * kStageRow80 * 4 <= 2 * kTile, "a tile's dq rows fit the hi/lo tile pair");
+static_assert(kQ * kStageRow80 * 4 <= 2 * kXTile, "a tile's dq rows fit the hi/lo tile pair");
 static_assert(Layout80::bytes + 1024 <= 232448, "one block's shared memory");
 
 // The A operand of S or dP at D 80 from a [64][80] fp32 tile, times
@@ -680,8 +725,8 @@ flash_bwd_fused_d80_kernel(const __grid_constant__ Maps80 maps, const float* __r
     {
       // dV^T (dims 0-63) += dO^T P; dV (dims 64-79) += P^T dO[:, 64:80]
       uint32_t a_hi[8][4], a_lo[8][4];
-      load_a<true>(smem + L::dout, warp, g, t, 1.f, a_hi, a_lo);
-      product(part, a_hi, a_lo, x_hi, x_lo);
+      load_a<true, 64>(smem + L::dout, warp, g, t, 1.f, a_hi, a_lo);  // dims 0-63
+      product<64, 8, kPanel>(part, a_hi, a_lo, x_hi, x_lo);
       product_tail(part_t, x_hi, x_lo, s_base + L::dot_hi, s_base + L::dot_lo);
       wgmma_wait<0>();
       reg_fence(part);
@@ -699,14 +744,14 @@ flash_bwd_fused_d80_kernel(const __grid_constant__ Maps80 maps, const float* __r
     fence_proxy_async();
     {
       uint32_t a_hi[8][4], a_lo[8][4];
-      load_a<true>(smem + L::q, warp, g, t, sc.q, a_hi, a_lo);
+      load_a<true, 64>(smem + L::q, warp, g, t, sc.q, a_hi, a_lo);  // dims 0-63
       __syncthreads();  // dS^T stored, q and dO read
       if (tid == 0 && qt + 1 < n_q) {
         mbar_expect_tx(q_full, 2 * kRowTile80);
         load_rows80(smem + L::q, &maps.q, &maps.q_tail, q_full, q0 + kQ, bh);
         load_rows80(smem + L::dout, &maps.d, &maps.d_tail, q_full, q0 + kQ, bh);
       }
-      product(part, a_hi, a_lo, x_hi, x_lo);
+      product<64, 8, kPanel>(part, a_hi, a_lo, x_hi, x_lo);
       product_tail(part_t, x_hi, x_lo, s_base + L::qt_hi, s_base + L::qt_lo);
       wgmma_wait<0>();
       reg_fence(part);
@@ -791,24 +836,31 @@ int launch_fused_d80(const float* q, const float* k, const float* v, const float
 
 }  // namespace
 
-// K9: q, k, v, out's dO [BH, T, 64] fp32 contiguous (16-byte aligned),
-// lse/delta [BH, T] fp32, 1 <= kv_len <= T -> dk, dv [BH, T, 64] fp32, and
-// dq [BH, T, 64] fp32 added into (the caller zeroes it). scale_log2e =
-// log2(e)/8, scale = 1/8; causal != 0 masks key j > query i. One launch.
+// K9: q, k, v, out's dO [BH, T, D] fp32 contiguous (16-byte aligned), D 64
+// (causal or not) or 32 (not causal), lse/delta [BH, T] fp32, 1 <= kv_len <=
+// T -> dk, dv [BH, T, D] fp32, and dq [BH, T, D] fp32 added into (the caller
+// zeroes it). scale_log2e = log2(e)/sqrt(D), scale = 1/sqrt(D); causal != 0
+// masks key j > query i. One launch. Returns cudaErrorInvalidValue for
+// another D, and for a causal call at D 32.
 extern "C" int fsat_flash_backward(const float* q, const float* k, const float* v,
                                    const float* dout, const float* lse, const float* delta,
                                    float* dq, float* dk, float* dv, int BH, int T, int kv_len,
-                                   int causal, float scale_log2e, float scale, void* stream) {
+                                   int D, int causal, float scale_log2e, float scale,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Scales sc{1.f, scale_log2e, scale, 1.f, 1.f};
-  if (causal)
-    return launch<true, false>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
-  return launch<false, false>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
+  if (D == 64 && causal)
+    return launch<64, true, false>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
+  if (D == 64)
+    return launch<64, false, false>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
+  if (D == 32 && !causal)
+    return launch<32, false, false>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// K8: q, k, v, out's dO [BH, T, D] fp32 contiguous (16-byte aligned), D 64
-// or 80, lse/delta [BH, T] fp32, 1 <= kv_len <= T -> dk, dv [BH, T, D] fp32,
-// and dq [BH, T, D] fp32 added into (the caller zeroes it). prescale =
+// K8: q, k, v, out's dO [BH, T, D] fp32 contiguous (16-byte aligned), D 32,
+// 64 or 80, lse/delta [BH, T] fp32, 1 <= kv_len <= T -> dk, dv [BH, T, D]
+// fp32, and dq [BH, T, D] fp32 added into (the caller zeroes it). prescale =
 // log2(e)/sqrt(D), scale = 1/sqrt(D). One launch. Returns
 // cudaErrorInvalidValue for another D.
 extern "C" int fsat_flash_backward_fused(const float* q, const float* k, const float* v,
@@ -817,11 +869,12 @@ extern "C" int fsat_flash_backward_fused(const float* q, const float* k, const f
                                          int kv_len, int D, float prescale, float scale,
                                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const Scales sc{prescale, 1.f, 1.f, scale, 1.f / kLog2e};
+  if (D == 32)
+    return launch<32, false, true>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
   if (D == 64)
-    return launch<false, true>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
-                               Scales{prescale, 1.f, 1.f, scale, 1.f / kLog2e}, st);
+    return launch<64, false, true>(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
   if (D == 80)
-    return launch_fused_d80(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len,
-                            Scales{prescale, 1.f, 1.f, scale, 1.f / kLog2e}, st);
+    return launch_fused_d80(q, k, v, dout, lse, delta, dq, dk, dv, BH, T, kv_len, sc, st);
   return (int)cudaErrorInvalidValue;
 }

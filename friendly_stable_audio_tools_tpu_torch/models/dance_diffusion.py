@@ -21,10 +21,11 @@ through ops/attention.py:scaled_dot_product_attention with the JAX gate: on
 the card, where a level runs at least 1024 tokens (from 262,144 samples at
 the shipped configs' depth 14 and 5 attention levels; 8192, 4096, 2048 and
 1024 tokens at generate_diffusion_uncond's default 2,097,152), the fp32
-flash kernel K7 at head dim 32 serves it; under grad there it raises before
-any launch (K8 and K9 at head dim 32 are still to be ported, ROADMAP
-queue B). At the configs' own sample sizes (65,536 and 131,072) the
-largest attention is 256 and 512 tokens, which stays plain.
+flash kernel K7 at head dim 32 serves it; under grad there ``FlashAttention``
+runs K7 with its LSE, then K8 at 1024-4096 tokens and K9 at 8192 (head dim
+32, as the JAX package picks them by K8's plan). At the configs' own
+sample sizes (65,536 and 131,072) the largest attention is 256 and 512
+tokens, which stays plain.
 """
 
 from __future__ import annotations

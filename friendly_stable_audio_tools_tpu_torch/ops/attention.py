@@ -62,7 +62,7 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     """q [B, H, Tq, D], k/v [B, Hkv, Tk, D], mask [B, Tk] or [B, 1, Tq, Tk]
     (True = attend) -> [B, H, Tq, D]; causal masks key j > query i + Tk -
     Tq. On a CUDA tensor that :func:`flash_gate` admits (no mask), the flash
-    kernels compute it (D 64 or 80, and D 32 in fp32 without grad; fp32, or
+    kernels compute it (D 32, 64 or 80 in fp32, D 64 or 80 in bf16; fp32, or
     bf16 without grad and not causal; causal at D 64 under grad; other cases
     raise there, under grad before any launch): under grad,
     when q, k or v needs a gradient, ``FlashAttention`` (K7 with its LSE,

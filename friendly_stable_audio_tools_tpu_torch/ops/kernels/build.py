@@ -41,7 +41,7 @@ SIGNATURES = {
     "fsat_rope_pair": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "fsat_flash_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fsat_flash_forward_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "fsat_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "fsat_flash_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "fsat_flash_backward_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "fsat_snake_conv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_snake_conv1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

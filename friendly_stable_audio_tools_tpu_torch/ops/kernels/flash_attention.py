@@ -66,7 +66,10 @@ its warpgroups take the q tiles in turn, and each q tile's dq rows go into
 the zeroed dq by bulk reduce-adds, so dq is summed in an order that changes
 from run to run (dk and dv are bit-equal between runs). K8 at D 64 is K9's
 kernel with K8's constants (q prescaled, ds unscaled, the scale on dq and
-dk); at D 80 a kernel of its own with one warpgroup per block.
+dk); at D 80 a kernel of its own with one warpgroup per block. At D 32
+(Dance Diffusion's U-Net under grad from 262,144 samples: K8 at T 1024-4096,
+K9 at T 8192) K8 and K9 are the D 64 kernel's other template instance, its
+dV^T and dK^T products padded to 64 head dims.
 
 The causal kernels skip the key tiles past a q tile's diagonal (and the q
 tiles before a key tile's) and mask only the diagonal tile: at T 1501 the
@@ -88,12 +91,13 @@ the fp32 K7 takes the same design with 3xTF32 products).
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
 the kernels or raise. The CUDA kernels take q, k and v of one length; K7
 fp32 or bf16 (bf16 only without the LSE and not causal), K8 and K9 fp32;
-the fp32 K7 head dim 32, 64 or 80 (32: Dance Diffusion's U-Net at
-generate_diffusion_uncond's default length), the bf16 K7 and K8 64 or 80,
-K9 64. Under grad a head dim that the chosen backward does not take raises
-before K7 launches. The other variants of the TPU
-kernels (bf16 K7 with its LSE, the rope-fused one, other head dims,
-rectangular calls, K9 at D 80) are still to be ported (ROADMAP queue B).
+the fp32 K7 and K8 head dim 32, 64 or 80 (32: Dance Diffusion's U-Net at
+generate_diffusion_uncond's default length, and under grad from 262,144
+samples), the bf16 K7 64 or 80, K9 32 or 64 (causal: 64). Under grad a head
+dim that the chosen backward does not take raises before K7 launches. The
+other variants of the TPU kernels (bf16 K7 with its LSE or at D 32, the
+rope-fused one, other head dims, rectangular calls, K9 at D 80, the causal
+K9 at D 32) are still to be ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -116,8 +120,10 @@ causal_forward_launches = 0   # causal K7 with its LSE
 causal_serving_launches = 0   # causal K7 without it
 causal_backward_launches = 0  # causal K9
 # the fp32 K7 at head dim 32 (Dance Diffusion's U-Net), counted apart from
-# D 64 and 80, with or without its LSE
+# D 64 and 80, with or without its LSE; K8 and K9 at head dim 32 likewise
 d32_launches = 0
+d32_fused_backward_launches = 0  # K8 at D 32
+d32_backward_launches = 0  # K9 at D 32
 
 LOG2E = 1.4426950408889634
 # fp32 score bytes one chunk of heads of a plain version may hold (one
@@ -257,8 +263,9 @@ def backward_kernel(t_q: int, t_k: int, d: int, causal: bool = False) -> str:
 
 FLASH_HEAD_DIMS = (32, 64, 80)  # the fp32 K7's CUDA kernel
 BF16_HEAD_DIMS = (64, 80)  # the bf16 K7's
-FUSED_BACKWARD_HEAD_DIMS = (64, 80)  # K8's
-BACKWARD_HEAD_DIMS = (64,)  # K9's
+FUSED_BACKWARD_HEAD_DIMS = (32, 64, 80)  # K8's
+BACKWARD_HEAD_DIMS = (32, 64)  # K9's
+CAUSAL_BACKWARD_HEAD_DIMS = (64,)  # the causal K9's
 
 
 def _cuda_args(name: str, *tensors: torch.Tensor, head_dims=BACKWARD_HEAD_DIMS,
@@ -370,25 +377,29 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                    lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None,
                    causal: bool = False):
-    """K9: (dq, dk, dv) [BH, T, 64] from q, k, v, K7's out and lse, and
-    dL/d(out), in one launch; causal for the backward of a causal K7."""
-    global backward_launches, causal_backward_launches
+    """K9: (dq, dk, dv) [BH, T, D] (D 32 or 64; causal: 64) from q, k, v,
+    K7's out and lse, and dL/d(out), in one launch; causal for the backward
+    of a causal K7."""
+    global backward_launches, causal_backward_launches, d32_backward_launches
     valid = _valid_len(k.shape[1], kv_len)
     _check_causal(q, k, causal)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, out, lse, do, kv_len, causal)
-    q, k, v, out, do = _cuda_args("flash_backward", q, k, v, out, do)
+    q, k, v, out, do = _cuda_args("flash_backward", q, k, v, out, do, head_dims=(
+        CAUSAL_BACKWARD_HEAD_DIMS if causal else BACKWARD_HEAD_DIMS))
     bh, t, d = q.shape
     lse, delta = _lse_delta("flash_backward", lse, out, do)
     dq = torch.zeros_like(q)  # the key blocks add their parts into it
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = build.library().fsat_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid, int(causal),
-        LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid, d,
+        int(causal), LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
     build.check(err, "flash_backward")
     if causal:
         causal_backward_launches += 1
+    elif d == 32:
+        d32_backward_launches += 1
     else:
         backward_launches += 1
     return dq, dk, dv
@@ -396,9 +407,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
 
 def flash_backward_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                          lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None):
-    """K8: (dq, dk, dv) [BH, T, D] (D 64 or 80) from q, k, v, K7's out and
-    lse, and dL/d(out), in one launch."""
-    global fused_backward_launches
+    """K8: (dq, dk, dv) [BH, T, D] (D 32, 64 or 80) from q, k, v, K7's out
+    and lse, and dL/d(out), in one launch."""
+    global fused_backward_launches, d32_fused_backward_launches
     valid = _valid_len(k.shape[1], kv_len)
     if q.device.type == "cpu":
         return flash_backward_fused_plain(q, k, v, out, lse, do, kv_len)
@@ -413,7 +424,10 @@ def flash_backward_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out:
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid, d,
         LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
     build.check(err, "flash_backward_fused")
-    fused_backward_launches += 1
+    if d == 32:
+        d32_fused_backward_launches += 1
+    else:
+        fused_backward_launches += 1
     return dq, dk, dv
 
 
@@ -434,16 +448,17 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_backward_head_dim(t_q: int, t_k: int, d: int, causal: bool = False) -> None:
     """Raises, naming ROADMAP queue B, where the backward that
     :func:`flash_attention_backward` would choose on CUDA tensors has no
-    kernel at head dim d (K8 takes 64 and 80, K9 64): a training call at
-    head dim 32 (Dance Diffusion's U-Net from 262,144 samples) stops here,
-    before its forward launches anything."""
+    kernel at head dim d (K8 takes 32, 64 and 80, K9 32 and 64, the causal
+    K9 64): a training call at another head dim stops here, before its
+    forward launches anything."""
     kernel = backward_kernel(t_q, t_k, d, causal)
-    dims = FUSED_BACKWARD_HEAD_DIMS if kernel == "K8" else BACKWARD_HEAD_DIMS
+    dims = (FUSED_BACKWARD_HEAD_DIMS if kernel == "K8" else
+            CAUSAL_BACKWARD_HEAD_DIMS if causal else BACKWARD_HEAD_DIMS)
     if d not in dims:
         raise NotImplementedError(
-            f"flash attention under grad: the backward {kernel} takes head dim "
-            f"{' or '.join(map(str, dims))} on the card, got {d}; {kernel} at head dim {d} is "
-            f"still to be ported (ROADMAP queue B)")
+            f"flash attention under grad: the {'causal ' if causal else ''}backward {kernel} "
+            f"takes head dim {' or '.join(map(str, dims))} on the card, got {d}; {kernel} at "
+            f"head dim {d} is still to be ported (ROADMAP queue B)")
 
 
 class FlashAttention(torch.autograd.Function):

@@ -53,8 +53,12 @@ training shape (B 8 x 24 heads, T 6272, kv_len 6145, fp32) and the audio
 LM's causal one (B 8 x 16 heads, T 1501), the fp32 K7 at every main-path
 shape of chip_smoke [3e]-[3h] and [15b] (SA 2.0's training with its LSE,
 the U-Net's serving and training shapes, the LM's causal shape with and
-without its LSE, SA 2.0's DiT past 8192 tokens), and K8 at SA 1.0's
+without its LSE, SA 2.0's DiT past 8192 tokens), K8 at SA 1.0's
 training shapes (B 8 x 16 heads: T 4096 and 2048 at D 64, T 1024 at D 80),
+and K8 and K9 at head dim 32 at Dance Diffusion's training shapes (K8 at BH
+32 T 1024 and BH 16 T 2048 / 4096, K9 at BH 16 T 8192; a parent whose K9
+source has no D 32 instance skips those cases, and one whose C entry takes
+no head dim is called without it),
 each library on the cases of the source it changes, in turns (shipped, the
 variants, the variants again in reverse, shipped): per call the CUDA-event
 time of the wrapper (K1/K5/K6's K10a launches, the fp32 K7's pre-pass and
@@ -73,6 +77,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import tempfile
@@ -85,8 +90,8 @@ BF16_SOURCE = "flash_attention_bf16.cu"
 K7_SOURCE = "flash_attention.cu"
 K9_SOURCE = "flash_attention_bwd_f32.cu"  # K9 and K8
 # one dq row's reduce-add in K9_SOURCE
-K9_ROW_REDUCE = ("bulk_reduce_add_f32(dq + head + (size_t)(q0 + tid) * kD, "
-                 "staged + tid * kStageRow, kD * 4);")
+K9_ROW_REDUCE = ("bulk_reduce_add_f32(dq + head + (size_t)(q0 + tid) * D, "
+                 "staged + tid * L::kStageRow, D * 4);")
 VARIANTS = {
     "keys64": ("attention.cu", [("constexpr int kN = 128;", "constexpr int kN = 64;")]),
     "consumers3": ("attention.cu", [("constexpr int kConsumers = 2;",
@@ -106,7 +111,7 @@ VARIANTS = {
     "k9_one_dq_reduce": (K9_SOURCE, [(
         "if (tid < kQ && q0 + tid < T)\n      " + K9_ROW_REDUCE,
         "if (tid == 0 && q0 + kQ <= T)\n"
-        "      bulk_reduce_add_f32(dq + head + (size_t)q0 * kD, staged, kQ * kD * 4);")]),
+        "      bulk_reduce_add_f32(dq + head + (size_t)q0 * D, staged, kQ * D * 4);")]),
     "k7_f32_slots2": (K7_SOURCE, [("static constexpr int kSlots = D == 32 ? 8 : D == 64 ? 4 : 3;",
                                    "static constexpr int kSlots = 2;")]),
     "k7_f32_turns_off": (K7_SOURCE, [
@@ -130,10 +135,12 @@ PAIR_SHAPES = {"K1": (2, 1025, 24, None), "K5": (8, 1040, 24, 1025), "K10": (2, 
 BF16_SHAPES = {"K7 BH32 T4096 D64": (32, 4096, 64, None), "K7 BH32 T2048 D64": (32, 2048, 64, None),
                "K7 BH32 T1024 D80": (32, 1024, 80, None),
                "K7 BH48 T8576 kv8449 D64": (48, 8576, 64, 8449)}
-# (BH, T, kv_len, causal) of K9's: SA 2.0's DiT training (B 8 x 24 heads), the
-# audio LM's causal training (B 8 x 16 heads)
-K9_SHAPES = {"K9 BH192 T6272 kv6145": (192, 6272, 6145, False),
-             "K9 causal BH128 T1501": (128, 1501, None, True)}
+# (BH, T, kv_len, causal, D) of K9's: SA 2.0's DiT training (B 8 x 24 heads),
+# the audio LM's causal training (B 8 x 16 heads), Dance Diffusion's U-Net at
+# 2,097,152 samples (16 heads of 32)
+K9_SHAPES = {"K9 BH192 T6272 kv6145": (192, 6272, 6145, False, 64),
+             "K9 causal BH128 T1501": (128, 1501, None, True, 64),
+             "K9 BH16 T8192 D32": (16, 8192, None, False, 32)}
 # (BH, T, D, kv_len, save_stats, causal) of the fp32 K7's: SA 2.0's DiT
 # training, the U-Net's serving (B 2 x 16 heads) and training (B 8 x 16)
 # levels, the LM's causal training and no-grad forward, SA 2.0's DiT past
@@ -149,9 +156,14 @@ K7_F32_SHAPES = {
     "K7f32 causal lse BH128 T1501 D64": (128, 1501, 64, None, True, True),
     "K7f32 causal serve BH128 T1501 D64": (128, 1501, 64, None, False, True),
     "K7f32 online BH48 T8576 kv8449 D64": (48, 8576, 64, 8449, False, False)}
-# (BH, T, D) of K8's: SA 1.0's U-Net training (B 8 x 16 heads)
+# (BH, T, D) of K8's: SA 1.0's U-Net training (B 8 x 16 heads), Dance
+# Diffusion's U-Net training (2 x 262,144 samples: BH 32 at T 1024; 1 x
+# 524,288: BH 16 at T 2048; BH 16 at T 4096 from 1,048,576 samples)
 K8_SHAPES = {"K8 BH128 T4096 D64": (128, 4096, 64), "K8 BH128 T2048 D64": (128, 2048, 64),
-             "K8 BH128 T1024 D80": (128, 1024, 80)}
+             "K8 BH128 T1024 D80": (128, 1024, 80), "K8 BH32 T1024 D32": (32, 1024, 32),
+             "K8 BH16 T2048 D32": (16, 2048, 32), "K8 BH16 T4096 D32": (16, 4096, 32)}
+# the cases a library built before K8 and K9 took head dim 32 cannot run
+D32_CASES = ("K9 BH16 T8192 D32", "K8 BH32 T1024 D32", "K8 BH16 T2048 D32", "K8 BH16 T4096 D32")
 # (B, T, H, part) of K10a's: k at SA 2.0's long-form serving shape (24 calls
 # per generation step) and SAO 1.0's (B2 T1025), q (prescaled by
 # log2(e)/8) and k at SAO 1.0's training shape (K6's two calls); each
@@ -175,18 +187,23 @@ CASE_SOURCES = {"K1": "attention.cu", "K5": "attention.cu", "K10": "attention.cu
                 **{key: "attention_rope.cu" for key in ROPE_SHAPES}}
 
 
-class _OldForward:
-    """A library whose fsat_flash_forward takes no scratch (the FFMA K7):
-    its other entries as they are, that one called without the scratch."""
+class _OldEntries:
+    """A library built from an older csrc/: where its fsat_flash_forward
+    takes no scratch (the FFMA K7), called without it; where its
+    fsat_flash_backward takes no head dim (K9 at D 64 only), called without
+    it; its other entries as they are."""
 
-    def __init__(self, lib):
+    def __init__(self, lib, forward_without_scratch, backward_without_d):
         self._lib = lib
+        self._forward, self._backward = forward_without_scratch, backward_without_d
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        if name != "fsat_flash_forward":
-            return fn
-        return lambda *args: fn(*args[:5], *args[6:])
+        if name == "fsat_flash_forward" and self._forward:
+            return lambda *args: fn(*args[:5], *args[6:])
+        if name == "fsat_flash_backward" and self._backward:
+            return lambda *args: fn(*args[:12], *args[13:])
+        return fn
 
 
 # the kernel source whose cases a variant runs, where it edits another file
@@ -233,13 +250,19 @@ def build_variant(name: str, tmp: Path, csrc: Path = build.CSRC_DIR,
                     *(str(src / (f + ".o")) for f in sources)], check=True)
     lib = ctypes.CDLL(str(lib_path))
     old_forward = "float* scratch" not in (src / K7_SOURCE).read_text()
+    k9_file = next(f for f in (K9_SOURCE, K7_SOURCE) if (src / f).exists()
+                   and "fsat_flash_backward(" in (src / f).read_text())
+    old_backward = not re.search(r"fsat_flash_backward\([^)]*int D, int causal",
+                                 (src / k9_file).read_text())
     for entry in ENTRY_POINTS:
         fn = getattr(lib, entry)
         fn.argtypes = build.SIGNATURES[entry]
         if entry == "fsat_flash_forward" and old_forward:
             fn.argtypes = fn.argtypes[:5] + fn.argtypes[6:]
+        if entry == "fsat_flash_backward" and old_backward:
+            fn.argtypes = fn.argtypes[:12] + fn.argtypes[13:]
         fn.restype = ctypes.c_int
-    return _OldForward(lib) if old_forward else lib
+    return _OldEntries(lib, old_forward, old_backward) if old_forward or old_backward else lib
 
 
 def main(argv=None):
@@ -271,8 +294,10 @@ def main(argv=None):
     runs = {name: [key for key in wanted
                    if name in ("shipped", "parent") or CASE_SOURCES[key] == case_source(name)]
             for name in names}
-    names = [name for name in names if runs[name]]
     parent_csrc = Path(args.parent) / build.CSRC_DIR.relative_to(build.PACKAGE_DIR.parent)
+    if args.parent and "launch<32" not in (parent_csrc / K9_SOURCE).read_text():
+        runs["parent"] = [key for key in runs["parent"] if key not in D32_CASES]
+    names = [name for name in names if runs[name]]
     libs = {name: build_variant(name, tmp, parent_csrc if name == "parent" else build.CSRC_DIR)
             for name in names}
 
@@ -319,10 +344,10 @@ def main(argv=None):
         valid = kv or t
         kk, vv = k[:, :valid].contiguous(), v[:, :valid].contiguous()
         sdpa[key] = (q[None], kk[None], vv[None])
-    for key, (bh, t, kv, causal) in K9_SHAPES.items():
+    for key, (bh, t, kv, causal, d) in K9_SHAPES.items():
         if key not in wanted:
             continue
-        q, k, v, do = (torch.randn(bh, t, 64, generator=g, device="cuda") for _ in range(4))
+        q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda") for _ in range(4))
         if kv is not None:
             do[:, kv:] = 0  # as on the transformer's path
         out, lse = flash.flash_forward_plain(q, k, v, kv, causal=causal)

@@ -33,8 +33,10 @@ compute in fp32. Dance Diffusion's U-Net (`DAU1d`, e.g. the JAX package's
 configs/model_configs/dance_diffusion/dance_diffusion_base_44k.json) trains
 in fp32 at its config's 65,536 samples, where its self-attention (at most
 256 tokens) is plain; from 262,144 samples its attention levels reach the
-flash gate at head dim 32, whose backward kernels are still to be ported:
-such a step raises before any launch.
+flash gate at head dim 32 and train through K7 with its LSE and K8 (K9 at
+a level of 8192 tokens, from 2,097,152 samples). A step of 524,288 samples
+(batch 2 x 262,144 or 1 x 524,288) peaks near 40 GiB: no U-Net step
+recomputes its activations, in the JAX package or here.
 Without `--pretrained-ckpt-path` the weights are random, drawn from
 `--seed`. Checkpoints (`torch.save`) go to
 `<save-dir>/<name>/<run id>/checkpoints/step_<n>/`; `--ckpt-path` resumes

@@ -9,9 +9,22 @@ utils/convert.py. One generator step, then one discriminator step (from
 JAX's updated weights), on the same reals [2, 1024, 2], with the JAX step's
 VAE noise (recovered as (z - mean) / stdev from its own encode) passed into
 the port. Everything is fp32 on the CPU. Tolerances: each named loss to
-1e-5 relative; each of the autoencoder's gradients to rel-L2 1e-4 (fp32
-rounding of XLA against PyTorch through the encoder, the decoder, the STFTs
-and the discriminator, forward and backward); the discriminator's gradient
+1e-5 relative; the autoencoder's gradient to rel-L2 1e-4 as a whole, and
+per parameter to 1e-4 plus the fp32 rounding of this loss at that
+parameter: the port's fp64 run of the same step measures the port's share
+(fp32 against fp64, itself under 1e-3), and JAX's fp32 arithmetic carries
+at most twice as much (so the port's fp64 gradient lies within 1e-4 plus
+twice the port's rounding of JAX's fp32 one, its fp32 gradient within 1e-4
+plus three times it).
+The L1 log-magnitude STFT losses behind the A-weighting prefilter make that
+rounding large: their bins near the 1e-4 clamp carry ~1e-3 of relative
+error in fp32 and weigh each by 1 / magnitude. Measured on these inputs
+against the port's fp64 gradient, per parameter: the port's fp32 gradient
+up to 1.35e-4 (XLA's default pipeline) and 1.18e-4 (opt level 0, the fast
+tier; the inputs carry JAX's VAE noise), alike at 1, 2 and 8 torch
+threads; JAX's up to 4.2e-5 and 2.01e-4 (1.71x the port's). On equivalent
+inputs (the batch swapped, negated, scaled by 1.01) either side's error is
+the larger, up to 3.3e-3, so neither is at fault. The discriminator's gradient
 to rel-L2 1e-4 as a whole and each of its parameters' to 1e-4 of that
 whole's norm (its first 2-D conv's at the 64-point scale, of norm 1e-2,
 carried 2e-4 of rounding against the port's own fp64 on these inputs, 9e-7
@@ -142,6 +155,33 @@ def jax_noise(jae, gen_params, reals, key):
     return (z - mean) / (jax.nn.softplus(scale) + 1e-4)
 
 
+def port_generator_grads_fp64(gen_params, disc_params, reals, noise):
+    """The port's generator step (forward, losses, backward) in fp64 on the
+    same weights, reals and VAE noise: {name: gradient}. The loss code casts
+    to fp32 and builds its windows and filters in fp32; here those keep
+    fp64 (the filters' fp32 taps, widened)."""
+    from friendly_stable_audio_tools_tpu_torch.ops import stft as tstft
+    from friendly_stable_audio_tools_tpu_torch.training.losses import auraloss
+
+    to_float, on, hann = torch.Tensor.float, auraloss._OnDevice.on, tstft.hann_window
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "float", lambda x, *a, **k: (
+            x if x.dtype == torch.float64 else to_float(x, *a, **k)))
+        mp.setattr(auraloss._OnDevice, "on", lambda self, dev: on(self, dev).double())
+        for mod in (tstft, auraloss, __import__(
+                "friendly_stable_audio_tools_tpu_torch.models.discriminators", fromlist=["x"])):
+            mp.setattr(mod, "hann_window", lambda n, device=None: hann(n, device).double())
+        ae = create_autoencoder_from_config(tiny_ae_config())
+        ae.load_state_dict(convert_autoencoder(gen_params), strict=True)
+        tw = AutoencoderTrainingWrapper(ae, loss_config=LOSS_CONFIG,
+                                        optimizer_configs=OPT_CONFIGS, sample_rate=SR)
+        tw.discriminator.load_state_dict(convert_encodec_discriminator(disc_params), strict=True)
+        ae.double()
+        tw.discriminator.double()
+        tw.generator_step(_t(reals).double(), draws={"noise": _t(noise).double()})
+    return {n: p.grad.clone() for n, p in ae.named_parameters()}
+
+
 @pytest.fixture(scope="module")
 def steps():
     """One JAX generator step and one discriminator step (losses, grads,
@@ -199,6 +239,7 @@ def steps():
     tw.discriminator.load_state_dict(convert_encodec_discriminator(disc_params), strict=True)
     gen_metrics = tw.train_step(_t(reals), draws={"noise": _t(noise[0])})
     gen_grads = {n: p.grad.clone() for n, p in ae.named_parameters()}
+    gen_grads64 = port_generator_grads_fp64(gen_params, disc_params, reals, noise[0])
     gen_after = {n: p.detach().clone() for n, p in ae.named_parameters()}
     ema = {n: e.clone() for (n, _), e in zip(tw.gen_named, tw.ema)}
     # the discriminator step from JAX's updated weights, so that both sides
@@ -215,7 +256,8 @@ def steps():
                  disc_loss=float(out["disc_loss"]),
                  disc_grads=convert_encodec_discriminator(out["disc_grads"]),
                  new_disc=convert_encodec_discriminator(out["new_disc"])),
-        port=dict(gen_metrics=gen_metrics, gen_grads=gen_grads, gen_after=gen_after, ema=ema,
+        port=dict(gen_metrics=gen_metrics, gen_grads=gen_grads, gen_grads64=gen_grads64,
+                  gen_after=gen_after, ema=ema,
                   disc_metrics=disc_metrics, disc_grads=disc_grads,
                   disc_after={n: p.detach() for n, p in tw.discriminator.named_parameters()},
                   gen_loaded=gen_loaded,
@@ -235,10 +277,21 @@ def test_generator_step_losses_match_jax(steps):
 
 def test_generator_step_gradients_and_update_match_jax(steps):
     j, p = steps["jax"], steps["port"]
-    assert set(j["gen_grads"]) == set(p["gen_grads"])
+    assert set(j["gen_grads"]) == set(p["gen_grads"]) == set(p["gen_grads64"])
+    names = list(j["gen_grads"])
+    whole = [torch.cat([g[n].flatten().double() for n in names])
+             for g in (p["gen_grads"], j["gen_grads"])]
+    assert _rel(*whole) <= 1e-4
     for n, want in j["gen_grads"].items():
         assert np.abs(want.numpy()).max() > 0, n
-        assert _rel(p["gen_grads"][n], want) <= 1e-4, (n, _rel(p["gen_grads"][n], want))
+        exact = p["gen_grads64"][n]
+        rounding = _rel(p["gen_grads"][n], exact)  # the port's fp32 arithmetic alone
+        assert rounding <= 1e-3, (n, rounding)
+        # JAX's fp32 gradient carries its own rounding of the same loss, up
+        # to twice the port's (see the module docstring)
+        assert _rel(exact, want) <= 1e-4 + 2 * rounding, (n, _rel(exact, want), rounding)
+        err = _rel(p["gen_grads"][n], want)
+        assert err <= 1e-4 + 3 * rounding, (n, err, rounding)
         check_update(p["gen_after"][n], j["new_gen"][n], want, GEN_LR0)
         check_update(p["ema"][n], j["new_ema"][n], want, GEN_LR0)
 

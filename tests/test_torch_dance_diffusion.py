@@ -169,15 +169,25 @@ def test_self_attention_takes_the_kernel_route_at_1024_tokens(monkeypatch):
     assert _rel(got, jm.apply({"params": params}, jnp.asarray(x))) <= 1e-5
 
 
-def test_flash_route_under_grad_raises_at_head_dim_32_before_any_launch():
+def test_flash_route_under_grad_trains_at_head_dim_32_and_raises_at_unported_ones():
     """On CUDA tensors (here meta tensors, which reach the same checks) a
-    training call at head dim 32 raises, naming queue B, before K7 runs."""
-    q = torch.empty(16, 8192, 32, device="meta", requires_grad=True)
-    before = tflash.forward_launches
-    with pytest.raises(NotImplementedError, match="queue B"):
-        tflash.FlashAttention.apply(q, q, q)
-    assert tflash.forward_launches == before
-    tflash.check_backward_head_dim(8192, 8192, 64)  # D 64 trains
+    training call at a head dim that no backward kernel takes (48 for K8 at
+    T 1024, 96 for K9 at T 8192, 32 for the causal K9) raises, naming queue
+    B, before K7 runs; head dim 32 passes the check for K8 (T 1024) and K9
+    (T 8192), as 64 does."""
+    before = (tflash.forward_launches, tflash.d32_launches, tflash.causal_forward_launches)
+    for (t, d, causal), kernel in (((1024, 48, False), "K8"), ((8192, 96, False), "K9"),
+                                   ((1024, 32, True), "K9")):
+        assert tflash.backward_kernel(t, t, d, causal) == kernel
+        q = torch.empty(4, t, d, device="meta", requires_grad=True)
+        with pytest.raises(NotImplementedError, match=f"{kernel} at head dim {d} .*queue B"):
+            tflash.FlashAttention.apply(q, q, q, None, causal)
+    assert (tflash.forward_launches, tflash.d32_launches,
+            tflash.causal_forward_launches) == before
+    for t, kernel in ((1024, "K8"), (8192, "K9")):
+        assert tflash.backward_kernel(t, t, 32) == kernel
+        tflash.check_backward_head_dim(t, t, 32)
+        tflash.check_backward_head_dim(t, t, 64)
 
 
 @pytest.mark.parametrize("extra,t", [({}, 64), ({"cond_dim": 3}, 64),
@@ -348,3 +358,46 @@ def test_train_step_matches_jax(models):
     assert abs(loss.item() - loss_j) <= 1e-5 * abs(loss_j)
     _check_grads(model.model.named_parameters(), state_dict_from_jax(grads["model"]))
     assert math.isfinite(w.train_step(_t(reals).transpose(1, 2), [{}, {}])["loss"])
+
+
+# a DAU1d whose attention level sees 1024 tokens: depth 2, channels [32, 64]
+# (level 2 runs 2 heads of 32, its last attention 1 head of 32)
+DD_FLASH = {"io_channels": 2, "depth": 2, "n_attn_layers": 1, "channels": [32, 64],
+            "strides": [2]}
+FLASH_SAMPLE_SIZE = 2048
+
+
+def test_train_step_through_flash_attention_at_head_dim_32_matches_jax(monkeypatch):
+    """One `diffusion_uncond` step at batch 2 and 2048 samples with the
+    kernel route forced on CPU tensors: each of level 2's six attentions
+    (1024 tokens, heads of 32) goes through ``FlashAttention`` (the plain
+    K7 with its LSE, then the plain K8: its plan fits at T 1024). The loss
+    to 1e-5, every gradient to 1e-4 of its largest entry, against the JAX
+    wrapper's train step with its timesteps and noise."""
+    config = {**tiny_dd_config(**DD_FLASH), "sample_size": FLASH_SAMPLE_SIZE}
+    config["model"]["config"] = dict(DD_FLASH)
+    jmodel = jax_create(config, init_rng=jax.random.PRNGKey(0))
+    model = create_model_from_config(config, device="cpu")
+    model.load_state_dict(convert_diffusion_uncond(jmodel.params), strict=True)
+    reals = (0.1 * np.random.RandomState(5).randn(2, 2, FLASH_SAMPLE_SIZE)).astype(np.float32)
+    jw = jax_wrapper(config, jmodel)
+    key = jax.random.PRNGKey(13)
+    loss_j, grads = _jax_grads(jw, jw.prepare_batch(reals), key)
+    k_t, k_noise = jax.random.split(key)
+    t = _t(jdiff.draw_timesteps("uniform", 2, jnp.zeros((), jnp.uint32), k_t))
+    noise = _t(jax.random.normal(k_noise, (2, FLASH_SAMPLE_SIZE, 2), jnp.float32))
+
+    monkeypatch.setattr(tattention, "uses_kernels", lambda x: True)
+    calls = []
+    for name in ("flash_forward", "flash_backward_fused", "flash_backward"):
+        real = getattr(tflash, name)
+        monkeypatch.setattr(tflash, name, lambda *a, _n=name, _f=real, **k: (
+            calls.append((_n, tuple(a[0].shape))) or _f(*a, **k)))
+    w = create_training_wrapper_from_config(config, model)
+    loss, _ = w.loss(_t(reals).transpose(1, 2), [{}, {}], 0, {"t": t, "noise": noise})
+    loss.backward()
+    shapes = [(4, 1024, 32)] * 5 + [(2, 1024, 32)]
+    assert calls == ([("flash_forward", s) for s in shapes]
+                     + [("flash_backward_fused", s) for s in reversed(shapes)])
+    assert abs(loss.item() - loss_j) <= 1e-5 * abs(loss_j)
+    _check_grads(model.model.named_parameters(), state_dict_from_jax(grads["model"]))

@@ -38,6 +38,14 @@ m64n80 product, and dK and dV take dims 0-63 as above and dims 64-79 from
 products with the keys as rows: dV[:, 64:] = P^T dO[:, 64:] and dK[:, 64:] =
 dS^T q'[:, 64:]. Against `flash_backward_fused_plain`: rel-L2 <= 1e-5;
 against the JAX `_flash_backward_fused` in interpret mode: rel-L2 <= 1e-4.
+
+At head dim 32 (Dance Diffusion's U-Net under grad) K8 and K9 run the
+two-warpgroup kernel's other instance: S and dP sum four k8 slices, dq is an
+m64n32 product, and dV^T and dK^T keep the head dims on M padded to 64 rows
+with zeros, which leaves each of their 32 real rows as it is (a row of a
+product and its truncating accumulate depend on that row alone), so the
+emulation takes the 32 rows. Its launch plan (`Layout<D>` read from the
+source and evaluated at D 32 and 64) is checked against the card's limits.
 """
 
 import functools
@@ -106,7 +114,7 @@ def _tiles(x, n):
 
 def backward_schedule(q, k, v, out, lse, do, kv_len=None, causal=False, fused=False):
     """K9 (or with `fused`, K8) as the kernel schedules it: (dq, dk, dv)
-    [BH, T, D] fp32, D 64 or 80."""
+    [BH, T, D] fp32, D 32, 64 or 80."""
     bh, t, d = q.shape
     valid = kv_len or t
     n = (t + TILE - 1) // TILE
@@ -114,7 +122,7 @@ def backward_schedule(q, k, v, out, lse, do, kv_len=None, causal=False, fused=Fa
     # (q's factor, s's, ds's, dq's, dk's): K8's order or K9's
     c_q, c_s, c_ds, c_dq, c_dk = ((scale * tflash.LOG2E, 1.0, 1.0, scale, 1.0 / tflash.LOG2E)
                                   if fused else (1.0, scale * tflash.LOG2E, scale, 1.0, 1.0))
-    warpgroups = WARPGROUPS if d == 64 else 1
+    warpgroups = WARPGROUPS if d in (32, 64) else 1
     delta = (do * out).sum(-1)  # beside the kernel, as the wrapper computes it
     qt, dot, kt, vt = (_tiles(x, n) for x in (q * c_q, do, k, v))
     lse_t, delta_t = (_tiles(x[..., None], n)[..., 0] for x in (lse, delta))
@@ -168,11 +176,11 @@ def _np(t):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(bh, t, kv_len, causal):
+def _case(bh, t, kv_len, causal, d=64):
     """Inputs from numpy (the JAX forward's out and lse) and the schedule's
     gradients, shared by the tests of one case."""
-    rng = np.random.RandomState(t + 7 * bh + (kv_len or 0) + int(causal))
-    q, k, v, g = (rng.randn(bh, t, 64).astype(np.float32) for _ in range(4))
+    rng = np.random.RandomState(t + 7 * bh + (kv_len or 0) + int(causal) + (d != 64))
+    q, k, v, g = (rng.randn(bh, t, d).astype(np.float32) for _ in range(4))
     if kv_len is not None:
         g[:, kv_len:] = 0  # as on the transformer's path
     out, lse = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
@@ -274,8 +282,10 @@ def test_launch_plan_fits_the_card():
 
 
 # (BH, T, D, kv_len) of K8: T below one tile; D 80 with a masked tail; kv_len
-# one key into a key block at D 80; a ragged T past two tiles at D 64
-K8_CASES = [(2, 77, 64, None), (2, 200, 80, 190), (1, 130, 80, 65), (2, 150, 64, 129)]
+# one key into a key block at D 80; a ragged T past two tiles at D 64 and at
+# D 32; D 32 at T below one tile
+K8_CASES = [(2, 77, 64, None), (2, 200, 80, 190), (1, 130, 80, 65), (2, 150, 64, 129),
+            (2, 150, 32, 129), (1, 50, 32, None)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,6 +340,93 @@ def test_k8_d80_launch_plan_fits_the_card():
     assert row_tile % 1024 == 0 and 80 * 128 % 1024 == 0 and tail % 1024 == 0
     assert 64 * 32 % 256 == 0 and 32 * 4 == 128 and 8 * 4 == 32
     assert 64 * (80 + 4) * 4 <= x_pair and (80 + 4) * 4 % 16 == 0 and 80 * 4 % 16 == 0
+
+
+# (BH, T, kv_len) of K9 at head dim 32 (never causal): two whole tiles; a
+# ragged T with a masked tail
+K9_D32_CASES = [(1, 96, None), (2, 200, 150)]
+
+
+@pytest.mark.parametrize("bh,t,kv_len", K9_D32_CASES)
+def test_d32_schedule_matches_plain(interpret, bh, t, kv_len):
+    _, inputs, got = _case(bh, t, kv_len, False, 32)
+    want = tflash.flash_backward_plain(*inputs, kv_len)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == (bh, t, 32)
+        assert _rel(_np(a), _np(b)) <= 1e-5, name
+        if kv_len is not None:
+            assert not _np(a)[:, kv_len:].any(), name
+
+
+@pytest.mark.parametrize("bh,t,kv_len", K9_D32_CASES)
+def test_d32_schedule_matches_pallas(interpret, bh, t, kv_len):
+    (q, k, v, out, lse, g), _, got = _case(bh, t, kv_len, False, 32)
+    want = jfa._flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
+                               jnp.asarray(g), False, jfa.DEFAULT_BLOCK_Q, jfa.DEFAULT_BLOCK_K,
+                               kv_len=kv_len)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(_np(a), b) <= 1e-4, name
+
+
+def _layout(text, d):
+    """The kernel's `Layout<D>` evaluated at D = d from its source: {member:
+    bytes}."""
+    body = text[text.index("struct Layout {"):]
+    body = body[:body.index("};")]
+    ns = {"D": d, "kSwizzleRow": 128}
+    for name in ("kConsumers", "kQ", "kPanel", "kXTile"):
+        ns[name] = eval(_constant(name, text), {}, dict(ns))
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);", body):
+        ns[name] = eval(expr, {}, dict(ns))
+    return ns
+
+
+def test_launch_plan_fits_the_card_at_head_dim_32():
+    """`Layout<D>` of the two-warpgroup kernel at D 32 and 64: D 64 as before
+    (230,424 bytes with the slack); at D 32 a K, V, q or dO tile is one
+    panel of 64 rows (one TMA box), K^T two panels of 32 rows, the P^T/dS^T
+    pairs as at D 64, 148,504 bytes in all; every tile on a 1024-byte
+    swizzle atom; a tile's 64 dq rows of 36 floats fit its hi/lo pair, each
+    row 16-byte aligned and its reduce-add 128 bytes; head dims other than
+    32 and 64 (80 has its own kernel) raise before any launch, and so does
+    the causal K9 at D 32."""
+    text = SOURCE.read_text()
+    assert re.search(r"static_assert\(D == 32 \|\| D == 64", text)
+    for d, total in ((64, 230_424), (32, 148_504)):
+        lay = _layout(text, d)
+        assert lay["bytes"] + 1024 == total <= SMEM_LIMIT
+        assert lay["kTile"] == 64 * d * 4 == (d // 32) * lay["kPanel"]
+        assert lay["kKtPanel"] == d * 128 and 2 * lay["kKtPanel"] == lay["kTile"]
+        offsets = [lay[k] for k in ("k_hi", "k_lo", "v_hi", "v_lo", "kt_hi", "kt_lo", "wg")]
+        offsets += [lay["wg"] + w * lay["wg_bytes"] + lay[k] for w in range(WARPGROUPS)
+                    for k in ("q", "dout", "x_hi", "x_lo")]
+        assert all(o % 1024 == 0 for o in offsets) and lay["bars"] % 8 == 0
+        assert lay["x_lo"] - lay["x_hi"] == lay["kXTile"] == 2 * 64 * 32 * 4
+        assert lay["kStageRow"] == d + 4 and 64 * lay["kStageRow"] * 4 <= 2 * lay["kXTile"]
+        assert lay["kStageRow"] * 4 % 16 == 0 and d * 4 % 16 == 0
+    meta = torch.empty(2, 64, 32, device="meta")
+    assert tflash._cuda_args("flash_backward", meta, meta)
+    assert tflash._cuda_args("flash_backward_fused", meta, meta,
+                             head_dims=tflash.FUSED_BACKWARD_HEAD_DIMS)
+    for d in (16, 48, 96, 128):
+        with pytest.raises(NotImplementedError, match="queue B"):
+            tflash._cuda_args("flash_backward", torch.empty(2, 64, d, device="meta"))
+    with pytest.raises(NotImplementedError, match="queue B"):
+        tflash._cuda_args("flash_backward", meta, head_dims=tflash.CAUSAL_BACKWARD_HEAD_DIMS)
+
+
+def test_variants_edit_the_shipped_source_once():
+    """Each variant of this kernel that pair_attention_variants.py builds
+    finds the text it replaces exactly once in the shipped source (a
+    variant whose text went stale would fail only on the card)."""
+    from friendly_stable_audio_tools_tpu_torch import pair_attention_variants as variants
+
+    text = SOURCE.read_text()
+    edits = [(name, e) for name, (file, es) in variants.VARIANTS.items() if file == SOURCE.name
+             for e in es]
+    assert {name for name, _ in edits} >= {"k9_no_dq_reduce", "k9_one_dq_reduce"}
+    for name, (old, _) in edits:
+        assert text.count(old) == 1, name
 
 
 def test_cpu_tensors_launch_nothing(interpret):

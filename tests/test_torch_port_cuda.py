@@ -6,8 +6,8 @@ no JAX, and tests/conftest.py imports it, so run this file there with
 are bf16 unless a test says otherwise; tolerance: rel-L2 1e-2 (one bf16
 rounding of the output apart, with attention's online softmax rounding P
 against running maxima). The fp32 kernels (K7/K9, and K2/K3/K4 on fp32
-activations; the fp32 K7 at head dim 32 too) are held to fp32 tolerances:
-rel-L2 1e-5 (K9 1e-4); K8's
+activations; the fp32 K7, K8 and K9 at head dim 32 too) are held to fp32
+tolerances: rel-L2 1e-5 (K9 at head dim 64 1e-4); K8's
 dq, whose parts arrive through atomics in a varying order, to 1e-5 too;
 K9's dk and dv bit for bit against themselves run to run, its dq (summed
 by reduce-adds in a varying order) to 1e-6. K2-K4 under grad (their
@@ -375,7 +375,8 @@ def test_flash_forward_f32_at_head_dim_32_matches_plain(gen, bh, t, kv):
     """The fp32 K7 at head dim 32 (Dance Diffusion's U-Net: 16 heads, T
     1024-8192), serving and with its LSE, at ragged lengths and kv_len:
     out rel-L2 1e-5, LSE max abs 1e-4, one launch of its own counter per
-    call; under grad it raises before any launch (K8/K9 at D 32 unported)."""
+    call; under grad from T 1024 FlashAttention runs it with its LSE, then
+    K8 (K9 at T 8192), on counters of their own."""
     q, k, v = (_rnd(gen, bh, t, 32) for _ in range(3))
     before = (tflash.d32_launches, tflash.serving_launches, tflash.forward_launches)
     out, lse = tflash.flash_forward(q, k, v, kv, save_stats=False)
@@ -388,9 +389,55 @@ def test_flash_forward_f32_at_head_dim_32_matches_plain(gen, bh, t, kv):
     assert (lse - lse_p).abs().max().item() <= 1e-4
     if t >= 1024:
         qg = q.clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
-            tflash.FlashAttention.apply(qg, k, v)
-        assert tflash.d32_launches == before[0] + 2
+        bwd = (tflash.d32_fused_backward_launches, tflash.d32_backward_launches,
+               tflash.fused_backward_launches, tflash.backward_launches)
+        tflash.FlashAttention.apply(qg, k, v).sum().backward()
+        kernel = tflash.backward_kernel(t, t, 32)
+        assert tflash.d32_launches == before[0] + 3
+        assert (tflash.d32_fused_backward_launches, tflash.d32_backward_launches,
+                tflash.fused_backward_launches, tflash.backward_launches) == (
+            bwd[0] + (kernel == "K8"), bwd[1] + (kernel == "K9"), bwd[2], bwd[3])
+        assert torch.isfinite(qg.grad).all()
+
+
+# (BH, T, kv_len, kernel) of K8 and K9 at head dim 32: Dance Diffusion's
+# training shapes (T 1024-4096: K8; T 8192: K9), ragged lengths and kv_len
+D32_BWD = [(32, 1024, None, "K8"), (16, 2048, None, "K8"), (16, 4096, None, "K8"),
+           (16, 8192, None, "K9"), (2, 200, 190, "K8"), (2, 200, 190, "K9"),
+           (3, 77, None, "K8"), (3, 129, None, "K9"), (2, 300, 1, "K8")]
+
+
+@pytest.mark.parametrize("bh,t,kv,kernel", D32_BWD)
+def test_flash_backward_at_head_dim_32_matches_plain(gen, bh, t, kv, kernel):
+    """K8 and K9 at head dim 32 (the two-warpgroup kernel's D 32 instance)
+    against their plain versions: dq, dk and dv to rel-L2 1e-5, rows past
+    kv_len zero in dk and dv (dO zero there, as on a padded path), one
+    launch of their own counter per call; the causal K9 at head dim 32
+    raises before any launch."""
+    q, k, v, do = (_rnd(gen, bh, t, 32) for _ in range(4))
+    if kv is not None:
+        do[:, kv:] = 0
+    out, lse = tflash.flash_forward_plain(q, k, v, kv)
+    fn, plain = ((tflash.flash_backward_fused, tflash.flash_backward_fused_plain)
+                 if kernel == "K8" else (tflash.flash_backward, tflash.flash_backward_plain))
+    names = ("d32_fused_backward_launches", "d32_backward_launches", "fused_backward_launches",
+             "backward_launches")
+    before = [getattr(tflash, n) for n in names]
+    got = fn(q, k, v, out, lse, do, kv)
+    torch.cuda.synchronize()
+    assert [getattr(tflash, n) for n in names] == [
+        before[0] + (kernel == "K8"), before[1] + (kernel == "K9"), before[2], before[3]]
+    for g, w, name in zip(got, plain(q, k, v, out, lse, do, kv), ("dq", "dk", "dv")):
+        if kv == 1 and name != "dv":  # one visible key: p = 1, ds zero but for rounding
+            assert g.abs().max().item() <= 1e-5 and w.abs().max().item() <= 1e-5
+        else:
+            _close(g, w, tol=1e-5)
+        if kv is not None and name != "dq":
+            assert not g[:, kv:].any()
+    after = [getattr(tflash, n) for n in names] + [tflash.causal_backward_launches]
+    with pytest.raises(NotImplementedError, match="queue B"):
+        tflash.flash_backward(q, k, v, out, lse, do, kv, causal=True)
+    assert [getattr(tflash, n) for n in names] + [tflash.causal_backward_launches] == after
 
 
 def test_unpack_route_trains_in_fp32_through_k7_and_k9(gen):
