@@ -8,7 +8,8 @@ bench.py's bf16 recipe) and training, audio-LM training and generation
 1.0's config with `global_cond_type: "adaLN"`), AE-GAN training of the
 Stable Audio VAEs, and the diffusion trainer's options (pre-encoded
 latents, logit-normal timesteps, rectified flow, padding masks, the inpaint
-trainer, demos, the weight-norm fold, the profiler), at full width. The training
+trainer, demos, the weight-norm fold, the profiler), and SAO 1.0's config with 12
+heads of 128 (generation and training), at full width. The training
 phases [6], [7], [6b] and [9] run the DiT at TRAIN_DEPTH (4) of its 24
 layers and the LM generation phases [13b] and [13] the LM at LM_GEN_DEPTH
 (3) of its 24, to stay well inside the script's time limit; widths, shapes
@@ -308,6 +309,20 @@ Phases (any failure raises and the script exits non-zero):
    shapes of a 2,097,152-sample step (K9 at T 8192: 6; K8 18; K7 24; the
    outer levels' fp32 convs would need ~160 GB without remat); [19g] one
    step each of the prior and the diffusion autoencoder at 2 x 262,144.
+20. SAO 1.0's config with 12 heads of 128 (`num_heads` 12, nothing else
+   changed; T 1025, unpadded), after [3n] (the rope-fused K7 in bf16 and
+   fp32 against its plain version at B 2 x 12 heads, T 2048 and a ragged 3
+   heads of 64, with its device time split by activity; the fp32 K7 with
+   and without its LSE and K8 at head dim 128 at B 8 x 12 heads and a
+   ragged shape; SDPA and its backward beside them): [20] at full width and
+   depth, a DiT forward with the kernels against the plain versions in fp32
+   (FP32_MODEL_RTOL), generate_diffusion_cond at 100 steps in fp32, then in
+   bench.py's bf16 recipe after [5]'s DiT rule (2400 rope-fused K7 launches
+   each, no K1, K10a, K5 or K6); [20b] at TRAIN_DEPTH layers, a DiT step at
+   batch 8 through the fp32 K7 with its LSE and K8 at head dim 128 against
+   their plain versions ([6b]'s tolerances), then H128_TRAIN_STEPS steps of
+   the train CLI on the config written to a file (K7 twice per layer and
+   step, the checkpointed recompute, K8 once).
 
 [5], [7], [8] and [14] also print their earlier end-to-end figures
 (`EARLIER_E2E`) beside this run's, with the card's name and power limit.
@@ -325,7 +340,11 @@ their times per adaLN denoising step; the fp32 K7 at head dim 32 as
 `flash_forward_d32`, its times per Dance Diffusion U-Net forward at
 2,097,152 samples; K8 and K9 at head dim 32 as `flash_backward_fused_d32`
 and `flash_backward_d32`, their times per Dance Diffusion training step at
-2 x 262,144 and at 2,097,152 samples), the nvidia-smi line, and
+2 x 262,144 and at 2,097,152 samples; the rope-fused K7 as
+`flash_rope_attention`, its times per heads-128 DiT forward in bf16 and,
+as `fp32_ms`, in fp32; the fp32 K7 and K8 at head dim 128 as
+`flash_forward_d128` and `flash_backward_fused_d128`, their times per
+heads-128 training step at 24 layers), the nvidia-smi line, and
 as the last line `{"ok": true, "device": {...}}`. `import chip_smoke;
 chip_smoke.flash_serving_phase(chip_smoke.new_results())` runs [3f]'s K7
 part alone (likewise `dac_conv_phase`, `dac_encode_conv_phase(results,
@@ -373,6 +392,14 @@ SA2_XL_SAMPLE_SIZE = 17_301_504
 SA2_XL_T, SA2_XL_KV = 8576, 8449
 SA2_XL_PROMPT = {"prompt": "A slow ambient soundscape with evolving pads and distant bells",
                  "seconds_start": 0, "seconds_total": 392}
+# SAO 1.0's config with 12 heads of 128 ([3n], [20], [20b]): the DiT's 1536
+# width in heads of 128 (rotary dim 64), T 1025 (1024 latent frames and the
+# prepended global token; the padding rule's 128-multiple would add 12%,
+# above its 4%, so the sequence runs unpadded at every batch); the train CLI
+# there takes H128_TRAIN_STEPS steps from H128_WAVS WAVs
+H128_HEADS, H128_T = 12, 1025
+H128_TRAIN_STEPS = 3
+H128_WAVS = 2
 DEVICE = "cuda"
 TRAIN_BATCH = 8
 TRAIN_STEPS = 4
@@ -522,6 +549,16 @@ TOL = {
     "flash_backward_fused_d32": (1e-5, 1e-4),
     "flash_backward_d32": (1e-5, 1e-4),
     "flash_backward_causal": (1e-4, 1e-3),
+    # the rope-fused K7 against its plain version: both round the roped q
+    # and k to bf16 (an fp32 rounding difference before that rounding may
+    # move one element by a bf16 step); bf16 as the bf16 K7 (P rounded per
+    # 64-key tile against a running max, the plain version once); fp32 up to
+    # those steps, summation order otherwise
+    "flash_rope_attention": (1e-2, 2.0 ** -5),
+    "flash_rope_attention_f32": (1e-4, 1e-3),
+    # the fp32 K7 and K8 at head dim 128: summation order only, as at 64
+    "flash_forward_d128": (1e-5, 1e-4),
+    "flash_backward_fused_d128": (1e-5, 1e-4),
     # K13 against its plain version at the same rounding points: fp32 both
     # sides (summation order only); bf16 one rounding of the output apart,
     # with v, g and h at most one bf16 step apart where the fp32 sums differ
@@ -840,12 +877,24 @@ def patched(pairs):
 
 
 def plain_attention(qkv, freqs, num_heads, kv_len=None):
-    """The inference attention through the plain versions, routed by length
-    as the kernels are (K1's, K10a's then K10's, or the split route's K7,
-    which `plain_kernels` sends to its plain version)."""
-    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+    """The inference attention through the plain versions, routed as the
+    kernels are, by length and heads (K1's, K10a's then K10's, the
+    rope-fused K7's, or the split route's K7, which `plain_kernels` sends to
+    its plain version); heads the pair kernels do not take run at their true
+    length, the output padded back."""
+    import torch
 
-    route = attention.attention_route(qkv.shape[1])
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    t = qkv.shape[1]
+    d = qkv.shape[-1] // (3 * num_heads)
+    if kv_len is not None and kv_len < t and not attention.pair_heads(d, num_heads):
+        out = plain_attention(qkv[:, :kv_len], freqs[:kv_len], num_heads)
+        return torch.nn.functional.pad(out, (0, 0, 0, t - kv_len))
+    route = attention.attention_route(t, d, num_heads)
+    if route == "rope_flash":
+        return flash.flash_rope_attention_plain(qkv, freqs, num_heads)
     if route == "pair_long":
         return attention.fused_qkv_rope_attention_long_plain(qkv, freqs, num_heads, kv_len)
     if route == "flash":
@@ -2704,6 +2753,9 @@ KERNELS = {  # name -> (module attribute holding its launch count)
     "flash_forward_d32": ("flash", "d32_launches"),
     "flash_backward_fused_d32": ("flash", "d32_fused_backward_launches"),
     "flash_backward_d32": ("flash", "d32_backward_launches"),
+    "flash_rope_attention": ("flash", "rope_launches"),
+    "flash_forward_d128": ("flash", "d128_launches"),
+    "flash_backward_fused_d128": ("flash", "d128_fused_backward_launches"),
 }
 
 
@@ -2796,7 +2848,7 @@ def launches_per_step(config, route):
     route's forward kernel once, and once more when the checkpointed block
     is recomputed for the backward, and its backward kernel once (route
     "pair": K5 and K6, with K10a once per K5 for k^ and twice per K6 for q^
-    and k^; "flash": K7 and K9); each call of the frozen fp32
+    and k^; "flash": K7 and K9; "d128": K7 and K8 at head dim 128); each call of the frozen fp32
     encode (one per clip, iterate_batch) runs the fp32 K2 twice (conv_in on
     the thin route, conv_out on the wide one) and the fp32 K3 once per
     residual unit (3 in each encoder block); nothing else."""
@@ -2806,7 +2858,8 @@ def launches_per_step(config, route):
     n_units = 3 * len(config["model"]["pretransform"]["config"]["encoder"]["config"]["c_mults"])
     calls = encode_calls(config)
     fwd, bwd = {"pair": ("fused_qkv_rope_attention_stats", "fused_qkv_rope_attention_backward"),
-                "flash": ("flash_forward", "flash_backward")}[route]
+                "flash": ("flash_forward", "flash_backward"),
+                "d128": ("flash_forward_d128", "flash_backward_fused_d128")}[route]
     per_step = {name: 0 for name in KERNELS}
     per_step.update({fwd: 2 * depth, bwd: depth, "fused_residual_unit_f32": n_units * calls,
                      **k2_counts(OOBLECK_ENCODE_K2, torch.float32, calls)})
@@ -4415,6 +4468,24 @@ def new_results():
             replaces=tpu + "flash_attention.py:565",
             per=f"Dance Diffusion training step at {DD_LONG} samples (6 calls at B1 x H16 T8192 "
                 f"D32, the first attention level)"),
+        "flash_rope_attention": dict(
+            route="cuda", source=src + "flash_attention_rope.cu",
+            replaces=tpu + "flash_attention.py:132",
+            per=f"SAO 1.0 heads-128 generation step in bench.py's bf16 recipe (24 calls at B2 x "
+                f"H{H128_HEADS} T{H128_T} D128: the rope pass, then the bf16 K7 of "
+                f"flash_attention_bf16.cu; fp32_ms: the same in fp32, the fp32 K7 of "
+                f"flash_attention_d128.cu)"),
+        "flash_forward_d128": dict(
+            route="cuda", source=src + "flash_attention_d128.cu",
+            replaces=tpu + "flash_attention.py:230",
+            per=f"SAO 1.0 heads-128 training step at 24 layers (48 calls with the LSE at "
+                f"B{TRAIN_BATCH} x H{H128_HEADS} T{H128_T} D128: the checkpointed blocks run it "
+                f"twice)"),
+        "flash_backward_fused_d128": dict(
+            route="cuda", source=src + "flash_attention_d128.cu",
+            replaces=tpu + "flash_attention.py:426",
+            per=f"SAO 1.0 heads-128 training step at 24 layers (24 calls at B{TRAIN_BATCH} x "
+                f"H{H128_HEADS} T{H128_T} D128)"),
     }
     for r in results.values():
         r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, weight={})
@@ -5515,6 +5586,279 @@ def dance_diffusion_phases(results, tmp):
             "prior_stereoize": counts_stereo, **counts_big, **counts_big_steps}
 
 
+# ---------------------------------------------------------------------------
+# [3n], [20], [20b] SAO 1.0's config with 12 heads of 128
+# ---------------------------------------------------------------------------
+
+
+def heads128_config(config):
+    """SAO 1.0's config with its DiT in 12 heads of 128 (`num_heads` 12),
+    nothing else changed: the same 1536 width, 24 layers and parameter
+    shapes, rotary dim 64."""
+    c = copy.deepcopy(config)
+    c["model"]["diffusion"]["config"]["num_heads"] = H128_HEADS
+    return c
+
+
+def rope_bound(bh, t, d, dtype, qkv, out):
+    """The rope-fused K7's bound: its score product from the bf16 roped
+    operands at the bf16 rate, P.V at the bf16 rate (bf16 v) or 3xTF32's
+    (fp32 v), against qkv read once and the output written once."""
+    import torch
+
+    flops = 2 * bh * t * t * d
+    t_ops = (flops / PEAK_FLOPS + flops / (PEAK_FLOPS if dtype == torch.bfloat16
+                                           else PEAK_FP32_ACCURATE)) * 1e3
+    t_bytes = nbytes(qkv, out) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def heads128_kernel_phase(results):
+    """[3n] The kernels of a DiT with heads of 128 against their plain
+    versions. The rope-fused K7 (its rope pass, then the bf16 or fp32 K7)
+    in bf16 and fp32 at SAO 1.0's 12 heads of 128 at CFG batch 2 (T 1025:
+    24 calls per DiT forward), at T 2048 and at a ragged 3 heads of 64;
+    library: SDPA on q and k roped outside (no single PyTorch call ropes).
+    The fp32 K7 with its LSE (and without it) and K8 at head dim 128 at the
+    training shape (B 8 x 12 heads, T 1025: 2 x 24 and 24 calls per step of
+    24 checkpointed layers) and a ragged one with kv_len; K8 gets the plain
+    forward's out and lse, dO zero on the padded rows; library: SDPA and its
+    backward on the same fp32 heads."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.embeddings import rotary_freqs
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import attention
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rnd = randn_fn(13)
+    rope = results["flash_rope_attention"]
+    for b, t, h, d, calls in ((2, H128_T, H128_HEADS, 128, 24), (1, 2048, H128_HEADS, 128, 0),
+                              (2, 333, 3, 64, 0)):
+        f = rotary_freqs(t, max(d // 2, 32), device=DEVICE)
+        for dt, tol_name, field in ((torch.bfloat16, "flash_rope_attention", "ms"),
+                                    (torch.float32, "flash_rope_attention_f32", "fp32_ms")):
+            label = f"B{b} T{t} H{h} D{d} {str(dt)[6:]}"
+            if calls:
+                rope["weight"][label] = calls
+            qkv = rnd(b, t, 3 * h * d).to(dt)
+            q, k, v = attention._split_roped(qkv, f, h)
+            got = compare(tol_name, lambda: flash.flash_rope_attention(qkv, f, h),
+                          lambda: flash.flash_rope_attention_plain(qkv, f, h), reps=BF16_K7_REPS,
+                          library_fn=lambda: sdpa(q[None], k[None], v[None]))
+            report(results, "flash_rope_attention", label, calls > 0, *got,
+                   bound=rope_bound(b * h, t, d, dt, qkv, qkv[..., :h * d]), field=field,
+                   tol_name=tol_name, extra=f"; SDPA on q and k roped outside, backend "
+                                            f"{sdpa_backend(q[None], k[None], v[None])}")
+            if calls:  # the call's device time by activity: the rope pass, K7, the tables, copies
+                busy, acts, by_name = device_profile([lambda: flash.flash_rope_attention(
+                    qkv, f, h)] * 10)
+                split = ", ".join(f"{n[:48]} {ms:.4f}" for n, ms in sorted(
+                    by_name.items(), key=lambda kv: -kv[1]))
+                log(f"  flash_rope_attention {label}: device busy {busy:.4f} ms of the call's "
+                    f"{got[4]:.4f} ms wall, {acts:.0f} device activities: {split}")
+            del qkv, q, k, v
+    log(f"  flash_rope_attention: {rope['ms']:.4f} ms per {H128_HEADS}-head SAO DiT forward in "
+        f"bf16 (24 calls), plain {rope['plain_ms']:.4f}, bound {rope['bound_ms']:.4f}, SDPA on "
+        f"roped q and k {rope['library_ms']:.4f}; fp32 {rope['fp32_ms']:.4f} ms, plain "
+        f"{rope['plain_fp32_ms']:.4f}, bound {rope['bound_fp32_ms']:.4f}, SDPA "
+        f"{rope['library_fp32_ms']:.4f}")
+
+    bh_train = TRAIN_BATCH * H128_HEADS
+    for bh, t, kv, calls in ((bh_train, H128_T, None, 24), (3, 333, 257, 0)):
+        label = f"BH{bh} T{t} D128 kv_len {kv}"
+        main = calls > 0
+        if main:
+            results["flash_forward_d128"]["weight"][label] = 2 * calls
+            results["flash_backward_fused_d128"]["weight"][label] = calls
+        if flash.backward_kernel(t, t, 128) != "K8":
+            raise AssertionError(f"{label}: K8's plan does not fit; the JAX package would run K9")
+        valid = kv or t
+        q, k, v, do = (rnd(bh, t, 128) for _ in range(4))
+        if kv is not None:
+            do[:, kv:] = 0
+        out_p, lse_p = flash.flash_forward_plain(q, k, v, kv)
+        q4 = q[None].clone().requires_grad_(True)
+        k4, v4 = (x[None, :, :valid].clone().requires_grad_(True) for x in (k, v))
+        backend = sdpa_backend(q4, k4, v4)
+        out, lse = flash.flash_forward(q, k, v, kv)
+        serving, _ = flash.flash_forward(q, k, v, kv, save_stats=False)
+        torch.cuda.synchronize()
+        ok, max_abs, rel_l2, peak = within("flash_forward_d128", out, out_p)
+        ok_s, _, rel_s, _ = within("flash_forward_d128", serving, out_p)
+        lse_err = (lse - lse_p).abs().max().item()
+        del out, lse, serving
+        bound, cores_ms = flash_bound(bh, valid, 2, [q, k, v], [out_p, lse_p], 128)
+        serving_ms = timed_ms(lambda: flash.flash_forward(q, k, v, kv, save_stats=False), 3)
+        report(results, "flash_forward_d128", label, main, ok and ok_s and lse_err <= FLASH_LSE_ATOL,
+               max_abs, rel_l2, peak, timed_ms(lambda: flash.flash_forward(q, k, v, kv), 3),
+               timed_ms(lambda: flash.flash_forward_plain(q, k, v, kv), 3),
+               timed_ms(lambda: sdpa(q4.detach(), k4.detach(), v4.detach()), 3), bound=bound,
+               extra=f", lse max_abs {lse_err:.3g} (tol {FLASH_LSE_ATOL}); without the LSE "
+                     f"{serving_ms:.4f} ms, rel-L2 {rel_s:.3g}; SDPA backend {backend}; at the "
+                     f"CUDA cores' fp32 rate {cores_ms:.4f} ms")
+
+        def k8():
+            return flash.flash_backward_fused(q, k, v, out_p, lse_p, do, kv)
+
+        def k8_plain():
+            return flash.flash_backward_fused_plain(q, k, v, out_p, lse_p, do, kv)
+
+        got, want = k8(), k8_plain()
+        rels = [rel_err(a, w) for a, w in zip(got, want)]
+        pad_zero = kv is None or not any(a[:, kv:].any() for a in got[1:])
+        ok = (all(bool(torch.isfinite(a).all()) for a in got) and pad_zero
+              and max(rels) <= TOL["flash_backward_fused_d128"][0])
+        max_abs = max((a - w).abs().max().item() for a, w in zip(got, want))
+        peak = max(w.abs().max().item() for w in want)
+        bound, cores_ms = flash_bound(bh, valid, 5, [q, k, v, out_p, lse_p, do], list(got), 128)
+        del got, want
+        o4 = sdpa(q4, k4, v4)
+        g4 = do[None]
+        lib_ms = timed_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), 3)
+        report(results, "flash_backward_fused_d128", label, main, ok, max_abs, max(rels), peak,
+               timed_ms(k8, 3), timed_ms(k8_plain, 3), lib_ms, bound=bound,
+               extra=f" (rel-L2 of dq/dk/dv: {' '.join(f'{r:.3g}' for r in rels)}; padded rows "
+                     f"of dk, dv zero: {pad_zero}; SDPA backend {backend}; at the CUDA cores' "
+                     f"fp32 rate {cores_ms:.4f} ms)")
+        del q, k, v, do, out_p, lse_p, q4, k4, v4, o4
+    for name in ("flash_forward_d128", "flash_backward_fused_d128"):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms per {r['per']}, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+
+
+def heads128_generation_phase(config):
+    """[20] SAO 1.0's config with 12 heads of 128 at full width and depth:
+    generate_diffusion_cond at 100 dpmpp-3m-sde steps with CFG, in fp32 (the
+    generate CLI's dtype; the fp32 VAE decode) and then in bench.py's bf16
+    recipe, the rope-fused K7 at every DiT self-attention (24 per model
+    evaluation: 2400 per generation) and no head-pair kernel; before each,
+    one DiT forward with the kernels against the plain versions (fp32: to
+    FP32_MODEL_RTOL; bf16: [5]'s rule, against an fp32 copy). Returns the
+    two generations' launch counts."""
+    import torch
+
+    cfg = heads128_config(config)
+    depth = cfg["model"]["diffusion"]["config"]["depth"]
+    model = build_model(cfg)
+    frames = SAMPLE_SIZE // model.pretransform.downsampling_ratio
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    with torch.no_grad():
+        cond = model.get_conditioning_inputs(model.conditioner([PROMPT], device=DEVICE))
+        x = torch.randn(1, frames, model.io_channels, generator=g, device=DEVICE)
+        t = torch.full((1,), 0.6, device=DEVICE)
+        reset_counts()
+        dit_k = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+        counts = read_counts()
+        with plain_kernels():
+            dit_p = model.model(x, t, cfg_scale=CFG_SCALE, **cond)
+    err = rel_err(dit_k, dit_p)
+    log(f"  fp32 DiT forward {list(x.shape)} with CFG ({H128_HEADS} heads of 128, T {H128_T}): "
+        f"kernels vs plain rel-L2 {err:.3g} (tol {FP32_MODEL_RTOL}); launches "
+        f"{nonzero(counts)}")
+    if not err <= FP32_MODEL_RTOL or counts["flash_rope_attention"] != depth:
+        raise AssertionError("the fp32 heads-128 DiT with the kernels disagrees with the plain "
+                             "versions, or missed the rope-fused K7")
+    del dit_k, dit_p
+    no_pair = {"fused_qkv_rope_attention": 0, "rope_pair_k": 0, "pair_long_attention": 0,
+               "fused_qkv_rope_attention_stats": 0, "fused_qkv_rope_attention_backward": 0,
+               "flash_forward_d128": 0, "flash_backward_fused_d128": 0,
+               "flash_rope_attention": depth * STEPS}
+    log(f"  fp32 generation, {STEPS} steps:")
+    counts_fp32, _, rate_fp32 = generation_phase(
+        model, cfg, PROMPT, SAMPLE_SIZE,
+        expected={**no_pair, "flash_forward_bf16": 0, "fused_residual_unit_f32": 15,
+                  "snake_conv_transpose1d_f32": 5},
+        min_counts=k2_counts(OOBLECK_DECODE_K2, torch.float32))
+    bench_recipe(model)
+    dit_forward_phase(model, frames, PROMPT, f"SAO 1.0 with {H128_HEADS} heads of 128")
+    log(f"  bench.py's bf16 recipe, {STEPS} steps:")
+    counts_bf16, _, rate_bf16 = generation_phase(
+        model, cfg, PROMPT, SAMPLE_SIZE,
+        expected={**no_pair, "flash_forward_bf16": 0, "fused_residual_unit": 15,
+                  "snake_conv_transpose1d": 5, "ln_modulate": 0, "gated_residual": 0,
+                  "glu_mlp": 0, "glu_mlp_tensor": 0},
+        min_counts=k2_counts(OOBLECK_DECODE_K2, torch.bfloat16))
+    log(f"  SAO 1.0 with {H128_HEADS} heads of 128: fp32 {rate_fp32:.3f} s-audio/s, bf16 "
+        f"{rate_bf16:.3f} s-audio/s; card {smi_line()}")
+    del model
+    torch.cuda.empty_cache()
+    return counts_fp32, counts_bf16
+
+
+def heads128_training_phase(config, tmp):
+    """[20b] SAO 1.0's config with 12 heads of 128 under grad at batch 8
+    (TRAIN_DEPTH of its 24 layers, full width): one DiT training step with
+    the fp32 K7 (with its LSE) and K8 at head dim 128 against their fp32
+    plain versions (the loss to SA2_LOSS_RTOL, the watched gradients to
+    SA2_GRAD_RTOL, as [6b]); then the train CLI on the config written to a
+    file, H128_TRAIN_STEPS steps from H128_WAVS synthetic WAVs (times,
+    trained s-audio/s, peak memory, exact launch counts: per layer and step
+    K7 twice, the checkpointed block's recompute, and K8 once, no K5, K6,
+    K9). Returns (the step's counts, the CLI's counts)."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch import train
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    cfg = at_depth(heads128_config(config), TRAIN_DEPTH)
+    step, depth, dit_path = dit_train_setup(cfg, tmp, PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    loss_k, grads_k = step()
+    wall_k = time.perf_counter() - start
+    counts_step = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with patched([(flash, "flash_forward", flash.flash_forward_plain),
+                  (flash, "flash_backward_fused", flash.flash_backward_fused_plain)]):
+        start = time.perf_counter()
+        loss_r, grads_r = step()
+        wall_r = time.perf_counter() - start
+    del step
+    torch.cuda.empty_cache()
+    errs = {k: rel_err(grads_k[k], grads_r[k]) for k in grads_k}
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    log(f"  one DiT step: loss kernels {loss_k:.8g}, fp32 plain {loss_r:.8g} (rel {loss_err:.3g}, "
+        f"tol {SA2_LOSS_RTOL}); watched gradients rel-L2 max {max(errs.values()):.3g} (tol "
+        f"{SA2_GRAD_RTOL}); wall kernels {wall_k:.3f} s, plain {wall_r:.3f} s; peak {peak:.2f} "
+        f"GiB; launches {nonzero(counts_step)}")
+    finite = all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads_k.values())
+    if not (finite and loss_err <= SA2_LOSS_RTOL and max(errs.values()) <= SA2_GRAD_RTOL):
+        raise AssertionError("the heads-128 DiT step with K7/K8 disagrees with the fp32 plain step")
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_forward_d128=2 * depth, flash_backward_fused_d128=depth)
+    if counts_step != want:
+        raise AssertionError(f"one checkpointed heads-128 step should launch {want}: {counts_step}")
+
+    args = train_args(cfg, tmp, "h128", H128_WAVS, WAV_SECONDS, dit_path)
+    times, losses = {}, []
+    per_step = launches_per_step(cfg, "d128")
+    with patched(train_timers(times, losses)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train.main(args + ["--max-steps", str(H128_TRAIN_STEPS)])
+        total = time.perf_counter() - start
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = weight_moved(trainer.wrapper, dit_path)
+        steps_done = trainer.wrapper.step
+        del trainer
+        torch.cuda.empty_cache()
+    log_training(cfg, times, losses, H128_TRAIN_STEPS, peak, total)
+    log(f"  losses {losses}; weights moved by up to {moved:.4g}; launches, {H128_TRAIN_STEPS} "
+        f"steps: {nonzero(counts)}")
+    if len(losses) != H128_TRAIN_STEPS or not (moved > 0 and steps_done == H128_TRAIN_STEPS):
+        raise AssertionError("losses missing, weights did not move, or the step count is off")
+    want = {k: v * H128_TRAIN_STEPS for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} are not the {want} of {H128_TRAIN_STEPS} "
+                             f"steps")
+    return counts_step, counts
+
+
 def main():
     import torch
 
@@ -5611,6 +5955,11 @@ def main():
         "the plain autograd")
     flash_d32_backward_phase(results)
     done("[3m]")
+    log(f"[3n] the rope-fused K7 (bf16 and fp32) and the fp32 K7 and K8 at head dim 128 vs their "
+        f"plain versions at SAO 1.0's shapes with {H128_HEADS} heads of 128 (T {H128_T}), SDPA "
+        f"beside them")
+    heads128_kernel_phase(results)
+    done("[3n]")
 
     log("[4] model forwards with the kernels vs the plain versions")
     model = build_model(config)
@@ -5873,6 +6222,18 @@ def main():
         counts_dd = dance_diffusion_phases(results, tmp)
     done("[19]")
 
+    log(f"[20] SAO 1.0 with {H128_HEADS} heads of 128 (`num_heads` {H128_HEADS}, nothing else "
+        f"changed): generate_diffusion_cond, {STEPS} dpmpp-3m-sde steps, CFG {CFG_SCALE}, in fp32 "
+        f"and in bench.py's bf16 recipe, the rope-fused K7 at every self-attention")
+    counts_h128_fp32, counts_h128_bf16 = heads128_generation_phase(config)
+    done("[20]")
+    log(f"[20b] the same config under grad ({TRAIN_DEPTH} of 24 layers, batch {TRAIN_BATCH}): a "
+        f"DiT step through the fp32 K7 and K8 at head dim 128 vs their plain versions, then the "
+        f"train CLI, {H128_TRAIN_STEPS} steps")
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        counts_h128_step, counts_h128_train = heads128_training_phase(config, tmp)
+    done("[20b]")
+
     by_path = {"generate": launches, "generate_fused_mlp": launches_fused,
                "generate_long": launches_long, "train": counts_train,
                "train_resume": counts_resume, "train_long": counts_long,
@@ -5887,7 +6248,9 @@ def main():
                "ae_generator_step": counts_ae_step, "train_ae": counts_ae,
                "train_ae_resume": counts_ae_resume, **counts_ae_other,
                "reconstruct_ae": counts_recon, **counts_options,
-               "train_options_cli": counts_opt_train, **counts_dd}
+               "train_options_cli": counts_opt_train, **counts_dd,
+               "generate_h128_fp32": counts_h128_fp32, "generate_h128_bf16": counts_h128_bf16,
+               "h128_step": counts_h128_step, "train_h128": counts_h128_train}
 
     def entry(name, r):
         parts = r["bound_parts"]["ms"]
@@ -5897,7 +6260,8 @@ def main():
                    bound_by=max(parts, key=parts.get), library_ms=r["library_ms"], per=r["per"],
                    launches_by_path={p: c[name] for p, c in by_path.items()})
         for f in ("sao_decode_ms", "sa2_decode_ms", "encode_ms", "sa2_encode_ms", "sa1_train_ms",
-                  "sa1_encode_ms", "lm_encode_ms", "lm_decode_ms", "sa1_decode_ms", "sa2_xl_ms"):
+                  "sa1_encode_ms", "lm_encode_ms", "lm_decode_ms", "sa1_decode_ms", "sa2_xl_ms",
+                  "fp32_ms"):
             if f in r:
                 out.update({k + f: r[k + f] for k in ("", "plain_", "bound_", "library_")})
         if "ae_grad" in r:  # [17]: under grad, forward + backward, kernel vs plain

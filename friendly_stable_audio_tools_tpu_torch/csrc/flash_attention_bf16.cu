@@ -1,5 +1,5 @@
 // K7 in bf16, serving (no log-sum-exp): head-split non-causal attention on
-// [B*H, T, D] bf16 tensors, D 64 or 80, keys at or past kv_len masked.
+// [B*H, T, D] bf16 tensors, D 64, 80 or 128, keys at or past kv_len masked.
 //
 // Replaces `_flash_forward` (friendly_stable_audio_tools_tpu/ops/pallas/
 // flash_attention.py:230, call :317) on bf16 inputs without `save_stats`,
@@ -46,6 +46,13 @@
 //   dims 64-79 as 32-byte rows under the 32B swizzle, each with its own
 //   tensor map. S takes 4 + 1 k-slices, P.V one n64 and one n16 wgmma per
 //   k-slice; nothing is padded, so D 80 does 80/64 of D 64's products.
+// - Head dim 128 (the rope-fused K7 of flash_attention_rope.cu runs this
+//   kernel on its roped q and k for bf16 inputs: SAO 1.0's config with 12
+//   heads of 128): every tile is two panels of 64 dims under the 128B
+//   swizzle, S takes 4 + 4 k-slices, P.V two m64n64 products per k-slice. A
+//   stage holds 64 keys (`Layout<D>::kKeys`): the output's two halves (64
+//   registers) beside a 128-key score tile (64) and its P (32) would pass
+//   the 168 registers ptxas allows 384 threads (measured: 151, no spills).
 // Tiles: kN 128 keys and 3 stages, the turns, and S as m64n128 products
 // rather than two m64n64 (pair_attention_variants.py on the card times kN 64,
 // 2 and 4 stages and the warpgroups without turns beside them; PERF.md §6);
@@ -65,9 +72,8 @@ namespace {
 constexpr int kConsumers = 2;                     // warpgroups of 64 q rows
 constexpr int kM = 64 * kConsumers;               // q rows per block
 constexpr int kThreads = (kConsumers + 1) * 128;  // + one producer warpgroup
-constexpr int kN = 128;                           // keys per pipeline stage
+constexpr int kN = 128;                           // keys per pipeline stage (D 128: 64)
 constexpr int kStages = 3;
-constexpr int kChunks = kN / 64;                  // 64-key column blocks of a score tile
 constexpr bool kTurns = true;    // the consumer warpgroups start their products in turns
 constexpr int kTurnBarrier = 3;  // named barriers 3, 4: the warpgroups' turns
 
@@ -76,18 +82,21 @@ constexpr int kTurnBarrier = 3;  // named barriers 3, 4: the warpgroups' turns
 // panel of 32-byte rows right after it; then the mbarriers.
 template <int D>
 struct Layout {
-  static constexpr int kTail = D - kD;   // dims in the second panel: 0 or 16
+  static constexpr int kTail = D - kD;   // dims in the second panel: 0, 16 or 64
   static constexpr int kTailRow = 2 * kTail;  // its row bytes
+  static constexpr int kTailAcc = kTail == 64 ? 32 : 8;  // its accumulator registers
+  static constexpr int kKeys = D == 128 ? 64 : kN;  // keys per stage
+  static constexpr int kChunks = kKeys / 64;        // 64-key column blocks of a score tile
   static constexpr int kQBytes = kM * (kRowBytes + kTailRow);
-  static constexpr int kTileBytes = kN * (kRowBytes + kTailRow);  // one K or V stage
+  static constexpr int kTileBytes = kKeys * (kRowBytes + kTailRow);  // one K or V stage
   static constexpr size_t kSmemBytes =
       1024 + kQBytes + 2 * (size_t)kStages * kTileBytes + 2 * kStages * sizeof(uint64_t);
-  static_assert(kTail == 0 || kTail == 16, "head dim 64 or 80");
+  static_assert(kTail == 0 || kTail == 16 || kTail == 64, "head dim 64, 80 or 128");
   static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0, "panels on the swizzle atom");
 };
 
 // Rows [r0, r0 + 64) of one head's q, prescaled in fp32 and rounded to bf16
-// into the warpgroup's swizzled panels (qa: dims 0-63, qt: dims 64-79);
+// into the warpgroup's swizzled panels (qa: dims 0-63, qt: dims 64-79 or 64-127);
 // rows at or past T are zero. All loads are started before any is used.
 template <int D>
 __device__ __forceinline__ void prescale_q_tile(const bf16* __restrict__ qh, unsigned char* qa,
@@ -110,54 +119,70 @@ __device__ __forceinline__ void prescale_q_tile(const bf16* __restrict__ qh, uns
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       res.h[j] = __float2bfloat16_rn(__bfloat162float(in[it].h[j]) * prescale);
-    unsigned char* dst = seg < 8 ? qa + sw128_offset(r, seg) : qt + sw32_offset(r, seg - 8);
+    unsigned char* dst = seg < 8                    ? qa + sw128_offset(r, seg)
+                         : Layout<D>::kTail == 64 ? qt + sw128_offset(r, seg - 8)
+                                                  : qt + sw32_offset(r, seg - 8);
     *reinterpret_cast<uint4*>(dst) = res.u;
   }
 }
 
-// One k-slice of the scores: an m64nkN product (two m64n64 halves at kN 128).
-__device__ __forceinline__ void score_slice(float (&sc)[kChunks][32], uint64_t da, uint64_t db,
+// One k-slice of the scores: an m64nK product over the stage's K keys (two
+// m64n64 halves at 128 keys).
+template <int kC>
+__device__ __forceinline__ void score_slice(float (&sc)[kC][32], uint64_t da, uint64_t db,
                                             int accumulate) {
-  if constexpr (kChunks == 2)
+  if constexpr (kC == 2)
     wgmma_ss_n128(sc[0], sc[1], da, db, accumulate);
   else
     wgmma_ss<0, 0>(sc[0], da, db, accumulate);
 }
 
-// S = q' K^T for the warpgroup's 64 rows and the kN keys of one stage: the
-// first panel's four k-slices, then (D 80) the second panel's one.
+// S = q' K^T for the warpgroup's 64 rows and the keys of one stage: the
+// first panel's four k-slices, then the second panel's one (D 80) or four
+// (D 128).
 template <int D>
-__device__ __forceinline__ void start_scores(float (&sc)[kChunks][32], uint32_t qa, uint32_t qt,
-                                             uint32_t k_tile) {
+__device__ __forceinline__ void start_scores(float (&sc)[Layout<D>::kChunks][32], uint32_t qa,
+                                             uint32_t qt, uint32_t k_tile) {
+  constexpr int kTailAt = Layout<D>::kKeys * kRowBytes;  // the K tile's second panel
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     score_slice(sc, kmajor_desc(qa + kk * 32), kmajor_desc(k_tile + kk * 32), kk > 0);
-  if constexpr (Layout<D>::kTail > 0)
-    score_slice(sc, kmajor32_desc(qt), kmajor32_desc(k_tile + kN * kRowBytes), 1);
+  if constexpr (Layout<D>::kTail == 16)
+    score_slice(sc, kmajor32_desc(qt), kmajor32_desc(k_tile + kTailAt), 1);
+  if constexpr (Layout<D>::kTail == 64) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      score_slice(sc, kmajor_desc(qt + kk * 32), kmajor_desc(k_tile + kTailAt + kk * 32), 1);
+  }
 }
 
 // O += bf16(P) V: P from registers, V's panels MN-major (keys along K).
 template <int D>
-__device__ __forceinline__ void start_pv(float (&o)[32], float (&ot)[8],
-                                         const uint32_t (&pa)[kN / 16][4], uint32_t v_tile) {
+__device__ __forceinline__ void start_pv(float (&o)[32], float (&ot)[Layout<D>::kTailAcc],
+                                         const uint32_t (&pa)[Layout<D>::kKeys / 16][4],
+                                         uint32_t v_tile) {
+  constexpr int kTailAt = Layout<D>::kKeys * kRowBytes;  // the V tile's second panel
 #pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk) {
+  for (int kk = 0; kk < Layout<D>::kKeys / 16; ++kk) {
     wgmma_rs<1>(o, pa[kk], mnmajor_desc(v_tile + kk * 16 * kRowBytes));
-    if constexpr (Layout<D>::kTail > 0)
-      wgmma_rs16<1>(ot, pa[kk], mnmajor32_desc(v_tile + kN * kRowBytes + kk * 16 * 32));
+    if constexpr (Layout<D>::kTail == 16)
+      wgmma_rs16<1>(ot, pa[kk], mnmajor32_desc(v_tile + kTailAt + kk * 16 * 32));
+    if constexpr (Layout<D>::kTail == 64)
+      wgmma_rs<1>(ot, pa[kk], mnmajor_desc(v_tile + kTailAt + kk * 16 * kRowBytes));
   }
 }
 
-// Keeps the output accumulators (ot only at D 80) in place across a wgmma.
+// Keeps the output accumulators (ot only at D 80 and 128) in place across a wgmma.
 template <int D>
-__device__ __forceinline__ void fence_out(float (&o)[32], float (&ot)[8]) {
+__device__ __forceinline__ void fence_out(float (&o)[32], float (&ot)[Layout<D>::kTailAcc]) {
   reg_fence(o);
   if constexpr (Layout<D>::kTail > 0) reg_fence(ot);
 }
 
 // Rescales the output rows g (by a0) and g + 8 (by a1) of the lane's warp.
 template <int D>
-__device__ __forceinline__ void rescale_out(float (&o)[32], float (&ot)[8], float a0, float a1) {
+__device__ __forceinline__ void rescale_out(float (&o)[32], float (&ot)[Layout<D>::kTailAcc],
+                                            float a0, float a1) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     o[4 * j] *= a0;
@@ -167,7 +192,7 @@ __device__ __forceinline__ void rescale_out(float (&o)[32], float (&ot)[8], floa
   }
   if constexpr (Layout<D>::kTail > 0) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < Layout<D>::kTail / 8; ++j) {
       ot[4 * j] *= a0;
       ot[4 * j + 1] *= a0;
       ot[4 * j + 2] *= a1;
@@ -186,14 +211,14 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  unsigned char* Qs = smem;                        // [kM][128 B], then (D 80) [kM][32 B]
-  unsigned char* Ks = Qs + L::kQBytes;             // [kStages] x ([kN][128 B], [kN][32 B])
+  unsigned char* Qs = smem;  // [kM][128 B], then (D 80, 128) [kM][32 or 128 B]
+  unsigned char* Ks = Qs + L::kQBytes;  // [kStages] x ([kKeys][128 B], [kKeys][32 or 128 B])
   unsigned char* Vs = Ks + kStages * L::kTileBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kStages * L::kTileBytes);
   uint64_t* empty = full + kStages;
 
   const int q0 = blockIdx.x * kM, bh = blockIdx.y;
-  const int n_tiles = (kv_len + kN - 1) / kN;
+  const int n_tiles = (kv_len + L::kKeys - 1) / L::kKeys;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -212,11 +237,11 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
         mbar_expect_tx(&full[s], 2 * L::kTileBytes);
         unsigned char* kd = Ks + s * L::kTileBytes;
         unsigned char* vd = Vs + s * L::kTileBytes;
-        tma_load_3d(kd, &kmap, &full[s], 0, kt * kN, bh);
-        tma_load_3d(vd, &vmap, &full[s], 0, kt * kN, bh);
-        if constexpr (L::kTail > 0) {
-          tma_load_3d(kd + kN * kRowBytes, &ktail, &full[s], kD, kt * kN, bh);
-          tma_load_3d(vd + kN * kRowBytes, &vtail, &full[s], kD, kt * kN, bh);
+        tma_load_3d(kd, &kmap, &full[s], 0, kt * L::kKeys, bh);
+        tma_load_3d(vd, &vmap, &full[s], 0, kt * L::kKeys, bh);
+        if constexpr (L::kTail > 0) {  // D 128: ktail and vtail are kmap and vmap
+          tma_load_3d(kd + L::kKeys * kRowBytes, &ktail, &full[s], kD, kt * L::kKeys, bh);
+          tma_load_3d(vd + L::kKeys * kRowBytes, &vtail, &full[s], kD, kt * L::kKeys, bh);
         }
       }
     }
@@ -240,15 +265,15 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
 
     const uint32_t qa = smem_u32(Qa), qt = smem_u32(Qt);
     const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
-    float o[32], ot[8];
+    float o[32], ot[L::kTailAcc];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) ot[i] = 0.f;
+    for (int i = 0; i < L::kTailAcc; ++i) ot[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g, g + 8 (lane's part of l)
     float a0, a1;
-    float sc[kChunks][32];
-    uint32_t pa[kN / 16][4];
+    float sc[L::kChunks][32];
+    uint32_t pa[L::kKeys / 16][4];
 
     // Tile kt's scores are computed while tile kt - 1's P.V runs: both
     // products are started, the scores waited for and softmaxed while P.V
@@ -261,7 +286,7 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
     pass_turn();
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) reg_fence(sc[c]);
+    for (int c = 0; c < L::kChunks; ++c) reg_fence(sc[c]);
     online_softmax(sc, 0, kv_len, tq, m0, m1, l0, l1, a0, a1);
     scores_to_a(sc, pa);
     for (int kt = 1; kt < n_tiles; ++kt) {
@@ -277,8 +302,8 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
       pass_turn();
       wgmma_wait<1>();  // the scores
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) reg_fence(sc[c]);
-      online_softmax(sc, kt * kN, kv_len, tq, m0, m1, l0, l1, a0, a1);
+      for (int c = 0; c < L::kChunks; ++c) reg_fence(sc[c]);
+      online_softmax(sc, kt * L::kKeys, kv_len, tq, m0, m1, l0, l1, a0, a1);
       wgmma_wait<0>();  // the previous tile's P.V
       fence_out<D>(o, ot);
       mbar_arrive(&empty[sp]);
@@ -309,7 +334,7 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
         *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
       if constexpr (L::kTail > 0) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < L::kTail / 8; ++j)
           *reinterpret_cast<uint32_t*>(dst + kD + 8 * j) =
               pack_bf16(ot[4 * j] / d0, ot[4 * j + 1] / d0);
       }
@@ -322,7 +347,7 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
             pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
       if constexpr (L::kTail > 0) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < L::kTail / 8; ++j)
           *reinterpret_cast<uint32_t*>(dst + kD + 8 * j) =
               pack_bf16(ot[4 * j + 2] / d1, ot[4 * j + 3] / d1);
       }
@@ -334,12 +359,13 @@ template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T, int kv_len,
            float prescale, cudaStream_t st) {
   CUtensorMap kmap, vmap, ktail, vtail;
-  cudaError_t err = head_rows_map(&kmap, k, D, T, BH, kN);
-  if (err == cudaSuccess) err = head_rows_map(&vmap, v, D, T, BH, kN);
-  if (D > kD) {
-    if (err == cudaSuccess) err = head_tail_map(&ktail, k, D, T, BH, kN);
-    if (err == cudaSuccess) err = head_tail_map(&vtail, v, D, T, BH, kN);
-  } else {  // unread at D 64
+  constexpr int kKeys = Layout<D>::kKeys;
+  cudaError_t err = head_rows_map(&kmap, k, D, T, BH, kKeys);
+  if (err == cudaSuccess) err = head_rows_map(&vmap, v, D, T, BH, kKeys);
+  if (D == 80) {
+    if (err == cudaSuccess) err = head_tail_map(&ktail, k, D, T, BH, kKeys);
+    if (err == cudaSuccess) err = head_tail_map(&vtail, v, D, T, BH, kKeys);
+  } else {  // unread at D 64; at D 128 the second panel is a 64-dim box of the same map
     ktail = kmap;
     vtail = vmap;
   }
@@ -354,8 +380,9 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T
 }  // namespace
 
 // K7 in bf16 without the LSE: q, k, v [BH, T, D] bf16 contiguous (16-byte
-// aligned), D 64 or 80, 1 <= kv_len <= T -> out [BH, T, D] bf16. prescale =
-// log2(e)/sqrt(D). Returns cudaErrorInvalidValue for another D.
+// aligned), D 64, 80 or 128, 1 <= kv_len <= T -> out [BH, T, D] bf16.
+// prescale = log2(e)/sqrt(D) (1 for the rope-fused K7's prescaled q).
+// Returns cudaErrorInvalidValue for another D.
 extern "C" int fsat_flash_forward_bf16(const void* q, const void* k, const void* v, void* out,
                                        int BH, int T, int kv_len, int D, float prescale,
                                        void* stream) {
@@ -366,5 +393,6 @@ extern "C" int fsat_flash_forward_bf16(const void* q, const void* k, const void*
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64) return launch<64>(qb, kb, vb, ob, BH, T, kv_len, prescale, st);
   if (D == 80) return launch<80>(qb, kb, vb, ob, BH, T, kv_len, prescale, st);
+  if (D == 128) return launch<128>(qb, kb, vb, ob, BH, T, kv_len, prescale, st);
   return (int)cudaErrorInvalidValue;
 }

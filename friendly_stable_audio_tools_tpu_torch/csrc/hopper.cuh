@@ -195,13 +195,20 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[CH / 2], const uint32_t (&
         ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
         : FSAT_WGMMA_OUT32(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  } else {
-    static_assert(CH == 80, "tf32 wgmma widths: 32, 64, 80");
+  } else if constexpr (CH == 80) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 " FSAT_WGMMA_D40
         ", {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
         : FSAT_WGMMA_OUT40(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    static_assert(CH == 128, "tf32 wgmma widths: 32, 64, 80, 128");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " FSAT_WGMMA_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : FSAT_WGMMA_OUT64(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   }
 }

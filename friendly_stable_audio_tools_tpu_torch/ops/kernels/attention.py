@@ -16,9 +16,14 @@ Replaces the head-pair Pallas kernels of the DiT's self-attention
   :class:`FusedQKVRopeAttention` (its pair path) and
   :class:`FusedQKVFlashAttention` (its unpack path).
 
-Routing without grad follows flash_attention.py:1413-1421
-(:func:`attention_route`): up to 2048 tokens K1; up to 8192 (Stable Audio
-2.0's 6145 tokens, padded to 6272) K10a then K10; beyond that (Stable Audio
+Routing without grad follows flash_attention.py:1413-1452
+(:func:`attention_route`), by the head dim and count as well as the length:
+heads of 64 in an even count take the head-pair kernels, up to 2048 tokens
+K1; up to 8192 (Stable Audio 2.0's 6145 tokens, padded to 6272) K10a then
+K10; any other heads take the rope-fused K7 up to 2048 tokens
+(:func:`flash_attention.flash_rope_attention`: SAO 1.0's config with 12
+heads of 128), and run at their true length where kv_len is below T, the
+output padded back (:1423-1428). Beyond that (Stable Audio
 2.0 past ~380 s: 8449 tokens at 392 s, padded to 8576) the split route of
 :func:`fused_qkv_rope_attention_split`: heads split, q and k roped outside
 any kernel in the input dtype, K7 without its LSE on ``[B*H, T, D]`` with
@@ -36,8 +41,12 @@ grad the route is the reference's (:func:`training_route`, after
 longer ones the unpack branch of ``_fused_pair_fwd``/``_fused_pair_bwd``
 (:1351-1389, :class:`FusedQKVFlashAttention`): heads split, q and k roped
 outside any kernel in the input dtype, K7 with its LSE and K9 (or K8 where
-its plan fits, not ported) from ops/kernels/flash_attention.py, in the
-input dtype: fp32 on the training path, where the pair route casts to bf16.
+its plan fits) from ops/kernels/flash_attention.py, in the input dtype: fp32
+on the training path, where the pair route casts to bf16. Every other head
+dim or count takes the unpack branch at every length (``_flash_rope_fwd``
+:751 and ``_flash_rope_bwd`` :760 up to 2048 tokens: the same functions):
+SAO 1.0's config with 12 heads of 128 runs K7 with its LSE and K8 at head
+dim 128.
 
 What it computes: non-causal attention of a fused ``[B, T, 3*H*D]`` qkv
 tensor with the fp32 partial rotary embedding of
@@ -91,6 +100,7 @@ import typing as tp
 
 import torch
 
+from .. import attention as gate
 from ..embeddings import apply_rotary_pos_emb, apply_rotary_pos_emb_transpose
 from . import build
 from . import flash_attention as flash
@@ -115,16 +125,26 @@ def kernel_input(qkv: torch.Tensor) -> torch.Tensor:
     return qkv.to(torch.bfloat16)
 
 
-def attention_route(t: int) -> str:
-    """The inference kernel for a sequence of t tokens, as the JAX package
-    routes it (flash_attention.py:1413-1421): "pair" (K1) for t <= 2048,
-    "pair_long" (K10a + K10) for t <= 8192, else "flash" (heads split, rope
-    outside, K7 without its LSE: :func:`fused_qkv_rope_attention_split`)."""
-    if t <= PAIR_MAX_T:
-        return "pair"
-    if t <= LONG_MAX_T:
-        return "pair_long"
-    return "flash"
+def pair_heads(head_dim: int, num_heads: int) -> bool:
+    """Whether the head-pair kernels take these heads (flash_attention.py:1413,
+    :1418): head dim 64 in an even count."""
+    return head_dim == 64 and num_heads % 2 == 0
+
+
+def attention_route(t: int, head_dim: int = 64, num_heads: int = 2) -> str:
+    """The inference kernel for a self-attention of t tokens, as the JAX
+    package routes it (flash_attention.py:1413-1452): heads of 64 in an even
+    count "pair" (K1) for t <= 2048, "pair_long" (K10a + K10) for t <= 8192;
+    other heads "rope_flash" (the rope-fused K7) for t <= 2048; else "flash"
+    (heads split, rope outside, K7 without its LSE:
+    :func:`fused_qkv_rope_attention_split`)."""
+    if pair_heads(head_dim, num_heads):
+        if t <= PAIR_MAX_T:
+            return "pair"
+        if t <= LONG_MAX_T:
+            return "pair_long"
+        return "flash"
+    return "rope_flash" if t <= PAIR_MAX_T else "flash"
 
 
 def pair_whole_tile(t: int) -> tp.Optional[int]:
@@ -151,7 +171,7 @@ def training_route(t: int, head_dim: int, num_heads: int) -> str:
     chooses it (``_pair_bwd_eligible``, flash_attention.py:1204): "pair"
     (K5/K6) where the pair backward fits, else "flash" (the unpack branch,
     K7 + K9)."""
-    if head_dim != 64 or num_heads % 2:
+    if not pair_heads(head_dim, num_heads):
         return "flash"
     t_p = pair_whole_tile(t)
     return "pair" if t_p is not None and pair_bwd_plan(t_p, head_dim) is not None else "flash"
@@ -467,12 +487,6 @@ def _split_roped(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
     return (x.reshape(b * num_heads, t, d) for x in (q, k, v))
 
 
-def _merge_heads(x: torch.Tensor, b: int, num_heads: int) -> torch.Tensor:
-    """[B*H, T, D] -> [B, T, H*D]."""
-    _, t, d = x.shape
-    return x.view(b, num_heads, t, d).transpose(1, 2).reshape(b, t, num_heads * d)
-
-
 def fused_qkv_rope_attention_split(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int,
                                    kv_len: tp.Optional[int] = None) -> torch.Tensor:
     """The inference route beyond 8192 tokens ("flash"): heads split, q and
@@ -480,7 +494,7 @@ def fused_qkv_rope_attention_split(qkv: torch.Tensor, freqs: torch.Tensor, num_h
     its plain version for CPU tensors), heads merged; out in qkv's dtype."""
     q, k, v = _split_roped(qkv, freqs, num_heads)
     out, _ = flash.flash_forward(q, k, v, kv_len, save_stats=False)
-    return _merge_heads(out, qkv.shape[0], num_heads)
+    return flash.merge_heads(out, qkv.shape[0], num_heads)
 
 
 class FusedQKVFlashAttention(torch.autograd.Function):
@@ -498,7 +512,7 @@ class FusedQKVFlashAttention(torch.autograd.Function):
         out, lse = flash.flash_forward(q, k, v, kv_len, save_stats=True)
         ctx.save_for_backward(q, k, v, out, lse, freqs)
         ctx.num_heads, ctx.kv_len = num_heads, kv_len
-        return _merge_heads(out, qkv.shape[0], num_heads)
+        return flash.merge_heads(out, qkv.shape[0], num_heads)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -524,22 +538,37 @@ def fused_qkv_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: 
     keys at or beyond it are masked (the padded rows' outputs are garbage for
     the caller to slice off).
 
-    With grad enabled and qkv requiring grad, runs the autograd binding that
-    :func:`training_route` names for T: :class:`FusedQKVRopeAttention` (K5
-    then K6 on CUDA) or :class:`FusedQKVFlashAttention` (K7 then K9);
-    otherwise the inference kernel that :func:`attention_route` names."""
+    Heads that the head-pair kernels do not take run at their true length
+    where kv_len is below T, the output padded back with zeros (as the JAX
+    package's fallback, flash_attention.py:1423-1428). With grad enabled and
+    qkv requiring grad, runs the autograd binding that :func:`training_route`
+    names for T: :class:`FusedQKVRopeAttention` (K5 then K6 on CUDA) or
+    :class:`FusedQKVFlashAttention` (K7 then K8 or K9); otherwise the
+    inference kernel that :func:`attention_route` names. The rope-fused K7's
+    function rounds the roped q and k to bf16 whatever the input dtype: a
+    CPU tensor takes it only where ops/attention.py's ``uses_kernels`` says
+    so (the tests force it), else the JAX package's CPU path (rope outside,
+    the attention in the input dtype: flash_attention.py:1430-1439)."""
     global launches
     _, t, three_hd = qkv.shape
+    d = three_hd // (3 * num_heads)
     valid = _valid_len(t, kv_len)
+    if valid < t and not pair_heads(d, num_heads):
+        out = fused_qkv_rope_attention(qkv[:, :valid], freqs[:valid], num_heads)
+        return torch.nn.functional.pad(out, (0, 0, 0, t - valid))
     if torch.is_grad_enabled() and qkv.requires_grad:
-        if training_route(t, three_hd // (3 * num_heads), num_heads) == "pair":
+        if training_route(t, d, num_heads) == "pair":
             return FusedQKVRopeAttention.apply(qkv, freqs, num_heads, kv_len)
         return FusedQKVFlashAttention.apply(qkv, freqs, num_heads, kv_len)
-    route = attention_route(t)
+    route = attention_route(t, d, num_heads)
     if route == "pair_long":
         return fused_qkv_rope_attention_long(qkv, freqs, num_heads, kv_len)
     if route == "flash":
         return fused_qkv_rope_attention_split(qkv, freqs, num_heads, kv_len)
+    if route == "rope_flash":
+        if gate.uses_kernels(qkv):
+            return flash.flash_rope_attention(qkv, freqs, num_heads)
+        return fused_qkv_rope_attention_plain(qkv, freqs, num_heads)
     if qkv.device.type == "cpu":
         return fused_qkv_rope_attention_plain(qkv, freqs, num_heads, kv_len)
     out, _ = _launch_forward(kernel_input(qkv), freqs, num_heads, valid, with_lse=False)

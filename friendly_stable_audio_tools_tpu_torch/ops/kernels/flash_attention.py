@@ -22,7 +22,14 @@ Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
   trains (MusicGen small: B 8 x 16 heads, T 1501, D 64);
 * the ``_flash`` custom_vjp (:646-663) becomes :class:`FlashAttention`, whose
   backward :func:`flash_attention_backward` chooses K8 or K9 as the JAX
-  package does (:576-579): K9 for every causal call.
+  package does (:576-579): K9 for every causal call;
+* the rope-fused K7, ``_single_dot_rope_kernel`` (:132, from
+  ``_flash_forward`` with ``freqs`` :266-285, launched at :317), which
+  ``flash_attention(q, k, v, freqs=...)`` runs up to 2048 tokens
+  (``_flash_rope`` :747) for a DiT self-attention that the head-pair
+  kernels do not take (head dim other than 64, or an odd head count):
+  :func:`flash_rope_attention`, a rope pass (csrc/flash_attention_rope.cu)
+  and then K7 with a prescale of 1 on the roped operands.
 
 The DiT's self-attention takes this path under grad beyond 1168 tokens
 (Stable Audio 2.0: 6145 tokens padded to 6272, kv_len 6145: K9), through
@@ -75,6 +82,22 @@ The causal kernels skip the key tiles past a q tile's diagonal (and the q
 tiles before a key tile's) and mask only the diagonal tile: at T 1501 the
 forward computes 300 of a head's 576 tiles.
 
+At head dim 128 (SAO 1.0's config with 12 heads of 128; its DiT under grad
+at B 8 x 12 heads, T 1025: K7 with its LSE, then K8) the fp32 K7 and K8 are
+csrc/flash_attention_d128.cu: the D 64 designs with one consumer warpgroup
+per block, K7 over a ring of two K or V^T tile pairs, K8 over 32 keys per
+block, its dV^T and dK^T as two m64 products over the head dims.
+
+The rope-fused K7 (:func:`flash_rope_attention`) computes, per head, what
+``_single_dot_rope_kernel`` computes: q and k roped with the fp32 partial
+rotary of ``_rope_tables`` (:720; q's tables times log2(e)/sqrt(D) in fp32),
+``rope(t) = bf16(t * C + rot_half(bf16(t)) * S)`` (``_apply_rope_tile``
+:66; the rounding to bf16 happens for fp32 inputs too), s = q^ k^T in fp32,
+p = exp2(s - m), P rounded to v's dtype, out = (P v) / max(l, 1e-30) in the
+input dtype. Its rope pass writes q^, k^ and v split into heads; the bf16 K7
+(bf16 inputs) or the fp32 K7 (fp32 inputs, whose 3xTF32 score product takes
+the bf16 values exactly) runs on them with a prescale of 1.
+
 K7 in bf16 (csrc/flash_attention_bf16.cu) serves bf16 callers without the
 LSE: the ADP U-Net in bench.py's bf16 recipe (the same three shapes) and
 the DiT's self-attention beyond 8192 tokens in bf16 (Stable Audio 2.0 at 392
@@ -91,13 +114,14 @@ the fp32 K7 takes the same design with 3xTF32 products).
 The plain versions run for CPU tensors (the CPU tests); CUDA tensors launch
 the kernels or raise. The CUDA kernels take q, k and v of one length; K7
 fp32 or bf16 (bf16 only without the LSE and not causal), K8 and K9 fp32;
-the fp32 K7 and K8 head dim 32, 64 or 80 (32: Dance Diffusion's U-Net at
-generate_diffusion_uncond's default length, and under grad from 262,144
-samples), the bf16 K7 64 or 80, K9 32 or 64 (causal: 64). Under grad a head
-dim that the chosen backward does not take raises before K7 launches. The
-other variants of the TPU kernels (bf16 K7 with its LSE or at D 32, the
-rope-fused one, other head dims, rectangular calls, K9 at D 80, the causal
-K9 at D 32) are still to be ported (ROADMAP queue B).
+the fp32 K7 and K8 head dim 32, 64, 80 or 128 (32: Dance Diffusion's U-Net
+at generate_diffusion_uncond's default length, and under grad from 262,144
+samples; 128 not causal), the bf16 K7 64, 80 or 128, K9 32 or 64 (causal:
+64), the rope-fused K7 64 or 128. Under grad a head dim that the chosen
+backward does not take raises before K7 launches. The other variants of the
+TPU kernels (bf16 K7 with its LSE or at D 32 and 96, K9 at D 80-128, other
+head dims, rectangular calls, the causal K9 at D 32) are still to be ported
+(ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -124,6 +148,12 @@ causal_backward_launches = 0  # causal K9
 d32_launches = 0
 d32_fused_backward_launches = 0  # K8 at D 32
 d32_backward_launches = 0  # K9 at D 32
+# the fp32 K7 and K8 at head dim 128 (a DiT with heads of 128 under grad),
+# counted apart; the rope-fused K7 (its rope pass and its K7 per call, bf16
+# or fp32), whose K7 launches count only here
+d128_launches = 0
+d128_fused_backward_launches = 0
+rope_launches = 0
 
 LOG2E = 1.4426950408889634
 # fp32 score bytes one chunk of heads of a plain version may hold (one
@@ -261,9 +291,10 @@ def backward_kernel(t_q: int, t_k: int, d: int, causal: bool = False) -> str:
     return "K8" if bwd_fused_plan(t_q, (t_k + 15) // 16 * 16, d) is not None else "K9"
 
 
-FLASH_HEAD_DIMS = (32, 64, 80)  # the fp32 K7's CUDA kernel
-BF16_HEAD_DIMS = (64, 80)  # the bf16 K7's
-FUSED_BACKWARD_HEAD_DIMS = (32, 64, 80)  # K8's
+FLASH_HEAD_DIMS = (32, 64, 80, 128)  # the fp32 K7's CUDA kernels
+BF16_HEAD_DIMS = (64, 80, 128)  # the bf16 K7's
+FUSED_BACKWARD_HEAD_DIMS = (32, 64, 80, 128)  # K8's
+ROPE_HEAD_DIMS = (64, 128)  # the rope-fused K7's
 BACKWARD_HEAD_DIMS = (32, 64)  # K9's
 CAUSAL_BACKWARD_HEAD_DIMS = (64,)  # the causal K9's
 
@@ -304,15 +335,47 @@ def _lse_delta(name: str, lse: torch.Tensor, out: torch.Tensor, do: torch.Tensor
 
 
 def forward_scratch_floats(bh: int, t: int, d: int) -> int:
-    """fp32 K7's scratch (csrc/flash_attention.cu): the pre-pass's tf32 hi/lo
-    parts of K [2, BH, T, D] and of V^T [2, BH, D, Tp], Tp = T rounded up to
-    the 64-key tile."""
+    """fp32 K7's scratch (csrc/flash_attention.cu, flash_attention_d128.cu):
+    the pre-pass's tf32 hi/lo parts of K [2, BH, T, D] and of V^T [2, BH, D,
+    Tp], Tp = T rounded up to the 64-key tile."""
     tp = (t + 63) // 64 * 64
     return 2 * bh * t * d + 2 * bh * d * tp
 
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse, valid: int,
+                    causal: bool, prescale: float) -> torch.Tensor:
+    """The fp32 K7 on checked contiguous inputs: out [BH, T, D], the LSE into
+    `lse` where it is not None."""
+    bh, t, d = q.shape
+    out = torch.empty_like(q)
+    scratch = torch.empty(forward_scratch_floats(bh, t, d), device=q.device, dtype=torch.float32)
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if d == 128:
+        err = build.library().fsat_flash_forward_d128(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, scratch.data_ptr(),
+            bh, t, valid, prescale, _stream(q.device))
+    else:
+        err = build.library().fsat_flash_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, scratch.data_ptr(),
+            bh, t, valid, d, int(causal), prescale, _stream(q.device))
+    build.check(err, "flash_forward")
+    return out
+
+
+def _launch_forward_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: int,
+                         prescale: float) -> torch.Tensor:
+    """The bf16 K7 on checked contiguous inputs: out [BH, T, D]."""
+    bh, t, d = q.shape
+    out = torch.empty_like(q)
+    err = build.library().fsat_flash_forward_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t, valid, d, prescale,
+        _stream(q.device))
+    build.check(err, "flash_forward")
+    return out
 
 
 def _flash_forward_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: int,
@@ -326,12 +389,7 @@ def _flash_forward_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid
             "(ROADMAP queue B)")
     q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=BF16_HEAD_DIMS,
                          dtype=torch.bfloat16)
-    bh, t, d = q.shape
-    out = torch.empty_like(q)
-    err = build.library().fsat_flash_forward_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t, valid, d,
-        LOG2E / math.sqrt(d), _stream(q.device))
-    build.check(err, "flash_forward")
+    out = _launch_forward_bf16(q, k, v, valid, LOG2E / math.sqrt(q.shape[2]))
     serving_bf16_launches += 1
     return out
 
@@ -344,7 +402,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query i. On CUDA, fp32 runs the fp32 kernel and bf16 the bf16 one
     (serving only); another dtype raises."""
     global forward_launches, serving_launches, causal_forward_launches, causal_serving_launches
-    global d32_launches
+    global d32_launches, d128_launches
     valid = _valid_len(k.shape[1], kv_len)
     _check_causal(q, k, causal)
     if q.device.type == "cpu":
@@ -353,16 +411,15 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _flash_forward_bf16(q, k, v, valid, save_stats, causal), None
     q, k, v = _cuda_args("flash_forward", q, k, v, head_dims=FLASH_HEAD_DIMS)
     bh, t, d = q.shape
-    out = torch.empty_like(q)
+    if d == 128 and causal:
+        raise NotImplementedError("flash_forward: the causal fp32 K7 at head dim 128 is still to "
+                                  "be ported (ROADMAP queue B)")
     lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if save_stats else None
-    scratch = torch.empty(forward_scratch_floats(bh, t, d), device=q.device, dtype=torch.float32)
-    err = build.library().fsat_flash_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), scratch.data_ptr(), bh, t, valid, d, int(causal),
-        LOG2E / math.sqrt(d), _stream(q.device))
-    build.check(err, "flash_forward")
+    out = _launch_forward(q, k, v, lse, valid, causal, LOG2E / math.sqrt(d))
     if d == 32:
         d32_launches += 1
+    elif d == 128:
+        d128_launches += 1
     elif causal and save_stats:
         causal_forward_launches += 1
     elif causal:
@@ -407,9 +464,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
 
 def flash_backward_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                          lse: torch.Tensor, do: torch.Tensor, kv_len: tp.Optional[int] = None):
-    """K8: (dq, dk, dv) [BH, T, D] (D 32, 64 or 80) from q, k, v, K7's out
-    and lse, and dL/d(out), in one launch."""
-    global fused_backward_launches, d32_fused_backward_launches
+    """K8: (dq, dk, dv) [BH, T, D] (D 32, 64, 80 or 128) from q, k, v, K7's
+    out and lse, and dL/d(out), in one launch."""
+    global fused_backward_launches, d32_fused_backward_launches, d128_fused_backward_launches
     valid = _valid_len(k.shape[1], kv_len)
     if q.device.type == "cpu":
         return flash_backward_fused_plain(q, k, v, out, lse, do, kv_len)
@@ -419,13 +476,19 @@ def flash_backward_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out:
     lse, delta = _lse_delta("flash_backward_fused", lse, out, do)
     dq = torch.zeros_like(q)  # the key tiles add their parts into it
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = build.library().fsat_flash_backward_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid, d,
-        LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, valid)
+    if d == 128:
+        err = build.library().fsat_flash_backward_fused_d128(
+            *ptrs, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
+    else:
+        err = build.library().fsat_flash_backward_fused(
+            *ptrs, d, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), _stream(q.device))
     build.check(err, "flash_backward_fused")
     if d == 32:
         d32_fused_backward_launches += 1
+    elif d == 128:
+        d128_fused_backward_launches += 1
     else:
         fused_backward_launches += 1
     return dq, dk, dv
@@ -448,9 +511,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_backward_head_dim(t_q: int, t_k: int, d: int, causal: bool = False) -> None:
     """Raises, naming ROADMAP queue B, where the backward that
     :func:`flash_attention_backward` would choose on CUDA tensors has no
-    kernel at head dim d (K8 takes 32, 64 and 80, K9 32 and 64, the causal
-    K9 64): a training call at another head dim stops here, before its
-    forward launches anything."""
+    kernel at head dim d (K8 takes 32, 64, 80 and 128, K9 32 and 64, the
+    causal K9 64): a training call at another head dim stops here, before
+    its forward launches anything."""
     kernel = backward_kernel(t_q, t_k, d, causal)
     dims = (FUSED_BACKWARD_HEAD_DIMS if kernel == "K8" else
             CAUSAL_BACKWARD_HEAD_DIMS if causal else BACKWARD_HEAD_DIMS)
@@ -483,3 +546,108 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         grads = flash_attention_backward(*ctx.saved_tensors, grad_out, ctx.kv_len, ctx.causal)
         return (*grads, None, None)
+
+
+def rope_tables(freqs: torch.Tensor, t: int, prescale: float):
+    """The rope-fused K7's tables (``_rope_tables``, flash_attention.py:720, and
+    the q prescale of :274-278): cos and sin of the last t rows of freqs [T',
+    rot] in fp32, and the pair for q times `prescale` in fp32 -> (cos_q,
+    sin_q, cos_k, sin_k), each [t, rot] contiguous. The dims past rot (cos 1,
+    sin 0 in the TPU's padded tables) are the kernel's and the plain version's
+    own: q times prescale, k as it is."""
+    f = freqs[-t:].float()
+    cos_k, sin_k = torch.cos(f).contiguous(), torch.sin(f).contiguous()
+    return (cos_k * prescale).contiguous(), (sin_k * prescale).contiguous(), cos_k, sin_k
+
+
+def rope_heads_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
+    """The rope pass's plain version: qkv [B, T, 3*H*D] -> (q^, k^, v) [B*H, T,
+    D] in qkv's dtype, q^ and k^ as ``_apply_rope_tile`` (flash_attention.py:66)
+    forms them: rope(t) = bf16(t * C + rot_half(bf16(t)) * S) in fp32, q's
+    tables times log2(e)/sqrt(D); v split into heads."""
+    dt = qkv.dtype
+    b, t, three_hd = qkv.shape
+    d = three_hd // (3 * num_heads)
+    rot = freqs.shape[-1]
+    half = rot // 2
+    prescale = LOG2E / math.sqrt(d)
+    cos_q, sin_q, cos_k, sin_k = rope_tables(freqs, t, prescale)
+    q, k, v = qkv.reshape(b, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+
+    def rope(x, c, s, rest):
+        xf = x.float()
+        xb = xf[..., :rot].to(torch.bfloat16).float()
+        partner = torch.cat([-xb[..., half:], xb[..., :half]], dim=-1)
+        head = xf[..., :rot] * c + partner * s
+        tail = xf[..., rot:] * prescale if rest else xf[..., rot:]
+        return torch.cat([head, tail], dim=-1).to(torch.bfloat16).to(dt)
+
+    q = rope(q, cos_q, sin_q, True)
+    k = rope(k, cos_k, sin_k, False)
+    return tuple(x.reshape(b * num_heads, t, d) for x in (q, k, v))
+
+
+def merge_heads(x: torch.Tensor, b: int, num_heads: int) -> torch.Tensor:
+    """[B*H, T, D] -> [B, T, H*D]."""
+    _, t, d = x.shape
+    return x.view(b, num_heads, t, d).transpose(1, 2).reshape(b, t, num_heads * d)
+
+
+def flash_rope_attention_plain(qkv: torch.Tensor, freqs: torch.Tensor,
+                               num_heads: int) -> torch.Tensor:
+    """The rope-fused K7's plain version: the rope pass's plain version, then
+    a whole-row base-2 softmax of q^ k^T in fp32, P rounded to v's dtype,
+    (P v) / max(l, 1e-30) in qkv's dtype -> [B, T, H*D]."""
+    dt = qkv.dtype
+    q, k, v = rope_heads_plain(qkv, freqs, num_heads)
+    bh, t, _ = q.shape
+    out = torch.empty_like(q)
+    for h0, h1 in _head_chunks(bh, t, t):
+        s = q[h0:h1].float() @ k[h0:h1].float().transpose(-1, -2)
+        p = s.sub_(s.amax(-1, keepdim=True)).exp2_()
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        out[h0:h1] = ((p.to(dt).float() @ v[h0:h1].float()) / l).to(dt)
+        del s, p
+    return merge_heads(out, qkv.shape[0], num_heads)
+
+
+def flash_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The rope-fused K7: non-causal self-attention of qkv [B, T, 3*H*D] (q | k
+    | v, bf16 or fp32) with the partial rotary of freqs [T' >= T, rot] (last T
+    rows) -> [B, T, H*D] in qkv's dtype. On CUDA: the rope pass
+    (csrc/flash_attention_rope.cu), then the bf16 or fp32 K7 with a prescale
+    of 1 on its [B*H, T, D] operands (head dim 64 or 128; another raises)."""
+    global rope_launches
+    if qkv.device.type == "cpu":
+        return flash_rope_attention_plain(qkv, freqs, num_heads)
+    b, t, three_hd = qkv.shape
+    d = three_hd // (3 * num_heads)
+    rot = freqs.shape[-1]
+    if d not in ROPE_HEAD_DIMS or three_hd != 3 * num_heads * d:
+        raise NotImplementedError(
+            f"flash_rope_attention: the CUDA kernels take head dim "
+            f"{' or '.join(map(str, ROPE_HEAD_DIMS))}, got qkv {tuple(qkv.shape)} with "
+            f"{num_heads} heads; the others are still to be ported (ROADMAP queue B)")
+    if qkv.dtype not in (torch.float32, torch.bfloat16) or rot % 2 or rot > d:
+        raise ValueError(f"flash_rope_attention: the CUDA kernels take fp32 or bf16 and an even "
+                         f"rot <= D, got {qkv.dtype} and rot {rot}")
+    if freqs.device != qkv.device or freqs.shape[0] < t:
+        raise ValueError(f"flash_rope_attention: freqs must be [>= T, rot] on {qkv.device}, got "
+                         f"{tuple(freqs.shape)} on {freqs.device}")
+    bh = b * num_heads
+    if not 1 <= bh <= 65535:
+        raise ValueError(f"flash_rope_attention: B*H = {bh} outside the kernel's grid [1, 65535]")
+    x = qkv.contiguous()
+    tables = rope_tables(freqs, t, LOG2E / math.sqrt(d))
+    q, k, v = (torch.empty(bh, t, d, device=x.device, dtype=x.dtype) for _ in range(3))
+    err = build.library().fsat_rope_heads(
+        x.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), *(c.data_ptr() for c in tables),
+        b, t, num_heads, d, rot, LOG2E / math.sqrt(d), int(x.dtype == torch.bfloat16),
+        _stream(x.device))
+    build.check(err, "flash_rope_attention")
+    if x.dtype == torch.bfloat16:
+        out = _launch_forward_bf16(q, k, v, t, 1.0)
+    else:
+        out = _launch_forward(q, k, v, None, t, False, 1.0)
+    rope_launches += 1
+    return merge_heads(out, b, num_heads)

@@ -157,15 +157,15 @@ def test_inference_forward_takes_the_route(monkeypatch):
     monkeypatch.setattr(tattn, "fused_qkv_rope_attention_long",
                         lambda *a, **kw: taken.append(a[0].shape[1]) or real_long(*a, **kw))
     rng = np.random.RandomState(22)
-    for t in (2048, 2049, 8193):
-        qkv = _t(rng.randn(1, t, 3 * 64) * 0.3)
+    for t in (2048, 2049, 8193):  # two heads of 64: the pair kernels' (an even count)
+        qkv = _t(rng.randn(1, t, 3 * 2 * 64) * 0.3)
         f = _t(np.asarray(jax_rotary_freqs(t, 32)))
-        got = tattn.fused_qkv_rope_attention(qkv, f, 1)
-        torch.testing.assert_close(got, tattn.fused_qkv_rope_attention_plain(qkv, f, 1),
+        got = tattn.fused_qkv_rope_attention(qkv, f, 2)
+        torch.testing.assert_close(got, tattn.fused_qkv_rope_attention_plain(qkv, f, 2),
                                    rtol=0, atol=1e-6)
     assert taken == [2049]
-    qkv = _t(rng.randn(1, 2049, 3 * 64)).requires_grad_(True)
-    out = tattn.fused_qkv_rope_attention(qkv, _t(np.asarray(jax_rotary_freqs(2049, 32))), 1)
+    qkv = _t(rng.randn(1, 2049, 3 * 2 * 64)).requires_grad_(True)
+    out = tattn.fused_qkv_rope_attention(qkv, _t(np.asarray(jax_rotary_freqs(2049, 32))), 2)
     assert "FusedQKVFlashAttention" in type(out.grad_fn).__name__ and taken == [2049]
 
 

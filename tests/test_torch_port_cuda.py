@@ -18,7 +18,11 @@ K13 (the fused SwiGLU MLP), on each route, to rel-L2 1e-5 in fp32 and 2e-3
 sum in a fixed order). K11 and K12 (the adaLN elementwise kernels) against the Pallas
 kernels' arithmetic to rel-L2 1e-3 and one bf16 step of the largest value
 (fp32 sums in another order may move a result across one bf16 rounding),
-against the plain chains to 1e-2.
+against the plain chains to 1e-2. The rope-fused K7 against its plain
+version: rel-L2 1e-4 in fp32 (both round the roped q and k to bf16, where
+an fp32 rounding difference may move one element by a bf16 step), and in
+bf16 as the bf16 K7 (1e-2: P rounded against running maxima); the fp32 K7
+and K8 at head dim 128 to 1e-5.
 """
 
 import pytest
@@ -140,7 +144,7 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         xb = _rnd(gen, 1, 64, 96).to(torch.bfloat16)
         tconv.fused_residual_unit(xb, _rnd(gen, 7, 96, 96), None, None, None,
                                   _rnd(gen, 96, 96), None, None, None)
-    with pytest.raises(ValueError):  # head dim 32
+    with pytest.raises(NotImplementedError, match="queue B"):  # head dim 32: rope-fused K7's
         tattn.fused_qkv_rope_attention(_rnd(gen, 1, 64, 3 * 4 * 32).to(torch.bfloat16),
                                        rotary_freqs(64, 16, device="cuda"), 4)
 
@@ -1185,3 +1189,123 @@ def test_tiny_init_audio_generation_runs_the_encoder_kernels(gen, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate_diffusion_cond(model, steps=1, conditioning=cond, sample_size=24 * 8,
                                 init_audio=init, device="cuda")
+
+
+def _d128_counts():
+    return (tflash.rope_launches, tflash.d128_launches, tflash.d128_fused_backward_launches,
+            tflash.serving_launches, tflash.serving_bf16_launches, tflash.forward_launches,
+            tflash.fused_backward_launches, tattn.launches, tattn.rope_k_launches)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,t,h,d", [(2, 1025, 12, 128), (1, 2048, 2, 128), (2, 333, 3, 64),
+                                     (1, 77, 2, 128), (2, 16, 3, 64)])
+def test_rope_fused_k7_matches_plain(gen, b, t, h, d, dtype, tol):
+    """The rope-fused K7 (its rope pass, then the bf16 or fp32 K7 with a
+    prescale of 1) against its plain version at SAO's 12 heads of 128 (T
+    1025), at T 2048, at 3 heads of 64 and at T below one tile: one launch
+    of its own count and no other; the entry point routes such heads there
+    without grad, at their true length where kv_len is below T."""
+    qkv = _rnd(gen, b, t, 3 * h * d).to(dtype)
+    f = rotary_freqs(t, max(d // 2, 32), device="cuda")
+    before = _d128_counts()
+    got = tflash.flash_rope_attention(qkv, f, h)
+    after = _d128_counts()
+    assert after == (before[0] + 1,) + before[1:]
+    assert got.dtype == dtype and got.shape == (b, t, h * d)
+    _close(got, tflash.flash_rope_attention_plain(qkv, f, h), tol)
+    routed = tattn.fused_qkv_rope_attention(qkv, f, h)
+    assert _d128_counts()[0] == after[0] + 1 and torch.equal(routed, got)
+    if t > 16:
+        kv = t - 5
+        padded = tattn.fused_qkv_rope_attention(qkv, f, h, kv_len=kv)
+        assert not padded[:, kv:].any()
+        _close(padded[:, :kv], tflash.flash_rope_attention_plain(qkv[:, :kv], f[:kv], h), tol)
+
+
+def test_rope_pass_matches_its_plain_version_bit_for_bit(gen):
+    """The rope pass alone: q^ and k^ bit for bit against the plain version's
+    (fp32 products and sum rounded once each, then to bf16), v copied."""
+    for dtype in (torch.float32, torch.bfloat16):
+        b, t, h, d = 2, 1025, 12, 128
+        qkv = _rnd(gen, b, t, 3 * h * d).to(dtype)
+        f = rotary_freqs(t, 64, device="cuda")
+        tables = tflash.rope_tables(f, t, tflash.LOG2E / d ** 0.5)
+        q, k, v = (torch.empty(b * h, t, d, device="cuda", dtype=dtype) for _ in range(3))
+        from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
+
+        err = build.library().fsat_rope_heads(
+            qkv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(c.data_ptr() for c in tables), b, t, h, d, 64, tflash.LOG2E / d ** 0.5,
+            int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        for got, want in zip((q, k, v), tflash.rope_heads_plain(qkv, f, h)):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bh,t,kv", [(96, 1025, None), (3, 333, 257), (2, 77, None),
+                                     (2, 150, 129), (1, 64, 33)])
+def test_fp32_k7_and_k8_at_head_dim_128_match_plain(gen, bh, t, kv):
+    """The fp32 K7 with and without its LSE and K8 at head dim 128 against
+    their plain versions (rel-L2 1e-5; the LSE max abs 1e-4), at SAO's
+    training shape with 12 heads (B 8), ragged T and kv_len one key into a
+    32-key block; the padded rows' dk and dv exactly zero; K8 twice gives
+    bit-equal dk and dv; one launch of their own counts each."""
+    q, k, v, do = (_rnd(gen, bh, t, 128) for _ in range(4))
+    if kv is not None:
+        do[:, kv:] = 0
+    before = _d128_counts()
+    out, lse = tflash.flash_forward(q, k, v, kv)
+    serving, none = tflash.flash_forward(q, k, v, kv, save_stats=False)
+    assert none is None and _d128_counts() == (before[0], before[1] + 2) + before[2:]
+    out_p, lse_p = tflash.flash_forward_plain(q, k, v, kv)
+    _close(out, out_p, 1e-5)
+    _close(serving, out_p, 1e-5)
+    assert (lse - lse_p).abs().max().item() <= 1e-4
+    before = _d128_counts()
+    grads = tflash.flash_attention_backward(q, k, v, out_p, lse_p, do, kv)
+    assert _d128_counts() == before[:2] + (before[2] + 1,) + before[3:]
+    for got, want in zip(grads, tflash.flash_backward_fused_plain(q, k, v, out_p, lse_p, do, kv)):
+        _close(got, want, 1e-5)
+    if kv is not None:
+        assert not grads[1][:, kv:].any() and not grads[2][:, kv:].any()
+    again = tflash.flash_backward_fused(q, k, v, out_p, lse_p, do, kv)
+    assert torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
+
+
+def test_bf16_k7_at_head_dim_128_matches_plain(gen):
+    """The bf16 K7 (serving) at head dim 128, which the rope-fused K7 runs
+    for bf16 inputs: ragged T and kv_len, rel-L2 1e-2."""
+    for bh, t, kv in ((24, 1025, None), (3, 300, 257), (2, 16, None)):
+        q, k, v = (_rnd(gen, bh, t, 128).to(torch.bfloat16) for _ in range(3))
+        before = tflash.serving_bf16_launches
+        out, lse = tflash.flash_forward(q, k, v, kv, save_stats=False)
+        assert lse is None and tflash.serving_bf16_launches == before + 1
+        _close(out, tflash.flash_forward_plain(q, k, v, kv, save_stats=False)[0])
+
+
+def test_heads_128_train_through_k7_and_k8_and_raise_where_no_kernel_is(gen):
+    """Under grad, 12 heads of 128 at T 1025 take the unpack route: K7 with
+    its LSE and K8 at head dim 128 once each, qkv.grad within rel-L2 1e-4
+    of autograd through the fp32 plain attention. What no kernel takes
+    raises on the card: the rope-fused K7 at head dim 96, the causal fp32 K7
+    at 128, K9 at 128."""
+    t, h = 1025, 12
+    f = rotary_freqs(t, 64, device="cuda")
+    x = _rnd(gen, 1, t, 3 * h * 128, scale=0.5)
+    g = _rnd(gen, 1, t, h * 128)
+    before = _d128_counts()
+    qkv = x.clone().requires_grad_(True)
+    tattn.fused_qkv_rope_attention(qkv, f, h).backward(g)
+    assert _d128_counts() == (before[0], before[1] + 1, before[2] + 1) + before[3:]
+    ref = x.clone().requires_grad_(True)
+    tattn.fused_qkv_rope_attention_plain(ref, f, h).backward(g)
+    _close(qkv.grad, ref.grad, tol=1e-4)
+    with pytest.raises(NotImplementedError, match="queue B"):
+        tflash.flash_rope_attention(_rnd(gen, 1, 64, 3 * 2 * 96), rotary_freqs(64, 48,
+                                                                               device="cuda"), 2)
+    q = _rnd(gen, 2, 64, 128)
+    with pytest.raises(NotImplementedError, match="queue B"):
+        tflash.flash_forward(q, q, q, causal=True)
+    with pytest.raises(NotImplementedError, match="queue B"):
+        tflash.flash_backward(q, q, q, q, q[..., 0], q)
