@@ -312,7 +312,9 @@ Phases (any failure raises and the script exits non-zero):
 20. SAO 1.0's config with 12 heads of 128 (`num_heads` 12, nothing else
    changed; T 1025, unpadded), after [3n] (the rope-fused K7 in bf16 and
    fp32 against its plain version at B 2 x 12 heads, T 2048 and a ragged 3
-   heads of 64, with its device time split by activity; the fp32 K7 with
+   heads of 64, the tables and k^ of its rope pass bit for bit against the
+   plain version's, with its device time split by activity and the call's
+   idle share; the fp32 K7 with
    and without its LSE and K8 at head dim 128 at B 8 x 12 heads and a
    ragged shape; SDPA and its backward beside them): [20] at full width and
    depth, a DiT forward with the kernels against the plain versions in fp32
@@ -4472,9 +4474,9 @@ def new_results():
             route="cuda", source=src + "flash_attention_rope.cu",
             replaces=tpu + "flash_attention.py:132",
             per=f"SAO 1.0 heads-128 generation step in bench.py's bf16 recipe (24 calls at B2 x "
-                f"H{H128_HEADS} T{H128_T} D128: the rope pass, then the bf16 K7 of "
-                f"flash_attention_bf16.cu; fp32_ms: the same in fp32, the fp32 K7 of "
-                f"flash_attention_d128.cu)"),
+                f"H{H128_HEADS} T{H128_T} D128: the rope pass, then the bf16 K7's rope instance "
+                f"of flash_attention_bf16.cu, q roped inside; fp32_ms: the same in fp32, the "
+                f"attention of flash_attention_rope.cu)"),
         "flash_forward_d128": dict(
             route="cuda", source=src + "flash_attention_d128.cu",
             replaces=tpu + "flash_attention.py:230",
@@ -5613,12 +5615,38 @@ def rope_bound(bh, t, d, dtype, qkv, out):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def rope_pass_check(qkv, f, h, label):
+    """The rope-fused K7's rope pass on the card: the q tables it makes from
+    freqs bit for bit against `rope_tables`' (torch.cos / torch.sin on the
+    card, times the prescale), k^ bit for bit against the plain version's."""
+    import torch
+
+    from friendly_stable_audio_tools_tpu_torch.ops.kernels import flash_attention as flash
+
+    b, t, three_hd = qkv.shape
+    d, rot = three_hd // (3 * h), f.shape[-1]
+    _, scratch = flash.launch_rope(qkv, f, h)
+    khat, cos_q, sin_q = flash.rope_scratch_views(scratch, b, t, h, d, rot)
+    want_cos, want_sin, _, _ = flash.rope_tables(f, t, flash.LOG2E / math.sqrt(d))
+    _, k, _ = flash.rope_heads_plain(qkv, f, h)
+    tables_ok = torch.equal(cos_q, want_cos) and torch.equal(sin_q, want_sin)
+    khat_ok = torch.equal(khat.float(), flash.merge_heads(k, b, h).float())
+    log(f"  flash_rope_attention {label}: the rope pass's q tables bit-equal to rope_tables': "
+        f"{tables_ok}; k^ bit-equal to the plain version's: {khat_ok}")
+    if not (tables_ok and khat_ok):
+        raise AssertionError(f"flash_rope_attention {label}: the rope pass's tables or k^ differ "
+                             f"from the plain version's")
+
+
 def heads128_kernel_phase(results):
     """[3n] The kernels of a DiT with heads of 128 against their plain
-    versions. The rope-fused K7 (its rope pass, then the bf16 or fp32 K7)
-    in bf16 and fp32 at SAO 1.0's 12 heads of 128 at CFG batch 2 (T 1025:
-    24 calls per DiT forward), at T 2048 and at a ragged 3 heads of 64;
-    library: SDPA on q and k roped outside (no single PyTorch call ropes).
+    versions. The rope-fused K7 (its rope pass, then the attention that
+    ropes q and writes the output merged) in bf16 and fp32 at SAO 1.0's 12
+    heads of 128 at CFG batch 2 (T 1025: 24 calls per DiT forward), at T
+    2048 and at a ragged 3 heads of 64, its pass's tables and k^ bit for bit
+    (`rope_pass_check`), the device time of the main-path call by activity
+    and its idle share; library: SDPA on q and k roped outside (no single
+    PyTorch call ropes).
     The fp32 K7 with its LSE (and without it) and K8 at head dim 128 at the
     training shape (B 8 x 12 heads, T 1025: 2 x 24 and 24 calls per step of
     24 checkpointed layers) and a ragged one with kv_len; K8 gets the plain
@@ -5642,6 +5670,7 @@ def heads128_kernel_phase(results):
             if calls:
                 rope["weight"][label] = calls
             qkv = rnd(b, t, 3 * h * d).to(dt)
+            rope_pass_check(qkv, f, h, label)
             q, k, v = attention._split_roped(qkv, f, h)
             got = compare(tol_name, lambda: flash.flash_rope_attention(qkv, f, h),
                           lambda: flash.flash_rope_attention_plain(qkv, f, h), reps=BF16_K7_REPS,
@@ -5650,13 +5679,14 @@ def heads128_kernel_phase(results):
                    bound=rope_bound(b * h, t, d, dt, qkv, qkv[..., :h * d]), field=field,
                    tol_name=tol_name, extra=f"; SDPA on q and k roped outside, backend "
                                             f"{sdpa_backend(q[None], k[None], v[None])}")
-            if calls:  # the call's device time by activity: the rope pass, K7, the tables, copies
+            if calls:  # the call's device time by activity: the rope pass, the attention
                 busy, acts, by_name = device_profile([lambda: flash.flash_rope_attention(
                     qkv, f, h)] * 10)
-                split = ", ".join(f"{n[:48]} {ms:.4f}" for n, ms in sorted(
+                split = ", ".join(f"{n[:64]} {ms:.4f}" for n, ms in sorted(
                     by_name.items(), key=lambda kv: -kv[1]))
                 log(f"  flash_rope_attention {label}: device busy {busy:.4f} ms of the call's "
-                    f"{got[4]:.4f} ms wall, {acts:.0f} device activities: {split}")
+                    f"{got[4]:.4f} ms wall (idle {1 - busy / got[4]:.1%}), {acts:.0f} device "
+                    f"activities: {split}")
             del qkv, q, k, v
     log(f"  flash_rope_attention: {rope['ms']:.4f} ms per {H128_HEADS}-head SAO DiT forward in "
         f"bf16 (24 calls), plain {rope['plain_ms']:.4f}, bound {rope['bound_ms']:.4f}, SDPA on "

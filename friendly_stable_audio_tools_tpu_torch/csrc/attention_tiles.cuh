@@ -260,6 +260,133 @@ __device__ __forceinline__ void scores_to_a(const float (&sc)[kChunks][32],
     for (int j = 0; j < 4; ++j) acc_to_a(sc[c], j, pa[c * 4 + j]);
 }
 
+// ---- the rope-fused K7's q, roped in the attention kernel ------------------------
+
+// Eight consecutive elements of a row as loaded (16-byte aligned): a bf16
+// chunk in one 16-byte word, an fp32 one in two.
+template <typename T>
+struct Raw8;
+
+template <>
+struct Raw8<bf16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p) { u = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ float operator[](int j) const {
+    Pack8 v;
+    v.u = u;
+    return __bfloat162float(v.h[j]);
+  }
+};
+
+template <>
+struct Raw8<float> {
+  float v[8];
+  __device__ __forceinline__ void load(const float* p) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  }
+  __device__ __forceinline__ float operator[](int j) const { return v[j]; }
+};
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const bf16* p) { return __bfloat162float(*p); }
+
+// Rows [r0, r0 + 64) of head h's q in qkv [B, T, 3 H D] of batch row b (bf16
+// or fp32), roped as `_apply_rope_tile` (flash_attention.py:66) forms q^ with
+// the tables cos_q/sin_q [T, rot] (fp32, already times the prescale): y = x C
+// + p S over the first rot dims, p the rotate-half partner rounded to bf16
+// (negated below rot / 2), x times the prescale beyond; each product and the
+// sum rounded once (__fmul_rn / __fadd_rn: nvcc would contract to an fma,
+// which the plain version does not), then to bf16, into the warpgroup's
+// 128B-swizzled bf16 panels (qa: dims 0-63; qt: dims 64-127 at D 128); rows
+// at or past T are zero. A thread keeps one 8-dim chunk column (seg) over
+// rows 128 / (D / 8) apart, so whether it ropes is the same for all its
+// chunks. Where rot is a multiple of 16 (every DiT's: rot 32 or 64) a chunk
+// lies wholly in one half of the rotary dims, and its own, its partner's and
+// its tables' loads are 16-byte loads, kBatch chunks of them in flight at
+// once; any other rot takes a loop of its own, element by element (kept out
+// of the fast loop: inside it, never taken, it cost the bf16 kernel 8 us a
+// call on the card).
+template <typename Tin, int D>
+__device__ __forceinline__ void rope_q_rows(const Tin* __restrict__ qkv,
+                                            const float* __restrict__ cos_q,
+                                            const float* __restrict__ sin_q, unsigned char* qa,
+                                            unsigned char* qt, int b, int h, int r0, int T, int H,
+                                            int rot, float prescale, int tid) {
+  static_assert(D == 64 || D == 128, "the rope-fused K7 takes head dim 64 or 128");
+  constexpr int kSeg = D / 8;          // 8-dim chunks per row
+  constexpr int kStep = 128 / kSeg;    // rows between a thread's chunks
+  constexpr int kIters = 64 / kStep;   // chunks per thread
+  constexpr int kBatch = 4;            // chunks whose loads are in flight together
+  const int seg = tid % kSeg, d0 = 8 * seg, half = rot >> 1;
+  const bool rotary = d0 < rot, low = d0 < half;
+  const size_t stride = (size_t)3 * H * D;
+  const Tin* base = qkv + (size_t)b * T * stride + (size_t)h * D;
+  unsigned char* panel = seg < 8 ? qa : qt;
+  if ((rot & 15) == 0) {
+    const int pd = low ? d0 + half : d0 - half;  // the partner chunk's first dim
+#pragma unroll
+    for (int i0 = 0; i0 < kIters; i0 += kBatch) {
+      Raw8<Tin> x[kBatch], p[kBatch];
+      Raw8<float> c[kBatch], s[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int t = r0 + tid / kSeg + (i0 + i) * kStep;
+        if (t < T) {
+          x[i].load(base + t * stride + d0);
+          if (rotary) {
+            p[i].load(base + t * stride + pd);
+            c[i].load(cos_q + (size_t)t * rot + d0);
+            s[i].load(sin_q + (size_t)t * rot + d0);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int r = tid / kSeg + (i0 + i) * kStep;
+        Pack8 res;
+        res.u = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 + r < T) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float y = __fmul_rn(x[i][j], prescale);
+            if (rotary) {
+              const float pb = round_bf16(p[i][j]);
+              y = __fadd_rn(__fmul_rn(x[i][j], c[i][j]), __fmul_rn(low ? -pb : pb, s[i][j]));
+            }
+            res.h[j] = __float2bfloat16_rn(y);
+          }
+        }
+        *reinterpret_cast<uint4*>(panel + sw128_offset(r, seg & 7)) = res.u;
+      }
+    }
+  } else {
+    for (int i = 0; i < kIters; ++i) {
+      const int r = tid / kSeg + i * kStep, t = r0 + r;
+      Pack8 res;
+      res.u = make_uint4(0u, 0u, 0u, 0u);
+      if (t < T) {
+        const Tin* row = base + t * stride;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = d0 + j;
+          const float x = load1(row + d);
+          float y = __fmul_rn(x, prescale);
+          if (d < rot) {
+            const float pe = d < half ? -round_bf16(load1(row + d + half))
+                                      : round_bf16(load1(row + d - half));
+            y = __fadd_rn(__fmul_rn(x, cos_q[(size_t)t * rot + d]),
+                          __fmul_rn(pe, sin_q[(size_t)t * rot + d]));
+          }
+          res.h[j] = __float2bfloat16_rn(y);
+        }
+      }
+      *reinterpret_cast<uint4*>(panel + sw128_offset(r, seg & 7)) = res.u;
+    }
+  }
+}
+
 // ---- host: tensor maps --------------------------------------------------------
 
 // A map over a [B, T, C] bf16 tensor whose boxes are `box_rows` rows of one

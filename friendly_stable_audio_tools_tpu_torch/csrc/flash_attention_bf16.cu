@@ -46,8 +46,13 @@
 //   dims 64-79 as 32-byte rows under the 32B swizzle, each with its own
 //   tensor map. S takes 4 + 1 k-slices, P.V one n64 and one n16 wgmma per
 //   k-slice; nothing is padded, so D 80 does 80/64 of D 64's products.
+// - The rope-fused K7 (`kRope`, head dim 64 or 128): the same loop, with q
+//   roped in the prologue from the fused qkv (`rope_q_rows`, the rope
+//   pass's q tables), K^ from the rope pass and V straight from qkv by TMA
+//   (maps over [B, T, C]: a head's columns, no head split in device
+//   memory), and the output stored merged into [B, T, H D].
 // - Head dim 128 (the rope-fused K7 of flash_attention_rope.cu runs this
-//   kernel on its roped q and k for bf16 inputs: SAO 1.0's config with 12
+//   kernel's `kRope` instance for bf16 inputs: SAO 1.0's config with 12
 //   heads of 128): every tile is two panels of 64 dims under the 128B
 //   swizzle, S takes 4 + 4 k-slices, P.V two m64n64 products per k-slice. A
 //   stage holds 64 keys (`Layout<D>::kKeys`): the output's two halves (64
@@ -201,13 +206,27 @@ __device__ __forceinline__ void rescale_out(float (&o)[32], float (&ot)[Layout<D
   }
 }
 
-template <int D>
+// The rope-fused K7's operands (flash_attention_rope.cu): q roped in the
+// prologue from the fused qkv [B, T, 3 H D] with the rope pass's q tables,
+// k^ [B, T, H D] from the rope pass and v from qkv by TMA, and the output
+// written merged into [B, T, H D].
+struct RopeArgs {
+  const float* cos_q;  // [T, rot] fp32, times the prescale
+  const float* sin_q;
+  int H, rot;
+};
+
+// kRope false: q, k, v and out [BH, T, D], block (q tile, head bh). kRope
+// true: q is qkv and kmap/vmap are maps over k^ and qkv, block (q tile, head
+// h, batch row b), out [B, T, H D]; `prescale` is q's factor past rot.
+template <int D, bool kRope>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
                           const __grid_constant__ CUtensorMap ktail,
                           const __grid_constant__ CUtensorMap vtail, const bf16* __restrict__ q,
-                          bf16* __restrict__ out, int T, int kv_len, float prescale) {
+                          bf16* __restrict__ out, int T, int kv_len, float prescale,
+                          const RopeArgs rope) {
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -218,6 +237,9 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
   uint64_t* empty = full + kStages;
 
   const int q0 = blockIdx.x * kM, bh = blockIdx.y;
+  // the maps' head column and third coordinate: (0, bh) or (h D, b)
+  const int k_col = kRope ? bh * D : 0, v_col = kRope ? (2 * rope.H + bh) * D : 0;
+  const int z = kRope ? (int)blockIdx.z : bh;
   const int n_tiles = (kv_len + L::kKeys - 1) / L::kKeys;
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
@@ -237,11 +259,11 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
         mbar_expect_tx(&full[s], 2 * L::kTileBytes);
         unsigned char* kd = Ks + s * L::kTileBytes;
         unsigned char* vd = Vs + s * L::kTileBytes;
-        tma_load_3d(kd, &kmap, &full[s], 0, kt * L::kKeys, bh);
-        tma_load_3d(vd, &vmap, &full[s], 0, kt * L::kKeys, bh);
+        tma_load_3d(kd, &kmap, &full[s], k_col, kt * L::kKeys, z);
+        tma_load_3d(vd, &vmap, &full[s], v_col, kt * L::kKeys, z);
         if constexpr (L::kTail > 0) {  // D 128: ktail and vtail are kmap and vmap
-          tma_load_3d(kd + L::kKeys * kRowBytes, &ktail, &full[s], kD, kt * L::kKeys, bh);
-          tma_load_3d(vd + L::kKeys * kRowBytes, &vtail, &full[s], kD, kt * L::kKeys, bh);
+          tma_load_3d(kd + L::kKeys * kRowBytes, &ktail, &full[s], k_col + kD, kt * L::kKeys, z);
+          tma_load_3d(vd + L::kKeys * kRowBytes, &vtail, &full[s], v_col + kD, kt * L::kKeys, z);
         }
       }
     }
@@ -250,7 +272,11 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
     const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
     unsigned char* Qa = Qs + wg * 64 * kRowBytes;
     unsigned char* Qt = Qs + kM * kRowBytes + wg * 64 * L::kTailRow;
-    prescale_q_tile<D>(q + (size_t)bh * T * D, Qa, Qt, q0 + wg * 64, T, prescale, tid);
+    if constexpr (kRope)
+      rope_q_rows<bf16, D>(q, rope.cos_q, rope.sin_q, Qa, Qt, z, bh, q0 + wg * 64, T, rope.H,
+                           rope.rot, prescale, tid);
+    else
+      prescale_q_tile<D>(q + (size_t)bh * T * D, Qa, Qt, q0 + wg * 64, T, prescale, tid);
     fence_proxy_async();
     bar_sync(1 + wg, 128);
     // turns: a warpgroup starts its products after the other one started its
@@ -326,9 +352,12 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
     const int t0 = q0 + wg * 64 + warp * 16 + g, t1 = t0 + 8;
-    bf16* oh = out + (size_t)bh * T * D + 2 * tq;
+    // rows of D (out [BH, T, D]) or of H D (merged [B, T, H D])
+    const size_t stride = kRope ? (size_t)rope.H * D : D;
+    bf16* oh = out + 2 * tq +
+               (kRope ? (size_t)z * T * stride + (size_t)bh * D : (size_t)bh * T * D);
     if (t0 < T) {
-      bf16* dst = oh + (size_t)t0 * D;
+      bf16* dst = oh + (size_t)t0 * stride;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
@@ -340,7 +369,7 @@ flash_forward_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
       }
     }
     if (t1 < T) {
-      bf16* dst = oh + (size_t)t1 * D;
+      bf16* dst = oh + (size_t)t1 * stride;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) =
@@ -369,11 +398,30 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T
     ktail = kmap;
     vtail = vmap;
   }
-  if (err == cudaSuccess) err = allow_smem(flash_forward_bf16_kernel<D>, Layout<D>::kSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_forward_bf16_kernel<D, false>, Layout<D>::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + kM - 1) / kM, BH);
-  flash_forward_bf16_kernel<D><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(
-      kmap, vmap, ktail, vtail, q, out, T, kv_len, prescale);
+  flash_forward_bf16_kernel<D, false><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(
+      kmap, vmap, ktail, vtail, q, out, T, kv_len, prescale, RopeArgs{});
+  return (int)cudaGetLastError();
+}
+
+// The rope-fused K7's attention at head dim D (64 or 128): maps over k^ [B,
+// T, H D] and qkv's v third, blocks (q tile, head, batch row).
+template <int D>
+int launch_rope(const bf16* qkv, const bf16* khat, const RopeArgs& rope, bf16* out, int B, int T,
+                float prescale, cudaStream_t st) {
+  CUtensorMap kmap, vmap;
+  constexpr int kKeys = Layout<D>::kKeys;
+  cudaError_t err = head_rows_map(&kmap, khat, rope.H * D, T, B, kKeys);
+  if (err == cudaSuccess) err = head_rows_map(&vmap, qkv, 3 * rope.H * D, T, B, kKeys);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_forward_bf16_kernel<D, true>, Layout<D>::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + kM - 1) / kM, rope.H, B);
+  flash_forward_bf16_kernel<D, true><<<grid, kThreads, Layout<D>::kSmemBytes, st>>>(
+      kmap, vmap, kmap, vmap, qkv, out, T, T, prescale, rope);
   return (int)cudaGetLastError();
 }
 
@@ -381,7 +429,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int T
 
 // K7 in bf16 without the LSE: q, k, v [BH, T, D] bf16 contiguous (16-byte
 // aligned), D 64, 80 or 128, 1 <= kv_len <= T -> out [BH, T, D] bf16.
-// prescale = log2(e)/sqrt(D) (1 for the rope-fused K7's prescaled q).
+// prescale = log2(e)/sqrt(D).
 // Returns cudaErrorInvalidValue for another D.
 extern "C" int fsat_flash_forward_bf16(const void* q, const void* k, const void* v, void* out,
                                        int BH, int T, int kv_len, int D, float prescale,
@@ -394,5 +442,22 @@ extern "C" int fsat_flash_forward_bf16(const void* q, const void* k, const void*
   if (D == 64) return launch<64>(qb, kb, vb, ob, BH, T, kv_len, prescale, st);
   if (D == 80) return launch<80>(qb, kb, vb, ob, BH, T, kv_len, prescale, st);
   if (D == 128) return launch<128>(qb, kb, vb, ob, BH, T, kv_len, prescale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The rope-fused K7's attention in bf16 (flash_attention_rope.cu launches it
+// after its rope pass): qkv [B, T, 3 H D] and k^ [B, T, H D] bf16
+// contiguous (16-byte aligned), cos_q/sin_q [T, rot] fp32 (times the
+// prescale), D 64 or 128 -> out [B, T, H D] bf16. prescale = log2(e)/sqrt(D)
+// (q past rot). Returns cudaErrorInvalidValue for another D.
+int fsat_flash_rope_forward_bf16(const void* qkv, const void* khat, const float* cos_q,
+                                 const float* sin_q, void* out, int B, int T, int H, int D,
+                                 int rot, float prescale, cudaStream_t st) {
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const bf16* kh = static_cast<const bf16*>(khat);
+  bf16* ob = static_cast<bf16*>(out);
+  const RopeArgs rope{cos_q, sin_q, H, rot};
+  if (D == 64) return launch_rope<64>(x, kh, rope, ob, B, T, prescale, st);
+  if (D == 128) return launch_rope<128>(x, kh, rope, ob, B, T, prescale, st);
   return (int)cudaErrorInvalidValue;
 }

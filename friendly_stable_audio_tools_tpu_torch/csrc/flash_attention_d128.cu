@@ -16,10 +16,9 @@
 //   dq = (ds k)/sqrt(D), dk = (ds^T qs)/log2(e), dv = p^T dO.
 // Caller: a DiT with heads of 128 under grad (SAO 1.0's config with 12 heads:
 // B 8 x 12 heads, T 1025, through the unpack route of ops/kernels/
-// attention.py: K7 with its LSE, then K8, whose plan fits at T 1025); the
-// rope-fused K7 (flash_attention_rope.cu) runs this K7 on its roped q and k
-// for fp32 inputs. Both kernels are the D 64 designs of flash_attention.cu
-// and flash_attention_bwd_f32.cu (same tiles, same 3xTF32 products, the
+// attention.py: K7 with its LSE, then K8, whose plan fits at T 1025). Both
+// kernels are the D 64 designs of flash_attention.cu and
+// flash_attention_bwd_f32.cu (same tiles, same 3xTF32 products, the
 // same pos8 order of the products that contract over keys or q rows)
 // rearranged for what a D 128 tile costs in shared memory.
 //
@@ -618,8 +617,8 @@ inline cudaError_t rows_map(CUtensorMap* map, const void* base, int T, int n, in
 // contiguous (16-byte aligned), 1 <= kv_len <= T -> out [BH, T, 128] fp32
 // and, when lse is not null, lse [BH, T] fp32 (base 2). scratch: 2 BH T 128
 // + 2 BH 128 Tp floats (Tp = T rounded up to 64), 16-byte aligned, for the
-// pre-pass's tf32 parts of K and V^T. prescale = log2(e)/sqrt(128) (1 for
-// the rope-fused K7's prescaled q). Two launches (the pre-pass, then the kernel).
+// pre-pass's tf32 parts of K and V^T. prescale = log2(e)/sqrt(128). Two
+// launches (the pre-pass, then the kernel).
 extern "C" int fsat_flash_forward_d128(const float* q, const float* k, const float* v, float* out,
                                        float* lse, float* scratch, int BH, int T, int kv_len,
                                        float prescale, void* stream) {

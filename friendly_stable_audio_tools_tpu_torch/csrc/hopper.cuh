@@ -97,6 +97,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Starts fetching `bytes` (a multiple of 16) at p (16-byte aligned) into L2,
+// asynchronously; nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(reinterpret_cast<uint64_t>(p)),
+               "r"(bytes)
+               : "memory");
+}
+
 // Box (c0, c1) of a 2-D tensor map into dst, as tma_load_3d.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {

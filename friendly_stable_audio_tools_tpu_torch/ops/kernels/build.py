@@ -46,7 +46,7 @@ SIGNATURES = {
     "fsat_flash_forward_d128": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "fsat_flash_backward_fused_d128": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                        _P],
-    "fsat_rope_heads": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "fsat_flash_rope_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "fsat_snake_conv1d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_snake_conv1d_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fsat_fused_residual_unit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

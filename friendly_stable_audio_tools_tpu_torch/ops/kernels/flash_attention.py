@@ -28,8 +28,8 @@ Replaces, from friendly_stable_audio_tools_tpu/ops/pallas/flash_attention.py:
   ``flash_attention(q, k, v, freqs=...)`` runs up to 2048 tokens
   (``_flash_rope`` :747) for a DiT self-attention that the head-pair
   kernels do not take (head dim other than 64, or an odd head count):
-  :func:`flash_rope_attention`, a rope pass (csrc/flash_attention_rope.cu)
-  and then K7 with a prescale of 1 on the roped operands.
+  :func:`flash_rope_attention`, a rope pass of k (csrc/flash_attention_rope.cu)
+  and then the attention, which ropes q itself and writes the output merged.
 
 The DiT's self-attention takes this path under grad beyond 1168 tokens
 (Stable Audio 2.0: 6145 tokens padded to 6272, kv_len 6145: K9), through
@@ -94,9 +94,13 @@ rotary of ``_rope_tables`` (:720; q's tables times log2(e)/sqrt(D) in fp32),
 ``rope(t) = bf16(t * C + rot_half(bf16(t)) * S)`` (``_apply_rope_tile``
 :66; the rounding to bf16 happens for fp32 inputs too), s = q^ k^T in fp32,
 p = exp2(s - m), P rounded to v's dtype, out = (P v) / max(l, 1e-30) in the
-input dtype. Its rope pass writes q^, k^ and v split into heads; the bf16 K7
-(bf16 inputs) or the fp32 K7 (fp32 inputs, whose 3xTF32 score product takes
-the bf16 values exactly) runs on them with a prescale of 1.
+input dtype. On the card it is two launches: a rope pass that makes the
+tables from freqs, ropes k once into k^ [B, T, H*D] and, for fp32 inputs,
+writes V^T as tf32 hi/lo parts; then the attention, which ropes each q tile
+in its prologue straight from qkv, reads v from qkv (bf16: the bf16 K7's
+`kRope` instance; fp32: a kernel of its own, the scores as bf16 wgmma on
+the bf16 q^ and k^, P.V in 3xTF32) and stores the output merged into [B, T,
+H*D].
 
 K7 in bf16 (csrc/flash_attention_bf16.cu) serves bf16 callers without the
 LSE: the ADP U-Net in bench.py's bf16 recipe (the same three shapes) and
@@ -149,8 +153,8 @@ d32_launches = 0
 d32_fused_backward_launches = 0  # K8 at D 32
 d32_backward_launches = 0  # K9 at D 32
 # the fp32 K7 and K8 at head dim 128 (a DiT with heads of 128 under grad),
-# counted apart; the rope-fused K7 (its rope pass and its K7 per call, bf16
-# or fp32), whose K7 launches count only here
+# counted apart; the rope-fused K7 (its rope pass and its attention per call,
+# bf16 or fp32)
 d128_launches = 0
 d128_fused_backward_launches = 0
 rope_launches = 0
@@ -561,10 +565,12 @@ def rope_tables(freqs: torch.Tensor, t: int, prescale: float):
 
 
 def rope_heads_plain(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
-    """The rope pass's plain version: qkv [B, T, 3*H*D] -> (q^, k^, v) [B*H, T,
-    D] in qkv's dtype, q^ and k^ as ``_apply_rope_tile`` (flash_attention.py:66)
-    forms them: rope(t) = bf16(t * C + rot_half(bf16(t)) * S) in fp32, q's
-    tables times log2(e)/sqrt(D); v split into heads."""
+    """The rope-fused K7's rope, plain: qkv [B, T, 3*H*D] -> (q^, k^, v) [B*H,
+    T, D] in qkv's dtype, q^ and k^ as ``_apply_rope_tile``
+    (flash_attention.py:66) forms them: rope(t) = bf16(t * C + rot_half(bf16(t))
+    * S) in fp32, q's tables times log2(e)/sqrt(D); v split into heads. On
+    the card the rope pass writes k^ (as [B, T, H*D]) and the attention ropes
+    q^ itself."""
     dt = qkv.dtype
     b, t, three_hd = qkv.shape
     d = three_hd // (3 * num_heads)
@@ -595,7 +601,7 @@ def merge_heads(x: torch.Tensor, b: int, num_heads: int) -> torch.Tensor:
 
 def flash_rope_attention_plain(qkv: torch.Tensor, freqs: torch.Tensor,
                                num_heads: int) -> torch.Tensor:
-    """The rope-fused K7's plain version: the rope pass's plain version, then
+    """The rope-fused K7's plain version: the rope's plain version, then
     a whole-row base-2 softmax of q^ k^T in fp32, P rounded to v's dtype,
     (P v) / max(l, 1e-30) in qkv's dtype -> [B, T, H*D]."""
     dt = qkv.dtype
@@ -611,15 +617,34 @@ def flash_rope_attention_plain(qkv: torch.Tensor, freqs: torch.Tensor,
     return merge_heads(out, qkv.shape[0], num_heads)
 
 
-def flash_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The rope-fused K7: non-causal self-attention of qkv [B, T, 3*H*D] (q | k
-    | v, bf16 or fp32) with the partial rotary of freqs [T' >= T, rot] (last T
-    rows) -> [B, T, H*D] in qkv's dtype. On CUDA: the rope pass
-    (csrc/flash_attention_rope.cu), then the bf16 or fp32 K7 with a prescale
-    of 1 on its [B*H, T, D] operands (head dim 64 or 128; another raises)."""
+def rope_scratch_layout(b: int, t: int, h: int, d: int, rot: int, fp32: bool):
+    """The rope-fused K7's scratch on the card, in bytes: (total, tables
+    offset, V^T offset) of k^ [B, T, H*D] bf16 at 0, q's tables [2, T, rot]
+    fp32 and (fp32 only) V^T's tf32 hi/lo parts [2, B*H, D, Tp] (Tp = T
+    rounded up to 64), each part 256-byte aligned."""
+    def up(n):
+        return (n + 255) // 256 * 256
+
+    tables = up(2 * b * t * h * d)
+    vt = tables + up(8 * t * rot)
+    tp = (t + 63) // 64 * 64
+    return vt + (8 * b * h * d * tp if fp32 else 0), tables, vt
+
+
+def rope_scratch_views(scratch: torch.Tensor, b: int, t: int, h: int, d: int, rot: int):
+    """k^ [B, T, H*D] bf16 and q's tables (cos_q, sin_q) [T, rot] fp32 as the
+    rope pass wrote them into `scratch` (from :func:`launch_rope`)."""
+    _, tables, _ = rope_scratch_layout(b, t, h, d, rot, False)
+    khat = scratch[:2 * b * t * h * d].view(torch.bfloat16).view(b, t, h * d)
+    cos_sin = scratch[tables:tables + 8 * t * rot].view(torch.float32).view(2, t, rot)
+    return khat, cos_sin[0], cos_sin[1]
+
+
+def launch_rope(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int):
+    """The rope-fused K7 on CUDA tensors: (out [B, T, H*D], the scratch its
+    rope pass wrote: :func:`rope_scratch_views`). Raises where the kernels do
+    not take the call."""
     global rope_launches
-    if qkv.device.type == "cpu":
-        return flash_rope_attention_plain(qkv, freqs, num_heads)
     b, t, three_hd = qkv.shape
     d = three_hd // (3 * num_heads)
     rot = freqs.shape[-1]
@@ -634,20 +659,33 @@ def flash_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int)
     if freqs.device != qkv.device or freqs.shape[0] < t:
         raise ValueError(f"flash_rope_attention: freqs must be [>= T, rot] on {qkv.device}, got "
                          f"{tuple(freqs.shape)} on {freqs.device}")
-    bh = b * num_heads
-    if not 1 <= bh <= 65535:
-        raise ValueError(f"flash_rope_attention: B*H = {bh} outside the kernel's grid [1, 65535]")
+    if not (1 <= b <= 65535 and num_heads <= 65535):
+        raise ValueError(f"flash_rope_attention: B {b} or H {num_heads} outside the kernels' "
+                         f"grid [1, 65535]")
     x = qkv.contiguous()
-    tables = rope_tables(freqs, t, LOG2E / math.sqrt(d))
-    q, k, v = (torch.empty(bh, t, d, device=x.device, dtype=x.dtype) for _ in range(3))
-    err = build.library().fsat_rope_heads(
-        x.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), *(c.data_ptr() for c in tables),
-        b, t, num_heads, d, rot, LOG2E / math.sqrt(d), int(x.dtype == torch.bfloat16),
-        _stream(x.device))
+    f = freqs[-t:]
+    if f.dtype != torch.float32 or not f.is_contiguous():  # .to() alone costs ~10 us a call
+        f = f.float().contiguous()
+    fp32 = x.dtype == torch.float32
+    total, tables, vt = rope_scratch_layout(b, t, num_heads, d, rot, fp32)
+    scratch = torch.empty(total, device=x.device, dtype=torch.uint8)
+    out = torch.empty(b, t, num_heads * d, device=x.device, dtype=x.dtype)
+    base = scratch.data_ptr()
+    err = build.library().fsat_flash_rope_attention(
+        x.data_ptr(), f.data_ptr(), base, base + tables, base + vt if fp32 else None,
+        out.data_ptr(), b, t, num_heads, d, rot, LOG2E / math.sqrt(d), int(not fp32),
+        torch._C._cuda_getCurrentRawStream(x.device.index))  # current_stream(): ~5 us more
     build.check(err, "flash_rope_attention")
-    if x.dtype == torch.bfloat16:
-        out = _launch_forward_bf16(q, k, v, t, 1.0)
-    else:
-        out = _launch_forward(q, k, v, None, t, False, 1.0)
     rope_launches += 1
-    return merge_heads(out, b, num_heads)
+    return out, scratch
+
+
+def flash_rope_attention(qkv: torch.Tensor, freqs: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The rope-fused K7: non-causal self-attention of qkv [B, T, 3*H*D] (q | k
+    | v, bf16 or fp32) with the partial rotary of freqs [T' >= T, rot] (last T
+    rows) -> [B, T, H*D] in qkv's dtype. On CUDA: the rope pass, then the
+    attention (csrc/flash_attention_rope.cu; head dim 64 or 128, another
+    raises)."""
+    if qkv.device.type == "cpu":
+        return flash_rope_attention_plain(qkv, freqs, num_heads)
+    return launch_rope(qkv, freqs, num_heads)[0]

@@ -155,10 +155,11 @@ def test_cpu_route_keeps_the_jax_cpu_path_unless_forced():
 
 # (head dim, heads, rotary dim, T, dtype): SAO's 12 heads of 128 at rot 64 as
 # two heads; a DiT at head dim 64 with 3 heads (rot 32); rot 32 at head dim
-# 128; T 256 (two 128-row q tiles of the JAX kernel) and ragged T
+# 128; 3 heads of 128; T 256 (two 128-row q tiles of the JAX kernel) and
+# ragged T, in both dtypes
 ROPE_CASES = [(128, 2, 64, 256, "fp32"), (128, 2, 64, 150, "bf16"), (128, 2, 64, 150, "fp32"),
               (128, 2, 32, 150, "fp32"), (64, 3, 32, 150, "fp32"), (64, 3, 32, 256, "bf16"),
-              (64, 3, 32, 256, "fp32")]
+              (64, 3, 32, 256, "fp32"), (128, 3, 64, 150, "bf16"), (64, 3, 32, 150, "bf16")]
 
 
 @pytest.mark.parametrize("d,h,rot,t,dt", ROPE_CASES)
@@ -184,6 +185,46 @@ def test_rope_fused_k7_plain_matches_pallas(interpret, d, h, rot, t, dt):
         assert _rel(_np(got), want) <= 4e-3
     else:
         assert _rel(_np(got), want) <= 1e-4
+
+
+@pytest.mark.parametrize("d,rot,t", [(128, 64, 1025), (64, 32, 150), (128, 128, 77)])
+def test_rope_tables_match_jax(d, rot, t):
+    """The tables the rope-fused K7 uses (`rope_tables`: the plain version's,
+    and what the card's rope pass makes from freqs, held bit for bit against
+    them on the card) against the JAX kernel's: `_rope_tables`' cos and sin
+    over the rotary dims (the padding past rot is the kernels' own: q times
+    the prescale, k as it is), and q's pair times scale * log2(e) in fp32
+    (flash_attention.py:274-278); cos/sin of the same fp32 angles may differ
+    by an ulp between numpy's and torch's CPU libraries: max abs 2e-7."""
+    freqs = np.asarray(jax_rotary_freqs(t + 5, rot))  # the last T rows
+    cos, sin, _ = jfa._rope_tables(jnp.asarray(freqs), d, t)
+    cos, sin = np.asarray(cos), np.asarray(sin)
+    assert np.all(cos[:, rot:] == 1) and np.all(sin[:, rot:] == 0)
+    prescale = (1.0 / np.sqrt(d)) * tflash.LOG2E
+    got = tflash.rope_tables(_t(freqs), t, tflash.LOG2E / d ** 0.5)
+    want = (cos[:, :rot] * np.float32(prescale), sin[:, :rot] * np.float32(prescale),
+            cos[:, :rot], sin[:, :rot])
+    for g, w in zip(got, want):
+        assert g.shape == (t, rot) and g.dtype == torch.float32 and g.is_contiguous()
+        np.testing.assert_allclose(_np(g), w, rtol=0, atol=2e-7)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "fp32"])
+def test_rope_scratch_layout_holds_the_pass_outputs(dt):
+    """The rope-fused K7's scratch on the card: k^ at 0, q's tables and (fp32)
+    V^T's tf32 parts each 256-byte aligned and clear of each other; the
+    views read k^ and the tables back where the layout puts them."""
+    b, t, h, d, rot = 2, 150, 3, 128, 64
+    total, tables, vt = tflash.rope_scratch_layout(b, t, h, d, rot, dt == "fp32")
+    assert tables % 256 == 0 and vt % 256 == 0
+    assert tables >= 2 * b * t * h * d and vt >= tables + 8 * t * rot
+    assert total == vt + (2 * 4 * b * h * d * 192 if dt == "fp32" else 0)  # Tp = 192
+    scratch = torch.zeros(total, dtype=torch.uint8)
+    scratch[tables:tables + 4].view(torch.float32)[0] = 1.5
+    scratch[:2].view(torch.bfloat16)[0] = 2.0
+    khat, cos_q, sin_q = tflash.rope_scratch_views(scratch, b, t, h, d, rot)
+    assert khat.shape == (b, t, h * d) and khat.dtype == torch.bfloat16 and khat[0, 0, 0] == 2.0
+    assert cos_q.shape == sin_q.shape == (t, rot) and cos_q[0, 0] == 1.5 and not sin_q.any()
 
 
 def test_rope_pass_plain_rounds_the_roped_operands_to_bf16():

@@ -1197,23 +1197,38 @@ def _d128_counts():
             tflash.fused_backward_launches, tattn.launches, tattn.rope_k_launches)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,t,h,d", [(2, 1025, 12, 128), (1, 2048, 2, 128), (2, 333, 3, 64),
-                                     (1, 77, 2, 128), (2, 16, 3, 64)])
-def test_rope_fused_k7_matches_plain(gen, b, t, h, d, dtype, tol):
-    """The rope-fused K7 (its rope pass, then the bf16 or fp32 K7 with a
-    prescale of 1) against its plain version at SAO's 12 heads of 128 (T
-    1025), at T 2048, at 3 heads of 64 and at T below one tile: one launch
-    of its own count and no other; the entry point routes such heads there
-    without grad, at their true length where kv_len is below T."""
+# (B, T, H, D, rot): SAO's 12 heads of 128 (T 1025), T 2048, 3 heads of 64,
+# T below one tile, and tests/test_torch_heads128.py's ROPE_CASES (two
+# 128-row q tiles, ragged T, rot 32 at D 128, odd heads at D 128); rot 40
+# (partners 20 dims away: the kernels' unaligned path) and rot = D 128
+# (partners in the other 64-dim panel)
+ROPE_CARD_CASES = [(2, 1025, 12, 128, 64), (1, 2048, 2, 128, 64), (2, 333, 3, 64, 32),
+                   (1, 77, 2, 128, 64), (2, 16, 3, 64, 32), (2, 256, 2, 128, 64),
+                   (2, 150, 2, 128, 32), (2, 150, 3, 64, 32), (2, 150, 3, 128, 64),
+                   (2, 150, 3, 64, 40), (1, 150, 2, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype,tol,abs_frac", [(torch.bfloat16, 1e-2, 2.0 ** -5),
+                                                (torch.float32, 1e-4, 1e-3)])
+@pytest.mark.parametrize("b,t,h,d,rot", ROPE_CARD_CASES)
+def test_rope_fused_k7_matches_plain(gen, b, t, h, d, rot, dtype, tol, abs_frac):
+    """The rope-fused K7 (its rope pass, then the attention that ropes q and
+    writes the output merged) against its plain version at chip_smoke's
+    tolerances (rel-L2, max abs as a share of the plain output's peak): one
+    launch of its own count and no other; the entry point routes such heads
+    there without grad, at their true length where kv_len is below T."""
     qkv = _rnd(gen, b, t, 3 * h * d).to(dtype)
-    f = rotary_freqs(t, max(d // 2, 32), device="cuda")
+    f = rotary_freqs(t, rot, device="cuda")
     before = _d128_counts()
     got = tflash.flash_rope_attention(qkv, f, h)
     after = _d128_counts()
     assert after == (before[0] + 1,) + before[1:]
     assert got.dtype == dtype and got.shape == (b, t, h * d)
-    _close(got, tflash.flash_rope_attention_plain(qkv, f, h), tol)
+    want = tflash.flash_rope_attention_plain(qkv, f, h)
+    _close(got, want, tol)
+    assert (got.float() - want.float()).abs().max() <= abs_frac * want.float().abs().max()
+    if rot != max(d // 2, 32):
+        return  # the DiT's rotary dim: the route's cases below
     routed = tattn.fused_qkv_rope_attention(qkv, f, h)
     assert _d128_counts()[0] == after[0] + 1 and torch.equal(routed, got)
     if t > 16:
@@ -1223,24 +1238,23 @@ def test_rope_fused_k7_matches_plain(gen, b, t, h, d, dtype, tol):
         _close(padded[:, :kv], tflash.flash_rope_attention_plain(qkv[:, :kv], f[:kv], h), tol)
 
 
-def test_rope_pass_matches_its_plain_version_bit_for_bit(gen):
-    """The rope pass alone: q^ and k^ bit for bit against the plain version's
-    (fp32 products and sum rounded once each, then to bf16), v copied."""
+@pytest.mark.parametrize("b,t,h,d,rot", [(2, 1025, 12, 128, 64), (2, 150, 3, 64, 40),
+                                         (1, 150, 2, 128, 128)])
+def test_rope_pass_matches_its_plain_version_bit_for_bit(gen, b, t, h, d, rot):
+    """The rope pass alone: k^ bit for bit against the plain version's (fp32
+    products and sum rounded once each, then to bf16), and the q tables it
+    makes from freqs bit for bit against rope_tables' (torch.cos / torch.sin
+    times the prescale), in both dtypes."""
     for dtype in (torch.float32, torch.bfloat16):
-        b, t, h, d = 2, 1025, 12, 128
         qkv = _rnd(gen, b, t, 3 * h * d).to(dtype)
-        f = rotary_freqs(t, 64, device="cuda")
-        tables = tflash.rope_tables(f, t, tflash.LOG2E / d ** 0.5)
-        q, k, v = (torch.empty(b * h, t, d, device="cuda", dtype=dtype) for _ in range(3))
-        from friendly_stable_audio_tools_tpu_torch.ops.kernels import build
-
-        err = build.library().fsat_rope_heads(
-            qkv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *(c.data_ptr() for c in tables), b, t, h, d, 64, tflash.LOG2E / d ** 0.5,
-            int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-        assert err == 0
-        for got, want in zip((q, k, v), tflash.rope_heads_plain(qkv, f, h)):
-            assert torch.equal(got, want)
+        f = rotary_freqs(t + 3, rot, device="cuda")  # the last T rows
+        _, scratch = tflash.launch_rope(qkv, f, h)
+        khat, cos_q, sin_q = tflash.rope_scratch_views(scratch, b, t, h, d, rot)
+        want_cos, want_sin, _, _ = tflash.rope_tables(f, t, tflash.LOG2E / d ** 0.5)
+        assert torch.equal(cos_q, want_cos) and torch.equal(sin_q, want_sin)
+        _, k, _ = tflash.rope_heads_plain(qkv, f, h)
+        k = tflash.merge_heads(k, b, h)
+        assert torch.equal(khat.float(), k.float())
 
 
 @pytest.mark.parametrize("bh,t,kv", [(96, 1025, None), (3, 333, 257), (2, 77, None),
